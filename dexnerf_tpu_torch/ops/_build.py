@@ -1,0 +1,118 @@
+"""Build and load the package's CUDA kernels.
+
+``ops/csrc/*.cu`` are compiled at first use with ``nvcc`` into one shared
+library with a plain C interface,
+``build/dexnerf_tpu_torch/libdexnerf_kernels.so`` under the repository
+root, and loaded with ``ctypes``. The library is rebuilt whenever the
+sources' hash changes. A failed build raises: nothing falls back to the
+plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dexnerf_tpu_torch"
+LIB_NAME = "libdexnerf_kernels.so"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None  # wall time of this process's build
+build_log: str = ""  # nvcc's output (ptxas register/shared-memory report)
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME): the CUDA kernels cannot be built"
+    )
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def _build(lib_path: Path, stamp: Path, digest: str) -> None:
+    global build_seconds, build_log
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}"
+        )
+    os.replace(tmp, lib_path)
+    stamp.write_text(digest)
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built first if missing or stale."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib_path = BUILD_DIR / LIB_NAME
+        stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+        digest = _source_hash()
+        fresh = (
+            lib_path.exists()
+            and stamp.exists()
+            and stamp.read_text().strip() == digest
+        )
+        if not fresh:
+            _build(lib_path, stamp, digest)
+        lib = ctypes.CDLL(str(lib_path))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.dexnerf_fused_render.argtypes = (
+            [vp] * 12            # 6 inputs, 6 outputs (device)
+            + [ci] * 5           # n_rays, n_samples, hidden, num_trunk, skip_mask
+            + [ci, ci, vp]       # fx, inc_x, bands_x (host)
+            + [ci, ci, vp]       # fd, inc_d, bands_d (host)
+            + [ci, vp]           # n_thr, thresholds (host)
+            + [vp, ci, vp]       # offsets (host), white_bg, stream
+        )
+        lib.dexnerf_fused_render.restype = ci
+        lib.dexnerf_cuda_error_string.argtypes = [ci]
+        lib.dexnerf_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if code != 0:
+        msg = lib.dexnerf_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")

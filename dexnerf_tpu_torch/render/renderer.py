@@ -1,0 +1,193 @@
+"""Hierarchical (coarse->fine) NeRF renderer.
+
+Counterpart of ``dexnerf_tpu/render/renderer.py`` for the deterministic
+serving path: stratified depths, coarse field + compositing, inverse-CDF
+resampling, fine field + compositing with the Dex-NeRF σ-threshold depths
+on the fine pass only. Random draws (perturbation, σ-noise) come with the
+training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from dexnerf_tpu_torch.core.encoding import positional_encoding
+from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals, stratified_z_vals
+from dexnerf_tpu_torch.core.volrend import (
+    VolumeRenderOutputs,
+    concat_outputs,
+    volume_render_radiance_field,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderSettings:
+    """Static rendering configuration for one mode (train/val)."""
+
+    num_coarse: int = 64
+    num_fine: int = 64
+    perturb: bool = True
+    lindisp: bool = False
+    radiance_field_noise_std: float = 0.0
+    white_background: bool = False
+    m_thres_cand: Tuple[float, ...] = ()
+    # encoder settings
+    use_viewdirs: bool = True
+    num_encoding_fn_xyz: int = 6
+    num_encoding_fn_dir: int = 4
+    include_input_xyz: bool = True
+    include_input_dir: bool = True
+    log_sampling_xyz: bool = True
+    log_sampling_dir: bool = True
+
+    def eval_variant(self) -> "RenderSettings":
+        """Deterministic variant for validation/rendering."""
+        return dataclasses.replace(self, perturb=False, radiance_field_noise_std=0.0)
+
+
+class RayBatch(NamedTuple):
+    """A flat batch of rays; ``viewdirs`` are the normalized directions."""
+
+    origins: torch.Tensor  # [N, 3]
+    directions: torch.Tensor  # [N, 3]
+    viewdirs: torch.Tensor  # [N, 3]
+    near: torch.Tensor  # [N]
+    far: torch.Tensor  # [N]
+
+
+class RenderResult(NamedTuple):
+    coarse: VolumeRenderOutputs
+    fine: Optional[VolumeRenderOutputs]
+
+
+# A rays_impl renders one RayBatch through both passes.
+RaysImpl = Callable[[RayBatch], RenderResult]
+
+
+def make_ray_batch(
+    ray_origins: torch.Tensor, ray_directions: torch.Tensor, near: float, far: float
+) -> RayBatch:
+    """Flatten world-space [..., 3] ray bundles into a RayBatch with
+    constant near/far."""
+    viewdirs = ray_directions / torch.linalg.norm(
+        ray_directions, dim=-1, keepdim=True
+    )
+    ro = ray_origins.reshape(-1, 3)
+    rd = ray_directions.reshape(-1, 3)
+    n = ro.shape[0]
+    return RayBatch(
+        origins=ro,
+        directions=rd,
+        viewdirs=viewdirs.reshape(-1, 3),
+        near=torch.full((n,), near, dtype=ro.dtype, device=ro.device),
+        far=torch.full((n,), far, dtype=ro.dtype, device=ro.device),
+    )
+
+
+def encode_points(pts: torch.Tensor, viewdirs: torch.Tensor, s: RenderSettings):
+    """(xyz_enc [N, S, Dx], dir_enc [N, Dd]) for sample points [N, S, 3]
+    and per-ray viewdirs [N, 3]."""
+    enc = positional_encoding(
+        pts, s.num_encoding_fn_xyz, s.include_input_xyz, s.log_sampling_xyz
+    )
+    dir_enc = positional_encoding(
+        viewdirs, s.num_encoding_fn_dir, s.include_input_dir, s.log_sampling_dir
+    )
+    return enc, dir_enc
+
+
+def _require_deterministic(s: RenderSettings) -> None:
+    if s.perturb or s.radiance_field_noise_std > 0.0:
+        raise NotImplementedError(
+            "random draws (perturb, σ-noise) come with the training slice; "
+            "render with settings.eval_variant()"
+        )
+
+
+def render_rays(
+    coarse_model: nn.Module,
+    fine_model: Optional[nn.Module],
+    rays: RayBatch,
+    settings: RenderSettings,
+) -> RenderResult:
+    """Render one ray batch through the coarse->fine hierarchy (plain
+    PyTorch; deterministic)."""
+    s = settings
+    _require_deterministic(s)
+    if not s.use_viewdirs:
+        raise NotImplementedError("rendering without viewdirs is not ported yet")
+    z_vals = stratified_z_vals(rays.near, rays.far, s.num_coarse, lindisp=s.lindisp)
+
+    def pass_(model, z, thresholds):
+        pts = rays.origins[..., None, :] + rays.directions[..., None, :] * z[..., :, None]
+        raw = model(*encode_points(pts, rays.viewdirs, s))
+        return volume_render_radiance_field(
+            raw, z, rays.directions,
+            white_background=s.white_background, m_thres_cand=thresholds,
+        )
+
+    coarse = pass_(coarse_model, z_vals, None)
+    fine = None
+    if fine_model is not None and s.num_fine > 0:
+        z_merged, _ = hierarchical_z_vals(z_vals, coarse.weights, s.num_fine, det=True)
+        fine = pass_(fine_model, z_merged, s.m_thres_cand or None)
+    return RenderResult(coarse=coarse, fine=fine)
+
+
+def _reshape_outputs(o: VolumeRenderOutputs, img_shape) -> VolumeRenderOutputs:
+    return VolumeRenderOutputs(
+        rgb=o.rgb.reshape(*img_shape, 3),
+        disparity=o.disparity.reshape(img_shape),
+        accumulation=o.accumulation.reshape(img_shape),
+        weights=o.weights.reshape(*img_shape, -1),
+        depth=o.depth.reshape(img_shape),
+        depth_dex=(
+            None
+            if o.depth_dex is None
+            else o.depth_dex.reshape(o.depth_dex.shape[0], *img_shape)
+        ),
+    )
+
+
+def render_image(
+    coarse_model: nn.Module,
+    fine_model: Optional[nn.Module],
+    ray_origins: torch.Tensor,
+    ray_directions: torch.Tensor,
+    near: float,
+    far: float,
+    settings: RenderSettings,
+    *,
+    chunk: Optional[int] = None,
+    rays_impl: Optional[RaysImpl] = None,
+) -> RenderResult:
+    """Render a full [H, W] ray bundle, ``chunk`` rays at a time (the whole
+    bundle at once when None). ``rays_impl`` replaces :func:`render_rays`
+    per chunk, e.g. the fused renderer of
+    ``dexnerf_tpu_torch.ops.fused_render.make_fused_render_rays``.
+    Outputs are reshaped to [H, W, ...]; ``depth_dex`` to [T, H, W]."""
+    img_shape = ray_directions.shape[:-1]
+    rays = make_ray_batch(ray_origins, ray_directions, near, far)
+    n = rays.origins.shape[0]
+    step = n if chunk is None else int(chunk)
+    results = []
+    for i in range(0, n, step):
+        block = RayBatch(*[x[i:i + step] for x in rays])
+        if rays_impl is not None:
+            results.append(rays_impl(block))
+        else:
+            results.append(render_rays(coarse_model, fine_model, block, settings))
+    coarse = concat_outputs([r.coarse for r in results])
+    fine = (
+        None
+        if results[0].fine is None
+        else concat_outputs([r.fine for r in results])
+    )
+    return RenderResult(
+        coarse=_reshape_outputs(coarse, img_shape),
+        fine=None if fine is None else _reshape_outputs(fine, img_shape),
+    )

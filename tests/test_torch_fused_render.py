@@ -1,0 +1,254 @@
+"""The fused render pass of the port (``dexnerf_tpu_torch/ops/fused_render.py``).
+
+On the CPU: its plain PyTorch version, and ``make_fused_render_rays`` on CPU
+tensors, held to the JAX fused kernel (``make_fused_render_rays(...,
+interpret=True)``) and to the JAX XLA renderer on one set of weights and
+rays. On a CUDA card (marker ``gpu``): the CUDA kernel held to the plain
+version. The JAX package is imported inside a fixture, so that this file
+also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_fused_render.py
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from dexnerf_tpu_torch.core.sampling import stratified_z_vals
+from dexnerf_tpu_torch.core.volrend import ray_dists
+from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
+from dexnerf_tpu_torch.ops import fused_render as fr
+from dexnerf_tpu_torch.render.renderer import RayBatch, RenderSettings, render_rays
+
+RTOL, ATOL = 2e-4, 2e-5  # vs the JAX kernel / XLA renderer on the CPU
+GPU_RTOL, GPU_ATOL = 1e-4, 1e-5  # kernel vs plain, f32 on both sides
+ENC_XYZ, ENC_DIR = 3, 2
+THRESHOLDS = (5.0, 10.0)
+SETTINGS = RenderSettings(
+    num_coarse=8, num_fine=8, perturb=False, radiance_field_noise_std=0.0,
+    white_background=True, m_thres_cand=THRESHOLDS,
+    num_encoding_fn_xyz=ENC_XYZ, num_encoding_fn_dir=ENC_DIR,
+)
+ARCH = dict(num_layers=3, hidden_size=32, skip_connect_every=4,
+            num_encoding_fn_xyz=ENC_XYZ, num_encoding_fn_dir=ENC_DIR)
+
+
+def _rays(n=20, seed=2):
+    rng = np.random.default_rng(seed)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    ro = (rng.normal(size=(n, 3)) * 0.2).astype(np.float32)
+    vd = rd / np.linalg.norm(rd, axis=-1, keepdims=True)
+    near = np.full((n,), 2.0, np.float32)
+    return ro, rd, vd, near, near + 4.0
+
+
+def _sigma_scale(model, ro, rd, vd, z, std=20.0):
+    """(k, shift) that make the σ logit over these samples mean 0, std
+    ``std``: random weights give a σ spread of ~1e-3, which crosses no
+    Dex threshold."""
+    from dexnerf_tpu_torch.core.encoding import positional_encoding
+
+    with torch.no_grad():
+        pts = ro[:, None] + rd[:, None] * z[..., None]
+        raw = model(positional_encoding(pts, ENC_XYZ), positional_encoding(vd, ENC_DIR))[..., 3]
+        k = std / float(raw.std())
+        return k, -float(raw.mean()) * k
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX reference: modules, flax trees for coarse and fine with a
+    scaled σ head, and the port's models holding the same weights."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from dexnerf_tpu.core.encoding import encoding_dim
+    from dexnerf_tpu.models import FlexibleNeRFModel as JFlex
+    from dexnerf_tpu.ops import make_fused_render_rays as j_make
+    from dexnerf_tpu.render import RayBatch as JRayBatch
+    from dexnerf_tpu.render import RenderSettings as JSettings
+    from dexnerf_tpu.render import render_rays as j_render_rays
+    from dexnerf_tpu_torch.train.checkpoints import state_dict_from_flax
+
+    jm = JFlex(**ARCH)
+    in_dim = encoding_dim(3, ENC_XYZ) + encoding_dim(3, ENC_DIR)
+    ro, rd, vd, near, far = (torch.tensor(a) for a in _rays())
+    z = stratified_z_vals(near, far, SETTINGS.num_coarse)
+    trees, models = {}, {}
+    for i, name in enumerate(("coarse", "fine")):
+        tree = jax.tree.map(np.array, jm.init(jax.random.PRNGKey(i), jnp.ones((1, in_dim))))
+        m = FlexibleNeRFModel(**ARCH)
+        m.load_state_dict(state_dict_from_flax(tree))
+        k, shift = _sigma_scale(m, ro, rd, vd, z)
+        alpha = tree["params"][f"Dense_{ARCH['num_layers'] + 1}"]  # fc_alpha
+        alpha["kernel"] *= k
+        alpha["bias"] = alpha["bias"] * k + shift
+        m.load_state_dict(state_dict_from_flax(tree))
+        trees[name], models[name] = tree, m
+    return types.SimpleNamespace(
+        jax=jax, jnp=jnp, jm=jm, make=j_make, JRayBatch=JRayBatch,
+        settings=JSettings(**SETTINGS.__dict__), render_rays=j_render_rays,
+        params=trees, coarse=models["coarse"], fine=models["fine"],
+    )
+
+
+def _jax_rays(jx, ro, rd, vd, near, far):
+    return jx.JRayBatch(*(jx.jnp.asarray(a) for a in (ro, rd, vd, near, far)))
+
+
+def _port_rays(ro, rd, vd, near, far):
+    return RayBatch(*(torch.tensor(a) for a in (ro, rd, vd, near, far)))
+
+
+def _close(got, want, rtol=RTOL, atol=ATOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=rtol, atol=atol)
+
+
+def _hit_share(model, rays, z, thresholds):
+    from dexnerf_tpu_torch.core.encoding import positional_encoding
+
+    with torch.no_grad():
+        pts = rays.origins[:, None] + rays.directions[:, None] * z[..., None]
+        sigma = model(positional_encoding(pts, ENC_XYZ),
+                      positional_encoding(rays.viewdirs, ENC_DIR))[..., 3].relu()
+    m = torch.tensor(thresholds)
+    return float((sigma[None] > m[:, None, None]).any(-1).float().mean())
+
+
+def test_fused_rays_match_jax_kernel_and_xla(jx):
+    arrays = _rays()
+    launches = fr.launches
+    got = fr.make_fused_render_rays(jx.coarse, jx.fine, SETTINGS)(_port_rays(*arrays))
+    assert fr.launches == launches  # CPU tensors never reach the kernel
+    jrays = _jax_rays(jx, *arrays)
+    kernel = jx.make(jx.jm, jx.jm, jx.settings, block_samples=64, interpret=True)(
+        jx.params, jrays, None
+    )
+    xla = jx.render_rays(jx.jm.apply, jx.jm.apply, jx.params, jrays, None, jx.settings)
+    for want in (kernel, xla):
+        for name in ("coarse", "fine"):
+            g, w = getattr(got, name), getattr(want, name)
+            for f in ("rgb", "weights", "depth", "accumulation"):
+                _close(getattr(g, f), getattr(w, f))
+            ok = np.asarray(w.accumulation) > 0  # XLA's depth/acc is NaN at acc == 0
+            _close(np.asarray(g.disparity)[ok], np.asarray(w.disparity)[ok])
+        np.testing.assert_array_equal(got.fine.depth_dex.numpy(), np.asarray(want.fine.depth_dex))
+    assert got.coarse.depth_dex is None and got.fine.depth_dex.shape == (2, 20)
+    # both Dex branches occur on the fine pass
+    share = _hit_share(jx.fine, _port_rays(*arrays), _fine_z(got, arrays), THRESHOLDS)
+    assert 0.2 <= share <= 0.8, share
+
+
+def _fine_z(got, arrays):
+    from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals
+
+    z_c = stratified_z_vals(torch.tensor(arrays[3]), torch.tensor(arrays[4]), 8)
+    return hierarchical_z_vals(z_c, got.coarse.weights, 8, det=True)[0]
+
+
+def test_reference_pass_matches_jax_kernel(jx):
+    """One pass of the plain version vs one pass of the JAX kernel
+    (interpret mode) on shared z/dists, without white background."""
+    from dexnerf_tpu.ops.fused_render import make_fused_render
+
+    ro, rd, vd, near, far = _rays(n=13, seed=5)
+    z = stratified_z_vals(torch.tensor(near), torch.tensor(far), 12)
+    dists = ray_dists(z, torch.tensor(rd))
+    got = fr.fused_render_reference(
+        jx.fine, *(torch.tensor(a) for a in (ro, rd, vd)), z, dists,
+        thresholds=THRESHOLDS, chunk=5,
+    )
+    want = make_fused_render(jx.jm, block_samples=48, interpret=True)(
+        jx.params["fine"], *(jx.jnp.asarray(a) for a in (ro, rd, vd)),
+        jx.jnp.asarray(z.numpy()), jx.jnp.asarray(dists.numpy()), thresholds=THRESHOLDS,
+    )
+    for f in ("rgb", "weights", "depth", "accumulation", "disparity"):
+        _close(getattr(got, f), getattr(want, f))
+    np.testing.assert_array_equal(got.depth_dex.numpy(), np.asarray(want.depth_dex))
+
+
+def test_fused_rays_match_plain_renderer(jx):
+    rays = _port_rays(*_rays(n=17, seed=7))
+    a = fr.make_fused_render_rays(jx.coarse, jx.fine, SETTINGS)(rays)
+    with torch.no_grad():
+        b = render_rays(jx.coarse, jx.fine, rays, SETTINGS)
+    for name in ("coarse", "fine"):
+        for x, y in zip(getattr(a, name), getattr(b, name)):
+            if x is not None:
+                _close(x, y, rtol=1e-6, atol=1e-7)
+
+
+def test_pack_flex_weights_layout():
+    m = FlexibleNeRFModel(**ARCH).reset_parameters(torch.Generator().manual_seed(0))
+    flat, offsets = fr.pack_flex_weights(m)
+    layers = [m.layer1, *m.layers_xyz, m.fc_feat, m.fc_alpha, m.layers_dir[0], m.fc_rgb]
+    assert len(offsets) == 2 * len(layers) and all(o % 4 == 0 for o in offsets)
+    for lin, wo, bo in zip(layers, offsets[0::2], offsets[1::2]):
+        n_in, n_out = lin.in_features, lin.out_features
+        w = flat[wo:wo + n_in * n_out].reshape(n_in, n_out)
+        assert torch.equal(w, lin.weight.detach().t())
+        assert torch.equal(flat[bo:bo + n_out], lin.bias.detach())
+
+
+def test_unsupported_device_raises():
+    m = FlexibleNeRFModel(**ARCH)
+    x = torch.zeros((2, 3), device="meta")
+    z = torch.zeros((2, 4), device="meta")
+    with pytest.raises(ValueError, match="no fused render"):
+        fr.fused_render(m, x, x, x, z, z)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "arch,S,T,white",
+    [
+        (dict(ARCH), 8, 2, True),
+        (dict(num_layers=8, hidden_size=128, skip_connect_every=3,
+              num_encoding_fn_xyz=10, num_encoding_fn_dir=4), 128, 20, False),
+        (dict(num_layers=8, hidden_size=128, skip_connect_every=3,
+              num_encoding_fn_xyz=10, num_encoding_fn_dir=4), 192, 20, False),
+    ],
+    ids=["tiny", "fine-128", "fine-192"],
+)
+def test_kernel_matches_plain_on_card(cuda, arch, S, T, white):
+    m = FlexibleNeRFModel(**arch).reset_parameters(torch.Generator().manual_seed(0))
+    ro, rd, vd, near, far = (torch.tensor(a, device=cuda) for a in _rays(n=300, seed=9))
+    m = m.to(cuda)
+    z = stratified_z_vals(near, far, S)
+    from dexnerf_tpu_torch.core.encoding import positional_encoding
+
+    with torch.no_grad():  # σ logit over these samples: mean 0, std 30
+        pts = ro[:, None] + rd[:, None] * z[..., None]
+        raw = m(positional_encoding(pts, m.num_encoding_fn_xyz),
+                positional_encoding(vd, m.num_encoding_fn_dir))[..., 3]
+        k = 30.0 / raw.std()
+        m.fc_alpha.weight.mul_(k)
+        m.fc_alpha.bias.copy_((m.fc_alpha.bias - raw.mean()) * k)
+    dists = ray_dists(z, rd)
+    thr = tuple(5.0 * (i + 1) for i in range(T))
+    before = fr.launches
+    with torch.inference_mode():
+        got = fr.fused_render(m, ro, rd, vd, z, dists, thresholds=thr, white_background=white)
+        want = fr.fused_render_reference(m, ro, rd, vd, z, dists, thresholds=thr,
+                                         white_background=white)
+    torch.cuda.synchronize()
+    assert fr.launches == before + 1
+    for f in ("rgb", "disparity", "accumulation", "depth", "weights"):
+        torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                   rtol=GPU_RTOL, atol=GPU_ATOL)
+    assert float((got.depth_dex == want.depth_dex).float().mean()) >= 0.9999
+    with pytest.raises(ValueError, match="contiguous"):
+        fr.fused_render(m, ro, rd, vd, z.t().contiguous().t(), dists)
+    with pytest.raises(ValueError, match="float32"):
+        fr.fused_render(m, ro.double(), rd, vd, z, dists)
