@@ -8,7 +8,8 @@ every Pallas kernel on a ported path is a CUDA kernel written by hand under
 imports JAX; only the parity tests import both.
 
 Ported so far: the serving path (``apps/serve.py``) with Dex-NeRF
-σ-threshold depth, through the fused render kernel.
+σ-threshold depth, through the fused render kernel, and single-device
+training (``apps/train.py``) through the fused train-loss kernel.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,97 @@
+"""Training CLI, on a CUDA card unless ``--device cpu`` is given.
+
+Counterpart of ``dexnerf_tpu/apps/train.py``:
+
+    python -m dexnerf_tpu_torch.apps.train --config configs/lego-tpu.yml --device cuda
+    python -m dexnerf_tpu_torch.apps.train --config ... --ir          # luminance loss
+    python -m dexnerf_tpu_torch.apps.train --config ... --load-checkpoint model.ckpt
+
+With ``nerf.use_pallas`` every render pass of every step goes through the
+fused train-loss kernel. The flags of modes that are not ported yet are
+accepted and raise ``NotImplementedError`` naming the ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+# flag -> the ROADMAP.md item that ports it
+UNPORTED = {
+    "dex": "Queue 1 item 2, the open training modes (--dex)",
+    "depth_loss": "Queue 1 item 2, the open training modes (--depth-loss)",
+    "depth_warmup": "Queue 1 item 2, the open training modes (--depth-warmup)",
+    "sg_ir": "Queue 1 item 10, `models/sg.py` + `render/sg_ir.py`",
+    "pose_opt": "Queue 1 item 9, `core/lie.py` + `train/pose_opt.py`",
+    "occupancy": "Queue 1 item 8, `render/occupancy.py`",
+    "num_devices": "Queue 1 item 11, `parallel/sharding.py`",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Train a NeRF with the PyTorch port")
+    p.add_argument("--config", type=str, required=True, help="YAML config path")
+    p.add_argument(
+        "--load-checkpoint", type=str, default="",
+        help="resume from a reference .ckpt (models + Adam moments + iter) or the "
+        "latest checkpoint_<i>.ckpt of a directory",
+    )
+    p.add_argument(
+        "--auto-resume", action="store_true",
+        help="resume from the latest checkpoint under <logdir>/checkpoints when one exists",
+    )
+    p.add_argument("--max-iters", type=int, default=None, help="override train_iters")
+    p.add_argument(
+        "--sampling", type=str, default=None, choices=("uniform", "per_image"),
+        help="uniform over all training rays, or one image per iteration "
+        "(train_nerf_rgb.py:222-241); overrides cfg.nerf.train.sampling",
+    )
+    p.add_argument(
+        "--steps-per-call", type=int, default=None,
+        help="optimizer steps per call of the train step; overrides "
+        "cfg.nerf.train.steps_per_call",
+    )
+    p.add_argument("--ir", action="store_true", help="Rec.601-luminance MSE instead of RGB MSE")
+    p.add_argument(
+        "--device", type=str, default="cuda", choices=("cuda", "cpu"),
+        help="where the models train (default: the card)",
+    )
+    # modes not ported yet: accepted so that they fail loudly
+    p.add_argument("--dex", action="store_true", help="not ported yet")
+    p.add_argument("--sg-ir", action="store_true", help="not ported yet")
+    p.add_argument("--pose-opt", action="store_true", help="not ported yet")
+    p.add_argument("--depth-loss", type=float, default=None, help="not ported yet")
+    p.add_argument("--depth-warmup", type=int, default=None, help="not ported yet")
+    p.add_argument("--occupancy", type=float, default=None, help="not ported yet")
+    p.add_argument("--num-devices", type=int, default=None, help="not ported yet")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    for flag, item in UNPORTED.items():
+        if getattr(args, flag) not in (None, False):
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP.md {item})"
+            )
+    from dexnerf_tpu_torch.config import load_config
+    from dexnerf_tpu_torch.train.loop import run_training
+
+    out = run_training(
+        load_config(args.config),
+        supervision="luminance" if args.ir else "rgb",
+        load_ckpt=args.load_checkpoint or None,
+        auto_resume=args.auto_resume,
+        max_iters=args.max_iters,
+        sampling=args.sampling,
+        steps_per_call=args.steps_per_call,
+        device=args.device,
+    )
+    print(
+        f"done: {out['rays_per_sec']:.0f} rays/s, "
+        f"final train metrics {out['final_train_metrics']}"
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

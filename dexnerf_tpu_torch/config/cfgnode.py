@@ -1,7 +1,7 @@
 """YACS-style configuration tree with attribute access.
 
 Counterpart of ``dexnerf_tpu/config/cfgnode.py``, cut to what serving
-needs: ``CfgNode.load_cfg`` from YAML, attribute access, and
+needs: ``CfgNode.load_cfg`` from YAML, attribute access, ``dump`` and
 ``freeze``/``defrost``. YAML is parsed with PyYAML's ``safe_load``, as in
 the JAX package, so ``configs/*.yml`` load to the same tree.
 """
@@ -61,6 +61,14 @@ class CfgNode(dict):
         for v in self.values():
             if isinstance(v, CfgNode):
                 v._set_immutable(value)
+
+    def dump(self) -> str:
+        """The tree as YAML (``yaml.safe_dump`` of plain dicts)."""
+
+        def to_dict(node):
+            return {k: to_dict(v) if isinstance(v, CfgNode) else v for k, v in node.items()}
+
+        return yaml.safe_dump(to_dict(self))
 
     @classmethod
     def load_cfg(cls, cfg_file_obj_or_str) -> "CfgNode":

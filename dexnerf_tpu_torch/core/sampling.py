@@ -1,9 +1,10 @@
 """Depth sampling along rays: stratified coarse samples + inverse-CDF fine
 samples.
 
-Counterpart of ``dexnerf_tpu/core/sampling.py`` for the deterministic
-(serving) path. The inverse-CDF rank is ``torch.searchsorted(...,
-right=True)``, i.e. ``count(cdf <= u)``, followed by gathers.
+Counterpart of ``dexnerf_tpu/core/sampling.py``. The inverse-CDF rank is
+``torch.searchsorted(..., right=True)``, i.e. ``count(cdf <= u)``,
+followed by gathers. Functions that jitter take their uniform draws as an
+argument, so a test can hand both packages the same numbers.
 """
 
 from __future__ import annotations
@@ -39,6 +40,16 @@ def stratified_z_vals(
     return near * (1.0 - t) + far * t
 
 
+def perturb_z_vals(z_vals: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Stratified jitter: the sample moves to ``lower + (upper - lower) * u``
+    within its bin, where the bins are cut at the midpoints. ``u`` holds
+    the uniform draws, shaped like ``z_vals``."""
+    mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
+    lower = torch.cat([z_vals[..., :1], mids], dim=-1)
+    return lower + (upper - lower) * u
+
+
 def weights_to_cdf(weights: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Normalize weights[..., M] to a CDF [..., M+1] with a leading zero
     (with the reference's +1e-5 guard)."""
@@ -60,8 +71,7 @@ def sample_pdf(
 
     ``bins``: [..., M+1] sorted edges; ``weights``: [..., M]. ``det=True``
     uses an even grid in [0, 1]; otherwise the caller supplies the uniform
-    draws ``u`` [..., num_samples] (this package draws no random numbers
-    on the serving path).
+    draws ``u`` [..., num_samples].
     """
     cdf = weights_to_cdf(weights)  # [..., M+1]
     if u is None:

@@ -1,7 +1,9 @@
 """Volume rendering (emission-absorption compositing) + Dex-NeRF
 σ-threshold depth.
 
-Counterpart of ``dexnerf_tpu/core/volrend.py`` for the noise-free path.
+Counterpart of ``dexnerf_tpu/core/volrend.py``. The σ-noise of training
+is an argument (the drawn values, already scaled by the noise std), added
+to the raw σ before the ReLU as in the JAX package.
 """
 
 from __future__ import annotations
@@ -78,11 +80,17 @@ def composite(
     *,
     white_background: bool = False,
     m_thres_cand: Optional[Sequence[float]] = None,
+    sigma_noise: Optional[torch.Tensor] = None,
 ) -> VolumeRenderOutputs:
     """Composite raw ``[..., S, 4]`` (rgb logits + σ logit) at sample
-    depths ``[..., S]`` with inter-sample distances ``dists`` [..., S]."""
+    depths ``[..., S]`` with inter-sample distances ``dists`` [..., S].
+    ``sigma_noise`` [..., S], when given, is added to the σ logit before
+    the ReLU."""
     rgb = torch.sigmoid(radiance_field[..., :3])
-    sigma = torch.relu(radiance_field[..., 3])
+    sigma_raw = radiance_field[..., 3]
+    if sigma_noise is not None:
+        sigma_raw = sigma_raw + sigma_noise
+    sigma = torch.relu(sigma_raw)
     weights = sigma_to_weights(sigma, dists)
 
     rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)
@@ -114,11 +122,13 @@ def volume_render_radiance_field(
     *,
     white_background: bool = False,
     m_thres_cand: Optional[Sequence[float]] = None,
+    sigma_noise: Optional[torch.Tensor] = None,
 ) -> VolumeRenderOutputs:
     """Composite a sampled radiance field into per-ray maps.
 
     ``radiance_field``: [..., S, 4] raw output (rgb logits + σ logit);
-    ``depth_values``: [..., S]; ``ray_directions``: [..., 3].
+    ``depth_values``: [..., S]; ``ray_directions``: [..., 3];
+    ``sigma_noise``: the drawn σ-noise [..., S] or None.
     """
     return composite(
         radiance_field,
@@ -126,6 +136,7 @@ def volume_render_radiance_field(
         ray_dists(depth_values, ray_directions),
         white_background=white_background,
         m_thres_cand=m_thres_cand,
+        sigma_noise=sigma_noise,
     )
 
 

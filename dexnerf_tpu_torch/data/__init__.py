@@ -1,10 +1,41 @@
-"""Camera-path helpers (the dataset loaders are not ported yet)."""
+"""Datasets: the blender loader, synthetic scenes, the device ray store."""
 
 from dexnerf_tpu_torch.data.blender import (
+    load_blender_data,
+    load_blender_depths,
     pose_spherical,
     rotate_phi_x,
     rotate_theta_y,
     translate_z,
 )
+from dexnerf_tpu_torch.data.pipeline import (
+    RayStore,
+    build_ray_store,
+    sample_ray_batch,
+    sample_ray_batch_per_image,
+    take_ray_batch,
+)
+from dexnerf_tpu_torch.data.synthetic import (
+    analytic_field,
+    make_synthetic_scene,
+    render_analytic_image,
+    write_blender_dataset,
+)
 
-__all__ = ["pose_spherical", "rotate_phi_x", "rotate_theta_y", "translate_z"]
+__all__ = [
+    "RayStore",
+    "analytic_field",
+    "build_ray_store",
+    "load_blender_data",
+    "load_blender_depths",
+    "make_synthetic_scene",
+    "pose_spherical",
+    "render_analytic_image",
+    "rotate_phi_x",
+    "rotate_theta_y",
+    "sample_ray_batch",
+    "sample_ray_batch_per_image",
+    "take_ray_batch",
+    "translate_z",
+    "write_blender_dataset",
+]

@@ -1,10 +1,19 @@
-"""Spherical-orbit camera poses (numpy only).
+"""Blender-synthetic dataset loader (NeRF ``transforms_*.json`` format)
+and spherical-orbit camera poses (numpy only).
 
-Counterpart of the pose helpers of ``dexnerf_tpu/data/blender.py``; the
-blender loader itself is not ported yet.
+Counterpart of ``dexnerf_tpu/data/blender.py``: three JSON splits, c2w
+poses, focal from ``camera_angle_x``, ``half_res`` (÷4, as in the
+reference despite the name), ``testskip`` on val/test and the 25x25
+``debug`` mode. PNGs are read with PIL; the resizes are box means over
+whole blocks (what OpenCV's area resize computes for an integer factor),
+so sizes must divide evenly.
 """
 
 from __future__ import annotations
+
+import json
+import os
+from typing import List, Tuple
 
 import numpy as np
 
@@ -44,3 +53,95 @@ def pose_spherical(theta_deg: float, phi_deg: float, radius: float) -> np.ndarra
         dtype=np.float32,
     )
     return flip @ c2w
+
+
+def spherical_render_poses(num: int = 40, phi: float = -30.0, radius: float = 4.0) -> np.ndarray:
+    angles = np.linspace(-180.0, 180.0, num + 1)[:-1]
+    return np.stack([pose_spherical(a, phi, radius) for a in angles], 0)
+
+
+def _area_downsample(img: np.ndarray, factor: int) -> np.ndarray:
+    """Mean over ``factor x factor`` blocks of an [H, W, ...] image."""
+    h, w = img.shape[:2]
+    if h % factor or w % factor:
+        raise ValueError(f"{h}x{w} images do not divide into {factor}x{factor} blocks")
+    blocks = img.reshape(h // factor, factor, w // factor, factor, *img.shape[2:])
+    return blocks.mean(axis=(1, 3), dtype=np.float32).astype(img.dtype)
+
+
+def _frames(basedir: str, split: str, testskip: int):
+    with open(os.path.join(basedir, f"transforms_{split}.json"), "r") as fp:
+        meta = json.load(fp)
+    skip = 1 if (split == "train" or testskip == 0) else testskip
+    return meta, meta["frames"][::skip]
+
+
+def load_blender_depths(
+    basedir: str, testskip: int = 1, half_res: bool = False, debug: bool = False,
+    prefix: str = "d_",
+):
+    """Optional per-view metric-depth sidecars (``split/d_k.npy`` beside
+    ``split/r_k.png``) as [N, H, W] float32 in the loader's view order,
+    zeros for views without one; None when the dataset has none. Resizes
+    take the nearest sample (every 4th pixel for ``half_res``): averaging
+    metric depth across a resize invents depths no surface has."""
+    per_view, found = [], False
+    for split in ("train", "val", "test"):
+        for frame in _frames(basedir, split, testskip)[1]:
+            d, base = os.path.split(frame["file_path"])
+            sidecar = None
+            if base.startswith("r_"):
+                cand = os.path.join(basedir, d, prefix + base[2:] + ".npy")
+                if os.path.exists(cand):
+                    sidecar = np.load(cand).astype(np.float32)
+                    found = True
+            per_view.append(sidecar)
+    if not found:
+        return None
+    shape = next(d.shape for d in per_view if d is not None)
+    depths = np.stack(
+        [d if d is not None else np.zeros(shape, np.float32) for d in per_view], 0
+    )
+    if debug:
+        return depths[:, :: shape[0] // 25, :: shape[1] // 25][:, :25, :25]
+    if half_res:
+        return depths[:, ::4, ::4]
+    return depths
+
+
+def load_blender_data(
+    basedir: str, half_res: bool = False, testskip: int = 1, debug: bool = False,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, List, List[np.ndarray]]:
+    """Load ``transforms_{train,val,test}.json`` + PNGs. Returns
+    ``(images, poses, render_poses, [H, W, focal], i_split)`` with float32
+    images in [0, 1] (RGBA where the PNGs have alpha)."""
+    from PIL import Image
+
+    all_imgs, all_poses, counts = [], [], [0]
+    metas = {}
+    for split in ("train", "val", "test"):
+        metas[split], frames = _frames(basedir, split, testskip)
+        imgs, poses = [], []
+        for frame in frames:
+            with Image.open(os.path.join(basedir, frame["file_path"] + ".png")) as im:
+                imgs.append(np.asarray(im))
+            poses.append(np.array(frame["transform_matrix"], dtype=np.float32))
+        imgs = (np.array(imgs) / 255.0).astype(np.float32)
+        counts.append(counts[-1] + imgs.shape[0])
+        all_imgs.append(imgs)
+        all_poses.append(np.array(poses, dtype=np.float32))
+    i_split = [np.arange(counts[i], counts[i + 1]) for i in range(3)]
+    imgs = np.concatenate(all_imgs, 0)
+    poses = np.concatenate(all_poses, 0)
+    H, W = imgs[0].shape[:2]
+    focal = 0.5 * W / np.tan(0.5 * float(metas["test"]["camera_angle_x"]))
+    render_poses = spherical_render_poses()
+    if debug:
+        # 25x25 smoke-test images (the reference's //32 of 800x800)
+        factor = H // 25
+        imgs = np.stack([_area_downsample(im, factor) for im in imgs], 0)
+        return imgs, poses, render_poses, [H // 32, W // 32, focal / 32.0], i_split
+    if half_res:
+        H, W, focal = H // 4, W // 4, focal / 4.0
+        imgs = np.stack([_area_downsample(im, 4) for im in imgs], 0)
+    return imgs, poses, render_poses, [H, W, focal], i_split

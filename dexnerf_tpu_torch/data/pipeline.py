@@ -1,0 +1,124 @@
+"""Device-resident ray store and batch sampling.
+
+Counterpart of ``dexnerf_tpu/data/pipeline.py`` (camera-to-world rays,
+no NDC): ray generation runs once over all training images and the rays
+live on the device as one [N_rays, 12] float32 tensor (origin 3,
+direction 3, viewdir 3, rgb 3). Each step gathers a batch of rows by
+index. Index draws come from a ``torch.Generator`` on the store's device,
+or are given by the caller (:func:`take_ray_batch`), so a test can use the
+JAX package's draws.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w
+from dexnerf_tpu_torch.render.renderer import RayBatch
+
+
+@dataclasses.dataclass(frozen=True)
+class RayStore:
+    """Packed rays on the device plus the scene's near/far.
+
+    ``rays_per_image`` > 0 when the rows keep image structure (per-image
+    sampling needs it); ``depth`` optionally holds per-ray ground-truth
+    depth [N] (meters) for depth supervision."""
+
+    data: torch.Tensor  # [N, 12]: ro(3) rd(3) viewdir(3) rgb(3)
+    near: float
+    far: float
+    rays_per_image: int = 0
+    depth: Optional[torch.Tensor] = None
+
+    @property
+    def num_rays(self) -> int:
+        return self.data.shape[0]
+
+    @property
+    def num_images(self) -> int:
+        return self.data.shape[0] // self.rays_per_image if self.rays_per_image else 0
+
+
+def build_ray_store(
+    images: np.ndarray,
+    poses: np.ndarray,
+    hwf,
+    near: float,
+    far: float,
+    *,
+    device,
+    depths: Optional[np.ndarray] = None,
+) -> RayStore:
+    """Generate and pack the rays of every image (c2w poses [N, 4, 4]) on
+    ``device``. ``depths`` [N, H, W] attaches ray-aligned GT depth."""
+    H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
+    rows = []
+    for img, pose in zip(images, poses):
+        c2w = torch.as_tensor(np.asarray(pose, np.float32)[:4, :4], device=device)
+        ro, rd = get_ray_bundle_c2w(H, W, focal, c2w)
+        viewdirs = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+        rgb = torch.as_tensor(np.asarray(img[..., :3], np.float32), device=device)
+        rows.append(
+            torch.cat([t.reshape(-1, 3) for t in (ro, rd, viewdirs, rgb)], dim=-1)
+        )
+    data = torch.cat(rows, dim=0)
+    depth = None
+    if depths is not None:
+        depth = torch.as_tensor(np.asarray(depths, np.float32).reshape(-1), device=device)
+        if depth.shape[0] != data.shape[0]:
+            raise ValueError(f"depths cover {depth.shape[0]} rays, store has {data.shape[0]}")
+    return RayStore(data=data, near=float(near), far=float(far), rays_per_image=H * W, depth=depth)
+
+
+def take_ray_batch(store: RayStore, idx: torch.Tensor) -> Tuple[RayBatch, torch.Tensor]:
+    """Gather rows ``idx`` into a RayBatch and the target rgb [B, 3]."""
+    rows = store.data[idx]
+    n = rows.shape[0]
+    kw = dict(dtype=rows.dtype, device=rows.device)
+    rays = RayBatch(
+        origins=rows[:, 0:3],
+        directions=rows[:, 3:6],
+        viewdirs=rows[:, 6:9],
+        near=torch.full((n,), store.near, **kw),
+        far=torch.full((n,), store.far, **kw),
+    )
+    return rays, rows[:, 9:12]
+
+
+def take_depth(store: RayStore, idx: torch.Tensor) -> torch.Tensor:
+    if store.depth is None:
+        raise ValueError("depth supervision needs a store built with GT depths")
+    return store.depth[idx]
+
+
+def uniform_ray_indices(store: RayStore, batch_size: int, generator: torch.Generator):
+    """``batch_size`` indices uniform over all stored rays."""
+    return torch.randint(
+        0, store.num_rays, (batch_size,), generator=generator, device=store.data.device
+    )
+
+
+def per_image_ray_indices(store: RayStore, batch_size: int, generator: torch.Generator):
+    """The reference's sampling: one random image, then ``batch_size``
+    random pixels of it."""
+    if not store.rays_per_image:
+        raise ValueError("store has no image structure")
+    dev = store.data.device
+    img = torch.randint(0, store.num_images, (1,), generator=generator, device=dev)
+    pix = torch.randint(0, store.rays_per_image, (batch_size,), generator=generator, device=dev)
+    return img * store.rays_per_image + pix
+
+
+def sample_ray_batch(store: RayStore, batch_size: int, generator: torch.Generator):
+    """A batch uniform over all training rays: (RayBatch, target rgb)."""
+    return take_ray_batch(store, uniform_ray_indices(store, batch_size, generator))
+
+
+def sample_ray_batch_per_image(store: RayStore, batch_size: int, generator: torch.Generator):
+    """A batch from one random image: (RayBatch, target rgb)."""
+    return take_ray_batch(store, per_image_ray_indices(store, batch_size, generator))

@@ -1,0 +1,179 @@
+"""Procedural synthetic scenes: self-contained data for tests and smoke runs.
+
+Counterpart of the blender half of ``dexnerf_tpu/data/synthetic.py``: an
+analytic emission-absorption field (soft spheres, optional shells and
+planes) rendered with the port's own compositor gives ground-truth posed
+images, and :func:`write_blender_dataset` lays them out on disk in the
+blender format (transforms JSONs + PNGs written with PIL) for the loader.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w
+from dexnerf_tpu_torch.core.sampling import linspace
+from dexnerf_tpu_torch.core.volrend import volume_render_radiance_field
+from dexnerf_tpu_torch.data.blender import pose_spherical
+
+# Soft-sphere scene constants: centers, radii, albedos, densities.
+SPHERES = (
+    ((0.0, 0.0, 0.0), 1.0, (0.9, 0.2, 0.2), 40.0),
+    ((0.9, 0.9, 0.0), 0.5, (0.2, 0.4, 0.9), 60.0),
+)
+
+
+def analytic_field(
+    pts: torch.Tensor, spheres=None, falloff: float = 8.0, shells=(), planes=()
+) -> torch.Tensor:
+    """Map points [..., 3] to raw radiance-field logits [..., 4].
+
+    Each sphere adds density ``d * sigmoid(falloff * (r - |p - c|))``, each
+    shell ``d * exp(-(|p - c| - R)^2 / 2t^2)``, each plane
+    ``d * sigmoid(falloff * (offset - normal . p))``; the rgb is the
+    occupancy-weighted albedo, returned as logits (pre-sigmoid rgb,
+    pre-ReLU σ) for the compositor."""
+    kw = dict(dtype=pts.dtype, device=pts.device)
+    rgb_accum = torch.zeros((*pts.shape[:-1], 3), **kw)
+    sigma = torch.zeros(pts.shape[:-1], **kw)
+    total_w = torch.zeros(pts.shape[:-1], **kw)
+    for center, radius, albedo, density in SPHERES if spheres is None else spheres:
+        dist = torch.linalg.norm(pts - torch.tensor(center, **kw), dim=-1)
+        inside = torch.sigmoid(float(falloff) * (radius - dist))
+        sigma = sigma + density * inside
+        rgb_accum = rgb_accum + inside[..., None] * torch.tensor(albedo, **kw)
+        total_w = total_w + inside
+    for center, radius, thickness, albedo, density in shells:
+        dist = torch.linalg.norm(pts - torch.tensor(center, **kw), dim=-1)
+        w = torch.exp(-((dist - radius) ** 2) / (2.0 * thickness**2))
+        sigma = sigma + density * w
+        rgb_accum = rgb_accum + w[..., None] * torch.tensor(albedo, **kw)
+        total_w = total_w + w
+    for normal, offset, albedo, density in planes:
+        s = torch.sum(pts * torch.tensor(normal, **kw), dim=-1)
+        inside = torch.sigmoid(float(falloff) * (offset - s))
+        sigma = sigma + density * inside
+        rgb_accum = rgb_accum + inside[..., None] * torch.tensor(albedo, **kw)
+        total_w = total_w + inside
+    rgb = torch.clamp(rgb_accum / torch.clamp(total_w, min=1e-6)[..., None], 1e-4, 1 - 1e-4)
+    rgb_logit = torch.log(rgb) - torch.log1p(-rgb)
+    return torch.cat([rgb_logit, sigma[..., None]], dim=-1)
+
+
+def render_analytic_rays(
+    ro: torch.Tensor,
+    rd: torch.Tensor,
+    near: float = 2.0,
+    far: float = 6.0,
+    num_samples: int = 128,
+    spheres=None,
+    falloff: float = 8.0,
+    shells=(),
+    planes=(),
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Ground-truth (rgb, depth) of the analytic scene along given rays,
+    composited on a white background."""
+    t = linspace(near, far, num_samples, rd.dtype, rd.device)
+    pts = ro[..., None, :] + rd[..., None, :] * t[..., :, None]
+    raw = analytic_field(pts, spheres=spheres, falloff=falloff, shells=shells, planes=planes)
+    z = t.expand(*rd.shape[:-1], num_samples)
+    out = volume_render_radiance_field(raw, z, rd, white_background=True)
+    return out.rgb.cpu().numpy(), out.depth.cpu().numpy()
+
+
+def render_analytic_image(
+    c2w: np.ndarray,
+    height: int,
+    width: int,
+    focal: float,
+    near: float = 2.0,
+    far: float = 6.0,
+    num_samples: int = 128,
+    spheres=None,
+    falloff: float = 8.0,
+    shells=(),
+    planes=(),
+    device="cpu",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Ground-truth (rgb [H, W, 3], depth [H, W]) of the analytic scene
+    from one camera-to-world pose, rendered on ``device``."""
+    pose = torch.as_tensor(np.asarray(c2w, np.float32), device=device)
+    ro, rd = get_ray_bundle_c2w(height, width, focal, pose)
+    return render_analytic_rays(
+        ro, rd, near, far, num_samples, spheres=spheres, falloff=falloff,
+        shells=shells, planes=planes,
+    )
+
+
+def make_synthetic_scene(
+    num_views: int = 8,
+    height: int = 32,
+    width: int = 32,
+    focal: Optional[float] = None,
+    near: float = 2.0,
+    far: float = 6.0,
+    seed: int = 0,
+    cam_radius: float = 4.0,
+    spheres=None,
+    falloff: float = 8.0,
+    num_gt_samples: int = 128,
+    shells=(),
+    planes=(),
+    device="cpu",
+):
+    """Posed ground-truth views of the analytic scene: (images [N, H, W, 3],
+    depths [N, H, W], poses_c2w [N, 4, 4], [H, W, focal]). The elevations
+    come from ``np.random.RandomState(seed)``, as in the JAX package."""
+    if focal is None:
+        focal = 1.2 * width
+    rng = np.random.RandomState(seed)
+    thetas = np.linspace(-180, 180, num_views, endpoint=False)
+    phis = -30.0 + rng.uniform(-10, 10, size=num_views)
+    poses = np.stack([pose_spherical(t, p, float(cam_radius)) for t, p in zip(thetas, phis)], 0)
+    images, depths = [], []
+    for c2w in poses:
+        rgb, depth = render_analytic_image(
+            c2w, height, width, focal, near, far, num_samples=num_gt_samples,
+            spheres=spheres, falloff=falloff, shells=shells, planes=planes, device=device,
+        )
+        images.append(rgb)
+        depths.append(depth)
+    return (
+        np.stack(images, 0).astype(np.float32),
+        np.stack(depths, 0).astype(np.float32),
+        poses.astype(np.float32),
+        [height, width, float(focal)],
+    )
+
+
+def write_blender_dataset(
+    basedir: str, height: int = 25, width: int = 25, views_per_split=(4, 2, 2), device="cpu"
+) -> None:
+    """Write a blender-format dataset of the analytic scene (transforms
+    JSONs + 8-bit RGB PNGs), views evenly spaced in azimuth at elevation
+    -30 and radius 4, rendered on ``device``."""
+    from PIL import Image
+
+    focal = 1.2 * width
+    camera_angle_x = 2.0 * np.arctan(0.5 * width / focal)
+    idx = 0
+    for split, n in zip(["train", "val", "test"], views_per_split):
+        frames = []
+        os.makedirs(os.path.join(basedir, split), exist_ok=True)
+        for k in range(n):
+            theta = -180 + 360.0 * (idx / float(sum(views_per_split)))
+            c2w = pose_spherical(theta, -30.0, 4.0)
+            rgb, _ = render_analytic_image(c2w, height, width, focal, device=device)
+            rel = f"./{split}/r_{k}"
+            Image.fromarray((np.clip(rgb, 0, 1) * 255).astype(np.uint8)).save(
+                os.path.join(basedir, f"{rel}.png")
+            )
+            frames.append({"file_path": rel, "transform_matrix": c2w.tolist()})
+            idx += 1
+        with open(os.path.join(basedir, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": float(camera_angle_x), "frames": frames}, f)

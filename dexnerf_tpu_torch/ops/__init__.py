@@ -2,5 +2,6 @@
 version beside it. Kernels are built at first use, never at import.
 
 Modules: ``fused_render`` (the fused render pass and its launch counter,
-``dexnerf_tpu_torch.ops.fused_render.launches``), ``_build`` (nvcc +
-ctypes loader)."""
+``dexnerf_tpu_torch.ops.fused_render.launches``), ``fused_train_loss``
+(the fused train-loss pass, ``...fused_train_loss.launches``), ``_build``
+(nvcc + ctypes loader)."""

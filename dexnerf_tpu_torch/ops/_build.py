@@ -1,11 +1,12 @@
 """Build and load the package's CUDA kernels.
 
-``ops/csrc/*.cu`` are compiled at first use with ``nvcc`` into one shared
-library with a plain C interface,
-``build/dexnerf_tpu_torch/libdexnerf_kernels.so`` under the repository
-root, and loaded with ``ctypes``. The library is rebuilt whenever the
-sources' hash changes. A failed build raises: nothing falls back to the
-plain PyTorch versions.
+``ops/csrc/*.cu`` are compiled at first use with ``nvcc``, one process per
+source, all started together, and linked into one shared library with a
+plain C interface, ``build/dexnerf_tpu_torch/libdexnerf_kernels.so`` under
+the repository root, loaded with ``ctypes``. The library is rebuilt
+whenever the hash of the sources (``*.cu`` and the ``*.cuh`` they include)
+changes. A failed build raises: nothing falls back to the plain PyTorch
+versions.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dexnerf_tpu_torch"
 LIB_NAME = "libdexnerf_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -37,6 +38,10 @@ build_log: str = ""  # nvcc's output (ptxas register/shared-memory report)
 
 def _sources():
     return sorted(CSRC.glob("*.cu"))
+
+
+def _hashed_files():
+    return sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
 
 
 def _nvcc() -> str:
@@ -55,7 +60,7 @@ def _nvcc() -> str:
 def _source_hash() -> str:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _hashed_files():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()
@@ -64,16 +69,37 @@ def _source_hash() -> str:
 def _build(lib_path: Path, stamp: Path, digest: str) -> None:
     global build_seconds, build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc = _nvcc()
+    tag = os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}"
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
+        jobs.append((cmd, obj, proc))
+    logs, failed = [], []
+    for cmd, obj, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    tmp = lib_path.with_suffix(f".{tag}.tmp")
+    if not failed:
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError("\n".join(failed) + "\n" + build_log)
     os.replace(tmp, lib_path)
     stamp.write_text(digest)
 
@@ -105,6 +131,19 @@ def load_library() -> ctypes.CDLL:
             + [vp, ci, vp]       # offsets (host), white_bg, stream
         )
         lib.dexnerf_fused_render.restype = ci
+        lib.dexnerf_train_args_size.argtypes = [ci]
+        lib.dexnerf_train_args_size.restype = ci
+        lib.dexnerf_train_rows.argtypes = [ci, ci, ci, vp, ci]  # dx, H, nt, rows, len
+        lib.dexnerf_train_rows.restype = ci
+        lib.dexnerf_train_pass.argtypes = [vp, vp]  # args block (host), stream
+        lib.dexnerf_train_pass.restype = ci
+        lib.dexnerf_train_dw.argtypes = [vp, ci, vp]  # args block, tiles, stream
+        lib.dexnerf_train_dw.restype = ci
+        lib.dexnerf_train_reduce.argtypes = (
+            [vp, ci, ctypes.c_longlong, vp]  # partials, parts, params, grad
+            + [vp, ci, vp, vp]               # per-ray losses, rays, loss, stream
+        )
+        lib.dexnerf_train_reduce.restype = ci
         lib.dexnerf_cuda_error_string.argtypes = [ci]
         lib.dexnerf_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -17,10 +17,11 @@
 //
 // Design:
 // * One CTA of 128 threads per ray. The ray's samples go through the MLP in
-//   tiles of 64. Each layer is a [64 x in] x [in x out] product with an
+//   tiles of 64. Each layer is a [64 x in] x [in x out] product
+//   (mlp_tile.cuh::dense, shared with the train-loss kernel) with an
 //   8-sample x 8-column register tile per thread (64 FMAs per 2 shared and
-//   2 global 16-byte loads), activations stored feature-major [k][sample] in
-//   two ping-pong shared buffers.
+//   2 global 16-byte loads, 8 weight rows in flight), activations stored
+//   feature-major [k][sample] in two ping-pong shared buffers.
 // * The viewdir encoding is per ray, so its part of the viewdir layer is
 //   folded into a per-ray bias once.
 // * pts = o + d*z and the PE arguments use __fmul_rn/__fadd_rn (never
@@ -32,10 +33,10 @@
 
 #include <cuda_runtime.h>
 
+#include "mlp_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kSlots = 64;  // samples per MLP tile
 constexpr int kMaxLayers = 40;
 constexpr int kMaxFreq = 16;
 constexpr int kMaxThresholds = 64;
@@ -63,82 +64,6 @@ struct Params {
   float bands_d[kMaxFreq];
   float thr[kMaxThresholds];
 };
-
-__device__ __forceinline__ void fma_row(float (&acc)[8][8], const float* act,
-                                        const float* __restrict__ wrow,
-                                        int c0, int s0, bool hi) {
-  const float4 a0 = *reinterpret_cast<const float4*>(act + s0);
-  const float4 a1 = *reinterpret_cast<const float4*>(act + s0 + 32);
-  const float4 w0 = __ldg(reinterpret_cast<const float4*>(wrow + c0));
-  const float4 w1 = hi ? __ldg(reinterpret_cast<const float4*>(wrow + c0 + 4))
-                       : make_float4(0.f, 0.f, 0.f, 0.f);
-  const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-  const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-  }
-}
-
-// out[c][s] = act(bias[c] + sum_k inA[k][s] W[k][c] + sum_k inB[k][s]
-// W[dimA + k][c]) for c < n_out and all kSlots samples. W is [in, n_out]
-// row-major, n_out % 4 == 0. Thread tile: columns c0..c0+7 (c0 = 32*warp +
-// 8*(lane >> 3)), samples 4*(lane & 7) + {0..3} and 32 + the same, so each
-// group of 8 lanes reads 128 contiguous bytes of activations.
-template <bool kRelu>
-__device__ void dense(const float* inA, int dimA, const float* inB, int dimB,
-                      const float* __restrict__ W, const float* bias, int n_out,
-                      float* out) {
-  const int lane = threadIdx.x & 31;
-  const int c0 = (threadIdx.x >> 5) * 32 + (lane >> 3) * 8;
-  const int s0 = (lane & 7) * 4;
-  if (c0 >= n_out) return;
-  const bool hi = c0 + 4 < n_out;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-#pragma unroll 4
-  for (int k = 0; k < dimA; ++k) fma_row(acc, inA + k * kSlots, W + k * n_out, c0, s0, hi);
-#pragma unroll 4
-  for (int k = 0; k < dimB; ++k)
-    fma_row(acc, inB + k * kSlots, W + (dimA + k) * n_out, c0, s0, hi);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = c0 + j;
-    if (c < n_out) {
-      const float b = bias[c];
-      float v[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        v[i] = acc[i][j] + b;
-        if (kRelu) v[i] = fmaxf(v[i], 0.f);
-      }
-      float* o = out + c * kSlots + s0;
-      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(o + 32) = make_float4(v[4], v[5], v[6], v[7]);
-    }
-  }
-}
-
-// Encoding rows [x (3, if included), sin(f0 x) (3), cos(f0 x) (3), ...].
-__device__ __forceinline__ void encode(float p, int d, int n_freq, int include,
-                                       const float* bands, float* dst, int stride) {
-  int row = 0;
-  if (include) {
-    dst[d * stride] = p;
-    row = 3;
-  }
-  for (int f = 0; f < n_freq; ++f) {
-    float sn, cs;
-    sincosf(__fmul_rn(p, bands[f]), &sn, &cs);
-    dst[(row + 6 * f + d) * stride] = sn;
-    dst[(row + 6 * f + 3 + d) * stride] = cs;
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 fused_render_kernel(const Params p) {

@@ -1,0 +1,684 @@
+// Fused NeRF training loss pass for NVIDIA Hopper (sm_90a): positional
+// encoding -> FlexibleNeRF MLP -> sigma-noise -> alpha compositing ->
+// per-ray squared error (+ optional depth term) -> compositing backward ->
+// MLP backward -> dW/db summed over every ray of the batch.
+//
+// Replaces dexnerf_tpu/ops/fused_train_loss.py::_make_loss_kernel (the
+// Pallas kernel of make_fused_pass_loss). Same contract: per-ray origins,
+// directions, viewdirs, [N, S] z, dists and sigma-noise, targets, optional
+// per-ray depth_gt/depth_coef in; the UNNORMALIZED loss sum, the weights
+// [N, S], the composited rgb [N, 3] and the gradient of the loss sum with
+// respect to every model parameter out (nothing flows to the inputs).
+// Compositing and its backward are the plain guarded cumprod
+// (1 - alpha + 1e-10), differentiated exactly: -suffix / (1 - alpha + 1e-10).
+//
+// What bounds it on the H100: f32 FMA work. The 8x128 FlexibleNeRF
+// costs ~156k multiply-adds per sample forward, ~140k to carry the
+// cotangent back through the layers and ~156k for the weight gradients:
+// ~0.9 MFLOP per sample, 1.42 TFLOP per train step at batch 8192 with
+// 64 + 128 samples per ray, 21.2 ms at the 67 TFLOP/s f32 CUDA-core peak
+// of an H100 SXM (700 W). The bytes it must move (inputs, outputs,
+// weights and gradients) are ~30 MB a step; the scratch below adds its
+// own traffic, ~10 KB written and read back per sample (~31 GB a step,
+// ~9 ms at 3.35 TB/s). Measured times and their split: PERF.md.
+//
+// Design, in two launches per chunk of rays and two per pass:
+// * train_pass_kernel, one CTA of 128 threads per ray (as the render
+//   kernel): the ray's samples go through the MLP in tiles of 64 with the
+//   activations in shared memory (mlp_tile.cuh), and every layer's
+//   activations are also written to a device-memory scratch, feature-major
+//   [row][sample], with streaming stores: the scratch is read once, by
+//   dw_kernel, and must not evict the weights that every CTA reads from
+//   L2. The ReLU masks the backward needs stay in shared memory as bits.
+//   Compositing is spread over the CTA except for its two sequential
+//   scans, the transmittance product and the backward's suffix sum, which
+//   need all S samples of the ray and run in one thread each. The
+//   cotangent then runs back through the layers tile by tile, and every
+//   layer's cotangent goes to a second scratch. Activations of a fine ray
+//   (S = 128) are ~650 KB, far beyond a CTA's 227 KB of shared memory,
+//   hence the device-memory scratch (saving rather than recomputing the
+//   forward). The scratch is capped by processing the batch in chunks of
+//   rays (ops/fused_train_loss.py, SCRATCH_SAMPLES: ~2.6 GB for the 8x128
+//   model, whatever the batch).
+// * dw_kernel: dW_l = sum over samples of a_{l-1} x delta_l is a product
+//   with K = every sample of the chunk and a small M x N. One launch covers
+//   every layer (a table of tiles), each CTA a 128 x 128 tile over one of
+//   n_splits K-ranges, writing its partial sums to its own slot: no atomics.
+//   Operands stream through double-buffered k-major shared tiles; each
+//   thread keeps an 8 x 8 block of sums in registers. Bias gradients are
+//   the row sums of the same delta tiles. The viewdir layer's per-ray
+//   input contributes (sum_s delta_s) x dir_enc per ray.
+// * reduce_kernel sums the slots of every chunk in a fixed order, and
+//   sum_rays_kernel the per-ray losses: runs are bitwise repeatable. The
+//   slots cost chunks x n_splits x parameters floats (~190 MB for 8x128 at
+//   batch 8192 on 132 SMs).
+
+#include <cuda_runtime.h>
+
+#include "mlp_tile.cuh"
+
+namespace {
+
+constexpr int kMaxLayers = 40;
+constexpr int kMaxFreq = 16;
+constexpr int kMaxSamplesPad = 256;
+constexpr int kMaxItems = 40;
+constexpr int kTile = 128;  // dW tile edge (M and N)
+constexpr int kHalf = kTile / 2;
+constexpr int kTileLd = kTile + 4;  // padded row of a shared operand slice
+constexpr int kTK = 16;     // dW k-step
+constexpr int kGemmThreads = 256;
+constexpr int kRedG = 5 * (kThreads / 32);  // red[]: 5 sums per warp, then 5 cotangents
+constexpr int kRed = kRedG + 8;
+
+// Mirrored field by field by ops/fused_train_loss.py::_TrainArgs.
+struct TrainArgs {
+  const float* origins;     // [N, 3]
+  const float* dirs;        // [N, 3]
+  const float* viewdirs;    // [N, 3]
+  const float* z;           // [N, S]
+  const float* dists;       // [N, S]
+  const float* noise;       // [N, S] or null
+  const float* target;      // [N, 3]
+  const float* depth_gt;    // [N] or null
+  const float* depth_coef;  // [N] or null
+  const float* wf;          // forward weights, ops/fused_render.py layout
+  const float* wb;          // backward weights, see pack_backward_weights
+  float* weights_out;       // [N, S]
+  float* rgb_out;           // [N, 3]
+  float* loss_ray;          // [N]
+  float* act;               // [act rows][K] saved activations
+  float* dlt;               // [delta rows][K] layer cotangents
+  float* dir_enc;           // [dd][n_rays] per-ray viewdir encodings
+  float* dy_sum;            // [H/2][n_rays] per-ray sums of the viewdir-layer delta
+  long long k;              // scratch columns: n_rays * s_pad
+  int ray0, n_rays, n_samples, s_pad;
+  int hidden, num_trunk, skip_mask;
+  int fx, fd, inc_x, inc_d;
+  int white_bg, luma, has_noise, has_depth;
+  int w_off[kMaxLayers];
+  int b_off[kMaxLayers];
+  int wb_off[kMaxLayers];
+  float bands_x[kMaxFreq];
+  float bands_d[kMaxFreq];
+};
+
+// Scratch rows. act: e (dx rows), a_0..a_nt (H each: layer1's output, then
+// the trunk's), feat (H), y (H/2). dlt: delta_0..delta_nt (H each), feat
+// (H), sigma (1), y (H/2), rgb (3). Offsets are in floats for k columns;
+// ops/fused_train_loss.py reads them (k = 1) through dexnerf_train_rows.
+struct Rows {
+  long long k;
+  int dx, H, nt;
+  __host__ __device__ long long e() const { return 0; }
+  __host__ __device__ long long a(int i) const { return (long long)(dx + i * H) * k; }
+  __host__ __device__ long long feat() const { return (long long)(dx + (nt + 1) * H) * k; }
+  __host__ __device__ long long y() const { return feat() + (long long)H * k; }
+  __host__ __device__ long long act_end() const { return y() + (long long)(H / 2) * k; }
+  __host__ __device__ long long d(int i) const { return (long long)i * H * k; }
+  __host__ __device__ long long dfeat() const { return (long long)(nt + 1) * H * k; }
+  __host__ __device__ long long dsig() const { return (long long)(nt + 2) * H * k; }
+  __host__ __device__ long long dy() const { return dsig() + k; }
+  __host__ __device__ long long drgb(int c) const { return dy() + (long long)(H / 2 + c) * k; }
+  __host__ __device__ long long dlt_end() const { return drgb(3); }
+};
+
+__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
+
+__global__ void __launch_bounds__(kThreads)
+train_pass_kernel(const TrainArgs p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int H = p.hidden, H2 = H / 2, S = p.n_samples, SP = p.s_pad, nt = p.num_trunk;
+  const int dx = 3 * p.inc_x + 6 * p.fx, dd = 3 * p.inc_d + 6 * p.fd;
+  float* E = smem;                  // [dx][kSlots] xyz encoding of the tile
+  float* bufA = E + dx * kSlots;    // [H][kSlots]
+  float* bufB = bufA + H * kSlots;  // [H][kSlots]
+  float* gt = bufB + H * kSlots;    // [4][kSlots] raw cotangents (rgb, sigma)
+  float* zs = gt + 4 * kSlots;      // [SP]
+  float* ds = zs + SP;              // [SP]
+  float* sig = ds + SP;             // [SP] sigma logit (+ noise)
+  float* rgbc = sig + SP;           // [3][SP] rgb logits, then sigmoid
+  float* alph = rgbc + 3 * SP;      // [SP]
+  float* trn = alph + SP;           // [SP] transmittance before the sample
+  float* wts = trn + SP;            // [SP]
+  float* gsig = wts + SP;           // [SP] d loss / d sigma logit
+  float* grgb = gsig + SP;          // [3][SP] d loss / d rgb logit
+  float* dirE = grgb + 3 * SP;      // [dd]
+  float* dirb = dirE + dd;          // [H2] per-ray viewdir-layer bias
+  float* dys = dirb + H2;           // [H2] sum over samples of the y delta
+  float* red = dys + H2;            // [kRed] per-warp sums, then the loss cotangents
+  // ReLU masks of the ray's recorded layers, SP / 32 words per unit:
+  // a_1..a_nt (H units each), feat (H), y (H2); see dense()
+  unsigned* mk = reinterpret_cast<unsigned*>(red + kRed);
+  const int SPW = SP / 32;
+  const int r = blockIdx.x;
+  const long long ray = (long long)p.ray0 + r;
+  const int tid = threadIdx.x;
+  const Rows R{p.k, dx, H, nt};
+  const long long col0 = (long long)r * SP;
+
+  for (int s = tid; s < SP; s += kThreads) {
+    const bool real = s < S;
+    zs[s] = real ? p.z[ray * S + s] : 0.f;
+    ds[s] = real ? p.dists[ray * S + s] : 0.f;
+    gsig[s] = 0.f;
+    grgb[s] = grgb[SP + s] = grgb[2 * SP + s] = 0.f;
+  }
+  if (tid < 3) encode(p.viewdirs[ray * 3 + tid], tid, p.fd, p.inc_d, p.bands_d, dirE, 1);
+  const float o[3] = {p.origins[ray * 3], p.origins[ray * 3 + 1], p.origins[ray * 3 + 2]};
+  const float dv[3] = {p.dirs[ray * 3], p.dirs[ray * 3 + 1], p.dirs[ray * 3 + 2]};
+  __syncthreads();
+
+  // layer order: layer1, trunk[0..nt), fc_feat, fc_alpha, layers_dir.0, fc_rgb
+  const float* W = p.wf;
+  const int L_FEAT = nt + 1, L_ALPHA = nt + 2, L_DIR = nt + 3, L_RGB = nt + 4;
+  for (int k = tid; k < dd; k += kThreads) p.dir_enc[(long long)k * p.n_rays + r] = dirE[k];
+  for (int c = tid; c < H2; c += kThreads) {
+    const float* wd = W + p.w_off[L_DIR] + H * H2 + c;
+    float v = 0.f;
+    for (int k = 0; k < dd; ++k) v = fmaf(dirE[k], wd[k * H2], v);
+    dirb[c] = W[p.b_off[L_DIR] + c] + v;
+    dys[c] = 0.f;
+  }
+
+  // ---- forward, one tile of kSlots samples at a time; activations saved
+  for (int base = 0; base < SP; base += kSlots) {
+    const long long col = col0 + base;
+    for (int i = tid; i < 3 * kSlots; i += kThreads) {
+      const int s = i % kSlots, d = i / kSlots;
+      const float pt = __fadd_rn(o[d], __fmul_rn(dv[d], zs[base + s]));
+      encode(pt, d, p.fx, p.inc_x, p.bands_x, E + s, kSlots);
+    }
+    __syncthreads();
+    for (int i = tid; i < dx * (kSlots / 4); i += kThreads) {
+      const int row = i / (kSlots / 4), q = 4 * (i % (kSlots / 4));
+      __stcs(reinterpret_cast<float4*>(p.act + R.e() + row * p.k + col + q),
+             *reinterpret_cast<const float4*>(E + row * kSlots + q));
+    }
+    const int mw = base / 32;  // this tile's first mask word
+    dense<false>(E, dx, nullptr, 0, W + p.w_off[0], W + p.b_off[0], H, bufA,
+                 p.act + R.a(0) + col, p.k);
+    __syncthreads();
+    float* cur = bufA;
+    float* nxt = bufB;
+    for (int i = 0; i < nt; ++i) {
+      const bool skip = (p.skip_mask >> i) & 1;
+      dense<true>(cur, H, skip ? E : nullptr, skip ? dx : 0, W + p.w_off[1 + i],
+                  W + p.b_off[1 + i], H, nxt, p.act + R.a(i + 1) + col, p.k,
+                  mk + i * H * SPW + mw, nullptr, SPW);
+      __syncthreads();
+      float* t = cur;
+      cur = nxt;
+      nxt = t;
+    }
+    // cur = trunk output h: feat -> nxt, sigma head from h
+    dense<true>(cur, H, nullptr, 0, W + p.w_off[L_FEAT], W + p.b_off[L_FEAT], H, nxt,
+                p.act + R.feat() + col, p.k, mk + nt * H * SPW + mw, nullptr, SPW);
+    if (tid < kSlots) {
+      const float* wa = W + p.w_off[L_ALPHA];
+      float v = 0.f;
+      for (int k = 0; k < H; ++k) v = fmaf(cur[k * kSlots + tid], wa[k], v);
+      sig[base + tid] = v + W[p.b_off[L_ALPHA]];
+    }
+    __syncthreads();
+    // viewdir layer on feat (rows [0, H)) -> cur
+    dense<true>(nxt, H, nullptr, 0, W + p.w_off[L_DIR], dirb, H2, cur,
+                p.act + R.y() + col, p.k, mk + (nt + 1) * H * SPW + mw, nullptr, SPW);
+    __syncthreads();
+    if (tid < kSlots) {
+      const float* wr = W + p.w_off[L_RGB];
+      const float* br = W + p.b_off[L_RGB];
+      float v0 = 0.f, v1 = 0.f, v2 = 0.f;
+      for (int k = 0; k < H2; ++k) {
+        const float y = cur[k * kSlots + tid];
+        v0 = fmaf(y, wr[k * 3], v0);
+        v1 = fmaf(y, wr[k * 3 + 1], v1);
+        v2 = fmaf(y, wr[k * 3 + 2], v2);
+      }
+      rgbc[base + tid] = v0 + br[0];
+      rgbc[SP + base + tid] = v1 + br[1];
+      rgbc[2 * SP + base + tid] = v2 + br[2];
+    }
+    __syncthreads();
+  }
+
+  // ---- compositing, loss and compositing backward. The per-sample work
+  // is spread over the CTA; the transmittance product and the backward's
+  // suffix sum are the two sequential scans (one thread each).
+  for (int s = tid; s < S; s += kThreads) {
+    float sp = sig[s];
+    if (p.has_noise) sp += p.noise[ray * S + s];
+    sig[s] = sp;
+    alph[s] = 1.f - expf(-fmaxf(sp, 0.f) * ds[s]);
+    rgbc[s] = sigmoidf(rgbc[s]);
+    rgbc[SP + s] = sigmoidf(rgbc[SP + s]);
+    rgbc[2 * SP + s] = sigmoidf(rgbc[2 * SP + s]);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float trans = 1.f;
+    for (int s = 0; s < S; ++s) {
+      const float a = alph[s];
+      trn[s] = trans;
+      wts[s] = a * trans;
+      trans = trans * ((1.f - a) + 1e-10f);
+    }
+  }
+  __syncthreads();
+  {
+    float v[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // sums of w c0, w c1, w c2, w z, w
+    for (int s = tid; s < S; s += kThreads) {
+      const float w = wts[s];
+      v[0] += w * rgbc[s];
+      v[1] += w * rgbc[SP + s];
+      v[2] += w * rgbc[2 * SP + s];
+      v[3] += w * zs[s];
+      v[4] += w;
+    }
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+#pragma unroll
+      for (int x = 16; x > 0; x >>= 1) v[i] += __shfl_xor_sync(0xffffffffu, v[i], x);
+      if ((tid & 31) == 0) red[(tid >> 5) * 5 + i] = v[i];
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float cr = 0.f, cg = 0.f, cb = 0.f, dep = 0.f, ac = 0.f;
+    for (int w = 0; w < kThreads / 32; ++w) {
+      cr += red[5 * w];
+      cg += red[5 * w + 1];
+      cb += red[5 * w + 2];
+      dep += red[5 * w + 3];
+      ac += red[5 * w + 4];
+    }
+    if (p.white_bg) {
+      cr += 1.f - ac;
+      cg += 1.f - ac;
+      cb += 1.f - ac;
+    }
+    const float e0 = cr - p.target[ray * 3];
+    const float e1 = cg - p.target[ray * 3 + 1];
+    const float e2 = cb - p.target[ray * 3 + 2];
+    float loss, g0, g1, g2;
+    if (p.luma) {  // Rec.601 luminance of the error
+      const float ey = 0.299f * e0 + 0.587f * e1 + 0.114f * e2;
+      loss = ey * ey;
+      g0 = 2.f * ey * 0.299f;
+      g1 = 2.f * ey * 0.587f;
+      g2 = 2.f * ey * 0.114f;
+    } else {
+      loss = e0 * e0 + e1 * e1 + e2 * e2;
+      g0 = 2.f * e0;
+      g1 = 2.f * e1;
+      g2 = 2.f * e2;
+    }
+    float gdep = 0.f;
+    if (p.has_depth) {
+      const float c = p.depth_coef[ray];
+      const float ed = dep - p.depth_gt[ray];
+      loss += c * ed * ed;
+      gdep = 2.f * c * ed;
+    }
+    p.loss_ray[ray] = loss;
+    p.rgb_out[ray * 3] = cr;
+    p.rgb_out[ray * 3 + 1] = cg;
+    p.rgb_out[ray * 3 + 2] = cb;
+    red[kRedG] = g0;
+    red[kRedG + 1] = g1;
+    red[kRedG + 2] = g2;
+    red[kRedG + 3] = gdep;
+    red[kRedG + 4] = g0 + g1 + g2;  // d loss / d acc under a white background
+  }
+  __syncthreads();
+  {
+    const float g0 = red[kRedG], g1 = red[kRedG + 1], g2 = red[kRedG + 2];
+    const float gdep = red[kRedG + 3], gsum = red[kRedG + 4];
+    for (int s = tid; s < S; s += kThreads) {
+      const float c0 = rgbc[s], c1 = rgbc[SP + s], c2 = rgbc[2 * SP + s];
+      float gw = g0 * c0 + g1 * c1 + g2 * c2;  // d loss / d w_s
+      if (p.white_bg) gw -= gsum;
+      if (p.has_depth) gw += gdep * zs[s];
+      const float w = wts[s];
+      gsig[s] = gw;  // until the scan below
+      grgb[s] = w * g0 * c0 * (1.f - c0);
+      grgb[SP + s] = w * g1 * c1 * (1.f - c1);
+      grgb[2 * SP + s] = w * g2 * c2 * (1.f - c2);
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {  // rgbc's first row becomes the sum over later samples of gw * w
+    float suffix = 0.f;
+    for (int s = S - 1; s >= 0; --s) {
+      const float gw = gsig[s];
+      rgbc[s] = suffix;
+      suffix += gw * wts[s];
+    }
+  }
+  __syncthreads();
+  for (int s = tid; s < S; s += kThreads) {
+    const float a = alph[s];
+    const float q = fmaxf((1.f - a) + 1e-10f, 1e-10f);
+    const float galpha = trn[s] * gsig[s] - rgbc[s] / q;
+    gsig[s] = sig[s] > 0.f ? galpha * ds[s] * (1.f - a) : 0.f;
+  }
+  __syncthreads();
+  for (int s = tid; s < S; s += kThreads) p.weights_out[ray * S + s] = wts[s];
+
+  // ---- MLP backward, tile by tile: deltas saved for the dW launch
+  const float* WB = p.wb;
+  for (int base = 0; base < SP; base += kSlots) {
+    const long long col = col0 + base;
+    const int mw = base / 32;
+    for (int i = tid; i < 4 * kSlots; i += kThreads) {
+      const int row = i / kSlots, s = i % kSlots;
+      const float v = row < 3 ? grgb[row * SP + base + s] : gsig[base + s];
+      gt[row * kSlots + s] = v;
+      __stcs(p.dlt + (row < 3 ? R.drgb(row) : R.dsig()) + col + s, v);
+    }
+    __syncthreads();
+    // y delta = (rgb cotangent x W_rgb^T) * [y > 0]
+    dense<false>(gt, 3, nullptr, 0, WB + p.wb_off[0], nullptr, H2, bufA,
+                 p.dlt + R.dy() + col, p.k, nullptr, mk + (nt + 1) * H * SPW + mw, SPW);
+    __syncthreads();
+    if (tid < H2) {
+      float v = 0.f;
+      for (int s = 0; s < kSlots; ++s) v += bufA[tid * kSlots + s];
+      dys[tid] += v;
+    }
+    // feat delta = (y delta x W_dir[:, :H]^T) * [feat > 0]
+    dense<false>(bufA, H2, nullptr, 0, WB + p.wb_off[1], nullptr, H, bufB,
+                 p.dlt + R.dfeat() + col, p.k, nullptr, mk + nt * H * SPW + mw, SPW);
+    __syncthreads();
+    // h delta = (feat delta x W_feat^T + sigma cotangent x w_alpha) * [h > 0]
+    dense<false>(bufB, H, gt + 3 * kSlots, 1, WB + p.wb_off[2], nullptr, H, bufA,
+                 p.dlt + R.d(nt) + col, p.k, nullptr,
+                 nt > 0 ? mk + (nt - 1) * H * SPW + mw : nullptr, SPW);
+    __syncthreads();
+    float* cur = bufA;
+    float* nxt = bufB;
+    for (int i = nt - 1; i >= 0; --i) {
+      // a_i delta = (a_{i+1} delta x W_i[:, :H]^T) * [a_i > 0]; a_0 = layer1
+      // output has no ReLU
+      dense<false>(cur, H, nullptr, 0, WB + p.wb_off[3 + i], nullptr, H, nxt,
+                   p.dlt + R.d(i) + col, p.k, nullptr,
+                   i > 0 ? mk + (i - 1) * H * SPW + mw : nullptr, SPW);
+      __syncthreads();
+      float* t = cur;
+      cur = nxt;
+      nxt = t;
+    }
+  }
+  for (int c = tid; c < H2; c += kThreads) p.dy_sum[(long long)c * p.n_rays + r] = dys[c];
+}
+
+size_t train_smem_bytes(int dx, int dd, int hidden, int num_trunk, int s_pad) {
+  const size_t mask_words = (size_t)((num_trunk + 1) * hidden + hidden / 2) * (s_pad / 32);
+  return sizeof(float) * ((size_t)(dx + 2 * hidden + 4) * kSlots + 13 * (size_t)s_pad +
+                          dd + hidden + kRed) + sizeof(unsigned) * mask_words;
+}
+
+// One dW product: out[n][col_off + m] = sum_k b[n][k] a[m][k] for m < M,
+// n < N (a torch [out, in] weight, row stride ldw, at w_off of the flat
+// gradient), and out[b_off + n] = sum_k b[n][k] when b_off >= 0.
+// Mirrored by ops/fused_train_loss.py::_GemmItem.
+struct GemmItem {
+  const float* a;  // [M][ld] activations (the layer input)
+  const float* b;  // [N][ld] deltas (the layer output)
+  long long ld, k;
+  int m, n, m_tiles, tile0;
+  int w_off, ldw, col_off, b_off;
+};
+
+struct GemmArgs {
+  GemmItem items[kMaxItems];
+  float* partial;      // [parts][n_params]
+  long long n_params;
+  int n_items, n_splits, part0;
+};
+
+// One k-step's slice of a tile operand, [kTK][kTileLd] in shared memory
+// (k-major, so a thread reads 4 consecutive rows as one float4; rows
+// padded to kTileLd against bank conflicts). Element e = t + 256 j of the
+// slice is row e / 4, k-quad e % 4: four lanes read one row's 64
+// contiguous bytes, a warp 8 rows.
+struct TileLoader {
+  const float* base;  // the operand's first row of this tile
+  long long ld, k_end;
+  int rows;           // rows of the tile that exist
+  bool vec;           // 16-byte loads allowed (ld % 4 == 0)
+  float4 reg[2];
+
+  __device__ void load(long long k0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int e = threadIdx.x + kGemmThreads * j, r = e / 4;
+      const long long kk = k0 + 4 * (e % 4);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < rows) {
+        const float* src = base + r * ld + kk;
+        if (vec && kk + 3 < k_end) {
+          v = __ldg(reinterpret_cast<const float4*>(src));
+        } else {
+          if (kk < k_end) v.x = src[0];
+          if (kk + 1 < k_end) v.y = src[1];
+          if (kk + 2 < k_end) v.z = src[2];
+          if (kk + 3 < k_end) v.w = src[3];
+        }
+      }
+      reg[j] = v;
+    }
+  }
+
+  __device__ void store(float (*dst)[kTileLd]) const {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int e = threadIdx.x + kGemmThreads * j, r = e / 4, k = 4 * (e % 4);
+      dst[k][r] = reg[j].x;
+      dst[k + 1][r] = reg[j].y;
+      dst[k + 2][r] = reg[j].z;
+      dst[k + 3][r] = reg[j].w;
+    }
+  }
+};
+
+// One CTA's share of one dW product: a kTile x kTile output tile over
+// [k_begin, k_end). Thread (tx, ty) = (t % 16, t / 16) owns columns
+// m0 + {4tx..4tx+3, 64+4tx..64+4tx+3} and rows n0 + {4ty.., 64+4ty..}: per
+// k-step 4 float4 shared loads feed 64 FMAs. MH / NH (1 or 2) say whether
+// the upper half of the tile's columns / rows exists; a half that lies
+// past the product's edge is neither loaded nor multiplied.
+template <int MH, int NH>
+__device__ __forceinline__ void dw_tile(const GemmItem& g, int m0, int n0, long long k_begin,
+                                        long long k_end, bool bias, float* out,
+                                        float (*As)[kTK][kTileLd], float (*Bs)[kTK][kTileLd]) {
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const bool vec = (g.ld & 3) == 0;
+  TileLoader la{g.a + (long long)m0 * g.ld, g.ld, k_end, min(g.m - m0, MH * kHalf), vec, {}};
+  TileLoader lb{g.b + (long long)n0 * g.ld, g.ld, k_end, min(g.n - n0, NH * kHalf), vec, {}};
+  float acc[4 * NH][4 * MH];
+#pragma unroll
+  for (int i = 0; i < 4 * NH; ++i) {
+#pragma unroll
+    for (int l = 0; l < 4 * MH; ++l) acc[i][l] = 0.f;
+  }
+  float bsum = 0.f;
+  if (k_begin < k_end) {
+    la.load(k_begin);
+    lb.load(k_begin);
+    la.store(As[0]);
+    lb.store(Bs[0]);
+  }
+  __syncthreads();
+  int buf = 0;
+  for (long long k0 = k_begin; k0 < k_end; k0 += kTK) {
+    const bool more = k0 + kTK < k_end;
+    if (more) {
+      la.load(k0 + kTK);
+      lb.load(k0 + kTK);
+    }
+    float(*A)[kTileLd] = As[buf];
+    float(*B)[kTileLd] = Bs[buf];
+    if (bias && tid < kTile) {
+#pragma unroll
+      for (int j = 0; j < kTK; ++j) bsum += B[j][tid];
+    }
+#pragma unroll
+    for (int j = 0; j < kTK; ++j) {
+      float a[4 * MH], b[4 * NH];
+#pragma unroll
+      for (int h = 0; h < MH; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(&A[j][h * kHalf + 4 * tx]);
+        a[4 * h] = v.x; a[4 * h + 1] = v.y; a[4 * h + 2] = v.z; a[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(&B[j][h * kHalf + 4 * ty]);
+        b[4 * h] = v.x; b[4 * h + 1] = v.y; b[4 * h + 2] = v.z; b[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 4 * NH; ++i) {
+#pragma unroll
+        for (int l = 0; l < 4 * MH; ++l) acc[i][l] = fmaf(b[i], a[l], acc[i][l]);
+      }
+    }
+    if (more) {
+      la.store(As[buf ^ 1]);
+      lb.store(Bs[buf ^ 1]);
+    }
+    __syncthreads();
+    buf ^= 1;
+  }
+#pragma unroll
+  for (int i = 0; i < 4 * NH; ++i) {
+    const int n = n0 + (i / 4) * kHalf + 4 * ty + i % 4;
+    if (n >= g.n) continue;
+#pragma unroll
+    for (int l = 0; l < 4 * MH; ++l) {
+      const int m = m0 + (l / 4) * kHalf + 4 * tx + l % 4;
+      if (m < g.m) out[g.w_off + (long long)n * g.ldw + g.col_off + m] = acc[i][l];
+    }
+  }
+  if (bias && tid < kTile && n0 + tid < g.n) out[g.b_off + n0 + tid] = bsum;
+}
+
+__global__ void __launch_bounds__(kGemmThreads, 2) dw_kernel(const GemmArgs p) {
+  __shared__ __align__(16) float As[2][kTK][kTileLd];
+  __shared__ __align__(16) float Bs[2][kTK][kTileLd];
+  int it = 0;
+  while (it + 1 < p.n_items && p.items[it + 1].tile0 <= (int)blockIdx.x) ++it;
+  const GemmItem g = p.items[it];
+  const int t = blockIdx.x - g.tile0;
+  const int m0 = (t % g.m_tiles) * kTile, n0 = (t / g.m_tiles) * kTile;
+  const long long per = ((g.k + p.n_splits - 1) / p.n_splits + kTK - 1) / kTK * kTK;
+  const long long k_begin = min(g.k, (long long)blockIdx.y * per);
+  const long long k_end = min(g.k, k_begin + per);
+  const bool bias = g.b_off >= 0 && m0 == 0;
+  float* out = p.partial + (long long)(p.part0 + blockIdx.y) * p.n_params;
+  const bool mh = g.m - m0 > kHalf, nh = g.n - n0 > kHalf;
+  if (mh && nh) {
+    dw_tile<2, 2>(g, m0, n0, k_begin, k_end, bias, out, As, Bs);
+  } else if (mh) {
+    dw_tile<2, 1>(g, m0, n0, k_begin, k_end, bias, out, As, Bs);
+  } else if (nh) {
+    dw_tile<1, 2>(g, m0, n0, k_begin, k_end, bias, out, As, Bs);
+  } else {
+    dw_tile<1, 1>(g, m0, n0, k_begin, k_end, bias, out, As, Bs);
+  }
+}
+
+__global__ void reduce_kernel(const float* partial, int n_parts, long long n_params,
+                              float* grad) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_params) return;
+  float s = 0.f;
+  for (int j = 0; j < n_parts; ++j) s += partial[j * n_params + i];
+  grad[i] = s;
+}
+
+constexpr int kSumThreads = 1024;
+
+__global__ void __launch_bounds__(kSumThreads)
+sum_rays_kernel(const float* v, int n, float* out) {
+  __shared__ float buf[kSumThreads];
+  float s = 0.f;
+  for (int i = threadIdx.x; i < n; i += kSumThreads) s += v[i];
+  buf[threadIdx.x] = s;
+  __syncthreads();
+  for (int w = kSumThreads / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) buf[threadIdx.x] += buf[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *out = buf[0];
+}
+
+}  // namespace
+
+extern "C" {
+
+// sizeof the argument blocks, so the Python mirrors can be checked.
+int dexnerf_train_args_size(int which) {
+  return which == 0 ? (int)sizeof(TrainArgs) : (int)sizeof(GemmArgs);
+}
+
+// The scratch layout of Rows, in rows: act and dlt row counts, then the
+// first row of e, feat, y, the sigma, y and rgb cotangents, then
+// a_0..a_nt, then delta_0..delta_{nt+1} (the last is feat's): 2 nt + 11
+// ints in `rows`, whose length is `n`.
+int dexnerf_train_rows(int dx, int hidden, int num_trunk, int* rows, int n) {
+  if (n != 2 * num_trunk + 11) return (int)cudaErrorInvalidValue;
+  const Rows R{1, dx, hidden, num_trunk};
+  const long long named[] = {R.act_end(), R.dlt_end(), R.e(), R.feat(),
+                             R.y(), R.dsig(), R.dy(), R.drgb(0)};
+  int j = 0;
+  for (long long v : named) rows[j++] = (int)v;
+  for (int i = 0; i <= num_trunk; ++i) rows[j++] = (int)R.a(i);
+  for (int i = 0; i <= num_trunk + 1; ++i) rows[j++] = (int)R.d(i);
+  return 0;
+}
+
+// Each entry point returns a cudaError_t (0 on success); launches are
+// asynchronous on `stream`. `args` points to a host TrainArgs / GemmArgs,
+// copied into the kernel's parameter block at launch.
+int dexnerf_train_pass(const void* args, void* stream) {
+  const TrainArgs& a = *static_cast<const TrainArgs*>(args);
+  const int dx = 3 * a.inc_x + 6 * a.fx, dd = 3 * a.inc_d + 6 * a.fd;
+  if (a.n_samples < 1 || a.s_pad < a.n_samples || a.s_pad % kSlots != 0 ||
+      a.s_pad > kMaxSamplesPad || a.num_trunk + 5 > kMaxLayers || a.num_trunk > 31 ||
+      a.fx > kMaxFreq || a.fd > kMaxFreq || a.hidden % 8 != 0 || a.hidden > 4 * 32 ||
+      a.hidden < 8 || a.k != (long long)a.n_rays * a.s_pad) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = train_smem_bytes(dx, dd, a.hidden, a.num_trunk, a.s_pad);
+  cudaError_t err = cudaFuncSetAttribute(
+      train_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (a.n_rays == 0) return 0;
+  train_pass_kernel<<<a.n_rays, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int dexnerf_train_dw(const void* args, int n_tiles, void* stream) {
+  const GemmArgs& a = *static_cast<const GemmArgs*>(args);
+  if (a.n_items < 1 || a.n_items > kMaxItems || a.n_splits < 1 || n_tiles < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  dw_kernel<<<dim3(n_tiles, a.n_splits), kGemmThreads, 0,
+              static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int dexnerf_train_reduce(const float* partial, int n_parts, long long n_params,
+                         float* grad, const float* loss_ray, int n_rays, float* loss,
+                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  reduce_kernel<<<(unsigned)((n_params + 255) / 256), 256, 0, s>>>(partial, n_parts,
+                                                                    n_params, grad);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  sum_rays_kernel<<<1, kSumThreads, 0, s>>>(loss_ray, n_rays, loss);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,10 +1,12 @@
 """Hierarchical (coarse->fine) NeRF renderer.
 
-Counterpart of ``dexnerf_tpu/render/renderer.py`` for the deterministic
-serving path: stratified depths, coarse field + compositing, inverse-CDF
+Counterpart of ``dexnerf_tpu/render/renderer.py``: stratified depths
+(jittered when training), coarse field + compositing, inverse-CDF
 resampling, fine field + compositing with the Dex-NeRF σ-threshold depths
-on the fine pass only. Random draws (perturbation, σ-noise) come with the
-training slice.
+on the fine pass only. The training path's random numbers come in as a
+:class:`RenderDraws` (see :func:`draw_render_noise`), so a test can hand
+both packages the same draws; :func:`render_rays` is plain autograd-
+differentiable PyTorch.
 """
 
 from __future__ import annotations
@@ -16,7 +18,11 @@ import torch
 from torch import nn
 
 from dexnerf_tpu_torch.core.encoding import positional_encoding
-from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals, stratified_z_vals
+from dexnerf_tpu_torch.core.sampling import (
+    hierarchical_z_vals,
+    perturb_z_vals,
+    stratified_z_vals,
+)
 from dexnerf_tpu_torch.core.volrend import (
     VolumeRenderOutputs,
     concat_outputs,
@@ -57,6 +63,57 @@ class RayBatch(NamedTuple):
     viewdirs: torch.Tensor  # [N, 3]
     near: torch.Tensor  # [N]
     far: torch.Tensor  # [N]
+
+
+class RenderDraws(NamedTuple):
+    """The four random inputs of one training render, in the JAX key-split
+    order (``render_rays``: k_strat, k_noise_c, k_fine, k_noise_f). A field
+    is None where the settings draw nothing (no perturbation, σ-noise std
+    0)."""
+
+    t_strat: Optional[torch.Tensor]  # [N, num_coarse] uniforms
+    noise_coarse: Optional[torch.Tensor]  # [N, num_coarse], std * normal
+    u_fine: Optional[torch.Tensor]  # [N, num_fine] uniforms
+    noise_fine: Optional[torch.Tensor]  # [N, num_coarse + num_fine], std * normal
+
+
+NO_DRAWS = RenderDraws(None, None, None, None)
+
+
+def draw_render_noise(
+    n: int, s: "RenderSettings", generator: torch.Generator, device
+) -> RenderDraws:
+    """Draw a RenderDraws for ``n`` rays from ``generator`` (on
+    ``device``)."""
+    kw = dict(generator=generator, device=device, dtype=torch.float32)
+    std = float(s.radiance_field_noise_std)
+    has_fine = s.num_fine > 0
+    return RenderDraws(
+        t_strat=torch.rand((n, s.num_coarse), **kw) if s.perturb else None,
+        noise_coarse=std * torch.randn((n, s.num_coarse), **kw) if std > 0 else None,
+        u_fine=torch.rand((n, s.num_fine), **kw) if s.perturb and has_fine else None,
+        noise_fine=(
+            std * torch.randn((n, s.num_coarse + s.num_fine), **kw)
+            if std > 0 and has_fine
+            else None
+        ),
+    )
+
+
+def _check_draws(s: "RenderSettings", draws: RenderDraws) -> None:
+    if s.perturb and draws.t_strat is None:
+        raise ValueError("perturbed sampling needs the draws (t_strat, u_fine)")
+    if s.radiance_field_noise_std > 0 and draws.noise_coarse is None:
+        raise ValueError("σ-noise std > 0 needs the drawn noise")
+
+
+def jittered_z_vals(rays: "RayBatch", s: "RenderSettings", draws: RenderDraws):
+    """Coarse depths: stratified, then jittered by ``draws.t_strat`` when
+    the settings perturb."""
+    z_vals = stratified_z_vals(rays.near, rays.far, s.num_coarse, lindisp=s.lindisp)
+    if s.perturb:
+        z_vals = perturb_z_vals(z_vals, draws.t_strat)
+    return z_vals
 
 
 class RenderResult(NamedTuple):
@@ -100,41 +157,40 @@ def encode_points(pts: torch.Tensor, viewdirs: torch.Tensor, s: RenderSettings):
     return enc, dir_enc
 
 
-def _require_deterministic(s: RenderSettings) -> None:
-    if s.perturb or s.radiance_field_noise_std > 0.0:
-        raise NotImplementedError(
-            "random draws (perturb, σ-noise) come with the training slice; "
-            "render with settings.eval_variant()"
-        )
-
-
 def render_rays(
     coarse_model: nn.Module,
     fine_model: Optional[nn.Module],
     rays: RayBatch,
     settings: RenderSettings,
+    draws: RenderDraws = NO_DRAWS,
 ) -> RenderResult:
     """Render one ray batch through the coarse->fine hierarchy (plain
-    PyTorch; deterministic)."""
+    PyTorch, differentiable with respect to the models' parameters). With
+    ``settings.perturb`` or σ-noise, ``draws`` carries the random numbers;
+    the fine depths are detached, as in the reference."""
     s = settings
-    _require_deterministic(s)
+    _check_draws(s, draws)
     if not s.use_viewdirs:
         raise NotImplementedError("rendering without viewdirs is not ported yet")
-    z_vals = stratified_z_vals(rays.near, rays.far, s.num_coarse, lindisp=s.lindisp)
+    z_vals = jittered_z_vals(rays, s, draws)
 
-    def pass_(model, z, thresholds):
+    def pass_(model, z, thresholds, noise):
         pts = rays.origins[..., None, :] + rays.directions[..., None, :] * z[..., :, None]
         raw = model(*encode_points(pts, rays.viewdirs, s))
         return volume_render_radiance_field(
             raw, z, rays.directions,
             white_background=s.white_background, m_thres_cand=thresholds,
+            sigma_noise=noise,
         )
 
-    coarse = pass_(coarse_model, z_vals, None)
+    coarse = pass_(coarse_model, z_vals, None, draws.noise_coarse)
     fine = None
     if fine_model is not None and s.num_fine > 0:
-        z_merged, _ = hierarchical_z_vals(z_vals, coarse.weights, s.num_fine, det=True)
-        fine = pass_(fine_model, z_merged, s.m_thres_cand or None)
+        z_merged, _ = hierarchical_z_vals(
+            z_vals, coarse.weights.detach(), s.num_fine, det=not s.perturb,
+            u=draws.u_fine,
+        )
+        fine = pass_(fine_model, z_merged, s.m_thres_cand or None, draws.noise_fine)
     return RenderResult(coarse=coarse, fine=fine)
 
 

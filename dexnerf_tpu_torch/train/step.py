@@ -1,0 +1,229 @@
+"""Training step: sample rays -> render -> loss -> Adam update.
+
+Counterpart of ``dexnerf_tpu/train/step.py`` (the single-device resident-
+store step). The loss is the plain, autograd-differentiable render
+(``render_rays`` + :func:`nerf_loss`, the counterpart of the XLA path) or a
+fused loss (``ops.fused_train_loss.make_fused_train_loss``, kernel 4 on a
+card). The optimizer is ``torch.optim.Adam`` with its learning rate set
+before every update to ``optax.exponential_decay`` evaluated at the number
+of updates taken so far, as optax evaluates it (step 0 uses ``lr``).
+``steps_per_call`` updates run as a Python loop with no host sync.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+
+import torch
+from torch import nn
+
+from dexnerf_tpu_torch.core.metrics import luminance
+from dexnerf_tpu_torch.data.pipeline import (
+    RayStore,
+    per_image_ray_indices,
+    take_depth,
+    take_ray_batch,
+    uniform_ray_indices,
+)
+from dexnerf_tpu_torch.render.renderer import (
+    RenderDraws,
+    RenderSettings,
+    draw_render_noise,
+    render_rays,
+)
+
+
+def exponential_decay_schedule(
+    init_lr: float, lr_decay: float, lr_decay_factor: float
+) -> Callable[[int], float]:
+    """``lr * factor ** (step / (lr_decay * 1000))`` (the reference's
+    schedule, ``train_nerf_rgb.py:281-286``), computed in float32 as
+    ``optax.exponential_decay(..., staircase=False)`` computes it."""
+    transition_steps = int(lr_decay * 1000)
+    lr = torch.tensor(init_lr, dtype=torch.float32)
+    rate = torch.tensor(lr_decay_factor, dtype=torch.float32)
+
+    def schedule(step: int) -> float:
+        p = torch.tensor(step, dtype=torch.float32) / transition_steps
+        return float(lr * rate**p)
+
+    return schedule
+
+
+# The optimizers whose update the port holds to optax's (the reference
+# picks one by name, train_nerf_rgb.py:146).
+OPTIMIZER_REGISTRY: Dict[str, Callable[..., torch.optim.Optimizer]] = {
+    "Adam": torch.optim.Adam,
+}
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The models, their optimizer, its learning-rate schedule and the
+    number of updates taken."""
+
+    coarse: nn.Module
+    fine: Optional[nn.Module]
+    optimizer: torch.optim.Optimizer
+    schedule: Callable[[int], float]
+    step: int = 0
+
+    def models(self) -> List[nn.Module]:
+        return [m for m in (self.coarse, self.fine) if m is not None]
+
+
+def make_optimizer(
+    params, lr: float, opt_type: str = "Adam"
+) -> torch.optim.Optimizer:
+    """The registry's optimizer over ``params`` (betas/eps are the optax
+    and torch defaults, 0.9/0.999/1e-8)."""
+    try:
+        ctor = OPTIMIZER_REGISTRY[opt_type]
+    except KeyError:
+        raise KeyError(
+            f"unknown optimizer type {opt_type!r}; registered: {sorted(OPTIMIZER_REGISTRY)}"
+        ) from None
+    return ctor(list(params), lr=lr)
+
+
+def init_train_state(
+    coarse: nn.Module,
+    fine: Optional[nn.Module],
+    lr: float,
+    lr_decay: float = 250.0,
+    lr_decay_factor: float = 0.1,
+    opt_type: str = "Adam",
+) -> TrainState:
+    """One optimizer over ``coarse`` then ``fine`` parameters (the
+    reference's order, which its ``.ckpt`` Adam state indexes)."""
+    params = list(coarse.parameters()) + (list(fine.parameters()) if fine is not None else [])
+    return TrainState(
+        coarse=coarse,
+        fine=fine,
+        optimizer=make_optimizer(params, lr, opt_type),
+        schedule=exponential_decay_schedule(lr, lr_decay, lr_decay_factor),
+    )
+
+
+def nerf_loss(result, target_rgb: torch.Tensor, *, supervision: str = "rgb"):
+    """Coarse + fine photometric MSE (``train_nerf_rgb.py:262-278``; the
+    luminance variant ``train_nerf_ir.py:260-263``)."""
+    if supervision == "rgb":
+        def mse(rgb):
+            return torch.mean((rgb - target_rgb) ** 2)
+    elif supervision == "luminance":
+        target_y = luminance(target_rgb)
+
+        def mse(rgb):
+            return torch.mean((luminance(rgb) - target_y) ** 2)
+    else:
+        raise ValueError(f"unknown supervision mode: {supervision}")
+    coarse_loss = mse(result.coarse.rgb)
+    fine_loss = (
+        mse(result.fine.rgb) if result.fine is not None
+        else torch.zeros((), dtype=coarse_loss.dtype, device=coarse_loss.device)
+    )
+    loss = coarse_loss + fine_loss
+    return loss, {"loss": loss, "coarse_loss": coarse_loss, "fine_loss": fine_loss}
+
+
+def masked_depth_mse(
+    depth_pred: torch.Tensor, depth_gt: torch.Tensor, valid_max: Optional[float] = None
+) -> torch.Tensor:
+    """Mean squared depth error over ``gt > 0`` (and ``gt < valid_max``)."""
+    mask = depth_gt > 0.0
+    if valid_max is not None:
+        mask = mask & (depth_gt < valid_max)
+    mask = mask.to(depth_pred.dtype)
+    return torch.sum(mask * (depth_pred - depth_gt) ** 2) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+class StepDraws(NamedTuple):
+    """The random inputs of one update: the ray indices and the render
+    draws (the JAX step's ``k_sample`` and ``k_render`` halves)."""
+
+    idx: torch.Tensor  # [batch] int64 rows of the store
+    render: RenderDraws
+
+
+def make_train_step(
+    settings: RenderSettings,
+    batch_size: int,
+    *,
+    supervision: str = "rgb",
+    fused_loss=None,
+    sampling: str = "uniform",
+    steps_per_call: int = 1,
+    depth_loss_weight: float = 0.0,
+):
+    """Build ``train_step(state, store, generator, draws=None) -> metrics``.
+
+    Each call takes ``steps_per_call`` updates; the returned metrics (0-d
+    tensors, not synchronized) are the last update's. The random inputs
+    come from ``generator`` (on the store's device) in the order indices,
+    then render draws, unless ``draws`` gives a :class:`StepDraws` per
+    update. ``fused_loss`` replaces the plain render + loss body;
+    ``sampling`` is "uniform" over all rays or "per_image" (one image per
+    update, ``train_nerf_rgb.py:222-241``). ``depth_loss_weight`` > 0 adds
+    ``weight * masked_depth_mse`` of the fine (or coarse-only) expected
+    depth against the store's GT depth; a fused loss must then have been
+    built with the same term (``supports_depth``)."""
+    indices = {"uniform": uniform_ray_indices, "per_image": per_image_ray_indices}[sampling]
+    use_depth = depth_loss_weight > 0.0
+    if use_depth and fused_loss is not None and not getattr(fused_loss, "supports_depth", False):
+        raise ValueError(
+            "depth supervision with a fused loss needs one built with depth_loss_weight > 0"
+        )
+
+    def loss_fn(state: TrainState, store: RayStore, d: StepDraws):
+        rays, target = take_ray_batch(store, d.idx)
+        depth_gt = take_depth(store, d.idx) if use_depth else None
+        if fused_loss is not None:
+            if use_depth:
+                return fused_loss(rays, target, d.render, depth_gt)
+            return fused_loss(rays, target, d.render)
+        result = render_rays(state.coarse, state.fine, rays, settings, d.render)
+        loss, metrics = nerf_loss(result, target, supervision=supervision)
+        if use_depth:
+            pred = result.fine.depth if result.fine is not None else result.coarse.depth
+            d_loss = masked_depth_mse(pred, depth_gt)
+            loss = loss + depth_loss_weight * d_loss
+            metrics["depth_loss"] = d_loss
+            metrics["loss"] = loss
+        return loss, {k: v.detach() for k, v in metrics.items()}
+
+    def one_step(state: TrainState, store: RayStore, d: StepDraws) -> Dict[str, torch.Tensor]:
+        loss, metrics = loss_fn(state, store, d)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        lr = state.schedule(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
+        state.step += 1
+        photometric = metrics["coarse_loss"] + metrics["fine_loss"]
+        metrics["psnr"] = -10.0 * torch.log10(torch.clamp(photometric, min=1e-10))
+        return metrics
+
+    def train_step(
+        state: TrainState,
+        store: RayStore,
+        generator: Optional[torch.Generator] = None,
+        draws: Optional[Sequence[StepDraws]] = None,
+    ) -> Dict[str, torch.Tensor]:
+        if draws is not None and len(draws) != steps_per_call:
+            raise ValueError(f"need {steps_per_call} StepDraws, got {len(draws)}")
+        metrics = {}
+        for j in range(steps_per_call):
+            if draws is not None:
+                d = draws[j]
+            else:
+                idx = indices(store, batch_size, generator)
+                d = StepDraws(
+                    idx, draw_render_noise(batch_size, settings, generator, store.data.device)
+                )
+            metrics = one_step(state, store, d)
+        return metrics
+
+    return train_step

@@ -54,7 +54,7 @@ def _seeded_checkpoint(cfg_path, ckpt_path):
     default camera's coarse samples) so the Dex thresholds 5 and 10 are
     crossed on some rays and not on others."""
     cfg = load_config(cfg_path)
-    coarse, fine = setup_models(cfg, 0)
+    coarse, fine = setup_models(cfg, 0, "cpu")
     ro, rd = get_ray_bundle_c2w(8, 8, 10.0, torch.tensor(pose_spherical(-30, -45, 4)))
     ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
     z = stratified_z_vals(torch.full((64,), 2.0), torch.full((64,), 6.0), 8)

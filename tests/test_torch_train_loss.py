@@ -1,0 +1,361 @@
+"""The fused train-loss pass of the port (``dexnerf_tpu_torch/ops/fused_train_loss.py``).
+
+On the CPU: its plain PyTorch version held to the JAX kernel
+(``make_fused_pass_loss(..., interpret=True)``) on one set of weights, rays
+and draws, the ``autograd.Function`` around it, and both passes of
+``make_fused_train_loss`` held to the JAX one on draws derived from one JAX
+key. On a CUDA card (marker ``gpu``): the CUDA kernel held to the plain
+version. The JAX package is imported inside a fixture, so that this file
+also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_train_loss.py
+"""
+
+import copy
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from dexnerf_tpu_torch.core.sampling import stratified_z_vals
+from dexnerf_tpu_torch.core.volrend import ray_dists
+from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
+from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+from dexnerf_tpu_torch.render.renderer import RayBatch, RenderDraws, RenderSettings
+from dexnerf_tpu_torch.train.checkpoints import state_dict_from_flax
+
+# f32 on both sides, the sums taken in another order: values to 1e-5
+# relative, gradients to GRAD_ATOL times the leaf's largest entry (at least 1)
+LOSS_RTOL = 1e-5
+ATOL = 1e-5
+GRAD_ATOL = 5e-5
+SATURATED_GRAD_ATOL = 2e-4  # the JAX test's bound in the saturated regime
+ENC_XYZ, ENC_DIR = 3, 2
+ARCH = dict(num_layers=8, hidden_size=16, skip_connect_every=3,
+            num_encoding_fn_xyz=ENC_XYZ, num_encoding_fn_dir=ENC_DIR)
+N_RAYS = 24  # the JAX kernel pads it to 32 (block_samples 128 at S = 8)
+S = 8
+
+
+def _pass_inputs(n=N_RAYS, s=S, seed=3):
+    rng = np.random.default_rng(seed)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    ro = (rng.normal(size=(n, 3)) * 0.2).astype(np.float32)
+    vd = rd / np.linalg.norm(rd, axis=-1, keepdims=True)
+    z = stratified_z_vals(torch.full((n,), 2.0), torch.full((n,), 6.0), s).numpy()
+    z = z + rng.uniform(0.0, 0.4, size=z.shape).astype(np.float32)
+    dists = ray_dists(torch.tensor(z), torch.tensor(rd)).numpy()
+    return dict(
+        origins=ro, directions=rd, z_vals=z, viewdirs=vd, dists=dists,
+        noise=(0.5 * rng.normal(size=(n, s))).astype(np.float32),
+        target=rng.uniform(size=(n, 3)).astype(np.float32),
+        depth_gt=np.r_[0.0, np.linspace(2.5, 5.5, n - 1)].astype(np.float32),
+        depth_coef=(rng.uniform(0.1, 1.0, size=n) * (np.arange(n) > 0)).astype(np.float32),
+    )
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX reference: the module, one flax tree per pass and the port's
+    models holding the same weights (σ head spread so samples saturate on
+    some rays and stay transparent on others)."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from dexnerf_tpu.core.encoding import encoding_dim
+    from dexnerf_tpu.models import FlexibleNeRFModel as JFlex
+
+    jm = JFlex(**ARCH)
+    in_dim = encoding_dim(3, ENC_XYZ) + encoding_dim(3, ENC_DIR)
+    trees, models = {}, {}
+    for i, name in enumerate(("coarse", "fine")):
+        tree = jax.tree.map(np.array, jm.init(jax.random.PRNGKey(i), jnp.ones((1, in_dim))))
+        alpha = tree["params"][f"Dense_{ARCH['num_layers'] + 1}"]  # fc_alpha
+        alpha["kernel"] *= 30.0
+        alpha["bias"] = alpha["bias"] + 1.0
+        m = FlexibleNeRFModel(**ARCH)
+        m.load_state_dict(state_dict_from_flax(tree))
+        trees[name], models[name] = tree, m
+    return types.SimpleNamespace(jax=jax, jnp=jnp, jm=jm, trees=trees, models=models)
+
+
+def _grads_by_name(jx, tree):
+    return {k: v.numpy() for k, v in state_dict_from_flax(jx.jax.tree.map(np.asarray, tree)).items()}
+
+
+def _assert_grads(got: dict, want: dict, atol=GRAD_ATOL):
+    assert set(got) == set(want)
+    for name, w in want.items():
+        g = np.asarray(got[name])
+        assert np.isfinite(g).all(), name
+        scale = max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(g, w, rtol=0, atol=atol * scale, err_msg=name)
+
+
+def _jax_pass(jx, inputs, tree, *, supervision, white, noise, depth):
+    from dexnerf_tpu.ops.fused_train_loss import make_fused_pass_loss
+
+    jnp = jx.jnp
+    fn = make_fused_pass_loss(
+        jx.jm, block_samples=128, white_background=white, supervision=supervision,
+        interpret=True,
+    )
+    a = {k: jnp.asarray(v) for k, v in inputs.items()}
+    extra = (a["depth_gt"], a["depth_coef"]) if depth else ()
+
+    def f(params):
+        loss, w, rgb = fn(
+            params, a["origins"], a["directions"], a["z_vals"], a["viewdirs"],
+            a["dists"], a["noise"] if noise else None, a["target"], *extra,
+        )
+        return loss, (w, rgb)
+
+    (loss, (w, rgb)), g = jx.jax.value_and_grad(f, has_aux=True)(tree)
+    return float(loss), np.asarray(w), np.asarray(rgb), _grads_by_name(jx, g)
+
+
+def _port_pass(model, inputs, *, supervision, white, noise, depth):
+    t = {k: torch.tensor(v) for k, v in inputs.items()}
+    loss, w, rgb, grads = ftl.fused_pass_loss_reference(
+        model, t["origins"], t["directions"], t["z_vals"], t["viewdirs"], t["dists"],
+        t["noise"] if noise else None, t["target"],
+        *((t["depth_gt"], t["depth_coef"]) if depth else ()),
+        white_background=white, supervision=supervision,
+    )
+    names = [n for n, _ in model.named_parameters()]
+    return float(loss), w.numpy(), rgb.numpy(), dict(zip(names, (g.numpy() for g in grads)))
+
+
+@pytest.mark.parametrize("depth", [False, True], ids=["photo", "depth"])
+@pytest.mark.parametrize("noise", [False, True], ids=["clean", "noise"])
+@pytest.mark.parametrize("white", [False, True], ids=["black", "white"])
+@pytest.mark.parametrize("supervision", ["rgb", "luminance"])
+def test_reference_pass_matches_jax_kernel(jx, supervision, white, noise, depth):
+    inputs = _pass_inputs()
+    kw = dict(supervision=supervision, white=white, noise=noise, depth=depth)
+    got = _port_pass(jx.models["fine"], inputs, **kw)
+    want = _jax_pass(jx, inputs, jx.trees["fine"], **kw)
+    np.testing.assert_allclose(got[0], want[0], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got[2], want[2], rtol=0, atol=ATOL)
+    _assert_grads(got[3], want[3])
+
+
+def test_reference_pass_saturated_density_grads(jx):
+    """Interior samples with alpha == 1 (the σ head biased +60, as in
+    tests/test_fused_loss.py::test_fused_loss_saturated_density_grads): the
+    backward through the guarded cumprod stays finite and matches JAX."""
+    tree = jx.jax.tree.map(np.copy, jx.trees["coarse"])
+    tree["params"][f"Dense_{ARCH['num_layers'] + 1}"]["bias"] += 60.0
+    model = FlexibleNeRFModel(**ARCH)
+    model.load_state_dict(state_dict_from_flax(tree))
+    inputs = _pass_inputs(seed=4)
+    kw = dict(supervision="rgb", white=False, noise=False, depth=False)
+    got = _port_pass(model, inputs, **kw)
+    from dexnerf_tpu_torch.core.encoding import positional_encoding
+
+    t = {k: torch.tensor(v) for k, v in inputs.items()}
+    with torch.no_grad():  # the boosted field really saturates interior samples
+        pts = t["origins"][:, None] + t["directions"][:, None] * t["z_vals"][..., None]
+        sigma = model(positional_encoding(pts, ENC_XYZ),
+                      positional_encoding(t["viewdirs"], ENC_DIR))[..., 3].relu()
+    alpha = 1.0 - torch.exp(-sigma * t["dists"])
+    assert float(alpha[:, :-1].max()) == 1.0
+    want = _jax_pass(jx, inputs, tree, **kw)
+    np.testing.assert_allclose(got[0], want[0], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=ATOL)
+    _assert_grads(got[3], want[3], atol=SATURATED_GRAD_ATOL)
+
+
+def test_autograd_function_on_cpu():
+    """``loss.backward()`` through the Function gives the plain autograd
+    gradients scaled by the cotangent; array inputs get none."""
+    model = FlexibleNeRFModel(**ARCH).reset_parameters(torch.Generator().manual_seed(0))
+    t = {k: torch.tensor(v) for k, v in _pass_inputs(seed=5).items()}
+    t["origins"].requires_grad_(True)
+    t["z_vals"].requires_grad_(True)
+    launches = ftl.launches
+    loss, w, rgb = ftl.fused_pass_loss(
+        model, t["origins"], t["directions"], t["z_vals"], t["viewdirs"], t["dists"],
+        t["noise"], t["target"], white_background=True,
+    )
+    (0.25 * loss).backward()
+    assert ftl.launches == launches  # CPU tensors never reach the kernel
+    assert not w.requires_grad and not rgb.requires_grad
+    assert t["origins"].grad is None and t["z_vals"].grad is None
+    with torch.enable_grad():
+        pts = t["origins"].detach()[:, None] + t["directions"][:, None] * t["z_vals"].detach()[..., None]
+        from dexnerf_tpu_torch.core.encoding import positional_encoding
+        from dexnerf_tpu_torch.core.volrend import composite
+
+        out = composite(
+            model(positional_encoding(pts, ENC_XYZ), positional_encoding(t["viewdirs"], ENC_DIR)),
+            t["z_vals"].detach(), t["dists"], white_background=True, sigma_noise=t["noise"],
+        )
+        plain = 0.25 * torch.sum((out.rgb - t["target"]) ** 2)
+        want = torch.autograd.grad(plain, list(model.parameters()))
+    torch.testing.assert_close(loss * 0.25, plain.detach(), rtol=1e-6, atol=0)
+    for p, g in zip(model.parameters(), want):
+        torch.testing.assert_close(p.grad, g, rtol=1e-6, atol=1e-7)
+
+
+def _jax_draws(jx, key, n, s):
+    """The four draws of ``make_fused_train_loss`` from ``key``, split
+    exactly as ``dexnerf_tpu/ops/fused_train_loss.py:847-925`` does."""
+    jax, jnp = jx.jax, jx.jnp
+    k_strat, k_noise_c, k_fine, k_noise_f = jax.random.split(key, 4)
+    std = s.radiance_field_noise_std
+    c, f = s.num_coarse, s.num_fine
+    return RenderDraws(
+        t_strat=torch.tensor(np.asarray(jax.random.uniform(k_strat, (n, c), dtype=jnp.float32))),
+        noise_coarse=torch.tensor(np.asarray(std * jax.random.normal(k_noise_c, (n, c), dtype=jnp.float32))),
+        u_fine=torch.tensor(np.asarray(jax.random.uniform(k_fine, (n, f), dtype=jnp.float32))),
+        noise_fine=torch.tensor(np.asarray(std * jax.random.normal(k_noise_f, (n, c + f), dtype=jnp.float32))),
+    )
+
+
+@pytest.mark.parametrize("supervision", ["rgb", "luminance"])
+def test_train_loss_both_passes_match_jax(jx, supervision):
+    from dexnerf_tpu.ops import make_fused_train_loss as j_make
+    from dexnerf_tpu.render import RayBatch as JRayBatch
+    from dexnerf_tpu.render import RenderSettings as JSettings
+
+    settings = RenderSettings(
+        num_coarse=8, num_fine=8, perturb=True, radiance_field_noise_std=0.2,
+        white_background=supervision == "luminance",
+        num_encoding_fn_xyz=ENC_XYZ, num_encoding_fn_dir=ENC_DIR,
+    )
+    inp = _pass_inputs(seed=6)
+    near = np.full((N_RAYS,), 2.0, np.float32)
+    arrays = (inp["origins"], inp["directions"], inp["viewdirs"], near, near + 4.0)
+    key = jx.jax.random.PRNGKey(7)
+    draws = _jax_draws(jx, key, N_RAYS, settings)
+
+    j_fn = j_make(jx.jm, jx.jm, JSettings(**settings.__dict__), supervision=supervision,
+                  block_samples=128, interpret=True)
+    jrays = JRayBatch(*(jx.jnp.asarray(a) for a in arrays))
+    (j_loss, j_metrics), j_grads = jx.jax.value_and_grad(j_fn, has_aux=True)(
+        jx.trees, jrays, jx.jnp.asarray(inp["target"]), key
+    )
+
+    coarse = FlexibleNeRFModel(**ARCH)
+    fine = FlexibleNeRFModel(**ARCH)
+    coarse.load_state_dict(jx.models["coarse"].state_dict())
+    fine.load_state_dict(jx.models["fine"].state_dict())
+    fn = ftl.make_fused_train_loss(coarse, fine, settings, supervision=supervision)
+    loss, metrics = fn(RayBatch(*(torch.tensor(a) for a in arrays)),
+                       torch.tensor(inp["target"]), draws)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(j_loss), rtol=LOSS_RTOL)
+    for k in ("loss", "coarse_loss", "fine_loss"):
+        np.testing.assert_allclose(float(metrics[k]), float(j_metrics[k]), rtol=LOSS_RTOL, err_msg=k)
+    for name, model in (("coarse", coarse), ("fine", fine)):
+        _assert_grads({n: p.grad.numpy() for n, p in model.named_parameters()},
+                      _grads_by_name(jx, j_grads[name]))
+    assert not fn.supports_depth
+
+
+# ---- on the card: the CUDA kernel vs its plain version
+
+FULL = dict(num_layers=8, hidden_size=128, skip_connect_every=3,
+            num_encoding_fn_xyz=10, num_encoding_fn_dir=4)
+# card tolerances, kernel vs plain (cuBLAS SGEMM, TF32 off), f32 both:
+# values as the render kernel's. Gradients: with the σ head scaled into
+# saturation, the leaves are sums with heavy cancellation, and the f32
+# plain version itself misses the float64 one by up to ~2e-4 of a leaf's
+# largest entry, so each leaf is held to the float64 plain version: the
+# kernel's error is at most GPU_GRAD_FACTOR times the f32 plain version's
+# own error, plus GPU_GRAD_RTOL of the leaf's largest entry. The factor
+# allows for the kernel's sequential sum over each CTA's K-range (the
+# plain version's reductions are blocked); a dropped or wrong dW term
+# misses by 1e-2 to 1 of the leaf's largest entry
+GPU_RTOL, GPU_ATOL = 1e-4, 1e-5
+GPU_LOSS_RTOL = 1e-5
+GPU_GRAD_FACTOR = 10.0
+GPU_GRAD_RTOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _assert_grads_on_card(model, args, kw, kernel_grads, plain_grads):
+    """Every leaf of ``kernel_grads`` within the card rule above, against
+    the plain version run in float64 on the same weights and inputs."""
+    m64 = copy.deepcopy(model).double()
+    exact = ftl.fused_pass_loss_reference(
+        m64, *(None if a is None else a.double() for a in args), **kw)[3]
+    for (name, _), g, gp, ge in zip(model.named_parameters(), kernel_grads, plain_grads, exact):
+        scale = float(ge.abs().max())
+        err = float((g.double() - ge).abs().max())
+        err_plain = float((gp.double() - ge).abs().max())
+        assert bool(torch.isfinite(g).all()), name
+        assert err <= GPU_GRAD_FACTOR * err_plain + GPU_GRAD_RTOL * scale, (
+            name, err, err_plain, scale)
+
+
+def _card_case(cuda, arch, s, n=300, seed=9):
+    m = FlexibleNeRFModel(**arch).reset_parameters(torch.Generator().manual_seed(seed)).to(cuda)
+    with torch.no_grad():  # σ logit spread: saturated and transparent samples both occur
+        m.fc_alpha.weight.mul_(30.0)
+    inp = {k: torch.tensor(v, device=cuda) for k, v in _pass_inputs(n, s, seed).items()}
+    return m, inp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [False, True], ids=["photo", "depth"])
+@pytest.mark.parametrize("noise", [False, True], ids=["clean", "noise"])
+@pytest.mark.parametrize("white", [False, True], ids=["black", "white"])
+@pytest.mark.parametrize("supervision", ["rgb", "luminance"])
+@pytest.mark.parametrize("s", [64, 128])
+@pytest.mark.parametrize("arch", [ARCH, FULL], ids=["8x16", "8x128"])
+def test_kernel_matches_plain_on_card(cuda, arch, s, supervision, white, noise, depth):
+    m, inp = _card_case(cuda, arch, s)
+    kw = dict(white_background=white, supervision=supervision)
+    args = (inp["origins"], inp["directions"], inp["z_vals"], inp["viewdirs"], inp["dists"],
+            inp["noise"] if noise else None, inp["target"],
+            *((inp["depth_gt"], inp["depth_coef"]) if depth else ()))
+    before = ftl.launches
+    got = ftl.fused_pass_loss(m, *args, **kw)
+    loss, w, rgb = got
+    loss.backward()
+    torch.cuda.synchronize()
+    assert ftl.launches == before + 1
+    grads = [p.grad.clone() for p in m.parameters()]
+    want = ftl.fused_pass_loss_reference(m, *args, **kw)
+    torch.testing.assert_close(loss, want[0], rtol=GPU_LOSS_RTOL, atol=0)
+    torch.testing.assert_close(w, want[1], rtol=GPU_RTOL, atol=GPU_ATOL)
+    torch.testing.assert_close(rgb, want[2], rtol=GPU_RTOL, atol=GPU_ATOL)
+    _assert_grads_on_card(m, args, kw, grads, want[3])
+
+
+@pytest.mark.gpu
+def test_kernel_chunks_and_padding_on_card(cuda, monkeypatch):
+    """Several scratch chunks (the last one short) and S not a multiple of
+    the 64-sample tile give the same result as one chunk; two runs are
+    bitwise equal."""
+    m, inp = _card_case(cuda, FULL, 100, n=301)
+    args = (inp["origins"], inp["directions"], inp["z_vals"], inp["viewdirs"], inp["dists"],
+            inp["noise"], inp["target"], None, None)
+    kw = dict(white_background=False, supervision="rgb", log_sampling_xyz=True,
+              log_sampling_dir=True)
+    one = ftl._launch(m, *args, **kw)
+    again = ftl._launch(m, *args, **kw)
+    monkeypatch.setattr(ftl, "SCRATCH_SAMPLES", 128 * 40)
+    chunked = ftl._launch(m, *args, **kw)
+    want = ftl.fused_pass_loss_reference(m, *args[:7], white_background=False)
+    torch.cuda.synchronize()
+    for a, b in zip(one[3], again[3]):
+        assert torch.equal(a, b)
+    assert torch.equal(one[0], again[0])
+    torch.testing.assert_close(chunked[0], one[0], rtol=GPU_LOSS_RTOL, atol=0)
+    torch.testing.assert_close(one[1], want[1], rtol=GPU_RTOL, atol=GPU_ATOL)
+    plain_kw = dict(white_background=False)
+    _assert_grads_on_card(m, args[:7], plain_kw, one[3], want[3])
+    _assert_grads_on_card(m, args[:7], plain_kw, chunked[3], want[3])
