@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving and training paths on one CUDA
-card.
+"""Smoke run of the PyTorch port's serving path and its three training
+configurations on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -28,13 +28,32 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
 7. hold the fused train-loss kernel to its plain version on one batch of
    8192 rays of that run, coarse (S=64) and fine (S=128) pass: loss,
    weights, rgb and every gradient leaf;
-8. time both passes, kernel and plain, and whole train steps through the
-   kernel and through the plain autograd path; profile three kernel-path
-   steps (kernel 4, glue, Adam, idle).
+8. time both passes, kernel and plain, and whole train steps through
+   kernel 4, through the plain autograd path, through the field kernels
+   and through kernel 4 with the fused resample, with each step's peak
+   memory; profile three kernel-4 steps (kernel 4, glue, Adam, idle);
+9. train the field path (``nerf.pallas_fused_loss: false``) through
+   ``apps.train`` for 20 steps: the field forward (kernel 2) and backward
+   (kernel 3) launched once per pass per step, kernel 4 never, validation
+   through kernel 1, every loss finite and falling;
+10. hold kernels 2 and 3 to their plain versions on phase 7's batch with
+   that run's models, coarse (S=64) and fine (S=128) pass, with the
+   cotangent of each pass's loss: raw and every gradient leaf;
+11. train with ``nerf.pallas_loss_resample: pallas`` for 20 steps: the
+   resample kernel (kernel 5) once per step between kernel 4's two passes;
+12. hold kernels 5 and 6 to their plain versions on the coarse weights of
+   phase 7's batch under that run's coarse model (plus a zero-weight and a
+   near-delta ray), on the batch's draws and on the deterministic grid,
+   each output, like the f32 plain version, against a float64 run of the
+   plain version; kernel 6 is driven through its public op
+   ``sample_pdf_branchless``;
+13. time kernels 2, 3, 5 and 6 and their plain versions; profile three
+   field-path steps (kernel 2, kernel 3, glue, Adam, idle).
 
 Each kernel's line holds its bound: the larger of its FLOPs (multiply-adds
-counted from the model's shapes) over the 67 TFLOP/s f32 peak and its
-bytes (inputs read once, outputs written once) over 3.35 TB/s.
+counted from the model's shapes; compares and arithmetic counted from the
+shapes for kernels 5 and 6) over the 67 TFLOP/s f32 peak and its bytes
+(inputs read once, outputs written once) over 3.35 TB/s.
 The line before the last is ``{"kernels": [...]}`` with this run's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -49,6 +68,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -57,6 +77,17 @@ TRAIN_CONFIG = os.path.join(ROOT, "configs", "lego-tpu.yml")
 TRAIN_HW = 400  # frame size of the synthetic training scene
 TRAIN_VIEWS = (16, 2, 1)
 TRAIN_ITERS = 40
+SLICE_ITERS = 20  # steps of each of the field path and the resample path
+# kernel 4's __global__ kernels, by name (the profile's part)
+KERNEL4_NAMES = ("train_pass_kernel", "dw_kernel", "reduce_kernel", "sum_rays_kernel")
+# kernels 5 and 6 vs plain: the CPU tests' tolerances (tests/test_torch_resample.py).
+# With trained weights the CDF has steps of ~1e-5, where one ulp of the CDF
+# moves a depth by up to ~1e-4 through the guarded lerp, so each output is
+# held to a float64 run of the plain version: the kernel's share of
+# entries within the tolerances at least the f32 plain version's own, less
+# RESAMPLE_SLACK; rows sorted, nothing non-finite
+RESAMPLE_Z_ATOL, RESAMPLE_D_ATOL, PDF_ATOL = 1e-5, 1e-4, 1e-4
+RESAMPLE_SLACK = 1e-4
 # kernel vs plain, train pass: f32 both sides. Loss sums over 8192 rays in
 # another order (rtol); weights/rgb as the render kernel; each gradient
 # leaf, summed over 0.5-1M samples in another order, to GRAD_RTOL of that
@@ -173,87 +204,133 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def train_phase(torch, np, card, dev):
-    """Phases 6-8 on ``dev``: train through the port's CLI, then kernel 4
-    vs plain and timings at the run's shapes. Returns the kernels-line
-    entry."""
+def kernel_modules():
+    """Every kernel wrapper module of the port, by name; each holds its
+    launch counter ``launches``."""
+    from dexnerf_tpu_torch.ops import (
+        fused_mlp,
+        fused_mlp_train,
+        fused_render,
+        fused_train_loss,
+        resample,
+        sample_pdf,
+    )
+
+    return {"fused_render": fused_render, "fused_mlp": fused_mlp,
+            "fused_mlp_train": fused_mlp_train, "fused_train_loss": fused_train_loss,
+            "resample": resample, "sample_pdf": sample_pdf}
+
+
+def train_cli(tmp, data, name, iters, torch, dev, **nerf):
+    """``configs/lego-tpu.yml`` pointed at the dataset ``data``, with the
+    ``nerf`` keys overridden, trained through ``dexnerf_tpu_torch.apps.train``
+    for ``iters`` steps on ``dev`` with every launch counter set to 0 just
+    before and read just after. Returns the config path, the log directory,
+    the counts, the losses, the validation PSNRs, the seconds and the peak
+    device memory (GiB)."""
     import yaml
 
     from dexnerf_tpu_torch.apps import train as train_app
-    from dexnerf_tpu_torch.config import load_config, render_settings_from_cfg
+
+    with open(TRAIN_CONFIG) as f:
+        raw = yaml.safe_load(f)
+    raw["dataset"].update(basedir=data, half_res=False, cachedir="")
+    raw["experiment"].update(
+        id=name, logdir=os.path.join(tmp, "logs"), validate_every=iters,
+        save_every=iters, print_every=1,
+    )
+    raw["nerf"].update(nerf)
+    cfg_path = os.path.join(tmp, f"{name}.yml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(raw, f)
+    mods = kernel_modules()
+    torch.cuda.reset_peak_memory_stats()
+    for m in mods.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    train_app.main(["--config", cfg_path, "--device", dev.type, "--max-iters", str(iters)])
+    seconds = time.perf_counter() - t0
+    counts = {k: m.launches for k, m in mods.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    logdir = os.path.join(tmp, "logs", name)
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["value"] for r in sorted(
+        (r for r in recs if r["tag"] == "train/loss"), key=lambda r: r["step"])]
+    val_psnr = [r["value"] for r in recs if r["tag"] == "validation/psnr"]
+    return cfg_path, logdir, counts, losses, val_psnr, seconds, peak_gb
+
+
+def run_checks(title, checks):
+    for name, ok in checks.items():
+        print(f"  {'ok  ' if ok else 'FAIL'} {name}")
+    if not all(checks.values()):
+        raise AssertionError(f"{title} checks failed")
+
+
+def run_models(cfg_path, logdir, iters, dev):
+    """The config, the models of a run's last checkpoint and the checkpoint."""
+    from dexnerf_tpu_torch.config import load_config
+    from dexnerf_tpu_torch.train.checkpoints import read_reference_checkpoint
+    from dexnerf_tpu_torch.train.loop import setup_models
+
+    ckpt = read_reference_checkpoint(
+        os.path.join(logdir, "checkpoints", f"checkpoint_{iters - 1:07d}.ckpt"))
+    cfg = load_config(cfg_path)
+    coarse, fine = setup_models(cfg, 0, dev)
+    coarse.load_state_dict(ckpt["coarse"])
+    fine.load_state_dict(ckpt["fine"])
+    return cfg, coarse, fine, ckpt
+
+
+def train_phase(torch, np, card, dev, tmp):
+    """Phases 6-8 on ``dev``, in the directory ``tmp``: train through the
+    port's CLI, then kernel 4 vs plain and timings at the run's shapes.
+    Returns kernel 4's kernels-line entry and what the later phases share
+    (the dataset, the settings, one batch of rays and its draws, a
+    field-path step)."""
+    from dexnerf_tpu_torch.config import render_settings_from_cfg
     from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals
     from dexnerf_tpu_torch.core.volrend import ray_dists
     from dexnerf_tpu_torch.data.pipeline import build_ray_store, take_ray_batch
     from dexnerf_tpu_torch.data.synthetic import write_blender_dataset
-    from dexnerf_tpu_torch.ops import fused_render as fr
     from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+    from dexnerf_tpu_torch.ops.fused_mlp_train import make_fused_flexible_field_train
     from dexnerf_tpu_torch.render.renderer import draw_render_noise, jittered_z_vals
-    from dexnerf_tpu_torch.train.checkpoints import load_adam_state, read_reference_checkpoint
-    from dexnerf_tpu_torch.train.loop import load_scene, setup_models
+    from dexnerf_tpu_torch.train.checkpoints import load_adam_state
+    from dexnerf_tpu_torch.train.loop import load_scene
     from dexnerf_tpu_torch.train.step import init_train_state, make_train_step
 
-    with tempfile.TemporaryDirectory() as tmp:
-        # ---- phase 6: the training entry point, 40 steps at full width
-        t0 = time.perf_counter()
-        data = os.path.join(tmp, "scene")
-        write_blender_dataset(data, TRAIN_HW, TRAIN_HW, TRAIN_VIEWS, device=dev)
-        with open(TRAIN_CONFIG) as f:
-            raw = yaml.safe_load(f)
-        raw["dataset"].update(basedir=data, half_res=False, cachedir="")
-        raw["experiment"].update(
-            logdir=os.path.join(tmp, "logs"), validate_every=TRAIN_ITERS,
-            save_every=TRAIN_ITERS, print_every=1,
-        )
-        cfg_path = os.path.join(tmp, "lego-tpu-smoke.yml")
-        with open(cfg_path, "w") as f:
-            yaml.safe_dump(raw, f)
-        logdir = os.path.join(tmp, "logs", raw["experiment"]["id"])
-        dataset_s = time.perf_counter() - t0
-        torch.cuda.reset_peak_memory_stats()
-        ftl.launches = 0
-        fr.launches = 0
-        t0 = time.perf_counter()
-        train_app.main(["--config", cfg_path, "--device", dev.type,
-                        "--max-iters", str(TRAIN_ITERS)])
-        train_s = time.perf_counter() - t0
-        launches, render_launches = ftl.launches, fr.launches
-        peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        with open(os.path.join(logdir, "metrics.jsonl")) as f:
-            recs = [json.loads(line) for line in f]
-        losses = [r["value"] for r in sorted(
-            (r for r in recs if r["tag"] == "train/loss"), key=lambda r: r["step"])]
-        val_psnr = [r["value"] for r in recs if r["tag"] == "validation/psnr"]
-        ckpt = read_reference_checkpoint(
-            os.path.join(logdir, "checkpoints", f"checkpoint_{TRAIN_ITERS - 1:07d}.ckpt"))
-        cfg = load_config(cfg_path)
-        coarse, fine = setup_models(cfg, 0, dev)
-        coarse.load_state_dict(ckpt["coarse"])
-        fine.load_state_dict(ckpt["fine"])
-        state = init_train_state(coarse, fine, float(cfg.optimizer.lr))
-        load_adam_state(state.optimizer, ckpt["optimizer_state_dict"])
-        moments_finite = all(
-            bool(torch.isfinite(st["exp_avg"]).all() and torch.isfinite(st["exp_avg_sq"]).all())
-            for st in state.optimizer.state.values()
-        )
-        print(f"phase 6: trained {TRAIN_ITERS} steps in {train_s:.2f} s (dataset {dataset_s:.2f} s); "
-              f"fused_train_loss launches {launches}, fused_render launches {render_launches}; "
-              f"peak {peak_gb:.2f} GiB; loss first {losses[0]:.5f} last {losses[-1]:.5f}; "
-              f"validation psnr {val_psnr}")
-        checks = {
-            f"{TRAIN_ITERS} finite losses": len(losses) == TRAIN_ITERS
-            and bool(np.isfinite(losses).all()),
-            "loss falls (mean of last 10 < first 10)": np.mean(losses[-10:]) < np.mean(losses[:10]),
-            f"kernel 4 launched {2 * TRAIN_ITERS} times": launches == 2 * TRAIN_ITERS,
-            "validation through kernel 1": render_launches >= 2 and len(val_psnr) >= 1
-            and bool(np.isfinite(val_psnr).all()),
-            ".ckpt reads back with Adam": ckpt["step"] == TRAIN_ITERS and moments_finite
-            and len(state.optimizer.state) == len(list(coarse.parameters())) * 2,
-        }
-        for name, ok in checks.items():
-            print(f"  {'ok  ' if ok else 'FAIL'} {name}")
-        if not all(checks.values()):
-            raise AssertionError("training checks failed")
-        scene = load_scene(cfg)
+    # ---- phase 6: the training entry point, 40 steps at full width
+    t0 = time.perf_counter()
+    data = os.path.join(tmp, "scene")
+    write_blender_dataset(data, TRAIN_HW, TRAIN_HW, TRAIN_VIEWS, device=dev)
+    dataset_s = time.perf_counter() - t0
+    cfg_path, logdir, counts, losses, val_psnr, train_s, peak_gb = train_cli(
+        tmp, data, "lego-tpu-smoke", TRAIN_ITERS, torch, dev)
+    launches, render_launches = counts["fused_train_loss"], counts["fused_render"]
+    cfg, coarse, fine, ckpt = run_models(cfg_path, logdir, TRAIN_ITERS, dev)
+    state = init_train_state(coarse, fine, float(cfg.optimizer.lr))
+    load_adam_state(state.optimizer, ckpt["optimizer_state_dict"])
+    moments_finite = all(
+        bool(torch.isfinite(st["exp_avg"]).all() and torch.isfinite(st["exp_avg_sq"]).all())
+        for st in state.optimizer.state.values()
+    )
+    print(f"phase 6: trained {TRAIN_ITERS} steps in {train_s:.2f} s (dataset {dataset_s:.2f} s); "
+          f"fused_train_loss launches {launches}, fused_render launches {render_launches}; "
+          f"peak {peak_gb:.2f} GiB; loss first {losses[0]:.5f} last {losses[-1]:.5f}; "
+          f"validation psnr {val_psnr}")
+    run_checks("training", {
+        f"{TRAIN_ITERS} finite losses": len(losses) == TRAIN_ITERS
+        and bool(np.isfinite(losses).all()),
+        "loss falls (mean of last 10 < first 10)": np.mean(losses[-10:]) < np.mean(losses[:10]),
+        f"kernel 4 launched {2 * TRAIN_ITERS} times": launches == 2 * TRAIN_ITERS,
+        "validation through kernel 1": render_launches >= 2 and len(val_psnr) >= 1
+        and bool(np.isfinite(val_psnr).all()),
+        ".ckpt reads back with Adam": ckpt["step"] == TRAIN_ITERS and moments_finite
+        and len(state.optimizer.state) == len(list(coarse.parameters())) * 2,
+    })
+    scene = load_scene(cfg)
 
     # ---- phase 7: kernel vs plain on one batch of the run
     s_train = render_settings_from_cfg(cfg, "train")
@@ -302,10 +379,7 @@ def train_phase(torch, np, card, dev):
         worst = max(worst, *errs.values())
         print(f"phase 7: {name} pass, {batch} rays x {z.shape[1]} samples: max abs err "
               + json.dumps({k: float(f"{e:.3e}") for k, e in errs.items()}))
-        print(f"  gradient leaves, [max abs err, max |g| of the plain version, err / max |g|] "
-              f"(limit {GRAD_RTOL:g}): " + json.dumps(
-                  {k: [float(f"{e:.3e}"), float(f"{m:.3e}"), float(f"{e / m if m else 0:.3e}")]
-                   for k, (e, m) in leaves.items()}))
+        print_leaves(leaves)
         if bad:
             raise AssertionError(f"{name} pass: kernel and plain differ in {bad}")
         per_pass[name] = args
@@ -322,17 +396,23 @@ def train_phase(torch, np, card, dev):
         ps, pr = mlp_macs(model)
         # forward and weight gradients: the same multiply-adds; plus the chain
         dw_flops += 2 * (n * s * ps + n * pr)
-        flops += 2 * (2 * (n * s * ps + n * pr) + n * s * backward_macs(model))
+        flops += train_flops(model, n, s)
         params = list(model.parameters())
         byts += nbytes(*args[1:]) + 2 * nbytes(*params) + nbytes(z) + 3 * 4 * n + 4
         ms[f"{name}_kernel"] = timed_ms(lambda: ftl.fused_pass_loss(*args), torch)
         ms[f"{name}_plain"] = timed_ms(lambda: ftl.fused_pass_loss_reference(*args), torch)
     bound_ms, bound_by = bound(flops, byts)
 
-    def step_ms(fused, reps=5):
+    def step_ms(path, reps=5):
         st = init_train_state(coarse, fine, float(cfg.optimizer.lr))
-        loss = ftl.make_fused_train_loss(coarse, fine, s_train) if fused else None
-        step = make_train_step(s_train, batch, fused_loss=loss)
+        kw = {}
+        if path in ("kernel", "resample"):
+            kw["fused_loss"] = ftl.make_fused_train_loss(
+                coarse, fine, s_train, resample="pallas" if path == "resample" else "auto")
+        elif path == "fields":
+            kw["coarse_field"], kw["fine_field"] = (
+                make_fused_flexible_field_train(m) for m in (coarse, fine))
+        step = make_train_step(s_train, batch, **kw)
         step(st, store, gen)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -341,12 +421,12 @@ def train_phase(torch, np, card, dev):
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0) / reps, (lambda: step(st, store, gen))
 
-    torch.cuda.reset_peak_memory_stats()
-    ms["step_kernel"], kernel_step = step_ms(True)
-    peak_kernel = torch.cuda.max_memory_allocated() / 2**30
-    torch.cuda.reset_peak_memory_stats()
-    ms["step_plain"], _ = step_ms(False)
-    peak_plain = torch.cuda.max_memory_allocated() / 2**30
+    peaks = {}
+    steps = {}
+    for path in ("kernel", "plain", "fields", "resample"):
+        torch.cuda.reset_peak_memory_stats()
+        ms[f"step_{path}"], steps[path] = step_ms(path)
+        peaks[path] = torch.cuda.max_memory_allocated() / 2**30
     print(f"phase 8: ms on {card} (passes: CUDA events, mean of 3; steps: host clock "
           f"around synchronize, mean of 5): " + json.dumps({k: round(t, 3) for k, t in ms.items()}))
     print(f"  kernel 4 bound for both passes: {bound_ms:.3f} ms ({bound_by}; "
@@ -354,9 +434,9 @@ def train_phase(torch, np, card, dev):
           f"{byts / 1e6:.2f} MB; at the bf16 tensor-core peak "
           f"{1e3 * flops / BF16_FLOPS:.3f} ms); achieved "
           f"{flops / (ms['coarse_kernel'] + ms['fine_kernel']) / 1e9:.2f} TFLOP/s f32; "
-          f"peak memory: kernel step {peak_kernel:.2f} GiB, plain step {peak_plain:.2f} GiB")
-    profile_steps(torch, kernel_step)
-    return {
+          f"peak memory of a step (GiB): " + json.dumps({k: round(v, 2) for k, v in peaks.items()}))
+    profile_steps(torch, steps["kernel"], {"kernel 4": KERNEL4_NAMES})
+    train_kernel = {
         "name": "fused_train_loss",
         "route": "cuda",
         "source": "dexnerf_tpu_torch/ops/csrc/fused_train_loss.cu",
@@ -369,13 +449,276 @@ def train_phase(torch, np, card, dev):
         "bound_by": bound_by,
         "library_ms": None,
     }
+    shared = types.SimpleNamespace(data=data, s_train=s_train, o=o, d=d, v=v, target=target,
+                                   z_c=z_c, draws=draws, field_step=steps["fields"])
+    return train_kernel, shared
 
 
-def profile_steps(torch, step, n=3):
-    """Device time of ``n`` train steps by part: kernel 4's launches, Adam
-    (the foreach multi-tensor kernels), the rest (glue), and idle (the span
-    from the first kernel's start to the last one's end, minus the union of
-    kernel intervals)."""
+def print_leaves(leaves):
+    print(f"  gradient leaves, [max abs err, max |g| of the plain version, err / max |g|] "
+          f"(limit {GRAD_RTOL:g}): " + json.dumps(
+              {k: [float(f"{e:.3e}"), float(f"{m:.3e}"), float(f"{e / m if m else 0:.3e}")]
+               for k, (e, m) in leaves.items()}))
+
+
+def train_flops(model, n, s):
+    """FLOPs of one pass's training work: the forward, the cotangent chain
+    and the weight gradients (multiply-adds counted from the shapes)."""
+    ps, pr = mlp_macs(model)
+    return 2 * (2 * (n * s * ps + n * pr) + n * s * backward_macs(model))
+
+
+def field_phase(torch, np, card, dev, tmp, sh):
+    """Phase 9 (the field path, ``nerf.pallas_fused_loss: false``, through
+    the CLI: kernels 2 and 3), phase 10 (both vs plain on the batch ``sh``
+    of phase 7 with the run's models, the coarse pass S = 64 and the fine
+    pass S = 128, with the cotangent of each pass's loss) and phase 13's
+    part for them (times, bounds, profile of a field-path step). Returns
+    their kernels-line entries."""
+    from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals
+    from dexnerf_tpu_torch.core.volrend import composite, ray_dists
+    from dexnerf_tpu_torch.ops import fused_mlp as fm
+    from dexnerf_tpu_torch.ops import fused_mlp_train as fmt
+
+    cfg_path, logdir, counts, losses, val, secs, peak = train_cli(
+        tmp, sh.data, "lego-tpu-fields", SLICE_ITERS, torch, dev, pallas_fused_loss=False)
+    print(f"phase 9: field path, {SLICE_ITERS} steps in {secs:.2f} s; launches "
+          f"{json.dumps(counts)}; peak {peak:.2f} GiB; loss first {losses[0]:.5f} last "
+          f"{losses[-1]:.5f}; validation psnr {val}")
+    run_checks("field path", {
+        f"{SLICE_ITERS} finite losses": len(losses) == SLICE_ITERS
+        and bool(np.isfinite(losses).all()),
+        "loss falls (mean of last 5 < first 5)": np.mean(losses[-5:]) < np.mean(losses[:5]),
+        f"kernel 2 launched {2 * SLICE_ITERS} times": counts["fused_mlp"] == 2 * SLICE_ITERS,
+        f"kernel 3 launched {2 * SLICE_ITERS} times":
+            counts["fused_mlp_train"] == 2 * SLICE_ITERS,
+        "kernel 4 not launched": counts["fused_train_loss"] == 0,
+        "validation through kernel 1": counts["fused_render"] >= 2 and len(val) >= 1
+        and bool(np.isfinite(val).all()),
+    })
+    _, coarse, fine, _ = run_models(cfg_path, logdir, SLICE_ITERS, dev)
+    s, o, d, v, target, draws = sh.s_train, sh.o, sh.d, sh.v, sh.target, sh.draws
+    kw = dict(log_sampling_xyz=s.log_sampling_xyz, log_sampling_dir=s.log_sampling_dir)
+    cases, err_fwd, err_bwd = {}, 0.0, 0.0
+    z = sh.z_c
+    for name, model, noise in (("coarse", coarse, draws.noise_coarse),
+                               ("fine", fine, draws.noise_fine)):
+        pts = (o[:, None] + d[:, None] * z[..., None]).contiguous()
+        raw_plain = fm.fused_field_reference(model, pts, v, **kw).detach()
+        leaf = raw_plain.clone().requires_grad_(True)
+        out = composite(leaf, z, ray_dists(z, d), sigma_noise=noise)
+        g = torch.autograd.grad(torch.mean((out.rgb - target) ** 2), leaf)[0].contiguous()
+        raw = fm.fused_field(model, pts, v, **kw)
+        grads = fmt._launch_backward(model, pts, v, g, **kw)
+        torch.cuda.synchronize()
+        want = fmt.field_grads_reference(model, pts, v, g, **kw)
+        bad = []
+        e_raw = float((raw - raw_plain).abs().max())
+        if not bool(torch.isfinite(raw).all()) or bool(
+                ((raw - raw_plain).abs() > ATOL + RTOL * raw_plain.abs()).any()):
+            bad.append("raw")
+        leaves = {}
+        for (pname, _), gk, gp in zip(model.named_parameters(), grads, want):
+            err, scale = float((gk - gp).abs().max()), float(gp.abs().max())
+            leaves[pname] = (err, scale)
+            err_bwd = max(err_bwd, err)
+            if not bool(torch.isfinite(gk).all()) or err > GRAD_RTOL * scale:
+                bad.append(pname)
+        err_fwd = max(err_fwd, e_raw)
+        print(f"phase 10: {name} pass, {z.shape[0]} rays x {z.shape[1]} samples: kernel 2 raw "
+              f"max abs err {e_raw:.3e} (rtol {RTOL:g}, atol {ATOL:g}); kernel 3:")
+        print_leaves(leaves)
+        if bad:
+            raise AssertionError(f"{name} pass: field kernels and plain differ in {bad}")
+        cases[name] = (model, pts, g)
+        if name == "coarse":
+            z, _ = hierarchical_z_vals(z, out.weights.detach(), s.num_fine, det=False,
+                                       u=draws.u_fine)
+
+    # ---- phase 13, kernels 2 and 3: times, bounds
+    ms = {"fwd_kernel": 0.0, "fwd_plain": 0.0, "bwd_kernel": 0.0, "bwd_plain": 0.0}
+    fwd_flops = bwd_flops = fwd_bytes = bwd_bytes = 0.0
+    with torch.no_grad():
+        for model, pts, g in cases.values():
+            n, s_ = pts.shape[:2]
+            ps, pr = mlp_macs(model)
+            fwd_flops += 2 * (n * s_ * ps + n * pr)
+            bwd_flops += train_flops(model, n, s_)
+            params = list(model.parameters())
+            fwd_bytes += nbytes(pts, v, *params) + n * s_ * 4 * 4
+            bwd_bytes += nbytes(pts, v, g) + 2 * nbytes(*params)
+            ms["fwd_kernel"] += timed_ms(lambda: fm.fused_field(model, pts, v, **kw), torch)
+            ms["fwd_plain"] += timed_ms(
+                lambda: fm.fused_field_reference(model, pts, v, **kw), torch)
+    for model, pts, g in cases.values():
+        ms["bwd_kernel"] += timed_ms(lambda: fmt._launch_backward(model, pts, v, g, **kw), torch)
+        ms["bwd_plain"] += timed_ms(lambda: fmt.field_grads_reference(model, pts, v, g, **kw),
+                                    torch)
+    fwd_bound, fwd_by = bound(fwd_flops, fwd_bytes)
+    bwd_bound, bwd_by = bound(bwd_flops, bwd_bytes)
+    print(f"phase 13: kernels 2 and 3, both passes, ms on {card} (CUDA events, mean of 3): "
+          + json.dumps({k: round(t, 3) for k, t in ms.items()}))
+    print(f"  kernel 2 bound {fwd_bound:.3f} ms ({fwd_by}; {fwd_flops / 1e12:.4f} TFLOP, "
+          f"{fwd_bytes / 1e6:.2f} MB; bf16 tensor-core peak "
+          f"{1e3 * fwd_flops / BF16_FLOPS:.3f} ms); "
+          f"kernel 3 bound {bwd_bound:.3f} ms ({bwd_by}; {bwd_flops / 1e12:.4f} TFLOP, "
+          f"{bwd_bytes / 1e6:.2f} MB; bf16 tensor-core peak "
+          f"{1e3 * bwd_flops / BF16_FLOPS:.3f} ms)")
+    # kernel 3 runs kernel 4's dW and reduce launches
+    profile_steps(torch, sh.field_step, {
+        "kernel 2": ("field_fwd_kernel",),
+        "kernel 3": ("field_bwd_kernel", "dw_kernel", "reduce_kernel"),
+    })
+    entry = dict(route="cuda", library_ms=None)
+    return [
+        {"name": "fused_field", **entry, "source": "dexnerf_tpu_torch/ops/csrc/fused_mlp.cu",
+         "replaces": "dexnerf_tpu/ops/fused_mlp.py:481", "launches": counts["fused_mlp"],
+         "max_abs_err": err_fwd, "ms": ms["fwd_kernel"], "plain_ms": ms["fwd_plain"],
+         "bound_ms": fwd_bound, "bound_by": fwd_by},
+        {"name": "fused_field_backward", **entry,
+         "source": "dexnerf_tpu_torch/ops/csrc/fused_mlp_train.cu",
+         "replaces": "dexnerf_tpu/ops/fused_mlp_train.py:221",
+         "launches": counts["fused_mlp_train"], "max_abs_err": err_bwd,
+         "ms": ms["bwd_kernel"], "plain_ms": ms["bwd_plain"], "bound_ms": bwd_bound,
+         "bound_by": bwd_by},
+    ]
+
+
+def share_within(got, want, atol, torch):
+    """(share of entries within atol, worst abs error)."""
+    err = (got - want).abs()
+    return float((err <= atol).float().mean()), float(err.max())
+
+
+def resample_phase(torch, np, card, dev, tmp, sh):
+    """Phase 11 (the fused loss with ``nerf.pallas_loss_resample: pallas``
+    through the CLI: kernel 5 between the passes of kernel 4), phase 12
+    (kernels 5 and 6 vs plain on the coarse weights of the batch ``sh`` of
+    phase 7 under the run's coarse model, with a zero-weight and a
+    near-delta ray, on the batch's draws and on the deterministic grid;
+    kernel 6 driven through its public op) and phase 13's part for them.
+    Returns their kernels-line entries."""
+    from dexnerf_tpu_torch.core.sampling import linspace
+    from dexnerf_tpu_torch.core.volrend import ray_dists
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+    from dexnerf_tpu_torch.ops import resample as rs
+    from dexnerf_tpu_torch.ops import sample_pdf as spdf
+
+    cfg_path, logdir, counts, losses, val, secs, _ = train_cli(
+        tmp, sh.data, "lego-tpu-resample", SLICE_ITERS, torch, dev,
+        pallas_loss_resample="pallas")
+    print(f"phase 11: resample path, {SLICE_ITERS} steps in {secs:.2f} s; launches "
+          f"{json.dumps(counts)}; loss first {losses[0]:.5f} last {losses[-1]:.5f}; "
+          f"validation psnr {val}")
+    run_checks("resample path", {
+        f"{SLICE_ITERS} finite losses": len(losses) == SLICE_ITERS
+        and bool(np.isfinite(losses).all()),
+        "loss falls (mean of last 5 < first 5)": np.mean(losses[-5:]) < np.mean(losses[:5]),
+        f"kernel 5 launched {SLICE_ITERS} times": counts["resample"] == SLICE_ITERS,
+        f"kernel 4 launched {2 * SLICE_ITERS} times":
+            counts["fused_train_loss"] == 2 * SLICE_ITERS,
+    })
+    _, coarse, _, _ = run_models(cfg_path, logdir, SLICE_ITERS, dev)
+    s, o, d, v, target, z_c, draws = (sh.s_train, sh.o, sh.d, sh.v, sh.target, sh.z_c,
+                                      sh.draws)
+    n = z_c.shape[0]
+    with torch.no_grad():
+        w = ftl.fused_pass_loss_reference(coarse, o, d, z_c, v, ray_dists(z_c, d),
+                                          draws.noise_coarse, target)[1].clone()
+    w[0] = 0.0  # no mass: the +1e-5 guard
+    w[1] = 0.0
+    w[1, 5] = 100.0  # near-delta
+    dn = torch.linalg.norm(d, dim=-1, keepdim=True)
+    grid = linspace(0.0, 1.0, s.num_fine, device=z_c.device).expand(n, s.num_fine).contiguous()
+    bins = (0.5 * (z_c[:, 1:] + z_c[:, :-1])).contiguous()
+    w_mid = w[:, 1:-1].contiguous()
+
+    # kernel 6 through its public op: the drop-in of core.sampling.sample_pdf
+    spdf.launches = 0
+    pdf_out = {"draws": spdf.sample_pdf_branchless(bins, w_mid, s.num_fine, det=False,
+                                                   u=draws.u_fine),
+               "det grid": spdf.sample_pdf_branchless(bins, w_mid, s.num_fine, det=True)}
+    pdf_launches = spdf.launches
+    # each output against a float64 run of the plain version: the kernel's
+    # share within the tolerances must reach the f32 plain version's own
+    # (less RESAMPLE_SLACK); the share against the f32 plain version is printed
+    f64 = [t.double() for t in (z_c, w, dn, bins, w_mid)]
+    bad, lines, err5, err6 = [], {}, 0.0, 0.0
+    for case, u in (("draws", draws.u_fine), ("det grid", grid)):
+        zm, dd = rs.fused_resample(z_c, w, u, dn)
+        torch.cuda.synchronize()
+        plain = {"z": rs.fused_resample_reference(z_c, w, u, dn)}
+        exact = {"z": rs.fused_resample_reference(f64[0], f64[1], u.double(), f64[2])}
+        plain["pdf"] = spdf.sample_pdf_reference(bins, w_mid, u)
+        exact["pdf"] = spdf.sample_pdf_reference(f64[3], f64[4], u.double())
+        line = {}
+        for key, got, want, want64, atol in (
+            ("z", zm, plain["z"][0], exact["z"][0], RESAMPLE_Z_ATOL),
+            # the last interval is 1e10 |d|, rounded to f32 on both sides
+            ("dists", dd[:, :-1], plain["z"][1][:, :-1], exact["z"][1][:, :-1],
+             RESAMPLE_D_ATOL),
+            ("sample_pdf", pdf_out[case], plain["pdf"], exact["pdf"], PDF_ATOL),
+        ):
+            share, worst = share_within(got, want, atol, torch)
+            share64, _ = share_within(got.double(), want64, atol, torch)
+            plain64, _ = share_within(want.double(), want64, atol, torch)
+            line[key] = {"vs plain": [share, worst], "kernel vs f64": share64,
+                         "plain vs f64": plain64}
+            if key == "sample_pdf":
+                err6 = max(err6, worst)
+            else:
+                err5 = max(err5, worst)
+            if share64 < plain64 - RESAMPLE_SLACK or not bool(torch.isfinite(got).all()):
+                bad.append(f"{case} {key}")
+        if not bool((zm[:, 1:] >= zm[:, :-1]).all()):
+            bad.append(f"{case} z unsorted")
+        lines[case] = line
+    print(f"phase 12: kernels 5 and 6 vs plain, {n} rays x ({s.num_coarse} + {s.num_fine}): "
+          f"shares within z {RESAMPLE_Z_ATOL:g} / dists {RESAMPLE_D_ATOL:g} / sample_pdf "
+          f"{PDF_ATOL:g} ([share, worst abs err] vs the f32 plain version; kernel and f32 "
+          f"plain vs a float64 plain run, slack {RESAMPLE_SLACK:g}): " + json.dumps(lines))
+    print(f"  kernel 6 through sample_pdf_branchless: {pdf_launches} launches")
+    if bad or pdf_launches != 2:
+        raise AssertionError(f"kernels 5/6 and plain differ: {bad}, {pdf_launches} launches")
+
+    u = draws.u_fine
+    ms = {
+        "resample_kernel": timed_ms(lambda: rs.fused_resample(z_c, w, u, dn), torch),
+        "resample_plain": timed_ms(lambda: rs.fused_resample_reference(z_c, w, u, dn), torch),
+        "sample_pdf_kernel": timed_ms(lambda: spdf.sample_pdf_pallas(bins, w_mid, u), torch),
+        "sample_pdf_plain": timed_ms(lambda: spdf.sample_pdf_reference(bins, w_mid, u), torch),
+        # context only, parts of the two functions (no single call computes either)
+        "torch_searchsorted": timed_ms(lambda: torch.searchsorted(bins, u, right=True), torch),
+        "torch_sort": timed_ms(lambda: torch.sort(torch.cat([z_c, u], -1), -1), torch),
+    }
+    sc, sf = s.num_coarse, s.num_fine
+    m = sc - 2
+    # operations: CDF (add, divide, scan), rank compares, lerp; merge compares
+    pdf_ops = n * (3 * m + sf * (m + 1) + 6 * sf)
+    rs_ops = pdf_ops + n * (sc * sf + sf * (sc + 2 * sf) + 2 * (sc + sf))
+    rs_bound, rs_by = bound(rs_ops, nbytes(z_c, w, u, dn) + 2 * 4 * n * (sc + sf))
+    pdf_bound, pdf_by = bound(pdf_ops, nbytes(bins, w_mid, u) + 4 * n * sf)
+    print(f"phase 13: kernels 5 and 6, ms on {card} (CUDA events, mean of 3): "
+          + json.dumps({k: round(t, 4) for k, t in ms.items()}))
+    print(f"  kernel 5 bound {1e3 * rs_bound:.3f} us ({rs_by}); kernel 6 bound "
+          f"{1e3 * pdf_bound:.3f} us ({pdf_by})")
+    entry = dict(route="cuda", source="dexnerf_tpu_torch/ops/csrc/resample.cu", library_ms=None)
+    return [
+        {"name": "fused_resample", **entry, "replaces": "dexnerf_tpu/ops/resample_pallas.py:119",
+         "launches": counts["resample"], "max_abs_err": err5, "ms": ms["resample_kernel"],
+         "plain_ms": ms["resample_plain"], "bound_ms": rs_bound, "bound_by": rs_by},
+        {"name": "sample_pdf", **entry, "replaces": "dexnerf_tpu/ops/sample_pdf_pallas.py:37",
+         "launches": pdf_launches, "max_abs_err": err6, "ms": ms["sample_pdf_kernel"],
+         "plain_ms": ms["sample_pdf_plain"], "bound_ms": pdf_bound, "bound_by": pdf_by},
+    ]
+
+
+def profile_steps(torch, step, kernels_of, n=3):
+    """Device time of ``n`` train steps by part: each entry of
+    ``kernels_of`` (label -> kernel name fragments), Adam (the foreach
+    multi-tensor kernels), the rest (glue), and idle (the span from the
+    first kernel's start to the last one's end, minus the union of kernel
+    intervals)."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -392,16 +735,13 @@ def profile_steps(torch, step, n=3):
     if not kernels:
         print("  profile: torch.profiler recorded no device events (not measured)")
         return
-    parts = {"kernel 4": 0.0, "Adam": 0.0, "glue": 0.0}
+    parts = {**{k: 0.0 for k in kernels_of}, "Adam": 0.0, "glue": 0.0}
     names = {}
     for name, t0, t1 in kernels:
-        if any(k in name for k in ("train_pass_kernel", "dw_kernel", "reduce_kernel",
-                                   "sum_rays_kernel")):
-            part = "kernel 4"
-        elif "multi_tensor" in name or "adam" in name.lower():
-            part = "Adam"
-        else:
-            part = "glue"
+        part = next((k for k, frags in kernels_of.items() if any(f in name for f in frags)),
+                    None)
+        if part is None:
+            part = "Adam" if "multi_tensor" in name or "adam" in name.lower() else "glue"
         parts[part] += t1 - t0
         names[name[:60]] = names.get(name[:60], 0.0) + t1 - t0
     spans = sorted((t0, t1) for _, t0, t1 in kernels)
@@ -417,7 +757,7 @@ def profile_steps(torch, step, n=3):
     per_step = {k: round(v / n / 1e3, 3) for k, v in parts.items()}
     per_step["idle"] = round((span - busy) / n / 1e3, 3)
     per_step["span"] = round(span / n / 1e3, 3)
-    print(f"  profile, ms per step over {n} kernel-path steps ({len(kernels)} device events): "
+    print(f"  profile, ms per step over {n} steps ({len(kernels)} device events): "
           + json.dumps(per_step))
     top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
     print("  top device ops, ms per step: "
@@ -613,7 +953,10 @@ def main() -> int:
 
     print("phase 5: ms per call on " + card + ": " + json.dumps(
         {k: round(t, 3) for k, t in ms.items()}))
-    train_kernel = train_phase(torch, np, card, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_kernel, shared = train_phase(torch, np, card, dev, tmp)
+        field_kernels = field_phase(torch, np, card, dev, tmp, shared)
+        resample_kernels = resample_phase(torch, np, card, dev, tmp, shared)
     print(json.dumps({"kernels": [{
         "name": "fused_render",
         "route": "cuda",
@@ -626,7 +969,7 @@ def main() -> int:
         "bound_ms": render_bound,
         "bound_by": render_bound_by,
         "library_ms": None,
-    }, train_kernel]}))
+    }, train_kernel, *field_kernels, *resample_kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -7,7 +7,10 @@ Counterpart of ``dexnerf_tpu/apps/train.py``:
     python -m dexnerf_tpu_torch.apps.train --config ... --load-checkpoint model.ckpt
 
 With ``nerf.use_pallas`` every render pass of every step goes through the
-fused train-loss kernel. The flags of modes that are not ported yet are
+fused train-loss kernel (with ``nerf.pallas_loss_resample: pallas``, the
+resample between the passes through the fused resample kernel), or, with
+``nerf.pallas_fused_loss: false``, through the fused field kernels
+(forward and backward). The flags of modes that are not ported yet are
 accepted and raise ``NotImplementedError`` naming the ROADMAP item.
 """
 

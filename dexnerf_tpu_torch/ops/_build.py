@@ -141,9 +141,25 @@ def load_library() -> ctypes.CDLL:
         lib.dexnerf_train_dw.restype = ci
         lib.dexnerf_train_reduce.argtypes = (
             [vp, ci, ctypes.c_longlong, vp]  # partials, parts, params, grad
-            + [vp, ci, vp, vp]               # per-ray losses, rays, loss, stream
+            + [vp, ci, vp, vp]               # per-ray losses, rays, loss (or null), stream
         )
         lib.dexnerf_train_reduce.restype = ci
+        lib.dexnerf_field_args_size.argtypes = []
+        lib.dexnerf_field_args_size.restype = ci
+        lib.dexnerf_field_forward.argtypes = [vp, vp]  # args block (host), stream
+        lib.dexnerf_field_forward.restype = ci
+        lib.dexnerf_field_backward.argtypes = [vp, vp]  # args block (host), stream
+        lib.dexnerf_field_backward.restype = ci
+        lib.dexnerf_resample.argtypes = (
+            [vp] * 6             # z_coarse, weights, u, dir_norms, z_out, d_out
+            + [ci] * 3 + [vp]    # n_rays, sc, sf, stream
+        )
+        lib.dexnerf_resample.restype = ci
+        lib.dexnerf_sample_pdf.argtypes = (
+            [vp] * 4             # bins, weights, u, out
+            + [ci] * 3 + [vp]    # n_rays, M, n, stream
+        )
+        lib.dexnerf_sample_pdf.restype = ci
         lib.dexnerf_cuda_error_string.argtypes = [ci]
         lib.dexnerf_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

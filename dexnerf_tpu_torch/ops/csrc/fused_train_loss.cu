@@ -25,7 +25,9 @@
 // Design, in two launches per chunk of rays and two per pass:
 // * train_pass_kernel, one CTA of 128 threads per ray (as the render
 //   kernel): the ray's samples go through the MLP in tiles of 64 with the
-//   activations in shared memory (mlp_tile.cuh), and every layer's
+//   activations in shared memory (mlp_tile.cuh; the tile's forward and
+//   cotangent chain are mlp_chain.cuh's, shared with the field backward
+//   kernel of fused_mlp_train.cu), and every layer's
 //   activations are also written to a device-memory scratch, feature-major
 //   [row][sample], with streaming stores: the scratch is read once, by
 //   dw_kernel, and must not evict the weights that every CTA reads from
@@ -50,17 +52,18 @@
 //   input contributes (sum_s delta_s) x dir_enc per ray.
 // * reduce_kernel sums the slots of every chunk in a fixed order, and
 //   sum_rays_kernel the per-ray losses: runs are bitwise repeatable. The
+//   field backward kernel (fused_mlp_train.cu) fills the same scratch and
+//   runs the same dW and reduce launches (dexnerf_train_dw,
+//   dexnerf_train_reduce; without per-ray losses). The
 //   slots cost chunks x n_splits x parameters floats (~190 MB for 8x128 at
 //   batch 8192 on 132 SMs).
 
 #include <cuda_runtime.h>
 
-#include "mlp_tile.cuh"
+#include "mlp_chain.cuh"
 
 namespace {
 
-constexpr int kMaxLayers = 40;
-constexpr int kMaxFreq = 16;
 constexpr int kMaxSamplesPad = 256;
 constexpr int kMaxItems = 40;
 constexpr int kTile = 128;  // dW tile edge (M and N)
@@ -101,26 +104,6 @@ struct TrainArgs {
   int wb_off[kMaxLayers];
   float bands_x[kMaxFreq];
   float bands_d[kMaxFreq];
-};
-
-// Scratch rows. act: e (dx rows), a_0..a_nt (H each: layer1's output, then
-// the trunk's), feat (H), y (H/2). dlt: delta_0..delta_nt (H each), feat
-// (H), sigma (1), y (H/2), rgb (3). Offsets are in floats for k columns;
-// ops/fused_train_loss.py reads them (k = 1) through dexnerf_train_rows.
-struct Rows {
-  long long k;
-  int dx, H, nt;
-  __host__ __device__ long long e() const { return 0; }
-  __host__ __device__ long long a(int i) const { return (long long)(dx + i * H) * k; }
-  __host__ __device__ long long feat() const { return (long long)(dx + (nt + 1) * H) * k; }
-  __host__ __device__ long long y() const { return feat() + (long long)H * k; }
-  __host__ __device__ long long act_end() const { return y() + (long long)(H / 2) * k; }
-  __host__ __device__ long long d(int i) const { return (long long)i * H * k; }
-  __host__ __device__ long long dfeat() const { return (long long)(nt + 1) * H * k; }
-  __host__ __device__ long long dsig() const { return (long long)(nt + 2) * H * k; }
-  __host__ __device__ long long dy() const { return dsig() + k; }
-  __host__ __device__ long long drgb(int c) const { return dy() + (long long)(H / 2 + c) * k; }
-  __host__ __device__ long long dlt_end() const { return drgb(3); }
 };
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
@@ -165,82 +148,22 @@ train_pass_kernel(const TrainArgs p) {
     gsig[s] = 0.f;
     grgb[s] = grgb[SP + s] = grgb[2 * SP + s] = 0.f;
   }
-  if (tid < 3) encode(p.viewdirs[ray * 3 + tid], tid, p.fd, p.inc_d, p.bands_d, dirE, 1);
   const float o[3] = {p.origins[ray * 3], p.origins[ray * 3 + 1], p.origins[ray * 3 + 2]};
   const float dv[3] = {p.dirs[ray * 3], p.dirs[ray * 3 + 1], p.dirs[ray * 3 + 2]};
-  __syncthreads();
-
-  // layer order: layer1, trunk[0..nt), fc_feat, fc_alpha, layers_dir.0, fc_rgb
-  const float* W = p.wf;
-  const int L_FEAT = nt + 1, L_ALPHA = nt + 2, L_DIR = nt + 3, L_RGB = nt + 4;
+  viewdir_bias(p, p.viewdirs + ray * 3, dirE, dirb);
   for (int k = tid; k < dd; k += kThreads) p.dir_enc[(long long)k * p.n_rays + r] = dirE[k];
-  for (int c = tid; c < H2; c += kThreads) {
-    const float* wd = W + p.w_off[L_DIR] + H * H2 + c;
-    float v = 0.f;
-    for (int k = 0; k < dd; ++k) v = fmaf(dirE[k], wd[k * H2], v);
-    dirb[c] = W[p.b_off[L_DIR] + c] + v;
-    dys[c] = 0.f;
-  }
+  for (int c = tid; c < H2; c += kThreads) dys[c] = 0.f;
 
   // ---- forward, one tile of kSlots samples at a time; activations saved
   for (int base = 0; base < SP; base += kSlots) {
-    const long long col = col0 + base;
     for (int i = tid; i < 3 * kSlots; i += kThreads) {
       const int s = i % kSlots, d = i / kSlots;
       const float pt = __fadd_rn(o[d], __fmul_rn(dv[d], zs[base + s]));
       encode(pt, d, p.fx, p.inc_x, p.bands_x, E + s, kSlots);
     }
     __syncthreads();
-    for (int i = tid; i < dx * (kSlots / 4); i += kThreads) {
-      const int row = i / (kSlots / 4), q = 4 * (i % (kSlots / 4));
-      __stcs(reinterpret_cast<float4*>(p.act + R.e() + row * p.k + col + q),
-             *reinterpret_cast<const float4*>(E + row * kSlots + q));
-    }
-    const int mw = base / 32;  // this tile's first mask word
-    dense<false>(E, dx, nullptr, 0, W + p.w_off[0], W + p.b_off[0], H, bufA,
-                 p.act + R.a(0) + col, p.k);
-    __syncthreads();
-    float* cur = bufA;
-    float* nxt = bufB;
-    for (int i = 0; i < nt; ++i) {
-      const bool skip = (p.skip_mask >> i) & 1;
-      dense<true>(cur, H, skip ? E : nullptr, skip ? dx : 0, W + p.w_off[1 + i],
-                  W + p.b_off[1 + i], H, nxt, p.act + R.a(i + 1) + col, p.k,
-                  mk + i * H * SPW + mw, nullptr, SPW);
-      __syncthreads();
-      float* t = cur;
-      cur = nxt;
-      nxt = t;
-    }
-    // cur = trunk output h: feat -> nxt, sigma head from h
-    dense<true>(cur, H, nullptr, 0, W + p.w_off[L_FEAT], W + p.b_off[L_FEAT], H, nxt,
-                p.act + R.feat() + col, p.k, mk + nt * H * SPW + mw, nullptr, SPW);
-    if (tid < kSlots) {
-      const float* wa = W + p.w_off[L_ALPHA];
-      float v = 0.f;
-      for (int k = 0; k < H; ++k) v = fmaf(cur[k * kSlots + tid], wa[k], v);
-      sig[base + tid] = v + W[p.b_off[L_ALPHA]];
-    }
-    __syncthreads();
-    // viewdir layer on feat (rows [0, H)) -> cur
-    dense<true>(nxt, H, nullptr, 0, W + p.w_off[L_DIR], dirb, H2, cur,
-                p.act + R.y() + col, p.k, mk + (nt + 1) * H * SPW + mw, nullptr, SPW);
-    __syncthreads();
-    if (tid < kSlots) {
-      const float* wr = W + p.w_off[L_RGB];
-      const float* br = W + p.b_off[L_RGB];
-      float v0 = 0.f, v1 = 0.f, v2 = 0.f;
-      for (int k = 0; k < H2; ++k) {
-        const float y = cur[k * kSlots + tid];
-        v0 = fmaf(y, wr[k * 3], v0);
-        v1 = fmaf(y, wr[k * 3 + 1], v1);
-        v2 = fmaf(y, wr[k * 3 + 2], v2);
-      }
-      rgbc[base + tid] = v0 + br[0];
-      rgbc[SP + base + tid] = v1 + br[1];
-      rgbc[2 * SP + base + tid] = v2 + br[2];
-    }
-    __syncthreads();
+    field_forward_tile<true, true>(p, dirb, E, bufA, bufB, col0 + base, R, mk, base / 32,
+                                   SPW, sig + base, rgbc + base, SP);
   }
 
   // ---- compositing, loss and compositing backward. The per-sample work
@@ -367,48 +290,11 @@ train_pass_kernel(const TrainArgs p) {
   for (int s = tid; s < S; s += kThreads) p.weights_out[ray * S + s] = wts[s];
 
   // ---- MLP backward, tile by tile: deltas saved for the dW launch
-  const float* WB = p.wb;
   for (int base = 0; base < SP; base += kSlots) {
-    const long long col = col0 + base;
-    const int mw = base / 32;
-    for (int i = tid; i < 4 * kSlots; i += kThreads) {
-      const int row = i / kSlots, s = i % kSlots;
-      const float v = row < 3 ? grgb[row * SP + base + s] : gsig[base + s];
-      gt[row * kSlots + s] = v;
-      __stcs(p.dlt + (row < 3 ? R.drgb(row) : R.dsig()) + col + s, v);
-    }
-    __syncthreads();
-    // y delta = (rgb cotangent x W_rgb^T) * [y > 0]
-    dense<false>(gt, 3, nullptr, 0, WB + p.wb_off[0], nullptr, H2, bufA,
-                 p.dlt + R.dy() + col, p.k, nullptr, mk + (nt + 1) * H * SPW + mw, SPW);
-    __syncthreads();
-    if (tid < H2) {
-      float v = 0.f;
-      for (int s = 0; s < kSlots; ++s) v += bufA[tid * kSlots + s];
-      dys[tid] += v;
-    }
-    // feat delta = (y delta x W_dir[:, :H]^T) * [feat > 0]
-    dense<false>(bufA, H2, nullptr, 0, WB + p.wb_off[1], nullptr, H, bufB,
-                 p.dlt + R.dfeat() + col, p.k, nullptr, mk + nt * H * SPW + mw, SPW);
-    __syncthreads();
-    // h delta = (feat delta x W_feat^T + sigma cotangent x w_alpha) * [h > 0]
-    dense<false>(bufB, H, gt + 3 * kSlots, 1, WB + p.wb_off[2], nullptr, H, bufA,
-                 p.dlt + R.d(nt) + col, p.k, nullptr,
-                 nt > 0 ? mk + (nt - 1) * H * SPW + mw : nullptr, SPW);
-    __syncthreads();
-    float* cur = bufA;
-    float* nxt = bufB;
-    for (int i = nt - 1; i >= 0; --i) {
-      // a_i delta = (a_{i+1} delta x W_i[:, :H]^T) * [a_i > 0]; a_0 = layer1
-      // output has no ReLU
-      dense<false>(cur, H, nullptr, 0, WB + p.wb_off[3 + i], nullptr, H, nxt,
-                   p.dlt + R.d(i) + col, p.k, nullptr,
-                   i > 0 ? mk + (i - 1) * H * SPW + mw : nullptr, SPW);
-      __syncthreads();
-      float* t = cur;
-      cur = nxt;
-      nxt = t;
-    }
+    const auto g = [&](int row, int s) {
+      return row < 3 ? grgb[row * SP + base + s] : gsig[base + s];
+    };
+    field_backward_tile(p, g, gt, bufA, bufB, col0 + base, R, mk, base / 32, SPW, dys);
   }
   for (int c = tid; c < H2; c += kThreads) p.dy_sum[(long long)c * p.n_rays + r] = dys[c];
 }
@@ -622,8 +508,9 @@ int dexnerf_train_args_size(int which) {
   return which == 0 ? (int)sizeof(TrainArgs) : (int)sizeof(GemmArgs);
 }
 
-// The scratch layout of Rows, in rows: act and dlt row counts, then the
-// first row of e, feat, y, the sigma, y and rgb cotangents, then
+// The scratch layout of Rows (mlp_chain.cuh), in rows: act and dlt row
+// counts, then the first row of e, feat, y, the sigma, y and rgb
+// cotangents, then
 // a_0..a_nt, then delta_0..delta_{nt+1} (the last is feat's): 2 nt + 11
 // ints in `rows`, whose length is `n`.
 int dexnerf_train_rows(int dx, int hidden, int num_trunk, int* rows, int n) {
@@ -669,6 +556,8 @@ int dexnerf_train_dw(const void* args, int n_tiles, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// The gradient sum of every slot; with `loss` non-null, also the sum of the
+// n_rays per-ray losses.
 int dexnerf_train_reduce(const float* partial, int n_parts, long long n_params,
                          float* grad, const float* loss_ray, int n_rays, float* loss,
                          void* stream) {
@@ -676,7 +565,7 @@ int dexnerf_train_reduce(const float* partial, int n_parts, long long n_params,
   reduce_kernel<<<(unsigned)((n_params + 255) / 256), 256, 0, s>>>(partial, n_parts,
                                                                     n_params, grad);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || loss == nullptr) return (int)err;
   sum_rays_kernel<<<1, kSumThreads, 0, s>>>(loss_ray, n_rays, loss);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,184 @@
+"""Fused field evaluation: positional encoding -> FlexibleNeRF MLP -> raw
+[N, S, 4], with the encodings and activations kept on chip.
+
+Counterpart of ``dexnerf_tpu/ops/fused_mlp.py`` (``make_fused_flexible_field``),
+whose Pallas kernel (``_make_fwd_kernel``) this module's CUDA kernel
+(``ops/csrc/fused_mlp.cu``, built by ``ops/_build.py``) replaces. On a CUDA
+tensor :func:`fused_field` launches the kernel; on a CPU tensor it runs
+:func:`fused_field_reference`, the plain PyTorch version (``model`` on the
+encodings). There is no fallback between the two: a CUDA call that cannot
+launch raises. The port's weights live in the model, so a field function
+is bound to its model when it is built: ``field(pts, viewdirs) -> raw``.
+
+The kernel is bound by f32 FMA work (~156k multiply-adds per sample of the
+8x128 model); its times are in ``PERF.md``. It is also the forward of the
+training field (``ops/fused_mlp_train.py``). ``launches`` counts kernel
+launches (+1 per launch, nowhere else).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dexnerf_tpu_torch.core.encoding import frequency_bands, positional_encoding
+from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
+from dexnerf_tpu_torch.ops.fused_render import pack_flex_weights
+
+launches = 0
+
+# limits of ops/csrc/mlp_chain.cuh
+MAX_LAYERS = 40
+MAX_FREQ = 16
+MAX_HIDDEN = 128
+SLOTS = 64  # samples per MLP tile
+
+
+class _FieldArgs(ctypes.Structure):
+    """Mirror of ``FieldArgs`` in ops/csrc/mlp_chain.cuh (kernels 2 and 3)."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in ("pts", "viewdirs", "g", "wf", "wb", "raw", "act", "dlt", "dir_enc", "dy_sum")
+    ] + [("k", ctypes.c_int64)] + [
+        (name, ctypes.c_int32)
+        for name in (
+            "ray0", "n_rays", "n_samples", "s_pad", "hidden", "num_trunk", "skip_mask",
+            "fx", "fd", "inc_x", "inc_d",
+        )
+    ] + [
+        ("w_off", ctypes.c_int32 * MAX_LAYERS),
+        ("b_off", ctypes.c_int32 * MAX_LAYERS),
+        ("wb_off", ctypes.c_int32 * MAX_LAYERS),
+        ("bands_x", ctypes.c_float * MAX_FREQ),
+        ("bands_d", ctypes.c_float * MAX_FREQ),
+    ]
+
+
+def fused_field_reference(
+    model: FlexibleNeRFModel,
+    pts: torch.Tensor,
+    viewdirs: torch.Tensor,
+    *,
+    log_sampling_xyz: bool = True,
+    log_sampling_dir: bool = True,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's contract: ``model`` on the
+    encodings of ``pts`` [N, S, 3] and of the per-ray ``viewdirs`` [N, 3]
+    -> raw [N, S, 4] (rgb logits, σ logit). Differentiable."""
+    xyz = positional_encoding(
+        pts, model.num_encoding_fn_xyz, model.include_input_xyz, log_sampling_xyz
+    )
+    view = positional_encoding(
+        viewdirs, model.num_encoding_fn_dir, model.include_input_dir, log_sampling_dir
+    )
+    return model(xyz, view)
+
+
+def check_field_inputs(model, tensors) -> None:
+    """Device, dtype, contiguity and shape of ``tensors`` ((name, tensor,
+    shape), ...) and the model's fit to the kernels' limits."""
+    if not isinstance(model, FlexibleNeRFModel):
+        raise TypeError(f"the field kernels take FlexibleNeRFModel, not {type(model)}")
+    dev = tensors[0][1].device
+    for name, t, shape in tensors:
+        if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                f"{name}: need a contiguous float32 tensor on {dev}, got "
+                f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+            )
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    for p in model.parameters():
+        if p.device != dev or p.dtype != torch.float32:
+            raise ValueError(f"model parameters must be float32 on {dev}")
+    H = model.hidden_size
+    if H > MAX_HIDDEN or H % 8 or H < 8:
+        raise ValueError(f"hidden_size {H}: the kernels take multiples of 8 up to {MAX_HIDDEN}")
+    nt = model.num_layers - 1
+    if nt + 5 > MAX_LAYERS or nt > 31:
+        raise ValueError(f"{model.num_layers} layers: too deep for the kernels")
+    if max(model.num_encoding_fn_xyz, model.num_encoding_fn_dir) > MAX_FREQ:
+        raise ValueError(f"the kernels take at most {MAX_FREQ} PE frequencies")
+
+
+def field_args(lib, model, pts, viewdirs, *, log_sampling_xyz, log_sampling_dir):
+    """A ``_FieldArgs`` with the inputs, the packed forward weights and the
+    model's layout filled in, and the weight buffer it points to (keep it
+    alive until the launch)."""
+    if lib.dexnerf_field_args_size() != ctypes.sizeof(_FieldArgs):
+        raise RuntimeError(
+            f"_FieldArgs is {ctypes.sizeof(_FieldArgs)} bytes here but "
+            f"{lib.dexnerf_field_args_size()} in the kernel library"
+        )
+    wf, f_off = pack_flex_weights(model, pts.device)
+    args = _FieldArgs()
+    args.pts, args.viewdirs, args.wf = pts.data_ptr(), viewdirs.data_ptr(), wf.data_ptr()
+    args.n_rays, args.n_samples = pts.shape[0], pts.shape[1]
+    args.hidden, args.num_trunk = model.hidden_size, model.num_layers - 1
+    args.skip_mask = sum(1 << i for i in model.skips)
+    args.fx, args.fd = model.num_encoding_fn_xyz, model.num_encoding_fn_dir
+    args.inc_x, args.inc_d = int(model.include_input_xyz), int(model.include_input_dir)
+    args.w_off[:len(f_off) // 2] = f_off[0::2]
+    args.b_off[:len(f_off) // 2] = f_off[1::2]
+    bx = frequency_bands(model.num_encoding_fn_xyz, log_sampling_xyz).tolist()
+    bd = frequency_bands(model.num_encoding_fn_dir, log_sampling_dir).tolist()
+    args.bands_x[:len(bx)] = bx
+    args.bands_d[:len(bd)] = bd
+    return args, wf
+
+
+def _launch(model, pts, viewdirs, *, log_sampling_xyz, log_sampling_dir) -> torch.Tensor:
+    global launches
+    from dexnerf_tpu_torch.ops._build import check, load_library
+
+    N, S = pts.shape[:2]
+    check_field_inputs(model, [("pts", pts, (N, S, 3)), ("viewdirs", viewdirs, (N, 3))])
+    lib = load_library()
+    args, wf = field_args(lib, model, pts, viewdirs, log_sampling_xyz=log_sampling_xyz,
+                          log_sampling_dir=log_sampling_dir)
+    raw = torch.empty((N, S, 4), dtype=torch.float32, device=pts.device)
+    args.raw = raw.data_ptr()
+    stream = torch.cuda.current_stream(pts.device).cuda_stream
+    check(lib, lib.dexnerf_field_forward(ctypes.addressof(args), stream),
+          "fused field forward launch")
+    launches += 1
+    return raw
+
+
+@torch.no_grad()
+def fused_field(
+    model: FlexibleNeRFModel,
+    pts: torch.Tensor,
+    viewdirs: torch.Tensor,
+    *,
+    log_sampling_xyz: bool = True,
+    log_sampling_dir: bool = True,
+) -> torch.Tensor:
+    """raw [N, S, 4] of ``model`` at ``pts`` [N, S, 3] seen along the
+    per-ray ``viewdirs`` [N, 3]; forward only (the training field is
+    ``ops.fused_mlp_train``). CUDA tensors go through the kernel, CPU
+    tensors through :func:`fused_field_reference`."""
+    kw = dict(log_sampling_xyz=log_sampling_xyz, log_sampling_dir=log_sampling_dir)
+    if pts.device.type == "cuda":
+        return _launch(model, pts, viewdirs, **kw)
+    if pts.device.type == "cpu":
+        return fused_field_reference(model, pts, viewdirs, **kw)
+    raise ValueError(f"no fused field for device {pts.device}")
+
+
+def make_fused_flexible_field(
+    model: FlexibleNeRFModel, *, log_sampling_xyz: bool = True, log_sampling_dir: bool = True
+):
+    """``field(pts [N, S, 3], viewdirs [N, 3]) -> raw [N, S, 4]`` through
+    :func:`fused_field` on ``model`` (the counterpart of
+    ``make_fused_flexible_field``, whose weights are an argument instead)."""
+
+    def field(pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
+        return fused_field(
+            model, pts.contiguous(), viewdirs.contiguous(),
+            log_sampling_xyz=log_sampling_xyz, log_sampling_dir=log_sampling_dir,
+        )
+
+    return field

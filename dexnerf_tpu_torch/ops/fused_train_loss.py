@@ -24,7 +24,9 @@ chunks of ``SCRATCH_SAMPLES`` samples (~2.6 GB for 8x128, whatever the
 batch). The weight gradients, products over every sample of the batch,
 are summed by CTAs that each own a 128 x 128 tile and a K-range, into
 separate slots, and the slots are reduced in a fixed order: no atomics,
-bitwise-repeatable runs. Measured times: ``PERF.md``.
+bitwise-repeatable runs. The scratch and those launches are
+``ops/_weight_grads.py``'s, shared with the field backward (kernel 3).
+Measured times: ``PERF.md``.
 
 ``launches`` counts kernel calls (+1 per pass, where the pass launches its
 group of ``__global__`` kernels; nowhere else), so a run can show that its
@@ -34,16 +36,23 @@ path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
 from dexnerf_tpu_torch.core.encoding import frequency_bands, positional_encoding
 from dexnerf_tpu_torch.core.metrics import luminance
-from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals
+from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals, linspace
 from dexnerf_tpu_torch.core.volrend import composite, ray_dists
 from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
+from dexnerf_tpu_torch.ops._weight_grads import (
+    MAX_ITEMS,
+    WeightGradients,
+    check_gemm_args_size,
+    pack_backward_weights,
+)
 from dexnerf_tpu_torch.ops.fused_render import pack_flex_weights
+from dexnerf_tpu_torch.ops.resample import make_fused_resample
 from dexnerf_tpu_torch.render.renderer import (
     RayBatch,
     RenderDraws,
@@ -61,8 +70,6 @@ MAX_LAYERS = 40
 MAX_FREQ = 16
 MAX_SAMPLES = 256
 MAX_HIDDEN = 128
-MAX_ITEMS = 40
-TILE = 128
 SUPERVISION = ("rgb", "luminance")
 
 
@@ -90,66 +97,6 @@ class _TrainArgs(ctypes.Structure):
         ("bands_x", ctypes.c_float * MAX_FREQ),
         ("bands_d", ctypes.c_float * MAX_FREQ),
     ]
-
-
-class _GemmItem(ctypes.Structure):
-    """Mirror of ``GemmItem``: one weight-gradient product."""
-
-    _fields_ = [
-        ("a", ctypes.c_void_p), ("b", ctypes.c_void_p),
-        ("ld", ctypes.c_int64), ("k", ctypes.c_int64),
-    ] + [
-        (name, ctypes.c_int32)
-        for name in ("m", "n", "m_tiles", "tile0", "w_off", "ldw", "col_off", "b_off")
-    ]
-
-
-class _GemmArgs(ctypes.Structure):
-    _fields_ = [
-        ("items", _GemmItem * MAX_ITEMS),
-        ("partial", ctypes.c_void_p),
-        ("n_params", ctypes.c_int64),
-        ("n_items", ctypes.c_int32),
-        ("n_splits", ctypes.c_int32),
-        ("part0", ctypes.c_int32),
-    ]
-
-
-def pack_backward_weights(model: FlexibleNeRFModel, device=None) -> Tuple[torch.Tensor, list]:
-    """The matrices the cotangent chain multiplies by, each ``[out, in]``
-    row-major as ``nn.Linear.weight`` keeps it (the transpose of the
-    forward pack), cut to the input columns that carry a gradient, each
-    starting on a 16-byte boundary: ``fc_rgb`` [3, H/2], ``layers_dir.0``
-    [H/2, :H], ``fc_feat`` with ``fc_alpha`` as one more row [H + 1, H],
-    then ``layers_xyz.i`` [H, :H]. Returns the buffer and the offsets."""
-    H = model.hidden_size
-    mats = [
-        model.fc_rgb.weight,
-        model.layers_dir[0].weight[:, :H],
-        torch.cat([model.fc_feat.weight, model.fc_alpha.weight], dim=0),
-        *(lin.weight[:, :H] for lin in model.layers_xyz),
-    ]
-    chunks, offsets, pos = [], [], 0
-    for m in mats:
-        pad = -pos % 4
-        if pad:
-            chunks.append(torch.zeros(pad, dtype=torch.float32, device=m.device))
-            pos += pad
-        offsets.append(pos)
-        flat = m.detach().reshape(-1).to(torch.float32)
-        chunks.append(flat)
-        pos += flat.numel()
-    return torch.cat(chunks).to(device), offsets
-
-
-def _param_offsets(model) -> Tuple[dict, int]:
-    """Offset of every parameter in the flat gradient, in
-    ``model.named_parameters()`` order, and the total count."""
-    offs, pos = {}, 0
-    for name, p in model.named_parameters():
-        offs[name] = pos
-        pos += p.numel()
-    return offs, pos
 
 
 def pass_loss_sum(rgb: torch.Tensor, target: torch.Tensor, supervision: str) -> torch.Tensor:
@@ -230,84 +177,12 @@ def _check_inputs(model, dev, tensors, S: int) -> None:
 
 
 def _check_struct_sizes(lib) -> None:
-    for which, struct in ((0, _TrainArgs), (1, _GemmArgs)):
-        if lib.dexnerf_train_args_size(which) != ctypes.sizeof(struct):
-            raise RuntimeError(
-                f"{struct.__name__} is {ctypes.sizeof(struct)} bytes here but "
-                f"{lib.dexnerf_train_args_size(which)} in the kernel library"
-            )
-
-
-def _scratch_rows(lib, model) -> dict:
-    """The scratch layout as the kernel library defines it (``Rows`` in
-    ops/csrc/fused_train_loss.cu), in rows of ``k`` floats: the row counts
-    ``act_rows``/``dlt_rows``, the first row of each named block, and the
-    lists ``a`` (layer1's output, then the trunk's) and ``d`` (their
-    cotangents, then feat's)."""
-    from dexnerf_tpu_torch.ops._build import check
-
-    nt = model.num_layers - 1
-    buf = (ctypes.c_int * (2 * nt + 11))()
-    check(lib, lib.dexnerf_train_rows(model.dim_xyz, model.hidden_size, nt, buf, len(buf)),
-          "fused_train_loss scratch layout")
-    names = ("act_rows", "dlt_rows", "e", "feat", "y", "dsig", "dy", "drgb")
-    rows = dict(zip(names, buf))
-    rows["a"] = list(buf[len(names):len(names) + nt + 1])
-    rows["d"] = list(buf[len(names) + nt + 1:])
-    return rows
-
-
-def _dw_items(model, rows, act, dlt, dir_enc, dy_sum, k: int, rays: int, offs: dict):
-    """The weight-gradient products of one chunk (``k`` scratch columns,
-    ``rays`` rays, scratch layout ``rows``) as (a, b, ld, K, M, N, w_off,
-    ldw, col_off, b_off)."""
-    H, H2, nt = model.hidden_size, model.hidden_size // 2, model.num_layers - 1
-    dx, dd = model.dim_xyz, model.dim_dir
-    a, d = rows["a"], rows["d"]
-
-    def act_row(r):
-        return act.data_ptr() + 4 * r * k
-
-    def dlt_row(r):
-        return dlt.data_ptr() + 4 * r * k
-
-    e = act_row(rows["e"])
-    items = [(e, dlt_row(d[0]), k, k, dx, H, offs["layer1.weight"], dx, 0,
-              offs["layer1.bias"])]
-    for i, lin in enumerate(model.layers_xyz):
-        w, b = offs[f"layers_xyz.{i}.weight"], offs[f"layers_xyz.{i}.bias"]
-        n_in = lin.in_features
-        items.append((act_row(a[i]), dlt_row(d[i + 1]), k, k, H, H, w, n_in, 0, b))
-        if i in model.skips:
-            items.append((e, dlt_row(d[i + 1]), k, k, dx, H, w, n_in, H, -1))
-    items += [
-        (act_row(a[nt]), dlt_row(d[nt + 1]), k, k, H, H, offs["fc_feat.weight"], H, 0,
-         offs["fc_feat.bias"]),
-        (act_row(a[nt]), dlt_row(rows["dsig"]), k, k, H, 1, offs["fc_alpha.weight"], H, 0,
-         offs["fc_alpha.bias"]),
-        (act_row(rows["feat"]), dlt_row(rows["dy"]), k, k, H, H2,
-         offs["layers_dir.0.weight"], H + dd, 0, offs["layers_dir.0.bias"]),
-        (dir_enc.data_ptr(), dy_sum.data_ptr(), rays, rays, dd, H2,
-         offs["layers_dir.0.weight"], H + dd, H, -1),
-        (act_row(rows["y"]), dlt_row(rows["drgb"]), k, k, H2, 3, offs["fc_rgb.weight"], H2, 0,
-         offs["fc_rgb.bias"]),
-    ]
-    return items
-
-
-def _gemm_args(items, partial, n_params: int, n_splits: int, part0: int):
-    args = _GemmArgs()
-    tile0 = 0
-    for slot, (a, b, ld, k, m, n, w_off, ldw, col_off, b_off) in zip(args.items, items):
-        m_tiles, n_tiles = -(-m // TILE), -(-n // TILE)
-        slot.a, slot.b, slot.ld, slot.k = a, b, ld, k
-        slot.m, slot.n, slot.m_tiles, slot.tile0 = m, n, m_tiles, tile0
-        slot.w_off, slot.ldw, slot.col_off, slot.b_off = w_off, ldw, col_off, b_off
-        tile0 += m_tiles * n_tiles
-    args.partial = partial.data_ptr()
-    args.n_params = n_params
-    args.n_items, args.n_splits, args.part0 = len(items), n_splits, part0
-    return args, tile0
+    if lib.dexnerf_train_args_size(0) != ctypes.sizeof(_TrainArgs):
+        raise RuntimeError(
+            f"_TrainArgs is {ctypes.sizeof(_TrainArgs)} bytes here but "
+            f"{lib.dexnerf_train_args_size(0)} in the kernel library"
+        )
+    check_gemm_args_size(lib)
 
 
 def _launch(
@@ -336,23 +211,15 @@ def _launch(
     lib = load_library()
     _check_struct_sizes(lib)
 
-    H2, dd = model.hidden_size // 2, model.dim_dir
-    rows = _scratch_rows(lib, model)
     s_pad = -(-S // SLOTS) * SLOTS
     chunk = max(1, min(N, SCRATCH_SAMPLES // s_pad))
     n_chunks = -(-N // chunk)
     f32 = dict(dtype=torch.float32, device=dev)
-    # scratch, reused by every chunk (all launches are on one stream)
-    act = torch.empty(rows["act_rows"] * chunk * s_pad, **f32)
-    dlt = torch.empty(rows["dlt_rows"] * chunk * s_pad, **f32)
-    dir_enc = torch.empty(dd * chunk, **f32)
-    dy_sum = torch.empty(H2 * chunk, **f32)
+    wg = WeightGradients(lib, model, N, chunk, s_pad, dev)
     weights = torch.empty((N, S), **f32)
     rgb = torch.empty((N, 3), **f32)
     loss_ray = torch.empty((N,), **f32)
     loss = torch.empty((), **f32)
-    offs, n_params = _param_offsets(model)
-    grad = torch.empty((n_params,), **f32)
     wf, f_off = pack_flex_weights(model, dev)
     wb, b_off = pack_backward_weights(model, dev)
 
@@ -362,7 +229,7 @@ def _launch(
         ("z", z_vals), ("dists", dists), ("noise", noise), ("target", target),
         ("depth_gt", depth_gt), ("depth_coef", depth_coef), ("wf", wf), ("wb", wb),
         ("weights_out", weights), ("rgb_out", rgb), ("loss_ray", loss_ray),
-        ("act", act), ("dlt", dlt), ("dir_enc", dir_enc), ("dy_sum", dy_sum),
+        ("act", wg.act), ("dlt", wg.dlt), ("dir_enc", wg.dir_enc), ("dy_sum", wg.dy_sum),
     ):
         setattr(args, name, None if t is None else t.data_ptr())
     args.n_samples, args.s_pad = S, s_pad
@@ -381,14 +248,6 @@ def _launch(
     args.bands_x[:len(bx)] = bx
     args.bands_d[:len(bd)] = bd
 
-    # K-splits of the dW products: about eight CTAs per SM in all (tiles
-    # differ in cost; more, shorter CTAs even out the last wave)
-    n_tiles = _gemm_args(
-        _dw_items(model, rows, act, dlt, dir_enc, dy_sum, 1, 1, offs), grad, n_params, 1, 0
-    )[1]
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_splits = max(1, min(256, 8 * sms // n_tiles))
-    partial = torch.empty((n_chunks * n_splits * n_params,), **f32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     for c in range(n_chunks):
         ray0 = c * chunk
@@ -396,23 +255,9 @@ def _launch(
         args.ray0, args.n_rays, args.k = ray0, rays, rays * s_pad
         check(lib, lib.dexnerf_train_pass(ctypes.addressof(args), stream),
               "fused_train_loss pass launch")
-        items = _dw_items(model, rows, act, dlt, dir_enc, dy_sum, rays * s_pad, rays, offs)
-        gargs, tiles = _gemm_args(items, partial, n_params, n_splits, c * n_splits)
-        check(lib, lib.dexnerf_train_dw(ctypes.addressof(gargs), tiles, stream),
-              "fused_train_loss dW launch")
-    check(
-        lib,
-        lib.dexnerf_train_reduce(
-            partial.data_ptr(), n_chunks * n_splits, n_params, grad.data_ptr(),
-            loss_ray.data_ptr(), N, loss.data_ptr(), stream,
-        ),
-        "fused_train_loss reduce launch",
-    )
+        wg.chunk(c, rays, stream)
+    grads = wg.reduce(stream, loss_ray, loss)
     launches += 1
-    grads = tuple(
-        grad[offs[name]:offs[name] + p.numel()].view_as(p)
-        for name, p in model.named_parameters()
-    )
     return loss, weights, rgb, grads
 
 
@@ -497,6 +342,7 @@ def make_fused_train_loss(
     *,
     supervision: str = "rgb",
     depth_loss_weight: float = 0.0,
+    resample: str = "auto",
 ):
     """The full hierarchical training loss through :func:`fused_pass_loss`
     (the counterpart of ``make_fused_train_loss``).
@@ -505,8 +351,13 @@ def make_fused_train_loss(
     metrics)``, a drop-in for the ``render_rays`` + ``nerf_loss`` body of
     ``train.step.make_train_step``. ``draws`` is the
     :class:`~dexnerf_tpu_torch.render.renderer.RenderDraws` of the JAX
-    key-split order; the stratified depths, the inverse-CDF resampling and
-    the ray intervals between the passes stay plain PyTorch ([N, S]-sized).
+    key-split order; the stratified depths stay plain PyTorch ([N, S]-sized).
+    ``resample`` names the step between the passes with the JAX package's
+    values (the configs are shared): "pallas" runs the inverse-CDF
+    resampling, the merge and the fine intervals in one kernel
+    (:mod:`~dexnerf_tpu_torch.ops.resample`, kernel 5, on the same draws);
+    "xla" and "auto" keep them plain PyTorch (``hierarchical_z_vals`` +
+    ``ray_dists``), as "auto" resolves in JAX.
     Each pass's loss is normalized by N·3 (rgb) or N (luminance).
     ``depth_loss_weight`` > 0 adds ``weight * masked MSE`` of the expected
     depth against ``depth_gt`` inside the kernel (valid mask ``gt > 0``),
@@ -525,6 +376,12 @@ def make_fused_train_loss(
     )
     has_fine = fine_model is not None and s.num_fine > 0
     use_depth = depth_loss_weight > 0.0
+    if resample not in ("auto", "xla", "pallas"):
+        raise ValueError(f"resample {resample!r}: one of 'auto', 'xla', 'pallas'")
+    resample_fn = (
+        make_fused_resample(s.num_coarse, s.num_fine)
+        if resample == "pallas" and has_fine else None
+    )
 
     def loss_fn(rays: RayBatch, target: torch.Tensor, draws: RenderDraws, depth_gt=None):
         if use_depth and depth_gt is None:
@@ -556,12 +413,19 @@ def make_fused_train_loss(
         fine_loss = torch.zeros((), dtype=torch.float32, device=z_vals.device)
         depth_loss = depth_metric(w_c, z_vals) if depth_on_coarse else None
         if has_fine:
-            z_merged, _ = hierarchical_z_vals(
-                z_vals, w_c, s.num_fine, det=not s.perturb, u=draws.u_fine
-            )
+            if resample_fn is not None:
+                u = draws.u_fine if s.perturb else linspace(
+                    0.0, 1.0, s.num_fine, device=z_vals.device).expand(n, s.num_fine)
+                dn = torch.linalg.norm(d, dim=-1, keepdim=True)
+                z_merged, dists_f = resample_fn(z_vals, w_c, u.contiguous(), dn)
+            else:
+                z_merged, _ = hierarchical_z_vals(
+                    z_vals, w_c, s.num_fine, det=not s.perturb, u=draws.u_fine
+                )
+                dists_f = ray_dists(z_merged, d)
             depth_on_fine = use_depth and not depth_on_coarse
             loss_f, w_f, _ = fused_pass_loss(
-                fine_model, o, d, z_merged, v, ray_dists(z_merged, d), draws.noise_fine,
+                fine_model, o, d, z_merged, v, dists_f, draws.noise_fine,
                 target, *((depth_gt, dcoef) if depth_on_fine else (None, None)), **kw,
             )
             fine_loss = loss_f / norm

@@ -157,40 +157,54 @@ def encode_points(pts: torch.Tensor, viewdirs: torch.Tensor, s: RenderSettings):
     return enc, dir_enc
 
 
+# A field maps sample points [N, S, 3] and per-ray viewdirs [N, 3] to raw
+# [N, S, 4], its model's weights bound in (ops.fused_mlp, ops.fused_mlp_train).
+FieldFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
 def render_rays(
     coarse_model: nn.Module,
     fine_model: Optional[nn.Module],
     rays: RayBatch,
     settings: RenderSettings,
     draws: RenderDraws = NO_DRAWS,
+    *,
+    coarse_field: Optional[FieldFn] = None,
+    fine_field: Optional[FieldFn] = None,
 ) -> RenderResult:
     """Render one ray batch through the coarse->fine hierarchy (plain
     PyTorch, differentiable with respect to the models' parameters). With
     ``settings.perturb`` or σ-noise, ``draws`` carries the random numbers;
-    the fine depths are detached, as in the reference."""
+    the fine depths are detached, as in the reference. ``coarse_field`` /
+    ``fine_field`` replace the encode + model call of their pass (e.g. the
+    fused fields of ``ops.fused_mlp_train``)."""
     s = settings
     _check_draws(s, draws)
     if not s.use_viewdirs:
         raise NotImplementedError("rendering without viewdirs is not ported yet")
     z_vals = jittered_z_vals(rays, s, draws)
 
-    def pass_(model, z, thresholds, noise):
+    def pass_(model, field, z, thresholds, noise):
         pts = rays.origins[..., None, :] + rays.directions[..., None, :] * z[..., :, None]
-        raw = model(*encode_points(pts, rays.viewdirs, s))
+        if field is not None:
+            raw = field(pts, rays.viewdirs)
+        else:
+            raw = model(*encode_points(pts, rays.viewdirs, s))
         return volume_render_radiance_field(
             raw, z, rays.directions,
             white_background=s.white_background, m_thres_cand=thresholds,
             sigma_noise=noise,
         )
 
-    coarse = pass_(coarse_model, z_vals, None, draws.noise_coarse)
+    coarse = pass_(coarse_model, coarse_field, z_vals, None, draws.noise_coarse)
     fine = None
-    if fine_model is not None and s.num_fine > 0:
+    if (fine_model is not None or fine_field is not None) and s.num_fine > 0:
         z_merged, _ = hierarchical_z_vals(
             z_vals, coarse.weights.detach(), s.num_fine, det=not s.perturb,
             u=draws.u_fine,
         )
-        fine = pass_(fine_model, z_merged, s.m_thres_cand or None, draws.noise_fine)
+        fine = pass_(fine_model, fine_field, z_merged, s.m_thres_cand or None,
+                     draws.noise_fine)
     return RenderResult(coarse=coarse, fine=fine)
 
 

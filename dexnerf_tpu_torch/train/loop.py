@@ -2,8 +2,10 @@
 
 Counterpart of ``dexnerf_tpu/train/loop.py`` for single-device training on
 a device-resident ray store: ``load_scene`` (blender), ``maybe_fused_loss``
-(kernel 4 when ``nerf.use_pallas``), ``validate`` (through the fused render
-kernel), ``run_training``, and what serving needs:
+(kernel 4, and kernel 5 between its passes, when ``nerf.use_pallas``),
+``maybe_fused_fields`` (kernels 2 and 3 when ``nerf.pallas_fused_loss`` is
+false), ``validate`` (through the fused render kernel), ``run_training``,
+and what serving needs:
 ``align_cfg_models_to_checkpoint``, ``load_eval_params`` (reference
 ``.ckpt`` only), ``setup_models`` and ``fused_render_impl`` (the
 counterpart of ``maybe_fused_render_impl``). Checkpoints are reference
@@ -29,6 +31,8 @@ from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w
 from dexnerf_tpu_torch.data.blender import load_blender_data, load_blender_depths
 from dexnerf_tpu_torch.data.pipeline import build_ray_store
 from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel, skip_positions
+from dexnerf_tpu_torch.ops.fused_mlp import make_fused_flexible_field
+from dexnerf_tpu_torch.ops.fused_mlp_train import make_fused_flexible_field_train
 from dexnerf_tpu_torch.ops.fused_render import make_fused_render_rays
 from dexnerf_tpu_torch.ops.fused_train_loss import make_fused_train_loss
 from dexnerf_tpu_torch.render.renderer import RenderSettings, render_image
@@ -200,18 +204,37 @@ def load_scene(cfg: CfgNode) -> SceneData:
     )
 
 
+def maybe_fused_fields(cfg: CfgNode, coarse, fine, *, train: bool = False):
+    """(coarse_field, fine_field) over ``coarse``/``fine`` when
+    ``cfg.nerf.use_pallas`` is set, else (None, None) (the plain encode +
+    model call). ``train=True`` gives the autograd fields of
+    ``ops.fused_mlp_train`` (kernel 2 forward, kernel 3 backward on a
+    card), else the forward-only fields of ``ops.fused_mlp`` (kernel 2).
+    The JAX package's ``pallas_compute_dtype`` and block sizes are TPU
+    knobs: the port's kernels compute in f32 and pick their own blocks."""
+    if not bool(_get(cfg.nerf, "use_pallas", False)):
+        return None, None
+    make = make_fused_flexible_field_train if train else make_fused_flexible_field
+    s = render_settings_from_cfg(cfg, "train")
+    kw = dict(log_sampling_xyz=s.log_sampling_xyz, log_sampling_dir=s.log_sampling_dir)
+    return tuple(None if m is None else make(m, **kw) for m in (coarse, fine))
+
+
 def maybe_fused_loss(cfg: CfgNode, settings: RenderSettings, supervision: str, coarse, fine):
     """The fused train loss over ``coarse``/``fine`` (kernel 4 on a card)
-    when ``cfg.nerf.use_pallas`` is set, else None (the plain autograd
-    render, the counterpart of the JAX package's XLA path)."""
+    when ``cfg.nerf.use_pallas`` is set and ``nerf.pallas_fused_loss`` is
+    not false, else None (then the fused fields, or the plain autograd
+    render, the counterpart of the JAX package's XLA path).
+    ``nerf.pallas_loss_resample`` ("auto" | "xla" | "pallas") selects the
+    resample between the passes (kernel 5 for "pallas")."""
     if not bool(_get(cfg.nerf, "use_pallas", False)):
         return None
     if not bool(_get(cfg.nerf, "pallas_fused_loss", True)):
-        raise NotImplementedError(
-            "nerf.pallas_fused_loss: false selects the fused field kernels (kernels "
-            "2 and 3), which are not ported yet (ROADMAP.md Queue 2 items 2-3)"
-        )
-    return make_fused_train_loss(coarse, fine, settings, supervision=supervision)
+        return None
+    return make_fused_train_loss(
+        coarse, fine, settings, supervision=supervision,
+        resample=str(_get(cfg.nerf, "pallas_loss_resample", "auto")),
+    )
 
 
 def validate(
@@ -386,10 +409,18 @@ def run_training(
         steps_per_call if steps_per_call is not None
         else _get(cfg.nerf.train, "steps_per_call", 1)
     )
+    fused_loss = maybe_fused_loss(cfg, s_train, supervision, coarse, fine)
+    # the fused loss supersedes the separate field kernels
+    coarse_field, fine_field = (
+        (None, None) if fused_loss is not None
+        else maybe_fused_fields(cfg, coarse, fine, train=True)
+    )
     train_step = make_train_step(
         s_train, batch_size,
         supervision=supervision,
-        fused_loss=maybe_fused_loss(cfg, s_train, supervision, coarse, fine),
+        coarse_field=coarse_field,
+        fine_field=fine_field,
+        fused_loss=fused_loss,
         sampling=sampling or str(_get(cfg.nerf.train, "sampling", "uniform")),
         steps_per_call=steps_per_call,
     )

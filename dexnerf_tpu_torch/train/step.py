@@ -2,11 +2,13 @@
 
 Counterpart of ``dexnerf_tpu/train/step.py`` (the single-device resident-
 store step). The loss is the plain, autograd-differentiable render
-(``render_rays`` + :func:`nerf_loss`, the counterpart of the XLA path) or a
-fused loss (``ops.fused_train_loss.make_fused_train_loss``, kernel 4 on a
-card). The optimizer is ``torch.optim.Adam`` with its learning rate set
-before every update to ``optax.exponential_decay`` evaluated at the number
-of updates taken so far, as optax evaluates it (step 0 uses ``lr``).
+(``render_rays`` + :func:`nerf_loss`, the counterpart of the XLA path),
+the same render through fused fields (``ops.fused_mlp_train``, kernels 2
+and 3 on a card) or a fused loss
+(``ops.fused_train_loss.make_fused_train_loss``, kernel 4 on a card).
+The optimizer is ``torch.optim.Adam`` with its learning rate set before
+every update to ``optax.exponential_decay`` evaluated at the number of
+updates taken so far, as optax evaluates it (step 0 uses ``lr``).
 ``steps_per_call`` updates run as a Python loop with no host sync.
 """
 
@@ -152,6 +154,8 @@ def make_train_step(
     batch_size: int,
     *,
     supervision: str = "rgb",
+    coarse_field=None,
+    fine_field=None,
     fused_loss=None,
     sampling: str = "uniform",
     steps_per_call: int = 1,
@@ -163,7 +167,10 @@ def make_train_step(
     tensors, not synchronized) are the last update's. The random inputs
     come from ``generator`` (on the store's device) in the order indices,
     then render draws, unless ``draws`` gives a :class:`StepDraws` per
-    update. ``fused_loss`` replaces the plain render + loss body;
+    update. ``coarse_field``/``fine_field`` replace the encode + model call
+    of their pass in the plain render (the fused fields of
+    ``ops.fused_mlp_train``, kernels 2 and 3 on a card);
+    ``fused_loss`` replaces the whole render + loss body and supersedes them;
     ``sampling`` is "uniform" over all rays or "per_image" (one image per
     update, ``train_nerf_rgb.py:222-241``). ``depth_loss_weight`` > 0 adds
     ``weight * masked_depth_mse`` of the fine (or coarse-only) expected
@@ -183,7 +190,8 @@ def make_train_step(
             if use_depth:
                 return fused_loss(rays, target, d.render, depth_gt)
             return fused_loss(rays, target, d.render)
-        result = render_rays(state.coarse, state.fine, rays, settings, d.render)
+        result = render_rays(state.coarse, state.fine, rays, settings, d.render,
+                             coarse_field=coarse_field, fine_field=fine_field)
         loss, metrics = nerf_loss(result, target, supervision=supervision)
         if use_depth:
             pred = result.fine.depth if result.fine is not None else result.coarse.depth
