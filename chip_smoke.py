@@ -9,15 +9,21 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
 2. build the kernels from ``dexnerf_tpu_torch/ops/csrc`` and time the build;
-3. hold the fused render kernel to its plain PyTorch version on one
-   400x400 frame of ``configs/messytable-obj.yml`` at full width (8x128,
-   skip 3, PE 10/4): the coarse pass (S=64) and the fine pass (S=128, 20
-   Dex thresholds), with seeded weights whose σ head is scaled so that
-   both Dex branches (hit, no hit) occur;
+3. hold the fused render kernels (kernel 1: the f32 kernel and the bf16
+   tensor-core kernel) to their plain PyTorch versions on one 400x400
+   frame of ``configs/messytable-obj.yml`` at full width (8x128, skip 3,
+   PE 10/4): the coarse pass (S=64) and the fine pass (S=128, 20 Dex
+   thresholds), with seeded weights whose σ head is scaled so that both
+   Dex branches (hit, no hit) occur; the bf16 kernel also against the f32
+   plain version, within 1.5x the bf16 plain version's own distance to it;
 4. serve: write those weights to a reference ``.ckpt``, start
-   ``dexnerf_tpu_torch.apps.serve`` on the card, request every route, check
-   the decoded outputs and that every frame launched the kernel twice;
-5. time the kernel and the plain version on the same frame;
+   ``dexnerf_tpu_torch.apps.serve`` on the card at the config's default
+   compute dtype (bf16), request every route, check the decoded outputs
+   and that every frame launched the bf16 kernel twice and the f32 kernel
+   never; then serve one frame with ``nerf.pallas_compute_dtype: float32``
+   (the f32 kernel twice, the bf16 kernel never);
+5. time both kernels and both plain versions on the same frame, each pass
+   and the whole frame;
 6. train: write a 400x400 synthetic blender dataset (16 train, 2 val
    views), point ``configs/lego-tpu.yml`` at it and run
    ``dexnerf_tpu_torch.apps.train`` for 40 steps on the card at full width
@@ -52,7 +58,8 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
 
 Each kernel's line holds its bound: the larger of its FLOPs (multiply-adds
 counted from the model's shapes; compares and arithmetic counted from the
-shapes for kernels 5 and 6) over the 67 TFLOP/s f32 peak and its bytes
+shapes for kernels 5 and 6) over the 67 TFLOP/s f32 peak (the bf16 render
+kernel's over the 989 TFLOP/s dense bf16 tensor-core peak) and its bytes
 (inputs read once, outputs written once) over 3.35 TB/s.
 The line before the last is ``{"kernels": [...]}`` with this run's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -102,6 +109,19 @@ POSE = (-30.0, -45.0, 4.0)  # theta, phi, radius: the service's default camera
 SEED = 0
 RTOL, ATOL = 1e-4, 1e-5  # f32 on both sides; only the summation order differs
 DEX_EQUAL_SHARE = 0.9999
+# bf16 render kernel vs its plain version: the same bf16 roundings of the
+# same operands, f32 sums in another order (tensor cores vs cuBLAS), so an
+# activation next to a bf16 rounding boundary can round to the neighbouring
+# value on one side; with σ of std 20 one such flip can move a weight by
+# ~1e-2. Each map is therefore held relative to the dtype's own effect, the
+# bf16 plain version's distance to the f32 plain version ("own"): the
+# kernel's distance to the bf16 plain version at most own (max) and
+# BF16_P999 x own (99.9th percentile), + BF16_REL_ATOL; and the kernel's
+# distance to the f32 plain version at most BF16_REL x own (max and 99.9th
+# percentile), + BF16_REL_ATOL.
+BF16_P999 = 0.25
+BF16_REL, BF16_REL_ATOL = 1.5, 1e-5
+BF16_DEX_SHARE = 0.999
 SIGMA_SCALE = 20.0  # σ head output: standardized, times this (see calibrate)
 
 
@@ -154,6 +174,64 @@ def compare(name, got, want, torch):
     return worst
 
 
+def p999(err, torch):
+    """99.9th percentile of ``err`` (torch.quantile takes at most 2^24
+    entries; a frame's weights have 20M)."""
+    flat = err.flatten()
+    return float(torch.topk(flat, max(1, flat.numel() // 1000)).values[-1])
+
+
+def compare_bf16(name, got, want, want_f32, torch):
+    """The bf16 kernel ``got`` vs the bf16 plain version ``want`` and the
+    f32 plain version ``want_f32``, each map relative to the bf16 plain
+    version's own distance to ``want_f32`` (see BF16_*). Returns the max
+    abs error vs ``want``."""
+    worst, bad = 0.0, []
+    for field in ("rgb", "disparity", "accumulation", "depth", "weights"):
+        a, b, f = getattr(got, field), getattr(want, field), getattr(want_f32, field)
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name}.{field}: shape {tuple(a.shape)} or non-finite values")
+        e_b, e_k, e_p = (a - b).abs(), (a - f).abs(), (b - f).abs()
+        b_max, k_max, p_max = float(e_b.max()), float(e_k.max()), float(e_p.max())
+        b_999, k_999, p_999 = p999(e_b, torch), p999(e_k, torch), p999(e_p, torch)
+        if field != "disparity":
+            worst = max(worst, b_max)
+        ok = (b_max <= p_max + BF16_REL_ATOL and b_999 <= BF16_P999 * p_999 + BF16_REL_ATOL
+              and k_max <= BF16_REL * p_max + BF16_REL_ATOL
+              and k_999 <= BF16_REL * p_999 + BF16_REL_ATOL)
+        print(f"  {'ok  ' if ok else 'FAIL'} {name}.{field}: vs bf16 plain max {b_max:.3e} "
+              f"p99.9 {b_999:.3e}; vs f32 plain: kernel max {k_max:.3e} p99.9 {k_999:.3e}, "
+              f"bf16 plain (own) max {p_max:.3e} p99.9 {p_999:.3e}")
+        if not ok:
+            bad.append(field)
+    if bad:
+        raise AssertionError(f"{name}: bf16 kernel outside its tolerances in {bad}")
+    return worst
+
+
+def plain_rays(coarse, fine, settings, compute_dtype, torch):
+    """``make_fused_render_rays``'s coarse -> fine renderer with both passes
+    through ``fused_render_reference`` (the plain versions' frame)."""
+    from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals, stratified_z_vals
+    from dexnerf_tpu_torch.core.volrend import ray_dists
+    from dexnerf_tpu_torch.ops import fused_render as fr
+    from dexnerf_tpu_torch.render.renderer import RenderResult
+
+    s = settings.eval_variant()
+    kw = dict(white_background=s.white_background, compute_dtype=compute_dtype)
+
+    def render(rays):
+        o, d, v = (t.contiguous() for t in rays[:3])
+        z = stratified_z_vals(rays.near, rays.far, s.num_coarse, lindisp=s.lindisp)
+        c = fr.fused_render_reference(coarse, o, d, v, z, ray_dists(z, d), **kw)
+        zf, _ = hierarchical_z_vals(z, c.weights, s.num_fine, det=True)
+        f = fr.fused_render_reference(fine, o, d, v, zf, ray_dists(zf, d),
+                                      thresholds=s.m_thres_cand, **kw)
+        return RenderResult(coarse=c, fine=f)
+
+    return render
+
+
 def check_dex(got, want, sigma, z, thresholds, torch):
     """Dex depths equal on >= DEX_EQUAL_SHARE of (ray, threshold) pairs;
     every mismatch has the plain σ within 1e-3 relative of m at one of the
@@ -194,9 +272,10 @@ def backward_macs(model):
     return 3 * h2 + h2 * H + (H + 1) * H + (model.num_layers - 1) * H * H
 
 
-def bound(flops: float, nbytes: float):
-    """(least ms, what bounds it) at the H100 SXM's published peaks."""
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES
+def bound(flops: float, nbytes: float, peak: float = F32_FLOPS):
+    """(least ms, what bounds it) at the H100 SXM's published peaks: the
+    f32 CUDA-core rate, or ``peak``."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -247,10 +326,12 @@ def train_cli(tmp, data, name, iters, torch, dev, **nerf):
     torch.cuda.reset_peak_memory_stats()
     for m in mods.values():
         m.launches = 0
+    mods["fused_render"].launches_bf16 = 0
     t0 = time.perf_counter()
     train_app.main(["--config", cfg_path, "--device", dev.type, "--max-iters", str(iters)])
     seconds = time.perf_counter() - t0
     counts = {k: m.launches for k, m in mods.items()}
+    counts["fused_render_bf16"] = mods["fused_render"].launches_bf16
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     logdir = os.path.join(tmp, "logs", name)
     with open(os.path.join(logdir, "metrics.jsonl")) as f:
@@ -325,7 +406,8 @@ def train_phase(torch, np, card, dev, tmp):
         and bool(np.isfinite(losses).all()),
         "loss falls (mean of last 10 < first 10)": np.mean(losses[-10:]) < np.mean(losses[:10]),
         f"kernel 4 launched {2 * TRAIN_ITERS} times": launches == 2 * TRAIN_ITERS,
-        "validation through kernel 1": render_launches >= 2 and len(val_psnr) >= 1
+        "validation through kernel 1 at bf16": render_launches >= 2
+        and counts["fused_render_bf16"] == render_launches and len(val_psnr) >= 1
         and bool(np.isfinite(val_psnr).all()),
         ".ckpt reads back with Adam": ckpt["step"] == TRAIN_ITERS and moments_finite
         and len(state.optimizer.state) == len(list(coarse.parameters())) * 2,
@@ -713,8 +795,8 @@ def resample_phase(torch, np, card, dev, tmp, sh):
     ]
 
 
-def profile_steps(torch, step, kernels_of, n=3):
-    """Device time of ``n`` train steps by part: each entry of
+def profile_steps(torch, step, kernels_of, n=3, unit="step"):
+    """Device time of ``n`` train steps (or other ``unit``s) by part: each entry of
     ``kernels_of`` (label -> kernel name fragments), Adam (the foreach
     multi-tensor kernels), the rest (glue), and idle (the span from the
     first kernel's start to the last one's end, minus the union of kernel
@@ -757,11 +839,54 @@ def profile_steps(torch, step, kernels_of, n=3):
     per_step = {k: round(v / n / 1e3, 3) for k, v in parts.items()}
     per_step["idle"] = round((span - busy) / n / 1e3, 3)
     per_step["span"] = round(span / n / 1e3, 3)
-    print(f"  profile, ms per step over {n} steps ({len(kernels)} device events): "
+    print(f"  profile, ms per {unit} over {n} {unit}s ({len(kernels)} device events): "
           + json.dumps(per_step))
     top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
-    print("  top device ops, ms per step: "
+    print(f"  top device ops, ms per {unit}: "
           + json.dumps({k: round(v / n / 1e3, 3) for k, v in top}))
+
+
+def serve_requests(config, ckpt, requests, torch):
+    """Start ``dexnerf_tpu_torch.apps.serve`` on the card with ``config`` and
+    ``ckpt``, send ``requests`` ((path, POST body or None) in order) over
+    HTTP with kernel 1's launch counters set to 0 just before and read just
+    after. Returns the response bodies, the decoded /healthz (when asked),
+    the request ms (host clock), the frames served, and the launches of
+    kernel 1 (either dtype) and of its bf16 kernel."""
+    from dexnerf_tpu_torch.apps import serve
+    from dexnerf_tpu_torch.ops import fused_render as fr
+
+    args = serve.build_parser().parse_args([
+        "--config", config, "--checkpoint", ckpt, "--hwf", *map(str, HWF), "--device", "cuda",
+    ])
+    service = serve.build_service(args)
+    httpd = serve.make_http_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    out, info, request_ms = [], {}, {}
+    try:
+        fr.launches = fr.launches_bf16 = 0
+        frames0 = service.renders_served
+        for path, body in requests:
+            req = urllib.request.Request(base + path, data=body)
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                if r.status != 200:
+                    raise AssertionError(f"{path}: HTTP {r.status}")
+                out.append(r.read())
+            key = ("POST " if body else "GET ") + path.split("?")[0]
+            key += " threshold" * ("threshold" in path) + " png" * ("png" in path)
+            request_ms[key] = round((time.perf_counter() - t0) * 1e3, 3)
+            if path == "/healthz":
+                info = json.loads(out[-1])
+        launches, launches_bf16 = fr.launches, fr.launches_bf16
+        frames = service.renders_served - frames0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    return out, info, request_ms, frames, launches, launches_bf16
 
 
 def main() -> int:
@@ -771,7 +896,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card visible to PyTorch")
     sys.path.insert(0, ROOT)
-    from dexnerf_tpu_torch.apps import serve
     from dexnerf_tpu_torch.config import load_config, render_settings_from_cfg
     from dexnerf_tpu_torch.core.encoding import positional_encoding
     from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w
@@ -797,9 +921,11 @@ def main() -> int:
     print("phase 2: kernels " + (f"built in {built:.2f} s" if built is not None
                                  else "current in build/, not rebuilt")
           + f" (load {time.perf_counter() - t0:.2f} s)")
-    print("\n".join(l for l in _build.build_log.splitlines() if "registers" in l or "spill" in l))
+    print("\n".join(l for l in _build.build_log.splitlines()
+                    if "Compiling entry" in l or "registers" in l or "spill" in l))
 
-    # ---- phase 3: kernel vs plain at the slice's shapes
+    # ---- phase 3: kernels vs plain at the slice's shapes
+    bf16 = torch.bfloat16
     cfg = load_config(CONFIG)
     settings = render_settings_from_cfg(cfg, "validation", dex=True).eval_variant()
     near, far = float(cfg.dataset.near), float(cfg.dataset.far)
@@ -810,6 +936,7 @@ def main() -> int:
     rays = make_ray_batch(ro, rd, near, far)
     o, d, v = (t.contiguous() for t in rays[:3])
     kw = dict(white_background=settings.white_background)
+    bkw = dict(kw, compute_dtype=bf16)
     thresholds = tuple(settings.m_thres_cand)
     z_c = stratified_z_vals(rays.near, rays.far, settings.num_coarse)
     # calibrate both σ heads on every 40th ray of the frame
@@ -828,7 +955,7 @@ def main() -> int:
         got_c = fr.fused_render(*args_c, **kw)
         want_c = fr.fused_render_reference(*args_c, **kw)
         torch.cuda.synchronize()
-        print(f"phase 3: kernel vs plain on {o.shape[0]} rays")
+        print(f"phase 3: f32 kernel vs plain on {o.shape[0]} rays")
         err = compare("coarse", got_c, want_c, torch)
         z_f, _ = hierarchical_z_vals(z_c, want_c.weights, settings.num_fine, det=True)
         dist_f = ray_dists(z_f, d)
@@ -849,21 +976,44 @@ def main() -> int:
         ])
         check_dex(got_f.depth_dex, want_f.depth_dex, sigma, z_f, thresholds, torch)
 
+        # the bf16 tensor-core kernel on the same inputs
+        got_cb = fr.fused_render(*args_c, **bkw)
+        want_cb = fr.fused_render_reference(*args_c, **bkw)
+        torch.cuda.synchronize()
+        print(f"phase 3: bf16 kernel vs bf16 plain (max <= own, p99.9 <= {BF16_P999:g} x own) "
+              f"and vs f32 plain (<= {BF16_REL:g} x own), + {BF16_REL_ATOL:g}; own = bf16 "
+              f"plain vs f32 plain")
+        err_b = compare_bf16("coarse", got_cb, want_cb, want_c, torch)
+        got_fb = fr.fused_render(*args_f, thresholds=thresholds, **bkw)
+        want_fb = fr.fused_render_reference(*args_f, thresholds=thresholds, **bkw)
+        torch.cuda.synchronize()
+        err_b = max(err_b, compare_bf16("fine", got_fb, want_fb, want_f, torch))
+        dex_b = float((got_fb.depth_dex == want_fb.depth_dex).float().mean())
+        dex_bf = float((want_fb.depth_dex == want_f.depth_dex).float().mean())
+        print(f"  dex: bf16 kernel = bf16 plain on {dex_b:.6f} of {got_fb.depth_dex.numel()} "
+              f"pairs (limit {BF16_DEX_SHARE}); bf16 plain = f32 plain on {dex_bf:.6f}")
+        if dex_b < BF16_DEX_SHARE:
+            raise AssertionError(f"bf16 dex depths equal on only {dex_b:.6f} of pairs")
+
         # ---- phase 5 (timing), on the same inputs
-        ms = {
-            "coarse_kernel": timed_ms(lambda: fr.fused_render(*args_c, **kw), torch),
-            "coarse_plain": timed_ms(lambda: fr.fused_render_reference(*args_c, **kw), torch),
-            "fine_kernel": timed_ms(
-                lambda: fr.fused_render(*args_f, thresholds=thresholds, **kw), torch),
-            "fine_plain": timed_ms(
-                lambda: fr.fused_render_reference(*args_f, thresholds=thresholds, **kw), torch),
-        }
-        impl = fr.make_fused_render_rays(coarse, fine, settings)
-        frame = render_image(coarse, fine, ro, rd, near, far, settings, rays_impl=impl)
-        ms["frame_kernel"] = timed_ms(
-            lambda: render_image(coarse, fine, ro, rd, near, far, settings, rays_impl=impl), torch)
-        ms["frame_plain"] = timed_ms(
-            lambda: render_image(coarse, fine, ro, rd, near, far, settings, chunk=8192), torch)
+        ms = {}
+        for tag, k in (("", kw), ("_bf16", bkw)):
+            ms["coarse_kernel" + tag] = timed_ms(lambda: fr.fused_render(*args_c, **k), torch)
+            ms["coarse_plain" + tag] = timed_ms(
+                lambda: fr.fused_render_reference(*args_c, **k), torch)
+            ms["fine_kernel" + tag] = timed_ms(
+                lambda: fr.fused_render(*args_f, thresholds=thresholds, **k), torch)
+            ms["fine_plain" + tag] = timed_ms(
+                lambda: fr.fused_render_reference(*args_f, thresholds=thresholds, **k), torch)
+        frames = {}
+        for tag, dt in (("", torch.float32), ("_bf16", bf16)):
+            impl = fr.make_fused_render_rays(coarse, fine, settings, compute_dtype=dt)
+            plain = plain_rays(coarse, fine, settings, dt, torch)
+            frames[dt] = render_image(coarse, fine, ro, rd, near, far, settings, rays_impl=impl)
+            ms["frame_kernel" + tag] = timed_ms(lambda: render_image(
+                coarse, fine, ro, rd, near, far, settings, rays_impl=impl), torch)
+            ms["frame_plain" + tag] = timed_ms(lambda: render_image(
+                coarse, fine, ro, rd, near, far, settings, rays_impl=plain), torch)
         # bound of the two passes timed above: forward multiply-adds, and
         # the inputs, weights and outputs of each pass
         flops = sum(2 * (z.numel() * mlp_macs(m)[0] + z.shape[0] * mlp_macs(m)[1])
@@ -873,65 +1023,57 @@ def main() -> int:
                    g.depth, g.weights, g.depth_dex)
             for m, z, dz, g in ((coarse, z_c, dist_c, got_c), (fine, z_f, dist_f, got_f))
         )
+        # the bf16 kernel reads its packed weights (bf16 operands, f32 heads)
+        byts_b = byts - sum(nbytes(*m.parameters()) - nbytes(*fr.pack_flex_weights_bf16(m)[:2])
+                            for m in (coarse, fine))
         render_bound, render_bound_by = bound(flops, byts)
+        bf16_bound, bf16_bound_by = bound(flops, byts_b, BF16_FLOPS)
         print(f"  fused_render bound for both passes: {render_bound:.3f} ms ({render_bound_by}; "
-              f"{flops / 1e12:.4f} TFLOP, {byts / 1e6:.2f} MB); at the bf16 tensor-core "
-              f"peak {1e3 * flops / BF16_FLOPS:.3f} ms")
+              f"{flops / 1e12:.4f} TFLOP, {byts / 1e6:.2f} MB); bf16 kernel at the bf16 "
+              f"tensor-core peak {bf16_bound:.3f} ms ({bf16_bound_by}; {byts_b / 1e6:.2f} MB)")
+        print("  bf16 kernel residency (CUDA occupancy API): " + json.dumps({
+            f"S={z.shape[1]}": dict(zip(("ctas_per_sm", "smem_bytes_per_cta"),
+                                        fr.bf16_occupancy(m, z.shape[1])))
+            for m, z in ((coarse, z_c), (fine, z_f))}))
 
     # ---- phase 4: serve through the port's entry points
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "seeded.ckpt")
         write_reference_checkpoint(ckpt, coarse.state_dict(), fine.state_dict())
-        args = serve.build_parser().parse_args([
-            "--config", CONFIG, "--checkpoint", ckpt,
-            "--hwf", *map(str, HWF), "--device", "cuda",
-        ])
-        service = serve.build_service(args)
-        httpd = serve.make_http_server(service, "127.0.0.1", 0)
-        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-        thread.start()
-        base = f"http://127.0.0.1:{httpd.server_address[1]}"
         q = "theta=%g&phi=%g&radius=%g" % POSE
-        try:
-            fr.launches = 0
-            frames0 = service.renders_served
-
-            request_ms = {}
-
-            def get(path, body=None):
-                req = urllib.request.Request(base + path, data=body)
-                t0 = time.perf_counter()
-                with urllib.request.urlopen(req, timeout=300) as r:
-                    if r.status != 200:
-                        raise AssertionError(f"{path}: HTTP {r.status}")
-                    out = r.read()
-                key = ("POST " if body else "GET ") + path.split("?")[0]
-                key += " threshold" * ("threshold" in path) + " png" * ("png" in path)
-                request_ms[key] = round((time.perf_counter() - t0) * 1e3, 3)
-                return out
-
-            info = json.loads(get("/healthz"))
-            rgb_png = get("/render?" + q)
-            depth = np.load(io.BytesIO(get("/depth?" + q)))
-            dex = np.load(io.BytesIO(get("/depth?" + q + "&threshold=50")))
-            dex_png = get("/depth?" + q + "&threshold=50&format=png")
-            conf = np.load(io.BytesIO(get("/confidence?" + q)))
-            c2w = pose_spherical(*POSE).tolist()
-            post_png = get("/render", json.dumps({"c2w": c2w}).encode())
-            launches = fr.launches
-            frames = service.renders_served - frames0
-        finally:
-            httpd.shutdown()
-            httpd.server_close()
-            thread.join(timeout=30)
+        c2w = pose_spherical(*POSE).tolist()
+        out, info, request_ms, frames_served, launches, launches_b = serve_requests(
+            CONFIG, ckpt, [
+                ("/healthz", None), ("/render?" + q, None), ("/depth?" + q, None),
+                ("/depth?" + q + "&threshold=50", None),
+                ("/depth?" + q + "&threshold=50&format=png", None),
+                ("/confidence?" + q, None),
+                ("/render", json.dumps({"c2w": c2w}).encode()),
+            ], torch)
+        # the f32 route: the same service with nerf.pallas_compute_dtype: float32
+        f32_cfg = os.path.join(tmp, "messytable-obj-f32.yml")
+        raw_cfg = load_config(CONFIG)
+        raw_cfg.nerf.pallas_compute_dtype = "float32"
+        with open(f32_cfg, "w") as f:
+            f.write(raw_cfg.dump())
+        out_f, _, request_ms_f, frames_f, launches_f, launches_fb = serve_requests(
+            f32_cfg, ckpt, [("/depth?" + q, None)], torch)
     from PIL import Image
 
-    rgb = np.asarray(Image.open(io.BytesIO(rgb_png)))
-    post = np.asarray(Image.open(io.BytesIO(post_png)))
-    dex_mm = np.asarray(Image.open(io.BytesIO(dex_png)))
-    print(f"phase 4: served {frames} frames, {launches} kernel launches; "
-          f"healthz m_thres {info['m_thres_cand'][0]}..{info['m_thres_cand'][-1]}; "
-          f"request ms (host clock, first requests) {json.dumps(request_ms)}")
+    rgb = np.asarray(Image.open(io.BytesIO(out[1])))
+    depth = np.load(io.BytesIO(out[2]))
+    dex = np.load(io.BytesIO(out[3]))
+    dex_mm = np.asarray(Image.open(io.BytesIO(out[4])))
+    conf = np.load(io.BytesIO(out[5]))
+    post = np.asarray(Image.open(io.BytesIO(out[6])))
+    depth_f = np.load(io.BytesIO(out_f[0]))
+    print(f"phase 4: served {frames_served} frames at the config's default dtype, kernel-1 "
+          f"launches {launches} (bf16 kernel {launches_b}); healthz m_thres "
+          f"{info['m_thres_cand'][0]}..{info['m_thres_cand'][-1]}, compute dtype "
+          f"{info.get('compute_dtype')}; request ms (host clock, first requests) "
+          f"{json.dumps(request_ms)}")
+    print(f"  nerf.pallas_compute_dtype: float32: served {frames_f} frame, launches "
+          f"{launches_f} (bf16 kernel {launches_fb}); request ms {json.dumps(request_ms_f)}")
     checks = {
         "rgb png 400x400x3": rgb.shape == (H, W, 3) and rgb.dtype == np.uint8,
         "POST rgb equals GET rgb": np.array_equal(post, rgb),
@@ -942,33 +1084,49 @@ def main() -> int:
         and np.array_equal(dex_mm, np.clip((dex * 1000.0).astype(np.uint32), 0, 65535)),
         "confidence finite in [0, 1]": conf["confidence"].shape == (H, W)
         and bool(((conf["confidence"] >= 0) & (conf["confidence"] <= 1 + 1e-5)).all()),
-        "served depth = direct kernel render": np.allclose(
-            depth, frame.fine.depth.cpu().numpy(), rtol=RTOL, atol=ATOL),
-        "2 launches per frame": frames == 6 and launches == 2 * frames,
+        "served depth = direct bf16 render": np.allclose(
+            depth, frames[bf16].fine.depth.cpu().numpy(), rtol=RTOL, atol=ATOL),
+        "2 bf16 launches per frame, no f32 launch": frames_served == 6
+        and launches_b == 2 * frames_served and launches == launches_b,
+        "float32 config: served depth = direct f32 render": np.allclose(
+            depth_f, frames[torch.float32].fine.depth.cpu().numpy(), rtol=RTOL, atol=ATOL),
+        "float32 config: 2 f32 launches, no bf16 launch": frames_f == 1
+        and launches_f == 2 and launches_fb == 0,
     }
-    for name, ok in checks.items():
-        print(f"  {'ok  ' if ok else 'FAIL'} {name}")
-    if not all(checks.values()):
-        raise AssertionError("serving checks failed")
+    run_checks("serving", checks)
 
-    print("phase 5: ms per call on " + card + ": " + json.dumps(
+    print("phase 5: ms per call on " + card + " (CUDA events, mean of 3): " + json.dumps(
         {k: round(t, 3) for k, t in ms.items()}))
+    impl_b = fr.make_fused_render_rays(coarse, fine, settings, compute_dtype=bf16)
+    with torch.inference_mode():
+        profile_steps(torch, lambda: render_image(
+            coarse, fine, ro, rd, near, far, settings, rays_impl=impl_b),
+            {"kernel 1 bf16": ("fused_render_bf16_kernel",)}, unit="frame")
     with tempfile.TemporaryDirectory() as tmp:
         train_kernel, shared = train_phase(torch, np, card, dev, tmp)
         field_kernels = field_phase(torch, np, card, dev, tmp, shared)
         resample_kernels = resample_phase(torch, np, card, dev, tmp, shared)
+    render = dict(route="cuda", replaces="dexnerf_tpu/ops/fused_render.py:115", library_ms=None)
     print(json.dumps({"kernels": [{
         "name": "fused_render",
-        "route": "cuda",
+        **render,
         "source": "dexnerf_tpu_torch/ops/csrc/fused_render.cu",
-        "replaces": "dexnerf_tpu/ops/fused_render.py:115",
-        "launches": launches,
+        "launches": launches_f,
         "max_abs_err": err,
         "ms": ms["coarse_kernel"] + ms["fine_kernel"],
         "plain_ms": ms["coarse_plain"] + ms["fine_plain"],
         "bound_ms": render_bound,
         "bound_by": render_bound_by,
-        "library_ms": None,
+    }, {
+        "name": "fused_render_bf16",
+        **render,
+        "source": "dexnerf_tpu_torch/ops/csrc/fused_render_bf16.cu",
+        "launches": launches_b,
+        "max_abs_err": err_b,
+        "ms": ms["coarse_kernel_bf16"] + ms["fine_kernel_bf16"],
+        "plain_ms": ms["coarse_plain_bf16"] + ms["fine_plain_bf16"],
+        "bound_ms": bf16_bound,
+        "bound_by": bf16_bound_by,
     }, train_kernel, *field_kernels, *resample_kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -192,6 +192,8 @@ class RenderService:
             "num_coarse": int(self.settings.num_coarse),
             "num_fine": int(self.settings.num_fine),
             "m_thres_cand": list(self.m_thres_cand),
+            "compute_dtype": str(getattr(self.rays_impl, "compute_dtype", "")).replace(
+                "torch.", ""),
             "occupancy": False,
             "depth_confidence": True,
             "renders_served": self.renders_served,

@@ -1,22 +1,27 @@
 """Fully fused render pass: PE -> MLP -> alpha compositing -> Dex depth.
 
-Counterpart of ``dexnerf_tpu/ops/fused_render.py``. On a CUDA tensor,
-:func:`fused_render` launches the hand-written kernel of
-``ops/csrc/fused_render.cu`` (built by ``ops/_build.py``); on a CPU tensor
-it runs :func:`fused_render_reference`, the plain PyTorch version of the
-same contract. There is no fallback between the two: a CUDA call that
-cannot launch raises.
+Counterpart of ``dexnerf_tpu/ops/fused_render.py``, with its
+``compute_dtype`` (float32 or bfloat16, default float32 as in JAX). On a
+CUDA tensor, :func:`fused_render` launches a hand-written kernel built by
+``ops/_build.py``: ``ops/csrc/fused_render.cu`` (f32 FMA) at float32,
+``ops/csrc/fused_render_bf16.cu`` (bf16 tensor-core MMAs, f32 chain) at
+bfloat16. On a CPU tensor it runs :func:`fused_render_reference`, the
+plain PyTorch version of the same contract. There is no fallback between
+them: a CUDA call that cannot launch its dtype's kernel raises.
 
-``launches`` counts kernel launches (+1 per launch, nowhere else), so a
-run can show that its path went through the kernel.
+``launches`` counts kernel launches of either dtype and ``launches_bf16``
+those of the bf16 kernel (+1 per launch, nowhere else), so a run can show
+which kernel its path went through.
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from dexnerf_tpu_torch.core.encoding import frequency_bands, positional_encoding
 from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals, stratified_z_vals
@@ -29,7 +34,8 @@ from dexnerf_tpu_torch.core.volrend import (
 from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
 from dexnerf_tpu_torch.render.renderer import RayBatch, RenderResult, RenderSettings
 
-launches = 0
+launches = 0  # kernel-1 launches of either dtype
+launches_bf16 = 0  # of which the bf16 kernel's
 
 # limits of ops/csrc/fused_render.cu (kMax*, kThreads)
 MAX_LAYERS = 40
@@ -38,6 +44,12 @@ MAX_THRESHOLDS = 64
 MAX_SAMPLES = 256
 MAX_HIDDEN = 128
 SHARED_BYTES_LIMIT = 232448  # per block on Hopper
+# of ops/csrc/fused_render_bf16.cu (kTile, kKc, kMaxRows, kMaxRpc)
+BF16_TILE = 128
+BF16_KCHUNK = 32
+BF16_MAX_ROWS = 384
+BF16_MAX_RPC = 32
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _layers(model: FlexibleNeRFModel):
@@ -52,6 +64,22 @@ def _layers(model: FlexibleNeRFModel):
     ]
 
 
+def _pack_f32(tensors) -> Tuple[torch.Tensor, List[int]]:
+    """``tensors`` flattened into one float32 buffer, each starting on a
+    16-byte boundary; returns the buffer and their offsets in floats."""
+    chunks, offsets, pos = [], [], 0
+    for t in tensors:
+        pad = -pos % 4
+        if pad:
+            chunks.append(torch.zeros(pad, dtype=torch.float32, device=t.device))
+            pos += pad
+        offsets.append(pos)
+        flat = t.reshape(-1).to(torch.float32)
+        chunks.append(flat)
+        pos += flat.numel()
+    return torch.cat(chunks), offsets
+
+
 def pack_flex_weights(
     model: FlexibleNeRFModel, device=None
 ) -> Tuple[torch.Tensor, List[int]]:
@@ -61,18 +89,113 @@ def pack_flex_weights(
     ``[in, out]`` row-major (the transpose of ``nn.Linear.weight``) and then
     the bias, each starting on a 16-byte boundary. Returns the buffer and
     the offsets ``[w0, b0, w1, b1, ...]`` in floats."""
-    chunks, offsets, pos = [], [], 0
-    for lin in _layers(model):
-        for t in (lin.weight.detach().t(), lin.bias.detach()):
-            pad = -pos % 4
-            if pad:
-                chunks.append(torch.zeros(pad, dtype=torch.float32, device=t.device))
-                pos += pad
-            offsets.append(pos)
-            flat = t.reshape(-1).to(torch.float32)
-            chunks.append(flat)
-            pos += flat.numel()
-    return torch.cat(chunks).to(device), offsets
+    flat, offsets = _pack_f32(
+        t for lin in _layers(model) for t in (lin.weight.detach().t(), lin.bias.detach()))
+    return flat.to(device), offsets
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (nearest even) and back to float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _k_chunks(w: torch.Tensor, k: int) -> torch.Tensor:
+    """``w`` [N, K] zero-padded to ``k`` columns, as flat [k/32, N, 32]."""
+    w = F.pad(w, (0, k - w.shape[1]))
+    n = w.shape[0]
+    return w.reshape(n, k // BF16_KCHUNK, BF16_KCHUNK).transpose(0, 1).reshape(-1)
+
+
+def pack_flex_weights_bf16(
+    model: FlexibleNeRFModel, device=None
+) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
+    """The bf16 kernel's weight layout (``split_flex_params`` at bfloat16):
+
+    * ``wq``, bf16: the matmul operands as [N, 32] K-chunks (rows of
+      ``nn.Linear.weight``, K zero-padded to a multiple of 32) in the
+      kernel's consumption order: layer1; per trunk layer its h rows, then
+      on a skip layer its xyz rows; fc_feat; the feat rows of layers_dir.0;
+    * ``aux``, float32, at the returned offsets: the biases of layer1, of
+      each trunk layer, of fc_feat and of layers_dir.0, then w_alpha [H],
+      b_alpha, w_rgb [H/2, 3], b_rgb and the viewdir rows of layers_dir.0
+      [dd, H/2] rounded to bf16 (the kernel folds them into a per-ray bias).
+    """
+    H = model.hidden_size
+    dxp = _round_up(model.dim_xyz, BF16_KCHUNK)
+    lin_dir = model.layers_dir[0]
+    with torch.no_grad():
+        parts = [_k_chunks(model.layer1.weight, dxp)]
+        for i, layer in enumerate(model.layers_xyz):
+            parts.append(_k_chunks(layer.weight[:, :H], H))
+            if i in model.skips:
+                parts.append(_k_chunks(layer.weight[:, H:], dxp))
+        parts.append(_k_chunks(model.fc_feat.weight, H))
+        parts.append(_k_chunks(lin_dir.weight[:, :H], H))
+        wq = torch.cat(parts).to(torch.bfloat16)
+        aux, offsets = _pack_f32([
+            model.layer1.bias, *(l.bias for l in model.layers_xyz), model.fc_feat.bias,
+            lin_dir.bias, model.fc_alpha.weight, model.fc_alpha.bias,
+            model.fc_rgb.weight.t(), model.fc_rgb.bias, _bf16(lin_dir.weight[:, H:].t()),
+        ])
+    return wq.to(device), aux.to(device), offsets
+
+
+# model -> ((each parameter's (data_ptr, version), device), packed): packed
+# once, rebuilt when a parameter is replaced or changed in place
+_packed_bf16 = weakref.WeakKeyDictionary()
+
+
+def _cached_bf16_weights(model: FlexibleNeRFModel, device):
+    key = (tuple((p.data_ptr(), p._version) for p in model.parameters()), str(device))
+    hit = _packed_bf16.get(model)
+    if hit is None or hit[0] != key:
+        hit = (key, pack_flex_weights_bf16(model, device))
+        _packed_bf16[model] = hit
+    return hit[1]
+
+
+def flex_forward_bf16(
+    model: FlexibleNeRFModel, xyz: torch.Tensor, view: torch.Tensor
+) -> torch.Tensor:
+    """The model's forward under the JAX package's bf16 contract
+    (``_forward_block_parts`` at ``compute_dtype=bfloat16``): every matmul
+    operand of layer1, the trunk (h, and the xyz encoding on a skip
+    layer), fc_feat and layers_dir.0 (feat and the viewdir encoding) is
+    rounded to bf16 and the product taken in f32; bias, ReLU and the chain
+    stay f32; the σ head reads the unrounded trunk output and the rgb head
+    the f32 viewdir-layer output, both with f32 weights. ``view`` is the
+    per-ray [..., dim_dir] encoding (its product is taken per ray)."""
+    H = model.hidden_size
+    xq = _bf16(xyz)
+    h = F.linear(xq, _bf16(model.layer1.weight)) + model.layer1.bias
+    for i, layer in enumerate(model.layers_xyz):
+        w = _bf16(layer.weight)
+        y = F.linear(_bf16(h), w[:, :H])
+        if i in model.skips:
+            y = y + F.linear(xq, w[:, H:])
+        h = torch.relu(y + layer.bias)
+    feat = torch.relu(F.linear(_bf16(h), _bf16(model.fc_feat.weight)) + model.fc_feat.bias)
+    alpha = F.linear(h, model.fc_alpha.weight) + model.fc_alpha.bias
+    lin = model.layers_dir[0]
+    wd = _bf16(lin.weight)
+    y_dir = F.linear(_bf16(view), wd[:, H:])
+    if y_dir.ndim < feat.ndim:
+        y_dir = y_dir[..., None, :]
+    y = torch.relu(F.linear(_bf16(feat), wd[:, :H]) + y_dir + lin.bias)
+    rgb = F.linear(y, model.fc_rgb.weight) + model.fc_rgb.bias
+    return torch.cat([rgb, alpha], dim=-1)
+
+
+def _check_compute_dtype(compute_dtype) -> None:
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(
+            f"compute_dtype {compute_dtype}: the fused render takes torch.float32 "
+            "or torch.bfloat16"
+        )
 
 
 @torch.no_grad()
@@ -88,12 +211,17 @@ def fused_render_reference(
     white_background: bool = False,
     log_sampling_xyz: bool = True,
     log_sampling_dir: bool = True,
+    compute_dtype: torch.dtype = torch.float32,
     chunk: int = 8192,
 ) -> VolumeRenderOutputs:
-    """Plain PyTorch version of the kernel's contract, ``chunk`` rays at a
-    time: pts = o + d*z, PE, the model forward, and compositing with the
-    given ``dists`` (disparity in the kernel's finite form). No autograd,
-    like the kernel."""
+    """Plain PyTorch version of the kernels' contract, ``chunk`` rays at a
+    time: pts = o + d*z, PE, the model forward (at bfloat16 the rounded
+    forward :func:`flex_forward_bf16`), and compositing with the given
+    ``dists`` (disparity in the kernel's finite form). No autograd, like
+    the kernels."""
+    _check_compute_dtype(compute_dtype)
+    forward = model if compute_dtype == torch.float32 else (
+        lambda xyz, view: flex_forward_bf16(model, xyz, view))
     parts = []
     for i in range(0, z_vals.shape[0], chunk):
         sl = slice(i, i + chunk)
@@ -108,7 +236,7 @@ def fused_render_reference(
         )
         parts.append(
             composite(
-                model(xyz, view), z, dists[sl],
+                forward(xyz, view), z, dists[sl],
                 white_background=white_background,
                 m_thres_cand=tuple(thresholds) or None,
             )
@@ -116,7 +244,36 @@ def fused_render_reference(
     return concat_outputs(parts)
 
 
-def _check_inputs(model, dev, tensors, N: int, S: int, T: int) -> None:
+def rays_per_cta(n_samples: int) -> int:
+    """Rays per CTA of the bf16 kernel: the count (at most 384 samples and
+    32 rays) whose samples fill its 128-sample tiles with the fewest padded
+    rows per ray, the smallest such count on a tie. S = 64 gives 2 (one
+    tile), S = 128 gives 1, S = 192 gives 2 (three tiles), all without
+    padding; S = 100 gives 1 (28 of 128 rows padded)."""
+    best, best_rows = 1, _round_up(n_samples, BF16_TILE)
+    for r in range(2, min(BF16_MAX_RPC, BF16_MAX_ROWS // n_samples) + 1):
+        rows = _round_up(r * n_samples, BF16_TILE)
+        if rows * best < best_rows * r:  # fewer padded rows per ray
+            best, best_rows = r, rows
+    return best
+
+
+def bf16_occupancy(model: FlexibleNeRFModel, n_samples: int) -> Tuple[int, int]:
+    """(CTAs per SM, shared-memory bytes per CTA) of the bf16 kernel for
+    ``model`` at ``n_samples`` per ray, as the CUDA runtime reports them
+    (needs the card)."""
+    from dexnerf_tpu_torch.ops._build import check, load_library
+
+    lib = load_library()
+    ctas, smem = ctypes.c_int(0), ctypes.c_int(0)
+    code = lib.dexnerf_fused_render_bf16_occupancy(
+        model.hidden_size, model.dim_xyz, n_samples, rays_per_cta(n_samples),
+        ctypes.byref(ctas), ctypes.byref(smem))
+    check(lib, code, "fused_render bf16 occupancy query")
+    return ctas.value, smem.value
+
+
+def _check_inputs(model, dev, tensors, N: int, S: int, T: int, compute_dtype) -> None:
     if not isinstance(model, FlexibleNeRFModel):
         raise TypeError(f"the fused render kernel takes FlexibleNeRFModel, not {type(model)}")
     for name, t, shape in tensors:
@@ -128,7 +285,13 @@ def _check_inputs(model, dev, tensors, N: int, S: int, T: int) -> None:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     H = model.hidden_size
-    if H > MAX_HIDDEN or H % 8 or H < 8:
+    if compute_dtype == torch.bfloat16:
+        # the bf16 kernel's warps split the columns in halves of n8 tiles
+        # (and the viewdir layer's H/2 too); the shared-memory request is
+        # checked by the launch
+        if H not in (32, 64, 96, 128):
+            raise ValueError(f"hidden_size {H}: the bf16 kernel takes 32, 64, 96 or 128")
+    elif H > MAX_HIDDEN or H % 8 or H < 8:
         raise ValueError(f"hidden_size {H}: the kernel takes multiples of 8 up to {MAX_HIDDEN}")
     if not 1 <= S <= MAX_SAMPLES:
         raise ValueError(f"{S} samples per ray: the kernel takes 1..{MAX_SAMPLES}")
@@ -139,9 +302,11 @@ def _check_inputs(model, dev, tensors, N: int, S: int, T: int) -> None:
         raise ValueError(f"{model.num_layers} layers: too deep for the kernel")
     if max(model.num_encoding_fn_xyz, model.num_encoding_fn_dir) > MAX_FREQ:
         raise ValueError(f"the kernel takes at most {MAX_FREQ} PE frequencies")
-    shared = 4 * ((model.dim_xyz + 2 * H) * 64 + 7 * S + model.dim_dir + H // 2)
-    if shared > SHARED_BYTES_LIMIT:
-        raise ValueError(f"{shared} bytes of shared memory needed; the card has {SHARED_BYTES_LIMIT}")
+    if compute_dtype == torch.float32:
+        shared = 4 * ((model.dim_xyz + 2 * H) * 64 + 7 * S + model.dim_dir + H // 2)
+        if shared > SHARED_BYTES_LIMIT:
+            raise ValueError(
+                f"{shared} bytes of shared memory needed; the card has {SHARED_BYTES_LIMIT}")
 
 
 def _host_array(ctype, values):
@@ -151,9 +316,9 @@ def _host_array(ctype, values):
 
 def _launch(
     model, origins, directions, viewdirs, z_vals, dists, *, thresholds,
-    white_background, log_sampling_xyz, log_sampling_dir,
+    white_background, log_sampling_xyz, log_sampling_dir, compute_dtype,
 ) -> VolumeRenderOutputs:
-    global launches
+    global launches, launches_bf16
     from dexnerf_tpu_torch.ops._build import check, load_library
 
     N, S = z_vals.shape
@@ -169,10 +334,9 @@ def _launch(
             ("z_vals", z_vals, (N, S)),
             ("dists", dists, (N, S)),
         ],
-        N, S, T,
+        N, S, T, compute_dtype,
     )
     lib = load_library()
-    weights, offsets = pack_flex_weights(model, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     rgb = torch.empty((N, 3), **f32)
     disp = torch.empty((N,), **f32)
@@ -187,20 +351,33 @@ def _launch(
     bx_arr, bx_ptr = _host_array(ctypes.c_float, bx)
     bd_arr, bd_ptr = _host_array(ctypes.c_float, bd)
     th_arr, th_ptr = _host_array(ctypes.c_float, [float(m) for m in thresholds])
-    off_arr, off_ptr = _host_array(ctypes.c_int, offsets)
     skip_mask = sum(1 << i for i in model.skips)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.dexnerf_fused_render(
-        origins.data_ptr(), directions.data_ptr(), viewdirs.data_ptr(),
-        z_vals.data_ptr(), dists.data_ptr(), weights.data_ptr(),
-        rgb.data_ptr(), disp.data_ptr(), acc.data_ptr(), depth.data_ptr(),
-        w.data_ptr(), dex.data_ptr() if dex is not None else None,
-        N, S, model.hidden_size, model.num_layers - 1, skip_mask,
-        model.num_encoding_fn_xyz, int(model.include_input_xyz), bx_ptr,
-        model.num_encoding_fn_dir, int(model.include_input_dir), bd_ptr,
-        T, th_ptr, off_ptr, int(bool(white_background)), stream,
-    )
-    check(lib, code, "fused_render kernel launch")
+    ins = (origins.data_ptr(), directions.data_ptr(), viewdirs.data_ptr(),
+           z_vals.data_ptr(), dists.data_ptr())
+    outs = (rgb.data_ptr(), disp.data_ptr(), acc.data_ptr(), depth.data_ptr(),
+            w.data_ptr(), dex.data_ptr() if dex is not None else None)
+    pe = (model.num_encoding_fn_xyz, int(model.include_input_xyz), bx_ptr,
+          model.num_encoding_fn_dir, int(model.include_input_dir), bd_ptr, T, th_ptr)
+    if compute_dtype == torch.bfloat16:
+        wq, aux, offsets = _cached_bf16_weights(model, dev)
+        off_arr, off_ptr = _host_array(ctypes.c_int, offsets)
+        code = lib.dexnerf_fused_render_bf16(
+            *ins, wq.data_ptr(), aux.data_ptr(), *outs,
+            N, S, model.hidden_size, model.num_layers - 1, skip_mask, rays_per_cta(S),
+            *pe, off_ptr, int(bool(white_background)), stream,
+        )
+        check(lib, code, "fused_render bf16 kernel launch")
+        launches_bf16 += 1
+    else:
+        weights, offsets = pack_flex_weights(model, dev)
+        off_arr, off_ptr = _host_array(ctypes.c_int, offsets)
+        code = lib.dexnerf_fused_render(
+            *ins, weights.data_ptr(), *outs,
+            N, S, model.hidden_size, model.num_layers - 1, skip_mask,
+            *pe, off_ptr, int(bool(white_background)), stream,
+        )
+        check(lib, code, "fused_render kernel launch")
     launches += 1
     return VolumeRenderOutputs(
         rgb=rgb, disparity=disp, accumulation=acc, weights=w, depth=depth,
@@ -221,18 +398,22 @@ def fused_render(
     white_background: bool = False,
     log_sampling_xyz: bool = True,
     log_sampling_dir: bool = True,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> VolumeRenderOutputs:
     """One deterministic render pass over rays ``origins/directions/
     viewdirs`` [N, 3] at depths ``z_vals`` [N, S] with intervals ``dists``
-    [N, S] (the counterpart of ``make_fused_render``'s render). Returns
-    [N]-shaped maps, weights [N, S] and ``depth_dex`` [T, N] (None when no
-    thresholds). CUDA tensors go through the kernel, CPU tensors through
+    [N, S] (the counterpart of ``make_fused_render``'s render) at
+    ``compute_dtype``. Returns [N]-shaped maps, weights [N, S] and
+    ``depth_dex`` [T, N] (None when no thresholds). CUDA tensors go through
+    the kernel of the dtype, CPU tensors through
     :func:`fused_render_reference`."""
+    _check_compute_dtype(compute_dtype)
     kwargs = dict(
         thresholds=tuple(float(m) for m in thresholds),
         white_background=white_background,
         log_sampling_xyz=log_sampling_xyz,
         log_sampling_dir=log_sampling_dir,
+        compute_dtype=compute_dtype,
     )
     if z_vals.device.type == "cuda":
         return _launch(model, origins, directions, viewdirs, z_vals, dists, **kwargs)
@@ -247,17 +428,22 @@ def make_fused_render_rays(
     coarse_model: FlexibleNeRFModel,
     fine_model: Optional[FlexibleNeRFModel],
     settings: RenderSettings,
+    *,
+    compute_dtype: torch.dtype = torch.float32,
 ):
     """Deterministic coarse->fine renderer over one ray batch with field
-    evaluation and compositing in :func:`fused_render` (the counterpart of
-    ``make_fused_render_rays``): a ``rays_impl`` for ``render_image``.
+    evaluation and compositing in :func:`fused_render` at
+    ``compute_dtype`` (the counterpart of ``make_fused_render_rays``): a
+    ``rays_impl`` for ``render_image``, carrying its ``compute_dtype``.
     Stratified depths, the inverse-CDF resampling and the ray intervals
     stay plain PyTorch ([N, S]-sized)."""
+    _check_compute_dtype(compute_dtype)
     s = settings.eval_variant()
     kw = dict(
         white_background=s.white_background,
         log_sampling_xyz=s.log_sampling_xyz,
         log_sampling_dir=s.log_sampling_dir,
+        compute_dtype=compute_dtype,
     )
 
     def render(rays: RayBatch) -> RenderResult:
@@ -279,4 +465,5 @@ def make_fused_render_rays(
             )
         return RenderResult(coarse=coarse, fine=fine)
 
+    render.compute_dtype = compute_dtype
     return render

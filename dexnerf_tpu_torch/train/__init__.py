@@ -16,6 +16,7 @@ from dexnerf_tpu_torch.train.loop import (
     load_eval_params,
     load_scene,
     maybe_fused_loss,
+    render_compute_dtype,
     run_training,
     setup_models,
     validate,
@@ -47,6 +48,7 @@ __all__ = [
     "masked_depth_mse",
     "maybe_fused_loss",
     "nerf_loss",
+    "render_compute_dtype",
     "read_reference_checkpoint",
     "run_training",
     "setup_models",

@@ -8,7 +8,8 @@ false), ``validate`` (through the fused render kernel), ``run_training``,
 and what serving needs:
 ``align_cfg_models_to_checkpoint``, ``load_eval_params`` (reference
 ``.ckpt`` only), ``setup_models`` and ``fused_render_impl`` (the
-counterpart of ``maybe_fused_render_impl``). Checkpoints are reference
+counterpart of ``maybe_fused_render_impl``, at the compute dtype of
+``render_compute_dtype``). Checkpoints are reference
 ``.ckpt`` files with the Adam state, which the JAX package also resumes.
 """
 
@@ -137,6 +138,28 @@ def setup_models(cfg: CfgNode, seed: int, device):
     return coarse, fine
 
 
+_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def render_compute_dtype(cfg: CfgNode, device) -> torch.dtype:
+    """The fused render's compute dtype on ``device``, resolved as the JAX
+    package's ``maybe_fused_render_impl`` does. On a CUDA device (the
+    TPU's side in JAX) it is ``nerf.pallas_compute_dtype``, default
+    "bfloat16". On the CPU, where JAX renders through XLA in f32 unless
+    ``nerf.use_fused_render`` is set, it is float32, or the key's dtype
+    when ``nerf.use_fused_render: true`` (JAX's interpret-mode kernel). A
+    value other than "bfloat16" or "float32" raises."""
+    name = str(_get(cfg.nerf, "pallas_compute_dtype", "bfloat16"))
+    if name not in _COMPUTE_DTYPES:
+        raise ValueError(
+            f"nerf.pallas_compute_dtype {name!r}: expected one of {sorted(_COMPUTE_DTYPES)}"
+        )
+    device = torch.device(device)
+    if device.type == "cpu" and not bool(_get(cfg.nerf, "use_fused_render", False)):
+        return torch.float32
+    return _COMPUTE_DTYPES[name]
+
+
 def fused_render_impl(
     cfg: CfgNode,
     settings: RenderSettings,
@@ -146,10 +169,13 @@ def fused_render_impl(
 ):
     """The fused PE->MLP->compositing ``rays_impl`` for ``render_image``
     (the counterpart of ``maybe_fused_render_impl``; the models carry the
-    weights here). On a CUDA ``device`` every pass launches the kernel; on
-    the CPU it runs the kernel's plain PyTorch version. There is no knob
-    that routes CUDA work to the plain version."""
+    weights here) at :func:`render_compute_dtype`. On a CUDA ``device``
+    every pass launches the kernel of that dtype (bf16 tensor cores by
+    default, f32 with ``nerf.pallas_compute_dtype: float32``); on the CPU
+    it runs the kernels' plain PyTorch version. There is no knob that
+    routes CUDA work to the plain version."""
     device = torch.device(device)
+    compute_dtype = render_compute_dtype(cfg, device)
     for name in ("coarse", "fine"):
         blk = _get(cfg.models, name, None)
         if blk is not None and str(blk.type) != "FlexibleNeRFModel":
@@ -161,7 +187,7 @@ def fused_render_impl(
     for model in (coarse, fine):
         if model is not None and next(model.parameters()).device.type != device.type:
             raise ValueError(f"models must live on {device} to render there")
-    return make_fused_render_rays(coarse, fine, settings)
+    return make_fused_render_rays(coarse, fine, settings, compute_dtype=compute_dtype)
 
 
 @dataclass
@@ -210,8 +236,11 @@ def maybe_fused_fields(cfg: CfgNode, coarse, fine, *, train: bool = False):
     model call). ``train=True`` gives the autograd fields of
     ``ops.fused_mlp_train`` (kernel 2 forward, kernel 3 backward on a
     card), else the forward-only fields of ``ops.fused_mlp`` (kernel 2).
-    The JAX package's ``pallas_compute_dtype`` and block sizes are TPU
-    knobs: the port's kernels compute in f32 and pick their own blocks."""
+    Kernels 2 and 3 compute in f32, where the JAX package's default
+    ``nerf.pallas_compute_dtype`` is bf16 (ROADMAP Queue 3); only the
+    fused render (kernel 1, :func:`fused_render_impl`) honours the key.
+    The JAX package's block sizes are TPU knobs: the port's kernels pick
+    their own blocks."""
     if not bool(_get(cfg.nerf, "use_pallas", False)):
         return None, None
     make = make_fused_flexible_field_train if train else make_fused_flexible_field
@@ -226,7 +255,9 @@ def maybe_fused_loss(cfg: CfgNode, settings: RenderSettings, supervision: str, c
     not false, else None (then the fused fields, or the plain autograd
     render, the counterpart of the JAX package's XLA path).
     ``nerf.pallas_loss_resample`` ("auto" | "xla" | "pallas") selects the
-    resample between the passes (kernel 5 for "pallas")."""
+    resample between the passes (kernel 5 for "pallas"). Kernel 4 computes
+    in f32, where the JAX package's default ``nerf.pallas_compute_dtype``
+    is bf16 (ROADMAP Queue 3)."""
     if not bool(_get(cfg.nerf, "use_pallas", False)):
         return None
     if not bool(_get(cfg.nerf, "pallas_fused_loss", True)):

@@ -1,0 +1,418 @@
+"""The fused render pass at ``compute_dtype=bfloat16`` and the dtype the
+port's frame renderer resolves (``dexnerf_tpu_torch/ops/fused_render.py``,
+``train/loop.py::render_compute_dtype``).
+
+On the CPU: the bf16 plain version (``flex_forward_bf16`` under
+``fused_render_reference``) and ``make_fused_render_rays`` at bf16, held to
+the JAX fused kernel at ``compute_dtype=jnp.bfloat16`` in interpret mode on
+one set of weights and rays; the bf16 plain version differs from the f32
+one by more than that tolerance; the dtype resolution. On a CUDA card
+(marker ``gpu``): the bf16 tensor-core kernel held to the bf16 plain
+version, its launch counter and its refusals. The JAX package is imported
+inside a fixture, so that this file also runs where JAX is not installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_fused_render_bf16.py
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from dexnerf_tpu_torch.config.cfgnode import CfgNode
+from dexnerf_tpu_torch.core.encoding import positional_encoding
+from dexnerf_tpu_torch.core.sampling import stratified_z_vals
+from dexnerf_tpu_torch.core.volrend import ray_dists
+from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
+from dexnerf_tpu_torch.ops import fused_render as fr
+from dexnerf_tpu_torch.render.renderer import RayBatch, RenderSettings
+from dexnerf_tpu_torch.train.loop import render_compute_dtype
+
+BF16 = torch.bfloat16
+ENC_XYZ, ENC_DIR = 6, 4
+ARCH = dict(num_layers=8, hidden_size=64, skip_connect_every=3,
+            num_encoding_fn_xyz=ENC_XYZ, num_encoding_fn_dir=ENC_DIR)
+THRESHOLDS = (-5.0, 5.0, 15.0)  # σ >= 0 always crosses -5: the hit branch everywhere
+SETTINGS = RenderSettings(
+    num_coarse=32, num_fine=32, perturb=False, radiance_field_noise_std=0.0,
+    white_background=True, m_thres_cand=THRESHOLDS,
+    num_encoding_fn_xyz=ENC_XYZ, num_encoding_fn_dir=ENC_DIR,
+)
+N_RAYS = 64
+# Port vs JAX, both at bf16 operands with f32 sums. The two sides sum each
+# product in another order, so an f32 activation that lies next to a bf16
+# rounding boundary can round to neighbouring bf16 values on the two sides
+# (2^-8 relative of that one activation); a flipped trunk activation moves
+# σ by up to ~1e-2 here, which moves weights and depth far more than rgb.
+ATOL_RGB = 1e-4  # rgb, accumulation
+ATOL_W = 1e-2  # weights, depth
+DEX_EQUAL = 0.99  # Dex depths: a flip moves σ across a threshold
+
+
+def _rays(n=N_RAYS, seed=3):
+    rng = np.random.default_rng(seed)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    ro = (rng.normal(size=(n, 3)) * 0.2).astype(np.float32)
+    vd = rd / np.linalg.norm(rd, axis=-1, keepdims=True)
+    near = np.full((n,), 2.0, np.float32)
+    return ro, rd, vd, near, near + 4.0
+
+
+def _scale_sigma(model, ro, rd, vd, z, std=20.0):
+    """(k, shift) that make the σ logit over these samples mean 0, std
+    ``std``, so that both Dex branches occur."""
+    with torch.no_grad():
+        pts = ro[:, None] + rd[:, None] * z[..., None]
+        raw = model(positional_encoding(pts, ENC_XYZ), positional_encoding(vd, ENC_DIR))[..., 3]
+        k = std / float(raw.std())
+        return k, -float(raw.mean()) * k
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX reference: its fused kernels at bf16 in interpret mode, flax
+    trees for coarse and fine with a scaled σ head, and the port's models
+    holding the same weights."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from dexnerf_tpu.core.encoding import encoding_dim
+    from dexnerf_tpu.models import FlexibleNeRFModel as JFlex
+    from dexnerf_tpu.ops.fused_render import make_fused_render, make_fused_render_rays
+    from dexnerf_tpu.render import RayBatch as JRayBatch
+    from dexnerf_tpu.render import RenderSettings as JSettings
+    from dexnerf_tpu_torch.train.checkpoints import state_dict_from_flax
+
+    jm = JFlex(**ARCH)
+    in_dim = encoding_dim(3, ENC_XYZ) + encoding_dim(3, ENC_DIR)
+    ro, rd, vd, near, far = (torch.tensor(a) for a in _rays())
+    z = stratified_z_vals(near, far, SETTINGS.num_coarse)
+    trees, models = {}, {}
+    for i, name in enumerate(("coarse", "fine")):
+        tree = jax.tree.map(np.array, jm.init(jax.random.PRNGKey(10 + i), jnp.ones((1, in_dim))))
+        m = FlexibleNeRFModel(**ARCH)
+        m.load_state_dict(state_dict_from_flax(tree))
+        k, shift = _scale_sigma(m, ro, rd, vd, z)
+        alpha = tree["params"][f"Dense_{ARCH['num_layers'] + 1}"]  # fc_alpha
+        alpha["kernel"] *= k
+        alpha["bias"] = alpha["bias"] * k + shift
+        m.load_state_dict(state_dict_from_flax(tree))
+        trees[name], models[name] = tree, m
+    return types.SimpleNamespace(
+        jnp=jnp, jm=jm, render=make_fused_render, rays=make_fused_render_rays,
+        JRayBatch=JRayBatch, settings=JSettings(**SETTINGS.__dict__),
+        params=trees, coarse=models["coarse"], fine=models["fine"],
+    )
+
+
+def _pass_inputs(seed=5):
+    ro, rd, vd, near, far = _rays(seed=seed)
+    z = stratified_z_vals(torch.tensor(near), torch.tensor(far), SETTINGS.num_coarse)
+    return (*(torch.tensor(a) for a in (ro, rd, vd)), z, ray_dists(z, torch.tensor(rd)))
+
+
+def _jax_pass(jx, args, dtype):
+    render = jx.render(jx.jm, block_samples=512, compute_dtype=dtype, interpret=True)
+    return render(jx.params["fine"], *(jx.jnp.asarray(a.numpy()) for a in args),
+                  thresholds=THRESHOLDS)
+
+
+def _assert_bf16_close(got, want):
+    for f in ("rgb", "accumulation"):
+        np.testing.assert_allclose(np.asarray(getattr(got, f)), np.asarray(getattr(want, f)),
+                                   rtol=0, atol=ATOL_RGB, err_msg=f)
+    for f in ("weights", "depth"):
+        np.testing.assert_allclose(np.asarray(getattr(got, f)), np.asarray(getattr(want, f)),
+                                   rtol=0, atol=ATOL_W, err_msg=f)
+    equal = np.asarray(got.depth_dex) == np.asarray(want.depth_dex)
+    assert equal.mean() >= DEX_EQUAL, equal.mean()
+
+
+def _hit_share(model, args, thresholds):
+    ro, rd, vd, z = args[:4]
+    with torch.no_grad():
+        pts = ro[:, None] + rd[:, None] * z[..., None]
+        sigma = model(positional_encoding(pts, ENC_XYZ),
+                      positional_encoding(vd, ENC_DIR))[..., 3].relu()
+    m = torch.tensor(thresholds)
+    return (sigma[None] > m[:, None, None]).any(-1).float().mean(-1)
+
+
+def test_bf16_reference_pass_matches_jax_kernel(jx):
+    """One pass of the bf16 plain version vs one pass of the JAX kernel at
+    compute_dtype=bfloat16 (interpret mode) on shared z/dists."""
+    args = _pass_inputs()
+    got = fr.fused_render_reference(jx.fine, *args, thresholds=THRESHOLDS,
+                                    compute_dtype=BF16, chunk=24)
+    want = _jax_pass(jx, args, jx.jnp.bfloat16)
+    _assert_bf16_close(got, want)
+    assert got.depth_dex.shape == (len(THRESHOLDS), N_RAYS)
+    # the Dex branches: every ray hits -5; 5 and 15 split the rays
+    share = _hit_share(jx.fine, args, THRESHOLDS)
+    assert float(share[0]) == 1.0 and all(0.2 <= float(s) <= 0.95 for s in share[1:]), share
+
+
+def test_bf16_rays_match_jax_kernel(jx):
+    """make_fused_render_rays at bf16, coarse to fine with Dex thresholds, vs
+    the JAX package's make_fused_render_rays at bf16 in interpret mode.
+
+    The coarse pass is held to the one-pass tolerances. The fine pass runs
+    at depths resampled from the coarse weights, so a coarse difference of
+    ~1e-5 moves the fine depths, and with σ of std 20 a moved sample can
+    change its weight by ~1e-3 or more. The fine pass is therefore held
+    relative to the dtype's own effect: each field's error against the JAX
+    bf16 kernel is at most a tenth of the f32 plain version's error against
+    it (rgb and accumulation also within 1e-3), and the Dex depths, which
+    are the moved sample depths, agree within ATOL_W on >= 99% of pairs."""
+    arrays = _rays(seed=7)
+    rays = RayBatch(*(torch.tensor(a) for a in arrays))
+    launches = fr.launches
+    got = fr.make_fused_render_rays(jx.coarse, jx.fine, SETTINGS, compute_dtype=BF16)(rays)
+    assert fr.launches == launches  # CPU tensors never reach the kernel
+    f32 = fr.make_fused_render_rays(jx.coarse, jx.fine, SETTINGS)(rays)
+    want = jx.rays(jx.jm, jx.jm, jx.settings, block_samples=512,
+                   compute_dtype=jx.jnp.bfloat16, interpret=True)(
+        jx.params, jx.JRayBatch(*(jx.jnp.asarray(a) for a in arrays)), None)
+    g, w = got.coarse, want.coarse
+    for f in ("rgb", "accumulation"):
+        np.testing.assert_allclose(np.asarray(getattr(g, f)), np.asarray(getattr(w, f)),
+                                   rtol=0, atol=ATOL_RGB, err_msg=f"coarse.{f}")
+    for f in ("weights", "depth"):
+        np.testing.assert_allclose(np.asarray(getattr(g, f)), np.asarray(getattr(w, f)),
+                                   rtol=0, atol=ATOL_W, err_msg=f"coarse.{f}")
+    for f in ("rgb", "accumulation", "weights", "depth"):
+        want_f = np.asarray(getattr(want.fine, f))
+        err = np.abs(getattr(got.fine, f).numpy() - want_f).max()
+        err_f32 = np.abs(getattr(f32.fine, f).numpy() - want_f).max()
+        assert err <= 0.1 * err_f32, (f, err, err_f32)
+        if f in ("rgb", "accumulation"):
+            assert err <= 1e-3, (f, err)
+    close = np.abs(got.fine.depth_dex.numpy() - np.asarray(want.fine.depth_dex)) <= ATOL_W
+    assert close.mean() >= DEX_EQUAL, close.mean()
+
+
+def test_bf16_differs_from_f32(jx):
+    """The dtype is really applied: on the same inputs the bf16 plain
+    version differs from the f32 one by more than the tolerances above, and
+    so does the JAX kernel between its two dtypes."""
+    args = _pass_inputs()
+    kw = dict(thresholds=THRESHOLDS)
+    b = fr.fused_render_reference(jx.fine, *args, compute_dtype=BF16, **kw)
+    f = fr.fused_render_reference(jx.fine, *args, compute_dtype=torch.float32, **kw)
+    assert float((b.rgb - f.rgb).abs().max()) > 10 * ATOL_RGB
+    assert float((b.weights - f.weights).abs().max()) > ATOL_W
+    jb, jf = (_jax_pass(jx, args, dt) for dt in (jx.jnp.bfloat16, jx.jnp.float32))
+    assert float(np.abs(np.asarray(jb.rgb) - np.asarray(jf.rgb)).max()) > 10 * ATOL_RGB
+    # and the f32 plain version is the JAX kernel's f32 form
+    np.testing.assert_allclose(f.rgb.numpy(), np.asarray(jf.rgb), rtol=2e-4, atol=2e-5)
+
+
+def test_flex_forward_bf16_rounds_only_the_contract_operands():
+    """With weights and encodings that are already bf16 values, the rounded
+    forward is the f32 model with the inputs of the trunk layers, fc_feat
+    and layers_dir.0 rounded to bf16 (forward pre-hooks) and the heads'
+    inputs left f32. The two sum the skip and viewdir layers' products in
+    another order, which can flip the rounding of single activations
+    (2^-8 of the activation), hence the atol."""
+    m = FlexibleNeRFModel(**ARCH).reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(fr._bf16(p))
+    rng = np.random.default_rng(0)
+    xyz = fr._bf16(torch.tensor(rng.normal(size=(4, 5, m.dim_xyz)), dtype=torch.float32))
+    view = fr._bf16(torch.tensor(rng.normal(size=(4, m.dim_dir)), dtype=torch.float32))
+    with torch.no_grad():
+        got = fr.flex_forward_bf16(m, xyz, view)
+        f32 = m(xyz, view)
+        hooks = [lin.register_forward_pre_hook(lambda mod, args: (fr._bf16(args[0]),))
+                 for lin in (*m.layers_xyz, m.fc_feat, m.layers_dir[0])]
+        want = m(xyz, view)
+        for h in hooks:
+            h.remove()
+    assert got.shape == want.shape == (4, 5, 4)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=2e-3)
+    # the rounding of the hidden activations is what separates it from f32
+    assert float((got - f32).abs().max()) > 10 * float((got - want).abs().max())
+
+
+def _cfg(**nerf):
+    flex = {"type": "FlexibleNeRFModel"}
+    return CfgNode({"nerf": dict(nerf), "models": {"coarse": flex, "fine": flex}})
+
+
+@pytest.mark.parametrize(
+    "nerf,device,want",
+    [
+        ({}, "cuda", BF16),
+        ({}, "cpu", torch.float32),
+        ({"use_fused_render": True}, "cpu", BF16),
+        ({"use_fused_render": False}, "cpu", torch.float32),
+        ({"pallas_compute_dtype": "float32"}, "cuda", torch.float32),
+        ({"pallas_compute_dtype": "float32", "use_fused_render": True}, "cpu", torch.float32),
+        ({"pallas_compute_dtype": "bfloat16"}, "cuda", BF16),
+    ],
+    ids=["default-cuda", "default-cpu", "fused-cpu", "unfused-cpu", "f32-cuda",
+         "f32-fused-cpu", "bf16-cuda"],
+)
+def test_render_compute_dtype(nerf, device, want):
+    assert render_compute_dtype(_cfg(**nerf), torch.device(device)) == want
+
+
+def test_render_compute_dtype_rejects_unknown():
+    for bad in ("float16", "bf16", "fp32"):
+        with pytest.raises(ValueError, match="pallas_compute_dtype"):
+            render_compute_dtype(_cfg(pallas_compute_dtype=bad), torch.device("cuda"))
+
+
+def test_fused_render_impl_carries_the_dtype(jx):
+    from dexnerf_tpu_torch.train.loop import fused_render_impl
+
+    for nerf, want in (({}, torch.float32), ({"use_fused_render": True}, BF16)):
+        impl = fused_render_impl(_cfg(**nerf), SETTINGS, "cpu", jx.coarse, jx.fine)
+        assert impl.compute_dtype == want
+
+
+def test_compute_dtype_refused():
+    m = FlexibleNeRFModel(**ARCH)
+    x = torch.zeros((2, 3))
+    z = torch.zeros((2, 4))
+    for call in (fr.fused_render, fr.fused_render_reference):
+        with pytest.raises(ValueError, match="compute_dtype"):
+            call(m, x, x, x, z, z, compute_dtype=torch.float16)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        fr.make_fused_render_rays(m, None, SETTINGS, compute_dtype=torch.float64)
+
+
+@pytest.mark.parametrize("S,want", [(8, 16), (64, 2), (100, 1), (128, 1), (192, 2), (256, 1)])
+def test_rays_per_cta(S, want):
+    assert fr.rays_per_cta(S) == want
+
+
+def test_pack_flex_weights_bf16_layout():
+    m = FlexibleNeRFModel(**ARCH).reset_parameters(torch.Generator().manual_seed(1))
+    wq, aux, off = fr.pack_flex_weights_bf16(m)
+    H, dxp = m.hidden_size, 64
+    assert wq.dtype == BF16 and aux.dtype == torch.float32
+    chunks = []
+    pos = 0
+    for w, k in [(m.layer1.weight, dxp)] + [
+        (m.layers_xyz[i].weight[:, :H], H) for i in range(3)] + [
+        (m.layers_xyz[3].weight[:, :H], H), (m.layers_xyz[3].weight[:, H:], dxp)] + [
+        (m.layers_xyz[i].weight[:, :H], H) for i in range(4, 7)] + [
+        (m.fc_feat.weight, H), (m.layers_dir[0].weight[:, :H], H)]:
+        n = w.shape[0]
+        got = wq[pos:pos + n * k].reshape(k // 32, n, 32).transpose(0, 1).reshape(n, k)
+        want = torch.nn.functional.pad(w.detach(), (0, k - w.shape[1])).to(BF16)
+        assert torch.equal(got, want)
+        chunks.append(n * k)
+        pos += n * k
+    assert pos == wq.numel()
+    assert torch.equal(aux[off[0]:off[0] + H], m.layer1.bias.detach())
+    nt = m.num_layers - 1
+    assert torch.equal(aux[off[nt + 3]:off[nt + 3] + H], m.fc_alpha.weight.detach()[0])
+    wr = aux[off[nt + 5]:off[nt + 5] + H // 2 * 3].reshape(H // 2, 3)
+    assert torch.equal(wr, m.fc_rgb.weight.detach().t())
+    wdv = aux[off[nt + 7]:off[nt + 7] + m.dim_dir * H // 2].reshape(m.dim_dir, H // 2)
+    assert torch.equal(wdv, fr._bf16(m.layers_dir[0].weight.detach()[:, H:].t()))
+    # packed once per parameter state
+    a = fr._cached_bf16_weights(m, "cpu")
+    assert fr._cached_bf16_weights(m, "cpu") is a
+    with torch.no_grad():
+        m.fc_feat.weight.add_(1.0)
+    assert fr._cached_bf16_weights(m, "cpu") is not a
+
+
+# ---- on the card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+FULL = dict(num_layers=8, hidden_size=128, skip_connect_every=3,
+            num_encoding_fn_xyz=10, num_encoding_fn_dir=4)
+# kernel vs the bf16 plain version on the card: the same roundings, f32
+# sums in another order (tensor-core vs cuBLAS), so only rare bf16 flips
+# of single activations separate them (see ATOL_*)
+GPU_ATOL = {"rgb": 1e-3, "accumulation": 1e-3, "disparity": None, "weights": 2e-2,
+            "depth": 2e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "arch,S,T,white",
+    [
+        (dict(num_layers=3, hidden_size=32, skip_connect_every=4, num_encoding_fn_xyz=3,
+              num_encoding_fn_dir=2), 8, 2, True),
+        (FULL, 64, 0, False),
+        (FULL, 128, 20, False),
+        (FULL, 192, 20, True),
+        (dict(FULL, hidden_size=96), 100, 5, False),
+    ],
+    ids=["tiny", "full-64", "full-128", "full-192", "h96-100"],
+)
+def test_bf16_kernel_matches_plain_on_card(cuda, arch, S, T, white):
+    m = FlexibleNeRFModel(**arch).reset_parameters(torch.Generator().manual_seed(0))
+    ro, rd, vd, near, far = (torch.tensor(a, device=cuda) for a in _rays(n=301, seed=9))
+    m = m.to(cuda)
+    z = stratified_z_vals(near, far, S)
+    with torch.no_grad():  # σ logit over these samples: mean 0, std 30
+        pts = ro[:, None] + rd[:, None] * z[..., None]
+        raw = m(positional_encoding(pts, m.num_encoding_fn_xyz),
+                positional_encoding(vd, m.num_encoding_fn_dir))[..., 3]
+        k = 30.0 / raw.std()
+        m.fc_alpha.weight.mul_(k)
+        m.fc_alpha.bias.copy_((m.fc_alpha.bias - raw.mean()) * k)
+    dists = ray_dists(z, rd)
+    thr = tuple(5.0 * (i + 1) for i in range(T))
+    kw = dict(thresholds=thr, white_background=white, compute_dtype=BF16)
+    before, before_bf16 = fr.launches, fr.launches_bf16
+    with torch.inference_mode():
+        got = fr.fused_render(m, ro, rd, vd, z, dists, **kw)
+        again = fr.fused_render(m, ro, rd, vd, z, dists, **kw)
+        want = fr.fused_render_reference(m, ro, rd, vd, z, dists, **kw)
+    torch.cuda.synchronize()
+    assert fr.launches == before + 2 and fr.launches_bf16 == before_bf16 + 2
+    for f, atol in GPU_ATOL.items():
+        a, b = getattr(got, f), getattr(want, f)
+        assert bool(torch.isfinite(a).all()), f
+        assert torch.equal(a, getattr(again, f)), f  # deterministic
+        if atol is None:  # 1 / (depth / acc): relative
+            torch.testing.assert_close(a, b, rtol=2e-2, atol=1e-5)
+        else:
+            torch.testing.assert_close(a, b, rtol=0, atol=atol)
+    if T:
+        assert float((got.depth_dex == want.depth_dex).float().mean()) >= 0.999
+    else:
+        assert got.depth_dex is None
+
+
+@pytest.mark.gpu
+def test_bf16_kernel_refusals_on_card(cuda):
+    m = FlexibleNeRFModel(**dict(FULL, hidden_size=48)).to(cuda)
+    ro, rd, vd, near, far = (torch.tensor(a, device=cuda) for a in _rays(n=16))
+    z = stratified_z_vals(near, far, 64)
+    dists = ray_dists(z, rd)
+    before = fr.launches_bf16
+    with pytest.raises(ValueError, match="bf16 kernel takes 32, 64, 96 or 128"):
+        fr.fused_render(m, ro, rd, vd, z, dists, compute_dtype=BF16)
+    m = FlexibleNeRFModel(**FULL).to(cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fr.fused_render(m, ro, rd, vd, z.t().contiguous().t(), dists, compute_dtype=BF16)
+    with pytest.raises(ValueError, match="float32"):
+        fr.fused_render(m, ro.double(), rd, vd, z, dists, compute_dtype=BF16)
+    with pytest.raises(ValueError, match="samples per ray"):
+        zz = stratified_z_vals(near, far, 300)
+        fr.fused_render(m, ro, rd, vd, zz, ray_dists(zz, rd), compute_dtype=BF16)
+    assert fr.launches_bf16 == before
+    # two CTAs per SM at the full width, coarse and fine (registers and
+    # shared memory both allow it)
+    for S in (64, 128):
+        ctas, smem = fr.bf16_occupancy(m, S)
+        assert ctas >= 2 and smem <= 113 * 1024, (S, ctas, smem)
