@@ -24,20 +24,30 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    (the f32 kernel twice, the bf16 kernel never);
 5. time both kernels and both plain versions on the same frame, each pass
    and the whole frame;
+   Then serve ``configs/tiny.yml``'s 2x16 model (hidden size 16, run
+   zero-padded to 32 by the bf16 kernel) at bf16, and the messytable
+   frame once with ``nerf.use_fused_render: false`` (the plain renderer:
+   no kernel-1 launch);
 6. train: write a 400x400 synthetic blender dataset (16 train, 2 val
    views), point ``configs/lego-tpu.yml`` at it and run
    ``dexnerf_tpu_torch.apps.train`` for 40 steps on the card at full width
-   (8x128 skip 3, PE 10/4, 64 + 64 samples, σ-noise 0.2, batch 8192);
-   check that the fused train-loss kernel launched once per pass per step,
-   that validation went through the fused render kernel, that every loss
-   is finite and falls, and that the ``.ckpt`` and its Adam state read back;
-7. hold the fused train-loss kernel to its plain version on one batch of
-   8192 rays of that run, coarse (S=64) and fine (S=128) pass: loss,
-   weights, rgb and every gradient leaf;
-8. time both passes, kernel and plain, and whole train steps through
-   kernel 4, through the plain autograd path, through the field kernels
-   and through kernel 4 with the fused resample, with each step's peak
-   memory; profile three kernel-4 steps (kernel 4, glue, Adam, idle);
+   (8x128 skip 3, PE 10/4, 64 + 64 samples, σ-noise 0.2, batch 8192) at
+   the config's default dtype, bf16; check that kernel 4's bf16 route
+   launched once per pass per step and its f32 route never, that
+   validation went through the fused render kernel, that every loss is
+   finite and falls, and that the ``.ckpt`` and its Adam state read back;
+   then 10 steps with ``nerf.pallas_compute_dtype: float32`` (the f32
+   route, 20 launches);
+7. hold both routes of the fused train-loss kernel to their plain versions
+   on one batch of 8192 rays of that run, coarse (S=64) and fine (S=128)
+   pass: loss, weights, rgb and every gradient leaf; the bf16 route
+   relative to the dtype's own effect (as kernel 1's, see BF16_*);
+8. time both passes of both routes, kernel and plain, the bf16 route's
+   weight-gradient GEMMs as ``torch.matmul`` calls (library yardstick), and
+   whole train steps through kernel 4 at bf16 and at f32, through the
+   plain autograd path, through the field kernels and through kernel 4
+   with the fused resample, with each step's peak memory; profile three
+   steps at bf16 and three at f32 (kernel 4, glue, Adam, idle);
 9. train the field path (``nerf.pallas_fused_loss: false``) through
    ``apps.train`` for 20 steps: the field forward (kernel 2) and backward
    (kernel 3) launched once per pass per step, kernel 4 never, validation
@@ -58,9 +68,12 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
 
 Each kernel's line holds its bound: the larger of its FLOPs (multiply-adds
 counted from the model's shapes; compares and arithmetic counted from the
-shapes for kernels 5 and 6) over the 67 TFLOP/s f32 peak (the bf16 render
-kernel's over the 989 TFLOP/s dense bf16 tensor-core peak) and its bytes
-(inputs read once, outputs written once) over 3.35 TB/s.
+shapes for kernels 5 and 6) over the 67 TFLOP/s f32 peak (the bf16 routes
+of kernels 1 and 4 over the 989 TFLOP/s dense bf16 tensor-core peak) and
+its bytes (inputs read once, outputs written once) over 3.35 TB/s. The
+bf16 route of kernel 4 has a library yardstick: its weight-gradient
+products as bf16 ``torch.matmul`` calls (timed here, never called by the
+port).
 The line before the last is ``{"kernels": [...]}`` with this run's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -87,6 +100,11 @@ TRAIN_ITERS = 40
 SLICE_ITERS = 20  # steps of each of the field path and the resample path
 # kernel 4's __global__ kernels, by name (the profile's part)
 KERNEL4_NAMES = ("train_pass_kernel", "dw_kernel", "reduce_kernel", "sum_rays_kernel")
+KERNEL4_BF16_NAMES = ("train_prep_kernel", "train_fwd_bf16_kernel", "train_composite_kernel",
+                      "train_chain_bf16_kernel", "train_dw_bf16_kernel", "reduce_bf16_kernel",
+                      "sum_rays_bf16_kernel")
+F32_TRAIN_ITERS = 10  # steps of kernel 4's f32 route (pallas_compute_dtype: float32)
+TINY_CONFIG = os.path.join(ROOT, "configs", "tiny.yml")
 # kernels 5 and 6 vs plain: the CPU tests' tolerances (tests/test_torch_resample.py).
 # With trained weights the CDF has steps of ~1e-5, where one ulp of the CDF
 # moves a depth by up to ~1e-4 through the guarded lerp, so each output is
@@ -326,12 +344,13 @@ def train_cli(tmp, data, name, iters, torch, dev, **nerf):
     torch.cuda.reset_peak_memory_stats()
     for m in mods.values():
         m.launches = 0
-    mods["fused_render"].launches_bf16 = 0
+    mods["fused_render"].launches_bf16 = mods["fused_train_loss"].launches_bf16 = 0
     t0 = time.perf_counter()
     train_app.main(["--config", cfg_path, "--device", dev.type, "--max-iters", str(iters)])
     seconds = time.perf_counter() - t0
     counts = {k: m.launches for k, m in mods.items()}
     counts["fused_render_bf16"] = mods["fused_render"].launches_bf16
+    counts["fused_train_loss_bf16"] = mods["fused_train_loss"].launches_bf16
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     logdir = os.path.join(tmp, "logs", name)
     with open(os.path.join(logdir, "metrics.jsonl")) as f:
@@ -390,6 +409,7 @@ def train_phase(torch, np, card, dev, tmp):
     cfg_path, logdir, counts, losses, val_psnr, train_s, peak_gb = train_cli(
         tmp, data, "lego-tpu-smoke", TRAIN_ITERS, torch, dev)
     launches, render_launches = counts["fused_train_loss"], counts["fused_render"]
+    launches_bf16 = counts["fused_train_loss_bf16"]
     cfg, coarse, fine, ckpt = run_models(cfg_path, logdir, TRAIN_ITERS, dev)
     state = init_train_state(coarse, fine, float(cfg.optimizer.lr))
     load_adam_state(state.optimizer, ckpt["optimizer_state_dict"])
@@ -398,19 +418,36 @@ def train_phase(torch, np, card, dev, tmp):
         for st in state.optimizer.state.values()
     )
     print(f"phase 6: trained {TRAIN_ITERS} steps in {train_s:.2f} s (dataset {dataset_s:.2f} s); "
-          f"fused_train_loss launches {launches}, fused_render launches {render_launches}; "
+          f"fused_train_loss launches {launches} (bf16 route {launches_bf16}), fused_render "
+          f"launches {render_launches}; "
           f"peak {peak_gb:.2f} GiB; loss first {losses[0]:.5f} last {losses[-1]:.5f}; "
           f"validation psnr {val_psnr}")
     run_checks("training", {
         f"{TRAIN_ITERS} finite losses": len(losses) == TRAIN_ITERS
         and bool(np.isfinite(losses).all()),
         "loss falls (mean of last 10 < first 10)": np.mean(losses[-10:]) < np.mean(losses[:10]),
-        f"kernel 4 launched {2 * TRAIN_ITERS} times": launches == 2 * TRAIN_ITERS,
+        f"kernel 4's bf16 route launched {2 * TRAIN_ITERS} times, its f32 route never":
+            launches_bf16 == 2 * TRAIN_ITERS and launches == launches_bf16,
         "validation through kernel 1 at bf16": render_launches >= 2
         and counts["fused_render_bf16"] == render_launches and len(val_psnr) >= 1
         and bool(np.isfinite(val_psnr).all()),
         ".ckpt reads back with Adam": ckpt["step"] == TRAIN_ITERS and moments_finite
         and len(state.optimizer.state) == len(list(coarse.parameters())) * 2,
+    })
+    # the f32 route through the same entry point
+    _, _, counts_f, losses_f, val_f, secs_f, _ = train_cli(
+        tmp, data, "lego-tpu-f32", F32_TRAIN_ITERS, torch, dev, pallas_compute_dtype="float32")
+    launches_f32 = counts_f["fused_train_loss"]
+    print(f"phase 6: pallas_compute_dtype float32, {F32_TRAIN_ITERS} steps in {secs_f:.2f} s; "
+          f"kernel 4 launches {launches_f32} (bf16 route {counts_f['fused_train_loss_bf16']}); "
+          f"loss first {losses_f[0]:.5f} last {losses_f[-1]:.5f}")
+    run_checks("training at float32", {
+        f"{F32_TRAIN_ITERS} finite losses": len(losses_f) == F32_TRAIN_ITERS
+        and bool(np.isfinite(losses_f).all()),
+        f"kernel 4's f32 route launched {2 * F32_TRAIN_ITERS} times, its bf16 route never":
+            launches_f32 == 2 * F32_TRAIN_ITERS and counts_f["fused_train_loss_bf16"] == 0,
+        "validation through kernel 1's f32 route": counts_f["fused_render"] >= 2
+        and counts_f["fused_render_bf16"] == 0 and bool(np.isfinite(val_f).all()),
     })
     scene = load_scene(cfg)
 
@@ -428,7 +465,7 @@ def train_phase(torch, np, card, dev, tmp):
     norm = float(3 * batch)
     z_c = jittered_z_vals(rays, s_train, draws)
     passes = {"coarse": (coarse, z_c, draws.noise_coarse)}
-    worst, per_pass = 0.0, {}
+    worst, worst_b, per_pass = 0.0, 0.0, {}
     for name in ("coarse", "fine"):
         model, z, noise = passes[name]
         args = (model, o, d, z, v, ray_dists(z, d), noise, target)
@@ -464,6 +501,7 @@ def train_phase(torch, np, card, dev, tmp):
         print_leaves(leaves)
         if bad:
             raise AssertionError(f"{name} pass: kernel and plain differ in {bad}")
+        worst_b = max(worst_b, check_train_bf16(name, model, args, norm, want, torch))
         per_pass[name] = args
         if name == "coarse":
             z_f, _ = hierarchical_z_vals(z_c, want[1], s_train.num_fine, det=False, u=draws.u_fine)
@@ -471,7 +509,9 @@ def train_phase(torch, np, card, dev, tmp):
 
     # ---- phase 8: timings, bound, profile of the kernel path
     ms = {}
-    flops = byts = dw_flops = 0.0
+    flops = byts = byts_b = dw_flops = 0.0
+    bf = dict(compute_dtype=torch.bfloat16, dw_dtype=torch.bfloat16)
+    gemms = []
     for name, args in per_pass.items():
         model, z = args[0], args[3]
         n, s = z.shape
@@ -480,17 +520,32 @@ def train_phase(torch, np, card, dev, tmp):
         dw_flops += 2 * (n * s * ps + n * pr)
         flops += train_flops(model, n, s)
         params = list(model.parameters())
-        byts += nbytes(*args[1:]) + 2 * nbytes(*params) + nbytes(z) + 3 * 4 * n + 4
-        ms[f"{name}_kernel"] = timed_ms(lambda: ftl.fused_pass_loss(*args), torch)
-        ms[f"{name}_plain"] = timed_ms(lambda: ftl.fused_pass_loss_reference(*args), torch)
+        io = nbytes(*args[1:]) + nbytes(z) + 3 * 4 * n + 4
+        byts += io + 2 * nbytes(*params)
+        # the bf16 route reads its bf16 packs (and the f32 heads) instead
+        byts_b += io + nbytes(*params) + nbytes(*ftl._cached_bf16_weights(model, dev)[:2],
+                                                ftl.pack_backward_weights_bf16(model, dev))
+        for tag, kw in (("", {}), ("_bf16", bf)):
+            ms[f"{name}_kernel{tag}"] = timed_ms(lambda: ftl.fused_pass_loss(*args, **kw), torch)
+            ms[f"{name}_plain{tag}"] = timed_ms(
+                lambda: ftl.fused_pass_loss_reference(*args, **kw), torch)
+        gemms += dw_gemm_operands(model, n * s, torch, dev)
     bound_ms, bound_by = bound(flops, byts)
+    bound_b, bound_b_by = bound(flops, byts_b, BF16_FLOPS)
+    # library yardstick: the bf16 route's weight-gradient products of both
+    # passes (cotangents^T x activations over every sample) as torch.matmul
+    ms["dw_torch_matmul_bf16"] = timed_ms(lambda: [torch.matmul(d.t(), a) for d, a in gemms],
+                                          torch)
+    del gemms
 
     def step_ms(path, reps=5):
         st = init_train_state(coarse, fine, float(cfg.optimizer.lr))
         kw = {}
-        if path in ("kernel", "resample"):
+        if path in ("kernel", "kernel_bf16", "resample"):
+            dt = torch.float32 if path == "kernel" else torch.bfloat16
             kw["fused_loss"] = ftl.make_fused_train_loss(
-                coarse, fine, s_train, resample="pallas" if path == "resample" else "auto")
+                coarse, fine, s_train, resample="pallas" if path == "resample" else "auto",
+                compute_dtype=dt, dw_dtype=dt)
         elif path == "fields":
             kw["coarse_field"], kw["fine_field"] = (
                 make_fused_flexible_field_train(m) for m in (coarse, fine))
@@ -505,35 +560,117 @@ def train_phase(torch, np, card, dev, tmp):
 
     peaks = {}
     steps = {}
-    for path in ("kernel", "plain", "fields", "resample"):
+    for path in ("kernel_bf16", "kernel", "plain", "fields", "resample"):
         torch.cuda.reset_peak_memory_stats()
         ms[f"step_{path}"], steps[path] = step_ms(path)
         peaks[path] = torch.cuda.max_memory_allocated() / 2**30
     print(f"phase 8: ms on {card} (passes: CUDA events, mean of 3; steps: host clock "
           f"around synchronize, mean of 5): " + json.dumps({k: round(t, 3) for k, t in ms.items()}))
-    print(f"  kernel 4 bound for both passes: {bound_ms:.3f} ms ({bound_by}; "
+    kernel_b = ms["coarse_kernel_bf16"] + ms["fine_kernel_bf16"]
+    print(f"  kernel 4 bound for both passes: {bound_ms:.3f} ms f32 ({bound_by}; "
           f"{flops / 1e12:.4f} TFLOP, of which {dw_flops / 1e12:.4f} weight gradients, "
-          f"{byts / 1e6:.2f} MB; at the bf16 tensor-core peak "
-          f"{1e3 * flops / BF16_FLOPS:.3f} ms); achieved "
-          f"{flops / (ms['coarse_kernel'] + ms['fine_kernel']) / 1e9:.2f} TFLOP/s f32; "
-          f"peak memory of a step (GiB): " + json.dumps({k: round(v, 2) for k, v in peaks.items()}))
+          f"{byts / 1e6:.2f} MB); bf16 route {bound_b:.3f} ms ({bound_b_by}; "
+          f"{byts_b / 1e6:.2f} MB); achieved "
+          f"{flops / (ms['coarse_kernel'] + ms['fine_kernel']) / 1e9:.2f} TFLOP/s (f32 route), "
+          f"{flops / kernel_b / 1e9:.2f} TFLOP/s (bf16 route); rays/s per step: "
+          + json.dumps({k: round(batch / (ms[f"step_{k}"] / 1e3)) for k in steps})
+          + "; peak memory of a step (GiB): "
+          + json.dumps({k: round(v, 2) for k, v in peaks.items()}))
+    print("  bf16 route residency (CUDA occupancy API; CTAs per SM, shared bytes per CTA): "
+          + json.dumps(ftl.bf16_occupancy(fine)))
+    print("  bf16 steps:")
+    profile_steps(torch, steps["kernel_bf16"], {"kernel 4 bf16": KERNEL4_BF16_NAMES})
+    print("  f32 steps (pallas_compute_dtype: float32):")
     profile_steps(torch, steps["kernel"], {"kernel 4": KERNEL4_NAMES})
-    train_kernel = {
+    entry = dict(route="cuda", replaces="dexnerf_tpu/ops/fused_train_loss.py:99")
+    train_kernels = [{
         "name": "fused_train_loss",
-        "route": "cuda",
+        **entry,
         "source": "dexnerf_tpu_torch/ops/csrc/fused_train_loss.cu",
-        "replaces": "dexnerf_tpu/ops/fused_train_loss.py:99",
-        "launches": launches,
+        "launches": launches_f32,
         "max_abs_err": worst,
         "ms": ms["coarse_kernel"] + ms["fine_kernel"],
         "plain_ms": ms["coarse_plain"] + ms["fine_plain"],
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }
+    }, {
+        "name": "fused_train_loss_bf16",
+        **entry,
+        "source": "dexnerf_tpu_torch/ops/csrc/fused_train_loss_bf16.cu",
+        "launches": launches_bf16,
+        "max_abs_err": worst_b,
+        "ms": kernel_b,
+        "plain_ms": ms["coarse_plain_bf16"] + ms["fine_plain_bf16"],
+        "bound_ms": bound_b,
+        "bound_by": bound_b_by,
+        "library_ms": ms["dw_torch_matmul_bf16"],
+    }]
     shared = types.SimpleNamespace(data=data, s_train=s_train, o=o, d=d, v=v, target=target,
                                    z_c=z_c, draws=draws, field_step=steps["fields"])
-    return train_kernel, shared
+    return train_kernels, shared
+
+
+def dw_gemm_operands(model, k, torch, dev):
+    """Random bf16 operands of the bf16 route's weight-gradient products of
+    one pass over ``k`` samples, as (cotangents [k, N], activations
+    [k, M]): layer1, the trunk (and skip) layers, fc_feat, fc_alpha,
+    layers_dir.0 (its feat rows) and fc_rgb."""
+    H, h2, dx = model.hidden_size, model.hidden_size // 2, model.dim_xyz
+    shapes = [(H, dx)] + [(H, H)] * (model.num_layers - 1) + [(H, dx)] * len(model.skips)
+    shapes += [(H, H), (1, H), (h2, H), (3, h2)]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rnd(cols):
+        return torch.randn((k, cols), generator=gen, device=dev).to(torch.bfloat16)
+
+    return [(rnd(n), rnd(m)) for n, m in shapes]
+
+
+def check_train_bf16(name, model, args, norm, want_f32, torch):
+    """Kernel 4's bf16 route vs its bf16 plain version on one pass (the
+    loss over ``norm``): loss, weights, rgb and every gradient leaf, each
+    held relative to the dtype's own effect, own = |bf16 plain - f32 plain|
+    (``want_f32``): the kernel's distance to the bf16 plain version at most
+    own (max) and BF16_P999 x own (99.9th percentile), its distance to the
+    f32 plain version at most BF16_REL x own, each + BF16_REL_ATOL x the
+    largest entry. Returns the largest max abs error against the bf16
+    plain version."""
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+
+    bf = dict(compute_dtype=torch.bfloat16, dw_dtype=torch.bfloat16)
+    model.zero_grad(set_to_none=True)
+    loss, w, rgb = ftl.fused_pass_loss(*args, **bf)
+    (loss / norm).backward()
+    torch.cuda.synchronize()
+    plain = ftl.fused_pass_loss_reference(*args, **bf)
+    got = {"loss": loss.detach().reshape(1) / norm, "weights": w, "rgb": rgb}
+    want = {"loss": plain[0].reshape(1) / norm, "weights": plain[1], "rgb": plain[2]}
+    f32 = {"loss": want_f32[0].reshape(1) / norm, "weights": want_f32[1],
+           "rgb": want_f32[2]}
+    for (pname, p), gp, gf in zip(model.named_parameters(), plain[3], want_f32[3]):
+        got[pname], want[pname], f32[pname] = p.grad, gp / norm, gf / norm
+    bad, lines, worst = [], {}, 0.0
+    for key in want:
+        a, b, f = got[key], want[key], f32[key]
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name}.{key}: shape {tuple(a.shape)} or non-finite values")
+        atol = BF16_REL_ATOL * float(b.abs().max())
+        e_b, e_k, e_p = (a - b).abs(), (a - f).abs(), (b - f).abs()
+        b_max, k_max, p_max = float(e_b.max()), float(e_k.max()), float(e_p.max())
+        b_999, p_999 = p999(e_b, torch), p999(e_p, torch)
+        worst = max(worst, b_max)
+        lines[key] = [float(f"{v:.3e}") for v in (b_max, b_999, k_max, p_max, p_999)]
+        if not (b_max <= p_max + atol and b_999 <= BF16_P999 * p_999 + atol
+                and k_max <= BF16_REL * p_max + atol):
+            bad.append(key)
+    print(f"phase 7: {name} pass, bf16 route vs plain, [max, p99.9 vs the bf16 plain version; "
+          f"max vs the f32 plain version; own max, own p99.9] (limits: max <= own, p99.9 <= "
+          f"{BF16_P999:g} own, vs f32 <= {BF16_REL:g} own, + {BF16_REL_ATOL:g} x scale): "
+          + json.dumps(lines))
+    if bad:
+        raise AssertionError(f"{name} pass: bf16 route outside its tolerances in {bad}")
+    return worst
 
 
 def print_leaves(leaves):
@@ -844,6 +981,9 @@ def profile_steps(torch, step, kernels_of, n=3, unit="step"):
     top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
     print(f"  top device ops, ms per {unit}: "
           + json.dumps({k: round(v / n / 1e3, 3) for k, v in top}))
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:6]
+    print(f"  top host ops (self CPU time, profiler on), ms per {unit}: "
+          + json.dumps({e.key[:50]: round(e.self_cpu_time_total / n / 1e3, 3) for e in host}))
 
 
 def serve_requests(config, ckpt, requests, torch):
@@ -1058,6 +1198,34 @@ def main() -> int:
             f.write(raw_cfg.dump())
         out_f, _, request_ms_f, frames_f, launches_f, launches_fb = serve_requests(
             f32_cfg, ckpt, [("/depth?" + q, None)], torch)
+        # nerf.use_fused_render: false asks for the plain renderer (no kernel 1)
+        unf_cfg = os.path.join(tmp, "messytable-obj-unfused.yml")
+        raw_cfg = load_config(CONFIG)
+        raw_cfg.nerf.use_fused_render = False
+        with open(unf_cfg, "w") as f:
+            f.write(raw_cfg.dump())
+        out_u, _, request_ms_u, frames_u, launches_u, _ = serve_requests(
+            unf_cfg, ckpt, [("/depth?" + q, None)], torch)
+        # hidden size 16 at bf16 (the kernel computes zero-padded to 32):
+        # configs/tiny.yml's 2x16 model, seeded
+        tiny_cfg = load_config(TINY_CONFIG)
+        t_coarse, t_fine = setup_models(tiny_cfg, SEED, dev)
+        tiny_ckpt = os.path.join(tmp, "tiny.ckpt")
+        write_reference_checkpoint(tiny_ckpt, t_coarse.state_dict(), t_fine.state_dict())
+        out_t, info_t, request_ms_t, frames_t, launches_t, launches_tb = serve_requests(
+            TINY_CONFIG, tiny_ckpt, [("/healthz", None), ("/depth?" + q, None)], torch)
+    t_settings = render_settings_from_cfg(tiny_cfg, "validation").eval_variant()
+    with torch.inference_mode():
+        zt = stratified_z_vals(rays.near, rays.far, t_settings.num_coarse)
+        args_t = (t_coarse, o, d, v, zt, ray_dists(zt, d))
+        tkw = dict(white_background=t_settings.white_background)
+        got_t = fr.fused_render(*args_t, **tkw, compute_dtype=bf16)
+        want_t = fr.fused_render_reference(*args_t, **tkw, compute_dtype=bf16)
+        torch.cuda.synchronize()
+        print(f"phase 4: hidden size 16 (configs/tiny.yml), bf16 kernel vs plain, coarse pass "
+              f"of {zt.shape[1]} samples:")
+        compare_bf16("tiny coarse", got_t, want_t, fr.fused_render_reference(*args_t, **tkw),
+                     torch)
     from PIL import Image
 
     rgb = np.asarray(Image.open(io.BytesIO(out[1])))
@@ -1067,6 +1235,10 @@ def main() -> int:
     conf = np.load(io.BytesIO(out[5]))
     post = np.asarray(Image.open(io.BytesIO(out[6])))
     depth_f = np.load(io.BytesIO(out_f[0]))
+    depth_u = np.load(io.BytesIO(out_u[0]))
+    depth_t = np.load(io.BytesIO(out_t[1]))
+    frame_f32 = frames[torch.float32].fine.depth.cpu().numpy()
+    unfused_close = float(np.mean(np.abs(depth_u - frame_f32) <= 1e-3 + 1e-3 * np.abs(frame_f32)))
     print(f"phase 4: served {frames_served} frames at the config's default dtype, kernel-1 "
           f"launches {launches} (bf16 kernel {launches_b}); healthz m_thres "
           f"{info['m_thres_cand'][0]}..{info['m_thres_cand'][-1]}, compute dtype "
@@ -1074,6 +1246,12 @@ def main() -> int:
           f"{json.dumps(request_ms)}")
     print(f"  nerf.pallas_compute_dtype: float32: served {frames_f} frame, launches "
           f"{launches_f} (bf16 kernel {launches_fb}); request ms {json.dumps(request_ms_f)}")
+    print(f"  nerf.use_fused_render: false: served {frames_u} frame, kernel-1 launches "
+          f"{launches_u}; depth within 1e-3 (+1e-3 rel) of the f32 kernel's frame on "
+          f"{unfused_close:.6f} of pixels; request ms {json.dumps(request_ms_u)}")
+    print(f"  configs/tiny.yml (hidden size {t_coarse.hidden_size}): served {frames_t} frame at "
+          f"{info_t.get('compute_dtype')}, kernel-1 launches {launches_t} (bf16 kernel "
+          f"{launches_tb}); request ms {json.dumps(request_ms_t)}")
     checks = {
         "rgb png 400x400x3": rgb.shape == (H, W, 3) and rgb.dtype == np.uint8,
         "POST rgb equals GET rgb": np.array_equal(post, rgb),
@@ -1092,6 +1270,12 @@ def main() -> int:
             depth_f, frames[torch.float32].fine.depth.cpu().numpy(), rtol=RTOL, atol=ATOL),
         "float32 config: 2 f32 launches, no bf16 launch": frames_f == 1
         and launches_f == 2 and launches_fb == 0,
+        "use_fused_render false: no kernel-1 launch, depth finite and = f32 frame on 99.9%":
+            frames_u == 1 and launches_u == 0 and bool(np.isfinite(depth_u).all())
+            and unfused_close >= 0.999,
+        "hidden size 16 at bf16: 2 bf16 launches, depth 400x400 finite": frames_t == 1
+        and launches_tb == 2 and launches_t == 2 and depth_t.shape == (H, W)
+        and bool(np.isfinite(depth_t).all()),
     }
     run_checks("serving", checks)
 
@@ -1103,7 +1287,7 @@ def main() -> int:
             coarse, fine, ro, rd, near, far, settings, rays_impl=impl_b),
             {"kernel 1 bf16": ("fused_render_bf16_kernel",)}, unit="frame")
     with tempfile.TemporaryDirectory() as tmp:
-        train_kernel, shared = train_phase(torch, np, card, dev, tmp)
+        train_kernels, shared = train_phase(torch, np, card, dev, tmp)
         field_kernels = field_phase(torch, np, card, dev, tmp, shared)
         resample_kernels = resample_phase(torch, np, card, dev, tmp, shared)
     render = dict(route="cuda", replaces="dexnerf_tpu/ops/fused_render.py:115", library_ms=None)
@@ -1127,7 +1311,7 @@ def main() -> int:
         "plain_ms": ms["coarse_plain_bf16"] + ms["fine_plain_bf16"],
         "bound_ms": bf16_bound,
         "bound_by": bf16_bound_by,
-    }, train_kernel, *field_kernels, *resample_kernels]}))
+    }, *train_kernels, *field_kernels, *resample_kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -156,6 +156,20 @@ def load_library() -> ctypes.CDLL:
             + [vp, ci, vp, vp]               # per-ray losses, rays, loss (or null), stream
         )
         lib.dexnerf_train_reduce.restype = ci
+        lib.dexnerf_train_bf16_size.argtypes = [ci] * 4  # which, hidden, num_trunk, dd
+        lib.dexnerf_train_bf16_size.restype = ci
+        lib.dexnerf_train_bf16_pass.argtypes = [vp, ci, ci, vp]  # args, rows, tiles, stream
+        lib.dexnerf_train_bf16_pass.restype = ci
+        lib.dexnerf_train_bf16_dw.argtypes = [vp, ci, vp]  # args block, tiles, stream
+        lib.dexnerf_train_bf16_dw.restype = ci
+        lib.dexnerf_train_bf16_reduce.argtypes = (
+            [vp, ci, ctypes.c_longlong]  # dW slots, slots, params
+            + [vp, ci, ci, vp, vp]       # chain slots, slots, slot length, map, grad
+            + [vp, ci, vp, vp]           # per-ray losses, rays, loss, stream
+        )
+        lib.dexnerf_train_bf16_reduce.restype = ci
+        lib.dexnerf_train_bf16_occupancy.argtypes = [ci, ci, vp, vp, vp, vp]
+        lib.dexnerf_train_bf16_occupancy.restype = ci
         lib.dexnerf_field_args_size.argtypes = []
         lib.dexnerf_field_args_size.restype = ci
         lib.dexnerf_field_forward.argtypes = [vp, vp]  # args block (host), stream

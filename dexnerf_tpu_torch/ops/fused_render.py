@@ -103,44 +103,116 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _k_chunks(w: torch.Tensor, k: int) -> torch.Tensor:
-    """``w`` [N, K] zero-padded to ``k`` columns, as flat [k/32, N, 32]."""
-    w = F.pad(w, (0, k - w.shape[1]))
-    n = w.shape[0]
+def _k_chunks(w: torch.Tensor, k: int, n: Optional[int] = None) -> torch.Tensor:
+    """``w`` [N, K] zero-padded to ``n`` rows (default N) and ``k`` columns,
+    as flat [k/32, n, 32]."""
+    n = w.shape[0] if n is None else n
+    w = F.pad(w, (0, k - w.shape[1], 0, n - w.shape[0]))
     return w.reshape(n, k // BF16_KCHUNK, BF16_KCHUNK).transpose(0, 1).reshape(-1)
+
+
+def bf16_hidden(hidden: int) -> int:
+    """The width the bf16 kernels compute at: ``hidden`` zero-padded to a
+    multiple of 32 (their warps split the columns in halves of n8 tiles,
+    and the viewdir layer's H/2 in quarters). The padding is exact: a
+    padded unit computes ReLU(0 + 0) = 0 and meets zero weight rows."""
+    return _round_up(hidden, 32)
+
+
+def _pad_vec(t: torch.Tensor, n: int) -> torch.Tensor:
+    return F.pad(t, (0, n - t.shape[-1]))
+
+
+def _bf16_layout(model: FlexibleNeRFModel, w: dict) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
+    """The bf16 kernel's layout of the parameters ``w`` (name -> tensor,
+    the model's shapes) at the padded width, before any rounding: the
+    float32 operand chunks, the aux buffer and its offsets (see
+    :func:`pack_flex_weights_bf16`)."""
+    H = model.hidden_size
+    Hp = bf16_hidden(H)
+    Hp2 = Hp // 2
+    dxp = _round_up(model.dim_xyz, BF16_KCHUNK)
+    d0 = "layers_dir.0"
+    parts = [_k_chunks(w["layer1.weight"], dxp, Hp)]
+    for i in range(model.num_layers - 1):
+        wi = w[f"layers_xyz.{i}.weight"]
+        parts.append(_k_chunks(wi[:, :H], Hp, Hp))
+        if i in model.skips:
+            parts.append(_k_chunks(wi[:, H:], dxp, Hp))
+    parts.append(_k_chunks(w["fc_feat.weight"], Hp, Hp))
+    parts.append(_k_chunks(w[f"{d0}.weight"][:, :H], Hp, Hp2))
+    aux, offsets = _pack_f32([
+        _pad_vec(w["layer1.bias"], Hp),
+        *(_pad_vec(w[f"layers_xyz.{i}.bias"], Hp) for i in range(model.num_layers - 1)),
+        _pad_vec(w["fc_feat.bias"], Hp), _pad_vec(w[f"{d0}.bias"], Hp2),
+        _pad_vec(w["fc_alpha.weight"], Hp), w["fc_alpha.bias"],
+        F.pad(w["fc_rgb.weight"].t(), (0, 0, 0, Hp2 - H // 2)), w["fc_rgb.bias"],
+        _pad_vec(w[f"{d0}.weight"][:, H:].t(), Hp2),
+    ])
+    return torch.cat(parts), aux, offsets
+
+
+# (layout function, model shape, device) -> gather plan: every packed entry
+# as 1 + its index in the flat parameter vector (0: a zero of the padding)
+_plans = {}
+
+
+def gather_plan(layout, model: FlexibleNeRFModel, device) -> tuple:
+    """``layout(model, w)`` (a function of the parameters ``w`` that only
+    moves entries and pads with zeros) turned into index tensors on
+    ``device``, once per model shape, so that a pack is one gather of the
+    flat parameters (:func:`gather_params`) instead of one small op per
+    layer. Returns the index tensors and any further outputs of
+    ``layout``."""
+    key = (layout, tuple((n, tuple(p.shape)) for n, p in model.named_parameters()),
+           tuple(model.skips), str(device))
+    if key not in _plans:
+        w, pos = {}, 1
+        for name, p in model.named_parameters():
+            w[name] = torch.arange(pos, pos + p.numel(), dtype=torch.float32).reshape(p.shape)
+            pos += p.numel()
+        if pos >= 1 << 24:  # float32 holds the indices exactly below 2^24
+            raise ValueError(f"{pos} parameters: too many for a float32 gather plan")
+        out = layout(model, w)
+        idx = tuple(t.to(torch.int64).to(device) for t in out if isinstance(t, torch.Tensor))
+        _plans[key] = (*idx, *(v for v in out if not isinstance(v, torch.Tensor)))
+    return _plans[key]
+
+
+def gather_params(model: FlexibleNeRFModel, *idx: torch.Tensor) -> List[torch.Tensor]:
+    """The model's parameters, float32, at each of the plan index tensors
+    ``idx`` (0: zero)."""
+    p0 = next(model.parameters())
+    flat = torch.cat([p0.new_zeros(1)] + [p.detach().reshape(-1) for p in model.parameters()])
+    flat = flat.to(torch.float32)
+    return [flat[i] for i in idx]
 
 
 def pack_flex_weights_bf16(
     model: FlexibleNeRFModel, device=None
 ) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
-    """The bf16 kernel's weight layout (``split_flex_params`` at bfloat16):
+    """The bf16 kernel's weight layout (``split_flex_params`` at bfloat16),
+    at the padded width Hp = :func:`bf16_hidden` (every padded row, column
+    and bias is zero):
 
     * ``wq``, bf16: the matmul operands as [N, 32] K-chunks (rows of
-      ``nn.Linear.weight``, K zero-padded to a multiple of 32) in the
-      kernel's consumption order: layer1; per trunk layer its h rows, then
-      on a skip layer its xyz rows; fc_feat; the feat rows of layers_dir.0;
+      ``nn.Linear.weight``, N zero-padded to Hp or Hp/2, K zero-padded to a
+      multiple of 32) in the kernel's consumption order: layer1; per trunk
+      layer its h rows, then on a skip layer its xyz rows; fc_feat; the
+      feat rows of layers_dir.0;
     * ``aux``, float32, at the returned offsets: the biases of layer1, of
-      each trunk layer, of fc_feat and of layers_dir.0, then w_alpha [H],
-      b_alpha, w_rgb [H/2, 3], b_rgb and the viewdir rows of layers_dir.0
-      [dd, H/2] rounded to bf16 (the kernel folds them into a per-ray bias).
+      each trunk layer, of fc_feat and of layers_dir.0, then w_alpha [Hp],
+      b_alpha, w_rgb [Hp/2, 3], b_rgb and the viewdir rows of layers_dir.0
+      [dd, Hp/2] rounded to bf16 (the kernel folds them into a per-ray bias).
     """
-    H = model.hidden_size
-    dxp = _round_up(model.dim_xyz, BF16_KCHUNK)
-    lin_dir = model.layers_dir[0]
+    dev = next(model.parameters()).device
+    idx_wq, idx_aux, offsets = gather_plan(_bf16_layout, model, dev)
     with torch.no_grad():
-        parts = [_k_chunks(model.layer1.weight, dxp)]
-        for i, layer in enumerate(model.layers_xyz):
-            parts.append(_k_chunks(layer.weight[:, :H], H))
-            if i in model.skips:
-                parts.append(_k_chunks(layer.weight[:, H:], dxp))
-        parts.append(_k_chunks(model.fc_feat.weight, H))
-        parts.append(_k_chunks(lin_dir.weight[:, :H], H))
-        wq = torch.cat(parts).to(torch.bfloat16)
-        aux, offsets = _pack_f32([
-            model.layer1.bias, *(l.bias for l in model.layers_xyz), model.fc_feat.bias,
-            lin_dir.bias, model.fc_alpha.weight, model.fc_alpha.bias,
-            model.fc_rgb.weight.t(), model.fc_rgb.bias, _bf16(lin_dir.weight[:, H:].t()),
-        ])
+        wq, aux = gather_params(model, idx_wq, idx_aux)
+        wq = wq.to(torch.bfloat16)
+        vd = offsets[model.num_layers + 6]
+        n_vd = model.dim_dir * bf16_hidden(model.hidden_size) // 2
+        aux[vd:vd + n_vd] = _bf16(aux[vd:vd + n_vd])
     return wq.to(device), aux.to(device), offsets
 
 
@@ -267,7 +339,7 @@ def bf16_occupancy(model: FlexibleNeRFModel, n_samples: int) -> Tuple[int, int]:
     lib = load_library()
     ctas, smem = ctypes.c_int(0), ctypes.c_int(0)
     code = lib.dexnerf_fused_render_bf16_occupancy(
-        model.hidden_size, model.dim_xyz, n_samples, rays_per_cta(n_samples),
+        bf16_hidden(model.hidden_size), model.dim_xyz, n_samples, rays_per_cta(n_samples),
         ctypes.byref(ctas), ctypes.byref(smem))
     check(lib, code, "fused_render bf16 occupancy query")
     return ctas.value, smem.value
@@ -285,13 +357,10 @@ def _check_inputs(model, dev, tensors, N: int, S: int, T: int, compute_dtype) ->
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     H = model.hidden_size
-    if compute_dtype == torch.bfloat16:
-        # the bf16 kernel's warps split the columns in halves of n8 tiles
-        # (and the viewdir layer's H/2 too); the shared-memory request is
-        # checked by the launch
-        if H not in (32, 64, 96, 128):
-            raise ValueError(f"hidden_size {H}: the bf16 kernel takes 32, 64, 96 or 128")
-    elif H > MAX_HIDDEN or H % 8 or H < 8:
+    # both routes take multiples of 8 up to 128 (the bf16 route computes at
+    # bf16_hidden(H)); the bf16 route's shared-memory request is checked by
+    # the launch
+    if H > MAX_HIDDEN or H % 8 or H < 8:
         raise ValueError(f"hidden_size {H}: the kernel takes multiples of 8 up to {MAX_HIDDEN}")
     if not 1 <= S <= MAX_SAMPLES:
         raise ValueError(f"{S} samples per ray: the kernel takes 1..{MAX_SAMPLES}")
@@ -364,7 +433,8 @@ def _launch(
         off_arr, off_ptr = _host_array(ctypes.c_int, offsets)
         code = lib.dexnerf_fused_render_bf16(
             *ins, wq.data_ptr(), aux.data_ptr(), *outs,
-            N, S, model.hidden_size, model.num_layers - 1, skip_mask, rays_per_cta(S),
+            N, S, bf16_hidden(model.hidden_size), model.num_layers - 1, skip_mask,
+            rays_per_cta(S),
             *pe, off_ptr, int(bool(white_background)), stream,
         )
         check(lib, code, "fused_render bf16 kernel launch")

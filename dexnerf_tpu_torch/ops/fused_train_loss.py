@@ -3,42 +3,64 @@ compositing -> squared error, with the gradient of the loss sum with
 respect to every model parameter.
 
 Counterpart of ``dexnerf_tpu/ops/fused_train_loss.py``, whose Pallas
-kernel (``_make_loss_kernel``) this module's CUDA kernel
-(``ops/csrc/fused_train_loss.cu``, built by ``ops/_build.py``) replaces.
-On a CUDA tensor :func:`fused_pass_loss` launches the kernel; on a CPU
-tensor it runs :func:`fused_pass_loss_reference`, the plain PyTorch
-version of the same contract (pts, PE, model forward, noise,
-``composite``, loss sum, then ``torch.autograd.grad``). There is no
-fallback between the two: a CUDA call that cannot launch raises.
+kernel (``_make_loss_kernel``, ``dexnerf_tpu/ops/fused_train_loss.py:99``)
+this module's CUDA kernels (built by ``ops/_build.py``) replace, with its
+``compute_dtype`` / ``dw_dtype`` (float32 by default, as in JAX; training
+resolves both from ``nerf.pallas_compute_dtype``, bf16 by default). On a
+CUDA tensor :func:`fused_pass_loss` launches the kernel of the dtypes:
+``ops/csrc/fused_train_loss.cu`` at float32, ``fused_train_loss_bf16.cu``
+at bfloat16 (a mixed pair raises). On a CPU tensor it runs
+:func:`fused_pass_loss_reference`, the plain PyTorch version of the same
+contract at any pair (pts, PE, the model forward, or at bf16
+:func:`flex_forward_train`, noise, ``composite``, loss sum, then
+``torch.autograd.grad``). There is no fallback between them: a CUDA call
+that cannot launch raises.
 
-What bounds the kernel on the H100, and how it is built: f32 FMA work,
-~0.9 MFLOP per sample of the 8x128 model (forward, cotangent chain and
-weight gradients), 1.42 TFLOP per train step at batch 8192 with 64 + 128
-samples per ray, 21.2 ms at the 67 TFLOP/s f32 peak of an H100 SXM
-(700 W). A fine ray's activations (~650 KB) do not fit in a CTA's 227 KB
-of shared memory, so the kernel saves every layer's activations and
-cotangents to a device scratch (~10 KB per sample, written and read back
-once: ~31 GB of traffic a step, written with streaming stores so that it
-does not evict the weights from L2), capped by running the batch in
-chunks of ``SCRATCH_SAMPLES`` samples (~2.6 GB for 8x128, whatever the
-batch). The weight gradients, products over every sample of the batch,
-are summed by CTAs that each own a 128 x 128 tile and a K-range, into
-separate slots, and the slots are reduced in a fixed order: no atomics,
-bitwise-repeatable runs. The scratch and those launches are
+The f32 route: f32 FMA work, ~0.9 MFLOP per sample of the 8x128 model
+(forward, cotangent chain and weight gradients), 1.42 TFLOP per train step
+at batch 8192 with 64 + 128 samples per ray, 21.2 ms at the 67 TFLOP/s f32
+peak of an H100 SXM (700 W). A fine ray's activations (~650 KB) do not fit
+in a CTA's 227 KB of shared memory, so the kernel saves every layer's
+activations and cotangents to a device scratch (~10 KB per sample, written
+and read back once: ~31 GB of traffic a step, written with streaming
+stores so that it does not evict the weights from L2), capped by running
+the batch in chunks of ``SCRATCH_SAMPLES`` samples (~2.6 GB for 8x128,
+whatever the batch). The weight gradients, products over every sample of
+the batch, are summed by CTAs that each own a 128 x 128 tile and a
+K-range, into separate slots, and the slots are reduced in a fixed order:
+no atomics, bitwise-repeatable runs. The scratch and those launches are
 ``ops/_weight_grads.py``'s, shared with the field backward (kernel 3).
-Measured times: ``PERF.md``.
 
-``launches`` counts kernel calls (+1 per pass, where the pass launches its
-group of ``__global__`` kernels; nowhere else), so a run can show that its
-path went through the kernel.
+The bf16 route: the same 1.42 TFLOP on the bf16 tensor cores (1.435 ms at
+the 989 TFLOP/s dense bf16 peak), so its scratch traffic bounds it first:
+activations and cotangents saved in bf16, sample-major, ~5 KB per sample
+(~1.3 GB a chunk for 8x128), written once and read back by the chain's
+ReLU masks and the weight gradients (~20 GB a step, ~6 ms at 3.35 TB/s).
+Its design, per chunk: a per-ray prep (viewdir encoding and bias), the
+forward of each 128-sample tile on ``mma.sync`` (kernel 1's bf16 tile:
+weights streamed as [N, 32] K-chunks through a 4-stage ``cp.async`` ring,
+f32 heads from the accumulators), f32 compositing and its backward one
+warp per ray, the cotangent chain on ``mma.sync`` against
+:func:`pack_backward_weights_bf16` with the bias sums and the viewdir
+rows' dW accumulated per CTA in a fixed order, and the weight gradients as
+64 x 64 ``mma.sync`` tiles per K-range slot; one fixed-order reduction:
+bitwise-repeatable runs. Widths that are not a multiple of 32 run
+zero-padded to one. Measured times: ``PERF.md``.
+
+``launches`` counts kernel-4 passes of either route and ``launches_bf16``
+those of the bf16 route (+1 per pass, where the pass launches its group of
+``__global__`` kernels; nowhere else), so a run can show which kernel its
+path went through.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import itertools
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from dexnerf_tpu_torch.core.encoding import frequency_bands, positional_encoding
 from dexnerf_tpu_torch.core.metrics import luminance
@@ -48,10 +70,20 @@ from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
 from dexnerf_tpu_torch.ops._weight_grads import (
     MAX_ITEMS,
     WeightGradients,
+    _param_offsets,
     check_gemm_args_size,
     pack_backward_weights,
 )
-from dexnerf_tpu_torch.ops.fused_render import pack_flex_weights
+from dexnerf_tpu_torch.ops.fused_render import (
+    BF16_KCHUNK,
+    _cached_bf16_weights,
+    _k_chunks,
+    _round_up,
+    bf16_hidden,
+    gather_params,
+    gather_plan,
+    pack_flex_weights,
+)
 from dexnerf_tpu_torch.ops.resample import make_fused_resample
 from dexnerf_tpu_torch.render.renderer import (
     RayBatch,
@@ -60,7 +92,8 @@ from dexnerf_tpu_torch.render.renderer import (
     jittered_z_vals,
 )
 
-launches = 0
+launches = 0  # kernel-4 passes of either route
+launches_bf16 = 0  # of which the bf16 route's
 
 # samples of activation/cotangent scratch per chunk of rays
 SCRATCH_SAMPLES = 1 << 18
@@ -70,7 +103,11 @@ MAX_LAYERS = 40
 MAX_FREQ = 16
 MAX_SAMPLES = 256
 MAX_HIDDEN = 128
+# of ops/csrc/fused_train_loss_bf16.cu (kMaxBlocks, kGT)
+MAX_BLOCKS = MAX_LAYERS + 8
+BF16_DW_TILE = 64
 SUPERVISION = ("rgb", "luminance")
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 class _TrainArgs(ctypes.Structure):
@@ -109,6 +146,89 @@ def pass_loss_sum(rgb: torch.Tensor, target: torch.Tensor, supervision: str) -> 
     raise ValueError(f"unknown supervision mode: {supervision}")
 
 
+def _round(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` rounded to ``dtype`` and back to float32 (a no-op at float32)."""
+    return t if dtype == torch.float32 else t.to(dtype).to(torch.float32)
+
+
+class _RoundedLinear(torch.autograd.Function):
+    """``x W^T`` under the JAX package's rounding contract
+    (``_forward_block_parts`` / ``_backward_chain_parts``): the forward
+    multiplies ``x`` rounded to ``x_dtype`` by ``W`` rounded to
+    ``w_dtype`` in f32; the input cotangent is the output cotangent rounded
+    to the weight's dtype times the rounded weight (``matWT``); the weight
+    gradient multiplies the output cotangent and the saved input (``x``
+    rounded to ``save_dtype``), both rounded to ``dw_dtype`` (``matT``).
+    Autograd through ``.to(bf16)`` would round the products and the
+    weight gradient instead."""
+
+    @staticmethod
+    def forward(ctx, x, w, x_dtype, w_dtype, save_dtype, dw_dtype):
+        wr = _round(w, w_dtype)
+        ctx.save_for_backward(_round(x, save_dtype), wr)
+        ctx.dtypes = (w_dtype, dw_dtype)
+        return F.linear(_round(x, x_dtype), wr)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved, wr = ctx.saved_tensors
+        w_dtype, dw_dtype = ctx.dtypes
+        gx = _round(g, w_dtype) @ wr if ctx.needs_input_grad[0] else None
+        g2 = _round(g, dw_dtype).reshape(-1, g.shape[-1])
+        gw = g2.t() @ _round(saved, dw_dtype).reshape(-1, saved.shape[-1])
+        return gx, gw, None, None, None, None
+
+
+def flex_forward_train(
+    model: FlexibleNeRFModel,
+    xyz: torch.Tensor,
+    view: torch.Tensor,
+    compute_dtype: torch.dtype,
+    dw_dtype: torch.dtype,
+) -> torch.Tensor:
+    """The model's forward [..., S, 4] for training under the JAX
+    package's ``compute_dtype`` / ``dw_dtype`` contract, differentiable by
+    autograd with that contract's gradients. Matmul operands of layer1,
+    the trunk (h, and the xyz encoding on a skip layer), fc_feat and
+    layers_dir.0 are rounded to ``compute_dtype``; bias, ReLU and the chain
+    stay f32; the σ head reads the unrounded trunk output and the rgb head
+    the unrounded viewdir-layer output, with f32 weights. Activations are
+    saved in ``compute_dtype`` (the encodings in f32), and every weight
+    gradient multiplies operands rounded to ``dw_dtype``; bias gradients
+    sum the f32 cotangents. ``view`` is the per-ray [..., dim_dir]
+    encoding; it is expanded to the samples, as JAX contracts it per
+    sample."""
+    cd, dw, f32 = compute_dtype, dw_dtype, torch.float32
+    H = model.hidden_size
+    lin = _RoundedLinear.apply
+    h = lin(xyz, model.layer1.weight, cd, cd, f32, dw) + model.layer1.bias
+    for i, layer in enumerate(model.layers_xyz):
+        y = lin(h, layer.weight[:, :H], cd, cd, cd, dw)
+        if i in model.skips:
+            y = y + lin(xyz, layer.weight[:, H:], cd, cd, f32, dw)
+        h = torch.relu(y + layer.bias)
+    feat = torch.relu(lin(h, model.fc_feat.weight, cd, cd, cd, dw) + model.fc_feat.bias)
+    alpha = lin(h, model.fc_alpha.weight, f32, f32, cd, dw) + model.fc_alpha.bias
+    ld = model.layers_dir[0]
+    view_s = view[..., None, :].expand(*feat.shape[:-1], view.shape[-1])
+    y = torch.relu(
+        lin(feat, ld.weight[:, :H], cd, cd, cd, dw)
+        + lin(view_s, ld.weight[:, H:], cd, cd, f32, dw) + ld.bias
+    )
+    rgb = lin(y, model.fc_rgb.weight, f32, f32, cd, dw) + model.fc_rgb.bias
+    return torch.cat([rgb, alpha], dim=-1)
+
+
+def _check_dtypes(compute_dtype, dw_dtype) -> torch.dtype:
+    """``dw_dtype`` resolved (None means float32, as in JAX)."""
+    dw_dtype = torch.float32 if dw_dtype is None else dw_dtype
+    for name, dt in (("compute_dtype", compute_dtype), ("dw_dtype", dw_dtype)):
+        if dt not in COMPUTE_DTYPES:
+            raise ValueError(f"{name} {dt}: the fused train loss takes torch.float32 or "
+                             "torch.bfloat16")
+    return dw_dtype
+
+
 def fused_pass_loss_reference(
     model: FlexibleNeRFModel,
     origins: torch.Tensor,
@@ -125,11 +245,22 @@ def fused_pass_loss_reference(
     supervision: str = "rgb",
     log_sampling_xyz: bool = True,
     log_sampling_dir: bool = True,
+    compute_dtype: torch.dtype = torch.float32,
+    dw_dtype: Optional[torch.dtype] = None,
 ):
-    """Plain PyTorch version of the kernel's contract. Returns ``(loss_sum,
+    """Plain PyTorch version of the kernels' contract. Returns ``(loss_sum,
     weights [N, S], rgb [N, 3], grads)``, ``grads`` in
     ``model.parameters()`` order; ``loss_sum`` adds ``sum(depth_coef *
-    (sum_s w z - depth_gt)^2)`` when ``depth_gt`` is given."""
+    (sum_s w z - depth_gt)^2)`` when ``depth_gt`` is given. At
+    ``compute_dtype`` / ``dw_dtype`` (None: float32) other than float32 the
+    model runs :func:`flex_forward_train`; every pair of the two dtypes is
+    taken."""
+    dw_dtype = _check_dtypes(compute_dtype, dw_dtype)
+    if compute_dtype == dw_dtype == torch.float32:
+        forward = model
+    else:
+        def forward(xyz, view):
+            return flex_forward_train(model, xyz, view, compute_dtype, dw_dtype)
     params = list(model.parameters())
     with torch.enable_grad():
         pts = origins[:, None, :] + directions[:, None, :] * z_vals[..., None]
@@ -140,7 +271,7 @@ def fused_pass_loss_reference(
             viewdirs, model.num_encoding_fn_dir, model.include_input_dir, log_sampling_dir
         )
         out = composite(
-            model(xyz, view), z_vals, dists,
+            forward(xyz, view), z_vals, dists,
             white_background=white_background, sigma_noise=noise,
         )
         loss = pass_loss_sum(out.rgb, target, supervision)
@@ -261,6 +392,310 @@ def _launch(
     return loss, weights, rgb, grads
 
 
+class _Bf16TrainArgs(ctypes.Structure):
+    """Mirror of ``TrainArgs`` in ops/csrc/fused_train_loss_bf16.cu."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in (
+            "origins", "dirs", "viewdirs", "z", "dists", "noise", "target",
+            "depth_gt", "depth_coef", "wq", "aux", "wbq", "weights_out", "rgb_out",
+            "loss_ray", "scratch", "raw", "graw", "dir_enc", "dirb", "aux_part",
+        )
+    ] + [
+        ("act_off", ctypes.c_int64 * MAX_BLOCKS),
+        ("dlt_off", ctypes.c_int64 * MAX_BLOCKS),
+    ] + [
+        (name, ctypes.c_int32)
+        for name in (
+            "ray0", "n_rays", "n_samples", "hidden", "num_trunk", "skip_mask",
+            "fx", "fd", "inc_x", "inc_d", "dx", "dxp", "dd",
+            "white_bg", "luma", "has_noise", "has_depth", "chain_ctas",
+        )
+    ] + [
+        ("aux_off", ctypes.c_int32 * (MAX_LAYERS + 8)),
+        ("bands_x", ctypes.c_float * MAX_FREQ),
+        ("bands_d", ctypes.c_float * MAX_FREQ),
+    ]
+
+
+class _Bf16GemmItem(ctypes.Structure):
+    """Mirror of ``GemmItem`` in ops/csrc/fused_train_loss_bf16.cu: one
+    weight-gradient product over sample-major bf16 operands."""
+
+    _fields_ = [("d", ctypes.c_void_p), ("a", ctypes.c_void_p)] + [
+        (name, ctypes.c_int32)
+        for name in ("ldd", "lda", "n", "m", "m_tiles", "tile0", "w_off", "ldw", "col_off",
+                     "pad")
+    ]
+
+
+class _Bf16GemmArgs(ctypes.Structure):
+    _fields_ = [
+        ("items", _Bf16GemmItem * MAX_ITEMS),
+        ("partial", ctypes.c_void_p),
+        ("n_params", ctypes.c_int64),
+        ("k", ctypes.c_int64),
+        ("n_items", ctypes.c_int32),
+        ("n_splits", ctypes.c_int32),
+        ("part0", ctypes.c_int32),
+        ("pad", ctypes.c_int32),
+    ]
+
+
+def _backward_layout(model: FlexibleNeRFModel, w: dict) -> Tuple[torch.Tensor]:
+    """:func:`pack_backward_weights_bf16`'s layout of the parameters ``w``
+    (name -> tensor), before rounding."""
+    H = model.hidden_size
+    Hp = bf16_hidden(H)
+    kp2 = _round_up(Hp // 2, BF16_KCHUNK)
+    nt = model.num_layers - 1
+    parts = [_k_chunks(w["layers_dir.0.weight"][:, :H].t(), kp2, Hp),
+             _k_chunks(w["fc_feat.weight"].t(), Hp, Hp)]
+    parts += [_k_chunks(w[f"layers_xyz.{i}.weight"][:, :H].t(), Hp, Hp)
+              for i in reversed(range(nt))]
+    return (torch.cat(parts),)
+
+
+def pack_backward_weights_bf16(model: FlexibleNeRFModel, device=None) -> torch.Tensor:
+    """The bf16 chain's weights (``pack_backward_weights`` at bfloat16):
+    each product's matrix [in, out] (the transpose of ``nn.Linear.weight``,
+    rounded to bf16, zero-padded to Hp = ``bf16_hidden`` rows and to K a
+    multiple of 32) as [Hp, 32] K-chunks in the chain's order:
+    ``layers_dir.0`` (feat rows), ``fc_feat``, then ``layers_xyz`` from the
+    last to the first (h rows). The heads stay f32 (the forward pack's
+    aux). One gather of the parameters (``gather_plan``)."""
+    (idx,) = gather_plan(_backward_layout, model, next(model.parameters()).device)
+    with torch.no_grad():
+        return gather_params(model, idx)[0].to(torch.bfloat16).to(device)
+
+
+def _scratch_layout(model: FlexibleNeRFModel):
+    """(Hp, dxp, widths of the activation blocks, of the cotangent blocks)
+    of the bf16 scratch: e, a_0..a_nt, feat, y; d_0..d_nt, feat, y, rgb,
+    sigma (the last two 8 wide)."""
+    Hp = bf16_hidden(model.hidden_size)
+    nt = model.num_layers - 1
+    dxp = _round_up(model.dim_xyz, BF16_KCHUNK)
+    act = [dxp] + [Hp] * (nt + 1) + [Hp, Hp // 2]
+    dlt = [Hp] * (nt + 1) + [Hp, Hp // 2, 8, 8]
+    return Hp, dxp, act, dlt
+
+
+# (widths, depth, skips, encodings, device) -> _aux_map's result: built and
+# copied to the card once per shape (a copy per pass stalls the host on the
+# card's queue)
+_aux_maps = {}
+
+
+def _cached_aux_map(model: FlexibleNeRFModel, device) -> Tuple[torch.Tensor, int]:
+    key = (model.hidden_size, model.num_layers, tuple(model.skips), model.dim_xyz,
+           model.dim_dir, str(device))
+    if key not in _aux_maps:
+        _aux_maps[key] = _aux_map(model, device)
+    return _aux_maps[key]
+
+
+def _aux_map(model: FlexibleNeRFModel, device) -> Tuple[torch.Tensor, int]:
+    """For each entry of the flat gradient: -1 where the dW slots hold it,
+    else its index in a chain CTA's slot (``aux_*`` in
+    ops/csrc/fused_train_loss_bf16.cu: the bias sums, then the viewdir rows
+    of ``layers_dir.0`` as [dd, Hp/2]). Returns the map and the slot
+    length."""
+    H, nt, dd = model.hidden_size, model.num_layers - 1, model.dim_dir
+    Hp = bf16_hidden(H)
+    Hp2, H2 = Hp // 2, H // 2
+    offs, n = _param_offsets(model)
+    m = torch.full((n,), -1, dtype=torch.int32)
+
+    def put(name, start, count):
+        m[offs[name]:offs[name] + count] = torch.arange(start, start + count, dtype=torch.int32)
+
+    put("layer1.bias", 0, H)
+    for i in range(nt):
+        put(f"layers_xyz.{i}.bias", (i + 1) * Hp, H)
+    put("fc_feat.bias", (nt + 1) * Hp, H)
+    dir0 = (nt + 2) * Hp
+    put("layers_dir.0.bias", dir0, H2)
+    put("fc_alpha.bias", dir0 + Hp2, 1)
+    put("fc_rgb.bias", dir0 + Hp2 + 1, 3)
+    vd = dir0 + Hp2 + 4
+    c, k = torch.meshgrid(torch.arange(H2), torch.arange(dd), indexing="ij")
+    w0 = offs["layers_dir.0.weight"]
+    m[w0 + c * (H + dd) + H + k] = (vd + k * Hp2 + c).to(torch.int32)
+    return m.to(device), vd + dd * Hp2
+
+
+def _dw_items(model, scratch, act_off, dlt_off, offs):
+    """The bf16 weight-gradient products over one chunk's scratch, as
+    (d, ldd, a, lda, N, M, w_off, ldw, col_off)."""
+    H, nt, dx, dd = model.hidden_size, model.num_layers - 1, model.dim_xyz, model.dim_dir
+    Hp, dxp, _, _ = _scratch_layout(model)
+    H2, Hp2 = H // 2, Hp // 2
+
+    def blk(off):
+        return scratch.data_ptr() + 2 * off
+
+    e, feat, y = blk(act_off[0]), blk(act_off[nt + 2]), blk(act_off[nt + 3])
+    items = [(blk(dlt_off[0]), Hp, e, dxp, H, dx, offs["layer1.weight"], dx, 0)]
+    for i, lin in enumerate(model.layers_xyz):
+        w, n_in = offs[f"layers_xyz.{i}.weight"], lin.in_features
+        items.append((blk(dlt_off[i + 1]), Hp, blk(act_off[1 + i]), Hp, H, H, w, n_in, 0))
+        if i in model.skips:
+            items.append((blk(dlt_off[i + 1]), Hp, e, dxp, H, dx, w, n_in, H))
+    a_last = blk(act_off[nt + 1])
+    items += [
+        (blk(dlt_off[nt + 1]), Hp, a_last, Hp, H, H, offs["fc_feat.weight"], H, 0),
+        (blk(dlt_off[nt + 4]), 8, a_last, Hp, 1, H, offs["fc_alpha.weight"], H, 0),
+        (blk(dlt_off[nt + 2]), Hp2, feat, Hp, H2, H, offs["layers_dir.0.weight"], H + dd, 0),
+        (blk(dlt_off[nt + 3]), 8, y, Hp2, 3, H2, offs["fc_rgb.weight"], H2, 0),
+    ]
+    return items
+
+
+def _bf16_gemm_args(items, partial, n_params: int, k: int, n_splits: int, part0: int):
+    args = _Bf16GemmArgs()
+    tile0 = 0
+    for slot, (d, ldd, a, lda, n, m, w_off, ldw, col_off) in zip(args.items, items):
+        m_tiles, n_tiles = -(-m // BF16_DW_TILE), -(-n // BF16_DW_TILE)
+        slot.d, slot.a, slot.ldd, slot.lda = d, a, ldd, lda
+        slot.n, slot.m, slot.m_tiles, slot.tile0 = n, m, m_tiles, tile0
+        slot.w_off, slot.ldw, slot.col_off = w_off, ldw, col_off
+        tile0 += m_tiles * n_tiles
+    args.partial = partial.data_ptr()
+    args.n_params, args.k = n_params, k
+    args.n_items, args.n_splits, args.part0 = len(items), n_splits, part0
+    return args, tile0
+
+
+def bf16_occupancy(model: FlexibleNeRFModel) -> dict:
+    """CTAs per SM and shared-memory bytes per CTA of the bf16 forward and
+    chain kernels for ``model``, as the CUDA runtime reports them (needs
+    the card)."""
+    from dexnerf_tpu_torch.ops._build import check, load_library
+
+    lib = load_library()
+    v = [ctypes.c_int(0) for _ in range(4)]
+    Hp, dxp, _, _ = _scratch_layout(model)
+    check(lib, lib.dexnerf_train_bf16_occupancy(Hp, dxp, *(ctypes.byref(x) for x in v)),
+          "fused_train_loss bf16 occupancy query")
+    return {"forward": (v[0].value, v[2].value), "chain": (v[1].value, v[3].value)}
+
+
+def _launch_bf16(
+    model, origins, directions, z_vals, viewdirs, dists, noise, target,
+    depth_gt, depth_coef, *, white_background, supervision, log_sampling_xyz,
+    log_sampling_dir,
+):
+    global launches, launches_bf16
+    from dexnerf_tpu_torch.ops._build import check, load_library
+
+    N, S = z_vals.shape
+    dev = z_vals.device
+    tensors = [
+        ("origins", origins, (N, 3)),
+        ("directions", directions, (N, 3)),
+        ("z_vals", z_vals, (N, S)),
+        ("viewdirs", viewdirs, (N, 3)),
+        ("dists", dists, (N, S)),
+        ("target", target, (N, 3)),
+    ]
+    if noise is not None:
+        tensors.append(("noise", noise, (N, S)))
+    if depth_gt is not None:
+        tensors += [("depth_gt", depth_gt, (N,)), ("depth_coef", depth_coef, (N,))]
+    _check_inputs(model, dev, tensors, S)
+    lib = load_library()
+    H, nt, dd = model.hidden_size, model.num_layers - 1, model.dim_dir
+    Hp, dxp, act_w, dlt_w = _scratch_layout(model)
+    n_aux = lib.dexnerf_train_bf16_size(2, Hp, nt, dd)
+    for which, struct in ((0, _Bf16TrainArgs), (1, _Bf16GemmArgs)):
+        if lib.dexnerf_train_bf16_size(which, 0, 0, 0) != ctypes.sizeof(struct):
+            raise RuntimeError(f"{struct.__name__} is {ctypes.sizeof(struct)} bytes here but "
+                               f"{lib.dexnerf_train_bf16_size(which, 0, 0, 0)} in the library")
+    bmap, n_aux_py = _cached_aux_map(model, dev)
+    if n_aux != n_aux_py:
+        raise RuntimeError(f"chain slot of {n_aux_py} floats here but {n_aux} in the library")
+
+    chunk = max(1, min(N, SCRATCH_SAMPLES // S))
+    n_chunks = -(-N // chunk)
+    rows = -(-chunk * S // 128) * 128
+    f32 = dict(dtype=torch.float32, device=dev)
+    act_off = [rows * w for w in itertools.accumulate([0] + act_w[:-1])]
+    dlt0 = rows * sum(act_w)
+    dlt_off = [dlt0 + rows * w for w in itertools.accumulate([0] + dlt_w[:-1])]
+    scratch = torch.empty(rows * (sum(act_w) + sum(dlt_w)), dtype=torch.bfloat16, device=dev)
+    raw = torch.empty(rows * 4, **f32)
+    graw = torch.empty(rows * 4, **f32)
+    dir_enc = torch.empty(chunk * dd, **f32)
+    dirb = torch.empty(chunk * Hp // 2, **f32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chain_ctas = max(1, min(rows // 128, 2 * sms))
+    aux_part = torch.empty(n_chunks * chain_ctas * n_aux, **f32)
+    offs, n_params = _param_offsets(model)
+    items = _dw_items(model, scratch, act_off, dlt_off, offs)
+    n_tiles = _bf16_gemm_args(items, aux_part, n_params, 0, 1, 0)[1]
+    n_splits = max(1, min(256, 8 * sms // n_tiles))
+    partial = torch.empty(n_chunks * n_splits * n_params, **f32)
+    grad = torch.empty(n_params, **f32)
+    weights = torch.empty((N, S), **f32)
+    rgb = torch.empty((N, 3), **f32)
+    loss_ray = torch.empty((N,), **f32)
+    loss = torch.empty((), **f32)
+    wq, aux, aux_off = _cached_bf16_weights(model, dev)
+    wbq = pack_backward_weights_bf16(model, dev)
+
+    args = _Bf16TrainArgs()
+    for name, t in (
+        ("origins", origins), ("dirs", directions), ("viewdirs", viewdirs),
+        ("z", z_vals), ("dists", dists), ("noise", noise), ("target", target),
+        ("depth_gt", depth_gt), ("depth_coef", depth_coef), ("wq", wq), ("aux", aux),
+        ("wbq", wbq), ("weights_out", weights), ("rgb_out", rgb), ("loss_ray", loss_ray),
+        ("scratch", scratch), ("raw", raw), ("graw", graw), ("dir_enc", dir_enc),
+        ("dirb", dirb),
+    ):
+        setattr(args, name, None if t is None else t.data_ptr())
+    args.act_off[:len(act_off)] = act_off
+    args.dlt_off[:len(dlt_off)] = dlt_off
+    args.n_samples, args.hidden, args.num_trunk = S, Hp, nt
+    args.skip_mask = sum(1 << i for i in model.skips)
+    args.fx, args.fd = model.num_encoding_fn_xyz, model.num_encoding_fn_dir
+    args.inc_x, args.inc_d = int(model.include_input_xyz), int(model.include_input_dir)
+    args.dx, args.dxp, args.dd = model.dim_xyz, dxp, dd
+    args.white_bg = int(bool(white_background))
+    args.luma = int(supervision == "luminance")
+    args.has_noise, args.has_depth = int(noise is not None), int(depth_gt is not None)
+    args.chain_ctas = chain_ctas
+    args.aux_off[:len(aux_off)] = aux_off
+    bx = frequency_bands(model.num_encoding_fn_xyz, log_sampling_xyz).tolist()
+    bd = frequency_bands(model.num_encoding_fn_dir, log_sampling_dir).tolist()
+    args.bands_x[:len(bx)] = bx
+    args.bands_d[:len(bd)] = bd
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for c in range(n_chunks):
+        ray0 = c * chunk
+        n = min(chunk, N - ray0)
+        n_rows, tiles = n * S, -(-n * S // 128)
+        args.ray0, args.n_rays = ray0, n
+        args.aux_part = aux_part.data_ptr() + 4 * c * chain_ctas * n_aux
+        check(lib, lib.dexnerf_train_bf16_pass(ctypes.addressof(args), n_rows, tiles, stream),
+              "fused_train_loss bf16 pass launch")
+        gargs = _bf16_gemm_args(items, partial, n_params, tiles * 128, n_splits,
+                                c * n_splits)[0]
+        check(lib, lib.dexnerf_train_bf16_dw(ctypes.addressof(gargs), n_tiles, stream),
+              "fused_train_loss bf16 weight-gradient launch")
+    check(lib, lib.dexnerf_train_bf16_reduce(
+        partial.data_ptr(), n_chunks * n_splits, n_params, aux_part.data_ptr(),
+        n_chunks * chain_ctas, n_aux, bmap.data_ptr(), grad.data_ptr(), loss_ray.data_ptr(), N,
+        loss.data_ptr(), stream), "fused_train_loss bf16 reduce launch")
+    launches += 1
+    launches_bf16 += 1
+    grads = tuple(grad[offs[name]:offs[name] + p.numel()].view_as(p)
+                  for name, p in model.named_parameters())
+    return loss, weights, rgb, grads
+
+
 class _PassLoss(torch.autograd.Function):
     """``(loss_sum, weights, rgb)`` of one pass, differentiable with respect
     to the model parameters only: the gradients come from the forward (the
@@ -300,6 +735,8 @@ def fused_pass_loss(
     supervision: str = "rgb",
     log_sampling_xyz: bool = True,
     log_sampling_dir: bool = True,
+    compute_dtype: torch.dtype = torch.float32,
+    dw_dtype: Optional[torch.dtype] = None,
 ):
     """One render pass as a fused loss op (the counterpart of
     ``make_fused_pass_loss``'s ``pass_loss``): ``(loss_sum, weights [N, S],
@@ -308,8 +745,12 @@ def fused_pass_loss(
     [N, S] (or None) and targets [N, 3]; ``loss_sum`` is the UNNORMALIZED
     squared error (plus ``sum(depth_coef * (depth - depth_gt)^2)`` when
     ``depth_gt`` [N] is given). Only ``loss_sum`` carries a gradient, to
-    the model parameters. CUDA tensors go through the kernel, CPU tensors
-    through :func:`fused_pass_loss_reference`."""
+    the model parameters. CUDA tensors go through the kernel of the dtypes
+    (``fused_train_loss.cu`` at float32/float32, ``fused_train_loss_bf16.cu``
+    at bfloat16/bfloat16; a mixed pair raises), CPU tensors through
+    :func:`fused_pass_loss_reference` at any pair. ``dw_dtype`` None means
+    float32, as in JAX."""
+    dw_dtype = _check_dtypes(compute_dtype, dw_dtype)
     if supervision not in SUPERVISION:
         raise ValueError(f"unknown supervision mode: {supervision}")
     if (depth_gt is None) != (depth_coef is None):
@@ -321,11 +762,19 @@ def fused_pass_loss(
         log_sampling_dir=log_sampling_dir,
     )
     if z_vals.device.type == "cuda":
+        if compute_dtype != dw_dtype:
+            raise ValueError(
+                f"compute_dtype {compute_dtype} with dw_dtype {dw_dtype}: the kernels take "
+                "float32/float32 and bfloat16/bfloat16 (the plain version takes every pair)"
+            )
+        launch = _launch_bf16 if compute_dtype == torch.bfloat16 else _launch
+
         def run(*a):
-            return _launch(model, *a, **kw)
+            return launch(model, *a, **kw)
     elif z_vals.device.type == "cpu":
         def run(*a):
-            return fused_pass_loss_reference(model, *a, **kw)
+            return fused_pass_loss_reference(
+                model, *a, **kw, compute_dtype=compute_dtype, dw_dtype=dw_dtype)
     else:
         raise ValueError(f"no fused train loss for device {z_vals.device}")
     params = tuple(model.parameters())
@@ -343,9 +792,12 @@ def make_fused_train_loss(
     supervision: str = "rgb",
     depth_loss_weight: float = 0.0,
     resample: str = "auto",
+    compute_dtype: torch.dtype = torch.float32,
+    dw_dtype: Optional[torch.dtype] = None,
 ):
     """The full hierarchical training loss through :func:`fused_pass_loss`
-    (the counterpart of ``make_fused_train_loss``).
+    at ``compute_dtype`` / ``dw_dtype`` (None: float32), the counterpart of
+    ``make_fused_train_loss`` (whose defaults, f32, these are too).
 
     Returns ``loss_fn(rays, target [N, 3], draws, depth_gt=None) -> (loss,
     metrics)``, a drop-in for the ``render_rays`` + ``nerf_loss`` body of
@@ -373,6 +825,8 @@ def make_fused_train_loss(
         supervision=supervision,
         log_sampling_xyz=s.log_sampling_xyz,
         log_sampling_dir=s.log_sampling_dir,
+        compute_dtype=compute_dtype,
+        dw_dtype=_check_dtypes(compute_dtype, dw_dtype),
     )
     has_fine = fine_model is not None and s.num_fine > 0
     use_depth = depth_loss_weight > 0.0
@@ -442,4 +896,5 @@ def make_fused_train_loss(
         return loss, {k: v.detach() for k, v in metrics.items()}
 
     loss_fn.supports_depth = use_depth
+    loss_fn.compute_dtype = compute_dtype
     return loss_fn

@@ -2,7 +2,8 @@
 
 Counterpart of ``dexnerf_tpu/train/loop.py`` for single-device training on
 a device-resident ray store: ``load_scene`` (blender), ``maybe_fused_loss``
-(kernel 4, and kernel 5 between its passes, when ``nerf.use_pallas``),
+(kernel 4 at ``train_compute_dtype``, and kernel 5 between its passes,
+when ``nerf.use_pallas``),
 ``maybe_fused_fields`` (kernels 2 and 3 when ``nerf.pallas_fused_loss`` is
 false), ``validate`` (through the fused render kernel), ``run_training``,
 and what serving needs:
@@ -149,14 +150,25 @@ def render_compute_dtype(cfg: CfgNode, device) -> torch.dtype:
     ``nerf.use_fused_render`` is set, it is float32, or the key's dtype
     when ``nerf.use_fused_render: true`` (JAX's interpret-mode kernel). A
     value other than "bfloat16" or "float32" raises."""
+    dtype = train_compute_dtype(cfg)
+    device = torch.device(device)
+    if device.type == "cpu" and not bool(_get(cfg.nerf, "use_fused_render", False)):
+        return torch.float32
+    return dtype
+
+
+def train_compute_dtype(cfg: CfgNode) -> torch.dtype:
+    """The fused train loss's ``compute_dtype`` and ``dw_dtype`` (kernel
+    4), resolved as the JAX package's ``maybe_fused_loss`` does, on every
+    device: ``nerf.pallas_compute_dtype``, default "bfloat16" (on the CPU
+    JAX runs its kernel at that dtype in interpret mode; the port runs the
+    plain version at it). A value other than "bfloat16" or "float32"
+    raises."""
     name = str(_get(cfg.nerf, "pallas_compute_dtype", "bfloat16"))
     if name not in _COMPUTE_DTYPES:
         raise ValueError(
             f"nerf.pallas_compute_dtype {name!r}: expected one of {sorted(_COMPUTE_DTYPES)}"
         )
-    device = torch.device(device)
-    if device.type == "cpu" and not bool(_get(cfg.nerf, "use_fused_render", False)):
-        return torch.float32
     return _COMPUTE_DTYPES[name]
 
 
@@ -172,8 +184,13 @@ def fused_render_impl(
     weights here) at :func:`render_compute_dtype`. On a CUDA ``device``
     every pass launches the kernel of that dtype (bf16 tensor cores by
     default, f32 with ``nerf.pallas_compute_dtype: float32``); on the CPU
-    it runs the kernels' plain PyTorch version. There is no knob that
-    routes CUDA work to the plain version."""
+    it runs the kernels' plain PyTorch version. With
+    ``nerf.use_fused_render: false`` it returns None on every device, as
+    JAX's ``maybe_fused_render_impl`` does: ``render_image`` then renders
+    through the plain ``render_rays``, because the config asks for it."""
+    flag = _get(cfg.nerf, "use_fused_render", None)
+    if flag is not None and not bool(flag):
+        return None
     device = torch.device(device)
     compute_dtype = render_compute_dtype(cfg, device)
     for name in ("coarse", "fine"):
@@ -237,8 +254,9 @@ def maybe_fused_fields(cfg: CfgNode, coarse, fine, *, train: bool = False):
     ``ops.fused_mlp_train`` (kernel 2 forward, kernel 3 backward on a
     card), else the forward-only fields of ``ops.fused_mlp`` (kernel 2).
     Kernels 2 and 3 compute in f32, where the JAX package's default
-    ``nerf.pallas_compute_dtype`` is bf16 (ROADMAP Queue 3); only the
-    fused render (kernel 1, :func:`fused_render_impl`) honours the key.
+    ``nerf.pallas_compute_dtype`` is bf16 (ROADMAP Queue 3); the fused
+    render (kernel 1, :func:`fused_render_impl`) and the fused train loss
+    (kernel 4, :func:`maybe_fused_loss`) honour the key.
     The JAX package's block sizes are TPU knobs: the port's kernels pick
     their own blocks."""
     if not bool(_get(cfg.nerf, "use_pallas", False)):
@@ -255,16 +273,20 @@ def maybe_fused_loss(cfg: CfgNode, settings: RenderSettings, supervision: str, c
     not false, else None (then the fused fields, or the plain autograd
     render, the counterpart of the JAX package's XLA path).
     ``nerf.pallas_loss_resample`` ("auto" | "xla" | "pallas") selects the
-    resample between the passes (kernel 5 for "pallas"). Kernel 4 computes
-    in f32, where the JAX package's default ``nerf.pallas_compute_dtype``
-    is bf16 (ROADMAP Queue 3)."""
+    resample between the passes (kernel 5 for "pallas"). Both dtypes of
+    kernel 4 are :func:`train_compute_dtype` (bf16 by default, as in JAX):
+    on a card the bf16 tensor-core kernel, or the f32 one with
+    ``nerf.pallas_compute_dtype: float32``; on the CPU the plain version
+    at that dtype."""
     if not bool(_get(cfg.nerf, "use_pallas", False)):
         return None
     if not bool(_get(cfg.nerf, "pallas_fused_loss", True)):
         return None
+    dtype = train_compute_dtype(cfg)
     return make_fused_train_loss(
         coarse, fine, settings, supervision=supervision,
         resample=str(_get(cfg.nerf, "pallas_loss_resample", "auto")),
+        compute_dtype=dtype, dw_dtype=dtype,
     )
 
 

@@ -265,6 +265,18 @@ def test_render_compute_dtype_rejects_unknown():
             render_compute_dtype(_cfg(pallas_compute_dtype=bad), torch.device("cuda"))
 
 
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_fused_render_impl_unfused_returns_none(device):
+    """``nerf.use_fused_render: false`` asks for the plain renderer on every
+    device, as JAX's ``maybe_fused_render_impl`` returns None for it."""
+    from dexnerf_tpu_torch.train.loop import fused_render_impl
+
+    m = FlexibleNeRFModel(**ARCH)
+    for nerf in ({"use_fused_render": False},
+                 {"use_fused_render": False, "pallas_compute_dtype": "float32"}):
+        assert fused_render_impl(_cfg(**nerf), SETTINGS, device, m, m) is None
+
+
 def test_fused_render_impl_carries_the_dtype(jx):
     from dexnerf_tpu_torch.train.loop import fused_render_impl
 
@@ -323,6 +335,54 @@ def test_pack_flex_weights_bf16_layout():
     assert fr._cached_bf16_weights(m, "cpu") is not a
 
 
+@pytest.mark.parametrize("hidden", [16, 48])
+def test_pack_flex_weights_bf16_pads_to_32(hidden):
+    """A width that is not a multiple of 32 is packed zero-padded to the
+    next one (H/2 to half of it): the padded model, with the packed
+    operands unpacked, computes the same rounded forward."""
+    m = FlexibleNeRFModel(**dict(ARCH, hidden_size=hidden)).reset_parameters(
+        torch.Generator().manual_seed(2))
+    Hp = fr.bf16_hidden(hidden)
+    wq, aux, off = fr.pack_flex_weights_bf16(m)
+    p = FlexibleNeRFModel(**dict(ARCH, hidden_size=Hp))
+    dxp = 64
+    with torch.no_grad():
+        for t in p.parameters():
+            t.zero_()
+        pos = 0
+
+        def take(n, k, cols):
+            nonlocal pos
+            w = wq[pos:pos + n * k].reshape(k // 32, n, 32).transpose(0, 1).reshape(n, k)
+            pos += n * k
+            return w[:, :cols].float()
+
+        p.layer1.weight.copy_(take(Hp, dxp, m.dim_xyz))
+        for i, lin in enumerate(p.layers_xyz):
+            lin.weight[:, :Hp] = take(Hp, Hp, Hp)
+            if i in m.skips:
+                lin.weight[:, Hp:] = take(Hp, dxp, m.dim_xyz)
+        p.fc_feat.weight.copy_(take(Hp, Hp, Hp))
+        p.layers_dir[0].weight[:, :Hp] = take(Hp // 2, Hp, Hp)
+        assert pos == wq.numel()
+        nt = m.num_layers - 1
+        for i, lin in enumerate([p.layer1, *p.layers_xyz, p.fc_feat]):
+            lin.bias.copy_(aux[off[i]:off[i] + Hp])
+        p.layers_dir[0].bias.copy_(aux[off[nt + 2]:off[nt + 2] + Hp // 2])
+        p.fc_alpha.weight.copy_(aux[off[nt + 3]:off[nt + 3] + Hp][None])
+        p.fc_alpha.bias.copy_(aux[off[nt + 4]:off[nt + 4] + 1])
+        p.fc_rgb.weight.copy_(aux[off[nt + 5]:off[nt + 5] + Hp // 2 * 3].reshape(Hp // 2, 3).t())
+        p.fc_rgb.bias.copy_(aux[off[nt + 6]:off[nt + 6] + 3])
+        wdv = aux[off[nt + 7]:off[nt + 7] + m.dim_dir * Hp // 2].reshape(m.dim_dir, Hp // 2)
+        p.layers_dir[0].weight[:, Hp:] = wdv.t()
+        rng = np.random.default_rng(0)
+        xyz = torch.tensor(rng.normal(size=(4, 5, m.dim_xyz)), dtype=torch.float32)
+        view = torch.tensor(rng.normal(size=(4, m.dim_dir)), dtype=torch.float32)
+        want = fr.flex_forward_bf16(m, xyz, view)
+        got = fr.flex_forward_bf16(p, xyz, view)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
+
+
 # ---- on the card
 
 
@@ -354,8 +414,10 @@ GPU_ATOL = {"rgb": 1e-3, "accumulation": 1e-3, "disparity": None, "weights": 2e-
         (FULL, 128, 20, False),
         (FULL, 192, 20, True),
         (dict(FULL, hidden_size=96), 100, 5, False),
+        (dict(FULL, hidden_size=16), 64, 5, True),
+        (dict(FULL, hidden_size=48), 128, 5, False),
     ],
-    ids=["tiny", "full-64", "full-128", "full-192", "h96-100"],
+    ids=["tiny", "full-64", "full-128", "full-192", "h96-100", "h16-64", "h48-128"],
 )
 def test_bf16_kernel_matches_plain_on_card(cuda, arch, S, T, white):
     m = FlexibleNeRFModel(**arch).reset_parameters(torch.Generator().manual_seed(0))
@@ -395,12 +457,12 @@ def test_bf16_kernel_matches_plain_on_card(cuda, arch, S, T, white):
 
 @pytest.mark.gpu
 def test_bf16_kernel_refusals_on_card(cuda):
-    m = FlexibleNeRFModel(**dict(FULL, hidden_size=48)).to(cuda)
+    m = FlexibleNeRFModel(**dict(FULL, hidden_size=136)).to(cuda)
     ro, rd, vd, near, far = (torch.tensor(a, device=cuda) for a in _rays(n=16))
     z = stratified_z_vals(near, far, 64)
     dists = ray_dists(z, rd)
     before = fr.launches_bf16
-    with pytest.raises(ValueError, match="bf16 kernel takes 32, 64, 96 or 128"):
+    with pytest.raises(ValueError, match="multiples of 8 up to 128"):
         fr.fused_render(m, ro, rd, vd, z, dists, compute_dtype=BF16)
     m = FlexibleNeRFModel(**FULL).to(cuda)
     with pytest.raises(ValueError, match="contiguous"):
