@@ -45,16 +45,20 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
 8. time both passes of both routes, kernel and plain, the bf16 route's
    weight-gradient GEMMs as ``torch.matmul`` calls (library yardstick), and
    whole train steps through kernel 4 at bf16 and at f32, through the
-   plain autograd path, through the field kernels and through kernel 4
-   with the fused resample, with each step's peak memory; profile three
-   steps at bf16 and three at f32 (kernel 4, glue, Adam, idle);
+   plain autograd path and through kernel 4 with the fused resample at
+   bf16, with each step's peak memory; profile three steps at bf16 and
+   three at f32 (kernel 4, glue, Adam, idle);
 9. train the field path (``nerf.pallas_fused_loss: false``) through
-   ``apps.train`` for 20 steps: the field forward (kernel 2) and backward
-   (kernel 3) launched once per pass per step, kernel 4 never, validation
-   through kernel 1, every loss finite and falling;
-10. hold kernels 2 and 3 to their plain versions on phase 7's batch with
-   that run's models, coarse (S=64) and fine (S=128) pass, with the
-   cotangent of each pass's loss: raw and every gradient leaf;
+   ``apps.train`` for 20 steps at the config's default dtype, bf16: the
+   field forward (kernel 2) and backward (kernel 3) launched once per pass
+   per step through their bf16 routes and never through their f32 ones,
+   kernel 4 never, validation through kernel 1, every loss finite and
+   falling; then 10 steps with ``nerf.pallas_compute_dtype: float32`` (the
+   f32 routes, 20 launches each, the bf16 routes none);
+10. hold both routes of kernels 2 and 3 to their plain versions on phase
+   7's batch with that run's models, coarse (S=64) and fine (S=128) pass,
+   with the cotangent of each pass's loss: raw and every gradient leaf; the
+   bf16 routes relative to the dtype's own effect (as kernel 4's);
 11. train with ``nerf.pallas_loss_resample: pallas`` for 20 steps: the
    resample kernel (kernel 5) once per step between kernel 4's two passes;
 12. hold kernels 5 and 6 to their plain versions on the coarse weights of
@@ -63,15 +67,17 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    each output, like the f32 plain version, against a float64 run of the
    plain version; kernel 6 is driven through its public op
    ``sample_pdf_branchless``;
-13. time kernels 2, 3, 5 and 6 and their plain versions; profile three
-   field-path steps (kernel 2, kernel 3, glue, Adam, idle).
+13. time both routes of kernels 2 and 3, kernels 5 and 6 and their plain
+   versions, the bf16 dW share of kernel 3 as ``torch.matmul`` calls, and
+   whole field-path steps at bf16 and at f32; profile three field-path
+   steps at each dtype (kernel 2, kernel 3, glue, Adam, idle).
 
 Each kernel's line holds its bound: the larger of its FLOPs (multiply-adds
 counted from the model's shapes; compares and arithmetic counted from the
 shapes for kernels 5 and 6) over the 67 TFLOP/s f32 peak (the bf16 routes
-of kernels 1 and 4 over the 989 TFLOP/s dense bf16 tensor-core peak) and
-its bytes (inputs read once, outputs written once) over 3.35 TB/s. The
-bf16 route of kernel 4 has a library yardstick: its weight-gradient
+of kernels 1-4 over the 989 TFLOP/s dense bf16 tensor-core peak) and its
+bytes (inputs read once, outputs written once) over 3.35 TB/s. The bf16
+routes of kernels 3 and 4 have a library yardstick: their weight-gradient
 products as bf16 ``torch.matmul`` calls (timed here, never called by the
 port).
 The line before the last is ``{"kernels": [...]}`` with this run's numbers;
@@ -103,7 +109,12 @@ KERNEL4_NAMES = ("train_pass_kernel", "dw_kernel", "reduce_kernel", "sum_rays_ke
 KERNEL4_BF16_NAMES = ("train_prep_kernel", "train_fwd_bf16_kernel", "train_composite_kernel",
                       "train_chain_bf16_kernel", "train_dw_bf16_kernel", "reduce_bf16_kernel",
                       "sum_rays_bf16_kernel")
-F32_TRAIN_ITERS = 10  # steps of kernel 4's f32 route (pallas_compute_dtype: float32)
+# kernels 2 and 3's bf16 kernels (kernel 4's, with the launcher's tag), by name
+FIELD_FWD_BF16_NAMES = ("train_prep_kernel<2>", "train_fwd_bf16_kernel<2,")
+FIELD_BWD_BF16_NAMES = ("train_prep_kernel<3>", "train_fwd_bf16_kernel<3,",
+                        "train_chain_bf16_kernel", "train_dw_bf16_kernel", "reduce_bf16_kernel")
+# steps of the f32 routes of kernel 4 and of kernels 2-3 (pallas_compute_dtype: float32)
+F32_TRAIN_ITERS = 10
 TINY_CONFIG = os.path.join(ROOT, "configs", "tiny.yml")
 # kernels 5 and 6 vs plain: the CPU tests' tolerances (tests/test_torch_resample.py).
 # With trained weights the CDF has steps of ~1e-5, where one ulp of the CDF
@@ -341,16 +352,17 @@ def train_cli(tmp, data, name, iters, torch, dev, **nerf):
     with open(cfg_path, "w") as f:
         yaml.safe_dump(raw, f)
     mods = kernel_modules()
+    bf16_mods = {k: m for k, m in mods.items() if hasattr(m, "launches_bf16")}
     torch.cuda.reset_peak_memory_stats()
     for m in mods.values():
         m.launches = 0
-    mods["fused_render"].launches_bf16 = mods["fused_train_loss"].launches_bf16 = 0
+    for m in bf16_mods.values():
+        m.launches_bf16 = 0
     t0 = time.perf_counter()
     train_app.main(["--config", cfg_path, "--device", dev.type, "--max-iters", str(iters)])
     seconds = time.perf_counter() - t0
     counts = {k: m.launches for k, m in mods.items()}
-    counts["fused_render_bf16"] = mods["fused_render"].launches_bf16
-    counts["fused_train_loss_bf16"] = mods["fused_train_loss"].launches_bf16
+    counts.update({f"{k}_bf16": m.launches_bf16 for k, m in bf16_mods.items()})
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     logdir = os.path.join(tmp, "logs", name)
     with open(os.path.join(logdir, "metrics.jsonl")) as f:
@@ -539,16 +551,21 @@ def train_phase(torch, np, card, dev, tmp):
     del gemms
 
     def step_ms(path, reps=5):
+        """(ms per train step, the step) through ``path``: kernel 4
+        (``kernel``), the fields (``fields``), kernel 4 with kernel 5
+        (``resample``), each at f32 or with ``_bf16``; or ``plain``."""
         st = init_train_state(coarse, fine, float(cfg.optimizer.lr))
         kw = {}
-        if path in ("kernel", "kernel_bf16", "resample"):
-            dt = torch.float32 if path == "kernel" else torch.bfloat16
+        dt = torch.bfloat16 if path.endswith("_bf16") else torch.float32
+        if path.startswith(("kernel", "resample")):
             kw["fused_loss"] = ftl.make_fused_train_loss(
-                coarse, fine, s_train, resample="pallas" if path == "resample" else "auto",
+                coarse, fine, s_train,
+                resample="pallas" if path.startswith("resample") else "auto",
                 compute_dtype=dt, dw_dtype=dt)
-        elif path == "fields":
+        elif path.startswith("fields"):
             kw["coarse_field"], kw["fine_field"] = (
-                make_fused_flexible_field_train(m) for m in (coarse, fine))
+                make_fused_flexible_field_train(m, compute_dtype=dt, dw_dtype=dt)
+                for m in (coarse, fine))
         step = make_train_step(s_train, batch, **kw)
         step(st, store, gen)
         torch.cuda.synchronize()
@@ -560,7 +577,7 @@ def train_phase(torch, np, card, dev, tmp):
 
     peaks = {}
     steps = {}
-    for path in ("kernel_bf16", "kernel", "plain", "fields", "resample"):
+    for path in ("kernel_bf16", "kernel", "plain", "resample_bf16"):
         torch.cuda.reset_peak_memory_stats()
         ms[f"step_{path}"], steps[path] = step_ms(path)
         peaks[path] = torch.cuda.max_memory_allocated() / 2**30
@@ -607,7 +624,7 @@ def train_phase(torch, np, card, dev, tmp):
         "library_ms": ms["dw_torch_matmul_bf16"],
     }]
     shared = types.SimpleNamespace(data=data, s_train=s_train, o=o, d=d, v=v, target=target,
-                                   z_c=z_c, draws=draws, field_step=steps["fields"])
+                                   z_c=z_c, draws=draws, step_ms=step_ms)
     return train_kernels, shared
 
 
@@ -650,27 +667,39 @@ def check_train_bf16(name, model, args, norm, want_f32, torch):
            "rgb": want_f32[2]}
     for (pname, p), gp, gf in zip(model.named_parameters(), plain[3], want_f32[3]):
         got[pname], want[pname], f32[pname] = p.grad, gp / norm, gf / norm
-    bad, lines, worst = [], {}, 0.0
+    return max(hold_to_own(f"phase 7: {name} pass, bf16 route vs plain,", got, want, f32,
+                           torch).values())
+
+
+def hold_to_own(title, got, want, want_f32, torch):
+    """Each entry of ``got`` (a bf16 route's output or gradient leaf) held to
+    the bf16 plain version ``want`` relative to the dtype's own effect, own
+    = |bf16 plain - f32 plain| (``want_f32``): the route's distance to the
+    bf16 plain version at most own (max) and BF16_P999 x own (99.9th
+    percentile), its distance to the f32 plain version at most BF16_REL x
+    own, each + BF16_REL_ATOL x the entry's largest value. Prints one line
+    and raises if an entry is outside; returns each entry's max abs error
+    against the bf16 plain version."""
+    bad, lines, errs = [], {}, {}
     for key in want:
-        a, b, f = got[key], want[key], f32[key]
+        a, b, f = got[key], want[key], want_f32[key]
         if a.shape != b.shape or not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"{name}.{key}: shape {tuple(a.shape)} or non-finite values")
+            raise AssertionError(f"{title} {key}: shape {tuple(a.shape)} or non-finite values")
         atol = BF16_REL_ATOL * float(b.abs().max())
         e_b, e_k, e_p = (a - b).abs(), (a - f).abs(), (b - f).abs()
         b_max, k_max, p_max = float(e_b.max()), float(e_k.max()), float(e_p.max())
         b_999, p_999 = p999(e_b, torch), p999(e_p, torch)
-        worst = max(worst, b_max)
+        errs[key] = b_max
         lines[key] = [float(f"{v:.3e}") for v in (b_max, b_999, k_max, p_max, p_999)]
         if not (b_max <= p_max + atol and b_999 <= BF16_P999 * p_999 + atol
                 and k_max <= BF16_REL * p_max + atol):
             bad.append(key)
-    print(f"phase 7: {name} pass, bf16 route vs plain, [max, p99.9 vs the bf16 plain version; "
-          f"max vs the f32 plain version; own max, own p99.9] (limits: max <= own, p99.9 <= "
-          f"{BF16_P999:g} own, vs f32 <= {BF16_REL:g} own, + {BF16_REL_ATOL:g} x scale): "
-          + json.dumps(lines))
+    print(f"{title} [max, p99.9 vs the bf16 plain version; max vs the f32 plain version; "
+          f"own max, own p99.9] (limits: max <= own, p99.9 <= {BF16_P999:g} own, vs f32 <= "
+          f"{BF16_REL:g} own, + {BF16_REL_ATOL:g} x scale): " + json.dumps(lines))
     if bad:
-        raise AssertionError(f"{name} pass: bf16 route outside its tolerances in {bad}")
-    return worst
+        raise AssertionError(f"{title} outside the bf16 tolerances in {bad}")
+    return errs
 
 
 def print_leaves(leaves):
@@ -689,36 +718,61 @@ def train_flops(model, n, s):
 
 def field_phase(torch, np, card, dev, tmp, sh):
     """Phase 9 (the field path, ``nerf.pallas_fused_loss: false``, through
-    the CLI: kernels 2 and 3), phase 10 (both vs plain on the batch ``sh``
-    of phase 7 with the run's models, the coarse pass S = 64 and the fine
-    pass S = 128, with the cotangent of each pass's loss) and phase 13's
-    part for them (times, bounds, profile of a field-path step). Returns
+    the CLI: kernels 2 and 3 at the config's default bf16, then at
+    ``float32``), phase 10 (both routes of both kernels vs their plain
+    versions on the batch ``sh`` of phase 7 with the run's models, the
+    coarse pass S = 64 and the fine pass S = 128, with the cotangent of each
+    pass's loss) and phase 13's part for them (times, bounds, the bf16 dW
+    share as ``torch.matmul``, field-path steps and their profiles). Returns
     their kernels-line entries."""
     from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals
     from dexnerf_tpu_torch.core.volrend import composite, ray_dists
     from dexnerf_tpu_torch.ops import fused_mlp as fm
     from dexnerf_tpu_torch.ops import fused_mlp_train as fmt
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
 
     cfg_path, logdir, counts, losses, val, secs, peak = train_cli(
         tmp, sh.data, "lego-tpu-fields", SLICE_ITERS, torch, dev, pallas_fused_loss=False)
     print(f"phase 9: field path, {SLICE_ITERS} steps in {secs:.2f} s; launches "
           f"{json.dumps(counts)}; peak {peak:.2f} GiB; loss first {losses[0]:.5f} last "
           f"{losses[-1]:.5f}; validation psnr {val}")
+    n_b = 2 * SLICE_ITERS
     run_checks("field path", {
         f"{SLICE_ITERS} finite losses": len(losses) == SLICE_ITERS
         and bool(np.isfinite(losses).all()),
         "loss falls (mean of last 5 < first 5)": np.mean(losses[-5:]) < np.mean(losses[:5]),
-        f"kernel 2 launched {2 * SLICE_ITERS} times": counts["fused_mlp"] == 2 * SLICE_ITERS,
-        f"kernel 3 launched {2 * SLICE_ITERS} times":
-            counts["fused_mlp_train"] == 2 * SLICE_ITERS,
+        f"kernel 2's bf16 route launched {n_b} times, its f32 route never":
+            counts["fused_mlp_bf16"] == n_b and counts["fused_mlp"] == n_b,
+        f"kernel 3's bf16 route launched {n_b} times, its f32 route never":
+            counts["fused_mlp_train_bf16"] == n_b and counts["fused_mlp_train"] == n_b,
         "kernel 4 not launched": counts["fused_train_loss"] == 0,
         "validation through kernel 1": counts["fused_render"] >= 2 and len(val) >= 1
         and bool(np.isfinite(val).all()),
     })
+    # the f32 routes through the same entry point
+    _, _, counts_f, losses_f, val_f, secs_f, _ = train_cli(
+        tmp, sh.data, "lego-tpu-fields-f32", F32_TRAIN_ITERS, torch, dev,
+        pallas_fused_loss=False, pallas_compute_dtype="float32")
+    n_f = 2 * F32_TRAIN_ITERS
+    print(f"phase 9: field path at pallas_compute_dtype float32, {F32_TRAIN_ITERS} steps in "
+          f"{secs_f:.2f} s; launches {json.dumps(counts_f)}; loss first {losses_f[0]:.5f} "
+          f"last {losses_f[-1]:.5f}")
+    run_checks("field path at float32", {
+        f"{F32_TRAIN_ITERS} finite losses": len(losses_f) == F32_TRAIN_ITERS
+        and bool(np.isfinite(losses_f).all()),
+        f"kernels 2 and 3's f32 routes launched {n_f} times each, their bf16 routes never":
+            counts_f["fused_mlp"] == n_f and counts_f["fused_mlp_train"] == n_f
+            and counts_f["fused_mlp_bf16"] == 0 and counts_f["fused_mlp_train_bf16"] == 0,
+        "kernel 4 not launched": counts_f["fused_train_loss"] == 0,
+        "validation through kernel 1's f32 route": counts_f["fused_render"] >= 2
+        and counts_f["fused_render_bf16"] == 0 and bool(np.isfinite(val_f).all()),
+    })
     _, coarse, fine, _ = run_models(cfg_path, logdir, SLICE_ITERS, dev)
     s, o, d, v, target, draws = sh.s_train, sh.o, sh.d, sh.v, sh.target, sh.draws
     kw = dict(log_sampling_xyz=s.log_sampling_xyz, log_sampling_dir=s.log_sampling_dir)
-    cases, err_fwd, err_bwd = {}, 0.0, 0.0
+    bf = dict(compute_dtype=torch.bfloat16)
+    bf2 = dict(bf, dw_dtype=torch.bfloat16)
+    cases, err_fwd, err_bwd, err_fwd_b, err_bwd_b = {}, 0.0, 0.0, 0.0, 0.0
     z = sh.z_c
     for name, model, noise in (("coarse", coarse, draws.noise_coarse),
                                ("fine", fine, draws.noise_fine)):
@@ -749,57 +803,116 @@ def field_phase(torch, np, card, dev, tmp, sh):
         print_leaves(leaves)
         if bad:
             raise AssertionError(f"{name} pass: field kernels and plain differ in {bad}")
+        # the bf16 routes, on the same cotangent, relative to the dtype's own effect
+        names = [n for n, _ in model.named_parameters()]
+        raw_b = fm.fused_field(model, pts, v, **kw, **bf)
+        grads_b = fmt._launch_backward(model, pts, v, g, **kw, **bf2)
+        torch.cuda.synchronize()
+        plain_b = {"raw": fm.fused_field_reference(model, pts, v, **kw, **bf).detach(),
+                   **dict(zip(names, fmt.field_grads_reference(model, pts, v, g, **kw, **bf2)))}
+        errs = hold_to_own(
+            f"phase 10: {name} pass, bf16 routes of kernels 2 (raw) and 3 (leaves) vs plain,",
+            {"raw": raw_b, **dict(zip(names, grads_b))}, plain_b,
+            {"raw": raw_plain, **dict(zip(names, want))}, torch)
+        err_fwd_b = max(err_fwd_b, errs.pop("raw"))
+        err_bwd_b = max(err_bwd_b, *errs.values())
         cases[name] = (model, pts, g)
         if name == "coarse":
             z, _ = hierarchical_z_vals(z, out.weights.detach(), s.num_fine, det=False,
                                        u=draws.u_fine)
 
     # ---- phase 13, kernels 2 and 3: times, bounds
-    ms = {"fwd_kernel": 0.0, "fwd_plain": 0.0, "bwd_kernel": 0.0, "bwd_plain": 0.0}
-    fwd_flops = bwd_flops = fwd_bytes = bwd_bytes = 0.0
-    with torch.no_grad():
-        for model, pts, g in cases.values():
-            n, s_ = pts.shape[:2]
-            ps, pr = mlp_macs(model)
-            fwd_flops += 2 * (n * s_ * ps + n * pr)
-            bwd_flops += train_flops(model, n, s_)
-            params = list(model.parameters())
-            fwd_bytes += nbytes(pts, v, *params) + n * s_ * 4 * 4
-            bwd_bytes += nbytes(pts, v, g) + 2 * nbytes(*params)
-            ms["fwd_kernel"] += timed_ms(lambda: fm.fused_field(model, pts, v, **kw), torch)
-            ms["fwd_plain"] += timed_ms(
-                lambda: fm.fused_field_reference(model, pts, v, **kw), torch)
+    ms = {f"{k}{t}": 0.0 for k in ("fwd_kernel", "fwd_plain", "bwd_kernel", "bwd_plain")
+          for t in ("", "_bf16")}
+    fwd_flops = bwd_flops = fwd_bytes = bwd_bytes = fwd_bytes_b = bwd_bytes_b = 0.0
+    gemms = []
     for model, pts, g in cases.values():
-        ms["bwd_kernel"] += timed_ms(lambda: fmt._launch_backward(model, pts, v, g, **kw), torch)
-        ms["bwd_plain"] += timed_ms(lambda: fmt.field_grads_reference(model, pts, v, g, **kw),
-                                    torch)
+        n, s_ = pts.shape[:2]
+        ps, pr = mlp_macs(model)
+        fwd_flops += 2 * (n * s_ * ps + n * pr)
+        bwd_flops += train_flops(model, n, s_)
+        params = list(model.parameters())
+        # the bf16 routes read the bf16 packs and the f32 heads instead of the weights
+        packs = nbytes(*ftl._cached_bf16_weights(model, dev)[:2])
+        fwd_bytes += nbytes(pts, v, *params) + n * s_ * 4 * 4
+        fwd_bytes_b += nbytes(pts, v) + packs + n * s_ * 4 * 4
+        bwd_bytes += nbytes(pts, v, g) + 2 * nbytes(*params)
+        bwd_bytes_b += nbytes(pts, v, g, *params) + packs + nbytes(
+            ftl.pack_backward_weights_bf16(model, dev))
+        for tag, dt in (("", {}), ("_bf16", bf)):
+            with torch.no_grad():
+                ms[f"fwd_kernel{tag}"] += timed_ms(
+                    lambda: fm.fused_field(model, pts, v, **kw, **dt), torch)
+                ms[f"fwd_plain{tag}"] += timed_ms(
+                    lambda: fm.fused_field_reference(model, pts, v, **kw, **dt), torch)
+            dt2 = dict(dt, dw_dtype=dt["compute_dtype"]) if dt else {}
+            ms[f"bwd_kernel{tag}"] += timed_ms(
+                lambda: fmt._launch_backward(model, pts, v, g, **kw, **dt2), torch)
+            ms[f"bwd_plain{tag}"] += timed_ms(
+                lambda: fmt.field_grads_reference(model, pts, v, g, **kw, **dt2), torch)
+        gemms += dw_gemm_operands(model, n * s_, torch, dev)
+    # library yardstick of kernel 3's bf16 route: its weight-gradient
+    # products of both passes as bf16 torch.matmul calls
+    ms["dw_torch_matmul_bf16"] = timed_ms(lambda: [torch.matmul(a.t(), b) for a, b in gemms],
+                                          torch)
+    del gemms
     fwd_bound, fwd_by = bound(fwd_flops, fwd_bytes)
     bwd_bound, bwd_by = bound(bwd_flops, bwd_bytes)
-    print(f"phase 13: kernels 2 and 3, both passes, ms on {card} (CUDA events, mean of 3): "
-          + json.dumps({k: round(t, 3) for k, t in ms.items()}))
-    print(f"  kernel 2 bound {fwd_bound:.3f} ms ({fwd_by}; {fwd_flops / 1e12:.4f} TFLOP, "
-          f"{fwd_bytes / 1e6:.2f} MB; bf16 tensor-core peak "
-          f"{1e3 * fwd_flops / BF16_FLOPS:.3f} ms); "
-          f"kernel 3 bound {bwd_bound:.3f} ms ({bwd_by}; {bwd_flops / 1e12:.4f} TFLOP, "
-          f"{bwd_bytes / 1e6:.2f} MB; bf16 tensor-core peak "
-          f"{1e3 * bwd_flops / BF16_FLOPS:.3f} ms)")
+    fwd_bound_b, fwd_by_b = bound(fwd_flops, fwd_bytes_b, BF16_FLOPS)
+    bwd_bound_b, bwd_by_b = bound(bwd_flops, bwd_bytes_b, BF16_FLOPS)
+    print(f"phase 13: kernels 2 and 3, both passes, both routes, ms on {card} (CUDA events, "
+          f"mean of 3): " + json.dumps({k: round(t, 3) for k, t in ms.items()}))
+    print(f"  kernel 2 bound {fwd_bound:.3f} ms f32 ({fwd_by}; {fwd_flops / 1e12:.4f} TFLOP, "
+          f"{fwd_bytes / 1e6:.2f} MB), bf16 route {fwd_bound_b:.3f} ms ({fwd_by_b}; "
+          f"{fwd_bytes_b / 1e6:.2f} MB); kernel 3 bound {bwd_bound:.3f} ms f32 ({bwd_by}; "
+          f"{bwd_flops / 1e12:.4f} TFLOP, {bwd_bytes / 1e6:.2f} MB), bf16 route "
+          f"{bwd_bound_b:.3f} ms ({bwd_by_b}; {bwd_bytes_b / 1e6:.2f} MB); achieved TFLOP/s: "
+          + json.dumps({k: round(f / ms[m] / 1e9, 2) for k, f, m in (
+              ("kernel 2 f32", fwd_flops, "fwd_kernel"),
+              ("kernel 2 bf16", fwd_flops, "fwd_kernel_bf16"),
+              ("kernel 3 f32", bwd_flops, "bwd_kernel"),
+              ("kernel 3 bf16", bwd_flops, "bwd_kernel_bf16"))}))
+    batch = sh.o.shape[0]
+    steps, st_ms, peaks = {}, {}, {}
+    for path in ("fields_bf16", "fields"):
+        torch.cuda.reset_peak_memory_stats()
+        st_ms[path], steps[path] = sh.step_ms(path)
+        peaks[path] = round(torch.cuda.max_memory_allocated() / 2**30, 2)
+    print(f"  field-path steps, ms (host clock around synchronize, mean of 5): "
+          + json.dumps({k: round(t, 3) for k, t in st_ms.items()}) + "; rays/s: "
+          + json.dumps({k: round(batch / (t / 1e3)) for k, t in st_ms.items()})
+          + "; peak memory of a step (GiB): " + json.dumps(peaks))
+    print("  bf16 field-path steps:")
+    profile_steps(torch, steps["fields_bf16"], {
+        "kernel 2 bf16": FIELD_FWD_BF16_NAMES, "kernel 3 bf16": FIELD_BWD_BF16_NAMES})
+    print("  f32 field-path steps (pallas_compute_dtype: float32):")
     # kernel 3 runs kernel 4's dW and reduce launches
-    profile_steps(torch, sh.field_step, {
+    profile_steps(torch, steps["fields"], {
         "kernel 2": ("field_fwd_kernel",),
         "kernel 3": ("field_bwd_kernel", "dw_kernel", "reduce_kernel"),
     })
-    entry = dict(route="cuda", library_ms=None)
+    entry = dict(route="cuda", source="dexnerf_tpu_torch/ops/csrc/fused_train_loss_bf16.cu")
+    fwd, bwd = ("dexnerf_tpu/ops/fused_mlp.py:481", "dexnerf_tpu/ops/fused_mlp_train.py:221")
     return [
-        {"name": "fused_field", **entry, "source": "dexnerf_tpu_torch/ops/csrc/fused_mlp.cu",
-         "replaces": "dexnerf_tpu/ops/fused_mlp.py:481", "launches": counts["fused_mlp"],
-         "max_abs_err": err_fwd, "ms": ms["fwd_kernel"], "plain_ms": ms["fwd_plain"],
-         "bound_ms": fwd_bound, "bound_by": fwd_by},
-        {"name": "fused_field_backward", **entry,
-         "source": "dexnerf_tpu_torch/ops/csrc/fused_mlp_train.cu",
-         "replaces": "dexnerf_tpu/ops/fused_mlp_train.py:221",
-         "launches": counts["fused_mlp_train"], "max_abs_err": err_bwd,
+        {"name": "fused_field", "route": "cuda",
+         "source": "dexnerf_tpu_torch/ops/csrc/fused_mlp.cu", "replaces": fwd,
+         "launches": counts_f["fused_mlp"], "max_abs_err": err_fwd, "ms": ms["fwd_kernel"],
+         "plain_ms": ms["fwd_plain"], "bound_ms": fwd_bound, "bound_by": fwd_by,
+         "library_ms": None},
+        {"name": "fused_field_backward", "route": "cuda",
+         "source": "dexnerf_tpu_torch/ops/csrc/fused_mlp_train.cu", "replaces": bwd,
+         "launches": counts_f["fused_mlp_train"], "max_abs_err": err_bwd,
          "ms": ms["bwd_kernel"], "plain_ms": ms["bwd_plain"], "bound_ms": bwd_bound,
-         "bound_by": bwd_by},
+         "bound_by": bwd_by, "library_ms": None},
+        {"name": "fused_mlp_bf16", **entry, "replaces": fwd,
+         "launches": counts["fused_mlp_bf16"], "max_abs_err": err_fwd_b,
+         "ms": ms["fwd_kernel_bf16"], "plain_ms": ms["fwd_plain_bf16"],
+         "bound_ms": fwd_bound_b, "bound_by": fwd_by_b, "library_ms": None},
+        {"name": "fused_mlp_train_bf16", **entry, "replaces": bwd,
+         "launches": counts["fused_mlp_train_bf16"], "max_abs_err": err_bwd_b,
+         "ms": ms["bwd_kernel_bf16"], "plain_ms": ms["bwd_plain_bf16"],
+         "bound_ms": bwd_bound_b, "bound_by": bwd_by_b,
+         "library_ms": ms["dw_torch_matmul_bf16"]},
     ]
 
 

@@ -165,9 +165,12 @@ def load_library() -> ctypes.CDLL:
         lib.dexnerf_train_bf16_reduce.argtypes = (
             [vp, ci, ctypes.c_longlong]  # dW slots, slots, params
             + [vp, ci, ci, vp, vp]       # chain slots, slots, slot length, map, grad
-            + [vp, ci, vp, vp]           # per-ray losses, rays, loss, stream
+            + [vp, ci, vp, vp]           # per-ray losses, rays, loss (or null), stream
         )
         lib.dexnerf_train_bf16_reduce.restype = ci
+        # args, rows, tiles, backward (0: kernel 2, 1: kernel 3), stream
+        lib.dexnerf_field_bf16_pass.argtypes = [vp, ci, ci, ci, vp]
+        lib.dexnerf_field_bf16_pass.restype = ci
         lib.dexnerf_train_bf16_occupancy.argtypes = [ci, ci, vp, vp, vp, vp]
         lib.dexnerf_train_bf16_occupancy.restype = ci
         lib.dexnerf_field_args_size.argtypes = []

@@ -1,6 +1,7 @@
-"""The weight-gradient half of the training kernels, shared by the field
-backward (``ops/fused_mlp_train.py``, kernel 3) and the fused train loss
-(``ops/fused_train_loss.py``, kernel 4).
+"""The weight-gradient half of the f32 training kernels, shared by the
+field backward (``ops/fused_mlp_train.py``, kernel 3) and the fused train
+loss (``ops/fused_train_loss.py``, kernel 4); their bf16 routes share
+``ops/fused_train_loss.py::Bf16Gradients``.
 
 Both pass kernels fill one activation/cotangent scratch (``Rows`` in
 ``ops/csrc/mlp_chain.cuh``) chunk of rays by chunk; :class:`WeightGradients`

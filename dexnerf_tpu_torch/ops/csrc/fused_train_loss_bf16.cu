@@ -64,6 +64,18 @@
 //   (biases, viewdir rows) in a fixed order: runs are bitwise repeatable.
 // Hidden widths that are not a multiple of 32 run zero-padded to one
 // (exact: padded units are ReLU(0 + 0) = 0 and meet zero weights).
+//
+// The field kernels at compute_dtype (= dw_dtype) = bfloat16 are launches
+// of the same kernels (dexnerf_field_bf16_pass), with the sample points
+// read from pts [N, S, 3] instead of o + d z:
+// * kernel 2, the field forward (replaces dexnerf_tpu/ops/fused_mlp.py:481,
+//   _make_fwd_kernel): prep and forward, raw written straight to the
+//   [N, S, 4] output, no scratch;
+// * kernel 3, the field backward (replaces
+//   dexnerf_tpu/ops/fused_mlp_train.py:221, _make_bwd_kernel): prep, the
+//   forward again (scratch only), and the chain on the caller's cotangent
+//   of raw (graw); no sigma-noise and no compositing. Its weight gradients
+//   are the dW and reduce launches above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,12 +104,17 @@ constexpr int kGK = 32;        // dW k-step
 constexpr int kGP = kGT + 8;   // padded row of a dW operand stage
 constexpr int kGemmThreads = 128;
 constexpr int kSumThreads = 1024;
+// Who launches a prep or forward kernel, a template argument so that a
+// profile tells them apart: the fused train loss (kernel 4), the field
+// forward (kernel 2) and the field backward's recomputed forward (kernel 3).
+constexpr int kLoss = 4, kFieldFwd = 2, kFieldBwd = 3;
 
 // Mirrored field by field by ops/fused_train_loss.py::_Bf16TrainArgs.
 struct TrainArgs {
   const float* origins;     // [N, 3]
   const float* dirs;        // [N, 3]
   const float* viewdirs;    // [N, 3]
+  const float* pts;         // [N, S, 3] sample points (field kernels) or null
   const float* z;           // [N, S]
   const float* dists;       // [N, S]
   const float* noise;       // [N, S] or null
@@ -353,6 +370,7 @@ __device__ __forceinline__ void encode_f32(float v, int d, int n_freq, int inclu
 // ---- per ray: viewdir encoding (bf16-rounded) and the viewdir layer's
 // per-ray bias b + enc . W_dir[:, H:] (bf16 operands, f32 sum), one warp
 // per ray
+template <int kOwner>
 __global__ void __launch_bounds__(kPrepWarps * 32) train_prep_kernel(const TrainArgs p) {
   __shared__ float dtmp[kPrepWarps][kMaxDD];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -389,11 +407,15 @@ __host__ __device__ inline FwdSmem fwd_smem(int H, int dxp) {
 }
 
 // ---- forward of one 128-sample tile (rows k0 .. k0 + 127 of the chunk;
-// rows >= n_real are padding with a zero encoding)
-template <int NTM>
+// rows >= n_real are padding with a zero encoding). kOwner: the points are
+// o + d z (kLoss) or pts (the fields); the activations go to the scratch
+// (kLoss, kFieldBwd) or nowhere (kFieldFwd); raw goes to [tiles * 128][4]
+// (kLoss), to the [n_real][4] output (kFieldFwd) or nowhere (kFieldBwd).
+template <int kOwner, int NTM>
 __global__ void __launch_bounds__(kThreads, 2) train_fwd_bf16_kernel(const TrainArgs p,
                                                                      int n_real) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kSave = kOwner != kFieldFwd;
   constexpr int H = NTM * 16;
   constexpr int H2 = H / 2;
   constexpr int NTD = NTM / 2;  // n-tiles of the viewdir layer (N = H/2)
@@ -430,9 +452,11 @@ __global__ void __launch_bounds__(kThreads, 2) train_fwd_bf16_kernel(const Train
     const long long k = k0 + r;
     if (k < n_real) {
       const long long ray = (long long)p.ray0 + k / p.n_samples;
-      const float pt = __fadd_rn(p.origins[ray * 3 + d],
-                                 __fmul_rn(p.dirs[ray * 3 + d],
-                                           p.z[(long long)p.ray0 * S + k]));
+      const float pt = kOwner != kLoss
+                           ? p.pts[((long long)p.ray0 * S + k) * 3 + d]
+                           : __fadd_rn(p.origins[ray * 3 + d],
+                                       __fmul_rn(p.dirs[ray * 3 + d],
+                                                 p.z[(long long)p.ray0 * S + k]));
       bf16* e = enc + r * EP;
       int col = 0;
       if (p.inc_x) {
@@ -448,7 +472,7 @@ __global__ void __launch_bounds__(kThreads, 2) train_fwd_bf16_kernel(const Train
     }
   }
   __syncthreads();
-  copy_tile(enc, EP, p.scratch + p.act_off[0] + k0 * p.dxp, p.dxp);
+  if (kSave) copy_tile(enc, EP, p.scratch + p.act_off[0] + k0 * p.dxp, p.dxp);
 
   const float* aux = p.aux;
   const float* w_alpha = aux + p.aux_off[nt + 3];
@@ -463,7 +487,7 @@ __global__ void __launch_bounds__(kThreads, 2) train_fwd_bf16_kernel(const Train
   store_hidden(acc, aux + p.aux_off[0], false, act, AP, wm, nbm, nt == 0 ? w_alpha : nullptr,
                psig);
   __syncthreads();
-  copy_tile(act, AP, p.scratch + p.act_off[1] + k0 * H, H);
+  if (kSave) copy_tile(act, AP, p.scratch + p.act_off[1] + k0 * H, H);
   // ---- trunk
   for (int i = 0; i < nt; ++i) {
     zero(acc);
@@ -475,7 +499,7 @@ __global__ void __launch_bounds__(kThreads, 2) train_fwd_bf16_kernel(const Train
     store_hidden(acc, aux + p.aux_off[1 + i], true, act, AP, wm, nbm,
                  i == nt - 1 ? w_alpha : nullptr, psig);
     __syncthreads();
-    copy_tile(act, AP, p.scratch + p.act_off[2 + i] + k0 * H, H);
+    if (kSave) copy_tile(act, AP, p.scratch + p.act_off[2 + i] + k0 * H, H);
   }
   // ---- fc_feat
   zero(acc);
@@ -483,7 +507,7 @@ __global__ void __launch_bounds__(kThreads, 2) train_fwd_bf16_kernel(const Train
   __syncthreads();
   store_hidden(acc, aux + p.aux_off[nt + 1], true, act, AP, wm, nbm, nullptr, psig);
   __syncthreads();
-  copy_tile(act, AP, p.scratch + p.act_off[nt + 2] + k0 * H, H);
+  if (kSave) copy_tile(act, AP, p.scratch + p.act_off[nt + 2] + k0 * H, H);
   // ---- layers_dir.0 on feat, + the per-ray bias; rgb head from the f32
   // values, then y rounded to bf16 for the scratch
   zero(acc);
@@ -526,24 +550,27 @@ __global__ void __launch_bounds__(kThreads, 2) train_fwd_bf16_kernel(const Train
     }
   }
   __syncthreads();  // every warp is done reading feat from act
+  if (kSave) {
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+    for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
-    for (int nj = 0; nj < NTD; ++nj) {
-      const int col = nbd + 8 * nj + 2 * q;
+      for (int nj = 0; nj < NTD; ++nj) {
+        const int col = nbd + 8 * nj + 2 * q;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = 32 * wm + 16 * mi + 8 * h + g;
-        *reinterpret_cast<__nv_bfloat162*>(act + row * AP + col) =
-            __floats2bfloat162_rn(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
+        for (int h = 0; h < 2; ++h) {
+          const int row = 32 * wm + 16 * mi + 8 * h + g;
+          *reinterpret_cast<__nv_bfloat162*>(act + row * AP + col) =
+              __floats2bfloat162_rn(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
+        }
       }
     }
+    __syncthreads();
+    copy_tile(act, AP, p.scratch + p.act_off[nt + 3] + k0 * H2, H2);
   }
-  __syncthreads();
-  copy_tile(act, AP, p.scratch + p.act_off[nt + 3] + k0 * H2, H2);
   const float b_alpha = __ldg(aux + p.aux_off[nt + 4]);
   const float* b_rgb = aux + p.aux_off[nt + 6];
   for (int r = tid; r < kTile; r += kThreads) {
+    if (kOwner == kFieldBwd || (kOwner == kFieldFwd && k0 + r >= n_real)) break;
     float4 o;
     o.x = (prgb[r * 3] + prgb[(kTile + r) * 3]) + __ldg(b_rgb);
     o.y = (prgb[r * 3 + 1] + prgb[(kTile + r) * 3 + 1]) + __ldg(b_rgb + 1);
@@ -1052,14 +1079,15 @@ template <int NTM>
 int launch_pass(const TrainArgs& a, int n_real, int tiles, cudaStream_t s) {
   const size_t fs = fwd_smem(NTM * 16, a.dxp).total, cs = chain_smem(NTM * 16).total;
   const size_t ps = (size_t)kRayWarps * 7 * a.n_samples * sizeof(float);
-  cudaError_t err = set_smem(train_fwd_bf16_kernel<NTM>, fs);
+  cudaError_t err = set_smem(train_fwd_bf16_kernel<kLoss, NTM>, fs);
   if (err == cudaSuccess) err = set_smem(train_chain_bf16_kernel<NTM>, cs);
   if (err == cudaSuccess) err = set_smem(train_composite_kernel, ps);
   if (err != cudaSuccess) return (int)err;
   if (a.n_rays == 0) return 0;
-  train_prep_kernel<<<(a.n_rays + kPrepWarps - 1) / kPrepWarps, kPrepWarps * 32, 0, s>>>(a);
+  train_prep_kernel<kLoss><<<(a.n_rays + kPrepWarps - 1) / kPrepWarps, kPrepWarps * 32, 0, s>>>(
+      a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  train_fwd_bf16_kernel<NTM><<<tiles, kThreads, fs, s>>>(a, n_real);
+  train_fwd_bf16_kernel<kLoss, NTM><<<tiles, kThreads, fs, s>>>(a, n_real);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   train_composite_kernel<<<(a.n_rays + kRayWarps - 1) / kRayWarps, kRayWarps * 32, ps, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -1067,16 +1095,46 @@ int launch_pass(const TrainArgs& a, int n_real, int tiles, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// The field kernels' launches (see the head of this file): kernel 2's prep
+// and forward, or kernel 3's prep, forward and chain.
+template <int kOwner, int NTM>
+int launch_field(const TrainArgs& a, int n_real, int tiles, cudaStream_t s) {
+  const size_t fs = fwd_smem(NTM * 16, a.dxp).total, cs = chain_smem(NTM * 16).total;
+  cudaError_t err = set_smem(train_fwd_bf16_kernel<kOwner, NTM>, fs);
+  if (err == cudaSuccess && kOwner == kFieldBwd) err = set_smem(train_chain_bf16_kernel<NTM>, cs);
+  if (err != cudaSuccess) return (int)err;
+  if (a.n_rays == 0) return 0;
+  train_prep_kernel<kOwner><<<(a.n_rays + kPrepWarps - 1) / kPrepWarps, kPrepWarps * 32, 0,
+                              s>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  train_fwd_bf16_kernel<kOwner, NTM><<<tiles, kThreads, fs, s>>>(a, n_real);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (kOwner == kFieldBwd) {
+    train_chain_bf16_kernel<NTM><<<a.chain_ctas, kThreads, cs, s>>>(a, n_real, tiles);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int kOwner>
+int launch_field_width(const TrainArgs& a, int n_real, int tiles, cudaStream_t s) {
+  switch (a.hidden / 32) {
+    case 1: return launch_field<kOwner, 2>(a, n_real, tiles, s);
+    case 2: return launch_field<kOwner, 4>(a, n_real, tiles, s);
+    case 3: return launch_field<kOwner, 6>(a, n_real, tiles, s);
+    default: return launch_field<kOwner, 8>(a, n_real, tiles, s);
+  }
+}
+
 template <int NTM>
 int occupancy(int dxp, int* fwd_ctas, int* chain_ctas, int* fwd_bytes, int* chain_bytes) {
   const size_t fs = fwd_smem(NTM * 16, dxp).total, cs = chain_smem(NTM * 16).total;
   *fwd_bytes = (int)fs;
   *chain_bytes = (int)cs;
-  cudaError_t err = set_smem(train_fwd_bf16_kernel<NTM>, fs);
+  cudaError_t err = set_smem(train_fwd_bf16_kernel<kLoss, NTM>, fs);
   if (err == cudaSuccess) err = set_smem(train_chain_bf16_kernel<NTM>, cs);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(fwd_ctas, train_fwd_bf16_kernel<NTM>,
-                                                        kThreads, fs);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        fwd_ctas, train_fwd_bf16_kernel<kLoss, NTM>, kThreads, fs);
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(chain_ctas, train_chain_bf16_kernel<NTM>,
@@ -1119,6 +1177,29 @@ int dexnerf_train_bf16_pass(const void* args, int n_real, int tiles, void* strea
   }
 }
 
+// The field kernels at bf16 on one chunk of n_rays rays (n_real = n_rays *
+// n_samples rows in `tiles` tiles of 128): kernel 2's forward (backward =
+// 0: raw into [n_real][4], no scratch) or kernel 3's forward and chain
+// (backward = 1: the scratch, the chain CTAs' slots, graw = the cotangent
+// of raw). The points come from pts. Returns a cudaError_t.
+int dexnerf_field_bf16_pass(const void* args, int n_real, int tiles, int backward,
+                            void* stream) {
+  const TrainArgs& a = *static_cast<const TrainArgs*>(args);
+  if (a.n_samples < 1 || a.num_trunk < 0 || a.num_trunk > 31 || a.num_trunk + 8 > kAux ||
+      a.num_trunk + 5 > kMaxBlocks || a.fx > kMaxFreq || a.fd > kMaxFreq || a.dd > kMaxDD ||
+      a.dx < 1 || a.dxp % kKc != 0 || a.dxp < a.dx || a.hidden % 32 != 0 || a.hidden < 32 ||
+      a.hidden > 128 || a.pts == nullptr ||
+      (backward ? a.chain_ctas < 1 || a.scratch == nullptr || a.graw == nullptr
+                : a.raw == nullptr) ||
+      (long long)n_real != (long long)a.n_rays * a.n_samples ||
+      tiles != (n_real + kTile - 1) / kTile) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return backward ? launch_field_width<kFieldBwd>(a, n_real, tiles, s)
+                  : launch_field_width<kFieldFwd>(a, n_real, tiles, s);
+}
+
 int dexnerf_train_bf16_dw(const void* args, int n_tiles, void* stream) {
   const GemmArgs& a = *static_cast<const GemmArgs*>(args);
   if (a.n_items < 1 || a.n_items > kMaxItems || a.n_splits < 1 || n_tiles < 1) {
@@ -1135,8 +1216,8 @@ int dexnerf_train_bf16_dw(const void* args, int n_tiles, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// The gradient of every parameter (see reduce_bf16_kernel) and the sum of
-// the n_rays per-ray losses into *loss.
+// The gradient of every parameter (see reduce_bf16_kernel) and, when loss
+// is not null, the sum of the n_rays per-ray losses into *loss.
 int dexnerf_train_bf16_reduce(const float* partial, int n_parts, long long n_params,
                               const float* aux_part, int n_aux_parts, int n_aux, const int* map,
                               float* grad, const float* loss_ray, int n_rays, float* loss,
@@ -1145,7 +1226,7 @@ int dexnerf_train_bf16_reduce(const float* partial, int n_parts, long long n_par
   reduce_bf16_kernel<<<(unsigned)((n_params + 255) / 256), 256, 0, s>>>(
       partial, n_parts, n_params, aux_part, n_aux_parts, n_aux, map, grad);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || loss == nullptr) return (int)err;
   sum_rays_bf16_kernel<<<1, kSumThreads, 0, s>>>(loss_ray, n_rays, loss);
   return (int)cudaGetLastError();
 }

@@ -2,18 +2,25 @@
 [N, S, 4], with the encodings and activations kept on chip.
 
 Counterpart of ``dexnerf_tpu/ops/fused_mlp.py`` (``make_fused_flexible_field``),
-whose Pallas kernel (``_make_fwd_kernel``) this module's CUDA kernel
-(``ops/csrc/fused_mlp.cu``, built by ``ops/_build.py``) replaces. On a CUDA
-tensor :func:`fused_field` launches the kernel; on a CPU tensor it runs
-:func:`fused_field_reference`, the plain PyTorch version (``model`` on the
-encodings). There is no fallback between the two: a CUDA call that cannot
-launch raises. The port's weights live in the model, so a field function
-is bound to its model when it is built: ``field(pts, viewdirs) -> raw``.
+whose Pallas kernel (``_make_fwd_kernel``) this module's CUDA kernels
+(built by ``ops/_build.py``) replace, with its ``compute_dtype`` (float32
+by default, as in JAX; training resolves it from
+``nerf.pallas_compute_dtype``, bf16 by default). On a CUDA tensor
+:func:`fused_field` launches the kernel of the dtype: ``ops/csrc/fused_mlp.cu``
+at float32 (f32 FMA, ~156k multiply-adds per sample of the 8x128 model),
+or at bfloat16 the prep and forward kernels of
+``ops/csrc/fused_train_loss_bf16.cu`` (kernel 4's bf16 tile on the
+``mma.sync`` tensor cores, reading the points from ``pts``, writing raw
+straight to the output, saving nothing). On a CPU tensor it runs
+:func:`fused_field_reference`, the plain PyTorch version at that dtype
+(``model`` on the encodings, or ``flex_forward_bf16``). There is no
+fallback between them: a CUDA call that cannot launch raises. The port's
+weights live in the model, so a field function is bound to its model when
+it is built: ``field(pts, viewdirs) -> raw``. It is also the forward of
+the training field (``ops/fused_mlp_train.py``); times are in ``PERF.md``.
 
-The kernel is bound by f32 FMA work (~156k multiply-adds per sample of the
-8x128 model); its times are in ``PERF.md``. It is also the forward of the
-training field (``ops/fused_mlp_train.py``). ``launches`` counts kernel
-launches (+1 per launch, nowhere else).
+``launches`` counts kernel-2 launches of either dtype and ``launches_bf16``
+those of the bf16 route (+1 per launch, nowhere else).
 """
 
 from __future__ import annotations
@@ -24,9 +31,15 @@ import torch
 
 from dexnerf_tpu_torch.core.encoding import frequency_bands, positional_encoding
 from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
-from dexnerf_tpu_torch.ops.fused_render import pack_flex_weights
+from dexnerf_tpu_torch.ops.fused_render import (
+    _check_compute_dtype,
+    flex_forward_bf16,
+    pack_flex_weights,
+)
+from dexnerf_tpu_torch.ops.fused_train_loss import bf16_args
 
-launches = 0
+launches = 0  # kernel-2 launches of either dtype
+launches_bf16 = 0  # of which the bf16 route's
 
 # limits of ops/csrc/mlp_chain.cuh
 MAX_LAYERS = 40
@@ -63,16 +76,22 @@ def fused_field_reference(
     *,
     log_sampling_xyz: bool = True,
     log_sampling_dir: bool = True,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel's contract: ``model`` on the
+    """Plain PyTorch version of the kernels' contract: ``model`` on the
     encodings of ``pts`` [N, S, 3] and of the per-ray ``viewdirs`` [N, 3]
-    -> raw [N, S, 4] (rgb logits, σ logit). Differentiable."""
+    -> raw [N, S, 4] (rgb logits, σ logit); at bfloat16 the model's forward
+    under the JAX package's bf16 contract (``flex_forward_bf16``).
+    Differentiable (at float32)."""
+    _check_compute_dtype(compute_dtype)
     xyz = positional_encoding(
         pts, model.num_encoding_fn_xyz, model.include_input_xyz, log_sampling_xyz
     )
     view = positional_encoding(
         viewdirs, model.num_encoding_fn_dir, model.include_input_dir, log_sampling_dir
     )
+    if compute_dtype == torch.bfloat16:
+        return flex_forward_bf16(model, xyz, view)
     return model(xyz, view)
 
 
@@ -129,13 +148,29 @@ def field_args(lib, model, pts, viewdirs, *, log_sampling_xyz, log_sampling_dir)
     return args, wf
 
 
-def _launch(model, pts, viewdirs, *, log_sampling_xyz, log_sampling_dir) -> torch.Tensor:
-    global launches
+def _launch(model, pts, viewdirs, *, log_sampling_xyz, log_sampling_dir,
+            compute_dtype=torch.float32) -> torch.Tensor:
+    """Kernel 2 at ``compute_dtype`` on CUDA tensors."""
+    global launches, launches_bf16
     from dexnerf_tpu_torch.ops._build import check, load_library
 
+    _check_compute_dtype(compute_dtype)
     N, S = pts.shape[:2]
     check_field_inputs(model, [("pts", pts, (N, S, 3)), ("viewdirs", viewdirs, (N, 3))])
     lib = load_library()
+    if compute_dtype == torch.bfloat16:
+        args, keep = bf16_args(lib, model, N, S, log_sampling_xyz=log_sampling_xyz,
+                               log_sampling_dir=log_sampling_dir)
+        raw = torch.empty((N, S, 4), dtype=torch.float32, device=pts.device)
+        args.pts, args.viewdirs, args.raw = pts.data_ptr(), viewdirs.data_ptr(), raw.data_ptr()
+        args.ray0, args.n_rays = 0, N
+        stream = torch.cuda.current_stream(pts.device).cuda_stream
+        check(lib, lib.dexnerf_field_bf16_pass(ctypes.addressof(args), N * S, -(-N * S // 128),
+                                               0, stream),
+              "fused field bf16 forward launch")
+        launches += 1
+        launches_bf16 += 1
+        return raw
     args, wf = field_args(lib, model, pts, viewdirs, log_sampling_xyz=log_sampling_xyz,
                           log_sampling_dir=log_sampling_dir)
     raw = torch.empty((N, S, 4), dtype=torch.float32, device=pts.device)
@@ -155,12 +190,15 @@ def fused_field(
     *,
     log_sampling_xyz: bool = True,
     log_sampling_dir: bool = True,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """raw [N, S, 4] of ``model`` at ``pts`` [N, S, 3] seen along the
-    per-ray ``viewdirs`` [N, 3]; forward only (the training field is
-    ``ops.fused_mlp_train``). CUDA tensors go through the kernel, CPU
-    tensors through :func:`fused_field_reference`."""
-    kw = dict(log_sampling_xyz=log_sampling_xyz, log_sampling_dir=log_sampling_dir)
+    per-ray ``viewdirs`` [N, 3] at ``compute_dtype`` (float32 or
+    bfloat16); forward only (the training field is ``ops.fused_mlp_train``).
+    CUDA tensors go through the kernel of the dtype, CPU tensors through
+    :func:`fused_field_reference`."""
+    kw = dict(log_sampling_xyz=log_sampling_xyz, log_sampling_dir=log_sampling_dir,
+              compute_dtype=compute_dtype)
     if pts.device.type == "cuda":
         return _launch(model, pts, viewdirs, **kw)
     if pts.device.type == "cpu":
@@ -169,16 +207,21 @@ def fused_field(
 
 
 def make_fused_flexible_field(
-    model: FlexibleNeRFModel, *, log_sampling_xyz: bool = True, log_sampling_dir: bool = True
+    model: FlexibleNeRFModel, *, log_sampling_xyz: bool = True, log_sampling_dir: bool = True,
+    compute_dtype: torch.dtype = torch.float32,
 ):
     """``field(pts [N, S, 3], viewdirs [N, 3]) -> raw [N, S, 4]`` through
-    :func:`fused_field` on ``model`` (the counterpart of
-    ``make_fused_flexible_field``, whose weights are an argument instead)."""
+    :func:`fused_field` on ``model`` at ``compute_dtype`` (the counterpart
+    of ``make_fused_flexible_field``, whose weights are an argument
+    instead; float32 by default, as there)."""
+    _check_compute_dtype(compute_dtype)
 
     def field(pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
         return fused_field(
             model, pts.contiguous(), viewdirs.contiguous(),
             log_sampling_xyz=log_sampling_xyz, log_sampling_dir=log_sampling_dir,
+            compute_dtype=compute_dtype,
         )
 
+    field.compute_dtype = compute_dtype
     return field

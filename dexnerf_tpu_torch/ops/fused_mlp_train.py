@@ -3,15 +3,25 @@
 
 Counterpart of ``dexnerf_tpu/ops/fused_mlp_train.py``
 (``make_fused_flexible_field_train``), whose backward Pallas kernel
-(``_make_bwd_kernel``) this module's CUDA kernel
-(``ops/csrc/fused_mlp_train.cu``) replaces. The field is a
-``torch.autograd.Function``: its forward is the field kernel of
-``ops/fused_mlp.py`` (kernel 2); its backward takes the cotangent ``g`` of
-raw [N, S, 4], recomputes the forward, runs the cotangent chain and sums
-the weight gradients over every sample (kernel 3, with the scratch and the
-weight-gradient launches of ``ops/_weight_grads.py``, shared with the fused
-train loss). On CPU tensors both halves are the plain version: the forward
-is ``fused_field_reference`` and the backward autograd through it.
+(``_make_bwd_kernel``) this module's CUDA kernels replace, with its
+``compute_dtype`` / ``dw_dtype`` (float32 by default, as in JAX; training
+resolves both from ``nerf.pallas_compute_dtype``, bf16 by default). The
+field is a ``torch.autograd.Function``: its forward is the field kernel of
+``ops/fused_mlp.py`` (kernel 2) at ``compute_dtype``; its backward takes
+the cotangent ``g`` of raw [N, S, 4], recomputes the forward, runs the
+cotangent chain and sums the weight gradients over every sample (kernel
+3). At float32/float32 that is ``ops/csrc/fused_mlp_train.cu`` with the
+scratch and the weight-gradient launches of ``ops/_weight_grads.py``; at
+bfloat16/bfloat16 it is the prep, forward and chain kernels of
+``ops/csrc/fused_train_loss_bf16.cu`` on the caller's ``g`` (no
+compositing), with kernel 4's bf16 scratch, dW and fixed-order reduction
+(``ops/fused_train_loss.py::Bf16Gradients``): ``mma.sync`` tensor cores,
+bf16 operands, activations and dW operands, f32 heads, bias sums and
+chain, bitwise-repeatable runs. A mixed pair raises on the card. On CPU
+tensors both halves are the plain version at any pair: the forward is
+``fused_field_reference`` and the backward autograd through the model, or
+through ``flex_forward_train`` (the contract's three roundings) when a
+dtype is bfloat16.
 
 CONTRACT (the JAX module's): the backward returns gradients for the model's
 parameters only and **no cotangent for the sample points or the view
@@ -20,17 +30,20 @@ come from the parameter-free stratified sampler and the fine depths are
 detached, so no gradient flows into the field's inputs. Do not use this
 field where ``pts`` depends on trained values (pose refinement).
 
-``launches`` counts launches of the backward kernel (+1 per backward, where
-it launches its group of ``__global__`` kernels; nowhere else); the
-forward's are ``ops.fused_mlp.launches``.
+``launches`` counts kernel-3 backwards of either dtype and ``launches_bf16``
+those of the bf16 route (+1 per backward, where it launches its group of
+``__global__`` kernels; nowhere else); the forward's are
+``ops.fused_mlp.launches`` and ``launches_bf16``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
+from dexnerf_tpu_torch.core.encoding import positional_encoding
 from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
 from dexnerf_tpu_torch.ops import fused_mlp
 from dexnerf_tpu_torch.ops._weight_grads import (
@@ -39,24 +52,55 @@ from dexnerf_tpu_torch.ops._weight_grads import (
     pack_backward_weights,
 )
 from dexnerf_tpu_torch.ops.fused_mlp import check_field_inputs, field_args, fused_field_reference
+from dexnerf_tpu_torch.ops.fused_train_loss import (
+    Bf16Gradients,
+    _check_dtypes,
+    bf16_args,
+    check_kernel_pair,
+    flex_forward_train,
+)
 
-launches = 0
+launches = 0  # kernel-3 backwards of either dtype
+launches_bf16 = 0  # of which the bf16 route's
 
 # samples of activation/cotangent scratch per chunk of rays
 SCRATCH_SAMPLES = 1 << 18
 
 
-def _launch_backward(model, pts, viewdirs, g, *, log_sampling_xyz, log_sampling_dir) -> tuple:
+def _launch_backward(model, pts, viewdirs, g, *, log_sampling_xyz, log_sampling_dir,
+                     compute_dtype=torch.float32, dw_dtype=None) -> tuple:
     """The gradient of ``sum(g * raw)`` with respect to every parameter of
-    ``model``, in ``model.parameters()`` order."""
-    global launches
+    ``model``, in ``model.parameters()`` order, by kernel 3 at
+    ``compute_dtype`` / ``dw_dtype`` (None: float32): float32/float32 or
+    bfloat16/bfloat16."""
+    global launches, launches_bf16
     from dexnerf_tpu_torch.ops._build import check, load_library
 
+    dw_dtype = _check_dtypes(compute_dtype, dw_dtype)
+    check_kernel_pair(compute_dtype, dw_dtype)
     N, S = pts.shape[:2]
     dev = pts.device
     check_field_inputs(model, [("pts", pts, (N, S, 3)), ("viewdirs", viewdirs, (N, 3)),
                                ("g", g, (N, S, 4))])
     lib = load_library()
+    if compute_dtype == torch.bfloat16:
+        chunk = max(1, min(N, SCRATCH_SAMPLES // S))
+        args, keep = bf16_args(lib, model, chunk, S, log_sampling_xyz=log_sampling_xyz,
+                               log_sampling_dir=log_sampling_dir)
+        wg = Bf16Gradients(lib, model, N, S, chunk, args)
+        args.pts, args.viewdirs = pts.data_ptr(), viewdirs.data_ptr()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for c in range(wg.n_chunks):
+            ray0, n_rows, tiles = wg.chunk_args(args, c)
+            args.graw = g.data_ptr() + 16 * ray0 * S  # the chunk's [rows][4] cotangents
+            check(lib, lib.dexnerf_field_bf16_pass(ctypes.addressof(args), n_rows, tiles, 1,
+                                                   stream),
+                  "fused field bf16 backward launch")
+            wg.dw(c, tiles, stream)
+        grads = wg.reduce(stream)
+        launches += 1
+        launches_bf16 += 1
+        return grads
     check_gemm_args_size(lib)
     s_pad = -(-S // fused_mlp.SLOTS) * fused_mlp.SLOTS
     chunk = max(1, min(N, SCRATCH_SAMPLES // s_pad))
@@ -83,13 +127,27 @@ def _launch_backward(model, pts, viewdirs, g, *, log_sampling_xyz, log_sampling_
     return grads
 
 
-def field_grads_reference(model, pts, viewdirs, g, **kw) -> tuple:
-    """Plain version of the backward: autograd through
-    ``fused_field_reference``, the gradient of ``sum(g * raw)`` with
-    respect to every parameter."""
+def field_grads_reference(model, pts, viewdirs, g, *, log_sampling_xyz=True,
+                          log_sampling_dir=True, compute_dtype=torch.float32,
+                          dw_dtype=None) -> tuple:
+    """Plain version of the backward at any pair of dtypes (``dw_dtype``
+    None: float32): the gradient of ``sum(g * raw)`` with respect to every
+    parameter, by autograd through ``fused_field_reference`` at
+    float32/float32, else through ``flex_forward_train`` on the
+    encodings."""
+    dw_dtype = _check_dtypes(compute_dtype, dw_dtype)
+    params = list(model.parameters())
     with torch.enable_grad():
-        raw = fused_field_reference(model, pts, viewdirs, **kw)
-        return torch.autograd.grad(raw, list(model.parameters()), g)
+        if compute_dtype == dw_dtype == torch.float32:
+            raw = fused_field_reference(model, pts, viewdirs, log_sampling_xyz=log_sampling_xyz,
+                                        log_sampling_dir=log_sampling_dir)
+        else:
+            xyz = positional_encoding(pts, model.num_encoding_fn_xyz, model.include_input_xyz,
+                                      log_sampling_xyz)
+            view = positional_encoding(viewdirs, model.num_encoding_fn_dir,
+                                       model.include_input_dir, log_sampling_dir)
+            raw = flex_forward_train(model, xyz, view, compute_dtype, dw_dtype)
+        return torch.autograd.grad(raw, params, g)
 
 
 class _FieldTrain(torch.autograd.Function):
@@ -118,25 +176,34 @@ def fused_field_train(
     *,
     log_sampling_xyz: bool = True,
     log_sampling_dir: bool = True,
+    compute_dtype: torch.dtype = torch.float32,
+    dw_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """raw [N, S, 4] of ``model`` at ``pts`` [N, S, 3] along ``viewdirs``
-    [N, 3], differentiable with respect to the model's parameters (the
-    inputs are detached: see the module's contract). CUDA tensors launch
-    kernel 2 forward and kernel 3 backward; CPU tensors run the plain
-    versions."""
+    [N, 3] at ``compute_dtype``, differentiable with respect to the model's
+    parameters with the gradients of the ``compute_dtype`` / ``dw_dtype``
+    contract (None: float32; the inputs are detached: see the module's
+    contract). CUDA tensors launch kernel 2 forward and kernel 3 backward
+    of the dtypes (float32/float32 or bfloat16/bfloat16; a mixed pair
+    raises); CPU tensors run the plain versions at any pair."""
+    dw_dtype = _check_dtypes(compute_dtype, dw_dtype)
     kw = dict(log_sampling_xyz=log_sampling_xyz, log_sampling_dir=log_sampling_dir)
+    fkw = dict(kw, compute_dtype=compute_dtype)
+    bkw = dict(fkw, dw_dtype=dw_dtype)
     if pts.device.type == "cuda":
+        check_kernel_pair(compute_dtype, dw_dtype)
+
         def fwd(p, v):
-            return fused_mlp._launch(model, p, v, **kw)
+            return fused_mlp._launch(model, p, v, **fkw)
 
         def bwd(p, v, g):
-            return _launch_backward(model, p, v, g, **kw)
+            return _launch_backward(model, p, v, g, **bkw)
     elif pts.device.type == "cpu":
         def fwd(p, v):
-            return fused_field_reference(model, p, v, **kw)
+            return fused_field_reference(model, p, v, **fkw)
 
         def bwd(p, v, g):
-            return field_grads_reference(model, p, v, g, **kw)
+            return field_grads_reference(model, p, v, g, **bkw)
     else:
         raise ValueError(f"no fused field for device {pts.device}")
     params = tuple(model.parameters())
@@ -145,14 +212,19 @@ def fused_field_train(
 
 
 def make_fused_flexible_field_train(
-    model: FlexibleNeRFModel, *, log_sampling_xyz: bool = True, log_sampling_dir: bool = True
+    model: FlexibleNeRFModel, *, log_sampling_xyz: bool = True, log_sampling_dir: bool = True,
+    compute_dtype: torch.dtype = torch.float32, dw_dtype: Optional[torch.dtype] = None,
 ):
     """``field(pts [N, S, 3], viewdirs [N, 3]) -> raw [N, S, 4]`` through
-    :func:`fused_field_train` on ``model`` (the counterpart of
-    ``make_fused_flexible_field_train``; the f32 form of its contract)."""
+    :func:`fused_field_train` on ``model`` at ``compute_dtype`` /
+    ``dw_dtype`` (the counterpart of ``make_fused_flexible_field_train``,
+    whose defaults, f32, these are too; ``dw_dtype`` None is float32)."""
+    dw_dtype = _check_dtypes(compute_dtype, dw_dtype)
 
     def field(pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
         return fused_field_train(model, pts, viewdirs, log_sampling_xyz=log_sampling_xyz,
-                                 log_sampling_dir=log_sampling_dir)
+                                 log_sampling_dir=log_sampling_dir,
+                                 compute_dtype=compute_dtype, dw_dtype=dw_dtype)
 
+    field.compute_dtype, field.dw_dtype = compute_dtype, dw_dtype
     return field

@@ -265,7 +265,7 @@ def flex_forward_bf16(
 def _check_compute_dtype(compute_dtype) -> None:
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(
-            f"compute_dtype {compute_dtype}: the fused render takes torch.float32 "
+            f"compute_dtype {compute_dtype}: the fused kernels take torch.float32 "
             "or torch.bfloat16"
         )
 

@@ -45,7 +45,10 @@ warp per ray, the cotangent chain on ``mma.sync`` against
 rows' dW accumulated per CTA in a fixed order, and the weight gradients as
 64 x 64 ``mma.sync`` tiles per K-range slot; one fixed-order reduction:
 bitwise-repeatable runs. Widths that are not a multiple of 32 run
-zero-padded to one. Measured times: ``PERF.md``.
+zero-padded to one. The same kernels, with :func:`bf16_args` and
+:class:`Bf16Gradients`, are the bf16 routes of the field kernels (kernel 2
+forward, kernel 3 backward: ``ops/fused_mlp.py``, ``ops/fused_mlp_train.py``).
+Measured times: ``PERF.md``.
 
 ``launches`` counts kernel-4 passes of either route and ``launches_bf16``
 those of the bf16 route (+1 per pass, where the pass launches its group of
@@ -224,9 +227,18 @@ def _check_dtypes(compute_dtype, dw_dtype) -> torch.dtype:
     dw_dtype = torch.float32 if dw_dtype is None else dw_dtype
     for name, dt in (("compute_dtype", compute_dtype), ("dw_dtype", dw_dtype)):
         if dt not in COMPUTE_DTYPES:
-            raise ValueError(f"{name} {dt}: the fused train loss takes torch.float32 or "
+            raise ValueError(f"{name} {dt}: the fused kernels take torch.float32 or "
                              "torch.bfloat16")
     return dw_dtype
+
+
+def check_kernel_pair(compute_dtype, dw_dtype) -> None:
+    """The pairs the training kernels (kernels 3 and 4) take on the card."""
+    if compute_dtype != dw_dtype:
+        raise ValueError(
+            f"compute_dtype {compute_dtype} with dw_dtype {dw_dtype}: the kernels take "
+            "float32/float32 and bfloat16/bfloat16 (the plain version takes every pair)"
+        )
 
 
 def fused_pass_loss_reference(
@@ -398,7 +410,7 @@ class _Bf16TrainArgs(ctypes.Structure):
     _fields_ = [
         (name, ctypes.c_void_p)
         for name in (
-            "origins", "dirs", "viewdirs", "z", "dists", "noise", "target",
+            "origins", "dirs", "viewdirs", "pts", "z", "dists", "noise", "target",
             "depth_gt", "depth_coef", "wq", "aux", "wbq", "weights_out", "rgb_out",
             "loss_ray", "scratch", "raw", "graw", "dir_enc", "dirb", "aux_part",
         )
@@ -582,6 +594,122 @@ def bf16_occupancy(model: FlexibleNeRFModel) -> dict:
     return {"forward": (v[0].value, v[2].value), "chain": (v[1].value, v[3].value)}
 
 
+def bf16_args(lib, model: FlexibleNeRFModel, n_rays: int, n_samples: int, *,
+              log_sampling_xyz: bool, log_sampling_dir: bool):
+    """A ``_Bf16TrainArgs`` with the model's layout (zero-padded to
+    ``bf16_hidden``), its bf16 forward pack and f32 heads, and the per-ray
+    prep buffers of ``n_rays`` rays (``dir_enc``, ``dirb``) filled in, for
+    the bf16 kernels of the fused train loss (kernel 4) and of the fields
+    (kernels 2 and 3); and the tensors it points to (keep them until the
+    launches are done)."""
+    for which, struct in ((0, _Bf16TrainArgs), (1, _Bf16GemmArgs)):
+        if lib.dexnerf_train_bf16_size(which, 0, 0, 0) != ctypes.sizeof(struct):
+            raise RuntimeError(f"{struct.__name__} is {ctypes.sizeof(struct)} bytes here but "
+                               f"{lib.dexnerf_train_bf16_size(which, 0, 0, 0)} in the library")
+    dev = next(model.parameters()).device
+    nt, dd = model.num_layers - 1, model.dim_dir
+    Hp, dxp, _, _ = _scratch_layout(model)
+    wq, aux, aux_off = _cached_bf16_weights(model, dev)
+    dir_enc = torch.empty(n_rays * dd, dtype=torch.float32, device=dev)
+    dirb = torch.empty(n_rays * Hp // 2, dtype=torch.float32, device=dev)
+    args = _Bf16TrainArgs()
+    args.wq, args.aux = wq.data_ptr(), aux.data_ptr()
+    args.dir_enc, args.dirb = dir_enc.data_ptr(), dirb.data_ptr()
+    args.n_samples, args.hidden, args.num_trunk = n_samples, Hp, nt
+    args.skip_mask = sum(1 << i for i in model.skips)
+    args.fx, args.fd = model.num_encoding_fn_xyz, model.num_encoding_fn_dir
+    args.inc_x, args.inc_d = int(model.include_input_xyz), int(model.include_input_dir)
+    args.dx, args.dxp, args.dd = model.dim_xyz, dxp, dd
+    args.aux_off[:len(aux_off)] = aux_off
+    bx = frequency_bands(model.num_encoding_fn_xyz, log_sampling_xyz).tolist()
+    bd = frequency_bands(model.num_encoding_fn_dir, log_sampling_dir).tolist()
+    args.bands_x[:len(bx)] = bx
+    args.bands_d[:len(bd)] = bd
+    return args, (wq, aux, dir_enc, dirb)
+
+
+class Bf16Gradients:
+    """The weight-gradient half of the bf16 training kernels, shared by the
+    fused train loss (kernel 4) and the field backward (kernel 3): the bf16
+    scratch of one pass over ``n_rays`` rays of ``n_samples`` samples, run
+    in chunks of ``chunk`` rays (rows ray-major, padded to whole 128-sample
+    tiles), the chain CTAs' slots, the dW slots and the launches that sum
+    them. The constructor points ``args`` (from :func:`bf16_args`) at the
+    scratch and the backward pack; per chunk ``c``, :meth:`chunk_args`
+    points it at the chunk, the caller launches its pass kernels, then
+    :meth:`dw` the chunk's weight-gradient products; :meth:`reduce` sums
+    every slot in a fixed order."""
+
+    def __init__(self, lib, model: FlexibleNeRFModel, n_rays: int, n_samples: int, chunk: int,
+                 args):
+        dev = next(model.parameters()).device
+        nt, dd = model.num_layers - 1, model.dim_dir
+        Hp, _, act_w, dlt_w = _scratch_layout(model)
+        self.lib, self.model, self.n_rays, self.S, self.chunk = lib, model, n_rays, n_samples, chunk
+        self.n_aux = lib.dexnerf_train_bf16_size(2, Hp, nt, dd)
+        self.bmap, n_aux_py = _cached_aux_map(model, dev)
+        if self.n_aux != n_aux_py:
+            raise RuntimeError(f"chain slot of {n_aux_py} floats here but {self.n_aux} in the "
+                               "library")
+        self.n_chunks = -(-n_rays // chunk)
+        self.rows = rows = -(-chunk * n_samples // 128) * 128
+        f32 = dict(dtype=torch.float32, device=dev)
+        act_off = [rows * w for w in itertools.accumulate([0] + act_w[:-1])]
+        dlt0 = rows * sum(act_w)
+        dlt_off = [dlt0 + rows * w for w in itertools.accumulate([0] + dlt_w[:-1])]
+        self.scratch = torch.empty(rows * (sum(act_w) + sum(dlt_w)), dtype=torch.bfloat16,
+                                   device=dev)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        self.chain_ctas = max(1, min(rows // 128, 2 * sms))
+        self.aux_part = torch.empty(self.n_chunks * self.chain_ctas * self.n_aux, **f32)
+        self.offs, self.n_params = _param_offsets(model)
+        self.items = _dw_items(model, self.scratch, act_off, dlt_off, self.offs)
+        self.n_tiles = _bf16_gemm_args(self.items, self.aux_part, self.n_params, 0, 1, 0)[1]
+        self.n_splits = max(1, min(256, 8 * sms // self.n_tiles))
+        self.partial = torch.empty(self.n_chunks * self.n_splits * self.n_params, **f32)
+        self.grad = torch.empty(self.n_params, **f32)
+        self.wbq = pack_backward_weights_bf16(model, dev)
+        args.scratch, args.wbq = self.scratch.data_ptr(), self.wbq.data_ptr()
+        args.act_off[:len(act_off)] = act_off
+        args.dlt_off[:len(dlt_off)] = dlt_off
+        args.chain_ctas = self.chain_ctas
+
+    def chunk_args(self, args, c: int) -> Tuple[int, int, int]:
+        """Point ``args`` at chunk ``c``; its (first ray, scratch rows,
+        tiles)."""
+        ray0 = c * self.chunk
+        n = min(self.chunk, self.n_rays - ray0)
+        args.ray0, args.n_rays = ray0, n
+        args.aux_part = self.aux_part.data_ptr() + 4 * c * self.chain_ctas * self.n_aux
+        return ray0, n * self.S, -(-n * self.S // 128)
+
+    def dw(self, c: int, tiles: int, stream: int) -> None:
+        """Launch the weight-gradient products of chunk ``c`` (``tiles``
+        tiles of scratch rows)."""
+        from dexnerf_tpu_torch.ops._build import check
+
+        gargs = _bf16_gemm_args(self.items, self.partial, self.n_params, tiles * 128,
+                                self.n_splits, c * self.n_splits)[0]
+        check(self.lib, self.lib.dexnerf_train_bf16_dw(ctypes.addressof(gargs), self.n_tiles,
+                                                       stream),
+              "bf16 weight-gradient launch")
+
+    def reduce(self, stream: int, loss_ray=None, loss=None) -> tuple:
+        """Sum the slots (and ``loss_ray`` [N] into ``loss`` [] when given);
+        the gradients in ``model.parameters()`` order, views of one flat
+        buffer."""
+        from dexnerf_tpu_torch.ops._build import check
+
+        check(self.lib, self.lib.dexnerf_train_bf16_reduce(
+            self.partial.data_ptr(), self.n_chunks * self.n_splits, self.n_params,
+            self.aux_part.data_ptr(), self.n_chunks * self.chain_ctas, self.n_aux,
+            self.bmap.data_ptr(), self.grad.data_ptr(),
+            None if loss_ray is None else loss_ray.data_ptr(), self.n_rays,
+            None if loss is None else loss.data_ptr(), stream), "bf16 reduce launch")
+        return tuple(self.grad[self.offs[name]:self.offs[name] + p.numel()].view_as(p)
+                     for name, p in self.model.named_parameters())
+
+
 def _launch_bf16(
     model, origins, directions, z_vals, viewdirs, dists, noise, target,
     depth_gt, depth_coef, *, white_background, supervision, log_sampling_xyz,
@@ -606,93 +734,37 @@ def _launch_bf16(
         tensors += [("depth_gt", depth_gt, (N,)), ("depth_coef", depth_coef, (N,))]
     _check_inputs(model, dev, tensors, S)
     lib = load_library()
-    H, nt, dd = model.hidden_size, model.num_layers - 1, model.dim_dir
-    Hp, dxp, act_w, dlt_w = _scratch_layout(model)
-    n_aux = lib.dexnerf_train_bf16_size(2, Hp, nt, dd)
-    for which, struct in ((0, _Bf16TrainArgs), (1, _Bf16GemmArgs)):
-        if lib.dexnerf_train_bf16_size(which, 0, 0, 0) != ctypes.sizeof(struct):
-            raise RuntimeError(f"{struct.__name__} is {ctypes.sizeof(struct)} bytes here but "
-                               f"{lib.dexnerf_train_bf16_size(which, 0, 0, 0)} in the library")
-    bmap, n_aux_py = _cached_aux_map(model, dev)
-    if n_aux != n_aux_py:
-        raise RuntimeError(f"chain slot of {n_aux_py} floats here but {n_aux} in the library")
-
     chunk = max(1, min(N, SCRATCH_SAMPLES // S))
-    n_chunks = -(-N // chunk)
-    rows = -(-chunk * S // 128) * 128
+    args, keep = bf16_args(lib, model, chunk, S, log_sampling_xyz=log_sampling_xyz,
+                           log_sampling_dir=log_sampling_dir)
+    wg = Bf16Gradients(lib, model, N, S, chunk, args)
     f32 = dict(dtype=torch.float32, device=dev)
-    act_off = [rows * w for w in itertools.accumulate([0] + act_w[:-1])]
-    dlt0 = rows * sum(act_w)
-    dlt_off = [dlt0 + rows * w for w in itertools.accumulate([0] + dlt_w[:-1])]
-    scratch = torch.empty(rows * (sum(act_w) + sum(dlt_w)), dtype=torch.bfloat16, device=dev)
-    raw = torch.empty(rows * 4, **f32)
-    graw = torch.empty(rows * 4, **f32)
-    dir_enc = torch.empty(chunk * dd, **f32)
-    dirb = torch.empty(chunk * Hp // 2, **f32)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    chain_ctas = max(1, min(rows // 128, 2 * sms))
-    aux_part = torch.empty(n_chunks * chain_ctas * n_aux, **f32)
-    offs, n_params = _param_offsets(model)
-    items = _dw_items(model, scratch, act_off, dlt_off, offs)
-    n_tiles = _bf16_gemm_args(items, aux_part, n_params, 0, 1, 0)[1]
-    n_splits = max(1, min(256, 8 * sms // n_tiles))
-    partial = torch.empty(n_chunks * n_splits * n_params, **f32)
-    grad = torch.empty(n_params, **f32)
+    raw = torch.empty(wg.rows * 4, **f32)
+    graw = torch.empty(wg.rows * 4, **f32)
     weights = torch.empty((N, S), **f32)
     rgb = torch.empty((N, 3), **f32)
     loss_ray = torch.empty((N,), **f32)
     loss = torch.empty((), **f32)
-    wq, aux, aux_off = _cached_bf16_weights(model, dev)
-    wbq = pack_backward_weights_bf16(model, dev)
-
-    args = _Bf16TrainArgs()
     for name, t in (
         ("origins", origins), ("dirs", directions), ("viewdirs", viewdirs),
         ("z", z_vals), ("dists", dists), ("noise", noise), ("target", target),
-        ("depth_gt", depth_gt), ("depth_coef", depth_coef), ("wq", wq), ("aux", aux),
-        ("wbq", wbq), ("weights_out", weights), ("rgb_out", rgb), ("loss_ray", loss_ray),
-        ("scratch", scratch), ("raw", raw), ("graw", graw), ("dir_enc", dir_enc),
-        ("dirb", dirb),
+        ("depth_gt", depth_gt), ("depth_coef", depth_coef), ("weights_out", weights),
+        ("rgb_out", rgb), ("loss_ray", loss_ray), ("raw", raw), ("graw", graw),
     ):
         setattr(args, name, None if t is None else t.data_ptr())
-    args.act_off[:len(act_off)] = act_off
-    args.dlt_off[:len(dlt_off)] = dlt_off
-    args.n_samples, args.hidden, args.num_trunk = S, Hp, nt
-    args.skip_mask = sum(1 << i for i in model.skips)
-    args.fx, args.fd = model.num_encoding_fn_xyz, model.num_encoding_fn_dir
-    args.inc_x, args.inc_d = int(model.include_input_xyz), int(model.include_input_dir)
-    args.dx, args.dxp, args.dd = model.dim_xyz, dxp, dd
     args.white_bg = int(bool(white_background))
     args.luma = int(supervision == "luminance")
     args.has_noise, args.has_depth = int(noise is not None), int(depth_gt is not None)
-    args.chain_ctas = chain_ctas
-    args.aux_off[:len(aux_off)] = aux_off
-    bx = frequency_bands(model.num_encoding_fn_xyz, log_sampling_xyz).tolist()
-    bd = frequency_bands(model.num_encoding_fn_dir, log_sampling_dir).tolist()
-    args.bands_x[:len(bx)] = bx
-    args.bands_d[:len(bd)] = bd
 
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for c in range(n_chunks):
-        ray0 = c * chunk
-        n = min(chunk, N - ray0)
-        n_rows, tiles = n * S, -(-n * S // 128)
-        args.ray0, args.n_rays = ray0, n
-        args.aux_part = aux_part.data_ptr() + 4 * c * chain_ctas * n_aux
+    for c in range(wg.n_chunks):
+        _, n_rows, tiles = wg.chunk_args(args, c)
         check(lib, lib.dexnerf_train_bf16_pass(ctypes.addressof(args), n_rows, tiles, stream),
               "fused_train_loss bf16 pass launch")
-        gargs = _bf16_gemm_args(items, partial, n_params, tiles * 128, n_splits,
-                                c * n_splits)[0]
-        check(lib, lib.dexnerf_train_bf16_dw(ctypes.addressof(gargs), n_tiles, stream),
-              "fused_train_loss bf16 weight-gradient launch")
-    check(lib, lib.dexnerf_train_bf16_reduce(
-        partial.data_ptr(), n_chunks * n_splits, n_params, aux_part.data_ptr(),
-        n_chunks * chain_ctas, n_aux, bmap.data_ptr(), grad.data_ptr(), loss_ray.data_ptr(), N,
-        loss.data_ptr(), stream), "fused_train_loss bf16 reduce launch")
+        wg.dw(c, tiles, stream)
+    grads = wg.reduce(stream, loss_ray, loss)
     launches += 1
     launches_bf16 += 1
-    grads = tuple(grad[offs[name]:offs[name] + p.numel()].view_as(p)
-                  for name, p in model.named_parameters())
     return loss, weights, rgb, grads
 
 
@@ -762,11 +834,7 @@ def fused_pass_loss(
         log_sampling_dir=log_sampling_dir,
     )
     if z_vals.device.type == "cuda":
-        if compute_dtype != dw_dtype:
-            raise ValueError(
-                f"compute_dtype {compute_dtype} with dw_dtype {dw_dtype}: the kernels take "
-                "float32/float32 and bfloat16/bfloat16 (the plain version takes every pair)"
-            )
+        check_kernel_pair(compute_dtype, dw_dtype)
         launch = _launch_bf16 if compute_dtype == torch.bfloat16 else _launch
 
         def run(*a):

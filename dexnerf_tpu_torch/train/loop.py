@@ -4,8 +4,8 @@ Counterpart of ``dexnerf_tpu/train/loop.py`` for single-device training on
 a device-resident ray store: ``load_scene`` (blender), ``maybe_fused_loss``
 (kernel 4 at ``train_compute_dtype``, and kernel 5 between its passes,
 when ``nerf.use_pallas``),
-``maybe_fused_fields`` (kernels 2 and 3 when ``nerf.pallas_fused_loss`` is
-false), ``validate`` (through the fused render kernel), ``run_training``,
+``maybe_fused_fields`` (kernels 2 and 3 at ``train_compute_dtype`` when
+``nerf.pallas_fused_loss`` is false), ``validate`` (through the fused render kernel), ``run_training``,
 and what serving needs:
 ``align_cfg_models_to_checkpoint``, ``load_eval_params`` (reference
 ``.ckpt`` only), ``setup_models`` and ``fused_render_impl`` (the
@@ -158,12 +158,13 @@ def render_compute_dtype(cfg: CfgNode, device) -> torch.dtype:
 
 
 def train_compute_dtype(cfg: CfgNode) -> torch.dtype:
-    """The fused train loss's ``compute_dtype`` and ``dw_dtype`` (kernel
-    4), resolved as the JAX package's ``maybe_fused_loss`` does, on every
-    device: ``nerf.pallas_compute_dtype``, default "bfloat16" (on the CPU
-    JAX runs its kernel at that dtype in interpret mode; the port runs the
-    plain version at it). A value other than "bfloat16" or "float32"
-    raises."""
+    """The ``compute_dtype`` and ``dw_dtype`` of the training kernels (the
+    fused train loss, kernel 4; the fields, kernels 2 and 3), resolved as
+    the JAX package's ``maybe_fused_loss`` and ``maybe_fused_fields`` do,
+    on every device: ``nerf.pallas_compute_dtype``, default "bfloat16" (on
+    the CPU JAX runs its kernels at that dtype in interpret mode; the port
+    runs the plain versions at it). A value other than "bfloat16" or
+    "float32" raises."""
     name = str(_get(cfg.nerf, "pallas_compute_dtype", "bfloat16"))
     if name not in _COMPUTE_DTYPES:
         raise ValueError(
@@ -253,17 +254,23 @@ def maybe_fused_fields(cfg: CfgNode, coarse, fine, *, train: bool = False):
     model call). ``train=True`` gives the autograd fields of
     ``ops.fused_mlp_train`` (kernel 2 forward, kernel 3 backward on a
     card), else the forward-only fields of ``ops.fused_mlp`` (kernel 2).
-    Kernels 2 and 3 compute in f32, where the JAX package's default
-    ``nerf.pallas_compute_dtype`` is bf16 (ROADMAP Queue 3); the fused
-    render (kernel 1, :func:`fused_render_impl`) and the fused train loss
-    (kernel 4, :func:`maybe_fused_loss`) honour the key.
+    Their ``compute_dtype`` (and kernel 3's ``dw_dtype``) is
+    :func:`train_compute_dtype` on every device, as the JAX package's
+    ``maybe_fused_fields`` resolves it: on a card the bf16 tensor-core
+    kernels by default, the f32 ones with ``nerf.pallas_compute_dtype:
+    float32``; on the CPU the plain versions at that dtype.
     The JAX package's block sizes are TPU knobs: the port's kernels pick
     their own blocks."""
     if not bool(_get(cfg.nerf, "use_pallas", False)):
         return None, None
-    make = make_fused_flexible_field_train if train else make_fused_flexible_field
+    dtype = train_compute_dtype(cfg)
     s = render_settings_from_cfg(cfg, "train")
-    kw = dict(log_sampling_xyz=s.log_sampling_xyz, log_sampling_dir=s.log_sampling_dir)
+    kw = dict(log_sampling_xyz=s.log_sampling_xyz, log_sampling_dir=s.log_sampling_dir,
+              compute_dtype=dtype)
+    if train:
+        make, kw["dw_dtype"] = make_fused_flexible_field_train, dtype
+    else:
+        make = make_fused_flexible_field
     return tuple(None if m is None else make(m, **kw) for m in (coarse, fine))
 
 
