@@ -46,8 +46,11 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    weight-gradient GEMMs as ``torch.matmul`` calls (library yardstick), and
    whole train steps through kernel 4 at bf16 and at f32, through the
    plain autograd path and through kernel 4 with the fused resample at
-   bf16, with each step's peak memory; profile three steps at bf16 and
-   three at f32 (kernel 4, glue, Adam, idle);
+   bf16, with each step's peak memory; print the weight-gradient plan;
+   profile three steps at bf16 and three at f32 (kernel 4, glue, Adam,
+   idle), with the bf16 forward, chain and dW kernels' device time each
+   beside its own bound (the ``parts`` of the kernels line; the bytes and
+   operations behind each bound on a line of their own);
 9. train the field path (``nerf.pallas_fused_loss: false``) through
    ``apps.train`` for 20 steps at the config's default dtype, bf16: the
    field forward (kernel 2) and backward (kernel 3) launched once per pass
@@ -70,7 +73,8 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
 13. time both routes of kernels 2 and 3, kernels 5 and 6 and their plain
    versions, the bf16 dW share of kernel 3 as ``torch.matmul`` calls, and
    whole field-path steps at bf16 and at f32; profile three field-path
-   steps at each dtype (kernel 2, kernel 3, glue, Adam, idle).
+   steps at each dtype (kernel 2, kernel 3, glue, Adam, idle), with kernel
+   3's bf16 kernels beside their bounds as in phase 8.
 
 Each kernel's line holds its bound: the larger of its FLOPs (multiply-adds
 counted from the model's shapes; compares and arithmetic counted from the
@@ -595,8 +599,15 @@ def train_phase(torch, np, card, dev, tmp):
           + json.dumps({k: round(v, 2) for k, v in peaks.items()}))
     print("  bf16 route residency (CUDA occupancy API; CTAs per SM, shared bytes per CTA): "
           + json.dumps(ftl.bf16_occupancy(fine)))
+    print_dw_plan(fine, *per_pass["fine"][3].shape, torch, dev)
     print("  bf16 steps:")
-    profile_steps(torch, steps["kernel_bf16"], {"kernel 4 bf16": KERNEL4_BF16_NAMES})
+    prof = profile_steps(torch, steps["kernel_bf16"], {"kernel 4 bf16": KERNEL4_BF16_NAMES})
+    parts, sizes = bf16_parts(prof, 4, [(a[0], a[3].numel()) for a in per_pass.values()],
+                              ms["dw_torch_matmul_bf16"])
+    print("  bf16 route's kernels, device ms per step (profile) beside their bounds: "
+          + json.dumps(parts))
+    print("  bytes and operations behind those bounds (scratch layout, this run's shapes): "
+          + json.dumps(sizes))
     print("  f32 steps (pallas_compute_dtype: float32):")
     profile_steps(torch, steps["kernel"], {"kernel 4": KERNEL4_NAMES})
     entry = dict(route="cuda", replaces="dexnerf_tpu/ops/fused_train_loss.py:99")
@@ -622,6 +633,7 @@ def train_phase(torch, np, card, dev, tmp):
         "bound_ms": bound_b,
         "bound_by": bound_b_by,
         "library_ms": ms["dw_torch_matmul_bf16"],
+        "parts": parts,
     }]
     shared = types.SimpleNamespace(data=data, s_train=s_train, o=o, d=d, v=v, target=target,
                                    z_c=z_c, draws=draws, step_ms=step_ms)
@@ -714,6 +726,73 @@ def train_flops(model, n, s):
     and the weight gradients (multiply-adds counted from the shapes)."""
     ps, pr = mlp_macs(model)
     return 2 * (2 * (n * s * ps + n * pr) + n * s * backward_macs(model))
+
+
+def bf16_part_bounds(model, n_samples):
+    """(bytes, multiply-adds) of the bf16 route's forward, chain and dW
+    kernels over ``n_samples`` samples, from the scratch layout: the
+    forward writes every activation block and raw; the chain reads raw's
+    cotangent and the ReLU masks (the saved y, feat, a_nt .. a_1) and writes
+    every cotangent block; dW reads every block once and writes its
+    products."""
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+
+    Hp, _, act_w, dlt_w = ftl._scratch_layout(model)
+    nt = model.num_layers - 1
+    ps, _ = mlp_macs(model)
+    dw_macs = sum(n * m for u in ftl.dw_plan(model) for *_, n, m in u.blocks)
+    return {
+        "train_fwd_bf16_kernel": (n_samples * (2 * sum(act_w) + 16), n_samples * ps),
+        "train_chain_bf16_kernel": (n_samples * (16 + 2 * (Hp // 2 + Hp + nt * Hp)
+                                                 + 2 * sum(dlt_w)),
+                                    n_samples * backward_macs(model)),
+        "train_dw_bf16_kernel": (n_samples * 2 * (sum(act_w) + sum(dlt_w)) + 4 * dw_macs,
+                                 n_samples * dw_macs),
+    }
+
+
+def bf16_parts(prof, owner, passes, library_ms):
+    """The bf16 route's forward (of ``owner``, the launcher's tag), chain
+    and dW kernels: device ms per step from the profile ``prof`` (name ->
+    ms), each beside its bound over ``passes`` ((model, samples) of the
+    step's passes); the dW kernel also beside ``library_ms``. Also the
+    bytes and operations behind each bound, for a text line."""
+    parts, sizes = [], {}
+    for name in ("train_fwd_bf16_kernel", "train_chain_bf16_kernel", "train_dw_bf16_kernel"):
+        nbytes_ = macs = 0
+        for model, n in passes:
+            b, m = bf16_part_bounds(model, n)[name]
+            nbytes_, macs = nbytes_ + b, macs + m
+        frag = f"{name}<{owner}," if name == "train_fwd_bf16_kernel" else name
+        dev_ms = sum(v for k, v in prof.items() if frag in k.replace(" ", ""))
+        b_ms, b_by = bound(2 * macs, nbytes_, BF16_FLOPS)
+        parts.append({"name": name, "ms": dev_ms if prof else None, "bound_ms": b_ms,
+                      "bound_by": b_by,
+                      "library_ms": library_ms if name == "train_dw_bf16_kernel" else None})
+        sizes[name] = f"{nbytes_ / 1e9:.4f} GB, {2 * macs / 1e12:.4f} TFLOP"
+    return parts, sizes
+
+
+def print_dw_plan(model, n, s, torch, dev):
+    """The dW plan of one pass of ``n`` rays x ``s`` samples: its units,
+    the chunks' stages and the CTAs' shares."""
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+
+    plan = ftl.dw_plan(model)
+    grid = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk = max(1, min(n, ftl.SCRATCH_SAMPLES // s))
+    n_chunks = -(-n // chunk)
+    n_st = [2 * -(-min(chunk, n - c * chunk) * s // 128) for c in range(n_chunks)]
+    spans = ftl.dw_spans([u.cost for u in plan], n_st[0], grid)
+    stages = [sum(j1 - j0 for _, _, j0, j1 in parts) for parts in spans]
+    args, smem = ftl._cached_dw_template(model, grid)
+    print(f"  dW plan, {n} rays x {s} samples: {len(plan)} units [boxes A+B, output blocks, "
+          f"bytes/sample]: " + json.dumps([[f"{len(u.a)}+{len(u.b)}", len(u.blocks), 16 * u.cost]
+                                           for u in plan])
+          + f"; {n_chunks} chunks of {n_st} stages of 64 samples; {grid} CTAs, each "
+          f"{min(stages)}-{max(stages)} stages and {min(map(len, spans))}-"
+          f"{max(map(len, spans))} unit parts; <= {args.max_pieces} slots a unit; ring "
+          f"{args.n_stages} x {args.stage_bytes} B ({smem} B shared)")
 
 
 def field_phase(torch, np, card, dev, tmp, sh):
@@ -883,8 +962,15 @@ def field_phase(torch, np, card, dev, tmp, sh):
           + json.dumps({k: round(batch / (t / 1e3)) for k, t in st_ms.items()})
           + "; peak memory of a step (GiB): " + json.dumps(peaks))
     print("  bf16 field-path steps:")
-    profile_steps(torch, steps["fields_bf16"], {
+    prof = profile_steps(torch, steps["fields_bf16"], {
         "kernel 2 bf16": FIELD_FWD_BF16_NAMES, "kernel 3 bf16": FIELD_BWD_BF16_NAMES})
+    parts, sizes = bf16_parts(prof, 3, [(m, p.shape[0] * p.shape[1])
+                                        for m, p, _ in cases.values()],
+                              ms["dw_torch_matmul_bf16"])
+    print("  kernel 3's bf16 kernels, device ms per step (profile) beside their bounds: "
+          + json.dumps(parts))
+    print("  bytes and operations behind those bounds (scratch layout, this run's shapes): "
+          + json.dumps(sizes))
     print("  f32 field-path steps (pallas_compute_dtype: float32):")
     # kernel 3 runs kernel 4's dW and reduce launches
     profile_steps(torch, steps["fields"], {
@@ -912,7 +998,7 @@ def field_phase(torch, np, card, dev, tmp, sh):
          "launches": counts["fused_mlp_train_bf16"], "max_abs_err": err_bwd_b,
          "ms": ms["bwd_kernel_bf16"], "plain_ms": ms["bwd_plain_bf16"],
          "bound_ms": bwd_bound_b, "bound_by": bwd_by_b,
-         "library_ms": ms["dw_torch_matmul_bf16"]},
+         "library_ms": ms["dw_torch_matmul_bf16"], "parts": parts},
     ]
 
 
@@ -1050,7 +1136,7 @@ def profile_steps(torch, step, kernels_of, n=3, unit="step"):
     ``kernels_of`` (label -> kernel name fragments), Adam (the foreach
     multi-tensor kernels), the rest (glue), and idle (the span from the
     first kernel's start to the last one's end, minus the union of kernel
-    intervals)."""
+    intervals). Returns the device ms per unit of each kernel, by name."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -1066,10 +1152,11 @@ def profile_steps(torch, step, kernels_of, n=3, unit="step"):
     ]
     if not kernels:
         print("  profile: torch.profiler recorded no device events (not measured)")
-        return
+        return {}
     parts = {**{k: 0.0 for k in kernels_of}, "Adam": 0.0, "glue": 0.0}
-    names = {}
+    names, full = {}, {}
     for name, t0, t1 in kernels:
+        full[name] = full.get(name, 0.0) + (t1 - t0) / n / 1e3
         part = next((k for k, frags in kernels_of.items() if any(f in name for f in frags)),
                     None)
         if part is None:
@@ -1097,6 +1184,7 @@ def profile_steps(torch, step, kernels_of, n=3, unit="step"):
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:6]
     print(f"  top host ops (self CPU time, profiler on), ms per {unit}: "
           + json.dumps({e.key[:50]: round(e.self_cpu_time_total / n / 1e3, 3) for e in host}))
+    return full
 
 
 def serve_requests(config, ckpt, requests, torch):

@@ -158,20 +158,32 @@ def load_library() -> ctypes.CDLL:
         lib.dexnerf_train_reduce.restype = ci
         lib.dexnerf_train_bf16_size.argtypes = [ci] * 4  # which, hidden, num_trunk, dd
         lib.dexnerf_train_bf16_size.restype = ci
-        lib.dexnerf_train_bf16_pass.argtypes = [vp, ci, ci, vp]  # args, rows, tiles, stream
+        # args, chain maps (host), rows, tiles, stream
+        lib.dexnerf_train_bf16_pass.argtypes = [vp, vp, ci, ci, vp]
         lib.dexnerf_train_bf16_pass.restype = ci
-        lib.dexnerf_train_bf16_dw.argtypes = [vp, ci, vp]  # args block, tiles, stream
+        # dW plan (host), stages, chunk, stream
+        lib.dexnerf_train_bf16_dw.argtypes = [vp, ci, ci, vp]
         lib.dexnerf_train_bf16_dw.restype = ci
+        # out (host, 128 bytes), block (device), width, rows, rows of a box
+        lib.dexnerf_train_bf16_tensor_map.argtypes = [vp, vp, ctypes.c_longlong,
+                                                      ctypes.c_longlong, ci]
+        lib.dexnerf_train_bf16_tensor_map.restype = ci
+        # stages, unit start, unit cost, total cost, CTAs, CTA, out (host, 4 ints)
+        lib.dexnerf_train_bf16_dw_span.argtypes = [ci] * 6 + [vp]
+        lib.dexnerf_train_bf16_dw_span.restype = ci
+        lib.dexnerf_train_bf16_dw_occupancy.argtypes = [ci, vp]  # shared bytes, CTAs per SM
+        lib.dexnerf_train_bf16_dw_occupancy.restype = ci
         lib.dexnerf_train_bf16_reduce.argtypes = (
-            [vp, ci, ctypes.c_longlong]  # dW slots, slots, params
-            + [vp, ci, ci, vp, vp]       # chain slots, slots, slot length, map, grad
-            + [vp, ci, vp, vp]           # per-ray losses, rays, loss (or null), stream
+            [vp, ci, ci, ci]         # dW plan (host), chunks, stages of a chunk, of the last
+            + [vp, ci, ci, vp, vp]   # chain slots, slots, slot length, map, grad
+            + [vp, ci, vp, vp]       # per-ray losses, rays, loss (or null), stream
         )
         lib.dexnerf_train_bf16_reduce.restype = ci
-        # args, rows, tiles, backward (0: kernel 2, 1: kernel 3), stream
-        lib.dexnerf_field_bf16_pass.argtypes = [vp, ci, ci, ci, vp]
+        # args, chain maps (host; null for kernel 2), rows, tiles, backward (0: kernel 2,
+        # 1: kernel 3), stream
+        lib.dexnerf_field_bf16_pass.argtypes = [vp, vp, ci, ci, ci, vp]
         lib.dexnerf_field_bf16_pass.restype = ci
-        lib.dexnerf_train_bf16_occupancy.argtypes = [ci, ci, vp, vp, vp, vp]
+        lib.dexnerf_train_bf16_occupancy.argtypes = [ci] * 4 + [vp] * 4
         lib.dexnerf_train_bf16_occupancy.restype = ci
         lib.dexnerf_field_args_size.argtypes = []
         lib.dexnerf_field_args_size.restype = ci

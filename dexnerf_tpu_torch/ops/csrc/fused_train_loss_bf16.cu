@@ -24,11 +24,11 @@
 //   cotangents.
 // Compositing, the loss and the compositing backward are f32.
 //
-// What bounds it on the H100: the bf16 multiply-adds of the forward, the
-// chain and the weight gradients (1.42 TFLOP per train step of the 8x128
-// model at batch 8192 with 64 + 128 samples per ray, 1.435 ms at the 989
-// TFLOP/s dense bf16 peak, 700 W), then the bf16 scratch: ~5 KB per sample
-// written and read back once (~15 GB a step, >= 4.7 ms at 3.35 TB/s).
+// What bounds it on the H100: the bf16 scratch, ~5 KB per sample written
+// and read back (~19 GB a step of the 8x128 model at batch 8192 with 64 +
+// 128 samples per ray: >= 5.8 ms at 3.35 TB/s; forward 1.2, chain 2.2, dW
+// 2.4), ahead of its 1.42 TFLOP of bf16 multiply-adds (1.435 ms at the 989
+// TFLOP/s dense peak, 700 W).
 //
 // Design, one group of launches per chunk of rays (the scratch is capped by
 // ops/fused_train_loss.py's SCRATCH_SAMPLES), rows of the scratch = the
@@ -47,19 +47,27 @@
 //   warp product scan, the loss, and the compositing backward (the suffix
 //   sum as a warp scan from the last sample), giving the f32 cotangent of
 //   each sample's raw output.
-// * train_chain_bf16_kernel: persistent CTAs (fixed tiles each), the
-//   cotangent chain tile by tile on mma.sync against a bf16 pack of the
-//   transposed weights (ops/fused_train_loss.py::pack_backward_weights_bf16)
-//   streamed through the same ring; the rgb head's chain (3 wide) and the
-//   sigma head's term (gs x w_alpha) are f32. Each layer's cotangent is
-//   rounded to bf16 and copied to the scratch; the bias sums (f32
-//   cotangents) and the viewdir rows' dW (bf16 encoding x the ray's sum of
-//   bf16 cotangents) accumulate per CTA in a fixed order into its own
-//   slot.
+// * train_chain_bf16_kernel: persistent CTAs, one per SM, the cotangent
+//   chain of 64-sample tiles on wgmma against a bf16 pack of the transposed
+//   weights (ops/fused_train_loss.py::pack_backward_weights_bf16, [H][64]
+//   K-chunks) that a producer warp streams with TMA, as it streams each
+//   tile's ReLU masks (the saved activations); the rgb head's chain (3
+//   wide) and the sigma head's term (gs x w_alpha) are f32. Each layer's
+//   cotangent is rounded to bf16 into a swizzled shared tile, the next
+//   product's operand, and stored to the scratch by TMA while that product
+//   runs; the bias sums (f32 cotangents) and the viewdir rows' dW (bf16
+//   encoding x the ray's sum of bf16 cotangents) accumulate per consumer
+//   warpgroup in a fixed order into its own slot.
 // * train_dw_bf16_kernel: dW = cotangents^T x activations over the chunk's
-//   samples, one 64 x 64 tile and one K-range per CTA (ldmatrix.trans from
-//   the sample-major scratch, mma.sync), each K-range into its own slot of
-//   partial sums: no atomics.
+//   samples. Bound by the bytes of the scratch blocks it reads (~5 KB per
+//   sample for 8x128, >= 2.4 ms a step at 3.35 TB/s; its 0.49 TFLOP of
+//   multiply-adds take 0.5 ms), so it reads each block once per unit: the
+//   products that share an operand form one unit of the plan
+//   (ops/fused_train_loss.py::dw_plan), whose boxes one TMA producer warp
+//   streams into a shared-memory ring (128 B swizzle, mbarriers) and two
+//   consumer warpgroups multiply with wgmma, both operands transposed from
+//   shared memory. Persistent CTAs, one per SM, take equal shares of the
+//   plan's bytes, each part of a unit into its own slot: no atomics.
 // * reduce_bf16_kernel sums the slots (weights) and the chain CTAs' slots
 //   (biases, viewdir rows) in a fixed order: runs are bitwise repeatable.
 // Hidden widths that are not a multiple of 32 run zero-padded to one
@@ -77,13 +85,20 @@
 //   of raw (graw); no sigma-noise and no compositing. Its weight gradients
 //   are the dW and reduce launches above.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
+// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
+typedef CUresult (*PFN_encodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                    CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 constexpr int kThreads = 256;  // 8 warps: forward and chain
 constexpr int kTile = 128;     // samples per MLP tile
@@ -96,14 +111,19 @@ constexpr int kMaxSamples = 256;
 constexpr int kMaxDD = 3 + 6 * kMaxFreq;
 constexpr int kAux = kMaxLayers + 8;
 constexpr int kMaxBlocks = kMaxLayers + 8;
-constexpr int kMaxItems = 40;
 constexpr int kRayWarps = 4;   // composite: rays per CTA, one warp each
 constexpr int kPrepWarps = 8;  // prep: rays per CTA
-constexpr int kGT = 64;        // dW tile edge
-constexpr int kGK = 32;        // dW k-step
-constexpr int kGP = kGT + 8;   // padded row of a dW operand stage
-constexpr int kGemmThreads = 128;
 constexpr int kSumThreads = 1024;
+// dW: a TMA box and a wgmma block are 64 x 64 (64 samples of K, 64 features
+// of 128 B: one 128 B swizzle row each)
+constexpr int kDwBox = 64;
+constexpr int kDwBoxBytes = kDwBox * kDwBox * 2;
+constexpr int kDwMaxMaps = 2 * kMaxLayers - 8;  // scratch blocks: 2 num_trunk + 9 <= 71
+constexpr int kDwMaxUnits = 36;                 // num_trunk + 4
+constexpr int kDwMaxBoxes = 6;                  // of a unit: one ring stage
+constexpr int kDwMaxBlocks = 8;                 // output blocks of a unit
+constexpr int kDwThreads = 384;  // warpgroup 0 the TMA producer, 1-2 wgmma consumers
+constexpr int kDwSmemMax = 232448;
 // Who launches a prep or forward kernel, a template argument so that a
 // profile tells them apart: the fused train loss (kernel 4), the field
 // forward (kernel 2) and the field backward's recomputed forward (kernel 3).
@@ -145,21 +165,77 @@ struct TrainArgs {
   float bands_d[kMaxFreq];
 };
 
-// One dW product: out[w_off + n * ldw + col_off + m] = sum_k d[k][n] a[k][m]
-// for n < N, m < M. Mirrored by ops/fused_train_loss.py::_Bf16GemmItem.
-struct GemmItem {
-  const bf16* d;  // [K][ldd] cotangents (the layer's output side)
-  const bf16* a;  // [K][lda] activations (its input)
-  int ldd, lda;
-  int n, m, m_tiles, tile0;
-  int w_off, ldw, col_off, pad;
+// The weight-gradient plan (ops/fused_train_loss.py::dw_plan), mirrored by
+// _DwBlock, _DwUnit and _DwArgs there. A unit is a set of products read
+// together: its boxes are [64 samples][64 features] tiles of scratch
+// blocks (one TMA tensor map per block; an 8-wide block, a head's
+// cotangents, is loaded as [64][8]), the cotangent (A) boxes first, then
+// the activation (B) boxes, each in an 8 KB slot of the stage; each output
+// block is one 64 x 64 wgmma accumulator, dW[n0 + r][m0 + c] = sum_k
+// A[k][r] B[k][c], written to partial[slot][base + r * ldw + c] for
+// r < n_lim, c < m_lim.
+struct DwBlock {
+  int a, b;   // A box, B box (indices into the unit's boxes)
+  int small;  // the A box is an 8-wide one
+  int base, ldw, n_lim, m_lim, pad;
 };
 
-struct GemmArgs {
-  GemmItem items[kMaxItems];
-  float* partial;  // [parts][n_params]
-  long long n_params, k;
-  int n_items, n_splits, part0, pad;
+struct DwUnit {
+  int n_a, n_b, n_blocks;
+  int cost;  // HBM bytes / 16 read per sample
+  int tx;    // bytes of one stage
+  int pad[3];
+  int map[kDwMaxBoxes], col[kDwMaxBoxes];
+  DwBlock blk[kDwMaxBlocks];
+};
+
+struct DwArgs {
+  CUtensorMap maps[kDwMaxMaps];  // one per scratch block, [rows][width] bf16
+  DwUnit units[kDwMaxUnits];
+  float* partial;  // [chunks][max_pieces][n_params]
+  long long n_params;
+  int n_units, total_cost, grid, max_pieces, n_stages, stage_bytes;
+  int pad[6];
+};
+static_assert(sizeof(DwArgs) % 64 == 0, "DwArgs is mirrored without tail padding");
+
+// Work of one dW launch: the units laid end to end, unit u covering the
+// positions [n_st pre_u, n_st (pre_u + cost_u)) of T = n_st total_cost
+// (stage j of u at n_st pre_u + j cost_u, one stage = 64 samples); CTA b
+// owns [b T / G, (b + 1) T / G), so every CTA reads the same bytes. The CTA
+// owning position p:
+__host__ __device__ inline int dw_owner(long long p, long long T, int G) {
+  return (int)(((p + 1) * G - 1) / T);
+}
+
+// CTA b's part of unit u: its slot (piece) among the CTAs owning a part of
+// u, in order, and its stages [j0, j1) (possibly none: the slot is written
+// all the same). False if b owns no part of u.
+__host__ __device__ inline bool dw_span(int n_st, int pre, int cost, int total, int G, int b,
+                                        int* piece, int* j0, int* j1) {
+  const long long T = (long long)n_st * total, S = (long long)n_st * pre;
+  const long long E = S + (long long)n_st * cost;
+  const int first = dw_owner(S, T, G);
+  if (b < first || b > dw_owner(E - 1, T, G)) return false;
+  const long long lo = (long long)b * T / G, hi = (long long)(b + 1) * T / G;
+  const long long a0 = lo > S ? (lo - S + cost - 1) / cost : 0;
+  const long long a1 = hi > S ? (hi - S + cost - 1) / cost : 0;
+  *piece = b - first;
+  *j0 = (int)(a0 < n_st ? a0 : n_st);
+  *j1 = (int)(a1 < n_st ? a1 : n_st);
+  return true;
+}
+
+// The slots unit u has in a launch over n_st stages.
+__host__ __device__ inline int dw_pieces(int n_st, int pre, int cost, int total, int G) {
+  const long long T = (long long)n_st * total, S = (long long)n_st * pre;
+  return dw_owner(S + (long long)n_st * cost - 1, T, G) - dw_owner(S, T, G) + 1;
+}
+
+// The dW plan's unit table for the reduction (passed by value).
+struct DwSpans {
+  int n_units, total_cost, grid, max_pieces;
+  int pre[kDwMaxUnits], cost[kDwMaxUnits];
 };
 
 // Per chain CTA, floats: the bias sums of layer1 and each trunk layer (H
@@ -197,11 +273,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
 }
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
 __device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
@@ -221,15 +292,15 @@ __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// The weight stream of one tile: chunk j of nch, each [rows][32] bf16
-// contiguous; chunks before jd have H rows, the rest H/2 (the forward's
-// viewdir layer; the backward stream has jd = nch).
+// The forward's weight stream of one tile: chunk j of nch, each [rows][32]
+// bf16 contiguous; chunks before jd have H rows, the rest H/2 (the viewdir
+// layer).
 struct Stream {
   const bf16* w;
-  int H, nch, jd, total;  // chunks per tile, chunks of the CTA
+  int H, nch, jd;
   __device__ void load(int c, bf16* ring) const {
-    if (c < total) {
-      const int j = c % nch;
+    if (c < nch) {
+      const int j = c;
       const size_t off = j < jd ? (size_t)j * H * kKc
                                 : (size_t)jd * H * kKc + (size_t)(j - jd) * (H / 2) * kKc;
       const int rows = j < jd ? H : H / 2;
@@ -440,7 +511,6 @@ __global__ void __launch_bounds__(kThreads, 2) train_fwd_bf16_kernel(const Train
   st.H = H;
   st.nch = kx * (1 + nskip) + (nt + 2) * kh;
   st.jd = st.nch - kh;
-  st.total = st.nch;
 #pragma unroll
   for (int c = 0; c < kStages - 1; ++c) st.load(c, ring);
 
@@ -726,322 +796,234 @@ __global__ void __launch_bounds__(kRayWarps * 32) train_composite_kernel(const T
   }
 }
 
-struct ChainSmem {
-  size_t cot, ring, dzf, gsh, colsum, total;
-};
-
-__host__ __device__ inline ChainSmem chain_smem(int H) {
-  ChainSmem s;
-  s.cot = 0;
-  s.ring = s.cot + (size_t)kTile * (H + 8) * 2;
-  s.dzf = s.ring + (size_t)kStages * H * kKP * 2;
-  s.gsh = s.dzf + (size_t)kTile * (H / 2) * 4;
-  s.colsum = s.gsh + (size_t)kTile * 4 * 4;
-  s.total = s.colsum + (size_t)4 * H * 4;
-  return s;
+// ---- Hopper primitives of the dW kernel: mbarriers, TMA, wgmma
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// box (c0 = feature column, c1 = sample row) of the tensor map into dst,
+// completing on the mbarrier bar
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+// wgmma descriptor of a 128 B-swizzled, MN-major (transposed) operand
+// starting at addr (1024-aligned atoms of 8 K rows x 128 B): the stride
+// between 8-row K groups (SBO) is 1024 B; one 64-wide MN atom per
+// instruction, so the MN-atom stride (LBO) is never used and is set alike.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+// The same for an 8-wide, unswizzled MN-major A box ([64 K rows][16 B]):
+// core matrices of 8 K rows x 16 B, the next 8 K rows 128 B on. The 8
+// columns fill the first of the 8 M groups of the instruction; the others
+// alias later K rows (both strides 128 B, whichever field the hardware
+// reads for which), and their output rows (>= 8) are never written.
+__device__ __forceinline__ uint64_t small_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// d[64 x N] += A B for one k16 step, bf16 in, f32 accumulate, A ([64][K])
+// and B ([N][K]) in shared memory, each K-major (TA, TB = 0) or MN-major
+// (1: the transpose bit; the dW kernel's sample-major scratch boxes).
+// Operands: the N / 2 accumulators, then da, db, the scale-d flag, TA, TB.
+#define WG_ACC8(i)                                                                            \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_ACC16(i) WG_ACC8(i), WG_ACC8(i + 8)
+#define WG_R0 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define WG_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+#define WG_R48 ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_MMA(N, REGS, DA, DB, SC, TA_, TB_, ...)                                         \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #SC ", 0;\n"                          \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS "}, %" #DA \
+               ", %" #DB ", p, 1, 1, %" #TA_ ", %" #TB_ ";\n}\n"                           \
+               : __VA_ARGS__                                                             \
+               : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB))
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da, uint64_t db) {
+  static_assert(N == 32 || N == 64 || N == 96 || N == 128, "the kernels' wgmma widths");
+  if constexpr (N == 32) {
+    WG_MMA(32, WG_R0, 16, 17, 18, 19, 20, WG_ACC16(0));
+  } else if constexpr (N == 64) {
+    WG_MMA(64, WG_R0 WG_R16, 32, 33, 34, 35, 36, WG_ACC16(0), WG_ACC16(16));
+  } else if constexpr (N == 96) {
+    WG_MMA(96, WG_R0 WG_R16 WG_R32, 48, 49, 50, 51, 52, WG_ACC16(0), WG_ACC16(16), WG_ACC16(32));
+  } else {
+    WG_MMA(128, WG_R0 WG_R16 WG_R32 WG_R48, 64, 65, 66, 67, 68, WG_ACC16(0), WG_ACC16(16),
+           WG_ACC16(32), WG_ACC16(48));
+  }
+}
+#undef WG_MMA
+#undef WG_R48
+#undef WG_R32
+#undef WG_R16
+#undef WG_R0
+#undef WG_ACC16
+#undef WG_ACC8
 
-// Epilogue of one chain product: v = acc (+ gs x w_alpha when gsig is
-// given: the sigma head's f32 term), zeroed where the saved activation
-// `mask` (the tile's [kTile][H] bf16 rows; null: no ReLU) is not > 0; v
-// rounded to bf16 into cot (in place; the caller has synced) and the
-// column sums of the f32 v of this warp's 32 rows into colsum[wm][col].
-template <int NTM>
-__device__ __forceinline__ void chain_epilogue(float (&acc)[2][NTM][4], const bf16* mask,
-                                               const float* gsig, const float* w_alpha,
-                                               bf16* cot, int ap, int wm, int nb,
-                                               float* colsum) {
-  constexpr int H = NTM * 16;
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+// A consumer warpgroup's part of one unit: its NB blocks (cw, cw + 2, ...)
+// over stages [j0, j1) of the ring (it counts the CTA's stages), then the
+// blocks into the slot at out. Every warp releases each stage it has read.
+template <int NB>
+__device__ __forceinline__ void dw_consume(const DwUnit& U, int cw, int j0, int j1, int& it,
+                                           uint32_t base, int SB, int NS, uint32_t full,
+                                           uint32_t empty, float* out) {
+  float acc[NB > 0 ? NB : 1][32];
 #pragma unroll
-  for (int nj = 0; nj < NTM; ++nj) {
-    const int col = nb + 8 * nj + 2 * q;
-    float wa0 = 0.f, wa1 = 0.f;
-    if (gsig != nullptr) {
-      wa0 = __ldg(w_alpha + col);
-      wa1 = __ldg(w_alpha + col + 1);
-    }
-    float cs0 = 0.f, cs1 = 0.f;
+  for (int i = 0; i < NB; ++i)
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
+    for (int e = 0; e < 32; ++e) acc[i][e] = 0.f;
+  uint32_t ao[NB > 0 ? NB : 1], bo[NB > 0 ? NB : 1];
+  bool small[NB > 0 ? NB : 1];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = 32 * wm + 16 * mi + 8 * h + g;
-        float v0 = acc[mi][nj][2 * h], v1 = acc[mi][nj][2 * h + 1];
-        if (gsig != nullptr) {
-          const float gs = gsig[row * 4 + 3];
-          v0 = fmaf(gs, wa0, v0);
-          v1 = fmaf(gs, wa1, v1);
+  for (int i = 0; i < NB; ++i) {
+    ao[i] = U.blk[cw + 2 * i].a * kDwBoxBytes;
+    bo[i] = U.blk[cw + 2 * i].b * kDwBoxBytes;
+    small[i] = U.blk[cw + 2 * i].small != 0;
+  }
+  const int t = threadIdx.x & 127;
+  for (int j = j0; j < j1; ++j, ++it) {
+    const int s = it % NS;
+    mbar_wait(full + 8 * s, (it / NS) & 1);
+    if (NB > 0) {
+      const uint32_t st = base + s * SB;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kDwBox / 16; ++ks) {
+#pragma unroll
+        for (int i = 0; i < NB; ++i) {
+          wgmma_bf16<64, 1, 1>(acc[i],
+                               small[i] ? small_desc(st + ao[i] + ks * 256)
+                                        : sw128_desc(st + ao[i] + ks * 2048),
+                               sw128_desc(st + bo[i] + ks * 2048));
         }
-        if (mask != nullptr) {
-          const __nv_bfloat162 m =
-              *reinterpret_cast<const __nv_bfloat162*>(mask + (size_t)row * H + col);
-          if (!(__low2float(m) > 0.f)) v0 = 0.f;
-          if (!(__high2float(m) > 0.f)) v1 = 0.f;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(cot + row * ap + col) = __floats2bfloat162_rn(v0, v1);
-        cs0 += v0;
-        cs1 += v1;
       }
+      wgmma_commit();
+      wgmma_wait0();
     }
+    if ((t & 31) == 0) mbar_arrive(empty + 8 * s);
+  }
+  const int row0 = 16 * (t >> 5) + ((t & 31) >> 2), col0 = 2 * (t & 3);
 #pragma unroll
-    for (int x = 4; x < 32; x <<= 1) {
-      cs0 += __shfl_xor_sync(0xffffffffu, cs0, x);
-      cs1 += __shfl_xor_sync(0xffffffffu, cs1, x);
-    }
-    if (g == 0) {
-      colsum[wm * H + col] = cs0;
-      colsum[wm * H + col + 1] = cs1;
+  for (int i = 0; i < NB; ++i) {
+    const DwBlock& k = U.blk[cw + 2 * i];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int r = row0 + 8 * ((e >> 1) & 1), c = 8 * (e >> 2) + col0 + (e & 1);
+      if (r < k.n_lim && c < k.m_lim) out[k.base + (long long)r * k.ldw + c] = acc[i][e];
     }
   }
 }
 
-// dst[c] += the four warps' column sums, in a fixed order (after a sync).
-__device__ __forceinline__ void add_colsum(const float* colsum, float* dst, int H) {
-  for (int c = threadIdx.x; c < H; c += kThreads) {
-    dst[c] += (colsum[c] + colsum[H + c]) + (colsum[2 * H + c] + colsum[3 * H + c]);
+// ---- weight gradients of one chunk: persistent CTAs, one per SM, each
+// owning an equal share of the plan's work (see dw_span). Warpgroup 0's
+// first thread streams the boxes of each 64-sample stage through an
+// n_stages ring of TMA loads (128 B swizzle, one mbarrier pair per stage);
+// warpgroups 1 and 2 each hold up to four 64 x 64 f32 accumulators (the
+// unit's blocks cw, cw + 2, ...) and run wgmma on both operands transposed
+// from shared memory. Each scratch block is read once per unit that uses it,
+// and every box of a stage serves each block that needs it. At the end of
+// its part of a unit a CTA writes its blocks to its slot: no atomics, and
+// reduce_bf16_kernel sums the slots in a fixed order.
+__global__ void __launch_bounds__(kDwThreads, 1)
+    train_dw_bf16_kernel(const __grid_constant__ DwArgs p, int n_st, int chunk) {
+  extern __shared__ unsigned char dw_ring[];
+  const uint32_t base = (smem_u32(dw_ring) + 1023u) & ~1023u;  // the swizzle's atoms
+  const int NS = p.n_stages, SB = p.stage_bytes;
+  const uint32_t full = base + NS * SB, empty = full + 8 * NS;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // each consumer warp releases the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-}
-
-// ---- the cotangent chain, tile by tile; CTA b takes tiles b, b + grid, ...
-// and accumulates its bias sums and viewdir-row dW into its own slot
-// aux_part[b] (each entry owned by one thread: a fixed summation order)
-template <int NTM>
-__global__ void __launch_bounds__(kThreads, 2) train_chain_bf16_kernel(const TrainArgs p,
-                                                                       int n_real,
-                                                                       int n_tiles) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int H = NTM * 16;
-  constexpr int H2 = H / 2;
-  constexpr int AP = H + 8;
-  constexpr int KP2 = (H2 + kKc - 1) / kKc * kKc;  // the y cotangent's K, padded
-  const int S = p.n_samples, nt = p.num_trunk, dd = p.dd;
-  const ChainSmem L = chain_smem(H);
-  bf16* cot = reinterpret_cast<bf16*>(smem + L.cot);        // [kTile][AP]
-  bf16* ring = reinterpret_cast<bf16*>(smem + L.ring);
-  float* dzf = reinterpret_cast<float*>(smem + L.dzf);       // [kTile][H2] f32 y cotangent
-  float* gsh = reinterpret_cast<float*>(smem + L.gsh);       // [kTile][4] raw cotangent
-  float* colsum = reinterpret_cast<float*>(smem + L.colsum);  // [4][H]
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int nbm = wn * (H / 2);
-  float* mine = p.aux_part + (size_t)blockIdx.x * aux_size(H, nt, dd);
-  for (int i = tid; i < aux_size(H, nt, dd); i += kThreads) mine[i] = 0.f;
-
-  const int kh = H / kKc;
-  Stream st;
-  st.w = p.wbq;
-  st.H = H;
-  st.nch = KP2 / kKc + (nt + 1) * kh;
-  st.jd = st.nch;
-  const int mine_tiles = (int)blockIdx.x < n_tiles
-                             ? (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
-  st.total = mine_tiles * st.nch;
-#pragma unroll
-  for (int c = 0; c < kStages - 1; ++c) st.load(c, ring);
-
-  const float* w_rgb = p.aux + p.aux_off[nt + 5];    // [H2][3] f32
-  const float* w_alpha = p.aux + p.aux_off[nt + 3];  // [H] f32
-  bf16* const S0 = p.scratch;
-  float acc[2][NTM][4];
-  int c = 0;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long k0 = (long long)tile * kTile;
-    // ---- raw cotangents of the tile; rgb and sigma ones to the scratch in bf16
-    for (int r = tid; r < kTile; r += kThreads) {
-      const float4 g = k0 + r < n_real ? reinterpret_cast<const float4*>(p.graw)[k0 + r]
-                                       : make_float4(0.f, 0.f, 0.f, 0.f);
-      reinterpret_cast<float4*>(gsh)[r] = g;
-      __align__(16) __nv_bfloat162 rgb8[4], sig8[4];
-      const __nv_bfloat162 z2 = __floats2bfloat162_rn(0.f, 0.f);
-      rgb8[0] = __floats2bfloat162_rn(g.x, g.y);
-      rgb8[1] = __floats2bfloat162_rn(g.z, 0.f);
-      rgb8[2] = rgb8[3] = z2;
-      sig8[0] = __floats2bfloat162_rn(g.w, 0.f);
-      sig8[1] = sig8[2] = sig8[3] = z2;
-      __stcs(reinterpret_cast<float4*>(S0 + p.dlt_off[nt + 3] + (k0 + r) * 8),
-             *reinterpret_cast<const float4*>(rgb8));
-      __stcs(reinterpret_cast<float4*>(S0 + p.dlt_off[nt + 4] + (k0 + r) * 8),
-             *reinterpret_cast<const float4*>(sig8));
-    }
-    __syncthreads();
-    // ---- y cotangent (g_rgb . W_rgb^T, f32) masked by y > 0
-    const bf16* ysave = S0 + p.act_off[nt + 3] + k0 * H2;
-    for (int i = tid; i < kTile * KP2; i += kThreads) {
-      const int r = i / KP2, col = i % KP2;
-      float v = 0.f;
-      if (col < H2) {
-        const float* g = gsh + r * 4;
-        const float* wr = w_rgb + col * 3;
-        const float dy = fmaf(g[2], __ldg(wr + 2), fmaf(g[1], __ldg(wr + 1), g[0] * __ldg(wr)));
-        v = __bfloat162float(ysave[(size_t)r * H2 + col]) > 0.f ? dy : 0.f;
-        dzf[r * H2 + col] = v;
-      }
-      cot[r * AP + col] = __float2bfloat16_rn(v);
-    }
-    if (tid < 4) {  // rgb and sigma bias sums
-      float s = 0.f;
-      for (int r = 0; r < kTile; ++r) s += gsh[r * 4 + tid];
-      mine[tid < 3 ? aux_rgb(H, nt) + tid : aux_alpha(H, nt)] += s;
-    }
-    __syncthreads();
-    copy_tile(cot, AP, S0 + p.dlt_off[nt + 2] + k0 * H2, H2);
-    // the viewdir layer's bias sum, and its viewdir rows' dW: each ray's
-    // encoding x the sum over the ray's samples in this tile of the bf16 y
-    // cotangent
-    if (tid < H2) {
-      const int col = tid;
-      float bsum = 0.f, seg = 0.f;
-      int cur = -1;
-      for (int r = 0; r < kTile && k0 + r < n_real; ++r) {
-        const int ray = (int)((k0 + r) / S);
-        if (ray != cur) {
-          if (cur >= 0) {
-            for (int k = 0; k < dd; ++k)
-              mine[aux_vd(H, nt) + k * H2 + col] += p.dir_enc[(size_t)cur * dd + k] * seg;
-          }
-          cur = ray;
-          seg = 0.f;
-        }
-        bsum += dzf[r * H2 + col];
-        seg += __bfloat162float(cot[r * AP + col]);
-      }
-      if (cur >= 0) {
-        for (int k = 0; k < dd; ++k)
-          mine[aux_vd(H, nt) + k * H2 + col] += p.dir_enc[(size_t)cur * dd + k] * seg;
-      }
-      mine[aux_dir(H, nt) + col] += bsum;
-    }
-    // ---- feat cotangent = y cotangent x W_dir[:, :H], masked by feat > 0
-    zero(acc);
-    for (int k = 0; k < KP2 / kKc; ++k) consume<NTM>(acc, c, st, ring, cot, AP, k * kKc, wm, nbm);
-    __syncthreads();
-    chain_epilogue(acc, S0 + p.act_off[nt + 2] + k0 * H, nullptr, nullptr, cot, AP, wm, nbm,
-                   colsum);
-    __syncthreads();
-    add_colsum(colsum, mine + aux_bias(nt + 1, H), H);
-    copy_tile(cot, AP, S0 + p.dlt_off[nt + 1] + k0 * H, H);
-    // ---- a_nt cotangent = feat cotangent x W_feat + gs w_alpha, masked by
-    // a_nt > 0 (a_0, layer1's output, has no ReLU)
-    zero(acc);
-    for (int k = 0; k < kh; ++k) consume<NTM>(acc, c, st, ring, cot, AP, k * kKc, wm, nbm);
-    __syncthreads();
-    chain_epilogue(acc, nt > 0 ? S0 + p.act_off[1 + nt] + k0 * H : nullptr, gsh, w_alpha, cot,
-                   AP, wm, nbm, colsum);
-    __syncthreads();
-    add_colsum(colsum, mine + aux_bias(nt, H), H);
-    copy_tile(cot, AP, S0 + p.dlt_off[nt] + k0 * H, H);
-    // ---- trunk, reversed: a_i cotangent = a_{i+1} cotangent x W_i[:, :H]
-    for (int i = nt - 1; i >= 0; --i) {
-      zero(acc);
-      for (int k = 0; k < kh; ++k) consume<NTM>(acc, c, st, ring, cot, AP, k * kKc, wm, nbm);
-      __syncthreads();
-      chain_epilogue(acc, i > 0 ? S0 + p.act_off[1 + i] + k0 * H : nullptr, nullptr, nullptr,
-                     cot, AP, wm, nbm, colsum);
-      __syncthreads();
-      add_colsum(colsum, mine + aux_bias(i, H), H);
-      copy_tile(cot, AP, S0 + p.dlt_off[i] + k0 * H, H);
-    }
-  }
-  cp_async_wait<0>();
-}
-
-// ---- weight gradients: one 64 x 64 tile of one product over one K-range
-// per CTA, into its own slot. Operands are sample-major in the scratch
-// ([k][feature]); they stream through two shared stages with cp.async and
-// reach mma.sync through ldmatrix.trans. Warp w computes rows (n)
-// 32 (w & 1) .. +32 and columns (m) 32 (w >> 1) .. +32.
-__global__ void __launch_bounds__(kGemmThreads) train_dw_bf16_kernel(const GemmArgs p) {
-  __shared__ __align__(16) bf16 Ds[2][kGK][kGP];
-  __shared__ __align__(16) bf16 As[2][kGK][kGP];
-  int it = 0;
-  while (it + 1 < p.n_items && p.items[it + 1].tile0 <= (int)blockIdx.x) ++it;
-  const GemmItem g = p.items[it];
-  const int t = blockIdx.x - g.tile0;
-  const int m0 = (t % g.m_tiles) * kGT, n0 = (t / g.m_tiles) * kGT;
-  const long long per = ((p.k + p.n_splits - 1) / p.n_splits + kGK - 1) / kGK * kGK;
-  const long long kb = min(p.k, (long long)blockIdx.y * per);
-  const long long ke = min(p.k, kb + per);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wn = warp & 1, wm = warp >> 1;
-  const bf16* gd = g.d;
-  const bf16* ga = g.a;
-  const int ldd = g.ldd, lda = g.lda;
-  auto load = [&](int buf, long long kk) {
-    for (int i = tid; i < kGK * (kGT / 8); i += kGemmThreads) {
-      const int row = i / (kGT / 8), cc = (i % (kGT / 8)) * 8;
-      const long long k = kk + row;
-      const bool okd = k < ke && n0 + cc < ldd;
-      const bool oka = k < ke && m0 + cc < lda;
-      cp_async16_zfill(&Ds[buf][row][cc], okd ? gd + k * ldd + n0 + cc : gd, okd);
-      cp_async16_zfill(&As[buf][row][cc], oka ? ga + k * lda + m0 + cc : ga, oka);
-    }
-    cp_async_commit();
-  };
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
-  if (kb < ke) load(0, kb);
-  int buf = 0;
-  for (long long kk = kb; kk < ke; kk += kGK) {
-    if (kk + kGK < ke) {
-      load(buf ^ 1, kk + kGK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kGK; ks += 16) {
-      uint32_t af[2][4];
-      const int j = lane >> 3;
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        ldsm_x4_trans(af[mi], &Ds[buf][ks + (lane & 7) + ((j >> 1) << 3)]
-                                 [32 * wn + 16 * mi + ((j & 1) << 3)]);
-      }
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bfr[4];
-        ldsm_x4_trans(bfr, &As[buf][ks + (lane & 7) + ((j & 1) << 3)]
-                              [32 * wm + 16 * np + ((j >> 1) << 3)]);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc[mi][2 * np], af[mi], bfr[0], bfr[1]);
-          mma_bf16(acc[mi][2 * np + 1], af[mi], bfr[2], bfr[3]);
+  __syncthreads();
+  const int b = blockIdx.x;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid != 0) return;
+    int it = 0, pre = 0;
+    for (int u = 0; u < p.n_units; ++u) {
+      const DwUnit& U = p.units[u];
+      int piece, j0, j1;
+      const bool mine = dw_span(n_st, pre, U.cost, p.total_cost, p.grid, b, &piece, &j0, &j1);
+      pre += U.cost;
+      if (!mine) continue;
+      const int nbox = U.n_a + U.n_b;
+      for (int j = j0; j < j1; ++j, ++it) {
+        const int s = it % NS;
+        mbar_wait(empty + 8 * s, ((it / NS) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, U.tx);
+        for (int x = 0; x < nbox; ++x) {
+          tma_load_2d(base + s * SB + x * kDwBoxBytes, &p.maps[U.map[x]], U.col[x], j * kDwBox,
+                      full + 8 * s);
         }
       }
     }
-    __syncthreads();
-    buf ^= 1;
+    return;
   }
-  float* out = p.partial + (long long)(p.part0 + blockIdx.y) * p.n_params;
-  const int gq = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = n0 + 32 * wn + 16 * mi + 8 * h + gq;
-      if (n >= g.n) continue;
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int m = m0 + 32 * wm + 8 * nj + 2 * q + e;
-          if (m < g.m) out[g.w_off + (long long)n * g.ldw + g.col_off + m] = acc[mi][nj][2 * h + e];
-        }
-      }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = wg - 1;
+  int it = 0, pre = 0;
+  for (int u = 0; u < p.n_units; ++u) {
+    const DwUnit& U = p.units[u];
+    int piece, j0, j1;
+    const bool mine = dw_span(n_st, pre, U.cost, p.total_cost, p.grid, b, &piece, &j0, &j1);
+    pre += U.cost;
+    if (!mine) continue;
+    float* out = p.partial + ((long long)chunk * p.max_pieces + piece) * p.n_params;
+    switch ((U.n_blocks - cw + 1) / 2) {  // this warpgroup's blocks cw, cw + 2, ...
+      case 0: dw_consume<0>(U, cw, j0, j1, it, base, SB, NS, full, empty, out); break;
+      case 1: dw_consume<1>(U, cw, j0, j1, it, base, SB, NS, full, empty, out); break;
+      case 2: dw_consume<2>(U, cw, j0, j1, it, base, SB, NS, full, empty, out); break;
+      case 3: dw_consume<3>(U, cw, j0, j1, it, base, SB, NS, full, empty, out); break;
+      default: dw_consume<4>(U, cw, j0, j1, it, base, SB, NS, full, empty, out); break;
     }
   }
 }
 
-// grad[i] = the sum over the dW slots (map[i] < 0) or over the chain CTAs'
-// slots at entry map[i] (bias sums, viewdir rows), in a fixed order.
-__global__ void reduce_bf16_kernel(const float* partial, int n_parts, long long n_params,
+// grad[i] = the sum over the dW slots of its unit (map[i] = -1 - unit), in
+// chunk order and slot order, or over the chain CTAs' slots at entry map[i]
+// (bias sums, viewdir rows), in a fixed order.
+__global__ void reduce_bf16_kernel(const DwSpans sp, const float* partial, int n_chunks,
+                                   int n_st_full, int n_st_last, long long n_params,
                                    const float* aux_part, int n_aux_parts, int n_aux,
                                    const int* map, float* grad) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -1049,11 +1031,449 @@ __global__ void reduce_bf16_kernel(const float* partial, int n_parts, long long 
   const int j = map[i];
   float s = 0.f;
   if (j < 0) {
-    for (int q = 0; q < n_parts; ++q) s += partial[q * n_params + i];
+    const int u = -1 - j;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int n_st = c + 1 < n_chunks ? n_st_full : n_st_last;
+      const int pieces = dw_pieces(n_st, sp.pre[u], sp.cost[u], sp.total_cost, sp.grid);
+      const float* q = partial + (long long)c * sp.max_pieces * n_params + i;
+      for (int k = 0; k < pieces; ++k) s += q[k * n_params];
+    }
   } else {
     for (int q = 0; q < n_aux_parts; ++q) s += aux_part[(size_t)q * n_aux + j];
   }
   grad[i] = s;
+}
+
+// ---- the cotangent chain on wgmma, for the H100 (sm_90a). Bound by its
+// bytes (the saved activations it reads as ReLU masks, ~2.2 KB a sample for
+// 8x128, and the cotangent blocks it writes, ~2.5 KB: >= 2.2 ms a step at
+// 3.35 TB/s; its multiply-adds take 0.45 ms), so every transfer is an
+// asynchronous TMA one and the tensor cores never wait on a store. One CTA
+// per SM: warpgroup 0 streams the transposed weights (one [H][64] K-chunk a
+// ring stage, shared by both consumers: 128 samples per pass over the
+// weights) and each consumer's masks; consumer warpgroups 1 and 2 each run
+// the whole chain of their own 64-sample tiles (worker v = 2 b + cw takes
+// tiles v, v + 2 G, ...), so one's epilogue overlaps the other's wgmma. A
+// cotangent tile lives in shared memory as two 128 B-swizzled [64][64]
+// halves: the K-major A operand of the next product and the source of its
+// TMA store to the scratch, double-buffered so the store of one product
+// runs under the next. Each worker sums its bias entries and viewdir rows'
+// dW into its own slot aux_part[v] (each entry owned by one thread; kept in
+// shared memory while the kernel runs when it fits, then copied out once).
+constexpr int kCStages = 4;           // weight ring
+constexpr int kCTile = 64;            // samples per consumer tile
+constexpr int kCHalf = kCTile * 128;  // bytes of a [64][64] bf16 half-tile
+constexpr int kChainThreads = 384;
+
+struct ChainSmem {
+  size_t ring, cot, mask, gsh, colsum, bars, slot, total;
+};
+
+// The chain's shared memory at width H, with each consumer's slot of
+// n_slot floats (0: the slots stay in device memory).
+__host__ __device__ inline ChainSmem chain_smem(int H, int n_slot) {
+  ChainSmem s;
+  s.ring = 0;                                         // kCStages x [H][64] bf16
+  s.cot = s.ring + (size_t)kCStages * H * 128;        // [2 WG][2 buffers][2 halves]
+  s.mask = s.cot + 8 * (size_t)kCHalf;                // [2 WG][2 slots][2 halves]
+  s.gsh = s.mask + 8 * (size_t)kCHalf;                // [2 WG][64][4] f32
+  s.colsum = s.gsh + 2 * kCTile * 4 * 4;              // [2 WG][4 warps][H] f32
+  s.bars = s.colsum + 2 * 4 * (size_t)H * 4;          // weight full/empty, mask full/empty
+  s.slot = s.bars + (2 * kCStages + 8) * 8;           // [2 WG][n_slot] f32
+  s.total = s.slot + 2 * (size_t)n_slot * 4 + 1024;   // + slack to align the base
+  return s;
+}
+
+// The chain's shared memory for a, the slots inside when they fit.
+__host__ __device__ inline ChainSmem chain_smem_for(const TrainArgs& a) {
+  const ChainSmem in = chain_smem(a.hidden, aux_size(a.hidden, a.num_trunk, a.dd));
+  return in.total <= (size_t)kDwSmemMax ? in : chain_smem(a.hidden, 0);
+}
+
+// dst[k H2] += enc[k] seg for k < dd: one viewdir row's dW of one column
+__device__ __forceinline__ void vd_flush(float* __restrict__ dst, const float* __restrict__ enc,
+                                         int dd, int H2, float seg) {
+#pragma unroll 4
+  for (int k = 0; k < dd; ++k) dst[k * H2] += __ldg(enc + k) * seg;
+}
+
+// Byte offset of (row r, column c) in a [64][128] bf16 tile kept as two
+// 128 B-swizzled [64][64] halves: TMA's SWIZZLE_128B box layout, and a
+// K-major wgmma operand.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (uint32_t)((c >> 6) * kCHalf + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) +
+                    (c & 7) * 2);
+}
+// wgmma descriptor of a K-major, 128 B-swizzled operand at addr: rows of
+// 64 K (128 B), 8-row atoms 1024 B apart; a k16 step adds 32 B.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, int c0, int c1,
+                                             uint32_t src) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::
+                   "l"(reinterpret_cast<uint64_t>(map)),
+               "r"(c0), "r"(c1), "r"(src)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// thread writes to shared memory, made visible to wgmma and TMA
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t lds32(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ void sts32(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a), "r"(v));
+}
+__device__ __forceinline__ uint32_t lds16(uint32_t a) {
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ void sts16(uint32_t a, unsigned short v) {
+  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(a), "h"(v));
+}
+__device__ __forceinline__ float4 lds128(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a));
+  return v;
+}
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// The tensor maps of the chain (mirrored by _ChainMaps in
+// ops/fused_train_loss.py): the backward pack as [rows][64] with [H][64]
+// boxes, and the scratch blocks, as DwArgs::maps.
+struct ChainMaps {
+  CUtensorMap w;
+  CUtensorMap blocks[kDwMaxMaps];
+};
+static_assert(sizeof(ChainMaps) % 64 == 0, "ChainMaps is mirrored without tail padding");
+
+// Order of a tile's work: the y cotangent (mask y), then product pi = 0 ..
+// nt + 1 against K-chunks of pack_backward_weights_bf16 (layers_dir.0's feat
+// rows, fc_feat, layers_xyz from the last), whose output is the cotangent
+// block d_{nt + 1 - pi} (d_{nt + 1} = feat), masked by the saved activation
+// block nt + 2 - pi (feat, a_nt, ..., a_1) while pi < nt + 1, and whose
+// bias sums go to aux_bias(nt + 1 - pi); product 1 adds the sigma head's
+// gs x w_alpha. The masks stream in the order y, feat, a_nt, ..., a_1:
+// activation blocks nt + 3 - k.
+template <int NTM>
+__global__ void __launch_bounds__(kChainThreads, 1)
+    train_chain_bf16_kernel(const TrainArgs p, const __grid_constant__ ChainMaps m, int n_real,
+                            int n_tiles) {
+  constexpr int H = NTM * 16;
+  constexpr int H2 = H / 2;
+  constexpr int KCH = (H + 63) / 64;  // 64-wide K-chunks of a product on H
+  const int S = p.n_samples, nt = p.num_trunk, dd = p.dd;
+  const int n_act = nt + 4;  // m.blocks: activation blocks, then cotangent blocks
+  const int per_tile = 1 + (nt + 1) * KCH;
+  extern __shared__ unsigned char chain_raw[];
+  const uint32_t sbase = (smem_u32(chain_raw) + 1023u) & ~1023u;
+  unsigned char* gbase = chain_raw + (sbase - smem_u32(chain_raw));
+  const ChainSmem L = chain_smem_for(p);
+  const uint32_t ring = sbase + (uint32_t)L.ring;
+  const uint32_t wfull = sbase + (uint32_t)L.bars, wempty = wfull + 8 * kCStages;
+  const uint32_t mfull = wempty + 8 * kCStages, mempty = mfull + 8 * 4;  // [WG][slot]
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int G = gridDim.x, b = blockIdx.x;
+  const int passes = 2 * b < n_tiles ? (n_tiles - 1 - 2 * b) / (2 * G) + 1 : 0;
+  if (tid == 0) {
+    for (int s = 0; s < kCStages; ++s) {
+      mbar_init(wfull + 8 * s, 1);
+      mbar_init(wempty + 8 * s, 8);  // every consumer warp releases a weight stage
+    }
+    for (int s = 0; s < 4; ++s) {
+      mbar_init(mfull + 8 * s, 1);
+      mbar_init(mempty + 8 * s, 4);  // every warp of its consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // zero the cotangent tiles: the columns past H (and past H/2 in the y
+  // tile's first K-chunk) stay zero
+  for (int i = tid; i < 8 * kCHalf / 16; i += kChainThreads) {
+    reinterpret_cast<uint4*>(gbase + L.cot)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_async_smem();
+  __syncthreads();
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    const int warp = tid >> 5;
+    if ((tid & 31) != 0 || warp > 2) return;
+    if (warp == 0) {  // the weights, the same chunks every pass
+      int it = 0;
+      for (int ps = 0; ps < passes; ++ps) {
+        for (int c = 0; c < per_tile; ++c, ++it) {
+          const int s = it % kCStages;
+          mbar_wait(wempty + 8 * s, ((it / kCStages) & 1) ^ 1);
+          mbar_expect_tx(wfull + 8 * s, H * 128);
+          tma_load_2d(ring + s * H * 128, &m.w, 0, c * H, wfull + 8 * s);
+        }
+      }
+    } else {  // warps 1 and 2: the masks of consumer warp - 1
+      const int cw = warp - 1;
+      int it = 0;
+      for (int t = 2 * b + cw; t < n_tiles; t += 2 * G) {
+        for (int k = 0; k < nt + 2; ++k, ++it) {
+          const int slot = 2 * cw + (it & 1);
+          mbar_wait(mempty + 8 * slot, ((it >> 1) & 1) ^ 1);
+          const int nbox = k == 0 ? (H2 + 63) / 64 : KCH;
+          mbar_expect_tx(mfull + 8 * slot, nbox * kCHalf);
+          for (int x = 0; x < nbox; ++x) {
+            tma_load_2d(sbase + (uint32_t)L.mask + slot * 2 * kCHalf + x * kCHalf,
+                        &m.blocks[nt + 3 - k], 64 * x, t * kCTile, mfull + 8 * slot);
+          }
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = wg - 1, t = tid & 127, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, q = lane & 3, bar_id = 1 + cw, v = 2 * b + cw;
+  const uint32_t cot = sbase + (uint32_t)L.cot + cw * 4 * kCHalf;  // buffer x at + x 2 kCHalf
+  float* gsh = reinterpret_cast<float*>(gbase + L.gsh) + cw * kCTile * 4;
+  const uint32_t gsh_s = sbase + (uint32_t)L.gsh + cw * kCTile * 16;
+  const uint32_t mask_s = sbase + (uint32_t)L.mask + cw * 4 * kCHalf;
+  float* colsum = reinterpret_cast<float*>(gbase + L.colsum) + cw * 4 * H;
+  const int n_slot = aux_size(H, nt, dd);
+  float* const slot_out = p.aux_part + (size_t)v * n_slot;
+  const bool slot_smem = L.total > L.slot + 1024;
+  float* mine = slot_smem ? reinterpret_cast<float*>(gbase + L.slot) + cw * n_slot : slot_out;
+  for (int i = t; i < n_slot; i += 128) mine[i] = 0.f;
+  const float* w_rgb = p.aux + p.aux_off[nt + 5];    // [H2][3] f32
+  const float* w_alpha = p.aux + p.aux_off[nt + 3];  // [H] f32
+  bf16* const S0 = p.scratch;
+  int wit = 0, mit = 0;  // weight chunks and masks consumed
+  for (int ps = 0; ps < passes; ++ps) {
+    const int tile = v + ps * 2 * G;
+    if (tile >= n_tiles) {  // the other consumer's pass: release its weights
+      for (int c = 0; c < per_tile; ++c, ++wit) {
+        const int s = wit % kCStages;
+        mbar_wait(wfull + 8 * s, (wit / kCStages) & 1);
+        if (lane == 0) mbar_arrive(wempty + 8 * s);
+      }
+      continue;
+    }
+    const long long k0 = (long long)tile * kCTile;
+    if (t == 0) bulk_wait_read<0>();  // the last tile's stores have read their tiles
+    wg_sync(bar_id);
+    // ---- raw cotangents of the tile; rgb and sigma ones to the scratch in bf16
+    if (t < kCTile) {
+      const int r = t;
+      const float4 gr = k0 + r < n_real ? reinterpret_cast<const float4*>(p.graw)[k0 + r]
+                                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      reinterpret_cast<float4*>(gsh)[r] = gr;
+      __align__(16) __nv_bfloat162 rgb8[4], sig8[4];
+      const __nv_bfloat162 z2 = __floats2bfloat162_rn(0.f, 0.f);
+      rgb8[0] = __floats2bfloat162_rn(gr.x, gr.y);
+      rgb8[1] = __floats2bfloat162_rn(gr.z, 0.f);
+      rgb8[2] = rgb8[3] = z2;
+      sig8[0] = __floats2bfloat162_rn(gr.w, 0.f);
+      sig8[1] = sig8[2] = sig8[3] = z2;
+      __stcs(reinterpret_cast<float4*>(S0 + p.dlt_off[nt + 3] + (k0 + r) * 8),
+             *reinterpret_cast<const float4*>(rgb8));
+      __stcs(reinterpret_cast<float4*>(S0 + p.dlt_off[nt + 4] + (k0 + r) * 8),
+             *reinterpret_cast<const float4*>(sig8));
+    }
+    wg_sync(bar_id);
+    if (t < 4) {  // rgb and sigma bias sums
+      float s = 0.f;
+      for (int r = 0; r < kCTile; ++r) s += gsh[r * 4 + t];
+      mine[t < 3 ? aux_rgb(H, nt) + t : aux_alpha(H, nt)] += s;
+    }
+    // ---- y cotangent (g_rgb . W_rgb^T, f32) masked by y > 0, one thread a
+    // column: the viewdir layer's bias sum (f32) and its viewdir rows' dW
+    // (each ray's encoding x its sum of the bf16 cotangent), into buffer 0
+    {
+      const int slot = 2 * cw + (mit & 1);
+      mbar_wait(mfull + 8 * slot, (mit >> 1) & 1);
+      const uint32_t mk = mask_s + (mit & 1) * 2 * kCHalf;
+      if (t < H2) {
+        const int col = t;
+        const float* wr = w_rgb + col * 3;
+        const float w0 = __ldg(wr), w1 = __ldg(wr + 1), w2 = __ldg(wr + 2);
+        float* vd = mine + aux_vd(H, nt) + col;
+        float bsum = 0.f, seg = 0.f;
+        int ray = (int)(k0 / S), pos = (int)(k0 - (long long)ray * S);
+        for (int r0 = 0; r0 < kCTile; r0 += 16) {  // 16 rows' loads at once
+          uint32_t yb[16];
+          float4 gg[16];
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            yb[i] = lds16(mk + swz(r0 + i, col));
+            gg[i] = lds128(gsh_s + (r0 + i) * 16);
+          }
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int r = r0 + i;
+            const float dy = fmaf(gg[i].z, w2, fmaf(gg[i].y, w1, gg[i].x * w0));
+            const float vv = __uint_as_float(yb[i] << 16) > 0.f ? dy : 0.f;
+            const bf16 vb = __float2bfloat16_rn(vv);
+            sts16(cot + swz(r, col), __bfloat16_as_ushort(vb));
+            if (k0 + r < n_real) {
+              bsum += vv;
+              seg += __bfloat162float(vb);
+              if (++pos == S) {  // the ray's last sample
+                vd_flush(vd, p.dir_enc + (size_t)ray * dd, dd, H2, seg);
+                seg = 0.f;
+                pos = 0;
+                ++ray;
+              }
+            }
+          }
+        }
+        if (pos > 0) vd_flush(vd, p.dir_enc + (size_t)ray * dd, dd, H2, seg);  // continues
+        mine[aux_dir(H, nt) + col] += bsum;
+      } else if (t < 64) {  // the K-chunk's columns past H/2
+        for (int r = 0; r < kCTile; ++r) {
+          sts16(cot + swz(r, t), 0);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(mempty + 8 * slot);
+      ++mit;
+    }
+    fence_async_smem();
+    wg_sync(bar_id);
+    if (t == 0) {
+      tma_store_2d(&m.blocks[n_act + nt + 2], 0, (int)k0, cot);
+      bulk_commit();
+    }
+    // ---- the products
+    int cur = 0;
+    for (int pi = 0; pi < nt + 2; ++pi) {
+      const int kch = pi == 0 ? 1 : KCH;
+      float acc[H / 2];
+#pragma unroll
+      for (int e = 0; e < H / 2; ++e) acc[e] = 0.f;
+      const uint32_t a0 = cot + cur * 2 * kCHalf;
+      wgmma_fence();
+      for (int c = 0; c < kch; ++c) {
+        const int s = (wit + c) % kCStages;
+        mbar_wait(wfull + 8 * s, ((wit + c) / kCStages) & 1);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          wgmma_bf16<H, 0, 0>(acc, kmajor_desc(a0 + c * kCHalf + ks * 32),
+                              kmajor_desc(ring + s * H * 128 + ks * 32));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      if (lane == 0) {
+        for (int c = 0; c < kch; ++c) mbar_arrive(wempty + 8 * ((wit + c) % kCStages));
+      }
+      wit += kch;
+      // ---- epilogue: (+ gs w_alpha), mask, bf16 into the other buffer
+      const int nxt = cur ^ 1;
+      if (t == 0) bulk_wait_read<1>();  // its store two products ago has read it
+      wg_sync(bar_id);
+      const bool masked = pi < nt + 1;
+      const int slot = 2 * cw + (mit & 1);
+      const uint32_t mk = mask_s + (mit & 1) * 2 * kCHalf;
+      if (masked) mbar_wait(mfull + 8 * slot, (mit >> 1) & 1);
+      const uint32_t dst = cot + nxt * 2 * kCHalf;
+      const int r0 = 16 * warp + g;
+      float gs[2] = {0.f, 0.f};
+      if (pi == 1) {
+        gs[0] = gsh[r0 * 4 + 3];
+        gs[1] = gsh[(r0 + 8) * 4 + 3];
+      }
+      // in two halves of the columns: every mask load of a half is issued
+      // before its values are stored, and its column sums reduce together
+#pragma unroll
+      for (int j0 = 0; j0 < H / 8; j0 += H / 16) {
+        constexpr int NJ = H / 16;
+        uint32_t mw[NJ][2];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            mw[j][h] = masked ? lds32(mk + swz(r0 + 8 * h, 8 * (j0 + j) + 2 * q)) : 0x3f803f80u;
+        float cs[NJ][2];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int jj = j0 + j, col = 8 * jj + 2 * q;
+          float wa0 = 0.f, wa1 = 0.f;
+          if (pi == 1) {
+            wa0 = __ldg(w_alpha + col);
+            wa1 = __ldg(w_alpha + col + 1);
+          }
+          cs[j][0] = cs[j][1] = 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float v0 = acc[4 * jj + 2 * h], v1 = acc[4 * jj + 2 * h + 1];
+            if (pi == 1) {
+              v0 = fmaf(gs[h], wa0, v0);
+              v1 = fmaf(gs[h], wa1, v1);
+            }
+            if (!(__uint_as_float(mw[j][h] << 16) > 0.f)) v0 = 0.f;
+            if (!(__uint_as_float(mw[j][h] & 0xffff0000u) > 0.f)) v1 = 0.f;
+            const __nv_bfloat162 pk = __floats2bfloat162_rn(v0, v1);
+            sts32(dst + swz(r0 + 8 * h, col), *reinterpret_cast<const uint32_t*>(&pk));
+            cs[j][0] += v0;
+            cs[j][1] += v1;
+          }
+        }
+#pragma unroll
+        for (int x = 4; x < 32; x <<= 1)
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            cs[j][0] += __shfl_xor_sync(0xffffffffu, cs[j][0], x);
+            cs[j][1] += __shfl_xor_sync(0xffffffffu, cs[j][1], x);
+          }
+        if (g == 0) {
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const int col = 8 * (j0 + j) + 2 * q;
+            colsum[warp * H + col] = cs[j][0];
+            colsum[warp * H + col + 1] = cs[j][1];
+          }
+        }
+      }
+      if (masked) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(mempty + 8 * slot);
+        ++mit;
+      }
+      fence_async_smem();
+      wg_sync(bar_id);
+      if (t == 0) {
+        for (int x = 0; x < KCH; ++x) {
+          tma_store_2d(&m.blocks[n_act + nt + 1 - pi], 64 * x, (int)k0,
+                       cot + nxt * 2 * kCHalf + x * kCHalf);
+        }
+        bulk_commit();
+      }
+      float* bias = mine + aux_bias(nt + 1 - pi, H);
+      for (int c = t; c < H; c += 128) {
+        bias[c] += (colsum[c] + colsum[H + c]) + (colsum[2 * H + c] + colsum[3 * H + c]);
+      }
+      cur = nxt;
+    }
+  }
+  if (slot_smem) {
+    wg_sync(bar_id);
+    for (int i = t; i < n_slot; i += 128) slot_out[i] = mine[i];
+  }
+  if (t == 0) bulk_wait_all();
 }
 
 __global__ void __launch_bounds__(kSumThreads) sum_rays_bf16_kernel(const float* v, int n,
@@ -1076,8 +1496,8 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 }
 
 template <int NTM>
-int launch_pass(const TrainArgs& a, int n_real, int tiles, cudaStream_t s) {
-  const size_t fs = fwd_smem(NTM * 16, a.dxp).total, cs = chain_smem(NTM * 16).total;
+int launch_pass(const TrainArgs& a, const ChainMaps& cm, int n_real, int tiles, cudaStream_t s) {
+  const size_t fs = fwd_smem(NTM * 16, a.dxp).total, cs = chain_smem_for(a).total;
   const size_t ps = (size_t)kRayWarps * 7 * a.n_samples * sizeof(float);
   cudaError_t err = set_smem(train_fwd_bf16_kernel<kLoss, NTM>, fs);
   if (err == cudaSuccess) err = set_smem(train_chain_bf16_kernel<NTM>, cs);
@@ -1091,15 +1511,16 @@ int launch_pass(const TrainArgs& a, int n_real, int tiles, cudaStream_t s) {
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   train_composite_kernel<<<(a.n_rays + kRayWarps - 1) / kRayWarps, kRayWarps * 32, ps, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  train_chain_bf16_kernel<NTM><<<a.chain_ctas, kThreads, cs, s>>>(a, n_real, tiles);
+  train_chain_bf16_kernel<NTM><<<a.chain_ctas / 2, kChainThreads, cs, s>>>(a, cm, n_real,
+                                                                           2 * tiles);
   return (int)cudaGetLastError();
 }
 
 // The field kernels' launches (see the head of this file): kernel 2's prep
 // and forward, or kernel 3's prep, forward and chain.
 template <int kOwner, int NTM>
-int launch_field(const TrainArgs& a, int n_real, int tiles, cudaStream_t s) {
-  const size_t fs = fwd_smem(NTM * 16, a.dxp).total, cs = chain_smem(NTM * 16).total;
+int launch_field(const TrainArgs& a, const ChainMaps* cm, int n_real, int tiles, cudaStream_t s) {
+  const size_t fs = fwd_smem(NTM * 16, a.dxp).total, cs = chain_smem_for(a).total;
   cudaError_t err = set_smem(train_fwd_bf16_kernel<kOwner, NTM>, fs);
   if (err == cudaSuccess && kOwner == kFieldBwd) err = set_smem(train_chain_bf16_kernel<NTM>, cs);
   if (err != cudaSuccess) return (int)err;
@@ -1110,24 +1531,27 @@ int launch_field(const TrainArgs& a, int n_real, int tiles, cudaStream_t s) {
   train_fwd_bf16_kernel<kOwner, NTM><<<tiles, kThreads, fs, s>>>(a, n_real);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (kOwner == kFieldBwd) {
-    train_chain_bf16_kernel<NTM><<<a.chain_ctas, kThreads, cs, s>>>(a, n_real, tiles);
+    train_chain_bf16_kernel<NTM><<<a.chain_ctas / 2, kChainThreads, cs, s>>>(a, *cm, n_real,
+                                                                             2 * tiles);
   }
   return (int)cudaGetLastError();
 }
 
 template <int kOwner>
-int launch_field_width(const TrainArgs& a, int n_real, int tiles, cudaStream_t s) {
+int launch_field_width(const TrainArgs& a, const ChainMaps* cm, int n_real, int tiles,
+                       cudaStream_t s) {
   switch (a.hidden / 32) {
-    case 1: return launch_field<kOwner, 2>(a, n_real, tiles, s);
-    case 2: return launch_field<kOwner, 4>(a, n_real, tiles, s);
-    case 3: return launch_field<kOwner, 6>(a, n_real, tiles, s);
-    default: return launch_field<kOwner, 8>(a, n_real, tiles, s);
+    case 1: return launch_field<kOwner, 2>(a, cm, n_real, tiles, s);
+    case 2: return launch_field<kOwner, 4>(a, cm, n_real, tiles, s);
+    case 3: return launch_field<kOwner, 6>(a, cm, n_real, tiles, s);
+    default: return launch_field<kOwner, 8>(a, cm, n_real, tiles, s);
   }
 }
 
 template <int NTM>
-int occupancy(int dxp, int* fwd_ctas, int* chain_ctas, int* fwd_bytes, int* chain_bytes) {
-  const size_t fs = fwd_smem(NTM * 16, dxp).total, cs = chain_smem(NTM * 16).total;
+int occupancy(const TrainArgs& a, int* fwd_ctas, int* chain_ctas, int* fwd_bytes,
+              int* chain_bytes) {
+  const size_t fs = fwd_smem(NTM * 16, a.dxp).total, cs = chain_smem_for(a).total;
   *fwd_bytes = (int)fs;
   *chain_bytes = (int)cs;
   cudaError_t err = set_smem(train_fwd_bf16_kernel<kLoss, NTM>, fs);
@@ -1138,109 +1562,233 @@ int occupancy(int dxp, int* fwd_ctas, int* chain_ctas, int* fwd_bytes, int* chai
   }
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(chain_ctas, train_chain_bf16_kernel<NTM>,
-                                                        kThreads, cs);
+                                                        kChainThreads, cs);
   }
   return (int)err;
+}
+
+// The dW kernel's dynamic shared memory for the plan in a (slack to align
+// the ring to 1024 B, the stages, a full and an empty mbarrier per stage),
+// or 0 if the plan is not one the kernel takes.
+size_t dw_smem(const DwArgs& a) {
+  if (a.n_units < 1 || a.n_units > kDwMaxUnits || a.grid < 1 || a.max_pieces < 1 ||
+      a.n_stages < 2 || a.stage_bytes < kDwBoxBytes || a.stage_bytes % kDwBoxBytes != 0 ||
+      a.partial == nullptr || a.n_params < 1) {
+    return 0;
+  }
+  int total = 0;
+  for (int u = 0; u < a.n_units; ++u) {
+    const DwUnit& U = a.units[u];
+    if (U.n_a < 1 || U.n_b < 1 || U.n_a + U.n_b > kDwMaxBoxes ||
+        (U.n_a + U.n_b) * kDwBoxBytes > a.stage_bytes || U.n_blocks < 1 ||
+        U.n_blocks > kDwMaxBlocks || U.cost < 1 || U.tx < 1 ||
+        U.tx > (U.n_a + U.n_b) * kDwBoxBytes) {
+      return 0;
+    }
+    for (int x = 0; x < U.n_a + U.n_b; ++x) {
+      if (U.map[x] < 0 || U.map[x] >= kDwMaxMaps) return 0;
+    }
+    for (int x = 0; x < U.n_blocks; ++x) {
+      const DwBlock& k = U.blk[x];
+      if (k.a < 0 || k.a >= U.n_a || k.b < U.n_a || k.b >= U.n_a + U.n_b || k.n_lim < 1 ||
+          k.n_lim > kDwBox || k.m_lim < 1 || k.m_lim > kDwBox) {
+        return 0;
+      }
+    }
+    total += U.cost;
+  }
+  if (total != a.total_cost) return 0;
+  const size_t bytes = 1024 + (size_t)a.n_stages * (a.stage_bytes + 16);
+  return bytes <= (size_t)kDwSmemMax ? bytes : 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// sizeof the argument blocks (0: TrainArgs, 1: GemmArgs), and (2) the
-// floats of one chain CTA's slot for `hidden`, `num_trunk`, `dd`.
+// sizeof the argument blocks (0: TrainArgs, 1: DwArgs, 2: ChainMaps), and
+// (3) the floats of one chain CTA's slot for `hidden`, `num_trunk`, `dd`.
 int dexnerf_train_bf16_size(int which, int hidden, int num_trunk, int dd) {
   if (which == 0) return (int)sizeof(TrainArgs);
-  if (which == 1) return (int)sizeof(GemmArgs);
+  if (which == 1) return (int)sizeof(DwArgs);
+  if (which == 2) return (int)sizeof(ChainMaps);
   return aux_size(hidden, num_trunk, dd);
 }
 
+// CTA b's part of the unit at `pre` of `cost` in a dW launch over n_st
+// stages, as the kernel (dw_span) and the reduction (dw_pieces) split the
+// work: out = {slot, first stage, end stage, the unit's slots}. Returns 1
+// if b has a part of the unit, else 0 (out untouched).
+int dexnerf_train_bf16_dw_span(int n_st, int pre, int cost, int total, int grid, int b,
+                               int* out) {
+  int piece, j0, j1;
+  if (!dw_span(n_st, pre, cost, total, grid, b, &piece, &j0, &j1)) return 0;
+  out[0] = piece;
+  out[1] = j0;
+  out[2] = j1;
+  out[3] = dw_pieces(n_st, pre, cost, total, grid);
+  return 1;
+}
+
 // The prep, forward, compositing and chain launches of one chunk: n_real =
-// n_rays * n_samples scratch rows in `tiles` tiles of 128. Returns a
-// cudaError_t (0 on success); launches are asynchronous on `stream`.
-int dexnerf_train_bf16_pass(const void* args, int n_real, int tiles, void* stream) {
+// n_rays * n_samples scratch rows in `tiles` tiles of 128; maps is the
+// chain's ChainMaps. Returns a cudaError_t (0 on success); launches are
+// asynchronous on `stream`.
+int dexnerf_train_bf16_pass(const void* args, const void* maps, int n_real, int tiles,
+                            void* stream) {
   const TrainArgs& a = *static_cast<const TrainArgs*>(args);
   if (a.n_samples < 1 || a.n_samples > kMaxSamples || a.num_trunk < 0 || a.num_trunk > 31 ||
       a.num_trunk + 8 > kAux || a.num_trunk + 5 > kMaxBlocks || a.fx > kMaxFreq ||
       a.fd > kMaxFreq || a.dd > kMaxDD || a.dx < 1 || a.dxp % kKc != 0 || a.dxp < a.dx ||
-      a.hidden % 32 != 0 || a.hidden < 32 || a.hidden > 128 || a.chain_ctas < 1 ||
+      a.hidden % 32 != 0 || a.hidden < 32 || a.hidden > 128 || a.chain_ctas < 2 ||
+      a.chain_ctas % 2 != 0 || maps == nullptr ||
       (long long)n_real != (long long)a.n_rays * a.n_samples ||
       tiles != (n_real + kTile - 1) / kTile) {
     return (int)cudaErrorInvalidValue;
   }
+  ChainMaps cm;  // an aligned copy of the caller's maps
+  memcpy(&cm, maps, sizeof cm);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a.hidden / 32) {
-    case 1: return launch_pass<2>(a, n_real, tiles, s);
-    case 2: return launch_pass<4>(a, n_real, tiles, s);
-    case 3: return launch_pass<6>(a, n_real, tiles, s);
-    default: return launch_pass<8>(a, n_real, tiles, s);
+    case 1: return launch_pass<2>(a, cm, n_real, tiles, s);
+    case 2: return launch_pass<4>(a, cm, n_real, tiles, s);
+    case 3: return launch_pass<6>(a, cm, n_real, tiles, s);
+    default: return launch_pass<8>(a, cm, n_real, tiles, s);
   }
 }
 
 // The field kernels at bf16 on one chunk of n_rays rays (n_real = n_rays *
 // n_samples rows in `tiles` tiles of 128): kernel 2's forward (backward =
 // 0: raw into [n_real][4], no scratch) or kernel 3's forward and chain
-// (backward = 1: the scratch, the chain CTAs' slots, graw = the cotangent
-// of raw). The points come from pts. Returns a cudaError_t.
-int dexnerf_field_bf16_pass(const void* args, int n_real, int tiles, int backward,
-                            void* stream) {
+// (backward = 1: the scratch, the chain's slots and ChainMaps maps, graw =
+// the cotangent of raw). The points come from pts. Returns a cudaError_t.
+int dexnerf_field_bf16_pass(const void* args, const void* maps, int n_real, int tiles,
+                            int backward, void* stream) {
   const TrainArgs& a = *static_cast<const TrainArgs*>(args);
   if (a.n_samples < 1 || a.num_trunk < 0 || a.num_trunk > 31 || a.num_trunk + 8 > kAux ||
       a.num_trunk + 5 > kMaxBlocks || a.fx > kMaxFreq || a.fd > kMaxFreq || a.dd > kMaxDD ||
       a.dx < 1 || a.dxp % kKc != 0 || a.dxp < a.dx || a.hidden % 32 != 0 || a.hidden < 32 ||
       a.hidden > 128 || a.pts == nullptr ||
-      (backward ? a.chain_ctas < 1 || a.scratch == nullptr || a.graw == nullptr
+      (backward ? a.chain_ctas < 2 || a.chain_ctas % 2 != 0 || a.scratch == nullptr ||
+                      a.graw == nullptr || maps == nullptr
                 : a.raw == nullptr) ||
       (long long)n_real != (long long)a.n_rays * a.n_samples ||
       tiles != (n_real + kTile - 1) / kTile) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return backward ? launch_field_width<kFieldBwd>(a, n_real, tiles, s)
-                  : launch_field_width<kFieldFwd>(a, n_real, tiles, s);
+  if (!backward) return launch_field_width<kFieldFwd>(a, nullptr, n_real, tiles, s);
+  ChainMaps cm;
+  memcpy(&cm, maps, sizeof cm);
+  return launch_field_width<kFieldBwd>(a, &cm, n_real, tiles, s);
 }
 
-int dexnerf_train_bf16_dw(const void* args, int n_tiles, void* stream) {
-  const GemmArgs& a = *static_cast<const GemmArgs*>(args);
-  if (a.n_items < 1 || a.n_items > kMaxItems || a.n_splits < 1 || n_tiles < 1) {
+// A tensor map of one [rows][width] bf16 block at ptr for the dW and chain
+// kernels, into out (128 bytes): [box_rows][64] boxes, 128 B swizzle, zeros
+// past the block's width; [64][8] boxes, unswizzled, for an 8-wide block.
+// Returns a cudaError_t.
+int dexnerf_train_bf16_tensor_map(void* out, const void* ptr, long long width, long long rows,
+                                  int box_rows) {
+  static PFN_encodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) {
+      return (int)cudaErrorSymbolNotFound;
+    }
+    encode = reinterpret_cast<PFN_encodeTiled>(fn);
+  }
+  if (width < 8 || width % 8 != 0 || rows < 1 || box_rows < 8 || box_rows > 256) {
     return (int)cudaErrorInvalidValue;
   }
-  for (int i = 0; i < a.n_items; ++i) {
-    const GemmItem& g = a.items[i];
-    if (g.ldd % 8 != 0 || g.lda % 8 != 0 || g.n > g.ldd || g.m > g.lda) {
-      return (int)cudaErrorInvalidValue;
-    }
-  }
-  train_dw_bf16_kernel<<<dim3(n_tiles, a.n_splits), kGemmThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(a);
+  const cuuint64_t dims[2] = {(cuuint64_t)width, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)width * 2};
+  const cuuint32_t box[2] = {width == 8 ? 8u : (cuuint32_t)kDwBox, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(static_cast<CUtensorMap*>(out), CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                            const_cast<void*>(ptr), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            width == 8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The weight-gradient products of chunk `chunk` (n_st stages of 64 scratch
+// rows) by the plan in args (a DwArgs). Returns a cudaError_t.
+int dexnerf_train_bf16_dw(const void* args, int n_st, int chunk, void* stream) {
+  DwArgs a;  // an aligned copy of the caller's block
+  memcpy(&a, args, sizeof a);
+  const size_t smem = dw_smem(a);
+  if (smem == 0 || n_st < 1 || chunk < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = set_smem(train_dw_bf16_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  train_dw_bf16_kernel<<<a.grid, kDwThreads, smem, static_cast<cudaStream_t>(stream)>>>(a, n_st,
+                                                                                         chunk);
   return (int)cudaGetLastError();
 }
 
-// The gradient of every parameter (see reduce_bf16_kernel) and, when loss
-// is not null, the sum of the n_rays per-ray losses into *loss.
-int dexnerf_train_bf16_reduce(const float* partial, int n_parts, long long n_params,
+// The gradient of every parameter (see reduce_bf16_kernel; the dW slots of
+// n_chunks chunks, the last of n_st_last stages, the others of n_st_full,
+// by the plan in dw_args) and, when loss is not null, the sum of the n_rays
+// per-ray losses into *loss.
+int dexnerf_train_bf16_reduce(const void* dw_args, int n_chunks, int n_st_full, int n_st_last,
                               const float* aux_part, int n_aux_parts, int n_aux, const int* map,
                               float* grad, const float* loss_ray, int n_rays, float* loss,
                               void* stream) {
+  DwArgs a;
+  memcpy(&a, dw_args, sizeof a);
+  if (dw_smem(a) == 0 || n_chunks < 1 || n_st_full < 1 || n_st_last < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  DwSpans sp;
+  sp.n_units = a.n_units;
+  sp.total_cost = a.total_cost;
+  sp.grid = a.grid;
+  sp.max_pieces = a.max_pieces;
+  for (int u = 0, pre = 0; u < kDwMaxUnits; ++u) {
+    sp.pre[u] = pre;
+    sp.cost[u] = u < a.n_units ? a.units[u].cost : 0;
+    pre += sp.cost[u];
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  reduce_bf16_kernel<<<(unsigned)((n_params + 255) / 256), 256, 0, s>>>(
-      partial, n_parts, n_params, aux_part, n_aux_parts, n_aux, map, grad);
+  reduce_bf16_kernel<<<(unsigned)((a.n_params + 255) / 256), 256, 0, s>>>(
+      sp, a.partial, n_chunks, n_st_full, n_st_last, a.n_params, aux_part, n_aux_parts, n_aux,
+      map, grad);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || loss == nullptr) return (int)err;
   sum_rays_bf16_kernel<<<1, kSumThreads, 0, s>>>(loss_ray, n_rays, loss);
   return (int)cudaGetLastError();
 }
 
+// CTAs per SM of the dW kernel with `smem` bytes of shared memory.
+int dexnerf_train_bf16_dw_occupancy(int smem, int* ctas) {
+  cudaError_t err = set_smem(train_dw_bf16_kernel, smem);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, train_dw_bf16_kernel, kDwThreads,
+                                                        smem);
+  }
+  return (int)err;
+}
+
 // CTAs per SM of the forward and chain kernels at width `hidden` (a
-// multiple of 32) with a dxp-wide encoding, and their shared-memory bytes.
-int dexnerf_train_bf16_occupancy(int hidden, int dxp, int* fwd_ctas, int* chain_ctas,
-                                 int* fwd_bytes, int* chain_bytes) {
+// multiple of 32) with a dxp-wide encoding, num_trunk trunk layers and a
+// dd-wide viewdir encoding, and their shared-memory bytes.
+int dexnerf_train_bf16_occupancy(int hidden, int dxp, int num_trunk, int dd, int* fwd_ctas,
+                                 int* chain_ctas, int* fwd_bytes, int* chain_bytes) {
   if (hidden % 32 != 0 || hidden < 32 || hidden > 128) return (int)cudaErrorInvalidValue;
+  TrainArgs a;
+  a.hidden = hidden;
+  a.dxp = dxp;
+  a.num_trunk = num_trunk;
+  a.dd = dd;
   switch (hidden / 32) {
-    case 1: return occupancy<2>(dxp, fwd_ctas, chain_ctas, fwd_bytes, chain_bytes);
-    case 2: return occupancy<4>(dxp, fwd_ctas, chain_ctas, fwd_bytes, chain_bytes);
-    case 3: return occupancy<6>(dxp, fwd_ctas, chain_ctas, fwd_bytes, chain_bytes);
-    default: return occupancy<8>(dxp, fwd_ctas, chain_ctas, fwd_bytes, chain_bytes);
+    case 1: return occupancy<2>(a, fwd_ctas, chain_ctas, fwd_bytes, chain_bytes);
+    case 2: return occupancy<4>(a, fwd_ctas, chain_ctas, fwd_bytes, chain_bytes);
+    case 3: return occupancy<6>(a, fwd_ctas, chain_ctas, fwd_bytes, chain_bytes);
+    default: return occupancy<8>(a, fwd_ctas, chain_ctas, fwd_bytes, chain_bytes);
   }
 }
 

@@ -165,8 +165,8 @@ def _launch(model, pts, viewdirs, *, log_sampling_xyz, log_sampling_dir,
         args.pts, args.viewdirs, args.raw = pts.data_ptr(), viewdirs.data_ptr(), raw.data_ptr()
         args.ray0, args.n_rays = 0, N
         stream = torch.cuda.current_stream(pts.device).cuda_stream
-        check(lib, lib.dexnerf_field_bf16_pass(ctypes.addressof(args), N * S, -(-N * S // 128),
-                                               0, stream),
+        check(lib, lib.dexnerf_field_bf16_pass(ctypes.addressof(args), None, N * S,
+                                               -(-N * S // 128), 0, stream),
               "fused field bf16 forward launch")
         launches += 1
         launches_bf16 += 1

@@ -15,9 +15,9 @@ scratch and the weight-gradient launches of ``ops/_weight_grads.py``; at
 bfloat16/bfloat16 it is the prep, forward and chain kernels of
 ``ops/csrc/fused_train_loss_bf16.cu`` on the caller's ``g`` (no
 compositing), with kernel 4's bf16 scratch, dW and fixed-order reduction
-(``ops/fused_train_loss.py::Bf16Gradients``): ``mma.sync`` tensor cores,
-bf16 operands, activations and dW operands, f32 heads, bias sums and
-chain, bitwise-repeatable runs. A mixed pair raises on the card. On CPU
+(``ops/fused_train_loss.py::Bf16Gradients``): tensor cores (``mma.sync``
+forward, ``wgmma`` chain and dW), bf16 operands, activations and dW
+operands, f32 heads, bias sums and chain, bitwise-repeatable runs. A mixed pair raises on the card. On CPU
 tensors both halves are the plain version at any pair: the forward is
 ``fused_field_reference`` and the backward autograd through the model, or
 through ``flex_forward_train`` (the contract's three roundings) when a
@@ -93,8 +93,9 @@ def _launch_backward(model, pts, viewdirs, g, *, log_sampling_xyz, log_sampling_
         for c in range(wg.n_chunks):
             ray0, n_rows, tiles = wg.chunk_args(args, c)
             args.graw = g.data_ptr() + 16 * ray0 * S  # the chunk's [rows][4] cotangents
-            check(lib, lib.dexnerf_field_bf16_pass(ctypes.addressof(args), n_rows, tiles, 1,
-                                                   stream),
+            check(lib, lib.dexnerf_field_bf16_pass(ctypes.addressof(args),
+                                                   ctypes.addressof(wg.chain_maps), n_rows,
+                                                   tiles, 1, stream),
                   "fused field bf16 backward launch")
             wg.dw(c, tiles, stream)
         grads = wg.reduce(stream)

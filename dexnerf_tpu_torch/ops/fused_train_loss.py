@@ -40,11 +40,13 @@ Its design, per chunk: a per-ray prep (viewdir encoding and bias), the
 forward of each 128-sample tile on ``mma.sync`` (kernel 1's bf16 tile:
 weights streamed as [N, 32] K-chunks through a 4-stage ``cp.async`` ring,
 f32 heads from the accumulators), f32 compositing and its backward one
-warp per ray, the cotangent chain on ``mma.sync`` against
-:func:`pack_backward_weights_bf16` with the bias sums and the viewdir
-rows' dW accumulated per CTA in a fixed order, and the weight gradients as
-64 x 64 ``mma.sync`` tiles per K-range slot; one fixed-order reduction:
-bitwise-repeatable runs. Widths that are not a multiple of 32 run
+warp per ray, the cotangent chain on ``wgmma`` against
+:func:`pack_backward_weights_bf16`, its weights, masks and stores moved by
+TMA, with the bias sums and the viewdir rows' dW accumulated per consumer
+warpgroup in a fixed order, and the weight gradients on ``wgmma`` by the
+plan of :func:`dw_plan` (each scratch block read once per unit, TMA boxes,
+equal shares of the bytes per CTA, one slot per CTA and unit); one
+fixed-order reduction: bitwise-repeatable runs. Widths that are not a multiple of 32 run
 zero-padded to one. The same kernels, with :func:`bf16_args` and
 :class:`Bf16Gradients`, are the bf16 routes of the field kernels (kernel 2
 forward, kernel 3 backward: ``ops/fused_mlp.py``, ``ops/fused_mlp_train.py``).
@@ -60,7 +62,7 @@ from __future__ import annotations
 
 import ctypes
 import itertools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -106,9 +108,15 @@ MAX_LAYERS = 40
 MAX_FREQ = 16
 MAX_SAMPLES = 256
 MAX_HIDDEN = 128
-# of ops/csrc/fused_train_loss_bf16.cu (kMaxBlocks, kGT)
+# of ops/csrc/fused_train_loss_bf16.cu (kMaxBlocks, kDw*)
 MAX_BLOCKS = MAX_LAYERS + 8
-BF16_DW_TILE = 64
+DW_BOX = 64
+DW_MAX_MAPS = 2 * MAX_LAYERS - 8
+DW_MAX_UNITS = 36
+DW_MAX_BOXES = 6
+DW_MAX_BLOCKS = 8
+DW_SMEM_MAX = 232448
+CHAIN_KCHUNK = 64  # K of a chain weight chunk (one [Hp][64] TMA box)
 SUPERVISION = ("rgb", "luminance")
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -431,28 +439,197 @@ class _Bf16TrainArgs(ctypes.Structure):
     ]
 
 
-class _Bf16GemmItem(ctypes.Structure):
-    """Mirror of ``GemmItem`` in ops/csrc/fused_train_loss_bf16.cu: one
-    weight-gradient product over sample-major bf16 operands."""
+class _DwBlock(ctypes.Structure):
+    """Mirror of ``DwBlock`` in ops/csrc/fused_train_loss_bf16.cu."""
 
-    _fields_ = [("d", ctypes.c_void_p), ("a", ctypes.c_void_p)] + [
-        (name, ctypes.c_int32)
-        for name in ("ldd", "lda", "n", "m", "m_tiles", "tile0", "w_off", "ldw", "col_off",
-                     "pad")
+    _fields_ = [(name, ctypes.c_int32)
+                for name in ("a", "b", "small", "base", "ldw", "n_lim", "m_lim", "pad")]
+
+
+class _DwUnit(ctypes.Structure):
+    """Mirror of ``DwUnit``: one unit of :func:`dw_plan`."""
+
+    _fields_ = [(name, ctypes.c_int32) for name in ("n_a", "n_b", "n_blocks", "cost", "tx")] + [
+        ("pad", ctypes.c_int32 * 3),
+        ("map", ctypes.c_int32 * DW_MAX_BOXES),
+        ("col", ctypes.c_int32 * DW_MAX_BOXES),
+        ("blk", _DwBlock * DW_MAX_BLOCKS),
     ]
 
 
-class _Bf16GemmArgs(ctypes.Structure):
+class _DwArgs(ctypes.Structure):
+    """Mirror of ``DwArgs``: the tensor maps of the scratch blocks (128
+    bytes each, filled by the library), the plan's units and the slots."""
+
     _fields_ = [
-        ("items", _Bf16GemmItem * MAX_ITEMS),
+        ("maps", ctypes.c_uint8 * (128 * DW_MAX_MAPS)),
+        ("units", _DwUnit * DW_MAX_UNITS),
         ("partial", ctypes.c_void_p),
         ("n_params", ctypes.c_int64),
-        ("k", ctypes.c_int64),
-        ("n_items", ctypes.c_int32),
-        ("n_splits", ctypes.c_int32),
-        ("part0", ctypes.c_int32),
-        ("pad", ctypes.c_int32),
+    ] + [(name, ctypes.c_int32) for name in (
+        "n_units", "total_cost", "grid", "max_pieces", "n_stages", "stage_bytes")] + [
+        ("pad", ctypes.c_int32 * 6),
     ]
+
+
+class _ChainMaps(ctypes.Structure):
+    """Mirror of ``ChainMaps``: the tensor maps of the backward pack and of
+    the scratch blocks (as ``_DwArgs.maps``)."""
+
+    _fields_ = [("w", ctypes.c_uint8 * 128), ("blocks", ctypes.c_uint8 * (128 * DW_MAX_MAPS))]
+
+
+class DwUnit(NamedTuple):
+    """One unit of the bf16 weight-gradient plan: products read together,
+    each operand once. ``a`` and ``b`` are the boxes of the cotangent and
+    activation operands, (scratch block, first column): the block indexes
+    :func:`_scratch_layout`'s activation blocks, then its cotangent blocks;
+    a box is 64 samples x 64 columns, zero past the block's width, or 64 x
+    8 for an 8-wide block (a head's cotangents; ``a_small``). ``blocks`` are
+    the 64 x 64 output blocks, (A box, B box (both indices into ``a +
+    b``), offset in the flat gradient, its row stride, rows, columns).
+    ``cost`` is the bytes per sample the unit reads, over 16; ``tx`` the
+    bytes of one stage of 64 samples."""
+
+    a: Tuple[Tuple[int, int], ...]
+    b: Tuple[Tuple[int, int], ...]
+    blocks: Tuple[Tuple[int, int, int, int, int, int], ...]
+    cost: int
+    tx: int
+    a_small: Tuple[bool, ...]
+
+
+def dw_unit(widths, products) -> DwUnit:
+    """The unit of ``products`` over scratch blocks of ``widths`` columns:
+    each (cotangent block, activation block, offset of dW[0][0] in the flat
+    gradient, its row stride, N, M). Every block's boxes are read once."""
+    a_blk = list(dict.fromkeys(p[0] for p in products))
+    b_blk = list(dict.fromkeys(p[1] for p in products))
+    a = [(k, c) for k in a_blk for c in range(0, widths[k], DW_BOX)]
+    b = [(k, c) for k in b_blk for c in range(0, widths[k], DW_BOX)]
+    blocks = []
+    for d, x, off, ldw, n, m in products:
+        for ia, (k, n0) in enumerate(a):
+            for ib, (kb, m0) in enumerate(b):
+                if k == d and kb == x and n0 < n and m0 < m:
+                    blocks.append((ia, len(a) + ib, off + n0 * ldw + m0, ldw,
+                                   min(DW_BOX, n - n0), min(DW_BOX, m - m0)))
+    cost = sum(min(DW_BOX, widths[k] - c) * 2 // 16 for k, c in a + b)
+    tx = sum(64 * 8 * 2 if widths[k] == 8 else DW_BOX * DW_BOX * 2 for k, _ in a + b)
+    return DwUnit(tuple(a), tuple(b), tuple(blocks), cost, tx,
+                  tuple(widths[k] == 8 for k, _ in a))
+
+
+def dw_plan(model: FlexibleNeRFModel) -> Tuple[DwUnit, ...]:
+    """The units of the bf16 weight gradients dW[n][m] = sum_k d[k][n]
+    a[k][m] (d a layer's output cotangent, a its input, both sample-major
+    bf16 scratch blocks), each placed in the flat gradient
+    (:func:`_param_offsets`). In order: layer1 (d_0 x e); each trunk layer
+    i (d_{i+1} x a_i, and on a skip layer d_{i+1} x e, the cotangent read
+    once: e is the narrower operand to read twice); fc_feat and fc_alpha
+    (sharing a_last); layers_dir.0's feat rows (d_y x feat) with fc_rgb
+    (d_rgb x y), a unit too small alone. The viewdir rows of layers_dir.0
+    and the biases are the chain's (:func:`_aux_map`)."""
+    H, nt, dx, dd = model.hidden_size, model.num_layers - 1, model.dim_xyz, model.dim_dir
+    _, _, act_w, dlt_w = _scratch_layout(model)
+    widths = act_w + dlt_w
+    offs, _ = _param_offsets(model)
+    dlt = len(act_w)  # the first cotangent block
+
+    def unit(products):
+        """products: (cotangent block, activation block, param, ldw, col_off, N, M)."""
+        return dw_unit(widths, [(d, x, offs[name] + col_off, ldw, n, m)
+                                for d, x, name, ldw, col_off, n, m in products])
+
+    units = [unit([(dlt, 0, "layer1.weight", dx, 0, H, dx)])]
+    for i, lin in enumerate(model.layers_xyz):
+        name, ldw = f"layers_xyz.{i}.weight", lin.in_features
+        products = [(dlt + i + 1, 1 + i, name, ldw, 0, H, H)]
+        if i in model.skips:
+            products.append((dlt + i + 1, 0, name, ldw, H, H, dx))
+        units.append(unit(products))
+    units += [
+        unit([(dlt + nt + 1, nt + 1, "fc_feat.weight", H, 0, H, H),
+              (dlt + nt + 4, nt + 1, "fc_alpha.weight", H, 0, 1, H)]),
+        unit([(dlt + nt + 2, nt + 2, "layers_dir.0.weight", H + dd, 0, H // 2, H),
+              (dlt + nt + 3, nt + 3, "fc_rgb.weight", H // 2, 0, 3, H // 2)]),
+    ]
+    return tuple(units)
+
+
+def dw_owner(p: int, total: int, grid: int) -> int:
+    """The CTA whose share [b T / G, (b + 1) T / G) of the plan's work holds
+    position ``p`` (``dw_owner`` in the kernel)."""
+    return ((p + 1) * grid - 1) // total
+
+
+def dw_spans(costs, n_st: int, grid: int):
+    """The dW kernel's work split (``dw_span`` there): the units laid end
+    to end, unit u over n_st ``costs[u]`` positions (its stages of 64
+    samples), CTA b owning [b T / G, (b + 1) T / G) of the total T. For each
+    CTA, its parts as (unit, slot, first stage, end stage): its slot is its
+    rank among the CTAs with a part of the unit, and it writes the slot even
+    when it has no stage of the unit."""
+    T = n_st * sum(costs)
+    spans = [[] for _ in range(grid)]
+    pre = 0
+    for u, c in enumerate(costs):
+        S, E = n_st * pre, n_st * (pre + c)
+        first = dw_owner(S, T, grid)
+        for b in range(first, dw_owner(E - 1, T, grid) + 1):
+            lo, hi = b * T // grid, (b + 1) * T // grid
+            j0, j1 = (min(n_st, -(-(x - S) // c)) if x > S else 0 for x in (lo, hi))
+            spans[b].append((u, b - first, j0, j1))
+        pre += c
+    return spans
+
+
+def dw_max_pieces(costs, grid: int) -> int:
+    """A bound on the slots one unit takes in any launch (the CTAs whose
+    shares meet an interval of n_st cost positions of n_st sum(costs))."""
+    return min(grid, max(-(-c * grid // sum(costs)) + 1 for c in costs))
+
+
+# (widths, depth, skips, encodings, grid) -> (_DwArgs of the plan without the
+# tensor maps and slots, the kernel's shared-memory bytes)
+_dw_templates = {}
+
+
+def _cached_dw_template(model: FlexibleNeRFModel, grid: int):
+    key = (model.hidden_size, model.num_layers, tuple(model.skips), model.dim_xyz,
+           model.dim_dir, grid)
+    if key not in _dw_templates:
+        _dw_templates[key] = dw_template(dw_plan(model), grid)
+    return _dw_templates[key]
+
+
+def dw_template(units, grid: int):
+    """(a ``_DwArgs`` of ``units`` on ``grid`` CTAs, without the tensor
+    maps and the slots; the kernel's shared-memory bytes): the ring has as
+    many stages as fit, each as large as the unit with the most boxes."""
+    args = _DwArgs()
+    for slot, u in zip(args.units, units):
+        boxes = u.a + u.b
+        slot.n_a, slot.n_b, slot.n_blocks = len(u.a), len(u.b), len(u.blocks)
+        slot.cost, slot.tx = u.cost, u.tx
+        slot.map[:len(boxes)] = [k for k, _ in boxes]
+        slot.col[:len(boxes)] = [c for _, c in boxes]
+        for blk, v in zip(slot.blk, u.blocks):
+            blk.a, blk.b, blk.base, blk.ldw, blk.n_lim, blk.m_lim = v
+            blk.small = int(u.a_small[v[0]])
+    costs = [u.cost for u in units]
+    args.n_units, args.total_cost, args.grid = len(units), sum(costs), grid
+    args.max_pieces = dw_max_pieces(costs, grid)
+    args.stage_bytes = max(len(u.a) + len(u.b) for u in units) * DW_BOX * DW_BOX * 2
+    args.n_stages = min(8, (DW_SMEM_MAX - 1024) // (args.stage_bytes + 16))
+    return args, 1024 + args.n_stages * (args.stage_bytes + 16)
+
+
+def _k_chunks64(w: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """``w`` [N, K] zero-padded to ``n`` rows and ``k`` (a multiple of 64)
+    columns, as flat [k/64, n, 64]."""
+    w = F.pad(w, (0, k - w.shape[1], 0, n - w.shape[0]))
+    return w.reshape(n, k // CHAIN_KCHUNK, CHAIN_KCHUNK).transpose(0, 1).reshape(-1)
 
 
 def _backward_layout(model: FlexibleNeRFModel, w: dict) -> Tuple[torch.Tensor]:
@@ -460,11 +637,11 @@ def _backward_layout(model: FlexibleNeRFModel, w: dict) -> Tuple[torch.Tensor]:
     (name -> tensor), before rounding."""
     H = model.hidden_size
     Hp = bf16_hidden(H)
-    kp2 = _round_up(Hp // 2, BF16_KCHUNK)
+    k2, k = _round_up(Hp // 2, CHAIN_KCHUNK), _round_up(Hp, CHAIN_KCHUNK)
     nt = model.num_layers - 1
-    parts = [_k_chunks(w["layers_dir.0.weight"][:, :H].t(), kp2, Hp),
-             _k_chunks(w["fc_feat.weight"].t(), Hp, Hp)]
-    parts += [_k_chunks(w[f"layers_xyz.{i}.weight"][:, :H].t(), Hp, Hp)
+    parts = [_k_chunks64(w["layers_dir.0.weight"][:, :H].t(), k2, Hp),
+             _k_chunks64(w["fc_feat.weight"].t(), k, Hp)]
+    parts += [_k_chunks64(w[f"layers_xyz.{i}.weight"][:, :H].t(), k, Hp)
               for i in reversed(range(nt))]
     return (torch.cat(parts),)
 
@@ -473,10 +650,11 @@ def pack_backward_weights_bf16(model: FlexibleNeRFModel, device=None) -> torch.T
     """The bf16 chain's weights (``pack_backward_weights`` at bfloat16):
     each product's matrix [in, out] (the transpose of ``nn.Linear.weight``,
     rounded to bf16, zero-padded to Hp = ``bf16_hidden`` rows and to K a
-    multiple of 32) as [Hp, 32] K-chunks in the chain's order:
-    ``layers_dir.0`` (feat rows), ``fc_feat``, then ``layers_xyz`` from the
-    last to the first (h rows). The heads stay f32 (the forward pack's
-    aux). One gather of the parameters (``gather_plan``)."""
+    multiple of 64) as [Hp, 64] K-chunks (one 128 B-swizzled TMA box and
+    wgmma B operand each) in the chain's order: ``layers_dir.0`` (feat
+    rows), ``fc_feat``, then ``layers_xyz`` from the last to the first (h
+    rows). The heads stay f32 (the forward pack's aux). One gather of the
+    parameters (``gather_plan``)."""
     (idx,) = gather_plan(_backward_layout, model, next(model.parameters()).device)
     with torch.no_grad():
         return gather_params(model, idx)[0].to(torch.bfloat16).to(device)
@@ -508,17 +686,31 @@ def _cached_aux_map(model: FlexibleNeRFModel, device) -> Tuple[torch.Tensor, int
     return _aux_maps[key]
 
 
+def dw_unit_map(model: FlexibleNeRFModel) -> torch.Tensor:
+    """For each entry of the flat gradient, how many of :func:`dw_plan`'s
+    output blocks write it (0 or 1), and -1 - the unit of the last."""
+    offs, n = _param_offsets(model)
+    count = torch.zeros(n, dtype=torch.int32)
+    unit = torch.zeros(n, dtype=torch.int32)
+    for u, un in enumerate(dw_plan(model)):
+        for _, _, base, ldw, n_lim, m_lim in un.blocks:
+            idx = (base + torch.arange(n_lim)[:, None] * ldw + torch.arange(m_lim)).reshape(-1)
+            count[idx] += 1
+            unit[idx] = -1 - u
+    return count, unit
+
+
 def _aux_map(model: FlexibleNeRFModel, device) -> Tuple[torch.Tensor, int]:
-    """For each entry of the flat gradient: -1 where the dW slots hold it,
-    else its index in a chain CTA's slot (``aux_*`` in
-    ops/csrc/fused_train_loss_bf16.cu: the bias sums, then the viewdir rows
-    of ``layers_dir.0`` as [dd, Hp/2]). Returns the map and the slot
-    length."""
+    """For each entry of the flat gradient: -1 - its unit of
+    :func:`dw_plan` where the dW slots hold it, else its index in a chain
+    CTA's slot (``aux_*`` in ops/csrc/fused_train_loss_bf16.cu: the bias
+    sums, then the viewdir rows of ``layers_dir.0`` as [dd, Hp/2]). Returns
+    the map and the slot length."""
     H, nt, dd = model.hidden_size, model.num_layers - 1, model.dim_dir
     Hp = bf16_hidden(H)
     Hp2, H2 = Hp // 2, H // 2
     offs, n = _param_offsets(model)
-    m = torch.full((n,), -1, dtype=torch.int32)
+    m = dw_unit_map(model)[1]
 
     def put(name, start, count):
         m[offs[name]:offs[name] + count] = torch.arange(start, start + count, dtype=torch.int32)
@@ -538,60 +730,24 @@ def _aux_map(model: FlexibleNeRFModel, device) -> Tuple[torch.Tensor, int]:
     return m.to(device), vd + dd * Hp2
 
 
-def _dw_items(model, scratch, act_off, dlt_off, offs):
-    """The bf16 weight-gradient products over one chunk's scratch, as
-    (d, ldd, a, lda, N, M, w_off, ldw, col_off)."""
-    H, nt, dx, dd = model.hidden_size, model.num_layers - 1, model.dim_xyz, model.dim_dir
-    Hp, dxp, _, _ = _scratch_layout(model)
-    H2, Hp2 = H // 2, Hp // 2
-
-    def blk(off):
-        return scratch.data_ptr() + 2 * off
-
-    e, feat, y = blk(act_off[0]), blk(act_off[nt + 2]), blk(act_off[nt + 3])
-    items = [(blk(dlt_off[0]), Hp, e, dxp, H, dx, offs["layer1.weight"], dx, 0)]
-    for i, lin in enumerate(model.layers_xyz):
-        w, n_in = offs[f"layers_xyz.{i}.weight"], lin.in_features
-        items.append((blk(dlt_off[i + 1]), Hp, blk(act_off[1 + i]), Hp, H, H, w, n_in, 0))
-        if i in model.skips:
-            items.append((blk(dlt_off[i + 1]), Hp, e, dxp, H, dx, w, n_in, H))
-    a_last = blk(act_off[nt + 1])
-    items += [
-        (blk(dlt_off[nt + 1]), Hp, a_last, Hp, H, H, offs["fc_feat.weight"], H, 0),
-        (blk(dlt_off[nt + 4]), 8, a_last, Hp, 1, H, offs["fc_alpha.weight"], H, 0),
-        (blk(dlt_off[nt + 2]), Hp2, feat, Hp, H2, H, offs["layers_dir.0.weight"], H + dd, 0),
-        (blk(dlt_off[nt + 3]), 8, y, Hp2, 3, H2, offs["fc_rgb.weight"], H2, 0),
-    ]
-    return items
-
-
-def _bf16_gemm_args(items, partial, n_params: int, k: int, n_splits: int, part0: int):
-    args = _Bf16GemmArgs()
-    tile0 = 0
-    for slot, (d, ldd, a, lda, n, m, w_off, ldw, col_off) in zip(args.items, items):
-        m_tiles, n_tiles = -(-m // BF16_DW_TILE), -(-n // BF16_DW_TILE)
-        slot.d, slot.a, slot.ldd, slot.lda = d, a, ldd, lda
-        slot.n, slot.m, slot.m_tiles, slot.tile0 = n, m, m_tiles, tile0
-        slot.w_off, slot.ldw, slot.col_off = w_off, ldw, col_off
-        tile0 += m_tiles * n_tiles
-    args.partial = partial.data_ptr()
-    args.n_params, args.k = n_params, k
-    args.n_items, args.n_splits, args.part0 = len(items), n_splits, part0
-    return args, tile0
-
-
 def bf16_occupancy(model: FlexibleNeRFModel) -> dict:
-    """CTAs per SM and shared-memory bytes per CTA of the bf16 forward and
-    chain kernels for ``model``, as the CUDA runtime reports them (needs
-    the card)."""
+    """CTAs per SM and shared-memory bytes per CTA of the bf16 forward,
+    chain and weight-gradient kernels for ``model``, as the CUDA runtime
+    reports them (needs the card)."""
     from dexnerf_tpu_torch.ops._build import check, load_library
 
     lib = load_library()
-    v = [ctypes.c_int(0) for _ in range(4)]
+    v = [ctypes.c_int(0) for _ in range(5)]
     Hp, dxp, _, _ = _scratch_layout(model)
-    check(lib, lib.dexnerf_train_bf16_occupancy(Hp, dxp, *(ctypes.byref(x) for x in v)),
+    check(lib, lib.dexnerf_train_bf16_occupancy(Hp, dxp, model.num_layers - 1, model.dim_dir,
+                                                *(ctypes.byref(x) for x in v[:4])),
           "fused_train_loss bf16 occupancy query")
-    return {"forward": (v[0].value, v[2].value), "chain": (v[1].value, v[3].value)}
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    dw_smem = _cached_dw_template(model, sms)[1]
+    check(lib, lib.dexnerf_train_bf16_dw_occupancy(dw_smem, ctypes.byref(v[4])),
+          "bf16 weight-gradient occupancy query")
+    return {"forward": (v[0].value, v[2].value), "chain": (v[1].value, v[3].value),
+            "dw": (v[4].value, dw_smem)}
 
 
 def bf16_args(lib, model: FlexibleNeRFModel, n_rays: int, n_samples: int, *,
@@ -602,7 +758,7 @@ def bf16_args(lib, model: FlexibleNeRFModel, n_rays: int, n_samples: int, *,
     the bf16 kernels of the fused train loss (kernel 4) and of the fields
     (kernels 2 and 3); and the tensors it points to (keep them until the
     launches are done)."""
-    for which, struct in ((0, _Bf16TrainArgs), (1, _Bf16GemmArgs)):
+    for which, struct in ((0, _Bf16TrainArgs), (1, _DwArgs), (2, _ChainMaps)):
         if lib.dexnerf_train_bf16_size(which, 0, 0, 0) != ctypes.sizeof(struct):
             raise RuntimeError(f"{struct.__name__} is {ctypes.sizeof(struct)} bytes here but "
                                f"{lib.dexnerf_train_bf16_size(which, 0, 0, 0)} in the library")
@@ -633,20 +789,24 @@ class Bf16Gradients:
     fused train loss (kernel 4) and the field backward (kernel 3): the bf16
     scratch of one pass over ``n_rays`` rays of ``n_samples`` samples, run
     in chunks of ``chunk`` rays (rows ray-major, padded to whole 128-sample
-    tiles), the chain CTAs' slots, the dW slots and the launches that sum
-    them. The constructor points ``args`` (from :func:`bf16_args`) at the
-    scratch and the backward pack; per chunk ``c``, :meth:`chunk_args`
-    points it at the chunk, the caller launches its pass kernels, then
-    :meth:`dw` the chunk's weight-gradient products; :meth:`reduce` sums
-    every slot in a fixed order."""
+    tiles), the chain CTAs' slots, the dW plan (:func:`dw_plan`, with a TMA
+    tensor map of each scratch block, built once here: chunks reuse the
+    scratch), its slots and the launches that sum them. The constructor
+    points ``args`` (from :func:`bf16_args`) at the scratch and the backward
+    pack; per chunk ``c``, :meth:`chunk_args` points it at the chunk, the
+    caller launches its pass kernels, then :meth:`dw` the chunk's
+    weight-gradient products; :meth:`reduce` sums every slot in a fixed
+    order."""
 
     def __init__(self, lib, model: FlexibleNeRFModel, n_rays: int, n_samples: int, chunk: int,
                  args):
+        from dexnerf_tpu_torch.ops._build import check
+
         dev = next(model.parameters()).device
         nt, dd = model.num_layers - 1, model.dim_dir
         Hp, _, act_w, dlt_w = _scratch_layout(model)
         self.lib, self.model, self.n_rays, self.S, self.chunk = lib, model, n_rays, n_samples, chunk
-        self.n_aux = lib.dexnerf_train_bf16_size(2, Hp, nt, dd)
+        self.n_aux = lib.dexnerf_train_bf16_size(3, Hp, nt, dd)
         self.bmap, n_aux_py = _cached_aux_map(model, dev)
         if self.n_aux != n_aux_py:
             raise RuntimeError(f"chain slot of {n_aux_py} floats here but {self.n_aux} in the "
@@ -660,15 +820,25 @@ class Bf16Gradients:
         self.scratch = torch.empty(rows * (sum(act_w) + sum(dlt_w)), dtype=torch.bfloat16,
                                    device=dev)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        self.chain_ctas = max(1, min(rows // 128, 2 * sms))
+        # the chain's slots: two consumer warpgroups per CTA, one CTA per SM
+        self.chain_ctas = 2 * max(1, min(rows // 128, sms))
         self.aux_part = torch.empty(self.n_chunks * self.chain_ctas * self.n_aux, **f32)
         self.offs, self.n_params = _param_offsets(model)
-        self.items = _dw_items(model, self.scratch, act_off, dlt_off, self.offs)
-        self.n_tiles = _bf16_gemm_args(self.items, self.aux_part, self.n_params, 0, 1, 0)[1]
-        self.n_splits = max(1, min(256, 8 * sms // self.n_tiles))
-        self.partial = torch.empty(self.n_chunks * self.n_splits * self.n_params, **f32)
+        template, _ = _cached_dw_template(model, sms)
+        self.dw_args = _DwArgs.from_buffer_copy(template)
+        for i, (off, w) in enumerate(zip(act_off + dlt_off, act_w + dlt_w)):
+            check(lib, lib.dexnerf_train_bf16_tensor_map(
+                ctypes.addressof(self.dw_args) + 128 * i, self.scratch.data_ptr() + 2 * off, w,
+                rows, DW_BOX), "bf16 scratch tensor map")
+        self.partial = torch.empty(self.n_chunks * template.max_pieces * self.n_params, **f32)
+        self.dw_args.partial, self.dw_args.n_params = self.partial.data_ptr(), self.n_params
         self.grad = torch.empty(self.n_params, **f32)
         self.wbq = pack_backward_weights_bf16(model, dev)
+        self.chain_maps = _ChainMaps()
+        ctypes.memmove(self.chain_maps.blocks, self.dw_args.maps, ctypes.sizeof(self.dw_args.maps))
+        check(lib, lib.dexnerf_train_bf16_tensor_map(
+            ctypes.addressof(self.chain_maps), self.wbq.data_ptr(), CHAIN_KCHUNK,
+            self.wbq.numel() // CHAIN_KCHUNK, Hp), "bf16 backward-pack tensor map")
         args.scratch, args.wbq = self.scratch.data_ptr(), self.wbq.data_ptr()
         args.act_off[:len(act_off)] = act_off
         args.dlt_off[:len(dlt_off)] = dlt_off
@@ -685,13 +855,11 @@ class Bf16Gradients:
 
     def dw(self, c: int, tiles: int, stream: int) -> None:
         """Launch the weight-gradient products of chunk ``c`` (``tiles``
-        tiles of scratch rows)."""
+        tiles of scratch rows: 2 ``tiles`` stages of 64)."""
         from dexnerf_tpu_torch.ops._build import check
 
-        gargs = _bf16_gemm_args(self.items, self.partial, self.n_params, tiles * 128,
-                                self.n_splits, c * self.n_splits)[0]
-        check(self.lib, self.lib.dexnerf_train_bf16_dw(ctypes.addressof(gargs), self.n_tiles,
-                                                       stream),
+        check(self.lib, self.lib.dexnerf_train_bf16_dw(ctypes.addressof(self.dw_args), 2 * tiles,
+                                                       c, stream),
               "bf16 weight-gradient launch")
 
     def reduce(self, stream: int, loss_ray=None, loss=None) -> tuple:
@@ -700,8 +868,10 @@ class Bf16Gradients:
         buffer."""
         from dexnerf_tpu_torch.ops._build import check
 
+        last = self.n_rays - (self.n_chunks - 1) * self.chunk
         check(self.lib, self.lib.dexnerf_train_bf16_reduce(
-            self.partial.data_ptr(), self.n_chunks * self.n_splits, self.n_params,
+            ctypes.addressof(self.dw_args), self.n_chunks, self.rows // 64,
+            2 * -(-last * self.S // 128),
             self.aux_part.data_ptr(), self.n_chunks * self.chain_ctas, self.n_aux,
             self.bmap.data_ptr(), self.grad.data_ptr(),
             None if loss_ray is None else loss_ray.data_ptr(), self.n_rays,
@@ -759,7 +929,9 @@ def _launch_bf16(
     stream = torch.cuda.current_stream(dev).cuda_stream
     for c in range(wg.n_chunks):
         _, n_rows, tiles = wg.chunk_args(args, c)
-        check(lib, lib.dexnerf_train_bf16_pass(ctypes.addressof(args), n_rows, tiles, stream),
+        check(lib, lib.dexnerf_train_bf16_pass(ctypes.addressof(args),
+                                               ctypes.addressof(wg.chain_maps), n_rows, tiles,
+                                               stream),
               "fused_train_loss bf16 pass launch")
         wg.dw(c, tiles, stream)
     grads = wg.reduce(stream, loss_ray, loss)

@@ -364,8 +364,9 @@ def _plain(model, pts, vd, g):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("s", [64, 100, 128])
-@pytest.mark.parametrize("arch", [FULL, SMALL, dict(FULL, hidden_size=48)],
-                         ids=["8x128", "4x16", "h48"])
+@pytest.mark.parametrize("arch", [FULL, SMALL, dict(FULL, hidden_size=48), dict(FULL, hidden_size=32),
+                                  dict(FULL, hidden_size=64), dict(FULL, hidden_size=96)],
+                         ids=["8x128", "4x16", "h48", "h32", "h64", "h96"])
 def test_bf16_kernels_match_plain_on_card(cuda, arch, s):
     """Both bf16 kernels through the training field (kernel 2 forward,
     kernel 3 backward) and kernel 2 alone: one launch each of the bf16

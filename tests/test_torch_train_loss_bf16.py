@@ -17,6 +17,8 @@ installed:
 """
 
 import copy
+import ctypes
+import itertools
 
 import numpy as np
 import pytest
@@ -255,13 +257,13 @@ def test_pack_backward_weights_bf16_layout(hidden):
         torch.Generator().manual_seed(1))
     wbq = ftl.pack_backward_weights_bf16(m)
     H, Hp = hidden, fr.bf16_hidden(hidden)
-    kp2 = -(-Hp // 2 // 32) * 32
+    kp2, kp = -(-Hp // 2 // 64) * 64, -(-Hp // 64) * 64
     assert wbq.dtype == BF16 and Hp % 32 == 0
-    mats = [(m.layers_dir[0].weight[:, :H].t(), kp2), (m.fc_feat.weight.t(), Hp)] + [
-        (lin.weight[:, :H].t(), Hp) for lin in reversed(m.layers_xyz)]
+    mats = [(m.layers_dir[0].weight[:, :H].t(), kp2), (m.fc_feat.weight.t(), kp)] + [
+        (lin.weight[:, :H].t(), kp) for lin in reversed(m.layers_xyz)]
     pos = 0
     for w, k in mats:
-        got = wbq[pos:pos + Hp * k].reshape(k // 32, Hp, 32).transpose(0, 1).reshape(Hp, k)
+        got = wbq[pos:pos + Hp * k].reshape(k // 64, Hp, 64).transpose(0, 1).reshape(Hp, k)
         want = torch.zeros((Hp, k), dtype=BF16)
         want[:w.shape[0], :w.shape[1]] = w.detach().to(BF16)
         assert torch.equal(got, want)
@@ -372,8 +374,11 @@ def _assert_bf16_on_card(model, args, kw, kernel_out):
 @pytest.mark.parametrize(
     "arch,s",
     [(FULL, 64), (FULL, 128), (dict(FULL, hidden_size=16), 64), (dict(FULL, hidden_size=48), 128),
-     (ARCH, 8)],
-    ids=["8x128-64", "8x128-128", "h16-64", "h48-128", "8x16-8"],
+     (ARCH, 8), (dict(FULL, hidden_size=32), 64), (dict(FULL, hidden_size=64), 128),
+     (dict(FULL, hidden_size=96), 64), (dict(FULL, num_encoding_fn_xyz=16), 64),
+     (dict(FULL, num_encoding_fn_dir=10), 64)],
+    ids=["8x128-64", "8x128-128", "h16-64", "h48-128", "8x16-8", "h32-64", "h64-128", "h96-64",
+         "pe16-64", "dir10-64"],
 )
 def test_bf16_kernel_matches_plain_on_card(cuda, arch, s, supervision, depth):
     m, inp = _card_case(cuda, arch, s)
@@ -431,4 +436,88 @@ def test_bf16_kernel_refusals_on_card(cuda):
                             dw_dtype=BF16)
     assert (ftl.launches, ftl.launches_bf16) == before
     occ = ftl.bf16_occupancy(m)
-    assert occ["forward"][0] >= 2 and occ["chain"][0] >= 1, occ
+    assert occ["forward"][0] >= 2 and occ["chain"][0] >= 1 and occ["dw"][0] == 1, occ
+
+
+def _dw_on_card(ds, ns, a, m):
+    """The weight-gradient kernel and its reduction on one unit: each
+    cotangent block ``ds[i]`` [K, w_i] (its first ``ns[i]`` columns) against
+    the activations ``a`` [K, w] (its first ``m``), as [ns[i], m] f32."""
+    from dexnerf_tpu_torch.ops._build import check, load_library
+
+    lib = load_library()
+    K, dev = a.shape[0], a.device
+    offs = list(itertools.accumulate([0] + [n * m for n in ns]))
+    unit = ftl.dw_unit([d.shape[1] for d in ds] + [a.shape[1]],
+                       [(i, len(ds), offs[i], m, n, m) for i, n in enumerate(ns)])
+    args, _ = ftl.dw_template([unit], torch.cuda.get_device_properties(dev).multi_processor_count)
+    for i, t in enumerate(ds + [a]):
+        check(lib, lib.dexnerf_train_bf16_tensor_map(ctypes.addressof(args) + 128 * i,
+                                                     t.data_ptr(), t.shape[1], K, 64),
+              "tensor map")
+    partial = torch.empty(args.max_pieces * offs[-1], device=dev)
+    args.partial, args.n_params = partial.data_ptr(), offs[-1]
+    n_st = -(-K // 64)  # rows past K are zeros (the tensor map's bounds)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    check(lib, lib.dexnerf_train_bf16_dw(ctypes.addressof(args), n_st, 0, stream), "dW launch")
+    unit_of = torch.full((offs[-1],), -1, dtype=torch.int32, device=dev)
+    grad = torch.empty(offs[-1], device=dev)
+    check(lib, lib.dexnerf_train_bf16_reduce(ctypes.addressof(args), 1, n_st, n_st, None, 0, 1,
+                                             unit_of.data_ptr(), grad.data_ptr(), None, 0, None,
+                                             stream), "reduce")
+    torch.cuda.synchronize()
+    return [grad[offs[i]:offs[i + 1]].view(n, m) for i, n in enumerate(ns)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 127, 128, 4097, 262144])
+@pytest.mark.parametrize("m", [63, 64, 128])
+@pytest.mark.parametrize("n", [1, 3, 64, 128, 256], ids=["n1", "n3", "n64", "n128", "stacked256"])
+def test_bf16_dw_kernel_matches_matmul_on_card(cuda, n, m, k):
+    """The TMA + wgmma weight-gradient kernel against ``torch.matmul`` of
+    the same bf16 operands in f32 (the products are exact in f32; only the
+    summation order differs, so to 1e-5 of the largest entry), N = 256 as
+    two stacked cotangent blocks over one activation block; two runs are
+    bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(n * 1000 + m + k)
+
+    def rnd(cols):
+        return torch.randn((k, cols), generator=gen, device=cuda).to(BF16)
+
+    ns = [128, 128] if n == 256 else [n]
+    ds = [rnd(max(8, -(-c // 8) * 8)) for c in ns]
+    a = rnd(-(-m // 8) * 8)
+    got = _dw_on_card(ds, ns, a, m)
+    again = _dw_on_card(ds, ns, a, m)
+    for d, c, g, g2 in zip(ds, ns, got, again):
+        want = torch.matmul(d[:, :c].t().float(), a[:, :m].float())
+        assert bool(torch.isfinite(g).all())
+        err = float((g - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), (err, float(want.abs().max()))
+        assert torch.equal(g, g2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", [FULL, dict(FULL, hidden_size=16)], ids=["8x128", "h16"])
+@pytest.mark.parametrize("n_st,grid", [(8192, 132), (4096, 132), (9, 132), (7, 5), (3, 7),
+                                       (2, 3), (100, 1)])
+def test_bf16_dw_span_matches_plan_on_card(cuda, arch, n_st, grid):
+    """The kernel's work split (``dw_span``, ``dw_pieces``, the library's
+    host copies) is the plan's Python copy ``dw_spans`` that the CPU tests
+    replay: the same parts, slots and stages for every CTA and unit, and
+    each unit's slots within ``dw_max_pieces``."""
+    from dexnerf_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    costs = [u.cost for u in ftl.dw_plan(FlexibleNeRFModel(**arch))]
+    spans = ftl.dw_spans(costs, n_st, grid)
+    pieces = [sum(u == v for parts in spans for v, *_ in parts) for u in range(len(costs))]
+    out = (ctypes.c_int * 4)()
+    for b in range(grid):
+        want = {u: (piece, j0, j1, pieces[u]) for u, piece, j0, j1 in spans[b]}
+        for u, pre in enumerate(itertools.accumulate([0] + costs[:-1])):
+            mine = lib.dexnerf_train_bf16_dw_span(n_st, pre, costs[u], sum(costs), grid, b, out)
+            assert bool(mine) == (u in want), (b, u)
+            if mine:
+                assert tuple(out) == want[u], (b, u)
+                assert out[3] <= ftl.dw_max_pieces(costs, grid)
