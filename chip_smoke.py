@@ -23,7 +23,10 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    never; then serve one frame with ``nerf.pallas_compute_dtype: float32``
    (the f32 kernel twice, the bf16 kernel never);
 5. time both kernels and both plain versions on the same frame, each pass
-   and the whole frame;
+   and the whole frame; print the bf16 kernel's time of each pass beside
+   that pass's own bound, its work plan (units, rows, grid) and residency
+   (CTAs per SM, shared bytes, weight stages), and profile three served
+   frames (kernel 1, glue, idle);
    Then serve ``configs/tiny.yml``'s 2x16 model (hidden size 16, run
    zero-padded to 32 by the bf16 kernel) at bf16, and the messytable
    frame once with ``nerf.use_fused_render: false`` (the plain renderer:
@@ -1263,7 +1266,8 @@ def main() -> int:
                                  else "current in build/, not rebuilt")
           + f" (load {time.perf_counter() - t0:.2f} s)")
     print("\n".join(l for l in _build.build_log.splitlines()
-                    if "Compiling entry" in l or "registers" in l or "spill" in l))
+                    if "Compiling entry" in l or "registers" in l or "spill" in l
+                    or "wgmma" in l or "arning" in l))
 
     # ---- phase 3: kernels vs plain at the slice's shapes
     bf16 = torch.bfloat16
@@ -1372,10 +1376,23 @@ def main() -> int:
         print(f"  fused_render bound for both passes: {render_bound:.3f} ms ({render_bound_by}; "
               f"{flops / 1e12:.4f} TFLOP, {byts / 1e6:.2f} MB); bf16 kernel at the bf16 "
               f"tensor-core peak {bf16_bound:.3f} ms ({bf16_bound_by}; {byts_b / 1e6:.2f} MB)")
-        print("  bf16 kernel residency (CUDA occupancy API): " + json.dumps({
-            f"S={z.shape[1]}": dict(zip(("ctas_per_sm", "smem_bytes_per_cta"),
-                                        fr.bf16_occupancy(m, z.shape[1])))
-            for m, z in ((coarse, z_c), (fine, z_f))}))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for name, m, z, dz, g in (("coarse", coarse, z_c, dist_c, got_cb),
+                                  ("fine", fine, z_f, dist_f, got_fb)):
+            S = z.shape[1]
+            ctas, smem, stages = fr.bf16_occupancy(m, S)
+            plan = fr.render_plan(z.shape[0], S, sms * ctas)
+            fl = 2 * (z.numel() * mlp_macs(m)[0] + z.shape[0] * mlp_macs(m)[1])
+            by = nbytes(o, d, v, z, dz, *fr.pack_flex_weights_bf16(m)[:2], g.rgb, g.disparity,
+                        g.accumulation, g.depth, g.weights, g.depth_dex)
+            b_ms, b_by = bound(fl, by, BF16_FLOPS)
+            k_ms = ms[name + "_kernel_bf16"]
+            print(f"  bf16 kernel, {name} pass (S={S}): {k_ms:.3f} ms against its bound "
+                  f"{b_ms:.3f} ms ({b_by}; {fl / 1e12:.4f} TFLOP, {by / 1e6:.2f} MB; "
+                  f"{fl / 1e9 / k_ms:.1f} TFLOP/s); {ctas} CTA(s) per SM, {smem} B shared, "
+                  f"{stages} weight stages; plan: {plan.units} units of {plan.rays_per_unit} "
+                  f"ray(s) in {plan.rows_per_unit} rows, {plan.rows} rows ({plan.padded_rows} "
+                  f"padded), grid {plan.grid} on {sms} SMs")
 
     # ---- phase 4: serve through the port's entry points
     with tempfile.TemporaryDirectory() as tmp:

@@ -134,14 +134,17 @@ def load_library() -> ctypes.CDLL:
         lib.dexnerf_fused_render_bf16.argtypes = (
             [vp] * 7             # 5 inputs, bf16 weights, f32 aux (device)
             + [vp] * 6           # 6 outputs (device)
-            + [ci] * 6           # n_rays, n_samples, hidden, num_trunk, skip_mask, rpc
+            + [ci] * 7           # n_rays, n_samples, hidden, num_trunk, skip_mask,
+                                 # rays per unit, grid
             + [ci, ci, vp]       # fx, inc_x, bands_x (host)
             + [ci, ci, vp]       # fd, inc_d, bands_d (host)
             + [ci, vp]           # n_thr, thresholds (host)
             + [vp, ci, vp]       # aux offsets (host), white_bg, stream
         )
         lib.dexnerf_fused_render_bf16.restype = ci
-        lib.dexnerf_fused_render_bf16_occupancy.argtypes = [ci] * 4 + [vp, vp]
+        # hidden, dx, dd, n_samples, rays per unit, num_trunk, skip_mask; CTAs per SM,
+        # shared bytes, ring stages (out)
+        lib.dexnerf_fused_render_bf16_occupancy.argtypes = [ci] * 7 + [vp] * 3
         lib.dexnerf_fused_render_bf16_occupancy.restype = ci
         lib.dexnerf_train_args_size.argtypes = [ci]
         lib.dexnerf_train_args_size.restype = ci

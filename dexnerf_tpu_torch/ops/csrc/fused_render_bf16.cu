@@ -18,60 +18,77 @@
 // What bounds it on the H100: the bf16 multiply-adds (~157k per sample for
 // the 8x128 model; one 400x400 frame of 64 + 128 samples per ray is ~9.6
 // TFLOP, 9.7 ms at the 989 TFLOP/s dense bf16 peak), then the weight
-// traffic: every 128-sample tile streams all ~311 KB of bf16 weights from
-// L2 into shared memory (~2.4 GB per 1M samples).
+// stream: each pass over the ~311 KB bf16 pack serves 192 samples, read
+// from L2.
 //
-// Design:
-// * A CTA of 8 warps owns rpc whole rays (rpc * S <= 384 samples) and runs
-//   them through the MLP in tiles of 128 samples: two rays of a coarse pass
-//   (S = 64), one of a fine pass (S = 128), or three tiles for two rays of
-//   S = 192, so each pass over the weights serves 128 samples. The wrapper
-//   picks rpc to minimize the padded rows per ray (ops/fused_render.py).
-// * Each layer is a [128 x K] x [K x N] product of mma.sync m16n8k16
-//   (bf16 in, f32 accumulate), A and B fragments from shared memory by
-//   ldmatrix. Warp w computes rows 32 (w % 4) .. +32 and columns
-//   (w / 4) N/2 .. +N/2. Activations live in one bf16 buffer [128][H + 8]
-//   (the 8-element pad makes ldmatrix and the fragment stores free of bank
-//   conflicts), overwritten in place after a barrier: the f32 accumulator
-//   gets bias and ReLU in registers and is stored as the next layer's bf16
-//   operand. The xyz encoding has its own bf16 buffer [128][DXP + 8], K
-//   zero-padded to a multiple of 32, read by layer1 and the skip layer.
-// * Weights are packed once per model (ops/fused_render.py) in bf16 as
-//   [N][32] K-chunks in consumption order and streamed through a ring of 4
-//   shared-memory stages with cp.async: chunk c + 3 is in flight while the
-//   MMAs of chunk c run, across layer and tile boundaries.
-// * The heads run in f32 on the CUDA cores in the epilogues, from the f32
-//   values in registers: sigma = a_last . w_alpha in the last trunk
-//   layer's, rgb = y . w_rgb in the viewdir layer's (y itself is never
-//   stored); lanes of a row reduce by shuffles, the two column halves in a
-//   fixed order through shared memory. The viewdir part of layers_dir.0 is
-//   folded into a per-ray bias from bf16-rounded encodings and weights with
-//   an f32 sum.
+// Design: persistent CTAs, one per SM, of four warpgroups.
+// * Work plan (ops/fused_render.py::render_plan): the rays are cut into
+//   units of rpu whole rays, rows = rpu * S rounded up to a multiple of 64
+//   (at most 256). Consumer warpgroup cw of CTA b is worker v = 3 b + cw
+//   and takes units v, v + 3 G, ... in order: every ray lies in one unit,
+//   every unit has one worker, and the order is fixed, so runs are bitwise
+//   repeatable (no atomics).
+// * Warpgroup 3: one thread streams the weights through a ring of up to
+//   kMaxStages mbarrier-tracked 1-D bulk copies, the same chunks pass after
+//   pass for as long as the CTA's busiest worker has tiles (no CTA starts
+//   cold). The pack (ops/fused_render.py::pack_flex_weights_bf16) holds the
+//   matmul operands as [N][64] K-chunks (N = Hp rows, or Hp/2 for the
+//   viewdir layer), already in the 128 B-swizzled layout that wgmma reads,
+//   in consumption order. All three consumers read every stage.
+// * Warpgroups 0-2, the consumers: each runs its own 64-row tiles through
+//   the whole MLP on wgmma m64nNk16 (f32 accumulators in registers),
+//   waiting for a layer's chunks before its products and releasing them
+//   after; no block-wide barrier after the start. Layer1 and the skip layer
+//   read the xyz encoding from shared memory (a K-major, 128 B-swizzled tile
+//   per consumer). Every other layer reads its A operand from registers:
+//   the previous layer's f32 accumulator, after bias, ReLU and the bf16
+//   rounding (one cvt.rn.relu.bf16x2), is already in the register layout of
+//   wgmma's A fragment. The heads run in f32 in the epilogues from the
+//   accumulators (sigma = a_last . w_alpha in the last trunk layer's, rgb =
+//   y . w_rgb in the viewdir layer's, at width 128 in two 32-column
+//   products), each row's sum over the four lanes that hold it; biases and
+//   heads are read from shared memory. While one consumer runs its scalar
+//   work, the others' products keep the tensor cores busy.
+// * Registers bound the design: 16 warps leave 128 a thread, which holds
+//   one tile's accumulator (64), its A fragments (32) and the epilogue.
+//   Past that the compiler spills and then serializes every wgmma. Two
+//   tiles a consumer, overlapped by wgmma.wait_group 1, do not fit, and the
+//   compiler serializes wgmmas left in flight across that wait anyway.
+// * The viewdir part of layers_dir.0 is a per-ray bias from the bf16-rounded
+//   encoding and weights with an f32 sum, made once per unit.
 // * pts = o + d*z and the PE arguments use __fmul_rn/__fadd_rn and the
 //   accurate sincosf, in f32; only the encoding is rounded to bf16.
-// * Compositing: one warp per ray, the transmittance as a warp product scan
-//   over chunks of 32 samples, per-ray sums as fixed-order butterflies, the
-//   Dex first crossing by warp ballots per threshold.
+// * Compositing, per unit by its consumer, one warp per ray: the
+//   transmittance as a warp product scan over chunks of 32 samples, per-ray
+//   sums as fixed-order butterflies; the Dex first crossing by warp ballots,
+//   one warp per (ray, threshold).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;   // 8 warps
-constexpr int kTile = 128;      // samples per MLP tile
-constexpr int kKc = 32;         // K per weight chunk
-constexpr int kKP = kKc + 8;    // padded row of a stage, bf16 elements
-constexpr int kStages = 4;      // weight ring depth
-constexpr int kMaxRows = 384;   // samples per CTA
-constexpr int kMaxRpc = 32;     // rays per CTA
+constexpr int kCons = 3;        // consumer warpgroups, each a worker
+constexpr int kThreads = 128 * (kCons + 1);  // + the weight stream's warpgroup
+constexpr int kTile = 64;       // rows of a tile (wgmma's M)
+constexpr int kKc = 64;         // K of a weight chunk: one 128 B swizzle row
+constexpr int kMaxStages = 10;  // weight ring depth, as shared memory allows
+constexpr int kMaxUnitRows = 256;
+constexpr int kMaxRpu = 16;     // rays per unit
+constexpr int kMaxDx = 128;     // xyz encoding width
+constexpr int kMaxKx = kMaxDx / kKc;  // its K-chunks
 constexpr int kMaxLayers = 40;
 constexpr int kMaxFreq = 16;
 constexpr int kMaxThresholds = 64;
 constexpr int kMaxSamples = 256;
-constexpr int kMaxDD = 3 + 6 * kMaxFreq;
 constexpr int kAux = kMaxLayers + 8;
+constexpr int kEncChunk = kTile * 128;  // bytes of a [64][64] bf16 encoding chunk
+constexpr int kSmemMax = 232448;
+
+typedef __nv_bfloat16 bf16;
 
 struct Params {
   const float* origins;   // [N, 3]
@@ -79,7 +96,7 @@ struct Params {
   const float* viewdirs;  // [N, 3]
   const float* z;         // [N, S]
   const float* dists;     // [N, S]
-  const __nv_bfloat16* wq;  // K-chunks, see ops/fused_render.py::pack_flex_weights_bf16
+  const bf16* wq;         // swizzled K-chunks, see ops/fused_render.py::pack_flex_weights_bf16
   const float* aux;       // f32 biases, heads, viewdir weights (bf16-rounded)
   float* rgb;             // [N, 3]
   float* disp;            // [N]
@@ -87,9 +104,9 @@ struct Params {
   float* depth;           // [N]
   float* weights;         // [N, S]
   float* dex;             // [T, N]
-  int n_rays, n_samples, hidden, num_trunk, skip_mask, rpc;
-  int dx, dxp, dd, fx, fd, inc_x, inc_d;
-  int n_thr, white_bg;
+  int n_rays, n_samples, hidden, num_trunk, skip_mask, rpu;
+  int dx, kx, dd, fx, fd, inc_x, inc_d;
+  int n_thr, white_bg, n_stages;
   // aux offsets (floats): [0] layer1 bias, [1 + i] trunk i bias, then
   // fc_feat bias, layers_dir.0 bias, w_alpha [H], b_alpha, w_rgb [H/2][3],
   // b_rgb [3], viewdir rows of layers_dir.0 [dd][H/2]
@@ -99,437 +116,540 @@ struct Params {
   float thr[kMaxThresholds];
 };
 
+__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
+__host__ __device__ inline int unit_rows(int rpu, int S) {
+  return (rpu * S + kTile - 1) / kTile * kTile;
+}
+
+// Floats of the aux buffer before the viewdir rows (biases and heads, each
+// padded to 4 floats at most): what the epilogues read, kept in shared
+// memory.
+__host__ __device__ inline int aux_head_max(int H, int nt) {
+  return (nt + 3) * H + 4 * (H / 2) + 8 + 4 * (nt + 7);
+}
+
+// Shared memory from the 1024-aligned base: the weight ring of ns stages,
+// each consumer's encoding tile, the biases and heads, each consumer's
+// block of per-unit floats (z, dists, sigma, rgb logits [rows][3], the
+// viewdir bias [rpu][H/2] and encoding [rpu][dd]; offsets within the
+// block), the ring's barriers.
 struct Smem {
-  size_t act, enc, ring, psig, prgb, zs, ds, sig, rgbr, dirb, dtmp, total;
+  size_t ring, enc, aux, own, own_bytes, zs, ds, sig, rgb, dirb, dtmp, bars, total;
 };
 
-__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
-
-__host__ __device__ inline Smem smem_layout(int H, int dxp, int rows, int rpc) {
+__host__ __device__ inline Smem smem_layout(int H, int nt, int kx, int rows, int rpu, int dd,
+                                            int ns) {
   Smem s;
+  s.ring = 0;
+  s.enc = (size_t)ns * H * 128;
+  s.aux = s.enc + kCons * (size_t)kx * kEncChunk;
+  s.own = s.aux + align16((size_t)aux_head_max(H, nt) * 4);
   size_t o = 0;
-  s.act = o;  o = align16(o + (size_t)kTile * (H + 8) * 2);
-  s.enc = o;  o = align16(o + (size_t)kTile * (dxp + 8) * 2);
-  s.ring = o; o = align16(o + (size_t)kStages * H * kKP * 2);
-  s.psig = o; o = align16(o + 2 * kTile * 4);
-  s.prgb = o; o = align16(o + 2 * kTile * 3 * 4);
-  s.zs = o;   o = align16(o + (size_t)rows * 4);
-  s.ds = o;   o = align16(o + (size_t)rows * 4);
-  s.sig = o;  o = align16(o + (size_t)rows * 4);
-  s.rgbr = o; o = align16(o + (size_t)rows * 3 * 4);
-  s.dirb = o; o = align16(o + (size_t)rpc * (H / 2) * 4);
-  s.dtmp = o; o = align16(o + kMaxDD * 4);
-  s.total = o;
+  s.zs = o;   o += (size_t)rows * 4;
+  s.ds = o;   o += (size_t)rows * 4;
+  s.sig = o;  o += (size_t)rows * 4;
+  s.rgb = o;  o += (size_t)rows * 12;
+  s.dirb = o; o += (size_t)rpu * (H / 2) * 4;
+  s.dtmp = o; o += (size_t)rpu * dd * 4;
+  s.own_bytes = align16(o);
+  s.bars = s.own + kCons * s.own_bytes;
+  s.total = s.bars + 2 * (size_t)ns * 8 + 1024;  // + slack to align the base
   return s;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p)));
+// pack_bf16(ReLU(lo), ReLU(hi)) in one instruction (ReLU and the rounding
+// commute: both keep the sign, and a negative value becomes 0 either way)
+__device__ __forceinline__ uint32_t pack_bf16_relu(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Byte offset of element (row, col) of a consumer's encoding tile: [col /
+// 64] K-chunks of [64 rows][128 B], 16 B units swizzled by row % 8 (wgmma's
+// 128 B swizzle, K-major).
+__device__ __forceinline__ int tile_off(int row, int col) {
+  return (col >> 6) * kEncChunk + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4) +
+         (col & 7) * 2;
+}
+__device__ __forceinline__ void store_enc(unsigned char* enc, int row, int col, float v) {
+  *reinterpret_cast<bf16*>(enc + tile_off(row, col)) = __float2bfloat16_rn(v);
 }
 
-// The weight stream of one tile: chunk j of nch, each [rows][32] bf16
-// contiguous. All chunks have H rows except the viewdir layer's last H/32,
-// which have H/2.
-struct Stream {
-  const __nv_bfloat16* w;
-  int H, nch, total;  // chunks per tile, chunks of the CTA
-  __device__ void load(int c, __nv_bfloat16* ring) const {
-    if (c < total) {
-      const int j = c % nch;
-      const int jd = nch - H / kKc;
-      const size_t off = j < jd ? (size_t)j * H * kKc
-                                : (size_t)jd * H * kKc + (size_t)(j - jd) * (H / 2) * kKc;
-      const int rows = j < jd ? H : H / 2;
-      const __nv_bfloat16* src = w + off;
-      __nv_bfloat16* dst = ring + (size_t)(c % kStages) * H * kKP;
-      for (int i = threadIdx.x; i < rows * (kKc / 8); i += kThreads) {
-        const int n = i >> 2, part = i & 3;
-        cp_async16(dst + n * kKP + part * 8, src + n * kKc + part * 8);
-      }
-    }
-    cp_async_commit();  // empty groups past the end keep the count uniform
-  }
-};
-
-// Consume chunk c: wait for it, let every warp finish chunk c - 1 (whose
-// stage the next load refills), start chunk c + kStages - 1, then run this
-// warp's MMAs of the chunk: A rows [32 wm, +32) and K [k0, k0 + 32) of the
-// bf16 buffer `a` (pitch ap), B columns [nb, nb + 8 NT) of the stage.
-template <int NT, int NTM>
-__device__ __forceinline__ void consume(float (&acc)[2][NTM][4], int& c, const Stream& st,
-                                        __nv_bfloat16* ring, const __nv_bfloat16* a, int ap,
-                                        int k0, int wm, int nb) {
-  cp_async_wait<kStages - 2>();
-  __syncthreads();
-  st.load(c + kStages - 1, ring);
-  const __nv_bfloat16* b = ring + (size_t)(c % kStages) * st.H * kKP;
-  ++c;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < kKc; kk += 16) {
-    uint32_t af[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      ldsm_x4(af[mi], a + (32 * wm + 16 * mi + (lane & 15)) * ap + k0 + kk + ((lane >> 4) << 3));
-    }
-#pragma unroll
-    for (int nj = 0; nj + 1 < NT; nj += 2) {
-      uint32_t bf[4];
-      ldsm_x4(bf, b + (nb + 8 * nj + (lane & 7) + ((lane >> 4) << 3)) * kKP + kk +
-                      (((lane >> 3) & 1) << 3));
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        mma_bf16(acc[mi][nj], af[mi], bf[0], bf[1]);
-        mma_bf16(acc[mi][nj + 1], af[mi], bf[2], bf[3]);
-      }
-    }
-    if (NT & 1) {
-      uint32_t bf[2];
-      ldsm_x2(bf, b + (nb + 8 * (NT - 1) + (lane & 7)) * kKP + kk + (((lane >> 3) & 1) << 3));
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][NT - 1], af[mi], bf[0], bf[1]);
-    }
-  }
-}
-
-template <int NTM>
-__device__ __forceinline__ void zero(float (&acc)[2][NTM][4]) {
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < NTM; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
-}
-
-// Epilogue of a hidden layer: v = act(acc + bias) in f32, stored as the
-// bf16 operand of the next layer (in place; the caller has synchronized).
-// With wa != null also the sigma head's partial sums v . wa of this warp's
-// columns, per row, into psig[wn][row].
-template <int NTM>
-__device__ __forceinline__ void store_hidden(float (&acc)[2][NTM][4], const float* __restrict__ bias,
-                                             bool relu, __nv_bfloat16* act, int ap, int wm,
-                                             int nb, const float* __restrict__ wa, float* psig) {
+// Epilogue of a hidden layer on an [64 x H] accumulator: v = act(acc +
+// bias) in f32, rounded to bf16 into a, the next layer's A fragments. With
+// head, also the sigma head v . wa + b_alpha of rows g and g + 8 of the
+// warp into sig_rows.
+template <int H, bool relu, bool head>
+__device__ __forceinline__ void hidden_epilogue(const float (&acc)[H / 2],
+                                                const float* bias,
+                                                uint32_t (&a)[H / 4],
+                                                const float* wa, float b_alpha,
+                                                float* sig_rows) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    float sp[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nj = 0; nj < NTM; ++nj) {
-      const int col = nb + 8 * nj + 2 * q;
-      const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float v0 = acc[mi][nj][2 * h] + b0, v1 = acc[mi][nj][2 * h + 1] + b1;
-        if (relu) {
-          v0 = fmaxf(v0, 0.f);
-          v1 = fmaxf(v1, 0.f);
-        }
-        const int row = 32 * wm + 16 * mi + 8 * h + g;
-        *reinterpret_cast<__nv_bfloat162*>(act + row * ap + col) = __floats2bfloat162_rn(v0, v1);
-        if (wa != nullptr) sp[h] = fmaf(v1, __ldg(wa + col + 1), fmaf(v0, __ldg(wa + col), sp[h]));
-      }
+  for (int j = 0; j < H / 8; ++j) {
+    const int col = 8 * j + 2 * q;
+    const float2 b = *reinterpret_cast<const float2*>(bias + col);
+    float v0 = acc[4 * j] + b.x, v1 = acc[4 * j + 1] + b.y;
+    float v2 = acc[4 * j + 2] + b.x, v3 = acc[4 * j + 3] + b.y;
+    if (relu && !head) {
+      a[2 * j] = pack_bf16_relu(v0, v1);
+      a[2 * j + 1] = pack_bf16_relu(v2, v3);
+      continue;
     }
-    if (wa != nullptr) {
+    if (relu) {  // the sigma head reads the f32 values after ReLU
+      v0 = fmaxf(v0, 0.f);
+      v1 = fmaxf(v1, 0.f);
+      v2 = fmaxf(v2, 0.f);
+      v3 = fmaxf(v3, 0.f);
+    }
+    a[2 * j] = pack_bf16(v0, v1);
+    a[2 * j + 1] = pack_bf16(v2, v3);
+    if (head) {
+      const float2 w = *reinterpret_cast<const float2*>(wa + col);
+      s0 = fmaf(v1, w.y, fmaf(v0, w.x, s0));
+      s1 = fmaf(v3, w.y, fmaf(v2, w.x, s1));
+    }
+  }
+  if (head) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    if (q == 0) {
+      sig_rows[g] = s0 + b_alpha;
+      sig_rows[g + 8] = s1 + b_alpha;
+    }
+  }
+}
+
+
+// The encoding's part of a product into the [64 x H] accumulator: its kx
+// K-chunks (the encoding's columns and the weights' rows past dx are zero)
+// against the ring stages st_of; `first` starts the sum.
+template <int H>
+__device__ __forceinline__ void enc_product(float (&acc)[H / 2], uint32_t enc, int kx,
+                                            const uint32_t (&st_of)[kMaxKx], bool first) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float s = sp[h];
-        s += __shfl_xor_sync(0xffffffffu, s, 1);
-        s += __shfl_xor_sync(0xffffffffu, s, 2);
-        if (q == 0) psig[(nb != 0) * kTile + 32 * wm + 16 * mi + 8 * h + g] = s;
+  for (int c = 0; c < kMaxKx; ++c) {
+    if (c < kx) {
+      const uint32_t st = st_of[c];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        wgmma_bf16<H, 0, 0>(acc, kmajor_desc(enc + c * kEncChunk + ks * 32),
+                            kmajor_desc(st + ks * 32), !(first && c == 0 && ks == 0));
       }
     }
   }
 }
 
+// An [64 x NO] product (NO = H, or a part of the viewdir layer's H/2) on
+// the A fragments of an H-wide activation in registers, against the ring
+// stages st_of (B from row b_off / 128 of each stage on).
+template <int NO, int H>
+__device__ __forceinline__ void reg_product(float (&acc)[NO / 2], const uint32_t (&a)[H / 4],
+                                            const uint32_t (&st_of)[(H + kKc - 1) / kKc],
+                                            uint32_t b_off = 0) {
+  constexpr int KCH = (H + kKc - 1) / kKc;
+#pragma unroll
+  for (int c = 0; c < KCH; ++c) {
+    const uint32_t st = st_of[c] + b_off;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const int kk = 4 * c + ks;
+      if (kk < H / 16) {
+        wgmma_bf16_rs<NO>(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+                          kmajor_desc(st + ks * 32), kk != 0);
+      }
+    }
+  }
+}
+
+// The viewdir layer's epilogue for columns c0 .. c0 + NH - 1 of one tile,
+// rows r0 + 16 w + g and + 8 of the unit: y = ReLU(acc + the ray's viewdir
+// bias), accumulated into the rgb head's sums c[row][3] (each head weight
+// loaded once for both rows).
+template <int H, int NH>
+__device__ __forceinline__ void dir_epilogue(const float (&ad)[NH / 2], int c0, int r0, int S,
+                                             int nrays, const float* dirb, const float* w_rgb,
+                                             float (&c)[2][3]) {
+  constexpr int H2 = H / 2;
+  const int t = threadIdx.x & 127, lane = t & 31, g = lane >> 2, q = lane & 3;
+  const int r = r0 + 16 * (t >> 5) + g;
+  const float* db0 = dirb + min(r / S, nrays - 1) * H2;
+  const float* db1 = dirb + min((r + 8) / S, nrays - 1) * H2;
+#pragma unroll
+  for (int j = 0; j < NH / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = c0 + 8 * j + 2 * q + e;
+      const float* wr = w_rgb + col * 3;
+      const float w0 = wr[0], w1 = wr[1], w2 = wr[2];
+      const float y0 = fmaxf(ad[4 * j + e] + db0[col], 0.f);
+      const float y1 = fmaxf(ad[4 * j + 2 + e] + db1[col], 0.f);
+      c[0][0] = fmaf(y0, w0, c[0][0]);
+      c[0][1] = fmaf(y0, w1, c[0][1]);
+      c[0][2] = fmaf(y0, w2, c[0][2]);
+      c[1][0] = fmaf(y1, w0, c[1][0]);
+      c[1][1] = fmaf(y1, w1, c[1][1]);
+      c[1][2] = fmaf(y1, w2, c[1][2]);
+    }
+  }
+}
+
+// The rgb head's sums of rows r0 + 16 w + g (+ 8): over the four lanes of
+// the row, + b_rgb, into rgbr.
+__device__ __forceinline__ void store_rgb(float (&c)[2][3], int r0, const float* b_rgb,
+                                          float* rgbr) {
+  const int t = threadIdx.x & 127, lane = t & 31, g = lane >> 2, q = lane & 3;
+  const int r = r0 + 16 * (t >> 5) + g;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int x = 1; x < 4; x <<= 1) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) c[h][k] += __shfl_xor_sync(0xffffffffu, c[h][k], x);
+    }
+    if (q == 0) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) rgbr[(r + 8 * h) * 3 + k] = c[h][k] + b_rgb[k];
+    }
+  }
+}
+
 template <int NTM>
-__global__ void __launch_bounds__(kThreads, 2) fused_render_bf16_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
+__global__ void __launch_bounds__(kThreads, 1)
+    fused_render_bf16_kernel(const __grid_constant__ Params p) {
   constexpr int H = NTM * 16;
   constexpr int H2 = H / 2;
-  constexpr int NTD = NTM / 2;  // n-tiles of the viewdir layer (N = H/2)
-  constexpr int AP = H + 8;
-  const int S = p.n_samples, nt = p.num_trunk, rpc = p.rpc;
-  const int rows = rpc * S;
-  const int EP = p.dxp + 8;
-  const Smem L = smem_layout(H, p.dxp, rows, rpc);
-  __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(smem + L.act);
-  __nv_bfloat16* enc = reinterpret_cast<__nv_bfloat16*>(smem + L.enc);
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem + L.ring);
-  float* psig = reinterpret_cast<float*>(smem + L.psig);  // [2][kTile]
-  float* prgb = reinterpret_cast<float*>(smem + L.prgb);  // [2][kTile][3]
-  float* zs = reinterpret_cast<float*>(smem + L.zs);      // [rows]
-  float* ds = reinterpret_cast<float*>(smem + L.ds);
-  float* sig = reinterpret_cast<float*>(smem + L.sig);    // raw sigma logits
-  float* rgbr = reinterpret_cast<float*>(smem + L.rgbr);  // [rows][3] raw rgb logits
-  float* dirb = reinterpret_cast<float*>(smem + L.dirb);  // [rpc][H2]
-  float* dtmp = reinterpret_cast<float*>(smem + L.dtmp);  // [dd]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int ray0 = blockIdx.x * rpc;
-  const int nrays = min(rpc, p.n_rays - ray0);
-  const int ntiles = (rows + kTile - 1) / kTile;
-  const int kx = p.dxp / kKc, kh = H / kKc;
+  constexpr int KCH = (H + kKc - 1) / kKc;  // K-chunks of a product on H
+  constexpr int SB = H * 128;               // bytes of a ring stage
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sbase = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle's atoms
+  unsigned char* gbase = smem_raw + (sbase - smem_u32(smem_raw));
+  const int S = p.n_samples, nt = p.num_trunk, rpu = p.rpu, kx = p.kx, NS = p.n_stages;
+  const int rows = unit_rows(rpu, S), tiles = rows / kTile;
+  const int n_units = (p.n_rays + rpu - 1) / rpu;
+  const Smem L = smem_layout(H, nt, kx, rows, rpu, p.dd, NS);
+  const uint32_t ring = sbase + (uint32_t)L.ring;
+  const uint32_t full = sbase + (uint32_t)L.bars, empty = full + 8 * NS;
   int nskip = 0;
   for (int i = 0; i < nt; ++i) nskip += (p.skip_mask >> i) & 1;
-  Stream st;
-  st.w = p.wq;
-  st.H = H;
-  st.nch = kx * (1 + nskip) + (nt + 2) * kh;
-  st.total = ntiles * st.nch;
-  // the first chunks go out before anything else
-#pragma unroll
-  for (int c = 0; c < kStages - 1; ++c) st.load(c, ring);
-
-  for (int i = tid; i < kTile * EP; i += kThreads) enc[i] = __float2bfloat16_rn(0.f);
-  for (int r = tid; r < rows; r += kThreads) {
-    const bool ok = r / S < nrays;
-    zs[r] = ok ? p.z[(size_t)ray0 * S + r] : 0.f;
-    ds[r] = ok ? p.dists[(size_t)ray0 * S + r] : 0.f;
+  const int nch = kx * (1 + nskip) + (nt + 2) * KCH;  // chunks of a pass over the weights
+  const int G = gridDim.x, b = blockIdx.x;
+  // worker kCons b + cw takes units kCons b + cw, + kCons G, ...; worker
+  // kCons b has the CTA's most, and one pass over the weights a tile
+  auto units_of = [&](int w) { return w < n_units ? (n_units - 1 - w) / (kCons * G) + 1 : 0; };
+  const int passes = tiles * units_of(kCons * b);
+  // the warpgroup, shuffled so that the compiler knows it is warp-uniform
+  const int tid = threadIdx.x, cw = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int n_aux = p.aux_off[nt + 7];  // the biases and heads: to shared memory
+  float* aux = reinterpret_cast<float*>(gbase + L.aux);
+  for (int i = tid; i < n_aux; i += kThreads) aux[i] = __ldg(p.aux + i);
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * kCons);  // every consumer warp releases a stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // per-ray bias of the viewdir layer: its viewdir rows meet the per-ray
-  // encoding (rounded to bf16, as the weights are)
-  const float* aux = p.aux;
-  const float* wdv = aux + p.aux_off[nt + 7];
+  // the encoding tiles' columns past dx stay zero
+  for (int i = tid; i < kCons * kx * kEncChunk / 16; i += kThreads) {
+    reinterpret_cast<uint4*>(gbase + L.enc)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  const int t = tid & 127, warp = t >> 5, lane = t & 31;
+  // registers: 128 x 40 for the weight stream's warpgroup, 3 x 128 x 152
+  // for the consumers
+  if (cw == kCons) {  // ---- the weight stream, one thread
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (t != 0) return;
+    const unsigned char* w = reinterpret_cast<const unsigned char*>(p.wq);
+    const int jd = nch - KCH;  // the viewdir layer's chunks have H/2 rows
+    int it = 0;
+    for (int ps = 0; ps < passes; ++ps) {
+      for (int c = 0; c < nch; ++c, ++it) {
+        const int s = it % NS;
+        const int bytes = c < jd ? SB : SB / 2;
+        const size_t off = c < jd ? (size_t)c * SB : (size_t)jd * SB + (size_t)(c - jd) * (SB / 2);
+        mbar_wait(empty + 8 * s, ((it / NS) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, bytes);
+        bulk_load(ring + s * SB, w + off, bytes, full + 8 * s);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 152;\n");
+  const int bar = 1 + cw, v = kCons * b + cw;
+  const uint32_t enc = sbase + (uint32_t)L.enc + cw * kx * kEncChunk;
+  unsigned char* encg = gbase + L.enc + cw * kx * kEncChunk;
+  unsigned char* own = gbase + L.own + cw * L.own_bytes;
+  float* zs = reinterpret_cast<float*>(own + L.zs);
+  float* ds = reinterpret_cast<float*>(own + L.ds);
+  float* sig = reinterpret_cast<float*>(own + L.sig);    // sigma logits
+  float* rgbr = reinterpret_cast<float*>(own + L.rgb);   // [rows][3] rgb logits
+  float* dirb = reinterpret_cast<float*>(own + L.dirb);  // [rpu][H2]
+  float* dtmp = reinterpret_cast<float*>(own + L.dtmp);  // [rpu][dd]
+  const float* wdv = p.aux + p.aux_off[nt + 7];  // read once per unit, from L1
   const float* bdir = aux + p.aux_off[nt + 2];
-  for (int r = 0; r < rpc; ++r) {
-    __syncthreads();
-    if (tid < 3) {
-      const float v = r < nrays ? p.viewdirs[(size_t)(ray0 + r) * 3 + tid] : 0.f;
-      int row = 0;
+  const float* w_alpha = aux + p.aux_off[nt + 3];
+  const float b_alpha = aux[p.aux_off[nt + 4]];
+  const float* w_rgb = aux + p.aux_off[nt + 5];
+  const float* b_rgb = aux + p.aux_off[nt + 6];
+  const int N = p.n_rays, dd = p.dd;
+
+  // the ring position of the next chunk to consume: its stage and phase
+  int ws = 0, wph = 0;
+  // stage s + c (c < NS) and its phase
+  auto stage_of = [&](int c, int& ph) {
+    const int st = ws + c;
+    ph = wph ^ (st >= NS);
+    return st >= NS ? st - NS : st;
+  };
+  // this warp's part of the next n chunks is done: release them
+  auto release = [&](int n) {
+    for (int c = 0; c < n; ++c) {
+      if (lane == 0) mbar_arrive(empty + 8 * ws);
+      if (++ws == NS) {
+        ws = 0;
+        wph ^= 1;
+      }
+    }
+  };
+  // wait for the next n chunks (before a product's wgmmas, so that no wait
+  // lies between them)
+  auto wait_chunks = [&](int n) {
+    for (int c = 0; c < n; ++c) {
+      int ph;
+      const int st = stage_of(c, ph);
+      mbar_wait(full + 8 * st, ph);
+    }
+  };
+  // the ring address of the next chunk + c
+  auto chunk_at = [&](int c) {
+    int ph;
+    return ring + stage_of(c, ph) * SB;
+  };
+
+  const int mine = units_of(v);
+  for (int k = 0; k < mine; ++k) {
+    const int ray0 = (v + kCons * G * k) * rpu;
+    const int nrays = min(rpu, N - ray0), nreal = nrays * S;
+    const size_t s0 = (size_t)ray0 * S;
+    // ---- the unit's depths and intervals, and its rays' viewdir bias
+    for (int r = t; r < rows; r += 128) {
+      const bool ok = r < nreal;
+      zs[r] = ok ? p.z[s0 + r] : 0.f;
+      ds[r] = ok ? p.dists[s0 + r] : 0.f;
+    }
+    for (int i = t; i < nrays * 3; i += 128) {  // viewdir encodings, rounded to bf16
+      const int rr = i / 3, d = i - 3 * rr;
+      const float vv = p.viewdirs[(size_t)(ray0 + rr) * 3 + d];
+      float* e = dtmp + rr * dd;
+      int col = 0;
       if (p.inc_d) {
-        dtmp[tid] = v;
-        row = 3;
+        e[d] = bf16_round(vv);
+        col = 3;
       }
       for (int f = 0; f < p.fd; ++f) {
         float sn, cs;
-        sincosf(__fmul_rn(v, p.bands_d[f]), &sn, &cs);
-        dtmp[row + 6 * f + tid] = sn;
-        dtmp[row + 6 * f + 3 + tid] = cs;
+        sincosf(__fmul_rn(vv, p.bands_d[f]), &sn, &cs);
+        e[col + 6 * f + d] = bf16_round(sn);
+        e[col + 6 * f + 3 + d] = bf16_round(cs);
       }
     }
-    __syncthreads();
-    for (int c = tid; c < H2; c += kThreads) {
-      float v = __ldg(bdir + c);
-      for (int k = 0; k < p.dd; ++k) {
-        v = fmaf(__bfloat162float(__float2bfloat16_rn(dtmp[k])), __ldg(wdv + k * H2 + c), v);
-      }
-      dirb[r * H2 + c] = v;
+    wg_sync(bar);
+    for (int i = t; i < nrays * H2; i += 128) {
+      const int rr = i / H2, c = i - rr * H2;
+      const float* e = dtmp + rr * dd;
+      float val = bdir[c];
+      for (int kk = 0; kk < dd; ++kk) val = fmaf(e[kk], __ldg(wdv + kk * H2 + c), val);
+      dirb[i] = val;
     }
-  }
-  __syncthreads();
 
-  const float* b_feat = aux + p.aux_off[nt + 1];
-  const float* w_alpha = aux + p.aux_off[nt + 3];
-  const float b_alpha = __ldg(aux + p.aux_off[nt + 4]);
-  const float* w_rgb = aux + p.aux_off[nt + 5];
-  const float* b_rgb = aux + p.aux_off[nt + 6];
-  const int nbm = wn * (H / 2);  // this warp's first column, hidden layers
-  const int nbd = wn * (H2 / 2);  // and the viewdir layer's
-  float acc[2][NTM][4];
-  int c = 0;
-  for (int tile = 0; tile < ntiles; ++tile) {
-    // ---- positional encoding of the tile's samples, f32, rounded to bf16
-    for (int i = tid; i < kTile * 3; i += kThreads) {
-      const int r = i % kTile, d = i / kTile;
-      const int fr = tile * kTile + r;
-      const int ray = fr / S;
-      __nv_bfloat16* e = enc + r * EP;
-      if (fr < rows && ray < nrays) {
-        const float pt = __fadd_rn(p.origins[(size_t)(ray0 + ray) * 3 + d],
-                                   __fmul_rn(p.dirs[(size_t)(ray0 + ray) * 3 + d], zs[fr]));
-        int col = 0;
-        if (p.inc_x) {
-          e[d] = __float2bfloat16_rn(pt);
-          col = 3;
-        }
-        for (int f = 0; f < p.fx; ++f) {
-          float sn, cs;
-          sincosf(__fmul_rn(pt, p.bands_x[f]), &sn, &cs);
-          e[col + 6 * f + d] = __float2bfloat16_rn(sn);
-          e[col + 6 * f + 3 + d] = __float2bfloat16_rn(cs);
-        }
-      } else {
-        for (int k = d; k < p.dx; k += 3) e[k] = __float2bfloat16_rn(0.f);
-      }
-    }
-    // (the first consume's barrier orders these stores before the reads)
-
-    // ---- layer1: no activation
-    zero(acc);
-    for (int k = 0; k < kx; ++k) consume<NTM>(acc, c, st, ring, enc, EP, k * kKc, wm, nbm);
-    __syncthreads();
-    store_hidden(acc, aux + p.aux_off[0], false, act, AP, wm, nbm,
-                 nt == 0 ? w_alpha : nullptr, psig);
-    // ---- trunk
-    for (int i = 0; i < nt; ++i) {
-      zero(acc);
-      for (int k = 0; k < kh; ++k) consume<NTM>(acc, c, st, ring, act, AP, k * kKc, wm, nbm);
-      if ((p.skip_mask >> i) & 1) {
-        for (int k = 0; k < kx; ++k) consume<NTM>(acc, c, st, ring, enc, EP, k * kKc, wm, nbm);
-      }
-      __syncthreads();
-      store_hidden(acc, aux + p.aux_off[1 + i], true, act, AP, wm, nbm,
-                   i == nt - 1 ? w_alpha : nullptr, psig);
-    }
-    // ---- fc_feat
-    zero(acc);
-    for (int k = 0; k < kh; ++k) consume<NTM>(acc, c, st, ring, act, AP, k * kKc, wm, nbm);
-    __syncthreads();
-    store_hidden(acc, b_feat, true, act, AP, wm, nbm, nullptr, psig);
-    // ---- layers_dir.0 on feat, + the per-ray bias; rgb head from registers
-    zero(acc);
-    for (int k = 0; k < kh; ++k) consume<NTD>(acc, c, st, ring, act, AP, k * kKc, wm, nbd);
-    {
-      const int g = lane >> 2, q = lane & 3;
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = 32 * wm + 16 * mi + 8 * h + g;
-          const int ray = min((tile * kTile + row) / S, rpc - 1);
-          float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-#pragma unroll
-          for (int nj = 0; nj < NTD; ++nj) {
-            const int col = nbd + 8 * nj + 2 * q;
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float y = fmaxf(acc[mi][nj][2 * h + e] + dirb[ray * H2 + col + e], 0.f);
-              const float* wr = w_rgb + (col + e) * 3;
-              s0 = fmaf(y, __ldg(wr), s0);
-              s1 = fmaf(y, __ldg(wr + 1), s1);
-              s2 = fmaf(y, __ldg(wr + 2), s2);
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int r0 = tile * kTile;
+      // ---- positional encoding of the tile's rows (two threads a row), f32,
+      // rounded to bf16; padding rows keep an earlier, finite encoding
+      {
+        const int i = t & 63, half = t >> 6;
+        const int r = r0 + i;
+        if (r < nreal) {
+          const size_t rg = (size_t)(ray0 + r / S) * 3;
+          const int cx = p.inc_x ? 3 : 0;
+          for (int d = 0; d < 3; ++d) {
+            const float pt = __fadd_rn(p.origins[rg + d], __fmul_rn(p.dirs[rg + d], zs[r]));
+            if (p.inc_x && half == 0) store_enc(encg, i, d, pt);
+            for (int f = half; f < p.fx; f += 2) {
+              float sn, cs;
+              sincosf(__fmul_rn(pt, p.bands_x[f]), &sn, &cs);
+              store_enc(encg, i, cx + 6 * f + d, sn);
+              store_enc(encg, i, cx + 6 * f + 3 + d, cs);
             }
           }
-#pragma unroll
-          for (int x = 1; x < 4; x <<= 1) {
-            s0 += __shfl_xor_sync(0xffffffffu, s0, x);
-            s1 += __shfl_xor_sync(0xffffffffu, s1, x);
-            s2 += __shfl_xor_sync(0xffffffffu, s2, x);
-          }
-          if (q == 0) {
-            float* o = prgb + (wn * kTile + row) * 3;
-            o[0] = s0;
-            o[1] = s1;
-            o[2] = s2;
-          }
         }
       }
-    }
-    __syncthreads();
-    for (int r = tid; r < kTile; r += kThreads) {
-      const int fr = tile * kTile + r;
-      if (fr < rows) {
-        sig[fr] = (psig[r] + psig[kTile + r]) + b_alpha;
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          rgbr[fr * 3 + j] = (prgb[r * 3 + j] + prgb[(kTile + r) * 3 + j]) + __ldg(b_rgb + j);
-        }
-      }
-    }
-    // the next tile's encoding overwrites enc: every warp is past the
-    // skip layer here (barriers above); psig/prgb are rewritten only after
-    // further barriers
-  }
-  cp_async_wait<0>();
-  __syncthreads();
+      fence_async_smem();
+      wg_sync(bar);  // the encoding (and, on the first tile, the unit's data) is written
 
-  // ---- compositing, one warp per ray
-  const int N = p.n_rays;
-  for (int r = warp; r < nrays; r += kThreads / 32) {
-    const int base = r * S;
-    const size_t ray = (size_t)ray0 + r;
-    float carry = 1.f, rr = 0.f, gg = 0.f, bb = 0.f, dep = 0.f, ac = 0.f;
-    for (int s0 = 0; s0 < S; s0 += 32) {
-      const int s = s0 + lane;
-      const bool ok = s < S;
-      const float sigma = ok ? fmaxf(sig[base + s], 0.f) : 0.f;
-      const float alpha = ok ? 1.f - expf(-sigma * ds[base + s]) : 0.f;
-      float incl = ok ? (1.f - alpha) + 1e-10f : 1.f;
+      float* sig_rows = sig + r0 + 16 * warp;
+      float acc[H / 2];
+      uint32_t a[H / 4];
+      // ---- layer1: no activation
+      wait_chunks(kx);
+      uint32_t se[kMaxKx], sh[KCH];
 #pragma unroll
-      for (int x = 1; x < 32; x <<= 1) {
-        const float t = __shfl_up_sync(0xffffffffu, incl, x);
-        if (lane >= x) incl *= t;
+      for (int c = 0; c < kMaxKx; ++c) se[c] = chunk_at(c < kx ? c : 0);
+      fence_regs(acc);
+      wgmma_fence();
+      enc_product<H>(acc, enc, kx, se, true);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(acc);
+      release(kx);
+      if (nt > 0) {
+        hidden_epilogue<H, false, false>(acc, aux + p.aux_off[0], a, w_alpha, b_alpha, sig_rows);
+      } else {
+        hidden_epilogue<H, false, true>(acc, aux + p.aux_off[0], a, w_alpha, b_alpha, sig_rows);
       }
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (lane == 0) excl = 1.f;
-      const float w = alpha * (carry * excl);
-      carry *= __shfl_sync(0xffffffffu, incl, 31);
-      if (ok) {
-        p.weights[ray * S + s] = w;
-        const float* raw = rgbr + (base + s) * 3;
-        rr += w * (1.f / (1.f + expf(-raw[0])));
-        gg += w * (1.f / (1.f + expf(-raw[1])));
-        bb += w * (1.f / (1.f + expf(-raw[2])));
-        dep += w * zs[base + s];
-        ac += w;
-      }
-    }
+      // ---- trunk, then fc_feat (layer nt + 1)
+      for (int i = 0; i <= nt; ++i) {
+        const bool skip = i < nt && ((p.skip_mask >> i) & 1);
+        const int n = KCH + (skip ? kx : 0);
+        wait_chunks(n);
 #pragma unroll
-    for (int x = 16; x > 0; x >>= 1) {
-      rr += __shfl_xor_sync(0xffffffffu, rr, x);
-      gg += __shfl_xor_sync(0xffffffffu, gg, x);
-      bb += __shfl_xor_sync(0xffffffffu, bb, x);
-      dep += __shfl_xor_sync(0xffffffffu, dep, x);
-      ac += __shfl_xor_sync(0xffffffffu, ac, x);
-    }
-    if (lane == 0) {
-      if (p.white_bg) {
-        rr += 1.f - ac;
-        gg += 1.f - ac;
-        bb += 1.f - ac;
+        for (int c = 0; c < KCH; ++c) sh[c] = chunk_at(c);
+#pragma unroll
+        for (int c = 0; c < kMaxKx; ++c) se[c] = chunk_at(KCH + (c < kx ? c : 0));
+        fence_regs(a);
+        fence_regs(acc);
+        wgmma_fence();
+        reg_product<H, H>(acc, a, sh);
+        if (skip) enc_product<H>(acc, enc, kx, se, false);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(acc);
+        release(n);
+        const float* bias = aux + p.aux_off[1 + i];
+        if (i == nt - 1) {
+          hidden_epilogue<H, true, true>(acc, bias, a, w_alpha, b_alpha, sig_rows);
+        } else {
+          hidden_epilogue<H, true, false>(acc, bias, a, w_alpha, b_alpha, sig_rows);
+        }
       }
-      p.rgb[ray * 3] = rr;
-      p.rgb[ray * 3 + 1] = gg;
-      p.rgb[ray * 3 + 2] = bb;
-      p.depth[ray] = dep;
-      p.acc[ray] = ac;
-      p.disp[ray] = 1.f / fmaxf(1e-10f, dep / fmaxf(ac, 1e-37f));
+      // ---- layers_dir.0 on feat, + the per-ray bias; the rgb head. At
+      // width 128 in two products of 32 columns: one 64-column accumulator
+      // beside the epilogue's values would not fit the 128 registers a
+      // thread has (the compiler would spill and serialize every wgmma).
+      constexpr int NSPLIT = H2 == 64 ? 2 : 1, NH = H2 / NSPLIT;
+      wait_chunks(KCH);
+#pragma unroll
+      for (int c = 0; c < KCH; ++c) sh[c] = chunk_at(c);
+      float crgb[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int hs = 0; hs < NSPLIT; ++hs) {
+        float ad[NH / 2];
+        fence_regs(a);
+        fence_regs(ad);
+        wgmma_fence();
+        reg_product<NH, H>(ad, a, sh, hs * NH * 128);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(ad);
+        dir_epilogue<H, NH>(ad, hs * NH, r0, S, nrays, dirb, w_rgb, crgb);
+      }
+      release(KCH);
+      store_rgb(crgb, r0, b_rgb, rgbr);
     }
-    // Dex: the first sample whose sigma exceeds m (no hit -> z[0])
-    for (int t = 0; t < p.n_thr; ++t) {
-      const float m = p.thr[t];
+    wg_sync(bar);  // every row's sigma and rgb logits are written
+
+    // ---- compositing, one warp per ray
+    for (int rr = warp; rr < nrays; rr += 4) {
+      const int base = rr * S;
+      const size_t ray = (size_t)ray0 + rr;
+      float carry = 1.f, cr = 0.f, cg = 0.f, cb = 0.f, dep = 0.f, ac = 0.f;
+      for (int j0 = 0; j0 < S; j0 += 32) {
+        const int s = j0 + lane;
+        const bool ok = s < S;
+        const float sigma = ok ? fmaxf(sig[base + s], 0.f) : 0.f;
+        const float alpha = ok ? 1.f - expf(-sigma * ds[base + s]) : 0.f;
+        float incl = ok ? (1.f - alpha) + 1e-10f : 1.f;
+#pragma unroll
+        for (int x = 1; x < 32; x <<= 1) {
+          const float tt = __shfl_up_sync(0xffffffffu, incl, x);
+          if (lane >= x) incl *= tt;
+        }
+        float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+        if (lane == 0) excl = 1.f;
+        const float wgt = alpha * (carry * excl);
+        carry *= __shfl_sync(0xffffffffu, incl, 31);
+        if (ok) {
+          p.weights[ray * S + s] = wgt;
+          const float* raw = rgbr + (base + s) * 3;
+          cr += wgt * (1.f / (1.f + expf(-raw[0])));
+          cg += wgt * (1.f / (1.f + expf(-raw[1])));
+          cb += wgt * (1.f / (1.f + expf(-raw[2])));
+          dep += wgt * zs[base + s];
+          ac += wgt;
+        }
+      }
+#pragma unroll
+      for (int x = 16; x > 0; x >>= 1) {
+        cr += __shfl_xor_sync(0xffffffffu, cr, x);
+        cg += __shfl_xor_sync(0xffffffffu, cg, x);
+        cb += __shfl_xor_sync(0xffffffffu, cb, x);
+        dep += __shfl_xor_sync(0xffffffffu, dep, x);
+        ac += __shfl_xor_sync(0xffffffffu, ac, x);
+      }
+      if (lane == 0) {
+        if (p.white_bg) {
+          cr += 1.f - ac;
+          cg += 1.f - ac;
+          cb += 1.f - ac;
+        }
+        p.rgb[ray * 3] = cr;
+        p.rgb[ray * 3 + 1] = cg;
+        p.rgb[ray * 3 + 2] = cb;
+        p.depth[ray] = dep;
+        p.acc[ray] = ac;
+        p.disp[ray] = 1.f / fmaxf(1e-10f, dep / fmaxf(ac, 1e-37f));
+      }
+    }
+    // ---- Dex: the first sample whose sigma exceeds m (no hit -> z[0]), one
+    // warp per (ray, threshold)
+    for (int i = warp; i < nrays * p.n_thr; i += 4) {
+      const int rr = i / p.n_thr, th = i - rr * p.n_thr;
+      const int base = rr * S;
+      const float m = p.thr[th];
       float hit = zs[base];
-      for (int s0 = 0; s0 < S; s0 += 32) {
-        const int s = s0 + lane;
-        const unsigned b = __ballot_sync(0xffffffffu, s < S && fmaxf(sig[base + s], 0.f) > m);
-        if (b) {
-          hit = zs[base + s0 + __ffs(b) - 1];
+      for (int j0 = 0; j0 < S; j0 += 32) {
+        const int s = j0 + lane;
+        const unsigned bits = __ballot_sync(0xffffffffu, s < S && fmaxf(sig[base + s], 0.f) > m);
+        if (bits) {
+          hit = zs[base + j0 + __ffs(bits) - 1];
           break;
         }
       }
-      if (lane == 0) p.dex[(size_t)t * N + ray] = hit;
+      if (lane == 0) p.dex[(size_t)th * N + ray0 + rr] = hit;
     }
+    wg_sync(bar);  // the next unit rewrites the unit's data
+  }
+  // worker kCons b has more tiles: release the chunks of its other passes
+  for (int c = mine * tiles * nch; c < passes * nch; ++c) {
+    wait_chunks(1);
+    release(1);
   }
 }
 
@@ -552,19 +672,46 @@ int launch(const Params& p, size_t smem, int grid, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The ring stages and shared memory of a launch: as many stages as fit, up
+// to kMaxStages; 0 if the shape is not one the kernel takes or the ring
+// cannot hold the chunks of one layer (a consumer waits for all of a
+// layer's chunks before its products).
+int stages_for(int hidden, int dx, int dd, int n_samples, int rpu, int num_trunk, int skip_mask,
+               size_t* smem) {
+  if (hidden % 32 != 0 || hidden < 32 || hidden > 128 || n_samples < 1 ||
+      n_samples > kMaxSamples || rpu < 1 || rpu > kMaxRpu ||
+      unit_rows(rpu, n_samples) > kMaxUnitRows || dx < 1 || dx > kMaxDx || dd < 0 ||
+      num_trunk < 0 || num_trunk > 31) {
+    return 0;
+  }
+  const int kx = (dx + kKc - 1) / kKc, kch = (hidden + kKc - 1) / kKc;
+  int need = kx;  // the most chunks of one layer
+  for (int l = 1; l <= num_trunk; ++l) {
+    const int cur = kch + (((skip_mask >> (l - 1)) & 1) ? kx : 0);
+    need = need > cur ? need : cur;
+  }
+  for (int ns = kMaxStages; ns >= need; --ns) {
+    *smem = smem_layout(hidden, num_trunk, kx, unit_rows(rpu, n_samples), rpu, dd, ns).total;
+    if (*smem <= (size_t)kSmemMax) return ns;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Returns a cudaError_t (0 on success); the launch is asynchronous on
 // `stream`. Pointers named *_host are host arrays, copied into the kernel's
-// parameter block. `rpc` rays per CTA (rpc * n_samples <= 384).
+// parameter block. The work plan (ops/fused_render.py::render_plan): units
+// of rays_per_unit rays, `grid` persistent CTAs.
 int dexnerf_fused_render_bf16(const float* origins, const float* dirs, const float* viewdirs,
                               const float* z, const float* dists, const void* wq,
                               const float* aux, float* rgb, float* disp, float* acc,
                               float* depth, float* weights, float* dex, int n_rays,
-                              int n_samples, int hidden, int num_trunk, int skip_mask, int rpc,
-                              int fx, int inc_x, const float* bands_x_host, int fd, int inc_d,
+                              int n_samples, int hidden, int num_trunk, int skip_mask,
+                              int rays_per_unit, int grid, int fx, int inc_x,
+                              const float* bands_x_host, int fd, int inc_d,
                               const float* bands_d_host, int n_thr, const float* thr_host,
                               const int* aux_off_host, int white_bg, void* stream) {
   Params p;
@@ -573,7 +720,7 @@ int dexnerf_fused_render_bf16(const float* origins, const float* dirs, const flo
   p.viewdirs = viewdirs;
   p.z = z;
   p.dists = dists;
-  p.wq = static_cast<const __nv_bfloat16*>(wq);
+  p.wq = static_cast<const bf16*>(wq);
   p.aux = aux;
   p.rgb = rgb;
   p.disp = disp;
@@ -586,29 +733,29 @@ int dexnerf_fused_render_bf16(const float* origins, const float* dirs, const flo
   p.hidden = hidden;
   p.num_trunk = num_trunk;
   p.skip_mask = skip_mask;
-  p.rpc = rpc;
+  p.rpu = rays_per_unit;
   p.fx = fx;
   p.fd = fd;
   p.inc_x = inc_x;
   p.inc_d = inc_d;
   p.dx = 3 * inc_x + 6 * fx;
-  p.dxp = (p.dx + kKc - 1) / kKc * kKc;
+  p.kx = (p.dx + kKc - 1) / kKc;
   p.dd = 3 * inc_d + 6 * fd;
   p.n_thr = n_thr;
   p.white_bg = white_bg;
-  if (n_samples < 1 || n_samples > kMaxSamples || rpc < 1 || rpc > kMaxRpc ||
-      rpc * n_samples > kMaxRows || num_trunk < 0 || num_trunk > 31 ||
-      num_trunk + 8 > kAux || fx > kMaxFreq || fd > kMaxFreq || p.dx < 1 ||
-      n_thr > kMaxThresholds || n_thr < 0 || (n_thr > 0 && dex == nullptr) ||
-      hidden % 32 != 0 || hidden < 32 || hidden > 128) {
+  size_t smem = 0;
+  p.n_stages =
+      stages_for(hidden, p.dx, p.dd, n_samples, rays_per_unit, num_trunk, skip_mask, &smem);
+  if (p.n_stages == 0 || n_rays < 0 || grid < 0 || (n_rays > 0 && grid < 1) ||
+      num_trunk + 8 > kAux || fx > kMaxFreq || fd > kMaxFreq ||
+      n_thr > kMaxThresholds || n_thr < 0 || (n_thr > 0 && dex == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   for (int i = 0; i < num_trunk + 8; ++i) p.aux_off[i] = aux_off_host[i];
   for (int f = 0; f < fx; ++f) p.bands_x[f] = bands_x_host[f];
   for (int f = 0; f < fd; ++f) p.bands_d[f] = bands_d_host[f];
   for (int t = 0; t < n_thr; ++t) p.thr[t] = thr_host[t];
-  const size_t smem = smem_layout(hidden, p.dxp, rpc * n_samples, rpc).total;
-  const int grid = (n_rays + rpc - 1) / rpc;
+  if (n_rays == 0) grid = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hidden / 32) {
     case 1: return launch<2>(p, smem, grid, s);
@@ -619,13 +766,18 @@ int dexnerf_fused_render_bf16(const float* origins, const float* dirs, const flo
 }
 
 // CTAs of the kernel that fit on one SM (registers, shared memory) for a
-// model of width `hidden` with a dx-wide xyz encoding, `rpc` rays of
-// `n_samples` per CTA; its shared-memory bytes per CTA into *smem_bytes.
-int dexnerf_fused_render_bf16_occupancy(int hidden, int dx, int n_samples, int rpc,
-                                        int* ctas, int* smem_bytes) {
-  if (hidden % 32 != 0 || hidden < 32 || hidden > 128) return (int)cudaErrorInvalidValue;
-  const int dxp = (dx + kKc - 1) / kKc * kKc;
-  const size_t smem = smem_layout(hidden, dxp, rpc * n_samples, rpc).total;
+// model of width `hidden` with a dx-wide xyz and a dd-wide viewdir
+// encoding, num_trunk trunk layers (skip_mask: those that read the
+// encoding), units of `rays_per_unit` rays of `n_samples`; its
+// shared-memory bytes per CTA into *smem_bytes and its ring stages into
+// *stages.
+int dexnerf_fused_render_bf16_occupancy(int hidden, int dx, int dd, int n_samples,
+                                        int rays_per_unit, int num_trunk, int skip_mask,
+                                        int* ctas, int* smem_bytes, int* stages) {
+  size_t smem = 0;
+  *stages =
+      stages_for(hidden, dx, dd, n_samples, rays_per_unit, num_trunk, skip_mask, &smem);
+  if (*stages == 0) return (int)cudaErrorInvalidValue;
   *smem_bytes = (int)smem;
   switch (hidden / 32) {
     case 1: return occupancy<2>(smem, ctas);

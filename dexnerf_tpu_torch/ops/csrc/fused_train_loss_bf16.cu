@@ -91,6 +91,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -248,10 +250,6 @@ __host__ __device__ inline int aux_rgb(int H, int nt) { return aux_alpha(H, nt) 
 __host__ __device__ inline int aux_vd(int H, int nt) { return aux_rgb(H, nt) + 3; }
 __host__ __device__ inline int aux_size(int H, int nt, int dd) {
   return aux_vd(H, nt) + dd * (H / 2);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -796,106 +794,6 @@ __global__ void __launch_bounds__(kRayWarps * 32) train_composite_kernel(const T
   }
 }
 
-// ---- Hopper primitives of the dW kernel: mbarriers, TMA, wgmma
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-// box (c0 = feature column, c1 = sample row) of the tensor map into dst,
-// completing on the mbarrier bar
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-// wgmma descriptor of a 128 B-swizzled, MN-major (transposed) operand
-// starting at addr (1024-aligned atoms of 8 K rows x 128 B): the stride
-// between 8-row K groups (SBO) is 1024 B; one 64-wide MN atom per
-// instruction, so the MN-atom stride (LBO) is never used and is set alike.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-// The same for an 8-wide, unswizzled MN-major A box ([64 K rows][16 B]):
-// core matrices of 8 K rows x 16 B, the next 8 K rows 128 B on. The 8
-// columns fill the first of the 8 M groups of the instruction; the others
-// alias later K rows (both strides 128 B, whichever field the hardware
-// reads for which), and their output rows (>= 8) are never written.
-__device__ __forceinline__ uint64_t small_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(128 >> 4) << 32);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// d[64 x N] += A B for one k16 step, bf16 in, f32 accumulate, A ([64][K])
-// and B ([N][K]) in shared memory, each K-major (TA, TB = 0) or MN-major
-// (1: the transpose bit; the dW kernel's sample-major scratch boxes).
-// Operands: the N / 2 accumulators, then da, db, the scale-d flag, TA, TB.
-#define WG_ACC8(i)                                                                            \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_ACC16(i) WG_ACC8(i), WG_ACC8(i + 8)
-#define WG_R0 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-#define WG_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-#define WG_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-#define WG_R48 ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-#define WG_MMA(N, REGS, DA, DB, SC, TA_, TB_, ...)                                         \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #SC ", 0;\n"                          \
-               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS "}, %" #DA \
-               ", %" #DB ", p, 1, 1, %" #TA_ ", %" #TB_ ";\n}\n"                           \
-               : __VA_ARGS__                                                             \
-               : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB))
-template <int N, int TA, int TB>
-__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da, uint64_t db) {
-  static_assert(N == 32 || N == 64 || N == 96 || N == 128, "the kernels' wgmma widths");
-  if constexpr (N == 32) {
-    WG_MMA(32, WG_R0, 16, 17, 18, 19, 20, WG_ACC16(0));
-  } else if constexpr (N == 64) {
-    WG_MMA(64, WG_R0 WG_R16, 32, 33, 34, 35, 36, WG_ACC16(0), WG_ACC16(16));
-  } else if constexpr (N == 96) {
-    WG_MMA(96, WG_R0 WG_R16 WG_R32, 48, 49, 50, 51, 52, WG_ACC16(0), WG_ACC16(16), WG_ACC16(32));
-  } else {
-    WG_MMA(128, WG_R0 WG_R16 WG_R32 WG_R48, 64, 65, 66, 67, 68, WG_ACC16(0), WG_ACC16(16),
-           WG_ACC16(32), WG_ACC16(48));
-  }
-}
-#undef WG_MMA
-#undef WG_R48
-#undef WG_R32
-#undef WG_R16
-#undef WG_R0
-#undef WG_ACC16
-#undef WG_ACC8
-
 // A consumer warpgroup's part of one unit: its NB blocks (cw, cw + 2, ...)
 // over stages [j0, j1) of the ring (it counts the CTA's stages), then the
 // blocks into the slot at out. Every warp releases each stage it has read.
@@ -1104,33 +1002,6 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
   return (uint32_t)((c >> 6) * kCHalf + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) +
                     (c & 7) * 2);
 }
-// wgmma descriptor of a K-major, 128 B-swizzled operand at addr: rows of
-// 64 K (128 B), 8-row atoms 1024 B apart; a k16 step adds 32 B.
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, int c0, int c1,
-                                             uint32_t src) {
-  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::
-                   "l"(reinterpret_cast<uint64_t>(map)),
-               "r"(c0), "r"(c1), "r"(src)
-               : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-// thread writes to shared memory, made visible to wgmma and TMA
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 __device__ __forceinline__ uint32_t lds32(uint32_t a) {
   uint32_t v;
   asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(a));
@@ -1154,10 +1025,6 @@ __device__ __forceinline__ float4 lds128(uint32_t a) {
                : "r"(a));
   return v;
 }
-__device__ __forceinline__ void wg_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
 // The tensor maps of the chain (mirrored by _ChainMaps in
 // ops/fused_train_loss.py): the backward pack as [rows][64] with [H][64]
 // boxes, and the scratch blocks, as DwArgs::maps.

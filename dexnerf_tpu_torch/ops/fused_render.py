@@ -4,7 +4,8 @@ Counterpart of ``dexnerf_tpu/ops/fused_render.py``, with its
 ``compute_dtype`` (float32 or bfloat16, default float32 as in JAX). On a
 CUDA tensor, :func:`fused_render` launches a hand-written kernel built by
 ``ops/_build.py``: ``ops/csrc/fused_render.cu`` (f32 FMA) at float32,
-``ops/csrc/fused_render_bf16.cu`` (bf16 tensor-core MMAs, f32 chain) at
+``ops/csrc/fused_render_bf16.cu`` (bf16 ``wgmma`` on the tensor cores, f32
+chain; persistent CTAs walking the work plan :func:`render_plan`) at
 bfloat16. On a CPU tensor it runs :func:`fused_render_reference`, the
 plain PyTorch version of the same contract. There is no fallback between
 them: a CUDA call that cannot launch its dtype's kernel raises.
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import weakref
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,11 +45,12 @@ MAX_THRESHOLDS = 64
 MAX_SAMPLES = 256
 MAX_HIDDEN = 128
 SHARED_BYTES_LIMIT = 232448  # per block on Hopper
-# of ops/csrc/fused_render_bf16.cu (kTile, kKc, kMaxRows, kMaxRpc)
-BF16_TILE = 128
-BF16_KCHUNK = 32
-BF16_MAX_ROWS = 384
-BF16_MAX_RPC = 32
+# of ops/csrc/fused_render_bf16.cu (kTile, kKc, kMaxUnitRows, kMaxRpu, kCons)
+BF16_TILE = 64
+BF16_KCHUNK = 64
+BF16_MAX_ROWS = 256
+BF16_MAX_RPU = 16
+BF16_WORKERS = 3
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -104,18 +106,25 @@ def _round_up(n: int, m: int) -> int:
 
 
 def _k_chunks(w: torch.Tensor, k: int, n: Optional[int] = None) -> torch.Tensor:
-    """``w`` [N, K] zero-padded to ``n`` rows (default N) and ``k`` columns,
-    as flat [k/32, n, 32]."""
+    """``w`` [N, K] zero-padded to ``n`` rows (default N) and ``k`` (a
+    multiple of 64) columns, as flat [k/64, n, 64] K-chunks in wgmma's
+    128 B-swizzled layout: in row r of a chunk, the 16-byte group j (columns
+    8j .. 8j + 7) is stored at group j ^ (r % 8)."""
     n = w.shape[0] if n is None else n
     w = F.pad(w, (0, k - w.shape[1], 0, n - w.shape[0]))
-    return w.reshape(n, k // BF16_KCHUNK, BF16_KCHUNK).transpose(0, 1).reshape(-1)
+    groups = w.reshape(n, k // BF16_KCHUNK, 8, 8)
+    swz = torch.arange(8)[None, :] ^ (torch.arange(n)[:, None] % 8)  # [n, 8]
+    groups = groups[torch.arange(n)[:, None, None], torch.arange(k // BF16_KCHUNK)[None, :, None],
+                    swz[:, None, :]]
+    return groups.transpose(0, 1).reshape(-1)
 
 
 def bf16_hidden(hidden: int) -> int:
     """The width the bf16 kernels compute at: ``hidden`` zero-padded to a
-    multiple of 32 (their warps split the columns in halves of n8 tiles,
-    and the viewdir layer's H/2 in quarters). The padding is exact: a
-    padded unit computes ReLU(0 + 0) = 0 and meets zero weight rows."""
+    multiple of 32 (the training forward's warps split the columns in
+    halves of n8 tiles, and the viewdir layer's H/2 in quarters). The
+    padding is exact: a padded unit computes ReLU(0 + 0) = 0 and meets zero
+    weight rows."""
     return _round_up(hidden, 32)
 
 
@@ -123,24 +132,26 @@ def _pad_vec(t: torch.Tensor, n: int) -> torch.Tensor:
     return F.pad(t, (0, n - t.shape[-1]))
 
 
-def _bf16_layout(model: FlexibleNeRFModel, w: dict) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
-    """The bf16 kernel's layout of the parameters ``w`` (name -> tensor,
+def bf16_operands(model: FlexibleNeRFModel, w: dict, chunks, kc: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
+    """The bf16 kernels' layout of the parameters ``w`` (name -> tensor,
     the model's shapes) at the padded width, before any rounding: the
-    float32 operand chunks, the aux buffer and its offsets (see
+    float32 matmul operands as ``chunks(w, k, n)`` K-chunks of ``kc``
+    columns in consumption order, the aux buffer and its offsets (see
     :func:`pack_flex_weights_bf16`)."""
     H = model.hidden_size
     Hp = bf16_hidden(H)
     Hp2 = Hp // 2
-    dxp = _round_up(model.dim_xyz, BF16_KCHUNK)
+    dxp, kh = _round_up(model.dim_xyz, kc), _round_up(Hp, kc)
     d0 = "layers_dir.0"
-    parts = [_k_chunks(w["layer1.weight"], dxp, Hp)]
+    parts = [chunks(w["layer1.weight"], dxp, Hp)]
     for i in range(model.num_layers - 1):
         wi = w[f"layers_xyz.{i}.weight"]
-        parts.append(_k_chunks(wi[:, :H], Hp, Hp))
+        parts.append(chunks(wi[:, :H], kh, Hp))
         if i in model.skips:
-            parts.append(_k_chunks(wi[:, H:], dxp, Hp))
-    parts.append(_k_chunks(w["fc_feat.weight"], Hp, Hp))
-    parts.append(_k_chunks(w[f"{d0}.weight"][:, :H], Hp, Hp2))
+            parts.append(chunks(wi[:, H:], dxp, Hp))
+    parts.append(chunks(w["fc_feat.weight"], kh, Hp))
+    parts.append(chunks(w[f"{d0}.weight"][:, :H], kh, Hp2))
     aux, offsets = _pack_f32([
         _pad_vec(w["layer1.bias"], Hp),
         *(_pad_vec(w[f"layers_xyz.{i}.bias"], Hp) for i in range(model.num_layers - 1)),
@@ -150,6 +161,27 @@ def _bf16_layout(model: FlexibleNeRFModel, w: dict) -> Tuple[torch.Tensor, torch
         _pad_vec(w[f"{d0}.weight"][:, H:].t(), Hp2),
     ])
     return torch.cat(parts), aux, offsets
+
+
+def _bf16_layout(model: FlexibleNeRFModel, w: dict) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
+    return bf16_operands(model, w, _k_chunks, BF16_KCHUNK)
+
+
+def pack_bf16(model: FlexibleNeRFModel, layout, device=None
+              ) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
+    """``layout`` (:func:`bf16_operands` with a chunking) of the model's
+    parameters: the operands rounded to bf16, the aux buffer with the
+    viewdir rows of layers_dir.0 rounded to bf16 (the kernels fold them into
+    a per-ray bias). One gather of the parameters (:func:`gather_plan`)."""
+    dev = next(model.parameters()).device
+    idx_wq, idx_aux, offsets = gather_plan(layout, model, dev)
+    with torch.no_grad():
+        wq, aux = gather_params(model, idx_wq, idx_aux)
+        wq = wq.to(torch.bfloat16)
+        vd = offsets[model.num_layers + 6]
+        n_vd = model.dim_dir * bf16_hidden(model.hidden_size) // 2
+        aux[vd:vd + n_vd] = _bf16(aux[vd:vd + n_vd])
+    return wq.to(device), aux.to(device), offsets
 
 
 # (layout function, model shape, device) -> gather plan: every packed entry
@@ -191,42 +223,37 @@ def gather_params(model: FlexibleNeRFModel, *idx: torch.Tensor) -> List[torch.Te
 def pack_flex_weights_bf16(
     model: FlexibleNeRFModel, device=None
 ) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
-    """The bf16 kernel's weight layout (``split_flex_params`` at bfloat16),
-    at the padded width Hp = :func:`bf16_hidden` (every padded row, column
-    and bias is zero):
+    """The bf16 render kernel's weight layout (``split_flex_params`` at
+    bfloat16), at the padded width Hp = :func:`bf16_hidden` (every padded
+    row, column and bias is zero):
 
-    * ``wq``, bf16: the matmul operands as [N, 32] K-chunks (rows of
+    * ``wq``, bf16: the matmul operands as [N, 64] K-chunks (rows of
       ``nn.Linear.weight``, N zero-padded to Hp or Hp/2, K zero-padded to a
-      multiple of 32) in the kernel's consumption order: layer1; per trunk
-      layer its h rows, then on a skip layer its xyz rows; fc_feat; the
-      feat rows of layers_dir.0;
+      multiple of 64), each in wgmma's 128 B-swizzled layout
+      (:func:`_k_chunks`), in the kernel's consumption order: layer1; per
+      trunk layer its h rows, then on a skip layer its xyz rows; fc_feat;
+      the feat rows of layers_dir.0. The kernel copies each chunk to shared
+      memory as it is;
     * ``aux``, float32, at the returned offsets: the biases of layer1, of
       each trunk layer, of fc_feat and of layers_dir.0, then w_alpha [Hp],
       b_alpha, w_rgb [Hp/2, 3], b_rgb and the viewdir rows of layers_dir.0
       [dd, Hp/2] rounded to bf16 (the kernel folds them into a per-ray bias).
     """
-    dev = next(model.parameters()).device
-    idx_wq, idx_aux, offsets = gather_plan(_bf16_layout, model, dev)
-    with torch.no_grad():
-        wq, aux = gather_params(model, idx_wq, idx_aux)
-        wq = wq.to(torch.bfloat16)
-        vd = offsets[model.num_layers + 6]
-        n_vd = model.dim_dir * bf16_hidden(model.hidden_size) // 2
-        aux[vd:vd + n_vd] = _bf16(aux[vd:vd + n_vd])
-    return wq.to(device), aux.to(device), offsets
+    return pack_bf16(model, _bf16_layout, device)
 
 
-# model -> ((each parameter's (data_ptr, version), device), packed): packed
-# once, rebuilt when a parameter is replaced or changed in place
+# model -> {pack: ((each parameter's (data_ptr, version), device), packed)}:
+# packed once, rebuilt when a parameter is replaced or changed in place
 _packed_bf16 = weakref.WeakKeyDictionary()
 
 
-def _cached_bf16_weights(model: FlexibleNeRFModel, device):
+def _cached_bf16_weights(model: FlexibleNeRFModel, device, pack=pack_flex_weights_bf16):
     key = (tuple((p.data_ptr(), p._version) for p in model.parameters()), str(device))
-    hit = _packed_bf16.get(model)
+    packs = _packed_bf16.setdefault(model, {})
+    hit = packs.get(pack)
     if hit is None or hit[0] != key:
-        hit = (key, pack_flex_weights_bf16(model, device))
-        _packed_bf16[model] = hit
+        hit = (key, pack(model, device))
+        packs[pack] = hit
     return hit[1]
 
 
@@ -316,33 +343,79 @@ def fused_render_reference(
     return concat_outputs(parts)
 
 
-def rays_per_cta(n_samples: int) -> int:
-    """Rays per CTA of the bf16 kernel: the count (at most 384 samples and
-    32 rays) whose samples fill its 128-sample tiles with the fewest padded
-    rows per ray, the smallest such count on a tie. S = 64 gives 2 (one
-    tile), S = 128 gives 1, S = 192 gives 2 (three tiles), all without
-    padding; S = 100 gives 1 (28 of 128 rows padded)."""
-    best, best_rows = 1, _round_up(n_samples, BF16_TILE)
-    for r in range(2, min(BF16_MAX_RPC, BF16_MAX_ROWS // n_samples) + 1):
+class RenderPlan(NamedTuple):
+    """The bf16 kernel's work plan for one pass: the rays cut into
+    ``units`` units of ``rays_per_unit`` whole rays (the last may hold
+    fewer), each computed as ``rows_per_unit`` MLP rows (a multiple of 64,
+    one 64-row tile at a time); ``rows`` = units x rows_per_unit of which
+    ``padded_rows`` are padding; ``grid`` persistent CTAs, whose consumer
+    warpgroups (worker 3 b + c of CTA b) take units w, w + 3 grid, ...."""
+
+    rays_per_unit: int
+    rows_per_unit: int
+    units: int
+    rows: int
+    padded_rows: int
+    grid: int
+
+
+def render_plan(n_rays: int, n_samples: int, ctas: int) -> RenderPlan:
+    """The work plan of the bf16 kernel (ops/csrc/fused_render_bf16.cu) for
+    ``n_rays`` rays of ``n_samples`` on a card that holds ``ctas`` CTAs at
+    once. The rays per unit (at most 16, at most 256 rows) are those with
+    the fewest padded rows per ray; on a tie the largest unit of at most 128
+    rows (fewer unit prologues and compositing rounds), else the smallest.
+    S = 64 gives 2 rays in 128 rows, S = 128 one ray, S = 100 one ray in 128
+    rows (28 padded), S = 8 16 rays. One CTA per three units, at most
+    ``ctas``, so that a small frame leaves no CTA idle."""
+    if not 1 <= n_samples <= MAX_SAMPLES:
+        raise ValueError(f"{n_samples} samples per ray: the kernel takes 1..{MAX_SAMPLES}")
+    best = None
+    for r in range(1, min(BF16_MAX_RPU, BF16_MAX_ROWS // n_samples) + 1):
         rows = _round_up(r * n_samples, BF16_TILE)
-        if rows * best < best_rows * r:  # fewer padded rows per ray
-            best, best_rows = r, rows
-    return best
+        small = rows <= 2 * BF16_TILE
+        # padded rows per ray (compared as fractions), then the tie-break
+        key = ((rows - r * n_samples) / r, 0 if small else 1, -r if small else r)
+        if best is None or key < best[0]:
+            best = (key, r, rows)
+    _, rpu, rows_u = best
+    units = -(-n_rays // rpu)
+    grid = min(ctas, -(-units // BF16_WORKERS))
+    return RenderPlan(rpu, rows_u, units, units * rows_u, units * rows_u - n_rays * n_samples,
+                      grid)
 
 
-def bf16_occupancy(model: FlexibleNeRFModel, n_samples: int) -> Tuple[int, int]:
-    """(CTAs per SM, shared-memory bytes per CTA) of the bf16 kernel for
-    ``model`` at ``n_samples`` per ray, as the CUDA runtime reports them
-    (needs the card)."""
+def plan_workers(plan: RenderPlan) -> List[List[int]]:
+    """The units of each worker (consumer warpgroup c of CTA b is worker
+    3 b + c), in the order the kernel computes them."""
+    n = BF16_WORKERS * plan.grid
+    return [list(range(w, plan.units, n)) for w in range(n)]
+
+
+# (width, encodings, samples, rays per unit, depth, skips, device) ->
+# (CTAs per SM, shared-memory bytes per CTA, weight ring stages)
+_residency = {}
+
+
+def bf16_occupancy(model: FlexibleNeRFModel, n_samples: int) -> Tuple[int, int, int]:
+    """(CTAs per SM, shared-memory bytes per CTA, weight ring stages) of the
+    bf16 kernel for ``model`` at ``n_samples`` per ray, as the CUDA runtime
+    and the launcher report them (needs the card)."""
     from dexnerf_tpu_torch.ops._build import check, load_library
 
-    lib = load_library()
-    ctas, smem = ctypes.c_int(0), ctypes.c_int(0)
-    code = lib.dexnerf_fused_render_bf16_occupancy(
-        bf16_hidden(model.hidden_size), model.dim_xyz, n_samples, rays_per_cta(n_samples),
-        ctypes.byref(ctas), ctypes.byref(smem))
-    check(lib, code, "fused_render bf16 occupancy query")
-    return ctas.value, smem.value
+    rpu = render_plan(1, n_samples, 1).rays_per_unit
+    key = (bf16_hidden(model.hidden_size), model.dim_xyz, model.dim_dir, n_samples, rpu,
+           model.num_layers - 1, sum(1 << i for i in model.skips), torch.cuda.current_device())
+    if key not in _residency:
+        lib = load_library()
+        out = [ctypes.c_int(0) for _ in range(3)]
+        code = lib.dexnerf_fused_render_bf16_occupancy(*key[:7], *map(ctypes.byref, out))
+        check(lib, code, "fused_render bf16 occupancy query")
+        if out[0].value < 1:
+            raise RuntimeError(f"the bf16 render kernel does not fit on an SM ({out[1].value} "
+                               "bytes of shared memory)")
+        _residency[key] = tuple(o.value for o in out)
+    return _residency[key]
 
 
 def _check_inputs(model, dev, tensors, N: int, S: int, T: int, compute_dtype) -> None:
@@ -431,10 +504,12 @@ def _launch(
     if compute_dtype == torch.bfloat16:
         wq, aux, offsets = _cached_bf16_weights(model, dev)
         off_arr, off_ptr = _host_array(ctypes.c_int, offsets)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = render_plan(N, S, sms * bf16_occupancy(model, S)[0])
         code = lib.dexnerf_fused_render_bf16(
             *ins, wq.data_ptr(), aux.data_ptr(), *outs,
             N, S, bf16_hidden(model.hidden_size), model.num_layers - 1, skip_mask,
-            rays_per_cta(S),
+            plan.rays_per_unit, plan.grid,
             *pe, off_ptr, int(bool(white_background)), stream,
         )
         check(lib, code, "fused_render bf16 kernel launch")

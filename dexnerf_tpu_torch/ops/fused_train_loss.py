@@ -80,13 +80,13 @@ from dexnerf_tpu_torch.ops._weight_grads import (
     pack_backward_weights,
 )
 from dexnerf_tpu_torch.ops.fused_render import (
-    BF16_KCHUNK,
     _cached_bf16_weights,
-    _k_chunks,
     _round_up,
     bf16_hidden,
+    bf16_operands,
     gather_params,
     gather_plan,
+    pack_bf16,
     pack_flex_weights,
 )
 from dexnerf_tpu_torch.ops.resample import make_fused_resample
@@ -117,6 +117,7 @@ DW_MAX_BOXES = 6
 DW_MAX_BLOCKS = 8
 DW_SMEM_MAX = 232448
 CHAIN_KCHUNK = 64  # K of a chain weight chunk (one [Hp][64] TMA box)
+FWD_KCHUNK = 32  # K of a forward weight chunk (kKc of fused_train_loss_bf16.cu)
 SUPERVISION = ("rgb", "luminance")
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -625,6 +626,25 @@ def dw_template(units, grid: int):
     return args, 1024 + args.n_stages * (args.stage_bytes + 16)
 
 
+def _k_chunks32(w: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """``w`` [N, K] zero-padded to ``n`` rows and ``k`` (a multiple of 32)
+    columns, as flat [k/32, n, 32]."""
+    w = F.pad(w, (0, k - w.shape[1], 0, n - w.shape[0]))
+    return w.reshape(n, k // FWD_KCHUNK, FWD_KCHUNK).transpose(0, 1).reshape(-1)
+
+
+def _forward_layout(model: FlexibleNeRFModel, w: dict):
+    return bf16_operands(model, w, _k_chunks32, FWD_KCHUNK)
+
+
+def pack_forward_weights_bf16(model: FlexibleNeRFModel, device=None):
+    """The bf16 forward's weights (``train_fwd_bf16_kernel`` of kernels
+    2-4): ``pack_flex_weights_bf16``'s operands, in the same order, as plain
+    [N, 32] K-chunks (the rows its ``cp.async`` ring copies; K zero-padded
+    to a multiple of 32), and the same aux buffer and offsets."""
+    return pack_bf16(model, _forward_layout, device)
+
+
 def _k_chunks64(w: torch.Tensor, k: int, n: int) -> torch.Tensor:
     """``w`` [N, K] zero-padded to ``n`` rows and ``k`` (a multiple of 64)
     columns, as flat [k/64, n, 64]."""
@@ -666,7 +686,7 @@ def _scratch_layout(model: FlexibleNeRFModel):
     sigma (the last two 8 wide)."""
     Hp = bf16_hidden(model.hidden_size)
     nt = model.num_layers - 1
-    dxp = _round_up(model.dim_xyz, BF16_KCHUNK)
+    dxp = _round_up(model.dim_xyz, FWD_KCHUNK)
     act = [dxp] + [Hp] * (nt + 1) + [Hp, Hp // 2]
     dlt = [Hp] * (nt + 1) + [Hp, Hp // 2, 8, 8]
     return Hp, dxp, act, dlt
@@ -765,7 +785,7 @@ def bf16_args(lib, model: FlexibleNeRFModel, n_rays: int, n_samples: int, *,
     dev = next(model.parameters()).device
     nt, dd = model.num_layers - 1, model.dim_dir
     Hp, dxp, _, _ = _scratch_layout(model)
-    wq, aux, aux_off = _cached_bf16_weights(model, dev)
+    wq, aux, aux_off = _cached_bf16_weights(model, dev, pack_forward_weights_bf16)
     dir_enc = torch.empty(n_rays * dd, dtype=torch.float32, device=dev)
     dirb = torch.empty(n_rays * Hp // 2, dtype=torch.float32, device=dev)
     args = _Bf16TrainArgs()
