@@ -53,7 +53,9 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    profile three steps at bf16 and three at f32 (kernel 4, glue, Adam,
    idle), with the bf16 forward, chain and dW kernels' device time each
    beside its own bound (the ``parts`` of the kernels line; the bytes and
-   operations behind each bound on a line of their own);
+   operations behind each bound on a line of their own); print the bf16
+   forward's residency (CTAs per SM, shared bytes, ring stages, staging
+   tiles) and each of its launches' 64-row tiles and CTAs;
 9. train the field path (``nerf.pallas_fused_loss: false``) through
    ``apps.train`` for 20 steps at the config's default dtype, bf16: the
    field forward (kernel 2) and backward (kernel 3) launched once per pass
@@ -77,7 +79,9 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    versions, the bf16 dW share of kernel 3 as ``torch.matmul`` calls, and
    whole field-path steps at bf16 and at f32; profile three field-path
    steps at each dtype (kernel 2, kernel 3, glue, Adam, idle), with kernel
-   3's bf16 kernels beside their bounds as in phase 8.
+   3's bf16 kernels beside their bounds as in phase 8 and kernel 2's bf16
+   forward beside its route's bound; the forward's residency and launches
+   for kernels 2 and 3, as in phase 8.
 
 Each kernel's line holds its bound: the larger of its FLOPs (multiply-adds
 counted from the model's shapes; compares and arithmetic counted from the
@@ -600,8 +604,11 @@ def train_phase(torch, np, card, dev, tmp):
           + json.dumps({k: round(batch / (ms[f"step_{k}"] / 1e3)) for k in steps})
           + "; peak memory of a step (GiB): "
           + json.dumps({k: round(v, 2) for k, v in peaks.items()}))
-    print("  bf16 route residency (CUDA occupancy API; CTAs per SM, shared bytes per CTA): "
+    print("  bf16 route residency (CUDA occupancy API; CTAs per SM, shared bytes per CTA; the "
+          "forwards also ring stages, staging tiles per consumer): "
           + json.dumps(ftl.bf16_occupancy(fine)))
+    print_fwd_plan("kernel 4", fine, {k: tuple(a[3].shape) for k, a in per_pass.items()},
+                   ftl.SCRATCH_SAMPLES, torch, dev)
     print_dw_plan(fine, *per_pass["fine"][3].shape, torch, dev)
     print("  bf16 steps:")
     prof = profile_steps(torch, steps["kernel_bf16"], {"kernel 4 bf16": KERNEL4_BF16_NAMES})
@@ -774,6 +781,31 @@ def bf16_parts(prof, owner, passes, library_ms):
                       "library_ms": library_ms if name == "train_dw_bf16_kernel" else None})
         sizes[name] = f"{nbytes_ / 1e9:.4f} GB, {2 * macs / 1e12:.4f} TFLOP"
     return parts, sizes
+
+
+def print_fwd_plan(label, model, shapes, scratch_samples, torch, dev):
+    """The bf16 training forward's residency for ``model`` and its launches
+    on each pass ((rays, samples) in ``shapes``): chunks of
+    ``scratch_samples`` samples where it saves the activations (kernels 4
+    and 3), one launch where it does not (kernel 2, ``scratch_samples``
+    None); each launch as [64-row tiles, persistent CTAs]."""
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+
+    save = scratch_samples is not None
+    occ = ftl.bf16_occupancy(model)["forward" if save else "field_forward"]
+    ctas = ftl.fwd_ctas(model, dev)
+
+    def grid(rows):  # as launch_fwd in ops/csrc/fused_train_loss_bf16.cu
+        tiles = 2 * -(-rows // 128) if save else -(-rows // 64)
+        return [tiles, min(ctas, -(-tiles // 3))]
+
+    plans = {}
+    for name, (n, s) in shapes.items():
+        chunk = max(1, min(n, scratch_samples // s)) if save else n
+        plans[name] = [grid(min(chunk, n - r) * s) for r in range(0, n, chunk)]
+    print(f"  {label} bf16 forward: {occ[0]} CTA(s) per SM, {occ[1]} B shared, {occ[2]} weight "
+          f"ring stages, {occ[3]} staging tiles per consumer; launches [64-row tiles, CTAs]: "
+          + json.dumps(plans))
 
 
 def print_dw_plan(model, n, s, torch, dev):
@@ -972,6 +1004,15 @@ def field_phase(torch, np, card, dev, tmp, sh):
                               ms["dw_torch_matmul_bf16"])
     print("  kernel 3's bf16 kernels, device ms per step (profile) beside their bounds: "
           + json.dumps(parts))
+    fwd2 = sum(t for k, t in prof.items() if "train_fwd_bf16_kernel<2," in k.replace(" ", ""))
+    prep2 = sum(t for k, t in prof.items() if "train_prep_kernel<2>" in k.replace(" ", ""))
+    parts2 = [{"name": "train_fwd_bf16_kernel", "ms": fwd2 if prof else None,
+               "bound_ms": fwd_bound_b, "bound_by": fwd_by_b, "library_ms": None}]
+    print(f"  kernel 2's bf16 route, device ms per step (profile): forward {fwd2:.3f}, prep "
+          f"{prep2:.3f}, beside the route's bound {fwd_bound_b:.3f} ({fwd_by_b})")
+    shapes = {k: tuple(p.shape[:2]) for k, (_, p, _) in cases.items()}
+    print_fwd_plan("kernel 2", cases["fine"][0], shapes, None, torch, dev)
+    print_fwd_plan("kernel 3", cases["fine"][0], shapes, fmt.SCRATCH_SAMPLES, torch, dev)
     print("  bytes and operations behind those bounds (scratch layout, this run's shapes): "
           + json.dumps(sizes))
     print("  f32 field-path steps (pallas_compute_dtype: float32):")
@@ -996,7 +1037,7 @@ def field_phase(torch, np, card, dev, tmp, sh):
         {"name": "fused_mlp_bf16", **entry, "replaces": fwd,
          "launches": counts["fused_mlp_bf16"], "max_abs_err": err_fwd_b,
          "ms": ms["fwd_kernel_bf16"], "plain_ms": ms["fwd_plain_bf16"],
-         "bound_ms": fwd_bound_b, "bound_by": fwd_by_b, "library_ms": None},
+         "bound_ms": fwd_bound_b, "bound_by": fwd_by_b, "library_ms": None, "parts": parts2},
         {"name": "fused_mlp_train_bf16", **entry, "replaces": bwd,
          "launches": counts["fused_mlp_train_bf16"], "max_abs_err": err_bwd_b,
          "ms": ms["bwd_kernel_bf16"], "plain_ms": ms["bwd_plain_bf16"],

@@ -186,7 +186,8 @@ def load_library() -> ctypes.CDLL:
         # 1: kernel 3), stream
         lib.dexnerf_field_bf16_pass.argtypes = [vp, vp, ci, ci, ci, vp]
         lib.dexnerf_field_bf16_pass.restype = ci
-        lib.dexnerf_train_bf16_occupancy.argtypes = [ci] * 4 + [vp] * 4
+        # hidden, dx, num_trunk, dd, skip_mask; out (host, 10 ints)
+        lib.dexnerf_train_bf16_occupancy.argtypes = [ci] * 5 + [vp]
         lib.dexnerf_train_bf16_occupancy.restype = ci
         lib.dexnerf_field_args_size.argtypes = []
         lib.dexnerf_field_args_size.restype = ci

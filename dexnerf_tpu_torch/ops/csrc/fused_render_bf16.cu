@@ -21,7 +21,9 @@
 // stream: each pass over the ~311 KB bf16 pack serves 192 samples, read
 // from L2.
 //
-// Design: persistent CTAs, one per SM, of four warpgroups.
+// Design: persistent CTAs, one per SM, of four warpgroups; the tile
+// (epilogues, products, PE, the weight stream) is mlp_tile_bf16.cuh, shared
+// with the training forward of kernels 2-4.
 // * Work plan (ops/fused_render.py::render_plan): the rays are cut into
 //   units of rpu whole rays, rows = rpu * S rounded up to a multiple of 64
 //   (at most 256). Consumer warpgroup cw of CTA b is worker v = 3 b + cw
@@ -63,32 +65,20 @@
 //   sums as fixed-order butterflies; the Dex first crossing by warp ballots,
 //   one warp per (ray, threshold).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hopper.cuh"
+#include "mlp_tile_bf16.cuh"
 
 namespace {
 
-constexpr int kCons = 3;        // consumer warpgroups, each a worker
-constexpr int kThreads = 128 * (kCons + 1);  // + the weight stream's warpgroup
-constexpr int kTile = 64;       // rows of a tile (wgmma's M)
-constexpr int kKc = 64;         // K of a weight chunk: one 128 B swizzle row
-constexpr int kMaxStages = 10;  // weight ring depth, as shared memory allows
 constexpr int kMaxUnitRows = 256;
 constexpr int kMaxRpu = 16;     // rays per unit
-constexpr int kMaxDx = 128;     // xyz encoding width
-constexpr int kMaxKx = kMaxDx / kKc;  // its K-chunks
 constexpr int kMaxLayers = 40;
 constexpr int kMaxFreq = 16;
 constexpr int kMaxThresholds = 64;
 constexpr int kMaxSamples = 256;
 constexpr int kAux = kMaxLayers + 8;
-constexpr int kEncChunk = kTile * 128;  // bytes of a [64][64] bf16 encoding chunk
-constexpr int kSmemMax = 232448;
-
-typedef __nv_bfloat16 bf16;
 
 struct Params {
   const float* origins;   // [N, 3]
@@ -116,16 +106,8 @@ struct Params {
   float thr[kMaxThresholds];
 };
 
-__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
 __host__ __device__ inline int unit_rows(int rpu, int S) {
   return (rpu * S + kTile - 1) / kTile * kTile;
-}
-
-// Floats of the aux buffer before the viewdir rows (biases and heads, each
-// padded to 4 floats at most): what the epilogues read, kept in shared
-// memory.
-__host__ __device__ inline int aux_head_max(int H, int nt) {
-  return (nt + 3) * H + 4 * (H / 2) + 8 + 4 * (nt + 7);
 }
 
 // Shared memory from the 1024-aligned base: the weight ring of ns stages,
@@ -155,156 +137,6 @@ __host__ __device__ inline Smem smem_layout(int H, int nt, int kx, int rows, int
   s.bars = s.own + kCons * s.own_bytes;
   s.total = s.bars + 2 * (size_t)ns * 8 + 1024;  // + slack to align the base
   return s;
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-// pack_bf16(ReLU(lo), ReLU(hi)) in one instruction (ReLU and the rounding
-// commute: both keep the sign, and a negative value becomes 0 either way)
-__device__ __forceinline__ uint32_t pack_bf16_relu(float lo, float hi) {
-  uint32_t d;
-  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
-  return d;
-}
-
-// Byte offset of element (row, col) of a consumer's encoding tile: [col /
-// 64] K-chunks of [64 rows][128 B], 16 B units swizzled by row % 8 (wgmma's
-// 128 B swizzle, K-major).
-__device__ __forceinline__ int tile_off(int row, int col) {
-  return (col >> 6) * kEncChunk + row * 128 + ((((col & 63) >> 3) ^ (row & 7)) << 4) +
-         (col & 7) * 2;
-}
-__device__ __forceinline__ void store_enc(unsigned char* enc, int row, int col, float v) {
-  *reinterpret_cast<bf16*>(enc + tile_off(row, col)) = __float2bfloat16_rn(v);
-}
-
-// Epilogue of a hidden layer on an [64 x H] accumulator: v = act(acc +
-// bias) in f32, rounded to bf16 into a, the next layer's A fragments. With
-// head, also the sigma head v . wa + b_alpha of rows g and g + 8 of the
-// warp into sig_rows.
-template <int H, bool relu, bool head>
-__device__ __forceinline__ void hidden_epilogue(const float (&acc)[H / 2],
-                                                const float* bias,
-                                                uint32_t (&a)[H / 4],
-                                                const float* wa, float b_alpha,
-                                                float* sig_rows) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-  float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < H / 8; ++j) {
-    const int col = 8 * j + 2 * q;
-    const float2 b = *reinterpret_cast<const float2*>(bias + col);
-    float v0 = acc[4 * j] + b.x, v1 = acc[4 * j + 1] + b.y;
-    float v2 = acc[4 * j + 2] + b.x, v3 = acc[4 * j + 3] + b.y;
-    if (relu && !head) {
-      a[2 * j] = pack_bf16_relu(v0, v1);
-      a[2 * j + 1] = pack_bf16_relu(v2, v3);
-      continue;
-    }
-    if (relu) {  // the sigma head reads the f32 values after ReLU
-      v0 = fmaxf(v0, 0.f);
-      v1 = fmaxf(v1, 0.f);
-      v2 = fmaxf(v2, 0.f);
-      v3 = fmaxf(v3, 0.f);
-    }
-    a[2 * j] = pack_bf16(v0, v1);
-    a[2 * j + 1] = pack_bf16(v2, v3);
-    if (head) {
-      const float2 w = *reinterpret_cast<const float2*>(wa + col);
-      s0 = fmaf(v1, w.y, fmaf(v0, w.x, s0));
-      s1 = fmaf(v3, w.y, fmaf(v2, w.x, s1));
-    }
-  }
-  if (head) {
-    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
-    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
-    if (q == 0) {
-      sig_rows[g] = s0 + b_alpha;
-      sig_rows[g + 8] = s1 + b_alpha;
-    }
-  }
-}
-
-
-// The encoding's part of a product into the [64 x H] accumulator: its kx
-// K-chunks (the encoding's columns and the weights' rows past dx are zero)
-// against the ring stages st_of; `first` starts the sum.
-template <int H>
-__device__ __forceinline__ void enc_product(float (&acc)[H / 2], uint32_t enc, int kx,
-                                            const uint32_t (&st_of)[kMaxKx], bool first) {
-#pragma unroll
-  for (int c = 0; c < kMaxKx; ++c) {
-    if (c < kx) {
-      const uint32_t st = st_of[c];
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        wgmma_bf16<H, 0, 0>(acc, kmajor_desc(enc + c * kEncChunk + ks * 32),
-                            kmajor_desc(st + ks * 32), !(first && c == 0 && ks == 0));
-      }
-    }
-  }
-}
-
-// An [64 x NO] product (NO = H, or a part of the viewdir layer's H/2) on
-// the A fragments of an H-wide activation in registers, against the ring
-// stages st_of (B from row b_off / 128 of each stage on).
-template <int NO, int H>
-__device__ __forceinline__ void reg_product(float (&acc)[NO / 2], const uint32_t (&a)[H / 4],
-                                            const uint32_t (&st_of)[(H + kKc - 1) / kKc],
-                                            uint32_t b_off = 0) {
-  constexpr int KCH = (H + kKc - 1) / kKc;
-#pragma unroll
-  for (int c = 0; c < KCH; ++c) {
-    const uint32_t st = st_of[c] + b_off;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const int kk = 4 * c + ks;
-      if (kk < H / 16) {
-        wgmma_bf16_rs<NO>(acc, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
-                          kmajor_desc(st + ks * 32), kk != 0);
-      }
-    }
-  }
-}
-
-// The viewdir layer's epilogue for columns c0 .. c0 + NH - 1 of one tile,
-// rows r0 + 16 w + g and + 8 of the unit: y = ReLU(acc + the ray's viewdir
-// bias), accumulated into the rgb head's sums c[row][3] (each head weight
-// loaded once for both rows).
-template <int H, int NH>
-__device__ __forceinline__ void dir_epilogue(const float (&ad)[NH / 2], int c0, int r0, int S,
-                                             int nrays, const float* dirb, const float* w_rgb,
-                                             float (&c)[2][3]) {
-  constexpr int H2 = H / 2;
-  const int t = threadIdx.x & 127, lane = t & 31, g = lane >> 2, q = lane & 3;
-  const int r = r0 + 16 * (t >> 5) + g;
-  const float* db0 = dirb + min(r / S, nrays - 1) * H2;
-  const float* db1 = dirb + min((r + 8) / S, nrays - 1) * H2;
-#pragma unroll
-  for (int j = 0; j < NH / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = c0 + 8 * j + 2 * q + e;
-      const float* wr = w_rgb + col * 3;
-      const float w0 = wr[0], w1 = wr[1], w2 = wr[2];
-      const float y0 = fmaxf(ad[4 * j + e] + db0[col], 0.f);
-      const float y1 = fmaxf(ad[4 * j + 2 + e] + db1[col], 0.f);
-      c[0][0] = fmaf(y0, w0, c[0][0]);
-      c[0][1] = fmaf(y0, w1, c[0][1]);
-      c[0][2] = fmaf(y0, w2, c[0][2]);
-      c[1][0] = fmaf(y1, w0, c[1][0]);
-      c[1][1] = fmaf(y1, w1, c[1][1]);
-      c[1][2] = fmaf(y1, w2, c[1][2]);
-    }
-  }
 }
 
 // The rgb head's sums of rows r0 + 16 w + g (+ 8): over the four lanes of
@@ -376,19 +208,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (cw == kCons) {  // ---- the weight stream, one thread
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (t != 0) return;
-    const unsigned char* w = reinterpret_cast<const unsigned char*>(p.wq);
-    const int jd = nch - KCH;  // the viewdir layer's chunks have H/2 rows
-    int it = 0;
-    for (int ps = 0; ps < passes; ++ps) {
-      for (int c = 0; c < nch; ++c, ++it) {
-        const int s = it % NS;
-        const int bytes = c < jd ? SB : SB / 2;
-        const size_t off = c < jd ? (size_t)c * SB : (size_t)jd * SB + (size_t)(c - jd) * (SB / 2);
-        mbar_wait(empty + 8 * s, ((it / NS) & 1) ^ 1);
-        mbar_expect_tx(full + 8 * s, bytes);
-        bulk_load(ring + s * SB, w + off, bytes, full + 8 * s);
-      }
-    }
+    stream_weights(reinterpret_cast<const unsigned char*>(p.wq), passes, nch, nch - KCH, SB, NS,
+                   ring, full, empty);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 152;\n");
@@ -410,38 +231,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float* b_rgb = aux + p.aux_off[nt + 6];
   const int N = p.n_rays, dd = p.dd;
 
-  // the ring position of the next chunk to consume: its stage and phase
-  int ws = 0, wph = 0;
-  // stage s + c (c < NS) and its phase
-  auto stage_of = [&](int c, int& ph) {
-    const int st = ws + c;
-    ph = wph ^ (st >= NS);
-    return st >= NS ? st - NS : st;
-  };
-  // this warp's part of the next n chunks is done: release them
-  auto release = [&](int n) {
-    for (int c = 0; c < n; ++c) {
-      if (lane == 0) mbar_arrive(empty + 8 * ws);
-      if (++ws == NS) {
-        ws = 0;
-        wph ^= 1;
-      }
-    }
-  };
-  // wait for the next n chunks (before a product's wgmmas, so that no wait
-  // lies between them)
-  auto wait_chunks = [&](int n) {
-    for (int c = 0; c < n; ++c) {
-      int ph;
-      const int st = stage_of(c, ph);
-      mbar_wait(full + 8 * st, ph);
-    }
-  };
-  // the ring address of the next chunk + c
-  auto chunk_at = [&](int c) {
-    int ph;
-    return ring + stage_of(c, ph) * SB;
-  };
+  // the weight ring, as this warp consumes it
+  WeightRing wr{ring, full, empty, NS, SB, lane};
 
   const int mine = units_of(v);
   for (int k = 0; k < mine; ++k) {
@@ -488,16 +279,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int r = r0 + i;
         if (r < nreal) {
           const size_t rg = (size_t)(ray0 + r / S) * 3;
-          const int cx = p.inc_x ? 3 : 0;
           for (int d = 0; d < 3; ++d) {
             const float pt = __fadd_rn(p.origins[rg + d], __fmul_rn(p.dirs[rg + d], zs[r]));
-            if (p.inc_x && half == 0) store_enc(encg, i, d, pt);
-            for (int f = half; f < p.fx; f += 2) {
-              float sn, cs;
-              sincosf(__fmul_rn(pt, p.bands_x[f]), &sn, &cs);
-              store_enc(encg, i, cx + 6 * f + d, sn);
-              store_enc(encg, i, cx + 6 * f + 3 + d, cs);
-            }
+            encode_coord(encg, i, d, pt, half, p.fx, p.inc_x,
+                         [&](int f) { return p.bands_x[f]; });
           }
         }
       }
@@ -508,17 +293,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       float acc[H / 2];
       uint32_t a[H / 4];
       // ---- layer1: no activation
-      wait_chunks(kx);
+      wr.wait(kx);
       uint32_t se[kMaxKx], sh[KCH];
 #pragma unroll
-      for (int c = 0; c < kMaxKx; ++c) se[c] = chunk_at(c < kx ? c : 0);
+      for (int c = 0; c < kMaxKx; ++c) se[c] = wr.at(c < kx ? c : 0);
       fence_regs(acc);
       wgmma_fence();
       enc_product<H>(acc, enc, kx, se, true);
       wgmma_commit();
       wgmma_wait0();
       fence_regs(acc);
-      release(kx);
+      wr.release(kx);
       if (nt > 0) {
         hidden_epilogue<H, false, false>(acc, aux + p.aux_off[0], a, w_alpha, b_alpha, sig_rows);
       } else {
@@ -528,11 +313,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = 0; i <= nt; ++i) {
         const bool skip = i < nt && ((p.skip_mask >> i) & 1);
         const int n = KCH + (skip ? kx : 0);
-        wait_chunks(n);
+        wr.wait(n);
 #pragma unroll
-        for (int c = 0; c < KCH; ++c) sh[c] = chunk_at(c);
+        for (int c = 0; c < KCH; ++c) sh[c] = wr.at(c);
 #pragma unroll
-        for (int c = 0; c < kMaxKx; ++c) se[c] = chunk_at(KCH + (c < kx ? c : 0));
+        for (int c = 0; c < kMaxKx; ++c) se[c] = wr.at(KCH + (c < kx ? c : 0));
         fence_regs(a);
         fence_regs(acc);
         wgmma_fence();
@@ -541,7 +326,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_commit();
         wgmma_wait0();
         fence_regs(acc);
-        release(n);
+        wr.release(n);
         const float* bias = aux + p.aux_off[1 + i];
         if (i == nt - 1) {
           hidden_epilogue<H, true, true>(acc, bias, a, w_alpha, b_alpha, sig_rows);
@@ -554,9 +339,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       // beside the epilogue's values would not fit the 128 registers a
       // thread has (the compiler would spill and serialize every wgmma).
       constexpr int NSPLIT = H2 == 64 ? 2 : 1, NH = H2 / NSPLIT;
-      wait_chunks(KCH);
+      wr.wait(KCH);
 #pragma unroll
-      for (int c = 0; c < KCH; ++c) sh[c] = chunk_at(c);
+      for (int c = 0; c < KCH; ++c) sh[c] = wr.at(c);
       float crgb[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
 #pragma unroll
       for (int hs = 0; hs < NSPLIT; ++hs) {
@@ -570,7 +355,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         fence_regs(ad);
         dir_epilogue<H, NH>(ad, hs * NH, r0, S, nrays, dirb, w_rgb, crgb);
       }
-      release(KCH);
+      wr.release(KCH);
       store_rgb(crgb, r0, b_rgb, rgbr);
     }
     wg_sync(bar);  // every row's sigma and rgb logits are written
@@ -648,8 +433,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   // worker kCons b has more tiles: release the chunks of its other passes
   for (int c = mine * tiles * nch; c < passes * nch; ++c) {
-    wait_chunks(1);
-    release(1);
+    wr.wait(1);
+    wr.release(1);
   }
 }
 

@@ -36,13 +36,17 @@
 // 128-sample tiles:
 // * train_prep_kernel: per ray, the viewdir encoding (f32 sincosf, rounded
 //   to bf16) and the viewdir layer's per-ray bias.
-// * train_fwd_bf16_kernel: one CTA of 8 warps per 128-sample tile,
-//   fused_render_bf16.cu's tile design: mma.sync m16n8k16 (bf16 in, f32
-//   accumulate) with ldmatrix, weights as [N][32] K-chunks streamed through
-//   a 4-stage cp.async ring, heads in f32 from the accumulators. Every
-//   layer's bf16 activations are copied to the scratch with streaming
-//   stores (__stcs), sample-major [row][feature], and the raw outputs
-//   (rgb logits, sigma logit) go to an f32 [rows][4] buffer.
+// * train_fwd_bf16_kernel: kernel 1's tile (mlp_tile_bf16.cuh, shared with
+//   fused_render_bf16.cu) on the chunk's rows: persistent CTAs, one per SM,
+//   of three consumer warpgroups that each run their own 64-row tiles
+//   through the whole MLP on wgmma (A from registers after layer1), fed by
+//   one thread's bulk copies of the pre-swizzled weight pack
+//   (ops/fused_render.py::pack_flex_weights_bf16) into an mbarrier ring;
+//   heads in f32 from the accumulators. Every layer's bf16 activations are
+//   written once into a swizzled staging tile and stored to the scratch by
+//   TMA while the next products run (sample-major [row][feature] blocks, the
+//   boxes of the chain's and dW's tensor maps), and the raw outputs (rgb
+//   logits, sigma logit) go to an f32 [rows][4] buffer.
 // * train_composite_kernel: one warp per ray, f32: the transmittance as a
 //   warp product scan, the loss, and the compositing backward (the suffix
 //   sum as a warp scan from the last sample), giving the f32 cotangent of
@@ -91,22 +95,21 @@
 #include <stdint.h>
 #include <string.h>
 
-#include "hopper.cuh"
+#include <type_traits>
+
+#include "mlp_tile_bf16.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
 // cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
 typedef CUresult (*PFN_encodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                     const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                     const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                     CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-constexpr int kThreads = 256;  // 8 warps: forward and chain
-constexpr int kTile = 128;     // samples per MLP tile
-constexpr int kKc = 32;        // K per weight chunk
-constexpr int kKP = kKc + 8;   // padded row of a ring stage, bf16 elements
-constexpr int kStages = 4;     // weight ring depth
+constexpr int kRowTile = 128;  // scratch rows of a chunk are padded to whole ones
+constexpr int kEncPad = 32;    // the scratch's encoding block: dx padded to a multiple
+constexpr int kStageBufs = 2;  // forward: staging tiles of the activation stores, a consumer
 constexpr int kMaxLayers = 40;
 constexpr int kMaxFreq = 16;
 constexpr int kMaxSamples = 256;
@@ -143,7 +146,7 @@ struct TrainArgs {
   const float* target;      // [N, 3]
   const float* depth_gt;    // [N] or null
   const float* depth_coef;  // [N] or null
-  const bf16* wq;           // forward K-chunks, ops/fused_render.py::pack_flex_weights_bf16
+  const bf16* wq;           // forward K-chunks, swizzled: fused_render.py::pack_flex_weights_bf16
   const float* aux;         // its f32 biases, heads and bf16-rounded viewdir rows
   const bf16* wbq;          // backward K-chunks, pack_backward_weights_bf16
   float* weights_out;       // [N, S]
@@ -162,6 +165,7 @@ struct TrainArgs {
   int ray0, n_rays, n_samples, hidden, num_trunk, skip_mask;
   int fx, fd, inc_x, inc_d, dx, dxp, dd;
   int white_bg, luma, has_noise, has_depth, chain_ctas;
+  int fwd_ctas;  // the forward's persistent CTAs: SMs x CTAs per SM
   int aux_off[kAux];
   float bands_x[kMaxFreq];
   float bands_d[kMaxFreq];
@@ -252,172 +256,6 @@ __host__ __device__ inline int aux_size(int H, int nt, int dd) {
   return aux_vd(H, nt) + dd * (H / 2);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
-}
-// 16 bytes, or zeros when !ok (nothing is read then)
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// The forward's weight stream of one tile: chunk j of nch, each [rows][32]
-// bf16 contiguous; chunks before jd have H rows, the rest H/2 (the viewdir
-// layer).
-struct Stream {
-  const bf16* w;
-  int H, nch, jd;
-  __device__ void load(int c, bf16* ring) const {
-    if (c < nch) {
-      const int j = c;
-      const size_t off = j < jd ? (size_t)j * H * kKc
-                                : (size_t)jd * H * kKc + (size_t)(j - jd) * (H / 2) * kKc;
-      const int rows = j < jd ? H : H / 2;
-      const bf16* src = w + off;
-      bf16* dst = ring + (size_t)(c % kStages) * H * kKP;
-      for (int i = threadIdx.x; i < rows * (kKc / 8); i += kThreads) {
-        const int n = i >> 2, part = i & 3;
-        cp_async16(dst + n * kKP + part * 8, src + n * kKc + part * 8);
-      }
-    }
-    cp_async_commit();  // empty groups past the end keep the count uniform
-  }
-};
-
-// Consume chunk c (as fused_render_bf16.cu): wait for it, let every warp
-// finish chunk c - 1 (whose stage the next load refills), start chunk
-// c + kStages - 1, then this warp's MMAs of the chunk: A rows [32 wm, +32)
-// and K [k0, k0 + 32) of the bf16 buffer `a` (pitch ap), B columns
-// [nb, nb + 8 NT) of the stage.
-template <int NT, int NTM>
-__device__ __forceinline__ void consume(float (&acc)[2][NTM][4], int& c, const Stream& st,
-                                        bf16* ring, const bf16* a, int ap, int k0, int wm,
-                                        int nb) {
-  cp_async_wait<kStages - 2>();
-  __syncthreads();
-  st.load(c + kStages - 1, ring);
-  const bf16* b = ring + (size_t)(c % kStages) * st.H * kKP;
-  ++c;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < kKc; kk += 16) {
-    uint32_t af[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      ldsm_x4(af[mi], a + (32 * wm + 16 * mi + (lane & 15)) * ap + k0 + kk + ((lane >> 4) << 3));
-    }
-#pragma unroll
-    for (int nj = 0; nj + 1 < NT; nj += 2) {
-      uint32_t bf[4];
-      ldsm_x4(bf, b + (nb + 8 * nj + (lane & 7) + ((lane >> 4) << 3)) * kKP + kk +
-                      (((lane >> 3) & 1) << 3));
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        mma_bf16(acc[mi][nj], af[mi], bf[0], bf[1]);
-        mma_bf16(acc[mi][nj + 1], af[mi], bf[2], bf[3]);
-      }
-    }
-    if (NT & 1) {
-      uint32_t bf[2];
-      ldsm_x2(bf, b + (nb + 8 * (NT - 1) + (lane & 7)) * kKP + kk + (((lane >> 3) & 1) << 3));
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][NT - 1], af[mi], bf[0], bf[1]);
-    }
-  }
-}
-
-template <int NTM>
-__device__ __forceinline__ void zero(float (&acc)[2][NTM][4]) {
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < NTM; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
-}
-
-// Epilogue of a hidden forward layer: v = act(acc + bias) in f32, stored as
-// the bf16 operand of the next layer (in place; the caller has synced).
-// With wa != null also the sigma head's partial sums v . wa of this warp's
-// columns, per row, into psig[wn][row].
-template <int NTM>
-__device__ __forceinline__ void store_hidden(float (&acc)[2][NTM][4],
-                                             const float* __restrict__ bias, bool relu,
-                                             bf16* act, int ap, int wm, int nb,
-                                             const float* __restrict__ wa, float* psig) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    float sp[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nj = 0; nj < NTM; ++nj) {
-      const int col = nb + 8 * nj + 2 * q;
-      const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float v0 = acc[mi][nj][2 * h] + b0, v1 = acc[mi][nj][2 * h + 1] + b1;
-        if (relu) {
-          v0 = fmaxf(v0, 0.f);
-          v1 = fmaxf(v1, 0.f);
-        }
-        const int row = 32 * wm + 16 * mi + 8 * h + g;
-        *reinterpret_cast<__nv_bfloat162*>(act + row * ap + col) = __floats2bfloat162_rn(v0, v1);
-        if (wa != nullptr) sp[h] = fmaf(v1, __ldg(wa + col + 1), fmaf(v0, __ldg(wa + col), sp[h]));
-      }
-    }
-    if (wa != nullptr) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float s = sp[h];
-        s += __shfl_xor_sync(0xffffffffu, s, 1);
-        s += __shfl_xor_sync(0xffffffffu, s, 2);
-        if (q == 0) psig[(nb != 0) * kTile + 32 * wm + 16 * mi + 8 * h + g] = s;
-      }
-    }
-  }
-}
-
-// The tile's [kTile][width] bf16 block from shared memory (pitch `pitch`)
-// to the scratch rows at dst, 16 bytes per store, streaming: the scratch is
-// read back by other kernels and must not evict the weights from L2.
-__device__ __forceinline__ void copy_tile(const bf16* src, int pitch, bf16* dst, int width) {
-  const int per_row = width / 8;
-  for (int i = threadIdx.x; i < kTile * per_row; i += kThreads) {
-    const int r = i / per_row, c = (i % per_row) * 8;
-    __stcs(reinterpret_cast<float4*>(dst + (size_t)r * width + c),
-           *reinterpret_cast<const float4*>(src + r * pitch + c));
-  }
-}
-
 // Encoding of one coordinate: [x (if included), sin(f0 x), cos(f0 x), ...]
 // rows d, 3 + d, ... of dst; the argument rounded as written and sincosf
 // the accurate one (the top frequency multiplies any error by up to 2^9).
@@ -458,195 +296,6 @@ __global__ void __launch_bounds__(kPrepWarps * 32) train_prep_kernel(const Train
     for (int k = 0; k < dd; ++k) v = fmaf(bf16_round(e[k]), __ldg(wdv + k * H2 + c), v);
     p.dirb[(size_t)r * H2 + c] = v;
   }
-}
-
-struct FwdSmem {
-  size_t act, enc, ring, psig, prgb, total;
-};
-
-__host__ __device__ inline FwdSmem fwd_smem(int H, int dxp) {
-  FwdSmem s;
-  s.act = 0;
-  s.enc = s.act + (size_t)kTile * (H + 8) * 2;
-  s.ring = s.enc + (size_t)kTile * (dxp + 8) * 2;
-  s.psig = s.ring + (size_t)kStages * H * kKP * 2;
-  s.prgb = s.psig + 2 * kTile * 4;
-  s.total = s.prgb + 2 * kTile * 3 * 4;
-  return s;
-}
-
-// ---- forward of one 128-sample tile (rows k0 .. k0 + 127 of the chunk;
-// rows >= n_real are padding with a zero encoding). kOwner: the points are
-// o + d z (kLoss) or pts (the fields); the activations go to the scratch
-// (kLoss, kFieldBwd) or nowhere (kFieldFwd); raw goes to [tiles * 128][4]
-// (kLoss), to the [n_real][4] output (kFieldFwd) or nowhere (kFieldBwd).
-template <int kOwner, int NTM>
-__global__ void __launch_bounds__(kThreads, 2) train_fwd_bf16_kernel(const TrainArgs p,
-                                                                     int n_real) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr bool kSave = kOwner != kFieldFwd;
-  constexpr int H = NTM * 16;
-  constexpr int H2 = H / 2;
-  constexpr int NTD = NTM / 2;  // n-tiles of the viewdir layer (N = H/2)
-  constexpr int AP = H + 8;
-  const int S = p.n_samples, nt = p.num_trunk;
-  const int EP = p.dxp + 8;
-  const FwdSmem L = fwd_smem(H, p.dxp);
-  bf16* act = reinterpret_cast<bf16*>(smem + L.act);
-  bf16* enc = reinterpret_cast<bf16*>(smem + L.enc);
-  bf16* ring = reinterpret_cast<bf16*>(smem + L.ring);
-  float* psig = reinterpret_cast<float*>(smem + L.psig);  // [2][kTile]
-  float* prgb = reinterpret_cast<float*>(smem + L.prgb);  // [2][kTile][3]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const long long k0 = (long long)blockIdx.x * kTile;
-  const int kx = p.dxp / kKc, kh = H / kKc;
-  int nskip = 0;
-  for (int i = 0; i < nt; ++i) nskip += (p.skip_mask >> i) & 1;
-  Stream st;
-  st.w = p.wq;
-  st.H = H;
-  st.nch = kx * (1 + nskip) + (nt + 2) * kh;
-  st.jd = st.nch - kh;
-#pragma unroll
-  for (int c = 0; c < kStages - 1; ++c) st.load(c, ring);
-
-  // ---- positional encoding of the tile's samples, f32, rounded to bf16
-  for (int i = tid; i < kTile * EP; i += kThreads) enc[i] = __float2bfloat16_rn(0.f);
-  __syncthreads();
-  for (int i = tid; i < kTile * 3; i += kThreads) {
-    const int r = i % kTile, d = i / kTile;
-    const long long k = k0 + r;
-    if (k < n_real) {
-      const long long ray = (long long)p.ray0 + k / p.n_samples;
-      const float pt = kOwner != kLoss
-                           ? p.pts[((long long)p.ray0 * S + k) * 3 + d]
-                           : __fadd_rn(p.origins[ray * 3 + d],
-                                       __fmul_rn(p.dirs[ray * 3 + d],
-                                                 p.z[(long long)p.ray0 * S + k]));
-      bf16* e = enc + r * EP;
-      int col = 0;
-      if (p.inc_x) {
-        e[d] = __float2bfloat16_rn(pt);
-        col = 3;
-      }
-      for (int f = 0; f < p.fx; ++f) {
-        float sn, cs;
-        sincosf(__fmul_rn(pt, p.bands_x[f]), &sn, &cs);
-        e[col + 6 * f + d] = __float2bfloat16_rn(sn);
-        e[col + 6 * f + 3 + d] = __float2bfloat16_rn(cs);
-      }
-    }
-  }
-  __syncthreads();
-  if (kSave) copy_tile(enc, EP, p.scratch + p.act_off[0] + k0 * p.dxp, p.dxp);
-
-  const float* aux = p.aux;
-  const float* w_alpha = aux + p.aux_off[nt + 3];
-  const int nbm = wn * (H / 2);   // this warp's first column, hidden layers
-  const int nbd = wn * (H2 / 2);  // and the viewdir layer's
-  float acc[2][NTM][4];
-  int c = 0;
-  // ---- layer1: no activation
-  zero(acc);
-  for (int k = 0; k < kx; ++k) consume<NTM>(acc, c, st, ring, enc, EP, k * kKc, wm, nbm);
-  __syncthreads();
-  store_hidden(acc, aux + p.aux_off[0], false, act, AP, wm, nbm, nt == 0 ? w_alpha : nullptr,
-               psig);
-  __syncthreads();
-  if (kSave) copy_tile(act, AP, p.scratch + p.act_off[1] + k0 * H, H);
-  // ---- trunk
-  for (int i = 0; i < nt; ++i) {
-    zero(acc);
-    for (int k = 0; k < kh; ++k) consume<NTM>(acc, c, st, ring, act, AP, k * kKc, wm, nbm);
-    if ((p.skip_mask >> i) & 1) {
-      for (int k = 0; k < kx; ++k) consume<NTM>(acc, c, st, ring, enc, EP, k * kKc, wm, nbm);
-    }
-    __syncthreads();
-    store_hidden(acc, aux + p.aux_off[1 + i], true, act, AP, wm, nbm,
-                 i == nt - 1 ? w_alpha : nullptr, psig);
-    __syncthreads();
-    if (kSave) copy_tile(act, AP, p.scratch + p.act_off[2 + i] + k0 * H, H);
-  }
-  // ---- fc_feat
-  zero(acc);
-  for (int k = 0; k < kh; ++k) consume<NTM>(acc, c, st, ring, act, AP, k * kKc, wm, nbm);
-  __syncthreads();
-  store_hidden(acc, aux + p.aux_off[nt + 1], true, act, AP, wm, nbm, nullptr, psig);
-  __syncthreads();
-  if (kSave) copy_tile(act, AP, p.scratch + p.act_off[nt + 2] + k0 * H, H);
-  // ---- layers_dir.0 on feat, + the per-ray bias; rgb head from the f32
-  // values, then y rounded to bf16 for the scratch
-  zero(acc);
-  for (int k = 0; k < kh; ++k) consume<NTD>(acc, c, st, ring, act, AP, k * kKc, wm, nbd);
-  const float* w_rgb = aux + p.aux_off[nt + 5];
-  const int g = lane >> 2, q = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = 32 * wm + 16 * mi + 8 * h + g;
-      const long long ray = min((k0 + row) / S, (long long)p.n_rays - 1);
-      const float* db = p.dirb + ray * H2;
-      float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-#pragma unroll
-      for (int nj = 0; nj < NTD; ++nj) {
-        const int col = nbd + 8 * nj + 2 * q;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float y = fmaxf(acc[mi][nj][2 * h + e] + __ldg(db + col + e), 0.f);
-          acc[mi][nj][2 * h + e] = y;
-          const float* wr = w_rgb + (col + e) * 3;
-          s0 = fmaf(y, __ldg(wr), s0);
-          s1 = fmaf(y, __ldg(wr + 1), s1);
-          s2 = fmaf(y, __ldg(wr + 2), s2);
-        }
-      }
-#pragma unroll
-      for (int x = 1; x < 4; x <<= 1) {
-        s0 += __shfl_xor_sync(0xffffffffu, s0, x);
-        s1 += __shfl_xor_sync(0xffffffffu, s1, x);
-        s2 += __shfl_xor_sync(0xffffffffu, s2, x);
-      }
-      if (q == 0) {
-        float* o = prgb + (wn * kTile + row) * 3;
-        o[0] = s0;
-        o[1] = s1;
-        o[2] = s2;
-      }
-    }
-  }
-  __syncthreads();  // every warp is done reading feat from act
-  if (kSave) {
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int nj = 0; nj < NTD; ++nj) {
-        const int col = nbd + 8 * nj + 2 * q;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = 32 * wm + 16 * mi + 8 * h + g;
-          *reinterpret_cast<__nv_bfloat162*>(act + row * AP + col) =
-              __floats2bfloat162_rn(acc[mi][nj][2 * h], acc[mi][nj][2 * h + 1]);
-        }
-      }
-    }
-    __syncthreads();
-    copy_tile(act, AP, p.scratch + p.act_off[nt + 3] + k0 * H2, H2);
-  }
-  const float b_alpha = __ldg(aux + p.aux_off[nt + 4]);
-  const float* b_rgb = aux + p.aux_off[nt + 6];
-  for (int r = tid; r < kTile; r += kThreads) {
-    if (kOwner == kFieldBwd || (kOwner == kFieldFwd && k0 + r >= n_real)) break;
-    float4 o;
-    o.x = (prgb[r * 3] + prgb[(kTile + r) * 3]) + __ldg(b_rgb);
-    o.y = (prgb[r * 3 + 1] + prgb[(kTile + r) * 3 + 1]) + __ldg(b_rgb + 1);
-    o.z = (prgb[r * 3 + 2] + prgb[(kTile + r) * 3 + 2]) + __ldg(b_rgb + 2);
-    o.w = (psig[r] + psig[kTile + r]) + b_alpha;
-    reinterpret_cast<float4*>(p.raw)[k0 + r] = o;
-  }
-  cp_async_wait<0>();
 }
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
@@ -995,36 +644,6 @@ __device__ __forceinline__ void vd_flush(float* __restrict__ dst, const float* _
   for (int k = 0; k < dd; ++k) dst[k * H2] += __ldg(enc + k) * seg;
 }
 
-// Byte offset of (row r, column c) in a [64][128] bf16 tile kept as two
-// 128 B-swizzled [64][64] halves: TMA's SWIZZLE_128B box layout, and a
-// K-major wgmma operand.
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return (uint32_t)((c >> 6) * kCHalf + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) +
-                    (c & 7) * 2);
-}
-__device__ __forceinline__ uint32_t lds32(uint32_t a) {
-  uint32_t v;
-  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(a));
-  return v;
-}
-__device__ __forceinline__ void sts32(uint32_t a, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a), "r"(v));
-}
-__device__ __forceinline__ uint32_t lds16(uint32_t a) {
-  unsigned short v;
-  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(a));
-  return v;
-}
-__device__ __forceinline__ void sts16(uint32_t a, unsigned short v) {
-  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(a), "h"(v));
-}
-__device__ __forceinline__ float4 lds128(uint32_t a) {
-  float4 v;
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(a));
-  return v;
-}
 // The tensor maps of the chain (mirrored by _ChainMaps in
 // ops/fused_train_loss.py): the backward pack as [rows][64] with [H][64]
 // boxes, and the scratch blocks, as DwArgs::maps.
@@ -1185,7 +804,7 @@ __global__ void __launch_bounds__(kChainThreads, 1)
           float4 gg[16];
 #pragma unroll
           for (int i = 0; i < 16; ++i) {
-            yb[i] = lds16(mk + swz(r0 + i, col));
+            yb[i] = lds16(mk + tile_off(r0 + i, col));
             gg[i] = lds128(gsh_s + (r0 + i) * 16);
           }
 #pragma unroll
@@ -1194,7 +813,7 @@ __global__ void __launch_bounds__(kChainThreads, 1)
             const float dy = fmaf(gg[i].z, w2, fmaf(gg[i].y, w1, gg[i].x * w0));
             const float vv = __uint_as_float(yb[i] << 16) > 0.f ? dy : 0.f;
             const bf16 vb = __float2bfloat16_rn(vv);
-            sts16(cot + swz(r, col), __bfloat16_as_ushort(vb));
+            sts16(cot + tile_off(r, col), __bfloat16_as_ushort(vb));
             if (k0 + r < n_real) {
               bsum += vv;
               seg += __bfloat162float(vb);
@@ -1211,7 +830,7 @@ __global__ void __launch_bounds__(kChainThreads, 1)
         mine[aux_dir(H, nt) + col] += bsum;
       } else if (t < 64) {  // the K-chunk's columns past H/2
         for (int r = 0; r < kCTile; ++r) {
-          sts16(cot + swz(r, t), 0);
+          sts16(cot + tile_off(r, t), 0);
         }
       }
       __syncwarp();
@@ -1273,7 +892,7 @@ __global__ void __launch_bounds__(kChainThreads, 1)
         for (int j = 0; j < NJ; ++j)
 #pragma unroll
           for (int h = 0; h < 2; ++h)
-            mw[j][h] = masked ? lds32(mk + swz(r0 + 8 * h, 8 * (j0 + j) + 2 * q)) : 0x3f803f80u;
+            mw[j][h] = masked ? lds32(mk + tile_off(r0 + 8 * h, 8 * (j0 + j) + 2 * q)) : 0x3f803f80u;
         float cs[NJ][2];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
@@ -1294,7 +913,7 @@ __global__ void __launch_bounds__(kChainThreads, 1)
             if (!(__uint_as_float(mw[j][h] << 16) > 0.f)) v0 = 0.f;
             if (!(__uint_as_float(mw[j][h] & 0xffff0000u) > 0.f)) v1 = 0.f;
             const __nv_bfloat162 pk = __floats2bfloat162_rn(v0, v1);
-            sts32(dst + swz(r0 + 8 * h, col), *reinterpret_cast<const uint32_t*>(&pk));
+            sts32(dst + tile_off(r0 + 8 * h, col), *reinterpret_cast<const uint32_t*>(&pk));
             cs[j][0] += v0;
             cs[j][1] += v1;
           }
@@ -1343,6 +962,304 @@ __global__ void __launch_bounds__(kChainThreads, 1)
   if (t == 0) bulk_wait_all();
 }
 
+// ---- the forward of the training routes (kernels 4, 2 and 3 by kOwner),
+// kernel 1's tile (mlp_tile_bf16.cuh) on the chunk's rows. Bound by the
+// activations it saves (e, a_0 .. a_nt, feat, y: ~2.6 KB a sample for 8x128,
+// >= 1.2 ms a step at 3.35 TB/s) ahead of its multiply-adds (0.49 TFLOP,
+// 0.5 ms at the bf16 peak), so those stores are asynchronous TMA ones that
+// run under the next products. Persistent CTAs, one per SM: warpgroup 3's
+// first thread streams the weights; consumer warpgroup cw of CTA b is
+// worker v = kCons b + cw and takes the 64-row tiles v, v + kCons G, ... of
+// the launch, each through the whole MLP. A layer's bf16 A fragments are
+// written once into one of the consumer's two 128 B-swizzled staging tiles
+// (the box layout of the scratch blocks' tensor maps) and stored from there
+// by TMA; the encoding tile, already in that layout, is stored as it is.
+// Rows past n_real (the chunk's padding to whole 128-row tiles, which the
+// chain and dW read) get a zero encoding. The heads are f32 from the
+// accumulators: sigma in the last trunk layer's epilogue, rgb in the viewdir
+// layer's, each row's float4 of raw written once by the lane that holds both.
+// Tiles have fixed workers and no atomics: runs are bitwise repeatable.
+struct NoMaps {};
+template <int kOwner>
+using FwdMaps = typename std::conditional<kOwner == kFieldFwd, NoMaps, ChainMaps>::type;
+
+// The forward's shared memory from the 1024-aligned base: the weight ring of
+// ns stages, each consumer's encoding tile (kx chunks) and its nbuf staging
+// tiles (a chunk per 64 columns of H), the biases and heads, each
+// consumer's sigma logits [64], the ring's barriers.
+struct FwdSmem {
+  size_t ring, enc, stage, aux, sig, bars, total;
+};
+
+__host__ __device__ inline FwdSmem fwd_smem(int H, int nt, int kx, int nbuf, int ns) {
+  FwdSmem s;
+  s.ring = 0;
+  s.enc = (size_t)ns * H * 128;
+  s.stage = s.enc + kCons * (size_t)kx * kEncChunk;
+  s.aux = s.stage + kCons * (size_t)nbuf * ((H + kKc - 1) / kKc) * kEncChunk;
+  s.sig = s.aux + align16((size_t)aux_head_max(H, nt) * 4);
+  s.bars = s.sig + kCons * kTile * 4;
+  s.total = s.bars + 2 * (size_t)ns * 8 + 1024;  // + slack to align the base
+  return s;
+}
+
+// The forward's ring stages, as many as fit up to kMaxStages (a consumer
+// waits for all of a layer's chunks before its products, so at least
+// those), and its shared memory; 0 if they do not fit.
+inline int fwd_stages(int H, int dx, int nt, int skip_mask, int nbuf, size_t* smem) {
+  const int kx = (dx + kKc - 1) / kKc, kch = (H + kKc - 1) / kKc;
+  int need = kx > kch ? kx : kch;
+  for (int l = 0; l < nt; ++l) {
+    const int cur = kch + (((skip_mask >> l) & 1) ? kx : 0);
+    need = need > cur ? need : cur;
+  }
+  for (int ns = kMaxStages; ns >= need; --ns) {
+    *smem = fwd_smem(H, nt, kx, nbuf, ns).total;
+    if (*smem <= (size_t)kSmemMax) return ns;
+  }
+  return 0;
+}
+
+// The consumer's TMA store of `boxes` [64][64] chunks of the tile at src to
+// rows r0 .. r0 + 63, columns 64 x .. of the scratch block of map, by its
+// first thread, as one bulk group; then it waits until all but that group
+// have read their tiles (a later barrier hands that on: the tile two
+// stores back may be refilled).
+__device__ __forceinline__ void store_tile(const CUtensorMap* map, int boxes, int r0,
+                                           uint32_t src) {
+  if ((threadIdx.x & 127) == 0) {
+    for (int x = 0; x < boxes; ++x) tma_store_2d(map, 64 * x, r0, src + x * kEncChunk);
+    bulk_commit();
+    bulk_wait_read<1>();
+  }
+}
+
+// The A fragments of an H-wide activation (rows 16 w + g and + 8, see
+// wgmma_bf16_rs) into the consumer's swizzled staging tile at dst.
+template <int H>
+__device__ __forceinline__ void stage_frags(uint32_t dst, const uint32_t (&a)[H / 4]) {
+  const int t = threadIdx.x & 127, g = (t & 31) >> 2, q = t & 3;
+  const int row = 16 * (t >> 5) + g;
+#pragma unroll
+  for (int j = 0; j < H / 8; ++j) {
+    sts32(dst + tile_off(row, 8 * j + 2 * q), a[2 * j]);
+    sts32(dst + tile_off(row + 8, 8 * j + 2 * q), a[2 * j + 1]);
+  }
+}
+
+// kOwner: the points are o + d z (kLoss) or pts (the fields); the
+// activations go to the scratch (kLoss, kFieldBwd: m holds the blocks'
+// tensor maps) or nowhere (kFieldFwd); raw goes to the [rows][4] buffer
+// (kLoss, every row of the tiles), the [n_real][4] output (kFieldFwd) or
+// nowhere (kFieldBwd). n_tiles 64-row tiles, ns ring stages.
+template <int kOwner, int NTM>
+__global__ void __launch_bounds__(kThreads, 1)
+    train_fwd_bf16_kernel(const __grid_constant__ TrainArgs p,
+                          const __grid_constant__ FwdMaps<kOwner> m, int n_real, int n_tiles,
+                          int ns) {
+  constexpr bool kSave = kOwner != kFieldFwd, kRaw = kOwner != kFieldBwd;
+  constexpr int H = NTM * 16;
+  constexpr int H2 = H / 2;
+  constexpr int KCH = (H + kKc - 1) / kKc;  // K-chunks of a product on H
+  constexpr int SB = H * 128;               // bytes of a ring stage
+  constexpr int NBUF = kSave ? kStageBufs : 0;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sbase = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle's atoms
+  unsigned char* gbase = smem_raw + (sbase - smem_u32(smem_raw));
+  const int S = p.n_samples, nt = p.num_trunk, kx = (p.dx + kKc - 1) / kKc;
+  const FwdSmem L = fwd_smem(H, nt, kx, NBUF, ns);
+  const uint32_t ring = sbase + (uint32_t)L.ring;
+  const uint32_t full = sbase + (uint32_t)L.bars, empty = full + 8 * ns;
+  int nskip = 0;
+  for (int i = 0; i < nt; ++i) nskip += (p.skip_mask >> i) & 1;
+  const int nch = kx * (1 + nskip) + (nt + 2) * KCH;  // chunks of a pass over the weights
+  const int G = gridDim.x, b = blockIdx.x;
+  // worker kCons b + cw takes tiles kCons b + cw, + kCons G, ...; worker
+  // kCons b has the CTA's most, and one pass over the weights a tile
+  auto tiles_of = [&](int w) { return w < n_tiles ? (n_tiles - 1 - w) / (kCons * G) + 1 : 0; };
+  const int passes = tiles_of(kCons * b);
+  // the warpgroup, shuffled so that the compiler knows it is warp-uniform
+  const int tid = threadIdx.x, cw = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int n_aux = p.aux_off[nt + 7];  // the biases and heads: to shared memory
+  float* aux = reinterpret_cast<float*>(gbase + L.aux);
+  for (int i = tid; i < n_aux; i += kThreads) aux[i] = __ldg(p.aux + i);
+  if (tid == 0) {
+    for (int s = 0; s < ns; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * kCons);  // every consumer warp releases a stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the encoding tiles' columns past dx stay zero
+  for (int i = tid; i < kCons * kx * kEncChunk / 16; i += kThreads) {
+    reinterpret_cast<uint4*>(gbase + L.enc)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  const int t = tid & 127, warp = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
+  if (cw == kCons) {  // ---- the weight stream, one thread
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (t != 0) return;
+    stream_weights(reinterpret_cast<const unsigned char*>(p.wq), passes, nch, nch - KCH, SB, ns,
+                   ring, full, empty);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 152;\n");
+  const int bar = 1 + cw, v = kCons * b + cw;
+  const uint32_t enc = sbase + (uint32_t)L.enc + cw * kx * kEncChunk;
+  unsigned char* encg = gbase + L.enc + cw * kx * kEncChunk;
+  const uint32_t stage = sbase + (uint32_t)L.stage + cw * NBUF * KCH * kEncChunk;
+  float* sig = reinterpret_cast<float*>(gbase + L.sig) + cw * kTile;  // sigma logits
+  const float* w_alpha = aux + p.aux_off[nt + 3];
+  const float b_alpha = aux[p.aux_off[nt + 4]];
+  const float* w_rgb = aux + p.aux_off[nt + 5];
+  const float* b_rgb = aux + p.aux_off[nt + 6];
+  WeightRing wr{ring, full, empty, ns, SB, lane};
+  int buf = 0;  // the staging tile of the next activation store
+
+  const int mine = tiles_of(v);
+  for (int k = 0; k < mine; ++k) {
+    const int r0 = (v + kCons * G * k) * kTile;  // the tile's first row of the chunk
+    // ---- positional encoding of the tile's rows (two threads a row), f32,
+    // rounded to bf16; padding rows get zeros
+    {
+      const int i = t & 63, half = t >> 6;
+      const int r = r0 + i;
+      if (r < n_real) {
+        const long long ks = (long long)p.ray0 * S + r;  // the sample
+        const long long rg = ((long long)p.ray0 + r / S) * 3;
+        for (int d = 0; d < 3; ++d) {
+          const float pt = kOwner != kLoss
+                               ? p.pts[ks * 3 + d]
+                               : __fadd_rn(p.origins[rg + d], __fmul_rn(p.dirs[rg + d], p.z[ks]));
+          encode_coord(encg, i, d, pt, half, p.fx, p.inc_x, [&](int f) { return p.bands_x[f]; });
+        }
+      } else if (kSave) {
+        for (int c = half; c < 8 * kx; c += 2) {
+          *reinterpret_cast<uint4*>(encg + (c >> 3) * kEncChunk + i * 128 + (c & 7) * 16) =
+              make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    }
+    fence_async_smem();
+    wg_sync(bar);  // the encoding is written
+    if constexpr (kSave) store_tile(&m.blocks[0], kx, r0, enc);
+
+    float* sig_rows = sig + 16 * warp;
+    float acc[H / 2];
+    uint32_t a[H / 4];
+    // the staging tile buf, written since the last barrier, to `boxes`
+    // chunks of scratch block blk
+    auto flush = [&](int blk, int boxes) {
+      if constexpr (kSave) {
+        fence_async_smem();
+        wg_sync(bar);
+        store_tile(&m.blocks[blk], boxes, r0, stage + buf * KCH * kEncChunk);
+        buf ^= 1;
+      }
+    };
+    // the activation just computed (a) to scratch block blk
+    auto save = [&](int blk) {
+      if constexpr (kSave) {
+        wg_sync(bar);  // the first thread's last wait: the tile two stores back is read
+        stage_frags<H>(stage + buf * KCH * kEncChunk, a);
+        flush(blk, KCH);
+      }
+    };
+    // ---- layer1: no activation
+    wr.wait(kx);
+    uint32_t se[kMaxKx], sh[KCH];
+#pragma unroll
+    for (int c = 0; c < kMaxKx; ++c) se[c] = wr.at(c < kx ? c : 0);
+    fence_regs(acc);
+    wgmma_fence();
+    enc_product<H>(acc, enc, kx, se, true);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
+    wr.release(kx);
+    if (kRaw && nt == 0) {
+      hidden_epilogue<H, false, true>(acc, aux + p.aux_off[0], a, w_alpha, b_alpha, sig_rows);
+    } else {
+      hidden_epilogue<H, false, false>(acc, aux + p.aux_off[0], a, w_alpha, b_alpha, sig_rows);
+    }
+    save(1);
+    // ---- trunk, then fc_feat (layer nt + 1)
+    for (int i = 0; i <= nt; ++i) {
+      const bool skip = i < nt && ((p.skip_mask >> i) & 1);
+      const int n = KCH + (skip ? kx : 0);
+      wr.wait(n);
+#pragma unroll
+      for (int c = 0; c < KCH; ++c) sh[c] = wr.at(c);
+#pragma unroll
+      for (int c = 0; c < kMaxKx; ++c) se[c] = wr.at(KCH + (c < kx ? c : 0));
+      fence_regs(a);
+      fence_regs(acc);
+      wgmma_fence();
+      reg_product<H, H>(acc, a, sh);
+      if (skip) enc_product<H>(acc, enc, kx, se, false);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(acc);
+      wr.release(n);
+      const float* bias = aux + p.aux_off[1 + i];
+      if (kRaw && i == nt - 1) {
+        hidden_epilogue<H, true, true>(acc, bias, a, w_alpha, b_alpha, sig_rows);
+      } else {
+        hidden_epilogue<H, true, false>(acc, bias, a, w_alpha, b_alpha, sig_rows);
+      }
+      save(2 + i);
+    }
+    // ---- layers_dir.0 on feat, + the per-ray bias: y (bf16, to the
+    // staging tile) and the rgb head. At width 128 in two products of 32
+    // columns, as kernel 1 (registers)
+    constexpr int NSPLIT = H2 == 64 ? 2 : 1, NH = H2 / NSPLIT;
+    wr.wait(KCH);
+#pragma unroll
+    for (int c = 0; c < KCH; ++c) sh[c] = wr.at(c);
+    const uint32_t ytile = stage + buf * KCH * kEncChunk;
+    if (kSave) wg_sync(bar);  // the staging tile is free (see save)
+    float crgb[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int hs = 0; hs < NSPLIT; ++hs) {
+      float ad[NH / 2];
+      fence_regs(a);
+      fence_regs(ad);
+      wgmma_fence();
+      reg_product<NH, H>(ad, a, sh, hs * NH * 128);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(ad);
+      dir_epilogue<H, NH, kRaw, kSave>(ad, hs * NH, r0, S, p.n_rays, p.dirb, w_rgb, crgb, ytile);
+    }
+    wr.release(KCH);
+    flush(nt + 3, 1);
+    if constexpr (kRaw) {  // each row's sums over its four lanes; raw by the first
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int x = 1; x < 4; x <<= 1) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) crgb[h][c] += __shfl_xor_sync(0xffffffffu, crgb[h][c], x);
+        }
+        const int rl = 16 * warp + g + 8 * h;  // the row of the tile; sig[rl] is this lane's
+        if (q == 0 && (kOwner == kLoss || r0 + rl < n_real)) {
+          reinterpret_cast<float4*>(p.raw)[r0 + rl] =
+              make_float4(crgb[h][0] + b_rgb[0], crgb[h][1] + b_rgb[1], crgb[h][2] + b_rgb[2],
+                          sig[rl]);
+        }
+      }
+    }
+  }
+  // worker kCons b has more tiles: release the chunks of its other passes
+  for (int c = mine * nch; c < passes * nch; ++c) {
+    wr.wait(1);
+    wr.release(1);
+  }
+  if (kSave && t == 0) bulk_wait_all();
+}
+
 __global__ void __launch_bounds__(kSumThreads) sum_rays_bf16_kernel(const float* v, int n,
                                                                     float* out) {
   __shared__ float buf[kSumThreads];
@@ -1362,20 +1279,38 @@ cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// The forward's launch on a chunk of n_real rows in `tiles` scratch tiles of
+// kRowTile: its 64-row tiles are the scratch's where the activations are
+// saved (the chain and dW read whole tiles), else the rows'; one persistent
+// CTA per kCons of them, at most fwd_ctas.
+template <int kOwner, int NTM>
+cudaError_t launch_fwd(const TrainArgs& a, const FwdMaps<kOwner>& m, int n_real, int tiles,
+                       cudaStream_t s) {
+  constexpr bool kSave = kOwner != kFieldFwd;
+  size_t smem = 0;
+  const int ns = fwd_stages(NTM * 16, a.dx, a.num_trunk, a.skip_mask, kSave ? kStageBufs : 0,
+                            &smem);
+  if (ns == 0) return cudaErrorInvalidValue;
+  const cudaError_t err = set_smem(train_fwd_bf16_kernel<kOwner, NTM>, smem);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = kSave ? tiles * (kRowTile / kTile) : (n_real + kTile - 1) / kTile;
+  const int want = (n_tiles + kCons - 1) / kCons, grid = want < a.fwd_ctas ? want : a.fwd_ctas;
+  train_fwd_bf16_kernel<kOwner, NTM><<<grid, kThreads, smem, s>>>(a, m, n_real, n_tiles, ns);
+  return cudaGetLastError();
+}
+
 template <int NTM>
 int launch_pass(const TrainArgs& a, const ChainMaps& cm, int n_real, int tiles, cudaStream_t s) {
-  const size_t fs = fwd_smem(NTM * 16, a.dxp).total, cs = chain_smem_for(a).total;
+  const size_t cs = chain_smem_for(a).total;
   const size_t ps = (size_t)kRayWarps * 7 * a.n_samples * sizeof(float);
-  cudaError_t err = set_smem(train_fwd_bf16_kernel<kLoss, NTM>, fs);
-  if (err == cudaSuccess) err = set_smem(train_chain_bf16_kernel<NTM>, cs);
+  cudaError_t err = set_smem(train_chain_bf16_kernel<NTM>, cs);
   if (err == cudaSuccess) err = set_smem(train_composite_kernel, ps);
   if (err != cudaSuccess) return (int)err;
   if (a.n_rays == 0) return 0;
   train_prep_kernel<kLoss><<<(a.n_rays + kPrepWarps - 1) / kPrepWarps, kPrepWarps * 32, 0, s>>>(
       a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  train_fwd_bf16_kernel<kLoss, NTM><<<tiles, kThreads, fs, s>>>(a, n_real);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = launch_fwd<kLoss, NTM>(a, cm, n_real, tiles, s)) != cudaSuccess) return (int)err;
   train_composite_kernel<<<(a.n_rays + kRayWarps - 1) / kRayWarps, kRayWarps * 32, ps, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   train_chain_bf16_kernel<NTM><<<a.chain_ctas / 2, kChainThreads, cs, s>>>(a, cm, n_real,
@@ -1387,21 +1322,21 @@ int launch_pass(const TrainArgs& a, const ChainMaps& cm, int n_real, int tiles, 
 // and forward, or kernel 3's prep, forward and chain.
 template <int kOwner, int NTM>
 int launch_field(const TrainArgs& a, const ChainMaps* cm, int n_real, int tiles, cudaStream_t s) {
-  const size_t fs = fwd_smem(NTM * 16, a.dxp).total, cs = chain_smem_for(a).total;
-  cudaError_t err = set_smem(train_fwd_bf16_kernel<kOwner, NTM>, fs);
-  if (err == cudaSuccess && kOwner == kFieldBwd) err = set_smem(train_chain_bf16_kernel<NTM>, cs);
+  const size_t cs = chain_smem_for(a).total;
+  cudaError_t err = kOwner == kFieldBwd ? set_smem(train_chain_bf16_kernel<NTM>, cs) : cudaSuccess;
   if (err != cudaSuccess) return (int)err;
   if (a.n_rays == 0) return 0;
   train_prep_kernel<kOwner><<<(a.n_rays + kPrepWarps - 1) / kPrepWarps, kPrepWarps * 32, 0,
                               s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  train_fwd_bf16_kernel<kOwner, NTM><<<tiles, kThreads, fs, s>>>(a, n_real);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (kOwner == kFieldBwd) {
+  if constexpr (kOwner == kFieldFwd) {
+    return (int)launch_fwd<kOwner, NTM>(a, NoMaps{}, n_real, tiles, s);
+  } else {
+    if ((err = launch_fwd<kOwner, NTM>(a, *cm, n_real, tiles, s)) != cudaSuccess) return (int)err;
     train_chain_bf16_kernel<NTM><<<a.chain_ctas / 2, kChainThreads, cs, s>>>(a, *cm, n_real,
                                                                              2 * tiles);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 template <int kOwner>
@@ -1415,20 +1350,34 @@ int launch_field_width(const TrainArgs& a, const ChainMaps* cm, int n_real, int 
   }
 }
 
+// The forward's residency for kOwner into out: CTAs per SM, shared bytes
+// per CTA, ring stages, staging tiles per consumer.
+template <int kOwner, int NTM>
+cudaError_t fwd_residency(const TrainArgs& a, int* out) {
+  constexpr int nbuf = kOwner != kFieldFwd ? kStageBufs : 0;
+  size_t smem = 0;
+  const int ns = fwd_stages(NTM * 16, a.dx, a.num_trunk, a.skip_mask, nbuf, &smem);
+  if (ns == 0) return cudaErrorInvalidValue;
+  out[1] = (int)smem;
+  out[2] = ns;
+  out[3] = nbuf;
+  const cudaError_t err = set_smem(train_fwd_bf16_kernel<kOwner, NTM>, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, train_fwd_bf16_kernel<kOwner, NTM>,
+                                                       kThreads, smem);
+}
+
+// out: the forward's residency saving the activations (kernels 4 and 3),
+// without (kernel 2), then the chain's CTAs per SM and shared bytes.
 template <int NTM>
-int occupancy(const TrainArgs& a, int* fwd_ctas, int* chain_ctas, int* fwd_bytes,
-              int* chain_bytes) {
-  const size_t fs = fwd_smem(NTM * 16, a.dxp).total, cs = chain_smem_for(a).total;
-  *fwd_bytes = (int)fs;
-  *chain_bytes = (int)cs;
-  cudaError_t err = set_smem(train_fwd_bf16_kernel<kLoss, NTM>, fs);
+int occupancy(const TrainArgs& a, int* out) {
+  cudaError_t err = fwd_residency<kLoss, NTM>(a, out);
+  if (err == cudaSuccess) err = fwd_residency<kFieldFwd, NTM>(a, out + 4);
+  const size_t cs = chain_smem_for(a).total;
+  out[9] = (int)cs;
   if (err == cudaSuccess) err = set_smem(train_chain_bf16_kernel<NTM>, cs);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        fwd_ctas, train_fwd_bf16_kernel<kLoss, NTM>, kThreads, fs);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(chain_ctas, train_chain_bf16_kernel<NTM>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 8, train_chain_bf16_kernel<NTM>,
                                                         kChainThreads, cs);
   }
   return (int)err;
@@ -1506,11 +1455,11 @@ int dexnerf_train_bf16_pass(const void* args, const void* maps, int n_real, int 
   const TrainArgs& a = *static_cast<const TrainArgs*>(args);
   if (a.n_samples < 1 || a.n_samples > kMaxSamples || a.num_trunk < 0 || a.num_trunk > 31 ||
       a.num_trunk + 8 > kAux || a.num_trunk + 5 > kMaxBlocks || a.fx > kMaxFreq ||
-      a.fd > kMaxFreq || a.dd > kMaxDD || a.dx < 1 || a.dxp % kKc != 0 || a.dxp < a.dx ||
-      a.hidden % 32 != 0 || a.hidden < 32 || a.hidden > 128 || a.chain_ctas < 2 ||
-      a.chain_ctas % 2 != 0 || maps == nullptr ||
+      a.fd > kMaxFreq || a.dd > kMaxDD || a.dx < 1 || a.dx > kMaxDx || a.dxp % kEncPad != 0 ||
+      a.dxp < a.dx || a.hidden % 32 != 0 || a.hidden < 32 || a.hidden > 128 ||
+      a.chain_ctas < 2 || a.chain_ctas % 2 != 0 || a.fwd_ctas < 1 || maps == nullptr ||
       (long long)n_real != (long long)a.n_rays * a.n_samples ||
-      tiles != (n_real + kTile - 1) / kTile) {
+      tiles != (n_real + kRowTile - 1) / kRowTile) {
     return (int)cudaErrorInvalidValue;
   }
   ChainMaps cm;  // an aligned copy of the caller's maps
@@ -1534,13 +1483,13 @@ int dexnerf_field_bf16_pass(const void* args, const void* maps, int n_real, int 
   const TrainArgs& a = *static_cast<const TrainArgs*>(args);
   if (a.n_samples < 1 || a.num_trunk < 0 || a.num_trunk > 31 || a.num_trunk + 8 > kAux ||
       a.num_trunk + 5 > kMaxBlocks || a.fx > kMaxFreq || a.fd > kMaxFreq || a.dd > kMaxDD ||
-      a.dx < 1 || a.dxp % kKc != 0 || a.dxp < a.dx || a.hidden % 32 != 0 || a.hidden < 32 ||
-      a.hidden > 128 || a.pts == nullptr ||
+      a.dx < 1 || a.dx > kMaxDx || a.dxp % kEncPad != 0 || a.dxp < a.dx || a.hidden % 32 != 0 ||
+      a.hidden < 32 || a.hidden > 128 || a.fwd_ctas < 1 || a.pts == nullptr ||
       (backward ? a.chain_ctas < 2 || a.chain_ctas % 2 != 0 || a.scratch == nullptr ||
                       a.graw == nullptr || maps == nullptr
                 : a.raw == nullptr) ||
       (long long)n_real != (long long)a.n_rays * a.n_samples ||
-      tiles != (n_real + kTile - 1) / kTile) {
+      tiles != (n_real + kRowTile - 1) / kRowTile) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1640,22 +1589,30 @@ int dexnerf_train_bf16_dw_occupancy(int smem, int* ctas) {
   return (int)err;
 }
 
-// CTAs per SM of the forward and chain kernels at width `hidden` (a
-// multiple of 32) with a dxp-wide encoding, num_trunk trunk layers and a
-// dd-wide viewdir encoding, and their shared-memory bytes.
-int dexnerf_train_bf16_occupancy(int hidden, int dxp, int num_trunk, int dd, int* fwd_ctas,
-                                 int* chain_ctas, int* fwd_bytes, int* chain_bytes) {
-  if (hidden % 32 != 0 || hidden < 32 || hidden > 128) return (int)cudaErrorInvalidValue;
+// The residency of the forward and chain kernels at width `hidden` (a
+// multiple of 32) with a dx-wide xyz encoding, num_trunk trunk layers
+// (skip_mask: those that read the encoding) and a dd-wide viewdir
+// encoding, into out[10]: the forward saving the activations (kernels 4
+// and 3) and the forward of kernel 2, each as CTAs per SM, shared bytes per
+// CTA, weight ring stages and staging tiles per consumer; then the chain's
+// CTAs per SM and shared bytes.
+int dexnerf_train_bf16_occupancy(int hidden, int dx, int num_trunk, int dd, int skip_mask,
+                                 int* out) {
+  if (hidden % 32 != 0 || hidden < 32 || hidden > 128 || dx < 1 || dx > kMaxDx ||
+      num_trunk < 0 || num_trunk > 31) {
+    return (int)cudaErrorInvalidValue;
+  }
   TrainArgs a;
   a.hidden = hidden;
-  a.dxp = dxp;
+  a.dx = dx;
   a.num_trunk = num_trunk;
+  a.skip_mask = skip_mask;
   a.dd = dd;
   switch (hidden / 32) {
-    case 1: return occupancy<2>(a, fwd_ctas, chain_ctas, fwd_bytes, chain_bytes);
-    case 2: return occupancy<4>(a, fwd_ctas, chain_ctas, fwd_bytes, chain_bytes);
-    case 3: return occupancy<6>(a, fwd_ctas, chain_ctas, fwd_bytes, chain_bytes);
-    default: return occupancy<8>(a, fwd_ctas, chain_ctas, fwd_bytes, chain_bytes);
+    case 1: return occupancy<2>(a, out);
+    case 2: return occupancy<4>(a, out);
+    case 3: return occupancy<6>(a, out);
+    default: return occupancy<8>(a, out);
   }
 }
 

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives shared by the bf16 kernels
 // (fused_render_bf16.cu, fused_train_loss_bf16.cu): mbarriers, TMA and
-// bulk copies, wgmma descriptors and the wgmma wrappers.
+// bulk copies, shared-memory accesses by address, wgmma descriptors and the
+// wgmma wrappers.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap
@@ -77,6 +78,30 @@ __device__ __forceinline__ void bulk_wait_all() {
 // thread writes to shared memory, made visible to wgmma and TMA
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// shared-memory loads and stores at a shared address
+__device__ __forceinline__ uint32_t lds32(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ void sts32(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a), "r"(v));
+}
+__device__ __forceinline__ uint32_t lds16(uint32_t a) {
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ void sts16(uint32_t a, unsigned short v) {
+  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(a), "h"(v));
+}
+__device__ __forceinline__ float4 lds128(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a));
+  return v;
 }
 // barrier `id` over the 128 threads of one warpgroup
 __device__ __forceinline__ void wg_sync(int id) {

@@ -121,10 +121,9 @@ def _k_chunks(w: torch.Tensor, k: int, n: Optional[int] = None) -> torch.Tensor:
 
 def bf16_hidden(hidden: int) -> int:
     """The width the bf16 kernels compute at: ``hidden`` zero-padded to a
-    multiple of 32 (the training forward's warps split the columns in
-    halves of n8 tiles, and the viewdir layer's H/2 in quarters). The
-    padding is exact: a padded unit computes ReLU(0 + 0) = 0 and meets zero
-    weight rows."""
+    multiple of 32 (their instances: 32, 64, 96 and 128, each a wgmma width
+    with one for the viewdir layer's half). The padding is exact: a padded
+    unit computes ReLU(0 + 0) = 0 and meets zero weight rows."""
     return _round_up(hidden, 32)
 
 
@@ -132,26 +131,25 @@ def _pad_vec(t: torch.Tensor, n: int) -> torch.Tensor:
     return F.pad(t, (0, n - t.shape[-1]))
 
 
-def bf16_operands(model: FlexibleNeRFModel, w: dict, chunks, kc: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
-    """The bf16 kernels' layout of the parameters ``w`` (name -> tensor,
-    the model's shapes) at the padded width, before any rounding: the
-    float32 matmul operands as ``chunks(w, k, n)`` K-chunks of ``kc``
-    columns in consumption order, the aux buffer and its offsets (see
-    :func:`pack_flex_weights_bf16`)."""
+def _bf16_layout(model: FlexibleNeRFModel, w: dict
+                 ) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
+    """:func:`pack_flex_weights_bf16`'s layout of the parameters ``w``
+    (name -> tensor, the model's shapes) at the padded width, before any
+    rounding: the float32 matmul operands as :func:`_k_chunks` in
+    consumption order, the aux buffer and its offsets."""
     H = model.hidden_size
     Hp = bf16_hidden(H)
     Hp2 = Hp // 2
-    dxp, kh = _round_up(model.dim_xyz, kc), _round_up(Hp, kc)
+    dxp, kh = _round_up(model.dim_xyz, BF16_KCHUNK), _round_up(Hp, BF16_KCHUNK)
     d0 = "layers_dir.0"
-    parts = [chunks(w["layer1.weight"], dxp, Hp)]
+    parts = [_k_chunks(w["layer1.weight"], dxp, Hp)]
     for i in range(model.num_layers - 1):
         wi = w[f"layers_xyz.{i}.weight"]
-        parts.append(chunks(wi[:, :H], kh, Hp))
+        parts.append(_k_chunks(wi[:, :H], kh, Hp))
         if i in model.skips:
-            parts.append(chunks(wi[:, H:], dxp, Hp))
-    parts.append(chunks(w["fc_feat.weight"], kh, Hp))
-    parts.append(chunks(w[f"{d0}.weight"][:, :H], kh, Hp2))
+            parts.append(_k_chunks(wi[:, H:], dxp, Hp))
+    parts.append(_k_chunks(w["fc_feat.weight"], kh, Hp))
+    parts.append(_k_chunks(w[f"{d0}.weight"][:, :H], kh, Hp2))
     aux, offsets = _pack_f32([
         _pad_vec(w["layer1.bias"], Hp),
         *(_pad_vec(w[f"layers_xyz.{i}.bias"], Hp) for i in range(model.num_layers - 1)),
@@ -161,27 +159,6 @@ def bf16_operands(model: FlexibleNeRFModel, w: dict, chunks, kc: int
         _pad_vec(w[f"{d0}.weight"][:, H:].t(), Hp2),
     ])
     return torch.cat(parts), aux, offsets
-
-
-def _bf16_layout(model: FlexibleNeRFModel, w: dict) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
-    return bf16_operands(model, w, _k_chunks, BF16_KCHUNK)
-
-
-def pack_bf16(model: FlexibleNeRFModel, layout, device=None
-              ) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
-    """``layout`` (:func:`bf16_operands` with a chunking) of the model's
-    parameters: the operands rounded to bf16, the aux buffer with the
-    viewdir rows of layers_dir.0 rounded to bf16 (the kernels fold them into
-    a per-ray bias). One gather of the parameters (:func:`gather_plan`)."""
-    dev = next(model.parameters()).device
-    idx_wq, idx_aux, offsets = gather_plan(layout, model, dev)
-    with torch.no_grad():
-        wq, aux = gather_params(model, idx_wq, idx_aux)
-        wq = wq.to(torch.bfloat16)
-        vd = offsets[model.num_layers + 6]
-        n_vd = model.dim_dir * bf16_hidden(model.hidden_size) // 2
-        aux[vd:vd + n_vd] = _bf16(aux[vd:vd + n_vd])
-    return wq.to(device), aux.to(device), offsets
 
 
 # (layout function, model shape, device) -> gather plan: every packed entry
@@ -238,22 +215,34 @@ def pack_flex_weights_bf16(
       each trunk layer, of fc_feat and of layers_dir.0, then w_alpha [Hp],
       b_alpha, w_rgb [Hp/2, 3], b_rgb and the viewdir rows of layers_dir.0
       [dd, Hp/2] rounded to bf16 (the kernel folds them into a per-ray bias).
+
+    Kernel 1 and the training forward (kernels 2-4) take the same pack. One
+    gather of the parameters (:func:`gather_plan`).
     """
-    return pack_bf16(model, _bf16_layout, device)
+    dev = next(model.parameters()).device
+    idx_wq, idx_aux, offsets = gather_plan(_bf16_layout, model, dev)
+    with torch.no_grad():
+        wq, aux = gather_params(model, idx_wq, idx_aux)
+        wq = wq.to(torch.bfloat16)
+        vd = offsets[model.num_layers + 6]
+        n_vd = model.dim_dir * bf16_hidden(model.hidden_size) // 2
+        aux[vd:vd + n_vd] = _bf16(aux[vd:vd + n_vd])
+    return wq.to(device), aux.to(device), offsets
 
 
-# model -> {pack: ((each parameter's (data_ptr, version), device), packed)}:
-# packed once, rebuilt when a parameter is replaced or changed in place
+# model -> ((each parameter's (data_ptr, version), device), its
+# pack_flex_weights_bf16): packed once per parameter state for kernel 1 and
+# the training forward, rebuilt when a parameter is replaced or changed in
+# place
 _packed_bf16 = weakref.WeakKeyDictionary()
 
 
-def _cached_bf16_weights(model: FlexibleNeRFModel, device, pack=pack_flex_weights_bf16):
+def _cached_bf16_weights(model: FlexibleNeRFModel, device):
     key = (tuple((p.data_ptr(), p._version) for p in model.parameters()), str(device))
-    packs = _packed_bf16.setdefault(model, {})
-    hit = packs.get(pack)
+    hit = _packed_bf16.get(model)
     if hit is None or hit[0] != key:
-        hit = (key, pack(model, device))
-        packs[pack] = hit
+        hit = (key, pack_flex_weights_bf16(model, device))
+        _packed_bf16[model] = hit
     return hit[1]
 
 

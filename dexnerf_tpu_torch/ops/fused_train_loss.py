@@ -37,9 +37,11 @@ activations and cotangents saved in bf16, sample-major, ~5 KB per sample
 (~1.3 GB a chunk for 8x128), written once and read back by the chain's
 ReLU masks and the weight gradients (~20 GB a step, ~6 ms at 3.35 TB/s).
 Its design, per chunk: a per-ray prep (viewdir encoding and bias), the
-forward of each 128-sample tile on ``mma.sync`` (kernel 1's bf16 tile:
-weights streamed as [N, 32] K-chunks through a 4-stage ``cp.async`` ring,
-f32 heads from the accumulators), f32 compositing and its backward one
+forward on ``wgmma`` (kernel 1's bf16 tile: persistent CTAs whose consumer
+warpgroups each run 64-row tiles through the whole MLP, fed by a bulk-copy
+ring of the pre-swizzled pack :func:`~dexnerf_tpu_torch.ops.fused_render.pack_flex_weights_bf16`,
+f32 heads from the accumulators, every activation stored to the scratch by
+TMA from a swizzled staging tile), f32 compositing and its backward one
 warp per ray, the cotangent chain on ``wgmma`` against
 :func:`pack_backward_weights_bf16`, its weights, masks and stores moved by
 TMA, with the bias sums and the viewdir rows' dW accumulated per consumer
@@ -83,10 +85,8 @@ from dexnerf_tpu_torch.ops.fused_render import (
     _cached_bf16_weights,
     _round_up,
     bf16_hidden,
-    bf16_operands,
     gather_params,
     gather_plan,
-    pack_bf16,
     pack_flex_weights,
 )
 from dexnerf_tpu_torch.ops.resample import make_fused_resample
@@ -117,7 +117,7 @@ DW_MAX_BOXES = 6
 DW_MAX_BLOCKS = 8
 DW_SMEM_MAX = 232448
 CHAIN_KCHUNK = 64  # K of a chain weight chunk (one [Hp][64] TMA box)
-FWD_KCHUNK = 32  # K of a forward weight chunk (kKc of fused_train_loss_bf16.cu)
+ENC_PAD = 32  # the scratch's encoding block: dim_xyz padded to a multiple (kEncPad)
 SUPERVISION = ("rgb", "luminance")
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -431,7 +431,7 @@ class _Bf16TrainArgs(ctypes.Structure):
         for name in (
             "ray0", "n_rays", "n_samples", "hidden", "num_trunk", "skip_mask",
             "fx", "fd", "inc_x", "inc_d", "dx", "dxp", "dd",
-            "white_bg", "luma", "has_noise", "has_depth", "chain_ctas",
+            "white_bg", "luma", "has_noise", "has_depth", "chain_ctas", "fwd_ctas",
         )
     ] + [
         ("aux_off", ctypes.c_int32 * (MAX_LAYERS + 8)),
@@ -626,25 +626,6 @@ def dw_template(units, grid: int):
     return args, 1024 + args.n_stages * (args.stage_bytes + 16)
 
 
-def _k_chunks32(w: torch.Tensor, k: int, n: int) -> torch.Tensor:
-    """``w`` [N, K] zero-padded to ``n`` rows and ``k`` (a multiple of 32)
-    columns, as flat [k/32, n, 32]."""
-    w = F.pad(w, (0, k - w.shape[1], 0, n - w.shape[0]))
-    return w.reshape(n, k // FWD_KCHUNK, FWD_KCHUNK).transpose(0, 1).reshape(-1)
-
-
-def _forward_layout(model: FlexibleNeRFModel, w: dict):
-    return bf16_operands(model, w, _k_chunks32, FWD_KCHUNK)
-
-
-def pack_forward_weights_bf16(model: FlexibleNeRFModel, device=None):
-    """The bf16 forward's weights (``train_fwd_bf16_kernel`` of kernels
-    2-4): ``pack_flex_weights_bf16``'s operands, in the same order, as plain
-    [N, 32] K-chunks (the rows its ``cp.async`` ring copies; K zero-padded
-    to a multiple of 32), and the same aux buffer and offsets."""
-    return pack_bf16(model, _forward_layout, device)
-
-
 def _k_chunks64(w: torch.Tensor, k: int, n: int) -> torch.Tensor:
     """``w`` [N, K] zero-padded to ``n`` rows and ``k`` (a multiple of 64)
     columns, as flat [k/64, n, 64]."""
@@ -686,7 +667,7 @@ def _scratch_layout(model: FlexibleNeRFModel):
     sigma (the last two 8 wide)."""
     Hp = bf16_hidden(model.hidden_size)
     nt = model.num_layers - 1
-    dxp = _round_up(model.dim_xyz, FWD_KCHUNK)
+    dxp = _round_up(model.dim_xyz, ENC_PAD)
     act = [dxp] + [Hp] * (nt + 1) + [Hp, Hp // 2]
     dlt = [Hp] * (nt + 1) + [Hp, Hp // 2, 8, 8]
     return Hp, dxp, act, dlt
@@ -750,31 +731,56 @@ def _aux_map(model: FlexibleNeRFModel, device) -> Tuple[torch.Tensor, int]:
     return m.to(device), vd + dd * Hp2
 
 
+# (width, encodings, depth, skips, device) -> bf16_occupancy's result
+_residency = {}
+
+
 def bf16_occupancy(model: FlexibleNeRFModel) -> dict:
-    """CTAs per SM and shared-memory bytes per CTA of the bf16 forward,
-    chain and weight-gradient kernels for ``model``, as the CUDA runtime
-    reports them (needs the card)."""
+    """The residency of the bf16 kernels for ``model``, as the CUDA runtime
+    and the launchers report them (needs the card; once per shape and
+    device): ``forward`` (kernels 4 and 3, saving the activations) and
+    ``field_forward`` (kernel 2) as (CTAs per SM, shared bytes per CTA,
+    weight ring stages, staging tiles per consumer warpgroup); ``chain`` and
+    ``dw`` as (CTAs per SM, shared bytes per CTA)."""
     from dexnerf_tpu_torch.ops._build import check, load_library
 
-    lib = load_library()
-    v = [ctypes.c_int(0) for _ in range(5)]
-    Hp, dxp, _, _ = _scratch_layout(model)
-    check(lib, lib.dexnerf_train_bf16_occupancy(Hp, dxp, model.num_layers - 1, model.dim_dir,
-                                                *(ctypes.byref(x) for x in v[:4])),
-          "fused_train_loss bf16 occupancy query")
-    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
-    dw_smem = _cached_dw_template(model, sms)[1]
-    check(lib, lib.dexnerf_train_bf16_dw_occupancy(dw_smem, ctypes.byref(v[4])),
-          "bf16 weight-gradient occupancy query")
-    return {"forward": (v[0].value, v[2].value), "chain": (v[1].value, v[3].value),
-            "dw": (v[4].value, dw_smem)}
+    dev = torch.cuda.current_device()
+    key = (bf16_hidden(model.hidden_size), model.dim_xyz, model.num_layers, tuple(model.skips),
+           model.dim_dir, dev)
+    if key not in _residency:
+        lib = load_library()
+        out = (ctypes.c_int * 10)()
+        code = lib.dexnerf_train_bf16_occupancy(key[0], model.dim_xyz, model.num_layers - 1,
+                                                model.dim_dir, sum(1 << i for i in model.skips),
+                                                ctypes.addressof(out))
+        check(lib, code, "fused_train_loss bf16 occupancy query")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        dw_smem = _cached_dw_template(model, sms)[1]
+        dw = ctypes.c_int(0)
+        check(lib, lib.dexnerf_train_bf16_dw_occupancy(dw_smem, ctypes.byref(dw)),
+              "bf16 weight-gradient occupancy query")
+        _residency[key] = {"forward": tuple(out[0:4]), "field_forward": tuple(out[4:8]),
+                           "chain": tuple(out[8:10]), "dw": (dw.value, dw_smem)}
+    return _residency[key]
+
+
+def fwd_ctas(model: FlexibleNeRFModel, device) -> int:
+    """The bf16 training forward's persistent CTAs on ``device``: every SM,
+    as many as fit on one (:func:`bf16_occupancy`)."""
+    occ = bf16_occupancy(model)
+    ctas = min(occ["forward"][0], occ["field_forward"][0])
+    if ctas < 1:
+        raise RuntimeError(f"the bf16 training forward does not fit on an SM: {occ}")
+    return ctas * torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def bf16_args(lib, model: FlexibleNeRFModel, n_rays: int, n_samples: int, *,
               log_sampling_xyz: bool, log_sampling_dir: bool):
     """A ``_Bf16TrainArgs`` with the model's layout (zero-padded to
-    ``bf16_hidden``), its bf16 forward pack and f32 heads, and the per-ray
-    prep buffers of ``n_rays`` rays (``dir_enc``, ``dirb``) filled in, for
+    ``bf16_hidden``), its bf16 forward pack (kernel 1's, packed once per
+    parameter state for both) and f32 heads, the forward's persistent CTAs
+    (:func:`fwd_ctas`) and the per-ray prep buffers of ``n_rays`` rays
+    (``dir_enc``, ``dirb``) filled in, for
     the bf16 kernels of the fused train loss (kernel 4) and of the fields
     (kernels 2 and 3); and the tensors it points to (keep them until the
     launches are done)."""
@@ -785,7 +791,7 @@ def bf16_args(lib, model: FlexibleNeRFModel, n_rays: int, n_samples: int, *,
     dev = next(model.parameters()).device
     nt, dd = model.num_layers - 1, model.dim_dir
     Hp, dxp, _, _ = _scratch_layout(model)
-    wq, aux, aux_off = _cached_bf16_weights(model, dev, pack_forward_weights_bf16)
+    wq, aux, aux_off = _cached_bf16_weights(model, dev)
     dir_enc = torch.empty(n_rays * dd, dtype=torch.float32, device=dev)
     dirb = torch.empty(n_rays * Hp // 2, dtype=torch.float32, device=dev)
     args = _Bf16TrainArgs()
@@ -796,6 +802,7 @@ def bf16_args(lib, model: FlexibleNeRFModel, n_rays: int, n_samples: int, *,
     args.fx, args.fd = model.num_encoding_fn_xyz, model.num_encoding_fn_dir
     args.inc_x, args.inc_d = int(model.include_input_xyz), int(model.include_input_dir)
     args.dx, args.dxp, args.dd = model.dim_xyz, dxp, dd
+    args.fwd_ctas = fwd_ctas(model, dev)
     args.aux_off[:len(aux_off)] = aux_off
     bx = frequency_bands(model.num_encoding_fn_xyz, log_sampling_xyz).tolist()
     bd = frequency_bands(model.num_encoding_fn_dir, log_sampling_dir).tolist()

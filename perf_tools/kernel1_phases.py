@@ -32,7 +32,7 @@ sys.path.insert(0, ROOT)
 MMA = [("wgmma_bf16_rs<NO>(", "if (0) wgmma_bf16_rs<NO>("),
        ("wgmma_bf16<H, 0, 0>(", "if (0) wgmma_bf16<H, 0, 0>(")]
 EPI = [("hidden_epilogue<H, ", "if (0) hidden_epilogue<H, ")]
-PE = [("sincosf(__fmul_rn(pt, p.bands_x[f]), &sn, &cs);", "sn = pt; cs = pt;")]
+PE = [("sincosf(__fmul_rn(pt, band(f)), &sn, &cs);", "sn = pt; cs = pt;")]
 COMP = [("for (int rr = warp; rr < nrays; rr += 4)", "for (int rr = warp; rr < 0; rr += 4)"),
         ("for (int i = warp; i < nrays * p.n_thr; i += 4)", "for (int i = warp; i < 0; i += 4)")]
 VARIANTS = {"full": [], "no_wgmma": MMA, "no_epilogue": EPI, "no_pe": PE, "no_composite": COMP,
@@ -53,9 +53,9 @@ PROFILE = [
     ("    for (int tile = 0; tile < tiles; ++tile) {\n",
      "    " + _pt(0) + "\n    for (int tile = 0; tile < tiles; ++tile) {\n"),
     ("is written\n", "is written\n      " + _pt(1) + "\n"),
-    ("wait_chunks(kx);\n", "wait_chunks(kx); " + _pt(2) + "\n"),
-    ("wait_chunks(n);\n", "wait_chunks(n); " + _pt(2) + "\n"),
-    ("wait_chunks(KCH);\n", "wait_chunks(KCH); " + _pt(2) + "\n"),
+    ("wr.wait(kx);\n", "wr.wait(kx); " + _pt(2) + "\n"),
+    ("wr.wait(n);\n", "wr.wait(n); " + _pt(2) + "\n"),
+    ("wr.wait(KCH);\n", "wr.wait(KCH); " + _pt(2) + "\n"),
     ("wgmma_wait0();\n", "wgmma_wait0(); " + _pt(3) + "\n"),
     ("b_alpha, sig_rows);\n      }\n", "b_alpha, sig_rows);\n      }\n      " + _pt(4) + "\n"),
     ("b_alpha, sig_rows);\n        }\n", "b_alpha, sig_rows);\n        }\n        " + _pt(4) + "\n"),
@@ -63,11 +63,11 @@ PROFILE = [
     ("store_rgb(crgb, r0, b_rgb, rgbr);\n", "store_rgb(crgb, r0, b_rgb, rgbr); " + _pt(4) + "\n"),
     ("logits are written\n", "logits are written\n    " + _pt(6) + "\n"),
     ("the unit's data\n  }\n", "the unit's data\n    " + _pt(5) + "\n  }\n"),
-    ("    release(1);\n  }\n}\n",
-     "    release(1);\n  }\n  " + _pt(7) + "\n  if (t == 0) for (int i = 0; i < 8; ++i) "
+    ("    wr.release(1);\n  }\n}\n",
+     "    wr.release(1);\n  }\n  " + _pt(7) + "\n  if (t == 0) for (int i = 0; i < 8; ++i) "
      "atomicAdd(&g_prof[i], (unsigned long long)prof[i]);\n}\n"),
-    ("namespace {\n\nconstexpr int kCons",
-     "__device__ unsigned long long g_prof[8];\nnamespace {\n\nconstexpr int kCons"),
+    ("namespace {\n\nconstexpr int kMaxUnitRows",
+     "__device__ unsigned long long g_prof[8];\nnamespace {\n\nconstexpr int kMaxUnitRows"),
 ]
 PROFILE_READ = ('\nextern "C" int prof_read(unsigned long long* out) {\n'
                 '  cudaError_t e = cudaMemcpyFromSymbol(out, g_prof, 64);\n'
@@ -81,6 +81,15 @@ def edited(src, edits):
             raise RuntimeError(f"the kernel source no longer holds {old!r}")
         src = src.replace(old, new)
     return src
+
+
+def kernel_source(csrc):
+    """``fused_render_bf16.cu`` with the forward tile it shares with the
+    training forward (``mlp_tile_bf16.cuh``) written in, so that the edits
+    reach the tile's products and encoding too."""
+    tile = (csrc / "mlp_tile_bf16.cuh").read_text().replace("#pragma once\n", "")
+    src = (csrc / "fused_render_bf16.cu").read_text()
+    return edited(src, [('#include "mlp_tile_bf16.cuh"\n', tile)])
 
 
 def build(sources):
@@ -125,7 +134,7 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip()
     main_lib = _build.load_library()
-    src = (_build.CSRC / "fused_render_bf16.cu").read_text()
+    src = kernel_source(_build.CSRC)
     sources = {name: edited(src, edits) for name, edits in VARIANTS.items()}
     sources["profile"] = edited(src, PROFILE) + PROFILE_READ
     libs = build(sources)

@@ -363,16 +363,20 @@ def _plain(model, pts, vd, g):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s", [64, 100, 128])
+@pytest.mark.parametrize("n,s", [(300, 64), (300, 100), (300, 128), (300, 256), (3, 8), (301, 7)],
+                         ids=["64", "100", "128", "256", "3rays-8", "rows-not-64"])
 @pytest.mark.parametrize("arch", [FULL, SMALL, dict(FULL, hidden_size=48), dict(FULL, hidden_size=32),
-                                  dict(FULL, hidden_size=64), dict(FULL, hidden_size=96)],
-                         ids=["8x128", "4x16", "h48", "h32", "h64", "h96"])
-def test_bf16_kernels_match_plain_on_card(cuda, arch, s):
+                                  dict(FULL, hidden_size=64), dict(FULL, hidden_size=96),
+                                  dict(FULL, num_encoding_fn_xyz=16)],
+                         ids=["8x128", "4x16", "h48", "h32", "h64", "h96", "pe16"])
+def test_bf16_kernels_match_plain_on_card(cuda, arch, n, s):
     """Both bf16 kernels through the training field (kernel 2 forward,
     kernel 3 backward) and kernel 2 alone: one launch each of the bf16
     routes and none of the f32 ones; raw and every leaf held to the bf16
-    plain version."""
-    m, pts, vd, g = _card_case(cuda, arch, 300, s)
+    plain version. Also PE 16 (two encoding K-chunks), S = 256, a launch of
+    fewer 64-row tiles than the forward has workers (3 rays x 8 samples)
+    and rows that are not a multiple of 64 (301 x 7)."""
+    m, pts, vd, g = _card_case(cuda, arch, n, s)
     before = (fused_mlp.launches, fused_mlp.launches_bf16, fused_mlp_train.launches,
               fused_mlp_train.launches_bf16)
     raw = fused_mlp_train.fused_field_train(m, pts, vd, compute_dtype=BF16, dw_dtype=BF16)

@@ -14,6 +14,7 @@ inside a fixture, so that this file also runs where JAX is not installed:
     python -m pytest --noconftest -m gpu tests/test_torch_fused_render_bf16.py
 """
 
+import ctypes
 import types
 
 import numpy as np
@@ -339,7 +340,7 @@ def _unswizzle(wq, n, k):
     return g.transpose(0, 1).reshape(n, k)
 
 
-def test_pack_flex_weights_bf16_layout():
+def test_pack_flex_weights_bf16_layout(monkeypatch):
     m = FlexibleNeRFModel(**ARCH).reset_parameters(torch.Generator().manual_seed(1))
     wq, aux, off = fr.pack_flex_weights_bf16(m)
     H, dxp = m.hidden_size, 64
@@ -366,15 +367,32 @@ def test_pack_flex_weights_bf16_layout():
     assert torch.equal(wr, m.fc_rgb.weight.detach().t())
     wdv = aux[off[nt + 7]:off[nt + 7] + m.dim_dir * H // 2].reshape(m.dim_dir, H // 2)
     assert torch.equal(wdv, fr._bf16(m.layers_dir[0].weight.detach()[:, H:].t()))
-    # packed once per parameter state, apart from kernel 4's forward pack
+    # packed once per parameter state: kernel 4's forward (bf16_args, also
+    # kernels 2 and 3's) takes kernel 1's cached pack itself, and a
+    # parameter change repacks it for both
+    monkeypatch.setattr(ftl, "fwd_ctas", lambda model, device: 132)
     a = fr._cached_bf16_weights(m, "cpu")
-    b = fr._cached_bf16_weights(m, "cpu", ftl.pack_forward_weights_bf16)
-    assert b is not a and torch.equal(b[1], a[1]) and b[2] == a[2]
-    assert fr._cached_bf16_weights(m, "cpu", ftl.pack_forward_weights_bf16) is b
     assert fr._cached_bf16_weights(m, "cpu") is a
+    args, keep = ftl.bf16_args(_StructSizes(), m, 2, 4, log_sampling_xyz=True,
+                               log_sampling_dir=True)
+    assert keep[0] is a[0] and keep[1] is a[1]
+    assert args.wq == a[0].data_ptr() and args.aux == a[1].data_ptr()
+    assert list(args.aux_off[:len(a[2])]) == a[2]
     with torch.no_grad():
         m.fc_feat.weight.add_(1.0)
-    assert fr._cached_bf16_weights(m, "cpu") is not a
+    b = fr._cached_bf16_weights(m, "cpu")
+    assert b is not a and not torch.equal(b[0], a[0])
+    assert ftl.bf16_args(_StructSizes(), m, 2, 4, log_sampling_xyz=True,
+                         log_sampling_dir=True)[1][0] is b[0]
+
+
+class _StructSizes:
+    """Stands in for the kernel library where ``bf16_args`` only checks the
+    argument blocks' sizes (there is no library on the CPU)."""
+
+    @staticmethod
+    def dexnerf_train_bf16_size(which, hidden, num_trunk, dd):
+        return ctypes.sizeof((ftl._Bf16TrainArgs, ftl._DwArgs, ftl._ChainMaps)[which])
 
 
 @pytest.mark.parametrize("hidden", [16, 48])

@@ -372,16 +372,22 @@ def _assert_bf16_on_card(model, args, kw, kernel_out):
 @pytest.mark.parametrize("depth", [False, True], ids=["photo", "depth"])
 @pytest.mark.parametrize("supervision", ["rgb", "luminance"])
 @pytest.mark.parametrize(
-    "arch,s",
-    [(FULL, 64), (FULL, 128), (dict(FULL, hidden_size=16), 64), (dict(FULL, hidden_size=48), 128),
-     (ARCH, 8), (dict(FULL, hidden_size=32), 64), (dict(FULL, hidden_size=64), 128),
-     (dict(FULL, hidden_size=96), 64), (dict(FULL, num_encoding_fn_xyz=16), 64),
-     (dict(FULL, num_encoding_fn_dir=10), 64)],
+    "arch,s,n",
+    [(FULL, 64, 300), (FULL, 128, 300), (dict(FULL, hidden_size=16), 64, 300),
+     (dict(FULL, hidden_size=48), 128, 300), (ARCH, 8, 300), (dict(FULL, hidden_size=32), 64, 300),
+     (dict(FULL, hidden_size=64), 128, 300), (dict(FULL, hidden_size=96), 64, 300),
+     (dict(FULL, num_encoding_fn_xyz=16), 64, 300), (dict(FULL, num_encoding_fn_dir=10), 64, 300),
+     (dict(FULL, num_encoding_fn_xyz=16), 100, 300), (FULL, 256, 300), (FULL, 8, 3),
+     (FULL, 7, 301)],
     ids=["8x128-64", "8x128-128", "h16-64", "h48-128", "8x16-8", "h32-64", "h64-128", "h96-64",
-         "pe16-64", "dir10-64"],
+         "pe16-64", "dir10-64", "pe16-100", "8x128-256", "3rays-8", "rows-not-64"],
 )
-def test_bf16_kernel_matches_plain_on_card(cuda, arch, s, supervision, depth):
-    m, inp = _card_case(cuda, arch, s)
+def test_bf16_kernel_matches_plain_on_card(cuda, arch, s, n, supervision, depth):
+    """Kernel 4's bf16 route against its bf16 plain version: widths 16-128,
+    PE 16 (two encoding K-chunks), S = 8-256, a launch of fewer 64-row
+    tiles than the forward has workers (3 rays x 8 samples) and one whose
+    rows are not a multiple of 64 (301 x 7)."""
+    m, inp = _card_case(cuda, arch, s, n=n)
     kw = dict(white_background=supervision == "luminance", supervision=supervision)
     args = (inp["origins"], inp["directions"], inp["z_vals"], inp["viewdirs"], inp["dists"],
             inp["noise"], inp["target"],
@@ -435,8 +441,14 @@ def test_bf16_kernel_refusals_on_card(cuda):
         ftl.fused_pass_loss(m, inp["origins"].double(), *args[1:], compute_dtype=BF16,
                             dw_dtype=BF16)
     assert (ftl.launches, ftl.launches_bf16) == before
+    # the forward: one persistent CTA per SM, two staging tiles per consumer
+    # where it saves the activations (none for kernel 2), and a ring of at
+    # least the skip layer's three chunks (more without the staging tiles)
     occ = ftl.bf16_occupancy(m)
-    assert occ["forward"][0] >= 2 and occ["chain"][0] >= 1 and occ["dw"][0] == 1, occ
+    fwd, field = occ["forward"], occ["field_forward"]
+    assert fwd[0] == 1 and fwd[2] >= 3 and fwd[3] == 2, occ
+    assert field[0] == 1 and field[2] >= fwd[2] and field[3] == 0, occ
+    assert occ["chain"][0] >= 1 and occ["dw"][0] == 1, occ
 
 
 def _dw_on_card(ds, ns, a, m):
