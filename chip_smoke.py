@@ -81,7 +81,20 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    steps at each dtype (kernel 2, kernel 3, glue, Adam, idle), with kernel
    3's bf16 kernels beside their bounds as in phase 8 and kernel 2's bf16
    forward beside its route's bound; the forward's residency and launches
-   for kernels 2 and 3, as in phase 8.
+   for kernels 2 and 3, as in phase 8;
+14. Dex-NeRF on messytable: write a synthetic messytable scene (stored
+   540x960, loaded at 270x480) and train ``configs/messytable-obj.yml`` on
+   it (``nerf.use_pallas: true``, ``dataset.depth_valid_max: 6``) through
+   ``apps.train --ir --dex --depth-loss 0.1 --depth-warmup 10`` for 20
+   steps: kernel 4's bf16 route launched 40 times with its luminance and
+   depth terms (f32 route never), the depth term absent before step 10
+   and finite after, each validation (steps 0 and 19) two launches of
+   kernel 1's bf16 route at T = 20 with the depth metrics, the 20
+   ``depth_pred_<m>`` images, the error image and the millimeter PNG; hold
+   kernel 4's bf16 route with both terms on to its plain version on one
+   1024-ray batch of the run (both passes, phase 7's BF16_* rule) and
+   kernel 1's on the 270x480 validation frame (phase 3's); time both
+   passes, a depth-supervised step (host clock, profile) and the frame.
 
 Each kernel's line holds its bound: the larger of its FLOPs (multiply-adds
 counted from the model's shapes; compares and arithmetic counted from the
@@ -127,6 +140,15 @@ FIELD_BWD_BF16_NAMES = ("train_prep_kernel<3>", "train_fwd_bf16_kernel<3,",
 # steps of the f32 routes of kernel 4 and of kernels 2-3 (pallas_compute_dtype: float32)
 F32_TRAIN_ITERS = 10
 TINY_CONFIG = os.path.join(ROOT, "configs", "tiny.yml")
+# phase 14: Dex-NeRF on messytable (configs/messytable-obj.yml): the scene's
+# stored frame (loaded halved, at the real scene's 270x480) and views, the
+# run's steps, its depth term's weight, warmup and validity limit (the
+# synthetic scene lies ~4 m away, beyond the 1.25 m default)
+DEX_STORED_HW = (540, 960)
+DEX_VIEWS = (4, 1, 1)
+DEX_ITERS, DEX_WARMUP, DEX_WEIGHT, DEX_VALID_MAX = 20, 10, 0.1, 6.0
+DEX_VAL_TAGS = tuple(f"validation/{k}" for k in ("depth_abs_err", "depth_err4", "min_abs_err",
+                                                 "err4"))
 # kernels 5 and 6 vs plain: the CPU tests' tolerances (tests/test_torch_resample.py).
 # With trained weights the CDF has steps of ~1e-5, where one ulp of the CDF
 # moves a depth by up to ~1e-4 through the guarded lerp, so each output is
@@ -340,10 +362,12 @@ def kernel_modules():
             "resample": resample, "sample_pdf": sample_pdf}
 
 
-def train_cli(tmp, data, name, iters, torch, dev, **nerf):
-    """``configs/lego-tpu.yml`` pointed at the dataset ``data``, with the
-    ``nerf`` keys overridden, trained through ``dexnerf_tpu_torch.apps.train``
-    for ``iters`` steps on ``dev`` with every launch counter set to 0 just
+def train_cli(tmp, data, name, iters, torch, dev, config=TRAIN_CONFIG, dataset=None, flags=(),
+              **nerf):
+    """``config`` (``configs/lego-tpu.yml``) pointed at the dataset ``data``,
+    with the ``dataset`` and ``nerf`` keys overridden, trained through
+    ``dexnerf_tpu_torch.apps.train`` (with the extra CLI ``flags``) for
+    ``iters`` steps on ``dev`` with every launch counter set to 0 just
     before and read just after. Returns the config path, the log directory,
     the counts, the losses, the validation PSNRs, the seconds and the peak
     device memory (GiB)."""
@@ -351,9 +375,9 @@ def train_cli(tmp, data, name, iters, torch, dev, **nerf):
 
     from dexnerf_tpu_torch.apps import train as train_app
 
-    with open(TRAIN_CONFIG) as f:
+    with open(config) as f:
         raw = yaml.safe_load(f)
-    raw["dataset"].update(basedir=data, half_res=False, cachedir="")
+    raw["dataset"].update(basedir=data, half_res=False, cachedir="", **(dataset or {}))
     raw["experiment"].update(
         id=name, logdir=os.path.join(tmp, "logs"), validate_every=iters,
         save_every=iters, print_every=1,
@@ -370,7 +394,8 @@ def train_cli(tmp, data, name, iters, torch, dev, **nerf):
     for m in bf16_mods.values():
         m.launches_bf16 = 0
     t0 = time.perf_counter()
-    train_app.main(["--config", cfg_path, "--device", dev.type, "--max-iters", str(iters)])
+    train_app.main(["--config", cfg_path, "--device", dev.type, "--max-iters", str(iters),
+                    *flags])
     seconds = time.perf_counter() - t0
     counts = {k: m.launches for k, m in mods.items()}
     counts.update({f"{k}_bf16": m.launches_bf16 for k, m in bf16_mods.items()})
@@ -532,27 +557,16 @@ def train_phase(torch, np, card, dev, tmp):
 
     # ---- phase 8: timings, bound, profile of the kernel path
     ms = {}
-    flops = byts = byts_b = dw_flops = 0.0
+    flops, byts, byts_b, dw_flops = kernel4_sizes(per_pass, dev)
     bf = dict(compute_dtype=torch.bfloat16, dw_dtype=torch.bfloat16)
     gemms = []
     for name, args in per_pass.items():
-        model, z = args[0], args[3]
-        n, s = z.shape
-        ps, pr = mlp_macs(model)
-        # forward and weight gradients: the same multiply-adds; plus the chain
-        dw_flops += 2 * (n * s * ps + n * pr)
-        flops += train_flops(model, n, s)
-        params = list(model.parameters())
-        io = nbytes(*args[1:]) + nbytes(z) + 3 * 4 * n + 4
-        byts += io + 2 * nbytes(*params)
-        # the bf16 route reads its bf16 packs (and the f32 heads) instead
-        byts_b += io + nbytes(*params) + nbytes(*ftl._cached_bf16_weights(model, dev)[:2],
-                                                ftl.pack_backward_weights_bf16(model, dev))
+        z = args[3]
         for tag, kw in (("", {}), ("_bf16", bf)):
             ms[f"{name}_kernel{tag}"] = timed_ms(lambda: ftl.fused_pass_loss(*args, **kw), torch)
             ms[f"{name}_plain{tag}"] = timed_ms(
                 lambda: ftl.fused_pass_loss_reference(*args, **kw), torch)
-        gemms += dw_gemm_operands(model, n * s, torch, dev)
+        gemms += dw_gemm_operands(args[0], z.numel(), torch, dev)
     bound_ms, bound_by = bound(flops, byts)
     bound_b, bound_b_by = bound(flops, byts_b, BF16_FLOPS)
     # library yardstick: the bf16 route's weight-gradient products of both
@@ -650,6 +664,30 @@ def train_phase(torch, np, card, dev, tmp):
     return train_kernels, shared
 
 
+def kernel4_sizes(per_pass, dev):
+    """(FLOPs, f32 route bytes, bf16 route bytes, weight-gradient FLOPs) of
+    kernel 4's passes ``per_pass`` (name -> the pass's positional args):
+    the forward, the chain and the weight gradients (the forward's
+    multiply-adds again); the inputs read once, the weights read (the bf16
+    route reads its bf16 packs and the f32 heads instead) and the
+    gradients, rgb, weights and loss written once."""
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+
+    flops = byts = byts_b = dw_flops = 0.0
+    for args in per_pass.values():
+        model, z = args[0], args[3]
+        n, s = z.shape
+        ps, pr = mlp_macs(model)
+        dw_flops += 2 * (n * s * ps + n * pr)
+        flops += train_flops(model, n, s)
+        params = list(model.parameters())
+        io = nbytes(*args[1:]) + nbytes(z) + 3 * 4 * n + 4
+        byts += io + 2 * nbytes(*params)
+        byts_b += io + nbytes(*params) + nbytes(*ftl._cached_bf16_weights(model, dev)[:2],
+                                                ftl.pack_backward_weights_bf16(model, dev))
+    return flops, byts, byts_b, dw_flops
+
+
 def dw_gemm_operands(model, k, torch, dev):
     """Random bf16 operands of the bf16 route's weight-gradient products of
     one pass over ``k`` samples, as (cotangents [k, N], activations
@@ -666,9 +704,10 @@ def dw_gemm_operands(model, k, torch, dev):
     return [(rnd(n), rnd(m)) for n, m in shapes]
 
 
-def check_train_bf16(name, model, args, norm, want_f32, torch):
+def check_train_bf16(name, model, args, norm, want_f32, torch, phase=7, **kw):
     """Kernel 4's bf16 route vs its bf16 plain version on one pass (the
-    loss over ``norm``): loss, weights, rgb and every gradient leaf, each
+    loss over ``norm``; ``kw`` the pass's supervision and background):
+    loss, weights, rgb and every gradient leaf, each
     held relative to the dtype's own effect, own = |bf16 plain - f32 plain|
     (``want_f32``): the kernel's distance to the bf16 plain version at most
     own (max) and BF16_P999 x own (99.9th percentile), its distance to the
@@ -677,7 +716,7 @@ def check_train_bf16(name, model, args, norm, want_f32, torch):
     plain version."""
     from dexnerf_tpu_torch.ops import fused_train_loss as ftl
 
-    bf = dict(compute_dtype=torch.bfloat16, dw_dtype=torch.bfloat16)
+    bf = dict(kw, compute_dtype=torch.bfloat16, dw_dtype=torch.bfloat16)
     model.zero_grad(set_to_none=True)
     loss, w, rgb = ftl.fused_pass_loss(*args, **bf)
     (loss / norm).backward()
@@ -689,7 +728,7 @@ def check_train_bf16(name, model, args, norm, want_f32, torch):
            "rgb": want_f32[2]}
     for (pname, p), gp, gf in zip(model.named_parameters(), plain[3], want_f32[3]):
         got[pname], want[pname], f32[pname] = p.grad, gp / norm, gf / norm
-    return max(hold_to_own(f"phase 7: {name} pass, bf16 route vs plain,", got, want, f32,
+    return max(hold_to_own(f"phase {phase}: {name} pass, bf16 route vs plain,", got, want, f32,
                            torch).values())
 
 
@@ -1175,6 +1214,267 @@ def resample_phase(torch, np, card, dev, tmp, sh):
     ]
 
 
+def dex_phase(torch, np, card, dev, tmp):
+    """Phase 14, Dex-NeRF on messytable: write a synthetic messytable scene
+    (stored 540x960, loaded at the real scene's 270x480) with the port's
+    writer, train ``configs/messytable-obj.yml`` on it through
+    ``apps.train --ir --dex --depth-loss --depth-warmup`` (kernel 4's bf16
+    route with its luminance and depth terms; validation through kernel
+    1's bf16 route at T = 20) and check the launches, the warmup, the
+    validation's depth metrics and artifacts; hold kernel 4's bf16 route
+    with both terms on to its plain version on one batch of the run, both
+    passes; time both passes, a depth-supervised step (host clock and
+    profile) and the validation frame (kernel 1 held to its plain versions
+    there on the run's weights with σ heads calibrated as in phase 3).
+    Returns the two kernels-line entries of this path."""
+    import copy
+
+    from dexnerf_tpu_torch.config import load_config, render_settings_from_cfg
+    from dexnerf_tpu_torch.core.encoding import positional_encoding
+    from dexnerf_tpu_torch.core.rays import get_ray_bundle_w2c
+    from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals, stratified_z_vals
+    from dexnerf_tpu_torch.core.volrend import ray_dists
+    from dexnerf_tpu_torch.data.pipeline import build_ray_store, take_depth, take_ray_batch
+    from dexnerf_tpu_torch.data.synthetic import write_messytable_dataset
+    from dexnerf_tpu_torch.ops import fused_render as fr
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+    from dexnerf_tpu_torch.render.renderer import (
+        draw_render_noise,
+        jittered_z_vals,
+        make_ray_batch,
+        render_image,
+    )
+    from dexnerf_tpu_torch.train.logging import load_depth_png_mm
+    from dexnerf_tpu_torch.train.loop import load_scene, validate
+    from dexnerf_tpu_torch.train.step import init_train_state, make_train_step
+
+    # ---- the entry point: 20 steps, the depth term from step DEX_WARMUP
+    t0 = time.perf_counter()
+    data = os.path.join(tmp, "messytable")
+    write_messytable_dataset(data, *DEX_STORED_HW, DEX_VIEWS, device=dev)
+    dataset_s = time.perf_counter() - t0
+    cfg_path, logdir, counts, losses, val_psnr, secs, peak_gb = train_cli(
+        tmp, data, "messytable-dex", DEX_ITERS, torch, dev, config=CONFIG,
+        dataset={"depth_valid_max": DEX_VALID_MAX},
+        flags=["--ir", "--dex", "--depth-loss", str(DEX_WEIGHT), "--depth-warmup",
+               str(DEX_WARMUP)],
+        use_pallas=True)
+    cfg = load_config(cfg_path)
+    thresholds = tuple(render_settings_from_cfg(cfg, "validation", dex=True).m_thres_cand)
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    tags = {r["tag"] for r in recs}
+    depth_loss = {r["step"]: r["value"] for r in recs if r["tag"] == "train/depth_loss"}
+    val_depth = {r["tag"]: r["value"] for r in recs if r["tag"] in DEX_VAL_TAGS}
+    png = os.path.join(logdir, "pred_depth", f"pred_depth_step_{DEX_ITERS - 1}.png")
+    depth_png = load_depth_png_mm(png) if os.path.exists(png) else None
+    out_hw = (DEX_STORED_HW[0] // 2, DEX_STORED_HW[1] // 2)
+    print(f"phase 14: messytable-obj ({out_hw[0]}x{out_hw[1]}, {DEX_VIEWS[0]} train views, "
+          f"written in {dataset_s:.2f} s), "
+          f"--ir --dex --depth-loss {DEX_WEIGHT} --depth-warmup {DEX_WARMUP}: {DEX_ITERS} steps "
+          f"in {secs:.2f} s; launches {json.dumps(counts)}; peak {peak_gb:.2f} GiB; loss first "
+          f"{losses[0]:.5f} last {losses[-1]:.5f}; depth_loss "
+          + json.dumps({k: round(v, 6) for k, v in sorted(depth_loss.items())})
+          + f"; validation psnr {val_psnr}, last depth metrics {json.dumps(val_depth)}")
+    n_val = len(val_psnr)
+    run_checks("Dex-NeRF on messytable", {
+        f"kernel 4's bf16 route launched {2 * DEX_ITERS} times, its f32 route never":
+            counts["fused_train_loss_bf16"] == 2 * DEX_ITERS
+            and counts["fused_train_loss"] == counts["fused_train_loss_bf16"],
+        # the loop validates at iteration 0 and at the last (as the JAX loop)
+        "validations at steps 0 and last, each 2 launches of kernel 1's bf16 route":
+            n_val == 2 and counts["fused_render_bf16"] == 2 * n_val == counts["fused_render"],
+        f"{DEX_ITERS} finite losses": len(losses) == DEX_ITERS
+        and bool(np.isfinite(losses).all()),
+        f"train/depth_loss absent before step {DEX_WARMUP}, finite from it":
+            sorted(depth_loss) == list(range(DEX_WARMUP, DEX_ITERS))
+            and bool(np.isfinite(list(depth_loss.values())).all()),
+        "validation/{depth_abs_err,depth_err4,min_abs_err,err4} logged, finite":
+            set(val_depth) == set(DEX_VAL_TAGS)
+            and bool(np.isfinite(list(val_depth.values())).all()),
+        f"{len(thresholds)} depth_pred_<m> images, depth_pred_err, depth_gt":
+            len(thresholds) == 20
+            and all(f"validation/depth_pred_{int(m)}" in tags for m in thresholds)
+            and {"validation/depth_pred_err", "validation/depth_gt"} <= tags,
+        f"pred_depth PNG reads back at {out_hw[0]}x{out_hw[1]}": depth_png is not None
+        and depth_png.shape == out_hw and bool(np.isfinite(depth_png).all()),
+    })
+
+    # ---- kernel 4's bf16 route with luminance + depth vs plain, one batch of the run
+    cfg, coarse, fine, _ = run_models(cfg_path, logdir, DEX_ITERS, dev)
+    scene = load_scene(cfg)
+    s_train = render_settings_from_cfg(cfg, "train")
+    batch = int(cfg.nerf.train.num_random_rays)
+    near, far = float(cfg.dataset.near), float(cfg.dataset.far)
+    tr = scene.i_train
+    store = build_ray_store(scene.images[tr], scene.poses[tr], scene.hwf, near, far, device=dev,
+                            intrinsics=scene.intrinsics[tr], depths=scene.depths[tr])
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    idx = torch.randint(0, store.num_rays, (batch,), generator=gen, device=dev)
+    rays, target = take_ray_batch(store, idx)
+    depth_gt = take_depth(store, idx).contiguous()
+    draws = draw_render_noise(batch, s_train, gen, dev)
+    o, d, v = (t.contiguous() for t in rays[:3])
+    target = target.contiguous()
+    norm = float(batch)  # luminance: one channel a ray
+    mask = ((depth_gt > 0) & (depth_gt < DEX_VALID_MAX)).to(torch.float32)
+    dcoef = (norm * DEX_WEIGHT / torch.clamp(mask.sum(), min=1.0)) * mask
+    kw = dict(supervision="luminance", white_background=s_train.white_background)
+    z_c = jittered_z_vals(rays, s_train, draws)
+    passes = {"coarse": (coarse, z_c, draws.noise_coarse)}
+    per_pass, worst_t = {}, 0.0
+    print(f"phase 14: kernel 4 bf16 route, luminance + depth on both passes, {batch} rays "
+          f"({int(mask.sum())} with valid GT depth):")
+    for name in ("coarse", "fine"):
+        model, z, noise = passes[name]
+        args = (model, o, d, z, v, ray_dists(z, d), noise, target, depth_gt, dcoef)
+        want = ftl.fused_pass_loss_reference(*args, **kw)
+        worst_t = max(worst_t, check_train_bf16(name, model, args, norm, want, torch, phase=14,
+                                                **kw))
+        per_pass[name] = args
+        if name == "coarse":
+            z_f, _ = hierarchical_z_vals(z_c, want[1], s_train.num_fine, det=False, u=draws.u_fine)
+            passes["fine"] = (fine, z_f, draws.noise_fine)
+    print_fwd_plan("kernel 4 (messytable)", fine,
+                   {k: tuple(a[3].shape) for k, a in per_pass.items()}, ftl.SCRATCH_SAMPLES,
+                   torch, dev)
+    print_dw_plan(fine, *per_pass["fine"][3].shape, torch, dev)
+
+    # ---- times: both passes, a depth-supervised step
+    ms, gemms = {}, []
+    bf = dict(kw, compute_dtype=torch.bfloat16, dw_dtype=torch.bfloat16)
+    for name, args in per_pass.items():
+        ms[f"{name}_kernel"] = timed_ms(lambda: ftl.fused_pass_loss(*args, **bf), torch)
+        ms[f"{name}_plain"] = timed_ms(lambda: ftl.fused_pass_loss_reference(*args, **bf), torch)
+        gemms += dw_gemm_operands(args[0], args[3].numel(), torch, dev)
+    ms["dw_torch_matmul"] = timed_ms(lambda: [torch.matmul(a.t(), b) for a, b in gemms], torch)
+    del gemms
+    flops, _, byts_b, _ = kernel4_sizes(per_pass, dev)
+    train_bound, train_bound_by = bound(flops, byts_b, BF16_FLOPS)
+    st = init_train_state(copy.deepcopy(coarse), copy.deepcopy(fine), float(cfg.optimizer.lr))
+    fused = ftl.make_fused_train_loss(
+        st.coarse, st.fine, s_train, supervision="luminance", depth_loss_weight=DEX_WEIGHT,
+        depth_valid_max=DEX_VALID_MAX, compute_dtype=torch.bfloat16, dw_dtype=torch.bfloat16)
+    step = make_train_step(s_train, batch, supervision="luminance", fused_loss=fused,
+                           depth_loss_weight=DEX_WEIGHT, depth_valid_max=DEX_VALID_MAX)
+
+    def run_step():
+        return step(st, store, gen)
+
+    run_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        metrics = run_step()
+    torch.cuda.synchronize()
+    ms["step"] = 1e3 * (time.perf_counter() - t0) / 5
+    if not all(bool(torch.isfinite(t)) for t in metrics.values()):
+        raise AssertionError(f"phase 14: non-finite step metrics {metrics}")
+    print("  depth-supervised steps:")
+    prof = profile_steps(torch, run_step, {"kernel 4 bf16": KERNEL4_BF16_NAMES})
+    parts, sizes = bf16_parts(prof, 4, [(a[0], a[3].numel()) for a in per_pass.values()],
+                              ms["dw_torch_matmul"])
+
+    # ---- the validation frame: kernel 1's bf16 route at T = 20 vs its plain versions
+    s_val = render_settings_from_cfg(cfg, "validation", dex=True).eval_variant()
+    H, W = int(scene.hwf[0]), int(scene.hwf[1])
+    vi = int(scene.i_val[0])
+    ro, rd = get_ray_bundle_w2c(H, W, torch.as_tensor(scene.poses[vi], device=dev),
+                                torch.as_tensor(scene.intrinsics[vi], device=dev))
+    vrays = make_ray_batch(ro, rd, near, far)
+    vo, vd, vv = (t.contiguous() for t in vrays[:3])
+    vc, vf = copy.deepcopy(coarse), copy.deepcopy(fine)
+    zc = stratified_z_vals(vrays.near, vrays.far, s_val.num_coarse)
+    sub = slice(0, None, 40)
+    for m in (vc, vf):
+        pts = vo[sub, None] + vd[sub, None] * zc[sub, :, None]
+        calibrate_sigma_head(m, positional_encoding(pts, m.num_encoding_fn_xyz),
+                             positional_encoding(vv[sub], m.num_encoding_fn_dir), torch)
+    rkw = dict(white_background=s_val.white_background)
+    bkw = dict(rkw, compute_dtype=torch.bfloat16)
+    with torch.inference_mode():
+        dc = ray_dists(zc, vd)
+        args_c = (vc, vo, vd, vv, zc, dc)
+        print(f"phase 14: validation frame {H}x{W}, T = {len(thresholds)}, kernel 1 bf16 vs "
+              f"bf16 plain and vs f32 plain (BF16_* as phase 3):")
+        want_c = fr.fused_render_reference(*args_c, **bkw)
+        err_r = compare_bf16("messytable coarse", fr.fused_render(*args_c, **bkw), want_c,
+                             fr.fused_render_reference(*args_c, **rkw), torch)
+        zf, _ = hierarchical_z_vals(zc, want_c.weights, s_val.num_fine, det=True)
+        df = ray_dists(zf, vd)
+        args_f = (vf, vo, vd, vv, zf, df)
+        got_f = fr.fused_render(*args_f, thresholds=thresholds, **bkw)
+        want_f = fr.fused_render_reference(*args_f, thresholds=thresholds, **bkw)
+        err_r = max(err_r, compare_bf16("messytable fine", got_f, want_f, fr.fused_render_reference(
+            *args_f, thresholds=thresholds, **rkw), torch))
+        dex_eq = float((got_f.depth_dex == want_f.depth_dex).float().mean())
+        hit = float((want_f.depth_dex != zf[None, :, 0]).float().mean())
+        print(f"  dex: bf16 kernel = bf16 plain on {dex_eq:.6f} of {got_f.depth_dex.numel()} "
+              f"pairs (limit {BF16_DEX_SHARE}); past sample 0 on {hit:.3f} of them")
+        if dex_eq < BF16_DEX_SHARE:
+            raise AssertionError(f"phase 14: bf16 dex depths equal on only {dex_eq:.6f}")
+        for name, args, th in (("coarse", args_c, ()), ("fine", args_f, thresholds)):
+            ms[f"frame_{name}_kernel"] = timed_ms(
+                lambda: fr.fused_render(*args, thresholds=th, **bkw), torch)
+            ms[f"frame_{name}_plain"] = timed_ms(
+                lambda: fr.fused_render_reference(*args, thresholds=th, **bkw), torch)
+        impl = fr.make_fused_render_rays(vc, vf, s_val, compute_dtype=torch.bfloat16)
+        ms["frame"] = timed_ms(
+            lambda: render_image(vc, vf, ro, rd, near, far, s_val, rays_impl=impl), torch)
+        r_flops = r_bytes = 0
+        for m, z, dz, g in ((vc, zc, dc, None), (vf, zf, df, got_f)):
+            ps, pr = mlp_macs(m)
+            r_flops += 2 * (z.numel() * ps + z.shape[0] * pr)
+            # in: rays, depths, intervals, the bf16 pack; out: rgb, disparity,
+            # accumulation, depth, weights (and the fine pass's Dex depths)
+            r_bytes += (nbytes(vo, vd, vv, z, dz, *fr.pack_flex_weights_bf16(m)[:2]) + 4 * z.numel()
+                        + 4 * 6 * z.shape[0] + (nbytes(g.depth_dex) if g is not None else 0))
+        render_bound, render_bound_by = bound(r_flops, r_bytes, BF16_FLOPS)
+        profile_steps(torch, lambda: render_image(vc, vf, ro, rd, near, far, s_val,
+                                                  rays_impl=impl),
+                      {"kernel 1 bf16": ("fused_render_bf16_kernel",)}, unit="frame")
+    t0 = time.perf_counter()
+    val = validate(coarse, fine, scene, cfg, supervision="luminance", device=dev, dex=True)
+    torch.cuda.synchronize()
+    ms["validate"] = 1e3 * (time.perf_counter() - t0)
+    print(f"phase 14: ms on {card} (passes and frame: CUDA events, mean of 3; step: host clock "
+          f"around synchronize, mean of 5; validate: host clock, one call on the run's "
+          f"weights, best threshold {val.get('best_threshold')}): "
+          + json.dumps({k: round(t, 3) for k, t in ms.items()}))
+    print(f"  kernel 4 bound for both passes {train_bound:.3f} ms ({train_bound_by}; "
+          f"{flops / 1e12:.4f} TFLOP, {byts_b / 1e6:.2f} MB); its kernels, device ms per step "
+          f"(profile) beside their bounds: " + json.dumps(parts) + "; sizes " + json.dumps(sizes))
+    print(f"  kernel 1 bound for the frame's two passes {render_bound:.3f} ms ({render_bound_by}; "
+          f"{r_flops / 1e12:.4f} TFLOP, {r_bytes / 1e6:.2f} MB); rays/s per step "
+          f"{round(batch / (ms['step'] / 1e3))}")
+    return [{
+        "name": "fused_train_loss_bf16@messytable-dex",
+        "route": "cuda",
+        "source": "dexnerf_tpu_torch/ops/csrc/fused_train_loss_bf16.cu",
+        "replaces": "dexnerf_tpu/ops/fused_train_loss.py:99",
+        "launches": counts["fused_train_loss_bf16"],
+        "max_abs_err": worst_t,
+        "ms": ms["coarse_kernel"] + ms["fine_kernel"],
+        "plain_ms": ms["coarse_plain"] + ms["fine_plain"],
+        "bound_ms": train_bound,
+        "bound_by": train_bound_by,
+        "library_ms": ms["dw_torch_matmul"],
+        "parts": parts,
+    }, {
+        "name": "fused_render_bf16@messytable-dex",
+        "route": "cuda",
+        "source": "dexnerf_tpu_torch/ops/csrc/fused_render_bf16.cu",
+        "replaces": "dexnerf_tpu/ops/fused_render.py:115",
+        "launches": counts["fused_render_bf16"],
+        "max_abs_err": err_r,
+        "ms": ms["frame_coarse_kernel"] + ms["frame_fine_kernel"],
+        "plain_ms": ms["frame_coarse_plain"] + ms["frame_fine_plain"],
+        "bound_ms": render_bound,
+        "bound_by": render_bound_by,
+        "library_ms": None,
+    }]
+
+
 def profile_steps(torch, step, kernels_of, n=3, unit="step"):
     """Device time of ``n`` train steps (or other ``unit``s) by part: each entry of
     ``kernels_of`` (label -> kernel name fragments), Adam (the foreach
@@ -1549,6 +1849,7 @@ def main() -> int:
         train_kernels, shared = train_phase(torch, np, card, dev, tmp)
         field_kernels = field_phase(torch, np, card, dev, tmp, shared)
         resample_kernels = resample_phase(torch, np, card, dev, tmp, shared)
+        dex_kernels = dex_phase(torch, np, card, dev, tmp)
     render = dict(route="cuda", replaces="dexnerf_tpu/ops/fused_render.py:115", library_ms=None)
     print(json.dumps({"kernels": [{
         "name": "fused_render",
@@ -1570,7 +1871,7 @@ def main() -> int:
         "plain_ms": ms["coarse_plain_bf16"] + ms["fine_plain_bf16"],
         "bound_ms": bf16_bound,
         "bound_by": bf16_bound_by,
-    }, *train_kernels, *field_kernels, *resample_kernels]}))
+    }, *train_kernels, *field_kernels, *resample_kernels, *dex_kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

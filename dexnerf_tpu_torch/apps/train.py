@@ -5,13 +5,18 @@ Counterpart of ``dexnerf_tpu/apps/train.py``:
     python -m dexnerf_tpu_torch.apps.train --config configs/lego-tpu.yml --device cuda
     python -m dexnerf_tpu_torch.apps.train --config ... --ir          # luminance loss
     python -m dexnerf_tpu_torch.apps.train --config ... --load-checkpoint model.ckpt
+    python -m dexnerf_tpu_torch.apps.train --config configs/messytable-obj.yml \
+        --ir --dex --depth-loss 0.1 --depth-warmup 1000   # Dex-NeRF on messytable
 
 With ``nerf.use_pallas`` every render pass of every step goes through the
 fused train-loss kernel (with ``nerf.pallas_loss_resample: pallas``, the
 resample between the passes through the fused resample kernel), or, with
 ``nerf.pallas_fused_loss: false``, through the fused field kernels
-(forward and backward). The flags of modes that are not ported yet are
-accepted and raise ``NotImplementedError`` naming the ROADMAP item.
+(forward and backward). ``--dex`` validates with the σ-threshold depth
+sweep; ``--depth-loss`` / ``--depth-warmup`` supervise the expected depth
+with the dataset's GT depth (inside the fused train-loss kernel when it
+runs). The flags of modes that are not ported yet are accepted and raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -20,9 +25,6 @@ import argparse
 
 # flag -> the ROADMAP.md item that ports it
 UNPORTED = {
-    "dex": "Queue 1 item 2, the open training modes (--dex)",
-    "depth_loss": "Queue 1 item 2, the open training modes (--depth-loss)",
-    "depth_warmup": "Queue 1 item 2, the open training modes (--depth-warmup)",
     "sg_ir": "Queue 1 item 10, `models/sg.py` + `render/sg_ir.py`",
     "pose_opt": "Queue 1 item 9, `core/lie.py` + `train/pose_opt.py`",
     "occupancy": "Queue 1 item 8, `render/occupancy.py`",
@@ -55,15 +57,29 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--ir", action="store_true", help="Rec.601-luminance MSE instead of RGB MSE")
     p.add_argument(
+        "--dex", action="store_true",
+        help="Dex-NeRF validation: sigma-threshold depth sweep, the threshold of least "
+        "abs error kept",
+    )
+    p.add_argument(
+        "--depth-loss", type=float, default=None,
+        help="GT-depth supervision weight: adds weight * masked depth MSE of the expected "
+        "depth (valid mask 0 < d < depth_valid_max of nerf.train, else of the dataset); "
+        "overrides cfg.nerf.train.depth_loss_weight",
+    )
+    p.add_argument(
+        "--depth-warmup", type=int, default=None, metavar="N",
+        help="with --depth-loss: the first N iterations without the depth term (-1: until "
+        "the train PSNR passes nerf.train.depth_warmup_psnr, default 14 dB); overrides "
+        "cfg.nerf.train.depth_warmup",
+    )
+    p.add_argument(
         "--device", type=str, default="cuda", choices=("cuda", "cpu"),
         help="where the models train (default: the card)",
     )
     # modes not ported yet: accepted so that they fail loudly
-    p.add_argument("--dex", action="store_true", help="not ported yet")
     p.add_argument("--sg-ir", action="store_true", help="not ported yet")
     p.add_argument("--pose-opt", action="store_true", help="not ported yet")
-    p.add_argument("--depth-loss", type=float, default=None, help="not ported yet")
-    p.add_argument("--depth-warmup", type=int, default=None, help="not ported yet")
     p.add_argument("--occupancy", type=float, default=None, help="not ported yet")
     p.add_argument("--num-devices", type=int, default=None, help="not ported yet")
     return p
@@ -81,12 +97,15 @@ def main(argv=None) -> int:
 
     out = run_training(
         load_config(args.config),
+        dex=args.dex,
         supervision="luminance" if args.ir else "rgb",
         load_ckpt=args.load_checkpoint or None,
         auto_resume=args.auto_resume,
         max_iters=args.max_iters,
         sampling=args.sampling,
         steps_per_call=args.steps_per_call,
+        depth_loss_weight=args.depth_loss,
+        depth_warmup=args.depth_warmup,
         device=args.device,
     )
     print(

@@ -5,7 +5,7 @@ from dexnerf_tpu_torch.core.encoding import (
     frequency_bands,
     positional_encoding,
 )
-from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w, pixel_grid
+from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w, get_ray_bundle_w2c, pixel_grid
 from dexnerf_tpu_torch.core.sampling import (
     hierarchical_z_vals,
     linspace,
@@ -34,6 +34,7 @@ __all__ = [
     "encoding_dim",
     "frequency_bands",
     "get_ray_bundle_c2w",
+    "get_ray_bundle_w2c",
     "hierarchical_z_vals",
     "linspace",
     "pixel_grid",

@@ -1,14 +1,18 @@
-"""Image quality metrics: MSE, PSNR, SSIM and the Rec.601 luminance of
-IR supervision.
+"""Image and depth quality metrics: MSE, PSNR, SSIM, the Rec.601
+luminance of IR supervision, the depth errors in millimeters and their
+colormapped image.
 
-Counterpart of the image half of ``dexnerf_tpu/core/metrics.py`` (the
-depth-error metrics and colormaps come with ``apps/eval.py``).
+Counterpart of ``dexnerf_tpu/core/metrics.py``: the depth metrics are the
+reference's ``train_utils.py:9-70`` (torch on the metric side, numpy for
+the error image).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -86,3 +90,64 @@ def ssim(
     num = (2.0 * mu_a * mu_b + c1) * (2.0 * cov + c2)
     den = (mu_a**2 + mu_b**2 + c1) * (var_a + var_b + c2)
     return torch.mean(num / den)
+
+
+def compute_err_metric(depth_gt, depth_pred, mask) -> Dict[str, float]:
+    """Depth metrics over the pixels of ``mask`` (reference
+    ``train_utils.py:9-30``), in float32: ``depth_abs_err`` and
+    ``depth_rmse`` in millimeters, and ``depth_err{2,4,8}``, the fraction
+    of masked pixels whose |error| exceeds 2/4/8 mm (the denominator is the
+    number of masked pixels, at least 1). An empty mask gives NaN errors
+    and fractions 0.0, as the JAX package's unguarded mean does."""
+    gt = torch.as_tensor(depth_gt).to(torch.float32)
+    pred = torch.as_tensor(depth_pred, device=gt.device).to(torch.float32)
+    mask = torch.as_tensor(mask, device=gt.device).to(torch.bool)
+    gt, pred = gt[mask], pred[mask]
+    diff = torch.abs(gt - pred)
+    n = max(int(diff.numel()), 1)
+    return {
+        "depth_abs_err": float(torch.mean(torch.abs(pred - gt)) * 1000.0),
+        "depth_rmse": float(torch.sqrt(torch.mean((pred - gt) ** 2)) * 1000.0),
+        "depth_err2": float(torch.sum(diff > 2e-3)) / n,
+        "depth_err4": float(torch.sum(diff > 4e-3)) / n,
+        "depth_err8": float(torch.sum(diff > 8e-3)) / n,
+    }
+
+
+def gen_error_colormap_depth() -> np.ndarray:
+    """11-band [lo, hi, r, g, b] colormap table (reference
+    ``train_utils.py:31-45``), bands in millimeters."""
+    bands = [0.0, 0.00001] + [2000.0 / 2**k for k in range(10, 1, -1)] + [np.inf]
+    colors = [
+        (0, 0, 0), (49, 54, 149), (69, 117, 180), (116, 173, 209), (171, 217, 233),
+        (224, 243, 248), (254, 224, 144), (253, 174, 97), (244, 109, 67), (215, 48, 39),
+        (165, 0, 38),
+    ]
+    cols = np.array([[bands[i], bands[i + 1], *c] for i, c in enumerate(colors)],
+                    dtype=np.float32)
+    cols[:, 2:5] /= 255.0
+    return cols
+
+
+def depth_error_img(
+    depth_est: np.ndarray, depth_gt: np.ndarray, mask: np.ndarray, abs_thres: float = 1.0
+) -> np.ndarray:
+    """Colormapped |error| image [H, W, 3] (reference
+    ``train_utils.py:46-70``). Inputs are batched [B, H, W]; the first
+    element is returned, with the legend (one 20-pixel swatch per band)
+    stamped into its top 10 rows."""
+    depth_gt = np.asarray(depth_gt)
+    depth_est = np.asarray(depth_est)
+    mask = np.asarray(mask)
+    B, H, W = depth_gt.shape
+    error = np.abs(depth_gt - depth_est)
+    error[np.logical_not(mask)] = 0
+    error[mask] = error[mask] / abs_thres
+    cols = gen_error_colormap_depth()
+    error_image = np.zeros([B, H, W, 3], dtype=np.float32)
+    for i in range(cols.shape[0]):
+        error_image[np.logical_and(error >= cols[i][0], error < cols[i][1])] = cols[i, 2:]
+    error_image[np.logical_not(mask)] = 0.0
+    for i in range(cols.shape[0]):
+        error_image[:, :10, i * 20:(i + 1) * 20, :] = cols[i, 2:]
+    return error_image[0]

@@ -1,4 +1,5 @@
-"""Datasets: the blender loader, synthetic scenes, the device ray store."""
+"""Datasets: the blender and messytable loaders, synthetic scenes, the
+device ray store."""
 
 from dexnerf_tpu_torch.data.blender import (
     load_blender_data,
@@ -8,6 +9,7 @@ from dexnerf_tpu_torch.data.blender import (
     rotate_theta_y,
     translate_z,
 )
+from dexnerf_tpu_torch.data.messytable import load_messytable_data
 from dexnerf_tpu_torch.data.pipeline import (
     RayStore,
     build_ray_store,
@@ -20,6 +22,7 @@ from dexnerf_tpu_torch.data.synthetic import (
     make_synthetic_scene,
     render_analytic_image,
     write_blender_dataset,
+    write_messytable_dataset,
 )
 
 __all__ = [
@@ -28,6 +31,7 @@ __all__ = [
     "build_ray_store",
     "load_blender_data",
     "load_blender_depths",
+    "load_messytable_data",
     "make_synthetic_scene",
     "pose_spherical",
     "render_analytic_image",
@@ -38,4 +42,5 @@ __all__ = [
     "take_ray_batch",
     "translate_z",
     "write_blender_dataset",
+    "write_messytable_dataset",
 ]

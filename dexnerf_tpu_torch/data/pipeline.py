@@ -1,7 +1,7 @@
 """Device-resident ray store and batch sampling.
 
-Counterpart of ``dexnerf_tpu/data/pipeline.py`` (camera-to-world rays,
-no NDC): ray generation runs once over all training images and the rays
+Counterpart of ``dexnerf_tpu/data/pipeline.py`` (camera-to-world rays, or
+world-to-camera rays with intrinsics; no NDC): ray generation runs once over all training images and the rays
 live on the device as one [N_rays, 12] float32 tensor (origin 3,
 direction 3, viewdir 3, rgb 3). Each step gathers a batch of rows by
 index. Index draws come from a ``torch.Generator`` on the store's device,
@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w
+from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w, get_ray_bundle_w2c
 from dexnerf_tpu_torch.render.renderer import RayBatch
 
 
@@ -52,15 +52,22 @@ def build_ray_store(
     far: float,
     *,
     device,
+    intrinsics: Optional[np.ndarray] = None,
     depths: Optional[np.ndarray] = None,
 ) -> RayStore:
-    """Generate and pack the rays of every image (c2w poses [N, 4, 4]) on
-    ``device``. ``depths`` [N, H, W] attaches ray-aligned GT depth."""
+    """Generate and pack the rays of every image on ``device``. ``poses``
+    are c2w [N, 4, 4] unless ``intrinsics`` [N, 3, 3] is given; then they
+    are w2c and each view's rays come from its full K (the messytable
+    convention). ``depths`` [N, H, W] attaches ray-aligned GT depth."""
     H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
     rows = []
-    for img, pose in zip(images, poses):
-        c2w = torch.as_tensor(np.asarray(pose, np.float32)[:4, :4], device=device)
-        ro, rd = get_ray_bundle_c2w(H, W, focal, c2w)
+    for k, (img, pose) in enumerate(zip(images, poses)):
+        pose = torch.as_tensor(np.asarray(pose, np.float32)[:4, :4], device=device)
+        if intrinsics is not None:
+            K = torch.as_tensor(np.asarray(intrinsics[k], np.float32), device=device)
+            ro, rd = get_ray_bundle_w2c(H, W, pose, K)
+        else:
+            ro, rd = get_ray_bundle_c2w(H, W, focal, pose)
         viewdirs = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
         rgb = torch.as_tensor(np.asarray(img[..., :3], np.float32), device=device)
         rows.append(

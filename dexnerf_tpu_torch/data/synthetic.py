@@ -1,22 +1,25 @@
 """Procedural synthetic scenes: self-contained data for tests and smoke runs.
 
-Counterpart of the blender half of ``dexnerf_tpu/data/synthetic.py``: an
-analytic emission-absorption field (soft spheres, optional shells and
-planes) rendered with the port's own compositor gives ground-truth posed
-images, and :func:`write_blender_dataset` lays them out on disk in the
-blender format (transforms JSONs + PNGs written with PIL) for the loader.
+Counterpart of ``dexnerf_tpu/data/synthetic.py``: an analytic
+emission-absorption field (soft spheres, optional shells and planes)
+rendered with the port's own compositor gives ground-truth posed images,
+and :func:`write_blender_dataset` / :func:`write_messytable_dataset` lay
+them out on disk in the blender format (transforms JSONs + PNGs) and the
+messytable format (``meta.pkl`` + gray PNG + uint16 millimeter depth PNG),
+written with PIL, for the loaders.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pickle
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w
+from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w, get_ray_bundle_w2c
 from dexnerf_tpu_torch.core.sampling import linspace
 from dexnerf_tpu_torch.core.volrend import volume_render_radiance_field
 from dexnerf_tpu_torch.data.blender import pose_spherical
@@ -177,3 +180,53 @@ def write_blender_dataset(
             idx += 1
         with open(os.path.join(basedir, f"transforms_{split}.json"), "w") as f:
             json.dump({"camera_angle_x": float(camera_angle_x), "frames": frames}, f)
+
+
+def write_messytable_dataset(
+    basedir: str,
+    height: int = 32,
+    width: int = 32,
+    views_per_split=(2, 1, 1),
+    imgname: str = "0128_irL_kuafu_half.png",
+    device="cpu",
+) -> None:
+    """Write a messytable-format dataset of the analytic scene, whose
+    geometry holds end to end with the loader and the trainer: the loader
+    halves the stored resolution and keeps the meta intrinsics, and the
+    trainer unprojects with ``get_ray_bundle_w2c`` through them. So the
+    ground truth is rendered on ``device`` along exactly those rays at the
+    loader's output size (``height // 2`` x ``width // 2``) and stored at 2x
+    by a nearest upsample, and ``meta.pkl`` holds the w2c and the K at
+    output resolution. Poses are the w2c of an OpenCV-convention camera
+    (the blender orbit's c2w with its y and z axes flipped, so +z looks at
+    the scene), views evenly spaced in azimuth at elevation -30 and radius
+    4; the image is the 8-bit gray mean of the rgb, the depth a uint16
+    millimeter PNG, as in the real format."""
+    from PIL import Image
+
+    h_out, w_out = height // 2, width // 2
+    focal = 1.2 * w_out
+    K = np.array([[focal, 0, w_out / 2.0], [0, focal, h_out / 2.0], [0, 0, 1]], dtype=np.float64)
+    flip = np.diag([1.0, -1.0, -1.0, 1.0])
+    total = sum(views_per_split)
+    idx = 0
+    for split, n in zip(["train", "val", "test"], views_per_split):
+        for k in range(n):
+            d = os.path.join(basedir, split, f"scene-{k}")
+            os.makedirs(d, exist_ok=True)
+            theta = -180 + 360.0 * (idx / float(total))
+            c2w = pose_spherical(theta, -30.0, 4.0).astype(np.float64) @ flip
+            w2c = np.linalg.inv(c2w)
+            ro, rd = get_ray_bundle_w2c(
+                h_out, w_out, torch.as_tensor(w2c, dtype=torch.float32, device=device),
+                torch.as_tensor(K, dtype=torch.float32, device=device),
+            )
+            rgb, depth = render_analytic_rays(ro, rd)
+            gray = (np.clip(rgb.mean(-1), 0, 1) * 255).astype(np.uint8)
+            depth_mm = (depth * 1000).astype(np.uint16)
+            for img, name in ((gray, imgname), (depth_mm, "depthL.png")):
+                Image.fromarray(np.repeat(np.repeat(img, 2, axis=0), 2, axis=1)).save(
+                    os.path.join(d, name))
+            with open(os.path.join(d, "meta.pkl"), "wb") as f:
+                pickle.dump({"extrinsic_l": w2c, "intrinsic_l": K}, f)
+            idx += 1

@@ -1058,6 +1058,7 @@ def make_fused_train_loss(
     *,
     supervision: str = "rgb",
     depth_loss_weight: float = 0.0,
+    depth_valid_max: Optional[float] = None,
     resample: str = "auto",
     compute_dtype: torch.dtype = torch.float32,
     dw_dtype: Optional[torch.dtype] = None,
@@ -1079,8 +1080,8 @@ def make_fused_train_loss(
     ``ray_dists``), as "auto" resolves in JAX.
     Each pass's loss is normalized by N·3 (rgb) or N (luminance).
     ``depth_loss_weight`` > 0 adds ``weight * masked MSE`` of the expected
-    depth against ``depth_gt`` inside the kernel (valid mask ``gt > 0``),
-    on the fine pass (coarse when there is no
+    depth against ``depth_gt`` inside the kernel (valid mask ``gt > 0``,
+    and ``gt < depth_valid_max`` when that is given), on the fine pass (coarse when there is no
     fine model); ``loss_fn.supports_depth`` says whether it does."""
     s = settings
     if not s.use_viewdirs:
@@ -1117,7 +1118,10 @@ def make_fused_train_loss(
         dcoef = mask = n_valid = None
         if use_depth:
             depth_gt = depth_gt.reshape(n).to(torch.float32).contiguous()
-            mask = (depth_gt > 0.0).to(torch.float32)
+            mask = depth_gt > 0.0
+            if depth_valid_max is not None:
+                mask = mask & (depth_gt < depth_valid_max)
+            mask = mask.to(torch.float32)
             n_valid = torch.clamp(torch.sum(mask), min=1.0)
             # premultiplied: the kernel's sum divided by norm is weight * masked MSE
             dcoef = (norm * depth_loss_weight / n_valid) * mask

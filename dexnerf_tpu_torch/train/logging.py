@@ -1,9 +1,9 @@
-"""Experiment metrics as a JSON-lines stream.
+"""Experiment metrics as a JSON-lines stream, and depth PNGs.
 
-Counterpart of ``dexnerf_tpu/train/logging.py::MetricsLogger`` with
-TensorBoard off: every scalar is one line ``{"tag", "value", "step",
+Counterpart of ``dexnerf_tpu/train/logging.py``: ``MetricsLogger`` with
+TensorBoard off (every scalar is one line ``{"tag", "value", "step",
 "t"}`` of ``<logdir>/metrics.jsonl``; an image is recorded by its tag and
-shape.
+shape) and the millimeter depth PNGs of validation.
 """
 
 from __future__ import annotations
@@ -48,3 +48,20 @@ class MetricsLogger:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def save_depth_png_mm(path: str, depth_m: np.ndarray) -> None:
+    """Save a depth map (meters) as a 32-bit millimeter PNG (PIL mode "I"),
+    the reference's validation artifact (``train_nerf_rgb.py:395-399``)."""
+    from PIL import Image
+
+    mm = (np.asarray(depth_m) * 1000.0).astype(np.uint32)
+    Image.fromarray(mm.astype(np.int32)).save(path)
+
+
+def load_depth_png_mm(path: str) -> np.ndarray:
+    """Inverse of :func:`save_depth_png_mm`: meters, float32."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im, dtype=np.float32) / 1000.0

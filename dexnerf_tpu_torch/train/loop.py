@@ -1,12 +1,14 @@
 """Training loop, model set-up and checkpoint loading.
 
 Counterpart of ``dexnerf_tpu/train/loop.py`` for single-device training on
-a device-resident ray store: ``load_scene`` (blender), ``maybe_fused_loss``
-(kernel 4 at ``train_compute_dtype``, and kernel 5 between its passes,
-when ``nerf.use_pallas``),
+a device-resident ray store: ``load_scene`` (blender, messytable),
+``maybe_fused_loss`` (kernel 4 at ``train_compute_dtype``, with the depth
+term when asked, and kernel 5 between its passes, when ``nerf.use_pallas``),
 ``maybe_fused_fields`` (kernels 2 and 3 at ``train_compute_dtype`` when
-``nerf.pallas_fused_loss`` is false), ``validate`` (through the fused render kernel), ``run_training``,
-and what serving needs:
+``nerf.pallas_fused_loss`` is false), ``validate`` (through the fused
+render kernel; the expected-depth metrics against GT depth, and with
+``dex`` the Dex-NeRF σ-threshold sweep), ``run_training`` (with depth
+supervision and its warmup), and what serving needs:
 ``align_cfg_models_to_checkpoint``, ``load_eval_params`` (reference
 ``.ckpt`` only), ``setup_models`` and ``fused_render_impl`` (the
 counterpart of ``maybe_fused_render_impl``, at the compute dtype of
@@ -28,9 +30,16 @@ import torch
 
 from dexnerf_tpu_torch.config.cfgnode import CfgNode
 from dexnerf_tpu_torch.config.schema import models_from_cfg, render_settings_from_cfg
-from dexnerf_tpu_torch.core.metrics import luminance, mse2psnr, ssim
-from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w
+from dexnerf_tpu_torch.core.metrics import (
+    compute_err_metric,
+    depth_error_img,
+    luminance,
+    mse2psnr,
+    ssim,
+)
+from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w, get_ray_bundle_w2c
 from dexnerf_tpu_torch.data.blender import load_blender_data, load_blender_depths
+from dexnerf_tpu_torch.data.messytable import load_messytable_data
 from dexnerf_tpu_torch.data.pipeline import build_ray_store
 from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel, skip_positions
 from dexnerf_tpu_torch.ops.fused_mlp import make_fused_flexible_field
@@ -45,7 +54,7 @@ from dexnerf_tpu_torch.train.checkpoints import (
     read_reference_checkpoint,
     write_reference_checkpoint,
 )
-from dexnerf_tpu_torch.train.logging import MetricsLogger
+from dexnerf_tpu_torch.train.logging import MetricsLogger, save_depth_png_mm
 from dexnerf_tpu_torch.train.step import init_train_state, make_train_step
 
 
@@ -210,8 +219,9 @@ def fused_render_impl(
 
 @dataclass
 class SceneData:
-    """A loaded scene: images [N, H, W, 3], c2w poses [N, 4, 4], [H, W,
-    focal] and the split indices."""
+    """A loaded scene: images [N, H, W, 3], poses [N, 4, 4] (c2w, or w2c
+    when ``intrinsics`` [N, 3, 3] is given: messytable), [H, W, focal] and
+    the split indices."""
 
     images: np.ndarray
     poses: np.ndarray
@@ -221,20 +231,35 @@ class SceneData:
     i_test: Optional[np.ndarray] = None
     depths: Optional[np.ndarray] = None  # [N, H, W] GT depth (meters)
     render_poses: Optional[np.ndarray] = None
+    intrinsics: Optional[np.ndarray] = None
 
 
 def load_scene(cfg: CfgNode) -> SceneData:
-    """Load the blender dataset named by ``cfg.dataset``."""
+    """Load the blender or messytable dataset named by ``cfg.dataset``."""
     ds = cfg.dataset
-    if str(ds.type).lower() != "blender":
-        raise NotImplementedError(
-            f"dataset type {ds.type!r}: only blender is ported (ROADMAP.md Queue 1 item 4)"
-        )
+    kind = str(ds.type).lower()
     kw = dict(
         half_res=bool(_get(ds, "half_res", False)),
         testskip=int(_get(ds, "testskip", 1)),
         debug=bool(_get(ds, "debug", False)),
     )
+    if kind == "messytable":
+        images, poses, render_poses, hwf, i_split, intrinsics, depths = load_messytable_data(
+            ds.basedir, **kw,
+            imgname=str(_get(ds, "imgname", "0128_irL_kuafu_half.png")),
+            is_real_rgb=bool(_get(ds, "is_real_rgb", False)),
+        )
+        return SceneData(
+            images=images, poses=poses, hwf=hwf, i_train=i_split[0], i_val=i_split[1],
+            i_test=i_split[2], depths=depths, render_poses=render_poses,
+            intrinsics=intrinsics,
+        )
+    if kind == "llff":
+        raise NotImplementedError(
+            "dataset type 'llff': not ported yet (ROADMAP.md Queue 1 item 4)"
+        )
+    if kind != "blender":
+        raise ValueError(f"unknown dataset type: {ds.type}")
     images, poses, render_poses, hwf, i_split = load_blender_data(ds.basedir, **kw)
     return SceneData(
         images=images[..., :3],
@@ -274,11 +299,21 @@ def maybe_fused_fields(cfg: CfgNode, coarse, fine, *, train: bool = False):
     return tuple(None if m is None else make(m, **kw) for m in (coarse, fine))
 
 
-def maybe_fused_loss(cfg: CfgNode, settings: RenderSettings, supervision: str, coarse, fine):
+def maybe_fused_loss(
+    cfg: CfgNode,
+    settings: RenderSettings,
+    supervision: str,
+    coarse,
+    fine,
+    depth_loss_weight: float = 0.0,
+    depth_valid_max: Optional[float] = None,
+):
     """The fused train loss over ``coarse``/``fine`` (kernel 4 on a card)
     when ``cfg.nerf.use_pallas`` is set and ``nerf.pallas_fused_loss`` is
     not false, else None (then the fused fields, or the plain autograd
-    render, the counterpart of the JAX package's XLA path).
+    render, the counterpart of the JAX package's XLA path). With
+    ``depth_loss_weight`` > 0 the kernel adds the depth term over
+    ``0 < gt [< depth_valid_max]``.
     ``nerf.pallas_loss_resample`` ("auto" | "xla" | "pallas") selects the
     resample between the passes (kernel 5 for "pallas"). Both dtypes of
     kernel 4 are :func:`train_compute_dtype` (bf16 by default, as in JAX):
@@ -294,6 +329,7 @@ def maybe_fused_loss(cfg: CfgNode, settings: RenderSettings, supervision: str, c
         coarse, fine, settings, supervision=supervision,
         resample=str(_get(cfg.nerf, "pallas_loss_resample", "auto")),
         compute_dtype=dtype, dw_dtype=dtype,
+        depth_loss_weight=float(depth_loss_weight), depth_valid_max=depth_valid_max,
     )
 
 
@@ -305,17 +341,28 @@ def validate(
     *,
     supervision: str,
     device,
+    dex: bool = False,
     val_idx: Optional[int] = None,
 ) -> Dict[str, Any]:
     """Render one validation view through the fused render kernel (its
     plain version on the CPU) and score it: coarse/fine loss, PSNR of their
-    sum and SSIM of the fine image (``train_nerf_rgb.py:304-425``)."""
+    sum and SSIM of the fine image (``train_nerf_rgb.py:304-425``). The
+    rays are w2c + K when the scene has intrinsics. On a view with GT depth
+    the expected depth is scored over ``0 < gt < dataset.depth_valid_max``
+    (default 1.25 m; ``compute_err_metric``); with ``dex`` the fine pass
+    also gives the σ-threshold depths of the validation grid
+    (``depth_dex`` [T, H, W]), each scored the same way, and the threshold
+    of least abs error is kept (``train_dexnerf_rgb.py:363-428``)."""
     device = torch.device(device)
-    s_val = render_settings_from_cfg(cfg, "validation").eval_variant()
-    H, W, focal = scene.hwf
+    s_val = render_settings_from_cfg(cfg, "validation", dex=dex).eval_variant()
+    H, W, focal = int(scene.hwf[0]), int(scene.hwf[1]), float(scene.hwf[2])
     idx = int(scene.i_val[0]) if val_idx is None else int(val_idx)
-    c2w = torch.as_tensor(np.asarray(scene.poses[idx], np.float32), device=device)
-    ro, rd = get_ray_bundle_c2w(int(H), int(W), float(focal), c2w)
+    pose = torch.as_tensor(np.asarray(scene.poses[idx], np.float32), device=device)
+    if scene.intrinsics is not None:
+        K = torch.as_tensor(np.asarray(scene.intrinsics[idx], np.float32), device=device)
+        ro, rd = get_ray_bundle_w2c(H, W, pose, K)
+    else:
+        ro, rd = get_ray_bundle_c2w(H, W, focal, pose)
     impl = fused_render_impl(cfg, s_val, device, coarse, fine)
     with torch.no_grad():
         out = render_image(
@@ -333,7 +380,7 @@ def validate(
         coarse_mse = mse(out.coarse.rgb)
         fine_mse = mse(out.fine.rgb) if out.fine is not None else 0.0
         total = coarse_mse + fine_mse
-        return {
+        metrics: Dict[str, Any] = {
             "loss": total,
             "coarse_loss": coarse_mse,
             "fine_loss": fine_mse,
@@ -345,14 +392,74 @@ def validate(
             "target": target.cpu().numpy(),
             "index": idx,
         }
+    if dex and r.depth_dex is not None:
+        metrics["depth_dex"] = r.depth_dex.cpu().numpy()  # [T, H, W]
+        metrics["m_thres_cand"] = tuple(s_val.m_thres_cand)
+    if scene.depths is None:
+        return metrics
+    gt = np.asarray(scene.depths[idx])
+    mask = (gt > 0) & (gt < float(_get(cfg.dataset, "depth_valid_max", 1.25)))
+    metrics["depth_gt"], metrics["depth_mask"] = gt, mask
+    if not np.any(gt > 0):
+        # a view without GT depth (zero-filled): skipped, not scored as NaN
+        return metrics
+    metrics.update(compute_err_metric(gt, metrics["depth"], mask))
+    if "depth_dex" in metrics:
+        errs = [compute_err_metric(gt, d, mask) for d in metrics["depth_dex"]]
+        abs_errs = [e["depth_abs_err"] for e in errs]
+        best = int(np.argmin(abs_errs))
+        metrics.update(
+            dex_errors=errs,
+            best_threshold_index=best,
+            best_threshold=float(s_val.m_thres_cand[best]),
+            min_abs_err=float(abs_errs[best]),
+            best_depth=metrics["depth_dex"][best],
+            err4=errs[best]["depth_err4"],
+        )
+    return metrics
 
 
-def _log_validation(logger: MetricsLogger, val: Dict[str, Any], step: int) -> None:
+def _normalize_img(x: np.ndarray) -> np.ndarray:
+    """Min-max normalized to [0, 1], as the reference shows depth images
+    (``vutils.make_grid(..., normalize=True, scale_each=True)``)."""
+    x = np.asarray(x, np.float32)
+    lo, hi = float(x.min()), float(x.max())
+    return (x - lo) / max(hi - lo, 1e-12)
+
+
+def _log_validation(logger: MetricsLogger, val: Dict[str, Any], step: int, logdir: str) -> None:
+    """The reference's validation artifacts (``train_dexnerf_rgb.py:375-428``):
+    the scalars ``validation/{loss,coarse_loss,fine_loss,psnr,ssim}`` and,
+    where computed, ``validation/{depth_abs_err,depth_err4,min_abs_err,err4}``;
+    the images ``validation/{rgb_coarse,rgb_fine,img_target}``, with Dex
+    ``validation/depth_pred_<m>`` per threshold, and with GT depth
+    ``validation/depth_gt`` and ``validation/depth_pred_err``; with GT depth
+    the best depth (the expected depth where no threshold was scored) as a
+    millimeter PNG ``<logdir>/pred_depth/pred_depth_step_<step>.png``."""
     for k in ("loss", "coarse_loss", "fine_loss", "psnr", "ssim"):
         logger.scalar(f"validation/{k}", val[k], step)
-    logger.image("validation/rgb_coarse", val["rgb_coarse"], step)
-    logger.image("validation/rgb_fine", val["rgb"], step)
-    logger.image("validation/img_target", val["target"], step)
+    for k in ("depth_abs_err", "depth_err4", "min_abs_err", "err4"):
+        if k in val:
+            logger.scalar(f"validation/{k}", float(val[k]), step)
+    logger.image("validation/rgb_coarse", np.clip(val["rgb_coarse"], 0, 1), step)
+    logger.image("validation/rgb_fine", np.clip(val["rgb"], 0, 1), step)
+    logger.image("validation/img_target", np.clip(val["target"], 0, 1), step)
+    if "depth_gt" in val:
+        logger.image("validation/depth_gt", _normalize_img(val["depth_gt"]), step)
+    for t, m in enumerate(val.get("m_thres_cand", ()) if "depth_dex" in val else ()):
+        logger.image(f"validation/depth_pred_{int(m)}", _normalize_img(val["depth_dex"][t]), step)
+    if "depth_gt" not in val:
+        return
+    best_depth = val.get("best_depth", val["depth"])
+    err_img = depth_error_img(
+        np.asarray(best_depth)[None] * 1000.0,
+        np.asarray(val["depth_gt"])[None] * 1000.0,
+        np.asarray(val["depth_mask"])[None],
+    )
+    logger.image("validation/depth_pred_err", err_img, step)
+    pred_dir = os.path.join(logdir, "pred_depth")
+    os.makedirs(pred_dir, exist_ok=True)
+    save_depth_png_mm(os.path.join(pred_dir, f"pred_depth_step_{step}.png"), best_depth)
 
 
 _CKPT = re.compile(r"checkpoint_(\d+)\.ckpt$")
@@ -367,12 +474,11 @@ def latest_checkpoint(directory: str) -> Optional[str]:
     return os.path.join(directory, max(found)[1]) if found else None
 
 
-def _reject_unported(cfg: CfgNode) -> None:
+def _reject_unported(cfg: CfgNode, depth_w: float) -> None:
     """Config keys whose training modes are not ported raise instead of
     training something else."""
     t = cfg.nerf.train
     for key, item in (
-        ("depth_loss_weight", "depth supervision (ROADMAP.md Queue 1 item 2)"),
         ("occupancy", "occupancy-guided training (ROADMAP.md Queue 1 item 8)"),
         ("pose_opt", "pose refinement (ROADMAP.md Queue 1 item 9)"),
     ):
@@ -384,7 +490,8 @@ def _reject_unported(cfg: CfgNode) -> None:
             "(ROADMAP.md Queue 1 item 7)"
         )
     cachedir = str(_get(cfg.dataset, "cachedir", "") or "")
-    if cachedir and os.path.isdir(os.path.join(cachedir, "train")):
+    # the JAX package trains from a ray cache only without depth supervision
+    if cachedir and os.path.isdir(os.path.join(cachedir, "train")) and depth_w == 0.0:
         raise NotImplementedError(
             f"dataset.cachedir {cachedir} holds a ray cache; training from it is not "
             "ported yet (ROADMAP.md Queue 1 item 4)"
@@ -394,6 +501,7 @@ def _reject_unported(cfg: CfgNode) -> None:
 def run_training(
     cfg: CfgNode,
     *,
+    dex: bool = False,
     supervision: str = "rgb",
     scene: Optional[SceneData] = None,
     load_ckpt: Optional[str] = None,
@@ -402,6 +510,8 @@ def run_training(
     logdir: Optional[str] = None,
     sampling: Optional[str] = None,
     steps_per_call: Optional[int] = None,
+    depth_loss_weight: Optional[float] = None,
+    depth_warmup: Optional[int] = None,
     device="cuda",
 ) -> Dict[str, Any]:
     """Train a NeRF per ``cfg`` on one device; returns a summary dict.
@@ -416,11 +526,25 @@ def run_training(
     ``<logdir>/checkpoints`` when it holds one. Metrics go to
     ``<logdir>/metrics.jsonl``; checkpoints to
     ``<logdir>/checkpoints/checkpoint_<iteration>.ckpt``, whose ``iter``
-    is the number of updates taken (where a resume starts)."""
+    is the number of updates taken (where a resume starts).
+
+    ``dex`` validates with the σ-threshold sweep (:func:`validate`).
+    ``depth_loss_weight`` (else ``nerf.train.depth_loss_weight``) > 0 adds
+    GT-depth supervision of the expected depth over ``0 < gt [<
+    depth_valid_max]``, the limit from ``nerf.train.depth_valid_max``, else
+    ``dataset.depth_valid_max``, else none. ``depth_warmup`` (else
+    ``nerf.train.depth_warmup``) N > 0 runs the first N iterations without
+    the depth term; -1 waits until the train PSNR at print cadence passes
+    ``nerf.train.depth_warmup_psnr`` (default 14 dB), logs
+    ``train/depth_on_step`` and returns ``depth_on_step``."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("device cuda: no CUDA card is visible to PyTorch")
-    _reject_unported(cfg)
+    depth_w = float(
+        depth_loss_weight if depth_loss_weight is not None
+        else (_get(cfg.nerf.train, "depth_loss_weight", 0.0) or 0.0)
+    )
+    _reject_unported(cfg, depth_w)
     seed = int(_get(cfg.experiment, "randomseed", 42))
     logdir = logdir or os.path.join(str(cfg.experiment.logdir), str(cfg.experiment.id))
     ckpt_dir = os.path.join(logdir, "checkpoints")
@@ -458,31 +582,59 @@ def run_training(
         state.step = int(imported["step"])
     start_iter = state.step
 
+    dvm = _get(cfg.nerf.train, "depth_valid_max", None)
+    if dvm is None:
+        dvm = _get(cfg.dataset, "depth_valid_max", None)
+    depth_valid_max = float(dvm) if dvm is not None else None
+    depth_warmup_iters = int(
+        depth_warmup if depth_warmup is not None
+        else (_get(cfg.nerf.train, "depth_warmup", 0) or 0)
+    ) if depth_w > 0.0 else 0
+    warmup_auto = depth_warmup_iters < 0
+    warmup_psnr = float(_get(cfg.nerf.train, "depth_warmup_psnr", 14.0) or 14.0)
+    if depth_w > 0.0 and scene.depths is None:
+        raise ValueError(
+            "depth_loss_weight > 0 but the dataset has no GT depth maps (messytable "
+            "carries depthL.png / depth.png)"
+        )
+
     s_train = render_settings_from_cfg(cfg, "train")
     batch_size = int(cfg.nerf.train.num_random_rays)
     near, far = float(cfg.dataset.near), float(cfg.dataset.far)
     store = build_ray_store(
         scene.images[scene.i_train], scene.poses[scene.i_train], scene.hwf, near, far,
         device=device,
+        intrinsics=None if scene.intrinsics is None else scene.intrinsics[scene.i_train],
+        depths=scene.depths[scene.i_train] if depth_w > 0.0 else None,
     )
     steps_per_call = int(
         steps_per_call if steps_per_call is not None
         else _get(cfg.nerf.train, "steps_per_call", 1)
     )
-    fused_loss = maybe_fused_loss(cfg, s_train, supervision, coarse, fine)
+    fused_loss = maybe_fused_loss(cfg, s_train, supervision, coarse, fine,
+                                  depth_loss_weight=depth_w, depth_valid_max=depth_valid_max)
     # the fused loss supersedes the separate field kernels
     coarse_field, fine_field = (
         (None, None) if fused_loss is not None
         else maybe_fused_fields(cfg, coarse, fine, train=True)
     )
-    train_step = make_train_step(
-        s_train, batch_size,
+    step_kw = dict(
         supervision=supervision,
         coarse_field=coarse_field,
         fine_field=fine_field,
-        fused_loss=fused_loss,
         sampling=sampling or str(_get(cfg.nerf.train, "sampling", "uniform")),
         steps_per_call=steps_per_call,
+    )
+    train_step = make_train_step(
+        s_train, batch_size, fused_loss=fused_loss, depth_loss_weight=depth_w,
+        depth_valid_max=depth_valid_max, **step_kw,
+    )
+    # the depth-free step of the warmup, over its own depth-free fused loss
+    warmup_step = None if depth_warmup_iters == 0 else make_train_step(
+        s_train, batch_size,
+        fused_loss=None if fused_loss is None
+        else maybe_fused_loss(cfg, s_train, supervision, coarse, fine),
+        **step_kw,
     )
     generator = torch.Generator(device=device).manual_seed(seed)
     train_iters = int(max_iters if max_iters is not None else cfg.experiment.train_iters)
@@ -499,13 +651,26 @@ def run_training(
     last_metrics: Dict[str, float] = {}
     last_val: Dict[str, Any] = {}
     i = start_iter
+    depth_on_step: Optional[int] = None  # where the auto warmup switched the depth term on
     with MetricsLogger(logdir) as logger:
         while i < train_iters:
-            metrics = train_step(state, store, generator)
+            if warmup_step is None:
+                step_fn = train_step
+            elif warmup_auto:
+                step_fn = train_step if depth_on_step is not None else warmup_step
+            else:
+                step_fn = warmup_step if i < depth_warmup_iters else train_step
+            metrics = step_fn(state, store, generator)
             last = min(i + steps_per_call, train_iters) - 1
             final = last == train_iters - 1
             if crosses(i, last, print_every) or final:
                 last_metrics = {k: float(v) for k, v in metrics.items()}
+                if (warmup_auto and depth_on_step is None
+                        and last_metrics.get("psnr", 0.0) > warmup_psnr):
+                    depth_on_step = last + 1
+                    logger.scalar("train/depth_on_step", depth_on_step, last)
+                    print(f"[depth warmup] train PSNR {last_metrics['psnr']:.1f} > "
+                          f"{warmup_psnr:g} dB at iter {last}: depth supervision ON", flush=True)
                 logger.scalars({f"train/{k}": v for k, v in last_metrics.items()}, last)
                 rays_per_sec = (last - start_iter + 1) * batch_size / max(time.time() - t0, 1e-9)
                 logger.scalar("train/rays_per_sec", rays_per_sec, last)
@@ -513,9 +678,9 @@ def run_training(
                 val_idx = int(scene.i_val[(last // validate_every) % len(scene.i_val)])
                 last_val = validate(
                     coarse, fine, scene, cfg, supervision=supervision, device=device,
-                    val_idx=val_idx,
+                    dex=dex, val_idx=val_idx,
                 )
-                _log_validation(logger, last_val, last)
+                _log_validation(logger, last_val, last, logdir)
             if save_every and last > 0 and (crosses(i, last, save_every) or final):
                 os.makedirs(ckpt_dir, exist_ok=True)
                 write_reference_checkpoint(
@@ -531,6 +696,7 @@ def run_training(
             i = last + 1
     elapsed = time.time() - t0
     return {
+        **({"depth_on_step": depth_on_step} if warmup_auto else {}),
         "state": state,
         "final_train_metrics": last_metrics,
         "final_validation": last_val,

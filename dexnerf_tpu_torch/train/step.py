@@ -160,6 +160,7 @@ def make_train_step(
     sampling: str = "uniform",
     steps_per_call: int = 1,
     depth_loss_weight: float = 0.0,
+    depth_valid_max: Optional[float] = None,
 ):
     """Build ``train_step(state, store, generator, draws=None) -> metrics``.
 
@@ -174,8 +175,9 @@ def make_train_step(
     ``sampling`` is "uniform" over all rays or "per_image" (one image per
     update, ``train_nerf_rgb.py:222-241``). ``depth_loss_weight`` > 0 adds
     ``weight * masked_depth_mse`` of the fine (or coarse-only) expected
-    depth against the store's GT depth; a fused loss must then have been
-    built with the same term (``supports_depth``)."""
+    depth against the store's GT depth over ``0 < gt [< depth_valid_max]``;
+    a fused loss must then have been built with the same term
+    (``supports_depth``) and the same ``depth_valid_max``."""
     indices = {"uniform": uniform_ray_indices, "per_image": per_image_ray_indices}[sampling]
     use_depth = depth_loss_weight > 0.0
     if use_depth and fused_loss is not None and not getattr(fused_loss, "supports_depth", False):
@@ -195,7 +197,7 @@ def make_train_step(
         loss, metrics = nerf_loss(result, target, supervision=supervision)
         if use_depth:
             pred = result.fine.depth if result.fine is not None else result.coarse.depth
-            d_loss = masked_depth_mse(pred, depth_gt)
+            d_loss = masked_depth_mse(pred, depth_gt, depth_valid_max)
             loss = loss + depth_loss_weight * d_loss
             metrics["depth_loss"] = d_loss
             metrics["loss"] = loss

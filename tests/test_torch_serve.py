@@ -216,6 +216,7 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(dexnerf_tpu_torch.__path__, 'dexnerf_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import dexnerf_tpu_torch.apps.serve\n"
+        "assert 'dexnerf_tpu_torch.data.messytable' in sys.modules\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'dexnerf_tpu')]\n"
         "assert not bad, bad\n"

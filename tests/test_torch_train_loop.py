@@ -307,8 +307,7 @@ def test_train_cli_needs_a_card_unless_told_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--dex"], ["--sg-ir"], ["--pose-opt"], ["--depth-loss", "0.1"],
-    ["--depth-warmup", "100"], ["--occupancy", "0.2"], ["--num-devices", "4"],
+    ["--sg-ir"], ["--pose-opt"], ["--occupancy", "0.2"], ["--num-devices", "4"],
 ])
 def test_unported_modes_raise(tmp_path, flag):
     cfg, _ = _tiny_config(tmp_path, str(tmp_path / "missing"), 1)

@@ -27,7 +27,10 @@ from test_torch_train_loss import (  # the same weights, rays and draws as the f
     ARCH,
     ENC_DIR,
     ENC_XYZ,
+    GRAD_ATOL,
+    LOSS_RTOL,
     N_RAYS,
+    _assert_grads,
     _grads_by_name,
     _jax_draws,
     _pass_inputs,
@@ -218,6 +221,65 @@ def test_train_loss_both_passes_match_jax(jx):
     for name in ("coarse", "fine"):
         want.update({f"{name}.{k}": v for k, v in _grads_by_name(jx, j_grads[name]).items()})
     _assert_within_own(port(BF16), port(F32), want)
+
+
+@pytest.mark.parametrize("vmax", [None, 4.0], ids=["depth", "depth-vmax"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_loss_depth_matches_jax(jx, dtype, vmax):
+    """make_fused_train_loss with the depth term on the fine pass, over
+    ``0 < gt`` (``depth``) or ``0 < gt < depth_valid_max`` (``depth-vmax``;
+    the GT spans 2.5-5.5, so 4.0 masks half the rays), against JAX's at the
+    same dtype in interpret mode: at float32 the loss terms to LOSS_RTOL
+    and every leaf to GRAD_ATOL of its scale (the f32 file's rule); at
+    bfloat16 every term and leaf within OWN_SHARE of the f32 port's
+    distance to JAX's bf16."""
+    from dexnerf_tpu.ops import make_fused_train_loss as j_make
+    from dexnerf_tpu.render import RayBatch as JRayBatch
+    from dexnerf_tpu.render import RenderSettings as JSettings
+
+    settings = RenderSettings(
+        num_coarse=8, num_fine=8, perturb=True, radiance_field_noise_std=0.2,
+        num_encoding_fn_xyz=ENC_XYZ, num_encoding_fn_dir=ENC_DIR,
+    )
+    inp = _pass_inputs(seed=6)
+    near = np.full((N_RAYS,), 2.0, np.float32)
+    arrays = (inp["origins"], inp["directions"], inp["viewdirs"], near, near + 4.0)
+    key = jx.jax.random.PRNGKey(7)
+    draws = _jax_draws(jx, key, N_RAYS, settings)
+    keys = ("loss", "coarse_loss", "fine_loss", "depth_loss")
+    jdt = getattr(jx.jnp, dtype)
+    j_fn = j_make(jx.jm, jx.jm, JSettings(**settings.__dict__), block_samples=128,
+                  compute_dtype=jdt, dw_dtype=jdt, interpret=True, depth_loss_weight=0.5,
+                  depth_valid_max=vmax)
+    jrays = JRayBatch(*(jx.jnp.asarray(a) for a in arrays))
+    (_, j_metrics), j_grads = jx.jax.value_and_grad(
+        lambda p: j_fn(p, jrays, jx.jnp.asarray(inp["target"]), key,
+                       jx.jnp.asarray(inp["depth_gt"])), has_aux=True)(jx.trees)
+
+    def port(dt):
+        coarse, fine = (copy.deepcopy(jx.models[n]) for n in ("coarse", "fine"))
+        fn = ftl.make_fused_train_loss(coarse, fine, settings, compute_dtype=dt, dw_dtype=dt,
+                                       depth_loss_weight=0.5, depth_valid_max=vmax)
+        loss, metrics = fn(RayBatch(*(torch.tensor(a) for a in arrays)),
+                           torch.tensor(inp["target"]), draws, torch.tensor(inp["depth_gt"]))
+        loss.backward()
+        out = {k: float(metrics[k]) for k in keys}
+        for name, m in (("coarse", coarse), ("fine", fine)):
+            out.update({f"{name}.{n}": p.grad.numpy() for n, p in m.named_parameters()})
+        return out
+
+    want = {k: float(j_metrics[k]) for k in keys}
+    for name in ("coarse", "fine"):
+        want.update({f"{name}.{k}": v for k, v in _grads_by_name(jx, j_grads[name]).items()})
+    assert want["depth_loss"] > 0
+    if dtype == "bfloat16":
+        _assert_within_own(port(BF16), port(F32), want)
+        return
+    got = port(F32)
+    for k in keys:
+        np.testing.assert_allclose(got[k], want[k], rtol=LOSS_RTOL, err_msg=k)
+    _assert_grads({k: v for k, v in got.items() if k not in keys},
+                  {k: v for k, v in want.items() if k not in keys}, atol=GRAD_ATOL)
 
 
 def _cfg(**nerf):

@@ -43,6 +43,7 @@ LR = 5e-3
 # a schedule evaluated at the wrong count shows within three updates
 LR_DECAY, LR_FACTOR = 0.001, 0.1
 DEPTH_WEIGHT = 0.5  # the depth-supervised cases; GT depth 0 marks rays without one
+DEPTH_VALID_MAX = 4.0  # the depth-vmax case: GT in [2.5, 5.5], so it masks about half
 
 # Comparison rule after the updates, on every element (f32 both sides,
 # sums in another order). Adam's first update is lr * g / (|g| + eps),
@@ -118,7 +119,7 @@ def _step_draws(jx, key, num_rays):
     )
 
 
-def _run_jax(jx, fused: bool, depth_weight: float, keys):
+def _run_jax(jx, fused: bool, depth_weight: float, keys, depth_valid_max=None):
     from dexnerf_tpu.data.pipeline import build_ray_store as j_build
     from dexnerf_tpu.ops import make_fused_train_loss as j_make_loss
     from dexnerf_tpu.render import RenderSettings as JSettings
@@ -132,11 +133,11 @@ def _run_jax(jx, fused: bool, depth_weight: float, keys):
     tx = j_optimizer(LR, LR_DECAY, LR_FACTOR)
     fused_loss = (
         j_make_loss(jx.jm, jx.jm, js, block_samples=128, interpret=True,
-                    depth_loss_weight=depth_weight)
+                    depth_loss_weight=depth_weight, depth_valid_max=depth_valid_max)
         if fused else None
     )
     step = j_make_step(jx.jm.apply, jx.jm.apply, tx, js, BATCH, fused_loss=fused_loss,
-                       depth_loss_weight=depth_weight)
+                       depth_loss_weight=depth_weight, depth_valid_max=depth_valid_max)
     state = j_init(jx.jax.tree.map(jx.jnp.asarray, jx.trees), tx)
     for key in keys:
         state, metrics = step(state, store, key)
@@ -152,24 +153,27 @@ def _run_jax(jx, fused: bool, depth_weight: float, keys):
     }, {k: float(v) for k, v in metrics.items()}, int(adam.count)
 
 
-@pytest.mark.parametrize("depth", [False, True], ids=["photo", "depth"])
+@pytest.mark.parametrize("depth", [False, True, "vmax"], ids=["photo", "depth", "depth-vmax"])
 @pytest.mark.parametrize("path", ["fused", "plain"])
 def test_train_steps_match_jax(jx, path, depth):
+    """``depth-vmax``: the depth term over ``0 < gt < depth_valid_max``."""
     keys = list(jx.jax.random.split(jx.jax.random.PRNGKey(3), STEPS))
     weight = DEPTH_WEIGHT if depth else 0.0
-    want, want_metrics, want_count = _run_jax(jx, path == "fused", weight, keys)
+    vmax = DEPTH_VALID_MAX if depth == "vmax" else None
+    want, want_metrics, want_count = _run_jax(jx, path == "fused", weight, keys, vmax)
 
     coarse, fine = _port_models(jx)
     store = build_ray_store(jx.images, jx.poses, jx.hwf, 2.0, 6.0, device="cpu",
                             depths=jx.depths)
     state = init_train_state(coarse, fine, LR, LR_DECAY, LR_FACTOR)
     fused_loss = (
-        make_fused_train_loss(coarse, fine, SETTINGS, depth_loss_weight=weight)
+        make_fused_train_loss(coarse, fine, SETTINGS, depth_loss_weight=weight,
+                              depth_valid_max=vmax)
         if path == "fused" else None
     )
     # the port takes all updates in one call (steps_per_call), JAX one per call
     step = make_train_step(SETTINGS, BATCH, fused_loss=fused_loss, steps_per_call=STEPS,
-                           depth_loss_weight=weight)
+                           depth_loss_weight=weight, depth_valid_max=vmax)
     metrics = step(state, store, draws=[_step_draws(jx, k, store.num_rays) for k in keys])
     assert state.step == want_count == STEPS
     assert set(metrics) == set(want_metrics)
