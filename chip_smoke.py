@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving path and its three training
-configurations on one CUDA card.
+"""Smoke run of the PyTorch port's serving path, its training
+configurations, its evaluation entry point and its LLFF/NDC path on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -75,8 +76,9 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    each output, like the f32 plain version, against a float64 run of the
    plain version; kernel 6 is driven through its public op
    ``sample_pdf_branchless``;
-13. time both routes of kernels 2 and 3, kernels 5 and 6 and their plain
-   versions, the bf16 dW share of kernel 3 as ``torch.matmul`` calls, and
+13. time both routes of kernels 2 and 3, kernels 5 and 6 (CUDA events,
+   and kernels 5 and 6's device time alone from ``torch.profiler``) and
+   their plain versions, the bf16 dW share of kernel 3 as ``torch.matmul`` calls, and
    whole field-path steps at bf16 and at f32; profile three field-path
    steps at each dtype (kernel 2, kernel 3, glue, Adam, idle), with kernel
    3's bf16 kernels beside their bounds as in phase 8 and kernel 2's bf16
@@ -94,7 +96,25 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    kernel 4's bf16 route with both terms on to its plain version on one
    1024-ray batch of the run (both passes, phase 7's BF16_* rule) and
    kernel 1's on the 270x480 validation frame (phase 3's); time both
-   passes, a depth-supervised step (host clock, profile) and the frame.
+   passes, a depth-supervised step (host clock, profile) and the frame;
+15. evaluate phase 14's weights (σ heads calibrated on the test view, as
+   in phase 3) through ``apps.eval --test-set --dex-depth`` with a point
+   cloud at a σ threshold, depth confidence, disparity, jet disparity and a
+   GIF: two launches of kernel 1's bf16 route per frame and none of its f32
+   route, ``metrics.json`` and the PLY, eval's expected-depth and Dex
+   errors equal to ``validate(dex=True)``'s on the same view; hold the
+   test frame to its plain versions (phase 3's rule) and time it (host
+   clock) and the kernel's two passes (CUDA events);
+16. LLFF: write a forward-facing scene (``write_llff_dataset``, 378x504,
+   fern's factor-8 size, loaded at factor 1) and train
+   ``configs/llff.yml`` (NDC, batch 1024, 64 + 64 samples) on it with
+   ``nerf.use_pallas: true`` through ``apps.train`` for 20 steps: 40
+   launches of kernel 4's bf16 route on NDC rays, the loss falls,
+   validations through kernel 1 on NDC rays; hold kernel 4's bf16 route to
+   its plain version on one batch of the run (phase 7's rule) and kernel
+   1's on one NDC frame; time a step (host clock, profile) and the frame;
+   score the held-out views through ``apps.eval --test-set``, the depths
+   as metric ray distances (``ndc_t_to_world_depth``).
 
 Each kernel's line holds its bound: the larger of its FLOPs (multiply-adds
 counted from the model's shapes; compares and arithmetic counted from the
@@ -149,6 +169,15 @@ DEX_VIEWS = (4, 1, 1)
 DEX_ITERS, DEX_WARMUP, DEX_WEIGHT, DEX_VALID_MAX = 20, 10, 0.1, 6.0
 DEX_VAL_TAGS = tuple(f"validation/{k}" for k in ("depth_abs_err", "depth_err4", "min_abs_err",
                                                  "err4"))
+# phase 15: the σ threshold of the evaluation's point cloud (on the m_thres grid)
+EVAL_PC_THRESHOLD = 50.0
+# phase 16: LLFF (configs/llff.yml, NDC) on a written forward-facing scene at
+# fern's factor-8 frame, loaded at factor 1; its views (every 8th held out),
+# steps, and the limit of the scored depths (scene units; the scene lies
+# 2-7.7 units from the cameras, beyond the 1.25 default)
+LLFF_CONFIG = os.path.join(ROOT, "configs", "llff.yml")
+LLFF_HW = (378, 504)
+LLFF_VIEWS, LLFF_ITERS, LLFF_VALID_MAX = 10, 20, 10.0
 # kernels 5 and 6 vs plain: the CPU tests' tolerances (tests/test_torch_resample.py).
 # With trained weights the CDF has steps of ~1e-5, where one ulp of the CDF
 # moves a depth by up to ~1e-4 through the guarded lerp, so each output is
@@ -207,6 +236,20 @@ def calibrate_sigma_head(model, xyz_enc, view_enc, torch):
         model.fc_alpha.bias.copy_((model.fc_alpha.bias - mu) * k)
 
 
+def calibrate_on(models, rays, s_val, torch):
+    """:func:`calibrate_sigma_head` of each of ``models`` (in place) on the
+    coarse samples of every 40th ray of ``rays`` (a flat RayBatch)."""
+    from dexnerf_tpu_torch.core.encoding import positional_encoding
+    from dexnerf_tpu_torch.core.sampling import stratified_z_vals
+
+    sub = slice(0, None, 40)
+    z = stratified_z_vals(rays.near[sub], rays.far[sub], s_val.num_coarse, lindisp=s_val.lindisp)
+    for m in models:
+        pts = rays.origins[sub, None] + rays.directions[sub, None] * z[..., None]
+        calibrate_sigma_head(m, positional_encoding(pts, m.num_encoding_fn_xyz),
+                             positional_encoding(rays.viewdirs[sub], m.num_encoding_fn_dir), torch)
+
+
 def timed_ms(fn, torch, reps=3):
     fn()  # warm
     torch.cuda.synchronize()
@@ -218,6 +261,17 @@ def timed_ms(fn, torch, reps=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(torch, fn, n=3):
+    """Host-clock ms of a warm ``fn()`` to its synchronize, mean of ``n``."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
 
 
 def compare(name, got, want, torch):
@@ -362,6 +416,72 @@ def kernel_modules():
             "resample": resample, "sample_pdf": sample_pdf}
 
 
+def zero_counts():
+    """Set every wrapper's launch counts (``launches``, ``launches_bf16``)
+    to 0."""
+    for m in kernel_modules().values():
+        m.launches = 0
+        if hasattr(m, "launches_bf16"):
+            m.launches_bf16 = 0
+
+
+def read_counts():
+    """Every wrapper's launch counts, by module (``<module>_bf16`` for the
+    bf16 routes)."""
+    mods = kernel_modules()
+    counts = {k: m.launches for k, m in mods.items()}
+    counts.update({f"{k}_bf16": m.launches_bf16 for k, m in mods.items()
+                   if hasattr(m, "launches_bf16")})
+    return counts
+
+
+def eval_cli(cfg_path, ckpt, savedir, flags, dev):
+    """``dexnerf_tpu_torch.apps.eval`` on ``dev`` with ``cfg_path``,
+    ``ckpt`` and the extra CLI ``flags``, every launch counter set to 0 just
+    before and read just after. Returns the counts, the ``metrics.json``
+    (None without ``--test-set``) and the seconds."""
+    from dexnerf_tpu_torch.apps import eval as eval_app
+
+    zero_counts()
+    t0 = time.perf_counter()
+    eval_app.main(["--config", cfg_path, "--checkpoint", ckpt, "--savedir", savedir,
+                   "--device", dev.type, *flags])
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    path = os.path.join(savedir, "metrics.json")
+    metrics = None
+    if os.path.exists(path):
+        with open(path) as f:
+            metrics = json.load(f)
+    return counts, metrics, seconds
+
+
+def device_ms(torch, calls, n=3):
+    """Device ms per call of each kernel of ``calls`` (name fragment ->
+    a function that launches it), from one ``torch.profiler`` trace of
+    ``n`` warm calls of each; None for a kernel the trace does not hold
+    (then the device events it holds are printed)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            for _ in range(n):
+                fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {}
+    for frag in calls:
+        spans = [e.time_range.end - e.time_range.start for e in events if frag in e.name]
+        out[frag] = sum(spans) / n / 1e3 if spans else None
+    if None in out.values():
+        print(f"  profile: no device event for {[k for k, v in out.items() if v is None]}; "
+              f"its device events: {sorted({e.name[:60] for e in events})}")
+    return out
+
+
 def train_cli(tmp, data, name, iters, torch, dev, config=TRAIN_CONFIG, dataset=None, flags=(),
               **nerf):
     """``config`` (``configs/lego-tpu.yml``) pointed at the dataset ``data``,
@@ -386,19 +506,13 @@ def train_cli(tmp, data, name, iters, torch, dev, config=TRAIN_CONFIG, dataset=N
     cfg_path = os.path.join(tmp, f"{name}.yml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump(raw, f)
-    mods = kernel_modules()
-    bf16_mods = {k: m for k, m in mods.items() if hasattr(m, "launches_bf16")}
     torch.cuda.reset_peak_memory_stats()
-    for m in mods.values():
-        m.launches = 0
-    for m in bf16_mods.values():
-        m.launches_bf16 = 0
+    zero_counts()
     t0 = time.perf_counter()
     train_app.main(["--config", cfg_path, "--device", dev.type, "--max-iters", str(iters),
                     *flags])
     seconds = time.perf_counter() - t0
-    counts = {k: m.launches for k, m in mods.items()}
-    counts.update({f"{k}_bf16": m.launches_bf16 for k, m in bf16_mods.items()})
+    counts = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     logdir = os.path.join(tmp, "logs", name)
     with open(os.path.join(logdir, "metrics.jsonl")) as f:
@@ -592,13 +706,7 @@ def train_phase(torch, np, card, dev, tmp):
                 make_fused_flexible_field_train(m, compute_dtype=dt, dw_dtype=dt)
                 for m in (coarse, fine))
         step = make_train_step(s_train, batch, **kw)
-        step(st, store, gen)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            step(st, store, gen)
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0) / reps, (lambda: step(st, store, gen))
+        return host_ms(torch, lambda: step(st, store, gen), n=reps), (lambda: step(st, store, gen))
 
     peaks = {}
     steps = {}
@@ -1192,6 +1300,12 @@ def resample_phase(torch, np, card, dev, tmp, sh):
         "torch_searchsorted": timed_ms(lambda: torch.searchsorted(bins, u, right=True), torch),
         "torch_sort": timed_ms(lambda: torch.sort(torch.cat([z_c, u], -1), -1), torch),
     }
+    # device time alone (the CUDA events above include the host gaps between calls)
+    dev_ms = device_ms(torch, {
+        "resample_kernel": lambda: rs.fused_resample(z_c, w, u, dn),
+        "sample_pdf_kernel": lambda: spdf.sample_pdf_pallas(bins, w_mid, u)})
+    ms["resample_device"] = dev_ms["resample_kernel"]
+    ms["sample_pdf_device"] = dev_ms["sample_pdf_kernel"]
     sc, sf = s.num_coarse, s.num_fine
     m = sc - 2
     # operations: CDF (add, divide, scan), rank compares, lerp; merge compares
@@ -1199,19 +1313,108 @@ def resample_phase(torch, np, card, dev, tmp, sh):
     rs_ops = pdf_ops + n * (sc * sf + sf * (sc + 2 * sf) + 2 * (sc + sf))
     rs_bound, rs_by = bound(rs_ops, nbytes(z_c, w, u, dn) + 2 * 4 * n * (sc + sf))
     pdf_bound, pdf_by = bound(pdf_ops, nbytes(bins, w_mid, u) + 4 * n * sf)
-    print(f"phase 13: kernels 5 and 6, ms on {card} (CUDA events, mean of 3): "
-          + json.dumps({k: round(t, 4) for k, t in ms.items()}))
+    print(f"phase 13: kernels 5 and 6, ms on {card} (CUDA events, mean of 3; *_device: "
+          f"torch.profiler device time per call, mean of 3): "
+          + json.dumps({k: None if t is None else round(t, 5) for k, t in ms.items()}))
     print(f"  kernel 5 bound {1e3 * rs_bound:.3f} us ({rs_by}); kernel 6 bound "
           f"{1e3 * pdf_bound:.3f} us ({pdf_by})")
     entry = dict(route="cuda", source="dexnerf_tpu_torch/ops/csrc/resample.cu", library_ms=None)
     return [
         {"name": "fused_resample", **entry, "replaces": "dexnerf_tpu/ops/resample_pallas.py:119",
          "launches": counts["resample"], "max_abs_err": err5, "ms": ms["resample_kernel"],
+         "device_ms": ms["resample_device"],
          "plain_ms": ms["resample_plain"], "bound_ms": rs_bound, "bound_by": rs_by},
         {"name": "sample_pdf", **entry, "replaces": "dexnerf_tpu/ops/sample_pdf_pallas.py:37",
          "launches": pdf_launches, "max_abs_err": err6, "ms": ms["sample_pdf_kernel"],
+         "device_ms": ms["sample_pdf_device"],
          "plain_ms": ms["sample_pdf_plain"], "bound_ms": pdf_bound, "bound_by": pdf_by},
     ]
+
+
+def hold_train_bf16(label, phase, models, store, s_train, lr, batch, norm, loss_kw, torch, dev,
+                    extra_of=None):
+    """Kernel 4's bf16 route on a seeded batch of ``batch`` rays of
+    ``store``: both passes of ``models`` (coarse, fine; the fine depths from the coarse plain
+    weights) held to the plain versions by :func:`check_train_bf16` (the
+    loss over ``norm``; ``loss_kw`` the supervision and depth-loss settings
+    of ``make_fused_train_loss`` / ``make_train_step``; ``extra_of(idx)``
+    the pass's extra arguments, the GT depths and their coefficients);
+    both passes timed (CUDA events, mean of 3) beside their plain versions,
+    the dW ``torch.matmul`` yardstick and their bound; a step on copies of
+    the models timed on the host clock (mean of 5) and profiled. Returns a
+    namespace of ``ms``, ``worst``, ``bound_ms``, ``bound_by``, ``flops``,
+    ``bytes``, ``parts``, ``sizes`` and ``per_pass``."""
+    import copy
+
+    from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals
+    from dexnerf_tpu_torch.core.volrend import ray_dists
+    from dexnerf_tpu_torch.data.pipeline import take_ray_batch
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+    from dexnerf_tpu_torch.render.renderer import draw_render_noise, jittered_z_vals
+    from dexnerf_tpu_torch.train.step import init_train_state, make_train_step
+
+    coarse, fine = models
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    idx = torch.randint(0, store.num_rays, (batch,), generator=gen, device=dev)
+    rays, target = take_ray_batch(store, idx)
+    print(f"{label}, {batch} rays, both passes:")
+    extra = tuple(extra_of(idx)) if extra_of is not None else ()
+    draws = draw_render_noise(batch, s_train, gen, dev)
+    o, d, v = (t.contiguous() for t in rays[:3])
+    target = target.contiguous()
+    kw = dict(supervision=loss_kw.get("supervision", "rgb"),
+              white_background=s_train.white_background)
+    z_c = jittered_z_vals(rays, s_train, draws)
+    passes = {"coarse": (coarse, z_c, draws.noise_coarse)}
+    per_pass, worst = {}, 0.0
+    for name in ("coarse", "fine"):
+        model, z, noise = passes[name]
+        args = (model, o, d, z, v, ray_dists(z, d), noise, target, *extra)
+        want = ftl.fused_pass_loss_reference(*args, **kw)
+        worst = max(worst, check_train_bf16(name, model, args, norm, want, torch, phase=phase,
+                                            **kw))
+        per_pass[name] = args
+        if name == "coarse":
+            z_f, _ = hierarchical_z_vals(z_c, want[1], s_train.num_fine, det=False, u=draws.u_fine)
+            passes["fine"] = (fine, z_f, draws.noise_fine)
+    ms, gemms = {}, []
+    bf = dict(kw, compute_dtype=torch.bfloat16, dw_dtype=torch.bfloat16)
+    for name, args in per_pass.items():
+        ms[f"{name}_kernel"] = timed_ms(lambda: ftl.fused_pass_loss(*args, **bf), torch)
+        ms[f"{name}_plain"] = timed_ms(lambda: ftl.fused_pass_loss_reference(*args, **bf), torch)
+        gemms += dw_gemm_operands(args[0], args[3].numel(), torch, dev)
+    ms["dw_torch_matmul"] = timed_ms(lambda: [torch.matmul(a.t(), b) for a, b in gemms], torch)
+    del gemms
+    flops, _, byts_b, _ = kernel4_sizes(per_pass, dev)
+    bound_ms, bound_by = bound(flops, byts_b, BF16_FLOPS)
+    st = init_train_state(copy.deepcopy(coarse), copy.deepcopy(fine), lr)
+    fused = ftl.make_fused_train_loss(st.coarse, st.fine, s_train, compute_dtype=torch.bfloat16,
+                                      dw_dtype=torch.bfloat16, **loss_kw)
+    step = make_train_step(s_train, batch, fused_loss=fused, **loss_kw)
+    ms["step"] = host_ms(torch, lambda: step(st, store, gen), n=5)
+    metrics = step(st, store, gen)
+    if not all(bool(torch.isfinite(t)) for t in metrics.values()):
+        raise AssertionError(f"phase {phase}: non-finite step metrics {metrics}")
+    print("  steps:")
+    prof = profile_steps(torch, lambda: step(st, store, gen),
+                         {"kernel 4 bf16": KERNEL4_BF16_NAMES})
+    parts, sizes = bf16_parts(prof, 4, [(a[0], a[3].numel()) for a in per_pass.values()],
+                              ms["dw_torch_matmul"])
+    return types.SimpleNamespace(ms=ms, worst=worst, bound_ms=bound_ms, bound_by=bound_by,
+                                 flops=flops, bytes=byts_b, parts=parts, sizes=sizes,
+                                 per_pass=per_pass)
+
+
+def train_entry(name, launches, k4):
+    """A kernels-line entry of kernel 4's bf16 route from :func:`hold_train_bf16`."""
+    return {
+        "name": name, "route": "cuda",
+        "source": "dexnerf_tpu_torch/ops/csrc/fused_train_loss_bf16.cu",
+        "replaces": "dexnerf_tpu/ops/fused_train_loss.py:99", "launches": launches,
+        "max_abs_err": k4.worst, "ms": k4.ms["coarse_kernel"] + k4.ms["fine_kernel"],
+        "plain_ms": k4.ms["coarse_plain"] + k4.ms["fine_plain"], "bound_ms": k4.bound_ms,
+        "bound_by": k4.bound_by, "library_ms": k4.ms["dw_torch_matmul"], "parts": k4.parts,
+    }
 
 
 def dex_phase(torch, np, card, dev, tmp):
@@ -1226,27 +1429,19 @@ def dex_phase(torch, np, card, dev, tmp):
     passes; time both passes, a depth-supervised step (host clock and
     profile) and the validation frame (kernel 1 held to its plain versions
     there on the run's weights with σ heads calibrated as in phase 3).
-    Returns the two kernels-line entries of this path."""
+    Returns the two kernels-line entries of this path, the run's config
+    and its log directory."""
     import copy
 
     from dexnerf_tpu_torch.config import load_config, render_settings_from_cfg
-    from dexnerf_tpu_torch.core.encoding import positional_encoding
     from dexnerf_tpu_torch.core.rays import get_ray_bundle_w2c
-    from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals, stratified_z_vals
-    from dexnerf_tpu_torch.core.volrend import ray_dists
-    from dexnerf_tpu_torch.data.pipeline import build_ray_store, take_depth, take_ray_batch
+    from dexnerf_tpu_torch.data.pipeline import build_ray_store, take_depth
     from dexnerf_tpu_torch.data.synthetic import write_messytable_dataset
     from dexnerf_tpu_torch.ops import fused_render as fr
     from dexnerf_tpu_torch.ops import fused_train_loss as ftl
-    from dexnerf_tpu_torch.render.renderer import (
-        draw_render_noise,
-        jittered_z_vals,
-        make_ray_batch,
-        render_image,
-    )
+    from dexnerf_tpu_torch.render.renderer import make_ray_batch, render_image
     from dexnerf_tpu_torch.train.logging import load_depth_png_mm
     from dexnerf_tpu_torch.train.loop import load_scene, validate
-    from dexnerf_tpu_torch.train.step import init_train_state, make_train_step
 
     # ---- the entry point: 20 steps, the depth term from step DEX_WARMUP
     t0 = time.perf_counter()
@@ -1309,71 +1504,24 @@ def dex_phase(torch, np, card, dev, tmp):
     tr = scene.i_train
     store = build_ray_store(scene.images[tr], scene.poses[tr], scene.hwf, near, far, device=dev,
                             intrinsics=scene.intrinsics[tr], depths=scene.depths[tr])
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    idx = torch.randint(0, store.num_rays, (batch,), generator=gen, device=dev)
-    rays, target = take_ray_batch(store, idx)
-    depth_gt = take_depth(store, idx).contiguous()
-    draws = draw_render_noise(batch, s_train, gen, dev)
-    o, d, v = (t.contiguous() for t in rays[:3])
-    target = target.contiguous()
     norm = float(batch)  # luminance: one channel a ray
-    mask = ((depth_gt > 0) & (depth_gt < DEX_VALID_MAX)).to(torch.float32)
-    dcoef = (norm * DEX_WEIGHT / torch.clamp(mask.sum(), min=1.0)) * mask
-    kw = dict(supervision="luminance", white_background=s_train.white_background)
-    z_c = jittered_z_vals(rays, s_train, draws)
-    passes = {"coarse": (coarse, z_c, draws.noise_coarse)}
-    per_pass, worst_t = {}, 0.0
-    print(f"phase 14: kernel 4 bf16 route, luminance + depth on both passes, {batch} rays "
-          f"({int(mask.sum())} with valid GT depth):")
-    for name in ("coarse", "fine"):
-        model, z, noise = passes[name]
-        args = (model, o, d, z, v, ray_dists(z, d), noise, target, depth_gt, dcoef)
-        want = ftl.fused_pass_loss_reference(*args, **kw)
-        worst_t = max(worst_t, check_train_bf16(name, model, args, norm, want, torch, phase=14,
-                                                **kw))
-        per_pass[name] = args
-        if name == "coarse":
-            z_f, _ = hierarchical_z_vals(z_c, want[1], s_train.num_fine, det=False, u=draws.u_fine)
-            passes["fine"] = (fine, z_f, draws.noise_fine)
+
+    def depth_args(idx):
+        depth_gt = take_depth(store, idx).contiguous()
+        mask = ((depth_gt > 0) & (depth_gt < DEX_VALID_MAX)).to(torch.float32)
+        print(f"  {int(mask.sum())} of the {batch} rays with valid GT depth")
+        return depth_gt, (norm * DEX_WEIGHT / torch.clamp(mask.sum(), min=1.0)) * mask
+
+    k4 = hold_train_bf16(
+        "phase 14: kernel 4 bf16 route, luminance + depth", 14, (coarse, fine), store, s_train,
+        float(cfg.optimizer.lr), batch, norm,
+        dict(supervision="luminance", depth_loss_weight=DEX_WEIGHT, depth_valid_max=DEX_VALID_MAX),
+        torch, dev, extra_of=depth_args)
     print_fwd_plan("kernel 4 (messytable)", fine,
-                   {k: tuple(a[3].shape) for k, a in per_pass.items()}, ftl.SCRATCH_SAMPLES,
+                   {k: tuple(a[3].shape) for k, a in k4.per_pass.items()}, ftl.SCRATCH_SAMPLES,
                    torch, dev)
-    print_dw_plan(fine, *per_pass["fine"][3].shape, torch, dev)
-
-    # ---- times: both passes, a depth-supervised step
-    ms, gemms = {}, []
-    bf = dict(kw, compute_dtype=torch.bfloat16, dw_dtype=torch.bfloat16)
-    for name, args in per_pass.items():
-        ms[f"{name}_kernel"] = timed_ms(lambda: ftl.fused_pass_loss(*args, **bf), torch)
-        ms[f"{name}_plain"] = timed_ms(lambda: ftl.fused_pass_loss_reference(*args, **bf), torch)
-        gemms += dw_gemm_operands(args[0], args[3].numel(), torch, dev)
-    ms["dw_torch_matmul"] = timed_ms(lambda: [torch.matmul(a.t(), b) for a, b in gemms], torch)
-    del gemms
-    flops, _, byts_b, _ = kernel4_sizes(per_pass, dev)
-    train_bound, train_bound_by = bound(flops, byts_b, BF16_FLOPS)
-    st = init_train_state(copy.deepcopy(coarse), copy.deepcopy(fine), float(cfg.optimizer.lr))
-    fused = ftl.make_fused_train_loss(
-        st.coarse, st.fine, s_train, supervision="luminance", depth_loss_weight=DEX_WEIGHT,
-        depth_valid_max=DEX_VALID_MAX, compute_dtype=torch.bfloat16, dw_dtype=torch.bfloat16)
-    step = make_train_step(s_train, batch, supervision="luminance", fused_loss=fused,
-                           depth_loss_weight=DEX_WEIGHT, depth_valid_max=DEX_VALID_MAX)
-
-    def run_step():
-        return step(st, store, gen)
-
-    run_step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        metrics = run_step()
-    torch.cuda.synchronize()
-    ms["step"] = 1e3 * (time.perf_counter() - t0) / 5
-    if not all(bool(torch.isfinite(t)) for t in metrics.values()):
-        raise AssertionError(f"phase 14: non-finite step metrics {metrics}")
-    print("  depth-supervised steps:")
-    prof = profile_steps(torch, run_step, {"kernel 4 bf16": KERNEL4_BF16_NAMES})
-    parts, sizes = bf16_parts(prof, 4, [(a[0], a[3].numel()) for a in per_pass.values()],
-                              ms["dw_torch_matmul"])
+    print_dw_plan(fine, *k4.per_pass["fine"][3].shape, torch, dev)
+    ms = k4.ms
 
     # ---- the validation frame: kernel 1's bf16 route at T = 20 vs its plain versions
     s_val = render_settings_from_cfg(cfg, "validation", dex=True).eval_variant()
@@ -1381,55 +1529,16 @@ def dex_phase(torch, np, card, dev, tmp):
     vi = int(scene.i_val[0])
     ro, rd = get_ray_bundle_w2c(H, W, torch.as_tensor(scene.poses[vi], device=dev),
                                 torch.as_tensor(scene.intrinsics[vi], device=dev))
-    vrays = make_ray_batch(ro, rd, near, far)
-    vo, vd, vv = (t.contiguous() for t in vrays[:3])
     vc, vf = copy.deepcopy(coarse), copy.deepcopy(fine)
-    zc = stratified_z_vals(vrays.near, vrays.far, s_val.num_coarse)
-    sub = slice(0, None, 40)
-    for m in (vc, vf):
-        pts = vo[sub, None] + vd[sub, None] * zc[sub, :, None]
-        calibrate_sigma_head(m, positional_encoding(pts, m.num_encoding_fn_xyz),
-                             positional_encoding(vv[sub], m.num_encoding_fn_dir), torch)
-    rkw = dict(white_background=s_val.white_background)
-    bkw = dict(rkw, compute_dtype=torch.bfloat16)
+    vrays = make_ray_batch(ro, rd, near, far)
+    calibrate_on((vc, vf), vrays, s_val, torch)
+    err_r, ms_r, render_bound, render_bound_by = hold_frame(
+        f"phase 14: validation frame {H}x{W}", vc, vf, vrays, s_val, torch)
+    ms.update({f"frame_{k}": t for k, t in ms_r.items()})
+    impl = fr.make_fused_render_rays(vc, vf, s_val, compute_dtype=torch.bfloat16)
     with torch.inference_mode():
-        dc = ray_dists(zc, vd)
-        args_c = (vc, vo, vd, vv, zc, dc)
-        print(f"phase 14: validation frame {H}x{W}, T = {len(thresholds)}, kernel 1 bf16 vs "
-              f"bf16 plain and vs f32 plain (BF16_* as phase 3):")
-        want_c = fr.fused_render_reference(*args_c, **bkw)
-        err_r = compare_bf16("messytable coarse", fr.fused_render(*args_c, **bkw), want_c,
-                             fr.fused_render_reference(*args_c, **rkw), torch)
-        zf, _ = hierarchical_z_vals(zc, want_c.weights, s_val.num_fine, det=True)
-        df = ray_dists(zf, vd)
-        args_f = (vf, vo, vd, vv, zf, df)
-        got_f = fr.fused_render(*args_f, thresholds=thresholds, **bkw)
-        want_f = fr.fused_render_reference(*args_f, thresholds=thresholds, **bkw)
-        err_r = max(err_r, compare_bf16("messytable fine", got_f, want_f, fr.fused_render_reference(
-            *args_f, thresholds=thresholds, **rkw), torch))
-        dex_eq = float((got_f.depth_dex == want_f.depth_dex).float().mean())
-        hit = float((want_f.depth_dex != zf[None, :, 0]).float().mean())
-        print(f"  dex: bf16 kernel = bf16 plain on {dex_eq:.6f} of {got_f.depth_dex.numel()} "
-              f"pairs (limit {BF16_DEX_SHARE}); past sample 0 on {hit:.3f} of them")
-        if dex_eq < BF16_DEX_SHARE:
-            raise AssertionError(f"phase 14: bf16 dex depths equal on only {dex_eq:.6f}")
-        for name, args, th in (("coarse", args_c, ()), ("fine", args_f, thresholds)):
-            ms[f"frame_{name}_kernel"] = timed_ms(
-                lambda: fr.fused_render(*args, thresholds=th, **bkw), torch)
-            ms[f"frame_{name}_plain"] = timed_ms(
-                lambda: fr.fused_render_reference(*args, thresholds=th, **bkw), torch)
-        impl = fr.make_fused_render_rays(vc, vf, s_val, compute_dtype=torch.bfloat16)
         ms["frame"] = timed_ms(
             lambda: render_image(vc, vf, ro, rd, near, far, s_val, rays_impl=impl), torch)
-        r_flops = r_bytes = 0
-        for m, z, dz, g in ((vc, zc, dc, None), (vf, zf, df, got_f)):
-            ps, pr = mlp_macs(m)
-            r_flops += 2 * (z.numel() * ps + z.shape[0] * pr)
-            # in: rays, depths, intervals, the bf16 pack; out: rgb, disparity,
-            # accumulation, depth, weights (and the fine pass's Dex depths)
-            r_bytes += (nbytes(vo, vd, vv, z, dz, *fr.pack_flex_weights_bf16(m)[:2]) + 4 * z.numel()
-                        + 4 * 6 * z.shape[0] + (nbytes(g.depth_dex) if g is not None else 0))
-        render_bound, render_bound_by = bound(r_flops, r_bytes, BF16_FLOPS)
         profile_steps(torch, lambda: render_image(vc, vf, ro, rd, near, far, s_val,
                                                   rays_impl=impl),
                       {"kernel 1 bf16": ("fused_render_bf16_kernel",)}, unit="frame")
@@ -1441,38 +1550,283 @@ def dex_phase(torch, np, card, dev, tmp):
           f"around synchronize, mean of 5; validate: host clock, one call on the run's "
           f"weights, best threshold {val.get('best_threshold')}): "
           + json.dumps({k: round(t, 3) for k, t in ms.items()}))
-    print(f"  kernel 4 bound for both passes {train_bound:.3f} ms ({train_bound_by}; "
-          f"{flops / 1e12:.4f} TFLOP, {byts_b / 1e6:.2f} MB); its kernels, device ms per step "
-          f"(profile) beside their bounds: " + json.dumps(parts) + "; sizes " + json.dumps(sizes))
-    print(f"  kernel 1 bound for the frame's two passes {render_bound:.3f} ms ({render_bound_by}; "
-          f"{r_flops / 1e12:.4f} TFLOP, {r_bytes / 1e6:.2f} MB); rays/s per step "
-          f"{round(batch / (ms['step'] / 1e3))}")
-    return [{
-        "name": "fused_train_loss_bf16@messytable-dex",
-        "route": "cuda",
-        "source": "dexnerf_tpu_torch/ops/csrc/fused_train_loss_bf16.cu",
-        "replaces": "dexnerf_tpu/ops/fused_train_loss.py:99",
-        "launches": counts["fused_train_loss_bf16"],
-        "max_abs_err": worst_t,
-        "ms": ms["coarse_kernel"] + ms["fine_kernel"],
-        "plain_ms": ms["coarse_plain"] + ms["fine_plain"],
-        "bound_ms": train_bound,
-        "bound_by": train_bound_by,
-        "library_ms": ms["dw_torch_matmul"],
-        "parts": parts,
-    }, {
-        "name": "fused_render_bf16@messytable-dex",
-        "route": "cuda",
-        "source": "dexnerf_tpu_torch/ops/csrc/fused_render_bf16.cu",
-        "replaces": "dexnerf_tpu/ops/fused_render.py:115",
-        "launches": counts["fused_render_bf16"],
-        "max_abs_err": err_r,
-        "ms": ms["frame_coarse_kernel"] + ms["frame_fine_kernel"],
-        "plain_ms": ms["frame_coarse_plain"] + ms["frame_fine_plain"],
-        "bound_ms": render_bound,
-        "bound_by": render_bound_by,
+    print(f"  kernel 4 bound for both passes {k4.bound_ms:.3f} ms ({k4.bound_by}; "
+          f"{k4.flops / 1e12:.4f} TFLOP, {k4.bytes / 1e6:.2f} MB); its kernels, device ms per "
+          f"step (profile) beside their bounds: " + json.dumps(k4.parts) + "; sizes "
+          + json.dumps(k4.sizes))
+    print(f"  rays/s per step {round(batch / (ms['step'] / 1e3))}")
+    return cfg_path, logdir, [
+        train_entry("fused_train_loss_bf16@messytable-dex", counts["fused_train_loss_bf16"], k4),
+        render_entry("fused_render_bf16@messytable-dex", counts["fused_render_bf16"], err_r, ms_r,
+                     render_bound, render_bound_by)]
+
+
+def hold_frame(label, coarse, fine, rays, s_val, torch):
+    """Kernel 1's bf16 route on one frame ``rays`` (a flat RayBatch) of
+    ``coarse``/``fine``: both passes vs the bf16 and f32 plain versions by
+    the BF16_* rule of phase 3, the Dex depths (``s_val``'s thresholds)
+    equal to the bf16 plain version's on >= BF16_DEX_SHARE of pairs; both
+    passes timed (CUDA events, mean of 3) beside their plain versions and
+    their bound. Returns (max abs error, ms, bound ms, bound_by)."""
+    from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals, stratified_z_vals
+    from dexnerf_tpu_torch.core.volrend import ray_dists
+    from dexnerf_tpu_torch.ops import fused_render as fr
+
+    vo, vd, vv = (t.contiguous() for t in rays[:3])
+    vc, vf = coarse, fine
+    zc = stratified_z_vals(rays.near, rays.far, s_val.num_coarse, lindisp=s_val.lindisp)
+    thresholds = tuple(s_val.m_thres_cand)
+    rkw = dict(white_background=s_val.white_background)
+    bkw = dict(rkw, compute_dtype=torch.bfloat16)
+    ms = {}
+    with torch.inference_mode():
+        dc = ray_dists(zc, vd)
+        args_c = (vc, vo, vd, vv, zc, dc)
+        print(f"{label}: {vo.shape[0]} rays, T = {len(thresholds)}, kernel 1 bf16 vs bf16 plain "
+              f"and vs f32 plain (BF16_* as phase 3):")
+        want_c = fr.fused_render_reference(*args_c, **bkw)
+        err = compare_bf16("coarse", fr.fused_render(*args_c, **bkw), want_c,
+                           fr.fused_render_reference(*args_c, **rkw), torch)
+        zf, _ = hierarchical_z_vals(zc, want_c.weights, s_val.num_fine, det=True)
+        df = ray_dists(zf, vd)
+        args_f = (vf, vo, vd, vv, zf, df)
+        got_f = fr.fused_render(*args_f, thresholds=thresholds, **bkw)
+        want_f = fr.fused_render_reference(*args_f, thresholds=thresholds, **bkw)
+        err = max(err, compare_bf16("fine", got_f, want_f, fr.fused_render_reference(
+            *args_f, thresholds=thresholds, **rkw), torch))
+        if thresholds:
+            dex_eq = float((got_f.depth_dex == want_f.depth_dex).float().mean())
+            hit = float((want_f.depth_dex != zf[None, :, 0]).float().mean())
+            print(f"  dex: bf16 kernel = bf16 plain on {dex_eq:.6f} of "
+                  f"{got_f.depth_dex.numel()} pairs (limit {BF16_DEX_SHARE}); past sample 0 on "
+                  f"{hit:.3f} of them")
+            if dex_eq < BF16_DEX_SHARE:
+                raise AssertionError(f"{label}: bf16 dex depths equal on only {dex_eq:.6f}")
+        for name, args, th in (("coarse", args_c, ()), ("fine", args_f, thresholds)):
+            ms[f"{name}_kernel"] = timed_ms(
+                lambda: fr.fused_render(*args, thresholds=th, **bkw), torch)
+            ms[f"{name}_plain"] = timed_ms(
+                lambda: fr.fused_render_reference(*args, thresholds=th, **bkw), torch)
+        r_flops = r_bytes = 0
+        for m, z, dz, g in ((vc, zc, dc, None), (vf, zf, df, got_f)):
+            ps, pr = mlp_macs(m)
+            r_flops += 2 * (z.numel() * ps + z.shape[0] * pr)
+            # in: rays, depths, intervals, the bf16 pack; out: rgb, disparity,
+            # accumulation, depth, weights (and the fine pass's Dex depths)
+            r_bytes += (nbytes(vo, vd, vv, z, dz, *fr.pack_flex_weights_bf16(m)[:2])
+                        + 4 * z.numel() + 4 * 6 * z.shape[0]
+                        + (nbytes(g.depth_dex) if g is not None else 0))
+    b_ms, b_by = bound(r_flops, r_bytes, BF16_FLOPS)
+    print(f"  kernel 1 bound for the frame's two passes {b_ms:.3f} ms ({b_by}; "
+          f"{r_flops / 1e12:.4f} TFLOP, {r_bytes / 1e6:.2f} MB)")
+    return err, ms, b_ms, b_by
+
+
+def render_entry(name, launches, err, ms, b_ms, b_by):
+    """A kernels-line entry of kernel 1's bf16 route from :func:`hold_frame`."""
+    return {
+        "name": name, "route": "cuda", "source": "dexnerf_tpu_torch/ops/csrc/fused_render_bf16.cu",
+        "replaces": "dexnerf_tpu/ops/fused_render.py:115", "launches": launches,
+        "max_abs_err": err, "ms": ms["coarse_kernel"] + ms["fine_kernel"],
+        "plain_ms": ms["coarse_plain"] + ms["fine_plain"], "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
-    }]
+    }
+
+
+def eval_phase(torch, np, card, dev, tmp, cfg_path, logdir):
+    """Phase 15, evaluation of phase 14's messytable weights (its last
+    checkpoint, σ heads calibrated on the test view as in phase 3, so that
+    the Dex thresholds cross, written as a reference ``.ckpt``) through
+    ``apps.eval --test-set --dex-depth`` with every output (point cloud at
+    a σ threshold, confidence, disparity, jet, GIF): two launches of kernel
+    1's bf16 route per frame and none of its f32 route; the test frame held
+    to its plain versions; eval's expected-depth and Dex errors equal to
+    ``validate(dex=True)``'s on the same weights and view; ``metrics.json``
+    and the PLY; the frame's host-clock ms and the kernel's two passes.
+    Returns the kernels-line entry."""
+    from dexnerf_tpu_torch.config import render_settings_from_cfg
+    from dexnerf_tpu_torch.core.rays import get_ray_bundle_w2c
+    from dexnerf_tpu_torch.render.renderer import make_ray_batch, render_image
+    from dexnerf_tpu_torch.train.checkpoints import write_reference_checkpoint
+    from dexnerf_tpu_torch.train.loop import fused_render_impl, load_scene, validate
+    from dexnerf_tpu_torch.utils import read_ply
+
+    cfg, coarse, fine, _ = run_models(cfg_path, logdir, DEX_ITERS, dev)
+    scene = load_scene(cfg)
+    idx = int(scene.i_test[0])
+    s_val = render_settings_from_cfg(cfg, "validation", dex=True).eval_variant()
+    H, W = int(scene.hwf[0]), int(scene.hwf[1])
+    near, far = float(cfg.dataset.near), float(cfg.dataset.far)
+    ro, rd = get_ray_bundle_w2c(H, W, torch.as_tensor(scene.poses[idx], device=dev),
+                                torch.as_tensor(scene.intrinsics[idx], device=dev))
+    rays = make_ray_batch(ro, rd, near, far)
+    calibrate_on((coarse, fine), rays, s_val, torch)
+    ckpt = os.path.join(tmp, "messytable-calibrated.ckpt")
+    write_reference_checkpoint(ckpt, coarse.state_dict(), fine.state_dict())
+    savedir = os.path.join(tmp, "eval-messytable")
+    counts, metrics, secs = eval_cli(cfg_path, ckpt, savedir, [
+        "--test-set", "--dex-depth", "--save-pointcloud", "--pointcloud-threshold",
+        str(EVAL_PC_THRESHOLD), "--save-depth-confidence", "0.05", "--save-disparity-image",
+        "--save-jet-disparity", "--save-gif"], dev)
+    frames = len(metrics["per_image"])
+    row = metrics["per_image"][0]
+    val = validate(coarse, fine, scene, cfg, supervision="luminance", device=dev, dex=True,
+                   val_idx=idx)
+    ply = read_ply(os.path.join(savedir, "pointcloud", "0000.ply"))[0]
+    print(f"phase 15: apps.eval --test-set --dex-depth on phase 14's weights, {frames} "
+          f"frame(s) in {secs:.2f} s (kernels built, first call); launches {json.dumps(counts)}; "
+          f"metrics.json mean {json.dumps(metrics['mean'])}, dex_gt {metrics.get('dex_gt')}; "
+          f"validate(dex=True) on view {idx}: depth_abs_err {val.get('depth_abs_err')}, "
+          f"min_abs_err {val.get('min_abs_err')} at m = {val.get('best_threshold')}; PLY "
+          f"{ply.shape[0]} points")
+    run_checks("evaluation", {
+        "2 launches of kernel 1's bf16 route per frame, none of its f32 route":
+            frames >= 1 and counts["fused_render_bf16"] == 2 * frames
+            and counts["fused_render"] == counts["fused_render_bf16"],
+        "no other kernel launched": all(v == 0 for k, v in counts.items()
+                                        if not k.startswith("fused_render")),
+        "metrics.json keys": {"per_image", "mean", "avg_s_per_image", "dex_gt"} <= set(metrics)
+        and {"psnr", "ssim", "depth_abs_err", "dex_abs_err", "dex_best_m", "depth_conf"}
+        <= set(row) and all(np.isfinite(v) for v in metrics["mean"].values()),
+        "eval's depth_abs_err and dex_abs_err = validate(dex=True)'s":
+            row["depth_abs_err"] == val["depth_abs_err"]
+            and row["dex_abs_err"] == val["min_abs_err"]
+            and row["dex_best_m"] == val["best_threshold"],
+        f"view {idx} scored first": int(row["index"]) == idx,
+        "PLY not empty, finite": ply.shape[0] > 0 and bool(np.isfinite(ply).all()),
+        "frame, disparity, jet, confidence and error PNGs, GIF": all(
+            os.path.exists(os.path.join(savedir, p)) for p in (
+                "0000.png", "disparity/0000.png", "disparity_jet/0000.png",
+                "confidence/0000.png", "depth_err/0000.png", "render.gif")),
+    })
+
+    # the test frame, as eval rendered it, vs the plain versions
+    err, ms, b_ms, b_by = hold_frame("phase 15: the test frame", coarse, fine, rays, s_val,
+                                     torch)
+    impl = fused_render_impl(cfg, s_val, dev, coarse, fine)
+    with torch.inference_mode():
+        ms["frame_host"] = host_ms(torch, lambda: render_image(
+            coarse, fine, ro, rd, near, far, s_val, rays_impl=impl))
+    ms["eval_avg_s_per_image"] = metrics["avg_s_per_image"]
+    print(f"phase 15: ms on {card} (passes: CUDA events, mean of 3; frame_host: host clock of "
+          f"a warm render_image to its synchronize, mean of 3; eval_avg_s_per_image: apps.eval's "
+          f"own seconds per frame, first call): " + json.dumps(
+              {k: round(t, 4) for k, t in ms.items()}))
+    return [render_entry("fused_render_bf16@messytable-eval", counts["fused_render_bf16"], err,
+                         ms, b_ms, b_by)]
+
+
+def llff_phase(torch, np, card, dev, tmp):
+    """Phase 16, the LLFF/NDC path: write a forward-facing scene with the
+    port's writer at fern's factor-8 size (378x504, loaded at factor 1),
+    train ``configs/llff.yml`` (``nerf.use_pallas: true``) on it through
+    ``apps.train`` for 20 steps (40 launches of kernel 4's bf16 route on
+    NDC rays, the loss falls; validations through kernel 1 on NDC rays),
+    hold kernel 4's bf16 route to its plain version on one batch of the run
+    and kernel 1's on one NDC frame, time a step and the frame, and score
+    the held-out views through ``apps.eval --test-set`` (depths as metric
+    ray distances through ``ndc_t_to_world_depth``). Returns the two
+    kernels-line entries."""
+    import copy
+
+    from dexnerf_tpu_torch.config import render_settings_from_cfg
+    from dexnerf_tpu_torch.core.metrics import compute_err_metric
+    from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w, ndc_t_to_world_depth
+    from dexnerf_tpu_torch.data.pipeline import build_ray_store
+    from dexnerf_tpu_torch.data.synthetic import write_llff_dataset
+    from dexnerf_tpu_torch.render.renderer import make_ray_batch, render_image
+    from dexnerf_tpu_torch.train.loop import fused_render_impl, load_scene
+
+    t0 = time.perf_counter()
+    data = os.path.join(tmp, "llff")
+    write_llff_dataset(data, *LLFF_HW, views=LLFF_VIEWS, device=dev)
+    dataset_s = time.perf_counter() - t0
+    cfg_path, logdir, counts, losses, val_psnr, secs, peak_gb = train_cli(
+        tmp, data, "llff", LLFF_ITERS, torch, dev, config=LLFF_CONFIG,
+        dataset={"downsample_factor": 1, "depth_valid_max": LLFF_VALID_MAX}, use_pallas=True)
+    print(f"phase 16: llff ({LLFF_HW[0]}x{LLFF_HW[1]}, {LLFF_VIEWS} views written in "
+          f"{dataset_s:.2f} s, NDC): {LLFF_ITERS} steps in {secs:.2f} s; launches "
+          f"{json.dumps(counts)}; peak {peak_gb:.2f} GiB; loss first {losses[0]:.5f} last "
+          f"{losses[-1]:.5f}; validation psnr {val_psnr}")
+    n_val = len(val_psnr)
+    run_checks("LLFF training", {
+        f"kernel 4's bf16 route launched {2 * LLFF_ITERS} times, its f32 route never":
+            counts["fused_train_loss_bf16"] == 2 * LLFF_ITERS
+            and counts["fused_train_loss"] == counts["fused_train_loss_bf16"],
+        "validations at steps 0 and last, each 2 launches of kernel 1's bf16 route":
+            n_val == 2 and counts["fused_render_bf16"] == 2 * n_val == counts["fused_render"],
+        f"{LLFF_ITERS} finite losses": len(losses) == LLFF_ITERS
+        and bool(np.isfinite(losses).all()),
+        "loss falls (mean of last 5 < first 5)": np.mean(losses[-5:]) < np.mean(losses[:5]),
+    })
+
+    # ---- kernel 4's bf16 route vs plain on one NDC batch of the run
+    cfg, coarse, fine, _ = run_models(cfg_path, logdir, LLFF_ITERS, dev)
+    ckpt = os.path.join(logdir, "checkpoints", f"checkpoint_{LLFF_ITERS - 1:07d}.ckpt")
+    scene = load_scene(cfg)
+    s_train = render_settings_from_cfg(cfg, "train")
+    batch = int(cfg.nerf.train.num_random_rays)
+    near, far = float(cfg.dataset.near), float(cfg.dataset.far)
+    tr = scene.i_train
+    store = build_ray_store(scene.images[tr], scene.poses[tr], scene.hwf, near, far, device=dev,
+                            use_ndc=True)
+    k4 = hold_train_bf16("phase 16: kernel 4 bf16 route on NDC rays", 16, (coarse, fine), store,
+                         s_train, float(cfg.optimizer.lr), batch, 3.0 * batch, {}, torch, dev)
+    ms = k4.ms
+
+    # ---- kernel 1's bf16 route on one NDC frame (the run's weights, σ calibrated)
+    s_val = render_settings_from_cfg(cfg, "validation").eval_variant()
+    H, W, focal = int(scene.hwf[0]), int(scene.hwf[1]), float(scene.hwf[2])
+    vi = int(scene.i_val[0])
+    ro, rd = get_ray_bundle_c2w(H, W, focal, torch.as_tensor(scene.poses[vi], device=dev))
+    ndc = dict(use_ndc=True, height=H, width=W, focal_length=focal)
+    vc, vf = copy.deepcopy(coarse), copy.deepcopy(fine)
+    vrays = make_ray_batch(ro, rd, near, far, **ndc)
+    calibrate_on((vc, vf), vrays, s_val, torch)
+    err_r, ms_r, r_bound, r_by = hold_frame("phase 16: an NDC frame", vc, vf, vrays, s_val, torch)
+    impl = fused_render_impl(cfg, s_val, dev, coarse, fine)
+    with torch.inference_mode():
+        ms_r["host"] = host_ms(torch, lambda: render_image(
+            coarse, fine, ro, rd, near, far, s_val, rays_impl=impl, **ndc))
+
+    # ---- apps.eval --test-set: the held-out views scored as metric distances
+    savedir = os.path.join(tmp, "eval-llff")
+    e_counts, metrics, e_secs = eval_cli(cfg_path, ckpt, savedir, ["--test-set"], dev)
+    frames = len(metrics["per_image"])
+    row = metrics["per_image"][0]
+    ti = int(row["index"])
+    ro, rd = get_ray_bundle_c2w(H, W, focal, torch.as_tensor(scene.poses[ti], device=dev))
+    with torch.inference_mode():
+        depth = render_image(coarse, fine, ro, rd, near, far, s_val, rays_impl=impl,
+                             **ndc).fine.depth
+        world = ndc_t_to_world_depth(depth, ro, rd, H, W, focal).cpu().numpy()
+    gt = scene.depths[ti]
+    mask = (gt > 0) & (gt < LLFF_VALID_MAX)
+    recomputed = compute_err_metric(gt, world, mask)["depth_abs_err"]
+    print(f"phase 16: apps.eval --test-set, {frames} views in {e_secs:.2f} s; launches "
+          f"{json.dumps(e_counts)}; metrics.json mean {json.dumps(metrics['mean'])}; view {ti}: "
+          f"depth_abs_err {row.get('depth_abs_err')} (scene mm; through ndc_t_to_world_depth "
+          f"here {recomputed}; the NDC parameter itself would read "
+          f"{compute_err_metric(gt, depth.cpu().numpy(), mask)['depth_abs_err']})")
+    run_checks("LLFF evaluation", {
+        "2 launches of kernel 1's bf16 route per held-out view, none of its f32 route":
+            frames == len(scene.i_test) and e_counts["fused_render_bf16"] == 2 * frames
+            and e_counts["fused_render"] == e_counts["fused_render_bf16"],
+        "depth scored through ndc_t_to_world_depth, finite":
+            row["depth_abs_err"] == recomputed and bool(np.isfinite(recomputed)),
+        "PSNR and SSIM finite": all(np.isfinite([row["psnr"], row["ssim"]])),
+    })
+    print(f"phase 16: ms on {card} (kernel passes: CUDA events, mean of 3; step and frame_host: "
+          f"host clock to synchronize, mean of 5 and 3): " + json.dumps(
+              {k: round(t, 4) for k, t in {**ms, **{f"frame_{k}": t for k, t in ms_r.items()},
+                                           "eval_avg_s_per_image": metrics["avg_s_per_image"]
+                                           }.items()}))
+    print(f"  kernel 4 bound for both passes {k4.bound_ms:.3f} ms ({k4.bound_by}); its "
+          f"kernels, device ms per step (profile) beside their bounds: " + json.dumps(k4.parts)
+          + f"; rays/s per step {round(batch / (ms['step'] / 1e3))}")
+    return [train_entry("fused_train_loss_bf16@llff-ndc", counts["fused_train_loss_bf16"], k4),
+            render_entry("fused_render_bf16@llff-ndc", counts["fused_render_bf16"], err_r, ms_r,
+                    r_bound, r_by)]
 
 
 def profile_steps(torch, step, kernels_of, n=3, unit="step"):
@@ -1625,16 +1979,7 @@ def main() -> int:
     bkw = dict(kw, compute_dtype=bf16)
     thresholds = tuple(settings.m_thres_cand)
     z_c = stratified_z_vals(rays.near, rays.far, settings.num_coarse)
-    # calibrate both σ heads on every 40th ray of the frame
-    sub = slice(0, None, 40)
-    for model in (coarse, fine):
-        pts = o[sub, None] + d[sub, None] * z_c[sub, :, None]
-        calibrate_sigma_head(
-            model,
-            positional_encoding(pts, model.num_encoding_fn_xyz),
-            positional_encoding(v[sub], model.num_encoding_fn_dir),
-            torch,
-        )
+    calibrate_on((coarse, fine), rays, settings, torch)
     with torch.inference_mode():
         dist_c = ray_dists(z_c, d)
         args_c = (coarse, o, d, v, z_c, dist_c)
@@ -1849,7 +2194,9 @@ def main() -> int:
         train_kernels, shared = train_phase(torch, np, card, dev, tmp)
         field_kernels = field_phase(torch, np, card, dev, tmp, shared)
         resample_kernels = resample_phase(torch, np, card, dev, tmp, shared)
-        dex_kernels = dex_phase(torch, np, card, dev, tmp)
+        dex_cfg, dex_logdir, dex_kernels = dex_phase(torch, np, card, dev, tmp)
+        eval_kernels = eval_phase(torch, np, card, dev, tmp, dex_cfg, dex_logdir)
+        llff_kernels = llff_phase(torch, np, card, dev, tmp)
     render = dict(route="cuda", replaces="dexnerf_tpu/ops/fused_render.py:115", library_ms=None)
     print(json.dumps({"kernels": [{
         "name": "fused_render",
@@ -1871,7 +2218,8 @@ def main() -> int:
         "plain_ms": ms["coarse_plain_bf16"] + ms["fine_plain_bf16"],
         "bound_ms": bf16_bound,
         "bound_by": bf16_bound_by,
-    }, *train_kernels, *field_kernels, *resample_kernels, *dex_kernels]}))
+    }, *train_kernels, *field_kernels, *resample_kernels, *dex_kernels, *eval_kernels,
+        *llff_kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

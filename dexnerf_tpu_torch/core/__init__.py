@@ -5,7 +5,13 @@ from dexnerf_tpu_torch.core.encoding import (
     frequency_bands,
     positional_encoding,
 )
-from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w, get_ray_bundle_w2c, pixel_grid
+from dexnerf_tpu_torch.core.rays import (
+    get_ray_bundle_c2w,
+    get_ray_bundle_w2c,
+    ndc_rays,
+    ndc_t_to_world_depth,
+    pixel_grid,
+)
 from dexnerf_tpu_torch.core.sampling import (
     hierarchical_z_vals,
     linspace,
@@ -37,6 +43,8 @@ __all__ = [
     "get_ray_bundle_w2c",
     "hierarchical_z_vals",
     "linspace",
+    "ndc_rays",
+    "ndc_t_to_world_depth",
     "pixel_grid",
     "positional_encoding",
     "ray_dists",

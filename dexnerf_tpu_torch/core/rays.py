@@ -1,8 +1,8 @@
 """Ray generation from a camera-to-world pose (blender/llff convention) or
-a world-to-camera pose and intrinsics (messytable convention).
+a world-to-camera pose and intrinsics (messytable convention), and the
+LLFF normalized-device-coordinate (NDC) projection.
 
-Counterpart of the c2w and w2c + K parts of ``dexnerf_tpu/core/rays.py``;
-NDC is not ported yet.
+Counterpart of ``dexnerf_tpu/core/rays.py``.
 """
 
 from __future__ import annotations
@@ -81,3 +81,57 @@ def get_ray_bundle_w2c(
     rays_d = _rotate(directions, inv_rot)
     rays_o = torch.linalg.inv(w2c64)[:3, 3].to(dtype).expand(rays_d.shape)
     return rays_o, rays_d
+
+
+def ndc_rays(
+    height: int,
+    width: int,
+    focal_length: float,
+    near: float,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shift the rays to the plane z = -near and project them into NDC
+    space (the original NeRF's LLFF math, reference
+    ``nerf_helpers.py:172-199``). Returns (origins, directions), [..., 3]
+    each, in the rays' dtype."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+    ox, oy, oz = rays_o[..., 0], rays_o[..., 1], rays_o[..., 2]
+    dx, dy, dz = rays_d[..., 0], rays_d[..., 1], rays_d[..., 2]
+    sx = -1.0 / (width / (2.0 * focal_length))
+    sy = -1.0 / (height / (2.0 * focal_length))
+    o = torch.stack([sx * ox / oz, sy * oy / oz, 1.0 + 2.0 * near / oz], dim=-1)
+    d = torch.stack(
+        [sx * (dx / dz - ox / oz), sy * (dy / dz - oy / oz), -2.0 * near / oz], dim=-1
+    )
+    return o, d
+
+
+def ndc_t_to_world_depth(
+    t: torch.Tensor,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    height: int,
+    width: int,
+    focal_length: float,
+    near: float = 1.0,
+) -> torch.Tensor:
+    """Metric ray distance (scene units) of NDC ray parameters ``t``.
+
+    An NDC render samples ``t`` in [0, 1] along the projected ray, so its
+    expected and σ-threshold depths are NDC parameters. This inverts the
+    projection: the NDC point ``o' + t d'`` has world z ``2 near / (p_z -
+    1)`` (clamped at -1e-6 below 0 in the denominator, so t = 1, the far
+    plane at infinity, stays finite), x and y follow from the perspective
+    divide, and the result is the distance from the world ray origin
+    ``rays_o`` to that point. Exact for sample-valued ``t``; for the
+    expected depth it converts the expectation's location. ``t`` broadcasts
+    against the rays: [H, W] rays take [H, W] or [T, H, W] parameters."""
+    o_ndc, d_ndc = ndc_rays(height, width, focal_length, near, rays_o, rays_d)
+    p = o_ndc + t[..., None] * d_ndc
+    sx = -1.0 / (width / (2.0 * focal_length))
+    sy = -1.0 / (height / (2.0 * focal_length))
+    z = 2.0 * near / torch.clamp(p[..., 2] - 1.0, max=-1e-6)
+    pw = torch.stack([p[..., 0] * z / sx, p[..., 1] * z / sy, z], dim=-1)
+    return torch.linalg.norm(pw - rays_o, dim=-1)

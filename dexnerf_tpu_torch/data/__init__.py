@@ -1,5 +1,5 @@
-"""Datasets: the blender and messytable loaders, synthetic scenes, the
-device ray store."""
+"""Datasets: the blender, messytable and LLFF loaders, synthetic scenes,
+the device ray store."""
 
 from dexnerf_tpu_torch.data.blender import (
     load_blender_data,
@@ -9,6 +9,7 @@ from dexnerf_tpu_torch.data.blender import (
     rotate_theta_y,
     translate_z,
 )
+from dexnerf_tpu_torch.data.llff import load_llff_data, load_llff_depths
 from dexnerf_tpu_torch.data.messytable import load_messytable_data
 from dexnerf_tpu_torch.data.pipeline import (
     RayStore,
@@ -22,6 +23,7 @@ from dexnerf_tpu_torch.data.synthetic import (
     make_synthetic_scene,
     render_analytic_image,
     write_blender_dataset,
+    write_llff_dataset,
     write_messytable_dataset,
 )
 
@@ -31,6 +33,8 @@ __all__ = [
     "build_ray_store",
     "load_blender_data",
     "load_blender_depths",
+    "load_llff_data",
+    "load_llff_depths",
     "load_messytable_data",
     "make_synthetic_scene",
     "pose_spherical",
@@ -42,5 +46,6 @@ __all__ = [
     "take_ray_batch",
     "translate_z",
     "write_blender_dataset",
+    "write_llff_dataset",
     "write_messytable_dataset",
 ]

@@ -27,7 +27,7 @@ import numpy as np
 
 from dexnerf_tpu_torch.data.blender import _area_downsample, spherical_render_poses
 
-UNPORTED_RESIZE = "ROADMAP.md Queue 1 item 4"
+UNPORTED_RESIZE = "ROADMAP.md Queue 1 item 4c"
 
 
 def _load_pickle(path: str):

@@ -1,7 +1,7 @@
 """Device-resident ray store and batch sampling.
 
-Counterpart of ``dexnerf_tpu/data/pipeline.py`` (camera-to-world rays, or
-world-to-camera rays with intrinsics; no NDC): ray generation runs once over all training images and the rays
+Counterpart of ``dexnerf_tpu/data/pipeline.py`` (camera-to-world rays,
+world-to-camera rays with intrinsics, or LLFF rays in NDC): ray generation runs once over all training images and the rays
 live on the device as one [N_rays, 12] float32 tensor (origin 3,
 direction 3, viewdir 3, rgb 3). Each step gathers a batch of rows by
 index. Index draws come from a ``torch.Generator`` on the store's device,
@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w, get_ray_bundle_w2c
+from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w, get_ray_bundle_w2c, ndc_rays
 from dexnerf_tpu_torch.render.renderer import RayBatch
 
 
@@ -53,12 +53,15 @@ def build_ray_store(
     *,
     device,
     intrinsics: Optional[np.ndarray] = None,
+    use_ndc: bool = False,
     depths: Optional[np.ndarray] = None,
 ) -> RayStore:
     """Generate and pack the rays of every image on ``device``. ``poses``
     are c2w [N, 4, 4] unless ``intrinsics`` [N, 3, 3] is given; then they
     are w2c and each view's rays come from its full K (the messytable
-    convention). ``depths`` [N, H, W] attaches ray-aligned GT depth."""
+    convention). ``use_ndc`` projects the rays into NDC (near plane 1.0)
+    after the viewdirs are taken from the world directions (LLFF).
+    ``depths`` [N, H, W] attaches ray-aligned GT depth."""
     H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
     rows = []
     for k, (img, pose) in enumerate(zip(images, poses)):
@@ -69,6 +72,8 @@ def build_ray_store(
         else:
             ro, rd = get_ray_bundle_c2w(H, W, focal, pose)
         viewdirs = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+        if use_ndc:
+            ro, rd = ndc_rays(H, W, focal, 1.0, ro, rd)
         rgb = torch.as_tensor(np.asarray(img[..., :3], np.float32), device=device)
         rows.append(
             torch.cat([t.reshape(-1, 3) for t in (ro, rd, viewdirs, rgb)], dim=-1)

@@ -3,10 +3,11 @@
 Counterpart of ``dexnerf_tpu/data/synthetic.py``: an analytic
 emission-absorption field (soft spheres, optional shells and planes)
 rendered with the port's own compositor gives ground-truth posed images,
-and :func:`write_blender_dataset` / :func:`write_messytable_dataset` lay
-them out on disk in the blender format (transforms JSONs + PNGs) and the
-messytable format (``meta.pkl`` + gray PNG + uint16 millimeter depth PNG),
-written with PIL, for the loaders.
+and :func:`write_blender_dataset` / :func:`write_messytable_dataset` /
+:func:`write_llff_dataset` lay them out on disk in the blender format
+(transforms JSONs + PNGs), the messytable format (``meta.pkl`` + gray PNG
++ uint16 millimeter depth PNG) and the LLFF format (``poses_bounds.npy``
++ ``images/`` + ``depths/`` sidecars), written with PIL, for the loaders.
 """
 
 from __future__ import annotations
@@ -230,3 +231,97 @@ def write_messytable_dataset(
             with open(os.path.join(d, "meta.pkl"), "wb") as f:
                 pickle.dump({"extrinsic_l": w2c, "intrinsic_l": K}, f)
             idx += 1
+
+
+# The forward-facing scene of write_llff_dataset, in the frame the LLFF
+# loader puts the cameras in (the average camera at the origin looking
+# down -z): three spheres between z = -2.3 and -4.5, and an opaque wall
+# behind z = -6 so that every ray hits something.
+LLFF_SPHERES = (
+    ((0.0, 0.0, -3.0), 0.6, (0.9, 0.2, 0.2), 40.0),
+    ((0.7, 0.4, -4.0), 0.5, (0.2, 0.4, 0.9), 60.0),
+    ((-0.8, -0.3, -2.6), 0.35, (0.2, 0.8, 0.3), 60.0),
+)
+LLFF_PLANES = (((0.0, 0.0, 1.0), -6.0, (0.7, 0.7, 0.6), 60.0),)
+# fern's focal length, 410 px at 504 px wide, scaled to the written width
+LLFF_FOCAL_PER_WIDTH = 410.0 / 504.0
+# the σ threshold of the d_dex_ sidecars
+LLFF_DEX_THRESHOLD = 25.0
+# the seed of the camera positions
+LLFF_SEED = 0
+
+
+def _lookat_c2w(pos: np.ndarray, target: np.ndarray) -> np.ndarray:
+    """NeRF-convention c2w [3, 4]: columns right, up, back, position."""
+    back = pos - target
+    back = back / np.linalg.norm(back)
+    right = np.cross(np.array([0.0, 1.0, 0.0]), back)
+    right = right / np.linalg.norm(right)
+    return np.stack([right, np.cross(back, right), back, pos], axis=1)
+
+
+def write_llff_dataset(
+    basedir: str,
+    height: int = 32,
+    width: int = 48,
+    views: int = 10,
+    device="cpu",
+) -> None:
+    """Write an LLFF-format forward-facing dataset of the analytic scene
+    (``LLFF_SPHERES``, ``LLFF_PLANES``), in the layout of
+    ``tools/make_llff_dataset_from_ckpt.py``: ``poses_bounds.npy``,
+    ``images/r_<k>.png`` (``height`` x ``width``, 8-bit RGB) and the depth
+    sidecars ``depths/d_<k>.npy`` (expected depth) and ``d_dex_<k>.npy``
+    (the first sample with σ > ``LLFF_DEX_THRESHOLD``), float32 ray distances
+    from the camera in scene units, 0 where the view's accumulation is at
+    most 0.5.
+
+    Cameras: ``views`` look-at poses at positions uniform in ±(0.25, 0.18,
+    0.08) (``np.random.default_rng(LLFF_SEED)``) aimed at (0, 0, -2);
+    bounds (4/3, 8), so the loader's rescale is exactly 1; focal length
+    fern's 410 px at 504 px wide, scaled to ``width``. As in the tool, the
+    poses are written first with placeholder images, read back through
+    :func:`~dexnerf_tpu_torch.data.llff.load_llff_data` (factor 1, no
+    spherify), and the views rendered on ``device`` at the poses the loader
+    gives, so images and loaded poses agree."""
+    from PIL import Image
+
+    from dexnerf_tpu_torch.data.llff import load_llff_data
+
+    focal = LLFF_FOCAL_PER_WIDTH * width
+    rng = np.random.default_rng(LLFF_SEED)
+    rows = []
+    for _ in range(int(views)):
+        pos = rng.uniform(-1.0, 1.0, 3) * np.array([0.25, 0.18, 0.08])
+        loaded = np.concatenate(
+            [_lookat_c2w(pos, np.array([0.0, 0.0, -2.0])), [[height], [width], [focal]]], 1)
+        # storage column order [-y, x, z]: the loader turns it back into [x, y, z]
+        storage = np.concatenate([-loaded[:, 1:2], loaded[:, 0:1], loaded[:, 2:]], 1)
+        rows.append(np.concatenate([storage.reshape(-1), [4.0 / 3.0, 8.0]]))
+    imgdir = os.path.join(basedir, "images")
+    os.makedirs(imgdir, exist_ok=True)
+    os.makedirs(os.path.join(basedir, "depths"), exist_ok=True)
+    np.save(os.path.join(basedir, "poses_bounds.npy"), np.stack(rows, 0))
+    names = [os.path.join(imgdir, f"r_{k:03d}.png") for k in range(int(views))]
+    for name in names:
+        Image.fromarray(np.zeros((height, width, 3), np.uint8)).save(name)
+    _, poses, _, _, _ = load_llff_data(basedir, factor=None)
+    near, far, n_samples = 1.0, 8.0, 128
+    t = linspace(near, far, n_samples, torch.float32, device)
+    for k, name in enumerate(names):
+        pose = torch.as_tensor(poses[k, :3, :4], device=device)
+        ro, rd = get_ray_bundle_c2w(height, width, float(poses[k, 2, 4]), pose)
+        pts = ro[..., None, :] + rd[..., None, :] * t[:, None]
+        raw = analytic_field(pts, spheres=LLFF_SPHERES, planes=LLFF_PLANES)
+        z = t.expand(*rd.shape[:-1], n_samples)
+        out = volume_render_radiance_field(raw, z, rd, white_background=True,
+                                           m_thres_cand=(LLFF_DEX_THRESHOLD,))
+        norm = torch.linalg.norm(rd, dim=-1)
+        hit = out.accumulation > 0.5
+        zero = torch.zeros_like(norm)
+        d_exp = torch.where(hit, out.depth * norm, zero)
+        d_dex = torch.where(hit, out.depth_dex[0] * norm, zero)
+        rgb = (torch.clamp(out.rgb, 0, 1) * 255).to(torch.uint8).cpu().numpy()
+        Image.fromarray(rgb).save(name)
+        np.save(os.path.join(basedir, "depths", f"d_{k}.npy"), d_exp.cpu().numpy())
+        np.save(os.path.join(basedir, "depths", f"d_dex_{k}.npy"), d_dex.cpu().numpy())

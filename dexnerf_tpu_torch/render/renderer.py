@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from dexnerf_tpu_torch.core.encoding import positional_encoding
+from dexnerf_tpu_torch.core.rays import ndc_rays
 from dexnerf_tpu_torch.core.sampling import (
     hierarchical_z_vals,
     perturb_z_vals,
@@ -126,13 +127,29 @@ RaysImpl = Callable[[RayBatch], RenderResult]
 
 
 def make_ray_batch(
-    ray_origins: torch.Tensor, ray_directions: torch.Tensor, near: float, far: float
+    ray_origins: torch.Tensor,
+    ray_directions: torch.Tensor,
+    near: float,
+    far: float,
+    *,
+    use_ndc: bool = False,
+    height: Optional[int] = None,
+    width: Optional[int] = None,
+    focal_length: Optional[float] = None,
 ) -> RayBatch:
     """Flatten world-space [..., 3] ray bundles into a RayBatch with
-    constant near/far."""
+    constant near/far. The viewdirs are the normalized world directions;
+    with ``use_ndc`` the origins and directions are then projected into
+    NDC with the projection's near plane at 1.0 (``near``/``far`` stay the
+    sampling interval, 0 and 1 for LLFF), as in the reference's
+    ``run_one_iter_of_nerf``."""
     viewdirs = ray_directions / torch.linalg.norm(
         ray_directions, dim=-1, keepdim=True
     )
+    if use_ndc:
+        ray_origins, ray_directions = ndc_rays(
+            height, width, focal_length, 1.0, ray_origins, ray_directions
+        )
     ro = ray_origins.reshape(-1, 3)
     rd = ray_directions.reshape(-1, 3)
     n = ro.shape[0]
@@ -234,14 +251,23 @@ def render_image(
     *,
     chunk: Optional[int] = None,
     rays_impl: Optional[RaysImpl] = None,
+    use_ndc: bool = False,
+    height: Optional[int] = None,
+    width: Optional[int] = None,
+    focal_length: Optional[float] = None,
 ) -> RenderResult:
     """Render a full [H, W] ray bundle, ``chunk`` rays at a time (the whole
     bundle at once when None). ``rays_impl`` replaces :func:`render_rays`
     per chunk, e.g. the fused renderer of
-    ``dexnerf_tpu_torch.ops.fused_render.make_fused_render_rays``.
+    ``dexnerf_tpu_torch.ops.fused_render.make_fused_render_rays``. With
+    ``use_ndc`` the rays are projected into NDC (:func:`make_ray_batch`),
+    and the depths are NDC ray parameters.
     Outputs are reshaped to [H, W, ...]; ``depth_dex`` to [T, H, W]."""
     img_shape = ray_directions.shape[:-1]
-    rays = make_ray_batch(ray_origins, ray_directions, near, far)
+    rays = make_ray_batch(
+        ray_origins, ray_directions, near, far, use_ndc=use_ndc, height=height,
+        width=width, focal_length=focal_length,
+    )
     n = rays.origins.shape[0]
     step = n if chunk is None else int(chunk)
     results = []

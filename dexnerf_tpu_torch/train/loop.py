@@ -1,7 +1,8 @@
 """Training loop, model set-up and checkpoint loading.
 
 Counterpart of ``dexnerf_tpu/train/loop.py`` for single-device training on
-a device-resident ray store: ``load_scene`` (blender, messytable),
+a device-resident ray store: ``load_scene`` (blender, messytable, LLFF
+with NDC rays),
 ``maybe_fused_loss`` (kernel 4 at ``train_compute_dtype``, with the depth
 term when asked, and kernel 5 between its passes, when ``nerf.use_pallas``),
 ``maybe_fused_fields`` (kernels 2 and 3 at ``train_compute_dtype`` when
@@ -39,6 +40,7 @@ from dexnerf_tpu_torch.core.metrics import (
 )
 from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w, get_ray_bundle_w2c
 from dexnerf_tpu_torch.data.blender import load_blender_data, load_blender_depths
+from dexnerf_tpu_torch.data.llff import load_llff_data, load_llff_depths
 from dexnerf_tpu_torch.data.messytable import load_messytable_data
 from dexnerf_tpu_torch.data.pipeline import build_ray_store
 from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel, skip_positions
@@ -221,7 +223,7 @@ def fused_render_impl(
 class SceneData:
     """A loaded scene: images [N, H, W, 3], poses [N, 4, 4] (c2w, or w2c
     when ``intrinsics`` [N, 3, 3] is given: messytable), [H, W, focal] and
-    the split indices."""
+    the split indices; ``use_ndc`` renders its rays in NDC (LLFF)."""
 
     images: np.ndarray
     poses: np.ndarray
@@ -232,10 +234,16 @@ class SceneData:
     depths: Optional[np.ndarray] = None  # [N, H, W] GT depth (meters)
     render_poses: Optional[np.ndarray] = None
     intrinsics: Optional[np.ndarray] = None
+    use_ndc: bool = False
 
 
 def load_scene(cfg: CfgNode) -> SceneData:
-    """Load the blender or messytable dataset named by ``cfg.dataset``."""
+    """Load the blender, messytable or LLFF dataset named by
+    ``cfg.dataset``. An LLFF scene holds out every ``dataset.llffhold``-th
+    view (default 8; 0 holds out the loader's ``i_test``) as both its
+    validation and test split, carries the ``depths/d_<k>.npy`` sidecars
+    when all are there, and uses NDC rays unless ``dataset.no_ndc`` (whose
+    default is true, as in the JAX package)."""
     ds = cfg.dataset
     kind = str(ds.type).lower()
     kw = dict(
@@ -255,8 +263,24 @@ def load_scene(cfg: CfgNode) -> SceneData:
             intrinsics=intrinsics,
         )
     if kind == "llff":
-        raise NotImplementedError(
-            "dataset type 'llff': not ported yet (ROADMAP.md Queue 1 item 4)"
+        images, poses, _, render_poses, i_test = load_llff_data(
+            ds.basedir,
+            factor=int(_get(ds, "downsample_factor", 8)),
+            spherify=bool(_get(ds, "spherify", False)),
+            path_zflat=bool(_get(ds, "path_zflat", False)),
+        )
+        hwf = poses[0, :3, -1]
+        n = images.shape[0]
+        poses44 = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+        poses44[:, :3, :4] = poses[:, :3, :4]
+        llffhold = int(_get(ds, "llffhold", 8))
+        i_val = np.arange(n)[::llffhold] if llffhold > 0 else np.array([i_test])
+        held = set(i_val.tolist())
+        return SceneData(
+            images=images, poses=poses44, hwf=[int(hwf[0]), int(hwf[1]), float(hwf[2])],
+            i_train=np.array([i for i in range(n) if i not in held]), i_val=i_val,
+            i_test=i_val, depths=load_llff_depths(ds.basedir, n), render_poses=render_poses,
+            use_ndc=not bool(_get(ds, "no_ndc", True)),
         )
     if kind != "blender":
         raise ValueError(f"unknown dataset type: {ds.type}")
@@ -347,7 +371,10 @@ def validate(
     """Render one validation view through the fused render kernel (its
     plain version on the CPU) and score it: coarse/fine loss, PSNR of their
     sum and SSIM of the fine image (``train_nerf_rgb.py:304-425``). The
-    rays are w2c + K when the scene has intrinsics. On a view with GT depth
+    rays are w2c + K when the scene has intrinsics, and in NDC when it
+    uses NDC; then its depths are NDC ray parameters and no depth metric is
+    computed (``apps.eval --test-set`` scores them through
+    ``ndc_t_to_world_depth``). On a view with GT depth
     the expected depth is scored over ``0 < gt < dataset.depth_valid_max``
     (default 1.25 m; ``compute_err_metric``); with ``dex`` the fine pass
     also gives the σ-threshold depths of the validation grid
@@ -367,7 +394,7 @@ def validate(
     with torch.no_grad():
         out = render_image(
             coarse, fine, ro, rd, float(cfg.dataset.near), float(cfg.dataset.far), s_val,
-            rays_impl=impl,
+            rays_impl=impl, use_ndc=scene.use_ndc, height=H, width=W, focal_length=focal,
         )
         target = torch.as_tensor(np.asarray(scene.images[idx][..., :3], np.float32), device=device)
 
@@ -395,7 +422,7 @@ def validate(
     if dex and r.depth_dex is not None:
         metrics["depth_dex"] = r.depth_dex.cpu().numpy()  # [T, H, W]
         metrics["m_thres_cand"] = tuple(s_val.m_thres_cand)
-    if scene.depths is None:
+    if scene.depths is None or scene.use_ndc:
         return metrics
     gt = np.asarray(scene.depths[idx])
     mask = (gt > 0) & (gt < float(_get(cfg.dataset, "depth_valid_max", 1.25)))
@@ -494,7 +521,7 @@ def _reject_unported(cfg: CfgNode, depth_w: float) -> None:
     if cachedir and os.path.isdir(os.path.join(cachedir, "train")) and depth_w == 0.0:
         raise NotImplementedError(
             f"dataset.cachedir {cachedir} holds a ray cache; training from it is not "
-            "ported yet (ROADMAP.md Queue 1 item 4)"
+            "ported yet (ROADMAP.md Queue 1 item 4c)"
         )
 
 
@@ -597,6 +624,12 @@ def run_training(
             "depth_loss_weight > 0 but the dataset has no GT depth maps (messytable "
             "carries depthL.png / depth.png)"
         )
+    if depth_w > 0.0 and scene.use_ndc:
+        raise ValueError(
+            "depth supervision under NDC is unsupported: the render depth is an NDC ray "
+            "parameter while depth sidecars are metric ray distance (see "
+            "core.rays.ndc_t_to_world_depth)"
+        )
 
     s_train = render_settings_from_cfg(cfg, "train")
     batch_size = int(cfg.nerf.train.num_random_rays)
@@ -605,6 +638,7 @@ def run_training(
         scene.images[scene.i_train], scene.poses[scene.i_train], scene.hwf, near, far,
         device=device,
         intrinsics=None if scene.intrinsics is None else scene.intrinsics[scene.i_train],
+        use_ndc=scene.use_ndc,
         depths=scene.depths[scene.i_train] if depth_w > 0.0 else None,
     )
     steps_per_call = int(

@@ -27,7 +27,11 @@ from dexnerf_tpu_torch.config.cfgnode import CfgNode
 from dexnerf_tpu_torch.core.rays import get_ray_bundle_w2c
 from dexnerf_tpu_torch.data.messytable import load_messytable_data
 from dexnerf_tpu_torch.data.pipeline import build_ray_store
-from dexnerf_tpu_torch.data.synthetic import analytic_field, write_messytable_dataset
+from dexnerf_tpu_torch.data.synthetic import (
+    analytic_field,
+    write_llff_dataset,
+    write_messytable_dataset,
+)
 from dexnerf_tpu_torch.train import loop as ploop
 from dexnerf_tpu_torch.train.logging import load_depth_png_mm
 
@@ -231,8 +235,14 @@ def test_load_scene_messytable_matches_jax(jax, tmp_path, mt_dir):
 
 @pytest.mark.parametrize("kind,error", [("llff", NotImplementedError), ("colmap", ValueError)])
 def test_load_scene_refuses_other_datasets(tmp_path, kind, error):
+    """An unknown dataset type; an LLFF scene (loaded since the LLFF path
+    was ported) whose 20x30 images do not divide by its factor of 8."""
+    basedir = ""
+    if kind == "llff":
+        basedir = str(tmp_path / "llff")
+        write_llff_dataset(basedir, height=20, width=30, views=3)
     with pytest.raises(error, match="Queue 1 item 4" if kind == "llff" else "unknown"):
-        ploop.load_scene(CfgNode(_mt_cfg(tmp_path, "", type=kind)))
+        ploop.load_scene(CfgNode(_mt_cfg(tmp_path, basedir, type=kind, downsample_factor=8)))
 
 
 @pytest.mark.parametrize("supervision", ["rgb", "luminance"])

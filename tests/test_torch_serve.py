@@ -216,9 +216,11 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(dexnerf_tpu_torch.__path__, 'dexnerf_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import dexnerf_tpu_torch.apps.serve\n"
-        "assert 'dexnerf_tpu_torch.data.messytable' in sys.modules\n"
+        "for name in ('data.messytable', 'apps.eval', 'data.llff', 'utils', 'utils.images',\n"
+        "             'utils.pointcloud'):\n"
+        "    assert 'dexnerf_tpu_torch.' + name in sys.modules, name\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'dexnerf_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'dexnerf_tpu', 'cv2', 'imageio', 'matplotlib')]\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
