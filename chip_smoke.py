@@ -186,6 +186,9 @@ LLFF_VIEWS, LLFF_ITERS, LLFF_VALID_MAX = 10, 20, 10.0
 # RESAMPLE_SLACK; rows sorted, nothing non-finite
 RESAMPLE_Z_ATOL, RESAMPLE_D_ATOL, PDF_ATOL = 1e-5, 1e-4, 1e-4
 RESAMPLE_SLACK = 1e-4
+# phase 13 also times kernels 5 and 6 on the batch 8 times over (bench.py's
+# default batch)
+BIG_RAYS = 65536
 # kernel vs plain, train pass: f32 both sides. Loss sums over 8192 rays in
 # another order (rtol); weights/rgb as the render kernel; each gradient
 # leaf, summed over 0.5-1M samples in another order, to GRAD_RTOL of that
@@ -480,6 +483,23 @@ def device_ms(torch, calls, n=3):
         print(f"  profile: no device event for {[k for k, v in out.items() if v is None]}; "
               f"its device events: {sorted({e.name[:60] for e in events})}")
     return out
+
+
+def device_all_ms(torch, fn, n=3):
+    """Device ms per call of ``fn``, all its device events summed, from a
+    ``torch.profiler`` trace of ``n`` warm calls (None if the trace holds
+    none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(spans) / n / 1e3 if spans else None
 
 
 def train_cli(tmp, data, name, iters, torch, dev, config=TRAIN_CONFIG, dataset=None, flags=(),
@@ -1300,34 +1320,71 @@ def resample_phase(torch, np, card, dev, tmp, sh):
         "torch_searchsorted": timed_ms(lambda: torch.searchsorted(bins, u, right=True), torch),
         "torch_sort": timed_ms(lambda: torch.sort(torch.cat([z_c, u], -1), -1), torch),
     }
-    # device time alone (the CUDA events above include the host gaps between calls)
-    dev_ms = device_ms(torch, {
-        "resample_kernel": lambda: rs.fused_resample(z_c, w, u, dn),
-        "sample_pdf_kernel": lambda: spdf.sample_pdf_pallas(bins, w_mid, u)})
-    ms["resample_device"] = dev_ms["resample_kernel"]
-    ms["sample_pdf_device"] = dev_ms["sample_pdf_kernel"]
+    # device time alone (the CUDA events above include the host gaps between
+    # calls), at the batch and at BIG_RAYS (the batch 8 times over), the
+    # context calls likewise (every device event of a call)
+    reps = BIG_RAYS // n
+    big = [t.repeat(reps, 1) for t in (z_c, w, u, dn, bins, w_mid)]
+    for tag, (zc_, w_, u_, dn_, bins_, wm_) in (("", (z_c, w, u, dn, bins, w_mid)),
+                                                (f"_{BIG_RAYS}", big)):
+        dev_ms = device_ms(torch, {
+            "resample_kernel": lambda: rs.fused_resample(zc_, w_, u_, dn_),
+            "sample_pdf_kernel": lambda: spdf.sample_pdf_pallas(bins_, wm_, u_)})
+        ms["resample_device" + tag] = dev_ms["resample_kernel"]
+        ms["sample_pdf_device" + tag] = dev_ms["sample_pdf_kernel"]
+        ms["torch_searchsorted_device" + tag] = device_all_ms(
+            torch, lambda: torch.searchsorted(bins_, u_, right=True))
+        ms["torch_sort_device" + tag] = device_all_ms(
+            torch, lambda: torch.sort(torch.cat([zc_, u_], -1), -1))
     sc, sf = s.num_coarse, s.num_fine
     m = sc - 2
-    # operations: CDF (add, divide, scan), rank compares, lerp; merge compares
-    pdf_ops = n * (3 * m + sf * (m + 1) + 6 * sf)
-    rs_ops = pdf_ops + n * (sc * sf + sf * (sc + 2 * sf) + 2 * (sc + sf))
-    rs_bound, rs_by = bound(rs_ops, nbytes(z_c, w, u, dn) + 2 * 4 * n * (sc + sf))
-    pdf_bound, pdf_by = bound(pdf_ops, nbytes(bins, w_mid, u) + 4 * n * sf)
+
+    def lg(k):  # ceil(log2 k)
+        return (k - 1).bit_length()
+
+    # operations of the kernels' algorithm: the CDF (add, divide, a 5-level
+    # scan a weight), a binary search and a lerp a draw; kernel 5 also the
+    # midpoints, the bitonic sort of the fine depths (min and max a pair a
+    # stage), a binary search a merged depth and the intervals
+    pdf_ops = 7 * m + sf * (lg(m + 2) + 6)
+    ns = 32 * (1 << lg(-(-sf // 32)))
+    rs_ops = (pdf_ops + 2 * sc + ns * lg(ns) * (lg(ns) + 1) // 2
+              + sc * lg(sf + 1) + sf * lg(sc + 1) + 2 * (sc + sf))
+    bounds = {}
+    for tag, (zc_, w_, u_, dn_, bins_, wm_) in (("", (z_c, w, u, dn, bins, w_mid)),
+                                                (f"_{BIG_RAYS}", big)):
+        rays = zc_.shape[0]
+        bounds["resample" + tag] = bound(rays * rs_ops,
+                                         nbytes(zc_, w_, u_, dn_) + 2 * 4 * rays * (sc + sf))
+        bounds["sample_pdf" + tag] = bound(rays * pdf_ops, nbytes(bins_, wm_, u_) + 4 * rays * sf)
     print(f"phase 13: kernels 5 and 6, ms on {card} (CUDA events, mean of 3; *_device: "
-          f"torch.profiler device time per call, mean of 3): "
+          f"torch.profiler device time per call, mean of 3; _{BIG_RAYS}: {BIG_RAYS} rays): "
           + json.dumps({k: None if t is None else round(t, 5) for k, t in ms.items()}))
-    print(f"  kernel 5 bound {1e3 * rs_bound:.3f} us ({rs_by}); kernel 6 bound "
-          f"{1e3 * pdf_bound:.3f} us ({pdf_by})")
+    for tag in ("", f"_{BIG_RAYS}"):
+        share = {k: None if ms[f"{k}_device{tag}"] is None
+                 else round(bounds[k + tag][0] / ms[f"{k}_device{tag}"], 3)
+                 for k in ("resample", "sample_pdf")}
+        print(f"  at {reps * n if tag else n} rays: kernel 5 bound "
+              f"{1e3 * bounds['resample' + tag][0]:.3f} us ({bounds['resample' + tag][1]}), "
+              f"kernel 6 bound {1e3 * bounds['sample_pdf' + tag][0]:.3f} us "
+              f"({bounds['sample_pdf' + tag][1]}); share of bound by device time "
+              + json.dumps(share))
     entry = dict(route="cuda", source="dexnerf_tpu_torch/ops/csrc/resample.cu", library_ms=None)
     return [
         {"name": "fused_resample", **entry, "replaces": "dexnerf_tpu/ops/resample_pallas.py:119",
          "launches": counts["resample"], "max_abs_err": err5, "ms": ms["resample_kernel"],
          "device_ms": ms["resample_device"],
-         "plain_ms": ms["resample_plain"], "bound_ms": rs_bound, "bound_by": rs_by},
+         f"device_ms_{BIG_RAYS}": ms[f"resample_device_{BIG_RAYS}"],
+         "plain_ms": ms["resample_plain"], "bound_ms": bounds["resample"][0],
+         "bound_by": bounds["resample"][1],
+         f"bound_ms_{BIG_RAYS}": bounds[f"resample_{BIG_RAYS}"][0]},
         {"name": "sample_pdf", **entry, "replaces": "dexnerf_tpu/ops/sample_pdf_pallas.py:37",
          "launches": pdf_launches, "max_abs_err": err6, "ms": ms["sample_pdf_kernel"],
          "device_ms": ms["sample_pdf_device"],
-         "plain_ms": ms["sample_pdf_plain"], "bound_ms": pdf_bound, "bound_by": pdf_by},
+         f"device_ms_{BIG_RAYS}": ms[f"sample_pdf_device_{BIG_RAYS}"],
+         "plain_ms": ms["sample_pdf_plain"], "bound_ms": bounds["sample_pdf"][0],
+         "bound_by": bounds["sample_pdf"][1],
+         f"bound_ms_{BIG_RAYS}": bounds[f"sample_pdf_{BIG_RAYS}"][0]},
     ]
 
 

@@ -11,9 +11,10 @@ version (``hierarchical_z_vals`` on the given draws, then the
 between the two: a CUDA call that cannot launch raises.
 
 The kernel is bound by bytes (~14.7 MB at 8192 rays x (64 + 64) samples, a
-4.4 us bound at 3.35 TB/s) and, at that size, by its launch; one warp per
-ray ranks each draw against the CDF in shared memory and places each depth
-at its rank in the merged row (see the source's note). ``launches`` counts
+4.4 us bound at 3.35 TB/s); one warp per ray ranks each draw by a binary
+search of the CDF in shared memory, sorts the fine depths in registers
+(a warp bitonic sort) and places every depth in the merged row by a binary
+search of the other list (see the source's note). ``launches`` counts
 kernel launches (+1 per launch, nowhere else).
 """
 
@@ -27,7 +28,8 @@ from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals
 
 launches = 0
 
-# limits of ops/csrc/resample.cu: 8 rays per CTA, their rows in shared memory
+# limits of ops/csrc/resample.cu: a lane holds up to 8 coarse and 8 fine
+# depths of its warp's ray (its kernels are instantiated for 1, 2, 4, 8)
 MAX_COARSE = 256
 MAX_FINE = 256
 
