@@ -10,8 +10,9 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
 2. build the kernels from ``dexnerf_tpu_torch/ops/csrc`` and time the build;
-3. hold the fused render kernels (kernel 1: the f32 kernel and the bf16
-   tensor-core kernel) to their plain PyTorch versions on one 400x400
+3. hold the fused render kernels (kernel 1: the f32 kernel, split TF32 on
+   the tensor cores, and the bf16 tensor-core kernel) to their plain
+   PyTorch versions on one 400x400
    frame of ``configs/messytable-obj.yml`` at full width (8x128, skip 3,
    PE 10/4): the coarse pass (S=64) and the fine pass (S=128, 20 Dex
    thresholds), with seeded weights whose σ head is scaled so that both
@@ -24,10 +25,11 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    never; then serve one frame with ``nerf.pallas_compute_dtype: float32``
    (the f32 kernel twice, the bf16 kernel never);
 5. time both kernels and both plain versions on the same frame, each pass
-   and the whole frame; print the bf16 kernel's time of each pass beside
-   that pass's own bound, its work plan (units, rows, grid) and residency
-   (CTAs per SM, shared bytes, weight stages), and profile three served
-   frames (kernel 1, glue, idle);
+   and the whole frame; print each kernel's time of each pass beside that
+   pass's own bound (the f32 kernel's at the split-TF32 rate, its f32 FMA
+   bound beside it), its work plan (units, rows, grid) and residency (CTAs
+   per SM, shared bytes, weight stages), and profile three frames at each
+   dtype (kernel 1, glue, idle);
    Then serve ``configs/tiny.yml``'s 2x16 model (hidden size 16, run
    zero-padded to 32 by the bf16 kernel) at bf16, and the messytable
    frame once with ``nerf.use_fused_render: false`` (the plain renderer:
@@ -54,7 +56,8 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    profile three steps at bf16 and three at f32 (kernel 4, glue, Adam,
    idle), with the bf16 forward, chain and dW kernels' device time each
    beside its own bound (the ``parts`` of the kernels line; the bytes and
-   operations behind each bound on a line of their own); print the bf16
+   operations behind each bound on a line of their own) and the f32 route's
+   dW kernel beside the same products as f32 ``torch.matmul``; print the bf16
    forward's residency (CTAs per SM, shared bytes, ring stages, staging
    tiles) and each of its launches' 64-row tiles and CTAs;
 9. train the field path (``nerf.pallas_fused_loss: false``) through
@@ -78,7 +81,8 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    ``sample_pdf_branchless``;
 13. time both routes of kernels 2 and 3, kernels 5 and 6 (CUDA events,
    and kernels 5 and 6's device time alone from ``torch.profiler``) and
-   their plain versions, the bf16 dW share of kernel 3 as ``torch.matmul`` calls, and
+   their plain versions, the dW share of kernel 3 as ``torch.matmul`` calls
+   at f32 (TF32 off) and bf16, and
    whole field-path steps at bf16 and at f32; profile three field-path
    steps at each dtype (kernel 2, kernel 3, glue, Adam, idle), with kernel
    3's bf16 kernels beside their bounds as in phase 8 and kernel 2's bf16
@@ -119,11 +123,14 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
 Each kernel's line holds its bound: the larger of its FLOPs (multiply-adds
 counted from the model's shapes; compares and arithmetic counted from the
 shapes for kernels 5 and 6) over the 67 TFLOP/s f32 peak (the bf16 routes
-of kernels 1-4 over the 989 TFLOP/s dense bf16 tensor-core peak) and its
-bytes (inputs read once, outputs written once) over 3.35 TB/s. The bf16
-routes of kernels 3 and 4 have a library yardstick: their weight-gradient
-products as bf16 ``torch.matmul`` calls (timed here, never called by the
-port).
+of kernels 1-4 over the 989 TFLOP/s dense bf16 tensor-core peak; kernel 1's
+f32 route, split TF32, three times its FLOPs over the 495 TFLOP/s dense
+TF32 peak, ``bound_by`` naming it; its f32 FMA bound is on phase 3's
+bounds line) and its bytes
+(inputs read once, outputs written once) over 3.35 TB/s. Kernels 3 and 4
+have a library yardstick: their weight-gradient products as
+``torch.matmul`` calls in each route's dtype (timed here, never called by
+the port).
 The line before the last is ``{"kernels": [...]}`` with this run's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -196,12 +203,18 @@ BIG_RAYS = 65536
 TRAIN_LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-4
 F32_FLOPS = 67e12  # H100 SXM f32 (non-tensor) peak, 700 W
+TF32_FLOPS = 495e12  # H100 SXM TF32 tensor-core peak (dense), 700 W
+# what bounds the f32 render route: 3 TF32 products a multiply-add
+SPLIT_TF32 = f" (split TF32: 3 TF32 products a multiply-add at {TF32_FLOPS / 1e12:g} TFLOP/s)"
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor-core peak (dense), 700 W
 HBM_BYTES = 3.35e12
 HWF = (400, 400, 555.555)
 POSE = (-30.0, -45.0, 4.0)  # theta, phi, radius: the service's default camera
 SEED = 0
-RTOL, ATOL = 1e-4, 1e-5  # f32 on both sides; only the summation order differs
+# f32 kernels vs their plain f32 versions: sums in another order, and in
+# kernel 1's f32 route split TF32 products (each f32 operand as hi + lo
+# TF32 halves, lo.lo dropped, ~2^-21 a product)
+RTOL, ATOL = 1e-4, 1e-5
 DEX_EQUAL_SHARE = 0.9999
 # bf16 render kernel vs its plain version: the same bf16 roundings of the
 # same operands, f32 sums in another order (tensor cores vs cuBLAS), so an
@@ -693,21 +706,17 @@ def train_phase(torch, np, card, dev, tmp):
     ms = {}
     flops, byts, byts_b, dw_flops = kernel4_sizes(per_pass, dev)
     bf = dict(compute_dtype=torch.bfloat16, dw_dtype=torch.bfloat16)
-    gemms = []
     for name, args in per_pass.items():
-        z = args[3]
         for tag, kw in (("", {}), ("_bf16", bf)):
             ms[f"{name}_kernel{tag}"] = timed_ms(lambda: ftl.fused_pass_loss(*args, **kw), torch)
             ms[f"{name}_plain{tag}"] = timed_ms(
                 lambda: ftl.fused_pass_loss_reference(*args, **kw), torch)
-        gemms += dw_gemm_operands(args[0], z.numel(), torch, dev)
     bound_ms, bound_by = bound(flops, byts)
     bound_b, bound_b_by = bound(flops, byts_b, BF16_FLOPS)
-    # library yardstick: the bf16 route's weight-gradient products of both
+    # library yardsticks: each route's weight-gradient products of both
     # passes (cotangents^T x activations over every sample) as torch.matmul
-    ms["dw_torch_matmul_bf16"] = timed_ms(lambda: [torch.matmul(d.t(), a) for d, a in gemms],
-                                          torch)
-    del gemms
+    # calls in its dtype (f32 without TF32)
+    dw_yardsticks(ms, [(a[0], a[3].numel()) for a in per_pass.values()], torch, dev)
 
     def step_ms(path, reps=5):
         """(ms per train step, the step) through ``path``: kernel 4
@@ -761,7 +770,8 @@ def train_phase(torch, np, card, dev, tmp):
     print("  bytes and operations behind those bounds (scratch layout, this run's shapes): "
           + json.dumps(sizes))
     print("  f32 steps (pallas_compute_dtype: float32):")
-    profile_steps(torch, steps["kernel"], {"kernel 4": KERNEL4_NAMES})
+    dw_f32 = f32_dw_share(profile_steps(torch, steps["kernel"], {"kernel 4": KERNEL4_NAMES}),
+                          ms["dw_torch_matmul_f32"])
     entry = dict(route="cuda", replaces="dexnerf_tpu/ops/fused_train_loss.py:99")
     train_kernels = [{
         "name": "fused_train_loss",
@@ -773,7 +783,8 @@ def train_phase(torch, np, card, dev, tmp):
         "plain_ms": ms["coarse_plain"] + ms["fine_plain"],
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-        "library_ms": None,
+        "library_ms": ms["dw_torch_matmul_f32"],
+        "parts": dw_f32,
     }, {
         "name": "fused_train_loss_bf16",
         **entry,
@@ -816,8 +827,8 @@ def kernel4_sizes(per_pass, dev):
     return flops, byts, byts_b, dw_flops
 
 
-def dw_gemm_operands(model, k, torch, dev):
-    """Random bf16 operands of the bf16 route's weight-gradient products of
+def dw_gemm_operands(model, k, torch, dev, dtype):
+    """Random ``dtype`` operands of a route's weight-gradient products of
     one pass over ``k`` samples, as (cotangents [k, N], activations
     [k, M]): layer1, the trunk (and skip) layers, fc_feat, fc_alpha,
     layers_dir.0 (its feat rows) and fc_rgb."""
@@ -827,9 +838,31 @@ def dw_gemm_operands(model, k, torch, dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def rnd(cols):
-        return torch.randn((k, cols), generator=gen, device=dev).to(torch.bfloat16)
+        return torch.randn((k, cols), generator=gen, device=dev).to(dtype)
 
     return [(rnd(n), rnd(m)) for n, m in shapes]
+
+
+def dw_yardsticks(ms, passes, torch, dev):
+    """``ms["dw_torch_matmul_f32"]`` and ``ms["dw_torch_matmul_bf16"]``:
+    the weight-gradient products of ``passes`` ((model, samples) each) as
+    torch.matmul calls at f32 (TF32 off) and at bf16, CUDA events."""
+    for tag, dt in (("_f32", torch.float32), ("_bf16", torch.bfloat16)):
+        gemms = [g for m, k in passes for g in dw_gemm_operands(m, k, torch, dev, dt)]
+        ms["dw_torch_matmul" + tag] = timed_ms(
+            lambda: [torch.matmul(d.t(), a) for d, a in gemms], torch)
+        del gemms
+
+
+def f32_dw_share(prof, library_ms):
+    """The f32 routes' weight-gradient kernel (kernel 4's ``dw_kernel``,
+    which kernel 3 launches too) by device ms per step from a profile,
+    beside its f32 torch.matmul yardstick; printed and returned as a
+    ``parts`` list."""
+    dw = sum(t for k, t in prof.items() if "dw_kernel" in k and "bf16" not in k)
+    print(f"  f32 route's dW kernel, device ms per step (profile): {dw:.3f}, beside the same "
+          f"products as f32 torch.matmul (TF32 off): {library_ms:.3f}")
+    return [{"name": "dw_kernel", "ms": dw if prof else None, "library_ms": library_ms}]
 
 
 def check_train_bf16(name, model, args, norm, want_f32, torch, phase=7, **kw):
@@ -1106,7 +1139,6 @@ def field_phase(torch, np, card, dev, tmp, sh):
     ms = {f"{k}{t}": 0.0 for k in ("fwd_kernel", "fwd_plain", "bwd_kernel", "bwd_plain")
           for t in ("", "_bf16")}
     fwd_flops = bwd_flops = fwd_bytes = bwd_bytes = fwd_bytes_b = bwd_bytes_b = 0.0
-    gemms = []
     for model, pts, g in cases.values():
         n, s_ = pts.shape[:2]
         ps, pr = mlp_macs(model)
@@ -1131,12 +1163,9 @@ def field_phase(torch, np, card, dev, tmp, sh):
                 lambda: fmt._launch_backward(model, pts, v, g, **kw, **dt2), torch)
             ms[f"bwd_plain{tag}"] += timed_ms(
                 lambda: fmt.field_grads_reference(model, pts, v, g, **kw, **dt2), torch)
-        gemms += dw_gemm_operands(model, n * s_, torch, dev)
-    # library yardstick of kernel 3's bf16 route: its weight-gradient
-    # products of both passes as bf16 torch.matmul calls
-    ms["dw_torch_matmul_bf16"] = timed_ms(lambda: [torch.matmul(a.t(), b) for a, b in gemms],
-                                          torch)
-    del gemms
+    # library yardsticks of kernel 3's routes: their weight-gradient
+    # products of both passes as torch.matmul calls
+    dw_yardsticks(ms, [(m, p.shape[0] * p.shape[1]) for m, p, _ in cases.values()], torch, dev)
     fwd_bound, fwd_by = bound(fwd_flops, fwd_bytes)
     bwd_bound, bwd_by = bound(bwd_flops, bwd_bytes)
     fwd_bound_b, fwd_by_b = bound(fwd_flops, fwd_bytes_b, BF16_FLOPS)
@@ -1184,10 +1213,10 @@ def field_phase(torch, np, card, dev, tmp, sh):
           + json.dumps(sizes))
     print("  f32 field-path steps (pallas_compute_dtype: float32):")
     # kernel 3 runs kernel 4's dW and reduce launches
-    profile_steps(torch, steps["fields"], {
+    dw_f32 = f32_dw_share(profile_steps(torch, steps["fields"], {
         "kernel 2": ("field_fwd_kernel",),
         "kernel 3": ("field_bwd_kernel", "dw_kernel", "reduce_kernel"),
-    })
+    }), ms["dw_torch_matmul_f32"])
     entry = dict(route="cuda", source="dexnerf_tpu_torch/ops/csrc/fused_train_loss_bf16.cu")
     fwd, bwd = ("dexnerf_tpu/ops/fused_mlp.py:481", "dexnerf_tpu/ops/fused_mlp_train.py:221")
     return [
@@ -1200,7 +1229,7 @@ def field_phase(torch, np, card, dev, tmp, sh):
          "source": "dexnerf_tpu_torch/ops/csrc/fused_mlp_train.cu", "replaces": bwd,
          "launches": counts_f["fused_mlp_train"], "max_abs_err": err_bwd,
          "ms": ms["bwd_kernel"], "plain_ms": ms["bwd_plain"], "bound_ms": bwd_bound,
-         "bound_by": bwd_by, "library_ms": None},
+         "bound_by": bwd_by, "library_ms": ms["dw_torch_matmul_f32"], "parts": dw_f32},
         {"name": "fused_mlp_bf16", **entry, "replaces": fwd,
          "launches": counts["fused_mlp_bf16"], "max_abs_err": err_fwd_b,
          "ms": ms["fwd_kernel_bf16"], "plain_ms": ms["fwd_plain_bf16"],
@@ -1439,7 +1468,7 @@ def hold_train_bf16(label, phase, models, store, s_train, lr, batch, norm, loss_
     for name, args in per_pass.items():
         ms[f"{name}_kernel"] = timed_ms(lambda: ftl.fused_pass_loss(*args, **bf), torch)
         ms[f"{name}_plain"] = timed_ms(lambda: ftl.fused_pass_loss_reference(*args, **bf), torch)
-        gemms += dw_gemm_operands(args[0], args[3].numel(), torch, dev)
+        gemms += dw_gemm_operands(args[0], args[3].numel(), torch, dev, torch.bfloat16)
     ms["dw_torch_matmul"] = timed_ms(lambda: [torch.matmul(a.t(), b) for a, b in gemms], torch)
     del gemms
     flops, _, byts_b, _ = kernel4_sizes(per_pass, dev)
@@ -2111,31 +2140,46 @@ def main() -> int:
                    g.depth, g.weights, g.depth_dex)
             for m, z, dz, g in ((coarse, z_c, dist_c, got_c), (fine, z_f, dist_f, got_f))
         )
-        # the bf16 kernel reads its packed weights (bf16 operands, f32 heads)
-        byts_b = byts - sum(nbytes(*m.parameters()) - nbytes(*fr.pack_flex_weights_bf16(m)[:2])
-                            for m in (coarse, fine))
-        render_bound, render_bound_by = bound(flops, byts)
-        bf16_bound, bf16_bound_by = bound(flops, byts_b, BF16_FLOPS)
-        print(f"  fused_render bound for both passes: {render_bound:.3f} ms ({render_bound_by}; "
-              f"{flops / 1e12:.4f} TFLOP, {byts / 1e6:.2f} MB); bf16 kernel at the bf16 "
-              f"tensor-core peak {bf16_bound:.3f} ms ({bf16_bound_by}; {byts_b / 1e6:.2f} MB)")
+        # each kernel reads its own packed weights (the f32 route hi + lo
+        # operands, the bf16 route bf16 operands; both f32 heads)
+        packs = {"": fr.pack_flex_weights_tf32, "_bf16": fr.pack_flex_weights_bf16}
+        byts_k = {tag: byts - sum(nbytes(*m.parameters()) - nbytes(*pack(m)[:2])
+                                  for m in (coarse, fine)) for tag, pack in packs.items()}
+        # the f32 route's own bound: three TF32 products a multiply-add on the
+        # tensor cores; the f32 FMA bound of the same work beside it
+        fma_bound, fma_bound_by = bound(flops, byts)
+        render_bound, render_bound_by = bound(3 * flops, byts_k[""], TF32_FLOPS)
+        bf16_bound, bf16_bound_by = bound(flops, byts_k["_bf16"], BF16_FLOPS)
+        print(f"  fused_render bounds for both passes ({flops / 1e12:.4f} TFLOP): f32 route "
+              f"{render_bound:.3f} ms at the split-TF32 rate ({render_bound_by}; 3 TF32 "
+              f"products a multiply-add at {TF32_FLOPS / 1e12:g} TFLOP/s, "
+              f"{byts_k[''] / 1e6:.2f} MB), {fma_bound:.3f} ms at the f32 FMA peak "
+              f"({fma_bound_by}; {byts / 1e6:.2f} MB); bf16 kernel at the bf16 tensor-core "
+              f"peak {bf16_bound:.3f} ms ({bf16_bound_by}; {byts_k['_bf16'] / 1e6:.2f} MB)")
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        for name, m, z, dz, g in (("coarse", coarse, z_c, dist_c, got_cb),
-                                  ("fine", fine, z_f, dist_f, got_fb)):
-            S = z.shape[1]
-            ctas, smem, stages = fr.bf16_occupancy(m, S)
-            plan = fr.render_plan(z.shape[0], S, sms * ctas)
-            fl = 2 * (z.numel() * mlp_macs(m)[0] + z.shape[0] * mlp_macs(m)[1])
-            by = nbytes(o, d, v, z, dz, *fr.pack_flex_weights_bf16(m)[:2], g.rgb, g.disparity,
-                        g.accumulation, g.depth, g.weights, g.depth_dex)
-            b_ms, b_by = bound(fl, by, BF16_FLOPS)
-            k_ms = ms[name + "_kernel_bf16"]
-            print(f"  bf16 kernel, {name} pass (S={S}): {k_ms:.3f} ms against its bound "
-                  f"{b_ms:.3f} ms ({b_by}; {fl / 1e12:.4f} TFLOP, {by / 1e6:.2f} MB; "
-                  f"{fl / 1e9 / k_ms:.1f} TFLOP/s); {ctas} CTA(s) per SM, {smem} B shared, "
-                  f"{stages} weight stages; plan: {plan.units} units of {plan.rays_per_unit} "
-                  f"ray(s) in {plan.rows_per_unit} rows, {plan.rows} rows ({plan.padded_rows} "
-                  f"padded), grid {plan.grid} on {sms} SMs")
+        for tag, label, occupancy, workers, mult, peak, gots in (
+                ("", "f32 kernel (split TF32)", fr.tf32_occupancy, fr.TF32_WORKERS, 3,
+                 TF32_FLOPS, (got_c, got_f)),
+                ("_bf16", "bf16 kernel", fr.bf16_occupancy, fr.BF16_WORKERS, 1, BF16_FLOPS,
+                 (got_cb, got_fb))):
+            for name, m, z, dz, g in (("coarse", coarse, z_c, dist_c, gots[0]),
+                                      ("fine", fine, z_f, dist_f, gots[1])):
+                S = z.shape[1]
+                ctas, smem, stages = occupancy(m, S)
+                plan = fr.render_plan(z.shape[0], S, sms * ctas, workers)
+                fl = 2 * (z.numel() * mlp_macs(m)[0] + z.shape[0] * mlp_macs(m)[1])
+                by = nbytes(o, d, v, z, dz, *packs[tag](m)[:2], g.rgb, g.disparity,
+                            g.accumulation, g.depth, g.weights, g.depth_dex)
+                b_ms, b_by = bound(mult * fl, by, peak)
+                k_ms = ms[name + "_kernel" + tag]
+                extra = f", f32 FMA bound {bound(fl, by)[0]:.3f} ms" if mult == 3 else ""
+                print(f"  {label}, {name} pass (S={S}): {k_ms:.3f} ms against its bound "
+                      f"{b_ms:.3f} ms ({b_by}; {fl / 1e12:.4f} TFLOP, {by / 1e6:.2f} MB; "
+                      f"{fl / 1e9 / k_ms:.1f} TFLOP/s of the model's own{extra}); {ctas} "
+                      f"CTA(s) per SM, {smem} B shared, {stages} weight stages; plan: "
+                      f"{plan.units} units of {plan.rays_per_unit} ray(s) in "
+                      f"{plan.rows_per_unit} rows, {plan.rows} rows ({plan.padded_rows} "
+                      f"padded), grid {plan.grid} of {workers} workers on {sms} SMs")
 
     # ---- phase 4: serve through the port's entry points
     with tempfile.TemporaryDirectory() as tmp:
@@ -2242,11 +2286,13 @@ def main() -> int:
 
     print("phase 5: ms per call on " + card + " (CUDA events, mean of 3): " + json.dumps(
         {k: round(t, 3) for k, t in ms.items()}))
-    impl_b = fr.make_fused_render_rays(coarse, fine, settings, compute_dtype=bf16)
-    with torch.inference_mode():
-        profile_steps(torch, lambda: render_image(
-            coarse, fine, ro, rd, near, far, settings, rays_impl=impl_b),
-            {"kernel 1 bf16": ("fused_render_bf16_kernel",)}, unit="frame")
+    for label, dt, frag in (("kernel 1 bf16", bf16, "fused_render_bf16_kernel"),
+                            ("kernel 1 f32", torch.float32, "fused_render_tf32_kernel")):
+        impl = fr.make_fused_render_rays(coarse, fine, settings, compute_dtype=dt)
+        with torch.inference_mode():
+            profile_steps(torch, lambda: render_image(
+                coarse, fine, ro, rd, near, far, settings, rays_impl=impl),
+                {label: (frag,)}, unit="frame")
     with tempfile.TemporaryDirectory() as tmp:
         train_kernels, shared = train_phase(torch, np, card, dev, tmp)
         field_kernels = field_phase(torch, np, card, dev, tmp, shared)
@@ -2264,7 +2310,7 @@ def main() -> int:
         "ms": ms["coarse_kernel"] + ms["fine_kernel"],
         "plain_ms": ms["coarse_plain"] + ms["fine_plain"],
         "bound_ms": render_bound,
-        "bound_by": render_bound_by,
+        "bound_by": render_bound_by + SPLIT_TF32,
     }, {
         "name": "fused_render_bf16",
         **render,

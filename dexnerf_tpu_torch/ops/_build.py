@@ -122,28 +122,23 @@ def load_library() -> ctypes.CDLL:
             _build(lib_path, stamp, digest)
         lib = ctypes.CDLL(str(lib_path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.dexnerf_fused_render.argtypes = (
-            [vp] * 12            # 6 inputs, 6 outputs (device)
-            + [ci] * 5           # n_rays, n_samples, hidden, num_trunk, skip_mask
-            + [ci, ci, vp]       # fx, inc_x, bands_x (host)
-            + [ci, ci, vp]       # fd, inc_d, bands_d (host)
-            + [ci, vp]           # n_thr, thresholds (host)
-            + [vp, ci, vp]       # offsets (host), white_bg, stream
-        )
-        lib.dexnerf_fused_render.restype = ci
-        lib.dexnerf_fused_render_bf16.argtypes = (
-            [vp] * 7             # 5 inputs, bf16 weights, f32 aux (device)
-            + [vp] * 6           # 6 outputs (device)
-            + [ci] * 7           # n_rays, n_samples, hidden, num_trunk, skip_mask,
-                                 # rays per unit, grid
-            + [ci, ci, vp]       # fx, inc_x, bands_x (host)
-            + [ci, ci, vp]       # fd, inc_d, bands_d (host)
-            + [ci, vp]           # n_thr, thresholds (host)
-            + [vp, ci, vp]       # aux offsets (host), white_bg, stream
-        )
-        lib.dexnerf_fused_render_bf16.restype = ci
-        # hidden, dx, dd, n_samples, rays per unit, num_trunk, skip_mask; CTAs per SM,
-        # shared bytes, ring stages (out)
+        # both routes of kernel 1: the float32 (split-TF32) and the bf16 kernel
+        for fn in (lib.dexnerf_fused_render, lib.dexnerf_fused_render_bf16):
+            fn.argtypes = (
+                [vp] * 7             # 5 inputs, packed weights, f32 aux (device)
+                + [vp] * 6           # 6 outputs (device)
+                + [ci] * 7           # n_rays, n_samples, hidden, num_trunk, skip_mask,
+                                     # rays per unit, grid
+                + [ci, ci, vp]       # fx, inc_x, bands_x (host)
+                + [ci, ci, vp]       # fd, inc_d, bands_d (host)
+                + [ci, vp]           # n_thr, thresholds (host)
+                + [vp, ci, vp]       # aux offsets (host), white_bg, stream
+            )
+            fn.restype = ci
+        # hidden, dx, dd, n_samples, rays per unit, num_trunk (, skip_mask for bf16);
+        # CTAs per SM, shared bytes, ring stages (out)
+        lib.dexnerf_fused_render_occupancy.argtypes = [ci] * 6 + [vp] * 3
+        lib.dexnerf_fused_render_occupancy.restype = ci
         lib.dexnerf_fused_render_bf16_occupancy.argtypes = [ci] * 7 + [vp] * 3
         lib.dexnerf_fused_render_bf16_occupancy.restype = ci
         lib.dexnerf_train_args_size.argtypes = [ci]

@@ -5,8 +5,8 @@
 // Replaces dexnerf_tpu/ops/fused_mlp.py::_make_fwd_kernel (the Pallas
 // kernel of make_fused_flexible_field). Same contract: pts [N, S, 3] and
 // viewdirs [N, 3] in, raw [N, S, 4] out; the encodings and the per-sample
-// activations never reach device memory. It is the render kernel
-// (fused_render.cu) without compositing, and the forward of the training
+// activations never reach device memory. It computes the render kernel's
+// field (fused_render.cu) without compositing, and the forward of the training
 // field (ops/fused_mlp_train.py), whose backward kernel (fused_mlp_train.cu)
 // recomputes this forward.
 //
@@ -16,7 +16,7 @@
 // CUDA-core peak of an H100 SXM (700 W). The bytes it must move (pts, raw,
 // the weights) are ~44 MB a step, 0.013 ms at 3.35 TB/s.
 //
-// Design: one CTA of 128 threads per ray, as in the render kernel. The
+// Design: one CTA of 128 threads per ray, on the CUDA cores. The
 // ray's samples go through the MLP in tiles of 64 (mlp_chain.cuh's
 // field_forward_tile: activations feature-major in two ping-pong shared
 // buffers, an 8-sample x 8-column register tile per thread, weights read

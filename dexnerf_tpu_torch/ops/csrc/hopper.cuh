@@ -1,5 +1,5 @@
-// Hopper (sm_90a) primitives shared by the bf16 kernels
-// (fused_render_bf16.cu, fused_train_loss_bf16.cu): mbarriers, TMA and
+// Hopper (sm_90a) primitives shared by the tensor-core kernels
+// (fused_render_bf16.cu, fused_train_loss_bf16.cu, fused_render.cu): mbarriers, TMA and
 // bulk copies, shared-memory accesses by address, wgmma descriptors and the
 // wgmma wrappers.
 #pragma once

@@ -3,11 +3,13 @@
 Counterpart of ``dexnerf_tpu/ops/fused_render.py``, with its
 ``compute_dtype`` (float32 or bfloat16, default float32 as in JAX). On a
 CUDA tensor, :func:`fused_render` launches a hand-written kernel built by
-``ops/_build.py``: ``ops/csrc/fused_render.cu`` (f32 FMA) at float32,
-``ops/csrc/fused_render_bf16.cu`` (bf16 ``wgmma`` on the tensor cores, f32
-chain; persistent CTAs walking the work plan :func:`render_plan`) at
-bfloat16. On a CPU tensor it runs :func:`fused_render_reference`, the
-plain PyTorch version of the same contract. There is no fallback between
+``ops/_build.py``, both on the tensor cores with persistent CTAs walking the
+work plan :func:`render_plan`: ``ops/csrc/fused_render.cu`` (split-TF32
+``wgmma``: every f32 operand as hi + lo, three products each, f32
+accumulators) at float32, ``ops/csrc/fused_render_bf16.cu`` (bf16
+``wgmma``, f32 chain) at bfloat16. On a CPU tensor it runs
+:func:`fused_render_reference`, the plain PyTorch version of the same
+contract. There is no fallback between
 them: a CUDA call that cannot launch its dtype's kernel raises.
 
 ``launches`` counts kernel launches of either dtype and ``launches_bf16``
@@ -38,7 +40,7 @@ from dexnerf_tpu_torch.render.renderer import RayBatch, RenderResult, RenderSett
 launches = 0  # kernel-1 launches of either dtype
 launches_bf16 = 0  # of which the bf16 kernel's
 
-# limits of ops/csrc/fused_render.cu (kMax*, kThreads)
+# limits of both routes' kernels (kMax*)
 MAX_LAYERS = 40
 MAX_FREQ = 16
 MAX_THRESHOLDS = 64
@@ -51,6 +53,10 @@ BF16_KCHUNK = 64
 BF16_MAX_ROWS = 256
 BF16_MAX_RPU = 16
 BF16_WORKERS = 3
+# of ops/csrc/fused_render.cu, the float32 route (kKc, kCons; its tile and
+# unit limits are the bf16 route's)
+TF32_KCHUNK = 32
+TF32_WORKERS = 2
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -85,9 +91,9 @@ def _pack_f32(tensors) -> Tuple[torch.Tensor, List[int]]:
 def pack_flex_weights(
     model: FlexibleNeRFModel, device=None
 ) -> Tuple[torch.Tensor, List[int]]:
-    """The kernel's weight layout (it replaces
-    ``dexnerf_tpu/ops/fused_mlp.py::split_flex_params``): one flat float32
-    buffer holding, per layer in :func:`_layers` order, the kernel
+    """The f32 FMA kernels' weight layout (the f32 routes of kernels 2-4;
+    it replaces ``dexnerf_tpu/ops/fused_mlp.py::split_flex_params``): one
+    flat float32 buffer holding, per layer in :func:`_layers` order, the kernel
     ``[in, out]`` row-major (the transpose of ``nn.Linear.weight``) and then
     the bias, each starting on a 16-byte boundary. Returns the buffer and
     the offsets ``[w0, b0, w1, b1, ...]`` in floats."""
@@ -105,16 +111,18 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _k_chunks(w: torch.Tensor, k: int, n: Optional[int] = None) -> torch.Tensor:
+def _k_chunks(w: torch.Tensor, k: int, n: Optional[int] = None,
+              kc: int = BF16_KCHUNK) -> torch.Tensor:
     """``w`` [N, K] zero-padded to ``n`` rows (default N) and ``k`` (a
-    multiple of 64) columns, as flat [k/64, n, 64] K-chunks in wgmma's
-    128 B-swizzled layout: in row r of a chunk, the 16-byte group j (columns
-    8j .. 8j + 7) is stored at group j ^ (r % 8)."""
+    multiple of ``kc``) columns, as flat [k/kc, n, kc] K-chunks in wgmma's
+    128 B-swizzled layout (a row of a chunk is 128 bytes: 64 bf16 or 32
+    f32): in row r of a chunk, the 16-byte group j (columns j kc/8 ..
+    (j + 1) kc/8 - 1) is stored at group j ^ (r % 8)."""
     n = w.shape[0] if n is None else n
     w = F.pad(w, (0, k - w.shape[1], 0, n - w.shape[0]))
-    groups = w.reshape(n, k // BF16_KCHUNK, 8, 8)
+    groups = w.reshape(n, k // kc, 8, kc // 8)
     swz = torch.arange(8)[None, :] ^ (torch.arange(n)[:, None] % 8)  # [n, 8]
-    groups = groups[torch.arange(n)[:, None, None], torch.arange(k // BF16_KCHUNK)[None, :, None],
+    groups = groups[torch.arange(n)[:, None, None], torch.arange(k // kc)[None, :, None],
                     swz[:, None, :]]
     return groups.transpose(0, 1).reshape(-1)
 
@@ -131,26 +139,37 @@ def _pad_vec(t: torch.Tensor, n: int) -> torch.Tensor:
     return F.pad(t, (0, n - t.shape[-1]))
 
 
-def _bf16_layout(model: FlexibleNeRFModel, w: dict
-                 ) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
-    """:func:`pack_flex_weights_bf16`'s layout of the parameters ``w``
-    (name -> tensor, the model's shapes) at the padded width, before any
-    rounding: the float32 matmul operands as :func:`_k_chunks` in
-    consumption order, the aux buffer and its offsets."""
+def _operands(model: FlexibleNeRFModel, w: dict, chunks, kc: int) -> List[torch.Tensor]:
+    """The matmul operands of the parameters ``w`` (name -> tensor, the
+    model's shapes) in the kernels' consumption order, each as
+    ``chunks(weight [N, K], K padded, N padded)``: layer1; per trunk layer
+    its h rows, then on a skip layer its xyz rows; fc_feat; the feat rows of
+    layers_dir.0. Padded to Hp = :func:`bf16_hidden` rows (Hp/2 for the
+    viewdir layer); K to a multiple of ``kc``."""
+    H = model.hidden_size
+    Hp = bf16_hidden(H)
+    dxp, kh = _round_up(model.dim_xyz, kc), _round_up(Hp, kc)
+    parts = [chunks(w["layer1.weight"], dxp, Hp)]
+    for i in range(model.num_layers - 1):
+        wi = w[f"layers_xyz.{i}.weight"]
+        parts.append(chunks(wi[:, :H], kh, Hp))
+        if i in model.skips:
+            parts.append(chunks(wi[:, H:], dxp, Hp))
+    parts.append(chunks(w["fc_feat.weight"], kh, Hp))
+    parts.append(chunks(w["layers_dir.0.weight"][:, :H], kh, Hp // 2))
+    return parts
+
+
+def _aux(model: FlexibleNeRFModel, w: dict) -> Tuple[torch.Tensor, List[int]]:
+    """The aux buffer of both routes' packs at Hp = :func:`bf16_hidden` and
+    its offsets: the biases of layer1, of each trunk layer, of fc_feat and
+    of layers_dir.0, then w_alpha [Hp], b_alpha, w_rgb [Hp/2, 3], b_rgb and
+    the viewdir rows of layers_dir.0 [dd, Hp/2]."""
     H = model.hidden_size
     Hp = bf16_hidden(H)
     Hp2 = Hp // 2
-    dxp, kh = _round_up(model.dim_xyz, BF16_KCHUNK), _round_up(Hp, BF16_KCHUNK)
     d0 = "layers_dir.0"
-    parts = [_k_chunks(w["layer1.weight"], dxp, Hp)]
-    for i in range(model.num_layers - 1):
-        wi = w[f"layers_xyz.{i}.weight"]
-        parts.append(_k_chunks(wi[:, :H], kh, Hp))
-        if i in model.skips:
-            parts.append(_k_chunks(wi[:, H:], dxp, Hp))
-    parts.append(_k_chunks(w["fc_feat.weight"], kh, Hp))
-    parts.append(_k_chunks(w[f"{d0}.weight"][:, :H], kh, Hp2))
-    aux, offsets = _pack_f32([
+    return _pack_f32([
         _pad_vec(w["layer1.bias"], Hp),
         *(_pad_vec(w[f"layers_xyz.{i}.bias"], Hp) for i in range(model.num_layers - 1)),
         _pad_vec(w["fc_feat.bias"], Hp), _pad_vec(w[f"{d0}.bias"], Hp2),
@@ -158,7 +177,57 @@ def _bf16_layout(model: FlexibleNeRFModel, w: dict
         F.pad(w["fc_rgb.weight"].t(), (0, 0, 0, Hp2 - H // 2)), w["fc_rgb.bias"],
         _pad_vec(w[f"{d0}.weight"][:, H:].t(), Hp2),
     ])
-    return torch.cat(parts), aux, offsets
+
+
+def _bf16_layout(model: FlexibleNeRFModel, w: dict
+                 ) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
+    """:func:`pack_flex_weights_bf16`'s layout of the parameters ``w``
+    (name -> tensor, the model's shapes) at the padded width, before any
+    rounding: the float32 matmul operands as :func:`_k_chunks` in
+    consumption order, the aux buffer and its offsets."""
+    aux, offsets = _aux(model, w)
+    return torch.cat(_operands(model, w, _k_chunks, BF16_KCHUNK)), aux, offsets
+
+
+def tf32_feature_order(k: int) -> torch.Tensor:
+    """The feature at each of ``k`` K positions of the float32 route's
+    products (``ops/csrc/mlp_tile_tf32.cuh``): within each block of 8,
+    positions 0-3 hold features 0, 2, 4, 6 and positions 4-7 features 1, 3,
+    5, 7, the order in which a thread's accumulator columns 2q, 2q + 1 sit
+    in wgmma's tf32 A fragment (positions q, q + 4)."""
+    p = torch.arange(k)
+    return (p & ~7) + 2 * (p & 3) + ((p & 7) >> 2)
+
+
+def _tf32_chunks(w: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """``w`` [N, K] as the float32 route's B operand before the split:
+    padded to ``n`` rows and ``k`` columns, K in :func:`tf32_feature_order`,
+    as [n, 32] swizzled K-chunks (:func:`_k_chunks`)."""
+    w = F.pad(w, (0, k - w.shape[1], 0, n - w.shape[0]))[:, tf32_feature_order(k)]
+    return _k_chunks(w, k, n, TF32_KCHUNK)
+
+
+def _tf32_layout(model: FlexibleNeRFModel, w: dict
+                 ) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
+    """:func:`pack_flex_weights_tf32`'s layout of the parameters ``w``
+    before the split: the operands as :func:`_tf32_chunks` in consumption
+    order, the aux buffer and its offsets."""
+    aux, offsets = _aux(model, w)
+    return torch.cat(_operands(model, w, _tf32_chunks, TF32_KCHUNK)), aux, offsets
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float32) rounded to TF32, to nearest with ties away from zero
+    (``cvt.rna.tf32.f32``), its 13 low mantissa bits zero."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` = (tf32(x), tf32(x - hi)): x - hi is exact in float32,
+    and hi + lo holds x to ~2^-22 of its magnitude."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
 
 
 # (layout function, model shape, device) -> gather plan: every packed entry
@@ -230,20 +299,63 @@ def pack_flex_weights_bf16(
     return wq.to(device), aux.to(device), offsets
 
 
-# model -> ((each parameter's (data_ptr, version), device), its
-# pack_flex_weights_bf16): packed once per parameter state for kernel 1 and
-# the training forward, rebuilt when a parameter is replaced or changed in
-# place
-_packed_bf16 = weakref.WeakKeyDictionary()
+def pack_flex_weights_tf32(
+    model: FlexibleNeRFModel, device=None
+) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
+    """The float32 render kernel's weight layout, at the padded width Hp =
+    :func:`bf16_hidden` (every padded row, column and bias is zero):
+
+    * ``wq``, float32: the matmul operands in the consumption order of
+      :func:`pack_flex_weights_bf16`, K zero-padded to a multiple of 32 and
+      in :func:`tf32_feature_order`, as [N, 32] K-chunks in wgmma's
+      128 B-swizzled layout; each chunk first as hi = tf32(w), then as lo =
+      tf32(w - hi) (:func:`tf32_split`), one ring stage each. The kernel
+      copies each stage to shared memory as it is;
+    * ``aux``, float32, at the returned offsets: as
+      :func:`pack_flex_weights_bf16`'s, unrounded (the viewdir rows make a
+      per-ray f32 bias).
+
+    One gather of the parameters (:func:`gather_plan`), then the split.
+    """
+    dev = next(model.parameters()).device
+    idx_wq, idx_aux, offsets = gather_plan(_tf32_layout, model, dev)
+    with torch.no_grad():
+        wq, aux = gather_params(model, idx_wq, idx_aux)
+        hi, lo = tf32_split(wq)
+        # each chunk's hi stage, then its lo stage; the chunks of the last
+        # operand (layers_dir.0's feat rows) have Hp/2 rows, the others Hp
+        Hp = bf16_hidden(model.hidden_size)
+        cut = wq.numel() - Hp // 2 * Hp
+        parts = []
+        for part, rows in ((slice(0, cut), Hp), (slice(cut, None), Hp // 2)):
+            n = rows * TF32_KCHUNK
+            parts.append(torch.stack([hi[part].view(-1, n), lo[part].view(-1, n)], 1).reshape(-1))
+        wq = torch.cat(parts)
+    return wq.to(device), aux.to(device), offsets
+
+
+# model -> {pack function: ((each parameter's (data_ptr, version), device),
+# its pack)}: packed once per parameter state (kernel 1's bf16 pack also
+# serves the training forward), rebuilt when a parameter is replaced or
+# changed in place
+_packed = weakref.WeakKeyDictionary()
+
+
+def _cached_pack(pack, model: FlexibleNeRFModel, device):
+    key = (tuple((p.data_ptr(), p._version) for p in model.parameters()), str(device))
+    packs = _packed.setdefault(model, {})
+    hit = packs.get(pack)
+    if hit is None or hit[0] != key:
+        hit = packs[pack] = (key, pack(model, device))
+    return hit[1]
 
 
 def _cached_bf16_weights(model: FlexibleNeRFModel, device):
-    key = (tuple((p.data_ptr(), p._version) for p in model.parameters()), str(device))
-    hit = _packed_bf16.get(model)
-    if hit is None or hit[0] != key:
-        hit = (key, pack_flex_weights_bf16(model, device))
-        _packed_bf16[model] = hit
-    return hit[1]
+    return _cached_pack(pack_flex_weights_bf16, model, device)
+
+
+def _cached_tf32_weights(model: FlexibleNeRFModel, device):
+    return _cached_pack(pack_flex_weights_tf32, model, device)
 
 
 def flex_forward_bf16(
@@ -333,12 +445,13 @@ def fused_render_reference(
 
 
 class RenderPlan(NamedTuple):
-    """The bf16 kernel's work plan for one pass: the rays cut into
+    """A render kernel's work plan for one pass: the rays cut into
     ``units`` units of ``rays_per_unit`` whole rays (the last may hold
     fewer), each computed as ``rows_per_unit`` MLP rows (a multiple of 64,
     one 64-row tile at a time); ``rows`` = units x rows_per_unit of which
-    ``padded_rows`` are padding; ``grid`` persistent CTAs, whose consumer
-    warpgroups (worker 3 b + c of CTA b) take units w, w + 3 grid, ...."""
+    ``padded_rows`` are padding; ``grid`` persistent CTAs, whose ``workers``
+    consumer warpgroups each (worker k b + c of CTA b, k = workers) take
+    units w, w + k grid, ...."""
 
     rays_per_unit: int
     rows_per_unit: int
@@ -346,16 +459,19 @@ class RenderPlan(NamedTuple):
     rows: int
     padded_rows: int
     grid: int
+    workers: int = BF16_WORKERS
 
 
-def render_plan(n_rays: int, n_samples: int, ctas: int) -> RenderPlan:
-    """The work plan of the bf16 kernel (ops/csrc/fused_render_bf16.cu) for
-    ``n_rays`` rays of ``n_samples`` on a card that holds ``ctas`` CTAs at
-    once. The rays per unit (at most 16, at most 256 rows) are those with
+def render_plan(n_rays: int, n_samples: int, ctas: int,
+                workers: int = BF16_WORKERS) -> RenderPlan:
+    """The work plan of a render kernel (ops/csrc/fused_render_bf16.cu, 3
+    workers a CTA; ops/csrc/fused_render.cu, ``workers`` = TF32_WORKERS)
+    for ``n_rays`` rays of ``n_samples`` on a card that holds ``ctas`` CTAs
+    at once. The rays per unit (at most 16, at most 256 rows) are those with
     the fewest padded rows per ray; on a tie the largest unit of at most 128
     rows (fewer unit prologues and compositing rounds), else the smallest.
     S = 64 gives 2 rays in 128 rows, S = 128 one ray, S = 100 one ray in 128
-    rows (28 padded), S = 8 16 rays. One CTA per three units, at most
+    rows (28 padded), S = 8 16 rays. One CTA per ``workers`` units, at most
     ``ctas``, so that a small frame leaves no CTA idle."""
     if not 1 <= n_samples <= MAX_SAMPLES:
         raise ValueError(f"{n_samples} samples per ray: the kernel takes 1..{MAX_SAMPLES}")
@@ -369,42 +485,57 @@ def render_plan(n_rays: int, n_samples: int, ctas: int) -> RenderPlan:
             best = (key, r, rows)
     _, rpu, rows_u = best
     units = -(-n_rays // rpu)
-    grid = min(ctas, -(-units // BF16_WORKERS))
+    grid = min(ctas, -(-units // workers))
     return RenderPlan(rpu, rows_u, units, units * rows_u, units * rows_u - n_rays * n_samples,
-                      grid)
+                      grid, workers)
 
 
 def plan_workers(plan: RenderPlan) -> List[List[int]]:
     """The units of each worker (consumer warpgroup c of CTA b is worker
-    3 b + c), in the order the kernel computes them."""
-    n = BF16_WORKERS * plan.grid
+    k b + c, k = plan.workers), in the order the kernel computes them."""
+    n = plan.workers * plan.grid
     return [list(range(w, plan.units, n)) for w in range(n)]
 
 
-# (width, encodings, samples, rays per unit, depth, skips, device) ->
-# (CTAs per SM, shared-memory bytes per CTA, weight ring stages)
+# (C entry, its shape arguments, device) -> (CTAs per SM, shared-memory bytes
+# per CTA, weight ring stages)
 _residency = {}
+
+
+def _occupancy(entry: str, *args: int) -> Tuple[int, int, int]:
+    """The residency that the C query ``entry`` reports for a render kernel
+    at the shape ``args``, once per shape and device."""
+    from dexnerf_tpu_torch.ops._build import check, load_library
+
+    key = (entry, *args, torch.cuda.current_device())
+    if key not in _residency:
+        lib = load_library()
+        out = [ctypes.c_int(0) for _ in range(3)]
+        check(lib, getattr(lib, entry)(*args, *map(ctypes.byref, out)), f"{entry} query")
+        if out[0].value < 1:
+            raise RuntimeError(f"{entry}: the render kernel does not fit on an SM "
+                               f"({out[1].value} bytes of shared memory)")
+        _residency[key] = tuple(o.value for o in out)
+    return _residency[key]
+
+
+def _kernel_shape(model: FlexibleNeRFModel, n_samples: int) -> tuple:
+    rpu = render_plan(1, n_samples, 1).rays_per_unit
+    return (bf16_hidden(model.hidden_size), model.dim_xyz, model.dim_dir, n_samples, rpu,
+            model.num_layers - 1)
 
 
 def bf16_occupancy(model: FlexibleNeRFModel, n_samples: int) -> Tuple[int, int, int]:
     """(CTAs per SM, shared-memory bytes per CTA, weight ring stages) of the
     bf16 kernel for ``model`` at ``n_samples`` per ray, as the CUDA runtime
     and the launcher report them (needs the card)."""
-    from dexnerf_tpu_torch.ops._build import check, load_library
+    return _occupancy("dexnerf_fused_render_bf16_occupancy", *_kernel_shape(model, n_samples),
+                      sum(1 << i for i in model.skips))
 
-    rpu = render_plan(1, n_samples, 1).rays_per_unit
-    key = (bf16_hidden(model.hidden_size), model.dim_xyz, model.dim_dir, n_samples, rpu,
-           model.num_layers - 1, sum(1 << i for i in model.skips), torch.cuda.current_device())
-    if key not in _residency:
-        lib = load_library()
-        out = [ctypes.c_int(0) for _ in range(3)]
-        code = lib.dexnerf_fused_render_bf16_occupancy(*key[:7], *map(ctypes.byref, out))
-        check(lib, code, "fused_render bf16 occupancy query")
-        if out[0].value < 1:
-            raise RuntimeError(f"the bf16 render kernel does not fit on an SM ({out[1].value} "
-                               "bytes of shared memory)")
-        _residency[key] = tuple(o.value for o in out)
-    return _residency[key]
+
+def tf32_occupancy(model: FlexibleNeRFModel, n_samples: int) -> Tuple[int, int, int]:
+    """The same for the float32 route's kernel (ops/csrc/fused_render.cu)."""
+    return _occupancy("dexnerf_fused_render_occupancy", *_kernel_shape(model, n_samples))
 
 
 def _check_inputs(model, dev, tensors, N: int, S: int, T: int, compute_dtype) -> None:
@@ -419,9 +550,8 @@ def _check_inputs(model, dev, tensors, N: int, S: int, T: int, compute_dtype) ->
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     H = model.hidden_size
-    # both routes take multiples of 8 up to 128 (the bf16 route computes at
-    # bf16_hidden(H)); the bf16 route's shared-memory request is checked by
-    # the launch
+    # both routes take multiples of 8 up to 128, computed at bf16_hidden(H);
+    # their shared-memory requests are checked by the launch
     if H > MAX_HIDDEN or H % 8 or H < 8:
         raise ValueError(f"hidden_size {H}: the kernel takes multiples of 8 up to {MAX_HIDDEN}")
     if not 1 <= S <= MAX_SAMPLES:
@@ -433,11 +563,6 @@ def _check_inputs(model, dev, tensors, N: int, S: int, T: int, compute_dtype) ->
         raise ValueError(f"{model.num_layers} layers: too deep for the kernel")
     if max(model.num_encoding_fn_xyz, model.num_encoding_fn_dir) > MAX_FREQ:
         raise ValueError(f"the kernel takes at most {MAX_FREQ} PE frequencies")
-    if compute_dtype == torch.float32:
-        shared = 4 * ((model.dim_xyz + 2 * H) * 64 + 7 * S + model.dim_dir + H // 2)
-        if shared > SHARED_BYTES_LIMIT:
-            raise ValueError(
-                f"{shared} bytes of shared memory needed; the card has {SHARED_BYTES_LIMIT}")
 
 
 def _host_array(ctype, values):
@@ -490,28 +615,25 @@ def _launch(
             w.data_ptr(), dex.data_ptr() if dex is not None else None)
     pe = (model.num_encoding_fn_xyz, int(model.include_input_xyz), bx_ptr,
           model.num_encoding_fn_dir, int(model.include_input_dir), bd_ptr, T, th_ptr)
-    if compute_dtype == torch.bfloat16:
+    bf16 = compute_dtype == torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if bf16:
         wq, aux, offsets = _cached_bf16_weights(model, dev)
-        off_arr, off_ptr = _host_array(ctypes.c_int, offsets)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         plan = render_plan(N, S, sms * bf16_occupancy(model, S)[0])
-        code = lib.dexnerf_fused_render_bf16(
-            *ins, wq.data_ptr(), aux.data_ptr(), *outs,
-            N, S, bf16_hidden(model.hidden_size), model.num_layers - 1, skip_mask,
-            plan.rays_per_unit, plan.grid,
-            *pe, off_ptr, int(bool(white_background)), stream,
-        )
-        check(lib, code, "fused_render bf16 kernel launch")
-        launches_bf16 += 1
+        entry, what = lib.dexnerf_fused_render_bf16, "fused_render bf16 kernel launch"
     else:
-        weights, offsets = pack_flex_weights(model, dev)
-        off_arr, off_ptr = _host_array(ctypes.c_int, offsets)
-        code = lib.dexnerf_fused_render(
-            *ins, weights.data_ptr(), *outs,
-            N, S, model.hidden_size, model.num_layers - 1, skip_mask,
-            *pe, off_ptr, int(bool(white_background)), stream,
-        )
-        check(lib, code, "fused_render kernel launch")
+        wq, aux, offsets = _cached_tf32_weights(model, dev)
+        plan = render_plan(N, S, sms * tf32_occupancy(model, S)[0], TF32_WORKERS)
+        entry, what = lib.dexnerf_fused_render, "fused_render kernel launch"
+    off_arr, off_ptr = _host_array(ctypes.c_int, offsets)
+    code = entry(
+        *ins, wq.data_ptr(), aux.data_ptr(), *outs,
+        N, S, bf16_hidden(model.hidden_size), model.num_layers - 1, skip_mask,
+        plan.rays_per_unit, plan.grid,
+        *pe, off_ptr, int(bool(white_background)), stream,
+    )
+    check(lib, code, what)
+    launches_bf16 += int(bf16)
     launches += 1
     return VolumeRenderOutputs(
         rgb=rgb, disparity=disp, accumulation=acc, weights=w, depth=depth,

@@ -209,19 +209,34 @@ def cuda():
     return torch.device("cuda")
 
 
+FULL = dict(num_layers=8, hidden_size=128, skip_connect_every=3,
+            num_encoding_fn_xyz=10, num_encoding_fn_dir=4)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "arch,S,T,white",
     [
         (dict(ARCH), 8, 2, True),
-        (dict(num_layers=8, hidden_size=128, skip_connect_every=3,
-              num_encoding_fn_xyz=10, num_encoding_fn_dir=4), 128, 20, False),
-        (dict(num_layers=8, hidden_size=128, skip_connect_every=3,
-              num_encoding_fn_xyz=10, num_encoding_fn_dir=4), 192, 20, False),
+        (FULL, 128, 20, False),
+        (FULL, 192, 20, False),
+        (FULL, 64, 1, True),
+        (dict(FULL, hidden_size=8), 64, 20, False),
+        (dict(FULL, hidden_size=8), 192, 1, True),
+        (dict(FULL, hidden_size=16), 128, 20, True),
+        (dict(FULL, hidden_size=16), 64, 1, False),
+        (dict(FULL, hidden_size=48), 192, 20, False),
+        (dict(FULL, hidden_size=48), 128, 1, True),
+        (dict(FULL, num_encoding_fn_xyz=16), 128, 20, False),
     ],
-    ids=["tiny", "fine-128", "fine-192"],
+    ids=["tiny", "fine-128", "fine-192", "h128-64-t1", "h8-64", "h8-192-t1", "h16-128",
+         "h16-64-t1", "h48-192", "h48-128-t1", "pe16-128"],
 )
 def test_kernel_matches_plain_on_card(cuda, arch, S, T, white):
+    """The float32 route (split TF32 on wgmma) vs its plain version at widths
+    8-128 (zero-padded to a multiple of 32), PE up to 16 frequencies, 8-192
+    samples per ray and 1-20 thresholds, with one ray of zero weights (its
+    intervals 0) and a σ head scaled so that both Dex branches occur."""
     m = FlexibleNeRFModel(**arch).reset_parameters(torch.Generator().manual_seed(0))
     ro, rd, vd, near, far = (torch.tensor(a, device=cuda) for a in _rays(n=300, seed=9))
     m = m.to(cuda)
@@ -236,19 +251,40 @@ def test_kernel_matches_plain_on_card(cuda, arch, S, T, white):
         m.fc_alpha.weight.mul_(k)
         m.fc_alpha.bias.copy_((m.fc_alpha.bias - raw.mean()) * k)
     dists = ray_dists(z, rd)
+    dists[7] = 0.0  # a ray of zero weights
     thr = tuple(5.0 * (i + 1) for i in range(T))
-    before = fr.launches
+    before, before_bf16 = fr.launches, fr.launches_bf16
     with torch.inference_mode():
         got = fr.fused_render(m, ro, rd, vd, z, dists, thresholds=thr, white_background=white)
+        again = fr.fused_render(m, ro, rd, vd, z, dists, thresholds=thr, white_background=white)
         want = fr.fused_render_reference(m, ro, rd, vd, z, dists, thresholds=thr,
                                          white_background=white)
     torch.cuda.synchronize()
-    assert fr.launches == before + 1
+    assert fr.launches == before + 2 and fr.launches_bf16 == before_bf16
     for f in ("rgb", "disparity", "accumulation", "depth", "weights"):
+        assert torch.equal(getattr(got, f), getattr(again, f)), f  # deterministic
         torch.testing.assert_close(getattr(got, f), getattr(want, f),
                                    rtol=GPU_RTOL, atol=GPU_ATOL)
+    assert float(got.accumulation[7]) == 0.0 and not got.weights[7].any()
     assert float((got.depth_dex == want.depth_dex).float().mean()) >= 0.9999
+    if T == 20:  # both Dex branches: a crossing, and z[0] where none
+        hit = (got.depth_dex != z[None, :, 0]).float().mean()
+        assert 0.05 < float(hit) < 0.95, float(hit)
     with pytest.raises(ValueError, match="contiguous"):
         fr.fused_render(m, ro, rd, vd, z.t().contiguous().t(), dists)
     with pytest.raises(ValueError, match="float32"):
         fr.fused_render(m, ro.double(), rd, vd, z, dists)
+
+
+@pytest.mark.gpu
+def test_kernel_residency_on_card(cuda):
+    """Persistent: one CTA per SM at the full width, coarse and fine, within
+    the block's shared-memory limit, with ring stages for at least two
+    chunks (the one a consumer holds and the next), and every SM in the
+    plan of a 400x400 frame."""
+    m = FlexibleNeRFModel(**FULL).to(cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for S in (64, 128):
+        ctas, smem, stages = fr.tf32_occupancy(m, S)
+        assert ctas == 1 and smem <= fr.SHARED_BYTES_LIMIT and stages >= 4, (S, ctas, smem)
+        assert fr.render_plan(160_000, S, sms * ctas, fr.TF32_WORKERS).grid == sms
