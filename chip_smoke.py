@@ -56,8 +56,11 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    profile three steps at bf16 and three at f32 (kernel 4, glue, Adam,
    idle), with the bf16 forward, chain and dW kernels' device time each
    beside its own bound (the ``parts`` of the kernels line; the bytes and
-   operations behind each bound on a line of their own) and the f32 route's
-   dW kernel beside the same products as f32 ``torch.matmul``; print the bf16
+   operations behind each bound on a line of their own) and the f32
+   routes' split-TF32 dW kernel (``dw_tf32_kernel``) beside its bound (the
+   scratch read and the gradient written once; its three TF32 products a
+   multiply-add printed beside) and the same products as f32
+   ``torch.matmul``; print the bf16
    forward's residency (CTAs per SM, shared bytes, ring stages, staging
    tiles) and each of its launches' 64-row tiles and CTAs;
 9. train the field path (``nerf.pallas_fused_loss: false``) through
@@ -85,7 +88,8 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    at f32 (TF32 off) and bf16, and
    whole field-path steps at bf16 and at f32; profile three field-path
    steps at each dtype (kernel 2, kernel 3, glue, Adam, idle), with kernel
-   3's bf16 kernels beside their bounds as in phase 8 and kernel 2's bf16
+   3's bf16 kernels beside their bounds as in phase 8, its f32 dW kernel
+   beside its bound and ``torch.matmul`` as in phase 8, and kernel 2's bf16
    forward beside its route's bound; the forward's residency and launches
    for kernels 2 and 3, as in phase 8;
 14. Dex-NeRF on messytable: write a synthetic messytable scene (stored
@@ -156,7 +160,8 @@ TRAIN_VIEWS = (16, 2, 1)
 TRAIN_ITERS = 40
 SLICE_ITERS = 20  # steps of each of the field path and the resample path
 # kernel 4's __global__ kernels, by name (the profile's part)
-KERNEL4_NAMES = ("train_pass_kernel", "dw_kernel", "reduce_kernel", "sum_rays_kernel")
+KERNEL4_NAMES = ("train_pass_kernel", "dw_tf32_kernel", "dw_tf32_reduce_kernel",
+                 "sum_rays_kernel")
 KERNEL4_BF16_NAMES = ("train_prep_kernel", "train_fwd_bf16_kernel", "train_composite_kernel",
                       "train_chain_bf16_kernel", "train_dw_bf16_kernel", "reduce_bf16_kernel",
                       "sum_rays_bf16_kernel")
@@ -771,7 +776,8 @@ def train_phase(torch, np, card, dev, tmp):
           + json.dumps(sizes))
     print("  f32 steps (pallas_compute_dtype: float32):")
     dw_f32 = f32_dw_share(profile_steps(torch, steps["kernel"], {"kernel 4": KERNEL4_NAMES}),
-                          ms["dw_torch_matmul_f32"])
+                          ms["dw_torch_matmul_f32"],
+                          [(a[0], *a[3].shape) for a in per_pass.values()])
     entry = dict(route="cuda", replaces="dexnerf_tpu/ops/fused_train_loss.py:99")
     train_kernels = [{
         "name": "fused_train_loss",
@@ -854,15 +860,49 @@ def dw_yardsticks(ms, passes, torch, dev):
         del gemms
 
 
-def f32_dw_share(prof, library_ms):
-    """The f32 routes' weight-gradient kernel (kernel 4's ``dw_kernel``,
-    which kernel 3 launches too) by device ms per step from a profile,
-    beside its f32 torch.matmul yardstick; printed and returned as a
-    ``parts`` list."""
-    dw = sum(t for k, t in prof.items() if "dw_kernel" in k and "bf16" not in k)
-    print(f"  f32 route's dW kernel, device ms per step (profile): {dw:.3f}, beside the same "
-          f"products as f32 torch.matmul (TF32 off): {library_ms:.3f}")
-    return [{"name": "dw_kernel", "ms": dw if prof else None, "library_ms": library_ms}]
+def f32_dw_bound(passes):
+    """(bound ms, what bounds it, bytes, TF32 FLOPs, TF32 product ms) of
+    the f32 routes' weight gradients over ``passes`` ((model, rays,
+    samples) each): the function's compulsory traffic, the scratch read
+    once (every activation and cotangent row of each padded sample) and the
+    gradient written once, at 3.35 TB/s; three TF32 products of every
+    multiply-add at the TF32 peak."""
+    from dexnerf_tpu_torch.ops import _weight_grads as wgr
+
+    nbytes = flops = 0.0
+    for model, n, s in passes:
+        s_pad = -(-s // 64) * 64
+        rows = wgr.scratch_rows(model)
+        nbytes += 4.0 * n * s_pad * (rows["act_rows"] + rows["dlt_rows"])
+        nbytes += 4.0 * sum(p.numel() for p in model.parameters())
+        ps, pr = mlp_macs(model)
+        flops += 3 * 2 * (n * s_pad * ps + n * pr)
+    ms, by = bound(flops, nbytes, TF32_FLOPS)
+    return ms, by, nbytes, flops, 1e3 * flops / TF32_FLOPS
+
+
+def f32_dw_share(prof, library_ms, passes):
+    """The f32 routes' weight-gradient kernel (``dw_tf32_kernel``, which
+    kernels 3 and 4 launch) by device ms per step from a profile, beside
+    its bound (:func:`f32_dw_bound` of ``passes``) and its f32 torch.matmul
+    yardstick, with its reduction's device ms; printed and returned as a
+    ``parts`` list. Raises if the profile holds events but none of the
+    kernel, or one of the FMA ``dw_kernel`` it replaced."""
+    dw = sum(t for k, t in prof.items() if "dw_tf32_kernel" in k)
+    red = sum(t for k, t in prof.items() if "dw_tf32_reduce_kernel" in k)
+    if prof and (dw <= 0 or any("::dw_kernel(" in k for k in prof)):
+        raise AssertionError(f"f32 dW: profile time {dw} ms of dw_tf32_kernel; kernels "
+                             f"{sorted(k[:60] for k in prof)}")
+    b_ms, b_by, b_bytes, b_flops, ops_ms = f32_dw_bound(passes)
+    print(f"  f32 route's dW kernel (split TF32), device ms per step (profile): {dw:.3f} "
+          f"(its reduction {red:.3f}), bound {b_ms:.3f} ({b_by}; {b_bytes / 1e9:.4f} GB of "
+          f"scratch read and gradients written once at {HBM_BYTES / 1e12:g} TB/s); its "
+          f"{b_flops / 1e12:.4f} TFLOP of TF32 products {ops_ms:.3f} at "
+          f"{TF32_FLOPS / 1e12:g} TFLOP/s; the same products as f32 torch.matmul (TF32 off): "
+          f"{library_ms:.3f}")
+    return [{"name": "dw_tf32_kernel", "ms": dw if prof else None, "bound_ms": b_ms,
+             "bound_by": b_by + (SPLIT_TF32 if b_by == "operations" else ""),
+             "library_ms": library_ms}]
 
 
 def check_train_bf16(name, model, args, norm, want_f32, torch, phase=7, **kw):
@@ -1215,8 +1255,8 @@ def field_phase(torch, np, card, dev, tmp, sh):
     # kernel 3 runs kernel 4's dW and reduce launches
     dw_f32 = f32_dw_share(profile_steps(torch, steps["fields"], {
         "kernel 2": ("field_fwd_kernel",),
-        "kernel 3": ("field_bwd_kernel", "dw_kernel", "reduce_kernel"),
-    }), ms["dw_torch_matmul_f32"])
+        "kernel 3": ("field_bwd_kernel", "dw_tf32_kernel", "dw_tf32_reduce_kernel"),
+    }), ms["dw_torch_matmul_f32"], [(m, *p.shape[:2]) for m, p, _ in cases.values()])
     entry = dict(route="cuda", source="dexnerf_tpu_torch/ops/csrc/fused_train_loss_bf16.cu")
     fwd, bwd = ("dexnerf_tpu/ops/fused_mlp.py:481", "dexnerf_tpu/ops/fused_mlp_train.py:221")
     return [

@@ -141,19 +141,33 @@ def load_library() -> ctypes.CDLL:
         lib.dexnerf_fused_render_occupancy.restype = ci
         lib.dexnerf_fused_render_bf16_occupancy.argtypes = [ci] * 7 + [vp] * 3
         lib.dexnerf_fused_render_bf16_occupancy.restype = ci
-        lib.dexnerf_train_args_size.argtypes = [ci]
+        lib.dexnerf_train_args_size.argtypes = []
         lib.dexnerf_train_args_size.restype = ci
         lib.dexnerf_train_rows.argtypes = [ci, ci, ci, vp, ci]  # dx, H, nt, rows, len
         lib.dexnerf_train_rows.restype = ci
         lib.dexnerf_train_pass.argtypes = [vp, vp]  # args block (host), stream
         lib.dexnerf_train_pass.restype = ci
-        lib.dexnerf_train_dw.argtypes = [vp, ci, vp]  # args block, tiles, stream
-        lib.dexnerf_train_dw.restype = ci
-        lib.dexnerf_train_reduce.argtypes = (
-            [vp, ci, ctypes.c_longlong, vp]  # partials, parts, params, grad
-            + [vp, ci, vp, vp]               # per-ray losses, rays, loss (or null), stream
+        # per-ray losses, rays, loss, stream
+        lib.dexnerf_train_loss_sum.argtypes = [vp, ci, vp, vp]
+        lib.dexnerf_train_loss_sum.restype = ci
+        # the f32 routes' split-TF32 weight gradients (dw_tf32.cu)
+        lib.dexnerf_dw_tf32_args_size.argtypes = []
+        lib.dexnerf_dw_tf32_args_size.restype = ci
+        lib.dexnerf_dw_tf32_smem.argtypes = [vp]  # plan (host)
+        lib.dexnerf_dw_tf32_smem.restype = ci
+        # out (host, 128 bytes), scratch (device), k, rows, rows of a box
+        lib.dexnerf_dw_tf32_tensor_map.argtypes = [vp, vp, ctypes.c_longlong,
+                                                   ctypes.c_longlong, ci]
+        lib.dexnerf_dw_tf32_tensor_map.restype = ci
+        lib.dexnerf_dw_tf32.argtypes = [vp, vp]  # plan and chunk (host), stream
+        lib.dexnerf_dw_tf32.restype = ci
+        lib.dexnerf_dw_tf32_reduce.argtypes = (
+            [vp, ci, ci, ci]         # plan (host), chunks, stages of a chunk, of the last
+            + [vp, ci, vp, vp, vp]   # viewdir entries, per chunk, map, grad, stream
         )
-        lib.dexnerf_train_reduce.restype = ci
+        lib.dexnerf_dw_tf32_reduce.restype = ci
+        lib.dexnerf_dw_tf32_occupancy.argtypes = [ci, vp]  # shared bytes, CTAs per SM
+        lib.dexnerf_dw_tf32_occupancy.restype = ci
         lib.dexnerf_train_bf16_size.argtypes = [ci] * 4  # which, hidden, num_trunk, dd
         lib.dexnerf_train_bf16_size.restype = ci
         # args, chain maps (host), rows, tiles, stream

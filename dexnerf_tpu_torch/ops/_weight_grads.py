@@ -4,49 +4,42 @@ loss (``ops/fused_train_loss.py``, kernel 4); their bf16 routes share
 ``ops/fused_train_loss.py::Bf16Gradients``.
 
 Both pass kernels fill one activation/cotangent scratch (``Rows`` in
-``ops/csrc/mlp_chain.cuh``) chunk of rays by chunk; :class:`WeightGradients`
-owns that scratch and turns it into the gradient of every parameter with
-the K-split dW launch (``dexnerf_train_dw``, one 128 x 128 tile and one
-K-range per CTA, each into its own slot of partial sums) and the
-fixed-order reduction of the slots (``dexnerf_train_reduce``): no atomics,
-so two runs are bitwise equal.
+``ops/csrc/mlp_chain.cuh``: feature-major, row = feature, contiguous along
+the chunk's samples) chunk of rays by chunk; :class:`WeightGradients` owns
+that scratch and turns it into the gradient of every parameter with the
+split-TF32 dW launch of ``ops/csrc/dw_tf32.cu`` (``dexnerf_dw_tf32``: TMA
+boxes of 32 samples, ``wgmma`` on both operands' TF32 halves, by the plan
+of :func:`tf32_dw_plan`; persistent CTAs, one per SM, each part of a unit
+into its own slot of partial sums) and the fixed-order reduction of the
+slots (``dexnerf_dw_tf32_reduce``): no atomics, so two runs are bitwise
+equal.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
 
-# limits of ops/csrc/fused_train_loss.cu
-MAX_ITEMS = 40
-TILE = 128
-
-
-class _GemmItem(ctypes.Structure):
-    """Mirror of ``GemmItem``: one weight-gradient product."""
-
-    _fields_ = [
-        ("a", ctypes.c_void_p), ("b", ctypes.c_void_p),
-        ("ld", ctypes.c_int64), ("k", ctypes.c_int64),
-    ] + [
-        (name, ctypes.c_int32)
-        for name in ("m", "n", "m_tiles", "tile0", "w_off", "ldw", "col_off", "b_off")
-    ]
-
-
-class _GemmArgs(ctypes.Structure):
-    _fields_ = [
-        ("items", _GemmItem * MAX_ITEMS),
-        ("partial", ctypes.c_void_p),
-        ("n_params", ctypes.c_int64),
-        ("n_items", ctypes.c_int32),
-        ("n_splits", ctypes.c_int32),
-        ("part0", ctypes.c_int32),
-    ]
+# limits of ops/csrc/dw_tf32.cu
+TF32_MAX_UNITS = 36
+TF32_MAX_BOXES = 8
+TF32_BOX_ROWS = 64       # rows of an operand box
+TF32_BOX = 64 * 32 * 4   # bytes of a [64][32] f32 box
+TF32_HEAD_BOX = 8 * 32 * 4
+TF32_STAGE = 32          # samples of a stage: the K of one promotion
+TF32_SMEM_MAX = 232448
+# ring stages the dW kernel takes: at 8x128 three ran faster than four (the
+# most that fit) and five (on smaller stages): perf_tools/dw_f32_variants.py
+TF32_STAGES = 3
+TF32_LO_BUFS = 2
+ACT, DLT, DLT_HEAD = 0, 1, 2  # the kernel's tensor maps
+TF32_MAPS = (("act", 64), ("dlt", 64), ("dlt", 8))  # each map's scratch and box rows
+# a consumer warpgroup's parts (boxes of each) -> the kernel's shape code
+TF32_SHAPES = {(): 0, (1,): 1, (2,): 2, (1, 1): 3, (2, 1): 4, (2, 2): 5}
 
 
 def pack_backward_weights(model: FlexibleNeRFModel, device=None) -> Tuple[torch.Tensor, list]:
@@ -76,14 +69,6 @@ def pack_backward_weights(model: FlexibleNeRFModel, device=None) -> Tuple[torch.
     return torch.cat(chunks).to(device), offsets
 
 
-def check_gemm_args_size(lib) -> None:
-    if lib.dexnerf_train_args_size(1) != ctypes.sizeof(_GemmArgs):
-        raise RuntimeError(
-            f"_GemmArgs is {ctypes.sizeof(_GemmArgs)} bytes here but "
-            f"{lib.dexnerf_train_args_size(1)} in the kernel library"
-        )
-
-
 def _param_offsets(model) -> Tuple[dict, int]:
     """Offset of every parameter in the flat gradient, in
     ``model.named_parameters()`` order, and the total count."""
@@ -94,11 +79,25 @@ def _param_offsets(model) -> Tuple[dict, int]:
     return offs, pos
 
 
+def scratch_rows(model) -> dict:
+    """The scratch layout (``Rows`` in ``ops/csrc/mlp_chain.cuh``) in rows
+    of ``k`` floats: the row counts ``act_rows``/``dlt_rows``, the first row
+    of each named block, and the lists ``a`` (layer1's output, then the
+    trunk's) and ``d`` (their cotangents, then feat's). act: e (dx rows),
+    a_0..a_nt, feat (H each), y (H/2); dlt: d_0..d_nt, feat (H each), sigma
+    (1), y (H/2), rgb (3)."""
+    dx, H, nt = model.dim_xyz, model.hidden_size, model.num_layers - 1
+    feat = dx + (nt + 1) * H
+    dsig = (nt + 2) * H
+    return {"act_rows": feat + H + H // 2, "dlt_rows": dsig + 1 + H // 2 + 3, "e": 0,
+            "feat": feat, "y": feat + H, "dsig": dsig, "dy": dsig + 1,
+            "drgb": dsig + 1 + H // 2, "a": [dx + i * H for i in range(nt + 1)],
+            "d": [i * H for i in range(nt + 2)]}
+
+
 def _scratch_rows(lib, model) -> dict:
-    """The scratch layout as the kernel library defines it (``Rows``), in
-    rows of ``k`` floats: the row counts ``act_rows``/``dlt_rows``, the
-    first row of each named block, and the lists ``a`` (layer1's output,
-    then the trunk's) and ``d`` (their cotangents, then feat's)."""
+    """:func:`scratch_rows` as the kernel library defines it
+    (``dexnerf_train_rows``)."""
     from dexnerf_tpu_torch.ops._build import check
 
     nt = model.num_layers - 1
@@ -112,19 +111,281 @@ def _scratch_rows(lib, model) -> dict:
     return rows
 
 
-def _gemm_args(items, partial, n_params: int, n_splits: int, part0: int):
-    args = _GemmArgs()
-    tile0 = 0
-    for slot, (a, b, ld, k, m, n, w_off, ldw, col_off, b_off) in zip(args.items, items):
-        m_tiles, n_tiles = -(-m // TILE), -(-n // TILE)
-        slot.a, slot.b, slot.ld, slot.k = a, b, ld, k
-        slot.m, slot.n, slot.m_tiles, slot.tile0 = m, n, m_tiles, tile0
-        slot.w_off, slot.ldw, slot.col_off, slot.b_off = w_off, ldw, col_off, b_off
-        tile0 += m_tiles * n_tiles
-    args.partial = partial.data_ptr()
-    args.n_params = n_params
-    args.n_items, args.n_splits, args.part0 = len(items), n_splits, part0
-    return args, tile0
+# ---- the split-TF32 dW plan
+class Tf32Part(NamedTuple):
+    """One ``wgmma`` product of a consumer warpgroup: D[r][c] = sum_k
+    A[r][k] B[c][k] over the operand boxes b..b + nb - 1 (N = 64 nb),
+    written to ``base + r * ldw + c`` of the flat gradient for c < m_lim
+    (and r below the warpgroup's ``n_lim``)."""
+
+    b: int
+    nb: int
+    base: int
+    ldw: int
+    m_lim: int
+
+
+class Tf32Wg(NamedTuple):
+    """A consumer warpgroup's share of a unit: its A (cotangent) box, that
+    box's valid rows, its parts."""
+
+    a: int
+    n_lim: int
+    parts: Tuple[Tf32Part, ...]
+
+
+class Tf32Head(NamedTuple):
+    """A thin head on the CUDA cores: its ``rows`` cotangent rows (the
+    unit's last box) times the boxes box0..box0 + nbox - 1, dW[c][m] at
+    ``w + c * ldw + m`` (m < mlim), its bias at ``bias + c``."""
+
+    rows: int
+    box0: int
+    nbox: int
+    w: int
+    ldw: int
+    mlim: int
+    bias: int
+
+
+class Tf32Unit(NamedTuple):
+    """Products read together. ``boxes`` in stage order, each (tensor map,
+    first row): the ``n_a`` boxes of the cotangent block (A), the other
+    ``n_op - n_a`` operand boxes (B), a head's operand boxes when they are
+    no operand, the head's cotangent box last; ``a_rows`` and ``bias``: the
+    cotangent block's valid rows and its bias's offset; one :class:`Tf32Wg`
+    per consumer warpgroup; ``tx`` the bytes of a stage, ``cost`` its KB
+    (the work split's unit)."""
+
+    boxes: Tuple[Tuple[int, int], ...]
+    n_a: int
+    n_op: int
+    a_rows: int
+    bias: int
+    head: Optional[Tf32Head]
+    wgs: Tuple[Tf32Wg, Tf32Wg]
+    tx: int
+    cost: int
+
+
+def _n_boxes(rows: int) -> int:
+    return -(-rows // TF32_BOX_ROWS)
+
+
+def _tf32_unit(a, blocks, head=None) -> Tf32Unit:
+    """The unit of cotangent block ``a`` = (first row, rows, bias offset,
+    -1 for none) against the activation ``blocks``, each (first row, rows, offset of its
+    dW[0][0] in the flat gradient, row stride), and a ``head`` = (first
+    cotangent row, rows, operand: a block's index or an activation block
+    (first row, rows), dW offset, row stride, bias offset)."""
+    a_row, a_rows, bias = a
+    n_a = _n_boxes(a_rows)
+    boxes = [(DLT, a_row + TF32_BOX_ROWS * i) for i in range(n_a)]
+    first = []
+    for row, rows, _, _ in blocks:
+        first.append(len(boxes))
+        boxes += [(ACT, row + TF32_BOX_ROWS * i) for i in range(_n_boxes(rows))]
+    n_op = len(boxes)
+    if n_a > 1:  # each warpgroup one A box against every block
+        wgs = [Tf32Wg(w, min(TF32_BOX_ROWS, a_rows - TF32_BOX_ROWS * w), tuple(
+            Tf32Part(f, _n_boxes(rows), off + TF32_BOX_ROWS * w * ldw, ldw, rows)
+            for f, (_, rows, off, ldw) in zip(first, blocks))) for w in range(2)]
+    else:  # one A box: the B boxes dealt to the warpgroups in turn
+        items = [Tf32Part(f + i, 1, off + TF32_BOX_ROWS * i, ldw,
+                          min(TF32_BOX_ROWS, rows - TF32_BOX_ROWS * i))
+                 for f, (_, rows, off, ldw) in zip(first, blocks) for i in range(_n_boxes(rows))]
+        wgs = [Tf32Wg(0, a_rows, tuple(items[w::2])) for w in range(2)]
+    for w in wgs:
+        if tuple(p.nb for p in w.parts) not in TF32_SHAPES:
+            raise ValueError(f"no split-TF32 dW shape for parts {[p.nb for p in w.parts]}")
+    h = None
+    if head is not None:
+        h_row, h_rows, operand, w_off, ldw, h_bias = head
+        if isinstance(operand, int):
+            box0, rows = first[operand], blocks[operand][1]
+        else:
+            box0, rows = len(boxes), operand[1]
+            boxes += [(ACT, operand[0] + TF32_BOX_ROWS * i) for i in range(_n_boxes(rows))]
+        h = Tf32Head(h_rows, box0, _n_boxes(rows), w_off, ldw, rows, h_bias)
+        boxes.append((DLT_HEAD, h_row))
+    tx = sum(TF32_HEAD_BOX if m == DLT_HEAD else TF32_BOX for m, _ in boxes)
+    return Tf32Unit(tuple(boxes), n_a, n_op, a_rows, bias, h, tuple(wgs), tx, tx // 1024)
+
+
+def tf32_dw_plan(model: FlexibleNeRFModel) -> Tuple[Tf32Unit, ...]:
+    """The units of the f32 weight gradients dW[n][m] = sum_k d[n][k]
+    a[m][k] over the feature-major scratch (:func:`scratch_rows`), each
+    placed in the flat gradient (:func:`_param_offsets`). In order: layer1
+    (d_0 x e); each trunk layer i (d_{i+1} x a_i, and on a skip layer d_{i+1}
+    x e: the cotangent read once); fc_feat with the fc_alpha head (d_feat x
+    a_nt, d_sigma x a_nt: a_nt read once); layers_dir.0's feat rows with
+    the fc_rgb head (d_y x feat, d_rgb x y). The encoding e is read by
+    layer1's unit and the skip layers' (a unit of d_0, d_{i+1}, e and a_i
+    would need twice a warpgroup's registers). Biases are the cotangent
+    rows' sums; the viewdir rows of layers_dir.0 (K = rays) are the
+    launch's own work (:func:`tf32_entries`)."""
+    R = scratch_rows(model)
+    offs, _ = _param_offsets(model)
+    H, H2, nt, dx, dd = (model.hidden_size, model.hidden_size // 2, model.num_layers - 1,
+                         model.dim_xyz, model.dim_dir)
+    units = [_tf32_unit((R["d"][0], H, offs["layer1.bias"]),
+                        [(R["e"], dx, offs["layer1.weight"], dx)])]
+    for i, lin in enumerate(model.layers_xyz):
+        w, ldw = offs[f"layers_xyz.{i}.weight"], lin.in_features
+        blocks = [(R["a"][i], H, w, ldw)]
+        if i in model.skips:
+            blocks.append((R["e"], dx, w + H, ldw))
+        units.append(_tf32_unit((R["d"][i + 1], H, offs[f"layers_xyz.{i}.bias"]), blocks))
+    units.append(_tf32_unit(
+        (R["d"][nt + 1], H, offs["fc_feat.bias"]), [(R["a"][nt], H, offs["fc_feat.weight"], H)],
+        head=(R["dsig"], 1, 0, offs["fc_alpha.weight"], H, offs["fc_alpha.bias"])))
+    units.append(_tf32_unit(
+        (R["dy"], H2, offs["layers_dir.0.bias"]),
+        [(R["feat"], H, offs["layers_dir.0.weight"], H + dd)],
+        head=(R["drgb"], 3, (R["y"], H2), offs["fc_rgb.weight"], H2, offs["fc_rgb.bias"])))
+    if len(units) > TF32_MAX_UNITS:
+        raise ValueError(f"{len(units)} dW units: the kernel takes {TF32_MAX_UNITS}")
+    return tuple(units)
+
+
+def tf32_entries(unit: Tf32Unit) -> torch.Tensor:
+    """The flat-gradient entries one slot of ``unit`` holds: its parts'
+    dW blocks, the cotangent block's bias, the head's dW and bias."""
+    idx = [unit.bias + torch.arange(unit.a_rows)] if unit.bias >= 0 else []
+    for w in unit.wgs:
+        for p in w.parts:
+            idx.append((p.base + torch.arange(w.n_lim)[:, None] * p.ldw
+                        + torch.arange(p.m_lim)).reshape(-1))
+    h = unit.head
+    if h is not None:
+        idx.append((h.w + torch.arange(h.rows)[:, None] * h.ldw + torch.arange(h.mlim))
+                   .reshape(-1))
+        idx.append(h.bias + torch.arange(h.rows))
+    return torch.cat(idx)
+
+
+def tf32_viewdir_entries(model: FlexibleNeRFModel) -> torch.Tensor:
+    """The flat-gradient entry of each viewdir dW the launch writes, in its
+    order (entry o = c dd + j: layers_dir.0.weight[c][H + j])."""
+    H, dd = model.hidden_size, model.dim_dir
+    c, j = torch.meshgrid(torch.arange(H // 2), torch.arange(dd), indexing="ij")
+    return (_param_offsets(model)[0]["layers_dir.0.weight"] + c * (H + dd) + H + j).reshape(-1)
+
+
+def tf32_reduce_map(model: FlexibleNeRFModel, plan=None) -> torch.Tensor:
+    """For each entry of the flat gradient: -1 - the unit whose slots hold
+    it, or its index among the viewdir entries. Raises unless every entry
+    has exactly one source."""
+    plan = tf32_dw_plan(model) if plan is None else plan
+    n = _param_offsets(model)[1]
+    count = torch.zeros(n, dtype=torch.int32)
+    m = torch.zeros(n, dtype=torch.int32)
+    for u, unit in enumerate(plan):
+        idx = tf32_entries(unit)
+        count.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+        m[idx] = -1 - u
+    vd = tf32_viewdir_entries(model)
+    count.index_add_(0, vd, torch.ones_like(vd, dtype=torch.int32))
+    m[vd] = torch.arange(vd.numel(), dtype=torch.int32)
+    if not bool((count == 1).all()):
+        raise RuntimeError("the split-TF32 dW plan does not write every gradient entry once")
+    return m
+
+
+def tf32_ring(plan) -> Tuple[int, int, int]:
+    """(bytes of a ring stage, of a lo buffer, stages) of the dW kernel for
+    ``plan``: a stage as large as the unit with the most box bytes, a lo
+    buffer as the most B operand boxes, :data:`TF32_STAGES` stages or as
+    many as fit."""
+    stage = -(-max(u.tx for u in plan) // 1024) * 1024
+    lo = max(u.n_op - u.n_a for u in plan) * TF32_BOX
+    n = min(TF32_STAGES, (TF32_SMEM_MAX - 1024 - TF32_LO_BUFS * lo) // (stage + 24))
+    if n < 2:
+        raise ValueError("the dW plan's stages do not fit the kernel's shared memory twice")
+    return stage, lo, n
+
+
+class _Tf32Part(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_int32) for n in ("b", "nb", "base", "ldw", "m_lim")]
+
+
+class _Tf32Wg(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_int32) for n in ("a", "n_lim", "shape", "pad")] + [
+        ("part", _Tf32Part * 2)]
+
+
+class _Tf32Unit(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_int32) for n in ("n_box", "n_op", "tx", "cost")] + [
+        (n, ctypes.c_int32 * TF32_MAX_BOXES) for n in ("map", "row", "off")] + [
+        (n, ctypes.c_int32) for n in ("n_a", "a_rows", "bias", "h_rows", "h_box0", "h_nbox",
+                                      "h_w", "h_ldw", "h_mlim", "h_bias")] + [
+        ("wg", _Tf32Wg * 2)]
+
+
+class _Tf32Args(ctypes.Structure):
+    """Mirror of ``Tf32Args`` in ops/csrc/dw_tf32.cu."""
+
+    _fields_ = [
+        ("maps", ctypes.c_uint8 * (128 * len(TF32_MAPS))),
+        ("units", _Tf32Unit * TF32_MAX_UNITS),
+        ("partial", ctypes.c_void_p), ("vd", ctypes.c_void_p),
+        ("dy_sum", ctypes.c_void_p), ("dir_enc", ctypes.c_void_p),
+        ("n_params", ctypes.c_int64),
+    ] + [(n, ctypes.c_int32) for n in (
+        "n_units", "total_cost", "grid", "max_pieces", "n_stages", "stage_bytes", "lo_bytes",
+        "n_st", "chunk", "rays", "dd", "h2")] + [("pad", ctypes.c_int32 * 2)]
+
+
+def check_dw_args_size(lib) -> None:
+    if lib.dexnerf_dw_tf32_args_size() != ctypes.sizeof(_Tf32Args):
+        raise RuntimeError(
+            f"_Tf32Args is {ctypes.sizeof(_Tf32Args)} bytes here but "
+            f"{lib.dexnerf_dw_tf32_args_size()} in the kernel library"
+        )
+
+
+def tf32_dw_args(model: FlexibleNeRFModel, grid: int, plan=None) -> _Tf32Args:
+    """A ``_Tf32Args`` of the model's plan (or ``plan``) on ``grid`` CTAs,
+    without the tensor maps, the buffers and the chunk's fields."""
+    from dexnerf_tpu_torch.ops.fused_train_loss import dw_max_pieces
+
+    plan = tf32_dw_plan(model) if plan is None else plan
+    args = _Tf32Args()
+    for slot, u in zip(args.units, plan):
+        slot.n_box, slot.n_op, slot.tx, slot.cost = len(u.boxes), u.n_op, u.tx, u.cost
+        slot.map[:len(u.boxes)] = [m for m, _ in u.boxes]
+        slot.row[:len(u.boxes)] = [r for _, r in u.boxes]
+        slot.off[:len(u.boxes)] = [TF32_BOX * i for i in range(len(u.boxes))]
+        slot.n_a, slot.a_rows, slot.bias = u.n_a, u.a_rows, u.bias
+        if u.head is not None:
+            h = u.head
+            slot.h_rows, slot.h_box0, slot.h_nbox = h.rows, h.box0, h.nbox
+            slot.h_w, slot.h_ldw, slot.h_mlim, slot.h_bias = h.w, h.ldw, h.mlim, h.bias
+        for ws, w in zip(slot.wg, u.wgs):
+            ws.a, ws.n_lim = w.a, w.n_lim
+            ws.shape = TF32_SHAPES[tuple(p.nb for p in w.parts)]
+            for ps, p in zip(ws.part, w.parts):
+                ps.b, ps.nb, ps.base, ps.ldw, ps.m_lim = p
+    costs = [u.cost for u in plan]
+    args.n_units, args.total_cost, args.grid = len(plan), sum(costs), grid
+    args.max_pieces = dw_max_pieces(costs, grid)
+    args.stage_bytes, args.lo_bytes, args.n_stages = tf32_ring(plan)
+    args.n_params = _param_offsets(model)[1]
+    args.dd, args.h2 = model.dim_dir, model.hidden_size // 2
+    return args
+
+
+# (widths, depth, skips, encodings, grid, device) -> (the _Tf32Args template,
+# the reduction's map on the device): built once per shape
+_tf32_templates = {}
+
+
+def _cached_tf32(model: FlexibleNeRFModel, grid: int, device):
+    key = (model.hidden_size, model.num_layers, tuple(model.skips), model.dim_xyz,
+           model.dim_dir, grid, str(device))
+    if key not in _tf32_templates:
+        _tf32_templates[key] = (tf32_dw_args(model, grid), tf32_reduce_map(model).to(device))
+    return _tf32_templates[key]
 
 
 class WeightGradients:
@@ -133,11 +394,15 @@ class WeightGradients:
     the launches that sum it into the gradient of every parameter of
     ``model``: after the pass kernel of chunk ``c`` has filled the scratch
     (``act``, ``dlt``, ``dir_enc``, ``dy_sum``), :meth:`chunk` launches its
-    weight-gradient products; :meth:`reduce` then sums the chunks."""
+    weight-gradient kernel; :meth:`reduce` then sums the chunks."""
 
     def __init__(self, lib, model: FlexibleNeRFModel, n_rays: int, chunk: int, s_pad: int, dev):
+        from dexnerf_tpu_torch.ops._build import check
+
         self.lib, self.model, self.s_pad = lib, model, s_pad
         self.rows = _scratch_rows(lib, model)
+        if self.rows != scratch_rows(model):
+            raise RuntimeError("the kernel library's scratch layout is not scratch_rows'")
         f32 = dict(dtype=torch.float32, device=dev)
         # reused by every chunk (all launches are on one stream)
         self.act = torch.empty(self.rows["act_rows"] * chunk * s_pad, **f32)
@@ -146,59 +411,42 @@ class WeightGradients:
         self.dy_sum = torch.empty(model.hidden_size // 2 * chunk, **f32)
         self.offs, self.n_params = _param_offsets(model)
         self.grad = torch.empty((self.n_params,), **f32)
-        # K-splits of the dW products: about eight CTAs per SM in all (tiles
-        # differ in cost; more, shorter CTAs even out the last wave)
-        n_tiles = _gemm_args(self._items(1, 1), self.grad, self.n_params, 1, 0)[1]
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        self.n_splits = max(1, min(256, 8 * sms // n_tiles))
         self.n_chunks = -(-n_rays // chunk)
-        self.partial = torch.empty((self.n_chunks * self.n_splits * self.n_params,), **f32)
+        self.k_full = chunk * s_pad
+        self.k_last = (n_rays - (self.n_chunks - 1) * chunk) * s_pad
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        template, self.map = _cached_tf32(model, sms, dev)
+        self.args = _Tf32Args.from_buffer_copy(template)
+        self.n_vd = model.dim_dir * (model.hidden_size // 2)
+        self.partial = torch.empty((self.n_chunks * template.max_pieces * self.n_params,), **f32)
+        self.vd = torch.empty((max(1, self.n_chunks * self.n_vd),), **f32)
+        a = self.args
+        a.partial, a.vd = self.partial.data_ptr(), self.vd.data_ptr()
+        a.dy_sum, a.dir_enc = self.dy_sum.data_ptr(), self.dir_enc.data_ptr()
+        if lib.dexnerf_dw_tf32_smem(ctypes.addressof(a)) == 0:
+            raise ValueError("the split-TF32 dW plan is out of the kernel's limits")
+        self.maps = {k: self.tensor_maps(lib, k) for k in {self.k_full, self.k_last}}
 
-    def _items(self, k: int, rays: int):
-        """The weight-gradient products of one chunk (``k`` scratch columns,
-        ``rays`` rays) as (a, b, ld, K, M, N, w_off, ldw, col_off, b_off)."""
-        model, rows, offs = self.model, self.rows, self.offs
-        H, H2, nt = model.hidden_size, model.hidden_size // 2, model.num_layers - 1
-        dx, dd = model.dim_xyz, model.dim_dir
-        a, d = rows["a"], rows["d"]
-
-        def act_row(r):
-            return self.act.data_ptr() + 4 * r * k
-
-        def dlt_row(r):
-            return self.dlt.data_ptr() + 4 * r * k
-
-        e = act_row(rows["e"])
-        items = [(e, dlt_row(d[0]), k, k, dx, H, offs["layer1.weight"], dx, 0,
-                  offs["layer1.bias"])]
-        for i, lin in enumerate(model.layers_xyz):
-            w, b = offs[f"layers_xyz.{i}.weight"], offs[f"layers_xyz.{i}.bias"]
-            n_in = lin.in_features
-            items.append((act_row(a[i]), dlt_row(d[i + 1]), k, k, H, H, w, n_in, 0, b))
-            if i in model.skips:
-                items.append((e, dlt_row(d[i + 1]), k, k, dx, H, w, n_in, H, -1))
-        items += [
-            (act_row(a[nt]), dlt_row(d[nt + 1]), k, k, H, H, offs["fc_feat.weight"], H, 0,
-             offs["fc_feat.bias"]),
-            (act_row(a[nt]), dlt_row(rows["dsig"]), k, k, H, 1, offs["fc_alpha.weight"], H, 0,
-             offs["fc_alpha.bias"]),
-            (act_row(rows["feat"]), dlt_row(rows["dy"]), k, k, H, H2,
-             offs["layers_dir.0.weight"], H + dd, 0, offs["layers_dir.0.bias"]),
-            (self.dir_enc.data_ptr(), self.dy_sum.data_ptr(), rays, rays, dd, H2,
-             offs["layers_dir.0.weight"], H + dd, H, -1),
-            (act_row(rows["y"]), dlt_row(rows["drgb"]), k, k, H2, 3, offs["fc_rgb.weight"], H2,
-             0, offs["fc_rgb.bias"]),
-        ]
-        return items
-
-    def chunk(self, c: int, rays: int, stream: int) -> None:
-        """Launch the weight-gradient products of chunk ``c`` (``rays`` rays)."""
+    def tensor_maps(self, lib, k: int):
+        """The kernel's tensor maps (:data:`TF32_MAPS`) of a ``k``-sample
+        chunk of the scratch, encoded by ``lib``."""
         from dexnerf_tpu_torch.ops._build import check
 
-        items = self._items(rays * self.s_pad, rays)
-        gargs, tiles = _gemm_args(items, self.partial, self.n_params, self.n_splits,
-                                  c * self.n_splits)
-        check(self.lib, self.lib.dexnerf_train_dw(ctypes.addressof(gargs), tiles, stream),
+        buf = (ctypes.c_uint8 * (128 * len(TF32_MAPS)))()
+        for i, (name, box) in enumerate(TF32_MAPS):
+            check(lib, lib.dexnerf_dw_tf32_tensor_map(
+                ctypes.addressof(buf) + 128 * i, getattr(self, name).data_ptr(), k,
+                self.rows[f"{name}_rows"], box), "split-TF32 dW tensor map")
+        return buf
+
+    def chunk(self, c: int, rays: int, stream: int) -> None:
+        """Launch the weight-gradient kernel of chunk ``c`` (``rays`` rays)."""
+        from dexnerf_tpu_torch.ops._build import check
+
+        k, a = rays * self.s_pad, self.args
+        ctypes.memmove(a.maps, self.maps[k], ctypes.sizeof(a.maps))
+        a.n_st, a.chunk, a.rays = k // TF32_STAGE, c, rays
+        check(self.lib, self.lib.dexnerf_dw_tf32(ctypes.addressof(a), stream),
               "weight-gradient launch")
 
     def reduce(self, stream: int, loss_ray=None, loss=None) -> tuple:
@@ -207,17 +455,14 @@ class WeightGradients:
         flat buffer."""
         from dexnerf_tpu_torch.ops._build import check
 
-        check(
-            self.lib,
-            self.lib.dexnerf_train_reduce(
-                self.partial.data_ptr(), self.n_chunks * self.n_splits, self.n_params,
-                self.grad.data_ptr(),
-                None if loss_ray is None else loss_ray.data_ptr(),
-                0 if loss_ray is None else loss_ray.numel(),
-                None if loss is None else loss.data_ptr(), stream,
-            ),
-            "gradient reduce launch",
-        )
+        check(self.lib, self.lib.dexnerf_dw_tf32_reduce(
+            ctypes.addressof(self.args), self.n_chunks, self.k_full // TF32_STAGE,
+            self.k_last // TF32_STAGE, self.vd.data_ptr(), self.n_vd, self.map.data_ptr(),
+            self.grad.data_ptr(), stream), "gradient reduce launch")
+        if loss is not None:
+            check(self.lib, self.lib.dexnerf_train_loss_sum(
+                loss_ray.data_ptr(), loss_ray.numel(), loss.data_ptr(), stream),
+                "loss sum launch")
         return tuple(
             self.grad[self.offs[name]:self.offs[name] + p.numel()].view_as(p)
             for name, p in self.model.named_parameters()

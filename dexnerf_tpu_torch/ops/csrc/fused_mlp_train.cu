@@ -25,9 +25,9 @@
 //   scratch (mlp_chain.cuh: the same tile functions as kernel 4). Since the
 //   backward follows each tile's forward, the masks of one tile suffice.
 // * The weight gradients are products over every sample of the chunk of
-//   saved activations and cotangents: kernel 4's K-split dW launch and
-//   its fixed-order reduction (dexnerf_train_dw, dexnerf_train_reduce in
-//   fused_train_loss.cu), so two runs are bitwise equal, without atomics.
+//   saved activations and cotangents: kernel 4's split-TF32 dW launch and
+//   its fixed-order reduction (dexnerf_dw_tf32, dexnerf_dw_tf32_reduce in
+//   dw_tf32.cu), so two runs are bitwise equal, without atomics.
 //   The scratch is capped by running the batch in chunks of rays
 //   (ops/fused_mlp_train.py).
 
@@ -93,7 +93,7 @@ extern "C" {
 // `stream`. `args` points to a host FieldArgs for one chunk of rays
 // [ray0, ray0 + n_rays): pts, viewdirs, g, wf, wb, the scratch (act, dlt,
 // dir_enc, dy_sum; k = n_rays * s_pad columns), copied into the parameter
-// block. The chunk's weight gradients then come from dexnerf_train_dw.
+// block. The chunk's weight gradients then come from dexnerf_dw_tf32.
 int dexnerf_field_backward(const void* args, void* stream) {
   const FieldArgs& a = *static_cast<const FieldArgs*>(args);
   const int dx = 3 * a.inc_x + 6 * a.fx, dd = 3 * a.inc_d + 6 * a.fd;

@@ -30,7 +30,7 @@
 //   kernel of fused_mlp_train.cu), and every layer's
 //   activations are also written to a device-memory scratch, feature-major
 //   [row][sample], with streaming stores: the scratch is read once, by
-//   dw_kernel, and must not evict the weights that every CTA reads from
+//   the dW launch, and must not evict the weights that every CTA reads from
 //   L2. The ReLU masks the backward needs stay in shared memory as bits.
 //   Compositing is spread over the CTA except for its two sequential
 //   scans, the transmittance product and the backward's suffix sum, which
@@ -42,21 +42,13 @@
 //   forward). The scratch is capped by processing the batch in chunks of
 //   rays (ops/fused_train_loss.py, SCRATCH_SAMPLES: ~2.6 GB for the 8x128
 //   model, whatever the batch).
-// * dw_kernel: dW_l = sum over samples of a_{l-1} x delta_l is a product
-//   with K = every sample of the chunk and a small M x N. One launch covers
-//   every layer (a table of tiles), each CTA a 128 x 128 tile over one of
-//   n_splits K-ranges, writing its partial sums to its own slot: no atomics.
-//   Operands stream through double-buffered k-major shared tiles; each
-//   thread keeps an 8 x 8 block of sums in registers. Bias gradients are
-//   the row sums of the same delta tiles. The viewdir layer's per-ray
-//   input contributes (sum_s delta_s) x dir_enc per ray.
-// * reduce_kernel sums the slots of every chunk in a fixed order, and
-//   sum_rays_kernel the per-ray losses: runs are bitwise repeatable. The
-//   field backward kernel (fused_mlp_train.cu) fills the same scratch and
-//   runs the same dW and reduce launches (dexnerf_train_dw,
-//   dexnerf_train_reduce; without per-ray losses). The
-//   slots cost chunks x n_splits x parameters floats (~190 MB for 8x128 at
-//   batch 8192 on 132 SMs).
+// * the weight gradients: dW_l = sum over samples of a_{l-1} x delta_l, a
+//   product with K = every sample of the chunk and a small M x N, are the
+//   split-TF32 wgmma launch of dw_tf32.cu over the saved scratch
+//   (ops/_weight_grads.py), with its fixed-order reduction; sum_rays_kernel
+//   sums the per-ray losses in a fixed order: runs are bitwise repeatable.
+//   The field backward kernel (fused_mlp_train.cu) fills the same scratch
+//   and runs the same dW launches (without per-ray losses).
 
 #include <cuda_runtime.h>
 
@@ -65,12 +57,6 @@
 namespace {
 
 constexpr int kMaxSamplesPad = 256;
-constexpr int kMaxItems = 40;
-constexpr int kTile = 128;  // dW tile edge (M and N)
-constexpr int kHalf = kTile / 2;
-constexpr int kTileLd = kTile + 4;  // padded row of a shared operand slice
-constexpr int kTK = 16;     // dW k-step
-constexpr int kGemmThreads = 256;
 constexpr int kRedG = 5 * (kThreads / 32);  // red[]: 5 sums per warp, then 5 cotangents
 constexpr int kRed = kRedG + 8;
 
@@ -305,184 +291,6 @@ size_t train_smem_bytes(int dx, int dd, int hidden, int num_trunk, int s_pad) {
                           dd + hidden + kRed) + sizeof(unsigned) * mask_words;
 }
 
-// One dW product: out[n][col_off + m] = sum_k b[n][k] a[m][k] for m < M,
-// n < N (a torch [out, in] weight, row stride ldw, at w_off of the flat
-// gradient), and out[b_off + n] = sum_k b[n][k] when b_off >= 0.
-// Mirrored by ops/fused_train_loss.py::_GemmItem.
-struct GemmItem {
-  const float* a;  // [M][ld] activations (the layer input)
-  const float* b;  // [N][ld] deltas (the layer output)
-  long long ld, k;
-  int m, n, m_tiles, tile0;
-  int w_off, ldw, col_off, b_off;
-};
-
-struct GemmArgs {
-  GemmItem items[kMaxItems];
-  float* partial;      // [parts][n_params]
-  long long n_params;
-  int n_items, n_splits, part0;
-};
-
-// One k-step's slice of a tile operand, [kTK][kTileLd] in shared memory
-// (k-major, so a thread reads 4 consecutive rows as one float4; rows
-// padded to kTileLd against bank conflicts). Element e = t + 256 j of the
-// slice is row e / 4, k-quad e % 4: four lanes read one row's 64
-// contiguous bytes, a warp 8 rows.
-struct TileLoader {
-  const float* base;  // the operand's first row of this tile
-  long long ld, k_end;
-  int rows;           // rows of the tile that exist
-  bool vec;           // 16-byte loads allowed (ld % 4 == 0)
-  float4 reg[2];
-
-  __device__ void load(long long k0) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int e = threadIdx.x + kGemmThreads * j, r = e / 4;
-      const long long kk = k0 + 4 * (e % 4);
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r < rows) {
-        const float* src = base + r * ld + kk;
-        if (vec && kk + 3 < k_end) {
-          v = __ldg(reinterpret_cast<const float4*>(src));
-        } else {
-          if (kk < k_end) v.x = src[0];
-          if (kk + 1 < k_end) v.y = src[1];
-          if (kk + 2 < k_end) v.z = src[2];
-          if (kk + 3 < k_end) v.w = src[3];
-        }
-      }
-      reg[j] = v;
-    }
-  }
-
-  __device__ void store(float (*dst)[kTileLd]) const {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int e = threadIdx.x + kGemmThreads * j, r = e / 4, k = 4 * (e % 4);
-      dst[k][r] = reg[j].x;
-      dst[k + 1][r] = reg[j].y;
-      dst[k + 2][r] = reg[j].z;
-      dst[k + 3][r] = reg[j].w;
-    }
-  }
-};
-
-// One CTA's share of one dW product: a kTile x kTile output tile over
-// [k_begin, k_end). Thread (tx, ty) = (t % 16, t / 16) owns columns
-// m0 + {4tx..4tx+3, 64+4tx..64+4tx+3} and rows n0 + {4ty.., 64+4ty..}: per
-// k-step 4 float4 shared loads feed 64 FMAs. MH / NH (1 or 2) say whether
-// the upper half of the tile's columns / rows exists; a half that lies
-// past the product's edge is neither loaded nor multiplied.
-template <int MH, int NH>
-__device__ __forceinline__ void dw_tile(const GemmItem& g, int m0, int n0, long long k_begin,
-                                        long long k_end, bool bias, float* out,
-                                        float (*As)[kTK][kTileLd], float (*Bs)[kTK][kTileLd]) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const bool vec = (g.ld & 3) == 0;
-  TileLoader la{g.a + (long long)m0 * g.ld, g.ld, k_end, min(g.m - m0, MH * kHalf), vec, {}};
-  TileLoader lb{g.b + (long long)n0 * g.ld, g.ld, k_end, min(g.n - n0, NH * kHalf), vec, {}};
-  float acc[4 * NH][4 * MH];
-#pragma unroll
-  for (int i = 0; i < 4 * NH; ++i) {
-#pragma unroll
-    for (int l = 0; l < 4 * MH; ++l) acc[i][l] = 0.f;
-  }
-  float bsum = 0.f;
-  if (k_begin < k_end) {
-    la.load(k_begin);
-    lb.load(k_begin);
-    la.store(As[0]);
-    lb.store(Bs[0]);
-  }
-  __syncthreads();
-  int buf = 0;
-  for (long long k0 = k_begin; k0 < k_end; k0 += kTK) {
-    const bool more = k0 + kTK < k_end;
-    if (more) {
-      la.load(k0 + kTK);
-      lb.load(k0 + kTK);
-    }
-    float(*A)[kTileLd] = As[buf];
-    float(*B)[kTileLd] = Bs[buf];
-    if (bias && tid < kTile) {
-#pragma unroll
-      for (int j = 0; j < kTK; ++j) bsum += B[j][tid];
-    }
-#pragma unroll
-    for (int j = 0; j < kTK; ++j) {
-      float a[4 * MH], b[4 * NH];
-#pragma unroll
-      for (int h = 0; h < MH; ++h) {
-        const float4 v = *reinterpret_cast<const float4*>(&A[j][h * kHalf + 4 * tx]);
-        a[4 * h] = v.x; a[4 * h + 1] = v.y; a[4 * h + 2] = v.z; a[4 * h + 3] = v.w;
-      }
-#pragma unroll
-      for (int h = 0; h < NH; ++h) {
-        const float4 v = *reinterpret_cast<const float4*>(&B[j][h * kHalf + 4 * ty]);
-        b[4 * h] = v.x; b[4 * h + 1] = v.y; b[4 * h + 2] = v.z; b[4 * h + 3] = v.w;
-      }
-#pragma unroll
-      for (int i = 0; i < 4 * NH; ++i) {
-#pragma unroll
-        for (int l = 0; l < 4 * MH; ++l) acc[i][l] = fmaf(b[i], a[l], acc[i][l]);
-      }
-    }
-    if (more) {
-      la.store(As[buf ^ 1]);
-      lb.store(Bs[buf ^ 1]);
-    }
-    __syncthreads();
-    buf ^= 1;
-  }
-#pragma unroll
-  for (int i = 0; i < 4 * NH; ++i) {
-    const int n = n0 + (i / 4) * kHalf + 4 * ty + i % 4;
-    if (n >= g.n) continue;
-#pragma unroll
-    for (int l = 0; l < 4 * MH; ++l) {
-      const int m = m0 + (l / 4) * kHalf + 4 * tx + l % 4;
-      if (m < g.m) out[g.w_off + (long long)n * g.ldw + g.col_off + m] = acc[i][l];
-    }
-  }
-  if (bias && tid < kTile && n0 + tid < g.n) out[g.b_off + n0 + tid] = bsum;
-}
-
-__global__ void __launch_bounds__(kGemmThreads, 2) dw_kernel(const GemmArgs p) {
-  __shared__ __align__(16) float As[2][kTK][kTileLd];
-  __shared__ __align__(16) float Bs[2][kTK][kTileLd];
-  int it = 0;
-  while (it + 1 < p.n_items && p.items[it + 1].tile0 <= (int)blockIdx.x) ++it;
-  const GemmItem g = p.items[it];
-  const int t = blockIdx.x - g.tile0;
-  const int m0 = (t % g.m_tiles) * kTile, n0 = (t / g.m_tiles) * kTile;
-  const long long per = ((g.k + p.n_splits - 1) / p.n_splits + kTK - 1) / kTK * kTK;
-  const long long k_begin = min(g.k, (long long)blockIdx.y * per);
-  const long long k_end = min(g.k, k_begin + per);
-  const bool bias = g.b_off >= 0 && m0 == 0;
-  float* out = p.partial + (long long)(p.part0 + blockIdx.y) * p.n_params;
-  const bool mh = g.m - m0 > kHalf, nh = g.n - n0 > kHalf;
-  if (mh && nh) {
-    dw_tile<2, 2>(g, m0, n0, k_begin, k_end, bias, out, As, Bs);
-  } else if (mh) {
-    dw_tile<2, 1>(g, m0, n0, k_begin, k_end, bias, out, As, Bs);
-  } else if (nh) {
-    dw_tile<1, 2>(g, m0, n0, k_begin, k_end, bias, out, As, Bs);
-  } else {
-    dw_tile<1, 1>(g, m0, n0, k_begin, k_end, bias, out, As, Bs);
-  }
-}
-
-__global__ void reduce_kernel(const float* partial, int n_parts, long long n_params,
-                              float* grad) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_params) return;
-  float s = 0.f;
-  for (int j = 0; j < n_parts; ++j) s += partial[j * n_params + i];
-  grad[i] = s;
-}
-
 constexpr int kSumThreads = 1024;
 
 __global__ void __launch_bounds__(kSumThreads)
@@ -503,10 +311,8 @@ sum_rays_kernel(const float* v, int n, float* out) {
 
 extern "C" {
 
-// sizeof the argument blocks, so the Python mirrors can be checked.
-int dexnerf_train_args_size(int which) {
-  return which == 0 ? (int)sizeof(TrainArgs) : (int)sizeof(GemmArgs);
-}
+// sizeof the argument block, so the Python mirror can be checked.
+int dexnerf_train_args_size() { return (int)sizeof(TrainArgs); }
 
 // The scratch layout of Rows (mlp_chain.cuh), in rows: act and dlt row
 // counts, then the first row of e, feat, y, the sigma, y and rgb
@@ -526,7 +332,7 @@ int dexnerf_train_rows(int dx, int hidden, int num_trunk, int* rows, int n) {
 }
 
 // Each entry point returns a cudaError_t (0 on success); launches are
-// asynchronous on `stream`. `args` points to a host TrainArgs / GemmArgs,
+// asynchronous on `stream`. `args` points to a host TrainArgs,
 // copied into the kernel's parameter block at launch.
 int dexnerf_train_pass(const void* args, void* stream) {
   const TrainArgs& a = *static_cast<const TrainArgs*>(args);
@@ -546,27 +352,10 @@ int dexnerf_train_pass(const void* args, void* stream) {
   return (int)cudaGetLastError();
 }
 
-int dexnerf_train_dw(const void* args, int n_tiles, void* stream) {
-  const GemmArgs& a = *static_cast<const GemmArgs*>(args);
-  if (a.n_items < 1 || a.n_items > kMaxItems || a.n_splits < 1 || n_tiles < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  dw_kernel<<<dim3(n_tiles, a.n_splits), kGemmThreads, 0,
-              static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// The gradient sum of every slot; with `loss` non-null, also the sum of the
-// n_rays per-ray losses.
-int dexnerf_train_reduce(const float* partial, int n_parts, long long n_params,
-                         float* grad, const float* loss_ray, int n_rays, float* loss,
-                         void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  reduce_kernel<<<(unsigned)((n_params + 255) / 256), 256, 0, s>>>(partial, n_parts,
-                                                                    n_params, grad);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || loss == nullptr) return (int)err;
-  sum_rays_kernel<<<1, kSumThreads, 0, s>>>(loss_ray, n_rays, loss);
+// The sum of the n_rays per-ray losses into *loss, in a fixed order.
+int dexnerf_train_loss_sum(const float* loss_ray, int n_rays, float* loss, void* stream) {
+  sum_rays_kernel<<<1, kSumThreads, 0, static_cast<cudaStream_t>(stream)>>>(loss_ray, n_rays,
+                                                                             loss);
   return (int)cudaGetLastError();
 }
 

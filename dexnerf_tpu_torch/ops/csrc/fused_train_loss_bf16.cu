@@ -97,15 +97,10 @@
 
 #include <type_traits>
 
+#include "dw_split.cuh"
 #include "mlp_tile_bf16.cuh"
 
 namespace {
-
-// cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
-typedef CUresult (*PFN_encodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                    CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 constexpr int kRowTile = 128;  // scratch rows of a chunk are padded to whole ones
 constexpr int kEncPad = 32;    // the scratch's encoding block: dx padded to a multiple
@@ -124,7 +119,6 @@ constexpr int kSumThreads = 1024;
 constexpr int kDwBox = 64;
 constexpr int kDwBoxBytes = kDwBox * kDwBox * 2;
 constexpr int kDwMaxMaps = 2 * kMaxLayers - 8;  // scratch blocks: 2 num_trunk + 9 <= 71
-constexpr int kDwMaxUnits = 36;                 // num_trunk + 4
 constexpr int kDwMaxBoxes = 6;                  // of a unit: one ring stage
 constexpr int kDwMaxBlocks = 8;                 // output blocks of a unit
 constexpr int kDwThreads = 384;  // warpgroup 0 the TMA producer, 1-2 wgmma consumers
@@ -204,45 +198,6 @@ struct DwArgs {
   int pad[6];
 };
 static_assert(sizeof(DwArgs) % 64 == 0, "DwArgs is mirrored without tail padding");
-
-// Work of one dW launch: the units laid end to end, unit u covering the
-// positions [n_st pre_u, n_st (pre_u + cost_u)) of T = n_st total_cost
-// (stage j of u at n_st pre_u + j cost_u, one stage = 64 samples); CTA b
-// owns [b T / G, (b + 1) T / G), so every CTA reads the same bytes. The CTA
-// owning position p:
-__host__ __device__ inline int dw_owner(long long p, long long T, int G) {
-  return (int)(((p + 1) * G - 1) / T);
-}
-
-// CTA b's part of unit u: its slot (piece) among the CTAs owning a part of
-// u, in order, and its stages [j0, j1) (possibly none: the slot is written
-// all the same). False if b owns no part of u.
-__host__ __device__ inline bool dw_span(int n_st, int pre, int cost, int total, int G, int b,
-                                        int* piece, int* j0, int* j1) {
-  const long long T = (long long)n_st * total, S = (long long)n_st * pre;
-  const long long E = S + (long long)n_st * cost;
-  const int first = dw_owner(S, T, G);
-  if (b < first || b > dw_owner(E - 1, T, G)) return false;
-  const long long lo = (long long)b * T / G, hi = (long long)(b + 1) * T / G;
-  const long long a0 = lo > S ? (lo - S + cost - 1) / cost : 0;
-  const long long a1 = hi > S ? (hi - S + cost - 1) / cost : 0;
-  *piece = b - first;
-  *j0 = (int)(a0 < n_st ? a0 : n_st);
-  *j1 = (int)(a1 < n_st ? a1 : n_st);
-  return true;
-}
-
-// The slots unit u has in a launch over n_st stages.
-__host__ __device__ inline int dw_pieces(int n_st, int pre, int cost, int total, int G) {
-  const long long T = (long long)n_st * total, S = (long long)n_st * pre;
-  return dw_owner(S + (long long)n_st * cost - 1, T, G) - dw_owner(S, T, G) + 1;
-}
-
-// The dW plan's unit table for the reduction (passed by value).
-struct DwSpans {
-  int n_units, total_cost, grid, max_pieces;
-  int pre[kDwMaxUnits], cost[kDwMaxUnits];
-};
 
 // Per chain CTA, floats: the bias sums of layer1 and each trunk layer (H
 // each), fc_feat (H), layers_dir.0 (H/2), fc_alpha (1), fc_rgb (3), then
@@ -566,29 +521,14 @@ __global__ void __launch_bounds__(kDwThreads, 1)
   }
 }
 
-// grad[i] = the sum over the dW slots of its unit (map[i] = -1 - unit), in
-// chunk order and slot order, or over the chain CTAs' slots at entry map[i]
-// (bias sums, viewdir rows), in a fixed order.
+// The gradient of every parameter from the dW slots and, as aux rows, the
+// chain CTAs' slots (bias sums, viewdir rows): see reduce_slots.
 __global__ void reduce_bf16_kernel(const DwSpans sp, const float* partial, int n_chunks,
                                    int n_st_full, int n_st_last, long long n_params,
                                    const float* aux_part, int n_aux_parts, int n_aux,
                                    const int* map, float* grad) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_params) return;
-  const int j = map[i];
-  float s = 0.f;
-  if (j < 0) {
-    const int u = -1 - j;
-    for (int c = 0; c < n_chunks; ++c) {
-      const int n_st = c + 1 < n_chunks ? n_st_full : n_st_last;
-      const int pieces = dw_pieces(n_st, sp.pre[u], sp.cost[u], sp.total_cost, sp.grid);
-      const float* q = partial + (long long)c * sp.max_pieces * n_params + i;
-      for (int k = 0; k < pieces; ++k) s += q[k * n_params];
-    }
-  } else {
-    for (int q = 0; q < n_aux_parts; ++q) s += aux_part[(size_t)q * n_aux + j];
-  }
-  grad[i] = s;
+  reduce_slots(sp, partial, n_chunks, n_st_full, n_st_last, n_params, aux_part, n_aux_parts,
+               n_aux, map, grad);
 }
 
 // ---- the cotangent chain on wgmma, for the H100 (sm_90a). Bound by its
@@ -1505,18 +1445,9 @@ int dexnerf_field_bf16_pass(const void* args, const void* maps, int n_real, int 
 // Returns a cudaError_t.
 int dexnerf_train_bf16_tensor_map(void* out, const void* ptr, long long width, long long rows,
                                   int box_rows) {
-  static PFN_encodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return (int)err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) {
-      return (int)cudaErrorSymbolNotFound;
-    }
-    encode = reinterpret_cast<PFN_encodeTiled>(fn);
-  }
+  PFN_encodeTiled encode;
+  const cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return (int)err;
   if (width < 8 || width % 8 != 0 || rows < 1 || box_rows < 8 || box_rows > 256) {
     return (int)cudaErrorInvalidValue;
   }
@@ -1559,16 +1490,8 @@ int dexnerf_train_bf16_reduce(const void* dw_args, int n_chunks, int n_st_full, 
   if (dw_smem(a) == 0 || n_chunks < 1 || n_st_full < 1 || n_st_last < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  DwSpans sp;
-  sp.n_units = a.n_units;
-  sp.total_cost = a.total_cost;
-  sp.grid = a.grid;
-  sp.max_pieces = a.max_pieces;
-  for (int u = 0, pre = 0; u < kDwMaxUnits; ++u) {
-    sp.pre[u] = pre;
-    sp.cost[u] = u < a.n_units ? a.units[u].cost : 0;
-    pre += sp.cost[u];
-  }
+  const DwSpans sp = dw_spans_of(a.n_units, a.total_cost, a.grid, a.max_pieces,
+                                 [&](int u) { return a.units[u].cost; });
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   reduce_bf16_kernel<<<(unsigned)((a.n_params + 255) / 256), 256, 0, s>>>(
       sp, a.partial, n_chunks, n_st_full, n_st_last, a.n_params, aux_part, n_aux_parts, n_aux,

@@ -8,7 +8,7 @@
 // recomputed with activations saved, then the chain from the raw
 // cotangent) and ops/csrc/fused_train_loss.cu (kernel 4: the chain from
 // the compositing backward). Kernels 3 and 4 then run the same
-// weight-gradient launch (dexnerf_train_dw) over the saved scratch.
+// weight-gradient launch (dexnerf_dw_tf32, dw_tf32.cu) over the saved scratch.
 //
 // The functions are templates over the kernel's argument block, which
 // names the fields they read: wf, wb (packed weights), w_off, b_off,

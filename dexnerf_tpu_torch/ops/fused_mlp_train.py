@@ -48,7 +48,7 @@ from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
 from dexnerf_tpu_torch.ops import fused_mlp
 from dexnerf_tpu_torch.ops._weight_grads import (
     WeightGradients,
-    check_gemm_args_size,
+    check_dw_args_size,
     pack_backward_weights,
 )
 from dexnerf_tpu_torch.ops.fused_mlp import check_field_inputs, field_args, fused_field_reference
@@ -102,7 +102,7 @@ def _launch_backward(model, pts, viewdirs, g, *, log_sampling_xyz, log_sampling_
         launches += 1
         launches_bf16 += 1
         return grads
-    check_gemm_args_size(lib)
+    check_dw_args_size(lib)
     s_pad = -(-S // fused_mlp.SLOTS) * fused_mlp.SLOTS
     chunk = max(1, min(N, SCRATCH_SAMPLES // s_pad))
     n_chunks = -(-N // chunk)

@@ -26,10 +26,13 @@ and read back once: ~31 GB of traffic a step, written with streaming
 stores so that it does not evict the weights from L2), capped by running
 the batch in chunks of ``SCRATCH_SAMPLES`` samples (~2.6 GB for 8x128,
 whatever the batch). The weight gradients, products over every sample of
-the batch, are summed by CTAs that each own a 128 x 128 tile and a
-K-range, into separate slots, and the slots are reduced in a fixed order:
-no atomics, bitwise-repeatable runs. The scratch and those launches are
-``ops/_weight_grads.py``'s, shared with the field backward (kernel 3).
+the batch, run on the tensor cores in split TF32 (``ops/csrc/dw_tf32.cu``:
+each f32 operand as two TF32 halves, three products, each 32-sample
+stage's products added in f32), bound by the scratch's bytes; persistent
+CTAs sum equal shares of them into separate slots, and the slots are
+reduced in a fixed order: no atomics, bitwise-repeatable runs. The scratch
+and those launches are ``ops/_weight_grads.py``'s, shared with the field
+backward (kernel 3).
 
 The bf16 route: the same 1.42 TFLOP on the bf16 tensor cores (1.435 ms at
 the 989 TFLOP/s dense bf16 peak), so its scratch traffic bounds it first:
@@ -75,10 +78,9 @@ from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals, linspace
 from dexnerf_tpu_torch.core.volrend import composite, ray_dists
 from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
 from dexnerf_tpu_torch.ops._weight_grads import (
-    MAX_ITEMS,
     WeightGradients,
     _param_offsets,
-    check_gemm_args_size,
+    check_dw_args_size,
     pack_backward_weights,
 )
 from dexnerf_tpu_torch.ops.fused_render import (
@@ -322,19 +324,19 @@ def _check_inputs(model, dev, tensors, S: int) -> None:
     if not 1 <= S <= MAX_SAMPLES:
         raise ValueError(f"{S} samples per ray: the kernel takes 1..{MAX_SAMPLES}")
     nt = model.num_layers - 1
-    if nt + 5 > MAX_LAYERS or nt > 31 or nt + len(model.skips) + 6 > MAX_ITEMS:
+    if nt + 5 > MAX_LAYERS or nt > 31:
         raise ValueError(f"{model.num_layers} layers: too deep for the kernel")
     if max(model.num_encoding_fn_xyz, model.num_encoding_fn_dir) > MAX_FREQ:
         raise ValueError(f"the kernel takes at most {MAX_FREQ} PE frequencies")
 
 
 def _check_struct_sizes(lib) -> None:
-    if lib.dexnerf_train_args_size(0) != ctypes.sizeof(_TrainArgs):
+    if lib.dexnerf_train_args_size() != ctypes.sizeof(_TrainArgs):
         raise RuntimeError(
             f"_TrainArgs is {ctypes.sizeof(_TrainArgs)} bytes here but "
-            f"{lib.dexnerf_train_args_size(0)} in the kernel library"
+            f"{lib.dexnerf_train_args_size()} in the kernel library"
         )
-    check_gemm_args_size(lib)
+    check_dw_args_size(lib)
 
 
 def _launch(
