@@ -56,7 +56,11 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    profile three steps at bf16 and three at f32 (kernel 4, glue, Adam,
    idle), with the bf16 forward, chain and dW kernels' device time each
    beside its own bound (the ``parts`` of the kernels line; the bytes and
-   operations behind each bound on a line of their own) and the f32
+   operations behind each bound on a line of their own), the f32 route's
+   pass kernels (prep, forward, compositing, chain: split TF32 on the
+   tensor cores) each beside its bound (the forward's and chain's three TF32
+   products a multiply-add, or their bytes) and the forward's and chain's
+   layer products as f32 ``torch.matmul`` (TF32 off), and the f32
    routes' split-TF32 dW kernel (``dw_tf32_kernel``) beside its bound (the
    scratch read and the gradient written once; its three TF32 products a
    multiply-add printed beside) and the same products as f32
@@ -85,7 +89,8 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
 13. time both routes of kernels 2 and 3, kernels 5 and 6 (CUDA events,
    and kernels 5 and 6's device time alone from ``torch.profiler``) and
    their plain versions, the dW share of kernel 3 as ``torch.matmul`` calls
-   at f32 (TF32 off) and bf16, and
+   at f32 (TF32 off) and bf16, the f32 passes' layer products (kernel 2's
+   forward, kernel 3's forward and chain) as f32 ``torch.matmul``, and
    whole field-path steps at bf16 and at f32; profile three field-path
    steps at each dtype (kernel 2, kernel 3, glue, Adam, idle), with kernel
    3's bf16 kernels beside their bounds as in phase 8, its f32 dW kernel
@@ -127,14 +132,14 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
 Each kernel's line holds its bound: the larger of its FLOPs (multiply-adds
 counted from the model's shapes; compares and arithmetic counted from the
 shapes for kernels 5 and 6) over the 67 TFLOP/s f32 peak (the bf16 routes
-of kernels 1-4 over the 989 TFLOP/s dense bf16 tensor-core peak; kernel 1's
-f32 route, split TF32, three times its FLOPs over the 495 TFLOP/s dense
-TF32 peak, ``bound_by`` naming it; its f32 FMA bound is on phase 3's
-bounds line) and its bytes
-(inputs read once, outputs written once) over 3.35 TB/s. Kernels 3 and 4
-have a library yardstick: their weight-gradient products as
-``torch.matmul`` calls in each route's dtype (timed here, never called by
-the port).
+of kernels 1-4 over the 989 TFLOP/s dense bf16 tensor-core peak; the f32
+routes of kernels 1 and 4, split TF32, three times their FLOPs over the 495
+TFLOP/s dense TF32 peak, ``bound_by`` naming it; their f32 FMA bounds are
+on phase 3's and phase 8's bounds lines) and its bytes
+(inputs read once, outputs written once) over 3.35 TB/s. Kernels 2-4 have
+a library yardstick: their layer products (forward, chain, weight
+gradients) as ``torch.matmul`` calls in each route's dtype (timed here,
+never called by the port).
 The line before the last is ``{"kernels": [...]}`` with this run's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -160,8 +165,11 @@ TRAIN_VIEWS = (16, 2, 1)
 TRAIN_ITERS = 40
 SLICE_ITERS = 20  # steps of each of the field path and the resample path
 # kernel 4's __global__ kernels, by name (the profile's part)
-KERNEL4_NAMES = ("train_pass_kernel", "dw_tf32_kernel", "dw_tf32_reduce_kernel",
-                 "sum_rays_kernel")
+# the f32 route's pass kernels (split TF32 on the tensor cores), then its dW, reduction
+# and loss sum
+F32_PASS_NAMES = ("train_prep_tf32_kernel", "train_fwd_tf32_kernel",
+                  "train_composite_tf32_kernel", "train_chain_tf32_kernel")
+KERNEL4_NAMES = (*F32_PASS_NAMES, "dw_tf32_kernel", "dw_tf32_reduce_kernel", "sum_rays_kernel")
 KERNEL4_BF16_NAMES = ("train_prep_kernel", "train_fwd_bf16_kernel", "train_composite_kernel",
                       "train_chain_bf16_kernel", "train_dw_bf16_kernel", "reduce_bf16_kernel",
                       "sum_rays_bf16_kernel")
@@ -716,12 +724,16 @@ def train_phase(torch, np, card, dev, tmp):
             ms[f"{name}_kernel{tag}"] = timed_ms(lambda: ftl.fused_pass_loss(*args, **kw), torch)
             ms[f"{name}_plain{tag}"] = timed_ms(
                 lambda: ftl.fused_pass_loss_reference(*args, **kw), torch)
-    bound_ms, bound_by = bound(flops, byts)
+    # the f32 route in split TF32: three TF32 products a multiply-add
+    bound_ms, bound_by = bound(3 * flops, byts, TF32_FLOPS)
+    bound_fma, _ = bound(flops, byts)
     bound_b, bound_b_by = bound(flops, byts_b, BF16_FLOPS)
     # library yardsticks: each route's weight-gradient products of both
     # passes (cotangents^T x activations over every sample) as torch.matmul
-    # calls in its dtype (f32 without TF32)
+    # calls in its dtype (f32 without TF32); the f32 pass's forward and chain
+    # products the same way
     dw_yardsticks(ms, [(a[0], a[3].numel()) for a in per_pass.values()], torch, dev)
+    pass_yardsticks(ms, "k4", [(a[0], a[3].numel()) for a in per_pass.values()], torch, dev)
 
     def step_ms(path, reps=5):
         """(ms per train step, the step) through ``path``: kernel 4
@@ -751,9 +763,10 @@ def train_phase(torch, np, card, dev, tmp):
     print(f"phase 8: ms on {card} (passes: CUDA events, mean of 3; steps: host clock "
           f"around synchronize, mean of 5): " + json.dumps({k: round(t, 3) for k, t in ms.items()}))
     kernel_b = ms["coarse_kernel_bf16"] + ms["fine_kernel_bf16"]
-    print(f"  kernel 4 bound for both passes: {bound_ms:.3f} ms f32 ({bound_by}; "
-          f"{flops / 1e12:.4f} TFLOP, of which {dw_flops / 1e12:.4f} weight gradients, "
-          f"{byts / 1e6:.2f} MB); bf16 route {bound_b:.3f} ms ({bound_b_by}; "
+    print(f"  kernel 4 bound for both passes: {bound_ms:.3f} ms f32 route ({bound_by}"
+          f"{SPLIT_TF32 if bound_by == 'operations' else ''}; {flops / 1e12:.4f} TFLOP, of "
+          f"which {dw_flops / 1e12:.4f} weight gradients, {byts / 1e6:.2f} MB), "
+          f"{bound_fma:.3f} ms at the f32 FMA peak; bf16 route {bound_b:.3f} ms ({bound_b_by}; "
           f"{byts_b / 1e6:.2f} MB); achieved "
           f"{flops / (ms['coarse_kernel'] + ms['fine_kernel']) / 1e9:.2f} TFLOP/s (f32 route), "
           f"{flops / kernel_b / 1e9:.2f} TFLOP/s (bf16 route); rays/s per step: "
@@ -775,9 +788,10 @@ def train_phase(torch, np, card, dev, tmp):
     print("  bytes and operations behind those bounds (scratch layout, this run's shapes): "
           + json.dumps(sizes))
     print("  f32 steps (pallas_compute_dtype: float32):")
-    dw_f32 = f32_dw_share(profile_steps(torch, steps["kernel"], {"kernel 4": KERNEL4_NAMES}),
-                          ms["dw_torch_matmul_f32"],
-                          [(a[0], *a[3].shape) for a in per_pass.values()])
+    prof_f = profile_steps(torch, steps["kernel"], {"kernel 4": KERNEL4_NAMES})
+    shapes = [(a[0], *a[3].shape) for a in per_pass.values()]
+    pass_f32 = f32_pass_parts(prof_f, shapes, ms, "k4")
+    dw_f32 = f32_dw_share(prof_f, ms["dw_torch_matmul_f32"], shapes)
     entry = dict(route="cuda", replaces="dexnerf_tpu/ops/fused_train_loss.py:99")
     train_kernels = [{
         "name": "fused_train_loss",
@@ -788,9 +802,10 @@ def train_phase(torch, np, card, dev, tmp):
         "ms": ms["coarse_kernel"] + ms["fine_kernel"],
         "plain_ms": ms["coarse_plain"] + ms["fine_plain"],
         "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": ms["dw_torch_matmul_f32"],
-        "parts": dw_f32,
+        "bound_by": bound_by + (SPLIT_TF32 if bound_by == "operations" else ""),
+        "library_ms": ms["dw_torch_matmul_f32"] + ms["k4_forward_torch_matmul_f32"]
+        + ms["k4_chain_torch_matmul_f32"],
+        "parts": pass_f32 + dw_f32,
     }, {
         "name": "fused_train_loss_bf16",
         **entry,
@@ -858,6 +873,109 @@ def dw_yardsticks(ms, passes, torch, dev):
         ms["dw_torch_matmul" + tag] = timed_ms(
             lambda: [torch.matmul(d.t(), a) for d, a in gemms], torch)
         del gemms
+
+
+def pass_gemm_operands(model, k, part, torch, dev):
+    """Random f32 operands (inputs [k, K], weights [K, N]) of one pass's
+    layer products over ``k`` samples: the forward's (layer1, the trunk and
+    its skip rows, fc_feat, fc_alpha, layers_dir.0's feat rows, fc_rgb) or
+    the cotangent chain's (the transposes of fc_rgb, layers_dir.0's feat
+    rows, fc_feat with fc_alpha, the trunk's h rows)."""
+    H, h2, dx, nt = model.hidden_size, model.hidden_size // 2, model.dim_xyz, model.num_layers - 1
+    if part == "forward":
+        shapes = [(dx, H)] + [(H, H)] * nt + [(dx, H)] * len(model.skips)
+        shapes += [(H, H), (H, 1), (H, h2), (h2, 3)]
+    else:
+        shapes = [(3, h2), (h2, H), (H + 1, H)] + [(H, H)] * nt
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return [(torch.randn((k, a), generator=gen, device=dev),
+             torch.randn((a, b), generator=gen, device=dev)) for a, b in shapes]
+
+
+def pass_yardsticks(ms, tag, passes, torch, dev):
+    """``ms[f"{tag}_forward_torch_matmul_f32"]`` and ``..._chain_...``: the
+    forward's and the cotangent chain's layer products of ``passes``
+    ((model, samples) each) as f32 torch.matmul calls (TF32 off), CUDA
+    events."""
+    for part in ("forward", "chain"):
+        gemms = [g for m, k in passes for g in pass_gemm_operands(m, k, part, torch, dev)]
+        ms[f"{tag}_{part}_torch_matmul_f32"] = timed_ms(
+            lambda: [torch.matmul(x, w) for x, w in gemms], torch)
+        del gemms
+
+
+def f32_pass_sizes(model, n, s):
+    """(bytes, [(FLOPs, peak FLOP/s), ...]) of the f32 pass's kernels over
+    one pass of ``n`` rays x ``s`` samples, each input read once and each
+    output written once: prep (viewdirs in; encodings and the per-ray
+    viewdir bias out), forward (points, depths and the bias in; every
+    activation, raw and the ReLU mask words out; layer1 on the CUDA cores,
+    the rest three TF32 products a multiply-add), compositing (raw, depths,
+    intervals, noise, targets in; weights, rgb, losses, raw's cotangent
+    out), chain (raw's cotangent and the mask words in; every cotangent and
+    the per-ray dy sums out; three TF32 products a multiply-add)."""
+    from dexnerf_tpu_torch.ops import _weight_grads as wgr
+    from dexnerf_tpu_torch.ops.fused_render import bf16_hidden
+
+    rows = wgr.scratch_rows(model)
+    H, nt, dd = model.hidden_size, model.num_layers - 1, model.dim_dir
+    hp = bf16_hidden(H)
+    mask_b = 4 * ((nt + 1) * -(-hp // 64) + 1) * 128 / 64  # bytes of mask words a sample
+    ps, pr = mlp_macs(model)
+    l1 = model.dim_xyz * H  # layer1's multiply-adds a sample
+    k = n * s
+    return {
+        "train_prep_tf32_kernel": (n * (12 + 4 * dd + 4 * hp // 2), [(2 * n * pr, F32_FLOPS)]),
+        "train_fwd_tf32_kernel": (n * (24 + 2 * hp) + k * (4 + 4 * rows["act_rows"] + 16 + mask_b),
+                                  [(3 * 2 * k * (ps - l1), TF32_FLOPS), (2 * k * l1, F32_FLOPS)]),
+        "train_composite_tf32_kernel": (n * (12 + 12 + 4) + k * (16 + 16 + 4 + 16), []),
+        "train_chain_tf32_kernel": (k * (16 + mask_b + 4 * rows["dlt_rows"]) + n * 2 * H,
+                                    [(3 * 2 * k * backward_macs(model), TF32_FLOPS)]),
+    }
+
+
+def f32_pass_parts(prof, passes, ms, tag):
+    """Kernel 4's f32 pass kernels by device ms per step from a profile,
+    each beside its bound over ``passes`` ((model, rays, samples) each: the
+    forward's layer1 at the f32 FMA rate, its other products and the chain's
+    at the split-TF32 rate, or the bytes) and, for the forward and
+    the chain, their products as f32 torch.matmul (``ms``, of
+    :func:`pass_yardsticks` under ``tag``); printed and returned as a
+    ``parts`` list. Raises if the profile holds events but any of the four
+    reads 0 ms, or holds the FMA ``train_pass_kernel`` they replaced."""
+    sizes = {}  # name -> (bytes, FLOPs at each peak, the peaks)
+    for model, n, s in passes:
+        for name, (b, ops) in f32_pass_sizes(model, n, s).items():
+            ob, oflops, _ = sizes.get(name, (0.0, [0.0] * len(ops), None))
+            sizes[name] = (ob + b, [x + f for x, (f, _) in zip(oflops, ops)],
+                           [p for _, p in ops])
+    if prof and any("train_pass_kernel" in k for k in prof):
+        raise AssertionError("f32 pass: the profile holds the FMA train_pass_kernel")
+    lib = {"train_fwd_tf32_kernel": ms[f"{tag}_forward_torch_matmul_f32"],
+           "train_chain_tf32_kernel": ms[f"{tag}_chain_torch_matmul_f32"]}
+    parts, line = [], {}
+    for name in F32_PASS_NAMES:
+        dev_ms = sum(t for k, t in prof.items() if name in k)
+        if prof and dev_ms <= 0:
+            raise AssertionError(f"f32 pass: profile time {dev_ms} ms of {name}; kernels "
+                                 f"{sorted(k[:60] for k in prof)}")
+        b, flops, peaks = sizes[name]
+        t_ops = max([1e3 * f / p for f, p in zip(flops, peaks)], default=0.0)
+        b_ms = max(t_ops, 1e3 * b / HBM_BYTES)
+        b_by = "operations" if t_ops >= 1e3 * b / HBM_BYTES else "bytes"
+        if b_by == "operations" and peaks[0] == TF32_FLOPS:
+            b_by += SPLIT_TF32
+        parts.append({"name": name, "ms": dev_ms if prof else None, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": lib.get(name)})
+        line[name] = [round(dev_ms, 3), round(b_ms, 3), f"{b / 1e9:.4f} GB",
+                      [f"{f / 1e12:.4f} TFLOP at {p / 1e12:g}" for f, p in zip(flops, peaks)]]
+    print("  f32 pass kernels, device ms per step (profile) [ms, bound ms, bytes, FLOPs at "
+          "their peak (TF32: three products a multiply-add)]: " + json.dumps(line)
+          + f"; their products as f32 torch.matmul (TF32 off): forward "
+          f"{lib['train_fwd_tf32_kernel']:.3f}, chain {lib['train_chain_tf32_kernel']:.3f}, "
+          f"both {sum(lib.values()):.3f}; the pass's kernels "
+          f"{sum(p['ms'] or 0.0 for p in parts):.3f}")
+    return parts
 
 
 def f32_dw_bound(passes):
@@ -1206,6 +1324,10 @@ def field_phase(torch, np, card, dev, tmp, sh):
     # library yardsticks of kernel 3's routes: their weight-gradient
     # products of both passes as torch.matmul calls
     dw_yardsticks(ms, [(m, p.shape[0] * p.shape[1]) for m, p, _ in cases.values()], torch, dev)
+    # and their f32 passes' layer products (kernel 2: the forward; kernel 3:
+    # the forward again and the chain)
+    pass_yardsticks(ms, "k3", [(m, p.shape[0] * p.shape[1]) for m, p, _ in cases.values()],
+                    torch, dev)
     fwd_bound, fwd_by = bound(fwd_flops, fwd_bytes)
     bwd_bound, bwd_by = bound(bwd_flops, bwd_bytes)
     fwd_bound_b, fwd_by_b = bound(fwd_flops, fwd_bytes_b, BF16_FLOPS)
@@ -1264,12 +1386,14 @@ def field_phase(torch, np, card, dev, tmp, sh):
          "source": "dexnerf_tpu_torch/ops/csrc/fused_mlp.cu", "replaces": fwd,
          "launches": counts_f["fused_mlp"], "max_abs_err": err_fwd, "ms": ms["fwd_kernel"],
          "plain_ms": ms["fwd_plain"], "bound_ms": fwd_bound, "bound_by": fwd_by,
-         "library_ms": None},
+         "library_ms": ms["k3_forward_torch_matmul_f32"]},
         {"name": "fused_field_backward", "route": "cuda",
          "source": "dexnerf_tpu_torch/ops/csrc/fused_mlp_train.cu", "replaces": bwd,
          "launches": counts_f["fused_mlp_train"], "max_abs_err": err_bwd,
          "ms": ms["bwd_kernel"], "plain_ms": ms["bwd_plain"], "bound_ms": bwd_bound,
-         "bound_by": bwd_by, "library_ms": ms["dw_torch_matmul_f32"], "parts": dw_f32},
+         "bound_by": bwd_by, "library_ms": ms["dw_torch_matmul_f32"]
+         + ms["k3_forward_torch_matmul_f32"] + ms["k3_chain_torch_matmul_f32"],
+         "parts": dw_f32},
         {"name": "fused_mlp_bf16", **entry, "replaces": fwd,
          "launches": counts["fused_mlp_bf16"], "max_abs_err": err_fwd_b,
          "ms": ms["fwd_kernel_bf16"], "plain_ms": ms["fwd_plain_bf16"],

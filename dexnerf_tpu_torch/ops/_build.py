@@ -147,6 +147,11 @@ def load_library() -> ctypes.CDLL:
         lib.dexnerf_train_rows.restype = ci
         lib.dexnerf_train_pass.argtypes = [vp, vp]  # args block (host), stream
         lib.dexnerf_train_pass.restype = ci
+        lib.dexnerf_train_tile_words.argtypes = [ci, ci]  # padded width, num_trunk
+        lib.dexnerf_train_tile_words.restype = ci
+        # padded width, num_trunk, encoding K-chunks; out (host, 6 ints)
+        lib.dexnerf_train_tf32_occupancy.argtypes = [ci, ci, ci, vp]
+        lib.dexnerf_train_tf32_occupancy.restype = ci
         # per-ray losses, rays, loss, stream
         lib.dexnerf_train_loss_sum.argtypes = [vp, ci, vp, vp]
         lib.dexnerf_train_loss_sum.restype = ci

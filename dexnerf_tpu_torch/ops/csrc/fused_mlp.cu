@@ -55,7 +55,7 @@ field_fwd_kernel(const FieldArgs p) {
       encode(pt, d, p.fx, p.inc_x, p.bands_x, E + s, kSlots);
     }
     __syncthreads();
-    field_forward_tile<false, true>(p, dirb, E, bufA, bufB, 0, R, nullptr, 0, 0,
+    field_forward_tile<false>(p, dirb, E, bufA, bufB, 0, R, nullptr, 0, 0,
                                     out4 + 3 * kSlots, out4, kSlots);
     if (tid < kSlots && base + tid < S) {
       reinterpret_cast<float4*>(p.raw)[ray * S + base + tid] =

@@ -16,13 +16,14 @@
 // outputs are ~60 MB a step; its scratch adds ~10 KB written and read back
 // per sample (~31 GB a step, ~9 ms at 3.35 TB/s).
 //
-// Design: kernel 4's (fused_train_loss.cu) machinery without compositing.
+// Design: the FMA tile that kernel 4's f32 pass used until it moved to
+// split TF32 (fused_train_loss.cu), without compositing.
 // * field_bwd_kernel, one CTA of 128 threads per ray: tile by tile of 64
 //   samples, the forward with every layer's activations saved to a
 //   device-memory scratch (streaming stores) and the ReLU masks kept as
 //   bits in shared memory for the tile, then the cotangent chain from g
 //   back to layer1's output with every layer's cotangent saved to a second
-//   scratch (mlp_chain.cuh: the same tile functions as kernel 4). Since the
+//   scratch (mlp_chain.cuh's tile functions). Since the
 //   backward follows each tile's forward, the masks of one tile suffice.
 // * The weight gradients are products over every sample of the chunk of
 //   saved activations and cotangents: kernel 4's split-TF32 dW launch and
@@ -69,7 +70,7 @@ field_bwd_kernel(const FieldArgs p) {
       encode(pt, d, p.fx, p.inc_x, p.bands_x, E + s, kSlots);
     }
     __syncthreads();
-    field_forward_tile<true, false>(p, dirb, E, bufA, bufB, col0 + base, R, mk, 0, 2,
+    field_forward_tile<true>(p, dirb, E, bufA, bufB, col0 + base, R, mk, 0, 2,
                                     nullptr, nullptr, 0);
     const auto g = [&](int row, int s) {
       return base + s < S ? p.g[(ray * S + base + s) * 4 + row] : 0.f;

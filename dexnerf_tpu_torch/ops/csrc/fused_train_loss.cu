@@ -1,64 +1,98 @@
-// Fused NeRF training loss pass for NVIDIA Hopper (sm_90a): positional
-// encoding -> FlexibleNeRF MLP -> sigma-noise -> alpha compositing ->
-// per-ray squared error (+ optional depth term) -> compositing backward ->
-// MLP backward -> dW/db summed over every ray of the batch.
+// Fused NeRF training loss pass at compute_dtype = dw_dtype = float32 on the
+// tensor cores of NVIDIA Hopper (sm_90a): positional encoding ->
+// FlexibleNeRF MLP -> sigma-noise -> alpha compositing -> per-ray squared
+// error (+ optional depth term) -> compositing backward -> MLP backward ->
+// dW/db summed over every ray of the batch.
 //
 // Replaces dexnerf_tpu/ops/fused_train_loss.py::_make_loss_kernel (the
-// Pallas kernel of make_fused_pass_loss). Same contract: per-ray origins,
-// directions, viewdirs, [N, S] z, dists and sigma-noise, targets, optional
-// per-ray depth_gt/depth_coef in; the UNNORMALIZED loss sum, the weights
-// [N, S], the composited rgb [N, 3] and the gradient of the loss sum with
-// respect to every model parameter out (nothing flows to the inputs).
-// Compositing and its backward are the plain guarded cumprod
-// (1 - alpha + 1e-10), differentiated exactly: -suffix / (1 - alpha + 1e-10).
+// Pallas kernel of make_fused_pass_loss) at float32. Same contract: per-ray
+// origins, directions, viewdirs, [N, S] z, dists and sigma-noise, targets,
+// optional per-ray depth_gt/depth_coef in; the UNNORMALIZED loss sum, the
+// weights [N, S], the composited rgb [N, 3] and the gradient of the loss
+// sum with respect to every model parameter out (nothing flows to the
+// inputs). Compositing and its backward are the plain guarded cumprod (1 -
+// alpha + 1e-10), differentiated exactly: -suffix / (1 - alpha + 1e-10).
 //
-// What bounds it on the H100: f32 FMA work. The 8x128 FlexibleNeRF
-// costs ~156k multiply-adds per sample forward, ~140k to carry the
-// cotangent back through the layers and ~156k for the weight gradients:
-// ~0.9 MFLOP per sample, 1.42 TFLOP per train step at batch 8192 with
-// 64 + 128 samples per ray, 21.2 ms at the 67 TFLOP/s f32 CUDA-core peak
-// of an H100 SXM (700 W). The bytes it must move (inputs, outputs,
-// weights and gradients) are ~30 MB a step; the scratch below adds its
-// own traffic, ~10 KB written and read back per sample (~31 GB a step,
-// ~9 ms at 3.35 TB/s). Measured times and their split: PERF.md.
+// What bounds it on the H100: the multiply-adds. The 8x128 FlexibleNeRF
+// costs ~156k per sample forward, ~140k to carry the cotangent back through
+// the layers and ~156k for the weight gradients: 1.42 TFLOP a train step at
+// batch 8192 with 64 + 128 samples per ray, 21.2 ms at the 67 TFLOP/s f32
+// FMA peak of an H100 SXM (700 W), 8.6 ms as three TF32 products each
+// (split TF32, below) at the 495 TFLOP/s dense TF32 peak. Next the scratch:
+// every activation (5,116 B a sample) and cotangent (4,880 B) written once
+// and read once by the weight gradients, ~2.4 ms each way a step at 3.35
+// TB/s. Measured times and their split: PERF.md.
 //
-// Design, in two launches per chunk of rays and two per pass:
-// * train_pass_kernel, one CTA of 128 threads per ray (as the render
-//   kernel): the ray's samples go through the MLP in tiles of 64 with the
-//   activations in shared memory (mlp_tile.cuh; the tile's forward and
-//   cotangent chain are mlp_chain.cuh's, shared with the field backward
-//   kernel of fused_mlp_train.cu), and every layer's
-//   activations are also written to a device-memory scratch, feature-major
-//   [row][sample], with streaming stores: the scratch is read once, by
-//   the dW launch, and must not evict the weights that every CTA reads from
-//   L2. The ReLU masks the backward needs stay in shared memory as bits.
-//   Compositing is spread over the CTA except for its two sequential
-//   scans, the transmittance product and the backward's suffix sum, which
-//   need all S samples of the ray and run in one thread each. The
-//   cotangent then runs back through the layers tile by tile, and every
-//   layer's cotangent goes to a second scratch. Activations of a fine ray
-//   (S = 128) are ~650 KB, far beyond a CTA's 227 KB of shared memory,
-//   hence the device-memory scratch (saving rather than recomputing the
-//   forward). The scratch is capped by processing the batch in chunks of
-//   rays (ops/fused_train_loss.py, SCRATCH_SAMPLES: ~2.6 GB for the 8x128
-//   model, whatever the batch).
-// * the weight gradients: dW_l = sum over samples of a_{l-1} x delta_l, a
-//   product with K = every sample of the chunk and a small M x N, are the
-//   split-TF32 wgmma launch of dw_tf32.cu over the saved scratch
-//   (ops/_weight_grads.py), with its fixed-order reduction; sum_rays_kernel
-//   sums the per-ray losses in a fixed order: runs are bitwise repeatable.
-//   The field backward kernel (fused_mlp_train.cu) fills the same scratch
-//   and runs the same dW launches (without per-ray losses).
+// Design, per chunk of rays (the scratch is capped by
+// ops/fused_train_loss.py's SCRATCH_SAMPLES), on the scratch's columns (ray
+// r's sample s at column r s_pad + s, s_pad a multiple of 64, so a 64-column
+// tile lies in one ray), every product in split TF32 on wgmma m64nNk8.tf32
+// (mlp_tile_tf32.cuh, kernel 1's f32 tile: each f32 operand as hi = tf32(x)
+// and lo = tf32(x - hi), lo.hi + hi.lo + hi.hi, each K-chunk of 32 into a
+// fresh accumulator added to the layer's sum in f32):
+// * train_prep_tf32_kernel: per ray, one warp, the viewdir encoding (f32,
+//   the accurate sincosf) into dir_enc and the viewdir layer's per-ray bias
+//   into dirb.
+// * train_fwd_tf32_kernel: kernel 1's f32 tile without compositing, on
+//   persistent CTAs (one per SM) of two consumer warpgroups at 232
+//   registers, each taking 64-column tiles v, v + 2 G, ... through the whole
+//   MLP, and a warpgroup whose first thread streams the pre-split pack
+//   (ops/fused_render.py::pack_flex_weights_tf32) through an mbarrier ring
+//   of bulk copies, all but layer1: layer1 (K = the encoding, 5% of the
+//   products) runs on the CUDA cores as a sequential f32 FMA chain over the
+//   features, as the plain version's GEMM sums it, because the gradients
+//   of the lower trunk follow its rounding more closely than any other
+//   layer's (the fine pass's layers_xyz.0 leaf moves by 2.7e-4 of its
+//   largest entry with layer1 in split TF32, by 1.7e-5 with every other
+//   layer so: PERF.md). Every layer's f32 activation goes straight from the
+//   accumulator registers to the scratch with streaming stores (8 lanes hold
+//   8 consecutive columns of one feature: whole 32 B sectors), and the ReLU
+//   masks of a_1..a_nt, feat and y as bits in the accumulator's own thread
+//   order ("mask words": word w of layer l of tile t at [t][l][w][thread]),
+//   read back by the same thread of the chain with no shuffles. The raw
+//   outputs go to an f32 [columns][4] buffer.
+// * train_composite_tf32_kernel: compositing, the loss and its backward,
+//   one warp per ray (train_composite.cuh, shared with the bf16 route):
+//   weights, rgb, the per-ray loss, and the raw cotangents (0 on padding
+//   columns).
+// * train_chain_tf32_kernel: the forward tile run backwards, persistent CTAs
+//   as the forward's, each consumer taking whole rays (its tiles in order).
+//   A is the layer's cotangent (hi in registers, lo in the consumer's
+//   area); B a split pack of the transposed matrices
+//   (ops/fused_train_loss.py::pack_backward_weights_tf32: layers_dir.0's
+//   feat rows, fc_feat, then layers_xyz from the last). The rgb head's step
+//   (3 wide) and the sigma head's term are f32 on the CUDA cores; each
+//   epilogue masks by the forward's bits and stores the cotangent to the
+//   scratch from registers. dy_sum: the viewdir layer's cotangent summed
+//   per ray, over each tile's columns and then the ray's tiles in order.
+// * the weight gradients: the split-TF32 launch of dw_tf32.cu over the
+//   scratch (ops/_weight_grads.py), with its fixed-order reduction;
+//   sum_rays_kernel sums the per-ray losses in a fixed order. No atomics:
+//   runs are bitwise repeatable.
+// The kernels take a launcher tag (kOwner) so that a profile names them.
+// Hidden widths that are not a multiple of 32 run zero-padded to one (the
+// tile's widths); the scratch, the masks and dy_sum keep the model's own.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#include "mlp_chain.cuh"
+#include "mlp_tile_tf32.cuh"
+#include "train_composite.cuh"
+#include "train_rows.cuh"
 
 namespace {
 
+constexpr int kMaxLayers = 40;
+constexpr int kMaxFreq = 16;
 constexpr int kMaxSamplesPad = 256;
-constexpr int kRedG = 5 * (kThreads / 32);  // red[]: 5 sums per warp, then 5 cotangents
-constexpr int kRed = kRedG + 8;
+constexpr int kMaxDD = 3 + 6 * kMaxFreq;
+constexpr int kAux = kMaxLayers + 8;
+constexpr int kRayWarps = 4;   // composite: rays per CTA, one warp each
+constexpr int kPrepWarps = 8;  // prep: rays per CTA
+constexpr int kSumThreads = 1024;
+// who launches the pass kernels (a template argument, so that a profile
+// tells them apart): the fused train loss (kernel 4)
+constexpr int kLoss = 4;
 
 // Mirrored field by field by ops/fused_train_loss.py::_TrainArgs.
 struct TrainArgs {
@@ -71,227 +105,687 @@ struct TrainArgs {
   const float* target;      // [N, 3]
   const float* depth_gt;    // [N] or null
   const float* depth_coef;  // [N] or null
-  const float* wf;          // forward weights, ops/fused_render.py layout
-  const float* wb;          // backward weights, see pack_backward_weights
+  const uint32_t* wq;       // forward hi/lo K-chunks: fused_render.py::pack_flex_weights_tf32
+  const float* aux;         // its f32 biases, heads and viewdir rows
+  const uint32_t* wbq;      // chain hi/lo K-chunks: pack_backward_weights_tf32
+  const float* w1;          // layer1's weights [dx][Hp] f32: pack_layer1_f32
   float* weights_out;       // [N, S]
   float* rgb_out;           // [N, 3]
   float* loss_ray;          // [N]
-  float* act;               // [act rows][K] saved activations
-  float* dlt;               // [delta rows][K] layer cotangents
+  float* act;               // [act rows][k] saved activations (Rows)
+  float* dlt;               // [delta rows][k] layer cotangents
   float* dir_enc;           // [dd][n_rays] per-ray viewdir encodings
   float* dy_sum;            // [H/2][n_rays] per-ray sums of the viewdir-layer delta
+  float* dirb;              // [n_rays][Hp/2] per-ray viewdir-layer bias
+  float* raw;               // [k][4] rgb logits, sigma logit
+  float* graw;              // [k][4] their cotangents
+  uint32_t* masks;          // [k / 64][tile_words][128] ReLU mask words
   long long k;              // scratch columns: n_rays * s_pad
   int ray0, n_rays, n_samples, s_pad;
-  int hidden, num_trunk, skip_mask;
-  int fx, fd, inc_x, inc_d;
+  int hidden, hp, num_trunk, skip_mask;  // the model's width, the padded one
+  int fx, fd, inc_x, inc_d, dx, kx, dd;
   int white_bg, luma, has_noise, has_depth;
-  int w_off[kMaxLayers];
-  int b_off[kMaxLayers];
-  int wb_off[kMaxLayers];
+  int sms, fwd_stages, chain_stages;
+  int parts;  // the kernels to launch: bits 1 prep, 2 forward, 4 compositing, 8 chain
+  int aux_off[kAux];
   float bands_x[kMaxFreq];
   float bands_d[kMaxFreq];
 };
 
-__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
+// Mask words of a thread for one layer of width H (padded): its H / 2
+// values' bits, bit 4 j + e for accumulator entry 4 j + e; and per tile the
+// words of a_1..a_nt and feat, then y's one word.
+__host__ __device__ inline int mask_words(int H) { return (H + 63) / 64; }
+__host__ __device__ inline int tile_words(int H, int nt) { return (nt + 1) * mask_words(H) + 1; }
 
-__global__ void __launch_bounds__(kThreads)
-train_pass_kernel(const TrainArgs p) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int H = p.hidden, H2 = H / 2, S = p.n_samples, SP = p.s_pad, nt = p.num_trunk;
-  const int dx = 3 * p.inc_x + 6 * p.fx, dd = 3 * p.inc_d + 6 * p.fd;
-  float* E = smem;                  // [dx][kSlots] xyz encoding of the tile
-  float* bufA = E + dx * kSlots;    // [H][kSlots]
-  float* bufB = bufA + H * kSlots;  // [H][kSlots]
-  float* gt = bufB + H * kSlots;    // [4][kSlots] raw cotangents (rgb, sigma)
-  float* zs = gt + 4 * kSlots;      // [SP]
-  float* ds = zs + SP;              // [SP]
-  float* sig = ds + SP;             // [SP] sigma logit (+ noise)
-  float* rgbc = sig + SP;           // [3][SP] rgb logits, then sigmoid
-  float* alph = rgbc + 3 * SP;      // [SP]
-  float* trn = alph + SP;           // [SP] transmittance before the sample
-  float* wts = trn + SP;            // [SP]
-  float* gsig = wts + SP;           // [SP] d loss / d sigma logit
-  float* grgb = gsig + SP;          // [3][SP] d loss / d rgb logit
-  float* dirE = grgb + 3 * SP;      // [dd]
-  float* dirb = dirE + dd;          // [H2] per-ray viewdir-layer bias
-  float* dys = dirb + H2;           // [H2] sum over samples of the y delta
-  float* red = dys + H2;            // [kRed] per-warp sums, then the loss cotangents
-  // ReLU masks of the ray's recorded layers, SP / 32 words per unit:
-  // a_1..a_nt (H units each), feat (H), y (H2); see dense()
-  unsigned* mk = reinterpret_cast<unsigned*>(red + kRed);
-  const int SPW = SP / 32;
-  const int r = blockIdx.x;
+// ---- per ray: viewdir encoding (f32) and the viewdir layer's per-ray bias
+// b + sum_k enc[k] W_dir[H + k] (f32 FMA from 0, then the bias), one warp
+// per ray
+template <int kOwner>
+__global__ void __launch_bounds__(kPrepWarps * 32) train_prep_tf32_kernel(const TrainArgs p) {
+  __shared__ float dtmp[kPrepWarps][kMaxDD];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * kPrepWarps + warp;
+  if (r >= p.n_rays) return;
   const long long ray = (long long)p.ray0 + r;
-  const int tid = threadIdx.x;
-  const Rows R{p.k, dx, H, nt};
-  const long long col0 = (long long)r * SP;
-
-  for (int s = tid; s < SP; s += kThreads) {
-    const bool real = s < S;
-    zs[s] = real ? p.z[ray * S + s] : 0.f;
-    ds[s] = real ? p.dists[ray * S + s] : 0.f;
-    gsig[s] = 0.f;
-    grgb[s] = grgb[SP + s] = grgb[2 * SP + s] = 0.f;
-  }
-  const float o[3] = {p.origins[ray * 3], p.origins[ray * 3 + 1], p.origins[ray * 3 + 2]};
-  const float dv[3] = {p.dirs[ray * 3], p.dirs[ray * 3 + 1], p.dirs[ray * 3 + 2]};
-  viewdir_bias(p, p.viewdirs + ray * 3, dirE, dirb);
-  for (int k = tid; k < dd; k += kThreads) p.dir_enc[(long long)k * p.n_rays + r] = dirE[k];
-  for (int c = tid; c < H2; c += kThreads) dys[c] = 0.f;
-
-  // ---- forward, one tile of kSlots samples at a time; activations saved
-  for (int base = 0; base < SP; base += kSlots) {
-    for (int i = tid; i < 3 * kSlots; i += kThreads) {
-      const int s = i % kSlots, d = i / kSlots;
-      const float pt = __fadd_rn(o[d], __fmul_rn(dv[d], zs[base + s]));
-      encode(pt, d, p.fx, p.inc_x, p.bands_x, E + s, kSlots);
+  const int H2 = p.hp / 2, nt = p.num_trunk, dd = p.dd;
+  float* e = dtmp[warp];
+  if (lane < 3) {
+    const float vv = p.viewdirs[ray * 3 + lane];
+    int row = 0;
+    if (p.inc_d) {
+      e[lane] = vv;
+      row = 3;
     }
-    __syncthreads();
-    field_forward_tile<true, true>(p, dirb, E, bufA, bufB, col0 + base, R, mk, base / 32,
-                                   SPW, sig + base, rgbc + base, SP);
+    for (int f = 0; f < p.fd; ++f) {
+      float sn, cs;
+      sincosf(__fmul_rn(vv, p.bands_d[f]), &sn, &cs);
+      e[row + 6 * f + lane] = sn;
+      e[row + 6 * f + 3 + lane] = cs;
+    }
   }
+  __syncwarp();
+  for (int k = lane; k < dd; k += 32) p.dir_enc[(size_t)k * p.n_rays + r] = e[k];
+  const float* wdv = p.aux + p.aux_off[nt + 7];
+  const float* bdir = p.aux + p.aux_off[nt + 2];
+  for (int c = lane; c < H2; c += 32) {
+    float v = 0.f;
+    for (int k = 0; k < dd; ++k) v = fmaf(e[k], __ldg(wdv + k * H2 + c), v);
+    p.dirb[(size_t)r * H2 + c] = __ldg(bdir + c) + v;
+  }
+}
 
-  // ---- compositing, loss and compositing backward. The per-sample work
-  // is spread over the CTA; the transmittance product and the backward's
-  // suffix sum are the two sequential scans (one thread each).
-  for (int s = tid; s < S; s += kThreads) {
-    float sp = sig[s];
-    if (p.has_noise) sp += p.noise[ray * S + s];
-    sig[s] = sp;
-    alph[s] = 1.f - expf(-fmaxf(sp, 0.f) * ds[s]);
-    rgbc[s] = sigmoidf(rgbc[s]);
-    rgbc[SP + s] = sigmoidf(rgbc[SP + s]);
-    rgbc[2 * SP + s] = sigmoidf(rgbc[2 * SP + s]);
+// ---- the forward
+// Shared memory from the 1024-aligned base: the weight ring of ns stages,
+// each consumer's area, the biases and heads, each consumer's sigma [64]
+// and rgb [64][3] logits, the ring's barriers.
+struct FwdSmem {
+  size_t ring, area, area_bytes, aux, own, bars, total;
+};
+constexpr size_t kOwnBytes = kTile * 4 * 4;
+
+__host__ __device__ inline FwdSmem fwd_smem(int H, int nt, int kx, int ns) {
+  FwdSmem s;
+  s.ring = 0;
+  s.area = (size_t)ns * H * 128;
+  s.area_bytes = area_bytes(H, kx);
+  s.aux = s.area + kCons * s.area_bytes;
+  s.own = s.aux + align16((size_t)aux_head_max(H, nt) * 4);
+  s.bars = s.own + kCons * kOwnBytes;
+  s.total = s.bars + 2 * (size_t)ns * 8 + 1024;  // + slack to align the base
+  return s;
+}
+
+// The f32 activation of one 8-column block (split_frag's v0..v3) to the
+// scratch rows at dst (row0's column of feature 0; features < hm) with
+// streaming stores, its ReLU bits (entries 4 j .. 4 j + 3) into m.
+template <int MW, bool kMask>
+__device__ __forceinline__ void save_block(float* dst, long long k, int hm, int j, int q,
+                                           float v0, float v1, float v2, float v3,
+                                           uint32_t (&m)[MW]) {
+  const int col = 8 * j + 2 * q;
+  if (col < hm) {
+    float* d0 = dst + (long long)col * k;
+    __stcs(d0, v0);
+    __stcs(d0 + k, v1);
+    __stcs(d0 + 8, v2);
+    __stcs(d0 + k + 8, v3);
   }
-  __syncthreads();
+  if (kMask) {
+    const int b = (4 * j) & 31;
+    m[(4 * j) >> 5] |= (v0 > 0.f ? 1u : 0u) << b | (v1 > 0.f ? 2u : 0u) << b |
+                       (v2 > 0.f ? 4u : 0u) << b | (v3 > 0.f ? 8u : 0u) << b;
+  }
+}
+
+// n_tiles 64-column tiles of the chunk; worker kCons b + cw takes tiles
+// kCons b + cw, + kCons G, ...
+template <int kOwner, int NTM>
+__global__ void __launch_bounds__(kThreads, 1)
+    train_fwd_tf32_kernel(const __grid_constant__ TrainArgs p, int n_tiles) {
+  constexpr int H = NTM * 16;
+  constexpr int H2 = H / 2;
+  constexpr int KCH = H / kKc;  // K-chunks of a product on H
+  constexpr int SB = H * 128;   // bytes of a ring stage
+  constexpr int MW = (H + 63) / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sbase = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle's atoms
+  unsigned char* gbase = smem_raw + (sbase - smem_u32(smem_raw));
+  const int nt = p.num_trunk, kx = p.kx, NS = p.fwd_stages;
+  const FwdSmem L = fwd_smem(H, nt, kx, NS);
+  const uint32_t ring = sbase + (uint32_t)L.ring;
+  const uint32_t full = sbase + (uint32_t)L.bars, empty = full + 8 * NS;
+  int nskip = 0;
+  for (int i = 0; i < nt; ++i) nskip += (p.skip_mask >> i) & 1;
+  // stages of a pass over the weights, a hi and a lo stage per K-chunk: the
+  // pack's, but layer1's (the first 2 kx), which runs on the CUDA cores
+  const int nch = 2 * (kx * nskip + (nt + 2) * KCH);
+  const int G = gridDim.x, b = blockIdx.x;
+  auto tiles_of = [&](int w) { return w < n_tiles ? (n_tiles - 1 - w) / (kCons * G) + 1 : 0; };
+  const int passes = tiles_of(kCons * b);  // worker kCons b has the CTA's most
+  const int tid = threadIdx.x, cw = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int n_aux = p.aux_off[nt + 7];  // the biases and heads: to shared memory
+  float* aux = reinterpret_cast<float*>(gbase + L.aux);
+  for (int i = tid; i < n_aux; i += kThreads) aux[i] = __ldg(p.aux + i);
   if (tid == 0) {
-    float trans = 1.f;
-    for (int s = 0; s < S; ++s) {
-      const float a = alph[s];
-      trn[s] = trans;
-      wts[s] = a * trans;
-      trans = trans * ((1.f - a) + 1e-10f);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * kCons);  // every consumer warp releases a stage
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
-  {
-    float v[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // sums of w c0, w c1, w c2, w z, w
-    for (int s = tid; s < S; s += kThreads) {
-      const float w = wts[s];
-      v[0] += w * rgbc[s];
-      v[1] += w * rgbc[SP + s];
-      v[2] += w * rgbc[2 * SP + s];
-      v[3] += w * zs[s];
-      v[4] += w;
-    }
-#pragma unroll
-    for (int i = 0; i < 5; ++i) {
-#pragma unroll
-      for (int x = 16; x > 0; x >>= 1) v[i] += __shfl_xor_sync(0xffffffffu, v[i], x);
-      if ((tid & 31) == 0) red[(tid >> 5) * 5 + i] = v[i];
-    }
+  // the areas start zero, so that no padding position ever holds a NaN
+  for (int i = tid; i < kCons * (int)L.area_bytes / 16; i += kThreads) {
+    reinterpret_cast<uint4*>(gbase + L.area)[i] = make_uint4(0u, 0u, 0u, 0u);
   }
+  fence_async_smem();
   __syncthreads();
-  if (tid == 0) {
-    float cr = 0.f, cg = 0.f, cb = 0.f, dep = 0.f, ac = 0.f;
-    for (int w = 0; w < kThreads / 32; ++w) {
-      cr += red[5 * w];
-      cg += red[5 * w + 1];
-      cb += red[5 * w + 2];
-      dep += red[5 * w + 3];
-      ac += red[5 * w + 4];
-    }
-    if (p.white_bg) {
-      cr += 1.f - ac;
-      cg += 1.f - ac;
-      cb += 1.f - ac;
-    }
-    const float e0 = cr - p.target[ray * 3];
-    const float e1 = cg - p.target[ray * 3 + 1];
-    const float e2 = cb - p.target[ray * 3 + 2];
-    float loss, g0, g1, g2;
-    if (p.luma) {  // Rec.601 luminance of the error
-      const float ey = 0.299f * e0 + 0.587f * e1 + 0.114f * e2;
-      loss = ey * ey;
-      g0 = 2.f * ey * 0.299f;
-      g1 = 2.f * ey * 0.587f;
-      g2 = 2.f * ey * 0.114f;
-    } else {
-      loss = e0 * e0 + e1 * e1 + e2 * e2;
-      g0 = 2.f * e0;
-      g1 = 2.f * e1;
-      g2 = 2.f * e2;
-    }
-    float gdep = 0.f;
-    if (p.has_depth) {
-      const float c = p.depth_coef[ray];
-      const float ed = dep - p.depth_gt[ray];
-      loss += c * ed * ed;
-      gdep = 2.f * c * ed;
-    }
-    p.loss_ray[ray] = loss;
-    p.rgb_out[ray * 3] = cr;
-    p.rgb_out[ray * 3 + 1] = cg;
-    p.rgb_out[ray * 3 + 2] = cb;
-    red[kRedG] = g0;
-    red[kRedG + 1] = g1;
-    red[kRedG + 2] = g2;
-    red[kRedG + 3] = gdep;
-    red[kRedG + 4] = g0 + g1 + g2;  // d loss / d acc under a white background
-  }
-  __syncthreads();
-  {
-    const float g0 = red[kRedG], g1 = red[kRedG + 1], g2 = red[kRedG + 2];
-    const float gdep = red[kRedG + 3], gsum = red[kRedG + 4];
-    for (int s = tid; s < S; s += kThreads) {
-      const float c0 = rgbc[s], c1 = rgbc[SP + s], c2 = rgbc[2 * SP + s];
-      float gw = g0 * c0 + g1 * c1 + g2 * c2;  // d loss / d w_s
-      if (p.white_bg) gw -= gsum;
-      if (p.has_depth) gw += gdep * zs[s];
-      const float w = wts[s];
-      gsig[s] = gw;  // until the scan below
-      grgb[s] = w * g0 * c0 * (1.f - c0);
-      grgb[SP + s] = w * g1 * c1 * (1.f - c1);
-      grgb[2 * SP + s] = w * g2 * c2 * (1.f - c2);
-    }
-  }
-  __syncthreads();
-  if (tid == 0) {  // rgbc's first row becomes the sum over later samples of gw * w
-    float suffix = 0.f;
-    for (int s = S - 1; s >= 0; --s) {
-      const float gw = gsig[s];
-      rgbc[s] = suffix;
-      suffix += gw * wts[s];
-    }
-  }
-  __syncthreads();
-  for (int s = tid; s < S; s += kThreads) {
-    const float a = alph[s];
-    const float q = fmaxf((1.f - a) + 1e-10f, 1e-10f);
-    const float galpha = trn[s] * gsig[s] - rgbc[s] / q;
-    gsig[s] = sig[s] > 0.f ? galpha * ds[s] * (1.f - a) : 0.f;
-  }
-  __syncthreads();
-  for (int s = tid; s < S; s += kThreads) p.weights_out[ray * S + s] = wts[s];
 
-  // ---- MLP backward, tile by tile: deltas saved for the dW launch
-  for (int base = 0; base < SP; base += kSlots) {
-    const auto g = [&](int row, int s) {
-      return row < 3 ? grgb[row * SP + base + s] : gsig[base + s];
+  const int t = tid & 127, warp = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
+  if (cw == kCons) {  // ---- the weight stream, one thread
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (t != 0) return;
+    stream_weights_tf32(reinterpret_cast<const unsigned char*>(p.wq) + (size_t)2 * kx * SB,
+                        passes, nch, nch - 2 * KCH, SB, NS, ring, full, empty);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int bar = 1 + cw, v = kCons * b + cw;
+  const uint32_t area = sbase + (uint32_t)(L.area + cw * L.area_bytes);
+  const uint32_t enc_hi = area, enc_lo = area + kx * kChunk;  // the encoding's halves
+  // layer1's f32 encoding, [dx][64 rows], in the area before layer1's epilogue
+  float* encf = reinterpret_cast<float*>(gbase + L.area + cw * L.area_bytes);
+  float* sig = reinterpret_cast<float*>(gbase + L.own + cw * kOwnBytes);  // [64]
+  float* rgbr = sig + kTile;                                              // [64][3]
+  const float* w_alpha = aux + p.aux_off[nt + 3];
+  const float b_alpha = aux[p.aux_off[nt + 4]];
+  const float* w_rgb = aux + p.aux_off[nt + 5];
+  const float* b_rgb = aux + p.aux_off[nt + 6];
+  const int S = p.n_samples, SP = p.s_pad, hm = p.hidden, dxp = kx * kKc;
+  const long long K = p.k;
+  const Rows R{K, p.dx, hm, nt};
+  const int TW = tile_words(H, nt), row0 = 16 * warp + g;
+  Tf32Ring wr{ring, full, empty, NS, SB, lane};
+
+  const int mine = tiles_of(v);
+  for (int it = 0; it < mine; ++it) {
+    const int tile = v + kCons * G * it;
+    const long long col0 = (long long)tile * kTile;
+    const int rl = (int)(col0 / SP), s0 = (int)(col0 - (long long)rl * SP);
+    const long long ray = (long long)p.ray0 + rl;
+    uint32_t* mk = p.masks + (size_t)tile * TW * 128 + t;
+    float* acol = p.act + col0 + row0;  // this thread's first column, feature 0
+
+    // the xyz encoding of the tile by the two lanes of each row of the
+    // warp's own 16 rows (a warp's wgmma reads only its own rows of A), the
+    // argument rounded as written and the accurate sincosf. Padding samples
+    // (s >= S) take z = 0: finite points. For layer1 (first): f32 into encf
+    // and the scratch's e rows; for a skip layer: split into the area.
+    auto encode_tile = [&](bool first) {
+      const int i = 16 * warp + (lane & 15), half = lane >> 4, s = s0 + i;
+      const float zz = s < S ? p.z[ray * S + s] : 0.f;
+      float* ecol = p.act + R.e() + col0 + i;
+      for (int d = 0; d < 3; ++d) {
+        const float pt = __fadd_rn(p.origins[ray * 3 + d], __fmul_rn(p.dirs[ray * 3 + d], zz));
+        if (first) {
+          const int cx = p.inc_x ? 3 : 0;
+          auto put = [&](int f, float val) {
+            encf[f * kTile + i] = val;
+            __stcs(ecol + (long long)f * K, val);
+          };
+          if (p.inc_x && half == 0) put(d, pt);
+          for (int f = half; f < p.fx; f += 2) {
+            float sn, cs;
+            sincosf(__fmul_rn(pt, p.bands_x[f]), &sn, &cs);
+            put(cx + 6 * f + d, sn);
+            put(cx + 6 * f + 3 + d, cs);
+          }
+        } else {
+          encode_coord_tf32(enc_hi, enc_lo, i, d, pt, half, p.fx, p.inc_x,
+                            [&](int f) { return p.bands_x[f]; });
+        }
+      }
+      if (first) {
+        __syncwarp();
+        return;
+      }
+      for (int f = p.dx + half; f < dxp; f += 2) store_split(enc_hi, enc_lo, i, f, 0.f);
+      fence_async_smem();
+      wg_sync(bar);
     };
-    field_backward_tile(p, g, gt, bufA, bufB, col0 + base, R, mk, base / 32, SPW, dys);
+
+    encode_tile(true);
+    float* sig_rows = sig + 16 * warp;
+    float acc[H / 2];  // the layer's sum
+    uint32_t a[H / 2];
+    // ---- layer1 on the CUDA cores: each output a sequential f32 FMA chain
+    // over the encoding in feature order, then the bias (in the epilogue),
+    // as the plain version's GEMM sums it: the fine pass's gradients follow
+    // this product's rounding more closely than any other's (PERF.md); its
+    // output a_0 saved, no mask
+#pragma unroll
+    for (int e = 0; e < H / 2; ++e) acc[e] = 0.f;
+    for (int k = 0; k < p.dx; ++k) {
+      const float x0 = encf[k * kTile + row0], x1 = encf[k * kTile + row0 + 8];
+      const float* wk = p.w1 + k * H + 2 * q;
+#pragma unroll
+      for (int j = 0; j < H / 8; ++j) {
+        const float2 w = __ldg(reinterpret_cast<const float2*>(wk + 8 * j));
+        acc[4 * j] = fmaf(x0, w.x, acc[4 * j]);
+        acc[4 * j + 1] = fmaf(x0, w.y, acc[4 * j + 1]);
+        acc[4 * j + 2] = fmaf(x1, w.x, acc[4 * j + 2]);
+        acc[4 * j + 3] = fmaf(x1, w.y, acc[4 * j + 3]);
+      }
+    }
+    wg_sync(bar);  // every warp is done with encf before the epilogue writes the area
+    {
+      uint32_t m[MW];
+      auto sink = [&](int j, float v0, float v1, float v2, float v3) {
+        save_block<MW, false>(acol + R.a(0), K, hm, j, q, v0, v1, v2, v3, m);
+      };
+      if (nt > 0) {
+        hidden_epilogue_tf32<H, false, false>(acc, aux + p.aux_off[0], a, area, w_alpha,
+                                              b_alpha, sig_rows, sink);
+      } else {
+        hidden_epilogue_tf32<H, false, true>(acc, aux + p.aux_off[0], a, area, w_alpha,
+                                             b_alpha, sig_rows, sink);
+      }
+    }
+    fence_async_smem();
+    wg_sync(bar);
+    // ---- trunk, then fc_feat (layer nt + 1): a_1..a_nt, feat saved, masks
+    for (int i = 0; i <= nt; ++i) {
+      act_product<H, H>(acc, a, area, wr);
+      if (i < nt && ((p.skip_mask >> i) & 1)) {  // the encoding again, into the area
+        encode_tile(false);
+        enc_product<H>(acc, enc_hi, enc_lo, kx, wr, false);
+      }
+      const float* bias = aux + p.aux_off[1 + i];
+      uint32_t m[MW];
+#pragma unroll
+      for (int w = 0; w < MW; ++w) m[w] = 0u;
+      float* dst = acol + (i < nt ? R.a(i + 1) : R.feat());
+      auto sink = [&](int j, float v0, float v1, float v2, float v3) {
+        save_block<MW, true>(dst, K, hm, j, q, v0, v1, v2, v3, m);
+      };
+      if (i == nt - 1) {
+        hidden_epilogue_tf32<H, true, true>(acc, bias, a, area, w_alpha, b_alpha, sig_rows, sink);
+      } else {
+        hidden_epilogue_tf32<H, true, false>(acc, bias, a, area, w_alpha, b_alpha, sig_rows,
+                                             sink);
+      }
+#pragma unroll
+      for (int w = 0; w < MW; ++w) __stcs(mk + (i * MW + w) * 128, m[w]);
+      fence_async_smem();
+      wg_sync(bar);
+    }
+    // ---- layers_dir.0 on feat, + the ray's bias: y saved, its mask; the rgb head
+    float ad[H2 / 2];
+    act_product<H2, H>(ad, a, area, wr);
+    {
+      const float* db = p.dirb + (size_t)rl * H2;
+      float* ydst = acol + R.y();
+      float c[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+      uint32_t ym = 0u;
+#pragma unroll
+      for (int j = 0; j < H2 / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * q + e;
+          const float* wrg = w_rgb + col * 3;
+          const float dbc = __ldg(db + col);
+          const float y0 = fmaxf(ad[4 * j + e] + dbc, 0.f);
+          const float y1 = fmaxf(ad[4 * j + 2 + e] + dbc, 0.f);
+#pragma unroll
+          for (int kk = 0; kk < 3; ++kk) {
+            c[0][kk] = fmaf(y0, wrg[kk], c[0][kk]);
+            c[1][kk] = fmaf(y1, wrg[kk], c[1][kk]);
+          }
+          if (col < hm / 2) {
+            __stcs(ydst + (long long)col * K, y0);
+            __stcs(ydst + (long long)col * K + 8, y1);
+          }
+          ym |= (y0 > 0.f ? 1u : 0u) << (4 * j + e) | (y1 > 0.f ? 1u : 0u) << (4 * j + 2 + e);
+        }
+      }
+      __stcs(mk + (nt + 1) * MW * 128, ym);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int x = 1; x < 4; x <<= 1) {
+#pragma unroll
+          for (int kk = 0; kk < 3; ++kk) c[h][kk] += __shfl_xor_sync(0xffffffffu, c[h][kk], x);
+        }
+        if (q == 0) {
+#pragma unroll
+          for (int kk = 0; kk < 3; ++kk) rgbr[(row0 + 8 * h) * 3 + kk] = c[h][kk] + b_rgb[kk];
+        }
+      }
+    }
+    wg_sync(bar);  // every row's sigma and rgb logits are written
+    if (t < kTile) {
+      reinterpret_cast<float4*>(p.raw)[col0 + t] =
+          make_float4(rgbr[3 * t], rgbr[3 * t + 1], rgbr[3 * t + 2], sig[t]);
+    }
   }
-  for (int c = tid; c < H2; c += kThreads) p.dy_sum[(long long)c * p.n_rays + r] = dys[c];
+  // worker kCons b has more tiles: release the stages of its other passes
+  for (int c = mine * nch; c < passes * nch; ++c) {
+    wr.take();
+    wr.release();
+  }
 }
 
-size_t train_smem_bytes(int dx, int dd, int hidden, int num_trunk, int s_pad) {
-  const size_t mask_words = (size_t)((num_trunk + 1) * hidden + hidden / 2) * (s_pad / 32);
-  return sizeof(float) * ((size_t)(dx + 2 * hidden + 4) * kSlots + 13 * (size_t)s_pad +
-                          dd + hidden + kRed) + sizeof(unsigned) * mask_words;
+// ---- compositing, loss and compositing backward (train_composite.cuh)
+__global__ void __launch_bounds__(kRayWarps * 32) train_composite_tf32_kernel(const TrainArgs p) {
+  extern __shared__ float csm[];
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * kRayWarps + warp;
+  if (r >= p.n_rays) return;
+  composite_ray(p, r, p.s_pad, csm + (size_t)warp * 7 * p.n_samples);
 }
 
-constexpr int kSumThreads = 1024;
+// ---- the cotangent chain
+// Shared memory from the 1024-aligned base: the weight ring of ns stages,
+// each consumer's area (the lo half of an H-wide cotangent), the biases and
+// heads, each consumer's column sums [4 warps][H/2], the ring's barriers.
+struct ChainSmem {
+  size_t ring, area, area_bytes, aux, colsum, bars, total;
+};
+
+__host__ __device__ inline ChainSmem chain_smem(int H, int nt, int ns) {
+  ChainSmem s;
+  s.ring = 0;
+  s.area = (size_t)ns * H * 128;
+  s.area_bytes = (size_t)(H / kKc) * kChunk;
+  s.aux = s.area + kCons * s.area_bytes;
+  s.colsum = s.aux + align16((size_t)aux_head_max(H, nt) * 4);
+  s.bars = s.colsum + kCons * 4 * (size_t)(H / 2) * 4;
+  s.total = s.bars + 2 * (size_t)ns * 8 + 1024;  // + slack to align the base
+  return s;
+}
+
+// The epilogue of a chain product on an [64 x H] accumulator: (+ the sigma
+// head's term gs w_alpha, f32 FMA), masked by the forward's bits m (when
+// masked), stored to the scratch rows at dst (row0's column of feature 0;
+// features < hm) and, with kSplit, split into the next product's A (a, the
+// area at lo_t).
+template <int H, int MW, bool kSplit, bool kHead>
+__device__ __forceinline__ void chain_epilogue(const float (&acc)[H / 2], uint32_t (&a)[H / 2],
+                                               uint32_t lo_t, const uint32_t (&m)[MW],
+                                               bool masked, float gs0, float gs1,
+                                               const float* wa, float* dst, long long k,
+                                               int hm) {
+  const int t = threadIdx.x & 127, lane = t & 31, g = lane >> 2, q = lane & 3;
+  const int row0 = 16 * (t >> 5) + g;
+#pragma unroll
+  for (int j = 0; j < H / 8; ++j) {
+    const int col = 8 * j + 2 * q;
+    float v0 = acc[4 * j], v1 = acc[4 * j + 1], v2 = acc[4 * j + 2], v3 = acc[4 * j + 3];
+    if (kHead) {
+      const float2 w = *reinterpret_cast<const float2*>(wa + col);
+      v0 = fmaf(gs0, w.x, v0);
+      v1 = fmaf(gs0, w.y, v1);
+      v2 = fmaf(gs1, w.x, v2);
+      v3 = fmaf(gs1, w.y, v3);
+    }
+    if (masked) {
+      const uint32_t bits = m[(4 * j) >> 5] >> ((4 * j) & 31);
+      v0 = bits & 1u ? v0 : 0.f;
+      v1 = bits & 2u ? v1 : 0.f;
+      v2 = bits & 4u ? v2 : 0.f;
+      v3 = bits & 8u ? v3 : 0.f;
+    }
+    if (col < hm) {
+      float* d0 = dst + (long long)col * k;
+      __stcs(d0, v0);
+      __stcs(d0 + k, v1);
+      __stcs(d0 + 8, v2);
+      __stcs(d0 + k + 8, v3);
+    }
+    if (kSplit) split_frag<H>(j, v0, v1, v2, v3, a, lo_t, row0, q);
+  }
+}
+
+// Worker kCons b + cw takes the chunk's rays kCons b + cw, + kCons G, ...,
+// each ray's s_pad / 64 tiles in order. Per tile: the raw cotangents to the
+// scratch; the y cotangent (g_rgb W_rgb^T, f32, masked by y > 0) and its
+// column sums; then product 0 (layers_dir.0's feat rows, K = H/2 padded to
+// a K-chunk) -> d_feat masked by feat, product 1 (fc_feat, + gs w_alpha)
+// -> d_nt masked by a_nt, products 2.. (layers_xyz from the last) -> d_i
+// masked by a_i (d_0, layer1's output cotangent, unmasked).
+template <int kOwner, int NTM>
+__global__ void __launch_bounds__(kThreads, 1)
+    train_chain_tf32_kernel(const __grid_constant__ TrainArgs p) {
+  constexpr int H = NTM * 16;
+  constexpr int H2 = H / 2;
+  constexpr int KCH = H / kKc;
+  constexpr int KD = (H2 + kKc - 1) / kKc * kKc;  // K of product 0
+  constexpr int SB = H * 128;
+  constexpr int MW = (H + 63) / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sbase = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (sbase - smem_u32(smem_raw));
+  const int nt = p.num_trunk, NS = p.chain_stages, SP = p.s_pad, TPR = SP / kTile;
+  const ChainSmem L = chain_smem(H, nt, NS);
+  const uint32_t ring = sbase + (uint32_t)L.ring;
+  const uint32_t full = sbase + (uint32_t)L.bars, empty = full + 8 * NS;
+  const int nch = 2 * (KD / kKc + (nt + 1) * KCH);
+  const int G = gridDim.x, b = blockIdx.x, n_rays = p.n_rays;
+  auto rays_of = [&](int w) { return w < n_rays ? (n_rays - 1 - w) / (kCons * G) + 1 : 0; };
+  const int passes = TPR * rays_of(kCons * b);
+  const int tid = threadIdx.x, cw = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int n_aux = p.aux_off[nt + 7];
+  float* aux = reinterpret_cast<float*>(gbase + L.aux);
+  for (int i = tid; i < n_aux; i += kThreads) aux[i] = __ldg(p.aux + i);
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * kCons);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < kCons * (int)L.area_bytes / 16; i += kThreads) {
+    reinterpret_cast<uint4*>(gbase + L.area)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  const int t = tid & 127, warp = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
+  if (cw == kCons) {  // ---- the weight stream, one thread: every stage [H][32]
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (t != 0) return;
+    stream_weights_tf32(reinterpret_cast<const unsigned char*>(p.wbq), passes, nch, nch, SB, NS,
+                        ring, full, empty);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int bar = 1 + cw, v = kCons * b + cw;
+  const uint32_t area = sbase + (uint32_t)(L.area + cw * L.area_bytes);
+  float* colsum = reinterpret_cast<float*>(gbase + L.colsum) + cw * 4 * H2;
+  const float* w_alpha = aux + p.aux_off[nt + 3];
+  const float* w_rgb = aux + p.aux_off[nt + 5];
+  const int hm = p.hidden, hm2 = hm / 2;
+  const long long K = p.k;
+  const Rows R{K, p.dx, hm, nt};
+  const int TW = tile_words(H, nt), row0 = 16 * warp + g;
+  const float4* graw = reinterpret_cast<const float4*>(p.graw);
+  Tf32Ring wr{ring, full, empty, NS, SB, lane};
+
+  const int mine = rays_of(v);
+  for (int it = 0; it < mine; ++it) {
+    const int rl = v + kCons * G * it;
+    float dys = 0.f;  // thread t < hm2: column t's sum over the ray
+    for (int tt = 0; tt < TPR; ++tt) {
+      const int tile = rl * TPR + tt;
+      const long long col0 = (long long)tile * kTile;
+      const uint32_t* mk = p.masks + (size_t)tile * TW * 128 + t;
+      float* dcol = p.dlt + col0 + row0;
+      // ---- raw cotangents to the scratch: rgb rows, sigma row
+      if (t < kTile) {
+        const float4 gv = graw[col0 + t];
+        float* d = p.dlt + col0 + t;
+        __stcs(d + R.drgb(0), gv.x);
+        __stcs(d + R.drgb(1), gv.y);
+        __stcs(d + R.drgb(2), gv.z);
+        __stcs(d + R.dsig(), gv.w);
+      }
+      const float4 gr0 = graw[col0 + row0], gr1 = graw[col0 + row0 + 8];
+      // ---- y cotangent, f32, in the accumulator layout; its column sums
+      uint32_t a[H / 2];
+      {
+        const uint32_t ym = __ldcs(mk + (nt + 1) * MW * 128);
+        uint32_t ad[KD / 2];
+        float* ydst = dcol + R.dy();
+#pragma unroll
+        for (int j = 0; j < KD / 8; ++j) {
+          float vv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * q + (e & 1);
+            const float4 gg = e < 2 ? gr0 : gr1;
+            float x = 0.f;
+            if (j < H2 / 8) {
+              const float* wrg = w_rgb + col * 3;
+              x = fmaf(gg.z, wrg[2], fmaf(gg.y, wrg[1], gg.x * wrg[0]));
+              x = (ym >> (4 * j + e)) & 1u ? x : 0.f;
+            }
+            vv[e] = x;
+          }
+          const int col = 8 * j + 2 * q;
+          if (j < H2 / 8) {
+            if (col < hm2) {
+              __stcs(ydst + (long long)col * K, vv[0]);
+              __stcs(ydst + (long long)(col + 1) * K, vv[1]);
+              __stcs(ydst + (long long)col * K + 8, vv[2]);
+              __stcs(ydst + (long long)(col + 1) * K + 8, vv[3]);
+            }
+            float s0 = vv[0] + vv[2], s1 = vv[1] + vv[3];
+#pragma unroll
+            for (int x = 4; x < 32; x <<= 1) {
+              s0 += __shfl_xor_sync(0xffffffffu, s0, x);
+              s1 += __shfl_xor_sync(0xffffffffu, s1, x);
+            }
+            if (g == 0) {
+              colsum[warp * H2 + col] = s0;
+              colsum[warp * H2 + col + 1] = s1;
+            }
+          }
+          split_frag<KD>(j, vv[0], vv[1], vv[2], vv[3], ad, area, row0, q);
+        }
+        fence_async_smem();
+        wg_sync(bar);
+        if (t < hm2) {
+          dys += (colsum[t] + colsum[H2 + t]) + (colsum[2 * H2 + t] + colsum[3 * H2 + t]);
+        }
+        // ---- product 0: d_feat = dy W_dir[:, :H], masked by feat
+        uint32_t m[MW];
+#pragma unroll
+        for (int w = 0; w < MW; ++w) m[w] = __ldcs(mk + (nt * MW + w) * 128);
+        float acc[H / 2];
+        act_product<H, KD>(acc, ad, area, wr);
+        chain_epilogue<H, MW, true, false>(acc, a, area, m, true, 0.f, 0.f, nullptr,
+                                           dcol + R.dfeat(), K, hm);
+      }
+      fence_async_smem();
+      wg_sync(bar);
+      // ---- product 1: d_nt = d_feat W_feat + gs w_alpha, masked by a_nt
+      {
+        uint32_t m[MW];
+#pragma unroll
+        for (int w = 0; w < MW; ++w) m[w] = nt > 0 ? __ldcs(mk + ((nt - 1) * MW + w) * 128) : 0u;
+        float acc[H / 2];
+        act_product<H, H>(acc, a, area, wr);
+        if (nt > 0) {
+          chain_epilogue<H, MW, true, true>(acc, a, area, m, true, gr0.w, gr1.w, w_alpha,
+                                            dcol + R.d(nt), K, hm);
+        } else {
+          chain_epilogue<H, MW, false, true>(acc, a, area, m, false, gr0.w, gr1.w, w_alpha,
+                                             dcol + R.d(0), K, hm);
+        }
+      }
+      fence_async_smem();
+      wg_sync(bar);
+      // ---- products 2..: d_i = d_{i+1} W_i[:, :H], masked by a_i (i > 0)
+      for (int i = nt - 1; i >= 0; --i) {
+        uint32_t m[MW];
+#pragma unroll
+        for (int w = 0; w < MW; ++w) m[w] = i > 0 ? __ldcs(mk + ((i - 1) * MW + w) * 128) : 0u;
+        float acc[H / 2];
+        act_product<H, H>(acc, a, area, wr);
+        if (i > 0) {
+          chain_epilogue<H, MW, true, false>(acc, a, area, m, true, 0.f, 0.f, nullptr,
+                                             dcol + R.d(i), K, hm);
+        } else {
+          chain_epilogue<H, MW, false, false>(acc, a, area, m, false, 0.f, 0.f, nullptr,
+                                              dcol + R.d(0), K, hm);
+        }
+        fence_async_smem();
+        wg_sync(bar);
+      }
+    }
+    if (t < hm2) p.dy_sum[(size_t)t * n_rays + rl] = dys;
+  }
+  // worker kCons b has more rays: release the stages of its other passes
+  for (int c = mine * TPR * nch; c < passes * nch; ++c) {
+    wr.take();
+    wr.release();
+  }
+}
+
+// As many ring stages as fit (up to kMaxStages), with their shared-memory
+// bytes, for the forward (chain = 0) or the chain; 0 below kMinStages.
+int stages_for(int H, int nt, int kx, int chain, size_t* smem) {
+  for (int ns = kMaxStages; ns >= kMinStages; --ns) {
+    *smem = chain ? chain_smem(H, nt, ns).total : fwd_smem(H, nt, kx, ns).total;
+    if (*smem <= (size_t)kSmemMax) return ns;
+  }
+  return 0;
+}
+
+template <int NTM>
+int launch_pass(const TrainArgs& a, cudaStream_t st) {
+  const int dx = a.dx;
+  size_t fwd_bytes = 0, chain_bytes = 0;
+  if (stages_for(a.hp, a.num_trunk, a.kx, 0, &fwd_bytes) != a.fwd_stages ||
+      stages_for(a.hp, a.num_trunk, a.kx, 1, &chain_bytes) != a.chain_stages || dx < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(train_fwd_tf32_kernel<kLoss, NTM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)fwd_bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(train_chain_tf32_kernel<kLoss, NTM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)chain_bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (a.n_rays == 0) return 0;
+  const int n_tiles = (int)(a.k / kTile);
+  const int fwd_want = (n_tiles + kCons - 1) / kCons, chain_want = (a.n_rays + kCons - 1) / kCons;
+  const int fwd_grid = fwd_want < a.sms ? fwd_want : a.sms;
+  const int chain_grid = chain_want < a.sms ? chain_want : a.sms;
+  if (a.parts & 1) {
+    train_prep_tf32_kernel<kLoss><<<(a.n_rays + kPrepWarps - 1) / kPrepWarps, kPrepWarps * 32,
+                                    0, st>>>(a);
+  }
+  if (a.parts & 2) {
+    train_fwd_tf32_kernel<kLoss, NTM><<<fwd_grid, kThreads, fwd_bytes, st>>>(a, n_tiles);
+  }
+  if (a.parts & 4) {
+    train_composite_tf32_kernel<<<(a.n_rays + kRayWarps - 1) / kRayWarps, kRayWarps * 32,
+                                  kRayWarps * 7 * a.n_samples * sizeof(float), st>>>(a);
+  }
+  if (a.parts & 8) {
+    train_chain_tf32_kernel<kLoss, NTM><<<chain_grid, kThreads, chain_bytes, st>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int NTM>
+int occupancy(int hp, int nt, int kx, int* out) {
+  size_t fb = 0, cb = 0;
+  const int fs = stages_for(hp, nt, kx, 0, &fb), cs = stages_for(hp, nt, kx, 1, &cb);
+  if (fs == 0 || cs == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(train_fwd_tf32_kernel<kLoss, NTM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)fb);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(train_chain_tf32_kernel<kLoss, NTM>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cb);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0],
+                                                        train_fwd_tf32_kernel<kLoss, NTM>,
+                                                        kThreads, fb);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3],
+                                                        train_chain_tf32_kernel<kLoss, NTM>,
+                                                        kThreads, cb);
+  }
+  out[1] = (int)fb;
+  out[2] = fs;
+  out[4] = (int)cb;
+  out[5] = cs;
+  return (int)err;
+}
 
 __global__ void __launch_bounds__(kSumThreads)
 sum_rays_kernel(const float* v, int n, float* out) {
@@ -314,7 +808,7 @@ extern "C" {
 // sizeof the argument block, so the Python mirror can be checked.
 int dexnerf_train_args_size() { return (int)sizeof(TrainArgs); }
 
-// The scratch layout of Rows (mlp_chain.cuh), in rows: act and dlt row
+// The scratch layout of Rows (train_rows.cuh), in rows: act and dlt row
 // counts, then the first row of e, feat, y, the sigma, y and rgb
 // cotangents, then
 // a_0..a_nt, then delta_0..delta_{nt+1} (the last is feat's): 2 nt + 11
@@ -331,25 +825,47 @@ int dexnerf_train_rows(int dx, int hidden, int num_trunk, int* rows, int n) {
   return 0;
 }
 
-// Each entry point returns a cudaError_t (0 on success); launches are
-// asynchronous on `stream`. `args` points to a host TrainArgs,
-// copied into the kernel's parameter block at launch.
-int dexnerf_train_pass(const void* args, void* stream) {
-  const TrainArgs& a = *static_cast<const TrainArgs*>(args);
-  const int dx = 3 * a.inc_x + 6 * a.fx, dd = 3 * a.inc_d + 6 * a.fd;
-  if (a.n_samples < 1 || a.s_pad < a.n_samples || a.s_pad % kSlots != 0 ||
-      a.s_pad > kMaxSamplesPad || a.num_trunk + 5 > kMaxLayers || a.num_trunk > 31 ||
-      a.fx > kMaxFreq || a.fd > kMaxFreq || a.hidden % 8 != 0 || a.hidden > 4 * 32 ||
-      a.hidden < 8 || a.k != (long long)a.n_rays * a.s_pad) {
+// The mask words of one 64-column tile (tile_words) at padded width hp.
+int dexnerf_train_tile_words(int hp, int num_trunk) { return tile_words(hp, num_trunk); }
+
+// The pass kernels' residency at padded width hp with num_trunk trunk layers
+// and a kx-chunk xyz encoding: out[0..2] the forward's CTAs per SM, shared
+// bytes and ring stages, out[3..5] the chain's.
+int dexnerf_train_tf32_occupancy(int hp, int num_trunk, int kx, int* out) {
+  if (hp % 32 != 0 || hp < 32 || hp > 128 || num_trunk < 0 || num_trunk > 31 || kx < 1 ||
+      kx * kKc > kMaxDx) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = train_smem_bytes(dx, dd, a.hidden, a.num_trunk, a.s_pad);
-  cudaError_t err = cudaFuncSetAttribute(
-      train_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (a.n_rays == 0) return 0;
-  train_pass_kernel<<<a.n_rays, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  switch (hp / 32) {
+    case 1: return occupancy<2>(hp, num_trunk, kx, out);
+    case 2: return occupancy<4>(hp, num_trunk, kx, out);
+    case 3: return occupancy<6>(hp, num_trunk, kx, out);
+    default: return occupancy<8>(hp, num_trunk, kx, out);
+  }
+}
+
+// Each entry point returns a cudaError_t (0 on success); launches are
+// asynchronous on `stream`. `args` points to a host TrainArgs, copied into
+// the kernels' parameter blocks at launch: one chunk's prep, forward,
+// compositing and chain.
+int dexnerf_train_pass(const void* args, void* stream) {
+  const TrainArgs& a = *static_cast<const TrainArgs*>(args);
+  if (a.n_samples < 1 || a.s_pad < a.n_samples || a.s_pad % kTile != 0 ||
+      a.s_pad > kMaxSamplesPad || a.num_trunk + 8 > kAux || a.num_trunk > 31 ||
+      a.fx > kMaxFreq || a.fd > kMaxFreq || a.hidden % 8 != 0 || a.hidden < 8 ||
+      a.hp % 32 != 0 || a.hp < a.hidden || a.hp > 128 || a.dd > kMaxDD ||
+      a.dx != 3 * a.inc_x + 6 * a.fx || a.dd != 3 * a.inc_d + 6 * a.fd ||
+      a.kx != (a.dx + kKc - 1) / kKc || a.kx * kKc > kMaxDx || a.sms < 1 ||
+      a.k != (long long)a.n_rays * a.s_pad) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (a.hp / 32) {
+    case 1: return launch_pass<2>(a, s);
+    case 2: return launch_pass<4>(a, s);
+    case 3: return launch_pass<6>(a, s);
+    default: return launch_pass<8>(a, s);
+  }
 }
 
 // The sum of the n_rays per-ray losses into *loss, in a fixed order.

@@ -1,14 +1,13 @@
-// Device code shared by the field kernels and the fused train-loss kernel:
-// the scratch layout of the training kernels, the per-ray viewdir set-up,
-// one 64-sample tile of the field forward (activations optionally saved),
-// and one tile of the cotangent chain back to layer1's output.
+// Device code shared by the f32 field kernels: the per-ray viewdir
+// set-up, one 64-sample tile of the field forward (activations optionally
+// saved), and one tile of the cotangent chain back to layer1's output, on
+// the CUDA cores (f32 FMA).
 //
-// Users: ops/csrc/fused_mlp.cu (kernel 2, field forward, nothing saved),
+// Users: ops/csrc/fused_mlp.cu (kernel 2, field forward, nothing saved) and
 // ops/csrc/fused_mlp_train.cu (kernel 3, field backward: the forward
 // recomputed with activations saved, then the chain from the raw
-// cotangent) and ops/csrc/fused_train_loss.cu (kernel 4: the chain from
-// the compositing backward). Kernels 3 and 4 then run the same
-// weight-gradient launch (dexnerf_dw_tf32, dw_tf32.cu) over the saved scratch.
+// cotangent), which then runs kernel 4's weight-gradient launch
+// (dexnerf_dw_tf32, dw_tf32.cu) over the saved scratch (train_rows.cuh).
 //
 // The functions are templates over the kernel's argument block, which
 // names the fields they read: wf, wb (packed weights), w_off, b_off,
@@ -20,31 +19,12 @@
 #include <cuda_runtime.h>
 
 #include "mlp_tile.cuh"
+#include "train_rows.cuh"
 
 namespace {
 
 constexpr int kMaxLayers = 40;
 constexpr int kMaxFreq = 16;
-
-// Scratch rows. act: e (dx rows), a_0..a_nt (H each: layer1's output, then
-// the trunk's), feat (H), y (H/2). dlt: delta_0..delta_nt (H each), feat
-// (H), sigma (1), y (H/2), rgb (3). Offsets are in floats for k columns;
-// ops/_weight_grads.py reads them (k = 1) through dexnerf_train_rows.
-struct Rows {
-  long long k;
-  int dx, H, nt;
-  __host__ __device__ long long e() const { return 0; }
-  __host__ __device__ long long a(int i) const { return (long long)(dx + i * H) * k; }
-  __host__ __device__ long long feat() const { return (long long)(dx + (nt + 1) * H) * k; }
-  __host__ __device__ long long y() const { return feat() + (long long)H * k; }
-  __host__ __device__ long long act_end() const { return y() + (long long)(H / 2) * k; }
-  __host__ __device__ long long d(int i) const { return (long long)i * H * k; }
-  __host__ __device__ long long dfeat() const { return (long long)(nt + 1) * H * k; }
-  __host__ __device__ long long dsig() const { return (long long)(nt + 2) * H * k; }
-  __host__ __device__ long long dy() const { return dsig() + k; }
-  __host__ __device__ long long drgb(int c) const { return dy() + (long long)(H / 2 + c) * k; }
-  __host__ __device__ long long dlt_end() const { return drgb(3); }
-};
 
 // Argument block of the field kernels 2 and 3 (one CTA per ray). Mirrored
 // field by field by ops/fused_mlp.py::_FieldArgs.
@@ -92,18 +72,16 @@ __device__ __forceinline__ void viewdir_bias(const P& p, const float* viewdir, f
 // One tile of kSlots samples through the field. On entry E [dx][kSlots]
 // holds the tile's xyz encoding (the caller synced after writing it);
 // bufA/bufB [H][kSlots] are work space; dirb is the per-ray bias of
-// viewdir_bias. With kSave, the encoding and every layer's activations are
-// saved to the scratch p.act (from column `col`, the tile's first) with
-// streaming stores (the scratch is read once, by another kernel), and the
-// ReLU masks of the recorded layers (a_1..a_nt, feat, y) go to `mk`: the
-// two words of unit u (layer-major, H units per trunk layer) at
-// mk[u * mstride + mw]. With kHeads, the sigma logit of sample s goes to
-// sig[s] and its rgb logits to rgb[c * rgb_ld + s]. Ends with a barrier.
-// (Both are template flags so that each kernel compiles only its own
-// parts, and the scratch is addressed from the argument block, not from
-// pointers held in registers: the train-loss kernel's register budget is
-// tight, and a version holding them spilled more and ran slower.)
-template <bool kSave, bool kHeads, class P>
+// viewdir_bias. With kSave (kernel 3), the encoding and every layer's
+// activations are saved to the scratch p.act (from column `col`, the
+// tile's first) with streaming stores (the scratch is read once, by
+// another kernel), and the ReLU masks of the recorded layers (a_1..a_nt,
+// feat, y) go to `mk`: the two words of unit u (layer-major, H units per
+// trunk layer) at mk[u * mstride + mw]. Without it (kernel 2), the sigma
+// logit of sample s goes to sig[s] and its rgb logits to rgb[c * rgb_ld +
+// s]. Ends with a barrier. (A template flag so that each kernel compiles
+// only its own parts.)
+template <bool kSave, class P>
 __device__ __forceinline__ void field_forward_tile(const P& p, const float* dirb, const float* E,
                                                    float* bufA, float* bufB, long long col,
                                                    const Rows& R, unsigned* mk, int mw,
@@ -139,7 +117,7 @@ __device__ __forceinline__ void field_forward_tile(const P& p, const float* dirb
   // cur = trunk output h: feat -> nxt, sigma head from h
   dense<true>(cur, H, nullptr, 0, W + p.w_off[L_FEAT], W + p.b_off[L_FEAT], H, nxt,
               save(R.feat()), p.k, mask(nt * H), nullptr, mstride);
-  if (kHeads && tid < kSlots) {
+  if (!kSave && tid < kSlots) {
     const float* wa = W + p.w_off[L_ALPHA];
     float v = 0.f;
     for (int k = 0; k < H; ++k) v = fmaf(cur[k * kSlots + tid], wa[k], v);
@@ -150,7 +128,7 @@ __device__ __forceinline__ void field_forward_tile(const P& p, const float* dirb
   dense<true>(nxt, H, nullptr, 0, W + p.w_off[L_DIR], dirb, H2, cur, save(R.y()), p.k,
               mask((nt + 1) * H), nullptr, mstride);
   __syncthreads();
-  if (kHeads && tid < kSlots) {
+  if (!kSave && tid < kSlots) {
     const float* wr = W + p.w_off[L_RGB];
     const float* br = W + p.b_off[L_RGB];
     float v0 = 0.f, v1 = 0.f, v2 = 0.f;

@@ -1,5 +1,6 @@
-// Device helpers shared by the fused render and fused train-loss kernels:
-// the 64-sample MLP tile product and the positional encoding.
+// Device helpers of the f32 field kernels (fused_mlp.cu, fused_mlp_train.cu,
+// through mlp_chain.cuh): the 64-sample MLP tile product on the CUDA cores
+// and the positional encoding.
 //
 // Activations of one tile live in shared memory feature-major, [k][sample]
 // with kSlots samples per row. A CTA of kThreads threads computes a layer

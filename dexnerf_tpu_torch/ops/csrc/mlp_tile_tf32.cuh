@@ -1,5 +1,7 @@
 // The float32 FlexibleNeRF forward tile on Hopper's tensor cores, in split
-// TF32 ("3xTF32"), for the fused render's float32 route (fused_render.cu).
+// TF32 ("3xTF32"), for the fused render's float32 route (fused_render.cu)
+// and kernel 4's f32 pass (fused_train_loss.cu: the forward, and the
+// cotangent chain on the same products and epilogue pieces).
 //
 // Each f32 operand x is split into hi = tf32(x) and lo = tf32(x - hi)
 // (round to nearest, ties away, as cvt.rna.tf32.f32), and each product is
@@ -108,6 +110,12 @@ __device__ __forceinline__ void encode_coord_tf32(uint32_t hi_t, uint32_t lo_t, 
     store_split(hi_t, lo_t, i, cx + 6 * f + 3 + d, cs);
   }
 }
+
+// A sink that takes nothing (hidden_epilogue_tf32's default).
+struct NoSink {
+  template <class... T>
+  __device__ __forceinline__ void operator()(T...) const {}
+};
 
 // ---- wgmma m64nNk8 .tf32, f32 accumulators, both operands K-major
 #define TF_ACC8(i)                                                                            \
@@ -339,15 +347,35 @@ __device__ __forceinline__ void act_product(float (&sum)[NO / 2], uint32_t (&a)[
   }
 }
 
+// The thread's values of columns 8 j + 2 q (v0: row g, v2: row g + 8) and
+// 8 j + 2 q + 1 (v1, v3) of an [64 x H] activation, split: hi into a (the
+// next product's A fragments, in K-position order), lo into the area at
+// lo_t (row0 = 16 w + g).
+template <int H>
+__device__ __forceinline__ void split_frag(int j, float v0, float v1, float v2, float v3,
+                                           uint32_t (&a)[H / 2], uint32_t lo_t, int row0, int q) {
+  // features col, col + 1 sit at K positions 8 j + q, 8 j + q + 4
+  uint32_t l0, l1, l2, l3;
+  split_tf32(v0, a[4 * j], l0);
+  split_tf32(v2, a[4 * j + 1], l2);
+  split_tf32(v1, a[4 * j + 2], l1);
+  split_tf32(v3, a[4 * j + 3], l3);
+  const int p0 = 8 * j + q;
+  sts32(lo_t + area_off(row0, p0), l0);
+  sts32(lo_t + area_off(row0, p0 + 4), l1);
+  sts32(lo_t + area_off(row0 + 8, p0), l2);
+  sts32(lo_t + area_off(row0 + 8, p0 + 4), l3);
+}
+
 // Epilogue of a hidden layer on an [64 x H] accumulator: v = act(acc +
-// bias) in f32, split: hi into a (the next layer's A fragments, in
-// K-position order), lo into the area at lo_t. With head, also the sigma
-// head v . wa + b_alpha of rows g and g + 8 of the warp into sig_rows.
-template <int H, bool relu, bool head>
+// bias) in f32, split (split_frag). With head, also the sigma head v . wa +
+// b_alpha of rows g and g + 8 of the warp into sig_rows. sink(j, v0, v1, v2,
+// v3) also receives each 8-column block's f32 values (as split_frag's).
+template <int H, bool relu, bool head, class Sink = NoSink>
 __device__ __forceinline__ void hidden_epilogue_tf32(const float (&acc)[H / 2], const float* bias,
                                                      uint32_t (&a)[H / 2], uint32_t lo_t,
                                                      const float* wa, float b_alpha,
-                                                     float* sig_rows) {
+                                                     float* sig_rows, Sink sink = Sink()) {
   const int t = threadIdx.x & 127, lane = t & 31, g = lane >> 2, q = lane & 3;
   const int row0 = 16 * (t >> 5) + g;
   float s0 = 0.f, s1 = 0.f;
@@ -368,17 +396,8 @@ __device__ __forceinline__ void hidden_epilogue_tf32(const float (&acc)[H / 2], 
       s0 = fmaf(v1, w.y, fmaf(v0, w.x, s0));
       s1 = fmaf(v3, w.y, fmaf(v2, w.x, s1));
     }
-    // features col, col + 1 sit at K positions 8 j + q, 8 j + q + 4
-    uint32_t l0, l1, l2, l3;
-    split_tf32(v0, a[4 * j], l0);
-    split_tf32(v2, a[4 * j + 1], l2);
-    split_tf32(v1, a[4 * j + 2], l1);
-    split_tf32(v3, a[4 * j + 3], l3);
-    const int p0 = 8 * j + q;
-    sts32(lo_t + area_off(row0, p0), l0);
-    sts32(lo_t + area_off(row0, p0 + 4), l1);
-    sts32(lo_t + area_off(row0 + 8, p0), l2);
-    sts32(lo_t + area_off(row0 + 8, p0 + 4), l3);
+    sink(j, v0, v1, v2, v3);
+    split_frag<H>(j, v0, v1, v2, v3, a, lo_t, row0, q);
   }
   if (head) {
     s0 += __shfl_xor_sync(0xffffffffu, s0, 1);

@@ -16,23 +16,33 @@ contract at any pair (pts, PE, the model forward, or at bf16
 ``torch.autograd.grad``). There is no fallback between them: a CUDA call
 that cannot launch raises.
 
-The f32 route: f32 FMA work, ~0.9 MFLOP per sample of the 8x128 model
-(forward, cotangent chain and weight gradients), 1.42 TFLOP per train step
-at batch 8192 with 64 + 128 samples per ray, 21.2 ms at the 67 TFLOP/s f32
-peak of an H100 SXM (700 W). A fine ray's activations (~650 KB) do not fit
-in a CTA's 227 KB of shared memory, so the kernel saves every layer's
-activations and cotangents to a device scratch (~10 KB per sample, written
-and read back once: ~31 GB of traffic a step, written with streaming
-stores so that it does not evict the weights from L2), capped by running
-the batch in chunks of ``SCRATCH_SAMPLES`` samples (~2.6 GB for 8x128,
-whatever the batch). The weight gradients, products over every sample of
-the batch, run on the tensor cores in split TF32 (``ops/csrc/dw_tf32.cu``:
-each f32 operand as two TF32 halves, three products, each 32-sample
-stage's products added in f32), bound by the scratch's bytes; persistent
-CTAs sum equal shares of them into separate slots, and the slots are
-reduced in a fixed order: no atomics, bitwise-repeatable runs. The scratch
-and those launches are ``ops/_weight_grads.py``'s, shared with the field
-backward (kernel 3).
+The f32 route: ~0.9 MFLOP per sample of the 8x128 model (forward,
+cotangent chain and weight gradients), 1.42 TFLOP per train step at batch
+8192 with 64 + 128 samples per ray; on the tensor cores in split TF32
+(each f32 operand as two TF32 halves, three products, each K-chunk's
+products added in f32), 8.6 ms at the 495 TFLOP/s dense TF32 peak of an
+H100 SXM (700 W). A fine ray's activations (~650 KB) do not fit in a CTA's
+shared memory, so the pass saves every layer's activations and cotangents
+to a device scratch (~10 KB per sample, written and read back once: ~16 GB
+a step; streaming stores, so that it does not evict the weights from L2),
+capped by running the batch in chunks of ``SCRATCH_SAMPLES`` samples (~2.6
+GB for 8x128, whatever the batch). Per chunk (:class:`Tf32Pass`): a per-ray
+prep (viewdir encoding and bias), the forward on ``wgmma`` (kernel 1's f32
+tile: persistent CTAs, a bulk-copy ring of the pre-split pack
+:func:`~dexnerf_tpu_torch.ops.fused_render.pack_flex_weights_tf32`; layer1
+alone as a sequential f32 FMA chain on the CUDA cores
+(:func:`pack_layer1_f32`), whose rounding the lower trunk's gradients
+follow most closely; the
+activations stored from the accumulator registers, the ReLU masks as bits
+in the accumulator's thread order: :func:`tf32_mask_words`), f32
+compositing and its backward one warp per ray (shared with the bf16 route),
+and the cotangent chain on ``wgmma`` against
+:func:`pack_backward_weights_tf32`. The weight gradients, products over
+every sample of the batch, run in split TF32 too (``ops/csrc/dw_tf32.cu``),
+bound by the scratch's bytes; persistent CTAs sum equal shares of them into
+separate slots, and the slots are reduced in a fixed order: no atomics,
+bitwise-repeatable runs. The scratch and those launches are
+``ops/_weight_grads.py``'s, shared with the field backward (kernel 3).
 
 The bf16 route: the same 1.42 TFLOP on the bf16 tensor cores (1.435 ms at
 the 989 TFLOP/s dense bf16 peak), so its scratch traffic bounds it first:
@@ -81,15 +91,18 @@ from dexnerf_tpu_torch.ops._weight_grads import (
     WeightGradients,
     _param_offsets,
     check_dw_args_size,
-    pack_backward_weights,
 )
 from dexnerf_tpu_torch.ops.fused_render import (
+    TF32_KCHUNK,
     _cached_bf16_weights,
+    _cached_pack,
+    _cached_tf32_weights,
     _round_up,
+    _tf32_chunks,
     bf16_hidden,
     gather_params,
     gather_plan,
-    pack_flex_weights,
+    tf32_split,
 )
 from dexnerf_tpu_torch.ops.resample import make_fused_resample
 from dexnerf_tpu_torch.render.renderer import (
@@ -120,6 +133,9 @@ DW_MAX_BLOCKS = 8
 DW_SMEM_MAX = 232448
 CHAIN_KCHUNK = 64  # K of a chain weight chunk (one [Hp][64] TMA box)
 ENC_PAD = 32  # the scratch's encoding block: dim_xyz padded to a multiple (kEncPad)
+# the f32 pass's kernels (``parts`` bits of ops/csrc/fused_train_loss.cu): prep,
+# forward, compositing, chain
+PASS_PARTS = 1 | 2 | 4 | 8
 SUPERVISION = ("rgb", "luminance")
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -131,20 +147,18 @@ class _TrainArgs(ctypes.Structure):
         (name, ctypes.c_void_p)
         for name in (
             "origins", "dirs", "viewdirs", "z", "dists", "noise", "target",
-            "depth_gt", "depth_coef", "wf", "wb", "weights_out", "rgb_out",
-            "loss_ray", "act", "dlt", "dir_enc", "dy_sum",
+            "depth_gt", "depth_coef", "wq", "aux", "wbq", "w1", "weights_out", "rgb_out",
+            "loss_ray", "act", "dlt", "dir_enc", "dy_sum", "dirb", "raw", "graw", "masks",
         )
     ] + [("k", ctypes.c_int64)] + [
         (name, ctypes.c_int32)
         for name in (
-            "ray0", "n_rays", "n_samples", "s_pad", "hidden", "num_trunk",
-            "skip_mask", "fx", "fd", "inc_x", "inc_d", "white_bg", "luma",
-            "has_noise", "has_depth",
+            "ray0", "n_rays", "n_samples", "s_pad", "hidden", "hp", "num_trunk",
+            "skip_mask", "fx", "fd", "inc_x", "inc_d", "dx", "kx", "dd", "white_bg", "luma",
+            "has_noise", "has_depth", "sms", "fwd_stages", "chain_stages", "parts",
         )
     ] + [
-        ("w_off", ctypes.c_int32 * MAX_LAYERS),
-        ("b_off", ctypes.c_int32 * MAX_LAYERS),
-        ("wb_off", ctypes.c_int32 * MAX_LAYERS),
+        ("aux_off", ctypes.c_int32 * (MAX_LAYERS + 8)),
         ("bands_x", ctypes.c_float * MAX_FREQ),
         ("bands_d", ctypes.c_float * MAX_FREQ),
     ]
@@ -339,13 +353,191 @@ def _check_struct_sizes(lib) -> None:
     check_dw_args_size(lib)
 
 
+def _tf32_backward_layout(model: FlexibleNeRFModel, w: dict) -> Tuple[torch.Tensor]:
+    """:func:`pack_backward_weights_tf32`'s layout of the parameters ``w``
+    (name -> tensor) before the split."""
+    H = model.hidden_size
+    Hp = bf16_hidden(H)
+    kd, nt = _round_up(Hp // 2, TF32_KCHUNK), model.num_layers - 1
+    parts = [_tf32_chunks(w["layers_dir.0.weight"][:, :H].t(), kd, Hp),
+             _tf32_chunks(w["fc_feat.weight"].t(), Hp, Hp)]
+    parts += [_tf32_chunks(w[f"layers_xyz.{i}.weight"][:, :H].t(), Hp, Hp)
+              for i in reversed(range(nt))]
+    return (torch.cat(parts),)
+
+
+def pack_backward_weights_tf32(model: FlexibleNeRFModel, device=None) -> torch.Tensor:
+    """The f32 chain's weights (``ops/csrc/fused_train_loss.cu``), the
+    products of :func:`~dexnerf_tpu_torch.ops._weight_grads.pack_backward_weights`
+    that run on the tensor cores, in its order and cuts: ``layers_dir.0``'s
+    feat rows, ``fc_feat``, then ``layers_xyz.i`` [:, :H] from the last to
+    the first (``fc_rgb`` and ``fc_alpha`` stay f32 on the CUDA cores, from
+    the forward pack's aux). Each as the B operand [in, out] (the transpose
+    of ``nn.Linear.weight``) zero-padded to Hp = ``bf16_hidden`` rows and K
+    (out) to a multiple of 32, K in ``tf32_feature_order``, as [Hp, 32]
+    K-chunks in wgmma's 128 B swizzle, each first as hi = tf32(w), then as
+    lo = tf32(w - hi): one ring stage each, in consumption order. One gather
+    of the parameters (``gather_plan``), then the split."""
+    (idx,) = gather_plan(_tf32_backward_layout, model, next(model.parameters()).device)
+    with torch.no_grad():
+        hi, lo = tf32_split(gather_params(model, idx)[0])
+        n = bf16_hidden(model.hidden_size) * TF32_KCHUNK
+        wbq = torch.stack([hi.view(-1, n), lo.view(-1, n)], 1).reshape(-1)
+    return wbq.to(device)
+
+
+def _cached_tf32_backward(model: FlexibleNeRFModel, device):
+    return _cached_pack(pack_backward_weights_tf32, model, device)
+
+
+def pack_layer1_f32(model: FlexibleNeRFModel, device=None) -> torch.Tensor:
+    """layer1's weights for the f32 forward's CUDA-core product: ``[in,
+    out]`` (the transpose of ``nn.Linear.weight``), float32, the outputs
+    zero-padded to Hp = ``bf16_hidden``."""
+    with torch.no_grad():
+        w = model.layer1.weight.detach().t().to(torch.float32)
+        w = F.pad(w, (0, bf16_hidden(model.hidden_size) - w.shape[1])).contiguous()
+    return w.to(device)
+
+
+def tf32_mask_layout(hp: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(row, column) [128, hp/2] of each bit of a thread's mask words for an
+    [64, hp] activation tile: thread t (warp t // 32, lane l, g = l // 4, q
+    = l % 4) holds, as wgmma's accumulator, entry 4 j + e at row 16 (t //
+    32) + g + 8 (e // 2) and column 8 j + 2 q + e % 2; entry i is bit i % 32
+    of word i // 32."""
+    t = torch.arange(128)[:, None]
+    i = torch.arange(hp // 2)[None, :]
+    g, q, j, e = (t % 32) // 4, t % 4, i // 4, i % 4
+    return 16 * (t // 32) + g + 8 * (e // 2), 8 * j + 2 * q + e % 2
+
+
+def tf32_mask_words(acts, hp: int) -> torch.Tensor:
+    """The plain version of the f32 forward's ReLU mask words: ``acts`` the
+    recorded activations a_1..a_nt, feat ([k, >= hp] each, k a multiple of
+    64; columns past the model's width zero) and y ([k, >= hp/2]), as the
+    kernel writes their bits (``> 0``) for each 64-column tile: int32
+    [k / 64, (nt + 1) ceil(hp / 64) + 1, 128], word w of layer l of a thread
+    at [tile][l ceil(hp / 64) + w][thread] (y's one word last); see
+    :func:`tf32_mask_layout`."""
+    mw = -(-hp // 64)
+    k = acts[0].shape[0]
+    out = torch.zeros((k // 64, (len(acts) - 1) * mw + 1, 128), dtype=torch.int64)
+    for l, act in enumerate(acts):
+        width = hp if l < len(acts) - 1 else hp // 2
+        rows, cols = tf32_mask_layout(width)
+        bits = (act[:, :width] > 0).reshape(k // 64, 64, width)[:, rows, cols].to(torch.int64)
+        i = torch.arange(width // 2)
+        first = l * mw if l < len(acts) - 1 else (len(acts) - 1) * mw
+        for w in range(-(-(width // 2) // 32)):
+            sel = i // 32 == w
+            word = (bits[..., sel] << (i[sel] % 32)).sum(-1)  # distinct bits: sum = or
+            out[:, first + w] = word
+    return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
+
+
+# (width, encoding chunks, depth, device) -> tf32_occupancy's result
+_tf32_residency = {}
+
+
+def tf32_occupancy(model: FlexibleNeRFModel) -> dict:
+    """The residency of the f32 pass's forward and chain kernels for
+    ``model``, as the CUDA runtime and the launcher report them (needs the
+    card; once per shape and device): each as (CTAs per SM, shared bytes per
+    CTA, weight ring stages)."""
+    from dexnerf_tpu_torch.ops._build import check, load_library
+
+    dev = torch.cuda.current_device()
+    kx = -(-model.dim_xyz // TF32_KCHUNK)
+    key = (bf16_hidden(model.hidden_size), kx, model.num_layers, dev)
+    if key not in _tf32_residency:
+        lib = load_library()
+        out = (ctypes.c_int * 6)()
+        check(lib, lib.dexnerf_train_tf32_occupancy(key[0], model.num_layers - 1, kx,
+                                                    ctypes.addressof(out)),
+              "fused_train_loss f32 occupancy query")
+        if min(out[0], out[3]) < 1:
+            raise RuntimeError(f"the f32 pass kernels do not fit on an SM: {list(out)}")
+        _tf32_residency[key] = {"forward": tuple(out[0:3]), "chain": tuple(out[3:6])}
+    return _tf32_residency[key]
+
+
+class Tf32Pass:
+    """The f32 route's pass kernels (``ops/csrc/fused_train_loss.cu``) over
+    ``N`` rays of ``S`` samples in chunks of ``chunk`` rays: the argument
+    block (the forward and chain packs, cached per parameter state), the
+    per-chunk buffers (the viewdir bias, raw and its cotangent, the mask
+    words) and the scratch of ``wg`` (:class:`WeightGradients`).
+    :meth:`run` launches chunk ``c``'s prep, forward, compositing and chain
+    (``args.parts``: :data:`PASS_PARTS`), which fill the scratch for
+    ``wg.chunk``."""
+
+    def __init__(self, lib, model, inputs: dict, N: int, S: int, s_pad: int, chunk: int, wg,
+                 *, white_background, supervision, log_sampling_xyz, log_sampling_dir):
+        dev = inputs["z"].device
+        H, nt = model.hidden_size, model.num_layers - 1
+        Hp = bf16_hidden(H)
+        kx = -(-model.dim_xyz // TF32_KCHUNK)
+        occ = tf32_occupancy(model)
+        wq, aux, aux_off = _cached_tf32_weights(model, dev)
+        wbq = _cached_tf32_backward(model, dev)
+        w1 = _cached_pack(pack_layer1_f32, model, dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        cols = chunk * s_pad
+        self.tile_words = lib.dexnerf_train_tile_words(Hp, nt)
+        self.dirb = torch.empty(chunk * Hp // 2, **f32)
+        self.raw = torch.empty(cols * 4, **f32)
+        self.graw = torch.empty(cols * 4, **f32)
+        self.masks = torch.empty(cols // 64 * self.tile_words * 128, dtype=torch.int32,
+                                 device=dev)
+        self.keep = (wq, aux, wbq, w1, inputs)  # the buffers args points to
+        self.lib, self.chunk, self.N, self.s_pad = lib, chunk, N, s_pad
+        a = self.args = _TrainArgs()
+        for name, t in (
+            *inputs.items(), ("wq", wq), ("aux", aux), ("wbq", wbq), ("w1", w1),
+            ("act", wg.act), ("dlt", wg.dlt), ("dir_enc", wg.dir_enc), ("dy_sum", wg.dy_sum),
+            ("dirb", self.dirb), ("raw", self.raw), ("graw", self.graw), ("masks", self.masks),
+        ):
+            setattr(a, name, None if t is None else t.data_ptr())
+        a.n_samples, a.s_pad = S, s_pad
+        a.hidden, a.hp, a.num_trunk = H, Hp, nt
+        a.skip_mask = sum(1 << i for i in model.skips)
+        a.fx, a.fd = model.num_encoding_fn_xyz, model.num_encoding_fn_dir
+        a.inc_x, a.inc_d = int(model.include_input_xyz), int(model.include_input_dir)
+        a.dx, a.kx, a.dd = model.dim_xyz, kx, model.dim_dir
+        a.white_bg = int(bool(white_background))
+        a.luma = int(supervision == "luminance")
+        a.has_noise = int(inputs["noise"] is not None)
+        a.has_depth = int(inputs["depth_gt"] is not None)
+        a.sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        a.fwd_stages, a.chain_stages = occ["forward"][2], occ["chain"][2]
+        a.parts = PASS_PARTS
+        a.aux_off[:len(aux_off)] = aux_off
+        bx = frequency_bands(model.num_encoding_fn_xyz, log_sampling_xyz).tolist()
+        bd = frequency_bands(model.num_encoding_fn_dir, log_sampling_dir).tolist()
+        a.bands_x[:len(bx)] = bx
+        a.bands_d[:len(bd)] = bd
+
+    def run(self, c: int, stream: int) -> int:
+        """Launch chunk ``c``'s pass kernels; returns its rays."""
+        from dexnerf_tpu_torch.ops._build import check
+
+        a = self.args
+        a.ray0 = c * self.chunk
+        a.n_rays = min(self.chunk, self.N - a.ray0)
+        a.k = a.n_rays * self.s_pad
+        check(self.lib, self.lib.dexnerf_train_pass(ctypes.addressof(a), stream),
+              "fused_train_loss pass launch")
+        return a.n_rays
+
+
 def _launch(
     model, origins, directions, z_vals, viewdirs, dists, noise, target,
     depth_gt, depth_coef, *, white_background, supervision, log_sampling_xyz,
     log_sampling_dir,
 ):
     global launches
-    from dexnerf_tpu_torch.ops._build import check, load_library
+    from dexnerf_tpu_torch.ops._build import load_library
 
     N, S = z_vals.shape
     dev = z_vals.device
@@ -367,49 +559,21 @@ def _launch(
 
     s_pad = -(-S // SLOTS) * SLOTS
     chunk = max(1, min(N, SCRATCH_SAMPLES // s_pad))
-    n_chunks = -(-N // chunk)
     f32 = dict(dtype=torch.float32, device=dev)
     wg = WeightGradients(lib, model, N, chunk, s_pad, dev)
     weights = torch.empty((N, S), **f32)
     rgb = torch.empty((N, 3), **f32)
     loss_ray = torch.empty((N,), **f32)
     loss = torch.empty((), **f32)
-    wf, f_off = pack_flex_weights(model, dev)
-    wb, b_off = pack_backward_weights(model, dev)
-
-    args = _TrainArgs()
-    for name, t in (
-        ("origins", origins), ("dirs", directions), ("viewdirs", viewdirs),
-        ("z", z_vals), ("dists", dists), ("noise", noise), ("target", target),
-        ("depth_gt", depth_gt), ("depth_coef", depth_coef), ("wf", wf), ("wb", wb),
-        ("weights_out", weights), ("rgb_out", rgb), ("loss_ray", loss_ray),
-        ("act", wg.act), ("dlt", wg.dlt), ("dir_enc", wg.dir_enc), ("dy_sum", wg.dy_sum),
-    ):
-        setattr(args, name, None if t is None else t.data_ptr())
-    args.n_samples, args.s_pad = S, s_pad
-    args.hidden, args.num_trunk = model.hidden_size, model.num_layers - 1
-    args.skip_mask = sum(1 << i for i in model.skips)
-    args.fx, args.fd = model.num_encoding_fn_xyz, model.num_encoding_fn_dir
-    args.inc_x, args.inc_d = int(model.include_input_xyz), int(model.include_input_dir)
-    args.white_bg = int(bool(white_background))
-    args.luma = int(supervision == "luminance")
-    args.has_noise, args.has_depth = int(noise is not None), int(depth_gt is not None)
-    args.w_off[:len(f_off) // 2] = f_off[0::2]
-    args.b_off[:len(f_off) // 2] = f_off[1::2]
-    args.wb_off[:len(b_off)] = b_off
-    bx = frequency_bands(model.num_encoding_fn_xyz, log_sampling_xyz).tolist()
-    bd = frequency_bands(model.num_encoding_fn_dir, log_sampling_dir).tolist()
-    args.bands_x[:len(bx)] = bx
-    args.bands_d[:len(bd)] = bd
-
+    inputs = dict(origins=origins, dirs=directions, viewdirs=viewdirs, z=z_vals, dists=dists,
+                  noise=noise, target=target, depth_gt=depth_gt, depth_coef=depth_coef,
+                  weights_out=weights, rgb_out=rgb, loss_ray=loss_ray)
+    ps = Tf32Pass(lib, model, inputs, N, S, s_pad, chunk, wg,
+                  white_background=white_background, supervision=supervision,
+                  log_sampling_xyz=log_sampling_xyz, log_sampling_dir=log_sampling_dir)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for c in range(n_chunks):
-        ray0 = c * chunk
-        rays = min(chunk, N - ray0)
-        args.ray0, args.n_rays, args.k = ray0, rays, rays * s_pad
-        check(lib, lib.dexnerf_train_pass(ctypes.addressof(args), stream),
-              "fused_train_loss pass launch")
-        wg.chunk(c, rays, stream)
+    for c in range(wg.n_chunks):
+        wg.chunk(c, ps.run(c, stream), stream)
     grads = wg.reduce(stream, loss_ray, loss)
     launches += 1
     return loss, weights, rgb, grads
