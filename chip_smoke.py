@@ -77,7 +77,10 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
 10. hold both routes of kernels 2 and 3 to their plain versions on phase
    7's batch with that run's models, coarse (S=64) and fine (S=128) pass,
    with the cotangent of each pass's loss: raw and every gradient leaf; the
-   bf16 routes relative to the dtype's own effect (as kernel 4's);
+   bf16 routes relative to the dtype's own effect (as kernel 4's); and, at
+   f32 (kernel 4's split-TF32 kernels with the launcher tags 2 and 3), that
+   kernel 2's raw equals the raw of kernel 3's forward, chunk by chunk, and
+   that two kernel-3 calls give the same gradients, bit for bit;
 11. train with ``nerf.pallas_loss_resample: pallas`` for 20 steps: the
    resample kernel (kernel 5) once per step between kernel 4's two passes;
 12. hold kernels 5 and 6 to their plain versions on the coarse weights of
@@ -93,10 +96,12 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    forward, kernel 3's forward and chain) as f32 ``torch.matmul``, and
    whole field-path steps at bf16 and at f32; profile three field-path
    steps at each dtype (kernel 2, kernel 3, glue, Adam, idle), with kernel
-   3's bf16 kernels beside their bounds as in phase 8, its f32 dW kernel
-   beside its bound and ``torch.matmul`` as in phase 8, and kernel 2's bf16
-   forward beside its route's bound; the forward's residency and launches
-   for kernels 2 and 3, as in phase 8;
+   3's bf16 kernels beside their bounds as in phase 8, kernel 2's bf16
+   forward beside its route's bound, and the f32 routes' kernels (kernel
+   2's prep and forward, kernel 3's prep, forward, chain and split-TF32 dW)
+   each beside its bound and, for the forwards, the chain and dW, their
+   products as f32 ``torch.matmul``, as in phase 8; the forward's residency
+   and launches for kernels 2 and 3, as in phase 8;
 14. Dex-NeRF on messytable: write a synthetic messytable scene (stored
    540x960, loaded at 270x480) and train ``configs/messytable-obj.yml`` on
    it (``nerf.use_pallas: true``, ``dataset.depth_valid_max: 6``) through
@@ -133,13 +138,15 @@ Each kernel's line holds its bound: the larger of its FLOPs (multiply-adds
 counted from the model's shapes; compares and arithmetic counted from the
 shapes for kernels 5 and 6) over the 67 TFLOP/s f32 peak (the bf16 routes
 of kernels 1-4 over the 989 TFLOP/s dense bf16 tensor-core peak; the f32
-routes of kernels 1 and 4, split TF32, three times their FLOPs over the 495
+routes of kernels 1-4, split TF32, three times their FLOPs over the 495
 TFLOP/s dense TF32 peak, ``bound_by`` naming it; their f32 FMA bounds are
-on phase 3's and phase 8's bounds lines) and its bytes
-(inputs read once, outputs written once) over 3.35 TB/s. Kernels 2-4 have
-a library yardstick: their layer products (forward, chain, weight
-gradients) as ``torch.matmul`` calls in each route's dtype (timed here,
-never called by the port).
+on phase 3's, phase 8's and phase 13's bounds lines) and its bytes
+(inputs read once, outputs written once) over 3.35 TB/s. Kernels 1-4 have
+a library yardstick: their layer products (kernel 1's and 2's forward on
+the frame's or the passes' samples; kernels 3 and 4's forward, chain and
+weight gradients) as ``torch.matmul`` calls in each route's dtype (f32
+with TF32 off; timed here, never called by the port), on the main paths'
+entries (the eval and LLFF frames of phases 15-16 time none).
 The line before the last is ``{"kernels": [...]}`` with this run's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -177,6 +184,10 @@ KERNEL4_BF16_NAMES = ("train_prep_kernel", "train_fwd_bf16_kernel", "train_compo
 FIELD_FWD_BF16_NAMES = ("train_prep_kernel<2>", "train_fwd_bf16_kernel<2,")
 FIELD_BWD_BF16_NAMES = ("train_prep_kernel<3>", "train_fwd_bf16_kernel<3,",
                         "train_chain_bf16_kernel", "train_dw_bf16_kernel", "reduce_bf16_kernel")
+# and their f32 kernels (kernel 4's split-TF32 pass kernels with the tag), by name
+FIELD_FWD_F32_NAMES = ("train_prep_tf32_kernel<2>", "train_fwd_tf32_kernel<2,")
+FIELD_BWD_F32_NAMES = ("train_prep_tf32_kernel<3>", "train_fwd_tf32_kernel<3,",
+                       "train_chain_tf32_kernel<3,")
 # steps of the f32 routes of kernel 4 and of kernels 2-3 (pallas_compute_dtype: float32)
 F32_TRAIN_ITERS = 10
 TINY_CONFIG = os.path.join(ROOT, "configs", "tiny.yml")
@@ -209,6 +220,9 @@ RESAMPLE_SLACK = 1e-4
 # phase 13 also times kernels 5 and 6 on the batch 8 times over (bench.py's
 # default batch)
 BIG_RAYS = 65536
+# the library yardsticks' torch.matmul operands hold at most this many
+# samples: a frame's layer outputs at once exceed the card's memory
+YARDSTICK_CHUNK = 1 << 20
 # kernel vs plain, train pass: f32 both sides. Loss sums over 8192 rays in
 # another order (rtol); weights/rgb as the render kernel; each gradient
 # leaf, summed over 0.5-1M samples in another order, to GRAD_RTOL of that
@@ -733,7 +747,9 @@ def train_phase(torch, np, card, dev, tmp):
     # calls in its dtype (f32 without TF32); the f32 pass's forward and chain
     # products the same way
     dw_yardsticks(ms, [(a[0], a[3].numel()) for a in per_pass.values()], torch, dev)
-    pass_yardsticks(ms, "k4", [(a[0], a[3].numel()) for a in per_pass.values()], torch, dev)
+    k4_passes = [(a[0], a[3].numel()) for a in per_pass.values()]
+    pass_yardsticks(ms, "k4", k4_passes, torch, dev)
+    pass_yardsticks(ms, "k4", k4_passes, torch, dev, torch.bfloat16)
 
     def step_ms(path, reps=5):
         """(ms per train step, the step) through ``path``: kernel 4
@@ -781,8 +797,7 @@ def train_phase(torch, np, card, dev, tmp):
     print_dw_plan(fine, *per_pass["fine"][3].shape, torch, dev)
     print("  bf16 steps:")
     prof = profile_steps(torch, steps["kernel_bf16"], {"kernel 4 bf16": KERNEL4_BF16_NAMES})
-    parts, sizes = bf16_parts(prof, 4, [(a[0], a[3].numel()) for a in per_pass.values()],
-                              ms["dw_torch_matmul_bf16"])
+    parts, sizes = bf16_parts(prof, 4, k4_passes, bf16_library(ms, "k4"))
     print("  bf16 route's kernels, device ms per step (profile) beside their bounds: "
           + json.dumps(parts))
     print("  bytes and operations behind those bounds (scratch layout, this run's shapes): "
@@ -816,7 +831,7 @@ def train_phase(torch, np, card, dev, tmp):
         "plain_ms": ms["coarse_plain_bf16"] + ms["fine_plain_bf16"],
         "bound_ms": bound_b,
         "bound_by": bound_b_by,
-        "library_ms": ms["dw_torch_matmul_bf16"],
+        "library_ms": sum(bf16_library(ms, "k4").values()),
         "parts": parts,
     }]
     shared = types.SimpleNamespace(data=data, s_train=s_train, o=o, d=d, v=v, target=target,
@@ -875,12 +890,12 @@ def dw_yardsticks(ms, passes, torch, dev):
         del gemms
 
 
-def pass_gemm_operands(model, k, part, torch, dev):
-    """Random f32 operands (inputs [k, K], weights [K, N]) of one pass's
-    layer products over ``k`` samples: the forward's (layer1, the trunk and
-    its skip rows, fc_feat, fc_alpha, layers_dir.0's feat rows, fc_rgb) or
-    the cotangent chain's (the transposes of fc_rgb, layers_dir.0's feat
-    rows, fc_feat with fc_alpha, the trunk's h rows)."""
+def pass_gemm_operands(model, k, part, torch, dev, dtype):
+    """Random ``dtype`` operands (inputs [k, K], weights [K, N]) of one
+    pass's layer products over ``k`` samples: the forward's (layer1, the
+    trunk and its skip rows, fc_feat, fc_alpha, layers_dir.0's feat rows,
+    fc_rgb) or the cotangent chain's (the transposes of fc_rgb,
+    layers_dir.0's feat rows, fc_feat with fc_alpha, the trunk's h rows)."""
     H, h2, dx, nt = model.hidden_size, model.hidden_size // 2, model.dim_xyz, model.num_layers - 1
     if part == "forward":
         shapes = [(dx, H)] + [(H, H)] * nt + [(dx, H)] * len(model.skips)
@@ -888,23 +903,44 @@ def pass_gemm_operands(model, k, part, torch, dev):
     else:
         shapes = [(3, h2), (h2, H), (H + 1, H)] + [(H, H)] * nt
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    return [(torch.randn((k, a), generator=gen, device=dev),
-             torch.randn((a, b), generator=gen, device=dev)) for a, b in shapes]
+    return [(torch.randn((k, a), generator=gen, device=dev).to(dtype),
+             torch.randn((a, b), generator=gen, device=dev).to(dtype)) for a, b in shapes]
 
 
-def pass_yardsticks(ms, tag, passes, torch, dev):
-    """``ms[f"{tag}_forward_torch_matmul_f32"]`` and ``..._chain_...``: the
-    forward's and the cotangent chain's layer products of ``passes``
-    ((model, samples) each) as f32 torch.matmul calls (TF32 off), CUDA
-    events."""
-    for part in ("forward", "chain"):
-        gemms = [g for m, k in passes for g in pass_gemm_operands(m, k, part, torch, dev)]
-        ms[f"{tag}_{part}_torch_matmul_f32"] = timed_ms(
-            lambda: [torch.matmul(x, w) for x, w in gemms], torch)
-        del gemms
+def pass_yardsticks(ms, tag, passes, torch, dev, dtype=None, parts=("forward", "chain")):
+    """``ms[f"{tag}_{part}_torch_matmul_{f32|bf16}"]`` for each of
+    ``parts``: the forward's or the cotangent chain's layer products of
+    ``passes`` ((model, samples) each) as torch.matmul calls in ``dtype``
+    (float32 by default, TF32 off; or bfloat16), CUDA events. Operands of
+    at most ``YARDSTICK_CHUNK`` samples, their products called again for
+    each chunk of a larger pass (a frame's samples)."""
+    chunk = YARDSTICK_CHUNK
+    dtype = torch.float32 if dtype is None else dtype
+    name = "f32" if dtype == torch.float32 else "bf16"
+
+    def run(calls):
+        for x, w in calls:  # each product dropped once done: a frame's outputs exceed the card
+            torch.matmul(x, w)
+
+    for part in parts:
+        calls = []
+        for m, k in passes:
+            ops = pass_gemm_operands(m, min(k, chunk), part, torch, dev, dtype)
+            calls += [(x[:min(chunk, k - i)], w) for i in range(0, k, chunk) for x, w in ops]
+        ms[f"{tag}_{part}_torch_matmul_{name}"] = timed_ms(lambda: run(calls), torch)
+        del calls
 
 
-def f32_pass_sizes(model, n, s):
+def bf16_library(ms, tag):
+    """The bf16 route's kernels' products as bf16 torch.matmul, by kernel
+    name (``ms`` of :func:`pass_yardsticks` under ``tag`` and of
+    :func:`dw_yardsticks`)."""
+    return {"train_fwd_bf16_kernel": ms[f"{tag}_forward_torch_matmul_bf16"],
+            "train_chain_bf16_kernel": ms[f"{tag}_chain_torch_matmul_bf16"],
+            "train_dw_bf16_kernel": ms["dw_torch_matmul_bf16"]}
+
+
+def f32_pass_sizes(model, n, s, owner=4):
     """(bytes, [(FLOPs, peak FLOP/s), ...]) of the f32 pass's kernels over
     one pass of ``n`` rays x ``s`` samples, each input read once and each
     output written once: prep (viewdirs in; encodings and the per-ray
@@ -913,7 +949,11 @@ def f32_pass_sizes(model, n, s):
     the rest three TF32 products a multiply-add), compositing (raw, depths,
     intervals, noise, targets in; weights, rgb, losses, raw's cotangent
     out), chain (raw's cotangent and the mask words in; every cotangent and
-    the per-ray dy sums out; three TF32 products a multiply-add)."""
+    the per-ray dy sums out; three TF32 products a multiply-add). For the
+    launcher ``owner`` 4 (kernel 4), 3 (kernel 3: the points, 12 B a
+    sample, in place of the ray and its depths; no compositing; the chain on
+    the caller's cotangent) or 2 (kernel 2: prep and forward, the points in
+    and raw out, no encodings and no scratch)."""
     from dexnerf_tpu_torch.ops import _weight_grads as wgr
     from dexnerf_tpu_torch.ops.fused_render import bf16_hidden
 
@@ -924,40 +964,59 @@ def f32_pass_sizes(model, n, s):
     ps, pr = mlp_macs(model)
     l1 = model.dim_xyz * H  # layer1's multiply-adds a sample
     k = n * s
-    return {
-        "train_prep_tf32_kernel": (n * (12 + 4 * dd + 4 * hp // 2), [(2 * n * pr, F32_FLOPS)]),
+    prep_ops = [(2 * n * pr, F32_FLOPS)]
+    fwd_ops = [(3 * 2 * k * (ps - l1), TF32_FLOPS), (2 * k * l1, F32_FLOPS)]
+    chain = (k * (16 + mask_b + 4 * rows["dlt_rows"]) + n * 2 * H,
+             [(3 * 2 * k * backward_macs(model), TF32_FLOPS)])
+    if owner == 2:
+        return {"train_prep_tf32_kernel": (n * (12 + 2 * hp), prep_ops),
+                "train_fwd_tf32_kernel": (n * 2 * hp + k * (12 + 16), fwd_ops)}
+    sizes = {
+        "train_prep_tf32_kernel": (n * (12 + 4 * dd + 4 * hp // 2), prep_ops),
         "train_fwd_tf32_kernel": (n * (24 + 2 * hp) + k * (4 + 4 * rows["act_rows"] + 16 + mask_b),
-                                  [(3 * 2 * k * (ps - l1), TF32_FLOPS), (2 * k * l1, F32_FLOPS)]),
+                                  fwd_ops),
         "train_composite_tf32_kernel": (n * (12 + 12 + 4) + k * (16 + 16 + 4 + 16), []),
-        "train_chain_tf32_kernel": (k * (16 + mask_b + 4 * rows["dlt_rows"]) + n * 2 * H,
-                                    [(3 * 2 * k * backward_macs(model), TF32_FLOPS)]),
+        "train_chain_tf32_kernel": chain,
     }
+    if owner == 3:
+        del sizes["train_composite_tf32_kernel"]
+        sizes["train_fwd_tf32_kernel"] = (
+            n * 2 * hp + k * (12 + 4 * rows["act_rows"] + 16 + mask_b), fwd_ops)
+    return sizes
 
 
-def f32_pass_parts(prof, passes, ms, tag):
-    """Kernel 4's f32 pass kernels by device ms per step from a profile,
-    each beside its bound over ``passes`` ((model, rays, samples) each: the
-    forward's layer1 at the f32 FMA rate, its other products and the chain's
-    at the split-TF32 rate, or the bytes) and, for the forward and
-    the chain, their products as f32 torch.matmul (``ms``, of
-    :func:`pass_yardsticks` under ``tag``); printed and returned as a
-    ``parts`` list. Raises if the profile holds events but any of the four
-    reads 0 ms, or holds the FMA ``train_pass_kernel`` they replaced."""
+def f32_pass_parts(prof, passes, ms, tag, owner=4):
+    """The f32 pass kernels of launcher ``owner`` (kernel 4, or kernels 3
+    and 2 on the field path: :func:`f32_pass_sizes`) by device ms per step
+    from a profile, each beside its bound over ``passes`` ((model, rays,
+    samples) each: the forward's layer1 at the f32 FMA rate, its other
+    products and the chain's at the split-TF32 rate, or the bytes) and, for
+    the forward and the chain, their products as f32 torch.matmul (``ms``,
+    of :func:`pass_yardsticks` under ``tag``); printed and returned as a
+    ``parts`` list. Raises if the profile holds events but any of them
+    reads 0 ms, or holds one of the FMA kernels they replaced
+    (``train_pass_kernel``, ``field_fwd_kernel``, ``field_bwd_kernel``)."""
     sizes = {}  # name -> (bytes, FLOPs at each peak, the peaks)
     for model, n, s in passes:
-        for name, (b, ops) in f32_pass_sizes(model, n, s).items():
+        for name, (b, ops) in f32_pass_sizes(model, n, s, owner).items():
             ob, oflops, _ = sizes.get(name, (0.0, [0.0] * len(ops), None))
             sizes[name] = (ob + b, [x + f for x, (f, _) in zip(oflops, ops)],
                            [p for _, p in ops])
-    if prof and any("train_pass_kernel" in k for k in prof):
-        raise AssertionError("f32 pass: the profile holds the FMA train_pass_kernel")
+    fma = [k for k in prof if any(f in k for f in ("train_pass_kernel", "field_fwd_kernel",
+                                                    "field_bwd_kernel"))]
+    if fma:
+        raise AssertionError(f"f32 pass: the profile holds the FMA kernels {fma}")
     lib = {"train_fwd_tf32_kernel": ms[f"{tag}_forward_torch_matmul_f32"],
            "train_chain_tf32_kernel": ms[f"{tag}_chain_torch_matmul_f32"]}
     parts, line = [], {}
     for name in F32_PASS_NAMES:
-        dev_ms = sum(t for k, t in prof.items() if name in k)
+        if name not in sizes:
+            continue
+        # the templates carry the launcher's tag: train_fwd_tf32_kernel<3, 8>
+        frag = name if name == "train_composite_tf32_kernel" else f"{name}<{owner}"
+        dev_ms = sum(t for k, t in prof.items() if frag in k)
         if prof and dev_ms <= 0:
-            raise AssertionError(f"f32 pass: profile time {dev_ms} ms of {name}; kernels "
+            raise AssertionError(f"f32 pass: profile time {dev_ms} ms of {frag}; kernels "
                                  f"{sorted(k[:60] for k in prof)}")
         b, flops, peaks = sizes[name]
         t_ops = max([1e3 * f / p for f, p in zip(flops, peaks)], default=0.0)
@@ -965,16 +1024,16 @@ def f32_pass_parts(prof, passes, ms, tag):
         b_by = "operations" if t_ops >= 1e3 * b / HBM_BYTES else "bytes"
         if b_by == "operations" and peaks[0] == TF32_FLOPS:
             b_by += SPLIT_TF32
-        parts.append({"name": name, "ms": dev_ms if prof else None, "bound_ms": b_ms,
-                      "bound_by": b_by, "library_ms": lib.get(name)})
+        parts.append({"name": name if owner == 4 else f"{name}<{owner}>",
+                      "ms": dev_ms if prof else None, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": lib.get(name)})
         line[name] = [round(dev_ms, 3), round(b_ms, 3), f"{b / 1e9:.4f} GB",
                       [f"{f / 1e12:.4f} TFLOP at {p / 1e12:g}" for f, p in zip(flops, peaks)]]
-    print("  f32 pass kernels, device ms per step (profile) [ms, bound ms, bytes, FLOPs at "
-          "their peak (TF32: three products a multiply-add)]: " + json.dumps(line)
-          + f"; their products as f32 torch.matmul (TF32 off): forward "
-          f"{lib['train_fwd_tf32_kernel']:.3f}, chain {lib['train_chain_tf32_kernel']:.3f}, "
-          f"both {sum(lib.values()):.3f}; the pass's kernels "
-          f"{sum(p['ms'] or 0.0 for p in parts):.3f}")
+    print(f"  kernel {owner}'s f32 pass kernels, device ms per step (profile) [ms, bound ms, "
+          "bytes, FLOPs at their peak (TF32: three products a multiply-add)]: "
+          + json.dumps(line) + "; their products as f32 torch.matmul (TF32 off): "
+          + json.dumps({k: round(v, 3) for k, v in lib.items() if k in sizes})
+          + f"; the pass's kernels {sum(p['ms'] or 0.0 for p in parts):.3f}")
     return parts
 
 
@@ -1021,6 +1080,26 @@ def f32_dw_share(prof, library_ms, passes):
     return [{"name": "dw_tf32_kernel", "ms": dw if prof else None, "bound_ms": b_ms,
              "bound_by": b_by + (SPLIT_TF32 if b_by == "operations" else ""),
              "library_ms": library_ms}]
+
+
+def f32_field_bits(model, pts, v, g, raw, grads, kw, torch):
+    """(kernel 2's raw equal to the raw of kernel 3's forward on every
+    scratch chunk, a second kernel-3 call's gradients equal to ``grads``),
+    bit for bit, at f32: kernel 3's route driven chunk by chunk through its
+    ``Tf32Pass``, whose forward writes raw as kernel 4's does."""
+    from dexnerf_tpu_torch.ops import fused_mlp_train as fmt
+    from dexnerf_tpu_torch.ops._build import load_library
+
+    wg, ps = fmt.tf32_backward_pass(load_library(), model, pts, v, g, **kw)
+    stream = torch.cuda.current_stream().cuda_stream
+    equal = True
+    for c in range(wg.n_chunks):
+        rays, r0 = ps.run(c, stream), c * ps.chunk
+        got = ps.raw[:4 * rays * ps.s_pad].view(rays, ps.s_pad, 4)[:, :pts.shape[1]]
+        equal = equal and bool(torch.equal(got, raw[r0:r0 + rays]))
+    again = fmt._launch_backward(model, pts, v, g, **kw)
+    torch.cuda.synchronize()
+    return equal, all(bool(torch.equal(a, b)) for a, b in zip(grads, again))
 
 
 def check_train_bf16(name, model, args, norm, want_f32, torch, phase=7, **kw):
@@ -1119,12 +1198,13 @@ def bf16_part_bounds(model, n_samples):
     }
 
 
-def bf16_parts(prof, owner, passes, library_ms):
+def bf16_parts(prof, owner, passes, library):
     """The bf16 route's forward (of ``owner``, the launcher's tag), chain
     and dW kernels: device ms per step from the profile ``prof`` (name ->
     ms), each beside its bound over ``passes`` ((model, samples) of the
-    step's passes); the dW kernel also beside ``library_ms``. Also the
-    bytes and operations behind each bound, for a text line."""
+    step's passes) and its products as torch.matmul (``library``: kernel
+    name -> ms, where measured). Also the bytes and operations behind each
+    bound, for a text line."""
     parts, sizes = [], {}
     for name in ("train_fwd_bf16_kernel", "train_chain_bf16_kernel", "train_dw_bf16_kernel"):
         nbytes_ = macs = 0
@@ -1135,8 +1215,7 @@ def bf16_parts(prof, owner, passes, library_ms):
         dev_ms = sum(v for k, v in prof.items() if frag in k.replace(" ", ""))
         b_ms, b_by = bound(2 * macs, nbytes_, BF16_FLOPS)
         parts.append({"name": name, "ms": dev_ms if prof else None, "bound_ms": b_ms,
-                      "bound_by": b_by,
-                      "library_ms": library_ms if name == "train_dw_bf16_kernel" else None})
+                      "bound_by": b_by, "library_ms": library.get(name)})
         sizes[name] = f"{nbytes_ / 1e9:.4f} GB, {2 * macs / 1e12:.4f} TFLOP"
     return parts, sizes
 
@@ -1270,9 +1349,14 @@ def field_phase(torch, np, card, dev, tmp, sh):
             if not bool(torch.isfinite(gk).all()) or err > GRAD_RTOL * scale:
                 bad.append(pname)
         err_fwd = max(err_fwd, e_raw)
+        raw_equal, grads_equal = f32_field_bits(model, pts, v, g, raw, grads, kw, torch)
         print(f"phase 10: {name} pass, {z.shape[0]} rays x {z.shape[1]} samples: kernel 2 raw "
-              f"max abs err {e_raw:.3e} (rtol {RTOL:g}, atol {ATOL:g}); kernel 3:")
+              f"max abs err {e_raw:.3e} (rtol {RTOL:g}, atol {ATOL:g}); bit for bit: kernel 2's "
+              f"raw and kernel 3's forward's {raw_equal}, two kernel-3 calls {grads_equal}; "
+              "kernel 3:")
         print_leaves(leaves)
+        if not (raw_equal and grads_equal):
+            bad.append("bitwise equality")
         if bad:
             raise AssertionError(f"{name} pass: field kernels and plain differ in {bad}")
         # the bf16 routes, on the same cotangent, relative to the dtype's own effect
@@ -1326,18 +1410,25 @@ def field_phase(torch, np, card, dev, tmp, sh):
     dw_yardsticks(ms, [(m, p.shape[0] * p.shape[1]) for m, p, _ in cases.values()], torch, dev)
     # and their f32 passes' layer products (kernel 2: the forward; kernel 3:
     # the forward again and the chain)
-    pass_yardsticks(ms, "k3", [(m, p.shape[0] * p.shape[1]) for m, p, _ in cases.values()],
-                    torch, dev)
-    fwd_bound, fwd_by = bound(fwd_flops, fwd_bytes)
-    bwd_bound, bwd_by = bound(bwd_flops, bwd_bytes)
+    k3_passes = [(m, p.shape[0] * p.shape[1]) for m, p, _ in cases.values()]
+    pass_yardsticks(ms, "k3", k3_passes, torch, dev)
+    pass_yardsticks(ms, "k3", k3_passes, torch, dev, torch.bfloat16)
+    # the f32 routes in split TF32: three TF32 products a multiply-add; the
+    # f32 FMA bounds beside them
+    fwd_bound, fwd_by = bound(3 * fwd_flops, fwd_bytes, TF32_FLOPS)
+    bwd_bound, bwd_by = bound(3 * bwd_flops, bwd_bytes, TF32_FLOPS)
+    fwd_fma, _ = bound(fwd_flops, fwd_bytes)
+    bwd_fma, _ = bound(bwd_flops, bwd_bytes)
     fwd_bound_b, fwd_by_b = bound(fwd_flops, fwd_bytes_b, BF16_FLOPS)
     bwd_bound_b, bwd_by_b = bound(bwd_flops, bwd_bytes_b, BF16_FLOPS)
     print(f"phase 13: kernels 2 and 3, both passes, both routes, ms on {card} (CUDA events, "
           f"mean of 3): " + json.dumps({k: round(t, 3) for k, t in ms.items()}))
-    print(f"  kernel 2 bound {fwd_bound:.3f} ms f32 ({fwd_by}; {fwd_flops / 1e12:.4f} TFLOP, "
-          f"{fwd_bytes / 1e6:.2f} MB), bf16 route {fwd_bound_b:.3f} ms ({fwd_by_b}; "
-          f"{fwd_bytes_b / 1e6:.2f} MB); kernel 3 bound {bwd_bound:.3f} ms f32 ({bwd_by}; "
-          f"{bwd_flops / 1e12:.4f} TFLOP, {bwd_bytes / 1e6:.2f} MB), bf16 route "
+    print(f"  kernel 2 bound {fwd_bound:.3f} ms f32 route ({fwd_by}"
+          f"{SPLIT_TF32 if fwd_by == 'operations' else ''}; {fwd_flops / 1e12:.4f} TFLOP, "
+          f"{fwd_bytes / 1e6:.2f} MB), {fwd_fma:.3f} ms at the f32 FMA peak, bf16 route "
+          f"{fwd_bound_b:.3f} ms ({fwd_by_b}; {fwd_bytes_b / 1e6:.2f} MB); kernel 3 bound "
+          f"{bwd_bound:.3f} ms f32 route ({bwd_by}; {bwd_flops / 1e12:.4f} TFLOP, "
+          f"{bwd_bytes / 1e6:.2f} MB), {bwd_fma:.3f} ms at the f32 FMA peak, bf16 route "
           f"{bwd_bound_b:.3f} ms ({bwd_by_b}; {bwd_bytes_b / 1e6:.2f} MB); achieved TFLOP/s: "
           + json.dumps({k: round(f / ms[m] / 1e9, 2) for k, f, m in (
               ("kernel 2 f32", fwd_flops, "fwd_kernel"),
@@ -1357,15 +1448,14 @@ def field_phase(torch, np, card, dev, tmp, sh):
     print("  bf16 field-path steps:")
     prof = profile_steps(torch, steps["fields_bf16"], {
         "kernel 2 bf16": FIELD_FWD_BF16_NAMES, "kernel 3 bf16": FIELD_BWD_BF16_NAMES})
-    parts, sizes = bf16_parts(prof, 3, [(m, p.shape[0] * p.shape[1])
-                                        for m, p, _ in cases.values()],
-                              ms["dw_torch_matmul_bf16"])
+    parts, sizes = bf16_parts(prof, 3, k3_passes, bf16_library(ms, "k3"))
     print("  kernel 3's bf16 kernels, device ms per step (profile) beside their bounds: "
           + json.dumps(parts))
     fwd2 = sum(t for k, t in prof.items() if "train_fwd_bf16_kernel<2," in k.replace(" ", ""))
     prep2 = sum(t for k, t in prof.items() if "train_prep_kernel<2>" in k.replace(" ", ""))
     parts2 = [{"name": "train_fwd_bf16_kernel", "ms": fwd2 if prof else None,
-               "bound_ms": fwd_bound_b, "bound_by": fwd_by_b, "library_ms": None}]
+               "bound_ms": fwd_bound_b, "bound_by": fwd_by_b,
+               "library_ms": ms["k3_forward_torch_matmul_bf16"]}]
     print(f"  kernel 2's bf16 route, device ms per step (profile): forward {fwd2:.3f}, prep "
           f"{prep2:.3f}, beside the route's bound {fwd_bound_b:.3f} ({fwd_by_b})")
     shapes = {k: tuple(p.shape[:2]) for k, (_, p, _) in cases.items()}
@@ -1374,35 +1464,42 @@ def field_phase(torch, np, card, dev, tmp, sh):
     print("  bytes and operations behind those bounds (scratch layout, this run's shapes): "
           + json.dumps(sizes))
     print("  f32 field-path steps (pallas_compute_dtype: float32):")
-    # kernel 3 runs kernel 4's dW and reduce launches
-    dw_f32 = f32_dw_share(profile_steps(torch, steps["fields"], {
-        "kernel 2": ("field_fwd_kernel",),
-        "kernel 3": ("field_bwd_kernel", "dw_tf32_kernel", "dw_tf32_reduce_kernel"),
-    }), ms["dw_torch_matmul_f32"], [(m, *p.shape[:2]) for m, p, _ in cases.values()])
+    # kernel 4's split-TF32 kernels with the launchers' tags; kernel 3 also runs
+    # kernel 4's dW and reduce launches
+    prof_f = profile_steps(torch, steps["fields"], {
+        "kernel 2": FIELD_FWD_F32_NAMES,
+        "kernel 3": (*FIELD_BWD_F32_NAMES, "dw_tf32_kernel", "dw_tf32_reduce_kernel"),
+    })
+    shapes_f = [(m, *p.shape[:2]) for m, p, _ in cases.values()]
+    parts2_f = f32_pass_parts(prof_f, shapes_f, ms, "k3", owner=2)
+    parts3_f = f32_pass_parts(prof_f, shapes_f, ms, "k3", owner=3)
+    dw_f32 = f32_dw_share(prof_f, ms["dw_torch_matmul_f32"], shapes_f)
     entry = dict(route="cuda", source="dexnerf_tpu_torch/ops/csrc/fused_train_loss_bf16.cu")
+    entry_f = dict(route="cuda", source="dexnerf_tpu_torch/ops/csrc/fused_train_loss.cu")
     fwd, bwd = ("dexnerf_tpu/ops/fused_mlp.py:481", "dexnerf_tpu/ops/fused_mlp_train.py:221")
+    split = SPLIT_TF32 if fwd_by == "operations" else ""
     return [
-        {"name": "fused_field", "route": "cuda",
-         "source": "dexnerf_tpu_torch/ops/csrc/fused_mlp.cu", "replaces": fwd,
+        {"name": "fused_field", **entry_f, "replaces": fwd,
          "launches": counts_f["fused_mlp"], "max_abs_err": err_fwd, "ms": ms["fwd_kernel"],
-         "plain_ms": ms["fwd_plain"], "bound_ms": fwd_bound, "bound_by": fwd_by,
-         "library_ms": ms["k3_forward_torch_matmul_f32"]},
-        {"name": "fused_field_backward", "route": "cuda",
-         "source": "dexnerf_tpu_torch/ops/csrc/fused_mlp_train.cu", "replaces": bwd,
+         "plain_ms": ms["fwd_plain"], "bound_ms": fwd_bound, "bound_by": fwd_by + split,
+         "library_ms": ms["k3_forward_torch_matmul_f32"], "parts": parts2_f},
+        {"name": "fused_field_backward", **entry_f, "replaces": bwd,
          "launches": counts_f["fused_mlp_train"], "max_abs_err": err_bwd,
          "ms": ms["bwd_kernel"], "plain_ms": ms["bwd_plain"], "bound_ms": bwd_bound,
-         "bound_by": bwd_by, "library_ms": ms["dw_torch_matmul_f32"]
+         "bound_by": bwd_by + (SPLIT_TF32 if bwd_by == "operations" else ""),
+         "library_ms": ms["dw_torch_matmul_f32"]
          + ms["k3_forward_torch_matmul_f32"] + ms["k3_chain_torch_matmul_f32"],
-         "parts": dw_f32},
+         "parts": parts3_f + dw_f32},
         {"name": "fused_mlp_bf16", **entry, "replaces": fwd,
          "launches": counts["fused_mlp_bf16"], "max_abs_err": err_fwd_b,
          "ms": ms["fwd_kernel_bf16"], "plain_ms": ms["fwd_plain_bf16"],
-         "bound_ms": fwd_bound_b, "bound_by": fwd_by_b, "library_ms": None, "parts": parts2},
+         "bound_ms": fwd_bound_b, "bound_by": fwd_by_b,
+         "library_ms": ms["k3_forward_torch_matmul_bf16"], "parts": parts2},
         {"name": "fused_mlp_train_bf16", **entry, "replaces": bwd,
          "launches": counts["fused_mlp_train_bf16"], "max_abs_err": err_bwd_b,
          "ms": ms["bwd_kernel_bf16"], "plain_ms": ms["bwd_plain_bf16"],
          "bound_ms": bwd_bound_b, "bound_by": bwd_by_b,
-         "library_ms": ms["dw_torch_matmul_bf16"], "parts": parts},
+         "library_ms": sum(bf16_library(ms, "k3").values()), "parts": parts},
     ]
 
 
@@ -1649,7 +1746,7 @@ def hold_train_bf16(label, phase, models, store, s_train, lr, batch, norm, loss_
     prof = profile_steps(torch, lambda: step(st, store, gen),
                          {"kernel 4 bf16": KERNEL4_BF16_NAMES})
     parts, sizes = bf16_parts(prof, 4, [(a[0], a[3].numel()) for a in per_pass.values()],
-                              ms["dw_torch_matmul"])
+                              {"train_dw_bf16_kernel": ms["dw_torch_matmul"]})
     return types.SimpleNamespace(ms=ms, worst=worst, bound_ms=bound_ms, bound_by=bound_by,
                                  flops=flops, bytes=byts_b, parts=parts, sizes=sizes,
                                  per_pass=per_pass)
@@ -2286,6 +2383,11 @@ def main() -> int:
                 lambda: fr.fused_render(*args_f, thresholds=thresholds, **k), torch)
             ms["fine_plain" + tag] = timed_ms(
                 lambda: fr.fused_render_reference(*args_f, thresholds=thresholds, **k), torch)
+        # library yardsticks: the frame's layer products (its two passes'
+        # forwards) as torch.matmul in each route's dtype (f32 with TF32 off)
+        for dt in (torch.float32, bf16):
+            pass_yardsticks(ms, "k1", [(coarse, z_c.numel()), (fine, z_f.numel())], torch, dev,
+                            dt, parts=("forward",))
         frames = {}
         for tag, dt in (("", torch.float32), ("_bf16", bf16)):
             impl = fr.make_fused_render_rays(coarse, fine, settings, compute_dtype=dt)
@@ -2464,7 +2566,7 @@ def main() -> int:
         dex_cfg, dex_logdir, dex_kernels = dex_phase(torch, np, card, dev, tmp)
         eval_kernels = eval_phase(torch, np, card, dev, tmp, dex_cfg, dex_logdir)
         llff_kernels = llff_phase(torch, np, card, dev, tmp)
-    render = dict(route="cuda", replaces="dexnerf_tpu/ops/fused_render.py:115", library_ms=None)
+    render = dict(route="cuda", replaces="dexnerf_tpu/ops/fused_render.py:115")
     print(json.dumps({"kernels": [{
         "name": "fused_render",
         **render,
@@ -2475,6 +2577,7 @@ def main() -> int:
         "plain_ms": ms["coarse_plain"] + ms["fine_plain"],
         "bound_ms": render_bound,
         "bound_by": render_bound_by + SPLIT_TF32,
+        "library_ms": ms["k1_forward_torch_matmul_f32"],
     }, {
         "name": "fused_render_bf16",
         **render,
@@ -2485,6 +2588,7 @@ def main() -> int:
         "plain_ms": ms["coarse_plain_bf16"] + ms["fine_plain_bf16"],
         "bound_ms": bf16_bound,
         "bound_by": bf16_bound_by,
+        "library_ms": ms["k1_forward_torch_matmul_bf16"],
     }, *train_kernels, *field_kernels, *resample_kernels, *dex_kernels, *eval_kernels,
         *llff_kernels]}))
     print(card)

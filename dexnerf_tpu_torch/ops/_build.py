@@ -147,6 +147,9 @@ def load_library() -> ctypes.CDLL:
         lib.dexnerf_train_rows.restype = ci
         lib.dexnerf_train_pass.argtypes = [vp, vp]  # args block (host), stream
         lib.dexnerf_train_pass.restype = ci
+        # kernels 2 and 3 at f32: args block (host), backward (0: kernel 2, 1: kernel 3), stream
+        lib.dexnerf_field_tf32_pass.argtypes = [vp, ci, vp]
+        lib.dexnerf_field_tf32_pass.restype = ci
         lib.dexnerf_train_tile_words.argtypes = [ci, ci]  # padded width, num_trunk
         lib.dexnerf_train_tile_words.restype = ci
         # padded width, num_trunk, encoding K-chunks; out (host, 6 ints)
@@ -203,12 +206,6 @@ def load_library() -> ctypes.CDLL:
         # hidden, dx, num_trunk, dd, skip_mask; out (host, 10 ints)
         lib.dexnerf_train_bf16_occupancy.argtypes = [ci] * 5 + [vp]
         lib.dexnerf_train_bf16_occupancy.restype = ci
-        lib.dexnerf_field_args_size.argtypes = []
-        lib.dexnerf_field_args_size.restype = ci
-        lib.dexnerf_field_forward.argtypes = [vp, vp]  # args block (host), stream
-        lib.dexnerf_field_forward.restype = ci
-        lib.dexnerf_field_backward.argtypes = [vp, vp]  # args block (host), stream
-        lib.dexnerf_field_backward.restype = ci
         lib.dexnerf_resample.argtypes = (
             [vp] * 6             # z_coarse, weights, u, dir_norms, z_out, d_out
             + [ci] * 3 + [vp]    # n_rays, sc, sf, stream

@@ -4,7 +4,7 @@ loss (``ops/fused_train_loss.py``, kernel 4); their bf16 routes share
 ``ops/fused_train_loss.py::Bf16Gradients``.
 
 Both pass kernels fill one activation/cotangent scratch (``Rows`` in
-``ops/csrc/mlp_chain.cuh``: feature-major, row = feature, contiguous along
+``ops/csrc/train_rows.cuh``: feature-major, row = feature, contiguous along
 the chunk's samples) chunk of rays by chunk; :class:`WeightGradients` owns
 that scratch and turns it into the gradient of every parameter with the
 split-TF32 dW launch of ``ops/csrc/dw_tf32.cu`` (``dexnerf_dw_tf32``: TMA
@@ -42,33 +42,6 @@ TF32_MAPS = (("act", 64), ("dlt", 64), ("dlt", 8))  # each map's scratch and box
 TF32_SHAPES = {(): 0, (1,): 1, (2,): 2, (1, 1): 3, (2, 1): 4, (2, 2): 5}
 
 
-def pack_backward_weights(model: FlexibleNeRFModel, device=None) -> Tuple[torch.Tensor, list]:
-    """The matrices the cotangent chain multiplies by, each ``[out, in]``
-    row-major as ``nn.Linear.weight`` keeps it (the transpose of the
-    forward pack), cut to the input columns that carry a gradient, each
-    starting on a 16-byte boundary: ``fc_rgb`` [3, H/2], ``layers_dir.0``
-    [H/2, :H], ``fc_feat`` with ``fc_alpha`` as one more row [H + 1, H],
-    then ``layers_xyz.i`` [H, :H]. Returns the buffer and the offsets."""
-    H = model.hidden_size
-    mats = [
-        model.fc_rgb.weight,
-        model.layers_dir[0].weight[:, :H],
-        torch.cat([model.fc_feat.weight, model.fc_alpha.weight], dim=0),
-        *(lin.weight[:, :H] for lin in model.layers_xyz),
-    ]
-    chunks, offsets, pos = [], [], 0
-    for m in mats:
-        pad = -pos % 4
-        if pad:
-            chunks.append(torch.zeros(pad, dtype=torch.float32, device=m.device))
-            pos += pad
-        offsets.append(pos)
-        flat = m.detach().reshape(-1).to(torch.float32)
-        chunks.append(flat)
-        pos += flat.numel()
-    return torch.cat(chunks).to(device), offsets
-
-
 def _param_offsets(model) -> Tuple[dict, int]:
     """Offset of every parameter in the flat gradient, in
     ``model.named_parameters()`` order, and the total count."""
@@ -80,7 +53,7 @@ def _param_offsets(model) -> Tuple[dict, int]:
 
 
 def scratch_rows(model) -> dict:
-    """The scratch layout (``Rows`` in ``ops/csrc/mlp_chain.cuh``) in rows
+    """The scratch layout (``Rows`` in ``ops/csrc/train_rows.cuh``) in rows
     of ``k`` floats: the row counts ``act_rows``/``dlt_rows``, the first row
     of each named block, and the lists ``a`` (layer1's output, then the
     trunk's) and ``d`` (their cotangents, then feat's). act: e (dx rows),

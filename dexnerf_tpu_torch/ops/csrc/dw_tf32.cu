@@ -1,5 +1,5 @@
-// The weight gradients of the float32 training kernels (kernel 4's pass,
-// fused_train_loss.cu, and kernel 3's field backward, fused_mlp_train.cu)
+// The weight gradients of the float32 training kernels (kernel 4's pass and
+// kernel 3's field backward, both in fused_train_loss.cu)
 // on Hopper's tensor cores, in split TF32, for the H100 (sm_90a).
 //
 // Replaces the dW contraction of dexnerf_tpu/ops/fused_mlp_train.py::
@@ -8,7 +8,7 @@
 // dW = delta^T a over every sample of a chunk, f32 operands, f32 sums.
 //
 // The pass kernels leave a feature-major f32 scratch (Rows in
-// mlp_chain.cuh): row = feature, contiguous along the chunk's k samples,
+// train_rows.cuh): row = feature, contiguous along the chunk's k samples,
 // the K-major layout TF32 wgmma reads from shared memory. The launch is
 // bound by the bytes of that scratch (~10 KB a sample for 8x128, 4.7 ms a
 // step at 3.35 TB/s); its multiply-adds, three TF32 products each, take

@@ -72,6 +72,25 @@
 // The kernels take a launcher tag (kOwner) so that a profile names them.
 // Hidden widths that are not a multiple of 32 run zero-padded to one (the
 // tile's widths); the scratch, the masks and dy_sum keep the model's own.
+//
+// The same kernels are the f32 routes of the field kernels
+// (dexnerf_field_tf32_pass), which replace
+// dexnerf_tpu/ops/fused_mlp.py::_make_fwd_kernel and
+// dexnerf_tpu/ops/fused_mlp_train.py::_make_bwd_kernel at float32: they
+// read the sample points from pts [N, S, 3] (padding samples at the
+// origin) instead of o + d z, and run no compositing.
+// * Kernel 2, the field forward (owner 2): prep and forward over every ray
+//   in one launch pair, raw straight to its [N, S, 4] output, nothing to the
+//   scratch (no activations, encodings or mask words: kSave is false).
+// * Kernel 3, the field backward (owner 3), per chunk of rays: prep, the
+//   forward with kernel 4's scratch stores, then the chain on the caller's
+//   cotangent g [N, S, 4] (zero on padding columns) in place of the
+//   compositing's; then kernel 4's dW launch and reduction.
+// Layer1 is the same sequential f32 FMA chain in all three, so the raw of
+// kernel 2 and the activations that kernel 3 recomputes are one arithmetic,
+// bit for bit. Neither needs kernel 4's cap on the samples (its compositing
+// keeps 7 S floats a warp in shared memory): the forward and the chain take
+// any S, tile by tile of a ray.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,21 +103,23 @@ namespace {
 
 constexpr int kMaxLayers = 40;
 constexpr int kMaxFreq = 16;
-constexpr int kMaxSamplesPad = 256;
+constexpr int kMaxSamplesPad = 256;  // kernel 4: its compositing keeps 7 S floats a warp
 constexpr int kMaxDD = 3 + 6 * kMaxFreq;
 constexpr int kAux = kMaxLayers + 8;
 constexpr int kRayWarps = 4;   // composite: rays per CTA, one warp each
 constexpr int kPrepWarps = 8;  // prep: rays per CTA
 constexpr int kSumThreads = 1024;
 // who launches the pass kernels (a template argument, so that a profile
-// tells them apart): the fused train loss (kernel 4)
-constexpr int kLoss = 4;
+// tells them apart): the fused train loss (kernel 4), the field forward
+// (kernel 2) and the field backward (kernel 3)
+constexpr int kLoss = 4, kFieldFwd = 2, kFieldBwd = 3;
 
 // Mirrored field by field by ops/fused_train_loss.py::_TrainArgs.
 struct TrainArgs {
   const float* origins;     // [N, 3]
   const float* dirs;        // [N, 3]
   const float* viewdirs;    // [N, 3]
+  const float* pts;         // [N, S, 3] sample points (the field kernels) or null
   const float* z;           // [N, S]
   const float* dists;       // [N, S]
   const float* noise;       // [N, S] or null
@@ -117,8 +138,8 @@ struct TrainArgs {
   float* dir_enc;           // [dd][n_rays] per-ray viewdir encodings
   float* dy_sum;            // [H/2][n_rays] per-ray sums of the viewdir-layer delta
   float* dirb;              // [n_rays][Hp/2] per-ray viewdir-layer bias
-  float* raw;               // [k][4] rgb logits, sigma logit
-  float* graw;              // [k][4] their cotangents
+  float* raw;               // [k][4] rgb logits, sigma logit; kernel 2: [N, S, 4]
+  float* graw;              // [k][4] their cotangents; kernel 3: the caller's g [N, S, 4]
   uint32_t* masks;          // [k / 64][tile_words][128] ReLU mask words
   long long k;              // scratch columns: n_rays * s_pad
   int ray0, n_rays, n_samples, s_pad;
@@ -165,7 +186,9 @@ __global__ void __launch_bounds__(kPrepWarps * 32) train_prep_tf32_kernel(const 
     }
   }
   __syncwarp();
-  for (int k = lane; k < dd; k += 32) p.dir_enc[(size_t)k * p.n_rays + r] = e[k];
+  if (kOwner != kFieldFwd) {  // the viewdir weights' dW reads it
+    for (int k = lane; k < dd; k += 32) p.dir_enc[(size_t)k * p.n_rays + r] = e[k];
+  }
   const float* wdv = p.aux + p.aux_off[nt + 7];
   const float* bdir = p.aux + p.aux_off[nt + 2];
   for (int c = lane; c < H2; c += 32) {
@@ -198,13 +221,13 @@ __host__ __device__ inline FwdSmem fwd_smem(int H, int nt, int kx, int ns) {
 
 // The f32 activation of one 8-column block (split_frag's v0..v3) to the
 // scratch rows at dst (row0's column of feature 0; features < hm) with
-// streaming stores, its ReLU bits (entries 4 j .. 4 j + 3) into m.
-template <int MW, bool kMask>
+// streaming stores (kStore), its ReLU bits (entries 4 j .. 4 j + 3) into m.
+template <int MW, bool kStore, bool kMask>
 __device__ __forceinline__ void save_block(float* dst, long long k, int hm, int j, int q,
                                            float v0, float v1, float v2, float v3,
                                            uint32_t (&m)[MW]) {
   const int col = 8 * j + 2 * q;
-  if (col < hm) {
+  if (kStore && col < hm) {
     float* d0 = dst + (long long)col * k;
     __stcs(d0, v0);
     __stcs(d0 + k, v1);
@@ -219,10 +242,12 @@ __device__ __forceinline__ void save_block(float* dst, long long k, int hm, int 
 }
 
 // n_tiles 64-column tiles of the chunk; worker kCons b + cw takes tiles
-// kCons b + cw, + kCons G, ...
+// kCons b + cw, + kCons G, ... Kernel 2 (kOwner kFieldFwd) saves nothing
+// and writes raw to its [N, S, 4] output.
 template <int kOwner, int NTM>
 __global__ void __launch_bounds__(kThreads, 1)
     train_fwd_tf32_kernel(const __grid_constant__ TrainArgs p, int n_tiles) {
+  constexpr bool kSave = kOwner != kFieldFwd;  // activations, encodings, mask words
   constexpr int H = NTM * 16;
   constexpr int H2 = H / 2;
   constexpr int KCH = H / kKc;  // K-chunks of a product on H
@@ -298,20 +323,25 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // the xyz encoding of the tile by the two lanes of each row of the
     // warp's own 16 rows (a warp's wgmma reads only its own rows of A), the
-    // argument rounded as written and the accurate sincosf. Padding samples
-    // (s >= S) take z = 0: finite points. For layer1 (first): f32 into encf
-    // and the scratch's e rows; for a skip layer: split into the area.
+    // argument rounded as written and the accurate sincosf. The point is o +
+    // d z (kernel 4) or read from pts (the field kernels); padding samples
+    // (s >= S) take z = 0 or the origin: finite points. For layer1 (first):
+    // f32 into encf and the scratch's e rows; for a skip layer: split into
+    // the area.
     auto encode_tile = [&](bool first) {
       const int i = 16 * warp + (lane & 15), half = lane >> 4, s = s0 + i;
-      const float zz = s < S ? p.z[ray * S + s] : 0.f;
+      const float zz = kOwner == kLoss && s < S ? p.z[ray * S + s] : 0.f;
       float* ecol = p.act + R.e() + col0 + i;
       for (int d = 0; d < 3; ++d) {
-        const float pt = __fadd_rn(p.origins[ray * 3 + d], __fmul_rn(p.dirs[ray * 3 + d], zz));
+        const float pt =
+            kOwner == kLoss ? __fadd_rn(p.origins[ray * 3 + d], __fmul_rn(p.dirs[ray * 3 + d], zz))
+            : s < S         ? p.pts[(ray * S + s) * 3 + d]
+                            : 0.f;
         if (first) {
           const int cx = p.inc_x ? 3 : 0;
           auto put = [&](int f, float val) {
             encf[f * kTile + i] = val;
-            __stcs(ecol + (long long)f * K, val);
+            if (kSave) __stcs(ecol + (long long)f * K, val);
           };
           if (p.inc_x && half == 0) put(d, pt);
           for (int f = half; f < p.fx; f += 2) {
@@ -361,7 +391,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     {
       uint32_t m[MW];
       auto sink = [&](int j, float v0, float v1, float v2, float v3) {
-        save_block<MW, false>(acol + R.a(0), K, hm, j, q, v0, v1, v2, v3, m);
+        save_block<MW, kSave, false>(acol + R.a(0), K, hm, j, q, v0, v1, v2, v3, m);
       };
       if (nt > 0) {
         hidden_epilogue_tf32<H, false, false>(acc, aux + p.aux_off[0], a, area, w_alpha,
@@ -386,7 +416,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int w = 0; w < MW; ++w) m[w] = 0u;
       float* dst = acol + (i < nt ? R.a(i + 1) : R.feat());
       auto sink = [&](int j, float v0, float v1, float v2, float v3) {
-        save_block<MW, true>(dst, K, hm, j, q, v0, v1, v2, v3, m);
+        save_block<MW, kSave, kSave>(dst, K, hm, j, q, v0, v1, v2, v3, m);
       };
       if (i == nt - 1) {
         hidden_epilogue_tf32<H, true, true>(acc, bias, a, area, w_alpha, b_alpha, sig_rows, sink);
@@ -394,8 +424,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         hidden_epilogue_tf32<H, true, false>(acc, bias, a, area, w_alpha, b_alpha, sig_rows,
                                              sink);
       }
+      if (kSave) {
 #pragma unroll
-      for (int w = 0; w < MW; ++w) __stcs(mk + (i * MW + w) * 128, m[w]);
+        for (int w = 0; w < MW; ++w) __stcs(mk + (i * MW + w) * 128, m[w]);
+      }
       fence_async_smem();
       wg_sync(bar);
     }
@@ -421,14 +453,14 @@ __global__ void __launch_bounds__(kThreads, 1)
             c[0][kk] = fmaf(y0, wrg[kk], c[0][kk]);
             c[1][kk] = fmaf(y1, wrg[kk], c[1][kk]);
           }
-          if (col < hm / 2) {
+          if (kSave && col < hm / 2) {
             __stcs(ydst + (long long)col * K, y0);
             __stcs(ydst + (long long)col * K + 8, y1);
           }
           ym |= (y0 > 0.f ? 1u : 0u) << (4 * j + e) | (y1 > 0.f ? 1u : 0u) << (4 * j + 2 + e);
         }
       }
-      __stcs(mk + (nt + 1) * MW * 128, ym);
+      if (kSave) __stcs(mk + (nt + 1) * MW * 128, ym);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
 #pragma unroll
@@ -444,8 +476,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     wg_sync(bar);  // every row's sigma and rgb logits are written
     if (t < kTile) {
-      reinterpret_cast<float4*>(p.raw)[col0 + t] =
-          make_float4(rgbr[3 * t], rgbr[3 * t + 1], rgbr[3 * t + 2], sig[t]);
+      const float4 out = make_float4(rgbr[3 * t], rgbr[3 * t + 1], rgbr[3 * t + 2], sig[t]);
+      if (kOwner != kFieldFwd) {
+        reinterpret_cast<float4*>(p.raw)[col0 + t] = out;
+      } else if (s0 + t < S) {
+        reinterpret_cast<float4*>(p.raw)[ray * S + s0 + t] = out;
+      }
     }
   }
   // worker kCons b has more tiles: release the stages of its other passes
@@ -527,9 +563,9 @@ __device__ __forceinline__ void chain_epilogue(const float (&acc)[H / 2], uint32
 }
 
 // Worker kCons b + cw takes the chunk's rays kCons b + cw, + kCons G, ...,
-// each ray's s_pad / 64 tiles in order. Per tile: the raw cotangents to the
-// scratch; the y cotangent (g_rgb W_rgb^T, f32, masked by y > 0) and its
-// column sums; then product 0 (layers_dir.0's feat rows, K = H/2 padded to
+// each ray's s_pad / 64 tiles in order. Per tile: the raw cotangents (the
+// compositing's, or kernel 3's caller's g) to the scratch; the y cotangent
+// (g_rgb W_rgb^T, f32, masked by y > 0) and its column sums; then product 0 (layers_dir.0's feat rows, K = H/2 padded to
 // a K-chunk) -> d_feat masked by feat, product 1 (fc_feat, + gs w_alpha)
 // -> d_nt masked by a_nt, products 2.. (layers_xyz from the last) -> d_i
 // masked by a_i (d_0, layer1's output cotangent, unmasked).
@@ -584,7 +620,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* colsum = reinterpret_cast<float*>(gbase + L.colsum) + cw * 4 * H2;
   const float* w_alpha = aux + p.aux_off[nt + 3];
   const float* w_rgb = aux + p.aux_off[nt + 5];
-  const int hm = p.hidden, hm2 = hm / 2;
+  const int hm = p.hidden, hm2 = hm / 2, S = p.n_samples;
   const long long K = p.k;
   const Rows R{K, p.dx, hm, nt};
   const int TW = tile_words(H, nt), row0 = 16 * warp + g;
@@ -594,22 +630,31 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int mine = rays_of(v);
   for (int it = 0; it < mine; ++it) {
     const int rl = v + kCons * G * it;
+    const long long ray = (long long)p.ray0 + rl;
     float dys = 0.f;  // thread t < hm2: column t's sum over the ray
     for (int tt = 0; tt < TPR; ++tt) {
       const int tile = rl * TPR + tt;
       const long long col0 = (long long)tile * kTile;
       const uint32_t* mk = p.masks + (size_t)tile * TW * 128 + t;
       float* dcol = p.dlt + col0 + row0;
+      // the cotangent of raw at column i of the tile: the compositing's
+      // [k][4] (kernel 4), or the caller's g [N, S, 4] (kernel 3), 0 on
+      // padding columns
+      auto g_at = [&](int i) {
+        if (kOwner == kLoss) return graw[col0 + i];
+        const int s = tt * kTile + i;
+        return s < S ? graw[ray * S + s] : make_float4(0.f, 0.f, 0.f, 0.f);
+      };
       // ---- raw cotangents to the scratch: rgb rows, sigma row
       if (t < kTile) {
-        const float4 gv = graw[col0 + t];
+        const float4 gv = g_at(t);
         float* d = p.dlt + col0 + t;
         __stcs(d + R.drgb(0), gv.x);
         __stcs(d + R.drgb(1), gv.y);
         __stcs(d + R.drgb(2), gv.z);
         __stcs(d + R.dsig(), gv.w);
       }
-      const float4 gr0 = graw[col0 + row0], gr1 = graw[col0 + row0 + 8];
+      const float4 gr0 = g_at(row0), gr1 = g_at(row0 + 8);
       // ---- y cotangent, f32, in the accumulator layout; its column sums
       uint32_t a[H / 2];
       {
@@ -722,41 +767,71 @@ int stages_for(int H, int nt, int kx, int chain, size_t* smem) {
   return 0;
 }
 
-template <int NTM>
-int launch_pass(const TrainArgs& a, cudaStream_t st) {
-  const int dx = a.dx;
+// kOwner's kernels of one chunk, those of `parts` (bits 1 prep, 2 forward,
+// 4 compositing (kernel 4's only), 8 chain (not kernel 2's)).
+template <int kOwner, int NTM>
+int launch_parts(const TrainArgs& a, int parts, cudaStream_t st) {
+  constexpr bool kChain = kOwner != kFieldFwd;
   size_t fwd_bytes = 0, chain_bytes = 0;
   if (stages_for(a.hp, a.num_trunk, a.kx, 0, &fwd_bytes) != a.fwd_stages ||
-      stages_for(a.hp, a.num_trunk, a.kx, 1, &chain_bytes) != a.chain_stages || dx < 1) {
+      stages_for(a.hp, a.num_trunk, a.kx, 1, &chain_bytes) != a.chain_stages || a.dx < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(train_fwd_tf32_kernel<kLoss, NTM>,
+  cudaError_t err = cudaFuncSetAttribute(train_fwd_tf32_kernel<kOwner, NTM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)fwd_bytes);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(train_chain_tf32_kernel<kLoss, NTM>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)chain_bytes);
-  if (err != cudaSuccess) return (int)err;
+  if constexpr (kChain) {
+    err = cudaFuncSetAttribute(train_chain_tf32_kernel<kOwner, NTM>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)chain_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
   if (a.n_rays == 0) return 0;
   const int n_tiles = (int)(a.k / kTile);
   const int fwd_want = (n_tiles + kCons - 1) / kCons, chain_want = (a.n_rays + kCons - 1) / kCons;
   const int fwd_grid = fwd_want < a.sms ? fwd_want : a.sms;
   const int chain_grid = chain_want < a.sms ? chain_want : a.sms;
-  if (a.parts & 1) {
-    train_prep_tf32_kernel<kLoss><<<(a.n_rays + kPrepWarps - 1) / kPrepWarps, kPrepWarps * 32,
-                                    0, st>>>(a);
+  if (parts & 1) {
+    train_prep_tf32_kernel<kOwner><<<(a.n_rays + kPrepWarps - 1) / kPrepWarps, kPrepWarps * 32,
+                                     0, st>>>(a);
   }
-  if (a.parts & 2) {
-    train_fwd_tf32_kernel<kLoss, NTM><<<fwd_grid, kThreads, fwd_bytes, st>>>(a, n_tiles);
+  if (parts & 2) {
+    train_fwd_tf32_kernel<kOwner, NTM><<<fwd_grid, kThreads, fwd_bytes, st>>>(a, n_tiles);
   }
-  if (a.parts & 4) {
-    train_composite_tf32_kernel<<<(a.n_rays + kRayWarps - 1) / kRayWarps, kRayWarps * 32,
-                                  kRayWarps * 7 * a.n_samples * sizeof(float), st>>>(a);
+  if constexpr (kOwner == kLoss) {
+    if (parts & 4) {
+      train_composite_tf32_kernel<<<(a.n_rays + kRayWarps - 1) / kRayWarps, kRayWarps * 32,
+                                    kRayWarps * 7 * a.n_samples * sizeof(float), st>>>(a);
+    }
   }
-  if (a.parts & 8) {
-    train_chain_tf32_kernel<kLoss, NTM><<<chain_grid, kThreads, chain_bytes, st>>>(a);
+  if constexpr (kChain) {
+    if (parts & 8) {
+      train_chain_tf32_kernel<kOwner, NTM><<<chain_grid, kThreads, chain_bytes, st>>>(a);
+    }
   }
   return (int)cudaGetLastError();
+}
+
+template <int kOwner>
+int launch_width(const TrainArgs& a, int parts, cudaStream_t s) {
+  switch (a.hp / 32) {
+    case 1: return launch_parts<kOwner, 2>(a, parts, s);
+    case 2: return launch_parts<kOwner, 4>(a, parts, s);
+    case 3: return launch_parts<kOwner, 6>(a, parts, s);
+    default: return launch_parts<kOwner, 8>(a, parts, s);
+  }
+}
+
+// The argument block's shapes and model within the kernels' limits (any
+// number of samples: kernel 4's own cap is its entry's).
+bool args_ok(const TrainArgs& a) {
+  return a.n_samples >= 1 && a.s_pad >= a.n_samples && a.s_pad % kTile == 0 &&
+         a.num_trunk >= 0 && a.num_trunk + 8 <= kAux && a.num_trunk <= 31 && a.fx <= kMaxFreq &&
+         a.fd <= kMaxFreq && a.hidden % 8 == 0 && a.hidden >= 8 && a.hp % 32 == 0 &&
+         a.hp >= a.hidden && a.hp <= 128 && a.dd <= kMaxDD &&
+         a.dx == 3 * a.inc_x + 6 * a.fx && a.dd == 3 * a.inc_d + 6 * a.fd &&
+         a.kx == (a.dx + kKc - 1) / kKc && a.kx * kKc <= kMaxDx && a.sms >= 1 &&
+         a.k == (long long)a.n_rays * a.s_pad;
 }
 
 template <int NTM>
@@ -850,22 +925,27 @@ int dexnerf_train_tf32_occupancy(int hp, int num_trunk, int kx, int* out) {
 // compositing and chain.
 int dexnerf_train_pass(const void* args, void* stream) {
   const TrainArgs& a = *static_cast<const TrainArgs*>(args);
-  if (a.n_samples < 1 || a.s_pad < a.n_samples || a.s_pad % kTile != 0 ||
-      a.s_pad > kMaxSamplesPad || a.num_trunk + 8 > kAux || a.num_trunk > 31 ||
-      a.fx > kMaxFreq || a.fd > kMaxFreq || a.hidden % 8 != 0 || a.hidden < 8 ||
-      a.hp % 32 != 0 || a.hp < a.hidden || a.hp > 128 || a.dd > kMaxDD ||
-      a.dx != 3 * a.inc_x + 6 * a.fx || a.dd != 3 * a.inc_d + 6 * a.fd ||
-      a.kx != (a.dx + kKc - 1) / kKc || a.kx * kKc > kMaxDx || a.sms < 1 ||
-      a.k != (long long)a.n_rays * a.s_pad) {
+  if (!args_ok(a) || a.s_pad > kMaxSamplesPad) return (int)cudaErrorInvalidValue;
+  return launch_width<kLoss>(a, a.parts, static_cast<cudaStream_t>(stream));
+}
+
+// The field kernels at float32 on rays [ray0, ray0 + n_rays) of pts [N, S,
+// 3] and viewdirs: kernel 2's prep and forward (backward = 0: raw into its
+// [N, S, 4] output, dirb for the launch's rays, nothing else) or kernel 3's
+// prep, forward and chain on one chunk (backward = 1: graw = the caller's g
+// [N, S, 4]; the scratch, dir_enc, dy_sum, the mask words and raw's [k][4]
+// as kernel 4's pass fills them). Any S >= 1.
+int dexnerf_field_tf32_pass(const void* args, int backward, void* stream) {
+  const TrainArgs& a = *static_cast<const TrainArgs*>(args);
+  if (!args_ok(a) || a.pts == nullptr || a.viewdirs == nullptr || a.raw == nullptr ||
+      a.dirb == nullptr ||
+      (backward && (a.graw == nullptr || a.act == nullptr || a.dlt == nullptr ||
+                    a.dir_enc == nullptr || a.dy_sum == nullptr || a.masks == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (a.hp / 32) {
-    case 1: return launch_pass<2>(a, s);
-    case 2: return launch_pass<4>(a, s);
-    case 3: return launch_pass<6>(a, s);
-    default: return launch_pass<8>(a, s);
-  }
+  return backward ? launch_width<kFieldBwd>(a, 1 | 2 | 8, s)
+                  : launch_width<kFieldFwd>(a, 1 | 2, s);
 }
 
 // The sum of the n_rays per-ray losses into *loss, in a fixed order.

@@ -1,7 +1,7 @@
-// The f32 training scratch's layout, shared by the field kernels
-// (mlp_chain.cuh: fused_mlp.cu, fused_mlp_train.cu) and kernel 4's f32 pass
-// (fused_train_loss.cu); dw_tf32.cu reads the scratch through tensor maps
-// built from it (ops/_weight_grads.py, dexnerf_train_rows).
+// The f32 training scratch's layout, filled by kernel 4's f32 pass and
+// kernel 3's f32 field backward (fused_train_loss.cu); dw_tf32.cu reads the
+// scratch through tensor maps built from it (ops/_weight_grads.py,
+// dexnerf_train_rows).
 #pragma once
 
 namespace {

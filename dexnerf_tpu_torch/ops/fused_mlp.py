@@ -6,12 +6,14 @@ whose Pallas kernel (``_make_fwd_kernel``) this module's CUDA kernels
 (built by ``ops/_build.py``) replace, with its ``compute_dtype`` (float32
 by default, as in JAX; training resolves it from
 ``nerf.pallas_compute_dtype``, bf16 by default). On a CUDA tensor
-:func:`fused_field` launches the kernel of the dtype: ``ops/csrc/fused_mlp.cu``
-at float32 (f32 FMA, ~156k multiply-adds per sample of the 8x128 model),
-or at bfloat16 the prep and forward kernels of
-``ops/csrc/fused_train_loss_bf16.cu`` (kernel 4's bf16 tile on the
-``mma.sync`` tensor cores, reading the points from ``pts``, writing raw
-straight to the output, saving nothing). On a CPU tensor it runs
+:func:`fused_field` launches kernel 4's prep and forward kernels of the
+dtype with the launcher tag 2, reading the points from ``pts``, writing raw
+straight to the output and saving nothing: at float32 those of
+``ops/csrc/fused_train_loss.cu`` (split TF32 on ``wgmma``, layer1 a
+sequential f32 FMA chain; ~156k multiply-adds per sample of the 8x128
+model; ``fused_train_loss.Tf32Pass``), at bfloat16 those of
+``ops/csrc/fused_train_loss_bf16.cu`` (kernel 1's bf16 tile on ``wgmma``).
+On a CPU tensor it runs
 :func:`fused_field_reference`, the plain PyTorch version at that dtype
 (``model`` on the encodings, or ``flex_forward_bf16``). There is no
 fallback between them: a CUDA call that cannot launch raises. The port's
@@ -29,44 +31,18 @@ import ctypes
 
 import torch
 
-from dexnerf_tpu_torch.core.encoding import frequency_bands, positional_encoding
+from dexnerf_tpu_torch.core.encoding import positional_encoding
 from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
-from dexnerf_tpu_torch.ops.fused_render import (
-    _check_compute_dtype,
-    flex_forward_bf16,
-    pack_flex_weights,
-)
-from dexnerf_tpu_torch.ops.fused_train_loss import bf16_args
+from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+from dexnerf_tpu_torch.ops.fused_render import _check_compute_dtype, flex_forward_bf16
 
 launches = 0  # kernel-2 launches of either dtype
 launches_bf16 = 0  # of which the bf16 route's
 
-# limits of ops/csrc/mlp_chain.cuh
-MAX_LAYERS = 40
-MAX_FREQ = 16
-MAX_HIDDEN = 128
-SLOTS = 64  # samples per MLP tile
-
-
-class _FieldArgs(ctypes.Structure):
-    """Mirror of ``FieldArgs`` in ops/csrc/mlp_chain.cuh (kernels 2 and 3)."""
-
-    _fields_ = [
-        (name, ctypes.c_void_p)
-        for name in ("pts", "viewdirs", "g", "wf", "wb", "raw", "act", "dlt", "dir_enc", "dy_sum")
-    ] + [("k", ctypes.c_int64)] + [
-        (name, ctypes.c_int32)
-        for name in (
-            "ray0", "n_rays", "n_samples", "s_pad", "hidden", "num_trunk", "skip_mask",
-            "fx", "fd", "inc_x", "inc_d",
-        )
-    ] + [
-        ("w_off", ctypes.c_int32 * MAX_LAYERS),
-        ("b_off", ctypes.c_int32 * MAX_LAYERS),
-        ("wb_off", ctypes.c_int32 * MAX_LAYERS),
-        ("bands_x", ctypes.c_float * MAX_FREQ),
-        ("bands_d", ctypes.c_float * MAX_FREQ),
-    ]
+# limits of the kernels (ops/csrc/fused_train_loss*.cu); any number of samples
+MAX_LAYERS = ftl.MAX_LAYERS
+MAX_FREQ = ftl.MAX_FREQ
+MAX_HIDDEN = ftl.MAX_HIDDEN
 
 
 def fused_field_reference(
@@ -122,32 +98,6 @@ def check_field_inputs(model, tensors) -> None:
         raise ValueError(f"the kernels take at most {MAX_FREQ} PE frequencies")
 
 
-def field_args(lib, model, pts, viewdirs, *, log_sampling_xyz, log_sampling_dir):
-    """A ``_FieldArgs`` with the inputs, the packed forward weights and the
-    model's layout filled in, and the weight buffer it points to (keep it
-    alive until the launch)."""
-    if lib.dexnerf_field_args_size() != ctypes.sizeof(_FieldArgs):
-        raise RuntimeError(
-            f"_FieldArgs is {ctypes.sizeof(_FieldArgs)} bytes here but "
-            f"{lib.dexnerf_field_args_size()} in the kernel library"
-        )
-    wf, f_off = pack_flex_weights(model, pts.device)
-    args = _FieldArgs()
-    args.pts, args.viewdirs, args.wf = pts.data_ptr(), viewdirs.data_ptr(), wf.data_ptr()
-    args.n_rays, args.n_samples = pts.shape[0], pts.shape[1]
-    args.hidden, args.num_trunk = model.hidden_size, model.num_layers - 1
-    args.skip_mask = sum(1 << i for i in model.skips)
-    args.fx, args.fd = model.num_encoding_fn_xyz, model.num_encoding_fn_dir
-    args.inc_x, args.inc_d = int(model.include_input_xyz), int(model.include_input_dir)
-    args.w_off[:len(f_off) // 2] = f_off[0::2]
-    args.b_off[:len(f_off) // 2] = f_off[1::2]
-    bx = frequency_bands(model.num_encoding_fn_xyz, log_sampling_xyz).tolist()
-    bd = frequency_bands(model.num_encoding_fn_dir, log_sampling_dir).tolist()
-    args.bands_x[:len(bx)] = bx
-    args.bands_d[:len(bd)] = bd
-    return args, wf
-
-
 def _launch(model, pts, viewdirs, *, log_sampling_xyz, log_sampling_dir,
             compute_dtype=torch.float32) -> torch.Tensor:
     """Kernel 2 at ``compute_dtype`` on CUDA tensors."""
@@ -158,26 +108,21 @@ def _launch(model, pts, viewdirs, *, log_sampling_xyz, log_sampling_dir,
     N, S = pts.shape[:2]
     check_field_inputs(model, [("pts", pts, (N, S, 3)), ("viewdirs", viewdirs, (N, 3))])
     lib = load_library()
+    raw = torch.empty((N, S, 4), dtype=torch.float32, device=pts.device)
+    stream = torch.cuda.current_stream(pts.device).cuda_stream
     if compute_dtype == torch.bfloat16:
-        args, keep = bf16_args(lib, model, N, S, log_sampling_xyz=log_sampling_xyz,
-                               log_sampling_dir=log_sampling_dir)
-        raw = torch.empty((N, S, 4), dtype=torch.float32, device=pts.device)
+        args, keep = ftl.bf16_args(lib, model, N, S, log_sampling_xyz=log_sampling_xyz,
+                                   log_sampling_dir=log_sampling_dir)
         args.pts, args.viewdirs, args.raw = pts.data_ptr(), viewdirs.data_ptr(), raw.data_ptr()
         args.ray0, args.n_rays = 0, N
-        stream = torch.cuda.current_stream(pts.device).cuda_stream
         check(lib, lib.dexnerf_field_bf16_pass(ctypes.addressof(args), None, N * S,
                                                -(-N * S // 128), 0, stream),
               "fused field bf16 forward launch")
-        launches += 1
         launches_bf16 += 1
-        return raw
-    args, wf = field_args(lib, model, pts, viewdirs, log_sampling_xyz=log_sampling_xyz,
-                          log_sampling_dir=log_sampling_dir)
-    raw = torch.empty((N, S, 4), dtype=torch.float32, device=pts.device)
-    args.raw = raw.data_ptr()
-    stream = torch.cuda.current_stream(pts.device).cuda_stream
-    check(lib, lib.dexnerf_field_forward(ctypes.addressof(args), stream),
-          "fused field forward launch")
+    else:  # every ray in one launch pair: no scratch to cap
+        ftl.Tf32Pass(lib, model, dict(pts=pts, viewdirs=viewdirs, raw=raw), N, S, ftl.s_pad_of(S),
+                     max(1, N), None, owner=ftl.FIELD_FWD, log_sampling_xyz=log_sampling_xyz,
+                     log_sampling_dir=log_sampling_dir).run(0, stream)
     launches += 1
     return raw
 

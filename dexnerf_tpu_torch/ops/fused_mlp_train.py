@@ -10,14 +10,17 @@ field is a ``torch.autograd.Function``: its forward is the field kernel of
 ``ops/fused_mlp.py`` (kernel 2) at ``compute_dtype``; its backward takes
 the cotangent ``g`` of raw [N, S, 4], recomputes the forward, runs the
 cotangent chain and sums the weight gradients over every sample (kernel
-3). At float32/float32 that is ``ops/csrc/fused_mlp_train.cu`` with the
-scratch and the weight-gradient launches of ``ops/_weight_grads.py``; at
-bfloat16/bfloat16 it is the prep, forward and chain kernels of
-``ops/csrc/fused_train_loss_bf16.cu`` on the caller's ``g`` (no
-compositing), with kernel 4's bf16 scratch, dW and fixed-order reduction
-(``ops/fused_train_loss.py::Bf16Gradients``): tensor cores (``mma.sync``
-forward, ``wgmma`` chain and dW), bf16 operands, activations and dW
-operands, f32 heads, bias sums and chain, bitwise-repeatable runs. A mixed pair raises on the card. On CPU
+3): kernel 4's prep, forward and chain kernels of the dtype with the
+launcher tag 3, on the caller's ``g`` (no compositing), chunk by chunk of
+the scratch, then kernel 4's weight gradients and fixed-order reduction,
+so two runs are bitwise equal. At float32/float32 those of
+``ops/csrc/fused_train_loss.cu`` (split TF32 on ``wgmma``, layer1 a
+sequential f32 FMA chain: ``fused_train_loss.Tf32Pass``) with the f32
+scratch and the split-TF32 dW of ``ops/_weight_grads.py``; at
+bfloat16/bfloat16 those of ``ops/csrc/fused_train_loss_bf16.cu`` with its
+bf16 scratch, dW and reduction (``fused_train_loss.Bf16Gradients``): bf16
+operands, activations and dW operands, f32 heads, bias sums and chain. A
+mixed pair raises on the card. On CPU
 tensors both halves are the plain version at any pair: the forward is
 ``fused_field_reference`` and the backward autograd through the model, or
 through ``flex_forward_train`` (the contract's three roundings) when a
@@ -46,12 +49,9 @@ import torch
 from dexnerf_tpu_torch.core.encoding import positional_encoding
 from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
 from dexnerf_tpu_torch.ops import fused_mlp
-from dexnerf_tpu_torch.ops._weight_grads import (
-    WeightGradients,
-    check_dw_args_size,
-    pack_backward_weights,
-)
-from dexnerf_tpu_torch.ops.fused_mlp import check_field_inputs, field_args, fused_field_reference
+from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+from dexnerf_tpu_torch.ops._weight_grads import WeightGradients
+from dexnerf_tpu_torch.ops.fused_mlp import check_field_inputs, fused_field_reference
 from dexnerf_tpu_torch.ops.fused_train_loss import (
     Bf16Gradients,
     _check_dtypes,
@@ -102,30 +102,40 @@ def _launch_backward(model, pts, viewdirs, g, *, log_sampling_xyz, log_sampling_
         launches += 1
         launches_bf16 += 1
         return grads
-    check_dw_args_size(lib)
-    s_pad = -(-S // fused_mlp.SLOTS) * fused_mlp.SLOTS
-    chunk = max(1, min(N, SCRATCH_SAMPLES // s_pad))
-    n_chunks = -(-N // chunk)
-    wg = WeightGradients(lib, model, N, chunk, s_pad, dev)
-    args, wf = field_args(lib, model, pts, viewdirs, log_sampling_xyz=log_sampling_xyz,
-                          log_sampling_dir=log_sampling_dir)
-    wb, b_off = pack_backward_weights(model, dev)
-    args.g, args.wb = g.data_ptr(), wb.data_ptr()
-    args.act, args.dlt = wg.act.data_ptr(), wg.dlt.data_ptr()
-    args.dir_enc, args.dy_sum = wg.dir_enc.data_ptr(), wg.dy_sum.data_ptr()
-    args.s_pad = s_pad
-    args.wb_off[:len(b_off)] = b_off
+    wg, ps = tf32_backward_pass(lib, model, pts, viewdirs, g, log_sampling_xyz=log_sampling_xyz,
+                                log_sampling_dir=log_sampling_dir)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for c in range(n_chunks):
-        ray0 = c * chunk
-        rays = min(chunk, N - ray0)
-        args.ray0, args.n_rays, args.k = ray0, rays, rays * s_pad
-        check(lib, lib.dexnerf_field_backward(ctypes.addressof(args), stream),
-              "fused field backward launch")
-        wg.chunk(c, rays, stream)
+    for c in range(wg.n_chunks):
+        wg.chunk(c, ps.run(c, stream), stream)
     grads = wg.reduce(stream)
     launches += 1
     return grads
+
+
+def tf32_backward_pass(lib, model, pts, viewdirs, g, *, log_sampling_xyz, log_sampling_dir):
+    """Kernel 3's f32 route over ``pts`` [N, S, 3]: the scratch
+    (:class:`WeightGradients`) of chunks of ``SCRATCH_SAMPLES`` padded
+    samples and the :class:`~dexnerf_tpu_torch.ops.fused_train_loss.Tf32Pass`
+    that fills it chunk by chunk from the cotangent ``g`` [N, S, 4]."""
+    N, S = pts.shape[:2]
+    s_pad = ftl.s_pad_of(S)
+    chunk = max(1, min(N, SCRATCH_SAMPLES // s_pad))
+    wg = WeightGradients(lib, model, N, chunk, s_pad, pts.device)
+    ps = ftl.Tf32Pass(lib, model, dict(pts=pts, viewdirs=viewdirs, graw=g), N, S, s_pad, chunk,
+                      wg, owner=ftl.FIELD_BWD, log_sampling_xyz=log_sampling_xyz,
+                      log_sampling_dir=log_sampling_dir)
+    return wg, ps
+
+
+def cotangent_columns(g: torch.Tensor, ray0: int, n_rays: int, s_pad: int) -> torch.Tensor:
+    """The raw cotangents that kernel 3's f32 chain takes for the chunk of
+    rays [ray0, ray0 + n_rays) of ``g`` [N, S, 4], as it writes them to the
+    scratch's rgb and sigma cotangent rows: [n_rays s_pad, 4], column r
+    s_pad + s holding g[ray0 + r, s] for s < S and 0 on the padding
+    columns."""
+    out = g.new_zeros((n_rays, s_pad, 4))
+    out[:, :g.shape[1]] = g[ray0:ray0 + n_rays]
+    return out.reshape(-1, 4)
 
 
 def field_grads_reference(model, pts, viewdirs, g, *, log_sampling_xyz=True,

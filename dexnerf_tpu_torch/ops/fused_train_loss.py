@@ -136,6 +136,9 @@ ENC_PAD = 32  # the scratch's encoding block: dim_xyz padded to a multiple (kEnc
 # the f32 pass's kernels (``parts`` bits of ops/csrc/fused_train_loss.cu): prep,
 # forward, compositing, chain
 PASS_PARTS = 1 | 2 | 4 | 8
+# who launches the f32 pass kernels (their kOwner tag there): the field forward
+# (kernel 2), the field backward (kernel 3), the fused train loss (kernel 4)
+FIELD_FWD, FIELD_BWD, LOSS = 2, 3, 4
 SUPERVISION = ("rgb", "luminance")
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -146,7 +149,7 @@ class _TrainArgs(ctypes.Structure):
     _fields_ = [
         (name, ctypes.c_void_p)
         for name in (
-            "origins", "dirs", "viewdirs", "z", "dists", "noise", "target",
+            "origins", "dirs", "viewdirs", "pts", "z", "dists", "noise", "target",
             "depth_gt", "depth_coef", "wq", "aux", "wbq", "w1", "weights_out", "rgb_out",
             "loss_ray", "act", "dlt", "dir_enc", "dy_sum", "dirb", "raw", "graw", "masks",
         )
@@ -162,6 +165,12 @@ class _TrainArgs(ctypes.Structure):
         ("bands_x", ctypes.c_float * MAX_FREQ),
         ("bands_d", ctypes.c_float * MAX_FREQ),
     ]
+
+
+def s_pad_of(S: int) -> int:
+    """The f32 pass kernels' samples a ray: S padded to whole 64-sample
+    tiles (a tile lies in one ray)."""
+    return -(-S // SLOTS) * SLOTS
 
 
 def pass_loss_sum(rgb: torch.Tensor, target: torch.Tensor, supervision: str) -> torch.Tensor:
@@ -368,11 +377,10 @@ def _tf32_backward_layout(model: FlexibleNeRFModel, w: dict) -> Tuple[torch.Tens
 
 def pack_backward_weights_tf32(model: FlexibleNeRFModel, device=None) -> torch.Tensor:
     """The f32 chain's weights (``ops/csrc/fused_train_loss.cu``), the
-    products of :func:`~dexnerf_tpu_torch.ops._weight_grads.pack_backward_weights`
-    that run on the tensor cores, in its order and cuts: ``layers_dir.0``'s
-    feat rows, ``fc_feat``, then ``layers_xyz.i`` [:, :H] from the last to
-    the first (``fc_rgb`` and ``fc_alpha`` stay f32 on the CUDA cores, from
-    the forward pack's aux). Each as the B operand [in, out] (the transpose
+    products that run on the tensor cores, in the chain's order:
+    ``layers_dir.0``'s feat rows, ``fc_feat``, then ``layers_xyz.i`` [:, :H]
+    from the last to the first (``fc_rgb`` and ``fc_alpha`` stay f32 on the
+    CUDA cores, from the forward pack's aux). Each as the B operand [in, out] (the transpose
     of ``nn.Linear.weight``) zero-padded to Hp = ``bf16_hidden`` rows and K
     (out) to a multiple of 32, K in ``tf32_feature_order``, as [Hp, 32]
     K-chunks in wgmma's 128 B swizzle, each first as hi = tf32(w), then as
@@ -464,40 +472,47 @@ def tf32_occupancy(model: FlexibleNeRFModel) -> dict:
 
 class Tf32Pass:
     """The f32 route's pass kernels (``ops/csrc/fused_train_loss.cu``) over
-    ``N`` rays of ``S`` samples in chunks of ``chunk`` rays: the argument
-    block (the forward and chain packs, cached per parameter state), the
-    per-chunk buffers (the viewdir bias, raw and its cotangent, the mask
-    words) and the scratch of ``wg`` (:class:`WeightGradients`).
-    :meth:`run` launches chunk ``c``'s prep, forward, compositing and chain
-    (``args.parts``: :data:`PASS_PARTS`), which fill the scratch for
-    ``wg.chunk``."""
+    ``N`` rays of ``S`` samples in chunks of ``chunk`` rays, as launcher
+    ``owner`` runs them: kernel 4 (:data:`LOSS`: prep, forward, compositing
+    and chain, ``args.parts`` of :data:`PASS_PARTS`), kernel 3, the field
+    backward (:data:`FIELD_BWD`: prep, forward and chain on the caller's
+    cotangent ``inputs["graw"]`` [N, S, 4]; the points from
+    ``inputs["pts"]``), or kernel 2, the field forward (:data:`FIELD_FWD`:
+    prep and forward into ``inputs["raw"]`` [N, S, 4]; no scratch, ``wg``
+    None). It holds the argument block (the forward and chain packs, cached
+    per parameter state), the per-chunk buffers (the viewdir bias, raw
+    [cols][4] and its cotangent, the mask words) and the scratch of ``wg``
+    (:class:`WeightGradients`). :meth:`run` launches chunk ``c``'s kernels,
+    which fill the scratch for ``wg.chunk``."""
 
     def __init__(self, lib, model, inputs: dict, N: int, S: int, s_pad: int, chunk: int, wg,
-                 *, white_background, supervision, log_sampling_xyz, log_sampling_dir):
-        dev = inputs["z"].device
+                 *, owner=LOSS, white_background=False, supervision="rgb",
+                 log_sampling_xyz=True, log_sampling_dir=True):
+        _check_struct_sizes(lib)
+        dev = next(t for t in inputs.values() if t is not None).device
         H, nt = model.hidden_size, model.num_layers - 1
         Hp = bf16_hidden(H)
         kx = -(-model.dim_xyz // TF32_KCHUNK)
         occ = tf32_occupancy(model)
         wq, aux, aux_off = _cached_tf32_weights(model, dev)
-        wbq = _cached_tf32_backward(model, dev)
         w1 = _cached_pack(pack_layer1_f32, model, dev)
         f32 = dict(dtype=torch.float32, device=dev)
         cols = chunk * s_pad
         self.tile_words = lib.dexnerf_train_tile_words(Hp, nt)
         self.dirb = torch.empty(chunk * Hp // 2, **f32)
-        self.raw = torch.empty(cols * 4, **f32)
-        self.graw = torch.empty(cols * 4, **f32)
-        self.masks = torch.empty(cols // 64 * self.tile_words * 128, dtype=torch.int32,
-                                 device=dev)
-        self.keep = (wq, aux, wbq, w1, inputs)  # the buffers args points to
-        self.lib, self.chunk, self.N, self.s_pad = lib, chunk, N, s_pad
+        bufs = {"wq": wq, "aux": aux, "w1": w1, "dirb": self.dirb}
+        if owner != FIELD_FWD:  # the chain's pack, the scratch and the mask words
+            self.raw = torch.empty(cols * 4, **f32)
+            self.masks = torch.empty(cols // 64 * self.tile_words * 128, dtype=torch.int32,
+                                     device=dev)
+            bufs.update(wbq=_cached_tf32_backward(model, dev), act=wg.act, dlt=wg.dlt,
+                        dir_enc=wg.dir_enc, dy_sum=wg.dy_sum, raw=self.raw, masks=self.masks)
+        if owner == LOSS:
+            self.graw = bufs["graw"] = torch.empty(cols * 4, **f32)
+        self.keep = (bufs, inputs)  # the buffers args points to
+        self.lib, self.chunk, self.N, self.s_pad, self.owner = lib, chunk, N, s_pad, owner
         a = self.args = _TrainArgs()
-        for name, t in (
-            *inputs.items(), ("wq", wq), ("aux", aux), ("wbq", wbq), ("w1", w1),
-            ("act", wg.act), ("dlt", wg.dlt), ("dir_enc", wg.dir_enc), ("dy_sum", wg.dy_sum),
-            ("dirb", self.dirb), ("raw", self.raw), ("graw", self.graw), ("masks", self.masks),
-        ):
+        for name, t in (*bufs.items(), *inputs.items()):
             setattr(a, name, None if t is None else t.data_ptr())
         a.n_samples, a.s_pad = S, s_pad
         a.hidden, a.hp, a.num_trunk = H, Hp, nt
@@ -507,8 +522,8 @@ class Tf32Pass:
         a.dx, a.kx, a.dd = model.dim_xyz, kx, model.dim_dir
         a.white_bg = int(bool(white_background))
         a.luma = int(supervision == "luminance")
-        a.has_noise = int(inputs["noise"] is not None)
-        a.has_depth = int(inputs["depth_gt"] is not None)
+        a.has_noise = int(inputs.get("noise") is not None)
+        a.has_depth = int(inputs.get("depth_gt") is not None)
         a.sms = torch.cuda.get_device_properties(dev).multi_processor_count
         a.fwd_stages, a.chain_stages = occ["forward"][2], occ["chain"][2]
         a.parts = PASS_PARTS
@@ -526,8 +541,13 @@ class Tf32Pass:
         a.ray0 = c * self.chunk
         a.n_rays = min(self.chunk, self.N - a.ray0)
         a.k = a.n_rays * self.s_pad
-        check(self.lib, self.lib.dexnerf_train_pass(ctypes.addressof(a), stream),
-              "fused_train_loss pass launch")
+        if self.owner == LOSS:
+            check(self.lib, self.lib.dexnerf_train_pass(ctypes.addressof(a), stream),
+                  "fused_train_loss pass launch")
+        else:
+            bwd = self.owner == FIELD_BWD
+            check(self.lib, self.lib.dexnerf_field_tf32_pass(ctypes.addressof(a), int(bwd), stream),
+                  f"fused field f32 {'backward' if bwd else 'forward'} launch")
         return a.n_rays
 
 
@@ -555,9 +575,8 @@ def _launch(
         tensors += [("depth_gt", depth_gt, (N,)), ("depth_coef", depth_coef, (N,))]
     _check_inputs(model, dev, tensors, S)
     lib = load_library()
-    _check_struct_sizes(lib)
 
-    s_pad = -(-S // SLOTS) * SLOTS
+    s_pad = s_pad_of(S)
     chunk = max(1, min(N, SCRATCH_SAMPLES // s_pad))
     f32 = dict(dtype=torch.float32, device=dev)
     wg = WeightGradients(lib, model, N, chunk, s_pad, dev)
@@ -814,9 +833,8 @@ def _backward_layout(model: FlexibleNeRFModel, w: dict) -> Tuple[torch.Tensor]:
 
 
 def pack_backward_weights_bf16(model: FlexibleNeRFModel, device=None) -> torch.Tensor:
-    """The bf16 chain's weights (``pack_backward_weights`` at bfloat16):
-    each product's matrix [in, out] (the transpose of ``nn.Linear.weight``,
-    rounded to bf16, zero-padded to Hp = ``bf16_hidden`` rows and to K a
+    """The bf16 chain's weights: each product's matrix [in, out] (the
+    transpose of ``nn.Linear.weight``, rounded to bf16, zero-padded to Hp = ``bf16_hidden`` rows and to K a
     multiple of 64) as [Hp, 64] K-chunks (one 128 B-swizzled TMA box and
     wgmma B operand each) in the chain's order: ``layers_dir.0`` (feat
     rows), ``fc_feat``, then ``layers_xyz`` from the last to the first (h

@@ -64,12 +64,12 @@ PART_NAMES = {1: "train_prep_tf32_kernel", 2: "train_fwd_tf32_kernel",
               4: "train_composite_tf32_kernel", 8: "train_chain_tf32_kernel"}
 # the forward's and chain's scratch stores skipped (k, K < 0 never holds)
 NO_STORES = {"fused_train_loss.cu": [
-    ("  if (col < hm) {\n    float* d0", "  if (col < hm && k < 0) {\n    float* d0"),
+    ("  if (kStore && col < hm) {\n    float* d0", "  if (kStore && col < hm && k < 0) {\n    float* d0"),
     ("    if (col < hm) {\n      float* d0", "    if (col < hm && k < 0) {\n      float* d0"),
-    ("          if (col < hm / 2) {", "          if (col < hm / 2 && K < 0) {"),
+    ("          if (kSave && col < hm / 2) {", "          if (kSave && col < hm / 2 && K < 0) {"),
     ("            if (col < hm2) {", "            if (col < hm2 && K < 0) {"),
-    ("            __stcs(ecol + (long long)f * K, val);",
-     "            if (K < 0) __stcs(ecol + (long long)f * K, val);"),
+    ("            if (kSave) __stcs(ecol + (long long)f * K, val);",
+     "            if (kSave && K < 0) __stcs(ecol + (long long)f * K, val);"),
 ]}
 NO_MMA = {"mlp_tile_tf32.cuh": [
     ("wgmma_tf32_rs<N>(d, ", "if (0) wgmma_tf32_rs<N>(d, "),
@@ -82,17 +82,19 @@ NO_MMA = {"mlp_tile_tf32.cuh": [
 # e and y stay register stores
 STAGED = {"fused_train_loss.cu": [
     ('#include "mlp_tile_tf32.cuh"\n', '#include "dw_split.cuh"\n#include "mlp_tile_tf32.cuh"\n'),
-    ("constexpr int kLoss = 4;\n",
-     "constexpr int kLoss = 4;\n__device__ CUtensorMap g_act_maps[2];\n"),
+    ("constexpr int kLoss = 4, kFieldFwd = 2, kFieldBwd = 3;\n",
+     "constexpr int kLoss = 4, kFieldFwd = 2, kFieldBwd = 3;\n"
+     "__device__ CUtensorMap g_act_maps[2];\n"),
     ("  size_t ring, area, area_bytes, aux, own, bars, total;",
      "  size_t ring, area, area_bytes, aux, own, stage, bars, total;"),
     ("  s.bars = s.own + kCons * kOwnBytes;\n",
      "  s.stage = (s.own + kCons * kOwnBytes + 1023) & ~(size_t)1023;\n"
      "  s.bars = s.stage + kCons * (size_t)H * 256;\n"),
-    ("  if (col < hm) {\n    float* d0 = dst + (long long)col * k;\n    __stcs(d0, v0);\n"
+    ("  if (kStore && col < hm) {\n    float* d0 = dst + (long long)col * k;\n"
+     "    __stcs(d0, v0);\n"
      "    __stcs(d0 + k, v1);\n    __stcs(d0 + 8, v2);\n    __stcs(d0 + k + 8, v3);\n  }\n"
      "  if (kMask) {",
-     "  if (col < hm) {\n    float* d0 = dst + (long long)col * k;\n    d0[0] = v0;\n"
+     "  if (kStore && col < hm) {\n    float* d0 = dst + (long long)col * k;\n    d0[0] = v0;\n"
      "    d0[k] = v1;\n    d0[8] = v2;\n    d0[k + 8] = v3;\n  }\n  if (kMask) {"),
     ("  float* rgbr = sig + kTile;                                              // [64][3]\n",
      "  float* rgbr = sig + kTile;\n"
@@ -100,8 +102,8 @@ STAGED = {"fused_train_loss.cu": [
      "  const CUtensorMap* amap = &g_act_maps[p.parts >> 4];\n"),
     ("    wg_sync(bar);  // every warp is done with encf",
      "    if (t == 0) bulk_wait_read<0>();\n    wg_sync(bar);  // every warp is done with encf"),
-    ("save_block<MW, false>(acol + R.a(0), K, hm, j, q, v0, v1, v2, v3, m);",
-     "save_block<MW, false>(stage + row0, 64, hm, j, q, v0, v1, v2, v3, m);"),
+    ("save_block<MW, kSave, false>(acol + R.a(0), K, hm, j, q, v0, v1, v2, v3, m);",
+     "save_block<MW, kSave, false>(stage + row0, 64, hm, j, q, v0, v1, v2, v3, m);"),
     ("    fence_async_smem();\n    wg_sync(bar);\n    // ---- trunk, then fc_feat",
      "    fence_async_smem();\n    wg_sync(bar);\n"
      "    if (t == 0) {\n      tma_store_2d(amap, (int)col0, p.dx, smem_u32(stage));\n"
@@ -111,8 +113,8 @@ STAGED = {"fused_train_loss.cu": [
      "      const float* bias = aux + p.aux_off[1 + i];\n      uint32_t m[MW];\n"),
     ("      float* dst = acol + (i < nt ? R.a(i + 1) : R.feat());",
      "      float* dst = stage + row0;"),
-    ("save_block<MW, true>(dst, K, hm, j, q, v0, v1, v2, v3, m);",
-     "save_block<MW, true>(dst, 64, hm, j, q, v0, v1, v2, v3, m);"),
+    ("save_block<MW, kSave, kSave>(dst, K, hm, j, q, v0, v1, v2, v3, m);",
+     "save_block<MW, kSave, kSave>(dst, 64, hm, j, q, v0, v1, v2, v3, m);"),
     ("      fence_async_smem();\n      wg_sync(bar);\n    }\n    // ---- layers_dir.0 on feat",
      "      fence_async_smem();\n      wg_sync(bar);\n      if (t == 0) {\n"
      "        tma_store_2d(amap, (int)col0, p.dx + (i + 1) * hm, smem_u32(stage));\n"
@@ -284,13 +286,38 @@ def route_run(lib, passes, parts, torch, stages=None):
             a.parts = parts
 
 
+def pack_backward_weights(model, device):
+    """The FMA design's chain weights (its ``pack_backward_weights``): each
+    matrix ``[out, in]`` as ``nn.Linear.weight`` keeps it, cut to the input
+    columns that carry a gradient, each from a 16-byte boundary:
+    ``fc_rgb``, ``layers_dir.0`` [:, :H], ``fc_feat`` with ``fc_alpha`` as
+    one more row, then ``layers_xyz.i`` [:, :H]. Returns the buffer and the
+    offsets."""
+    import torch
+
+    H = model.hidden_size
+    mats = [model.fc_rgb.weight, model.layers_dir[0].weight[:, :H],
+            torch.cat([model.fc_feat.weight, model.fc_alpha.weight], dim=0),
+            *(lin.weight[:, :H] for lin in model.layers_xyz)]
+    chunks, offsets, pos = [], [], 0
+    for m in mats:
+        pad = -pos % 4
+        if pad:
+            chunks.append(torch.zeros(pad, dtype=torch.float32, device=m.device))
+            pos += pad
+        offsets.append(pos)
+        flat = m.detach().reshape(-1).to(torch.float32)
+        chunks.append(flat)
+        pos += flat.numel()
+    return torch.cat(chunks).to(device), offsets
+
+
 def fma_runner(lib, model, passes, torch):
     """Every chunk of both passes through the FMA design's
     ``train_pass_kernel``, into each pass's ``wg_fma`` scratch; its
     ``launch(i, c)`` runs chunk c of pass i alone."""
     from dexnerf_tpu_torch.core.encoding import frequency_bands
     from dexnerf_tpu_torch.ops import _build
-    from dexnerf_tpu_torch.ops._weight_grads import pack_backward_weights
     from dexnerf_tpu_torch.ops.fused_render import pack_flex_weights
 
     if lib.dexnerf_train_args_size() != ctypes.sizeof(_FmaArgs):

@@ -118,7 +118,7 @@ def test_train_field_gives_inputs_no_cotangent():
 
 FULL = dict(num_layers=8, hidden_size=128, skip_connect_every=3,
             num_encoding_fn_xyz=10, num_encoding_fn_dir=4)
-# raw to the render kernel's rtol/atol (f32 FMA vs cuBLAS SGEMM, TF32 off).
+# raw to the render kernel's rtol/atol (split TF32 vs cuBLAS SGEMM, TF32 off).
 # Gradients: each leaf held to the float64 plain version, within
 # GPU_GRAD_FACTOR times the f32 plain version's own error plus
 # GPU_GRAD_RTOL of the leaf's largest entry (the rule of the kernel-4

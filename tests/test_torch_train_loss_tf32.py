@@ -301,35 +301,33 @@ def _dy_sums(dy, s_pad):
     return out
 
 
-def emulate_pass(m, inp, *, white, luma, noise, depth, chunk, grid):
-    """The f32 pass's arithmetic on ``inp`` (float32 numpy): (loss sum,
-    weights, rgb, flat gradient)."""
+def _vec(aux, off, i, n):
+    return aux[off[i]:off[i] + n].numpy()
+
+
+def _prod(x, pair, total=None):
+    """x @ w in the kernel's split-TF32 order (``pair``: w's hi, lo [N, K])."""
+    wh, wl = (w.t().numpy() for w in pair)
+    xt = torch.from_numpy(np.ascontiguousarray(x))
+    xh, xl = (t.numpy() for t in split(F.pad(xt, (0, wh.shape[0] - x.shape[-1]))))
+    return promoted(xh, xl, wh, wl, total=total)
+
+
+def emulate_forward(m, enc, view, s_pad):
+    """The f32 forward's arithmetic (kernel 4's, and the field kernels')
+    on the xyz encodings ``enc`` [N s_pad, dx] (rows ray-major: ray r's
+    sample s at row r s_pad + s) and the per-ray viewdir encodings ``view``
+    [N, dd]: a dict of the activations at the padded width (``a``: a_0 ..
+    a_nt, ``feat``, ``yv``) and ``raw`` [N, s_pad, 4]."""
     H, nt = m.hidden_size, m.num_layers - 1
     Hp = fr.bf16_hidden(H)
     wq, aux, off = fr.pack_flex_weights_tf32(m)
     fops = iter(unpack(m, wq))
-    bops = iter(unpack_chunks(ftl.pack_backward_weights_tf32(m), backward_shapes(m)))
-    z = inp["z_vals"]
-    N, S = z.shape
-    s_pad = -(-S // 64) * 64
+    N = view.shape[0]
 
     def vec(i, n):
-        return aux[off[i]:off[i] + n].numpy()
+        return _vec(aux, off, i, n)
 
-    def prod(x, pair, total=None):
-        wh, wl = (w.t().numpy() for w in pair)
-        xt = torch.from_numpy(np.ascontiguousarray(x))
-        xh, xl = (t.numpy() for t in split(F.pad(xt, (0, wh.shape[0] - x.shape[-1]))))
-        return promoted(xh, xl, wh, wl, total=total)
-
-    zp = np.concatenate([z, np.zeros((N, s_pad - S), np.float32)], 1)
-    o, d = torch.tensor(inp["origins"]), torch.tensor(inp["directions"])
-    pts = o[:, None] + d[:, None] * torch.from_numpy(zp)[..., None]
-    enc = positional_encoding(pts, m.num_encoding_fn_xyz, m.include_input_xyz).reshape(
-        N * s_pad, -1).numpy()
-    view = positional_encoding(torch.tensor(inp["viewdirs"]), m.num_encoding_fn_dir,
-                               m.include_input_dir).numpy()
-    # ---- forward, rows ray-major (ray r's sample s at row r s_pad + s);
     # layer1 on the CUDA cores: a sequential f32 FMA chain over the features
     next(fops)
     w1 = ftl.pack_layer1_f32(m).numpy()
@@ -338,54 +336,92 @@ def emulate_pass(m, inp, *, white, luma, noise, depth, chunk, grid):
         acc = _fma(enc[:, k:k + 1], w1[k], acc)
     a = [_f32(acc + vec(0, Hp))]
     for i in range(nt):
-        y = prod(a[-1], next(fops))
+        y = _prod(a[-1], next(fops))
         if i in m.skips:
-            y = prod(enc, next(fops), y)
+            y = _prod(enc, next(fops), y)
         a.append(np.maximum(_f32(y + vec(1 + i, Hp)), 0.0))
     sigma = _f32(a[-1].astype(np.float64) @ vec(nt + 3, Hp) + vec(nt + 4, 1))
-    feat = np.maximum(_f32(prod(a[-1], next(fops)) + vec(nt + 1, Hp)), 0.0)
+    feat = np.maximum(_f32(_prod(a[-1], next(fops)) + vec(nt + 1, Hp)), 0.0)
     wdv = vec(nt + 7, m.dim_dir * Hp // 2).reshape(m.dim_dir, Hp // 2)
     dirb = _f32(vec(nt + 2, Hp // 2) + _f32(view.astype(np.float64) @ wdv))
-    yv = np.maximum(_f32(prod(feat, next(fops)) + np.repeat(dirb, s_pad, 0)), 0.0)
+    yv = np.maximum(_f32(_prod(feat, next(fops)) + np.repeat(dirb, s_pad, 0)), 0.0)
     w_rgb = vec(nt + 5, Hp // 2 * 3).reshape(Hp // 2, 3)
     rgb_l = _f32(yv.astype(np.float64) @ w_rgb + vec(nt + 6, 3))
-    raw = np.concatenate([rgb_l, sigma[:, None]], 1).reshape(N, s_pad, 4)[:, :S]
-    # ---- compositing
-    loss, w, rgb, graw = emulate_composite(
-        raw, z, inp["dists"], inp["noise"] if noise else None, inp["target"],
-        inp["depth_gt"] if depth else None, inp["depth_coef"] if depth else None, white, luma)
-    g = np.concatenate([graw, np.zeros((N, s_pad - S, 4), np.float32)], 1).reshape(-1, 4)
-    # ---- the chain
+    raw = np.concatenate([rgb_l, sigma[:, None]], 1).reshape(N, s_pad, 4)
+    return dict(a=a, feat=feat, yv=yv, raw=raw)
+
+
+def emulate_chain(m, fwd, g):
+    """The cotangent chain's arithmetic from the raw cotangents ``g`` [N
+    s_pad, 4] (0 on padding rows) through the forward ``fwd``
+    (:func:`emulate_forward`): ``dy``, ``dfeat`` and ``dl`` (d_0 .. d_nt)
+    at the padded width."""
+    Hp, nt = fr.bf16_hidden(m.hidden_size), m.num_layers - 1
+    _, aux, off = fr.pack_flex_weights_tf32(m)
+    bops = iter(unpack_chunks(ftl.pack_backward_weights_tf32(m), backward_shapes(m)))
+    a = fwd["a"]
+    w_rgb = _vec(aux, off, nt + 5, Hp // 2 * 3).reshape(Hp // 2, 3)
     dy = _fma(g[:, 2:3], w_rgb[:, 2], _fma(g[:, 1:2], w_rgb[:, 1], _f32(g[:, :1] * w_rgb[:, 0])))
-    dy = np.where(yv > 0, dy, 0.0).astype(np.float32)
-    dfeat = np.where(feat > 0, prod(dy, next(bops)), 0.0).astype(np.float32)
+    dy = np.where(fwd["yv"] > 0, dy, 0.0).astype(np.float32)
+    dfeat = np.where(fwd["feat"] > 0, _prod(dy, next(bops)), 0.0).astype(np.float32)
     dl = [None] * (nt + 1)
-    x = _fma(g[:, 3:4], vec(nt + 3, Hp), prod(dfeat, next(bops)))
+    x = _fma(g[:, 3:4], _vec(aux, off, nt + 3, Hp), _prod(dfeat, next(bops)))
     dl[nt] = np.where(a[nt] > 0, x, 0.0).astype(np.float32) if nt > 0 else x
     for i in range(nt - 1, -1, -1):
-        x = prod(dl[i + 1], next(bops))
+        x = _prod(dl[i + 1], next(bops))
         dl[i] = np.where(a[i] > 0, x, 0.0).astype(np.float32) if i > 0 else x
-    # ---- the scratch (the model's widths), per chunk, then the dW emulation
+    return dict(dy=dy, dfeat=dfeat, dl=dl)
+
+
+def scratch_chunks(m, enc, view, fwd, bwd, g, s_pad, chunk):
+    """The emulated scratch (the model's widths) of chunks of ``chunk``
+    rays, as :func:`emulate_dw` takes it: (rays, act, dlt, dir_enc,
+    dy_sum) each, dy_sum in the chain's order (:func:`_dy_sums`)."""
+    H, nt = m.hidden_size, m.num_layers - 1
+    N = view.shape[0]
     R = wgr.scratch_rows(m)
     act = np.zeros((R["act_rows"], N * s_pad), np.float32)
     dlt = np.zeros((R["dlt_rows"], N * s_pad), np.float32)
     act[:m.dim_xyz] = enc.T
     for i in range(nt + 1):
-        act[R["a"][i]:R["a"][i] + H] = a[i][:, :H].T
-        dlt[R["d"][i]:R["d"][i] + H] = dl[i][:, :H].T
-    act[R["feat"]:R["feat"] + H] = feat[:, :H].T
-    act[R["y"]:R["y"] + H // 2] = yv[:, :H // 2].T
-    dlt[R["d"][nt + 1]:R["d"][nt + 1] + H] = dfeat[:, :H].T
+        act[R["a"][i]:R["a"][i] + H] = fwd["a"][i][:, :H].T
+        dlt[R["d"][i]:R["d"][i] + H] = bwd["dl"][i][:, :H].T
+    act[R["feat"]:R["feat"] + H] = fwd["feat"][:, :H].T
+    act[R["y"]:R["y"] + H // 2] = fwd["yv"][:, :H // 2].T
+    dlt[R["d"][nt + 1]:R["d"][nt + 1] + H] = bwd["dfeat"][:, :H].T
     dlt[R["dsig"]] = g[:, 3]
-    dlt[R["dy"]:R["dy"] + H // 2] = dy[:, :H // 2].T
+    dlt[R["dy"]:R["dy"] + H // 2] = bwd["dy"][:, :H // 2].T
     dlt[R["drgb"]:R["drgb"] + 3] = g[:, :3].T
-    dys = _dy_sums(dy[:, :H // 2].reshape(N, s_pad, H // 2), s_pad)
+    dys = _dy_sums(bwd["dy"][:, :H // 2].reshape(N, s_pad, H // 2), s_pad)
     chunks = []
     for r0 in range(0, N, chunk):
         n = min(chunk, N - r0)
         cols = slice(r0 * s_pad, (r0 + n) * s_pad)
         chunks.append((n, act[:, cols].copy(), dlt[:, cols].copy(),
                        view[r0:r0 + n].T.copy(), dys[r0:r0 + n].T.copy()))
+    return chunks
+
+
+def emulate_pass(m, inp, *, white, luma, noise, depth, chunk, grid):
+    """The f32 pass's arithmetic on ``inp`` (float32 numpy): (loss sum,
+    weights, rgb, flat gradient)."""
+    z = inp["z_vals"]
+    N, S = z.shape
+    s_pad = -(-S // 64) * 64
+    zp = np.concatenate([z, np.zeros((N, s_pad - S), np.float32)], 1)
+    o, d = torch.tensor(inp["origins"]), torch.tensor(inp["directions"])
+    pts = o[:, None] + d[:, None] * torch.from_numpy(zp)[..., None]
+    enc = positional_encoding(pts, m.num_encoding_fn_xyz, m.include_input_xyz).reshape(
+        N * s_pad, -1).numpy()
+    view = positional_encoding(torch.tensor(inp["viewdirs"]), m.num_encoding_fn_dir,
+                               m.include_input_dir).numpy()
+    fwd = emulate_forward(m, enc, view, s_pad)
+    loss, w, rgb, graw = emulate_composite(
+        fwd["raw"][:, :S], z, inp["dists"], inp["noise"] if noise else None, inp["target"],
+        inp["depth_gt"] if depth else None, inp["depth_coef"] if depth else None, white, luma)
+    g = np.concatenate([graw, np.zeros((N, s_pad - S, 4), np.float32)], 1).reshape(-1, 4)
+    bwd = emulate_chain(m, fwd, g)
+    chunks = scratch_chunks(m, enc, view, fwd, bwd, g, s_pad, chunk)
     loss_sum = np.float32(0.0)
     for v in loss:
         loss_sum = np.float32(loss_sum + v)
