@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving path, its training
-configurations, its evaluation entry point and its LLFF/NDC path on one
-CUDA card.
+configurations, its evaluation entry point, its LLFF/NDC path and its
+occupancy-guided paths and mesh export on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -132,7 +132,24 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    its plain version on one batch of the run (phase 7's rule) and kernel
    1's on one NDC frame; time a step (host clock, profile) and the frame;
    score the held-out views through ``apps.eval --test-set``, the depths
-   as metric ray distances (``ndc_t_to_world_depth``).
+   as metric ray distances (``ndc_t_to_world_depth``);
+17. occupancy-guided empty-space skipping on phase 6's weights: bake a
+   128³ σ-occupancy grid on the card at a σ threshold that leaves 5-95% of
+   the cells occupied, held to a CPU bake of the same weights (cells within
+   1e-5 of the threshold excepted and counted); ``apps.eval --occupancy``
+   on the held-out 400x400 view (128 probes, subsample 2: two kernel-1
+   bf16 launches, none f32; every tightened interval inside the full one,
+   the mean shrink > 0; kernel 1 on the tightened rays vs its plain
+   versions by phase 3's rule; the tightening and the frame without
+   occupancy, with it, and with it at 32 + 32 samples timed);
+   ``apps.serve --occupancy`` (/render and /depth through kernel 1's bf16
+   route, /healthz reports occupancy, /confidence refused); ``apps.train
+   --occupancy`` for 30 steps at bf16, bakes after steps 9, 19 and 29 (60
+   launches of kernel 4's bf16 route, none f32; every stored interval
+   inside the full one; the loss falls), kernel 4's bf16 route on a
+   tightened batch vs its plain version (phase 7's rule), a step and a
+   re-bake of the 2.56M-ray store timed; ``apps.mesh`` at 128³ writes a
+   PLY, its σ grid timed.
 
 Each kernel's line holds its bound: the larger of its FLOPs (multiply-adds
 counted from the model's shapes; compares and arithmetic counted from the
@@ -153,6 +170,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import os
@@ -209,6 +227,18 @@ EVAL_PC_THRESHOLD = 50.0
 LLFF_CONFIG = os.path.join(ROOT, "configs", "llff.yml")
 LLFF_HW = (378, 504)
 LLFF_VIEWS, LLFF_ITERS, LLFF_VALID_MAX = 10, 20, 10.0
+# phase 17: occupancy on phase 6's lego-tpu weights: the grid (the JAX
+# default 128^3, radius 1.5), the dilated share of occupied cells the σ
+# threshold aims at, the cells near the threshold that a CPU bake may
+# decide otherwise, the probes a ray (a frame: apps.eval's default and its
+# subsample; the store: nerf.train.occupancy_probes' default), and the
+# occupancy-guided run: steps, first bake, bakes' period
+OCC_RES = 128
+OCC_FRACTION_RANGE, OCC_FRACTION_GOAL = (0.05, 0.95), 0.5
+OCC_THRESH_RTOL = 1e-5
+OCC_PROBES_FRAME, OCC_SUBSAMPLE, OCC_PROBES_STORE = 128, 2, 64
+OCC_ITERS, OCC_START, OCC_EVERY = 30, 10, 10
+OCC_GEMM_NAMES = ("gemm", "xmma", "cutlass")  # cuBLAS's device kernels, by name
 # kernels 5 and 6 vs plain: the CPU tests' tolerances (tests/test_torch_resample.py).
 # With trained weights the CDF has steps of ~1e-5, where one ulp of the CDF
 # moves a depth by up to ~1e-4 through the guarded lerp, so each output is
@@ -543,9 +573,10 @@ def device_all_ms(torch, fn, n=3):
 
 
 def train_cli(tmp, data, name, iters, torch, dev, config=TRAIN_CONFIG, dataset=None, flags=(),
-              **nerf):
+              train=None, **nerf):
     """``config`` (``configs/lego-tpu.yml``) pointed at the dataset ``data``,
-    with the ``dataset`` and ``nerf`` keys overridden, trained through
+    with the ``dataset``, ``nerf.train`` (``train``) and ``nerf`` keys
+    overridden, trained through
     ``dexnerf_tpu_torch.apps.train`` (with the extra CLI ``flags``) for
     ``iters`` steps on ``dev`` with every launch counter set to 0 just
     before and read just after. Returns the config path, the log directory,
@@ -563,6 +594,7 @@ def train_cli(tmp, data, name, iters, torch, dev, config=TRAIN_CONFIG, dataset=N
         save_every=iters, print_every=1,
     )
     raw["nerf"].update(nerf)
+    raw["nerf"]["train"].update(train or {})
     cfg_path = os.path.join(tmp, f"{name}.yml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump(raw, f)
@@ -834,7 +866,8 @@ def train_phase(torch, np, card, dev, tmp):
         "library_ms": sum(bf16_library(ms, "k4").values()),
         "parts": parts,
     }]
-    shared = types.SimpleNamespace(data=data, s_train=s_train, o=o, d=d, v=v, target=target,
+    shared = types.SimpleNamespace(data=data, cfg_path=cfg_path, logdir=logdir,
+                                   s_train=s_train, o=o, d=d, v=v, target=target,
                                    z_c=z_c, draws=draws, step_ms=step_ms)
     return train_kernels, shared
 
@@ -2232,18 +2265,264 @@ def profile_steps(torch, step, kernels_of, n=3, unit="step"):
     return full
 
 
-def serve_requests(config, ckpt, requests, torch):
-    """Start ``dexnerf_tpu_torch.apps.serve`` on the card with ``config`` and
-    ``ckpt``, send ``requests`` ((path, POST body or None) in order) over
-    HTTP with kernel 1's launch counters set to 0 just before and read just
-    after. Returns the response bodies, the decoded /healthz (when asked),
-    the request ms (host clock), the frames served, and the launches of
-    kernel 1 (either dtype) and of its bf16 kernel."""
+def pick_occupancy_threshold(sigma, torch):
+    """A positive σ threshold (0 turns occupancy off), midway between two
+    cells' σ, whose grid dilated once holds OCC_FRACTION_GOAL of the cells
+    or less, and at least OCC_FRACTION_RANGE[0]: the quantiles of the
+    positive σ are tried from the median up. Returns (threshold, dilated
+    fraction)."""
+    from dexnerf_tpu_torch.render.occupancy import dilate_occupancy
+
+    flat = torch.sort(sigma[sigma > 0]).values
+    for q in (0.5, 0.6, 0.7, 0.8, 0.9, 0.95, 0.98, 0.99, 0.995):
+        k = max(1, int(q * flat.numel()))
+        thr = float(0.5 * (flat[k - 1] + flat[k]))
+        frac = float(dilate_occupancy(sigma > thr).float().mean())
+        if thr > 0 and OCC_FRACTION_RANGE[0] <= frac <= OCC_FRACTION_GOAL:
+            return thr, frac
+    raise AssertionError(f"no σ threshold leaves {OCC_FRACTION_RANGE[0]:g}-"
+                         f"{OCC_FRACTION_GOAL:g} of the cells occupied")
+
+
+def occupancy_phase(torch, np, card, dev, tmp, shared):
+    """Phase 17, occupancy-guided empty-space skipping on phase 6's trained
+    ``lego-tpu`` weights: (a) bake a 128³ grid on the card at a σ
+    threshold that leaves 5-95% of the cells occupied, held to a CPU bake of
+    the same weights (cells whose σ lies within OCC_THRESH_RTOL of the
+    threshold, and their dilation, excepted and counted); (b) ``apps.eval
+    --occupancy`` on the held-out view (two kernel-1 bf16 launches, none
+    f32; every tightened interval inside the full one, the mean shrink > 0;
+    kernel 1 on the tightened rays vs its plain versions by phase 3's rule;
+    the tightening and the frame without occupancy, with it, and with it at
+    32 + 32 samples); (c) ``apps.serve --occupancy``: /render and /depth
+    (two bf16 launches a frame), /healthz, /confidence refused; (d)
+    ``apps.train --occupancy`` for OCC_ITERS steps at bf16 with a bake at
+    step OCC_START and every OCC_EVERY after (60 launches of kernel 4's
+    bf16 route, none f32; the bakes logged; the final store's intervals
+    inside the full one; the loss falls), kernel 4's bf16 route on a
+    tightened batch vs plain (phase 7's rule), a step and a re-bake (the
+    bake and the tightening of the store) timed; (e) ``apps.mesh`` at 128³
+    writes a PLY. Returns the kernels-line entries."""
+    import copy
+
+    from dexnerf_tpu_torch.apps import mesh as mesh_app
+    from dexnerf_tpu_torch.config import render_settings_from_cfg
+    from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w
+    from dexnerf_tpu_torch.data.pipeline import build_ray_store
+    from dexnerf_tpu_torch.render import occupancy as occ
+    from dexnerf_tpu_torch.render.renderer import make_mlp_field, make_ray_batch, render_image
+    from dexnerf_tpu_torch.train.loop import fused_render_impl, load_scene
+
+    cfg, coarse, fine, _ = run_models(shared.cfg_path, shared.logdir, TRAIN_ITERS, dev)
+    ckpt = os.path.join(shared.logdir, "checkpoints", f"checkpoint_{TRAIN_ITERS - 1:07d}.ckpt")
+    s_val = render_settings_from_cfg(cfg, "validation").eval_variant()
+    near, far = float(cfg.dataset.near), float(cfg.dataset.far)
+    ms = {}
+
+    # ---- (a) the bake, on the card and on the CPU
+    field = make_mlp_field(fine, s_val)
+    sigma = occ.eval_sigma_grid(field, device=dev, resolution=OCC_RES)
+    thr, _ = pick_occupancy_threshold(sigma, torch)
+    kw = dict(sigma_threshold=thr, resolution=OCC_RES)
+    grid = occ.build_occupancy_grid(field, device=dev, **kw)
+    ms["sigma_grid"] = timed_ms(lambda: occ.eval_sigma_grid(field, device=dev,
+                                                            resolution=OCC_RES), torch)
+    ms["bake"] = timed_ms(lambda: occ.build_occupancy_grid(field, device=dev, **kw), torch)
+    print("phase 17: the bake on the card (the plain model's products, the rest):")
+    profile_steps(torch, lambda: occ.build_occupancy_grid(field, device=dev, **kw),
+                  {"matmul": OCC_GEMM_NAMES}, unit="bake")
+    t0 = time.perf_counter()
+    grid_cpu = occ.build_occupancy_grid(make_mlp_field(copy.deepcopy(fine).cpu(), s_val),
+                                        device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    near_thr = (sigma - thr).abs() <= OCC_THRESH_RTOL * abs(thr)
+    excepted = occ.dilate_occupancy(near_thr).cpu()
+    differ = grid.occ.cpu() != grid_cpu.occ
+    frac = grid.occupancy_fraction()
+    print(f"phase 17: lego-tpu (phase 6's weights), {OCC_RES}^3 grid at σ > {thr:.6g} (σ on "
+          f"the grid: min {float(sigma.min()):.4g}, median {float(sigma.median()):.4g}, max "
+          f"{float(sigma.max()):.4g}): {100 * frac:.2f}% occupied after one dilation; vs the "
+          f"CPU bake ({cpu_s:.2f} s): {int(differ.sum())} cells differ, {int(near_thr.sum())} "
+          f"cells within {OCC_THRESH_RTOL:g} of the threshold ({int(excepted.sum())} "
+          f"dilated)")
+    run_checks("occupancy bake", {
+        "5-95% of the cells occupied": 0.05 <= frac <= 0.95,
+        "card bake = CPU bake off the cells near the threshold": not bool(
+            (differ & ~excepted).any()),
+        "cells near the threshold few (<= 0.1%)": int(near_thr.sum()) <= 1e-3 * near_thr.numel(),
+    })
+
+    # ---- (b) apps.eval --occupancy on the held-out view
+    savedir = os.path.join(tmp, "eval-occupancy")
+    occ_flags = ["--occupancy", repr(thr), "--occupancy-resolution", str(OCC_RES),
+                 "--occupancy-probes", str(OCC_PROBES_FRAME), "--occupancy-subsample",
+                 str(OCC_SUBSAMPLE)]
+    counts, metrics, secs = eval_cli(shared.cfg_path, ckpt, savedir,
+                                     ["--test-set", "--num-poses", "1", *occ_flags], dev)
+    scene = load_scene(cfg)
+    idx = int(scene.i_test[0])
+    H, W, focal = int(scene.hwf[0]), int(scene.hwf[1]), float(scene.hwf[2])
+    ro, rd = get_ray_bundle_c2w(H, W, focal, torch.as_tensor(scene.poses[idx], device=dev))
+    rays = make_ray_batch(ro, rd, near, far)
+    tighten = lambda: occ.tighten_image_intervals(  # noqa: E731
+        grid, rays.origins, rays.directions, rays.near, rays.far, (H, W),
+        num_probes=OCC_PROBES_FRAME, subsample=OCC_SUBSAMPLE)
+    with torch.inference_mode():
+        t_near, t_far = tighten()
+    shrink = 1.0 - float((t_far - t_near).mean()) / (far - near)
+    inside = bool(((t_near >= near) & (t_far <= far) & (t_near <= t_far)).all())
+    print(f"phase 17: apps.eval --test-set --occupancy {thr:.6g} on view {idx} ({H}x{W}) in "
+          f"{secs:.2f} s (first call); launches {json.dumps(counts)}; psnr "
+          f"{metrics['mean']['psnr']:.4f}; tightened intervals: mean shrink {shrink:.4f}, "
+          f"{float((t_far - t_near < far - near).float().mean()):.4f} of the rays tightened")
+    run_checks("evaluation with occupancy", {
+        "2 launches of kernel 1's bf16 route, none of its f32 route":
+            counts["fused_render_bf16"] == 2 and counts["fused_render"] == 2,
+        "no other kernel launched": all(v == 0 for k, v in counts.items()
+                                        if not k.startswith("fused_render")),
+        "every tightened interval inside the full one": inside,
+        "mean shrink > 0": shrink > 0.0,
+        "psnr and ssim finite": bool(np.isfinite([metrics["mean"][k] for k in ("psnr", "ssim")])
+                                     .all()),
+    })
+    tight = rays._replace(near=t_near, far=t_far)
+    err, fms, b_ms, b_by = hold_frame("phase 17: the tightened frame", coarse, fine, tight, s_val,
+                                      torch)
+    ms.update({f"frame_{k}": v for k, v in fms.items()})
+    s32 = dataclasses.replace(s_val, num_coarse=32, num_fine=32)
+    impl, impl32 = (fused_render_impl(cfg, s, dev, coarse, fine) for s in (s_val, s32))
+    okw = dict(occupancy=grid, occupancy_probes=OCC_PROBES_FRAME,
+               occupancy_subsample=OCC_SUBSAMPLE)
+    with torch.inference_mode():
+        ms["tighten_frame"] = timed_ms(tighten, torch)
+        ms["frame_full"] = timed_ms(lambda: render_image(
+            coarse, fine, ro, rd, near, far, s_val, rays_impl=impl), torch)
+        ms["frame_occupancy"] = timed_ms(lambda: render_image(
+            coarse, fine, ro, rd, near, far, s_val, rays_impl=impl, **okw), torch)
+        ms["frame_occupancy_32_32"] = timed_ms(lambda: render_image(
+            coarse, fine, ro, rd, near, far, s32, rays_impl=impl32, **okw), torch)
+    eval_entry = render_entry("fused_render_bf16@occupancy-eval", counts["fused_render_bf16"],
+                              err, fms, b_ms, b_by)
+
+    # ---- (c) apps.serve --occupancy
+    q = "theta=%g&phi=%g&radius=%g" % POSE
+    out, info, request_ms, frames, launches, launches_b = serve_requests(
+        shared.cfg_path, ckpt, [("/healthz", None), ("/render?" + q, None),
+                                ("/depth?" + q, None), ("/confidence?" + q, None)], torch,
+        flags=occ_flags, refused=("/confidence",))
+    depth = np.load(io.BytesIO(out[2]))
+    print(f"phase 17: apps.serve --occupancy: served {frames} frames, kernel-1 launches "
+          f"{launches} (bf16 {launches_b}); healthz occupancy {info.get('occupancy')}, "
+          f"depth_confidence {info.get('depth_confidence')}; /confidence: {out[3]}; request ms "
+          f"(host clock, first requests) {json.dumps(request_ms)}")
+    run_checks("serving with occupancy", {
+        "/render and /depth: 2 bf16 launches a frame, no f32 launch": frames == 2
+        and launches_b == 4 and launches == 4,
+        "/healthz reports occupancy": info.get("occupancy") is True
+        and info.get("depth_confidence") is False,
+        "/depth 400x400 finite": depth.shape == (HWF[0], HWF[1])
+        and bool(np.isfinite(depth).all()),
+        "/confidence refused": "occupancy" in out[3].get("error", ""),
+    })
+
+    # ---- (d) apps.train --occupancy, kernel 4 on the tightened store
+    train = dict(occupancy_start_iter=OCC_START, occupancy_rebake_every=OCC_EVERY,
+                 occupancy_resolution=OCC_RES, occupancy_probes=OCC_PROBES_STORE)
+    cfg_occ, logdir, counts_t, losses, _, secs_t, peak_gb = train_cli(
+        tmp, shared.data, "lego-tpu-occupancy", OCC_ITERS, torch, dev,
+        flags=("--occupancy", repr(thr)), train=train)
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    bakes = {r["step"]: r["value"] for r in recs if r["tag"] == "train/occ_fraction"}
+    shrinks = {r["step"]: r["value"] for r in recs if r["tag"] == "train/occ_interval_shrink"}
+    cfg_t, coarse_t, fine_t, _ = run_models(cfg_occ, logdir, OCC_ITERS, dev)
+    s_train = render_settings_from_cfg(cfg_t, "train")
+    store = build_ray_store(scene.images[scene.i_train], scene.poses[scene.i_train], scene.hwf,
+                            near, far, device=dev)
+    # the last bake's intervals again: the final weights, the whole store
+    field_t = make_mlp_field(fine_t, s_train)
+    kw_t = dict(sigma_threshold=thr, resolution=OCC_RES)
+
+    def rebake():
+        g = occ.build_occupancy_grid(field_t, device=dev, **kw_t)
+        return occ.tighten_store_intervals(g, store.data, near, far, num_probes=OCC_PROBES_STORE)
+
+    iv = rebake()
+    ms["rebake_store"] = timed_ms(rebake, torch, reps=1)
+    g_t = occ.build_occupancy_grid(field_t, device=dev, **kw_t)
+    ms["tighten_store"] = timed_ms(lambda: occ.tighten_store_intervals(
+        g_t, store.data, near, far, num_probes=OCC_PROBES_STORE), torch, reps=1)
+    print(f"phase 17: the tightening of the {store.num_rays}-ray store on the card:")
+    profile_steps(torch, lambda: occ.tighten_store_intervals(
+        g_t, store.data, near, far, num_probes=OCC_PROBES_STORE), {"gather": ("index",)}, n=1,
+        unit="tightening")
+    store_shrink = 1.0 - float((iv[:, 1] - iv[:, 0]).mean()) / (far - near)
+    want_steps = list(range(OCC_START - 1, OCC_ITERS, OCC_EVERY))
+    print(f"phase 17: apps.train --occupancy {thr:.6g}, {OCC_ITERS} steps in {secs_t:.2f} s "
+          f"(bakes after steps {sorted(bakes)}: fraction {json.dumps(bakes)}, shrink "
+          f"{json.dumps(shrinks)}); launches {json.dumps(counts_t)}; peak {peak_gb:.2f} GiB; loss "
+          f"first {losses[0]:.5f} last {losses[-1]:.5f}; the final store ({iv.shape[0]} rays): "
+          f"shrink {store_shrink:.6f}")
+    run_checks("training with occupancy", {
+        f"kernel 4's bf16 route launched {2 * OCC_ITERS} times, its f32 route never":
+            counts_t["fused_train_loss_bf16"] == 2 * OCC_ITERS
+            and counts_t["fused_train_loss"] == counts_t["fused_train_loss_bf16"],
+        f"a bake and {len(want_steps) - 1} re-bakes logged, after steps {want_steps}":
+            sorted(bakes) == want_steps and sorted(shrinks) == want_steps,
+        "the store's intervals inside the full one, shrink > 0 and = the last logged": bool(
+            ((iv[:, 0] >= near) & (iv[:, 1] <= far) & (iv[:, 0] <= iv[:, 1])).all())
+        and store_shrink > 0 and abs(store_shrink - shrinks[want_steps[-1]]) < 1e-4,
+        f"{OCC_ITERS} finite losses, falling": len(losses) == OCC_ITERS
+        and bool(np.isfinite(losses).all()) and np.mean(losses[-10:]) < np.mean(losses[:10]),
+    })
+    tightened = dataclasses.replace(store, intervals=iv)
+    batch = int(cfg_t.nerf.train.num_random_rays)
+    k4 = hold_train_bf16("phase 17: kernel 4 bf16 route on the tightened store", 17,
+                         (coarse_t, fine_t), tightened, s_train, float(cfg_t.optimizer.lr), batch,
+                         float(3 * batch), {}, torch, dev)
+    ms.update({f"k4_{k}": v for k, v in k4.ms.items()})
+
+    # ---- (e) apps.mesh at 128³
+    ply = os.path.join(tmp, "lego-occupancy.ply")
+    t0 = time.perf_counter()
+    rc = mesh_app.main(["--config", shared.cfg_path, "--checkpoint", ckpt, "--out", ply,
+                        "--sigma-threshold", repr(thr), "--resolution", str(OCC_RES),
+                        "--device", dev.type])
+    mesh_s = time.perf_counter() - t0
+    with open(ply) as f:
+        header = [next(f) for _ in range(9)]
+    n_verts = int(next(l for l in header if l.startswith("element vertex")).split()[-1])
+    n_faces = int(next(l for l in header if l.startswith("element face")).split()[-1])
+    ms["mesh_sigma_grid"] = timed_ms(lambda: occ.eval_sigma_grid(
+        field, device=dev, resolution=OCC_RES, style="corners"), torch)
+    print(f"phase 17: apps.mesh at {OCC_RES}^3, σ = {thr:.6g}: exit {rc}, {n_verts} vertices, "
+          f"{n_faces} faces in {mesh_s:.2f} s (host clock, first call)")
+    run_checks("mesh", {"exit 0, a PLY with vertices and faces": rc == 0 and n_verts > 0
+                        and n_faces > 0})
+    print(f"phase 17: ms on {card} (CUDA events, mean of 3; rebake_store and tighten_store one "
+          f"call; k4_step host clock, mean of 5): " + json.dumps(
+              {k: round(t, 4) for k, t in ms.items()}))
+    return [eval_entry, train_entry("fused_train_loss_bf16@occupancy",
+                                    counts_t["fused_train_loss_bf16"], k4)]
+
+
+def serve_requests(config, ckpt, requests, torch, flags=(), refused=()):
+    """Start ``dexnerf_tpu_torch.apps.serve`` on the card with ``config``,
+    ``ckpt`` and the extra CLI ``flags``, send ``requests`` ((path, POST
+    body or None) in order) over HTTP with kernel 1's launch counters set
+    to 0 just before and read just after. A request to a route of
+    ``refused`` must answer 400; its body is the decoded JSON error.
+    Returns the response bodies, the decoded /healthz (when asked), the
+    request ms (host clock), the frames served, and the launches of kernel
+    1 (either dtype) and of its bf16 kernel."""
+    import urllib.error
+
     from dexnerf_tpu_torch.apps import serve
     from dexnerf_tpu_torch.ops import fused_render as fr
 
     args = serve.build_parser().parse_args([
         "--config", config, "--checkpoint", ckpt, "--hwf", *map(str, HWF), "--device", "cuda",
+        *flags,
     ])
     service = serve.build_service(args)
     httpd = serve.make_http_server(service, "127.0.0.1", 0)
@@ -2257,10 +2536,15 @@ def serve_requests(config, ckpt, requests, torch):
         for path, body in requests:
             req = urllib.request.Request(base + path, data=body)
             t0 = time.perf_counter()
-            with urllib.request.urlopen(req, timeout=300) as r:
-                if r.status != 200:
-                    raise AssertionError(f"{path}: HTTP {r.status}")
-                out.append(r.read())
+            try:
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    if r.status != 200:
+                        raise AssertionError(f"{path}: HTTP {r.status}")
+                    out.append(r.read())
+            except urllib.error.HTTPError as e:
+                if e.code != 400 or path.split("?")[0] not in refused:
+                    raise
+                out.append(json.loads(e.read()))
             key = ("POST " if body else "GET ") + path.split("?")[0]
             key += " threshold" * ("threshold" in path) + " png" * ("png" in path)
             request_ms[key] = round((time.perf_counter() - t0) * 1e3, 3)
@@ -2566,6 +2850,7 @@ def main() -> int:
         dex_cfg, dex_logdir, dex_kernels = dex_phase(torch, np, card, dev, tmp)
         eval_kernels = eval_phase(torch, np, card, dev, tmp, dex_cfg, dex_logdir)
         llff_kernels = llff_phase(torch, np, card, dev, tmp)
+        occupancy_kernels = occupancy_phase(torch, np, card, dev, tmp, shared)
     render = dict(route="cuda", replaces="dexnerf_tpu/ops/fused_render.py:115")
     print(json.dumps({"kernels": [{
         "name": "fused_render",
@@ -2590,7 +2875,7 @@ def main() -> int:
         "bound_by": bf16_bound_by,
         "library_ms": ms["k1_forward_torch_matmul_bf16"],
     }, *train_kernels, *field_kernels, *resample_kernels, *dex_kernels, *eval_kernels,
-        *llff_kernels]}))
+        *llff_kernels, *occupancy_kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -18,9 +18,11 @@ and SSIM, with GT depth the expected depth's millimeter errors, and with
 ``--dex-depth`` the σ-threshold sweep's errors at the threshold of least
 abs error (``dex_*``, ``dex_best_m``) and which GT they were scored against
 (``dex_gt``). LLFF depths, NDC ray parameters, are scored as metric ray
-distances through ``core.rays.ndc_t_to_world_depth``. The flags of modes
-that are not ported yet are accepted and raise ``NotImplementedError``
-naming the ROADMAP item.
+distances through ``core.rays.ndc_t_to_world_depth``. ``--occupancy SIGMA``
+bakes a σ-occupancy grid from the checkpoint once and tightens every
+frame's ray intervals to their occupied spans (``render/occupancy.py``).
+The flags of modes that are not ported yet are accepted and raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -38,12 +40,57 @@ import torch
 UNPORTED = {
     "sg_ir": "Queue 1 item 10, `models/sg.py` + `render/sg_ir.py`",
     "refined_poses": "Queue 1 item 9, `core/lie.py` + `train/pose_opt.py`",
-    **{
-        k: "Queue 1 item 8, `render/occupancy.py`"
-        for k in ("occupancy", "occupancy_resolution", "occupancy_radius", "occupancy_center",
-                  "occupancy_dilate", "occupancy_probes", "occupancy_subsample")
-    },
 }
+
+
+def add_occupancy_flags(p: argparse.ArgumentParser) -> None:
+    """The seven ``--occupancy*`` flags that eval and serve share."""
+    p.add_argument(
+        "--occupancy", type=float, default=None, metavar="SIGMA",
+        help="empty-space skipping: bake a σ > SIGMA occupancy grid from the checkpoint once, "
+        "then tighten each ray's [near, far] to its occupied span before sampling. Pick SIGMA "
+        "far below the surface threshold (~0.2) so semi-transparent fringes stay inside the "
+        "interval. World-space scenes only (not NDC/llff)",
+    )
+    p.add_argument("--occupancy-resolution", type=int, default=128,
+                   help="occupancy grid resolution per axis")
+    p.add_argument("--occupancy-radius", type=float, default=1.5,
+                   help="half-extent of the occupancy cube around --occupancy-center")
+    p.add_argument("--occupancy-center", type=float, nargs=3, default=(0.0, 0.0, 0.0),
+                   help="world-space center of the occupancy cube")
+    p.add_argument("--occupancy-dilate", type=int, default=1,
+                   help="binary dilation rounds on the baked grid (safety margin)")
+    p.add_argument("--occupancy-probes", type=int, default=128,
+                   help="fixed probe count per ray for interval tightening")
+    p.add_argument(
+        "--occupancy-subsample", type=int, default=2,
+        help="probe every Nth pixel per axis and spread the intervals conservatively; 1 "
+        "probes every ray",
+    )
+
+
+def bake_occupancy(args, coarse, fine, settings, device):
+    """The occupancy grid of ``--occupancy`` (None without it), baked from
+    the fine field when there is one: the plain model on ``device``."""
+    if args.occupancy is None:
+        return None
+    from dexnerf_tpu_torch.render.occupancy import build_occupancy_grid
+    from dexnerf_tpu_torch.render.renderer import make_mlp_field
+
+    t0 = time.time()
+    grid = build_occupancy_grid(
+        make_mlp_field(fine if fine is not None else coarse, settings), device=device,
+        sigma_threshold=float(args.occupancy), center=tuple(args.occupancy_center),
+        radius=float(args.occupancy_radius), resolution=int(args.occupancy_resolution),
+        dilate=int(args.occupancy_dilate),
+    )
+    frac = grid.occupancy_fraction()
+    print(f"occupancy grid {args.occupancy_resolution}^3 (σ > {args.occupancy}) baked in "
+          f"{time.time() - t0:.1f}s — {100.0 * frac:.1f}% occupied")
+    if frac == 0.0:
+        print("WARNING: grid is empty — no tightening will happen; lower --occupancy or move "
+              "--occupancy-center/radius")
+    return grid
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -102,17 +149,10 @@ def build_parser() -> argparse.ArgumentParser:
         "--device", type=str, default="cuda", choices=("cuda", "cpu"),
         help="where the field lives and renders (default: the card)",
     )
+    add_occupancy_flags(p)
     # modes not ported yet: accepted so that they fail loudly
     p.add_argument("--sg-ir", action="store_true", help="not ported yet")
     p.add_argument("--refined-poses", action="store_true", help="not ported yet")
-    p.add_argument("--occupancy", type=float, default=None, help="not ported yet")
-    p.add_argument("--occupancy-resolution", type=int, default=None, help="not ported yet")
-    p.add_argument("--occupancy-radius", type=float, default=None, help="not ported yet")
-    p.add_argument("--occupancy-center", type=float, nargs=3, default=None,
-                   help="not ported yet")
-    p.add_argument("--occupancy-dilate", type=int, default=None, help="not ported yet")
-    p.add_argument("--occupancy-probes", type=int, default=None, help="not ported yet")
-    p.add_argument("--occupancy-subsample", type=int, default=None, help="not ported yet")
     return p
 
 
@@ -183,6 +223,11 @@ def main(argv=None) -> int:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet (ROADMAP.md {item})"
             )
+    if args.save_depth_confidence is not None and args.occupancy is not None:
+        raise SystemExit(
+            "--save-depth-confidence reconstructs full-interval z-values; "
+            "--occupancy tightens per-ray intervals — pick one"
+        )
     from dexnerf_tpu_torch.config import load_config, render_settings_from_cfg
     from dexnerf_tpu_torch.core.metrics import compute_err_metric, depth_error_img, mse2psnr, ssim
     from dexnerf_tpu_torch.core.rays import (
@@ -251,6 +296,12 @@ def main(argv=None) -> int:
             s_val, num_coarse=int(args.samples[0]), num_fine=int(args.samples[1]))
         print(f"sample counts overridden: {s_val.num_coarse} coarse + {s_val.num_fine} fine")
     rays_impl = fused_render_impl(cfg, s_val, device, coarse, fine)
+    if args.occupancy is not None and scene.use_ndc:
+        raise SystemExit(
+            "--occupancy is world-space; NDC (llff) scenes reparameterize the frustum — "
+            "unsupported"
+        )
+    occupancy = bake_occupancy(args, coarse, fine, s_val, device)
 
     test_indices = test_intrinsics = None
     if args.test_set:
@@ -302,6 +353,8 @@ def main(argv=None) -> int:
         out = render_image(
             coarse, fine, ro, rd, near_f, far_f, s_val, rays_impl=rays_impl,
             use_ndc=scene.use_ndc, height=H, width=W, focal_length=focal,
+            occupancy=occupancy, occupancy_probes=int(args.occupancy_probes),
+            occupancy_subsample=int(args.occupancy_subsample),
         )
         r = out.fine if out.fine is not None else out.coarse
         if (score_dex or pc_thres_idx is not None) and r.depth_dex is None:

@@ -11,7 +11,7 @@ dependency-free stdlib HTTP server.
 Endpoints (all GET unless noted):
 
 * ``/healthz`` — JSON service info: frame geometry, sample budget, dex
-  threshold candidates, timing of the last render.
+  threshold candidates, occupancy state, timing of the last render.
 * ``/render?theta=-30&phi=-45&radius=4`` — RGB PNG from a spherical-orbit
   camera.
 * ``/depth?theta=..&phi=..&radius=..[&threshold=M][&format=npy|png]`` —
@@ -20,9 +20,14 @@ Endpoints (all GET unless noted):
   grid). ``format=npy`` (default) returns float32 meters; ``format=png``
   the reference's millimeter PNG.
 * ``/confidence?...&delta=0.05[&format=npz|png]`` — expected depth and the
-  weight mass within ±delta of it.
+  weight mass within ±delta of it (refused with ``--occupancy``: it
+  rebuilds full-interval z-values).
 * ``POST /render`` — body ``{"c2w": [[..4x4..]], "output": "rgb"|"depth"
   [, "threshold": M]}``; returns PNG (rgb) or npy (depth).
+
+With ``--occupancy SIGMA`` a σ-occupancy grid is baked from the checkpoint
+at startup and every request's frame is rendered on ray intervals tightened
+to their occupied spans (``render/occupancy.py``).
 
 Requests serialize on an internal lock (one device, one render at a time);
 the server is threaded so /healthz stays responsive mid-render.
@@ -41,6 +46,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from dexnerf_tpu_torch.apps.eval import add_occupancy_flags, bake_occupancy
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -70,6 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--device", type=str, default="cuda", choices=("cuda", "cpu"),
         help="where the field lives and renders",
     )
+    add_occupancy_flags(p)
     return p
 
 
@@ -78,13 +86,17 @@ class RenderService:
 
     def __init__(
         self, cfg, coarse, fine, settings, H: int, W: int, focal: float,
-        *, device, rays_impl,
+        *, device, rays_impl, occupancy=None, occupancy_probes: int = 128,
+        occupancy_subsample: int = 2,
     ):
         self.H, self.W, self.focal = int(H), int(W), float(focal)
         self.settings = settings
         self.device = torch.device(device)
         self.coarse, self.fine = coarse, fine
         self.rays_impl = rays_impl
+        self.occupancy = occupancy
+        self.occupancy_probes = int(occupancy_probes)
+        self.occupancy_subsample = int(occupancy_subsample)
         self.near, self.far = float(cfg.dataset.near), float(cfg.dataset.far)
         self.m_thres_cand = tuple(float(m) for m in (settings.m_thres_cand or ()))
         self.lock = threading.Lock()
@@ -103,7 +115,8 @@ class RenderService:
         ro, rd = get_ray_bundle_c2w(self.H, self.W, self.focal, c2w)
         return render_image(
             self.coarse, self.fine, ro, rd, self.near, self.far, self.settings,
-            rays_impl=self.rays_impl,
+            rays_impl=self.rays_impl, occupancy=self.occupancy,
+            occupancy_probes=self.occupancy_probes, occupancy_subsample=self.occupancy_subsample,
         )
 
     def _timed(self, fn):
@@ -161,6 +174,12 @@ class RenderService:
         from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals, stratified_z_vals
         from dexnerf_tpu_torch.core.volrend import depth_confidence
 
+        if self.occupancy is not None:
+            raise ValueError(
+                "depth confidence reconstructs full-interval z-values and "
+                "is unavailable with --occupancy interval tightening"
+            )
+
         def run():
             out = self._render(pose)
             r = self._final(out)
@@ -194,8 +213,8 @@ class RenderService:
             "m_thres_cand": list(self.m_thres_cand),
             "compute_dtype": str(getattr(self.rays_impl, "compute_dtype", "")).replace(
                 "torch.", ""),
-            "occupancy": False,
-            "depth_confidence": True,
+            "occupancy": self.occupancy is not None,
+            "depth_confidence": self.occupancy is None,
             "renders_served": self.renders_served,
             "last_render_s": self.last_render_s,
         }
@@ -378,7 +397,9 @@ def build_service(args) -> RenderService:
         )
     rays_impl = fused_render_impl(cfg, s_val, device, coarse, fine)
     return RenderService(
-        cfg, coarse, fine, s_val, H, W, focal, device=device, rays_impl=rays_impl
+        cfg, coarse, fine, s_val, H, W, focal, device=device, rays_impl=rays_impl,
+        occupancy=bake_occupancy(args, coarse, fine, s_val, device),
+        occupancy_probes=args.occupancy_probes, occupancy_subsample=args.occupancy_subsample,
     )
 
 

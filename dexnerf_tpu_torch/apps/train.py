@@ -7,6 +7,7 @@ Counterpart of ``dexnerf_tpu/apps/train.py``:
     python -m dexnerf_tpu_torch.apps.train --config ... --load-checkpoint model.ckpt
     python -m dexnerf_tpu_torch.apps.train --config configs/messytable-obj.yml \
         --ir --dex --depth-loss 0.1 --depth-warmup 1000   # Dex-NeRF on messytable
+    python -m dexnerf_tpu_torch.apps.train --config ... --occupancy 0.2  # empty-space skipping
 
 With ``nerf.use_pallas`` every render pass of every step goes through the
 fused train-loss kernel (with ``nerf.pallas_loss_resample: pallas``, the
@@ -27,7 +28,6 @@ import argparse
 UNPORTED = {
     "sg_ir": "Queue 1 item 10, `models/sg.py` + `render/sg_ir.py`",
     "pose_opt": "Queue 1 item 9, `core/lie.py` + `train/pose_opt.py`",
-    "occupancy": "Queue 1 item 8, `render/occupancy.py`",
     "num_devices": "Queue 1 item 11, `parallel/sharding.py`",
 }
 
@@ -74,13 +74,20 @@ def build_parser() -> argparse.ArgumentParser:
         "cfg.nerf.train.depth_warmup",
     )
     p.add_argument(
+        "--occupancy", type=float, default=None, metavar="SIGMA",
+        help="occupancy-guided training: bake a σ > SIGMA occupancy grid from the "
+        "in-progress field (at cfg.nerf.train.occupancy_start_iter, re-baked every "
+        "occupancy_rebake_every iters) and tighten every stored ray's [near, far] to its "
+        "occupied span; overrides cfg.nerf.train.occupancy. World-space scenes only (not "
+        "NDC). Use a σ far below the scene's surface threshold (~0.2)",
+    )
+    p.add_argument(
         "--device", type=str, default="cuda", choices=("cuda", "cpu"),
         help="where the models train (default: the card)",
     )
     # modes not ported yet: accepted so that they fail loudly
     p.add_argument("--sg-ir", action="store_true", help="not ported yet")
     p.add_argument("--pose-opt", action="store_true", help="not ported yet")
-    p.add_argument("--occupancy", type=float, default=None, help="not ported yet")
     p.add_argument("--num-devices", type=int, default=None, help="not ported yet")
     return p
 
@@ -106,6 +113,7 @@ def main(argv=None) -> int:
         steps_per_call=args.steps_per_call,
         depth_loss_weight=args.depth_loss,
         depth_warmup=args.depth_warmup,
+        occupancy=args.occupancy,
         device=args.device,
     )
     print(

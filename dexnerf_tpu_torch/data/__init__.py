@@ -17,6 +17,7 @@ from dexnerf_tpu_torch.data.pipeline import (
     sample_ray_batch,
     sample_ray_batch_per_image,
     take_ray_batch,
+    with_full_intervals,
 )
 from dexnerf_tpu_torch.data.synthetic import (
     analytic_field,
@@ -44,6 +45,7 @@ __all__ = [
     "sample_ray_batch",
     "sample_ray_batch_per_image",
     "take_ray_batch",
+    "with_full_intervals",
     "translate_z",
     "write_blender_dataset",
     "write_llff_dataset",

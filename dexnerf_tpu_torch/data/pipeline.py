@@ -27,13 +27,17 @@ class RayStore:
 
     ``rays_per_image`` > 0 when the rows keep image structure (per-image
     sampling needs it); ``depth`` optionally holds per-ray ground-truth
-    depth [N] (meters) for depth supervision."""
+    depth [N] (meters) for depth supervision; ``intervals`` optionally
+    holds per-ray integration bounds [N, 2] (near, far) that replace the
+    scene's scalars when a batch is gathered (occupancy-guided training
+    re-tightens them from the field as it trains)."""
 
     data: torch.Tensor  # [N, 12]: ro(3) rd(3) viewdir(3) rgb(3)
     near: float
     far: float
     rays_per_image: int = 0
     depth: Optional[torch.Tensor] = None
+    intervals: Optional[torch.Tensor] = None  # [N, 2] per-ray (near, far)
 
     @property
     def num_rays(self) -> int:
@@ -88,18 +92,35 @@ def build_ray_store(
 
 
 def take_ray_batch(store: RayStore, idx: torch.Tensor) -> Tuple[RayBatch, torch.Tensor]:
-    """Gather rows ``idx`` into a RayBatch and the target rgb [B, 3]."""
+    """Gather rows ``idx`` into a RayBatch and the target rgb [B, 3]. Each
+    ray's bounds come from ``store.intervals`` when present, else the
+    scene's scalars."""
     rows = store.data[idx]
     n = rows.shape[0]
     kw = dict(dtype=rows.dtype, device=rows.device)
+    if store.intervals is not None:
+        iv = store.intervals[idx].to(rows.dtype)
+        near, far = iv[:, 0], iv[:, 1]
+    else:
+        near = torch.full((n,), store.near, **kw)
+        far = torch.full((n,), store.far, **kw)
     rays = RayBatch(
         origins=rows[:, 0:3],
         directions=rows[:, 3:6],
         viewdirs=rows[:, 6:9],
-        near=torch.full((n,), store.near, **kw),
-        far=torch.full((n,), store.far, **kw),
+        near=near,
+        far=far,
     )
     return rays, rows[:, 9:12]
+
+
+def with_full_intervals(store: RayStore) -> RayStore:
+    """``store`` with explicit per-ray ``intervals`` equal to the scene's
+    scalars (unchanged when it has intervals already)."""
+    if store.intervals is not None:
+        return store
+    full = torch.tensor([store.near, store.far], dtype=torch.float32, device=store.data.device)
+    return dataclasses.replace(store, intervals=full.expand(store.num_rays, 2).contiguous())
 
 
 def take_depth(store: RayStore, idx: torch.Tensor) -> torch.Tensor:

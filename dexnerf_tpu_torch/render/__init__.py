@@ -5,6 +5,7 @@ from dexnerf_tpu_torch.render.renderer import (
     RenderResult,
     RenderSettings,
     encode_points,
+    make_mlp_field,
     make_ray_batch,
     render_image,
     render_rays,
@@ -15,6 +16,7 @@ __all__ = [
     "RenderResult",
     "RenderSettings",
     "encode_points",
+    "make_mlp_field",
     "make_ray_batch",
     "render_image",
     "render_rays",

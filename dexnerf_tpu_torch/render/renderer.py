@@ -179,6 +179,17 @@ def encode_points(pts: torch.Tensor, viewdirs: torch.Tensor, s: RenderSettings):
 FieldFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
+def make_mlp_field(model: nn.Module, settings: RenderSettings) -> FieldFn:
+    """The plain field of ``model``: encode the points and viewdirs per
+    ``settings``, then call the model (the occupancy bake's σ and the
+    mesh's, as JAX's ``make_mlp_field``)."""
+
+    def field(pts, viewdirs):
+        return model(*encode_points(pts, viewdirs, settings))
+
+    return field
+
+
 def render_rays(
     coarse_model: nn.Module,
     fine_model: Optional[nn.Module],
@@ -255,6 +266,9 @@ def render_image(
     height: Optional[int] = None,
     width: Optional[int] = None,
     focal_length: Optional[float] = None,
+    occupancy=None,
+    occupancy_probes: int = 128,
+    occupancy_subsample: int = 2,
 ) -> RenderResult:
     """Render a full [H, W] ray bundle, ``chunk`` rays at a time (the whole
     bundle at once when None). ``rays_impl`` replaces :func:`render_rays`
@@ -262,12 +276,40 @@ def render_image(
     ``dexnerf_tpu_torch.ops.fused_render.make_fused_render_rays``. With
     ``use_ndc`` the rays are projected into NDC (:func:`make_ray_batch`),
     and the depths are NDC ray parameters.
+    ``occupancy`` (a ``render.occupancy.OccupancyGrid``) tightens each ray's
+    ``[near, far]`` to its occupied span before sampling: a full [H, W]
+    frame through ``tighten_image_intervals`` (every
+    ``occupancy_subsample``-th pixel probed), any other bundle through
+    ``tighten_ray_intervals``, ``occupancy_probes`` probes a ray. The grid
+    is world-space, so it raises with ``use_ndc``.
     Outputs are reshaped to [H, W, ...]; ``depth_dex`` to [T, H, W]."""
     img_shape = ray_directions.shape[:-1]
     rays = make_ray_batch(
         ray_origins, ray_directions, near, far, use_ndc=use_ndc, height=height,
         width=width, focal_length=focal_length,
     )
+    if occupancy is not None:
+        if use_ndc:
+            raise ValueError(
+                "occupancy-guided sampling is world-space; NDC rays are "
+                "reparameterized (nerf_helpers.py:172-199) — disable one"
+            )
+        from dexnerf_tpu_torch.render.occupancy import (
+            tighten_image_intervals,
+            tighten_ray_intervals,
+        )
+
+        if len(img_shape) == 2:
+            t_near, t_far = tighten_image_intervals(
+                occupancy, rays.origins, rays.directions, rays.near, rays.far, img_shape,
+                num_probes=occupancy_probes, subsample=occupancy_subsample,
+            )
+        else:
+            t_near, t_far = tighten_ray_intervals(
+                occupancy, rays.origins, rays.directions, rays.near, rays.far,
+                num_probes=occupancy_probes,
+            )
+        rays = rays._replace(near=t_near, far=t_far)
     n = rays.origins.shape[0]
     step = n if chunk is None else int(chunk)
     results = []

@@ -23,7 +23,7 @@ import os
 import re
 import time
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -42,13 +42,14 @@ from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w, get_ray_bundle_w2c
 from dexnerf_tpu_torch.data.blender import load_blender_data, load_blender_depths
 from dexnerf_tpu_torch.data.llff import load_llff_data, load_llff_depths
 from dexnerf_tpu_torch.data.messytable import load_messytable_data
-from dexnerf_tpu_torch.data.pipeline import build_ray_store
+from dexnerf_tpu_torch.data.pipeline import build_ray_store, with_full_intervals
 from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel, skip_positions
 from dexnerf_tpu_torch.ops.fused_mlp import make_fused_flexible_field
 from dexnerf_tpu_torch.ops.fused_mlp_train import make_fused_flexible_field_train
 from dexnerf_tpu_torch.ops.fused_render import make_fused_render_rays
 from dexnerf_tpu_torch.ops.fused_train_loss import make_fused_train_loss
-from dexnerf_tpu_torch.render.renderer import RenderSettings, render_image
+from dexnerf_tpu_torch.render.occupancy import build_occupancy_grid, tighten_store_intervals
+from dexnerf_tpu_torch.render.renderer import RenderSettings, make_mlp_field, render_image
 from dexnerf_tpu_torch.train.checkpoints import (
     adam_state_dict,
     infer_flexible_arch,
@@ -504,13 +505,9 @@ def latest_checkpoint(directory: str) -> Optional[str]:
 def _reject_unported(cfg: CfgNode, depth_w: float) -> None:
     """Config keys whose training modes are not ported raise instead of
     training something else."""
-    t = cfg.nerf.train
-    for key, item in (
-        ("occupancy", "occupancy-guided training (ROADMAP.md Queue 1 item 8)"),
-        ("pose_opt", "pose refinement (ROADMAP.md Queue 1 item 9)"),
-    ):
-        if _get(t, key, 0):
-            raise NotImplementedError(f"nerf.train.{key}: {item} is not ported yet")
+    if _get(cfg.nerf.train, "pose_opt", 0):
+        raise NotImplementedError(
+            "nerf.train.pose_opt: pose refinement (ROADMAP.md Queue 1 item 9) is not ported yet")
     if _get(cfg.dataset, "host_store", False):
         raise NotImplementedError(
             "dataset.host_store: the host-streamed store is not ported yet "
@@ -539,6 +536,7 @@ def run_training(
     steps_per_call: Optional[int] = None,
     depth_loss_weight: Optional[float] = None,
     depth_warmup: Optional[int] = None,
+    occupancy: Optional[float] = None,
     device="cuda",
 ) -> Dict[str, Any]:
     """Train a NeRF per ``cfg`` on one device; returns a summary dict.
@@ -563,7 +561,16 @@ def run_training(
     ``nerf.train.depth_warmup``) N > 0 runs the first N iterations without
     the depth term; -1 waits until the train PSNR at print cadence passes
     ``nerf.train.depth_warmup_psnr`` (default 14 dB), logs
-    ``train/depth_on_step`` and returns ``depth_on_step``."""
+    ``train/depth_on_step`` and returns ``depth_on_step``.
+
+    ``occupancy`` (else ``nerf.train.occupancy``) > 0 trains occupancy-
+    guided: a σ > threshold grid is baked from the in-progress field (the
+    fine one when there is one) at ``nerf.train.occupancy_start_iter`` and
+    every ``occupancy_rebake_every`` iterations after, and every stored
+    ray's ``[near, far]`` is tightened to its occupied span (misses keep the
+    full interval; ``render/occupancy.py``), logging ``train/occ_fraction``
+    and ``train/occ_interval_shrink``. World-space scenes and the
+    device-resident store only, and not with pose refinement."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("device cuda: no CUDA card is visible to PyTorch")
@@ -571,6 +578,22 @@ def run_training(
         depth_loss_weight if depth_loss_weight is not None
         else (_get(cfg.nerf.train, "depth_loss_weight", 0.0) or 0.0)
     )
+    occ_sigma = float(
+        occupancy if occupancy is not None
+        else (_get(cfg.nerf.train, "occupancy", 0.0) or 0.0)
+    )
+    if occ_sigma > 0.0:
+        if _get(cfg.nerf.train, "pose_opt", False):
+            raise ValueError(
+                "occupancy-guided training and pose refinement are mutually exclusive (the "
+                "pose store holds camera-frame rays whose world-space intervals move with "
+                "the poses)"
+            )
+        if _get(cfg.dataset, "host_store", False):
+            raise ValueError(
+                "occupancy-guided training needs the device-resident ray store "
+                "(dataset.host_store: false)"
+            )
     _reject_unported(cfg, depth_w)
     seed = int(_get(cfg.experiment, "randomseed", 42))
     logdir = logdir or os.path.join(str(cfg.experiment.logdir), str(cfg.experiment.id))
@@ -641,6 +664,35 @@ def run_training(
         use_ndc=scene.use_ndc,
         depths=scene.depths[scene.i_train] if depth_w > 0.0 else None,
     )
+    occ_rebake = None
+    occ_next = occ_every = 0
+    last_occ: Dict[str, float] = {}  # the last bake's occ_fraction and occ_interval_shrink
+    if occ_sigma > 0.0:
+        if scene.use_ndc:
+            raise ValueError(
+                "occupancy-guided training is world-space; NDC (llff) scenes reparameterize "
+                "the frustum — unsupported"
+            )
+        t = cfg.nerf.train
+        occ_next = int(_get(t, "occupancy_start_iter", 500))
+        occ_every = int(_get(t, "occupancy_rebake_every", 1000))
+        occ_kw = dict(
+            sigma_threshold=occ_sigma,
+            resolution=int(_get(t, "occupancy_resolution", 128)),
+            radius=float(_get(t, "occupancy_radius", 1.5)),
+            center=tuple(float(c) for c in _get(t, "occupancy_center", (0.0,) * 3)),
+            dilate=int(_get(t, "occupancy_dilate", 1)),
+        )
+        occ_probes = int(_get(t, "occupancy_probes", 64))
+        # explicit full intervals before the first step, replaced at each bake
+        store = with_full_intervals(store)
+        occ_field = make_mlp_field(fine if fine is not None else coarse, s_train)
+
+        def occ_rebake():
+            grid = build_occupancy_grid(occ_field, device=device, **occ_kw)
+            iv = tighten_store_intervals(grid, store.data, store.near, store.far,
+                                         num_probes=occ_probes)
+            return grid.occupancy_fraction(), iv
     steps_per_call = int(
         steps_per_call if steps_per_call is not None
         else _get(cfg.nerf.train, "steps_per_call", 1)
@@ -697,6 +749,13 @@ def run_training(
             metrics = step_fn(state, store, generator)
             last = min(i + steps_per_call, train_iters) - 1
             final = last == train_iters - 1
+            if occ_rebake is not None and last + 1 >= occ_next:
+                frac, iv = occ_rebake()
+                store = replace(store, intervals=iv)
+                occ_next = last + 1 + occ_every
+                last_occ = {"occ_fraction": frac, "occ_interval_shrink": 1.0 - float(
+                    torch.mean(iv[:, 1] - iv[:, 0])) / (store.far - store.near)}
+                logger.scalars({f"train/{k}": v for k, v in last_occ.items()}, last)
             if crosses(i, last, print_every) or final:
                 last_metrics = {k: float(v) for k, v in metrics.items()}
                 if (warmup_auto and depth_on_step is None
@@ -731,6 +790,7 @@ def run_training(
     elapsed = time.time() - t0
     return {
         **({"depth_on_step": depth_on_step} if warmup_auto else {}),
+        **last_occ,
         "state": state,
         "final_train_metrics": last_metrics,
         "final_validation": last_val,

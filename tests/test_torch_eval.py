@@ -343,10 +343,17 @@ def test_eval_dataset_free_reference_ckpt(jax, tmp_path):
     ["--occupancy-dilate", "2"], ["--occupancy-probes", "32"], ["--occupancy-subsample", "1"],
 ], ids=lambda f: f[0].lstrip("-"))
 def test_refused_flags_name_their_item(flag):
-    item = {"--sg-ir": "item 10", "--refined-poses": "item 9"}.get(flag[0], "item 8")
+    """Unported modes raise naming their ROADMAP item; the flags of Queue 1
+    item 8 (occupancy, ported since) pass the check, and the main goes on
+    to read the (missing) config."""
+    argv = ["--config", "unused.yml", "--checkpoint", "unused.ckpt", "--device", "cpu", *flag]
+    item = {"--sg-ir": "item 10", "--refined-poses": "item 9"}.get(flag[0])
+    if item is None:
+        with pytest.raises(FileNotFoundError, match="unused.yml"):
+            eval_app.main(argv)
+        return
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
-        eval_app.main(["--config", "unused.yml", "--checkpoint", "unused.ckpt", "--device",
-                       "cpu", *flag])
+        eval_app.main(argv)
 
 
 @pytest.mark.parametrize("case", ["dex-without-test-set", "pc-threshold-without-pc",
