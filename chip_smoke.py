@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving path, its training
-configurations, its evaluation entry point, its LLFF/NDC path and its
-occupancy-guided paths and mesh export on one CUDA card.
+configurations, its evaluation entry point, its LLFF/NDC path, its
+occupancy-guided paths and mesh export, and its other model families,
+optimizers and tiny pipeline on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -149,7 +150,24 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    inside the full one; the loss falls), kernel 4's bf16 route on a
    tightened batch vs its plain version (phase 7's rule), a step and a
    re-bake of the 2.56M-ray store timed; ``apps.mesh`` at 128³ writes a
-   PLY, its σ grid timed.
+   PLY, its σ grid timed;
+18. the other model families, FlexibleNeRF without viewdirs and the
+   optimizers beyond Adam: nine configurations of ``configs/lego-tpu.yml``
+   (``FAMILY_RUNS``: PaperNeRF, ReplicateNeRF, MultiHead, FlexibleNeRF
+   without viewdirs, FlexibleNeRF coarse + PaperNeRF fine, and AdamW, SGD,
+   RMSprop, Adagrad), each trained through ``apps.train`` for 10 steps at
+   batch 8192, 64 + 64 on phase 6's scene: no kernel launched on the
+   all-plain configs, on the mixed config kernels 2 and 3 (bf16) once a
+   step for the coarse pass and kernels 1 and 4 never (JAX's selection
+   rules), kernel 4 on the optimizer runs; each run's loss on a fixed batch
+   below its seeded init's, its ``.ckpt`` with the optimizer's state, a
+   step's host-clock ms and peak memory, ``apps.eval --test-set`` on it;
+   kernels 2 and 3 on the mixed run's coarse pass vs plain (the f32 leaves
+   by the own-decision rule of ``perf_tools/field_f32_rule.py``) and
+   timed; the mixed step at ``pallas_compute_dtype: float32`` held to the
+   plain autograd step by its loss; 3 updates of each
+   optimizer on the card held to the CPU's on shared gradients; ``apps.tiny`` for 200 iterations
+   on the card, its hold-out PSNR rising.
 
 Each kernel's line holds its bound: the larger of its FLOPs (multiply-adds
 counted from the model's shapes; compares and arithmetic counted from the
@@ -181,6 +199,7 @@ import threading
 import time
 import types
 import urllib.request
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "messytable-obj.yml")
@@ -239,6 +258,38 @@ OCC_THRESH_RTOL = 1e-5
 OCC_PROBES_FRAME, OCC_SUBSAMPLE, OCC_PROBES_STORE = 128, 2, 64
 OCC_ITERS, OCC_START, OCC_EVERY = 30, 10, 10
 OCC_GEMM_NAMES = ("gemm", "xmma", "cutlass")  # cuBLAS's device kernels, by name
+# phase 18: the other model families, FlexibleNeRF without viewdirs and the
+# optimizers beyond Adam, each configuration lego-tpu.yml with its model
+# types, nerf.use_viewdirs or optimizer.type overridden in memory (batch
+# 8192, 64 + 64, phase 6's scene): name -> (models.{block}.type, nerf keys,
+# optimizer.type)
+FAMILY_RUNS = {
+    "paper": ({"coarse": "PaperNeRFModel", "fine": "PaperNeRFModel"}, {}, None),
+    "replicate": ({"coarse": "ReplicateNeRFModel", "fine": "ReplicateNeRFModel"}, {}, None),
+    "multihead": ({"coarse": "MultiHeadNeRFModel", "fine": "MultiHeadNeRFModel"}, {}, None),
+    "flexible-no-viewdirs": ({}, {"use_viewdirs": False}, None),
+    "mixed": ({"fine": "PaperNeRFModel"}, {}, None),
+    "adamw": ({}, {}, "AdamW"),
+    "sgd": ({}, {}, "SGD"),
+    "rmsprop": ({}, {}, "RMSprop"),
+    "adagrad": ({}, {}, "Adagrad"),
+}
+FAMILY_ITERS = 10
+# each run's loss is read on one fixed batch of this many rays (eval
+# settings), at the seeded init and from its checkpoint: the training
+# losses of 10 random batches are too noisy to show SGD's and Adagrad's
+# small steps at lr 5e-3
+HELD_RAYS = 4096
+# each optimizer's updates on the card held to the same updates on the CPU
+# on shared gradients (the CPU's plain-path step's), each leaf within these
+# shares of its largest entry: the two devices differ only in the update's
+# own rounding. Full steps are not held so: an entry whose gradient sum lies
+# within rounding of 0 takes Adam's first update, lr * g / (|g| + eps),
+# with either sign (2.2e-2 of a leaf's largest entry on the card against
+# the CPU from phase 6's weights)
+OPT_RAYS, OPT_STEPS = 1024, 3
+OPT_PARAM_RTOL, OPT_STATE_RTOL = 1e-6, 1e-5
+TINY_ITERS = 200
 # kernels 5 and 6 vs plain: the CPU tests' tolerances (tests/test_torch_resample.py).
 # With trained weights the CDF has steps of ~1e-5, where one ulp of the CDF
 # moves a depth by up to ~1e-4 through the guarded lerp, so each output is
@@ -573,9 +624,10 @@ def device_all_ms(torch, fn, n=3):
 
 
 def train_cli(tmp, data, name, iters, torch, dev, config=TRAIN_CONFIG, dataset=None, flags=(),
-              train=None, **nerf):
+              train=None, models=None, optimizer=None, **nerf):
     """``config`` (``configs/lego-tpu.yml``) pointed at the dataset ``data``,
-    with the ``dataset``, ``nerf.train`` (``train``) and ``nerf`` keys
+    with the ``dataset``, ``nerf.train`` (``train``) and ``nerf`` keys, the
+    model blocks' types (``models``: block -> type) and ``optimizer.type``
     overridden, trained through
     ``dexnerf_tpu_torch.apps.train`` (with the extra CLI ``flags``) for
     ``iters`` steps on ``dev`` with every launch counter set to 0 just
@@ -595,6 +647,10 @@ def train_cli(tmp, data, name, iters, torch, dev, config=TRAIN_CONFIG, dataset=N
     )
     raw["nerf"].update(nerf)
     raw["nerf"]["train"].update(train or {})
+    for blk, typ in (models or {}).items():
+        raw["models"][blk]["type"] = typ
+    if optimizer is not None:
+        raw["optimizer"]["type"] = optimizer
     cfg_path = os.path.join(tmp, f"{name}.yml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump(raw, f)
@@ -1194,9 +1250,9 @@ def hold_to_own(title, got, want, want_f32, torch):
     return errs
 
 
-def print_leaves(leaves):
+def print_leaves(leaves, limit=f"limit {GRAD_RTOL:g}"):
     print(f"  gradient leaves, [max abs err, max |g| of the plain version, err / max |g|] "
-          f"(limit {GRAD_RTOL:g}): " + json.dumps(
+          f"({limit}): " + json.dumps(
               {k: [float(f"{e:.3e}"), float(f"{m:.3e}"), float(f"{e / m if m else 0:.3e}")]
                for k, (e, m) in leaves.items()}))
 
@@ -2506,6 +2562,432 @@ def occupancy_phase(torch, np, card, dev, tmp, shared):
                                     counts_t["fused_train_loss_bf16"], k4)]
 
 
+def field_pass_hold(label, model, pts, v, g, kw, torch, dev):
+    """Kernels 2 and 3 on one pass of a run (``pts`` [N, S, 3], the per-ray
+    ``v``, the pass loss's cotangent ``g``), both routes, held to their
+    plain versions, then timed (CUDA events, mean of 3) beside their plain
+    versions, their bounds and their products as ``torch.matmul``. The f32
+    routes: raw within RTOL / ATOL (phase 10's rule) and each kernel-3 leaf
+    by the rule ``perf_tools/field_f32_rule.py`` holds that route to
+    (ROADMAP Queue 3 fault 7): each version to float64 on its own ReLU
+    decisions, the route within GPU_GRAD_FACTOR times the plain version's
+    error + GPU_GRAD_RTOL of the leaf's largest entry, every decision it
+    makes otherwise than the plain version within MASK_RTOL of its layer's
+    largest activation (phase 10's GRAD_RTOL of the plain f32 leaf is
+    printed beside it; a ReLU within rounding of 0 decided otherwise moves a
+    leaf by ~1/sqrt(samples) of its largest entry, past it on 1 of 13
+    batches of the mixed run's coarse pass). The bf16 routes: relative to
+    the dtype's own effect. Returns a namespace of ``err`` (by route),
+    ``ms`` and ``bounds``."""
+    from dexnerf_tpu_torch.ops import fused_mlp as fm
+    from dexnerf_tpu_torch.ops import fused_mlp_train as fmt
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+
+    from perf_tools.field_f32_rule import (
+        GPU_GRAD_FACTOR,
+        GPU_GRAD_RTOL,
+        MASK_RTOL,
+        forward_on_masks,
+        grads_on_masks,
+        route_activations,
+    )
+
+    bf = dict(compute_dtype=torch.bfloat16)
+    bf2 = dict(bf, dw_dtype=torch.bfloat16)
+    names = [n for n, _ in model.named_parameters()]
+    raw_p = fm.fused_field_reference(model, pts, v, **kw).detach()
+    want = fmt.field_grads_reference(model, pts, v, g, **kw)
+    raw = fm.fused_field(model, pts, v, **kw)
+    grads = fmt._launch_backward(model, pts, v, g, **kw)
+    torch.cuda.synchronize()
+    bad, leaves, err = [], {}, {"fwd": float((raw - raw_p).abs().max()), "bwd": 0.0}
+    if not bool(torch.isfinite(raw).all()) or bool(
+            ((raw - raw_p).abs() > ATOL + RTOL * raw_p.abs()).any()):
+        bad.append("raw")
+    with torch.no_grad():
+        plain_acts = forward_on_masks(model, pts, v)[1]
+        route_acts = route_activations(model, pts, v, g)
+    flips = 0
+    for i, (ar, ap) in enumerate(zip(route_acts, plain_acts)):
+        flip = (ar > 0) != (ap > 0)
+        flips += int(flip.sum())
+        if not bool(((ar - ap)[flip].abs() <= MASK_RTOL * ap.abs().max()).all()):
+            bad.append(f"ReLU decisions of layer {i}")
+    exact_k = grads_on_masks(model, pts, v, g, [a > 0 for a in route_acts])
+    exact_p = grads_on_masks(model, pts, v, g, [a > 0 for a in plain_acts])
+    del route_acts, plain_acts
+    rule = {}
+    for pname, gk, gp, ek, ep in zip(names, grads, want, exact_k, exact_p):
+        e, scale = float((gk - gp).abs().max()), float(gp.abs().max())
+        leaves[pname] = (e, scale)
+        err["bwd"] = max(err["bwd"], e)
+        e_k, e_p = float((gk.double() - ek).abs().max()), float((gp.double() - ep).abs().max())
+        limit = GPU_GRAD_FACTOR * e_p + GPU_GRAD_RTOL * float(ek.abs().max())
+        rule[pname] = float(f"{e_k / limit:.3e}")
+        if not bool(torch.isfinite(gk).all()) or e_k > limit:
+            bad.append(pname)
+    print(f"{label}: f32 routes, kernel 2 raw max abs err {err['fwd']:.3e} (rtol {RTOL:g}, "
+          f"atol {ATOL:g}); kernel 3 ({flips} ReLU decisions otherwise than the plain version):")
+    print_leaves(leaves, f"phase 10's limit {GRAD_RTOL:g}, beside the rule below")
+    print(f"  each leaf's float64 error on its own decisions over its limit ({GPU_GRAD_FACTOR:g} x "
+          f"the plain version's + {GPU_GRAD_RTOL:g} of the largest entry): " + json.dumps(rule))
+    if bad:
+        raise AssertionError(f"{label}: field kernels and plain differ in {bad}")
+    raw_b = fm.fused_field(model, pts, v, **kw, **bf)
+    grads_b = fmt._launch_backward(model, pts, v, g, **kw, **bf2)
+    torch.cuda.synchronize()
+    plain_b = {"raw": fm.fused_field_reference(model, pts, v, **kw, **bf).detach(),
+               **dict(zip(names, fmt.field_grads_reference(model, pts, v, g, **kw, **bf2)))}
+    errs = hold_to_own(f"{label}: bf16 routes of kernels 2 (raw) and 3 (leaves) vs plain,",
+                       {"raw": raw_b, **dict(zip(names, grads_b))}, plain_b,
+                       {"raw": raw_p, **dict(zip(names, want))}, torch)
+    err["fwd_bf16"] = errs.pop("raw")
+    err["bwd_bf16"] = max(errs.values())
+    ms = {}
+    for tag, dt, dt2 in (("", {}, {}), ("_bf16", bf, bf2)):
+        with torch.no_grad():
+            ms["fwd_kernel" + tag] = timed_ms(lambda: fm.fused_field(model, pts, v, **kw, **dt),
+                                              torch)
+            ms["fwd_plain" + tag] = timed_ms(
+                lambda: fm.fused_field_reference(model, pts, v, **kw, **dt), torch)
+        ms["bwd_kernel" + tag] = timed_ms(
+            lambda: fmt._launch_backward(model, pts, v, g, **kw, **dt2), torch)
+        ms["bwd_plain" + tag] = timed_ms(
+            lambda: fmt.field_grads_reference(model, pts, v, g, **kw, **dt2), torch)
+    n, s = pts.shape[:2]
+    passes = [(model, n * s)]
+    dw_yardsticks(ms, passes, torch, dev)
+    pass_yardsticks(ms, "k", passes, torch, dev)
+    pass_yardsticks(ms, "k", passes, torch, dev, torch.bfloat16)
+    ps, pr = mlp_macs(model)
+    fwd_flops, bwd_flops = 2 * (n * s * ps + n * pr), train_flops(model, n, s)
+    params = list(model.parameters())
+    packs = nbytes(*ftl._cached_bf16_weights(model, dev)[:2])
+    raw_bytes = n * s * 4 * 4
+    bounds = {
+        "fwd": bound(3 * fwd_flops, nbytes(pts, v, *params) + raw_bytes, TF32_FLOPS),
+        "bwd": bound(3 * bwd_flops, nbytes(pts, v, g) + 2 * nbytes(*params), TF32_FLOPS),
+        "fwd_bf16": bound(fwd_flops, nbytes(pts, v) + packs + raw_bytes, BF16_FLOPS),
+        "bwd_bf16": bound(bwd_flops, nbytes(pts, v, g, *params) + packs
+                          + nbytes(ftl.pack_backward_weights_bf16(model, dev)), BF16_FLOPS),
+    }
+    print(f"{label}: ms (CUDA events, mean of 3): "
+          + json.dumps({k: round(t, 3) for k, t in ms.items()}) + "; bounds (ms): "
+          + json.dumps({k: [round(b, 3), by] for k, (b, by) in bounds.items()}))
+    return types.SimpleNamespace(err=err, ms=ms, bounds=bounds)
+
+
+def field_entries(name, route, launches, hold):
+    """The kernels-line entries of kernels 2 and 3's ``route`` ("f32" or
+    "bf16") on a run's pass from :func:`field_pass_hold`, with
+    ``launches`` (kernel 2's, kernel 3's) of that run."""
+    ms, b = hold.ms, hold.bounds
+    tag = "" if route == "f32" else "_bf16"
+    src = ("dexnerf_tpu_torch/ops/csrc/fused_train_loss.cu" if route == "f32"
+           else "dexnerf_tpu_torch/ops/csrc/fused_train_loss_bf16.cu")
+    names = (("fused_field", "fused_field_backward") if route == "f32"
+             else ("fused_mlp_bf16", "fused_mlp_train_bf16"))
+    lib = "_f32" if route == "f32" else "_bf16"
+
+    def by(key):
+        return b[key][1] + (SPLIT_TF32 if route == "f32" and b[key][1] == "operations" else "")
+
+    return [
+        {"name": f"{names[0]}@{name}", "route": "cuda", "source": src,
+         "replaces": "dexnerf_tpu/ops/fused_mlp.py:481", "launches": launches[0],
+         "max_abs_err": hold.err["fwd" + tag], "ms": ms["fwd_kernel" + tag],
+         "plain_ms": ms["fwd_plain" + tag], "bound_ms": b["fwd" + tag][0],
+         "bound_by": by("fwd" + tag), "library_ms": ms["k_forward_torch_matmul" + lib]},
+        {"name": f"{names[1]}@{name}", "route": "cuda", "source": src,
+         "replaces": "dexnerf_tpu/ops/fused_mlp_train.py:221", "launches": launches[1],
+         "max_abs_err": hold.err["bwd" + tag], "ms": ms["bwd_kernel" + tag],
+         "plain_ms": ms["bwd_plain" + tag], "bound_ms": b["bwd" + tag][0],
+         "bound_by": by("bwd" + tag),
+         "library_ms": ms["dw_torch_matmul" + lib] + ms["k_forward_torch_matmul" + lib]
+         + ms["k_chain_torch_matmul" + lib]},
+    ]
+
+
+def families_phase(torch, np, card, dev, tmp, shared):
+    """Phase 18, the other model families, FlexibleNeRF without viewdirs,
+    the optimizers beyond Adam and JAX's kernel-selection rules: (a) each
+    configuration of FAMILY_RUNS (``configs/lego-tpu.yml`` with its model
+    types, ``nerf.use_viewdirs`` or ``optimizer.type`` overridden in
+    memory, printed) trained through ``apps.train`` for FAMILY_ITERS steps
+    at full width on phase 6's scene, every launch counter set to 0 just
+    before and read just after: no kernel on the all-plain configs, kernels
+    2 and 3 (bf16) once a step and kernel 4 never on the mixed FlexibleNeRF
+    + PaperNeRF config (the coarse pass through the field kernels, the fine
+    pass plain), kernel 4 twice a step on the optimizer runs; the loss on a
+    fixed batch lower after than at the seeded init, the ``.ckpt`` with the
+    optimizer's state, a step's host-clock ms, peak memory and profile, and
+    ``apps.eval --test-set`` on the checkpoint; (b) kernels 2 and 3 on the
+    mixed run's coarse pass, both routes, vs plain (:func:`field_pass_hold`)
+    and timed; (c) the mixed config's step at ``pallas_compute_dtype:
+    float32`` (one launch each of kernels 2 and 3's f32 routes) held to the
+    plain autograd step on the same draws by its loss, its leaves printed;
+    (d) OPT_STEPS updates of each optimizer on the
+    card held to the CPU's on the CPU's gradients from phase 6's weights; (e)
+    ``apps.tiny`` for TINY_ITERS iterations on the card (no kernel), its
+    hold-out PSNR rising. Returns the kernels-line entries of (b)-(c)."""
+    import copy
+
+    from dexnerf_tpu_torch.apps import tiny as tiny_app
+    from dexnerf_tpu_torch.config import load_config, render_settings_from_cfg
+    from dexnerf_tpu_torch.core.volrend import composite, ray_dists
+    from dexnerf_tpu_torch.data.pipeline import build_ray_store, take_ray_batch
+    from dexnerf_tpu_torch.render.renderer import (
+        draw_render_noise,
+        jittered_z_vals,
+        render_rays,
+    )
+    from dexnerf_tpu_torch.train.checkpoints import PORT_OPTIMIZER_KEY, read_reference_checkpoint
+    from dexnerf_tpu_torch.train.loop import (
+        load_scene,
+        maybe_fused_fields,
+        maybe_fused_loss,
+        setup_models,
+    )
+    from dexnerf_tpu_torch.train.step import (
+        OPTIMIZER_REGISTRY,
+        StepDraws,
+        init_train_state,
+        make_train_step,
+        nerf_loss,
+    )
+
+    cfg0 = load_config(shared.cfg_path)
+    scene = load_scene(cfg0)
+    near, far = float(cfg0.dataset.near), float(cfg0.dataset.far)
+    train_views = (scene.images[scene.i_train], scene.poses[scene.i_train], scene.hwf, near, far)
+    store = build_ray_store(*train_views, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    held_rays, held_target = take_ray_batch(
+        store, torch.randint(0, store.num_rays, (HELD_RAYS,), generator=gen, device=dev))
+
+    def held_loss(cfg, coarse, fine):
+        s = render_settings_from_cfg(cfg, "validation").eval_variant()
+        with torch.no_grad():
+            return float(nerf_loss(render_rays(coarse, fine, held_rays, s), held_target)[0])
+
+    def step_of(cfg, coarse, fine, batch):
+        """The run's train step, its kernels selected as ``run_training``
+        selects them."""
+        s = render_settings_from_cfg(cfg, "train")
+        fused = maybe_fused_loss(cfg, s, "rgb", coarse, fine)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the no-viewdirs warning, printed by the run
+            fields = (None, None) if fused is not None else maybe_fused_fields(
+                cfg, coarse, fine, train=True)
+        return make_train_step(s, batch, fused_loss=fused, coarse_field=fields[0],
+                               fine_field=fields[1])
+
+    # ---- (a) every configuration through apps.train, then apps.eval
+    rows, mixed = {}, None
+    batch = int(cfg0.nerf.train.num_random_rays)
+    for name, (types_, nerf, opt) in FAMILY_RUNS.items():
+        over = {**{f"models.{b}.type": t for b, t in types_.items()},
+                **{f"nerf.{k}": v for k, v in nerf.items()},
+                **({"optimizer.type": opt} if opt else {})}
+        cfg_path, logdir, counts, losses, val, secs, peak_cli = train_cli(
+            tmp, shared.data, f"family-{name}", FAMILY_ITERS, torch, dev, models=types_,
+            optimizer=opt, **nerf)
+        cfg = load_config(cfg_path)
+        ck_path = os.path.join(logdir, "checkpoints", f"checkpoint_{FAMILY_ITERS - 1:07d}.ckpt")
+        ck = read_reference_checkpoint(ck_path)
+        before = held_loss(cfg, *setup_models(cfg, int(cfg.experiment.randomseed), dev))
+        coarse, fine = setup_models(cfg, SEED, dev)
+        coarse.load_state_dict(ck["coarse"])
+        fine.load_state_dict(ck["fine"])
+        after = held_loss(cfg, coarse, fine)
+        if name == "mixed":
+            mixed = (cfg_path, cfg, copy.deepcopy(coarse), copy.deepcopy(fine), counts)
+        st = init_train_state(coarse, fine, float(cfg.optimizer.lr),
+                              opt_type=str(cfg.optimizer.type))
+        step = step_of(cfg, coarse, fine, batch)
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = host_ms(torch, lambda: step(st, store, gen), n=3)
+        peak_step = torch.cuda.max_memory_allocated() / 2**30
+        print(f"phase 18: {name}: a step's device time by part")
+        profile_steps(torch, lambda: step(st, store, gen), (
+            {"kernel 4 bf16": KERNEL4_BF16_NAMES} if opt is not None
+            else {"kernel 2 bf16": FIELD_FWD_BF16_NAMES, "kernel 3 bf16": FIELD_BWD_BF16_NAMES}
+            if name == "mixed" else {}), n=2)
+        del st, step, coarse, fine
+        e_counts, metrics, e_secs = eval_cli(cfg_path, ck_path, os.path.join(tmp, f"eval-{name}"),
+                                             ["--test-set"], dev)
+        e_psnr = metrics["mean"]["psnr"] if metrics else float("nan")
+        rows[name] = dict(overrides=over, step_ms=round(step_ms, 3),
+                          peak_step_gib=round(peak_step, 2), peak_cli_gib=round(peak_cli, 2),
+                          cli_s=round(secs, 2), held_loss=[round(before, 6), round(after, 6)],
+                          eval_psnr=round(e_psnr, 3), eval_s=round(e_secs, 2),
+                          launches={k: v for k, v in counts.items() if v},
+                          eval_launches={k: v for k, v in e_counts.items() if v})
+        print(f"phase 18: {name}: " + json.dumps(rows[name]) + f"; loss first {losses[0]:.5f} "
+              f"last {losses[-1]:.5f}; validation psnr {val}")
+        n2 = FAMILY_ITERS
+        checks = {
+            f"{FAMILY_ITERS} finite losses": len(losses) == FAMILY_ITERS
+            and bool(np.isfinite(losses).all()),
+            "loss on the fixed batch falls from the seeded init": after < before,
+            ".ckpt after the last step, the optimizer's state in it": ck["step"] == FAMILY_ITERS
+            and (("optimizer_state_dict" in ck) if (opt or "Adam") in ("Adam", "AdamW")
+                 else ck.get(PORT_OPTIMIZER_KEY, {}).get("type") == opt),
+            "apps.eval --test-set scores one view": metrics is not None
+            and len(metrics["per_image"]) == 1 and bool(np.isfinite(e_psnr)),
+        }
+        if opt is not None:
+            checks[f"kernel 4's bf16 route {2 * n2} times, kernel 1 at validation and eval"] = (
+                counts["fused_train_loss_bf16"] == counts["fused_train_loss"] == 2 * n2
+                and counts["fused_mlp"] == counts["fused_mlp_train"] == 0
+                and counts["fused_render_bf16"] >= 2 and e_counts["fused_render_bf16"] == 2)
+        elif name == "mixed":
+            checks[f"kernels 2 and 3's bf16 routes {n2} times each (the coarse pass), kernels "
+                   "1 and 4 never"] = (
+                counts["fused_mlp_bf16"] == counts["fused_mlp"] == n2
+                and counts["fused_mlp_train_bf16"] == counts["fused_mlp_train"] == n2
+                and counts["fused_train_loss"] == counts["fused_render"] == 0
+                and not any(e_counts.values()))
+        else:
+            checks["no kernel launched (kernels 1-4 read 0)"] = (
+                not any(counts.values()) and not any(e_counts.values()))
+        run_checks(f"phase 18 {name}", checks)
+
+    # ---- (b) kernels 2 and 3 on the mixed run's coarse pass, both routes
+    cfg_path, cfg, coarse, fine, mixed_counts = mixed
+    s_train = render_settings_from_cfg(cfg, "train")
+    gen = torch.Generator(device=dev).manual_seed(SEED)  # its own batch, as phase 7's
+    idx = torch.randint(0, store.num_rays, (batch,), generator=gen, device=dev)
+    rays, target = take_ray_batch(store, idx)
+    draws = draw_render_noise(batch, s_train, gen, dev)
+    o, d, v = (t.contiguous() for t in rays[:3])
+    z = jittered_z_vals(rays, s_train, draws)
+    pts = (o[:, None] + d[:, None] * z[..., None]).contiguous()
+    kw = dict(log_sampling_xyz=s_train.log_sampling_xyz, log_sampling_dir=s_train.log_sampling_dir)
+    from dexnerf_tpu_torch.ops import fused_mlp as fm
+
+    leaf = fm.fused_field_reference(coarse, pts, v, **kw).detach().requires_grad_(True)
+    out = composite(leaf, z, ray_dists(z, d), sigma_noise=draws.noise_coarse)
+    g = torch.autograd.grad(torch.mean((out.rgb - target) ** 2), leaf)[0].contiguous()
+    hold = field_pass_hold(f"phase 18: mixed config, coarse pass ({batch} rays x {z.shape[1]} "
+                           "samples)", coarse, pts, v, g, kw, torch, dev)
+    entries = field_entries("mixed-paper", "bf16", (mixed_counts["fused_mlp_bf16"],
+                                                    mixed_counts["fused_mlp_train_bf16"]), hold)
+
+    # ---- (c) the mixed config's step at pallas_compute_dtype float32 vs plain, on
+    # (b)'s rays and draws. The coarse leaves are kernel 3's, held in (b); the
+    # fine PaperNeRF's are plain on both sides and move with the depths its
+    # pass resamples from the coarse weights (6.7e-5 to 3.1e-4 of their
+    # largest entry on 12 batches), so the leaves are printed and the loss held
+    cfg32 = load_config(cfg_path)
+    cfg32.nerf.pallas_compute_dtype = "float32"
+    params = [p for m in (coarse, fine) for p in m.parameters()]
+    names = [f"{t}.{n}" for t, m in (("coarse", coarse), ("fine", fine))
+             for n, _ in m.named_parameters()]
+
+    def loss_grads(coarse_field):
+        result = render_rays(coarse, fine, rays, s_train, draws, coarse_field=coarse_field)
+        loss = nerf_loss(result, target)[0]
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    zero_counts()
+    cf, ff = maybe_fused_fields(cfg32, coarse, fine, train=True)
+    loss_k, grads_k = loss_grads(cf)
+    torch.cuda.synchronize()
+    counts32 = read_counts()
+    loss_p, grads_p = loss_grads(None)
+    leaves = {n_: (float((gk - gp).abs().max()), float(gp.abs().max()))
+              for n_, gk, gp in zip(names, grads_k, grads_p)}
+    e_loss = abs(float(loss_k) - float(loss_p))
+    print(f"phase 18: mixed config at pallas_compute_dtype float32, one step's loss and "
+          f"gradients through kernels 2 and 3 (coarse) vs the plain autograd step on the same "
+          f"draws: loss {float(loss_k):.7f} vs {float(loss_p):.7f}; launches "
+          + json.dumps({k: c for k, c in counts32.items() if c}))
+    print_leaves(leaves, "printed: the coarse leaves are held in (b)")
+    run_checks("phase 18 mixed float32 step", {
+        "fine field plain (PaperNeRF), coarse through the f32 kernels": ff is None
+        and cf is not None,
+        "kernels 2 and 3's f32 routes once each, nothing else": counts32["fused_mlp"] == 1
+        and counts32["fused_mlp_train"] == 1 and counts32["fused_mlp_bf16"] == 0
+        and counts32["fused_mlp_train_bf16"] == 0 and sum(counts32.values()) == 2,
+        f"loss within {TRAIN_LOSS_RTOL:g}": e_loss <= TRAIN_LOSS_RTOL * abs(float(loss_p)),
+        "every leaf finite": all(bool(torch.isfinite(gk).all()) for gk in grads_k),
+    })
+    entries += field_entries("mixed-paper-f32", "f32", (
+        counts32["fused_mlp"] - counts32["fused_mlp_bf16"],
+        counts32["fused_mlp_train"] - counts32["fused_mlp_train_bf16"]), hold)
+    del coarse, fine, cf, grads_k, grads_p
+
+    # ---- (d) each optimizer's updates on the card vs the CPU, on shared gradients
+    _, base_c, base_f, _ = run_models(shared.cfg_path, shared.logdir, TRAIN_ITERS, dev)
+    cpu_store = build_ray_store(*train_views, device="cpu")
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    s_opt = render_settings_from_cfg(cfg0, "train")
+    cpu_draws = [StepDraws(torch.randint(0, cpu_store.num_rays, (OPT_RAYS,), generator=cpu_gen),
+                           draw_render_noise(OPT_RAYS, s_opt, cpu_gen, "cpu"))
+                 for _ in range(OPT_STEPS)]
+    cpu_step = make_train_step(s_opt, OPT_RAYS)
+    lr = float(cfg0.optimizer.lr)
+    opt_rows = {}
+    for opt in OPTIMIZER_REGISTRY:
+        cpu = init_train_state(copy.deepcopy(base_c).cpu(), copy.deepcopy(base_f).cpu(), lr,
+                               opt_type=opt)
+        on_card = init_train_state(copy.deepcopy(base_c), copy.deepcopy(base_f), lr,
+                                   opt_type=opt)
+        pairs = [(pc, ph) for mc, mh in ((on_card.coarse, cpu.coarse), (on_card.fine, cpu.fine))
+                 for pc, ph in zip(mc.parameters(), mh.parameters())]
+        for dr in cpu_draws:
+            cpu_step(cpu, cpu_store, draws=[dr])  # the CPU's step leaves its gradients
+            for pc, ph in pairs:
+                pc.grad = ph.grad.to(dev)
+            for group in on_card.optimizer.param_groups:
+                group["lr"] = on_card.schedule(on_card.step)
+            on_card.optimizer.step()
+            on_card.step += 1
+        worst_p = worst_s = 0.0
+        for pc, ph in pairs:
+            worst_p = max(worst_p, float((pc.detach().cpu() - ph.detach()).abs().max())
+                          / float(ph.detach().abs().max()))
+            sc, sh_ = on_card.optimizer.state[pc], cpu.optimizer.state[ph]
+            for k in sh_:
+                if k == "step" or not torch.is_tensor(sh_[k]):
+                    continue
+                worst_s = max(worst_s, float((sc[k].cpu() - sh_[k]).abs().max())
+                              / max(float(sh_[k].abs().max()), 1e-30))
+        opt_rows[opt] = [float(f"{worst_p:.3e}"), float(f"{worst_s:.3e}")]
+    print(f"phase 18: {OPT_STEPS} updates of each optimizer on the card vs the CPU, on the "
+          f"CPU's plain-path gradients from phase 6's weights ({OPT_RAYS} rays a step), "
+          f"[worst parameter, worst state] error over its leaf's largest entry (limits "
+          f"{OPT_PARAM_RTOL:g}, {OPT_STATE_RTOL:g}): " + json.dumps(opt_rows))
+    run_checks("phase 18 optimizers card vs CPU", {
+        f"{k} within its limits": p <= OPT_PARAM_RTOL and s <= OPT_STATE_RTOL
+        for k, (p, s) in opt_rows.items()})
+    del base_c, base_f, cpu_store
+
+    # ---- (e) apps.tiny on the card
+    out_dir = os.path.join(tmp, "tiny")
+    zero_counts()
+    t0 = time.perf_counter()
+    tiny_app.main(["--iters", str(TINY_ITERS), "--display-every", str(TINY_ITERS // 4),
+                   "--outdir", out_dir, "--device", dev.type])
+    tiny_s = time.perf_counter() - t0
+    tiny_counts = read_counts()
+    psnr = np.loadtxt(os.path.join(out_dir, "psnr.txt"))
+    print(f"phase 18: apps.tiny, {TINY_ITERS} iterations on the card in {tiny_s:.2f} s "
+          f"({1e3 * tiny_s / TINY_ITERS:.3f} ms an iteration with the hold-out renders, host "
+          f"clock); hold-out PSNR {psnr[:, 1].round(3).tolist()} at "
+          f"{psnr[:, 0].astype(int).tolist()}")
+    run_checks("phase 18 apps.tiny", {
+        "hold-out PSNR rises": psnr[-1, 1] > psnr[0, 1],
+        "render PNGs written": os.path.exists(
+            os.path.join(out_dir, f"render_{TINY_ITERS - 1:05d}.png")),
+        "no kernel launched": not any(tiny_counts.values()),
+    })
+    print(f"phase 18: steps (host clock, mean of 3) and peak memory on {card}: " + json.dumps(
+        {k: [r["step_ms"], r["peak_step_gib"]] for k, r in rows.items()}))
+    return entries
+
+
 def serve_requests(config, ckpt, requests, torch, flags=(), refused=()):
     """Start ``dexnerf_tpu_torch.apps.serve`` on the card with ``config``,
     ``ckpt`` and the extra CLI ``flags``, send ``requests`` ((path, POST
@@ -2851,6 +3333,7 @@ def main() -> int:
         eval_kernels = eval_phase(torch, np, card, dev, tmp, dex_cfg, dex_logdir)
         llff_kernels = llff_phase(torch, np, card, dev, tmp)
         occupancy_kernels = occupancy_phase(torch, np, card, dev, tmp, shared)
+        family_kernels = families_phase(torch, np, card, dev, tmp, shared)
     render = dict(route="cuda", replaces="dexnerf_tpu/ops/fused_render.py:115")
     print(json.dumps({"kernels": [{
         "name": "fused_render",
@@ -2875,7 +3358,7 @@ def main() -> int:
         "bound_by": bf16_bound_by,
         "library_ms": ms["k1_forward_torch_matmul_bf16"],
     }, *train_kernels, *field_kernels, *resample_kernels, *dex_kernels, *eval_kernels,
-        *llff_kernels, *occupancy_kernels]}))
+        *llff_kernels, *occupancy_kernels, *family_kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -66,7 +66,10 @@ def render_settings_from_cfg(
 
 def model_from_cfg(model_cfg: CfgNode, use_viewdirs: Optional[bool] = None):
     """Instantiate a registry model from a ``models.{coarse,fine}`` block;
-    every declared knob is honored."""
+    every declared knob is honored, with the keys JAX's ``model_from_cfg``
+    passes (``dexnerf_tpu/config/schema.py:83-100``): ``filter_size`` and
+    ``num_encoding_functions`` for the small families, ``dtype`` from
+    ``compute_dtype`` for FlexibleNeRF's plain path."""
     kwargs = dict(
         num_layers=int(_get(model_cfg, "num_layers", 4)),
         hidden_size=int(_get(model_cfg, "hidden_size", 128)),
@@ -80,6 +83,9 @@ def model_from_cfg(model_cfg: CfgNode, use_viewdirs: Optional[bool] = None):
             if use_viewdirs is None
             else use_viewdirs
         ),
+        filter_size=int(_get(model_cfg, "hidden_size", 128)),
+        num_encoding_functions=int(_get(model_cfg, "num_encoding_fn_xyz", 6)),
+        dtype=str(_get(model_cfg, "compute_dtype", "float32")),
     )
     return build_model(str(model_cfg.type), **kwargs)
 

@@ -1,10 +1,5 @@
 """Explicit model registry (counterpart of
-``dexnerf_tpu/models/registry.py``).
-
-Only ``FlexibleNeRFModel`` — the model of every shipped config — is
-ported; the other four reference families are registered by name and
-raise until they are.
-"""
+``dexnerf_tpu/models/registry.py``): the five families by name."""
 
 from __future__ import annotations
 
@@ -13,30 +8,20 @@ from typing import Callable, Dict
 
 from torch import nn
 
-from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
-
-
-def _not_ported(name: str) -> Callable[..., nn.Module]:
-    def build(**_kwargs):
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP Queue 1, models: the other "
-            "model families)"
-        )
-
-    return build
-
+from dexnerf_tpu_torch.models.mlp import (
+    FlexibleNeRFModel,
+    MultiHeadNeRFModel,
+    PaperNeRFModel,
+    ReplicateNeRFModel,
+    VeryTinyNeRFModel,
+)
 
 MODEL_REGISTRY: Dict[str, Callable[..., nn.Module]] = {
+    "VeryTinyNeRFModel": VeryTinyNeRFModel,
+    "MultiHeadNeRFModel": MultiHeadNeRFModel,
+    "ReplicateNeRFModel": ReplicateNeRFModel,
+    "PaperNeRFModel": PaperNeRFModel,
     "FlexibleNeRFModel": FlexibleNeRFModel,
-    **{
-        name: _not_ported(name)
-        for name in (
-            "VeryTinyNeRFModel",
-            "MultiHeadNeRFModel",
-            "ReplicateNeRFModel",
-            "PaperNeRFModel",
-        )
-    },
 }
 
 

@@ -34,7 +34,11 @@ import torch
 from dexnerf_tpu_torch.core.encoding import positional_encoding
 from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
 from dexnerf_tpu_torch.ops import fused_train_loss as ftl
-from dexnerf_tpu_torch.ops.fused_render import _check_compute_dtype, flex_forward_bf16
+from dexnerf_tpu_torch.ops.fused_render import (
+    _check_compute_dtype,
+    check_fusable,
+    flex_forward_bf16,
+)
 
 launches = 0  # kernel-2 launches of either dtype
 launches_bf16 = 0  # of which the bf16 route's
@@ -68,14 +72,13 @@ def fused_field_reference(
     )
     if compute_dtype == torch.bfloat16:
         return flex_forward_bf16(model, xyz, view)
-    return model(xyz, view)
+    return model(xyz, view, dtype=torch.float32)  # not the model's own plain-path dtype
 
 
 def check_field_inputs(model, tensors) -> None:
     """Device, dtype, contiguity and shape of ``tensors`` ((name, tensor,
     shape), ...) and the model's fit to the kernels' limits."""
-    if not isinstance(model, FlexibleNeRFModel):
-        raise TypeError(f"the field kernels take FlexibleNeRFModel, not {type(model)}")
+    check_fusable(model, "the field kernels")
     dev = tensors[0][1].device
     for name, t, shape in tensors:
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
@@ -160,6 +163,7 @@ def make_fused_flexible_field(
     of ``make_fused_flexible_field``, whose weights are an argument
     instead; float32 by default, as there)."""
     _check_compute_dtype(compute_dtype)
+    check_fusable(model, "the field kernels")
 
     def field(pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
         return fused_field(

@@ -51,7 +51,7 @@ from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
 from dexnerf_tpu_torch.ops import fused_mlp
 from dexnerf_tpu_torch.ops import fused_train_loss as ftl
 from dexnerf_tpu_torch.ops._weight_grads import WeightGradients
-from dexnerf_tpu_torch.ops.fused_mlp import check_field_inputs, fused_field_reference
+from dexnerf_tpu_torch.ops.fused_mlp import check_field_inputs, check_fusable, fused_field_reference
 from dexnerf_tpu_torch.ops.fused_train_loss import (
     Bf16Gradients,
     _check_dtypes,
@@ -231,6 +231,7 @@ def make_fused_flexible_field_train(
     ``dw_dtype`` (the counterpart of ``make_fused_flexible_field_train``,
     whose defaults, f32, these are too; ``dw_dtype`` None is float32)."""
     dw_dtype = _check_dtypes(compute_dtype, dw_dtype)
+    check_fusable(model, "the field kernels")
 
     def field(pts: torch.Tensor, viewdirs: torch.Tensor) -> torch.Tensor:
         return fused_field_train(model, pts, viewdirs, log_sampling_xyz=log_sampling_xyz,

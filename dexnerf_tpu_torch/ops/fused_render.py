@@ -20,6 +20,7 @@ which kernel its path went through.
 from __future__ import annotations
 
 import ctypes
+import functools
 import weakref
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
@@ -420,8 +421,9 @@ def fused_render_reference(
     ``dists`` (disparity in the kernel's finite form). No autograd, like
     the kernels."""
     _check_compute_dtype(compute_dtype)
-    forward = model if compute_dtype == torch.float32 else (
-        lambda xyz, view: flex_forward_bf16(model, xyz, view))
+    # the model's own compute dtype is its plain path's, not the kernels'
+    forward = functools.partial(model, dtype=torch.float32) if compute_dtype == torch.float32 \
+        else (lambda xyz, view: flex_forward_bf16(model, xyz, view))
     parts = []
     for i in range(0, z_vals.shape[0], chunk):
         sl = slice(i, i + chunk)
@@ -538,9 +540,33 @@ def tf32_occupancy(model: FlexibleNeRFModel, n_samples: int) -> Tuple[int, int, 
     return _occupancy("dexnerf_fused_render_occupancy", *_kernel_shape(model, n_samples))
 
 
-def _check_inputs(model, dev, tensors, N: int, S: int, T: int, compute_dtype) -> None:
+def fusable(model) -> bool:
+    """Whether the kernels take ``model``: a FlexibleNeRF with viewdirs
+    (JAX's ``isinstance(m, FlexibleNeRFModel) and m.use_viewdirs``)."""
+    return isinstance(model, FlexibleNeRFModel) and model.use_viewdirs
+
+
+def fusable_pair(coarse, fine) -> bool:
+    """JAX's rule for the kernels that take both passes (the fused render,
+    the fused loss): the coarse model :func:`fusable`, the fine one (if
+    any) a FlexibleNeRF."""
+    return fusable(coarse) and (fine is None or isinstance(fine, FlexibleNeRFModel))
+
+
+def check_fusable(model, what: str) -> None:
+    """The kernels' guard for direct callers: they take a :func:`fusable`
+    model (the loop's selection sends every other model to the plain path
+    before any launch, as JAX's does)."""
+    if model is None or fusable(model):
+        return
     if not isinstance(model, FlexibleNeRFModel):
-        raise TypeError(f"the fused render kernel takes FlexibleNeRFModel, not {type(model)}")
+        raise TypeError(f"{what} takes FlexibleNeRFModel, not {type(model)}")
+    if not model.use_viewdirs:
+        raise ValueError(f"{what} takes a FlexibleNeRFModel with viewdirs")
+
+
+def _check_inputs(model, dev, tensors, N: int, S: int, T: int, compute_dtype) -> None:
+    check_fusable(model, "the fused render kernel")
     for name, t, shape in tensors:
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(
@@ -694,6 +720,8 @@ def make_fused_render_rays(
     Stratified depths, the inverse-CDF resampling and the ray intervals
     stay plain PyTorch ([N, S]-sized)."""
     _check_compute_dtype(compute_dtype)
+    for m in (coarse_model, fine_model):
+        check_fusable(m, "the fused render kernel")
     s = settings.eval_variant()
     kw = dict(
         white_background=s.white_background,

@@ -76,6 +76,7 @@ path went through.
 from __future__ import annotations
 
 import ctypes
+import functools
 import itertools
 from typing import NamedTuple, Optional, Tuple
 
@@ -100,6 +101,7 @@ from dexnerf_tpu_torch.ops.fused_render import (
     _round_up,
     _tf32_chunks,
     bf16_hidden,
+    check_fusable,
     gather_params,
     gather_plan,
     tf32_split,
@@ -303,7 +305,8 @@ def fused_pass_loss_reference(
     taken."""
     dw_dtype = _check_dtypes(compute_dtype, dw_dtype)
     if compute_dtype == dw_dtype == torch.float32:
-        forward = model
+        # the model's own compute dtype is its plain path's, not the kernel's
+        forward = functools.partial(model, dtype=torch.float32)
     else:
         def forward(xyz, view):
             return flex_forward_train(model, xyz, view, compute_dtype, dw_dtype)
@@ -328,8 +331,7 @@ def fused_pass_loss_reference(
 
 
 def _check_inputs(model, dev, tensors, S: int) -> None:
-    if not isinstance(model, FlexibleNeRFModel):
-        raise TypeError(f"the fused loss kernel takes FlexibleNeRFModel, not {type(model)}")
+    check_fusable(model, "the fused loss kernel")
     for name, t, shape in tensors:
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(
@@ -1270,6 +1272,8 @@ def make_fused_train_loss(
     s = settings
     if not s.use_viewdirs:
         raise NotImplementedError("the fused train loss requires use_viewdirs=True")
+    for m in (coarse_model, fine_model):
+        check_fusable(m, "the fused loss kernel")
     if supervision not in SUPERVISION:
         raise ValueError(f"unknown supervision mode: {supervision}")
     kw = dict(

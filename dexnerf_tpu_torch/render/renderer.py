@@ -117,6 +117,12 @@ def jittered_z_vals(rays: "RayBatch", s: "RenderSettings", draws: RenderDraws):
     return z_vals
 
 
+# rays a block of the plain renderer's frames (JAX's render_image maps
+# blocks of 4096): the activations of a whole 400x400 frame at once would
+# not fit the card for the 8x256 PaperNeRF
+PLAIN_RENDER_CHUNK = 16384
+
+
 class RenderResult(NamedTuple):
     coarse: VolumeRenderOutputs
     fine: Optional[VolumeRenderOutputs]
@@ -162,12 +168,16 @@ def make_ray_batch(
     )
 
 
-def encode_points(pts: torch.Tensor, viewdirs: torch.Tensor, s: RenderSettings):
+def encode_points(pts: torch.Tensor, viewdirs: Optional[torch.Tensor], s: RenderSettings):
     """(xyz_enc [N, S, Dx], dir_enc [N, Dd]) for sample points [N, S, 3]
-    and per-ray viewdirs [N, 3]."""
+    and per-ray viewdirs [N, 3]; dir_enc is None without viewdirs
+    (``settings.use_viewdirs`` false or ``viewdirs`` None), and the model
+    then sees the xyz encoding alone, as in JAX's ``make_mlp_field``."""
     enc = positional_encoding(
         pts, s.num_encoding_fn_xyz, s.include_input_xyz, s.log_sampling_xyz
     )
+    if viewdirs is None or not s.use_viewdirs:
+        return enc, None
     dir_enc = positional_encoding(
         viewdirs, s.num_encoding_fn_dir, s.include_input_dir, s.log_sampling_dir
     )
@@ -180,9 +190,9 @@ FieldFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 def make_mlp_field(model: nn.Module, settings: RenderSettings) -> FieldFn:
-    """The plain field of ``model``: encode the points and viewdirs per
-    ``settings``, then call the model (the occupancy bake's σ and the
-    mesh's, as JAX's ``make_mlp_field``)."""
+    """The plain field of ``model``: encode the points (and the viewdirs,
+    when ``settings.use_viewdirs``) per ``settings``, then call the model
+    (the occupancy bake's σ and the mesh's, as JAX's ``make_mlp_field``)."""
 
     def field(pts, viewdirs):
         return model(*encode_points(pts, viewdirs, settings))
@@ -208,16 +218,15 @@ def render_rays(
     fused fields of ``ops.fused_mlp_train``)."""
     s = settings
     _check_draws(s, draws)
-    if not s.use_viewdirs:
-        raise NotImplementedError("rendering without viewdirs is not ported yet")
     z_vals = jittered_z_vals(rays, s, draws)
+    viewdirs = rays.viewdirs if s.use_viewdirs else None
 
     def pass_(model, field, z, thresholds, noise):
         pts = rays.origins[..., None, :] + rays.directions[..., None, :] * z[..., :, None]
         if field is not None:
-            raw = field(pts, rays.viewdirs)
+            raw = field(pts, viewdirs)
         else:
-            raw = model(*encode_points(pts, rays.viewdirs, s))
+            raw = model(*encode_points(pts, viewdirs, s))
         return volume_render_radiance_field(
             raw, z, rays.directions,
             white_background=s.white_background, m_thres_cand=thresholds,
@@ -270,9 +279,10 @@ def render_image(
     occupancy_probes: int = 128,
     occupancy_subsample: int = 2,
 ) -> RenderResult:
-    """Render a full [H, W] ray bundle, ``chunk`` rays at a time (the whole
-    bundle at once when None). ``rays_impl`` replaces :func:`render_rays`
-    per chunk, e.g. the fused renderer of
+    """Render a full [H, W] ray bundle, ``chunk`` rays at a time (when None,
+    the whole bundle at once through ``rays_impl``, :data:`PLAIN_RENDER_CHUNK`
+    rays at a time through :func:`render_rays`). ``rays_impl`` replaces
+    :func:`render_rays` per chunk, e.g. the fused renderer of
     ``dexnerf_tpu_torch.ops.fused_render.make_fused_render_rays``. With
     ``use_ndc`` the rays are projected into NDC (:func:`make_ray_batch`),
     and the depths are NDC ray parameters.
@@ -311,7 +321,10 @@ def render_image(
             )
         rays = rays._replace(near=t_near, far=t_far)
     n = rays.origins.shape[0]
-    step = n if chunk is None else int(chunk)
+    if chunk is not None:
+        step = int(chunk)
+    else:
+        step = n if rays_impl is not None else PLAIN_RENDER_CHUNK
     results = []
     for i in range(0, n, step):
         block = RayBatch(*[x[i:i + step] for x in rays])

@@ -5,12 +5,14 @@ Counterpart of the reference-checkpoint half of
 with ``model_coarse_state_dict``, ``model_fine_state_dict``, ``iter``,
 optional ``height``/``width``/``focal_length`` and an optional
 ``optimizer_state_dict``) is the format both packages read and write, so
-either can serve or resume the other's weights. The Adam state is written
-in the layout of the JAX package's ``export_torch_checkpoint``: moments
-keyed by the position of the parameter in ``coarse.parameters()`` then
-``fine.parameters()``, weights [out, in], an integer ``step``. Orbax
-checkpoints need JAX: ``python -m dexnerf_tpu.apps.export`` turns one into
-a ``.ckpt``.
+either can serve or resume the other's weights. The Adam (and AdamW) state
+is written in the layout of the JAX package's ``export_torch_checkpoint``:
+moments keyed by the position of the parameter in ``coarse.parameters()``
+then ``fine.parameters()``, weights [out, in], an integer ``step``. The
+state of SGD, RMSprop and Adagrad, which JAX's export does not write, goes
+under :data:`PORT_OPTIMIZER_KEY`, a key JAX's ``import_torch_checkpoint``
+does not read, so the port resumes every optimizer. Orbax checkpoints need
+JAX: ``python -m dexnerf_tpu.apps.export`` turns one into a ``.ckpt``.
 """
 
 from __future__ import annotations
@@ -20,26 +22,42 @@ from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from dexnerf_tpu_torch.models.mlp import skip_positions
 
-# call-order tail of the flax FlexibleNeRFModel (use_viewdirs=True)
+# call-order tails of the flax FlexibleNeRFModel, with and without viewdirs
 _HEADS = ["fc_feat", "fc_alpha", "layers_dir.0", "fc_rgb"]
+_HEAD_NO_VIEWDIRS = ["fc_out"]
+# where the state of an optimizer outside JAX's export (SGD, RMSprop, Adagrad) goes
+PORT_OPTIMIZER_KEY = "dexnerf_torch_optimizer_state"
+# the optimizers whose state the reference Adam layout carries (JAX exports AdamW's too)
+ADAM_LAYOUT = ("Adam", "AdamW")
 
 
-def state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's ``FlexibleNeRFModel`` state_dict from a JAX param tree
-    given as numpy arrays (``{"params": {"Dense_i": {"kernel", "bias"}}}``).
+def state_dict_from_flax(tree: Mapping, model: Optional[nn.Module] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """A port model's state_dict from a JAX param tree given as numpy
+    arrays (``{"params": {"Dense_i": {"kernel", "bias"}}}``).
 
-    Call-order ``Dense_i`` map to ``layer1``, ``layers_xyz.{i}``,
-    ``fc_feat``, ``fc_alpha``, ``layers_dir.0``, ``fc_rgb``; kernels are
-    transposed from [in, out] to [out, in]."""
+    Call-order ``Dense_i`` map by position to ``model.flax_order`` (any
+    family); without ``model``, to a FlexibleNeRF's ``layer1``,
+    ``layers_xyz.{i}`` and ``fc_feat``, ``fc_alpha``, ``layers_dir.0``,
+    ``fc_rgb``, or ``fc_out`` when the last layer has 4 outputs (no
+    viewdirs). Kernels are transposed from [in, out] to [out, in]."""
     p = tree["params"] if "params" in tree else tree
     names = sorted(p, key=lambda k: int(k.rsplit("_", 1)[1]))
-    num_trunk = len(names) - 1 - len(_HEADS)
-    if num_trunk < 0:
-        raise ValueError(f"param tree has only {len(names)} Dense layers")
-    prefixes = ["layer1"] + [f"layers_xyz.{i}" for i in range(num_trunk)] + _HEADS
+    if model is not None:
+        prefixes = list(model.flax_order)
+        if len(prefixes) != len(names):
+            raise ValueError(
+                f"param tree has {len(names)} Dense layers, {type(model).__name__} {len(prefixes)}")
+    else:
+        heads = _HEAD_NO_VIEWDIRS if np.shape(p[names[-1]]["kernel"])[-1] == 4 else _HEADS
+        num_trunk = len(names) - 1 - len(heads)
+        if num_trunk < 0:
+            raise ValueError(f"param tree has only {len(names)} Dense layers")
+        prefixes = ["layer1"] + [f"layers_xyz.{i}" for i in range(num_trunk)] + heads
     sd = {}
     for name, prefix in zip(names, prefixes):
         w = np.asarray(p[name]["kernel"], dtype=np.float32)
@@ -63,7 +81,7 @@ def read_reference_checkpoint(path: str) -> Dict:
             else None
         ),
     }
-    for k in ("height", "width", "focal_length", "optimizer_state_dict"):
+    for k in ("height", "width", "focal_length", "optimizer_state_dict", PORT_OPTIMIZER_KEY):
         if ckpt.get(k) is not None:
             out[k] = ckpt[k]
     return out
@@ -79,10 +97,13 @@ def write_reference_checkpoint(
     optimizer_state: Optional[Dict] = None,
     loss: float = 0.0,
     psnr: float = 0.0,
+    port_optimizer_state: Optional[Dict] = None,
 ) -> None:
     """Write a reference-schema ``.ckpt`` from two state_dicts and,
     optionally, an Adam state in the reference layout
-    (:func:`adam_state_dict`, :func:`adam_state_from_optax`)."""
+    (:func:`adam_state_dict`, :func:`adam_state_from_optax`) or another
+    optimizer's state under :data:`PORT_OPTIMIZER_KEY`
+    (:func:`optimizer_checkpoint`)."""
 
     def cpu(sd):
         return {k: v.detach().to("cpu", torch.float32).contiguous() for k, v in sd.items()}
@@ -100,6 +121,8 @@ def write_reference_checkpoint(
         )
     if optimizer_state is not None:
         ckpt["optimizer_state_dict"] = optimizer_state
+    if port_optimizer_state is not None:
+        ckpt[PORT_OPTIMIZER_KEY] = port_optimizer_state
     torch.save(ckpt, path)
 
 
@@ -183,16 +206,23 @@ def adam_state_from_optax(mu: Mapping, nu: Mapping, count: int, models: Mapping,
         model = models.get(name)
         if model is None:
             continue
-        m_sd, v_sd = state_dict_from_flax(mu[name]), state_dict_from_flax(nu[name])
+        m_sd, v_sd = state_dict_from_flax(mu[name], model), state_dict_from_flax(nu[name], model)
         moments += [(m_sd[k], v_sd[k]) for k, _ in model.named_parameters()]
     return _adam_layout(moments, count, lr)
 
 
+def has_viewdir_head(state_dict: Mapping[str, torch.Tensor]) -> bool:
+    """Whether a FlexibleNeRF state_dict has the viewdir heads (``fc_rgb``),
+    not the single ``fc_out`` of a model without viewdirs."""
+    return "fc_out.weight" not in state_dict
+
+
 def infer_flexible_arch(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, int]:
     """``{num_layers, hidden_size, skip_connect_every}`` that reproduce a
-    FlexibleNeRF state_dict's shapes (the reference's train scripts drop
-    these knobs from the config, so a checkpoint's architecture may
-    disagree with the config beside it; the weights are the truth)."""
+    FlexibleNeRF state_dict's shapes, with or without viewdirs (``fc_out``;
+    the reference's train scripts drop these knobs from the config, so a
+    checkpoint's architecture may disagree with the config beside it; the
+    weights are the truth)."""
     hidden = int(state_dict["layer1.weight"].shape[0])
     trunk = sorted(
         int(m.group(1))
@@ -221,3 +251,50 @@ def infer_flexible_arch(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, int
         "hidden_size": hidden,
         "skip_connect_every": skip_every,
     }
+
+
+def optimizer_checkpoint(opt_type: str, optimizer: torch.optim.Optimizer, step: int,
+                         lr: float) -> Dict:
+    """The :func:`write_reference_checkpoint` keywords that carry
+    ``optimizer``'s state after ``step`` updates: Adam's and AdamW's moments
+    as ``optimizer_state``, in the reference layout JAX's
+    ``export_torch_checkpoint`` writes for both; SGD's, RMSprop's and
+    Adagrad's (which JAX's export leaves out) as ``port_optimizer_state``,
+    ``{"type", "step", "state": {parameter index: {name: tensor}}}``."""
+    if opt_type in ADAM_LAYOUT:
+        return {"optimizer_state": adam_state_dict(optimizer, step, lr)}
+    params = _optimizer_params(optimizer)
+    state = {
+        i: {k: v.detach().to("cpu") for k, v in optimizer.state.get(p, {}).items()}
+        for i, p in enumerate(params)
+    }
+    return {"port_optimizer_state": {"type": opt_type, "step": int(step), "state": state}}
+
+
+def load_optimizer_checkpoint(opt_type: str, optimizer: torch.optim.Optimizer,
+                              imported: Mapping) -> bool:
+    """Put a checkpoint's optimizer state (:func:`read_reference_checkpoint`)
+    into ``optimizer``, an ``opt_type``: the reference Adam layout for Adam
+    and AdamW, the port's own entry for the others when it was written by
+    the same type. A state of another optimizer is left out and the
+    optimizer starts fresh, as JAX's ``build_opt_state_from_torch`` grafts
+    Adam moments only. Returns whether a state was loaded."""
+    if opt_type in ADAM_LAYOUT:
+        if "optimizer_state_dict" not in imported:
+            return False
+        load_adam_state(optimizer, imported["optimizer_state_dict"])
+        return True
+    entry = imported.get(PORT_OPTIMIZER_KEY)
+    if entry is None or entry.get("type") != opt_type:
+        return False
+    params = _optimizer_params(optimizer)
+    if len(entry["state"]) != len(params):
+        raise ValueError(
+            f"the checkpoint's optimizer holds {len(entry['state'])} parameters, this one "
+            f"{len(params)}"
+        )
+    state = {i: {k: torch.as_tensor(v) for k, v in entry["state"][i].items()}
+             for i in range(len(params)) if entry["state"][i]}
+    optimizer.load_state_dict({"state": state,
+                               "param_groups": optimizer.state_dict()["param_groups"]})
+    return True

@@ -13,8 +13,11 @@ supervision and its warmup), and what serving needs:
 ``align_cfg_models_to_checkpoint``, ``load_eval_params`` (reference
 ``.ckpt`` only), ``setup_models`` and ``fused_render_impl`` (the
 counterpart of ``maybe_fused_render_impl``, at the compute dtype of
-``render_compute_dtype``). Checkpoints are reference
-``.ckpt`` files with the Adam state, which the JAX package also resumes.
+``render_compute_dtype``). Each of those three selects the kernels one
+model at a time by JAX's rules, before any launch: a FlexibleNeRF with
+viewdirs takes its kernel, every other model the plain path. Checkpoints
+are reference ``.ckpt`` files with the optimizer's state (Adam's and
+AdamW's in the layout the JAX package also resumes).
 """
 
 from __future__ import annotations
@@ -43,17 +46,18 @@ from dexnerf_tpu_torch.data.blender import load_blender_data, load_blender_depth
 from dexnerf_tpu_torch.data.llff import load_llff_data, load_llff_depths
 from dexnerf_tpu_torch.data.messytable import load_messytable_data
 from dexnerf_tpu_torch.data.pipeline import build_ray_store, with_full_intervals
-from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel, skip_positions
+from dexnerf_tpu_torch.models.mlp import COMPUTE_DTYPES, skip_positions
 from dexnerf_tpu_torch.ops.fused_mlp import make_fused_flexible_field
 from dexnerf_tpu_torch.ops.fused_mlp_train import make_fused_flexible_field_train
-from dexnerf_tpu_torch.ops.fused_render import make_fused_render_rays
+from dexnerf_tpu_torch.ops.fused_render import fusable, fusable_pair, make_fused_render_rays
 from dexnerf_tpu_torch.ops.fused_train_loss import make_fused_train_loss
 from dexnerf_tpu_torch.render.occupancy import build_occupancy_grid, tighten_store_intervals
 from dexnerf_tpu_torch.render.renderer import RenderSettings, make_mlp_field, render_image
 from dexnerf_tpu_torch.train.checkpoints import (
-    adam_state_dict,
+    has_viewdir_head,
     infer_flexible_arch,
-    load_adam_state,
+    load_optimizer_checkpoint,
+    optimizer_checkpoint,
     read_reference_checkpoint,
     write_reference_checkpoint,
 )
@@ -70,9 +74,13 @@ def _get(node, key, default):
 
 def align_cfg_models_to_checkpoint(cfg: CfgNode, imported: Dict) -> CfgNode:
     """Reconcile ``cfg.models.*`` with a checkpoint's actual FlexibleNeRF
-    architecture (in place; returns ``cfg``), warning when it changes."""
+    architecture (in place; returns ``cfg``), warning when it changes. A
+    checkpoint whose heads disagree with ``nerf.use_viewdirs`` (``fc_out``
+    without viewdirs) raises, as loading it in JAX does. Other families'
+    blocks are taken as written."""
     was_frozen = cfg.is_frozen()
     changed = []
+    use_vd = bool(_get(cfg.nerf, "use_viewdirs", True))
     for name in ("coarse", "fine"):
         sd = imported.get(name)
         blk = _get(cfg.models, name, None)
@@ -80,6 +88,12 @@ def align_cfg_models_to_checkpoint(cfg: CfgNode, imported: Dict) -> CfgNode:
             continue
         if str(_get(blk, "type", "FlexibleNeRFModel")) != "FlexibleNeRFModel":
             continue
+        if has_viewdir_head(sd) != use_vd:
+            raise ValueError(
+                f"models.{name}: the checkpoint's FlexibleNeRF was trained "
+                f"{'with' if has_viewdir_head(sd) else 'without'} viewdirs, the config has "
+                f"nerf.use_viewdirs: {use_vd}"
+            )
         arch = infer_flexible_arch(sd)
         cfg_layers = int(_get(blk, "num_layers", 4))
         cfg_hidden = int(_get(blk, "hidden_size", 128))
@@ -151,9 +165,6 @@ def setup_models(cfg: CfgNode, seed: int, device):
     return coarse, fine
 
 
-_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
 def render_compute_dtype(cfg: CfgNode, device) -> torch.dtype:
     """The fused render's compute dtype on ``device``, resolved as the JAX
     package's ``maybe_fused_render_impl`` does. On a CUDA device (the
@@ -178,18 +189,18 @@ def train_compute_dtype(cfg: CfgNode) -> torch.dtype:
     runs the plain versions at it). A value other than "bfloat16" or
     "float32" raises."""
     name = str(_get(cfg.nerf, "pallas_compute_dtype", "bfloat16"))
-    if name not in _COMPUTE_DTYPES:
+    if name not in COMPUTE_DTYPES:
         raise ValueError(
-            f"nerf.pallas_compute_dtype {name!r}: expected one of {sorted(_COMPUTE_DTYPES)}"
+            f"nerf.pallas_compute_dtype {name!r}: expected one of {sorted(COMPUTE_DTYPES)}"
         )
-    return _COMPUTE_DTYPES[name]
+    return COMPUTE_DTYPES[name]
 
 
 def fused_render_impl(
     cfg: CfgNode,
     settings: RenderSettings,
     device,
-    coarse: FlexibleNeRFModel,
+    coarse,
     fine=None,
 ):
     """The fused PE->MLP->compositing ``rays_impl`` for ``render_image``
@@ -197,22 +208,25 @@ def fused_render_impl(
     weights here) at :func:`render_compute_dtype`. On a CUDA ``device``
     every pass launches the kernel of that dtype (bf16 tensor cores by
     default, f32 with ``nerf.pallas_compute_dtype: float32``); on the CPU
-    it runs the kernels' plain PyTorch version. With
-    ``nerf.use_fused_render: false`` it returns None on every device, as
-    JAX's ``maybe_fused_render_impl`` does: ``render_image`` then renders
-    through the plain ``render_rays``, because the config asks for it."""
+    it runs the kernels' plain PyTorch version. It returns None, and
+    ``render_image`` then renders through the plain ``render_rays``, where
+    JAX's ``maybe_fused_render_impl`` does: with ``nerf.use_fused_render:
+    false``, when the coarse model is not a FlexibleNeRF with viewdirs, or
+    the fine model not a FlexibleNeRF; and on the CPU, where JAX renders
+    through XLA unless ``nerf.use_fused_render`` is set, when a model's own
+    compute dtype is not f32."""
     flag = _get(cfg.nerf, "use_fused_render", None)
     if flag is not None and not bool(flag):
         return None
+    if not fusable_pair(coarse, fine):
+        return None
     device = torch.device(device)
+    if device.type == "cpu" and flag is None and any(
+            m.compute_dtype != torch.float32 for m in (coarse, fine) if m is not None):
+        # JAX renders through XLA here, at the models' own compute dtype
+        # (models.*.compute_dtype), which the f32 plain kernel is not
+        return None
     compute_dtype = render_compute_dtype(cfg, device)
-    for name in ("coarse", "fine"):
-        blk = _get(cfg.models, name, None)
-        if blk is not None and str(blk.type) != "FlexibleNeRFModel":
-            raise NotImplementedError(
-                f"models.{name}.type {blk.type}: the fused renderer takes "
-                "FlexibleNeRFModel only"
-            )
     # the kernel reads the weights where they live: keep them on the card
     for model in (coarse, fine):
         if model is not None and next(model.parameters()).device.type != device.type:
@@ -301,7 +315,10 @@ def load_scene(cfg: CfgNode) -> SceneData:
 def maybe_fused_fields(cfg: CfgNode, coarse, fine, *, train: bool = False):
     """(coarse_field, fine_field) over ``coarse``/``fine`` when
     ``cfg.nerf.use_pallas`` is set, else (None, None) (the plain encode +
-    model call). ``train=True`` gives the autograd fields of
+    model call). As in JAX, each model gets a field only when it is a
+    FlexibleNeRF with viewdirs (None, its pass plain, otherwise), and
+    ``nerf.use_viewdirs: false`` warns and gives (None, None).
+    ``train=True`` gives the autograd fields of
     ``ops.fused_mlp_train`` (kernel 2 forward, kernel 3 backward on a
     card), else the forward-only fields of ``ops.fused_mlp`` (kernel 2).
     Their ``compute_dtype`` (and kernel 3's ``dw_dtype``) is
@@ -313,6 +330,14 @@ def maybe_fused_fields(cfg: CfgNode, coarse, fine, *, train: bool = False):
     their own blocks."""
     if not bool(_get(cfg.nerf, "use_pallas", False)):
         return None, None
+    if not bool(_get(cfg.nerf, "use_viewdirs", True)):
+        # JAX's words (dexnerf_tpu/train/loop.py:192-201)
+        warnings.warn(
+            "cfg.nerf.use_pallas is set but use_viewdirs is false; the "
+            "fused Pallas kernels require viewdirs — using the XLA path",
+            stacklevel=2,
+        )
+        return None, None
     dtype = train_compute_dtype(cfg)
     s = render_settings_from_cfg(cfg, "train")
     kw = dict(log_sampling_xyz=s.log_sampling_xyz, log_sampling_dir=s.log_sampling_dir,
@@ -321,7 +346,7 @@ def maybe_fused_fields(cfg: CfgNode, coarse, fine, *, train: bool = False):
         make, kw["dw_dtype"] = make_fused_flexible_field_train, dtype
     else:
         make = make_fused_flexible_field
-    return tuple(None if m is None else make(m, **kw) for m in (coarse, fine))
+    return tuple(make(m, **kw) if fusable(m) else None for m in (coarse, fine))
 
 
 def maybe_fused_loss(
@@ -334,9 +359,11 @@ def maybe_fused_loss(
     depth_valid_max: Optional[float] = None,
 ):
     """The fused train loss over ``coarse``/``fine`` (kernel 4 on a card)
-    when ``cfg.nerf.use_pallas`` is set and ``nerf.pallas_fused_loss`` is
-    not false, else None (then the fused fields, or the plain autograd
-    render, the counterpart of the JAX package's XLA path). With
+    when ``cfg.nerf.use_pallas`` is set, ``nerf.pallas_fused_loss`` is not
+    false, the coarse model is a FlexibleNeRF with viewdirs, the fine one
+    (if any) a FlexibleNeRF and ``settings.use_viewdirs`` holds, else None
+    (then the fused fields, or the plain autograd render, the counterpart
+    of the JAX package's XLA path), as JAX's ``maybe_fused_loss``. With
     ``depth_loss_weight`` > 0 the kernel adds the depth term over
     ``0 < gt [< depth_valid_max]``.
     ``nerf.pallas_loss_resample`` ("auto" | "xla" | "pallas") selects the
@@ -348,6 +375,10 @@ def maybe_fused_loss(
     if not bool(_get(cfg.nerf, "use_pallas", False)):
         return None
     if not bool(_get(cfg.nerf, "pallas_fused_loss", True)):
+        return None
+    if not fusable_pair(coarse, fine):
+        return None
+    if not settings.use_viewdirs:
         return None
     dtype = train_compute_dtype(cfg)
     return make_fused_train_loss(
@@ -627,8 +658,7 @@ def run_training(
         coarse.load_state_dict(imported["coarse"])
         if fine is not None and imported["fine"] is not None:
             fine.load_state_dict(imported["fine"])
-        if "optimizer_state_dict" in imported:
-            load_adam_state(state.optimizer, imported["optimizer_state_dict"])
+        load_optimizer_checkpoint(state.opt_type, state.optimizer, imported)
         state.step = int(imported["step"])
     start_iter = state.step
 
@@ -781,7 +811,7 @@ def run_training(
                     coarse.state_dict(),
                     fine.state_dict() if fine is not None else None,
                     step=state.step,
-                    optimizer_state=adam_state_dict(state.optimizer, state.step, lr),
+                    **optimizer_checkpoint(state.opt_type, state.optimizer, state.step, lr),
                     loss=float(metrics["loss"]),
                     psnr=float(metrics["psnr"]),
                 )

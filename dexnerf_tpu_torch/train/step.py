@@ -6,7 +6,8 @@ store step). The loss is the plain, autograd-differentiable render
 the same render through fused fields (``ops.fused_mlp_train``, kernels 2
 and 3 on a card) or a fused loss
 (``ops.fused_train_loss.make_fused_train_loss``, kernel 4 on a card).
-The optimizer is ``torch.optim.Adam`` with its learning rate set before
+The optimizer is one of JAX's five (:data:`OPTIMIZER_REGISTRY`), each
+with optax's update at optax's defaults, its learning rate set before
 every update to ``optax.exponential_decay`` evaluated at the number of
 updates taken so far, as optax evaluates it (step 0 uses ``lr``).
 ``steps_per_call`` updates run as a Python loop with no host sync.
@@ -15,6 +16,7 @@ updates taken so far, as optax evaluates it (step 0 uses ``lr``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
@@ -53,23 +55,88 @@ def exponential_decay_schedule(
     return schedule
 
 
-# The optimizers whose update the port holds to optax's (the reference
-# picks one by name, train_nerf_rgb.py:146).
+class OptaxRMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop`` at its defaults, which ``torch.optim.RMSprop``
+    does not match (α 0.99, eps outside the root): ``nu = (1 - decay) g² +
+    decay nu`` from ``initial_scale`` 0, then ``p += -lr * rsqrt(nu + eps)
+    g`` with decay 0.9 and eps 1e-8 inside the root
+    (``optax.scale_by_rms``, ``scale_by_learning_rate``). State: ``nu``."""
+
+    def __init__(self, params, lr: float, decay: float = 0.9, eps: float = 1e-8,
+                 initial_scale: float = 0.0):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps, initial_scale=initial_scale))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            decay, eps = group["decay"], group["eps"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if "nu" not in st:
+                    st["nu"] = torch.full_like(p, group["initial_scale"])
+                g = p.grad
+                nu = (1 - decay) * g ** 2 + decay * st["nu"]
+                st["nu"] = nu
+                p.add_(-group["lr"] * (torch.rsqrt(nu + eps) * g))
+
+
+class OptaxAdagrad(torch.optim.Optimizer):
+    """``optax.adagrad`` at its defaults, which ``torch.optim.Adagrad`` does
+    not match (accumulator 0, eps 1e-10 outside the root): ``sum = g² +
+    sum`` from ``initial_accumulator_value`` 0.1, then ``p += -lr *
+    rsqrt(sum + eps) g`` (0 where ``sum`` is 0) with eps 1e-7 inside the
+    root (``optax.scale_by_rss``, ``scale_by_learning_rate``). State:
+    ``sum``."""
+
+    def __init__(self, params, lr: float, initial_accumulator_value: float = 0.1,
+                 eps: float = 1e-7):
+        super().__init__(params, dict(lr=lr, initial_accumulator_value=initial_accumulator_value,
+                                      eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if "sum" not in st:
+                    st["sum"] = torch.full_like(p, group["initial_accumulator_value"])
+                g = p.grad
+                total = g ** 2 + st["sum"]
+                st["sum"] = total
+                scale = torch.where(total > 0, torch.rsqrt(total + group["eps"]),
+                                    torch.zeros_like(total))
+                p.add_(-group["lr"] * (scale * g))
+
+
+# JAX's five optimizers (dexnerf_tpu/train/step.py:45-51), each at optax's
+# defaults, which JAX's make_optimizer keeps (it passes the schedule alone);
+# the reference picks one by name, train_nerf_rgb.py:146. torch's Adam and
+# SGD (no momentum) are optax's updates; AdamW is too with optax's weight
+# decay 1e-4 (both decay by lr * wd * p); RMSprop and Adagrad are not.
 OPTIMIZER_REGISTRY: Dict[str, Callable[..., torch.optim.Optimizer]] = {
     "Adam": torch.optim.Adam,
+    "AdamW": functools.partial(torch.optim.AdamW, weight_decay=1e-4, eps=1e-8),
+    "SGD": torch.optim.SGD,
+    "RMSprop": OptaxRMSprop,
+    "Adagrad": OptaxAdagrad,
 }
 
 
 @dataclasses.dataclass
 class TrainState:
-    """The models, their optimizer, its learning-rate schedule and the
-    number of updates taken."""
+    """The models, their optimizer (of registry name ``opt_type``), its
+    learning-rate schedule and the number of updates taken."""
 
     coarse: nn.Module
     fine: Optional[nn.Module]
     optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]
     step: int = 0
+    opt_type: str = "Adam"
 
     def models(self) -> List[nn.Module]:
         return [m for m in (self.coarse, self.fine) if m is not None]
@@ -78,8 +145,8 @@ class TrainState:
 def make_optimizer(
     params, lr: float, opt_type: str = "Adam"
 ) -> torch.optim.Optimizer:
-    """The registry's optimizer over ``params`` (betas/eps are the optax
-    and torch defaults, 0.9/0.999/1e-8)."""
+    """The registry's optimizer over ``params`` at optax's defaults (Adam's
+    betas/eps 0.9/0.999/1e-8, as torch's)."""
     try:
         ctor = OPTIMIZER_REGISTRY[opt_type]
     except KeyError:
@@ -105,6 +172,7 @@ def init_train_state(
         fine=fine,
         optimizer=make_optimizer(params, lr, opt_type),
         schedule=exponential_decay_schedule(lr, lr_decay, lr_decay_factor),
+        opt_type=opt_type,
     )
 
 

@@ -45,14 +45,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     import test_torch_fused_mlp
     import test_torch_fused_mlp_tf32
-    from test_torch_fused_mlp_tf32 import (
-        CARD_ARCHS,
-        forward_on_masks,
-        grads_on_masks,
-        route_activations,
-    )
+    from test_torch_fused_mlp_tf32 import CARD_ARCHS
 
     from dexnerf_tpu_torch.ops import fused_mlp_train
+    from perf_tools.field_f32_rule import forward_on_masks, grads_on_masks, route_activations
 
     card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,

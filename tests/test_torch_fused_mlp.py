@@ -131,7 +131,7 @@ FULL = dict(num_layers=8, hidden_size=128, skip_connect_every=3,
 # same ones, so the old limit alone rested on which entries each happened
 # to flip (perf_tools/field_f32_relu_flips.py). Every decision the route
 # makes otherwise than float64 must lie within MASK_RTOL of its layer's
-# largest activation of 0 (tests/test_torch_fused_mlp_tf32.py).
+# largest activation of 0 (perf_tools/field_f32_rule.py).
 GPU_RTOL, GPU_ATOL = 1e-4, 1e-5
 GPU_GRAD_FACTOR = 10.0
 GPU_GRAD_RTOL = 1e-5
@@ -155,7 +155,7 @@ def _card_case(cuda, arch, n, s, seed=9):
 def _assert_grads_on_card(model, pts, vd, g, kernel_grads):
     """The rule above; prints, for each leaf past the old limit, its error,
     the old limit, the flip term and the new limit."""
-    from test_torch_fused_mlp_tf32 import (
+    from perf_tools.field_f32_rule import (
         MASK_RTOL,
         forward_on_masks,
         grads_on_masks,

@@ -123,12 +123,9 @@ def test_align_cfg_to_checkpoint():
     m.load_state_dict(tm.state_dict())
 
 
-def test_other_families_raise():
-    for name in ("VeryTinyNeRFModel", "PaperNeRFModel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(name, hidden_size=8)
-    with pytest.raises(KeyError):
-        build_model("NoSuchModel")
+def test_unknown_model_raises():
+    with pytest.raises(KeyError, match="unknown model type"):
+        build_model("NoSuchModel", hidden_size=8)
 
 
 def test_seeded_init_is_reproducible():

@@ -217,7 +217,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import dexnerf_tpu_torch.apps.serve\n"
         "for name in ('data.messytable', 'apps.eval', 'data.llff', 'utils', 'utils.images',\n"
-        "             'utils.pointcloud', 'render.occupancy', 'utils.mesh', 'apps.mesh'):\n"
+        "             'utils.pointcloud', 'render.occupancy', 'utils.mesh', 'apps.mesh',\n"
+        "             'apps.tiny', 'models.mlp', 'models.registry', 'train.step'):\n"
         "    assert 'dexnerf_tpu_torch.' + name in sys.modules, name\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'dexnerf_tpu', 'cv2', 'imageio', 'matplotlib')]\n"
