@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's serving path, its training
 configurations, its evaluation entry point, its LLFF/NDC path, its
-occupancy-guided paths and mesh export, and its other model families,
-optimizers and tiny pipeline on one CUDA card.
+occupancy-guided paths and mesh export, its other model families,
+optimizers and tiny pipeline, its ray cache and its pose refinement on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -167,7 +168,24 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    timed; the mixed step at ``pallas_compute_dtype: float32`` held to the
    plain autograd step by its loss; 3 updates of each
    optimizer on the card held to the CPU's on shared gradients; ``apps.tiny`` for 200 iterations
-   on the card, its hold-out PSNR rising.
+   on the card, its hold-out PSNR rising;
+19. the ray cache and SE(3) pose refinement: ``apps.cache`` on phase 6's
+   scene (8192 rays a shard) and ``apps.train`` of ``configs/lego-tpu.yml``
+   from that cache for 20 steps (40 launches of kernel 4's bf16 route, 0 of
+   its f32 route; validation through kernel 1; the loss falls), kernel 4
+   on a cache batch vs plain (phase 7's rule), the store's build time and
+   a step on the cache and on the resident store in turns; ``apps.train
+   --pose-opt`` of ``configs/messytable-obj.yml`` (8x128, 64 + 64, batch
+   1024, ``nerf.use_pallas: true``) on phase 14's scene with its train
+   cameras moved by known twists, 20 steps: JAX's warning, kernels 2-6
+   never, validation through kernel 1, ``pose_twist_norm`` above 0, the
+   twists in the ``.ckpt``; a pose step's host-clock time, device time,
+   idle share and peak memory; one pose step held to the CPU's by phase
+   18's rule (the loss, the updates on shared gradients); JAX's analytic
+   pose-recovery check at its sizes (250 steps, the twist error under half
+   its start); ``apps.eval --refined-poses`` on that checkpoint (two
+   kernel-1 launches a train view, the first frame the refined camera's,
+   held to its plain versions by phase 3's rule).
 
 Each kernel's line holds its bound: the larger of its FLOPs (multiply-adds
 counted from the model's shapes; compares and arithmetic counted from the
@@ -290,6 +308,13 @@ HELD_RAYS = 4096
 OPT_RAYS, OPT_STEPS = 1024, 3
 OPT_PARAM_RTOL, OPT_STATE_RTOL = 1e-6, 1e-5
 TINY_ITERS = 200
+# phase 19: the ray cache (rays a shard of apps.cache on phase 6's scene, the
+# run's steps) and pose refinement (the pose run's steps on phase 14's scene,
+# the std of the known twists that move its train cameras: rotation,
+# translation, as JAX's pose-recovery check; that check's steps and rays)
+CACHE_RAYS, CACHE_ITERS, POSE_ITERS = 8192, 20, 20
+POSE_EPS = (0.04, 0.08)
+RECOVERY_STEPS, RECOVERY_RAYS = 250, 256
 # kernels 5 and 6 vs plain: the CPU tests' tolerances (tests/test_torch_resample.py).
 # With trained weights the CDF has steps of ~1e-5, where one ulp of the CDF
 # moves a depth by up to ~1e-4 through the guarded lerp, so each output is
@@ -640,7 +665,7 @@ def train_cli(tmp, data, name, iters, torch, dev, config=TRAIN_CONFIG, dataset=N
 
     with open(config) as f:
         raw = yaml.safe_load(f)
-    raw["dataset"].update(basedir=data, half_res=False, cachedir="", **(dataset or {}))
+    raw["dataset"].update({"basedir": data, "half_res": False, "cachedir": "", **(dataset or {})})
     raw["experiment"].update(
         id=name, logdir=os.path.join(tmp, "logs"), validate_every=iters,
         save_every=iters, print_every=1,
@@ -2265,12 +2290,13 @@ def llff_phase(torch, np, card, dev, tmp):
                     r_bound, r_by)]
 
 
-def profile_steps(torch, step, kernels_of, n=3, unit="step"):
+def profile_steps(torch, step, kernels_of, n=3, unit="step", summary=None):
     """Device time of ``n`` train steps (or other ``unit``s) by part: each entry of
     ``kernels_of`` (label -> kernel name fragments), Adam (the foreach
     multi-tensor kernels), the rest (glue), and idle (the span from the
     first kernel's start to the last one's end, minus the union of kernel
-    intervals). Returns the device ms per unit of each kernel, by name."""
+    intervals). Returns the device ms per unit of each kernel, by name;
+    ``summary``, a dict, receives the parts, ``idle`` and ``span`` per unit."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -2310,6 +2336,8 @@ def profile_steps(torch, step, kernels_of, n=3, unit="step"):
     per_step = {k: round(v / n / 1e3, 3) for k, v in parts.items()}
     per_step["idle"] = round((span - busy) / n / 1e3, 3)
     per_step["span"] = round(span / n / 1e3, 3)
+    if summary is not None:
+        summary.update(per_step)
     print(f"  profile, ms per {unit} over {n} {unit}s ({len(kernels)} device events): "
           + json.dumps(per_step))
     top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
@@ -2988,6 +3016,402 @@ def families_phase(torch, np, card, dev, tmp, shared):
     return entries
 
 
+def perturb_train_cameras(base, np, torch):
+    """Move each train view's camera of the messytable scene at ``base`` (in
+    place: its ``meta.pkl`` w2c) by a known twist, ``c2w' = se3_exp(eps) @
+    c2w``, eps of rotation std POSE_EPS[0] and translation std POSE_EPS[1].
+    Returns eps [n, 6] in the loader's view order."""
+    import pickle
+
+    from dexnerf_tpu_torch.core.lie import se3_exp
+
+    rng = np.random.default_rng(SEED)
+    train = os.path.join(base, "train")
+    views = sorted(os.listdir(train))
+    eps = np.concatenate([rng.normal(scale=POSE_EPS[0], size=(len(views), 3)),
+                          rng.normal(scale=POSE_EPS[1], size=(len(views), 3))], 1)
+    for view, e in zip(views, eps):
+        path = os.path.join(train, view, "meta.pkl")
+        with open(path, "rb") as f:
+            meta = pickle.load(f)
+        moved = se3_exp(torch.tensor(e, dtype=torch.float64)).numpy() @ np.linalg.inv(
+            meta["extrinsic_l"])
+        meta["extrinsic_l"] = np.linalg.inv(moved)
+        with open(path, "wb") as f:
+            pickle.dump(meta, f)
+    return eps.astype(np.float32)
+
+
+def pose_recovery(torch, np, dev):
+    """The JAX package's pose-recovery check (``tests/test_pose_opt.py``) at
+    its sizes on ``dev``: targets rendered by the port's renderer at 4
+    views of 16x16 of the analytic scene (8 + 8 samples, deterministic, the
+    field the model), the cameras moved by known twists (std 0.04 and
+    0.08), then RECOVERY_STEPS pose-only Adam steps (lr 1e-2) of
+    RECOVERY_RAYS uniform rays. Returns the mean twist error against the
+    ideal correction ``se3_log(T_true @ inv(T_moved))`` before and after,
+    the last loss and the mean twist norm."""
+    from dexnerf_tpu_torch.core import lie
+    from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w
+    from dexnerf_tpu_torch.data.synthetic import analytic_field, make_synthetic_scene
+    from dexnerf_tpu_torch.render.renderer import (
+        RenderSettings,
+        draw_render_noise,
+        render_image,
+        render_rays,
+    )
+    from dexnerf_tpu_torch.train import pose_opt as po
+    from dexnerf_tpu_torch.train.step import nerf_loss
+
+    class Analytic(torch.nn.Module):
+        """The encoded features start with the raw xyz: the field needs no weights."""
+
+        def forward(self, xyz_enc, dir_enc=None):
+            return analytic_field(xyz_enc[..., :3])
+
+    s = RenderSettings(num_coarse=8, num_fine=8, perturb=False, radiance_field_noise_std=0.0,
+                       num_encoding_fn_xyz=4, num_encoding_fn_dir=2)
+    model = Analytic()
+    _, _, poses, hwf = make_synthetic_scene(num_views=4, height=16, width=16, device=dev)
+    true = torch.as_tensor(poses, device=dev)
+    with torch.no_grad():
+        images = torch.stack([render_image(model, model, *get_ray_bundle_c2w(*hwf, c2w), 2.0,
+                                           6.0, s).fine.rgb for c2w in true])
+    rng = np.random.default_rng(7)
+    eps = torch.tensor(np.concatenate([rng.normal(scale=0.04, size=(4, 3)),
+                                       rng.normal(scale=0.08, size=(4, 3))], 1),
+                       dtype=torch.float32, device=dev)
+    moved = lie.matmul3(lie.se3_exp(eps), true)
+    ideal = lie.se3_log(lie.matmul3(true, lie.se3_inverse(moved)))
+    store = po.build_pose_ray_store(images.cpu().numpy(), moved.cpu().numpy(), hwf, 2.0, 6.0,
+                                    device=dev)
+    pose = po.init_pose_state(4, 1e-2, 250, 0.1, dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for _ in range(RECOVERY_STEPS):
+        idx = torch.randint(0, store.num_rays, (RECOVERY_RAYS,), generator=gen, device=dev)
+        rays, target = po.pose_rays(store, pose.twists, idx)
+        draws = draw_render_noise(RECOVERY_RAYS, s, gen, dev)
+        loss = nerf_loss(render_rays(model, model, rays, s, draws), target)[0]
+        pose.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        pose.update()
+    twists = pose.twists.detach()
+    return (float(torch.linalg.norm(ideal, dim=-1).mean()),
+            float(torch.linalg.norm(twists - ideal, dim=-1).mean()), float(loss.detach()),
+            float(torch.linalg.norm(twists, dim=-1).mean()))
+
+
+def cache_pose_phase(torch, np, card, dev, tmp, shared):
+    """Phase 19, the ray cache and SE(3) pose refinement. (a) ``apps.cache``
+    on phase 6's scene (CACHE_RAYS rays a shard), then ``apps.train`` of
+    ``configs/lego-tpu.yml`` with ``dataset.cachedir`` pointed at it for
+    CACHE_ITERS steps: the store built from the cache, kernel 4's bf16
+    route twice a step and its f32 route never, kernel 1 at validation, the
+    loss falling; kernel 4 on a cache batch vs plain (phase 7's rule), the
+    store's build time, and a step on the cache store and on the resident
+    store of the same views in turns (host clock). (b) ``apps.train
+    --pose-opt`` of ``configs/messytable-obj.yml`` (``nerf.use_pallas:
+    true``) on phase 14's scene with its train cameras moved by known
+    twists, POSE_ITERS steps: the kernels bypassed with JAX's warning
+    (kernels 2-6 never), kernel 1 at validation, ``pose_twist_norm`` above
+    0, the twists in the ``.ckpt``; a pose step's host-clock ms, device time,
+    idle share and peak memory; one pose step on the card held to the same
+    step on the CPU by phase 18's rule (the loss; the updates of the twists
+    and leaves on the CPU's gradients). (c) JAX's analytic pose-recovery
+    check at its sizes on the card. (d) ``apps.eval --refined-poses`` on
+    (b)'s checkpoint: two kernel-1 launches a train view, its first frame
+    the refined camera's, and that frame's kernel vs plain (phase 3's
+    rule). Returns the kernels-line entries of (a) and (d)."""
+    import copy
+    import shutil
+
+    from PIL import Image
+
+    from dexnerf_tpu_torch.apps import cache as cache_app
+    from dexnerf_tpu_torch.config import load_config, render_settings_from_cfg
+    from dexnerf_tpu_torch.core.rays import _rotate
+    from dexnerf_tpu_torch.data.pipeline import build_ray_store, build_ray_store_from_cache
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+    from dexnerf_tpu_torch.render.renderer import (
+        RenderDraws,
+        draw_render_noise,
+        make_ray_batch,
+        render_image,
+        render_rays,
+    )
+    from dexnerf_tpu_torch.train import loop as ploop
+    from dexnerf_tpu_torch.train.checkpoints import (
+        POSE_KEY,
+        load_adam_state,
+        load_pose_checkpoint,
+    )
+    from dexnerf_tpu_torch.train.pose_opt import (
+        build_pose_ray_store,
+        c2w_from_w2c,
+        camera_dirs,
+        init_pose_state,
+        pose_ray_source,
+        pose_rays,
+        refined_c2w,
+    )
+    from dexnerf_tpu_torch.train.step import (
+        StepDraws,
+        init_train_state,
+        make_train_step,
+        nerf_loss,
+    )
+    from dexnerf_tpu_torch.utils import cast_to_image
+
+    bf16 = torch.bfloat16
+    # ---- (a) the ray cache
+    cachedir = os.path.join(tmp, "legocache")
+    zero_counts()
+    t0 = time.perf_counter()
+    cache_app.main(["--datapath", shared.data, "--savedir", cachedir, "--num-random-rays",
+                    str(CACHE_RAYS), "--device", dev.type])
+    cache_s = time.perf_counter() - t0
+    cache_counts = read_counts()
+    built, build = [], ploop.build_ray_store_from_cache
+    ploop.build_ray_store_from_cache = lambda *a, **k: built.append(a[0]) or build(*a, **k)
+    try:
+        cfg_path, logdir, counts, losses, val_psnr, secs, peak_gb = train_cli(
+            tmp, shared.data, "lego-cache", CACHE_ITERS, torch, dev,
+            dataset={"cachedir": cachedir})
+    finally:
+        ploop.build_ray_store_from_cache = build
+    cfg = load_config(cfg_path)
+    near, far = float(cfg.dataset.near), float(cfg.dataset.far)
+    t0 = time.perf_counter()
+    store = build_ray_store_from_cache(cachedir, near, far, device=dev)
+    torch.cuda.synchronize()
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    shards = len(os.listdir(os.path.join(cachedir, "train")))
+    print(f"phase 19 (a): apps.cache on phase 6's scene: {shards} train shards of {CACHE_RAYS} "
+          f"rays in {cache_s:.2f} s; the store of {store.num_rays} rows built in {build_ms:.1f} "
+          f"ms (host clock to synchronize); apps.train from the cache, {CACHE_ITERS} steps in "
+          f"{secs:.2f} s, launches {json.dumps(counts)}; peak {peak_gb:.2f} GiB; loss first "
+          f"{losses[0]:.5f} last {losses[-1]:.5f}; validation psnr {val_psnr}")
+    run_checks("phase 19 (a) training from the ray cache", {
+        f"{TRAIN_VIEWS[0]} shards, {TRAIN_VIEWS[0] * CACHE_RAYS} rows, no kernel in apps.cache":
+            shards == TRAIN_VIEWS[0] and store.num_rays == TRAIN_VIEWS[0] * CACHE_RAYS
+            and not any(cache_counts.values()),
+        "the run's store built from the cache": built == [cachedir],
+        f"kernel 4's bf16 route {2 * CACHE_ITERS} times, its f32 route never":
+            counts["fused_train_loss_bf16"] == counts["fused_train_loss"] == 2 * CACHE_ITERS,
+        "validations at steps 0 and last, each 2 launches of kernel 1's bf16 route":
+            len(val_psnr) == 2 and counts["fused_render_bf16"] == counts["fused_render"] == 4,
+        f"{CACHE_ITERS} finite losses": len(losses) == CACHE_ITERS
+        and bool(np.isfinite(losses).all()),
+        "loss falls (mean of last 5 < first 5)": np.mean(losses[-5:]) < np.mean(losses[:5]),
+    })
+    _, coarse, fine, _ = run_models(cfg_path, logdir, CACHE_ITERS, dev)
+    s_train = render_settings_from_cfg(cfg, "train")
+    batch, lr = int(cfg.nerf.train.num_random_rays), float(cfg.optimizer.lr)
+    k4 = hold_train_bf16("phase 19 (a): kernel 4 bf16 route on a cache batch", 19,
+                         (coarse, fine), store, s_train, lr, batch, 3.0 * batch, {}, torch, dev)
+    scene = ploop.load_scene(cfg)
+    resident = build_ray_store(scene.images[scene.i_train], scene.poses[scene.i_train],
+                               scene.hwf, near, far, device=dev)
+    st = init_train_state(copy.deepcopy(coarse), copy.deepcopy(fine), lr)
+    step = make_train_step(s_train, batch, fused_loss=ftl.make_fused_train_loss(
+        st.coarse, st.fine, s_train, compute_dtype=bf16, dw_dtype=bf16))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    turns = {"resident": [], "cache": []}
+    for name in ("resident", "cache", "cache", "resident"):
+        turns[name].append(round(host_ms(torch, lambda: step(
+            st, resident if name == "resident" else store, gen), n=5), 3))
+    del st, step, resident
+    print(f"phase 19 (a): ms on {card}: a kernel-4 bf16 step (host clock around synchronize, "
+          f"mean of 5, in turns resident, cache, cache, resident) {json.dumps(turns)}; the "
+          f"held batch's passes " + json.dumps({k: round(v, 3) for k, v in k4.ms.items()}))
+    entries = [train_entry("fused_train_loss_bf16@lego-cache", counts["fused_train_loss_bf16"],
+                           k4)]
+
+    # ---- (b) pose refinement on phase 14's scene, its train cameras moved
+    data = os.path.join(tmp, "messytable-moved")
+    shutil.copytree(os.path.join(tmp, "messytable"), data)
+    eps = perturb_train_cameras(data, np, torch)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        cfg_path, logdir, counts, losses, val_psnr, secs, peak_gb = train_cli(
+            tmp, data, "messytable-pose", POSE_ITERS, torch, dev, config=CONFIG,
+            flags=["--pose-opt"], use_pallas=True)
+    said = {str(w.message) for w in caught if "pose_opt" in str(w.message)}
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        norms = [r["value"] for r in map(json.loads, f) if r["tag"] == "train/pose_twist_norm"]
+    ckpt = os.path.join(logdir, "checkpoints", f"checkpoint_{POSE_ITERS - 1:07d}.ckpt")
+    cfg, coarse, fine, ck = run_models(cfg_path, logdir, POSE_ITERS, dev)
+    twists = ck[POSE_KEY]["twists"]
+    ideal = -torch.tensor(eps)  # the correction: se3_log(T @ inv(exp(eps) @ T)) = -eps
+    err_ideal = float((twists - ideal).norm(dim=-1).mean())
+    print(f"phase 19 (b): apps.train --pose-opt on messytable-obj (phase 14's scene, its "
+          f"{len(eps)} train cameras moved by twists of std {POSE_EPS}): {POSE_ITERS} steps in "
+          f"{secs:.2f} s, launches {json.dumps(counts)}; peak {peak_gb:.2f} GiB; loss first "
+          f"{losses[0]:.5f} last {losses[-1]:.5f}; pose_twist_norm first {norms[0]:.3e} last "
+          f"{norms[-1]:.3e}; mean twist error vs -eps {err_ideal:.4f} (at 0: "
+          f"{float(ideal.norm(dim=-1).mean()):.4f}); the warning: {sorted(said)}")
+    run_checks("phase 19 (b) pose training", {
+        "JAX's warning that the fused kernels are bypassed": said == {
+            "pose_opt needs ray-input gradients; the fused Pallas train kernels are bypassed "
+            "(XLA path)"},
+        "kernels 2-6 never launched": all(v == 0 for k, v in counts.items()
+                                          if not k.startswith("fused_render")),
+        "validations at steps 0 and last, each 2 launches of kernel 1's bf16 route":
+            len(val_psnr) == 2 and counts["fused_render_bf16"] == counts["fused_render"] == 4,
+        f"{POSE_ITERS} finite losses": len(losses) == POSE_ITERS
+        and bool(np.isfinite(losses).all()),
+        "pose_twist_norm logged each step, finite, above 0": len(norms) == POSE_ITERS
+        and bool(np.isfinite(norms).all()) and min(norms) > 0.0,
+        "the .ckpt holds the twists after the last step": ck[POSE_KEY]["step"] == POSE_ITERS
+        and tuple(twists.shape) == (len(eps), 6) and bool(torch.isfinite(twists).all()),
+    })
+
+    scene = ploop.load_scene(cfg)
+    tr = scene.i_train
+    s_train = render_settings_from_cfg(cfg, "train")
+    batch, lr = int(cfg.nerf.train.num_random_rays), float(cfg.optimizer.lr)
+    near, far = float(cfg.dataset.near), float(cfg.dataset.far)
+    pose_lr = float(ploop._get(cfg.optimizer, "pose_lr", 1e-3))
+
+    def state_on(device):
+        """The run's last state (models, Adam, twists, their Adam) on
+        ``device``, from a copy of the checkpoint (Adam updates its moments
+        in place)."""
+        ck_ = copy.deepcopy(ck)
+        c, f_ = copy.deepcopy(coarse).to(device), copy.deepcopy(fine).to(device)
+        state = init_train_state(c, f_, lr, float(cfg.scheduler.lr_decay),
+                                 float(cfg.scheduler.lr_decay_factor))
+        load_adam_state(state.optimizer, ck_["optimizer_state_dict"])
+        state.step = int(ck_["step"])
+        state.pose = init_pose_state(len(tr), pose_lr, float(cfg.scheduler.lr_decay),
+                                     float(cfg.scheduler.lr_decay_factor), device)
+        load_pose_checkpoint(state.pose, ck_)
+        return state, build_pose_ray_store(scene.images[tr], scene.poses[tr], scene.hwf, near,
+                                           far, device=device, intrinsics=scene.intrinsics[tr])
+
+    st, store = state_on(dev)
+    step = make_train_step(s_train, batch, ray_source=pose_ray_source)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    ms = {"pose_step": host_ms(torch, lambda: step(st, store, gen), n=5)}
+    peak_step = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 19 (b): a pose step (batch {batch}, {s_train.num_coarse} + "
+          f"{s_train.num_fine}, plain f32 fields, TF32 off):")
+    summary = {}
+    profile_steps(torch, lambda: step(st, store, gen), {}, summary=summary)
+    span, idle = summary.get("span", float("nan")), summary.get("idle", float("nan"))
+    del st, step
+
+    # one pose step on the card against the CPU's, on the CPU's draws and gradients
+    on_card, card_store = state_on(dev)
+    on_cpu, cpu_store = state_on("cpu")
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    d_cpu = StepDraws(torch.randint(0, cpu_store.num_rays, (batch,), generator=cpu_gen),
+                      draw_render_noise(batch, s_train, cpu_gen, "cpu"))
+    d_card = StepDraws(d_cpu.idx.to(dev), RenderDraws(
+        *[None if t is None else t.to(dev) for t in d_cpu.render]))
+    with torch.no_grad():
+        rays, target = pose_rays(card_store, on_card.pose.twists, d_card.idx)
+        loss_card = float(nerf_loss(render_rays(on_card.coarse, on_card.fine, rays, s_train,
+                                                d_card.render), target)[0])
+    loss_cpu = float(make_train_step(s_train, batch, ray_source=pose_ray_source)(
+        on_cpu, cpu_store, draws=[d_cpu])["loss"])
+    leaves = [(pc, ph) for mc, mh in ((on_card.coarse, on_cpu.coarse),
+                                      (on_card.fine, on_cpu.fine))
+              for pc, ph in zip(mc.parameters(), mh.parameters())]
+    for pc, ph in [*leaves, (on_card.pose.twists, on_cpu.pose.twists)]:
+        pc.grad = ph.grad.to(dev)
+    for group in on_card.optimizer.param_groups:
+        group["lr"] = on_card.schedule(on_card.step)
+    on_card.optimizer.step()
+    on_card.step += 1
+    on_card.pose.update()
+
+    def worst(pairs, state_of):
+        w_p = w_s = 0.0
+        for pc, ph in pairs:
+            w_p = max(w_p, float((pc.detach().cpu() - ph.detach()).abs().max())
+                      / float(ph.detach().abs().max()))
+            sc, sh_ = state_of(pc, ph)
+            for k in sh_:
+                if k != "step" and torch.is_tensor(sh_[k]):
+                    w_s = max(w_s, float((sc[k].cpu() - sh_[k]).abs().max())
+                              / max(float(sh_[k].abs().max()), 1e-30))
+        return w_p, w_s
+
+    leaf_err = worst(leaves, lambda pc, ph: (on_card.optimizer.state[pc],
+                                             on_cpu.optimizer.state[ph]))
+    twist_err = worst([(on_card.pose.twists, on_cpu.pose.twists)],
+                      lambda pc, ph: (on_card.pose.optimizer.state[pc],
+                                      on_cpu.pose.optimizer.state[ph]))
+    loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    print(f"phase 19 (b): ms on {card}: pose step {ms['pose_step']:.3f} (host "
+          f"clock around synchronize, mean of 5), device busy {span - idle:.3f} of a "
+          f"{span:.3f} span, idle {idle:.3f} ({idle / span:.1%} of the span), peak "
+          f"{peak_step:.2f} GiB (max_memory_allocated); one step card vs CPU on the CPU's draws: "
+          f"loss {loss_card:.7f} vs {loss_cpu:.7f} (rel {loss_err:.2e}, limit "
+          f"{TRAIN_LOSS_RTOL:g}); on the CPU's gradients, [worst parameter, worst state] over "
+          f"the leaf's largest entry: leaves {leaf_err}, twists {twist_err} (limits "
+          f"{OPT_PARAM_RTOL:g}, {OPT_STATE_RTOL:g})")
+    run_checks("phase 19 (b) pose step card vs CPU", {
+        f"loss within {TRAIN_LOSS_RTOL:g}": loss_err <= TRAIN_LOSS_RTOL,
+        "leaves' updates within their limits": leaf_err[0] <= OPT_PARAM_RTOL
+        and leaf_err[1] <= OPT_STATE_RTOL,
+        "twists' update within its limits": twist_err[0] <= OPT_PARAM_RTOL
+        and twist_err[1] <= OPT_STATE_RTOL,
+    })
+    del on_card, on_cpu, card_store, cpu_store
+
+    # ---- (c) pose recovery on the card
+    t0 = time.perf_counter()
+    err0, err1, rec_loss, rec_norm = pose_recovery(torch, np, dev)
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    print(f"phase 19 (c): pose recovery (JAX's check, {RECOVERY_STEPS} steps of "
+          f"{RECOVERY_RAYS} rays) in {rec_s:.2f} s: mean twist error {err0:.4f} -> {err1:.4f}, "
+          f"last loss {rec_loss:.3e}, twist norm {rec_norm:.4f}")
+    run_checks("phase 19 (c) pose recovery", {
+        "twist error under half its start": err1 < 0.5 * err0,
+        "loss finite, twists moved": np.isfinite(rec_loss) and rec_norm > 0.0,
+    })
+
+    # ---- (d) apps.eval --refined-poses on (b)'s checkpoint
+    savedir = os.path.join(tmp, "eval-refined")
+    e_counts, _, e_secs = eval_cli(cfg_path, ckpt, savedir, ["--refined-poses"], dev)
+    frames = sorted(f for f in os.listdir(savedir) if f.endswith(".png"))
+    s_val = render_settings_from_cfg(cfg, "validation").eval_variant()
+    H, W = int(scene.hwf[0]), int(scene.hwf[1])
+    T = refined_c2w(torch.as_tensor(c2w_from_w2c(scene.poses[tr])), twists)[0].to(dev)
+    K = torch.as_tensor(scene.intrinsics[tr][0], device=dev)
+    rd = _rotate(camera_dirs(H, W, K), T[:3, :3])
+    ro = T[:3, 3].expand(rd.shape)
+    impl = ploop.fused_render_impl(cfg, s_val, dev, coarse, fine)
+    with torch.inference_mode():
+        direct = render_image(coarse, fine, ro, rd, near, far, s_val, rays_impl=impl)
+    png = np.asarray(Image.open(os.path.join(savedir, "0000.png")), np.int16)
+    png_err = int(np.abs(png - cast_to_image(direct.fine.rgb.cpu().numpy()).astype(np.int16))
+                  .max())
+    print(f"phase 19 (d): apps.eval --refined-poses, {len(frames)} frames in {e_secs:.2f} s "
+          f"(first call); launches {json.dumps(e_counts)}; frame 0 vs a direct render at the "
+          f"refined camera: max {png_err} levels")
+    run_checks("phase 19 (d) evaluation at the refined poses", {
+        f"one frame a train view ({len(tr)})": len(frames) == len(tr),
+        "2 launches of kernel 1's bf16 route a frame, nothing else":
+            e_counts["fused_render_bf16"] == e_counts["fused_render"] == 2 * len(frames)
+            and all(v == 0 for k, v in e_counts.items() if not k.startswith("fused_render")),
+        "frame 0 is the refined camera's (within 1 level)": png_err <= 1,
+    })
+    vc, vf = copy.deepcopy(coarse), copy.deepcopy(fine)
+    rays = make_ray_batch(ro, rd, near, far)
+    calibrate_on((vc, vf), rays, s_val, torch)
+    err, f_ms, b_ms, b_by = hold_frame("phase 19 (d): the first refined-pose frame", vc, vf, rays,
+                                       s_val, torch)
+    print(f"phase 19 (d): ms on {card}: " + json.dumps({k: round(v, 3) for k, v in f_ms.items()}))
+    entries.append(render_entry("fused_render_bf16@refined-poses", e_counts["fused_render_bf16"],
+                                err, f_ms, b_ms, b_by))
+    return entries
+
+
 def serve_requests(config, ckpt, requests, torch, flags=(), refused=()):
     """Start ``dexnerf_tpu_torch.apps.serve`` on the card with ``config``,
     ``ckpt`` and the extra CLI ``flags``, send ``requests`` ((path, POST
@@ -3047,6 +3471,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card visible to PyTorch")
+    t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     from dexnerf_tpu_torch.config import load_config, render_settings_from_cfg
     from dexnerf_tpu_torch.core.encoding import positional_encoding
@@ -3334,7 +3759,10 @@ def main() -> int:
         llff_kernels = llff_phase(torch, np, card, dev, tmp)
         occupancy_kernels = occupancy_phase(torch, np, card, dev, tmp, shared)
         family_kernels = families_phase(torch, np, card, dev, tmp, shared)
+        pose_kernels = cache_pose_phase(torch, np, card, dev, tmp, shared)
     render = dict(route="cuda", replaces="dexnerf_tpu/ops/fused_render.py:115")
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s (host clock, "
+          "the kernels' build included)")
     print(json.dumps({"kernels": [{
         "name": "fused_render",
         **render,
@@ -3358,7 +3786,7 @@ def main() -> int:
         "bound_by": bf16_bound_by,
         "library_ms": ms["k1_forward_torch_matmul_bf16"],
     }, *train_kernels, *field_kernels, *resample_kernels, *dex_kernels, *eval_kernels,
-        *llff_kernels, *occupancy_kernels, *family_kernels]}))
+        *llff_kernels, *occupancy_kernels, *family_kernels, *pose_kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

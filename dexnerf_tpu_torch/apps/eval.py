@@ -21,8 +21,10 @@ abs error (``dex_*``, ``dex_best_m``) and which GT they were scored against
 distances through ``core.rays.ndc_t_to_world_depth``. ``--occupancy SIGMA``
 bakes a σ-occupancy grid from the checkpoint once and tightens every
 frame's ray intervals to their occupied spans (``render/occupancy.py``).
-The flags of modes that are not ported yet are accepted and raise
-``NotImplementedError`` naming the ROADMAP item.
+``--refined-poses`` renders the train views at the cameras that ``apps.train
+--pose-opt`` refined (the twists of the checkpoint). The flags of modes that
+are not ported yet are accepted and raise ``NotImplementedError`` naming the
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -39,7 +41,6 @@ import torch
 # flag -> the ROADMAP.md item that ports it
 UNPORTED = {
     "sg_ir": "Queue 1 item 10, `models/sg.py` + `render/sg_ir.py`",
-    "refined_poses": "Queue 1 item 9, `core/lie.py` + `train/pose_opt.py`",
 }
 
 
@@ -149,10 +150,14 @@ def build_parser() -> argparse.ArgumentParser:
         "--device", type=str, default="cuda", choices=("cuda", "cpu"),
         help="where the field lives and renders (default: the card)",
     )
+    p.add_argument(
+        "--refined-poses", action="store_true",
+        help="render the TRAIN views at their pose-refined cameras, the twists of a checkpoint "
+        "written by apps.train --pose-opt (one PNG per train view)",
+    )
     add_occupancy_flags(p)
     # modes not ported yet: accepted so that they fail loudly
     p.add_argument("--sg-ir", action="store_true", help="not ported yet")
-    p.add_argument("--refined-poses", action="store_true", help="not ported yet")
     return p
 
 
@@ -168,20 +173,21 @@ def _load_scene_or_path(cfg, args, ck_hwf):
     except (FileNotFoundError, OSError):
         hwf = args.hwf if args.hwf is not None else ck_hwf
         is_blender = str(cfg.dataset.type).lower() == "blender"
-        if args.test_set or not is_blender or hwf is None:
-            if not args.test_set and not is_blender:
+        needs_dataset = args.test_set or args.refined_poses
+        if needs_dataset or not is_blender or hwf is None:
+            if needs_dataset:
+                raise
+            if not is_blender:
                 raise SystemExit(
                     f"dataset at {cfg.dataset.basedir} not found; dataset-free rendering "
                     "synthesizes the blender spherical orbit only (this config is "
                     f"'{cfg.dataset.type}') — restore the dataset"
                 )
-            if not args.test_set:
-                raise SystemExit(
-                    f"dataset at {cfg.dataset.basedir} not found, and dataset-free rendering "
-                    "needs the frame geometry: pass --hwf H W FOCAL (the shipped *-lowres "
-                    "scenes are `--hwf 400 400 555.555`)"
-                )
-            raise
+            raise SystemExit(
+                f"dataset at {cfg.dataset.basedir} not found, and dataset-free rendering "
+                "needs the frame geometry: pass --hwf H W FOCAL (the shipped *-lowres "
+                "scenes are `--hwf 400 400 555.555`)"
+            )
     print(
         f"dataset at {cfg.dataset.basedir} not found; rendering the spherical path at "
         f"H/W/focal {int(hwf[0])}/{int(hwf[1])}/{float(hwf[2]):.3f}"
@@ -223,6 +229,11 @@ def main(argv=None) -> int:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet (ROADMAP.md {item})"
             )
+    if args.test_set and args.refined_poses:
+        raise SystemExit(
+            "--test-set scores the held-out views; --refined-poses renders "
+            "the train views — pick one"
+        )
     if args.save_depth_confidence is not None and args.occupancy is not None:
         raise SystemExit(
             "--save-depth-confidence reconstructs full-interval z-values; "
@@ -231,6 +242,7 @@ def main(argv=None) -> int:
     from dexnerf_tpu_torch.config import load_config, render_settings_from_cfg
     from dexnerf_tpu_torch.core.metrics import compute_err_metric, depth_error_img, mse2psnr, ssim
     from dexnerf_tpu_torch.core.rays import (
+        _rotate,
         get_ray_bundle_c2w,
         get_ray_bundle_w2c,
         ndc_t_to_world_depth,
@@ -239,6 +251,7 @@ def main(argv=None) -> int:
     from dexnerf_tpu_torch.core.volrend import depth_confidence
     from dexnerf_tpu_torch.render.renderer import render_image
     from dexnerf_tpu_torch.train.loop import fused_render_impl, load_eval_params, setup_models
+    from dexnerf_tpu_torch.train.pose_opt import camera_dirs
     from dexnerf_tpu_torch.utils import (
         apply_jet_colormap,
         cast_to_disparity_image,
@@ -253,7 +266,7 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA card is visible to PyTorch")
     cfg = load_config(args.config)
-    cfg, sds, ck_hwf, _ = load_eval_params(cfg, args.checkpoint)
+    cfg, sds, ck_hwf, imported = load_eval_params(cfg, args.checkpoint)
     scene = _load_scene_or_path(cfg, args, ck_hwf)
     coarse, fine = setup_models(cfg, int(cfg.experiment.randomseed), device)
     coarse.load_state_dict(sds["coarse"])
@@ -303,8 +316,24 @@ def main(argv=None) -> int:
         )
     occupancy = bake_occupancy(args, coarse, fine, s_val, device)
 
-    test_indices = test_intrinsics = None
-    if args.test_set:
+    test_indices = test_intrinsics = refined_intrinsics = None
+    if args.refined_poses:
+        from dexnerf_tpu_torch.train.checkpoints import POSE_KEY
+        from dexnerf_tpu_torch.train.pose_opt import c2w_from_w2c, refined_c2w
+
+        if POSE_KEY not in imported:
+            raise SystemExit(
+                "--refined-poses: checkpoint has no 'pose' twists subtree "
+                "(train with apps.train --pose-opt first)"
+            )
+        base = scene.poses[scene.i_train][:, :4, :4].astype(np.float32)
+        if scene.intrinsics is not None:
+            # messytable: the twists act on c2w = inv(w2c), with the train views' K
+            base = c2w_from_w2c(base)
+            refined_intrinsics = scene.intrinsics[scene.i_train]
+        poses = refined_c2w(torch.as_tensor(base),
+                            torch.as_tensor(imported[POSE_KEY]["twists"])).numpy()
+    elif args.test_set:
         held_out = scene.i_test if scene.i_test is not None else scene.i_val
         test_indices = [int(t) for t in np.asarray(held_out).ravel()]
         poses = scene.poses[test_indices]
@@ -345,7 +374,12 @@ def main(argv=None) -> int:
         """Render one view and return, on the host, only what this run
         writes or scores."""
         pose_t = torch.as_tensor(np.asarray(pose[:4, :4], np.float32), device=device)
-        if test_intrinsics is not None:
+        if refined_intrinsics is not None:
+            # the rays the twists were trained on: refined c2w + K, K[0, 0] for both axes
+            K = torch.as_tensor(np.asarray(refined_intrinsics[i], np.float32), device=device)
+            rd = _rotate(camera_dirs(H, W, K), pose_t[:3, :3])
+            ro = pose_t[:3, 3].expand(rd.shape)
+        elif test_intrinsics is not None:
             K = torch.as_tensor(np.asarray(test_intrinsics[i], np.float32), device=device)
             ro, rd = get_ray_bundle_w2c(H, W, pose_t, K)
         else:

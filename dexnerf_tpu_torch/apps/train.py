@@ -8,6 +8,7 @@ Counterpart of ``dexnerf_tpu/apps/train.py``:
     python -m dexnerf_tpu_torch.apps.train --config configs/messytable-obj.yml \
         --ir --dex --depth-loss 0.1 --depth-warmup 1000   # Dex-NeRF on messytable
     python -m dexnerf_tpu_torch.apps.train --config ... --occupancy 0.2  # empty-space skipping
+    python -m dexnerf_tpu_torch.apps.train --config ... --pose-opt  # refine the camera poses
 
 With ``nerf.use_pallas`` every render pass of every step goes through the
 fused train-loss kernel (with ``nerf.pallas_loss_resample: pallas``, the
@@ -16,8 +17,11 @@ resample between the passes through the fused resample kernel), or, with
 (forward and backward). ``--dex`` validates with the σ-threshold depth
 sweep; ``--depth-loss`` / ``--depth-warmup`` supervise the expected depth
 with the dataset's GT depth (inside the fused train-loss kernel when it
-runs). The flags of modes that are not ported yet are accepted and raise
-``NotImplementedError`` naming the ROADMAP item.
+runs). ``--pose-opt`` trains a correction twist per train view with the
+fields (through the plain render: the kernels give no ray gradients). A
+``dataset.cachedir`` holding ``apps.cache`` shards is trained from, as in
+the JAX package. The flags of modes that are not ported yet are accepted
+and raise ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -27,7 +31,6 @@ import argparse
 # flag -> the ROADMAP.md item that ports it
 UNPORTED = {
     "sg_ir": "Queue 1 item 10, `models/sg.py` + `render/sg_ir.py`",
-    "pose_opt": "Queue 1 item 9, `core/lie.py` + `train/pose_opt.py`",
     "num_devices": "Queue 1 item 11, `parallel/sharding.py`",
 }
 
@@ -82,18 +85,24 @@ def build_parser() -> argparse.ArgumentParser:
         "NDC). Use a σ far below the scene's surface threshold (~0.2)",
     )
     p.add_argument(
+        "--pose-opt", action="store_true",
+        help="SE(3) camera-pose refinement: a correction twist per train view trains with the "
+        "fields (train/pose_opt.py); its Adam's lr is cfg.optimizer.pose_lr (default 1e-3)",
+    )
+    p.add_argument(
         "--device", type=str, default="cuda", choices=("cuda", "cpu"),
         help="where the models train (default: the card)",
     )
     # modes not ported yet: accepted so that they fail loudly
     p.add_argument("--sg-ir", action="store_true", help="not ported yet")
-    p.add_argument("--pose-opt", action="store_true", help="not ported yet")
     p.add_argument("--num-devices", type=int, default=None, help="not ported yet")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.pose_opt and args.sg_ir:
+        raise NotImplementedError("pose_opt + sg_ir is not supported")  # JAX's words
     for flag, item in UNPORTED.items():
         if getattr(args, flag) not in (None, False):
             raise NotImplementedError(
@@ -114,6 +123,7 @@ def main(argv=None) -> int:
         depth_loss_weight=args.depth_loss,
         depth_warmup=args.depth_warmup,
         occupancy=args.occupancy,
+        pose_opt=args.pose_opt or None,
         device=args.device,
     )
     print(

@@ -14,6 +14,7 @@ from dexnerf_tpu_torch.data.messytable import load_messytable_data
 from dexnerf_tpu_torch.data.pipeline import (
     RayStore,
     build_ray_store,
+    build_ray_store_from_cache,
     sample_ray_batch,
     sample_ray_batch_per_image,
     take_ray_batch,
@@ -32,6 +33,7 @@ __all__ = [
     "RayStore",
     "analytic_field",
     "build_ray_store",
+    "build_ray_store_from_cache",
     "load_blender_data",
     "load_blender_depths",
     "load_llff_data",

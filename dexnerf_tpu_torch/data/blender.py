@@ -4,9 +4,9 @@ and spherical-orbit camera poses (numpy only).
 Counterpart of ``dexnerf_tpu/data/blender.py``: three JSON splits, c2w
 poses, focal from ``camera_angle_x``, ``half_res`` (÷4, as in the
 reference despite the name), ``testskip`` on val/test and the 25x25
-``debug`` mode. PNGs are read with PIL; the resizes are box means over
-whole blocks (what OpenCV's area resize computes for an integer factor),
-so sizes must divide evenly.
+``debug`` mode. PNGs are read with PIL; the resizes are OpenCV's
+``INTER_AREA`` (images) and ``INTER_NEAREST`` (depth sidecars), written in
+numpy (``data/resize.py``), at any size.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ import os
 from typing import List, Tuple
 
 import numpy as np
+
+from dexnerf_tpu_torch.data.resize import area_resize, nearest_resize
 
 
 def translate_z(t: float) -> np.ndarray:
@@ -60,15 +62,6 @@ def spherical_render_poses(num: int = 40, phi: float = -30.0, radius: float = 4.
     return np.stack([pose_spherical(a, phi, radius) for a in angles], 0)
 
 
-def _area_downsample(img: np.ndarray, factor: int) -> np.ndarray:
-    """Mean over ``factor x factor`` blocks of an [H, W, ...] image."""
-    h, w = img.shape[:2]
-    if h % factor or w % factor:
-        raise ValueError(f"{h}x{w} images do not divide into {factor}x{factor} blocks")
-    blocks = img.reshape(h // factor, factor, w // factor, factor, *img.shape[2:])
-    return blocks.mean(axis=(1, 3), dtype=np.float32).astype(img.dtype)
-
-
 def _frames(basedir: str, split: str, testskip: int):
     with open(os.path.join(basedir, f"transforms_{split}.json"), "r") as fp:
         meta = json.load(fp)
@@ -83,8 +76,8 @@ def load_blender_depths(
     """Optional per-view metric-depth sidecars (``split/d_k.npy`` beside
     ``split/r_k.png``) as [N, H, W] float32 in the loader's view order,
     zeros for views without one; None when the dataset has none. Resizes
-    take the nearest sample (every 4th pixel for ``half_res``): averaging
-    metric depth across a resize invents depths no surface has."""
+    take the nearest sample (``INTER_NEAREST``): averaging metric depth
+    across a resize invents depths no surface has."""
     per_view, found = [], False
     for split in ("train", "val", "test"):
         for frame in _frames(basedir, split, testskip)[1]:
@@ -103,10 +96,12 @@ def load_blender_depths(
         [d if d is not None else np.zeros(shape, np.float32) for d in per_view], 0
     )
     if debug:
-        return depths[:, :: shape[0] // 25, :: shape[1] // 25][:, :25, :25]
-    if half_res:
-        return depths[:, ::4, ::4]
-    return depths
+        size = (25, 25)
+    elif half_res:
+        size = (shape[0] // 4, shape[1] // 4)
+    else:
+        return depths
+    return np.stack([nearest_resize(d, size) for d in depths], 0)
 
 
 def load_blender_data(
@@ -138,10 +133,9 @@ def load_blender_data(
     render_poses = spherical_render_poses()
     if debug:
         # 25x25 smoke-test images (the reference's //32 of 800x800)
-        factor = H // 25
-        imgs = np.stack([_area_downsample(im, factor) for im in imgs], 0)
+        imgs = np.stack([area_resize(im, (25, 25)) for im in imgs], 0)
         return imgs, poses, render_poses, [H // 32, W // 32, focal / 32.0], i_split
     if half_res:
         H, W, focal = H // 4, W // 4, focal / 4.0
-        imgs = np.stack([_area_downsample(im, 4) for im in imgs], 0)
+        imgs = np.stack([area_resize(im, (H, W)) for im in imgs], 0)
     return imgs, poses, render_poses, [H, W, focal], i_split

@@ -9,11 +9,10 @@ recentred on their average (or spherified), a spiral (or ring) render
 path built, and the view nearest the average camera returned as
 ``i_test``.
 
-``_minify`` downsamples by the mean of each ``factor x factor`` block,
-rounded as OpenCV's ``INTER_AREA`` rounds 8-bit images at an integer
-factor (half up at a factor of 2, half to even otherwise), so it writes
-the PNGs that the JAX package's OpenCV minify writes. Sizes that do not
-divide by the factor raise.
+``_minify`` shrinks each image to ``(H // factor, W // factor)`` with
+OpenCV's ``INTER_AREA`` written in numpy (``data/resize.py``), so it
+writes the PNGs that the JAX package's OpenCV minify writes, whether or
+not the factor divides the size.
 
 The pose math (``poses_avg``, ``recenter_poses``, ``spherify_poses``,
 ``render_path_spiral``) keeps the canonical LLFF constants: the
@@ -28,8 +27,9 @@ from typing import Optional
 
 import numpy as np
 
+from dexnerf_tpu_torch.data.resize import area_resize
+
 _IMG_EXTS = ("JPG", "jpg", "png", "jpeg", "PNG")
-UNPORTED_RESIZE = "ROADMAP.md Queue 1 item 4c"
 
 
 def _image_files(d: str):
@@ -43,21 +43,6 @@ def _read_image(path: str) -> np.ndarray:
         return np.array(im)
 
 
-def area_downsample_u8(img: np.ndarray, factor: int) -> np.ndarray:
-    """8-bit [H, W, C] image shrunk by the integer ``factor``: the mean of
-    each block, rounded as OpenCV's ``INTER_AREA`` rounds."""
-    h, w = img.shape[:2]
-    if h % factor or w % factor:
-        raise NotImplementedError(
-            f"{h}x{w} images do not divide by the factor {factor}: only integer-factor "
-            f"minification is ported ({UNPORTED_RESIZE})"
-        )
-    blocks = img.reshape(h // factor, factor, w // factor, factor, *img.shape[2:])
-    mean = blocks.astype(np.float64).mean(axis=(1, 3))
-    rounded = np.floor(mean + 0.5) if factor == 2 else np.rint(mean)
-    return rounded.astype(np.uint8)
-
-
 def _minify(basedir: str, factor: int) -> None:
     """Write ``images_{factor}/``, the PNGs of ``images/`` shrunk by
     ``factor``, unless it exists."""
@@ -69,7 +54,8 @@ def _minify(basedir: str, factor: int) -> None:
     files = _image_files(os.path.join(basedir, "images"))
     os.makedirs(imgdir)
     for f in files:
-        small = area_downsample_u8(_read_image(f), factor)
+        img = _read_image(f)
+        small = area_resize(img, (img.shape[0] // factor, img.shape[1] // factor))
         name = os.path.splitext(os.path.basename(f))[0] + ".png"
         Image.fromarray(small).save(os.path.join(imgdir, name))
 

@@ -11,10 +11,11 @@ rows of K by 4 and pins cx = 240, cy = 135; the output is always halved in
 H and W with ``focal = K[0, 0] / 4``. Poses are **world-to-camera** (rays
 from :func:`dexnerf_tpu_torch.core.rays.get_ray_bundle_w2c`).
 
-The halving is the 2x2 block mean for images (what OpenCV's
-``INTER_AREA`` computes at a factor of 2) and the top-left sample of each
-block for depths (``INTER_NEAREST``); other sizes, among them the
-reference's 25x25 ``debug`` mode, are not ported yet.
+The resizes are OpenCV's, written in numpy (``data/resize.py``):
+``INTER_AREA`` for images, ``INTER_NEAREST`` for depths, at any size. With
+``debug`` the images and depths are 25x25 while ``hwf`` is ``[H // 32,
+W // 32, K[0, 0] / 32]`` of the stored frame, as the reference returns
+them (the two disagree unless the frame is 800x800).
 """
 
 from __future__ import annotations
@@ -25,9 +26,8 @@ from typing import List, Tuple
 
 import numpy as np
 
-from dexnerf_tpu_torch.data.blender import _area_downsample, spherical_render_poses
-
-UNPORTED_RESIZE = "ROADMAP.md Queue 1 item 4c"
+from dexnerf_tpu_torch.data.blender import spherical_render_poses
+from dexnerf_tpu_torch.data.resize import area_resize, nearest_resize
 
 
 def _load_pickle(path: str):
@@ -55,10 +55,6 @@ def load_messytable_data(
     """Returns ``(images, poses_w2c, render_poses, [H, W, focal], i_split,
     intrinsics, depths)``, depths in meters. ``testskip`` is accepted and
     unused, as in the reference."""
-    if debug:
-        raise NotImplementedError(
-            f"dataset.debug: the 25x25 messytable resize is not ported yet ({UNPORTED_RESIZE})"
-        )
     if is_real_rgb:
         depth_n, extri_n, intri_n = "depth.png", "extrinsic", "intrinsic"
     else:
@@ -94,20 +90,13 @@ def load_messytable_data(
     imgs = np.concatenate(all_imgs, 0)
     depths = np.concatenate(all_depths, 0)
     H, W = imgs[0].shape[:2]
-    if H % 2 or W % 2:
-        raise NotImplementedError(
-            f"{H}x{W} messytable images: only an exact halving is ported ({UNPORTED_RESIZE})"
-        )
+    poses = np.concatenate(all_poses, 0)
+    intrinsics = np.concatenate(all_intrinsics, 0)
     # the focal of the last scene read, unscaled by half_res, as in the reference
-    focal = float(np.array(meta[intri_n])[0, 0]) / 4.0
-    imgs = np.stack([_area_downsample(im, 2) for im in imgs], 0)
-    depths = depths[:, ::2, ::2]
-    return (
-        imgs,
-        np.concatenate(all_poses, 0),
-        spherical_render_poses(),
-        [H // 2, W // 2, focal],
-        i_split,
-        np.concatenate(all_intrinsics, 0),
-        np.ascontiguousarray(depths),
-    )
+    focal = float(np.array(meta[intri_n])[0, 0])
+    size, hwf = (H // 2, W // 2), [H // 2, W // 2, focal / 4.0]
+    if debug:
+        size, hwf = (25, 25), [H // 32, W // 32, focal / 32.0]
+    imgs = np.stack([area_resize(im, size) for im in imgs], 0)
+    depths = np.stack([nearest_resize(d, size) for d in depths], 0)
+    return imgs, poses, spherical_render_poses(), hwf, i_split, intrinsics, depths

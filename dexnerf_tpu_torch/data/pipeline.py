@@ -1,7 +1,9 @@
 """Device-resident ray store and batch sampling.
 
 Counterpart of ``dexnerf_tpu/data/pipeline.py`` (camera-to-world rays,
-world-to-camera rays with intrinsics, or LLFF rays in NDC): ray generation runs once over all training images and the rays
+world-to-camera rays with intrinsics, LLFF rays in NDC, or the rays of an
+offline cache written by ``apps/cache.py``): ray generation runs once over
+all training images and the rays
 live on the device as one [N_rays, 12] float32 tensor (origin 3,
 direction 3, viewdir 3, rgb 3). Each step gathers a batch of rows by
 index. Index draws come from a ``torch.Generator`` on the store's device,
@@ -12,6 +14,8 @@ JAX package's draws.
 from __future__ import annotations
 
 import dataclasses
+import glob
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -91,6 +95,49 @@ def build_ray_store(
     return RayStore(data=data, near=float(near), far=float(far), rays_per_image=H * W, depth=depth)
 
 
+def unit_directions(rd: np.ndarray) -> np.ndarray:
+    """``d * (1 / sqrt(dx*dx + dy*dy + dz*dz))`` in float32, as the JAX
+    package's host packer computes its viewdirs. That packer is built with
+    ``-march=native``, where the compiler contracts the sum into fused
+    multiply-adds, ``fma(dz, dz, fma(dx, dx, dy * dy))``: each is taken
+    here in float64 (the product exact) and rounded once to float32."""
+    rd = np.asarray(rd, np.float32)
+    dx, dy, dz = (rd[:, k].astype(np.float64) for k in range(3))
+    s = (dx * dx + (dy * dy).astype(np.float32)).astype(np.float32)
+    s = (dz * dz + s).astype(np.float32)
+    inv = np.float32(1.0) / np.sqrt(s)
+    return rd * inv[:, None]
+
+
+def build_ray_store_from_cache(cachedir: str, near: float, far: float, *, device) -> RayStore:
+    """The store of an offline ray cache (``apps/cache.py``; the
+    reference's ``USE_CACHED_DATASET`` branch, ``train_nerf_rgb.py:186-220``):
+    every train shard of ``cachedir/train`` in sorted order, ``.npz`` or the
+    reference's ``torch.save`` ``.data`` (its ``ray_bundle`` and
+    ``target[..., :3]``), concatenated once into rows on ``device``. The
+    rows keep no image structure, so per-image sampling raises on it."""
+    train = os.path.join(cachedir, "train")
+    shards = sorted(glob.glob(os.path.join(train, "*.npz"))
+                    + glob.glob(os.path.join(train, "*.data")))
+    if not shards:
+        raise FileNotFoundError(f"no train shards under {cachedir}/train")
+    rows = []
+    for path in shards:
+        if path.endswith(".data"):
+            d = torch.load(path, map_location="cpu", weights_only=False)
+            bundle = np.asarray(d["ray_bundle"], dtype=np.float32)
+            rgb = np.asarray(d["target"], dtype=np.float32)[..., :3]
+        else:
+            with np.load(path) as z:
+                bundle, rgb = z["ray_bundle"], z["target"]
+        ro = np.asarray(bundle[0], np.float32).reshape(-1, 3)
+        rd = np.asarray(bundle[1], np.float32).reshape(-1, 3)
+        rows.append(np.concatenate(
+            [ro, rd, unit_directions(rd), np.asarray(rgb, np.float32).reshape(-1, 3)], axis=-1))
+    data = torch.as_tensor(np.concatenate(rows, axis=0), device=device)
+    return RayStore(data=data, near=float(near), far=float(far))
+
+
 def take_ray_batch(store: RayStore, idx: torch.Tensor) -> Tuple[RayBatch, torch.Tensor]:
     """Gather rows ``idx`` into a RayBatch and the target rgb [B, 3]. Each
     ray's bounds come from ``store.intervals`` when present, else the
@@ -140,7 +187,7 @@ def per_image_ray_indices(store: RayStore, batch_size: int, generator: torch.Gen
     """The reference's sampling: one random image, then ``batch_size``
     random pixels of it."""
     if not store.rays_per_image:
-        raise ValueError("store has no image structure")
+        raise ValueError("store has no image structure (cache-built?)")
     dev = store.data.device
     img = torch.randint(0, store.num_images, (1,), generator=generator, device=dev)
     pix = torch.randint(0, store.rays_per_image, (batch_size,), generator=generator, device=dev)

@@ -9,7 +9,8 @@ kernel 4), ``resample`` (the hierarchical resample, kernel 5),
 ``sample_pdf`` (the inverse-CDF op, kernel 6); ``_weight_grads`` (the
 f32 scratch and weight-gradient launches of kernels 3 and 4; their bf16
 counterparts are ``fused_train_loss.Bf16Gradients``) and ``_build`` (nvcc
-+ ctypes loader). Kernels 1-4 each have an f32 and a bf16 route, chosen
++ ctypes loader); ``host_rows``, the ray cache's host C++ gather, built
+with the host compiler. Kernels 1-4 each have an f32 and a bf16 route, chosen
 by ``compute_dtype``; ``launches_bf16`` counts the bf16 route's.
 
 The names the JAX package's ``ops`` exports for kernels 2, 3 and 6 are

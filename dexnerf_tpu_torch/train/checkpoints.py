@@ -11,8 +11,10 @@ moments keyed by the position of the parameter in ``coarse.parameters()``
 then ``fine.parameters()``, weights [out, in], an integer ``step``. The
 state of SGD, RMSprop and Adagrad, which JAX's export does not write, goes
 under :data:`PORT_OPTIMIZER_KEY`, a key JAX's ``import_torch_checkpoint``
-does not read, so the port resumes every optimizer. Orbax checkpoints need
-JAX: ``python -m dexnerf_tpu.apps.export`` turns one into a ``.ckpt``.
+does not read, so the port resumes every optimizer. The twists of pose
+refinement and their Adam's state go under :data:`POSE_KEY`, which JAX's
+importer does not read either. Orbax checkpoints need JAX: ``python -m
+dexnerf_tpu.apps.export`` turns one into a ``.ckpt``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ _HEADS = ["fc_feat", "fc_alpha", "layers_dir.0", "fc_rgb"]
 _HEAD_NO_VIEWDIRS = ["fc_out"]
 # where the state of an optimizer outside JAX's export (SGD, RMSprop, Adagrad) goes
 PORT_OPTIMIZER_KEY = "dexnerf_torch_optimizer_state"
+# where the pose twists [n_images, 6], their Adam state and its count go
+POSE_KEY = "dexnerf_torch_pose_state"
 # the optimizers whose state the reference Adam layout carries (JAX exports AdamW's too)
 ADAM_LAYOUT = ("Adam", "AdamW")
 
@@ -81,7 +85,8 @@ def read_reference_checkpoint(path: str) -> Dict:
             else None
         ),
     }
-    for k in ("height", "width", "focal_length", "optimizer_state_dict", PORT_OPTIMIZER_KEY):
+    for k in ("height", "width", "focal_length", "optimizer_state_dict", PORT_OPTIMIZER_KEY,
+              POSE_KEY):
         if ckpt.get(k) is not None:
             out[k] = ckpt[k]
     return out
@@ -98,12 +103,14 @@ def write_reference_checkpoint(
     loss: float = 0.0,
     psnr: float = 0.0,
     port_optimizer_state: Optional[Dict] = None,
+    pose_state: Optional[Dict] = None,
 ) -> None:
     """Write a reference-schema ``.ckpt`` from two state_dicts and,
     optionally, an Adam state in the reference layout
     (:func:`adam_state_dict`, :func:`adam_state_from_optax`) or another
     optimizer's state under :data:`PORT_OPTIMIZER_KEY`
-    (:func:`optimizer_checkpoint`)."""
+    (:func:`optimizer_checkpoint`), and the pose twists' under
+    :data:`POSE_KEY` (:func:`pose_checkpoint`)."""
 
     def cpu(sd):
         return {k: v.detach().to("cpu", torch.float32).contiguous() for k, v in sd.items()}
@@ -123,6 +130,8 @@ def write_reference_checkpoint(
         ckpt["optimizer_state_dict"] = optimizer_state
     if port_optimizer_state is not None:
         ckpt[PORT_OPTIMIZER_KEY] = port_optimizer_state
+    if pose_state is not None:
+        ckpt[POSE_KEY] = pose_state
     torch.save(ckpt, path)
 
 
@@ -297,4 +306,45 @@ def load_optimizer_checkpoint(opt_type: str, optimizer: torch.optim.Optimizer,
              for i in range(len(params)) if entry["state"][i]}
     optimizer.load_state_dict({"state": state,
                                "param_groups": optimizer.state_dict()["param_groups"]})
+    return True
+
+
+def pose_checkpoint(pose) -> Dict:
+    """A ``train.pose_opt.PoseState`` as the :data:`POSE_KEY` entry:
+    ``{"twists", "step", "state"}``, the state its Adam's for the twists."""
+    st = pose.optimizer.state.get(pose.twists, {})
+    return {"twists": pose.twists.detach().to("cpu").clone(), "step": int(pose.step),
+            "state": {k: v.detach().to("cpu") for k, v in st.items()}}
+
+
+def load_pose_checkpoint(pose, imported: Mapping) -> bool:
+    """Put a checkpoint's :data:`POSE_KEY` entry into ``pose`` (a
+    ``train.pose_opt.PoseState``). A checkpoint without one (the
+    reference's, or one JAX exported) leaves the twists at 0; as JAX grafts
+    the checkpoint's Adam count onto every partition of its optimizer, the
+    twists' Adam then resumes at the checkpoint's iteration with zero
+    moments when the file carries ``optimizer_state_dict``, else fresh.
+    Returns whether twists were loaded."""
+    entry = imported.get(POSE_KEY)
+    sd = pose.optimizer.state_dict()
+    if entry is None:
+        count = int(imported.get("step", 0)) if "optimizer_state_dict" in imported else 0
+        pose.step = count
+        if count:
+            zeros = torch.zeros_like(pose.twists, device="cpu")
+            pose.optimizer.load_state_dict({"state": {0: {
+                "step": torch.tensor(float(count)), "exp_avg": zeros, "exp_avg_sq": zeros.clone(),
+            }}, "param_groups": sd["param_groups"]})
+        return False
+    twists = torch.as_tensor(entry["twists"])
+    if tuple(twists.shape) != tuple(pose.twists.shape):
+        raise ValueError(
+            f"the checkpoint holds twists of {tuple(twists.shape)}, this scene "
+            f"{tuple(pose.twists.shape)} (one per train view)")
+    with torch.no_grad():
+        pose.twists.copy_(twists)
+    pose.step = int(entry["step"])
+    state = {k: torch.as_tensor(v).clone() for k, v in entry["state"].items()}
+    pose.optimizer.load_state_dict({"state": {0: state} if state else {},
+                                    "param_groups": sd["param_groups"]})
     return True

@@ -1,15 +1,16 @@
 """Training loop, model set-up and checkpoint loading.
 
 Counterpart of ``dexnerf_tpu/train/loop.py`` for single-device training on
-a device-resident ray store: ``load_scene`` (blender, messytable, LLFF
-with NDC rays),
+a device-resident ray store (the train views' rays, an offline cache's,
+or the camera-frame rays of pose refinement): ``load_scene`` (blender,
+messytable, LLFF with NDC rays),
 ``maybe_fused_loss`` (kernel 4 at ``train_compute_dtype``, with the depth
 term when asked, and kernel 5 between its passes, when ``nerf.use_pallas``),
 ``maybe_fused_fields`` (kernels 2 and 3 at ``train_compute_dtype`` when
 ``nerf.pallas_fused_loss`` is false), ``validate`` (through the fused
 render kernel; the expected-depth metrics against GT depth, and with
 ``dex`` the Dex-NeRF σ-threshold sweep), ``run_training`` (with depth
-supervision and its warmup), and what serving needs:
+supervision and its warmup, or pose refinement), and what serving needs:
 ``align_cfg_models_to_checkpoint``, ``load_eval_params`` (reference
 ``.ckpt`` only), ``setup_models`` and ``fused_render_impl`` (the
 counterpart of ``maybe_fused_render_impl``, at the compute dtype of
@@ -17,7 +18,7 @@ counterpart of ``maybe_fused_render_impl``, at the compute dtype of
 model at a time by JAX's rules, before any launch: a FlexibleNeRF with
 viewdirs takes its kernel, every other model the plain path. Checkpoints
 are reference ``.ckpt`` files with the optimizer's state (Adam's and
-AdamW's in the layout the JAX package also resumes).
+AdamW's in the layout the JAX package also resumes) and the pose twists'.
 """
 
 from __future__ import annotations
@@ -45,7 +46,11 @@ from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w, get_ray_bundle_w2c
 from dexnerf_tpu_torch.data.blender import load_blender_data, load_blender_depths
 from dexnerf_tpu_torch.data.llff import load_llff_data, load_llff_depths
 from dexnerf_tpu_torch.data.messytable import load_messytable_data
-from dexnerf_tpu_torch.data.pipeline import build_ray_store, with_full_intervals
+from dexnerf_tpu_torch.data.pipeline import (
+    build_ray_store,
+    build_ray_store_from_cache,
+    with_full_intervals,
+)
 from dexnerf_tpu_torch.models.mlp import COMPUTE_DTYPES, skip_positions
 from dexnerf_tpu_torch.ops.fused_mlp import make_fused_flexible_field
 from dexnerf_tpu_torch.ops.fused_mlp_train import make_fused_flexible_field_train
@@ -57,11 +62,19 @@ from dexnerf_tpu_torch.train.checkpoints import (
     has_viewdir_head,
     infer_flexible_arch,
     load_optimizer_checkpoint,
+    load_pose_checkpoint,
     optimizer_checkpoint,
+    pose_checkpoint,
     read_reference_checkpoint,
     write_reference_checkpoint,
 )
 from dexnerf_tpu_torch.train.logging import MetricsLogger, save_depth_png_mm
+from dexnerf_tpu_torch.train.pose_opt import (
+    build_pose_ray_store,
+    init_pose_state,
+    pose_ray_source,
+    refined_c2w,
+)
 from dexnerf_tpu_torch.train.step import init_train_state, make_train_step
 
 
@@ -533,26 +546,6 @@ def latest_checkpoint(directory: str) -> Optional[str]:
     return os.path.join(directory, max(found)[1]) if found else None
 
 
-def _reject_unported(cfg: CfgNode, depth_w: float) -> None:
-    """Config keys whose training modes are not ported raise instead of
-    training something else."""
-    if _get(cfg.nerf.train, "pose_opt", 0):
-        raise NotImplementedError(
-            "nerf.train.pose_opt: pose refinement (ROADMAP.md Queue 1 item 9) is not ported yet")
-    if _get(cfg.dataset, "host_store", False):
-        raise NotImplementedError(
-            "dataset.host_store: the host-streamed store is not ported yet "
-            "(ROADMAP.md Queue 1 item 7)"
-        )
-    cachedir = str(_get(cfg.dataset, "cachedir", "") or "")
-    # the JAX package trains from a ray cache only without depth supervision
-    if cachedir and os.path.isdir(os.path.join(cachedir, "train")) and depth_w == 0.0:
-        raise NotImplementedError(
-            f"dataset.cachedir {cachedir} holds a ray cache; training from it is not "
-            "ported yet (ROADMAP.md Queue 1 item 4c)"
-        )
-
-
 def run_training(
     cfg: CfgNode,
     *,
@@ -568,6 +561,7 @@ def run_training(
     depth_loss_weight: Optional[float] = None,
     depth_warmup: Optional[int] = None,
     occupancy: Optional[float] = None,
+    pose_opt: Optional[bool] = None,
     device="cuda",
 ) -> Dict[str, Any]:
     """Train a NeRF per ``cfg`` on one device; returns a summary dict.
@@ -601,7 +595,21 @@ def run_training(
     ray's ``[near, far]`` is tightened to its occupied span (misses keep the
     full interval; ``render/occupancy.py``), logging ``train/occ_fraction``
     and ``train/occ_interval_shrink``. World-space scenes and the
-    device-resident store only, and not with pose refinement."""
+    device-resident store only, and not with pose refinement.
+
+    ``pose_opt`` (else ``nerf.train.pose_opt``) refines the train views'
+    camera poses: a zero-initialized SE(3) twist per view trains with the
+    fields under its own Adam at ``optimizer.pose_lr`` (default 1e-3) and
+    the model's decay (``train/pose_opt.py``), through the plain render
+    (the kernels give no ray gradients), logging ``train/pose_twist_norm``;
+    the summary gains ``refined_poses`` [n_train, 4, 4] (c2w). Not with
+    depth supervision, occupancy or a ray cache (ignored).
+
+    The store is, in JAX's order of precedence: the pose store; the
+    host-streamed store (``dataset.host_store``, not ported: raises); the
+    offline ray cache of ``apps/cache.py`` when ``dataset.cachedir/train``
+    exists and no depth term is asked for (``build_ray_store_from_cache``);
+    else the resident store of the train views."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("device cuda: no CUDA card is visible to PyTorch")
@@ -613,8 +621,9 @@ def run_training(
         occupancy if occupancy is not None
         else (_get(cfg.nerf.train, "occupancy", 0.0) or 0.0)
     )
+    pose_opt = bool(_get(cfg.nerf.train, "pose_opt", False) if pose_opt is None else pose_opt)
     if occ_sigma > 0.0:
-        if _get(cfg.nerf.train, "pose_opt", False):
+        if pose_opt:
             raise ValueError(
                 "occupancy-guided training and pose refinement are mutually exclusive (the "
                 "pose store holds camera-frame rays whose world-space intervals move with "
@@ -625,7 +634,6 @@ def run_training(
                 "occupancy-guided training needs the device-resident ray store "
                 "(dataset.host_store: false)"
             )
-    _reject_unported(cfg, depth_w)
     seed = int(_get(cfg.experiment, "randomseed", 42))
     logdir = logdir or os.path.join(str(cfg.experiment.logdir), str(cfg.experiment.id))
     ckpt_dir = os.path.join(logdir, "checkpoints")
@@ -660,6 +668,12 @@ def run_training(
             fine.load_state_dict(imported["fine"])
         load_optimizer_checkpoint(state.opt_type, state.optimizer, imported)
         state.step = int(imported["step"])
+    if pose_opt:
+        state.pose = init_pose_state(
+            len(scene.i_train), float(_get(cfg.optimizer, "pose_lr", 1e-3)),
+            float(cfg.scheduler.lr_decay), float(cfg.scheduler.lr_decay_factor), device)
+        if imported is not None:
+            load_pose_checkpoint(state.pose, imported)
     start_iter = state.step
 
     dvm = _get(cfg.nerf.train, "depth_valid_max", None)
@@ -672,6 +686,8 @@ def run_training(
     ) if depth_w > 0.0 else 0
     warmup_auto = depth_warmup_iters < 0
     warmup_psnr = float(_get(cfg.nerf.train, "depth_warmup_psnr", 14.0) or 14.0)
+    if depth_w > 0.0 and pose_opt:
+        raise ValueError("depth supervision and --pose-opt are mutually exclusive")
     if depth_w > 0.0 and scene.depths is None:
         raise ValueError(
             "depth_loss_weight > 0 but the dataset has no GT depth maps (messytable "
@@ -687,13 +703,27 @@ def run_training(
     s_train = render_settings_from_cfg(cfg, "train")
     batch_size = int(cfg.nerf.train.num_random_rays)
     near, far = float(cfg.dataset.near), float(cfg.dataset.far)
-    store = build_ray_store(
-        scene.images[scene.i_train], scene.poses[scene.i_train], scene.hwf, near, far,
-        device=device,
-        intrinsics=None if scene.intrinsics is None else scene.intrinsics[scene.i_train],
-        use_ndc=scene.use_ndc,
-        depths=scene.depths[scene.i_train] if depth_w > 0.0 else None,
-    )
+    cachedir = str(_get(cfg.dataset, "cachedir", "") or "")
+    train_views = (scene.images[scene.i_train], scene.poses[scene.i_train], scene.hwf, near, far)
+    intrinsics = None if scene.intrinsics is None else scene.intrinsics[scene.i_train]
+    if pose_opt:
+        # camera-frame rays, turned into world rays by the refined poses in
+        # each step (a cache's world rays have no image to refine)
+        store = build_pose_ray_store(*train_views, device=device, intrinsics=intrinsics,
+                                     use_ndc=scene.use_ndc)
+    elif _get(cfg.dataset, "host_store", False):
+        raise NotImplementedError(
+            "dataset.host_store: the host-streamed store is not ported yet "
+            "(ROADMAP.md Queue 1 item 7)"
+        )
+    elif cachedir and os.path.isdir(os.path.join(cachedir, "train")) and depth_w == 0.0:
+        # the reference's USE_CACHED_DATASET preference (cache shards carry no depth)
+        store = build_ray_store_from_cache(cachedir, near, far, device=device)
+    else:
+        store = build_ray_store(
+            *train_views, device=device, intrinsics=intrinsics, use_ndc=scene.use_ndc,
+            depths=scene.depths[scene.i_train] if depth_w > 0.0 else None,
+        )
     occ_rebake = None
     occ_next = occ_every = 0
     last_occ: Dict[str, float] = {}  # the last bake's occ_fraction and occ_interval_shrink
@@ -727,13 +757,23 @@ def run_training(
         steps_per_call if steps_per_call is not None
         else _get(cfg.nerf.train, "steps_per_call", 1)
     )
-    fused_loss = maybe_fused_loss(cfg, s_train, supervision, coarse, fine,
-                                  depth_loss_weight=depth_w, depth_valid_max=depth_valid_max)
-    # the fused loss supersedes the separate field kernels
-    coarse_field, fine_field = (
-        (None, None) if fused_loss is not None
-        else maybe_fused_fields(cfg, coarse, fine, train=True)
-    )
+    if pose_opt:
+        if bool(_get(cfg.nerf, "use_pallas", False)):
+            # JAX's words (dexnerf_tpu/train/loop.py:1269-1278)
+            warnings.warn(
+                "pose_opt needs ray-input gradients; the fused Pallas train kernels are "
+                "bypassed (XLA path)",
+                stacklevel=2,
+            )
+        fused_loss, coarse_field, fine_field = None, None, None
+    else:
+        fused_loss = maybe_fused_loss(cfg, s_train, supervision, coarse, fine,
+                                      depth_loss_weight=depth_w, depth_valid_max=depth_valid_max)
+        # the fused loss supersedes the separate field kernels
+        coarse_field, fine_field = (
+            (None, None) if fused_loss is not None
+            else maybe_fused_fields(cfg, coarse, fine, train=True)
+        )
     step_kw = dict(
         supervision=supervision,
         coarse_field=coarse_field,
@@ -743,7 +783,8 @@ def run_training(
     )
     train_step = make_train_step(
         s_train, batch_size, fused_loss=fused_loss, depth_loss_weight=depth_w,
-        depth_valid_max=depth_valid_max, **step_kw,
+        depth_valid_max=depth_valid_max, ray_source=pose_ray_source if pose_opt else None,
+        **step_kw,
     )
     # the depth-free step of the warmup, over its own depth-free fused loss
     warmup_step = None if depth_warmup_iters == 0 else make_train_step(
@@ -812,15 +853,21 @@ def run_training(
                     fine.state_dict() if fine is not None else None,
                     step=state.step,
                     **optimizer_checkpoint(state.opt_type, state.optimizer, state.step, lr),
+                    pose_state=pose_checkpoint(state.pose) if pose_opt else None,
                     loss=float(metrics["loss"]),
                     psnr=float(metrics["psnr"]),
                 )
             logger.flush()
             i = last + 1
     elapsed = time.time() - t0
+    refined = {}
+    if pose_opt:
+        with torch.no_grad():
+            refined["refined_poses"] = refined_c2w(store.base_c2w, state.pose.twists).cpu().numpy()
     return {
         **({"depth_on_step": depth_on_step} if warmup_auto else {}),
         **last_occ,
+        **refined,
         "state": state,
         "final_train_metrics": last_metrics,
         "final_validation": last_val,

@@ -10,14 +10,16 @@ The optimizer is one of JAX's five (:data:`OPTIMIZER_REGISTRY`), each
 with optax's update at optax's defaults, its learning rate set before
 every update to ``optax.exponential_decay`` evaluated at the number of
 updates taken so far, as optax evaluates it (step 0 uses ``lr``).
-``steps_per_call`` updates run as a Python loop with no host sync.
+``steps_per_call`` updates run as a Python loop with no host sync. With
+pose refinement (``train/pose_opt.py``) the rays come from a
+``ray_source`` and the twists of ``TrainState.pose`` take their own update.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
@@ -129,7 +131,8 @@ OPTIMIZER_REGISTRY: Dict[str, Callable[..., torch.optim.Optimizer]] = {
 @dataclasses.dataclass
 class TrainState:
     """The models, their optimizer (of registry name ``opt_type``), its
-    learning-rate schedule and the number of updates taken."""
+    learning-rate schedule and the number of updates taken; ``pose``, a
+    ``train.pose_opt.PoseState``, when the camera poses are refined."""
 
     coarse: nn.Module
     fine: Optional[nn.Module]
@@ -137,6 +140,7 @@ class TrainState:
     schedule: Callable[[int], float]
     step: int = 0
     opt_type: str = "Adam"
+    pose: Optional[Any] = None
 
     def models(self) -> List[nn.Module]:
         return [m for m in (self.coarse, self.fine) if m is not None]
@@ -229,6 +233,7 @@ def make_train_step(
     steps_per_call: int = 1,
     depth_loss_weight: float = 0.0,
     depth_valid_max: Optional[float] = None,
+    ray_source: Optional[Callable] = None,
 ):
     """Build ``train_step(state, store, generator, draws=None) -> metrics``.
 
@@ -245,16 +250,28 @@ def make_train_step(
     ``weight * masked_depth_mse`` of the fine (or coarse-only) expected
     depth against the store's GT depth over ``0 < gt [< depth_valid_max]``;
     a fused loss must then have been built with the same term
-    (``supports_depth``) and the same ``depth_valid_max``."""
+    (``supports_depth``) and the same ``depth_valid_max``.
+    ``ray_source(state, store, idx) -> (rays, target)`` replaces the store
+    gather: pose refinement rotates the camera-frame directions by the
+    refined poses this way (``train.pose_opt.pose_ray_source``); then each
+    update also steps ``state.pose`` and the metrics gain
+    ``pose_twist_norm``, the mean norm of the updated twists."""
     indices = {"uniform": uniform_ray_indices, "per_image": per_image_ray_indices}[sampling]
     use_depth = depth_loss_weight > 0.0
     if use_depth and fused_loss is not None and not getattr(fused_loss, "supports_depth", False):
         raise ValueError(
             "depth supervision with a fused loss needs one built with depth_loss_weight > 0"
         )
+    if use_depth and ray_source is not None:
+        raise ValueError(
+            "depth supervision and a custom ray_source (pose refinement) are mutually exclusive"
+        )
 
     def loss_fn(state: TrainState, store: RayStore, d: StepDraws):
-        rays, target = take_ray_batch(store, d.idx)
+        if ray_source is not None:
+            rays, target = ray_source(state, store, d.idx)
+        else:
+            rays, target = take_ray_batch(store, d.idx)
         depth_gt = take_depth(store, d.idx) if use_depth else None
         if fused_loss is not None:
             if use_depth:
@@ -274,6 +291,8 @@ def make_train_step(
     def one_step(state: TrainState, store: RayStore, d: StepDraws) -> Dict[str, torch.Tensor]:
         loss, metrics = loss_fn(state, store, d)
         state.optimizer.zero_grad(set_to_none=True)
+        if state.pose is not None:
+            state.pose.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         lr = state.schedule(state.step)
         for group in state.optimizer.param_groups:
@@ -282,6 +301,10 @@ def make_train_step(
         state.step += 1
         photometric = metrics["coarse_loss"] + metrics["fine_loss"]
         metrics["psnr"] = -10.0 * torch.log10(torch.clamp(photometric, min=1e-10))
+        if state.pose is not None:
+            state.pose.update()
+            twists = state.pose.twists.detach()
+            metrics["pose_twist_norm"] = torch.mean(torch.linalg.norm(twists, dim=-1))
         return metrics
 
     def train_step(

@@ -344,10 +344,10 @@ def test_eval_dataset_free_reference_ckpt(jax, tmp_path):
 ], ids=lambda f: f[0].lstrip("-"))
 def test_refused_flags_name_their_item(flag):
     """Unported modes raise naming their ROADMAP item; the flags of Queue 1
-    item 8 (occupancy, ported since) pass the check, and the main goes on
-    to read the (missing) config."""
+    items 8 (occupancy) and 9 (``--refined-poses``), ported since, pass the
+    check, and the main goes on to read the (missing) config."""
     argv = ["--config", "unused.yml", "--checkpoint", "unused.ckpt", "--device", "cpu", *flag]
-    item = {"--sg-ir": "item 10", "--refined-poses": "item 9"}.get(flag[0])
+    item = {"--sg-ir": "item 10"}.get(flag[0])
     if item is None:
         with pytest.raises(FileNotFoundError, match="unused.yml"):
             eval_app.main(argv)

@@ -40,7 +40,8 @@ from dexnerf_tpu_torch.config.cfgnode import CfgNode
 from dexnerf_tpu_torch.core.encoding import positional_encoding
 from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w, ndc_rays, ndc_t_to_world_depth
 from dexnerf_tpu_torch.core.sampling import stratified_z_vals
-from dexnerf_tpu_torch.data.llff import area_downsample_u8, load_llff_data, load_llff_depths
+from dexnerf_tpu_torch.data.llff import load_llff_data, load_llff_depths
+from dexnerf_tpu_torch.data.resize import area_resize
 from dexnerf_tpu_torch.data.pipeline import build_ray_store
 from dexnerf_tpu_torch.data.synthetic import (
     LLFF_DEX_THRESHOLD,
@@ -127,14 +128,14 @@ def test_ndc_t_to_world_depth_inverts_the_projection():
 
 @pytest.mark.parametrize("factor", [2, 3, 4, 8])
 def test_area_downsample_matches_cv2(factor):
-    """On random pixels the port's block mean is OpenCV's ``INTER_AREA``,
-    which the JAX package's minify calls, exactly."""
+    """On random pixels the port's area resize at an integer factor is
+    OpenCV's ``INTER_AREA``, which the JAX package's minify calls, exactly."""
     import cv2
 
     img = np.random.default_rng(factor).integers(0, 256, (factor * 5, factor * 7, 3),
                                                  dtype=np.uint8)
     np.testing.assert_array_equal(
-        area_downsample_u8(img, factor),
+        area_resize(img, (5, 7)),
         cv2.resize(img, (7, 5), interpolation=cv2.INTER_AREA))
 
 
@@ -171,11 +172,21 @@ def test_load_llff_data_matches_jax(jax, tmp_path, llff_dir, factor, spherify):
     assert render_poses.shape == (120, 3, 5)
 
 
-def test_unported_factor_raises(tmp_path, llff_dir):
-    base = str(tmp_path / "llff")
-    shutil.copytree(llff_dir, base)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4c"):
-        load_llff_data(base, factor=5)
+def test_unported_factor_raises(jax, tmp_path, llff_dir):
+    """A factor that does not divide the 32x48 frame raised until ROADMAP
+    item 4c; now the minify writes OpenCV's ``INTER_AREA`` at
+    ``(H // 5, W // 5)`` and the load equals the JAX loader's."""
+    from dexnerf_tpu.data.llff import load_llff_data as j_load
+
+    copies = {k: str(tmp_path / k) for k in ("port", "jax")}
+    for k in copies:
+        shutil.copytree(llff_dir, copies[k])
+    got = load_llff_data(copies["port"], factor=5)
+    want = j_load(copies["jax"], factor=5)
+    assert got[0].shape == (10, LLFF_HW[0] // 5, LLFF_HW[1] // 5, 3)
+    np.testing.assert_array_equal(got[0], want[0])
+    for name, a, b in (("poses", got[1], want[1]), ("bds", got[2], want[2])):
+        np.testing.assert_allclose(a, b, rtol=POSE_ATOL, atol=POSE_ATOL, err_msg=name)
 
 
 def test_write_llff_dataset_geometry(llff_dir):

@@ -187,11 +187,20 @@ def test_random_blocks_match_cv2(jax, tmp_path, real_rgb):
 
 
 @pytest.mark.parametrize("how", ["debug", "odd-size"])
-def test_unported_resizes_raise(tmp_path, how):
+def test_unported_resizes_raise(jax, tmp_path, how):
+    """The resizes that raised until ROADMAP item 4c (the 25x25 ``debug``
+    mode, an odd frame) now load as the JAX loader's OpenCV resizes load
+    them, every array equal, ``hwf`` included (in ``debug``, the
+    reference's ``H // 32`` of the stored frame beside 25x25 images)."""
+    from dexnerf_tpu.data import load_messytable_data as j_load
+
     base = str(tmp_path / "rand")
-    _write_random_blocks(base, h=9 if how == "odd-size" else 10)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        load_messytable_data(base, imgname="img.png", debug=how == "debug")
+    debug = how == "debug"
+    _write_random_blocks(base, h=27 if debug else 9, w=70 if debug else 14)
+    got = load_messytable_data(base, imgname="img.png", debug=debug)
+    _assert_same_load(got, j_load(base, imgname="img.png", debug=debug))
+    assert got[0].shape[1:3] == got[6].shape[1:] == ((25, 25) if debug else (4, 7))
+    assert got[3][:2] == ([0, 2] if debug else [4, 7])
 
 
 def test_ray_store_w2c_rows_match_jax(jax, tmp_path):
@@ -234,15 +243,27 @@ def test_load_scene_messytable_matches_jax(jax, tmp_path, mt_dir):
 
 
 @pytest.mark.parametrize("kind,error", [("llff", NotImplementedError), ("colmap", ValueError)])
-def test_load_scene_refuses_other_datasets(tmp_path, kind, error):
-    """An unknown dataset type; an LLFF scene (loaded since the LLFF path
-    was ported) whose 20x30 images do not divide by its factor of 8."""
-    basedir = ""
-    if kind == "llff":
-        basedir = str(tmp_path / "llff")
+def test_load_scene_refuses_other_datasets(jax, tmp_path, kind, error):
+    """An unknown dataset type raises ``error``. An LLFF scene whose 20x30
+    images do not divide by its factor of 8 raised ``error`` until ROADMAP
+    item 4c; it now loads (at 2x3) as the JAX package's ``load_scene``
+    loads it."""
+    from dexnerf_tpu.config import CfgNode as JCfg
+    from dexnerf_tpu.train.loop import load_scene as j_load_scene
+
+    if kind != "llff":
+        with pytest.raises(error, match="unknown"):
+            ploop.load_scene(CfgNode(_mt_cfg(tmp_path, "", type=kind, downsample_factor=8)))
+        return
+    copies = {k: str(tmp_path / k) for k in ("port", "jax")}
+    for basedir in copies.values():
         write_llff_dataset(basedir, height=20, width=30, views=3)
-    with pytest.raises(error, match="Queue 1 item 4" if kind == "llff" else "unknown"):
-        ploop.load_scene(CfgNode(_mt_cfg(tmp_path, basedir, type=kind, downsample_factor=8)))
+    got = ploop.load_scene(CfgNode(_mt_cfg(tmp_path, copies["port"], type=kind,
+                                           downsample_factor=8)))
+    want = j_load_scene(JCfg(_mt_cfg(tmp_path, copies["jax"], type=kind, downsample_factor=8)))
+    assert got.images.shape == (3, 2, 3, 3) and got.hwf == want.hwf
+    np.testing.assert_array_equal(got.images, want.images)
+    np.testing.assert_allclose(got.poses, want.poses, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("supervision", ["rgb", "luminance"])

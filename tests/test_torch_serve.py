@@ -218,7 +218,9 @@ def test_port_imports_no_jax():
         "import dexnerf_tpu_torch.apps.serve\n"
         "for name in ('data.messytable', 'apps.eval', 'data.llff', 'utils', 'utils.images',\n"
         "             'utils.pointcloud', 'render.occupancy', 'utils.mesh', 'apps.mesh',\n"
-        "             'apps.tiny', 'models.mlp', 'models.registry', 'train.step'):\n"
+        "             'apps.tiny', 'models.mlp', 'models.registry', 'train.step',\n"
+        "             'apps.cache', 'core.lie', 'train.pose_opt', 'data.resize',\n"
+        "             'ops.host_rows'):\n"
         "    assert 'dexnerf_tpu_torch.' + name in sys.modules, name\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'dexnerf_tpu', 'cv2', 'imageio', 'matplotlib')]\n"

@@ -310,12 +310,12 @@ def test_train_cli_needs_a_card_unless_told_cpu(tmp_path):
     ["--sg-ir"], ["--pose-opt"], ["--occupancy", "0.2"], ["--num-devices", "4"],
 ])
 def test_unported_modes_raise(tmp_path, flag):
-    """Unported modes raise naming their ROADMAP item; ``--occupancy``
-    (Queue 1 item 8, ported since) passes, and training goes on to load the
-    (missing) dataset."""
+    """Unported modes raise naming their ROADMAP item; ``--occupancy`` and
+    ``--pose-opt`` (Queue 1 items 8 and 9, ported since) pass, and training
+    goes on to load the (missing) dataset."""
     cfg, _ = _tiny_config(tmp_path, str(tmp_path / "missing"), 1)
     argv = ["--config", cfg, "--device", "cpu", *flag]
-    if flag[0] == "--occupancy":
+    if flag[0] in ("--occupancy", "--pose-opt"):
         with pytest.raises(FileNotFoundError, match="missing"):
             train_app.main(argv)
         return
