@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch port's serving path, its training
 configurations, its evaluation entry point, its LLFF/NDC path, its
 occupancy-guided paths and mesh export, its other model families,
-optimizers and tiny pipeline, its ray cache and its pose refinement on one
-CUDA card.
+optimizers and tiny pipeline, its ray cache, its pose refinement, its
+active-IR SG shading and its data-parallel step on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -185,7 +185,24 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    pose-recovery check at its sizes (250 steps, the twist error under half
    its start); ``apps.eval --refined-poses`` on that checkpoint (two
    kernel-1 launches a train view, the first frame the refined camera's,
-   held to its plain versions by phase 3's rule).
+   held to its plain versions by phase 3's rule);
+20. active-IR SG shading and data-parallel training: ``apps.train
+   --sg-ir`` of ``configs/messytable-obj.yml`` (``nerf.use_pallas: true``)
+   on phase 14's scene for 20 steps: the shaded loss supersedes every
+   training kernel (kernels 2-6 never, as in JAX), validation through
+   kernel 1's bf16 route, the loss finite and falling, the SG leaves in the
+   ``.ckpt``; a step's host-clock time, device time, idle share and peak
+   memory; one step's loss and every gradient leaf (fields and SG) held to
+   the CPU's, and its update on the CPU's gradients by phase 18's rule; ``apps.eval
+   --test-set --sg-ir`` (two kernel-1 launches a frame, an IR PNG a frame
+   equal to a direct render, the IR frame timed, kernel 1 on the frame vs
+   plain); ``make_parallel_train_step`` at one NCCL rank equal in every
+   bit to ``make_train_step`` on the same draws through kernel 4's bf16
+   route (2 launches a step), two gloo ranks on the one card at phase 6's
+   batch held to the one-rank step by phase 7's rule, their parameters
+   equal in every bit, kernel 4 on a rank's batch vs plain; ``apps.train
+   --num-devices 2`` on the one card raises ``make_mesh``'s words (phase
+   20 alone: ``python3 perf_tools/phase20_alone.py``).
 
 Each kernel's line holds its bound: the larger of its FLOPs (multiply-adds
 counted from the model's shapes; compares and arithmetic counted from the
@@ -315,6 +332,9 @@ TINY_ITERS = 200
 CACHE_RAYS, CACHE_ITERS, POSE_ITERS = 8192, 20, 20
 POSE_EPS = (0.04, 0.08)
 RECOVERY_STEPS, RECOVERY_RAYS = 250, 256
+# phase 20: the --sg-ir run's steps on phase 14's scene; the updates of the
+# one-rank NCCL comparison, and the seconds a spawned group of ranks may take
+SG_ITERS, RANK_STEPS, RANK_TIMEOUT = 20, 2, 300.0
 # kernels 5 and 6 vs plain: the CPU tests' tolerances (tests/test_torch_resample.py).
 # With trained weights the CDF has steps of ~1e-5, where one ulp of the CDF
 # moves a depth by up to ~1e-4 through the guarded lerp, so each output is
@@ -3412,6 +3432,452 @@ def cache_pose_phase(torch, np, card, dev, tmp, shared):
     return entries
 
 
+def _rank_state(cfg_path, ckpt_path, dev, torch):
+    """A rank's set-up for phase 20 (c): the config's train store of the
+    views on ``dev``, its train settings and batch, and a function that
+    builds a fresh state from the checkpoint with kernel 4's bf16 loss."""
+    from dexnerf_tpu_torch.config import load_config, render_settings_from_cfg
+    from dexnerf_tpu_torch.data.pipeline import build_ray_store
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+    from dexnerf_tpu_torch.train import loop as ploop
+    from dexnerf_tpu_torch.train.checkpoints import read_reference_checkpoint
+    from dexnerf_tpu_torch.train.step import init_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = load_config(cfg_path)
+    scene = ploop.load_scene(cfg)
+    tr = scene.i_train
+    store = build_ray_store(scene.images[tr], scene.poses[tr], scene.hwf,
+                            float(cfg.dataset.near), float(cfg.dataset.far), device=dev)
+    ck = read_reference_checkpoint(ckpt_path)
+    s = render_settings_from_cfg(cfg, "train")
+
+    def fresh():
+        coarse, fine = ploop.setup_models(cfg, 0, dev)
+        coarse.load_state_dict(ck["coarse"])
+        fine.load_state_dict(ck["fine"])
+        st = init_train_state(coarse, fine, float(cfg.optimizer.lr))
+        loss = ftl.make_fused_train_loss(coarse, fine, s, compute_dtype=torch.bfloat16,
+                                         dw_dtype=torch.bfloat16)
+        return st, loss
+
+    return store, s, int(cfg.nerf.train.num_random_rays), fresh
+
+
+def rank_one_nccl(mesh, cfg_path, ckpt_path, steps):
+    """Phase 20 (c), one NCCL rank: ``make_parallel_train_step`` and
+    ``make_train_step`` from one checkpoint on the same draws through
+    kernel 4's bf16 route, ``steps`` updates each; returns whether every
+    parameter, Adam moment and metric is equal in every bit, the parallel
+    step's kernel-4 launches per update, and both steps' host-clock ms."""
+    import torch
+
+    from dexnerf_tpu_torch.data.pipeline import uniform_ray_indices
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+    from dexnerf_tpu_torch.parallel.sharding import make_parallel_train_step
+    from dexnerf_tpu_torch.render.renderer import draw_render_noise
+    from dexnerf_tpu_torch.train.step import StepDraws, make_train_step
+
+    dev = mesh.device
+    store, s, batch, fresh = _rank_state(cfg_path, ckpt_path, dev, torch)
+    (a, loss_a), (b, loss_b) = fresh(), fresh()
+    par = make_parallel_train_step(mesh, s, batch, fused_loss=loss_a)
+    one = make_train_step(s, batch, fused_loss=loss_b)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    launches, same_metrics = [], True
+    for _ in range(steps):
+        d = StepDraws(uniform_ray_indices(store, batch, gen), draw_render_noise(batch, s, gen, dev))
+        ftl.launches = ftl.launches_bf16 = 0
+        ma = par(a, store, draws=[d])
+        torch.cuda.synchronize()
+        launches.append((ftl.launches_bf16, ftl.launches))
+        mb = one(b, store, draws=[d])
+        same_metrics &= all(torch.equal(ma[k], mb[k]) for k in mb) and set(ma) == set(mb)
+    pa = [p for g in a.optimizer.param_groups for p in g["params"]]
+    pb = [p for g in b.optimizer.param_groups for p in g["params"]]
+    same_params = all(torch.equal(x, y) for x, y in zip(pa, pb))
+    same_state = all(torch.equal(a.optimizer.state[x][k], b.optimizer.state[y][k])
+                     for x, y in zip(pa, pb) for k in ("exp_avg", "exp_avg_sq"))
+    gen_a = torch.Generator(device=dev).manual_seed(SEED)
+    ms = {"parallel_1rank": host_ms(torch, lambda: par(a, store, gen_a), n=5),
+          "make_train_step": host_ms(torch, lambda: one(b, store, gen_a), n=5)}
+    # the field path (nerf.pallas_fused_loss: false): kernels 2 and 3 in the rank's step
+    from dexnerf_tpu_torch.config import load_config
+    from dexnerf_tpu_torch.ops import fused_mlp, fused_mlp_train
+    from dexnerf_tpu_torch.train import loop as ploop
+
+    cfg = load_config(cfg_path)
+    cfg.nerf.pallas_fused_loss = False
+    (c, _), (e, _) = fresh(), fresh()
+    par_f = make_parallel_train_step(mesh, s, batch, **dict(zip(
+        ("coarse_field", "fine_field"), ploop.maybe_fused_fields(cfg, c.coarse, c.fine, train=True))))
+    one_f = make_train_step(s, batch, **dict(zip(
+        ("coarse_field", "fine_field"), ploop.maybe_fused_fields(cfg, e.coarse, e.fine, train=True))))
+    d = StepDraws(uniform_ray_indices(store, batch, gen), draw_render_noise(batch, s, gen, dev))
+    for m in (fused_mlp, fused_mlp_train, ftl):
+        m.launches = m.launches_bf16 = 0
+    mc = par_f(c, store, draws=[d])
+    torch.cuda.synchronize()
+    field_launches = {"kernel2_bf16": fused_mlp.launches_bf16, "kernel2": fused_mlp.launches,
+                      "kernel3_bf16": fused_mlp_train.launches_bf16,
+                      "kernel3": fused_mlp_train.launches, "kernel4": ftl.launches}
+    me = one_f(e, store, draws=[d])
+    same_field = (all(torch.equal(mc[k], me[k]) for k in me) and all(
+        torch.equal(x, y) for x, y in zip(c.optimizer.param_groups[0]["params"],
+                                          e.optimizer.param_groups[0]["params"])))
+    return {"same_params": same_params, "same_state": same_state, "same_metrics": same_metrics,
+            "launches": launches, "ms": ms, "backend": mesh.backend, "batch": batch,
+            "field_launches": field_launches, "same_field": same_field}
+
+
+def rank_two_gloo(mesh, cfg_path, ckpt_path):
+    """Phase 20 (c), two gloo ranks on the one card: one update of
+    ``make_parallel_train_step`` at the config's global batch on the
+    generator of seed SEED (each rank its half of the single-device step's
+    draws), through kernel 4's bf16 route; returns the averaged gradients
+    and the parameters after it (on the CPU), the metrics, the launches and
+    a step's host-clock ms."""
+    import torch
+
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+    from dexnerf_tpu_torch.parallel.sharding import make_parallel_train_step
+
+    dev = mesh.device
+    store, s, batch, fresh = _rank_state(cfg_path, ckpt_path, dev, torch)
+    st, loss = fresh()
+    par = make_parallel_train_step(mesh, s, batch, fused_loss=loss)
+    ftl.launches = ftl.launches_bf16 = 0
+    m = par(st, store, torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    launches = (ftl.launches_bf16, ftl.launches)
+    out = {
+        "grads": {f"{name}.{k}": p.grad.detach().cpu() for name, model in
+                  (("coarse", st.coarse), ("fine", st.fine)) for k, p in model.named_parameters()},
+        "params": [p.detach().cpu() for p in st.optimizer.param_groups[0]["params"]],
+        "metrics": {k: float(v) for k, v in m.items()}, "launches": launches,
+    }
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    out["ms"] = host_ms(torch, lambda: par(st, store, gen), n=5)
+    return out
+
+
+def sgir_parallel_phase(torch, np, card, dev, tmp, shared):
+    """Phase 20, active-IR SG shading and data-parallel training. (a)
+    ``apps.train --sg-ir`` of ``configs/messytable-obj.yml``
+    (``nerf.use_pallas: true``) on phase 14's scene, SG_ITERS steps: the
+    shaded loss supersedes every training kernel (kernels 2-6 never, as in
+    JAX), validations through kernel 1's bf16 route, the loss finite and
+    falling, the SG leaves and their Adam state in the ``.ckpt``; a step's
+    host-clock ms, device time, idle share and peak memory; one step on the
+    card held to the CPU's: its loss, the card's own gradients of every
+    field and SG leaf (to GRAD_RTOL of the leaf's largest entry), and the
+    update on the CPU's gradients by phase 18's rule. (b) ``apps.eval --test-set
+    --sg-ir`` on that checkpoint: two kernel-1 launches a frame, an IR PNG a
+    frame equal to a direct render, the IR frame timed; kernel 1 on the
+    frame vs plain (phase 3's rule). (c) ``make_parallel_train_step`` at one
+    NCCL rank equal in every bit to ``make_train_step`` on the same draws
+    through kernel 4's bf16 route (2 launches a step); two gloo ranks on the
+    one card at phase 6's global batch held to the one-rank step by phase
+    7's rule, their parameters equal in every bit; kernel 4 on a rank's
+    batch vs plain. (d) ``apps.train --num-devices 2`` on the one card
+    raises ``make_mesh``'s words. Returns the kernels-line entries."""
+    import copy
+
+    from PIL import Image
+
+    from dexnerf_tpu_torch.apps import train as train_app
+    from dexnerf_tpu_torch.config import render_settings_from_cfg
+    from dexnerf_tpu_torch.core.rays import get_ray_bundle_w2c
+    from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals
+    from dexnerf_tpu_torch.core.volrend import ray_dists
+    from dexnerf_tpu_torch.data.pipeline import (
+        build_ray_store,
+        take_ray_batch,
+        uniform_ray_indices,
+    )
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+    from dexnerf_tpu_torch.parallel.mesh import spawn_ranks
+    from dexnerf_tpu_torch.render import sg_ir
+    from dexnerf_tpu_torch.render.renderer import (
+        RenderDraws,
+        draw_render_noise,
+        jittered_z_vals,
+        make_ray_batch,
+    )
+    from dexnerf_tpu_torch.train import loop as ploop
+    from dexnerf_tpu_torch.train.checkpoints import SG_KEY, load_adam_state, load_sg_checkpoint
+    from dexnerf_tpu_torch.train.step import StepDraws, init_train_state, make_train_step
+    from dexnerf_tpu_torch.utils import cast_to_gray_image
+
+    bf16 = torch.bfloat16
+    # ---- (a) apps.train --sg-ir on phase 14's scene
+    data = os.path.join(tmp, "messytable")
+    cfg_path, logdir, counts, losses, val_psnr, secs, peak_gb = train_cli(
+        tmp, data, "messytable-sgir", SG_ITERS, torch, dev, config=CONFIG,
+        dataset={"depth_valid_max": DEX_VALID_MAX}, flags=["--sg-ir"], use_pallas=True)
+    ckpt = os.path.join(logdir, "checkpoints", f"checkpoint_{SG_ITERS - 1:07d}.ckpt")
+    cfg, coarse, fine, ck = run_models(cfg_path, logdir, SG_ITERS, dev)
+    entry = ck.get(SG_KEY, {})
+    print(f"phase 20 (a): apps.train --sg-ir on messytable-obj (phase 14's scene, "
+          f"nerf.use_pallas: true): {SG_ITERS} steps in {secs:.2f} s, launches "
+          f"{json.dumps(counts)}; peak {peak_gb:.2f} GiB; loss first {losses[0]:.5f} last "
+          f"{losses[-1]:.5f}; validation psnr (luminance) {val_psnr}; the .ckpt's SG leaves "
+          + json.dumps({k: [round(float(x), 5) for x in v.flatten()[:4]]
+                        for k, v in entry.get("params", {}).items()}))
+    run_checks("phase 20 (a) sg-ir training", {
+        "kernels 2-6 never launched": all(v == 0 for k, v in counts.items()
+                                          if not k.startswith("fused_render")),
+        "validations at steps 0 and last, each 2 launches of kernel 1's bf16 route":
+            len(val_psnr) == 2 and counts["fused_render_bf16"] == counts["fused_render"] == 4,
+        f"{SG_ITERS} finite losses": len(losses) == SG_ITERS and bool(np.isfinite(losses).all()),
+        "loss falls (mean of last 5 < first 5)": np.mean(losses[-5:]) < np.mean(losses[:5]),
+        "the .ckpt holds the 5 SG leaves and their Adam state after the last step":
+            sorted(entry.get("params", {})) == sorted(sg_ir.SG_LEAVES)
+            and all(int(entry["state"][k]["step"]) == SG_ITERS for k in sg_ir.SG_LEAVES)
+            and all(bool(torch.isfinite(v).all()) for v in entry["params"].values()),
+    })
+    scene = ploop.load_scene(cfg)
+    tr = scene.i_train
+    s_train = render_settings_from_cfg(cfg, "train")
+    batch, lr = int(cfg.nerf.train.num_random_rays), float(cfg.optimizer.lr)
+    near, far = float(cfg.dataset.near), float(cfg.dataset.far)
+    falloff = bool(ploop._get(cfg.nerf.train, "sg_distance_falloff", True))
+
+    def state_on(device):
+        """The run's last state (models, SG leaves, their Adam) on ``device``
+        from a copy of the checkpoint, its store and its shaded loss."""
+        ck_ = copy.deepcopy(ck)
+        sgp = sg_ir.init_sg_ir_params(torch.Generator().manual_seed(0), device=device)
+        st = init_train_state(copy.deepcopy(coarse).to(device), copy.deepcopy(fine).to(device),
+                              lr, float(cfg.scheduler.lr_decay),
+                              float(cfg.scheduler.lr_decay_factor), sg=sgp)
+        load_adam_state(st.optimizer, ck_["optimizer_state_dict"])
+        load_sg_checkpoint(sgp, st.optimizer, "Adam", ck_)
+        st.step = int(ck_["step"])
+        store = build_ray_store(scene.images[tr], scene.poses[tr], scene.hwf, near, far,
+                                device=device, intrinsics=scene.intrinsics[tr])
+        loss = sg_ir.make_sg_ir_loss(st.coarse, st.fine, sgp, s_train, distance_falloff=falloff)
+        return st, store, loss
+
+    st, store, loss = state_on(dev)
+    step = make_train_step(s_train, batch, fused_loss=loss)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    step_ms = host_ms(torch, lambda: step(st, store, gen), n=5)
+    peak_step = torch.cuda.max_memory_allocated() / 2**30
+    step_counts = read_counts()
+    print(f"phase 20 (a): an sg-ir step (batch {batch}, {s_train.num_coarse} + "
+          f"{s_train.num_fine}, plain f32 fields with the point gradients of the normals, TF32 "
+          f"off):")
+    summary = {}
+    profile_steps(torch, lambda: step(st, store, gen), {}, summary=summary)
+    span, idle = summary.get("span", float("nan")), summary.get("idle", float("nan"))
+    del st, step
+
+    on_card, card_store, card_loss = state_on(dev)
+    on_cpu, cpu_store, cpu_loss = state_on("cpu")
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    d_cpu = StepDraws(torch.randint(0, cpu_store.num_rays, (batch,), generator=cpu_gen),
+                      draw_render_noise(batch, s_train, cpu_gen, "cpu"))
+    d_card = StepDraws(d_cpu.idx.to(dev), RenderDraws(
+        *[None if t is None else t.to(dev) for t in d_cpu.render]))
+    rays, target = take_ray_batch(card_store, d_card.idx)
+    card_leaf = card_loss(rays, target, d_card.render)[0]
+    loss_card = float(card_leaf.detach())
+    loss_cpu = float(make_train_step(s_train, batch, fused_loss=cpu_loss)(
+        on_cpu, cpu_store, draws=[d_cpu])["loss"])
+    pairs = [(pc, ph) for gc, gh in zip(on_card.optimizer.param_groups,
+                                        on_cpu.optimizer.param_groups)
+             for pc, ph in zip(gc["params"], gh["params"])]
+    # the card's own backward (the σ point gradients of the normals, the
+    # shading's ties, every field and SG leaf) vs the CPU step's gradients
+    names = {id(p): f"{m}.{k}" for m, mod in (("coarse", on_card.coarse), ("fine", on_card.fine))
+             for k, p in mod.named_parameters()}
+    names.update({id(p): f"sg.{k}" for k, p in on_card.sg.items()})
+    card_grads = torch.autograd.grad(card_leaf, [pc for pc, _ in pairs])
+    grad_ratio = {}
+    for (pc, ph), g in zip(pairs, card_grads):
+        err = float((g.cpu() - ph.grad).abs().max())
+        grad_ratio[names[id(pc)]] = (err / max(float(ph.grad.abs().max()), 1e-30)
+                                     if bool(torch.isfinite(g).all()) else float("inf"))
+    worst_leaf = max(grad_ratio, key=grad_ratio.get)
+    del card_leaf, card_grads
+    for pc, ph in pairs:
+        pc.grad = ph.grad.to(dev)
+    for group in on_card.optimizer.param_groups:
+        group["lr"] = on_card.schedule(on_card.step)
+    on_card.optimizer.step()
+    w_p = w_s = 0.0
+    for pc, ph in pairs:
+        scale = max(float(ph.detach().abs().max()), 1e-30)
+        w_p = max(w_p, float((pc.detach().cpu() - ph.detach()).abs().max()) / scale)
+        sc, sh_ = on_card.optimizer.state[pc], on_cpu.optimizer.state[ph]
+        for k in ("exp_avg", "exp_avg_sq"):
+            w_s = max(w_s, float((sc[k].cpu() - sh_[k]).abs().max())
+                      / max(float(sh_[k].abs().max()), 1e-30))
+    loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    print(f"phase 20 (a): ms on {card}: sg-ir step {step_ms:.3f} (host clock around "
+          f"synchronize, mean of 5; launches {json.dumps(step_counts)}), device busy "
+          f"{span - idle:.3f} of a {span:.3f} span, idle {idle:.3f} ({idle / span:.1%} of the "
+          f"span), peak {peak_step:.2f} GiB (max_memory_allocated); one step card vs CPU on the "
+          f"CPU's draws: loss {loss_card:.7f} vs {loss_cpu:.7f} (rel {loss_err:.2e}, limit "
+          f"{TRAIN_LOSS_RTOL:g}); the card's own gradients vs the CPU's, worst leaf {worst_leaf} "
+          f"at {grad_ratio[worst_leaf]:.2e} of its largest entry (limit {GRAD_RTOL:g}, "
+          f"{len(grad_ratio)} leaves); on the CPU's gradients, worst parameter {w_p:.2e} and worst "
+          f"Adam moment {w_s:.2e} of the leaf's largest entry (fields and SG leaves; limits "
+          f"{OPT_PARAM_RTOL:g}, {OPT_STATE_RTOL:g})")
+    run_checks("phase 20 (a) sg-ir step card vs CPU", {
+        "no kernel in the timed steps": not any(step_counts.values()),
+        f"loss within {TRAIN_LOSS_RTOL:g}": loss_err <= TRAIN_LOSS_RTOL,
+        f"every gradient leaf (fields and SG) finite and within {GRAD_RTOL:g} of its largest "
+        "entry": all(r <= GRAD_RTOL for r in grad_ratio.values()),
+        "the update within its limits": w_p <= OPT_PARAM_RTOL and w_s <= OPT_STATE_RTOL,
+    })
+    del on_card, on_cpu, card_store, cpu_store, store
+
+    # ---- (b) apps.eval --test-set --sg-ir on (a)'s checkpoint
+    savedir = os.path.join(tmp, "eval-sgir")
+    e_counts, _, e_secs = eval_cli(cfg_path, ckpt, savedir, ["--test-set", "--sg-ir"], dev)
+    frames = sorted(f for f in os.listdir(savedir) if f.endswith(".png"))
+    irs = sorted(os.listdir(os.path.join(savedir, "ir")))
+    s_val = render_settings_from_cfg(cfg, "validation").eval_variant()
+    idx = int(np.asarray(scene.i_test).ravel()[0])
+    H, W = int(scene.hwf[0]), int(scene.hwf[1])
+    ro, rd = get_ray_bundle_w2c(H, W, torch.as_tensor(scene.poses[idx], device=dev),
+                                torch.as_tensor(scene.intrinsics[idx], device=dev))
+    sgp = {k: v.to(dev) for k, v in ck[SG_KEY]["params"].items()}
+
+    def ir_frame():
+        return sg_ir.render_sg_ir_image(coarse, fine, sgp, ro, rd, near, far, s_val,
+                                        distance_falloff=falloff)
+
+    torch.cuda.reset_peak_memory_stats()
+    ir = ir_frame()
+    ir_ms = host_ms(torch, ir_frame, n=2)
+    ir_peak = torch.cuda.max_memory_allocated() / 2**30
+    png = np.asarray(Image.open(os.path.join(savedir, "ir", "0000.png")), np.int16)
+    png_err = int(np.abs(png - cast_to_gray_image(ir.cpu().numpy()).astype(np.int16)).max())
+    print(f"phase 20 (b): apps.eval --test-set --sg-ir, {len(frames)} frame(s) and {len(irs)} IR "
+          f"PNG(s) in {e_secs:.2f} s (first call); launches {json.dumps(e_counts)}; the IR frame "
+          f"({H}x{W}, 64 + 64, plain f32 with the normals' backward) {ir_ms:.1f} ms on the host "
+          f"clock (mean of 2), peak {ir_peak:.2f} GiB, luminance in "
+          f"[{float(ir.min()):.4f}, {float(ir.max()):.4f}]; the PNG vs a direct render: max "
+          f"{png_err} levels")
+    run_checks("phase 20 (b) IR evaluation", {
+        "one RGB frame and one IR PNG a test view": len(frames) == len(irs) == 1,
+        "2 launches of kernel 1's bf16 route a frame, nothing else":
+            e_counts["fused_render_bf16"] == e_counts["fused_render"] == 2 * len(frames)
+            and all(v == 0 for k, v in e_counts.items() if not k.startswith("fused_render")),
+        "the IR frame finite and non-negative": bool(torch.isfinite(ir).all())
+        and float(ir.min()) >= 0.0,
+        "the IR PNG equals a direct render (within 1 level)": png_err <= 1,
+    })
+    vc, vf = copy.deepcopy(coarse), copy.deepcopy(fine)
+    vrays = make_ray_batch(ro, rd, near, far)
+    calibrate_on((vc, vf), vrays, s_val, torch)
+    err, f_ms, b_ms, b_by = hold_frame("phase 20 (b): the sg-ir test frame", vc, vf, vrays, s_val,
+                                       torch)
+    print(f"phase 20 (b): ms on {card}: " + json.dumps({k: round(v, 3) for k, v in f_ms.items()}))
+    entries = [render_entry("fused_render_bf16@sg-ir", counts["fused_render_bf16"]
+                            + e_counts["fused_render_bf16"], err, f_ms, b_ms, b_by)]
+
+    # ---- (c) make_parallel_train_step: one NCCL rank, then two gloo ranks on the one card
+    lego_ckpt = os.path.join(shared.logdir, "checkpoints", f"checkpoint_{TRAIN_ITERS - 1:07d}.ckpt")
+    t0 = time.perf_counter()
+    (one,) = spawn_ranks(rank_one_nccl, 1, "cuda", (shared.cfg_path, lego_ckpt, RANK_STEPS),
+                         timeout=RANK_TIMEOUT)
+    one_s = time.perf_counter() - t0
+    print(f"phase 20 (c): make_parallel_train_step at 1 rank over {one['backend']} vs "
+          f"make_train_step, {RANK_STEPS} updates of lego-tpu (batch {one['batch']}) on the same "
+          f"draws through kernel 4 bf16 ({one_s:.1f} s with the spawn): parameters equal "
+          f"{one['same_params']}, Adam moments equal {one['same_state']}, metrics equal "
+          f"{one['same_metrics']}; (bf16, all) launches a step {one['launches']}; ms on {card} "
+          f"(host clock, mean of 5) {json.dumps({k: round(v, 3) for k, v in one['ms'].items()})}"
+          f"; the field path (pallas_fused_loss: false), one update: launches "
+          f"{json.dumps(one['field_launches'])}, equal to make_train_step's in every bit "
+          f"{one['same_field']}")
+    run_checks("phase 20 (c) one NCCL rank", {
+        "NCCL": one["backend"] == "nccl",
+        "parameters, Adam moments and metrics equal in every bit": one["same_params"]
+        and one["same_state"] and one["same_metrics"],
+        "2 launches of kernel 4's bf16 route a step, no f32": all(
+            l == (2, 2) for l in one["launches"]),
+        "the field path: kernels 2 and 3's bf16 routes twice each, kernel 4 never, equal in "
+        "every bit": one["field_launches"] == {"kernel2_bf16": 2, "kernel2": 2, "kernel3_bf16": 2,
+                                               "kernel3": 2, "kernel4": 0} and one["same_field"],
+    })
+    t0 = time.perf_counter()
+    two = spawn_ranks(rank_two_gloo, 2, "cuda", (shared.cfg_path, lego_ckpt),
+                      devices=["cuda:0", "cuda:0"], backend="gloo", timeout=RANK_TIMEOUT)
+    two_s = time.perf_counter() - t0
+    # the one-rank step at the global batch on the same generator, and the
+    # f32 plain version of each pass on its samples
+    store, s, gbatch, fresh = _rank_state(shared.cfg_path, lego_ckpt, dev, torch)
+    st, loss = fresh()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    d = StepDraws(uniform_ray_indices(store, gbatch, gen),
+                  draw_render_noise(gbatch, s, gen, dev))
+    m_one = make_train_step(s, gbatch, fused_loss=loss)(st, store, draws=[d])
+    rays, target = take_ray_batch(store, d.idx)
+    o, dd, v = (t.contiguous() for t in rays[:3])
+    target = target.contiguous()
+    kw = dict(supervision="rgb", white_background=s.white_background)
+    base = fresh()[0]  # the weights the one-rank step differentiated
+    z_c = jittered_z_vals(rays, s, d.render)
+    args_c = (base.coarse, o, dd, z_c, v, ray_dists(z_c, dd), d.render.noise_coarse, target)
+    with torch.no_grad():
+        _, w_c, _ = ftl.fused_pass_loss(*args_c, compute_dtype=bf16, dw_dtype=bf16, **kw)
+    z_f, _ = hierarchical_z_vals(z_c, w_c, s.num_fine, det=False, u=d.render.u_fine)
+    args_f = (base.fine, o, dd, z_f, v, ray_dists(z_f, dd), d.render.noise_fine, target)
+    norm = 3.0 * gbatch
+    got, want, want_f32 = {}, {}, {}
+    for name, model, args in (("coarse", st.coarse, args_c), ("fine", st.fine, args_f)):
+        plain = ftl.fused_pass_loss_reference(*args, **kw)
+        for (k, p), gp in zip(model.named_parameters(), plain[3]):
+            key = f"{name}.{k}"
+            got[key] = two[0]["grads"][key].to(dev)
+            want[key], want_f32[key] = p.grad, gp / norm
+    same = all(torch.equal(a, b) for a, b in zip(two[0]["params"], two[1]["params"]))
+    loss_err = abs(two[0]["metrics"]["loss"] - float(m_one["loss"])) / float(m_one["loss"])
+    print(f"phase 20 (c): 2 gloo ranks on the one card ({two_s:.1f} s with the spawn), one update "
+          f"at the global batch {gbatch} ({gbatch // 2} a rank): loss {two[0]['metrics']['loss']:.7f}"
+          f" vs the one-rank step's {float(m_one['loss']):.7f} (rel {loss_err:.2e}); (bf16, all) "
+          f"launches {[r['launches'] for r in two]}; the ranks' parameters equal {same}; a step "
+          f"{[round(r['ms'], 3) for r in two]} ms a rank on {card} (host clock, mean of 5; the "
+          f"two ranks share the card and the gloo reduction goes through the host)")
+    hold_to_own("phase 20 (c): the 2-rank averaged gradients vs the one-rank step's at the global "
+                "batch (phase 7's rule, own = |one-rank step - f32 plain|),", got, want, want_f32,
+                torch)
+    run_checks("phase 20 (c) two gloo ranks", {
+        "2 launches of kernel 4's bf16 route a rank": all(r["launches"] == (2, 2) for r in two),
+        f"loss within {TRAIN_LOSS_RTOL:g} of the one-rank step's": loss_err <= TRAIN_LOSS_RTOL,
+        "the ranks' parameters equal in every bit": same,
+    })
+    lego_cfg, lego_c, lego_f, _ = run_models(shared.cfg_path, shared.logdir, TRAIN_ITERS, dev)
+    del st, base
+    k4 = hold_train_bf16("phase 20 (c): kernel 4 bf16 route on a rank's batch", 20,
+                         (lego_c, lego_f), store, s, float(lego_cfg.optimizer.lr), gbatch // 2,
+                         3.0 * gbatch // 2, {}, torch, dev)
+    del store
+    launches = sum(l[0] for l in one["launches"]) + sum(r["launches"][0] for r in two)
+    entries.append(train_entry("fused_train_loss_bf16@rank-step", launches, k4))
+
+    # ---- (d) --num-devices 2 on the one card
+    try:
+        train_app.main(["--config", cfg_path, "--device", "cuda", "--sg-ir", "--num-devices", "2",
+                        "--max-iters", "1"])
+        said = None
+    except ValueError as e:
+        said = str(e)
+    print(f"phase 20 (d): apps.train --num-devices 2 on {torch.cuda.device_count()} card: {said!r}")
+    run_checks("phase 20 (d) two devices asked of one card", {
+        "make_mesh's words": said == f"requested 2 devices, have {torch.cuda.device_count()}",
+    })
+    return entries
+
+
 def serve_requests(config, ckpt, requests, torch, flags=(), refused=()):
     """Start ``dexnerf_tpu_torch.apps.serve`` on the card with ``config``,
     ``ckpt`` and the extra CLI ``flags``, send ``requests`` ((path, POST
@@ -3760,6 +4226,7 @@ def main() -> int:
         occupancy_kernels = occupancy_phase(torch, np, card, dev, tmp, shared)
         family_kernels = families_phase(torch, np, card, dev, tmp, shared)
         pose_kernels = cache_pose_phase(torch, np, card, dev, tmp, shared)
+        sgir_kernels = sgir_parallel_phase(torch, np, card, dev, tmp, shared)
     render = dict(route="cuda", replaces="dexnerf_tpu/ops/fused_render.py:115")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s (host clock, "
           "the kernels' build included)")
@@ -3786,7 +4253,7 @@ def main() -> int:
         "bound_by": bf16_bound_by,
         "library_ms": ms["k1_forward_torch_matmul_bf16"],
     }, *train_kernels, *field_kernels, *resample_kernels, *dex_kernels, *eval_kernels,
-        *llff_kernels, *occupancy_kernels, *family_kernels, *pose_kernels]}))
+        *llff_kernels, *occupancy_kernels, *family_kernels, *pose_kernels, *sgir_kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -22,9 +22,10 @@ distances through ``core.rays.ndc_t_to_world_depth``. ``--occupancy SIGMA``
 bakes a σ-occupancy grid from the checkpoint once and tightens every
 frame's ray intervals to their occupied spans (``render/occupancy.py``).
 ``--refined-poses`` renders the train views at the cameras that ``apps.train
---pose-opt`` refined (the twists of the checkpoint). The flags of modes that
-are not ported yet are accepted and raise ``NotImplementedError`` naming the
-ROADMAP item.
+--pose-opt`` refined (the twists of the checkpoint). ``--sg-ir`` also renders
+each frame's shaded active-IR view of a checkpoint trained with ``apps.train
+--sg-ir`` (``render/sg_ir.py``, the plain field: its normals need point
+gradients) into ``<savedir>/ir``.
 """
 
 from __future__ import annotations
@@ -37,12 +38,6 @@ import time
 
 import numpy as np
 import torch
-
-# flag -> the ROADMAP.md item that ports it
-UNPORTED = {
-    "sg_ir": "Queue 1 item 10, `models/sg.py` + `render/sg_ir.py`",
-}
-
 
 def add_occupancy_flags(p: argparse.ArgumentParser) -> None:
     """The seven ``--occupancy*`` flags that eval and serve share."""
@@ -156,8 +151,11 @@ def build_parser() -> argparse.ArgumentParser:
         "written by apps.train --pose-opt (one PNG per train view)",
     )
     add_occupancy_flags(p)
-    # modes not ported yet: accepted so that they fail loudly
-    p.add_argument("--sg-ir", action="store_true", help="not ported yet")
+    p.add_argument(
+        "--sg-ir", action="store_true",
+        help="also render the shaded active-IR view (render/sg_ir.py) into <savedir>/ir; "
+        "requires a checkpoint trained with --sg-ir (it carries the SG shading leaves)",
+    )
     return p
 
 
@@ -224,11 +222,6 @@ def _dex_gt(cfg, scene):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, item in UNPORTED.items():
-        if getattr(args, flag) not in (None, False):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP.md {item})"
-            )
     if args.test_set and args.refined_poses:
         raise SystemExit(
             "--test-set scores the held-out views; --refined-poses renders "
@@ -255,6 +248,7 @@ def main(argv=None) -> int:
     from dexnerf_tpu_torch.utils import (
         apply_jet_colormap,
         cast_to_disparity_image,
+        cast_to_gray_image,
         cast_to_image,
         depth_to_points,
         write_gif,
@@ -354,6 +348,22 @@ def main(argv=None) -> int:
         if flag:
             os.makedirs(os.path.join(args.savedir, sub), exist_ok=True)
 
+    sg_params = None
+    if args.sg_ir:
+        from dexnerf_tpu_torch.render.sg_ir import render_sg_ir_image
+        from dexnerf_tpu_torch.train.checkpoints import SG_KEY
+
+        if SG_KEY not in imported:
+            # JAX's words (dexnerf_tpu/apps/eval.py:394-399)
+            raise SystemExit(
+                "--sg-ir: checkpoint has no 'sg' shading subtree "
+                "(train with apps.train --sg-ir first)"
+            )
+        os.makedirs(os.path.join(args.savedir, "ir"), exist_ok=True)
+        sg_params = {k: torch.as_tensor(v).to(device)
+                     for k, v in imported[SG_KEY]["params"].items()}
+        # the falloff the model was trained with (train/loop.py passes the same key)
+        sg_falloff = bool(cfg.nerf.train.get("sg_distance_falloff", True))
     need_test_depth = args.test_set and scene.depths is not None
     score_dex = args.dex_depth and need_test_depth
     depths_dex_gt = None
@@ -432,6 +442,12 @@ def main(argv=None) -> int:
                 # the point cloud is the σ-threshold surface: its confidence too
                 res["depth_conf_pc"] = depth_confidence(
                     w, z_w, r.depth_dex[pc_thres_idx], delta)
+        if sg_params is not None:
+            res["ir"] = render_sg_ir_image(
+                coarse, fine, sg_params, ro, rd, near_f, far_f, s_val,
+                distance_falloff=sg_falloff, use_ndc=scene.use_ndc, height=H, width=W,
+                focal_length=focal,
+            )
         return {k: v.cpu().numpy() for k, v in res.items()}
 
     times, per_image, gif_frames = [], [], []
@@ -465,6 +481,9 @@ def main(argv=None) -> int:
                 conf_pts = res[key].reshape(-1)[keep]
             write_ply(os.path.join(args.savedir, "pointcloud", f"{i:04d}.ply"), pts, cols,
                       confidence=conf_pts)
+        if args.sg_ir:
+            write_png(os.path.join(args.savedir, "ir", f"{i:04d}.png"),
+                      cast_to_gray_image(res["ir"]))
         if test_indices is not None:
             idx = test_indices[i]
             gt = np.asarray(scene.images[idx][..., :3], np.float32)

@@ -9,6 +9,8 @@ Counterpart of ``dexnerf_tpu/apps/train.py``:
         --ir --dex --depth-loss 0.1 --depth-warmup 1000   # Dex-NeRF on messytable
     python -m dexnerf_tpu_torch.apps.train --config ... --occupancy 0.2  # empty-space skipping
     python -m dexnerf_tpu_torch.apps.train --config ... --pose-opt  # refine the camera poses
+    python -m dexnerf_tpu_torch.apps.train --config ... --sg-ir     # shaded active-IR loss
+    python -m dexnerf_tpu_torch.apps.train --config ... --num-devices 4  # data-parallel
 
 With ``nerf.use_pallas`` every render pass of every step goes through the
 fused train-loss kernel (with ``nerf.pallas_loss_resample: pallas``, the
@@ -18,21 +20,18 @@ resample between the passes through the fused resample kernel), or, with
 sweep; ``--depth-loss`` / ``--depth-warmup`` supervise the expected depth
 with the dataset's GT depth (inside the fused train-loss kernel when it
 runs). ``--pose-opt`` trains a correction twist per train view with the
-fields (through the plain render: the kernels give no ray gradients). A
+fields (through the plain render: the kernels give no ray gradients).
+``--sg-ir`` supervises the shaded active-IR luminance of ``render/sg_ir.py``
+(the plain render too, for the point gradients of its normals; validation
+through the fused render). ``--num-devices N`` trains data-parallel over N
+ranks, one a card (NCCL) or, with ``--device cpu``, N processes (gloo). A
 ``dataset.cachedir`` holding ``apps.cache`` shards is trained from, as in
-the JAX package. The flags of modes that are not ported yet are accepted
-and raise ``NotImplementedError`` naming the ROADMAP item.
+the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
-
-# flag -> the ROADMAP.md item that ports it
-UNPORTED = {
-    "sg_ir": "Queue 1 item 10, `models/sg.py` + `render/sg_ir.py`",
-    "num_devices": "Queue 1 item 11, `parallel/sharding.py`",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -93,28 +92,32 @@ def build_parser() -> argparse.ArgumentParser:
         "--device", type=str, default="cuda", choices=("cuda", "cpu"),
         help="where the models train (default: the card)",
     )
-    # modes not ported yet: accepted so that they fail loudly
-    p.add_argument("--sg-ir", action="store_true", help="not ported yet")
-    p.add_argument("--num-devices", type=int, default=None, help="not ported yet")
+    p.add_argument(
+        "--sg-ir", action="store_true",
+        help="active-IR supervision through the SG shader (render/sg_ir.py): a learnable "
+        "co-located projector + environment lobes shade density-gradient normals; the "
+        "shaded luminance is matched to the IR frames. Exclusive with --ir",
+    )
+    p.add_argument(
+        "--num-devices", type=int, default=None,
+        help="train data-parallel over this many devices, one process each (default: 1)",
+    )
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.sg_ir and args.ir:
+        raise SystemExit("--sg-ir and --ir are mutually exclusive")  # JAX's words
     if args.pose_opt and args.sg_ir:
         raise NotImplementedError("pose_opt + sg_ir is not supported")  # JAX's words
-    for flag, item in UNPORTED.items():
-        if getattr(args, flag) not in (None, False):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP.md {item})"
-            )
     from dexnerf_tpu_torch.config import load_config
     from dexnerf_tpu_torch.train.loop import run_training
 
     out = run_training(
         load_config(args.config),
         dex=args.dex,
-        supervision="luminance" if args.ir else "rgb",
+        supervision="sg_ir" if args.sg_ir else ("luminance" if args.ir else "rgb"),
         load_ckpt=args.load_checkpoint or None,
         auto_resume=args.auto_resume,
         max_iters=args.max_iters,
@@ -124,6 +127,7 @@ def main(argv=None) -> int:
         depth_warmup=args.depth_warmup,
         occupancy=args.occupancy,
         pose_opt=args.pose_opt or None,
+        num_devices=args.num_devices,
         device=args.device,
     )
     print(

@@ -12,8 +12,9 @@ then ``fine.parameters()``, weights [out, in], an integer ``step``. The
 state of SGD, RMSprop and Adagrad, which JAX's export does not write, goes
 under :data:`PORT_OPTIMIZER_KEY`, a key JAX's ``import_torch_checkpoint``
 does not read, so the port resumes every optimizer. The twists of pose
-refinement and their Adam's state go under :data:`POSE_KEY`, which JAX's
-importer does not read either. Orbax checkpoints need JAX: ``python -m
+refinement and their Adam's state go under :data:`POSE_KEY`, and the SG
+shading leaves of ``--sg-ir`` and their optimizer state under
+:data:`SG_KEY`; JAX's importer reads neither. Orbax checkpoints need JAX: ``python -m
 dexnerf_tpu.apps.export`` turns one into a ``.ckpt``.
 """
 
@@ -27,6 +28,7 @@ import torch
 from torch import nn
 
 from dexnerf_tpu_torch.models.mlp import skip_positions
+from dexnerf_tpu_torch.train.step import SG_GROUP
 
 # call-order tails of the flax FlexibleNeRFModel, with and without viewdirs
 _HEADS = ["fc_feat", "fc_alpha", "layers_dir.0", "fc_rgb"]
@@ -35,6 +37,8 @@ _HEAD_NO_VIEWDIRS = ["fc_out"]
 PORT_OPTIMIZER_KEY = "dexnerf_torch_optimizer_state"
 # where the pose twists [n_images, 6], their Adam state and its count go
 POSE_KEY = "dexnerf_torch_pose_state"
+# where the SG shading leaves of --sg-ir and their optimizer state go
+SG_KEY = "dexnerf_torch_sg_state"
 # the optimizers whose state the reference Adam layout carries (JAX exports AdamW's too)
 ADAM_LAYOUT = ("Adam", "AdamW")
 
@@ -75,7 +79,12 @@ def read_reference_checkpoint(path: str) -> Dict:
     """``{"coarse": state_dict, "fine": state_dict | None, "step": int}``
     plus ``height``/``width``/``focal_length`` when the file has them.
     Loads tensors and plain containers only (``weights_only``)."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    return parse_reference_checkpoint(torch.load(path, map_location="cpu", weights_only=True))
+
+
+def parse_reference_checkpoint(ckpt: Mapping) -> Dict:
+    """:func:`read_reference_checkpoint` of a loaded ``.ckpt`` dict (as
+    :func:`reference_checkpoint` builds it)."""
     out = {
         "step": int(ckpt.get("iter", 0)),
         "coarse": dict(ckpt["model_coarse_state_dict"]),
@@ -86,14 +95,19 @@ def read_reference_checkpoint(path: str) -> Dict:
         ),
     }
     for k in ("height", "width", "focal_length", "optimizer_state_dict", PORT_OPTIMIZER_KEY,
-              POSE_KEY):
+              POSE_KEY, SG_KEY):
         if ckpt.get(k) is not None:
             out[k] = ckpt[k]
     return out
 
 
-def write_reference_checkpoint(
-    path: str,
+def write_reference_checkpoint(path: str, *args, **kwargs) -> None:
+    """Write :func:`reference_checkpoint`'s dict of the same arguments to
+    ``path``."""
+    torch.save(reference_checkpoint(*args, **kwargs), path)
+
+
+def reference_checkpoint(
     coarse: Mapping[str, torch.Tensor],
     fine: Optional[Mapping[str, torch.Tensor]] = None,
     *,
@@ -104,13 +118,15 @@ def write_reference_checkpoint(
     psnr: float = 0.0,
     port_optimizer_state: Optional[Dict] = None,
     pose_state: Optional[Dict] = None,
-) -> None:
-    """Write a reference-schema ``.ckpt`` from two state_dicts and,
+    sg_state: Optional[Dict] = None,
+) -> Dict:
+    """A reference-schema ``.ckpt``'s dict from two state_dicts and,
     optionally, an Adam state in the reference layout
     (:func:`adam_state_dict`, :func:`adam_state_from_optax`) or another
     optimizer's state under :data:`PORT_OPTIMIZER_KEY`
-    (:func:`optimizer_checkpoint`), and the pose twists' under
-    :data:`POSE_KEY` (:func:`pose_checkpoint`)."""
+    (:func:`optimizer_checkpoint`), the pose twists' under
+    :data:`POSE_KEY` (:func:`pose_checkpoint`) and the SG shading leaves'
+    under :data:`SG_KEY` (:func:`sg_checkpoint`)."""
 
     def cpu(sd):
         return {k: v.detach().to("cpu", torch.float32).contiguous() for k, v in sd.items()}
@@ -132,7 +148,9 @@ def write_reference_checkpoint(
         ckpt[PORT_OPTIMIZER_KEY] = port_optimizer_state
     if pose_state is not None:
         ckpt[POSE_KEY] = pose_state
-    torch.save(ckpt, path)
+    if sg_state is not None:
+        ckpt[SG_KEY] = sg_state
+    return ckpt
 
 
 def _adam_layout(moments: Sequence, step: int, lr: float) -> Dict:
@@ -156,7 +174,10 @@ def _adam_layout(moments: Sequence, step: int, lr: float) -> Dict:
 
 
 def _optimizer_params(optimizer: torch.optim.Optimizer):
-    return [p for group in optimizer.param_groups for p in group["params"]]
+    """The models' parameters of ``optimizer`` in order (the reference
+    layout's), without the SG shading group."""
+    return [p for group in optimizer.param_groups if group.get("name") != SG_GROUP
+            for p in group["params"]]
 
 
 def adam_state_dict(optimizer: torch.optim.Optimizer, step: int, lr: float) -> Dict:
@@ -347,4 +368,53 @@ def load_pose_checkpoint(pose, imported: Mapping) -> bool:
     state = {k: torch.as_tensor(v).clone() for k, v in entry["state"].items()}
     pose.optimizer.load_state_dict({"state": {0: state} if state else {},
                                     "param_groups": sd["param_groups"]})
+    return True
+
+
+def sg_checkpoint(sg: Mapping[str, torch.Tensor], optimizer: torch.optim.Optimizer) -> Dict:
+    """The SG shading leaves (``TrainState.sg``) and their state in
+    ``optimizer`` as the :data:`SG_KEY` entry: ``{"params": {leaf: tensor},
+    "state": {leaf: {name: tensor}}}``."""
+    return {
+        "params": {k: v.detach().to("cpu").clone() for k, v in sg.items()},
+        "state": {k: {n: t.detach().to("cpu").clone() if torch.is_tensor(t) else t
+                      for n, t in optimizer.state.get(v, {}).items()} for k, v in sg.items()},
+    }
+
+
+def load_sg_checkpoint(sg: Mapping[str, torch.Tensor], optimizer: torch.optim.Optimizer,
+                       opt_type: str, imported: Mapping) -> bool:
+    """Put a checkpoint's :data:`SG_KEY` entry into the leaves ``sg`` and
+    their state in ``optimizer`` (after the models' state is loaded: it
+    touches only the leaves' entries). A checkpoint without one (the
+    reference's, or one JAX exported) keeps the fresh leaves; their state
+    is then zero moments at the checkpoint's count for Adam and AdamW when
+    the file carries ``optimizer_state_dict`` (JAX grafts the count onto
+    every leaf, ``build_opt_state_from_torch``), else fresh. Returns whether
+    leaves were loaded."""
+    entry = imported.get(SG_KEY)
+    if entry is None:
+        if opt_type in ADAM_LAYOUT and "optimizer_state_dict" in imported:
+            count = float(imported.get("step", 0))
+            for v in sg.values():
+                optimizer.state[v] = {"step": torch.tensor(count),
+                                      "exp_avg": torch.zeros_like(v.detach()),
+                                      "exp_avg_sq": torch.zeros_like(v.detach())}
+        return False
+    if set(entry["params"]) != set(sg):
+        raise ValueError(
+            f"the checkpoint's SG leaves {sorted(entry['params'])}, this model's {sorted(sg)}")
+    with torch.no_grad():
+        for k, v in sg.items():
+            src = torch.as_tensor(entry["params"][k])
+            if tuple(src.shape) != tuple(v.shape):
+                raise ValueError(
+                    f"SG leaf {k}: the checkpoint's {tuple(src.shape)}, this model's "
+                    f"{tuple(v.shape)} (nerf.train.sg_env_lobes)")
+            v.copy_(src)
+    for k, v in sg.items():
+        st = entry["state"].get(k, {})
+        # step counts stay on the CPU, as torch's optimizers keep them
+        optimizer.state[v] = {n: (t.clone() if n == "step" else t.to(v.device))
+                              if torch.is_tensor(t) else t for n, t in st.items()}
     return True

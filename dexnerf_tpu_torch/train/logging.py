@@ -17,15 +17,19 @@ import numpy as np
 
 
 class MetricsLogger:
-    """Appends scalars and image records to ``<logdir>/metrics.jsonl``."""
+    """Appends scalars and image records to ``<logdir>/metrics.jsonl``;
+    ``enabled=False`` (a data-parallel rank other than 0) writes nothing."""
 
-    def __init__(self, logdir: str):
+    def __init__(self, logdir: str, enabled: bool = True):
         self.logdir = logdir
-        os.makedirs(logdir, exist_ok=True)
-        self._jsonl = open(os.path.join(logdir, "metrics.jsonl"), "a")
+        self._jsonl = None
+        if enabled:
+            os.makedirs(logdir, exist_ok=True)
+            self._jsonl = open(os.path.join(logdir, "metrics.jsonl"), "a")
 
     def _write(self, record: Dict) -> None:
-        self._jsonl.write(json.dumps({**record, "t": time.time()}) + "\n")
+        if self._jsonl is not None:
+            self._jsonl.write(json.dumps({**record, "t": time.time()}) + "\n")
 
     def scalar(self, tag: str, value: float, step: int) -> None:
         self._write({"tag": tag, "value": float(value), "step": int(step)})
@@ -38,10 +42,12 @@ class MetricsLogger:
         self._write({"tag": tag, "image_shape": list(np.shape(img)), "step": int(step)})
 
     def flush(self) -> None:
-        self._jsonl.flush()
+        if self._jsonl is not None:
+            self._jsonl.flush()
 
     def close(self) -> None:
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
 
     def __enter__(self) -> "MetricsLogger":
         return self

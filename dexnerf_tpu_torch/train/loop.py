@@ -1,8 +1,9 @@
 """Training loop, model set-up and checkpoint loading.
 
-Counterpart of ``dexnerf_tpu/train/loop.py`` for single-device training on
-a device-resident ray store (the train views' rays, an offline cache's,
-or the camera-frame rays of pose refinement): ``load_scene`` (blender,
+Counterpart of ``dexnerf_tpu/train/loop.py`` for training on a
+device-resident ray store (the train views' rays, an offline cache's,
+or the camera-frame rays of pose refinement), on one device or data-
+parallel over several (``num_devices``, ``parallel/``): ``load_scene`` (blender,
 messytable, LLFF with NDC rays),
 ``maybe_fused_loss`` (kernel 4 at ``train_compute_dtype``, with the depth
 term when asked, and kernel 5 between its passes, when ``nerf.use_pallas``),
@@ -10,7 +11,8 @@ term when asked, and kernel 5 between its passes, when ``nerf.use_pallas``),
 ``nerf.pallas_fused_loss`` is false), ``validate`` (through the fused
 render kernel; the expected-depth metrics against GT depth, and with
 ``dex`` the Dex-NeRF σ-threshold sweep), ``run_training`` (with depth
-supervision and its warmup, or pose refinement), and what serving needs:
+supervision and its warmup, pose refinement, or the active-IR SG shading
+of ``render/sg_ir.py``), and what serving needs:
 ``align_cfg_models_to_checkpoint``, ``load_eval_params`` (reference
 ``.ckpt`` only), ``setup_models`` and ``fused_render_impl`` (the
 counterpart of ``maybe_fused_render_impl``, at the compute dtype of
@@ -18,7 +20,8 @@ counterpart of ``maybe_fused_render_impl``, at the compute dtype of
 model at a time by JAX's rules, before any launch: a FlexibleNeRF with
 viewdirs takes its kernel, every other model the plain path. Checkpoints
 are reference ``.ckpt`` files with the optimizer's state (Adam's and
-AdamW's in the layout the JAX package also resumes) and the pose twists'.
+AdamW's in the layout the JAX package also resumes), the pose twists' and
+the SG shading leaves'.
 """
 
 from __future__ import annotations
@@ -58,14 +61,19 @@ from dexnerf_tpu_torch.ops.fused_render import fusable, fusable_pair, make_fused
 from dexnerf_tpu_torch.ops.fused_train_loss import make_fused_train_loss
 from dexnerf_tpu_torch.render.occupancy import build_occupancy_grid, tighten_store_intervals
 from dexnerf_tpu_torch.render.renderer import RenderSettings, make_mlp_field, render_image
+from dexnerf_tpu_torch.render.sg_ir import init_sg_ir_params, make_sg_ir_loss
 from dexnerf_tpu_torch.train.checkpoints import (
     has_viewdir_head,
     infer_flexible_arch,
     load_optimizer_checkpoint,
     load_pose_checkpoint,
+    load_sg_checkpoint,
     optimizer_checkpoint,
+    parse_reference_checkpoint,
     pose_checkpoint,
     read_reference_checkpoint,
+    reference_checkpoint,
+    sg_checkpoint,
     write_reference_checkpoint,
 )
 from dexnerf_tpu_torch.train.logging import MetricsLogger, save_depth_png_mm
@@ -412,10 +420,16 @@ def validate(
     device,
     dex: bool = False,
     val_idx: Optional[int] = None,
+    mesh=None,
 ) -> Dict[str, Any]:
     """Render one validation view through the fused render kernel (its
     plain version on the CPU) and score it: coarse/fine loss, PSNR of their
-    sum and SSIM of the fine image (``train_nerf_rgb.py:304-425``). The
+    sum and SSIM of the fine image (``train_nerf_rgb.py:304-425``); the
+    loss is the luminance MSE for ``supervision`` "luminance" and "sg_ir"
+    (whose shaded frame is an analysis view, not a validation metric, as
+    in JAX). With ``mesh`` (``parallel.mesh.Mesh``) every rank renders its
+    share of the frame through the plain render and gets the whole frame
+    (``parallel.sharding.render_image_parallel``, JAX's tiled frame). The
     rays are w2c + K when the scene has intrinsics, and in NDC when it
     uses NDC; then its depths are NDC ray parameters and no depth metric is
     computed (``apps.eval --test-set`` scores them through
@@ -435,16 +449,24 @@ def validate(
         ro, rd = get_ray_bundle_w2c(H, W, pose, K)
     else:
         ro, rd = get_ray_bundle_c2w(H, W, focal, pose)
-    impl = fused_render_impl(cfg, s_val, device, coarse, fine)
     with torch.no_grad():
-        out = render_image(
-            coarse, fine, ro, rd, float(cfg.dataset.near), float(cfg.dataset.far), s_val,
-            rays_impl=impl, use_ndc=scene.use_ndc, height=H, width=W, focal_length=focal,
-        )
+        if mesh is not None:
+            from dexnerf_tpu_torch.parallel.sharding import render_image_parallel
+
+            out = render_image_parallel(
+                mesh, coarse, fine, ro, rd, float(cfg.dataset.near), float(cfg.dataset.far),
+                s_val, use_ndc=scene.use_ndc, height=H, width=W, focal_length=focal,
+            )
+        else:
+            out = render_image(
+                coarse, fine, ro, rd, float(cfg.dataset.near), float(cfg.dataset.far), s_val,
+                rays_impl=fused_render_impl(cfg, s_val, device, coarse, fine),
+                use_ndc=scene.use_ndc, height=H, width=W, focal_length=focal,
+            )
         target = torch.as_tensor(np.asarray(scene.images[idx][..., :3], np.float32), device=device)
 
         def mse(rgb):
-            if supervision == "luminance":
+            if supervision in ("luminance", "sg_ir"):
                 return float(torch.mean((luminance(rgb) - luminance(target)) ** 2))
             return float(torch.mean((rgb - target) ** 2))
 
@@ -546,6 +568,75 @@ def latest_checkpoint(directory: str) -> Optional[str]:
     return os.path.join(directory, max(found)[1]) if found else None
 
 
+def build_train_state(cfg: CfgNode, seed: int, device, *, imported: Optional[Dict] = None,
+                      supervision: str = "rgb", pose_opt: bool = False, num_train: int = 0):
+    """The seeded models, their optimizer and schedule (``cfg.optimizer``,
+    ``cfg.scheduler``), with ``supervision="sg_ir"`` the SG shading leaves
+    (``nerf.train.sg_env_lobes`` lobes, default 2, drawn from a generator
+    seeded with ``seed + 7``, where JAX folds 7 into the seed's key) as a
+    group of the same optimizer, with ``pose_opt`` the twists of
+    ``num_train`` views under their own Adam; then a checkpoint's weights
+    and states (``imported``, :func:`read_reference_checkpoint`'s) put in."""
+    coarse, fine = setup_models(cfg, seed, device)
+    sg = None
+    if supervision == "sg_ir":
+        sg = init_sg_ir_params(torch.Generator().manual_seed(int(seed) + 7),
+                               int(_get(cfg.nerf.train, "sg_env_lobes", 2)), device)
+    state = init_train_state(
+        coarse, fine, float(cfg.optimizer.lr), float(cfg.scheduler.lr_decay),
+        float(cfg.scheduler.lr_decay_factor), opt_type=str(_get(cfg.optimizer, "type", "Adam")),
+        sg=sg,
+    )
+    if imported is not None:
+        coarse.load_state_dict(imported["coarse"])
+        if fine is not None and imported["fine"] is not None:
+            fine.load_state_dict(imported["fine"])
+        load_optimizer_checkpoint(state.opt_type, state.optimizer, imported)
+        state.step = int(imported["step"])
+        if sg is not None:
+            # after the models' state: a reference .ckpt keeps the fresh leaves
+            load_sg_checkpoint(sg, state.optimizer, state.opt_type, imported)
+    if pose_opt:
+        state.pose = init_pose_state(
+            num_train, float(_get(cfg.optimizer, "pose_lr", 1e-3)),
+            float(cfg.scheduler.lr_decay), float(cfg.scheduler.lr_decay_factor), device)
+        if imported is not None:
+            load_pose_checkpoint(state.pose, imported)
+    return state
+
+
+def _checkpoint_of(state, lr: float, metrics: Dict[str, Any]) -> Dict:
+    """The :func:`reference_checkpoint` (or :func:`write_reference_checkpoint`)
+    keywords of ``state`` after its last update."""
+    return dict(
+        coarse=state.coarse.state_dict(),
+        fine=state.fine.state_dict() if state.fine is not None else None,
+        step=state.step,
+        **optimizer_checkpoint(state.opt_type, state.optimizer, state.step, lr),
+        pose_state=pose_checkpoint(state.pose) if state.pose is not None else None,
+        sg_state=sg_checkpoint(state.sg, state.optimizer) if state.sg is not None else None,
+        loss=float(metrics["loss"]),
+        psnr=float(metrics["psnr"]),
+    )
+
+
+def _train_rank(mesh, cfg_yaml: str, kwargs: Dict[str, Any]):
+    """One rank of a data-parallel :func:`run_training` (run by
+    ``parallel.mesh.spawn_ranks``): rank 0 returns its summary, with the
+    last state as a ``.ckpt`` dict under ``"checkpoint"``; the others None."""
+    import yaml
+
+    out = run_training(CfgNode(yaml.safe_load(cfg_yaml)), mesh=mesh, device=mesh.device,
+                       **kwargs)
+    if not mesh.is_primary:
+        return None
+    state = out.pop("state")
+    out.pop("scene")
+    out["checkpoint"] = reference_checkpoint(**_checkpoint_of(
+        state, float(state.schedule(0)), out["final_train_metrics"] or {"loss": 0.0, "psnr": 0.0}))
+    return out
+
+
 def run_training(
     cfg: CfgNode,
     *,
@@ -562,9 +653,11 @@ def run_training(
     depth_warmup: Optional[int] = None,
     occupancy: Optional[float] = None,
     pose_opt: Optional[bool] = None,
+    num_devices: Optional[int] = None,
     device="cuda",
+    mesh=None,
 ) -> Dict[str, Any]:
-    """Train a NeRF per ``cfg`` on one device; returns a summary dict.
+    """Train a NeRF per ``cfg``; returns a summary dict.
 
     ``device`` is the card unless the caller asks for the CPU. ``scene``
     may be injected, else it is loaded from ``cfg.dataset``.
@@ -577,6 +670,15 @@ def run_training(
     ``<logdir>/metrics.jsonl``; checkpoints to
     ``<logdir>/checkpoints/checkpoint_<iteration>.ckpt``, whose ``iter``
     is the number of updates taken (where a resume starts).
+
+    ``supervision`` is "rgb", "luminance" (``--ir``) or "sg_ir": the
+    active-IR SG shading of ``render/sg_ir.py``, whose shading leaves train
+    in the fields' optimizer (``nerf.train.sg_env_lobes``, default 2;
+    ``nerf.train.sg_distance_falloff``, default true), through the plain
+    render (the kernels give no point gradients; validation still renders
+    through kernel 1, scored by luminance); the ``.ckpt`` holds the leaves
+    under ``checkpoints.SG_KEY``, and a reference ``.ckpt`` without them
+    keeps the fresh leaves. Not with pose refinement nor a depth term.
 
     ``dex`` validates with the σ-threshold sweep (:func:`validate`).
     ``depth_loss_weight`` (else ``nerf.train.depth_loss_weight``) > 0 adds
@@ -605,6 +707,18 @@ def run_training(
     the summary gains ``refined_poses`` [n_train, 4, 4] (c2w). Not with
     depth supervision, occupancy or a ray cache (ignored).
 
+    ``num_devices`` N > 1 trains data-parallel: N ranks, one a device
+    (``cuda:0``..``cuda:N-1`` over NCCL, or N CPU processes over gloo),
+    spawned on a free 127.0.0.1 port (``parallel.mesh.spawn_ranks``), each
+    running this function with its ``mesh``: the global batch
+    ``nerf.train.num_random_rays`` split over the ranks, the gradients
+    averaged (``parallel.sharding.make_parallel_train_step``, kernel 4 or
+    kernels 2-3 on every rank as on one device; the pose step with
+    ``pose_opt``), validation tiled over the ranks through the plain
+    render; rank 0 alone logs and writes checkpoints. The returned state
+    holds rank 0's last checkpoint, on the CPU. More ranks than devices, a
+    depth warmup or the host store raise JAX's words.
+
     The store is, in JAX's order of precedence: the pose store; the
     host-streamed store (``dataset.host_store``, not ported: raises); the
     offline ray cache of ``apps/cache.py`` when ``dataset.cachedir/train``
@@ -613,6 +727,8 @@ def run_training(
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("device cuda: no CUDA card is visible to PyTorch")
+    parallel = mesh is not None or (num_devices is not None and num_devices > 1)
+    primary = mesh is None or mesh.is_primary
     depth_w = float(
         depth_loss_weight if depth_loss_weight is not None
         else (_get(cfg.nerf.train, "depth_loss_weight", 0.0) or 0.0)
@@ -622,6 +738,9 @@ def run_training(
         else (_get(cfg.nerf.train, "occupancy", 0.0) or 0.0)
     )
     pose_opt = bool(_get(cfg.nerf.train, "pose_opt", False) if pose_opt is None else pose_opt)
+    sg_ir = supervision == "sg_ir"
+    if pose_opt and sg_ir:
+        raise NotImplementedError("pose_opt + sg_ir is not supported")  # JAX's words
     if occ_sigma > 0.0:
         if pose_opt:
             raise ValueError(
@@ -652,29 +771,6 @@ def run_training(
         cfg = align_cfg_models_to_checkpoint(cfg, imported)
     if scene is None:
         scene = load_scene(cfg)
-    os.makedirs(logdir, exist_ok=True)
-    with open(os.path.join(logdir, "config.yml"), "w") as f:
-        f.write(cfg.dump())
-
-    coarse, fine = setup_models(cfg, seed, device)
-    lr = float(cfg.optimizer.lr)
-    state = init_train_state(
-        coarse, fine, lr, float(cfg.scheduler.lr_decay), float(cfg.scheduler.lr_decay_factor),
-        opt_type=str(_get(cfg.optimizer, "type", "Adam")),
-    )
-    if imported is not None:
-        coarse.load_state_dict(imported["coarse"])
-        if fine is not None and imported["fine"] is not None:
-            fine.load_state_dict(imported["fine"])
-        load_optimizer_checkpoint(state.opt_type, state.optimizer, imported)
-        state.step = int(imported["step"])
-    if pose_opt:
-        state.pose = init_pose_state(
-            len(scene.i_train), float(_get(cfg.optimizer, "pose_lr", 1e-3)),
-            float(cfg.scheduler.lr_decay), float(cfg.scheduler.lr_decay_factor), device)
-        if imported is not None:
-            load_pose_checkpoint(state.pose, imported)
-    start_iter = state.step
 
     dvm = _get(cfg.nerf.train, "depth_valid_max", None)
     if dvm is None:
@@ -688,6 +784,8 @@ def run_training(
     warmup_psnr = float(_get(cfg.nerf.train, "depth_warmup_psnr", 14.0) or 14.0)
     if depth_w > 0.0 and pose_opt:
         raise ValueError("depth supervision and --pose-opt are mutually exclusive")
+    if depth_w > 0.0 and sg_ir:
+        raise ValueError("depth supervision and --sg-ir are mutually exclusive")  # JAX's words
     if depth_w > 0.0 and scene.depths is None:
         raise ValueError(
             "depth_loss_weight > 0 but the dataset has no GT depth maps (messytable "
@@ -699,6 +797,47 @@ def run_training(
             "parameter while depth sidecars are metric ray distance (see "
             "core.rays.ndc_t_to_world_depth)"
         )
+    if occ_sigma > 0.0 and scene.use_ndc:
+        raise ValueError(
+            "occupancy-guided training is world-space; NDC (llff) scenes reparameterize "
+            "the frustum — unsupported"
+        )
+    if parallel and _get(cfg.dataset, "host_store", False):
+        # JAX's words (dexnerf_tpu/train/loop.py:1150-1155)
+        raise ValueError(
+            "dataset.host_store is a single-device data path (keep the store resident for "
+            "data-parallel training, or scale scenes with apps.multiscene)"
+        )
+    if parallel and depth_warmup_iters != 0:
+        # JAX's words (dexnerf_tpu/train/loop.py:1414-1425)
+        raise ValueError(
+            "depth_warmup supports the single-device resident-store path (the distillation "
+            "protocol)"
+        )
+    if parallel and mesh is None:
+        from dexnerf_tpu_torch.parallel.mesh import spawn_ranks
+
+        kwargs = dict(dex=dex, supervision=supervision, scene=scene, load_ckpt=load_ckpt,
+                      max_iters=max_iters, logdir=logdir, sampling=sampling,
+                      steps_per_call=steps_per_call, depth_loss_weight=depth_w,
+                      depth_warmup=depth_warmup_iters, occupancy=occ_sigma, pose_opt=pose_opt)
+        out = spawn_ranks(_train_rank, int(num_devices), device.type, (cfg.dump(), kwargs))[0]
+        checkpoint = parse_reference_checkpoint(out.pop("checkpoint"))
+        out["state"] = build_train_state(cfg, seed, "cpu", imported=checkpoint,
+                                         supervision=supervision, pose_opt=pose_opt,
+                                         num_train=len(scene.i_train))
+        out["scene"] = scene
+        return out
+
+    os.makedirs(logdir, exist_ok=True)
+    if primary:
+        with open(os.path.join(logdir, "config.yml"), "w") as f:
+            f.write(cfg.dump())
+    state = build_train_state(cfg, seed, device, imported=imported, supervision=supervision,
+                              pose_opt=pose_opt, num_train=len(scene.i_train))
+    coarse, fine = state.coarse, state.fine
+    lr = float(cfg.optimizer.lr)
+    start_iter = state.step
 
     s_train = render_settings_from_cfg(cfg, "train")
     batch_size = int(cfg.nerf.train.num_random_rays)
@@ -728,11 +867,6 @@ def run_training(
     occ_next = occ_every = 0
     last_occ: Dict[str, float] = {}  # the last bake's occ_fraction and occ_interval_shrink
     if occ_sigma > 0.0:
-        if scene.use_ndc:
-            raise ValueError(
-                "occupancy-guided training is world-space; NDC (llff) scenes reparameterize "
-                "the frustum — unsupported"
-            )
         t = cfg.nerf.train
         occ_next = int(_get(t, "occupancy_start_iter", 500))
         occ_every = int(_get(t, "occupancy_rebake_every", 1000))
@@ -765,15 +899,21 @@ def run_training(
                 "bypassed (XLA path)",
                 stacklevel=2,
             )
-        fused_loss, coarse_field, fine_field = None, None, None
+        fused_loss = None
+    elif sg_ir:
+        # the shaded loss supersedes every kernel of the step (JAX's order)
+        fused_loss = make_sg_ir_loss(
+            coarse, fine, state.sg, s_train,
+            distance_falloff=bool(_get(cfg.nerf.train, "sg_distance_falloff", True)),
+        )
     else:
         fused_loss = maybe_fused_loss(cfg, s_train, supervision, coarse, fine,
                                       depth_loss_weight=depth_w, depth_valid_max=depth_valid_max)
-        # the fused loss supersedes the separate field kernels
-        coarse_field, fine_field = (
-            (None, None) if fused_loss is not None
-            else maybe_fused_fields(cfg, coarse, fine, train=True)
-        )
+    # the fused loss supersedes the separate field kernels
+    coarse_field, fine_field = (
+        (None, None) if fused_loss is not None or pose_opt
+        else maybe_fused_fields(cfg, coarse, fine, train=True)
+    )
     step_kw = dict(
         supervision=supervision,
         coarse_field=coarse_field,
@@ -781,11 +921,17 @@ def run_training(
         sampling=sampling or str(_get(cfg.nerf.train, "sampling", "uniform")),
         steps_per_call=steps_per_call,
     )
-    train_step = make_train_step(
-        s_train, batch_size, fused_loss=fused_loss, depth_loss_weight=depth_w,
-        depth_valid_max=depth_valid_max, ray_source=pose_ray_source if pose_opt else None,
-        **step_kw,
-    )
+    train_kw = dict(fused_loss=fused_loss, depth_loss_weight=depth_w,
+                    depth_valid_max=depth_valid_max, **step_kw)
+    if mesh is None:
+        train_step = make_train_step(s_train, batch_size,
+                                     ray_source=pose_ray_source if pose_opt else None, **train_kw)
+    else:
+        from dexnerf_tpu_torch.parallel import sharding
+
+        make_step = (sharding.make_parallel_pose_train_step if pose_opt
+                     else sharding.make_parallel_train_step)
+        train_step = make_step(mesh, s_train, batch_size, **train_kw)
     # the depth-free step of the warmup, over its own depth-free fused loss
     warmup_step = None if depth_warmup_iters == 0 else make_train_step(
         s_train, batch_size,
@@ -809,7 +955,7 @@ def run_training(
     last_val: Dict[str, Any] = {}
     i = start_iter
     depth_on_step: Optional[int] = None  # where the auto warmup switched the depth term on
-    with MetricsLogger(logdir) as logger:
+    with MetricsLogger(logdir, enabled=primary) as logger:
         while i < train_iters:
             if warmup_step is None:
                 step_fn = train_step
@@ -842,21 +988,14 @@ def run_training(
                 val_idx = int(scene.i_val[(last // validate_every) % len(scene.i_val)])
                 last_val = validate(
                     coarse, fine, scene, cfg, supervision=supervision, device=device,
-                    dex=dex, val_idx=val_idx,
+                    dex=dex, val_idx=val_idx, mesh=mesh,
                 )
-                _log_validation(logger, last_val, last, logdir)
-            if save_every and last > 0 and (crosses(i, last, save_every) or final):
+                if primary:
+                    _log_validation(logger, last_val, last, logdir)
+            if primary and save_every and last > 0 and (crosses(i, last, save_every) or final):
                 os.makedirs(ckpt_dir, exist_ok=True)
-                write_reference_checkpoint(
-                    os.path.join(ckpt_dir, f"checkpoint_{last:07d}.ckpt"),
-                    coarse.state_dict(),
-                    fine.state_dict() if fine is not None else None,
-                    step=state.step,
-                    **optimizer_checkpoint(state.opt_type, state.optimizer, state.step, lr),
-                    pose_state=pose_checkpoint(state.pose) if pose_opt else None,
-                    loss=float(metrics["loss"]),
-                    psnr=float(metrics["psnr"]),
-                )
+                write_reference_checkpoint(os.path.join(ckpt_dir, f"checkpoint_{last:07d}.ckpt"),
+                                           **_checkpoint_of(state, lr, metrics))
             logger.flush()
             i = last + 1
     elapsed = time.time() - t0

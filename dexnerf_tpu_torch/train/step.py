@@ -128,11 +128,17 @@ OPTIMIZER_REGISTRY: Dict[str, Callable[..., torch.optim.Optimizer]] = {
 }
 
 
+# the name of the optimizer's parameter group of the SG shading leaves
+SG_GROUP = "sg"
+
+
 @dataclasses.dataclass
 class TrainState:
     """The models, their optimizer (of registry name ``opt_type``), its
     learning-rate schedule and the number of updates taken; ``pose``, a
-    ``train.pose_opt.PoseState``, when the camera poses are refined."""
+    ``train.pose_opt.PoseState``, when the camera poses are refined; ``sg``,
+    the SG shading leaves of ``--sg-ir`` (``render.sg_ir``), a parameter
+    group of the same optimizer named :data:`SG_GROUP`."""
 
     coarse: nn.Module
     fine: Optional[nn.Module]
@@ -141,6 +147,7 @@ class TrainState:
     step: int = 0
     opt_type: str = "Adam"
     pose: Optional[Any] = None
+    sg: Optional[Dict[str, torch.Tensor]] = None
 
     def models(self) -> List[nn.Module]:
         return [m for m in (self.coarse, self.fine) if m is not None]
@@ -149,8 +156,9 @@ class TrainState:
 def make_optimizer(
     params, lr: float, opt_type: str = "Adam"
 ) -> torch.optim.Optimizer:
-    """The registry's optimizer over ``params`` at optax's defaults (Adam's
-    betas/eps 0.9/0.999/1e-8, as torch's)."""
+    """The registry's optimizer over ``params`` (tensors, or parameter
+    groups) at optax's defaults (Adam's betas/eps 0.9/0.999/1e-8, as
+    torch's)."""
     try:
         ctor = OPTIMIZER_REGISTRY[opt_type]
     except KeyError:
@@ -167,16 +175,26 @@ def init_train_state(
     lr_decay: float = 250.0,
     lr_decay_factor: float = 0.1,
     opt_type: str = "Adam",
+    sg: Optional[Dict[str, torch.Tensor]] = None,
 ) -> TrainState:
     """One optimizer over ``coarse`` then ``fine`` parameters (the
-    reference's order, which its ``.ckpt`` Adam state indexes)."""
+    reference's order, which its ``.ckpt`` Adam state indexes) and, with
+    ``sg`` (the SG shading leaves, made to require grad), a second
+    parameter group :data:`SG_GROUP` of those leaves under the same
+    schedule, as JAX's one optimizer covers ``params["sg"]``."""
     params = list(coarse.parameters()) + (list(fine.parameters()) if fine is not None else [])
+    groups = [{"params": params}]
+    if sg is not None:
+        for leaf in sg.values():
+            leaf.requires_grad_(True)
+        groups.append({"params": list(sg.values()), "name": SG_GROUP})
     return TrainState(
         coarse=coarse,
         fine=fine,
-        optimizer=make_optimizer(params, lr, opt_type),
+        optimizer=make_optimizer(groups, lr, opt_type),
         schedule=exponential_decay_schedule(lr, lr_decay, lr_decay_factor),
         opt_type=opt_type,
+        sg=sg,
     )
 
 
@@ -213,6 +231,10 @@ def masked_depth_mse(
     return torch.sum(mask * (depth_pred - depth_gt) ** 2) / torch.clamp(torch.sum(mask), min=1.0)
 
 
+# ``sampling`` -> the draw of a batch's store rows
+SAMPLERS = {"uniform": uniform_ray_indices, "per_image": per_image_ray_indices}
+
+
 class StepDraws(NamedTuple):
     """The random inputs of one update: the ray indices and the render
     draws (the JAX step's ``k_sample`` and ``k_render`` halves)."""
@@ -234,6 +256,7 @@ def make_train_step(
     depth_loss_weight: float = 0.0,
     depth_valid_max: Optional[float] = None,
     ray_source: Optional[Callable] = None,
+    sync: Optional[Callable] = None,
 ):
     """Build ``train_step(state, store, generator, draws=None) -> metrics``.
 
@@ -255,8 +278,11 @@ def make_train_step(
     gather: pose refinement rotates the camera-frame directions by the
     refined poses this way (``train.pose_opt.pose_ray_source``); then each
     update also steps ``state.pose`` and the metrics gain
-    ``pose_twist_norm``, the mean norm of the updated twists."""
-    indices = {"uniform": uniform_ray_indices, "per_image": per_image_ray_indices}[sampling]
+    ``pose_twist_norm``, the mean norm of the updated twists.
+    ``sync(state, metrics) -> metrics``, called between the backward and
+    the update, may replace the gradients and the metrics (the data-
+    parallel step's mean over ranks, ``parallel.sharding``)."""
+    indices = SAMPLERS[sampling]
     use_depth = depth_loss_weight > 0.0
     if use_depth and fused_loss is not None and not getattr(fused_loss, "supports_depth", False):
         raise ValueError(
@@ -294,6 +320,8 @@ def make_train_step(
         if state.pose is not None:
             state.pose.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if sync is not None:
+            metrics = sync(state, metrics)
         lr = state.schedule(state.step)
         for group in state.optimizer.param_groups:
             group["lr"] = lr

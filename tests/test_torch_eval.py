@@ -343,16 +343,12 @@ def test_eval_dataset_free_reference_ckpt(jax, tmp_path):
     ["--occupancy-dilate", "2"], ["--occupancy-probes", "32"], ["--occupancy-subsample", "1"],
 ], ids=lambda f: f[0].lstrip("-"))
 def test_refused_flags_name_their_item(flag):
-    """Unported modes raise naming their ROADMAP item; the flags of Queue 1
-    items 8 (occupancy) and 9 (``--refined-poses``), ported since, pass the
-    check, and the main goes on to read the (missing) config."""
+    """The flags of Queue 1 items 8 (occupancy), 9 (``--refined-poses``) and
+    10 (``--sg-ir``), once refused naming their item, are ported: each
+    passes the flag checks, and the main goes on to read the (missing)
+    config."""
     argv = ["--config", "unused.yml", "--checkpoint", "unused.ckpt", "--device", "cpu", *flag]
-    item = {"--sg-ir": "item 10"}.get(flag[0])
-    if item is None:
-        with pytest.raises(FileNotFoundError, match="unused.yml"):
-            eval_app.main(argv)
-        return
-    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
+    with pytest.raises(FileNotFoundError, match="unused.yml"):
         eval_app.main(argv)
 
 

@@ -471,7 +471,8 @@ def test_pose_opt_ignores_a_cache(tmp_path, monkeypatch):
                                   "eval-test-set", "eval-no-twists", "num-devices"])
 def test_pose_refusals_match_jax(jx, tmp_path, case):
     """JAX's exclusions raise (or warn) in both packages with the same
-    words; ``--num-devices`` stays refused, naming ROADMAP item 11."""
+    words; with ``--num-devices 2`` (ported since, ROADMAP item 11) a depth
+    term is refused before any rank starts, as in JAX."""
     from dexnerf_tpu.apps.eval import main as j_eval
     from dexnerf_tpu.config import CfgNode as JCfg
     from dexnerf_tpu.train.loop import run_training as j_run
@@ -500,10 +501,12 @@ def test_pose_refusals_match_jax(jx, tmp_path, case):
         assert words[0] == words[1] and len(words[0]) == 1
         return
     elif case == "num-devices":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        with pytest.raises(ValueError) as got:
             train_app.main(["--config", cfg, "--device", "cpu", "--pose-opt",
-                            "--num-devices", "2"])
-        return
+                            "--num-devices", "2", "--depth-loss", "0.1"])
+        with pytest.raises(ValueError) as want:
+            j_run(JCfg(raw), pose_opt=True, num_devices=2, depth_loss_weight=0.1,
+                  use_tensorboard=False)
     else:
         ckpt = str(tmp_path / "model.ckpt")
         calibrated_checkpoint(raw, ckpt)

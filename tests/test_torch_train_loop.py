@@ -310,14 +310,11 @@ def test_train_cli_needs_a_card_unless_told_cpu(tmp_path):
     ["--sg-ir"], ["--pose-opt"], ["--occupancy", "0.2"], ["--num-devices", "4"],
 ])
 def test_unported_modes_raise(tmp_path, flag):
-    """Unported modes raise naming their ROADMAP item; ``--occupancy`` and
-    ``--pose-opt`` (Queue 1 items 8 and 9, ported since) pass, and training
-    goes on to load the (missing) dataset."""
+    """The modes once refused naming their ROADMAP item are ported:
+    ``--occupancy``, ``--pose-opt``, ``--sg-ir`` and ``--num-devices``
+    (Queue 1 items 8-11) pass the flag checks, and training goes on to load
+    the (missing) dataset before any rank starts."""
     cfg, _ = _tiny_config(tmp_path, str(tmp_path / "missing"), 1)
     argv = ["--config", cfg, "--device", "cpu", *flag]
-    if flag[0] in ("--occupancy", "--pose-opt"):
-        with pytest.raises(FileNotFoundError, match="missing"):
-            train_app.main(argv)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(FileNotFoundError, match="missing"):
         train_app.main(argv)
