@@ -3,7 +3,8 @@
 configurations, its evaluation entry point, its LLFF/NDC path, its
 occupancy-guided paths and mesh export, its other model families,
 optimizers and tiny pipeline, its ray cache, its pose refinement, its
-active-IR SG shading and its data-parallel step on one CUDA card.
+active-IR SG shading, its data-parallel step, its multi-scene training and
+its multi-host entry on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -202,7 +203,23 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    batch held to the one-rank step by phase 7's rule, their parameters
    equal in every bit, kernel 4 on a rank's batch vs plain; ``apps.train
    --num-devices 2`` on the one card raises ``make_mesh``'s words (phase
-   20 alone: ``python3 perf_tools/phase20_alone.py``).
+   20 alone: ``python3 perf_tools/phase20_alone.py``);
+21. multi-scene training and the multi-host entry: two scenes written from
+   ``make_synthetic_scene``'s seeds 0 and 1 and two configs of
+   ``configs/lego-tpu.yml`` trained together by ``apps.multiscene
+   --max-iters 10 --validate-every 5`` at 8192 rays a scene (the plain step
+   under ``torch.func.vmap``, as JAX's multi-scene step is its XLA path:
+   kernels 2-6 never, kernel 1's bf16 route twice a scene a validation; the
+   loss falls in each scene), each scene's ``.ckpt`` through ``apps.eval
+   --test-set``; the multi-scene step's and the single-scene plain step's
+   host-clock ms, busy and idle time, launches and peak memory; kernel 1 on
+   a scene's validation frame vs plain; one multi-scene step held to
+   ``make_train_step``'s plain step of each scene (loss, every gradient
+   leaf); the ``(scene, rays)`` step at one NCCL rank equal in every bit
+   to the one-process step, and as two gloo ranks on the card at 1 x 2 and
+   2 x 1 held to it; ``multihost.initialize`` by ``tcp://`` in a process
+   of its own (one NCCL rank, one ``all_reduce``) and its no-op outside a
+   cluster (phase 21 alone: ``python3 perf_tools/phase21_alone.py``).
 
 Each kernel's line holds its bound: the larger of its FLOPs (multiply-adds
 counted from the model's shapes; compares and arithmetic counted from the
@@ -335,6 +352,18 @@ RECOVERY_STEPS, RECOVERY_RAYS = 250, 256
 # phase 20: the --sg-ir run's steps on phase 14's scene; the updates of the
 # one-rank NCCL comparison, and the seconds a spawned group of ranks may take
 SG_ITERS, RANK_STEPS, RANK_TIMEOUT = 20, 2, 300.0
+# phase 21: multi-scene training of two lego-tpu.yml scenes written from
+# make_synthetic_scene's seeds (the views of phase 6's scene, its frame
+# size): the run's steps and validation period, the layouts of the rank
+# steps ((scene rows, ranks a row) on the one card), and the seconds the
+# multihost worker may take
+MS_SEEDS, MS_ITERS, MS_VALIDATE = (0, 1), 10, 5
+MS_LAYOUTS = ((1, 2), (2, 1))
+# the ranks' f32 gradients vs the one-process step's: the same sums in
+# another order, each within f32's own distance to float64 ("own"): at
+# most F32_OWN_REL x own, + F32_OWN_ATOL x the leaf's largest entry
+F32_OWN_REL, F32_OWN_ATOL = 2.0, 1e-6
+MULTIHOST_TIMEOUT = 120
 # kernels 5 and 6 vs plain: the CPU tests' tolerances (tests/test_torch_resample.py).
 # With trained weights the CDF has steps of ~1e-5, where one ulp of the CDF
 # moves a depth by up to ~1e-4 through the guarded lerp, so each output is
@@ -2316,7 +2345,8 @@ def profile_steps(torch, step, kernels_of, n=3, unit="step", summary=None):
     multi-tensor kernels), the rest (glue), and idle (the span from the
     first kernel's start to the last one's end, minus the union of kernel
     intervals). Returns the device ms per unit of each kernel, by name;
-    ``summary``, a dict, receives the parts, ``idle`` and ``span`` per unit."""
+    ``summary``, a dict, receives the parts, ``idle`` and ``span`` per unit
+    and the device events (``launches``) per unit."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -2357,7 +2387,7 @@ def profile_steps(torch, step, kernels_of, n=3, unit="step", summary=None):
     per_step["idle"] = round((span - busy) / n / 1e3, 3)
     per_step["span"] = round(span / n / 1e3, 3)
     if summary is not None:
-        summary.update(per_step)
+        summary.update(per_step, launches=len(kernels) / n)
     print(f"  profile, ms per {unit} over {n} {unit}s ({len(kernels)} device events): "
           + json.dumps(per_step))
     top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
@@ -3878,6 +3908,495 @@ def sgir_parallel_phase(torch, np, card, dev, tmp, shared):
     return entries
 
 
+def write_seeded_blender(basedir, seed, dev):
+    """A blender-format scene (transforms JSONs + PNGs) of
+    ``make_synthetic_scene(seed=seed)``'s views, TRAIN_VIEWS of them at
+    TRAIN_HW x TRAIN_HW, rendered on ``dev``: the seed sets the cameras'
+    elevations, so two seeds give two scenes of equal ray counts."""
+    import numpy as np
+    from PIL import Image
+
+    from dexnerf_tpu_torch.data.synthetic import make_synthetic_scene
+
+    images, _, poses, hwf = make_synthetic_scene(
+        num_views=sum(TRAIN_VIEWS), height=TRAIN_HW, width=TRAIN_HW, seed=seed, device=dev)
+    angle = float(2.0 * np.arctan(0.5 * hwf[1] / hwf[2]))
+    idx = 0
+    for split, n in zip(("train", "val", "test"), TRAIN_VIEWS):
+        os.makedirs(os.path.join(basedir, split), exist_ok=True)
+        frames = []
+        for k in range(n):
+            rel = f"./{split}/r_{k}"
+            Image.fromarray((np.clip(images[idx], 0, 1) * 255).astype(np.uint8)).save(
+                os.path.join(basedir, f"{rel}.png"))
+            frames.append({"file_path": rel, "transform_matrix": poses[idx].tolist()})
+            idx += 1
+        with open(os.path.join(basedir, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": angle, "frames": frames}, f)
+
+
+def _multiscene_state(cfg_paths, ckpt_paths, dev):
+    """Phase 21's one-process multi-scene set-up on ``dev``: the scenes'
+    stacked train stores, a state of the checkpoints' weights (fresh Adam),
+    the train settings and the batch."""
+    from dexnerf_tpu_torch.config import load_config, render_settings_from_cfg
+    from dexnerf_tpu_torch.data.pipeline import build_ray_store
+    from dexnerf_tpu_torch.parallel import multiscene as ms
+    from dexnerf_tpu_torch.train import loop as ploop
+    from dexnerf_tpu_torch.train.checkpoints import read_reference_checkpoint
+
+    cfgs = [load_config(p) for p in cfg_paths]
+    stores, params = [], []
+    for cfg, ck in zip(cfgs, ckpt_paths):
+        scene = ploop.load_scene(cfg)
+        tr = scene.i_train
+        stores.append(build_ray_store(scene.images[tr], scene.poses[tr], scene.hwf,
+                                      float(cfg.dataset.near), float(cfg.dataset.far),
+                                      device=dev))
+        w = read_reference_checkpoint(ck)
+        params.append({"coarse": w["coarse"], "fine": w["fine"]})
+    coarse, fine = ploop.setup_models(cfgs[0], 0, dev)
+    stacked = ms.stack_params([{n: {k: v.to(dev) for k, v in p[n].items()} for n in p}
+                               for p in params])
+    state = ms.init_multi_scene_state(coarse, fine, stacked, float(cfgs[0].optimizer.lr))
+    return (state, ms.stack_ray_stores(stores), render_settings_from_cfg(cfgs[0], "train"),
+            int(cfgs[0].nerf.train.num_random_rays))
+
+
+def _stacked_grads(state):
+    """The stacked gradient of every leaf, by ``coarse.<name>`` /
+    ``fine.<name>``."""
+    return {f"{n}.{k}": p.grad for n, sd in state.params.items() for k, p in sd.items()}
+
+
+def rank_multiscene(mesh, cfg_paths, ckpt_paths, layout):
+    """Phase 21 (c), one rank of ``make_multi_scene_parallel_train_step`` on
+    the ``layout`` (scene rows, ranks a row) on the one card: one update of
+    this rank's scenes (scene ``j`` drawn from a generator of seed SEED +
+    j, this rank's slice of its batch); returns the row-averaged gradients,
+    the parameters, the metrics and a step's host-clock ms (on the CPU). At
+    one NCCL rank, also whether that update equals the one-process
+    ``make_multi_scene_train_step``'s on the same draws in every bit."""
+    import torch
+
+    from dexnerf_tpu_torch.parallel import multiscene as ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    full, store, s, batch = _multiscene_state(cfg_paths, ckpt_paths, dev)
+    smesh = ms.make_scene_data_mesh(*layout, mesh)
+    state, local = ms.shard_multi_scene(full, store, smesh)
+    m_local = local.num_scenes
+    scenes = list(range(smesh.scene_index * m_local, (smesh.scene_index + 1) * m_local))
+    step = ms.make_multi_scene_parallel_train_step(smesh, s, batch)
+
+    def gens(seed):
+        return [torch.Generator(device=dev).manual_seed(seed + j) for j in scenes]
+
+    m = step(state, local, gens(SEED))
+    torch.cuda.synchronize()
+    out = {"scenes": scenes, "backend": mesh.backend, "data_index": smesh.data_index,
+           "grads": {k: g.detach().cpu() for k, g in _stacked_grads(state).items()},
+           "params": [p.detach().cpu() for p in state.leaves()],
+           "metrics": {k: v.cpu() for k, v in m.items()}}
+    if mesh.world_size == 1:
+        one, _, _, _ = _multiscene_state(cfg_paths, ckpt_paths, dev)
+        m1 = ms.make_multi_scene_train_step(s, batch)(one, store, gens(SEED))
+        out["same"] = {
+            "metrics": set(m1) == set(m) and all(torch.equal(m1[k], m[k]) for k in m),
+            "gradients": all(torch.equal(a.grad, b.grad)
+                             for a, b in zip(one.leaves(), state.leaves())),
+            "parameters": all(torch.equal(a, b) for a, b in zip(one.leaves(), state.leaves())),
+            "Adam moments": all(
+                torch.equal(one.optimizer.state[a][k], state.optimizer.state[b][k])
+                for a, b in zip(one.leaves(), state.leaves())
+                for k in ("exp_avg", "exp_avg_sq")),
+        }
+        del one
+    g = gens(SEED + 100)
+    out["ms"] = host_ms(torch, lambda: step(state, local, g), n=3)
+    return out
+
+
+def _f64_grads(cfg, ckpt, store, draws, settings, dev):
+    """One scene's float64 gradients of the plain render + loss (the
+    checkpoint's weights, ``store``'s rows and ``draws`` cast to float64),
+    by leaf ``coarse.<name>`` / ``fine.<name>``, on the CPU."""
+    import torch
+
+    from dexnerf_tpu_torch.data.pipeline import take_ray_batch
+    from dexnerf_tpu_torch.render.renderer import RayBatch, RenderDraws, render_rays
+    from dexnerf_tpu_torch.train import loop as ploop
+    from dexnerf_tpu_torch.train.step import nerf_loss
+
+    w = ploop.read_reference_checkpoint(ckpt)
+    models = ploop.setup_models(cfg, 0, dev)
+    for m, name in zip(models, ("coarse", "fine")):
+        m.load_state_dict(w[name])
+        m.double()
+    rays, target = take_ray_batch(store, draws.idx)
+    rays = RayBatch(*[t.double() for t in rays])
+    render = RenderDraws(*[None if t is None else t.double() for t in draws.render])
+    loss, _ = nerf_loss(render_rays(*models, rays, settings, render), target.double())
+    loss.backward()
+    out = {f"{n}.{k}": p.grad.cpu() for n, m in zip(("coarse", "fine"), models)
+           for k, p in m.named_parameters()}
+    del models, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_f32_to_own(title, got, want, want64, torch):
+    """Each f32 gradient leaf of ``got`` (the same sums as ``want`` taken
+    in another order: over ranks, or batched) held relative to f32's own
+    effect, own = |want - float64| (``want64``): its distance to float64 at
+    most F32_OWN_REL x own + F32_OWN_ATOL x the leaf's largest entry. Prints
+    each leaf's [distance to ``want``, to float64, own] and raises if one
+    is outside."""
+    bad, lines = [], {}
+    for key in want:
+        a, b, f = got[key].double(), want[key].double(), want64[key]
+        if a.shape != f.shape or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{title} {key}: shape {tuple(a.shape)} or non-finite values")
+        direct, err, own = (float((x - y).abs().max()) for x, y in ((a, b), (a, f), (b, f)))
+        lines[key] = [float(f"{v:.3e}") for v in (direct, err, own)]
+        if not err <= F32_OWN_REL * own + F32_OWN_ATOL * float(f.abs().max()):
+            bad.append(key)
+    print(f"{title} [max vs the one-process step; max vs float64; own max] (limit: vs float64 "
+          f"<= {F32_OWN_REL:g} own + {F32_OWN_ATOL:g} x scale): " + json.dumps(lines))
+    if bad:
+        raise AssertionError(f"{title} outside f32's own rounding in {bad}")
+
+
+def multiscene_phase(torch, np, card, dev, tmp):
+    """Phase 21, multi-scene training and the multi-host entry. (a) Two
+    scenes written from ``make_synthetic_scene``'s seeds 0 and 1 (phase 6's
+    views and frame size) and two configs of ``configs/lego-tpu.yml`` (the
+    same models and train render, their own datasets, logdirs and seeds)
+    trained together by ``apps.multiscene --max-iters MS_ITERS
+    --validate-every MS_VALIDATE`` on the card at 8192 rays a scene: the
+    loss falls in each scene, kernel 1's bf16 route twice a scene a
+    validation, kernels 2-6 never; each scene's ``.ckpt`` through
+    ``apps.eval --test-set``; the multi-scene step's host-clock ms, device
+    busy and idle time, launches and peak memory beside the single-scene
+    plain step's on the same config; kernel 1 on a scene's validation frame
+    vs plain (phase 3's rule). (b) One multi-scene step held to
+    ``make_train_step``'s plain step of each scene on the same draws and
+    weights: the loss within TRAIN_LOSS_RTOL, every gradient leaf within
+    GRAD_RTOL of its largest entry (phase 7's rule; batched and unbatched
+    products need not agree in every bit). (c) The ``(scene, rays)`` step
+    as two gloo ranks sharing the card at MS_LAYOUTS, each held to the
+    one-process step on the same draws by (b)'s rule, a row's ranks equal in
+    every bit; one NCCL rank equal to the one-process step in every bit.
+    (d) ``multihost.initialize`` with an explicit ``tcp://`` address in a
+    process of its own: one NCCL rank, one ``all_reduce`` on the card; the
+    no-op outside a cluster. Returns the kernels-line entries."""
+    import copy
+
+    import yaml
+
+    from dexnerf_tpu_torch.apps import multiscene as ms_app
+    from dexnerf_tpu_torch.config import load_config, render_settings_from_cfg
+    from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w
+    from dexnerf_tpu_torch.data.pipeline import uniform_ray_indices
+    from dexnerf_tpu_torch.parallel import multihost
+    from dexnerf_tpu_torch.parallel import multiscene as ms
+    from dexnerf_tpu_torch.parallel.mesh import free_port, spawn_ranks
+    from dexnerf_tpu_torch.render.renderer import draw_render_noise, make_ray_batch
+    from dexnerf_tpu_torch.train import loop as ploop
+    from dexnerf_tpu_torch.train.step import StepDraws, init_train_state, make_train_step
+
+    # ---- (a) apps.multiscene on two written scenes
+    with open(TRAIN_CONFIG) as f:
+        base = yaml.safe_load(f)
+    t0 = time.perf_counter()
+    cfg_paths = []
+    for seed in MS_SEEDS:
+        data = os.path.join(tmp, f"multiscene-{seed}")
+        write_seeded_blender(data, seed, dev)
+        raw = copy.deepcopy(base)
+        raw["dataset"].update(basedir=data, half_res=False, cachedir="")
+        raw["experiment"].update(id=f"multiscene-{seed}", logdir=os.path.join(tmp, "logs"),
+                                 randomseed=SEED + seed, print_every=1)
+        cfg_paths.append(os.path.join(tmp, f"multiscene-{seed}.yml"))
+        with open(cfg_paths[-1], "w") as f:
+            yaml.safe_dump(raw, f)
+    write_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    ms_app.main(["--configs", *cfg_paths, "--device", dev.type, "--max-iters", str(MS_ITERS),
+                 "--validate-every", str(MS_VALIDATE)])
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    cfgs = [load_config(p) for p in cfg_paths]
+    logdirs = [os.path.join(tmp, "logs", f"multiscene-{seed}") for seed in MS_SEEDS]
+    ckpts = [os.path.join(d, "checkpoints", f"checkpoint_{MS_ITERS - 1:07d}.ckpt")
+             for d in logdirs]
+    runs = []
+    for d in logdirs:
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        runs.append({
+            "losses": [r["loss"] for r in recs if "loss" in r],
+            "val": [(r["step"], r["val_psnr"]) for r in recs if "val_psnr" in r],
+            "pngs": sorted(os.listdir(os.path.join(d, "validation"))),
+        })
+    n_val = MS_ITERS // MS_VALIDATE
+    print(f"phase 21 (a): apps.multiscene, {len(MS_SEEDS)} scenes of lego-tpu.yml (seeds "
+          f"{list(MS_SEEDS)}, {TRAIN_HW}x{TRAIN_HW}, {TRAIN_VIEWS[0]} train views each, written in "
+          f"{write_s:.2f} s), {MS_ITERS} steps at {int(cfgs[0].nerf.train.num_random_rays)} rays "
+          f"a scene in {run_s:.2f} s (first call, validations included); launches "
+          f"{json.dumps(counts)}; peak {peak_gb:.2f} GiB; " + "; ".join(
+              f"scene {i}: loss first {r['losses'][0]:.5f} last {r['losses'][-1]:.5f}, "
+              f"validation psnr {r['val']}" for i, r in enumerate(runs)))
+    checks = {
+        f"kernel 1's bf16 route twice a scene a validation ({2 * len(MS_SEEDS) * n_val}), "
+        "kernels 2-6 never": counts["fused_render_bf16"] == counts["fused_render"]
+        == 2 * len(MS_SEEDS) * n_val and all(
+            v == 0 for k, v in counts.items() if not k.startswith("fused_render")),
+    }
+    for i, (r, ck) in enumerate(zip(runs, ckpts)):
+        checks[f"scene {i}: {MS_ITERS} finite losses, falling (mean of last 3 < first 3)"] = (
+            len(r["losses"]) == MS_ITERS and bool(np.isfinite(r["losses"]).all())
+            and np.mean(r["losses"][-3:]) < np.mean(r["losses"][:3]))
+        checks[f"scene {i}: validations at steps {MS_VALIDATE}..{MS_ITERS}, finite, a PNG "
+               "each"] = ([s for s, _ in r["val"]] == list(range(MS_VALIDATE, MS_ITERS + 1,
+                                                                 MS_VALIDATE))
+                          and bool(np.isfinite([p for _, p in r["val"]]).all())
+                          and len(r["pngs"]) == n_val)
+        checks[f"scene {i}: its .ckpt"] = os.path.exists(ck)
+    run_checks("phase 21 (a) multi-scene training", checks)
+    eval_counts, eval_psnr = [], []
+    for i, (p, ck) in enumerate(zip(cfg_paths, ckpts)):
+        e_counts, metrics, e_secs = eval_cli(p, ck, os.path.join(tmp, f"eval-multiscene-{i}"),
+                                             ["--test-set"], dev)
+        eval_counts.append(e_counts)
+        eval_psnr.append(metrics["mean"]["psnr"])
+        print(f"phase 21 (a): apps.eval --test-set on scene {i}'s .ckpt, "
+              f"{len(metrics['per_image'])} frame(s) in {e_secs:.2f} s: psnr "
+              f"{metrics['mean']['psnr']:.3f}; launches {json.dumps(e_counts)}")
+    run_checks("phase 21 (a) each scene's checkpoint through apps.eval", {
+        "2 launches of kernel 1's bf16 route a frame, nothing else, finite psnr": all(
+            c["fused_render_bf16"] == c["fused_render"] == 2 and all(
+                v == 0 for k, v in c.items() if not k.startswith("fused_render"))
+            and np.isfinite(p) for c, p in zip(eval_counts, eval_psnr)),
+    })
+
+    # the multi-scene step and the single-scene plain step: host clock, profile, memory
+    state, store, s_train, batch = _multiscene_state(cfg_paths, ckpts, dev)
+    step = ms.make_multi_scene_train_step(s_train, batch)
+    gens = [torch.Generator(device=dev).manual_seed(SEED + j) for j in range(len(MS_SEEDS))]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        step(state, store, gens)
+    # torch.func.vmap warns where an op has no batching rule and loops over the scenes
+    fallback = sorted({str(w.message)[:160] for w in caught if "batching rule" in str(w.message)})
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    ms_ms = host_ms(torch, lambda: step(state, store, gens), n=5)
+    ms_peak = torch.cuda.max_memory_allocated() / 2**30
+    step_counts = read_counts()
+    print(f"phase 21 (a): the multi-scene step ({len(MS_SEEDS)} scenes x {batch} rays, "
+          f"{s_train.num_coarse} + {s_train.num_fine}, plain f32 under torch.func.vmap, TF32 "
+          f"off):")
+    ms_sum = {}
+    profile_steps(torch, lambda: step(state, store, gens), {}, summary=ms_sum)
+    cfg0 = cfgs[0]
+    one = ms.scene_train_state(state, 0)
+    single = make_train_step(s_train, batch)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    scene0 = ms.scene_store(store, 0)
+    torch.cuda.reset_peak_memory_stats()
+    one_ms = host_ms(torch, lambda: single(one, scene0, gen), n=5)
+    one_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 21 (a): the single-scene plain step (1 scene x {batch} rays), as phase 8's "
+          f"plain step:")
+    one_sum = {}
+    profile_steps(torch, lambda: single(one, scene0, gen), {}, summary=one_sum)
+
+    def busy(summ):
+        return summ.get("span", float("nan")) - summ.get("idle", float("nan"))
+
+    nan = float("nan")
+    print(f"phase 21 (a): ms on {card} (host clock around synchronize, mean of 5; busy and idle "
+          f"from the profile of 3): multi-scene step {ms_ms:.3f} "
+          f"({len(MS_SEEDS) * batch / ms_ms * 1e3:.0f} rays/s), busy {busy(ms_sum):.3f}, idle "
+          f"{ms_sum.get('idle', nan):.3f} of a {ms_sum.get('span', nan):.3f} span, "
+          f"{ms_sum.get('launches', nan):.0f} launches a step, peak {ms_peak:.2f} GiB; "
+          f"single-scene plain step {one_ms:.3f} "
+          f"({batch / one_ms * 1e3:.0f} rays/s), busy {busy(one_sum):.3f}, idle "
+          f"{one_sum.get('idle', nan):.3f} of {one_sum.get('span', nan):.3f}, "
+          f"{one_sum.get('launches', nan):.0f} launches a step, peak {one_peak:.2f} GiB; "
+          f"launch counters over the timed multi-scene steps {json.dumps(step_counts)}; vmap "
+          f"fallbacks {fallback}")
+    run_checks("phase 21 (a) the timed steps", {
+        "no kernel in the multi-scene steps": not any(step_counts.values()),
+        "every op of the step batched by vmap (no fallback loop)": not fallback,
+    })
+    del one, single
+
+    # kernel 1 on scene 0's validation frame (the weights calibrated as phase 3's)
+    s_val = render_settings_from_cfg(cfg0, "validation").eval_variant()
+    scene = ploop.load_scene(cfg0)
+    H, W, focal = int(scene.hwf[0]), int(scene.hwf[1]), float(scene.hwf[2])
+    ro, rd = get_ray_bundle_c2w(H, W, focal, torch.as_tensor(scene.poses[scene.i_val[0]],
+                                                             device=dev))
+    vc, vf = ms.scene_models(state, 0)
+    vrays = make_ray_batch(ro, rd, float(cfg0.dataset.near), float(cfg0.dataset.far))
+    calibrate_on((vc, vf), vrays, s_val, torch)
+    err, f_ms, b_ms, b_by = hold_frame("phase 21 (a): scene 0's validation frame", vc, vf, vrays,
+                                       s_val, torch)
+    print(f"phase 21 (a): ms on {card}: " + json.dumps({k: round(v, 3) for k, v in f_ms.items()}))
+    entries = [render_entry("fused_render_bf16@multiscene", counts["fused_render_bf16"]
+                            + sum(c["fused_render_bf16"] for c in eval_counts), err, f_ms, b_ms,
+                            b_by)]
+    del vc, vf, vrays
+
+    # ---- (b) one multi-scene step vs the single-scene plain step of each scene
+    state, store, _, _ = _multiscene_state(cfg_paths, ckpts, dev)
+    draws = []
+    for j in range(len(MS_SEEDS)):
+        g = torch.Generator(device=dev).manual_seed(SEED + 7 + j)
+        draws.append(StepDraws(uniform_ray_indices(store, batch, g),
+                               draw_render_noise(batch, s_train, g, dev)))
+    m_multi = step(state, store, draws=[draws])
+    grads = _stacked_grads(state)
+    leaves, loss_err = {}, []
+    for j in range(len(MS_SEEDS)):
+        c, f = ploop.setup_models(cfgs[j], 0, dev)
+        w = ploop.read_reference_checkpoint(ckpts[j])
+        c.load_state_dict(w["coarse"])
+        f.load_state_dict(w["fine"])
+        st = init_train_state(c, f, float(cfgs[j].optimizer.lr))
+        m_one = make_train_step(s_train, batch)(st, ms.scene_store(store, j), draws=[draws[j]])
+        loss_err.append(abs(float(m_multi["loss"][j]) - float(m_one["loss"]))
+                        / float(m_one["loss"]))
+        want = {f"{n}.{k}": p.grad for n, model in (("coarse", c), ("fine", f))
+                for k, p in model.named_parameters()}
+        for k, w in want.items():
+            leaves[f"scene {j} {k}"] = (float((grads[k][j] - w).abs().max()),
+                                        float(w.abs().max()))
+        del st, c, f
+    worst = max(leaves, key=lambda k: leaves[k][0] / max(leaves[k][1], 1e-30))
+    print(f"phase 21 (b): one multi-scene step vs make_train_step's plain step of each scene on "
+          f"the same draws and weights: loss rel err {[float(f'{e:.2e}') for e in loss_err]} "
+          f"(limit {TRAIN_LOSS_RTOL:g}); worst leaf {worst} at "
+          f"{leaves[worst][0] / leaves[worst][1]:.2e} of its largest entry")
+    print_leaves(leaves)
+    run_checks("phase 21 (b) the multi-scene step vs the single-scene step", {
+        f"losses within {TRAIN_LOSS_RTOL:g}": all(e <= TRAIN_LOSS_RTOL for e in loss_err),
+        f"every gradient leaf finite and within {GRAD_RTOL:g} of its largest entry": all(
+            np.isfinite(e) and e <= GRAD_RTOL * m for e, m in leaves.values()),
+    })
+    del state, store, grads
+
+    # ---- (c) the (scene, rays) step: one NCCL rank, then two gloo ranks on the one card
+    # the one-process step on the ranks' draws (scene j's generator of seed
+    # SEED + j), and each scene's float64 gradients on the same draws
+    ref, ref_store, _, _ = _multiscene_state(cfg_paths, ckpts, dev)
+    ref_draws = []
+    for j in range(len(MS_SEEDS)):
+        g = torch.Generator(device=dev).manual_seed(SEED + j)
+        ref_draws.append(StepDraws(uniform_ray_indices(ref_store, batch, g),
+                                   draw_render_noise(batch, s_train, g, dev)))
+    m_ref = step(ref, ref_store, draws=[ref_draws])
+    ref_grads = {k: g.detach().cpu() for k, g in _stacked_grads(ref).items()}
+    ref_loss = m_ref["loss"].cpu()
+    ref64 = [_f64_grads(cfgs[j], ckpts[j], ms.scene_store(ref_store, j), ref_draws[j], s_train,
+                        dev) for j in range(len(MS_SEEDS))]
+    del ref, ref_store, ref_draws
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (nccl,) = spawn_ranks(rank_multiscene, 1, "cuda", (cfg_paths, ckpts, (1, 1)),
+                          timeout=RANK_TIMEOUT)
+    nccl_s = time.perf_counter() - t0
+    print(f"phase 21 (c): make_multi_scene_parallel_train_step at one {nccl['backend']} rank "
+          f"(1 x 1) vs make_multi_scene_train_step on the same draws ({nccl_s:.1f} s with the "
+          f"spawn): equal in every bit {json.dumps(nccl['same'])}; a step {nccl['ms']:.3f} ms on "
+          f"{card} (host clock, mean of 3)")
+    run_checks("phase 21 (c) one NCCL rank", {
+        "NCCL": nccl["backend"] == "nccl",
+        "metrics, gradients, parameters and Adam moments equal in every bit": all(
+            nccl["same"].values()),
+    })
+    for layout in MS_LAYOUTS:
+        t0 = time.perf_counter()
+        out = spawn_ranks(rank_multiscene, 2, "cuda", (cfg_paths, ckpts, layout),
+                          devices=["cuda:0", "cuda:0"], backend="gloo", timeout=RANK_TIMEOUT)
+        secs = time.perf_counter() - t0
+        got, want, want64, loss_err = {}, {}, {}, []
+        for i, r in enumerate(out):
+            for n_local, j in enumerate(r["scenes"]):
+                loss_err.append(abs(float(r["metrics"]["loss"][n_local]) - float(ref_loss[j]))
+                                / float(ref_loss[j]))
+                for k, g in r["grads"].items():
+                    key = f"rank {i} scene {j} {k}"
+                    got[key], want[key], want64[key] = g[n_local], ref_grads[k][j], ref64[j][k]
+        rows = {}
+        for r in out:
+            rows.setdefault(tuple(r["scenes"]), []).append(r["params"])
+        same = all(all(torch.equal(a, b) for a, b in zip(g[0], other))
+                   for g in rows.values() for other in g[1:])
+        print(f"phase 21 (c): {layout[0]} x {layout[1]} on 2 gloo ranks sharing the card "
+              f"({secs:.1f} s with the spawn): scenes a rank {[r['scenes'] for r in out]}, loss "
+              f"rel err vs the one-process step {[float(f'{e:.2e}') for e in loss_err]}; a row's "
+              f"ranks' parameters equal {same}; a step {[round(r['ms'], 3) for r in out]} ms a "
+              f"rank on {card} (host clock, mean of 3; the ranks share the card, the gloo "
+              f"reduction goes through the host)")
+        hold_f32_to_own(f"phase 21 (c): {layout[0]} x {layout[1]}, the ranks' averaged "
+                        "gradients vs the one-process step's,", got, want, want64, torch)
+        run_checks(f"phase 21 (c) {layout[0]} x {layout[1]} gloo ranks", {
+            "every scene on a rank": sorted({j for r in out for j in r["scenes"]})
+            == list(range(len(MS_SEEDS))),
+            f"losses within {TRAIN_LOSS_RTOL:g} of the one-process step's": all(
+                e <= TRAIN_LOSS_RTOL for e in loss_err),
+            "a row's ranks' parameters equal in every bit": same,
+        })
+
+    # ---- (d) multihost.initialize: one NCCL process by tcp://, the no-op outside a cluster
+    port = free_port()
+    worker = (
+        "import sys, torch\n"
+        "from dexnerf_tpu_torch.parallel import multihost\n"
+        "from dexnerf_tpu_torch.parallel.mesh import all_reduce_sum\n"
+        "assert multihost.initialize(coordinator_address=sys.argv[1], process_id=0)\n"
+        "mesh = multihost.global_mesh()\n"
+        "x = all_reduce_sum(mesh, torch.arange(4.0, device=mesh.device))\n"
+        "torch.cuda.synchronize()\n"
+        "assert x.tolist() == [0.0, 1.0, 2.0, 3.0], x\n"
+        "print('WORKER', mesh.backend, mesh.device, mesh.world_size, multihost.process_count(),\n"
+        "      multihost.is_primary(), multihost.local_device_count())\n"
+        "multihost.shutdown()\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k not in multihost._CLUSTER_ENV_VARS}
+    env.update(WORLD_SIZE="1", PYTHONPATH=ROOT + os.pathsep + env.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-c", worker, f"127.0.0.1:{port}"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=MULTIHOST_TIMEOUT)
+    said = [line for line in done.stdout.splitlines() if line.startswith("WORKER")]
+    saved = {k: os.environ.pop(k) for k in multihost._CLUSTER_ENV_VARS if k in os.environ}
+    try:
+        noop = (multihost.initialize(), multihost.initialize(num_processes=1))
+    finally:
+        os.environ.update(saved)
+    print(f"phase 21 (d): multihost.initialize(coordinator_address=tcp 127.0.0.1:{port}, "
+          f"process_id=0) in a process of its own with WORLD_SIZE=1 "
+          f"({time.perf_counter() - t0:.1f} s): exit {done.returncode}, {said} (backend, device, "
+          f"world size, process count, primary, local devices); outside a cluster initialize() and "
+          f"initialize(num_processes=1) gave {noop}. Two hosts cannot be tried here: the card's "
+          f"machine has one H100, so no NCCL group over two or more cards has run."
+          + (f"\n{done.stderr[-2000:]}" if done.returncode else ""))
+    run_checks("phase 21 (d) multihost", {
+        "one NCCL rank on the card, the all_reduce's sum": done.returncode == 0
+        and len(said) == 1 and said[0].split()[1:4] == ["nccl", "cuda:0", "1"],
+        "a no-op outside a cluster and at one process": noop == (False, False),
+    })
+    return entries
+
+
 def serve_requests(config, ckpt, requests, torch, flags=(), refused=()):
     """Start ``dexnerf_tpu_torch.apps.serve`` on the card with ``config``,
     ``ckpt`` and the extra CLI ``flags``, send ``requests`` ((path, POST
@@ -4227,6 +4746,7 @@ def main() -> int:
         family_kernels = families_phase(torch, np, card, dev, tmp, shared)
         pose_kernels = cache_pose_phase(torch, np, card, dev, tmp, shared)
         sgir_kernels = sgir_parallel_phase(torch, np, card, dev, tmp, shared)
+        multiscene_kernels = multiscene_phase(torch, np, card, dev, tmp)
     render = dict(route="cuda", replaces="dexnerf_tpu/ops/fused_render.py:115")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s (host clock, "
           "the kernels' build included)")
@@ -4253,7 +4773,8 @@ def main() -> int:
         "bound_by": bf16_bound_by,
         "library_ms": ms["k1_forward_torch_matmul_bf16"],
     }, *train_kernels, *field_kernels, *resample_kernels, *dex_kernels, *eval_kernels,
-        *llff_kernels, *occupancy_kernels, *family_kernels, *pose_kernels, *sgir_kernels]}))
+        *llff_kernels, *occupancy_kernels, *family_kernels, *pose_kernels, *sgir_kernels,
+        *multiscene_kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

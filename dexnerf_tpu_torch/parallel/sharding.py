@@ -35,23 +35,26 @@ from dexnerf_tpu_torch.render.renderer import (
 from dexnerf_tpu_torch.train.step import SAMPLERS, StepDraws, TrainState, make_train_step
 
 
-def _trainable(state: TrainState) -> List[torch.Tensor]:
+def _trainable(state) -> List[torch.Tensor]:
     """Every tensor the step updates: the optimizer's groups (models, SG
-    leaves), then the pose twists."""
+    leaves, or a multi-scene state's stacked leaves), then the pose
+    twists."""
     params = [p for group in state.optimizer.param_groups for p in group["params"]]
-    return params + ([state.pose.twists] if state.pose is not None else [])
+    pose = getattr(state, "pose", None)
+    return params + ([pose.twists] if pose is not None else [])
 
 
 def make_grad_mean(mesh: Mesh) -> Callable:
-    """``sync(state, metrics) -> metrics`` for ``make_train_step``: the mean
-    over the ranks of every gradient (a missing one counts as zeros) and
-    every metric, by one ``all_reduce`` of one flat buffer."""
+    """``sync(state, metrics) -> metrics`` for ``make_train_step`` (or the
+    multi-scene step, whose metrics are per scene): the mean over the ranks
+    of every gradient (a missing one counts as zeros) and every metric, by
+    one ``all_reduce`` of one flat buffer."""
 
-    def sync(state: TrainState, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def sync(state, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         params = _trainable(state)
         keys = sorted(metrics)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        flat = torch.cat([g.reshape(-1) for g in grads] + [torch.stack([metrics[k] for k in keys])])
+        flat = torch.cat([t.reshape(-1) for t in grads + [metrics[k] for k in keys]])
         all_reduce_sum(mesh, flat)
         flat = flat / mesh.world_size
         offset = 0
@@ -59,7 +62,12 @@ def make_grad_mean(mesh: Mesh) -> Callable:
             n = p.numel()
             p.grad = flat[offset:offset + n].view_as(p)
             offset += n
-        return {k: flat[offset + i] for i, k in enumerate(keys)}
+        out = {}
+        for k in keys:
+            n = metrics[k].numel()
+            out[k] = flat[offset:offset + n].view_as(metrics[k])
+            offset += n
+        return out
 
     return sync
 

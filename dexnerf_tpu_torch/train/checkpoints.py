@@ -241,6 +241,23 @@ def adam_state_from_optax(mu: Mapping, nu: Mapping, count: int, models: Mapping,
     return _adam_layout(moments, count, lr)
 
 
+def stack_adam_states(states: Sequence[Mapping]) -> Dict:
+    """M scenes' reference-layout Adam states (:func:`adam_state_dict`,
+    :func:`adam_state_from_optax`) as one over their stacked parameters
+    (``parallel.multiscene``): each moment stacked on a leading scene axis,
+    for :func:`load_adam_state` into a multi-scene optimizer. The scenes
+    advance in lockstep: their update counts must agree."""
+    steps = {int(st["step"]) for s in states for st in s["state"].values()}
+    if len(steps) > 1:
+        raise ValueError(f"the scenes' Adam states have step counts {sorted(steps)}")
+    order = list(states[0]["param_groups"][0]["params"])
+    moments = [(torch.stack([torch.as_tensor(s["state"][i]["exp_avg"]) for s in states]),
+                torch.stack([torch.as_tensor(s["state"][i]["exp_avg_sq"]) for s in states]))
+               for i in order]
+    return _adam_layout(moments, steps.pop() if steps else 0,
+                        states[0]["param_groups"][0]["lr"])
+
+
 def has_viewdir_head(state_dict: Mapping[str, torch.Tensor]) -> bool:
     """Whether a FlexibleNeRF state_dict has the viewdir heads (``fc_rgb``),
     not the single ``fc_out`` of a model without viewdirs."""

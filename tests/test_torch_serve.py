@@ -221,7 +221,8 @@ def test_port_imports_no_jax():
         "             'apps.tiny', 'models.mlp', 'models.registry', 'train.step',\n"
         "             'apps.cache', 'core.lie', 'train.pose_opt', 'data.resize',\n"
         "             'ops.host_rows', 'models.sg', 'render.sg_ir', 'parallel.mesh',\n"
-        "             'parallel.sharding'):\n"
+        "             'parallel.sharding', 'parallel.multiscene', 'parallel.multihost',\n"
+        "             'apps.multiscene'):\n"
         "    assert 'dexnerf_tpu_torch.' + name in sys.modules, name\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'dexnerf_tpu', 'cv2', 'imageio', 'matplotlib')]\n"
