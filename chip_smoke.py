@@ -219,7 +219,27 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    to the one-process step, and as two gloo ranks on the card at 1 x 2 and
    2 x 1 held to it; ``multihost.initialize`` by ``tcp://`` in a process
    of its own (one NCCL rank, one ``all_reduce``) and its no-op outside a
-   cluster (phase 21 alone: ``python3 perf_tools/phase21_alone.py``).
+   cluster (phase 21 alone: ``python3 perf_tools/phase21_alone.py``);
+22. the wide bf16 route (padded widths above 128): ``configs/lego-tpu.yml``
+   at FlexibleNeRF 8x256 (the NeRF paper's width; the config written at run
+   time) on phase 6's scene through ``apps.train`` for 10 steps each at the
+   default bf16: kernel 4 (2 wide launches a step), the field path (kernels
+   2 and 3, 2 wide launches each a step) and kernel 4 with the fused
+   resample (kernel 5 once a step), validation through kernel 1's wide
+   route, every loss finite and falling; the same config at
+   ``pallas_compute_dtype: float32`` refused with ROADMAP Queue 2 item 6b's
+   words before any launch; ``apps.serve`` of the kernel-4 run's ``.ckpt``
+   answering three frames through kernel 1's wide route; kernel 4 on one
+   batch of that run (both passes) and kernels 2-3 on its fine pass held to
+   their plain versions by phase 7's rule, kernel 1 on the 400x400
+   validation frame by phase 3's; the same at H = 100 (the narrow kernels,
+   a width not a multiple of 8; also the f32 routes of kernels 1, 2 and 4),
+   136 and 320 on that batch's coarse samples (kernel 1 on its 8192 rays,
+   kernels 2-4 on 512 of them), and every f32 wrapper refusing
+   256 with no launch; each wide kernel's time beside its bound and its
+   products as bf16 ``torch.matmul``, its registers, spills and shared
+   bytes, an 8x256 step's and frame's host-clock time, peak memory and the
+   launches (phase 22 alone: ``python3 perf_tools/phase22_alone.py``).
 
 Each kernel's line holds its bound: the larger of its FLOPs (multiply-adds
 counted from the model's shapes; compares and arithmetic counted from the
@@ -412,6 +432,25 @@ BF16_P999 = 0.25
 BF16_REL, BF16_REL_ATOL = 1.5, 1e-5
 BF16_DEX_SHARE = 0.999
 SIGMA_SCALE = 20.0  # σ head output: standardized, times this (see calibrate)
+
+
+# phase 22: the wide bf16 route, configs/lego-tpu.yml at FlexibleNeRF 8x256
+# (the NeRF paper's width, every reference pretrained config's); the widths
+# held on a small batch: 100 (the narrow kernels, not a multiple of 8), 136
+# (the narrow kernels' old refusal), 320 (past JAX's 256 loss-block switch)
+WIDE_HIDDEN = 256
+WIDE_ITERS = 10
+WIDE_WIDTHS = (100, 136, 320)
+WIDE_SMALL_RAYS = 512
+# the wide route's training kernels, by name (the profile's parts); the dW,
+# reduction and the rest are the narrow route's
+WIDE4_NAMES = ("train_prep_kernel", "train_fwd_wide_kernel", "train_composite_kernel",
+               "train_chain_wide_kernel", "train_dw_bf16_kernel", "reduce",
+               "sum_rays_bf16_kernel")
+WIDE_PARTS = {"train_fwd_bf16_kernel": "train_fwd_wide_kernel<4>",
+              "train_chain_bf16_kernel": "train_chain_wide_kernel",
+              "train_dw_bf16_kernel": "train_dw_bf16_kernel"}
+WIDE_KERNELS = ("fused_render_wide_kernel", "train_fwd_wide_kernel", "train_chain_wide_kernel")
 
 
 def card_line() -> str:
@@ -614,22 +653,27 @@ def kernel_modules():
             "resample": resample, "sample_pdf": sample_pdf}
 
 
+ROUTE_COUNTS = ("bf16", "wide")  # the counters besides ``launches``: bf16 routes, wide ones
+
+
 def zero_counts():
-    """Set every wrapper's launch counts (``launches``, ``launches_bf16``)
-    to 0."""
+    """Set every wrapper's launch counts (``launches``, ``launches_bf16``,
+    ``launches_wide``) to 0."""
     for m in kernel_modules().values():
         m.launches = 0
-        if hasattr(m, "launches_bf16"):
-            m.launches_bf16 = 0
+        for route in ROUTE_COUNTS:
+            if hasattr(m, f"launches_{route}"):
+                setattr(m, f"launches_{route}", 0)
 
 
 def read_counts():
     """Every wrapper's launch counts, by module (``<module>_bf16`` for the
-    bf16 routes)."""
+    bf16 routes, ``<module>_wide`` for the wide bf16 route)."""
     mods = kernel_modules()
     counts = {k: m.launches for k, m in mods.items()}
-    counts.update({f"{k}_bf16": m.launches_bf16 for k, m in mods.items()
-                   if hasattr(m, "launches_bf16")})
+    for route in ROUTE_COUNTS:
+        counts.update({f"{k}_{route}": getattr(m, f"launches_{route}") for k, m in mods.items()
+                       if hasattr(m, f"launches_{route}")})
     return counts
 
 
@@ -1420,8 +1464,10 @@ def print_dw_plan(model, n, s, torch, dev):
     n_st = [2 * -(-min(chunk, n - c * chunk) * s // 128) for c in range(n_chunks)]
     spans = ftl.dw_spans([u.cost for u in plan], n_st[0], grid)
     stages = [sum(j1 - j0 for _, _, j0, j1 in parts) for parts in spans]
-    args, smem = ftl._cached_dw_template(model, grid)
-    print(f"  dW plan, {n} rays x {s} samples: {len(plan)} units [boxes A+B, output blocks, "
+    parts = ftl._cached_dw_parts(model, grid)
+    args, smem = parts[0]
+    print(f"  dW plan, {n} rays x {s} samples: {len(plan)} units in {len(parts)} launch(es) "
+          f"[boxes A+B, output blocks, "
           f"bytes/sample]: " + json.dumps([[f"{len(u.a)}+{len(u.b)}", len(u.blocks), 16 * u.cost]
                                            for u in plan])
           + f"; {n_chunks} chunks of {n_st} stages of 64 samples; {grid} CTAs, each "
@@ -2711,16 +2757,8 @@ def field_pass_hold(label, model, pts, v, g, kw, torch, dev):
           f"the plain version's + {GPU_GRAD_RTOL:g} of the largest entry): " + json.dumps(rule))
     if bad:
         raise AssertionError(f"{label}: field kernels and plain differ in {bad}")
-    raw_b = fm.fused_field(model, pts, v, **kw, **bf)
-    grads_b = fmt._launch_backward(model, pts, v, g, **kw, **bf2)
-    torch.cuda.synchronize()
-    plain_b = {"raw": fm.fused_field_reference(model, pts, v, **kw, **bf).detach(),
-               **dict(zip(names, fmt.field_grads_reference(model, pts, v, g, **kw, **bf2)))}
-    errs = hold_to_own(f"{label}: bf16 routes of kernels 2 (raw) and 3 (leaves) vs plain,",
-                       {"raw": raw_b, **dict(zip(names, grads_b))}, plain_b,
-                       {"raw": raw_p, **dict(zip(names, want))}, torch)
-    err["fwd_bf16"] = errs.pop("raw")
-    err["bwd_bf16"] = max(errs.values())
+    err["fwd_bf16"], err["bwd_bf16"] = hold_fields_bf16(
+        label, model, pts, v, g, torch, kw, {"raw": raw_p, **dict(zip(names, want))})
     ms = {}
     for tag, dt, dt2 in (("", {}, {}), ("_bf16", bf, bf2)):
         with torch.no_grad():
@@ -4397,6 +4435,464 @@ def multiscene_phase(torch, np, card, dev, tmp):
     return entries
 
 
+def wide_build_report(log):
+    """Registers, spill bytes and stack of each wide kernel from ptxas's
+    report in the build log: kernel (demangled enough) -> its lines."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = next((k for k in WIDE_KERNELS if k in line), None)
+            if name and "ILi" in line:
+                name += "<" + line.split("ILi")[1].split("E")[0] + ">"
+        elif name and ("spill" in line or "registers" in line):
+            out[name] = (out.get(name, "") + " " + line.strip().replace("ptxas info    : ", ""))
+            if "registers" in line:
+                name = None
+    return out
+
+
+def check_train_f32(label, model, args, norm, torch):
+    """Kernel 4's f32 route vs its plain f32 version on one pass (phase 7's
+    rule: loss to TRAIN_LOSS_RTOL, weights and rgb to RTOL / ATOL, each
+    gradient leaf to GRAD_RTOL of its largest entry). Returns the largest
+    max abs error."""
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+
+    model.zero_grad(set_to_none=True)
+    loss, w, rgb = ftl.fused_pass_loss(*args)
+    (loss / norm).backward()
+    torch.cuda.synchronize()
+    want = ftl.fused_pass_loss_reference(*args)
+    bad, leaves = [], {}
+    if abs(float(loss.detach()) - float(want[0])) > TRAIN_LOSS_RTOL * abs(float(want[0])):
+        bad.append("loss")
+    worst = 0.0
+    for key, a, b in (("weights", w, want[1]), ("rgb", rgb, want[2])):
+        worst = max(worst, float((a - b).abs().max()))
+        if not bool(torch.isfinite(a).all()) or bool(((a - b).abs() > ATOL + RTOL * b.abs()).any()):
+            bad.append(key)
+    for (pname, p), gw in zip(model.named_parameters(), want[3]):
+        gw = gw / norm
+        err, scale = float((p.grad - gw).abs().max()), float(gw.abs().max())
+        worst = max(worst, err)
+        leaves[pname] = (err, scale)
+        if not bool(torch.isfinite(p.grad).all()) or err > GRAD_RTOL * scale:
+            bad.append(pname)
+    print(f"{label}: f32 route vs plain, max abs err {worst:.3e}")
+    print_leaves(leaves)
+    if bad:
+        raise AssertionError(f"{label}: f32 route and plain differ in {bad}")
+    return worst
+
+
+def hold_fields_bf16(label, model, pts, v, g, torch, kw=None, want32=None):
+    """Kernels 2 (raw) and 3 (every gradient leaf of ``sum(g raw)``) at bf16
+    vs their bf16 plain versions, relative to the dtype's own effect
+    (:func:`hold_to_own`; ``want32``, the f32 plain versions' raw and
+    leaves, computed when not given; ``kw`` the encodings' sampling).
+    Returns (kernel 2's, kernel 3's) max abs error."""
+    from dexnerf_tpu_torch.ops import fused_mlp as fm
+    from dexnerf_tpu_torch.ops import fused_mlp_train as fmt
+
+    kw = dict(log_sampling_xyz=True, log_sampling_dir=True) if kw is None else kw
+    bf = dict(compute_dtype=torch.bfloat16)
+    bf2 = dict(bf, dw_dtype=torch.bfloat16)
+    names = [n for n, _ in model.named_parameters()]
+    raw = fm.fused_field(model, pts, v, **kw, **bf)
+    grads = fmt._launch_backward(model, pts, v, g, **kw, **bf2)
+    torch.cuda.synchronize()
+    want = {"raw": fm.fused_field_reference(model, pts, v, **kw, **bf).detach(),
+            **dict(zip(names, fmt.field_grads_reference(model, pts, v, g, **kw, **bf2)))}
+    if want32 is None:
+        want32 = {"raw": fm.fused_field_reference(model, pts, v, **kw).detach(),
+                  **dict(zip(names, fmt.field_grads_reference(model, pts, v, g, **kw)))}
+    errs = hold_to_own(f"{label}: bf16 routes of kernels 2 (raw) and 3 (leaves) vs plain,",
+                       {"raw": raw, **dict(zip(names, grads))}, want, want32, torch)
+    return errs.pop("raw"), max(errs.values())
+
+
+def pass_cotangent(model, pts, z, d, v, target, norm, white_bg, torch):
+    """The cotangent of a pass's loss (``sum((rgb - target)^2) / norm``)
+    with respect to raw [N, S, 4], through the plain f32 field."""
+    from dexnerf_tpu_torch.core.volrend import composite, ray_dists
+    from dexnerf_tpu_torch.ops import fused_mlp as fm
+
+    with torch.enable_grad():
+        raw = fm.fused_field_reference(model, pts, v).detach().requires_grad_()
+        out = composite(raw, z, ray_dists(z, d), white_background=white_bg)
+        loss = torch.sum((out.rgb - target) ** 2) / norm
+        return torch.autograd.grad(loss, raw)[0].contiguous()
+
+
+def wide_phase(torch, np, card, dev, tmp, shared=None):
+    """Phase 22 (see the module's docstring): the wide bf16 route at 8x256
+    through ``apps.train`` and ``apps.serve``, held to the plain versions
+    at 256 and at the widths of WIDE_WIDTHS, timed beside bounds and bf16
+    ``torch.matmul``. ``shared`` is phase 6's (its scene), or None to
+    write a scene. Returns the kernels-line entries of the wide route."""
+    import copy
+
+    import yaml
+    from PIL import Image
+
+    from dexnerf_tpu_torch.config import render_settings_from_cfg
+    from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w
+    from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals
+    from dexnerf_tpu_torch.core.volrend import ray_dists
+    from dexnerf_tpu_torch.data.blender import pose_spherical
+    from dexnerf_tpu_torch.data.pipeline import build_ray_store, take_ray_batch
+    from dexnerf_tpu_torch.data.synthetic import write_blender_dataset
+    from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
+    from dexnerf_tpu_torch.ops import _build
+    from dexnerf_tpu_torch.ops import fused_mlp as fm
+    from dexnerf_tpu_torch.ops import fused_mlp_train as fmt
+    from dexnerf_tpu_torch.ops import fused_render as fr
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+    from dexnerf_tpu_torch.ops.fused_mlp_train import make_fused_flexible_field_train
+    from dexnerf_tpu_torch.render.renderer import (
+        draw_render_noise,
+        jittered_z_vals,
+        make_ray_batch,
+        render_image,
+    )
+    from dexnerf_tpu_torch.train.loop import load_scene
+    from dexnerf_tpu_torch.train.step import init_train_state, make_train_step
+
+    bf16 = torch.bfloat16
+    if shared is None:
+        data = os.path.join(tmp, "scene")
+        write_blender_dataset(data, TRAIN_HW, TRAIN_HW, TRAIN_VIEWS, device=dev)
+    else:
+        data = shared.data
+    with open(TRAIN_CONFIG) as f:
+        raw = yaml.safe_load(f)
+    for blk in ("coarse", "fine"):
+        raw["models"][blk]["hidden_size"] = WIDE_HIDDEN
+    wide_cfg = os.path.join(tmp, "lego-tpu-8x256.yml")
+    with open(wide_cfg, "w") as f:
+        yaml.safe_dump(raw, f)
+    report = wide_build_report(_build.build_log)
+    print(f"phase 22: the wide kernels as built (ptxas): {json.dumps(report)}")
+
+    # ---- the three training paths through the entry point, at bf16
+    n = WIDE_ITERS
+    runs = {}
+    for name, nerf in (("kernel4", {}), ("fields", {"pallas_fused_loss": False}),
+                       ("resample", {"pallas_loss_resample": "pallas"})):
+        runs[name] = train_cli(tmp, data, f"wide-{name}", n, torch, dev, config=wide_cfg, **nerf)
+        _, _, counts, losses, val, secs, peak = runs[name]
+        print(f"phase 22: 8x256 {name}, {n} steps in {secs:.2f} s, peak {peak:.2f} GiB; "
+              f"launches {json.dumps({k: v for k, v in counts.items() if v})}; loss first "
+              f"{losses[0]:.5f} last {losses[-1]:.5f}; validation psnr {val}")
+    c4, cf, cr = (runs[k][2] for k in ("kernel4", "fields", "resample"))
+
+    def falls(k):
+        losses, val = runs[k][3], runs[k][4]
+        return (len(losses) == n and bool(np.isfinite(losses).all())
+                and np.mean(losses[-3:]) < np.mean(losses[:3]) and len(val) >= 1
+                and bool(np.isfinite(val).all()))
+
+    # the f32 route at 256: refused, with item 6b's words, before any launch
+    refused = ""
+    try:
+        train_cli(tmp, data, "wide-f32", n, torch, dev, config=wide_cfg,
+                  pallas_compute_dtype="float32")
+    except ValueError as e:
+        refused = str(e)
+    counts_f = read_counts()
+    print(f"phase 22: 8x256 at pallas_compute_dtype float32: {refused!r}; launches "
+          f"{json.dumps({k: v for k, v in counts_f.items() if v})}")
+    run_checks("8x256 training", {
+        f"kernel 4: its wide bf16 route {2 * n} times, nothing else but kernel 1":
+            c4["fused_train_loss_wide"] == 2 * n == c4["fused_train_loss_bf16"]
+            == c4["fused_train_loss"] and c4["fused_mlp"] == c4["fused_mlp_train"] == 0,
+        "kernel 4's run validates through kernel 1's wide route": c4["fused_render"] >= 2
+        and c4["fused_render_wide"] == c4["fused_render_bf16"] == c4["fused_render"],
+        f"field path: kernels 2 and 3 on their wide route {2 * n} times each, kernel 4 never":
+            cf["fused_mlp_wide"] == 2 * n == cf["fused_mlp_bf16"] == cf["fused_mlp"]
+            and cf["fused_mlp_train_wide"] == 2 * n == cf["fused_mlp_train"]
+            and cf["fused_train_loss"] == 0 and cf["fused_render_wide"] >= 2,
+        f"resample: kernel 4 wide {2 * n} times, kernel 5 {n} times":
+            cr["fused_train_loss_wide"] == 2 * n and cr["resample"] == n,
+        "every run's losses finite and falling, validations finite": all(map(falls, runs)),
+        "float32 at 256 refused with item 6b's words, no kernel launched":
+            "item 6b" in refused and all(v == 0 for v in counts_f.values()),
+    })
+
+    # ---- serve the kernel-4 run's .ckpt through kernel 1's wide route
+    cfg_path, logdir = runs["kernel4"][:2]
+    ckpt_path = os.path.join(logdir, "checkpoints", f"checkpoint_{n - 1:07d}.ckpt")
+    q = "theta=%g&phi=%g&radius=%g" % POSE
+    w0 = fr.launches_wide
+    c2w = pose_spherical(*POSE).tolist()
+    out, info, request_ms, frames, launches, launches_b = serve_requests(
+        cfg_path, ckpt_path, [("/healthz", None), ("/render?" + q, None), ("/depth?" + q, None),
+                              ("/render", json.dumps({"c2w": c2w}).encode())], torch)
+    served_wide = fr.launches_wide - w0
+    depth = np.load(io.BytesIO(out[2]))
+    print(f"phase 22: served {frames} frames of the 8x256 .ckpt at {info.get('compute_dtype')}; "
+          f"kernel-1 launches {launches} (bf16 {launches_b}, wide {served_wide}); request ms "
+          f"{json.dumps(request_ms)}")
+    rgb = np.asarray(Image.open(io.BytesIO(out[1])))
+    run_checks("8x256 serving", {
+        "3 frames, 2 wide launches each": frames == 3 and launches == launches_b
+        == served_wide == 6,
+        "rgb png 400x400x3, POST equal to GET": rgb.shape == (HWF[0], HWF[1], 3)
+        and np.array_equal(np.asarray(Image.open(io.BytesIO(out[3]))), rgb),
+        "depth 400x400 finite": depth.shape == (HWF[0], HWF[1]) and bool(np.isfinite(depth).all()),
+    })
+
+    # ---- kernel 4 on one batch of the run, kernels 2-3 on its fine pass
+    cfg, coarse, fine, _ = run_models(cfg_path, logdir, n, dev)
+    scene = load_scene(cfg)
+    s_train = render_settings_from_cfg(cfg, "train")
+    batch = int(cfg.nerf.train.num_random_rays)
+    near, far = float(cfg.dataset.near), float(cfg.dataset.far)
+    store = build_ray_store(scene.images[scene.i_train], scene.poses[scene.i_train], scene.hwf,
+                            near, far, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    idx = torch.randint(0, store.num_rays, (batch,), generator=gen, device=dev)
+    rays, target = take_ray_batch(store, idx)
+    draws = draw_render_noise(batch, s_train, gen, dev)
+    o, d, v = (t.contiguous() for t in rays[:3])
+    target = target.contiguous()
+    norm = float(3 * batch)
+    z_c = jittered_z_vals(rays, s_train, draws)
+    per_pass, err4 = {}, 0.0
+    for name, model, noise in (("coarse", coarse, draws.noise_coarse),
+                               ("fine", fine, draws.noise_fine)):
+        z = z_c if name == "coarse" else z_f
+        args = (model, o, d, z, v, ray_dists(z, d), noise, target)
+        want = ftl.fused_pass_loss_reference(*args)
+        err4 = max(err4, check_train_bf16(f"8x256 {name}", model, args, norm, want, torch,
+                                          phase=22))
+        per_pass[name] = args
+        if name == "coarse":
+            z_f, _ = hierarchical_z_vals(z_c, want[1], s_train.num_fine, det=False,
+                                         u=draws.u_fine)
+    pts = (o[:, None] + d[:, None] * z_f[..., None]).contiguous()
+    g = pass_cotangent(fine, pts, z_f, d, v, target, norm, s_train.white_background, torch)
+    err2, err3 = hold_fields_bf16("phase 22: 8x256 fine pass", fine, pts, v, g, torch)
+
+    # ---- kernel 1 on the 400x400 validation frame (σ heads calibrated, T thresholds)
+    s_val = render_settings_from_cfg(cfg, "validation", dex=True).eval_variant()
+    H, W, focal = int(scene.hwf[0]), int(scene.hwf[1]), float(scene.hwf[2])
+    ro, rd = get_ray_bundle_c2w(H, W, focal,
+                                torch.as_tensor(scene.poses[int(scene.i_val[0])], device=dev))
+    vc, vf = copy.deepcopy(coarse), copy.deepcopy(fine)
+    vrays = make_ray_batch(ro, rd, near, far)
+    calibrate_on((vc, vf), vrays, s_val, torch)
+    err1, ms1, b1, b1_by = hold_frame(f"phase 22: 8x256 validation frame {H}x{W}", vc, vf, vrays,
+                                      s_val, torch)
+
+    # ---- the other widths on a small batch of the same rays
+    k = WIDE_SMALL_RAYS
+    so, sd, sv, st = o[:k], d[:k], v[:k], target[:k]
+    sz = z_c[:k].contiguous()
+    s_dists = ray_dists(sz, sd)
+    s_pts = (so[:, None] + sd[:, None] * sz[..., None]).contiguous()
+    widths = {}
+    for hid in WIDE_WIDTHS:
+        torch.manual_seed(SEED)
+        m = FlexibleNeRFModel(num_layers=8, hidden_size=hid, skip_connect_every=3,
+                              num_encoding_fn_xyz=10, num_encoding_fn_dir=4).to(dev)
+        # kernel 1 on a copy with its σ head calibrated (as phase 3); the
+        # training kernels on the seeded model (as the card tests)
+        mc = copy.deepcopy(m)
+        calibrate_on((mc,), make_ray_batch(ro, rd, near, far), s_val, torch)
+        before = read_counts()
+        # kernel 1 on the whole batch: its maps are per ray, and phase 3's
+        # 99.9th percentile is the largest value below 1000 rays
+        rargs = (mc, o, d, v, z_c, ray_dists(z_c, d))
+        got = fr.fused_render(*rargs, compute_dtype=bf16)
+        want_b = fr.fused_render_reference(*rargs, compute_dtype=bf16)
+        want_f = fr.fused_render_reference(*rargs)
+        print(f"phase 22: H = {hid}, kernel 1 bf16 on {batch} rays x {z_c.shape[1]} samples "
+              f"(phase 3's rule), kernels 2-4 on {k} of them:")
+        e1 = compare_bf16(f"H{hid}", got, want_b, want_f, torch)
+        noise = None if draws.noise_coarse is None else draws.noise_coarse[:k].contiguous()
+        args = (m, so, sd, sz, sv, s_dists, noise, st)
+        e4 = check_train_bf16(f"H = {hid}", m, args, float(3 * k),
+                              ftl.fused_pass_loss_reference(*args), torch, phase=22)
+        # a seeded model's σ is ~0, so its pass loss sends no cotangent past
+        # the heads: kernel 3 on a random one (as the card tests)
+        gk = 1e-2 * torch.randn(s_pts.shape[:2] + (4,), generator=gen, device=dev)
+        e2, e3 = hold_fields_bf16(f"phase 22: H = {hid}", m, s_pts, sv, gk, torch)
+        f32 = {}
+        if hid <= fr.MAX_HIDDEN:  # the f32 routes take it too: kernels 1, 2 and 4
+            f32["k1"] = compare(f"H{hid} f32", fr.fused_render(*rargs),
+                                fr.fused_render_reference(*rargs), torch)
+            f32["k4"] = check_train_f32(f"phase 22: H = {hid}", m, args, float(3 * k), torch)
+            raw32 = fm.fused_field(m, s_pts, sv)
+            raw_p = fm.fused_field_reference(m, s_pts, sv).detach()
+            f32["k2"] = float((raw32 - raw_p).abs().max())
+            if bool(((raw32 - raw_p).abs() > ATOL + RTOL * raw_p.abs()).any()):
+                raise AssertionError(f"H = {hid}: kernel 2's f32 route and plain differ")
+        after = read_counts()
+        delta = {key: after[key] - before[key] for key in after if after[key] != before[key]}
+        wide = fr.bf16_hidden(hid) > fr.NARROW_HIDDEN
+        widths[hid] = dict(bf16=[e1, e4, e2, e3], f32=f32, launches=delta)
+        print(f"phase 22: H = {hid}: max abs errs (bf16: kernels 1, 4, 2, 3) "
+              f"{[float(f'{e:.3e}') for e in (e1, e4, e2, e3)]}, f32 "
+              f"{json.dumps({a: float(f'{b:.3e}') for a, b in f32.items()})}; launches "
+              f"{json.dumps(delta)}")
+        run_checks(f"H = {hid}", {
+            ("the wide route" if wide else "the narrow kernels") + " of kernels 1-4":
+                all(delta.get(f"{mod}_wide", 0) == (delta.get(f"{mod}_bf16", 0) if wide else 0)
+                    and delta.get(f"{mod}_bf16", 0) >= 1
+                    for mod in ("fused_render", "fused_train_loss", "fused_mlp",
+                                "fused_mlp_train")),
+        })
+    # every f32 wrapper refuses 256 (item 6b), launching nothing
+    before = read_counts()
+    refusals = {}
+    g256 = torch.zeros_like(pts[..., :1]).expand(*pts.shape[:2], 4).contiguous()
+    for name, call in (
+            ("kernel 1", lambda: fr.fused_render(fine, o, d, v, z_c, ray_dists(z_c, d))),
+            ("kernel 2", lambda: fm.fused_field(fine, pts, v)),
+            ("kernel 3", lambda: fmt._launch_backward(fine, pts, v, g256, log_sampling_xyz=True,
+                                                      log_sampling_dir=True)),
+            ("kernel 4", lambda: ftl.fused_pass_loss(*per_pass["fine"]))):
+        try:
+            call()
+            refusals[name] = "not refused"
+        except ValueError as e:
+            refusals[name] = str(e)
+    after = read_counts()
+    print(f"phase 22: the f32 routes at 256: {json.dumps(refusals)}")
+    run_checks("f32 at 256", {
+        "kernels 1-4 refuse with item 6b's words": all("item 6b" in e for e in refusals.values()),
+        "no launch": after == before,
+    })
+
+    # ---- times at 8x256: the passes, the steps, the frame; bounds; yardsticks
+    ms = {}
+    bf = dict(compute_dtype=bf16, dw_dtype=bf16)
+    for name, args in per_pass.items():
+        ms[f"{name}_kernel"] = timed_ms(lambda: ftl.fused_pass_loss(*args, **bf), torch)
+        ms[f"{name}_plain"] = timed_ms(lambda: ftl.fused_pass_loss_reference(*args, **bf), torch)
+    kw = dict(log_sampling_xyz=True, log_sampling_dir=True)
+    with torch.no_grad():
+        ms["fwd_kernel"] = timed_ms(lambda: fm.fused_field(fine, pts, v, compute_dtype=bf16),
+                                    torch)
+        ms["fwd_plain"] = timed_ms(
+            lambda: fm.fused_field_reference(fine, pts, v, compute_dtype=bf16), torch)
+    ms["bwd_kernel"] = timed_ms(lambda: fmt._launch_backward(fine, pts, v, g, **kw, **bf), torch)
+    ms["bwd_plain"] = timed_ms(lambda: fmt.field_grads_reference(fine, pts, v, g, **bf), torch)
+    def dw_bf16(passes):  # the weight-gradient products as bf16 torch.matmul
+        gemms = [gm for m_, k_ in passes for gm in dw_gemm_operands(m_, k_, torch, dev, bf16)]
+        t_ = timed_ms(lambda: [torch.matmul(a.t(), b) for a, b in gemms], torch)
+        del gemms
+        return t_
+
+    k4_passes = [(a[0], a[3].numel()) for a in per_pass.values()]
+    ms["dw_torch_matmul_bf16"] = dw_bf16(k4_passes)
+    pass_yardsticks(ms, "k4", k4_passes, torch, dev, bf16)
+    f_passes = [(fine, pts.shape[0] * pts.shape[1])]
+    field_ms = {"dw_torch_matmul_bf16": dw_bf16(f_passes)}
+    pass_yardsticks(field_ms, "f", f_passes, torch, dev, bf16)
+    pass_yardsticks(ms, "k1", [(vc, H * W * s_val.num_coarse),
+                               (vf, H * W * (s_val.num_coarse + s_val.num_fine))], torch, dev,
+                    bf16, parts=("forward",))
+
+    def step_of(path):
+        st_ = init_train_state(coarse, fine, float(cfg.optimizer.lr))
+        kw_ = {}
+        if path == "kernel4":
+            kw_["fused_loss"] = ftl.make_fused_train_loss(coarse, fine, s_train,
+                                                          compute_dtype=bf16, dw_dtype=bf16)
+        else:
+            kw_["coarse_field"], kw_["fine_field"] = (
+                make_fused_flexible_field_train(mm, compute_dtype=bf16, dw_dtype=bf16)
+                for mm in (coarse, fine))
+        step = make_train_step(s_train, batch, **kw_)
+        return lambda: step(st_, store, gen)
+
+    steps, peaks = {}, {}
+    for path in ("kernel4", "fields"):
+        steps[path] = step_of(path)
+        torch.cuda.reset_peak_memory_stats()
+        ms[f"step_{path}"] = host_ms(torch, steps[path], n=5)
+        peaks[path] = torch.cuda.max_memory_allocated() / 2**30
+    impl = fr.make_fused_render_rays(vc, vf, s_val, compute_dtype=bf16)
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        ms["frame_host"] = host_ms(torch, lambda: render_image(vc, vf, ro, rd, near, far, s_val,
+                                                               rays_impl=impl))
+        peaks["frame"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 22: ms on {card} (passes and kernels 2-3: CUDA events, mean of 3; steps and "
+          f"the frame: host clock around synchronize, mean of 5 / 3): "
+          + json.dumps({key: round(t, 3) for key, t in ms.items()}) + "; field-pass yardsticks "
+          + json.dumps({key: round(t, 3) for key, t in field_ms.items()})
+          + "; rays/s per step "
+          + json.dumps({p: round(batch / (ms[f"step_{p}"] / 1e3)) for p in steps})
+          + f"; peak memory (GiB) {json.dumps({p: round(x, 2) for p, x in peaks.items()})}")
+    print("  wide residency (CUDA occupancy API; CTAs per SM, shared bytes, ring stages, "
+          "consumer warpgroups): kernel 1 coarse / fine " + json.dumps(
+              [fr.wide_occupancy(vf, s) for s in (s_val.num_coarse,
+                                                  s_val.num_coarse + s_val.num_fine)])
+          + "; training " + json.dumps(ftl.bf16_occupancy(fine)))
+    print_dw_plan(fine, *per_pass["fine"][3].shape, torch, dev)
+    print("  8x256 kernel-4 steps:")
+    prof = profile_steps(torch, steps["kernel4"], {"kernel 4 wide": WIDE4_NAMES})
+    parts, sizes = [], {}
+    lib4 = bf16_library(ms, "k4")
+    for base, wname in WIDE_PARTS.items():
+        nbytes_ = macs = 0
+        for model, k_ in k4_passes:
+            b_, m_ = bf16_part_bounds(model, k_)[base]
+            nbytes_, macs = nbytes_ + b_, macs + m_
+        dev_ms = sum(t for key, t in prof.items() if wname in key.replace(" ", ""))
+        b_ms, b_by = bound(2 * macs, nbytes_, BF16_FLOPS)
+        parts.append({"name": wname, "ms": dev_ms if prof else None, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": lib4[base]})
+        sizes[wname] = f"{nbytes_ / 1e9:.4f} GB, {2 * macs / 1e12:.4f} TFLOP"
+    print("  wide route's kernels, device ms per step (profile) beside their bounds and their "
+          "products as bf16 torch.matmul: " + json.dumps(parts))
+    print("  bytes and operations behind those bounds: " + json.dumps(sizes))
+    print("  8x256 field-path steps:")
+    profile_steps(torch, steps["fields"], {"kernels 2-3 wide": WIDE4_NAMES})
+    flops, _, byts_b, _ = kernel4_sizes(per_pass, dev)
+    b4, b4_by = bound(flops, byts_b, BF16_FLOPS)
+    n_s = pts.shape[0] * pts.shape[1]
+    ps, pr = mlp_macs(fine)
+    packs = nbytes(*ftl._cached_bf16_weights(fine, dev)[:2])
+    b2, b2_by = bound(2 * (n_s * ps + pts.shape[0] * pr), nbytes(pts, v) + packs + 16 * n_s,
+                      BF16_FLOPS)
+    b3, b3_by = bound(train_flops(fine, *pts.shape[:2]), nbytes(pts, v, g, *fine.parameters())
+                      + packs + nbytes(ftl.pack_backward_weights_bf16(fine, dev)), BF16_FLOPS)
+    print(f"  bounds (ms): kernel 4 both passes {b4:.3f} ({b4_by}; {flops / 1e12:.4f} TFLOP), "
+          f"kernel 2 {b2:.3f} ({b2_by}), kernel 3 {b3:.3f} ({b3_by}), kernel 1 frame {b1:.3f} "
+          f"({b1_by})")
+    src_r = "dexnerf_tpu_torch/ops/csrc/fused_render_bf16.cu"
+    src_t = "dexnerf_tpu_torch/ops/csrc/fused_train_loss_bf16.cu"
+    return [
+        {"name": "fused_render_bf16_wide@8x256", "route": "cuda", "source": src_r,
+         "replaces": "dexnerf_tpu/ops/fused_render.py:115",
+         "launches": c4["fused_render_wide"], "max_abs_err": err1,
+         "ms": ms1["coarse_kernel"] + ms1["fine_kernel"],
+         "plain_ms": ms1["coarse_plain"] + ms1["fine_plain"], "bound_ms": b1, "bound_by": b1_by,
+         "library_ms": ms["k1_forward_torch_matmul_bf16"]},
+        {"name": "fused_train_loss_bf16_wide@8x256", "route": "cuda", "source": src_t,
+         "replaces": "dexnerf_tpu/ops/fused_train_loss.py:99",
+         "launches": c4["fused_train_loss_wide"], "max_abs_err": err4,
+         "ms": ms["coarse_kernel"] + ms["fine_kernel"],
+         "plain_ms": ms["coarse_plain"] + ms["fine_plain"], "bound_ms": b4, "bound_by": b4_by,
+         "library_ms": sum(lib4.values()), "parts": parts},
+        {"name": "fused_mlp_bf16_wide@8x256", "route": "cuda", "source": src_t,
+         "replaces": "dexnerf_tpu/ops/fused_mlp.py:481", "launches": cf["fused_mlp_wide"],
+         "max_abs_err": err2, "ms": ms["fwd_kernel"], "plain_ms": ms["fwd_plain"],
+         "bound_ms": b2, "bound_by": b2_by,
+         "library_ms": field_ms["f_forward_torch_matmul_bf16"]},
+        {"name": "fused_mlp_train_bf16_wide@8x256", "route": "cuda", "source": src_t,
+         "replaces": "dexnerf_tpu/ops/fused_mlp_train.py:221",
+         "launches": cf["fused_mlp_train_wide"], "max_abs_err": err3, "ms": ms["bwd_kernel"],
+         "plain_ms": ms["bwd_plain"], "bound_ms": b3, "bound_by": b3_by,
+         "library_ms": field_ms["dw_torch_matmul_bf16"] + field_ms["f_forward_torch_matmul_bf16"]
+         + field_ms["f_chain_torch_matmul_bf16"]},
+    ]
+
+
 def serve_requests(config, ckpt, requests, torch, flags=(), refused=()):
     """Start ``dexnerf_tpu_torch.apps.serve`` on the card with ``config``,
     ``ckpt`` and the extra CLI ``flags``, send ``requests`` ((path, POST
@@ -4747,6 +5243,7 @@ def main() -> int:
         pose_kernels = cache_pose_phase(torch, np, card, dev, tmp, shared)
         sgir_kernels = sgir_parallel_phase(torch, np, card, dev, tmp, shared)
         multiscene_kernels = multiscene_phase(torch, np, card, dev, tmp)
+        wide_kernels = wide_phase(torch, np, card, dev, tmp, shared)
     render = dict(route="cuda", replaces="dexnerf_tpu/ops/fused_render.py:115")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s (host clock, "
           "the kernels' build included)")
@@ -4774,7 +5271,7 @@ def main() -> int:
         "library_ms": ms["k1_forward_torch_matmul_bf16"],
     }, *train_kernels, *field_kernels, *resample_kernels, *dex_kernels, *eval_kernels,
         *llff_kernels, *occupancy_kernels, *family_kernels, *pose_kernels, *sgir_kernels,
-        *multiscene_kernels]}))
+        *multiscene_kernels, *wide_kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -141,6 +141,9 @@ def load_library() -> ctypes.CDLL:
         lib.dexnerf_fused_render_occupancy.restype = ci
         lib.dexnerf_fused_render_bf16_occupancy.argtypes = [ci] * 7 + [vp] * 3
         lib.dexnerf_fused_render_bf16_occupancy.restype = ci
+        # the wide route: the same shape but skip_mask; + consumer warpgroups (out)
+        lib.dexnerf_fused_render_bf16_wide_occupancy.argtypes = [ci] * 6 + [vp] * 4
+        lib.dexnerf_fused_render_bf16_wide_occupancy.restype = ci
         lib.dexnerf_train_args_size.argtypes = []
         lib.dexnerf_train_args_size.restype = ci
         lib.dexnerf_train_rows.argtypes = [ci, ci, ci, vp, ci]  # dx, H, nt, rows, len
@@ -194,7 +197,8 @@ def load_library() -> ctypes.CDLL:
         lib.dexnerf_train_bf16_dw_occupancy.argtypes = [ci, vp]  # shared bytes, CTAs per SM
         lib.dexnerf_train_bf16_dw_occupancy.restype = ci
         lib.dexnerf_train_bf16_reduce.argtypes = (
-            [vp, ci, ci, ci]         # dW plan (host), chunks, stages of a chunk, of the last
+            [vp, ci, ci, ci, ci]     # dW plan's parts (host), parts, chunks, stages of a chunk,
+                                     # of the last
             + [vp, ci, ci, vp, vp]   # chain slots, slots, slot length, map, grad
             + [vp, ci, vp, vp]       # per-ray losses, rays, loss (or null), stream
         )
@@ -206,6 +210,9 @@ def load_library() -> ctypes.CDLL:
         # hidden, dx, num_trunk, dd, skip_mask; out (host, 10 ints)
         lib.dexnerf_train_bf16_occupancy.argtypes = [ci] * 5 + [vp]
         lib.dexnerf_train_bf16_occupancy.restype = ci
+        # the wide route's: the same shape; out (host, 12 ints)
+        lib.dexnerf_train_bf16_wide_occupancy.argtypes = [ci] * 5 + [vp]
+        lib.dexnerf_train_bf16_wide_occupancy.restype = ci
         lib.dexnerf_resample.argtypes = (
             [vp] * 6             # z_coarse, weights, u, dir_norms, z_out, d_out
             + [ci] * 3 + [vp]    # n_rays, sc, sf, stream

@@ -64,11 +64,19 @@
 //   transmittance as a warp product scan over chunks of 32 samples, per-ray
 //   sums as fixed-order butterflies; the Dex first crossing by warp ballots,
 //   one warp per (ray, threshold).
+//
+// Padded widths above 128 (up to kWideMaxHidden) take the wide route,
+// fused_render_wide_kernel, chosen by the launcher from the width alone: the
+// same work plan, unit prologue and compositing around mlp_wide_bf16.cuh's
+// tile (layers in shared memory, column blocks of at most 128, both wgmma
+// operands from shared memory), 2 consumer warpgroups up to a padded width
+// of 320 and 1 above (the render plan's workers a CTA).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mlp_tile_bf16.cuh"
+#include "mlp_wide_bf16.cuh"
 
 namespace {
 
@@ -159,6 +167,147 @@ __device__ __forceinline__ void store_rgb(float (&c)[2][3], int r0, const float*
   }
 }
 
+// A consumer's per-unit data in shared memory (see the kernels' layouts):
+// depths, intervals, sigma logits [rows], rgb logits [rows][3], the rays'
+// viewdir bias [rpu][h2] and encodings [rpu][dd].
+struct UnitData {
+  float *zs, *ds, *sig, *rgbr, *dirb, *dtmp;
+};
+
+// The unit's depths and intervals (zero on its padding rows), its rays'
+// viewdir encodings (rounded to bf16) and their viewdir bias: the h2
+// columns of bdir + enc . wdv (wdv the bf16-rounded viewdir rows [dd][h2]),
+// by the consumer warpgroup (named barrier bar).
+__device__ __forceinline__ void unit_prologue(const Params& p, const UnitData& u, int ray0,
+                                              int nrays, int rows, int h2, const float* bdir,
+                                              const float* wdv, int bar) {
+  const int t = threadIdx.x & 127;
+  // ---- the unit's depths and intervals, and its rays' viewdir bias
+  for (int r = t; r < rows; r += 128) {
+    const bool ok = r < nrays * p.n_samples;
+    u.zs[r] = ok ? p.z[(size_t)ray0 * p.n_samples + r] : 0.f;
+    u.ds[r] = ok ? p.dists[(size_t)ray0 * p.n_samples + r] : 0.f;
+  }
+  for (int i = t; i < nrays * 3; i += 128) {  // viewdir encodings, rounded to bf16
+    const int rr = i / 3, d = i - 3 * rr;
+    const float vv = p.viewdirs[(size_t)(ray0 + rr) * 3 + d];
+    float* e = u.dtmp + rr * p.dd;
+    int col = 0;
+    if (p.inc_d) {
+      e[d] = bf16_round(vv);
+      col = 3;
+    }
+    for (int f = 0; f < p.fd; ++f) {
+      float sn, cs;
+      sincosf(__fmul_rn(vv, p.bands_d[f]), &sn, &cs);
+      e[col + 6 * f + d] = bf16_round(sn);
+      e[col + 6 * f + 3 + d] = bf16_round(cs);
+    }
+  }
+  wg_sync(bar);
+  for (int i = t; i < nrays * h2; i += 128) {
+    const int rr = i / h2, c = i - rr * h2;
+    const float* e = u.dtmp + rr * p.dd;
+    float val = bdir[c];
+    for (int kk = 0; kk < p.dd; ++kk) val = fmaf(e[kk], __ldg(wdv + kk * h2 + c), val);
+    u.dirb[i] = val;
+  }
+}
+
+// The encoding of a unit's 64-row tile at row r0 into the consumer's
+// encoding tile encg, two threads a row (encode_coord: f32, rounded to
+// bf16); padding rows keep an earlier, finite encoding.
+__device__ __forceinline__ void encode_tile(const Params& p, const UnitData& u,
+                                            unsigned char* encg, int ray0, int r0, int nreal) {
+  const int t = threadIdx.x & 127, i = t & 63, half = t >> 6, S = p.n_samples;
+  const int r = r0 + i;
+  if (r < nreal) {
+    const size_t rg = (size_t)(ray0 + r / S) * 3;
+    for (int d = 0; d < 3; ++d) {
+      const float pt = __fadd_rn(p.origins[rg + d], __fmul_rn(p.dirs[rg + d], u.zs[r]));
+      encode_coord(encg, i, d, pt, half, p.fx, p.inc_x, [&](int f) { return p.bands_x[f]; });
+    }
+  }
+}
+
+// The unit's compositing, one warp per ray (the transmittance as a warp
+// product scan over chunks of 32 samples, per-ray sums as fixed-order
+// butterflies), then the Dex first crossings, one warp per (ray, threshold),
+// from the unit's sigma and rgb logits.
+__device__ __forceinline__ void composite_unit(const Params& p, const UnitData& u, int ray0,
+                                               int nrays) {
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31, S = p.n_samples;
+  // ---- compositing, one warp per ray
+  for (int rr = warp; rr < nrays; rr += 4) {
+    const int base = rr * S;
+    const size_t ray = (size_t)ray0 + rr;
+    float carry = 1.f, cr = 0.f, cg = 0.f, cb = 0.f, dep = 0.f, ac = 0.f;
+    for (int j0 = 0; j0 < S; j0 += 32) {
+      const int s = j0 + lane;
+      const bool ok = s < S;
+      const float sigma = ok ? fmaxf(u.sig[base + s], 0.f) : 0.f;
+      const float alpha = ok ? 1.f - expf(-sigma * u.ds[base + s]) : 0.f;
+      float incl = ok ? (1.f - alpha) + 1e-10f : 1.f;
+#pragma unroll
+      for (int x = 1; x < 32; x <<= 1) {
+        const float tt = __shfl_up_sync(0xffffffffu, incl, x);
+        if (lane >= x) incl *= tt;
+      }
+      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+      if (lane == 0) excl = 1.f;
+      const float wgt = alpha * (carry * excl);
+      carry *= __shfl_sync(0xffffffffu, incl, 31);
+      if (ok) {
+        p.weights[ray * S + s] = wgt;
+        const float* raw = u.rgbr + (base + s) * 3;
+        cr += wgt * (1.f / (1.f + expf(-raw[0])));
+        cg += wgt * (1.f / (1.f + expf(-raw[1])));
+        cb += wgt * (1.f / (1.f + expf(-raw[2])));
+        dep += wgt * u.zs[base + s];
+        ac += wgt;
+      }
+    }
+#pragma unroll
+    for (int x = 16; x > 0; x >>= 1) {
+      cr += __shfl_xor_sync(0xffffffffu, cr, x);
+      cg += __shfl_xor_sync(0xffffffffu, cg, x);
+      cb += __shfl_xor_sync(0xffffffffu, cb, x);
+      dep += __shfl_xor_sync(0xffffffffu, dep, x);
+      ac += __shfl_xor_sync(0xffffffffu, ac, x);
+    }
+    if (lane == 0) {
+      if (p.white_bg) {
+        cr += 1.f - ac;
+        cg += 1.f - ac;
+        cb += 1.f - ac;
+      }
+      p.rgb[ray * 3] = cr;
+      p.rgb[ray * 3 + 1] = cg;
+      p.rgb[ray * 3 + 2] = cb;
+      p.depth[ray] = dep;
+      p.acc[ray] = ac;
+      p.disp[ray] = 1.f / fmaxf(1e-10f, dep / fmaxf(ac, 1e-37f));
+    }
+  }
+  // ---- Dex: the first sample whose sigma exceeds m (no hit -> z[0]), one
+  // warp per (ray, threshold)
+  for (int i = warp; i < nrays * p.n_thr; i += 4) {
+    const int rr = i / p.n_thr, th = i - rr * p.n_thr;
+    const int base = rr * S;
+    const float m = p.thr[th];
+    float hit = u.zs[base];
+    for (int j0 = 0; j0 < S; j0 += 32) {
+      const int s = j0 + lane;
+      const unsigned bits = __ballot_sync(0xffffffffu, s < S && fmaxf(u.sig[base + s], 0.f) > m);
+      if (bits) {
+        hit = u.zs[base + j0 + __ffs(bits) - 1];
+        break;
+      }
+    }
+    if (lane == 0) p.dex[(size_t)th * p.n_rays + ray0 + rr] = hit;
+  }
+}
+
 template <int NTM>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_render_bf16_kernel(const __grid_constant__ Params p) {
@@ -217,19 +366,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t enc = sbase + (uint32_t)L.enc + cw * kx * kEncChunk;
   unsigned char* encg = gbase + L.enc + cw * kx * kEncChunk;
   unsigned char* own = gbase + L.own + cw * L.own_bytes;
-  float* zs = reinterpret_cast<float*>(own + L.zs);
-  float* ds = reinterpret_cast<float*>(own + L.ds);
-  float* sig = reinterpret_cast<float*>(own + L.sig);    // sigma logits
-  float* rgbr = reinterpret_cast<float*>(own + L.rgb);   // [rows][3] rgb logits
-  float* dirb = reinterpret_cast<float*>(own + L.dirb);  // [rpu][H2]
-  float* dtmp = reinterpret_cast<float*>(own + L.dtmp);  // [rpu][dd]
+  const UnitData u{reinterpret_cast<float*>(own + L.zs), reinterpret_cast<float*>(own + L.ds),
+                   reinterpret_cast<float*>(own + L.sig), reinterpret_cast<float*>(own + L.rgb),
+                   reinterpret_cast<float*>(own + L.dirb), reinterpret_cast<float*>(own + L.dtmp)};
+  float* sig = u.sig;    // sigma logits
+  float* rgbr = u.rgbr;  // [rows][3] rgb logits
   const float* wdv = p.aux + p.aux_off[nt + 7];  // read once per unit, from L1
   const float* bdir = aux + p.aux_off[nt + 2];
   const float* w_alpha = aux + p.aux_off[nt + 3];
   const float b_alpha = aux[p.aux_off[nt + 4]];
   const float* w_rgb = aux + p.aux_off[nt + 5];
   const float* b_rgb = aux + p.aux_off[nt + 6];
-  const int N = p.n_rays, dd = p.dd;
+  const int N = p.n_rays;
 
   // the weight ring, as this warp consumes it
   WeightRing wr{ring, full, empty, NS, SB, lane};
@@ -238,54 +386,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int k = 0; k < mine; ++k) {
     const int ray0 = (v + kCons * G * k) * rpu;
     const int nrays = min(rpu, N - ray0), nreal = nrays * S;
-    const size_t s0 = (size_t)ray0 * S;
-    // ---- the unit's depths and intervals, and its rays' viewdir bias
-    for (int r = t; r < rows; r += 128) {
-      const bool ok = r < nreal;
-      zs[r] = ok ? p.z[s0 + r] : 0.f;
-      ds[r] = ok ? p.dists[s0 + r] : 0.f;
-    }
-    for (int i = t; i < nrays * 3; i += 128) {  // viewdir encodings, rounded to bf16
-      const int rr = i / 3, d = i - 3 * rr;
-      const float vv = p.viewdirs[(size_t)(ray0 + rr) * 3 + d];
-      float* e = dtmp + rr * dd;
-      int col = 0;
-      if (p.inc_d) {
-        e[d] = bf16_round(vv);
-        col = 3;
-      }
-      for (int f = 0; f < p.fd; ++f) {
-        float sn, cs;
-        sincosf(__fmul_rn(vv, p.bands_d[f]), &sn, &cs);
-        e[col + 6 * f + d] = bf16_round(sn);
-        e[col + 6 * f + 3 + d] = bf16_round(cs);
-      }
-    }
-    wg_sync(bar);
-    for (int i = t; i < nrays * H2; i += 128) {
-      const int rr = i / H2, c = i - rr * H2;
-      const float* e = dtmp + rr * dd;
-      float val = bdir[c];
-      for (int kk = 0; kk < dd; ++kk) val = fmaf(e[kk], __ldg(wdv + kk * H2 + c), val);
-      dirb[i] = val;
-    }
+    unit_prologue(p, u, ray0, nrays, rows, H2, bdir, wdv, bar);
 
     for (int tile = 0; tile < tiles; ++tile) {
       const int r0 = tile * kTile;
-      // ---- positional encoding of the tile's rows (two threads a row), f32,
-      // rounded to bf16; padding rows keep an earlier, finite encoding
-      {
-        const int i = t & 63, half = t >> 6;
-        const int r = r0 + i;
-        if (r < nreal) {
-          const size_t rg = (size_t)(ray0 + r / S) * 3;
-          for (int d = 0; d < 3; ++d) {
-            const float pt = __fadd_rn(p.origins[rg + d], __fmul_rn(p.dirs[rg + d], zs[r]));
-            encode_coord(encg, i, d, pt, half, p.fx, p.inc_x,
-                         [&](int f) { return p.bands_x[f]; });
-          }
-        }
-      }
+      // ---- positional encoding of the tile's rows (two threads a row)
+      encode_tile(p, u, encg, ray0, r0, nreal);
       fence_async_smem();
       wg_sync(bar);  // the encoding (and, on the first tile, the unit's data) is written
 
@@ -353,82 +459,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_commit();
         wgmma_wait0();
         fence_regs(ad);
-        dir_epilogue<H, NH>(ad, hs * NH, r0, S, nrays, dirb, w_rgb, crgb);
+        dir_epilogue<H, NH>(ad, hs * NH, r0, S, nrays, u.dirb, w_rgb, crgb);
       }
       wr.release(KCH);
       store_rgb(crgb, r0, b_rgb, rgbr);
     }
     wg_sync(bar);  // every row's sigma and rgb logits are written
 
-    // ---- compositing, one warp per ray
-    for (int rr = warp; rr < nrays; rr += 4) {
-      const int base = rr * S;
-      const size_t ray = (size_t)ray0 + rr;
-      float carry = 1.f, cr = 0.f, cg = 0.f, cb = 0.f, dep = 0.f, ac = 0.f;
-      for (int j0 = 0; j0 < S; j0 += 32) {
-        const int s = j0 + lane;
-        const bool ok = s < S;
-        const float sigma = ok ? fmaxf(sig[base + s], 0.f) : 0.f;
-        const float alpha = ok ? 1.f - expf(-sigma * ds[base + s]) : 0.f;
-        float incl = ok ? (1.f - alpha) + 1e-10f : 1.f;
-#pragma unroll
-        for (int x = 1; x < 32; x <<= 1) {
-          const float tt = __shfl_up_sync(0xffffffffu, incl, x);
-          if (lane >= x) incl *= tt;
-        }
-        float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-        if (lane == 0) excl = 1.f;
-        const float wgt = alpha * (carry * excl);
-        carry *= __shfl_sync(0xffffffffu, incl, 31);
-        if (ok) {
-          p.weights[ray * S + s] = wgt;
-          const float* raw = rgbr + (base + s) * 3;
-          cr += wgt * (1.f / (1.f + expf(-raw[0])));
-          cg += wgt * (1.f / (1.f + expf(-raw[1])));
-          cb += wgt * (1.f / (1.f + expf(-raw[2])));
-          dep += wgt * zs[base + s];
-          ac += wgt;
-        }
-      }
-#pragma unroll
-      for (int x = 16; x > 0; x >>= 1) {
-        cr += __shfl_xor_sync(0xffffffffu, cr, x);
-        cg += __shfl_xor_sync(0xffffffffu, cg, x);
-        cb += __shfl_xor_sync(0xffffffffu, cb, x);
-        dep += __shfl_xor_sync(0xffffffffu, dep, x);
-        ac += __shfl_xor_sync(0xffffffffu, ac, x);
-      }
-      if (lane == 0) {
-        if (p.white_bg) {
-          cr += 1.f - ac;
-          cg += 1.f - ac;
-          cb += 1.f - ac;
-        }
-        p.rgb[ray * 3] = cr;
-        p.rgb[ray * 3 + 1] = cg;
-        p.rgb[ray * 3 + 2] = cb;
-        p.depth[ray] = dep;
-        p.acc[ray] = ac;
-        p.disp[ray] = 1.f / fmaxf(1e-10f, dep / fmaxf(ac, 1e-37f));
-      }
-    }
-    // ---- Dex: the first sample whose sigma exceeds m (no hit -> z[0]), one
-    // warp per (ray, threshold)
-    for (int i = warp; i < nrays * p.n_thr; i += 4) {
-      const int rr = i / p.n_thr, th = i - rr * p.n_thr;
-      const int base = rr * S;
-      const float m = p.thr[th];
-      float hit = zs[base];
-      for (int j0 = 0; j0 < S; j0 += 32) {
-        const int s = j0 + lane;
-        const unsigned bits = __ballot_sync(0xffffffffu, s < S && fmaxf(sig[base + s], 0.f) > m);
-        if (bits) {
-          hit = zs[base + j0 + __ffs(bits) - 1];
-          break;
-        }
-      }
-      if (lane == 0) p.dex[(size_t)th * N + ray0 + rr] = hit;
-    }
+    composite_unit(p, u, ray0, nrays);
     wg_sync(bar);  // the next unit rewrites the unit's data
   }
   // worker kCons b has more tiles: release the chunks of its other passes
@@ -436,6 +474,105 @@ __global__ void __launch_bounds__(kThreads, 1)
     wr.wait(1);
     wr.release(1);
   }
+}
+
+
+// ---- the wide route (padded widths above 128): mlp_wide_bf16.cuh's tile
+// under the same work plan (render_plan with the kernel's C workers a CTA),
+// unit prologue and compositing. Persistent CTAs of C consumer warpgroups
+// (C = 2 up to a padded width of 256, 1 above) and one weight-stream
+// warpgroup; shared memory from the 1024-aligned base: the ring, then each
+// consumer's block (its two activation tiles, its encoding tile, its unit
+// data: z, dists, sigma [rows], rgb logits [rows][3], the viewdir bias
+// [rpu][H/2] and encodings [rpu][dd]), then the ring's barriers.
+__host__ __device__ inline size_t wide_render_cons_bytes(int hp, int kx, int rows, int rpu,
+                                                         int dd) {
+  return align1024(wide_act_bytes(hp) + (size_t)kx * kEncChunk + (size_t)rows * 24 +
+                   (size_t)rpu * (hp / 2 + dd) * 4);
+}
+
+__global__ void __launch_bounds__(kWideThreads, 1)
+    fused_render_wide_kernel(const __grid_constant__ Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sbase = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle's atoms
+  unsigned char* gbase = smem_raw + (sbase - smem_u32(smem_raw));
+  const int C = blockDim.x / 128 - 1;
+  const int hp = p.hidden, S = p.n_samples, nt = p.num_trunk, rpu = p.rpu, kx = p.kx;
+  const int NS = p.n_stages, rows = unit_rows(rpu, S), tiles = rows / kTile;
+  const int n_units = (p.n_rays + rpu - 1) / rpu;
+  const size_t cons_bytes = wide_render_cons_bytes(hp, kx, rows, rpu, p.dd);
+  const size_t act_bytes = wide_act_bytes(hp);
+  const uint32_t ring = sbase, cons0 = sbase + (uint32_t)NS * kWideStage;
+  const uint32_t full = cons0 + (uint32_t)(C * cons_bytes), empty = full + 8 * NS;
+  const int G = gridDim.x, b = blockIdx.x;
+  // worker C b + cw takes units C b + cw, + C G, ...; worker C b has the
+  // CTA's most, and one pass over the weights a tile
+  auto units_of = [&](int w) { return w < n_units ? (n_units - 1 - w) / (C * G) + 1 : 0; };
+  const int passes = tiles * units_of(C * b);
+  const int tid = threadIdx.x, cw = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * C);  // every consumer warp releases a stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the consumers' blocks start zero: the encoding tiles' columns past dx stay so
+  for (size_t i = tid; i < C * cons_bytes / 16; i += blockDim.x) {
+    reinterpret_cast<uint4*>(gbase + NS * kWideStage)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_async_smem();
+  __syncthreads();
+  const int t = tid & 127, lane = t & 31;
+  if (cw == C) {  // ---- the weight stream, one thread
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWideProdRegs));
+    if (t == 0) {
+      WideStream st{reinterpret_cast<const unsigned char*>(p.wq), ring, full, empty, NS};
+      st.forward(passes, hp, kx, nt, p.skip_mask);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWideConsRegs));
+  const int v = C * b + cw;
+  const uint32_t own = cons0 + (uint32_t)(cw * cons_bytes);
+  unsigned char* ownp = gbase + NS * kWideStage + cw * cons_bytes;
+  unsigned char* encg = ownp + act_bytes;
+  float* unit = reinterpret_cast<float*>(encg + kx * kEncChunk);
+  const UnitData u{unit, unit + rows, unit + 2 * rows, unit + 3 * rows, unit + 6 * rows,
+                   unit + 6 * rows + rpu * (hp / 2)};
+  const WideTile T{{own, own + (uint32_t)(act_bytes / 2)}, own + (uint32_t)act_bytes, p.aux,
+                   p.aux_off, hp, kx, nt, p.skip_mask, 1 + cw};
+  const float* bdir = p.aux + p.aux_off[nt + 2];
+  const float* wdv = p.aux + p.aux_off[nt + 7];
+  WideRing wr{ring, full, empty, NS, lane};
+  const int mine = units_of(v);
+  for (int k = 0; k < mine; ++k) {
+    const int ray0 = (v + C * G * k) * rpu;
+    const int nrays = min(rpu, p.n_rays - ray0), nreal = nrays * S;
+    unit_prologue(p, u, ray0, nrays, rows, hp / 2, bdir, wdv, T.bar);
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int r0 = tile * kTile;
+      // ---- positional encoding of the tile's rows (two threads a row)
+      encode_tile(p, u, encg, ray0, r0, nreal);
+      fence_async_smem();
+      wg_sync(T.bar);  // the encoding (and, on the first tile, the unit's data) is written
+      wide_tile(T, wr, r0, S, nrays, u.dirb, u.sig + r0, u.rgbr + 3 * r0, nullptr, 0);
+    }
+    composite_unit(p, u, ray0, nrays);
+    wg_sync(T.bar);  // the next unit rewrites the unit's data
+  }
+  // worker C b has more tiles: release the pieces of its other passes
+  const int per_pass = wide_fwd_pieces(hp, kx, nt, p.skip_mask);
+  for (int c = mine * tiles * per_pass; c < passes * per_pass; ++c) {
+    wr.acquire();
+    wr.release();
+  }
+}
+
+// The wide kernel's plan for a launch: consumers, stages, shared memory.
+inline WidePlan wide_render_plan(int hidden, int dx, int dd, int n_samples, int rpu) {
+  return wide_plan(wide_render_cons_bytes(hidden, (dx + kKc - 1) / kKc,
+                                          unit_rows(rpu, n_samples), rpu, dd));
 }
 
 template <int NTM>
@@ -480,6 +617,31 @@ int stages_for(int hidden, int dx, int dd, int n_samples, int rpu, int num_trunk
     if (*smem <= (size_t)kSmemMax) return ns;
   }
   return 0;
+}
+
+// The wide kernel's ring stages, shared memory and consumers for a launch
+// (see stages_for); 0 if the shape is not one it takes.
+int wide_stages_for(int hidden, int dx, int dd, int n_samples, int rpu, int num_trunk,
+                    size_t* smem, int* cons) {
+  if (hidden % 32 != 0 || hidden <= 128 || hidden > kWideMaxHidden || n_samples < 1 ||
+      n_samples > kMaxSamples || rpu < 1 || rpu > kMaxRpu ||
+      unit_rows(rpu, n_samples) > kMaxUnitRows || dx < 1 || dx > kMaxDx || dd < 0 ||
+      num_trunk < 0 || num_trunk > 31) {
+    return 0;
+  }
+  const WidePlan w = wide_render_plan(hidden, dx, dd, n_samples, rpu);
+  *smem = w.smem;
+  *cons = w.cons;
+  return w.stages;
+}
+
+int launch_wide(const Params& p, size_t smem, int cons, int grid, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(fused_render_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (grid == 0) return 0;
+  fused_render_wide_kernel<<<grid, 128 * (cons + 1), smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -529,8 +691,11 @@ int dexnerf_fused_render_bf16(const float* origins, const float* dirs, const flo
   p.n_thr = n_thr;
   p.white_bg = white_bg;
   size_t smem = 0;
+  int cons = kCons;
   p.n_stages =
-      stages_for(hidden, p.dx, p.dd, n_samples, rays_per_unit, num_trunk, skip_mask, &smem);
+      hidden > 128
+          ? wide_stages_for(hidden, p.dx, p.dd, n_samples, rays_per_unit, num_trunk, &smem, &cons)
+          : stages_for(hidden, p.dx, p.dd, n_samples, rays_per_unit, num_trunk, skip_mask, &smem);
   if (p.n_stages == 0 || n_rays < 0 || grid < 0 || (n_rays > 0 && grid < 1) ||
       num_trunk + 8 > kAux || fx > kMaxFreq || fd > kMaxFreq ||
       n_thr > kMaxThresholds || n_thr < 0 || (n_thr > 0 && dex == nullptr)) {
@@ -542,6 +707,7 @@ int dexnerf_fused_render_bf16(const float* origins, const float* dirs, const flo
   for (int t = 0; t < n_thr; ++t) p.thr[t] = thr_host[t];
   if (n_rays == 0) grid = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hidden > 128) return launch_wide(p, smem, cons, grid, s);
   switch (hidden / 32) {
     case 1: return launch<2>(p, smem, grid, s);
     case 2: return launch<4>(p, smem, grid, s);
@@ -570,6 +736,22 @@ int dexnerf_fused_render_bf16_occupancy(int hidden, int dx, int dd, int n_sample
     case 3: return occupancy<6>(smem, ctas);
     default: return occupancy<8>(smem, ctas);
   }
+}
+
+// The same for the wide route (padded widths above 128), with its consumer
+// warpgroups (the render plan's workers a CTA) into *cons.
+int dexnerf_fused_render_bf16_wide_occupancy(int hidden, int dx, int dd, int n_samples,
+                                             int rays_per_unit, int num_trunk, int* ctas,
+                                             int* smem_bytes, int* stages, int* cons) {
+  size_t smem = 0;
+  *stages = wide_stages_for(hidden, dx, dd, n_samples, rays_per_unit, num_trunk, &smem, cons);
+  if (*stages == 0) return (int)cudaErrorInvalidValue;
+  *smem_bytes = (int)smem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_render_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, fused_render_wide_kernel,
+                                                           128 * (*cons + 1), smem);
 }
 
 }  // extern "C"

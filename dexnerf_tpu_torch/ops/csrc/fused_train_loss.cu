@@ -827,7 +827,7 @@ int launch_width(const TrainArgs& a, int parts, cudaStream_t s) {
 bool args_ok(const TrainArgs& a) {
   return a.n_samples >= 1 && a.s_pad >= a.n_samples && a.s_pad % kTile == 0 &&
          a.num_trunk >= 0 && a.num_trunk + 8 <= kAux && a.num_trunk <= 31 && a.fx <= kMaxFreq &&
-         a.fd <= kMaxFreq && a.hidden % 8 == 0 && a.hidden >= 8 && a.hp % 32 == 0 &&
+         a.fd <= kMaxFreq && a.hidden >= 1 && a.hp % 32 == 0 &&
          a.hp >= a.hidden && a.hp <= 128 && a.dd <= kMaxDD &&
          a.dx == 3 * a.inc_x + 6 * a.fx && a.dd == 3 * a.inc_d + 6 * a.fd &&
          a.kx == (a.dx + kKc - 1) / kKc && a.kx * kKc <= kMaxDx && a.sms >= 1 &&

@@ -76,6 +76,14 @@
 //   (biases, viewdir rows) in a fixed order: runs are bitwise repeatable.
 // Hidden widths that are not a multiple of 32 run zero-padded to one
 // (exact: padded units are ReLU(0 + 0) = 0 and meet zero weights).
+// Padded widths above 128 (up to kWideMaxHidden) take the wide route, chosen
+// by the launchers from the width alone: train_fwd_wide_kernel and
+// train_chain_wide_kernel on mlp_wide_bf16.cuh's tile, with the same prep,
+// compositing, scratch layout, tensor maps and reduction; their dW plan
+// (ops/fused_train_loss.py::dw_plan) splits products into units within
+// train_dw_bf16_kernel's limits, runs in parts of at most kDwMaxUnits units
+// (reduce_bf16_kernel sums them) and gives each 64-sample stage a fresh
+// accumulator (DwArgs::fresh).
 //
 // The field kernels at compute_dtype (= dw_dtype) = bfloat16 are launches
 // of the same kernels (dexnerf_field_bf16_pass), with the sample points
@@ -99,6 +107,7 @@
 
 #include "dw_split.cuh"
 #include "mlp_tile_bf16.cuh"
+#include "mlp_wide_bf16.cuh"
 #include "train_composite.cuh"
 
 namespace {
@@ -196,7 +205,8 @@ struct DwArgs {
   float* partial;  // [chunks][max_pieces][n_params]
   long long n_params;
   int n_units, total_cost, grid, max_pieces, n_stages, stage_bytes;
-  int pad[6];
+  int fresh;  // 1: each stage's products into a fresh accumulator (the wide route's plans)
+  int pad[5];
 };
 static_assert(sizeof(DwArgs) % 64 == 0, "DwArgs is mirrored without tail padding");
 
@@ -269,7 +279,12 @@ __global__ void __launch_bounds__(kRayWarps * 32) train_composite_kernel(const T
 // A consumer warpgroup's part of one unit: its NB blocks (cw, cw + 2, ...)
 // over stages [j0, j1) of the ring (it counts the CTA's stages), then the
 // blocks into the slot at out. Every warp releases each stage it has read.
-template <int NB>
+// kFresh: each stage's products of a block go into a fresh accumulator that
+// is added to the block's sum in f32 on the CUDA cores, the tensor cores
+// rounding only within a stage's 64 samples (the wide route's plans: a small
+// unit's share of a pass runs to thousands of stages a CTA); else every
+// stage accumulates in the block's wgmma accumulator.
+template <int NB, bool kFresh>
 __device__ __forceinline__ void dw_consume(const DwUnit& U, int cw, int j0, int j1, int& it,
                                            uint32_t base, int SB, int NS, uint32_t full,
                                            uint32_t empty, float* out) {
@@ -290,7 +305,7 @@ __device__ __forceinline__ void dw_consume(const DwUnit& U, int cw, int j0, int 
   for (int j = j0; j < j1; ++j, ++it) {
     const int s = it % NS;
     mbar_wait(full + 8 * s, (it / NS) & 1);
-    if (NB > 0) {
+    if (NB > 0 && !kFresh) {
       const uint32_t st = base + s * SB;
       wgmma_fence();
 #pragma unroll
@@ -305,6 +320,26 @@ __device__ __forceinline__ void dw_consume(const DwUnit& U, int cw, int j0, int 
       }
       wgmma_commit();
       wgmma_wait0();
+    } else if (NB > 0) {
+      const uint32_t st = base + s * SB;
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        float part[32];
+        fence_regs(part);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kDwBox / 16; ++ks) {
+          wgmma_bf16<64, 1, 1>(part,
+                               small[i] ? small_desc(st + ao[i] + ks * 256)
+                                        : sw128_desc(st + ao[i] + ks * 2048),
+                               sw128_desc(st + bo[i] + ks * 2048), ks > 0);
+        }
+        wgmma_commit();
+        wgmma_wait0();
+        fence_regs(part);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[i][e] += part[e];
+      }
     }
     if ((t & 31) == 0) mbar_arrive(empty + 8 * s);
   }
@@ -330,6 +365,7 @@ __device__ __forceinline__ void dw_consume(const DwUnit& U, int cw, int j0, int 
 // and every box of a stage serves each block that needs it. At the end of
 // its part of a unit a CTA writes its blocks to its slot: no atomics, and
 // reduce_bf16_kernel sums the slots in a fixed order.
+template <bool kFresh>
 __global__ void __launch_bounds__(kDwThreads, 1)
     train_dw_bf16_kernel(const __grid_constant__ DwArgs p, int n_st, int chunk) {
   extern __shared__ unsigned char dw_ring[];
@@ -380,23 +416,13 @@ __global__ void __launch_bounds__(kDwThreads, 1)
     if (!mine) continue;
     float* out = p.partial + ((long long)chunk * p.max_pieces + piece) * p.n_params;
     switch ((U.n_blocks - cw + 1) / 2) {  // this warpgroup's blocks cw, cw + 2, ...
-      case 0: dw_consume<0>(U, cw, j0, j1, it, base, SB, NS, full, empty, out); break;
-      case 1: dw_consume<1>(U, cw, j0, j1, it, base, SB, NS, full, empty, out); break;
-      case 2: dw_consume<2>(U, cw, j0, j1, it, base, SB, NS, full, empty, out); break;
-      case 3: dw_consume<3>(U, cw, j0, j1, it, base, SB, NS, full, empty, out); break;
-      default: dw_consume<4>(U, cw, j0, j1, it, base, SB, NS, full, empty, out); break;
+      case 0: dw_consume<0, kFresh>(U, cw, j0, j1, it, base, SB, NS, full, empty, out); break;
+      case 1: dw_consume<1, kFresh>(U, cw, j0, j1, it, base, SB, NS, full, empty, out); break;
+      case 2: dw_consume<2, kFresh>(U, cw, j0, j1, it, base, SB, NS, full, empty, out); break;
+      case 3: dw_consume<3, kFresh>(U, cw, j0, j1, it, base, SB, NS, full, empty, out); break;
+      default: dw_consume<4, kFresh>(U, cw, j0, j1, it, base, SB, NS, full, empty, out); break;
     }
   }
-}
-
-// The gradient of every parameter from the dW slots and, as aux rows, the
-// chain CTAs' slots (bias sums, viewdir rows): see reduce_slots.
-__global__ void reduce_bf16_kernel(const DwSpans sp, const float* partial, int n_chunks,
-                                   int n_st_full, int n_st_last, long long n_params,
-                                   const float* aux_part, int n_aux_parts, int n_aux,
-                                   const int* map, float* grad) {
-  reduce_slots(sp, partial, n_chunks, n_st_full, n_st_last, n_params, aux_part, n_aux_parts,
-               n_aux, map, grad);
 }
 
 // ---- the cotangent chain on wgmma, for the H100 (sm_90a). Bound by its
@@ -855,6 +881,33 @@ __device__ __forceinline__ void stage_frags(uint32_t dst, const uint32_t (&a)[H 
   }
 }
 
+// The encoding of the training forward's 64-row tile at row r0 of the chunk
+// into the consumer's encoding tile encg, two threads a row (encode_coord:
+// f32, rounded to bf16): the points are o + d z (kLoss) or pts (the fields);
+// rows past n_real (the chunk's padding to whole scratch tiles, which the
+// chain and dW read) get zeros where the activations are saved.
+template <int kOwner>
+__device__ __forceinline__ void encode_tile(const TrainArgs& p, unsigned char* encg, int r0,
+                                            int n_real, int kx) {
+  const int t = threadIdx.x & 127, i = t & 63, half = t >> 6, S = p.n_samples;
+  const int r = r0 + i;
+  if (r < n_real) {
+    const long long ks = (long long)p.ray0 * S + r;  // the sample
+    const long long rg = ((long long)p.ray0 + r / S) * 3;
+    for (int d = 0; d < 3; ++d) {
+      const float pt = kOwner != kLoss
+                           ? p.pts[ks * 3 + d]
+                           : __fadd_rn(p.origins[rg + d], __fmul_rn(p.dirs[rg + d], p.z[ks]));
+      encode_coord(encg, i, d, pt, half, p.fx, p.inc_x, [&](int f) { return p.bands_x[f]; });
+    }
+  } else if (kOwner != kFieldFwd) {
+    for (int c = half; c < 8 * kx; c += 2) {
+      *reinterpret_cast<uint4*>(encg + (c >> 3) * kEncChunk + i * 128 + (c & 7) * 16) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
 // kOwner: the points are o + d z (kLoss) or pts (the fields); the
 // activations go to the scratch (kLoss, kFieldBwd: m holds the blocks'
 // tensor maps) or nowhere (kFieldFwd); raw goes to the [rows][4] buffer
@@ -929,27 +982,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int mine = tiles_of(v);
   for (int k = 0; k < mine; ++k) {
     const int r0 = (v + kCons * G * k) * kTile;  // the tile's first row of the chunk
-    // ---- positional encoding of the tile's rows (two threads a row), f32,
-    // rounded to bf16; padding rows get zeros
-    {
-      const int i = t & 63, half = t >> 6;
-      const int r = r0 + i;
-      if (r < n_real) {
-        const long long ks = (long long)p.ray0 * S + r;  // the sample
-        const long long rg = ((long long)p.ray0 + r / S) * 3;
-        for (int d = 0; d < 3; ++d) {
-          const float pt = kOwner != kLoss
-                               ? p.pts[ks * 3 + d]
-                               : __fadd_rn(p.origins[rg + d], __fmul_rn(p.dirs[rg + d], p.z[ks]));
-          encode_coord(encg, i, d, pt, half, p.fx, p.inc_x, [&](int f) { return p.bands_x[f]; });
-        }
-      } else if (kSave) {
-        for (int c = half; c < 8 * kx; c += 2) {
-          *reinterpret_cast<uint4*>(encg + (c >> 3) * kEncChunk + i * 128 + (c & 7) * 16) =
-              make_uint4(0u, 0u, 0u, 0u);
-        }
-      }
-    }
+    // ---- positional encoding of the tile's rows (two threads a row)
+    encode_tile<kOwner>(p, encg, r0, n_real, kx);
     fence_async_smem();
     wg_sync(bar);  // the encoding is written
     if constexpr (kSave) store_tile(&m.blocks[0], kx, r0, enc);
@@ -1082,6 +1116,391 @@ __global__ void __launch_bounds__(kSumThreads) sum_rays_bf16_kernel(const float*
   if (threadIdx.x == 0) *out = buf[0];
 }
 
+// ---- the wide route (padded widths above 128, mlp_wide_bf16.cuh): the
+// forward of kernels 4, 2 and 3 by kOwner and the chain of kernels 4 and 3.
+// Same scratch layout, tensor maps, prep, compositing, dW and reduction as
+// the narrow route; only the forward and the chain change.
+//
+// The forward: persistent CTAs of `C` consumer warpgroups (C = 2 up to a
+// padded width of 256, 1 above: wide_plan on wide_fwd_cons_bytes) and one
+// warpgroup whose first thread streams the forward pack in [128][64] pieces
+// (WideStream::forward). Worker v = C b + cw takes the 64-row tiles v, v +
+// C G, ...; a tile's encoding is written and stored as the narrow forward's,
+// then wide_tile runs it through the MLP, storing every activation by TMA,
+// and raw goes out as the narrow forward's. Bound, as the narrow one, by its
+// activation stores (~5 KB a sample at 8x256) ahead of its multiply-adds
+// (~0.6 M a sample).
+__host__ __device__ inline size_t wide_fwd_cons_bytes(int hp, int kx) {
+  // the activation tiles, the encoding tile, sigma [64] and rgb [64][3]
+  return align1024(wide_act_bytes(hp) + (size_t)kx * kEncChunk + kTile * 4 * 4);
+}
+
+template <int kOwner>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    train_fwd_wide_kernel(const __grid_constant__ TrainArgs p,
+                          const __grid_constant__ FwdMaps<kOwner> m, int n_real, int n_tiles,
+                          int ns) {
+  constexpr bool kSave = kOwner != kFieldFwd, kRaw = kOwner != kFieldBwd;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sbase = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle's atoms
+  unsigned char* gbase = smem_raw + (sbase - smem_u32(smem_raw));
+  const int C = blockDim.x / 128 - 1;
+  const int S = p.n_samples, nt = p.num_trunk, hp = p.hidden, kx = (p.dx + kKc - 1) / kKc;
+  const size_t cons_bytes = wide_fwd_cons_bytes(hp, kx), act_bytes = wide_act_bytes(hp);
+  const uint32_t ring = sbase, cons0 = sbase + (uint32_t)ns * kWideStage;
+  const uint32_t full = cons0 + (uint32_t)(C * cons_bytes), empty = full + 8 * ns;
+  const int G = gridDim.x, b = blockIdx.x;
+  auto tiles_of = [&](int w) { return w < n_tiles ? (n_tiles - 1 - w) / (C * G) + 1 : 0; };
+  const int passes = tiles_of(C * b);
+  const int tid = threadIdx.x, cw = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  if (tid == 0) {
+    for (int s = 0; s < ns; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * C);  // every consumer warp releases a stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the consumers' blocks start zero: the encoding tiles' columns past dx stay so
+  for (size_t i = tid; i < C * cons_bytes / 16; i += blockDim.x) {
+    reinterpret_cast<uint4*>(gbase + ns * kWideStage)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  fence_async_smem();
+  __syncthreads();
+  const int t = tid & 127, lane = t & 31;
+  if (cw == C) {  // ---- the weight stream, one thread
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWideProdRegs));
+    if (t == 0) {
+      WideStream st{reinterpret_cast<const unsigned char*>(p.wq), ring, full, empty, ns};
+      st.forward(passes, hp, kx, nt, p.skip_mask);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWideConsRegs));
+  const int v = C * b + cw;
+  const uint32_t own = cons0 + (uint32_t)(cw * cons_bytes);
+  unsigned char* ownp = gbase + ns * kWideStage + cw * cons_bytes;
+  unsigned char* encg = ownp + act_bytes;
+  float* sig = reinterpret_cast<float*>(encg + kx * kEncChunk);
+  float* rgb = sig + kTile;
+  const WideTile T{{own, own + (uint32_t)(act_bytes / 2)}, own + (uint32_t)act_bytes, p.aux,
+                   p.aux_off, hp, kx, nt, p.skip_mask, 1 + cw};
+  const CUtensorMap* maps = nullptr;
+  if constexpr (kSave) maps = m.blocks;
+  WideRing wr{ring, full, empty, ns, lane};
+  const int mine = tiles_of(v);
+  for (int k = 0; k < mine; ++k) {
+    const int r0 = (v + C * G * k) * kTile;  // the tile's first row of the chunk
+    if (kSave && t == 0) bulk_wait_read<0>();  // the last tile's stores have read their tiles
+    wg_sync(T.bar);
+    // ---- positional encoding of the tile's rows (two threads a row)
+    encode_tile<kOwner>(p, encg, r0, n_real, kx);
+    fence_async_smem();
+    wg_sync(T.bar);  // the encoding is written
+    if (kSave && t == 0) {
+      for (int x = 0; x < kx; ++x) tma_store_2d(maps, 64 * x, r0, T.enc + x * kEncChunk);
+      bulk_commit();
+    }
+    wide_tile(T, wr, r0, S, p.n_rays, p.dirb, sig, rgb, maps, r0);
+    if (kRaw && t < kTile && (kOwner == kLoss || r0 + t < n_real)) {
+      reinterpret_cast<float4*>(p.raw)[r0 + t] =
+          make_float4(rgb[3 * t], rgb[3 * t + 1], rgb[3 * t + 2], sig[t]);
+    }
+  }
+  // worker C b has more tiles: release the pieces of its other passes
+  const int per_pass = wide_fwd_pieces(hp, kx, nt, p.skip_mask);
+  for (int c = mine * per_pass; c < passes * per_pass; ++c) {
+    wr.acquire();
+    wr.release();
+  }
+  if (kSave && t == 0) bulk_wait_all();
+}
+
+// The wide chain: the narrow chain's work per 64-sample tile (raw
+// cotangents, the y cotangent with the viewdir layer's bias sum and viewdir
+// rows' dW, then products pi = 0 .. nt + 1 on the transposed weights), with
+// each product's output in column blocks of at most 128 (wide_product, A
+// the previous cotangent tile in shared memory) and the ReLU masks read from
+// the saved activations in device memory. Persistent CTAs of C consumer
+// warpgroups (wide_plan on wide_chain_cons_bytes) and one warpgroup whose
+// first thread streams [128][64] pieces of pack_backward_weights_bf16 by TMA
+// (the pack's tensor map with [128][64] boxes). Each consumer's two
+// cotangent tiles alternate as a product's input and output, and each
+// output is stored to the scratch by TMA while the next product runs. The
+// bias sums and viewdir rows' dW go straight to the worker's slot in device
+// memory, each entry owned by one thread.
+__host__ __device__ inline size_t wide_chain_cons_bytes(int hp) {
+  // the cotangent tiles, the raw cotangents [64][4], the column sums [4][hp]
+  return align1024(wide_act_bytes(hp) + kCTile * 4 * 4 + 4 * (size_t)hp * 4);
+}
+
+// Pieces of one tile's pass over the backward pack at padded width hp.
+__host__ __device__ inline int wide_chain_pieces(int hp, int nt) {
+  int blocks = 0;
+  for (int c0 = 0; c0 < hp; c0 += wide_bn(hp, c0)) ++blocks;
+  return blocks * ((hp / 2 + kKc - 1) / kKc + (nt + 1) * ((hp + kKc - 1) / kKc));
+}
+
+__global__ void __launch_bounds__(kWideThreads, 1)
+    train_chain_wide_kernel(const TrainArgs p, const __grid_constant__ ChainMaps m, int n_real,
+                            int n_tiles, int ns) {
+  const int C = blockDim.x / 128 - 1;
+  const int S = p.n_samples, nt = p.num_trunk, dd = p.dd, hp = p.hidden, h2 = hp / 2;
+  const int kch = (hp + kKc - 1) / kKc, k2 = (h2 + kKc - 1) / kKc;
+  const int n_act = nt + 4;  // m.blocks: activation blocks, then cotangent blocks
+  extern __shared__ unsigned char chain_raw[];
+  const uint32_t sbase = (smem_u32(chain_raw) + 1023u) & ~1023u;
+  unsigned char* gbase = chain_raw + (sbase - smem_u32(chain_raw));
+  const size_t cons_bytes = wide_chain_cons_bytes(hp), act_bytes = wide_act_bytes(hp);
+  const uint32_t ring = sbase, cons0 = sbase + (uint32_t)ns * kWideStage;
+  const uint32_t full = cons0 + (uint32_t)(C * cons_bytes), empty = full + 8 * ns;
+  const int tid = threadIdx.x, cw = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int G = gridDim.x, b = blockIdx.x;
+  auto tiles_of = [&](int w) { return w < n_tiles ? (n_tiles - 1 - w) / (C * G) + 1 : 0; };
+  const int passes = tiles_of(C * b);
+  if (tid == 0) {
+    for (int s = 0; s < ns; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * C);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int t = tid & 127, warp = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
+  if (cw == C) {  // ---- the transposed weights, the same pieces every pass
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWideProdRegs));
+    if (t == 0) {
+      int it = 0;
+      for (int ps = 0; ps < passes; ++ps) {
+        for (int pi = 0; pi < nt + 2; ++pi) {
+          const int kc = pi == 0 ? k2 : kch;
+          const int rb = pi == 0 ? 0 : (k2 + (pi - 1) * kch) * hp;  // the product's first row
+          for (int c0 = 0; c0 < hp; c0 += wide_bn(hp, c0)) {
+            for (int c = 0; c < kc; ++c, ++it) {
+              const int s = it % ns;
+              mbar_wait(empty + 8 * s, ((it / ns) & 1) ^ 1);
+              mbar_expect_tx(full + 8 * s, kWideStage);
+              tma_load_2d(ring + s * kWideStage, &m.w, 0, rb + c * hp + c0, full + 8 * s);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWideConsRegs));
+  const int v = C * b + cw;
+  const uint32_t own = cons0 + (uint32_t)(cw * cons_bytes);
+  const uint32_t cot[2] = {own, own + (uint32_t)(act_bytes / 2)};
+  float* gsh = reinterpret_cast<float*>(gbase + ns * kWideStage + cw * cons_bytes + act_bytes);
+  float* colsum = gsh + kCTile * 4;  // [4 warps][hp]
+  const int bar = 1 + cw;
+  const int n_slot = aux_size(hp, nt, dd);
+  float* const mine = p.aux_part + (size_t)v * n_slot;
+  for (int i = t; i < n_slot; i += 128) mine[i] = 0.f;
+  const float* w_rgb = p.aux + p.aux_off[nt + 5];    // [h2][3] f32
+  const float* w_alpha = p.aux + p.aux_off[nt + 3];  // [hp] f32
+  bf16* const S0 = p.scratch;
+  WideRing wr{ring, full, empty, ns, lane};
+  const int n_mine = tiles_of(v);
+  for (int k = 0; k < n_mine; ++k) {
+    const int tile = v + k * C * G;
+    const long long k0 = (long long)tile * kCTile;
+    if (t == 0) bulk_wait_read<0>();  // the last tile's stores have read their tiles
+    wg_sync(bar);
+    // ---- raw cotangents of the tile; rgb and sigma ones to the scratch in bf16
+    if (t < kCTile) {
+      const int r = t;
+      const float4 gr = k0 + r < n_real ? reinterpret_cast<const float4*>(p.graw)[k0 + r]
+                                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      reinterpret_cast<float4*>(gsh)[r] = gr;
+      __align__(16) __nv_bfloat162 rgb8[4], sig8[4];
+      const __nv_bfloat162 z2 = __floats2bfloat162_rn(0.f, 0.f);
+      rgb8[0] = __floats2bfloat162_rn(gr.x, gr.y);
+      rgb8[1] = __floats2bfloat162_rn(gr.z, 0.f);
+      rgb8[2] = rgb8[3] = z2;
+      sig8[0] = __floats2bfloat162_rn(gr.w, 0.f);
+      sig8[1] = sig8[2] = sig8[3] = z2;
+      __stcs(reinterpret_cast<float4*>(S0 + p.dlt_off[nt + 3] + (k0 + r) * 8),
+             *reinterpret_cast<const float4*>(rgb8));
+      __stcs(reinterpret_cast<float4*>(S0 + p.dlt_off[nt + 4] + (k0 + r) * 8),
+             *reinterpret_cast<const float4*>(sig8));
+    }
+    wg_sync(bar);
+    if (t < 4) {  // rgb and sigma bias sums
+      float s = 0.f;
+      for (int r = 0; r < kCTile; ++r) s += gsh[r * 4 + t];
+      mine[t < 3 ? aux_rgb(hp, nt) + t : aux_alpha(hp, nt)] += s;
+    }
+    // ---- y cotangent (g_rgb . W_rgb^T, f32) masked by y > 0, one thread a
+    // column: the viewdir layer's bias sum (f32) and its viewdir rows' dW
+    // (each ray's encoding x its sum of the bf16 cotangent), into tile 0
+    const unsigned short* ysave =
+        reinterpret_cast<const unsigned short*>(S0 + p.act_off[nt + 3]) + k0 * h2;
+    for (int col = t; col < h2; col += 128) {
+      const float* wr3 = w_rgb + col * 3;
+      const float w0 = __ldg(wr3), w1 = __ldg(wr3 + 1), w2 = __ldg(wr3 + 2);
+      float* vd = mine + aux_vd(hp, nt) + col;
+      float bsum = 0.f, seg = 0.f;
+      int ray = (int)(k0 / S), pos = (int)(k0 - (long long)ray * S);
+      for (int r0 = 0; r0 < kCTile; r0 += 16) {  // 16 rows' loads at once
+        unsigned short yb[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) yb[i] = __ldg(ysave + (size_t)(r0 + i) * h2 + col);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int r = r0 + i;
+          const float4 gg = reinterpret_cast<const float4*>(gsh)[r];
+          const float dy = fmaf(gg.z, w2, fmaf(gg.y, w1, gg.x * w0));
+          const float vv = __uint_as_float((uint32_t)yb[i] << 16) > 0.f ? dy : 0.f;
+          const bf16 vb = __float2bfloat16_rn(vv);
+          sts16(cot[0] + tile_off(r, col), __bfloat16_as_ushort(vb));
+          if (k0 + r < n_real) {
+            bsum += vv;
+            seg += __bfloat162float(vb);
+            if (++pos == S) {  // the ray's last sample
+              vd_flush(vd, p.dir_enc + (size_t)ray * dd, dd, h2, seg);
+              seg = 0.f;
+              pos = 0;
+              ++ray;
+            }
+          }
+        }
+      }
+      if (pos > 0) vd_flush(vd, p.dir_enc + (size_t)ray * dd, dd, h2, seg);  // continues
+      mine[aux_dir(hp, nt) + col] += bsum;
+    }
+    fence_async_smem();
+    wg_sync(bar);
+    if (t == 0) {
+      for (int x = 0; x < k2; ++x) {
+        tma_store_2d(&m.blocks[n_act + nt + 2], 64 * x, (int)k0, cot[0] + x * kEncChunk);
+      }
+      bulk_commit();
+    }
+    // ---- the products
+    int cur = 0;
+    for (int pi = 0; pi < nt + 2; ++pi) {
+      const uint32_t in = cot[cur], out = cot[cur ^ 1];
+      if (t == 0) bulk_wait_read<1>();  // out's store two products ago has read it
+      wg_sync(bar);
+      const bool masked = pi < nt + 1;
+      const unsigned short* msave =
+          reinterpret_cast<const unsigned short*>(S0 + p.act_off[masked ? nt + 2 - pi : 0]) +
+          k0 * hp;
+      const int r0 = 16 * warp + g;
+      float gs[2] = {0.f, 0.f};
+      if (pi == 1) {
+        gs[0] = gsh[r0 * 4 + 3];
+        gs[1] = gsh[(r0 + 8) * 4 + 3];
+      }
+      for (int c0 = 0; c0 < hp; c0 += wide_bn(hp, c0)) {
+        with_bn(wide_bn(hp, c0), [&](auto bn) {
+          constexpr int BN = decltype(bn)::value;
+          // the block's masks, loaded before its products
+          uint32_t mw[BN / 8][2];
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              mw[j][h] = masked ? __ldg(reinterpret_cast<const unsigned int*>(
+                                      msave + (size_t)(r0 + 8 * h) * hp + c0 + 8 * j + 2 * q))
+                                : 0x3f803f80u;
+          float acc[BN / 2];
+          wide_product<BN>(acc, in, pi == 0 ? k2 : kch, (pi == 0 ? h2 : hp) / 16, 0, 0, wr);
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const int col = c0 + 8 * j + 2 * q;
+            float wa0 = 0.f, wa1 = 0.f;
+            if (pi == 1) {
+              wa0 = __ldg(w_alpha + col);
+              wa1 = __ldg(w_alpha + col + 1);
+            }
+            float cs0 = 0.f, cs1 = 0.f;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+              if (pi == 1) {
+                v0 = fmaf(gs[h], wa0, v0);
+                v1 = fmaf(gs[h], wa1, v1);
+              }
+              if (!(__uint_as_float(mw[j][h] << 16) > 0.f)) v0 = 0.f;
+              if (!(__uint_as_float(mw[j][h] & 0xffff0000u) > 0.f)) v1 = 0.f;
+              sts32(out + tile_off(r0 + 8 * h, col), pack_bf16(v0, v1));
+              cs0 += v0;
+              cs1 += v1;
+            }
+            // the column sums over the warp's 16 rows, by the lanes of g = 0
+#pragma unroll
+            for (int x = 4; x < 32; x <<= 1) {
+              cs0 += __shfl_xor_sync(0xffffffffu, cs0, x);
+              cs1 += __shfl_xor_sync(0xffffffffu, cs1, x);
+            }
+            if (g == 0) {
+              colsum[warp * hp + col] = cs0;
+              colsum[warp * hp + col + 1] = cs1;
+            }
+          }
+        });
+      }
+      fence_async_smem();
+      wg_sync(bar);
+      if (t == 0) {
+        for (int x = 0; x < kch; ++x) {
+          tma_store_2d(&m.blocks[n_act + nt + 1 - pi], 64 * x, (int)k0, out + x * kEncChunk);
+        }
+        bulk_commit();
+      }
+      float* bias = mine + aux_bias(nt + 1 - pi, hp);
+      for (int c = t; c < hp; c += 128) {
+        bias[c] += (colsum[c] + colsum[hp + c]) + (colsum[2 * hp + c] + colsum[3 * hp + c]);
+      }
+      cur ^= 1;
+    }
+  }
+  // worker C b has more tiles: release the pieces of its other passes
+  const int per_pass = wide_chain_pieces(hp, nt);
+  for (int c = n_mine * per_pass; c < passes * per_pass; ++c) {
+    wr.acquire();
+    wr.release();
+  }
+  if (t == 0) bulk_wait_all();
+}
+
+// The gradient of every parameter from the dW slots of a plan in parts
+// (each part a DwArgs of its own, launched on its own slots; one part up to
+// a padded width of 128) and, as aux rows, the chain CTAs' slots (bias
+// sums, viewdir rows): map[i] = -1 - (part kDwMaxUnits + unit) for a dW
+// entry, summed over its unit's slots in chunk and slot order, else the
+// entry of the aux rows summed in row order (dw_split.cuh's reduce_slots
+// over a part).
+constexpr int kDwMaxParts = 8;
+struct DwParts {
+  DwSpans sp[kDwMaxParts];
+  const float* partial[kDwMaxParts];
+};
+
+__global__ void reduce_bf16_kernel(const DwParts parts, int n_chunks, int n_st_full,
+                                   int n_st_last, long long n_params, const float* aux,
+                                   int n_aux_parts, int n_aux, const int* map, float* grad) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_params) return;
+  const int j = map[i];
+  float s = 0.f;
+  if (j < 0) {
+    const int part = (-1 - j) / kDwMaxUnits, u = (-1 - j) % kDwMaxUnits;
+    const DwSpans& sp = parts.sp[part];
+    for (int c = 0; c < n_chunks; ++c) {
+      const int n_st = c + 1 < n_chunks ? n_st_full : n_st_last;
+      const int pieces = dw_pieces(n_st, sp.pre[u], sp.cost[u], sp.total_cost, sp.grid);
+      const float* q = parts.partial[part] + (long long)c * sp.max_pieces * n_params + i;
+      for (int k = 0; k < pieces; ++k) s += q[k * n_params];
+    }
+  } else {
+    for (int q = 0; q < n_aux_parts; ++q) s += aux[(size_t)q * n_aux + j];
+  }
+  grad[i] = s;
+}
+
 template <class K>
 cudaError_t set_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1156,6 +1575,81 @@ int launch_field_width(const TrainArgs& a, const ChainMaps* cm, int n_real, int 
     case 3: return launch_field<kOwner, 6>(a, cm, n_real, tiles, s);
     default: return launch_field<kOwner, 8>(a, cm, n_real, tiles, s);
   }
+}
+
+// ---- the wide route's launches (padded widths above 128)
+inline WidePlan wide_fwd_plan(const TrainArgs& a) {
+  return wide_plan(wide_fwd_cons_bytes(a.hidden, (a.dx + kKc - 1) / kKc));
+}
+
+template <int kOwner>
+cudaError_t launch_fwd_wide(const TrainArgs& a, const FwdMaps<kOwner>& m, int n_real, int tiles,
+                            cudaStream_t s) {
+  constexpr bool kSave = kOwner != kFieldFwd;
+  const WidePlan w = wide_fwd_plan(a);
+  if (w.cons == 0) return cudaErrorInvalidValue;
+  const cudaError_t err = set_smem(train_fwd_wide_kernel<kOwner>, w.smem);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = kSave ? tiles * (kRowTile / kTile) : (n_real + kTile - 1) / kTile;
+  const int want = (n_tiles + w.cons - 1) / w.cons, grid = want < a.fwd_ctas ? want : a.fwd_ctas;
+  train_fwd_wide_kernel<kOwner><<<grid, 128 * (w.cons + 1), w.smem, s>>>(a, m, n_real, n_tiles,
+                                                                         w.stages);
+  return cudaGetLastError();
+}
+
+// The wide chain on a.chain_ctas workers (a multiple of its consumers).
+cudaError_t launch_chain_wide(const TrainArgs& a, const ChainMaps& cm, int n_real, int tiles,
+                              cudaStream_t s) {
+  const WidePlan w = wide_plan(wide_chain_cons_bytes(a.hidden));
+  if (w.cons == 0 || a.chain_ctas % w.cons != 0) return cudaErrorInvalidValue;
+  const cudaError_t err = set_smem(train_chain_wide_kernel, w.smem);
+  if (err != cudaSuccess) return err;
+  train_chain_wide_kernel<<<a.chain_ctas / w.cons, 128 * (w.cons + 1), w.smem, s>>>(
+      a, cm, n_real, 2 * tiles, w.stages);
+  return cudaGetLastError();
+}
+
+int launch_pass_wide(const TrainArgs& a, const ChainMaps& cm, int n_real, int tiles,
+                     cudaStream_t s) {
+  const size_t ps = (size_t)kRayWarps * 7 * a.n_samples * sizeof(float);
+  cudaError_t err = set_smem(train_composite_kernel, ps);
+  if (err != cudaSuccess) return (int)err;
+  if (a.n_rays == 0) return 0;
+  train_prep_kernel<kLoss><<<(a.n_rays + kPrepWarps - 1) / kPrepWarps, kPrepWarps * 32, 0, s>>>(
+      a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = launch_fwd_wide<kLoss>(a, cm, n_real, tiles, s)) != cudaSuccess) return (int)err;
+  train_composite_kernel<<<(a.n_rays + kRayWarps - 1) / kRayWarps, kRayWarps * 32, ps, s>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)launch_chain_wide(a, cm, n_real, tiles, s);
+}
+
+template <int kOwner>
+int launch_field_wide(const TrainArgs& a, const ChainMaps* cm, int n_real, int tiles,
+                      cudaStream_t s) {
+  if (a.n_rays == 0) return 0;
+  train_prep_kernel<kOwner><<<(a.n_rays + kPrepWarps - 1) / kPrepWarps, kPrepWarps * 32, 0,
+                              s>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if constexpr (kOwner == kFieldFwd) {
+    return (int)launch_fwd_wide<kOwner>(a, NoMaps{}, n_real, tiles, s);
+  } else {
+    if ((err = launch_fwd_wide<kOwner>(a, *cm, n_real, tiles, s)) != cudaSuccess) return (int)err;
+    return (int)launch_chain_wide(a, *cm, n_real, tiles, s);
+  }
+}
+
+// A wide kernel's residency into out: CTAs per SM, shared bytes per CTA,
+// ring stages, consumer warpgroups.
+template <class K>
+cudaError_t wide_residency(K kernel, const WidePlan& w, int* out) {
+  out[1] = (int)w.smem;
+  out[2] = w.stages;
+  out[3] = w.cons;
+  const cudaError_t err = set_smem(kernel, w.smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, 128 * (w.cons + 1), w.smem);
 }
 
 // The forward's residency for kOwner into out: CTAs per SM, shared bytes
@@ -1264,8 +1758,9 @@ int dexnerf_train_bf16_pass(const void* args, const void* maps, int n_real, int 
   if (a.n_samples < 1 || a.n_samples > kMaxSamples || a.num_trunk < 0 || a.num_trunk > 31 ||
       a.num_trunk + 8 > kAux || a.num_trunk + 5 > kMaxBlocks || a.fx > kMaxFreq ||
       a.fd > kMaxFreq || a.dd > kMaxDD || a.dx < 1 || a.dx > kMaxDx || a.dxp % kEncPad != 0 ||
-      a.dxp < a.dx || a.hidden % 32 != 0 || a.hidden < 32 || a.hidden > 128 ||
-      a.chain_ctas < 2 || a.chain_ctas % 2 != 0 || a.fwd_ctas < 1 || maps == nullptr ||
+      a.dxp < a.dx || a.hidden % 32 != 0 || a.hidden < 32 || a.hidden > kWideMaxHidden ||
+      a.chain_ctas < 1 || (a.hidden <= 128 && a.chain_ctas % 2 != 0) || a.fwd_ctas < 1 ||
+      maps == nullptr ||
       (long long)n_real != (long long)a.n_rays * a.n_samples ||
       tiles != (n_real + kRowTile - 1) / kRowTile) {
     return (int)cudaErrorInvalidValue;
@@ -1273,6 +1768,7 @@ int dexnerf_train_bf16_pass(const void* args, const void* maps, int n_real, int 
   ChainMaps cm;  // an aligned copy of the caller's maps
   memcpy(&cm, maps, sizeof cm);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.hidden > 128) return launch_pass_wide(a, cm, n_real, tiles, s);
   switch (a.hidden / 32) {
     case 1: return launch_pass<2>(a, cm, n_real, tiles, s);
     case 2: return launch_pass<4>(a, cm, n_real, tiles, s);
@@ -1292,19 +1788,24 @@ int dexnerf_field_bf16_pass(const void* args, const void* maps, int n_real, int 
   if (a.n_samples < 1 || a.num_trunk < 0 || a.num_trunk > 31 || a.num_trunk + 8 > kAux ||
       a.num_trunk + 5 > kMaxBlocks || a.fx > kMaxFreq || a.fd > kMaxFreq || a.dd > kMaxDD ||
       a.dx < 1 || a.dx > kMaxDx || a.dxp % kEncPad != 0 || a.dxp < a.dx || a.hidden % 32 != 0 ||
-      a.hidden < 32 || a.hidden > 128 || a.fwd_ctas < 1 || a.pts == nullptr ||
-      (backward ? a.chain_ctas < 2 || a.chain_ctas % 2 != 0 || a.scratch == nullptr ||
-                      a.graw == nullptr || maps == nullptr
+      a.hidden < 32 || a.hidden > kWideMaxHidden || a.fwd_ctas < 1 || a.pts == nullptr ||
+      (backward ? a.chain_ctas < 1 || (a.hidden <= 128 && a.chain_ctas % 2 != 0) ||
+                      a.scratch == nullptr || a.graw == nullptr || maps == nullptr
                 : a.raw == nullptr) ||
       (long long)n_real != (long long)a.n_rays * a.n_samples ||
       tiles != (n_real + kRowTile - 1) / kRowTile) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!backward) return launch_field_width<kFieldFwd>(a, nullptr, n_real, tiles, s);
+  const bool wide = a.hidden > 128;
+  if (!backward) {
+    return wide ? launch_field_wide<kFieldFwd>(a, nullptr, n_real, tiles, s)
+                : launch_field_width<kFieldFwd>(a, nullptr, n_real, tiles, s);
+  }
   ChainMaps cm;
   memcpy(&cm, maps, sizeof cm);
-  return launch_field_width<kFieldBwd>(a, &cm, n_real, tiles, s);
+  return wide ? launch_field_wide<kFieldBwd>(a, &cm, n_real, tiles, s)
+              : launch_field_width<kFieldBwd>(a, &cm, n_real, tiles, s);
 }
 
 // A tensor map of one [rows][width] bf16 block at ptr for the dW and chain
@@ -1338,44 +1839,82 @@ int dexnerf_train_bf16_dw(const void* args, int n_st, int chunk, void* stream) {
   memcpy(&a, args, sizeof a);
   const size_t smem = dw_smem(a);
   if (smem == 0 || n_st < 1 || chunk < 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = set_smem(train_dw_bf16_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  train_dw_bf16_kernel<<<a.grid, kDwThreads, smem, static_cast<cudaStream_t>(stream)>>>(a, n_st,
-                                                                                         chunk);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (a.fresh) {
+    err = set_smem(train_dw_bf16_kernel<true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    train_dw_bf16_kernel<true><<<a.grid, kDwThreads, smem, s>>>(a, n_st, chunk);
+  } else {
+    err = set_smem(train_dw_bf16_kernel<false>, smem);
+    if (err != cudaSuccess) return (int)err;
+    train_dw_bf16_kernel<false><<<a.grid, kDwThreads, smem, s>>>(a, n_st, chunk);
+  }
   return (int)cudaGetLastError();
 }
 
-// The gradient of every parameter (see reduce_bf16_kernel; the dW slots of
-// n_chunks chunks, the last of n_st_last stages, the others of n_st_full,
-// by the plan in dw_args) and, when loss is not null, the sum of the n_rays
-// per-ray losses into *loss.
-int dexnerf_train_bf16_reduce(const void* dw_args, int n_chunks, int n_st_full, int n_st_last,
-                              const float* aux_part, int n_aux_parts, int n_aux, const int* map,
-                              float* grad, const float* loss_ray, int n_rays, float* loss,
-                              void* stream) {
-  DwArgs a;
-  memcpy(&a, dw_args, sizeof a);
-  if (dw_smem(a) == 0 || n_chunks < 1 || n_st_full < 1 || n_st_last < 1) {
+// The gradient of every parameter (see reduce_bf16_kernel): dw_args holds
+// the plan's n_parts DwArgs one after another; the dW slots of n_chunks
+// chunks, the last of n_st_last stages, the others of n_st_full; and, when
+// loss is not null, the sum of the n_rays per-ray losses into *loss.
+int dexnerf_train_bf16_reduce(const void* dw_args, int n_parts, int n_chunks, int n_st_full,
+                              int n_st_last, const float* aux_part, int n_aux_parts, int n_aux,
+                              const int* map, float* grad, const float* loss_ray, int n_rays,
+                              float* loss, void* stream) {
+  if (n_parts < 1 || n_parts > kDwMaxParts || n_chunks < 1 || n_st_full < 1 || n_st_last < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const DwSpans sp = dw_spans_of(a.n_units, a.total_cost, a.grid, a.max_pieces,
-                                 [&](int u) { return a.units[u].cost; });
+  DwParts parts;
+  long long n_params = -1;
+  DwArgs a;
+  for (int k = 0; k < n_parts; ++k) {
+    memcpy(&a, static_cast<const unsigned char*>(dw_args) + k * sizeof(DwArgs), sizeof a);
+    if (dw_smem(a) == 0 || (k > 0 && a.n_params != n_params)) return (int)cudaErrorInvalidValue;
+    n_params = a.n_params;
+    parts.sp[k] = dw_spans_of(a.n_units, a.total_cost, a.grid, a.max_pieces,
+                              [&](int u) { return a.units[u].cost; });
+    parts.partial[k] = a.partial;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  reduce_bf16_kernel<<<(unsigned)((a.n_params + 255) / 256), 256, 0, s>>>(
-      sp, a.partial, n_chunks, n_st_full, n_st_last, a.n_params, aux_part, n_aux_parts, n_aux,
-      map, grad);
+  reduce_bf16_kernel<<<(unsigned)((n_params + 255) / 256), 256, 0, s>>>(
+      parts, n_chunks, n_st_full, n_st_last, n_params, aux_part, n_aux_parts, n_aux, map, grad);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || loss == nullptr) return (int)err;
   sum_rays_bf16_kernel<<<1, kSumThreads, 0, s>>>(loss_ray, n_rays, loss);
   return (int)cudaGetLastError();
 }
 
+// The residency of the wide route's kernels at padded width `hidden` (a
+// multiple of 32 above 128, at most kWideMaxHidden) into out[12]: the
+// forward saving the activations (kernels 4 and 3), the forward of kernel
+// 2 and the chain, each as CTAs per SM, shared bytes per CTA, ring stages
+// and consumer warpgroups.
+int dexnerf_train_bf16_wide_occupancy(int hidden, int dx, int num_trunk, int dd, int skip_mask,
+                                      int* out) {
+  if (hidden % 32 != 0 || hidden <= 128 || hidden > kWideMaxHidden || dx < 1 || dx > kMaxDx ||
+      num_trunk < 0 || num_trunk > 31) {
+    return (int)cudaErrorInvalidValue;
+  }
+  TrainArgs a;
+  a.hidden = hidden;
+  a.dx = dx;
+  a.num_trunk = num_trunk;
+  a.skip_mask = skip_mask;
+  a.dd = dd;
+  const WidePlan f = wide_fwd_plan(a), c = wide_plan(wide_chain_cons_bytes(hidden));
+  if (f.cons == 0 || c.cons == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = wide_residency(train_fwd_wide_kernel<kLoss>, f, out);
+  if (err == cudaSuccess) err = wide_residency(train_fwd_wide_kernel<kFieldFwd>, f, out + 4);
+  if (err == cudaSuccess) err = wide_residency(train_chain_wide_kernel, c, out + 8);
+  return (int)err;
+}
+
 // CTAs per SM of the dW kernel with `smem` bytes of shared memory.
 int dexnerf_train_bf16_dw_occupancy(int smem, int* ctas) {
-  cudaError_t err = set_smem(train_dw_bf16_kernel, smem);
+  cudaError_t err = set_smem(train_dw_bf16_kernel<false>, smem);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, train_dw_bf16_kernel, kDwThreads,
-                                                        smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, train_dw_bf16_kernel<false>,
+                                                        kDwThreads, smem);
   }
   return (int)err;
 }

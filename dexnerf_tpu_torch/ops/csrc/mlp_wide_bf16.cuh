@@ -1,0 +1,393 @@
+// The wide route of the bf16 FlexibleNeRF kernels: widths above 128 (up to
+// kWideMaxHidden), where kernel 1's tile (mlp_tile_bf16.cuh) does not fit.
+// That tile keeps a 64 x H f32 accumulator and the next layer's A fragments
+// in registers (at H = 256 the accumulator alone is 128 registers a thread)
+// and streams whole [H][64] K-chunks (32 KB at 256) through a ring that
+// already fills the 227 KB of shared memory at H = 128. The wide tile
+// instead keeps a layer's input and output in shared memory, as two K-major
+// 128 B-swizzled [64][Hp] bf16 tiles a consumer (the encoding tile's layout,
+// tile_off), and computes each layer's output in column blocks of at most
+// 128 (each a wgmma width: wide_bn), both operands from shared memory: A
+// from the input tile, B from a ring of [128][64] K-chunk pieces that one
+// thread streams by 1-D bulk copies out of the same pre-swizzled pack
+// (ops/fused_render.py::pack_flex_weights_bf16; a piece is rows c0 .. c0 +
+// bn - 1 of a [Hp][64] chunk, contiguous in the pack). The accumulator of a
+// block is at most 64 registers a thread. Each piece's products are one
+// wgmma group; the piece is released once the next group is issued and the
+// group before it is done (wgmma.wait_group 1), so the ring (whose stages
+// every consumer reads) needs only two stages however wide the layer.
+//
+// What bounds it on the H100 at 8x256: kernel 1 by its multiply-adds (~0.6 M
+// a sample, a 400x400 frame of 64 + 128 samples ~36 TFLOP: 36.7 ms at the
+// 989 TFLOP/s bf16 peak), the training forward and chain by the scratch they
+// store and read (~10 KB a sample), as the narrow route. The design keeps
+// registers and shared memory within one CTA per SM and is right first: its
+// kernels take 3-5x their bounds (PERF.md sections 5-6), and what that time
+// is made of has not been taken apart yet.
+//
+// The bf16 contract is the narrow tile's: operands rounded to bf16, f32
+// accumulation (one accumulator per column block, over all of the layer's K),
+// bias, ReLU and the chain in f32, the sigma head from the f32 trunk output
+// and the rgb head from the f32 viewdir-layer output with f32 weights; PE in
+// f32 by encode_coord. Biases and heads are read from the aux buffer in
+// device memory (through L1).
+#pragma once
+
+#include <type_traits>
+
+#include "mlp_tile_bf16.cuh"
+
+namespace {
+
+// Hp at most: the largest padded width whose plans (wide_plan) fit at the
+// kernels' widest encodings (ops/fused_render.py::wide_fits)
+constexpr int kWideMaxHidden = 576;
+constexpr int kWideMaxCons = 2;  // consumer warpgroups at most
+// registers a thread after setmaxnreg: the producer's, each consumer's
+// (128 x (40 + 2 x 232) <= 65536)
+constexpr int kWideProdRegs = 40, kWideConsRegs = 232;
+constexpr int kWideThreads = 128 * (kWideMaxCons + 1);
+constexpr int kWideStage = 128 * 128;  // bytes of a ring stage: a [128][64] bf16 piece
+constexpr int kWideMaxStages = 8;
+constexpr int kWideMinStages = 2;
+
+// The width of the column block at c0 of an n-wide output (n a multiple of
+// 16): 128 while at least 128 remain, else the rest, split where it is not a
+// wgmma_bf16 width (80 = 64 + 16, 112 = 64 + 48).
+__host__ __device__ inline int wide_bn(int n, int c0) {
+  const int r = n - c0;
+  if (r >= 128) return 128;
+  return (r == 80 || r == 112) ? 64 : r;
+}
+
+// Bytes of a consumer's two activation tiles at width hp.
+__host__ __device__ inline size_t wide_act_bytes(int hp) {
+  return 2 * (size_t)((hp + kKc - 1) / kKc) * kEncChunk;
+}
+
+__host__ __device__ inline size_t align1024(size_t x) { return (x + 1023) & ~(size_t)1023; }
+
+// A wide kernel's shared-memory plan: from the 1024-aligned base, `stages`
+// ring stages, then `cons` consumer blocks of cons_bytes (a multiple of
+// 1024), then a full and an empty mbarrier per stage; `smem` bytes in all
+// with the slack that aligns the base. The most consumers (up to
+// kWideMaxCons), then the most stages (up to kWideMaxStages, at least
+// kWideMinStages) that fit; cons = 0 if none fits.
+struct WidePlan {
+  int cons, stages;
+  size_t smem;
+};
+
+__host__ __device__ inline WidePlan wide_plan(size_t cons_bytes) {
+  for (int c = kWideMaxCons; c >= 1; --c) {
+    for (int ns = kWideMaxStages; ns >= kWideMinStages; --ns) {
+      const size_t total = 1024 + (size_t)ns * (kWideStage + 16) + c * cons_bytes;
+      if (total <= (size_t)kSmemMax) return WidePlan{c, ns, total};
+    }
+  }
+  return WidePlan{0, 0, 0};
+}
+
+// f(BN) with BN a compile-time wgmma width for the run-time block width bn.
+template <class F>
+__device__ __forceinline__ void with_bn(int bn, F&& f) {
+  switch (bn) {
+    case 128: f(std::integral_constant<int, 128>{}); break;
+    case 96: f(std::integral_constant<int, 96>{}); break;
+    case 64: f(std::integral_constant<int, 64>{}); break;
+    case 48: f(std::integral_constant<int, 48>{}); break;
+    case 32: f(std::integral_constant<int, 32>{}); break;
+    default: f(std::integral_constant<int, 16>{}); break;
+  }
+}
+
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// A consumer warp's view of the wide ring: pieces are acquired and released
+// in stream order.
+struct WideRing {
+  uint32_t ring, full, empty;
+  int ns, lane;
+  int head = 0, tail = 0;
+  __device__ __forceinline__ uint32_t acquire() {
+    const int s = head % ns;
+    mbar_wait(full + 8 * s, (head / ns) & 1);
+    ++head;
+    return ring + s * kWideStage;
+  }
+  __device__ __forceinline__ void release() {
+    if (lane == 0) mbar_arrive(empty + 8 * (tail % ns));
+    ++tail;
+  }
+};
+
+// The producer's side: one piece of `bytes` at w + off into the next stage.
+struct WideStream {
+  const unsigned char* w;
+  uint32_t ring, full, empty;
+  int ns;
+  int it = 0;
+  __device__ __forceinline__ void put(size_t off, int bytes) {
+    const int s = it % ns;
+    mbar_wait(empty + 8 * s, ((it / ns) & 1) ^ 1);
+    mbar_expect_tx(full + 8 * s, bytes);
+    bulk_load(ring + s * kWideStage, w + off, bytes, full + 8 * s);
+    ++it;
+  }
+  // the pieces of one product, in the consumers' order: per column block of
+  // the n-wide output, nh K-chunks of the operand at oh, then ne of the one
+  // at oe (both packed as [chunks][n][64])
+  __device__ __forceinline__ void product(size_t oh, int nh, size_t oe, int ne, int n) {
+    for (int c0 = 0; c0 < n; c0 += wide_bn(n, c0)) {
+      const int bytes = wide_bn(n, c0) * 128;
+      for (int c = 0; c < nh; ++c) put(oh + ((size_t)c * n + c0) * 128, bytes);
+      for (int c = 0; c < ne; ++c) put(oe + ((size_t)c * n + c0) * 128, bytes);
+    }
+  }
+  // `passes` passes over the forward pack of a model of padded width hp, kx
+  // encoding chunks, nt trunk layers (skip_mask: those that read the
+  // encoding): layer1, the trunk, fc_feat, the feat rows of layers_dir.0
+  __device__ void forward(int passes, int hp, int kx, int nt, int skip_mask) {
+    const int kch = (hp + kKc - 1) / kKc;
+    const size_t ch = (size_t)hp * 128;  // bytes of a [hp][64] chunk
+    for (int ps = 0; ps < passes; ++ps) {
+      size_t off = 0;
+      product(off, kx, 0, 0, hp);
+      off += kx * ch;
+      for (int i = 0; i < nt; ++i) {
+        const size_t oh = off;
+        off += kch * ch;
+        if ((skip_mask >> i) & 1) {
+          product(oh, kch, off, kx, hp);
+          off += kx * ch;
+        } else {
+          product(oh, kch, 0, 0, hp);
+        }
+      }
+      product(off, kch, 0, 0, hp);
+      off += kch * ch;
+      product(off, kch, 0, 0, hp / 2);
+    }
+  }
+};
+
+// Pieces of one pass over the forward pack (a consumer with no tile in a
+// pass releases them all).
+__host__ __device__ inline int wide_fwd_pieces(int hp, int kx, int nt, int skip_mask) {
+  const int kch = (hp + kKc - 1) / kKc;
+  auto blocks = [](int n) {
+    int k = 0;
+    for (int c0 = 0; c0 < n; c0 += wide_bn(n, c0)) ++k;
+    return k;
+  };
+  int nskip = 0;
+  for (int i = 0; i < nt; ++i) nskip += (skip_mask >> i) & 1;
+  return blocks(hp) * (kx * (1 + nskip) + (nt + 1) * kch) + blocks(hp / 2) * kch;
+}
+
+// acc[64 x BN] = A B over nh K-chunks of the tile at ah (kh16 valid k16 steps
+// in all: columns past them are never read) and ne chunks of the tile at ae
+// (all four steps), each against the next ring piece.
+template <int BN>
+__device__ __forceinline__ void wide_product(float (&acc)[BN / 2], uint32_t ah, int nh, int kh16,
+                                             uint32_t ae, int ne, WideRing& wr) {
+  fence_regs(acc);
+  wgmma_fence();
+  for (int c = 0; c < nh + ne; ++c) {
+    const uint32_t st = wr.acquire();
+    const bool h = c < nh;
+    const uint32_t a = h ? ah + c * kEncChunk : ae + (c - nh) * kEncChunk;
+    const int steps = h ? min(4, kh16 - 4 * c) : 4;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      if (ks < steps) {
+        wgmma_bf16<BN, 0, 0>(acc, kmajor_desc(a + ks * 32), kmajor_desc(st + ks * 32),
+                             c > 0 || ks > 0);
+      }
+    }
+    wgmma_commit();
+    if (c > 0) {
+      wgmma_wait1();
+      wr.release();
+    }
+  }
+  wgmma_wait0();
+  wr.release();
+  fence_regs(acc);
+}
+
+// A hidden layer's epilogue on the column block c0 of an [64 x BN]
+// accumulator: act(acc + bias) in f32, rounded to bf16 into the tile at out;
+// with wa, the sigma head's partial sums v . wa of rows g (s0) and g + 8 (s1).
+template <int BN>
+__device__ __forceinline__ void wide_hidden_epilogue(const float (&acc)[BN / 2], int c0,
+                                                     const float* bias, bool relu,
+                                                     const float* wa, float& s0, float& s1,
+                                                     uint32_t out) {
+  const int t = threadIdx.x & 127, lane = t & 31, g = lane >> 2, q = lane & 3;
+  const int row = 16 * (t >> 5) + g;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = c0 + 8 * j + 2 * q;
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + col));
+    float v0 = acc[4 * j] + b.x, v1 = acc[4 * j + 1] + b.y;
+    float v2 = acc[4 * j + 2] + b.x, v3 = acc[4 * j + 3] + b.y;
+    if (relu) {
+      v0 = fmaxf(v0, 0.f);
+      v1 = fmaxf(v1, 0.f);
+      v2 = fmaxf(v2, 0.f);
+      v3 = fmaxf(v3, 0.f);
+    }
+    sts32(out + tile_off(row, col), pack_bf16(v0, v1));
+    sts32(out + tile_off(row + 8, col), pack_bf16(v2, v3));
+    if (wa != nullptr) {
+      const float2 w = __ldg(reinterpret_cast<const float2*>(wa + col));
+      s0 = fmaf(v1, w.y, fmaf(v0, w.x, s0));
+      s1 = fmaf(v3, w.y, fmaf(v2, w.x, s1));
+    }
+  }
+}
+
+// The viewdir layer's epilogue on the column block c0 (rows r0 + 16 w + g
+// and + 8; r0 counts from dirb's first ray): y = ReLU(acc + the ray's
+// viewdir bias, h2 wide), into the rgb head's sums c and, with ytile, rounded
+// to bf16 into that tile.
+template <int BN>
+__device__ __forceinline__ void wide_dir_epilogue(const float (&ad)[BN / 2], int c0, int h2,
+                                                  int r0, int S, int nrays, const float* dirb,
+                                                  const float* w_rgb, float (&c)[2][3],
+                                                  uint32_t ytile) {
+  const int t = threadIdx.x & 127, lane = t & 31, g = lane >> 2, q = lane & 3;
+  const int row = 16 * (t >> 5) + g, r = r0 + row;
+  const float* db0 = dirb + (size_t)min(r / S, nrays - 1) * h2;
+  const float* db1 = dirb + (size_t)min((r + 8) / S, nrays - 1) * h2;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = c0 + 8 * j + 2 * q;
+    float y0[2], y1[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float* wr = w_rgb + (col + e) * 3;
+      const float w0 = __ldg(wr), w1 = __ldg(wr + 1), w2 = __ldg(wr + 2);
+      y0[e] = fmaxf(ad[4 * j + e] + db0[col + e], 0.f);
+      y1[e] = fmaxf(ad[4 * j + 2 + e] + db1[col + e], 0.f);
+      c[0][0] = fmaf(y0[e], w0, c[0][0]);
+      c[0][1] = fmaf(y0[e], w1, c[0][1]);
+      c[0][2] = fmaf(y0[e], w2, c[0][2]);
+      c[1][0] = fmaf(y1[e], w0, c[1][0]);
+      c[1][1] = fmaf(y1[e], w1, c[1][1]);
+      c[1][2] = fmaf(y1[e], w2, c[1][2]);
+    }
+    if (ytile != 0) {
+      sts32(ytile + tile_off(row, col), pack_bf16(y0[0], y0[1]));
+      sts32(ytile + tile_off(row + 8, col), pack_bf16(y1[0], y1[1]));
+    }
+  }
+}
+
+// One consumer's wide tile: its two activation tiles, its encoding tile, the
+// model's shape and its aux buffer (device memory, offsets as the narrow
+// kernels').
+struct WideTile {
+  uint32_t act[2], enc;
+  const float* aux;
+  const int* aux_off;
+  int hp, kx, nt, skip_mask, bar;
+};
+
+// The 64 rows of the encoding tile (written and fenced) through the whole
+// MLP: sig_out[row] (sigma logits) and rgb_out[row * 3 + k] (rgb logits) for
+// rows 0..63, written to shared memory and visible to the warpgroup on
+// return. With maps, every activation is stored by TMA to its scratch block
+// (a_0 .. a_nt, feat, y: blocks 1 .. nt + 3 of maps) at rows row0 ..
+// row0 + 63 once its tile is complete. r0, S, nrays and dirb place the rows
+// for the per-ray viewdir bias (see wide_dir_epilogue).
+__device__ __forceinline__ void wide_tile(const WideTile& T, WideRing& wr, int r0, int S, int nrays,
+                                          const float* dirb, float* sig_out, float* rgb_out,
+                                          const CUtensorMap* maps, int row0) {
+  const int t = threadIdx.x & 127, lane = t & 31, g = lane >> 2, q = lane & 3;
+  const int row = 16 * (t >> 5) + g;
+  const int hp = T.hp, h2 = hp / 2, nt = T.nt, kch = (hp + kKc - 1) / kKc;
+  const float* aux = T.aux;
+  const float* w_alpha = aux + T.aux_off[nt + 3];
+  const float b_alpha = __ldg(aux + T.aux_off[nt + 4]);
+  // the layer's output tile is complete: fence it for wgmma and TMA, and
+  // store it as `boxes` [64][64] boxes to scratch block blk
+  auto finish = [&](uint32_t out, int blk, int boxes) {
+    fence_async_smem();
+    wg_sync(T.bar);
+    if (maps != nullptr) {
+      if (t == 0) {
+        for (int x = 0; x < boxes; ++x) tma_store_2d(maps + blk, 64 * x, row0, out + x * kEncChunk);
+        bulk_commit();
+        bulk_wait_read<1>();  // the store before it (the tile written next) has read it
+      }
+      wg_sync(T.bar);
+    }
+  };
+  auto head = [&](float s0, float s1) {  // the sigma logits of rows g, g + 8
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    if (q == 0) {
+      sig_out[row] = s0 + b_alpha;
+      sig_out[row + 8] = s1 + b_alpha;
+    }
+  };
+  // ---- layer1 (no activation), the trunk, fc_feat: layer l = 0 .. nt + 1
+  int cur = 0;
+  for (int l = 0; l <= nt + 1; ++l) {
+    const bool skip = l >= 1 && l <= nt && ((T.skip_mask >> (l - 1)) & 1);
+    const bool has_head = l == (nt > 0 ? nt : 0);
+    const uint32_t in = T.act[cur], out = T.act[l == 0 ? 0 : cur ^ 1];
+    const float* bias = aux + T.aux_off[l];
+    float s0 = 0.f, s1 = 0.f;
+    for (int c0 = 0; c0 < hp; c0 += wide_bn(hp, c0)) {
+      with_bn(wide_bn(hp, c0), [&](auto bn) {
+        constexpr int BN = decltype(bn)::value;
+        float acc[BN / 2];
+        if (l == 0) {
+          wide_product<BN>(acc, 0, 0, 0, T.enc, T.kx, wr);
+        } else {
+          wide_product<BN>(acc, in, kch, hp / 16, T.enc, skip ? T.kx : 0, wr);
+        }
+        wide_hidden_epilogue<BN>(acc, c0, bias, l > 0, has_head ? w_alpha : nullptr, s0, s1, out);
+      });
+    }
+    if (has_head) head(s0, s1);
+    finish(out, 1 + l, kch);
+    cur = l == 0 ? 0 : cur ^ 1;
+  }
+  // ---- layers_dir.0 on feat, + the per-ray bias; y to the other tile when
+  // saved; the rgb head
+  const float* w_rgb = aux + T.aux_off[nt + 5];
+  const float* b_rgb = aux + T.aux_off[nt + 6];
+  const uint32_t ytile = maps != nullptr ? T.act[cur ^ 1] : 0u;
+  float crgb[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+  for (int c0 = 0; c0 < h2; c0 += wide_bn(h2, c0)) {
+    with_bn(wide_bn(h2, c0), [&](auto bn) {
+      constexpr int BN = decltype(bn)::value;
+      float ad[BN / 2];
+      wide_product<BN>(ad, T.act[cur], kch, hp / 16, 0, 0, wr);
+      wide_dir_epilogue<BN>(ad, c0, h2, r0, S, nrays, dirb, w_rgb, crgb, ytile);
+    });
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int x = 1; x < 4; x <<= 1) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) crgb[h][k] += __shfl_xor_sync(0xffffffffu, crgb[h][k], x);
+    }
+    if (q == 0) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) rgb_out[(row + 8 * h) * 3 + k] = crgb[h][k] + __ldg(b_rgb + k);
+    }
+  }
+  finish(ytile, nt + 3, (h2 + kKc - 1) / kKc);
+}
+
+}  // namespace

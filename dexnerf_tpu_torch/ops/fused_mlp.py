@@ -21,8 +21,10 @@ weights live in the model, so a field function is bound to its model when
 it is built: ``field(pts, viewdirs) -> raw``. It is also the forward of
 the training field (``ops/fused_mlp_train.py``); times are in ``PERF.md``.
 
-``launches`` counts kernel-2 launches of either dtype and ``launches_bf16``
-those of the bf16 route (+1 per launch, nowhere else).
+``launches`` counts kernel-2 launches of either dtype, ``launches_bf16``
+those of the bf16 route and ``launches_wide`` those of its wide route (a
+model wider than 128: kernel 4's wide forward) (+1 per launch, nowhere
+else). Widths: as ``ops/fused_render.py::check_width``.
 """
 
 from __future__ import annotations
@@ -37,16 +39,18 @@ from dexnerf_tpu_torch.ops import fused_train_loss as ftl
 from dexnerf_tpu_torch.ops.fused_render import (
     _check_compute_dtype,
     check_fusable,
+    check_width,
     flex_forward_bf16,
+    is_wide,
 )
 
 launches = 0  # kernel-2 launches of either dtype
-launches_bf16 = 0  # of which the bf16 route's
+launches_bf16 = 0  # of which the bf16 route's (narrow or wide)
+launches_wide = 0  # of which the wide bf16 kernels'
 
 # limits of the kernels (ops/csrc/fused_train_loss*.cu); any number of samples
 MAX_LAYERS = ftl.MAX_LAYERS
 MAX_FREQ = ftl.MAX_FREQ
-MAX_HIDDEN = ftl.MAX_HIDDEN
 
 
 def fused_field_reference(
@@ -75,9 +79,10 @@ def fused_field_reference(
     return model(xyz, view, dtype=torch.float32)  # not the model's own plain-path dtype
 
 
-def check_field_inputs(model, tensors) -> None:
+def check_field_inputs(model, tensors, compute_dtype) -> None:
     """Device, dtype, contiguity and shape of ``tensors`` ((name, tensor,
-    shape), ...) and the model's fit to the kernels' limits."""
+    shape), ...) and the model's fit to the limits of the kernels at
+    ``compute_dtype``."""
     check_fusable(model, "the field kernels")
     dev = tensors[0][1].device
     for name, t, shape in tensors:
@@ -91,9 +96,7 @@ def check_field_inputs(model, tensors) -> None:
     for p in model.parameters():
         if p.device != dev or p.dtype != torch.float32:
             raise ValueError(f"model parameters must be float32 on {dev}")
-    H = model.hidden_size
-    if H > MAX_HIDDEN or H % 8 or H < 8:
-        raise ValueError(f"hidden_size {H}: the kernels take multiples of 8 up to {MAX_HIDDEN}")
+    check_width(model.hidden_size, compute_dtype, "the field kernels")
     nt = model.num_layers - 1
     if nt + 5 > MAX_LAYERS or nt > 31:
         raise ValueError(f"{model.num_layers} layers: too deep for the kernels")
@@ -104,12 +107,13 @@ def check_field_inputs(model, tensors) -> None:
 def _launch(model, pts, viewdirs, *, log_sampling_xyz, log_sampling_dir,
             compute_dtype=torch.float32) -> torch.Tensor:
     """Kernel 2 at ``compute_dtype`` on CUDA tensors."""
-    global launches, launches_bf16
+    global launches, launches_bf16, launches_wide
     from dexnerf_tpu_torch.ops._build import check, load_library
 
     _check_compute_dtype(compute_dtype)
     N, S = pts.shape[:2]
-    check_field_inputs(model, [("pts", pts, (N, S, 3)), ("viewdirs", viewdirs, (N, 3))])
+    check_field_inputs(model, [("pts", pts, (N, S, 3)), ("viewdirs", viewdirs, (N, 3))],
+                       compute_dtype)
     lib = load_library()
     raw = torch.empty((N, S, 4), dtype=torch.float32, device=pts.device)
     stream = torch.cuda.current_stream(pts.device).cuda_stream
@@ -122,6 +126,7 @@ def _launch(model, pts, viewdirs, *, log_sampling_xyz, log_sampling_dir,
                                                -(-N * S // 128), 0, stream),
               "fused field bf16 forward launch")
         launches_bf16 += 1
+        launches_wide += int(is_wide(model))
     else:  # every ray in one launch pair: no scratch to cap
         ftl.Tf32Pass(lib, model, dict(pts=pts, viewdirs=viewdirs, raw=raw), N, S, ftl.s_pad_of(S),
                      max(1, N), None, owner=ftl.FIELD_FWD, log_sampling_xyz=log_sampling_xyz,

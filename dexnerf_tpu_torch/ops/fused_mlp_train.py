@@ -33,10 +33,11 @@ come from the parameter-free stratified sampler and the fine depths are
 detached, so no gradient flows into the field's inputs. Do not use this
 field where ``pts`` depends on trained values (pose refinement).
 
-``launches`` counts kernel-3 backwards of either dtype and ``launches_bf16``
-those of the bf16 route (+1 per backward, where it launches its group of
-``__global__`` kernels; nowhere else); the forward's are
-``ops.fused_mlp.launches`` and ``launches_bf16``.
+``launches`` counts kernel-3 backwards of either dtype, ``launches_bf16``
+those of the bf16 route and ``launches_wide`` those of its wide route (a
+model wider than 128: kernel 4's wide forward and chain) (+1 per backward,
+where it launches its group of ``__global__`` kernels; nowhere else); the
+forward's are ``ops.fused_mlp``'s.
 """
 
 from __future__ import annotations
@@ -61,7 +62,8 @@ from dexnerf_tpu_torch.ops.fused_train_loss import (
 )
 
 launches = 0  # kernel-3 backwards of either dtype
-launches_bf16 = 0  # of which the bf16 route's
+launches_bf16 = 0  # of which the bf16 route's (narrow or wide)
+launches_wide = 0  # of which the wide bf16 kernels'
 
 # samples of activation/cotangent scratch per chunk of rays
 SCRATCH_SAMPLES = 1 << 18
@@ -73,7 +75,7 @@ def _launch_backward(model, pts, viewdirs, g, *, log_sampling_xyz, log_sampling_
     ``model``, in ``model.parameters()`` order, by kernel 3 at
     ``compute_dtype`` / ``dw_dtype`` (None: float32): float32/float32 or
     bfloat16/bfloat16."""
-    global launches, launches_bf16
+    global launches, launches_bf16, launches_wide
     from dexnerf_tpu_torch.ops._build import check, load_library
 
     dw_dtype = _check_dtypes(compute_dtype, dw_dtype)
@@ -81,7 +83,7 @@ def _launch_backward(model, pts, viewdirs, g, *, log_sampling_xyz, log_sampling_
     N, S = pts.shape[:2]
     dev = pts.device
     check_field_inputs(model, [("pts", pts, (N, S, 3)), ("viewdirs", viewdirs, (N, 3)),
-                               ("g", g, (N, S, 4))])
+                               ("g", g, (N, S, 4))], compute_dtype)
     lib = load_library()
     if compute_dtype == torch.bfloat16:
         chunk = max(1, min(N, SCRATCH_SAMPLES // S))
@@ -101,6 +103,7 @@ def _launch_backward(model, pts, viewdirs, g, *, log_sampling_xyz, log_sampling_
         grads = wg.reduce(stream)
         launches += 1
         launches_bf16 += 1
+        launches_wide += int(fused_mlp.is_wide(model))
         return grads
     wg, ps = tf32_backward_pass(lib, model, pts, viewdirs, g, log_sampling_xyz=log_sampling_xyz,
                                 log_sampling_dir=log_sampling_dir)

@@ -7,14 +7,19 @@ CUDA tensor, :func:`fused_render` launches a hand-written kernel built by
 work plan :func:`render_plan`: ``ops/csrc/fused_render.cu`` (split-TF32
 ``wgmma``: every f32 operand as hi + lo, three products each, f32
 accumulators) at float32, ``ops/csrc/fused_render_bf16.cu`` (bf16
-``wgmma``, f32 chain) at bfloat16. On a CPU tensor it runs
+``wgmma``, f32 chain) at bfloat16, where a model wider than 128
+(:func:`is_wide`) takes that source's wide route (the layers in shared
+memory, ``ops/csrc/mlp_wide_bf16.cuh``). Widths: any up to
+:data:`MAX_HIDDEN` at float32 and up to :data:`MAX_HIDDEN_BF16` at
+bfloat16 (:func:`check_width`). On a CPU tensor it runs
 :func:`fused_render_reference`, the plain PyTorch version of the same
 contract. There is no fallback between
 them: a CUDA call that cannot launch its dtype's kernel raises.
 
-``launches`` counts kernel launches of either dtype and ``launches_bf16``
-those of the bf16 kernel (+1 per launch, nowhere else), so a run can show
-which kernel its path went through.
+``launches`` counts kernel launches of either dtype, ``launches_bf16``
+those of the bf16 kernel and ``launches_wide`` those of its wide route (+1
+per launch, nowhere else), so a run can show which kernel its path went
+through.
 """
 
 from __future__ import annotations
@@ -39,14 +44,19 @@ from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
 from dexnerf_tpu_torch.render.renderer import RayBatch, RenderResult, RenderSettings
 
 launches = 0  # kernel-1 launches of either dtype
-launches_bf16 = 0  # of which the bf16 kernel's
+launches_bf16 = 0  # of which the bf16 route's (narrow or wide)
+launches_wide = 0  # of which the wide bf16 kernel's
 
 # limits of both routes' kernels (kMax*)
 MAX_LAYERS = 40
 MAX_FREQ = 16
 MAX_THRESHOLDS = 64
 MAX_SAMPLES = 256
-MAX_HIDDEN = 128
+MAX_HIDDEN = 128  # the float32 route's widths (wider: ROADMAP Queue 2 item 6b)
+NARROW_HIDDEN = 128  # padded widths of the narrow bf16 tile; wider ones take the wide route
+# the bf16 route's widths: the largest padded width whose wide plans fit
+# (wide_fits at the kernels' largest encodings; kWideMaxHidden)
+MAX_HIDDEN_BF16 = 576
 SHARED_BYTES_LIMIT = 232448  # per block on Hopper
 # of ops/csrc/fused_render_bf16.cu (kTile, kKc, kMaxUnitRows, kMaxRpu, kCons)
 BF16_TILE = 64
@@ -130,10 +140,80 @@ def _k_chunks(w: torch.Tensor, k: int, n: Optional[int] = None,
 
 def bf16_hidden(hidden: int) -> int:
     """The width the bf16 kernels compute at: ``hidden`` zero-padded to a
-    multiple of 32 (their instances: 32, 64, 96 and 128, each a wgmma width
-    with one for the viewdir layer's half). The padding is exact: a padded
-    unit computes ReLU(0 + 0) = 0 and meets zero weight rows."""
+    multiple of 32 (the narrow tile's instances: 32, 64, 96 and 128, each a
+    wgmma width with one for the viewdir layer's half; the wide route takes
+    every multiple of 32 above, up to :data:`MAX_HIDDEN_BF16`). The padding
+    is exact: a padded unit computes ReLU(0 + 0) = 0 and meets zero weight
+    rows."""
     return _round_up(hidden, 32)
+
+
+def is_wide(model: FlexibleNeRFModel) -> bool:
+    """Whether the bf16 kernels run ``model`` on the wide route
+    (``ops/csrc/mlp_wide_bf16.cuh``: padded widths above 128)."""
+    return bf16_hidden(model.hidden_size) > NARROW_HIDDEN
+
+
+def check_width(hidden: int, compute_dtype, what: str) -> None:
+    """The widths the kernels take: any up to :data:`MAX_HIDDEN` at float32
+    and up to :data:`MAX_HIDDEN_BF16` at bfloat16 (both computed at
+    :func:`bf16_hidden`)."""
+    if hidden < 1:
+        raise ValueError(f"hidden_size {hidden}: {what} takes widths from 1")
+    if compute_dtype == torch.float32 and hidden > MAX_HIDDEN:
+        raise ValueError(
+            f"hidden_size {hidden}: {what} takes widths up to {MAX_HIDDEN} at float32 "
+            f"(wider float32 kernels are ROADMAP Queue 2 item 6b; bfloat16 takes up to "
+            f"{MAX_HIDDEN_BF16})")
+    if bf16_hidden(hidden) > MAX_HIDDEN_BF16:
+        raise ValueError(
+            f"hidden_size {hidden}: {what} takes widths up to {MAX_HIDDEN_BF16} at bfloat16 "
+            "(the wide route's shared-memory plans; wider is ROADMAP Queue 2 item 6b)")
+
+
+# of ops/csrc/mlp_wide_bf16.cuh (kWide*)
+WIDE_STAGE = 128 * 128
+WIDE_MAX_CONS = 2
+WIDE_MAX_STAGES = 8
+WIDE_MIN_STAGES = 2
+
+
+def wide_plan(cons_bytes: int) -> Optional[Tuple[int, int, int]]:
+    """(consumers, ring stages, shared bytes) of a wide kernel whose
+    consumers take ``cons_bytes`` each (``wide_plan`` there): the most
+    consumers, then the most stages that fit; None if none fits."""
+    for cons in range(WIDE_MAX_CONS, 0, -1):
+        for ns in range(WIDE_MAX_STAGES, WIDE_MIN_STAGES - 1, -1):
+            total = 1024 + ns * (WIDE_STAGE + 16) + cons * cons_bytes
+            if total <= SHARED_BYTES_LIMIT:
+                return cons, ns, total
+    return None
+
+
+def wide_cons_bytes(hp: int, kx: int, dd: int, n_samples: Optional[int] = None) -> dict:
+    """Each wide kernel's bytes a consumer at padded width ``hp`` with ``kx``
+    encoding K-chunks (``*_cons_bytes`` there): the training forward, the
+    chain and, for ``n_samples``, the render kernel on its plan's unit."""
+    act = 2 * -(-hp // BF16_KCHUNK) * BF16_TILE * 128
+
+    def a1024(x):
+        return _round_up(x, 1024)
+
+    out = {"forward": a1024(act + kx * BF16_TILE * 128 + BF16_TILE * 16),
+           "chain": a1024(act + BF16_TILE * 16 + 16 * hp)}
+    if n_samples is not None:
+        rp = render_plan(1, n_samples, 1)
+        out["render"] = a1024(act + kx * BF16_TILE * 128 + rp.rows_per_unit * 24
+                              + rp.rays_per_unit * (hp // 2 + dd) * 4)
+    return out
+
+
+def wide_fits(hp: int, kx: int, dd: int) -> bool:
+    """Whether every wide kernel's plan fits at padded width ``hp`` for
+    every number of samples the render kernel takes."""
+    return all(wide_plan(b) is not None
+               for S in range(1, MAX_SAMPLES + 1)
+               for b in wide_cons_bytes(hp, kx, dd, S).values())
 
 
 def _pad_vec(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -500,11 +580,11 @@ def plan_workers(plan: RenderPlan) -> List[List[int]]:
 
 
 # (C entry, its shape arguments, device) -> (CTAs per SM, shared-memory bytes
-# per CTA, weight ring stages)
+# per CTA, weight ring stages[, consumer warpgroups])
 _residency = {}
 
 
-def _occupancy(entry: str, *args: int) -> Tuple[int, int, int]:
+def _occupancy(entry: str, *args: int, n_out: int = 3) -> tuple:
     """The residency that the C query ``entry`` reports for a render kernel
     at the shape ``args``, once per shape and device."""
     from dexnerf_tpu_torch.ops._build import check, load_library
@@ -512,7 +592,7 @@ def _occupancy(entry: str, *args: int) -> Tuple[int, int, int]:
     key = (entry, *args, torch.cuda.current_device())
     if key not in _residency:
         lib = load_library()
-        out = [ctypes.c_int(0) for _ in range(3)]
+        out = [ctypes.c_int(0) for _ in range(n_out)]
         check(lib, getattr(lib, entry)(*args, *map(ctypes.byref, out)), f"{entry} query")
         if out[0].value < 1:
             raise RuntimeError(f"{entry}: the render kernel does not fit on an SM "
@@ -533,6 +613,15 @@ def bf16_occupancy(model: FlexibleNeRFModel, n_samples: int) -> Tuple[int, int, 
     and the launcher report them (needs the card)."""
     return _occupancy("dexnerf_fused_render_bf16_occupancy", *_kernel_shape(model, n_samples),
                       sum(1 << i for i in model.skips))
+
+
+def wide_occupancy(model: FlexibleNeRFModel, n_samples: int) -> Tuple[int, int, int, int]:
+    """(CTAs per SM, shared-memory bytes per CTA, weight ring stages,
+    consumer warpgroups) of the wide bf16 kernel (padded widths above 128)
+    for ``model`` at ``n_samples`` per ray (needs the card); its consumers
+    are the render plan's workers a CTA."""
+    return _occupancy("dexnerf_fused_render_bf16_wide_occupancy",
+                      *_kernel_shape(model, n_samples), n_out=4)
 
 
 def tf32_occupancy(model: FlexibleNeRFModel, n_samples: int) -> Tuple[int, int, int]:
@@ -575,11 +664,9 @@ def _check_inputs(model, dev, tensors, N: int, S: int, T: int, compute_dtype) ->
             )
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-    H = model.hidden_size
-    # both routes take multiples of 8 up to 128, computed at bf16_hidden(H);
-    # their shared-memory requests are checked by the launch
-    if H > MAX_HIDDEN or H % 8 or H < 8:
-        raise ValueError(f"hidden_size {H}: the kernel takes multiples of 8 up to {MAX_HIDDEN}")
+    # every width up to the dtype's limit, computed at bf16_hidden(H); the
+    # shared-memory requests are checked by the launch
+    check_width(model.hidden_size, compute_dtype, "the fused render kernel")
     if not 1 <= S <= MAX_SAMPLES:
         raise ValueError(f"{S} samples per ray: the kernel takes 1..{MAX_SAMPLES}")
     if T > MAX_THRESHOLDS:
@@ -600,7 +687,7 @@ def _launch(
     model, origins, directions, viewdirs, z_vals, dists, *, thresholds,
     white_background, log_sampling_xyz, log_sampling_dir, compute_dtype,
 ) -> VolumeRenderOutputs:
-    global launches, launches_bf16
+    global launches, launches_bf16, launches_wide
     from dexnerf_tpu_torch.ops._build import check, load_library
 
     N, S = z_vals.shape
@@ -642,10 +729,15 @@ def _launch(
     pe = (model.num_encoding_fn_xyz, int(model.include_input_xyz), bx_ptr,
           model.num_encoding_fn_dir, int(model.include_input_dir), bd_ptr, T, th_ptr)
     bf16 = compute_dtype == torch.bfloat16
+    wide = bf16 and is_wide(model)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if bf16:
+    if bf16:  # the launcher picks the narrow or the wide kernel by the width
         wq, aux, offsets = _cached_bf16_weights(model, dev)
-        plan = render_plan(N, S, sms * bf16_occupancy(model, S)[0])
+        if wide:
+            ctas, _, _, cons = wide_occupancy(model, S)
+            plan = render_plan(N, S, sms * ctas, cons)
+        else:
+            plan = render_plan(N, S, sms * bf16_occupancy(model, S)[0])
         entry, what = lib.dexnerf_fused_render_bf16, "fused_render bf16 kernel launch"
     else:
         wq, aux, offsets = _cached_tf32_weights(model, dev)
@@ -659,6 +751,7 @@ def _launch(
         *pe, off_ptr, int(bool(white_background)), stream,
     )
     check(lib, code, what)
+    launches_wide += int(wide)
     launches_bf16 += int(bf16)
     launches += 1
     return VolumeRenderOutputs(

@@ -62,15 +62,22 @@ warpgroup in a fixed order, and the weight gradients on ``wgmma`` by the
 plan of :func:`dw_plan` (each scratch block read once per unit, TMA boxes,
 equal shares of the bytes per CTA, one slot per CTA and unit); one
 fixed-order reduction: bitwise-repeatable runs. Widths that are not a multiple of 32 run
-zero-padded to one. The same kernels, with :func:`bf16_args` and
+zero-padded to one. Padded widths above 128, up to
+:data:`~dexnerf_tpu_torch.ops.fused_render.MAX_HIDDEN_BF16`, take the wide
+route: the forward and the chain on ``ops/csrc/mlp_wide_bf16.cuh``'s tile
+(the layers in shared memory, column blocks of at most 128), the dW plan's
+units split to the kernel's limits (:func:`dw_split`) and launched in parts
+(:func:`_cached_dw_parts`) with a fresh accumulator a stage. The f32 route
+takes widths up to 128 (wider: ROADMAP Queue 2 item 6b). The same kernels,
+with :func:`bf16_args` and
 :class:`Bf16Gradients`, are the bf16 routes of the field kernels (kernel 2
 forward, kernel 3 backward: ``ops/fused_mlp.py``, ``ops/fused_mlp_train.py``).
 Measured times: ``PERF.md``.
 
-``launches`` counts kernel-4 passes of either route and ``launches_bf16``
-those of the bf16 route (+1 per pass, where the pass launches its group of
-``__global__`` kernels; nowhere else), so a run can show which kernel its
-path went through.
+``launches`` counts kernel-4 passes of either route, ``launches_bf16``
+those of the bf16 route and ``launches_wide`` those of its wide route (+1
+per pass, where the pass launches its group of ``__global__`` kernels;
+nowhere else), so a run can show which kernel its path went through.
 """
 
 from __future__ import annotations
@@ -102,8 +109,10 @@ from dexnerf_tpu_torch.ops.fused_render import (
     _tf32_chunks,
     bf16_hidden,
     check_fusable,
+    check_width,
     gather_params,
     gather_plan,
+    is_wide,
     tf32_split,
 )
 from dexnerf_tpu_torch.ops.resample import make_fused_resample
@@ -115,7 +124,8 @@ from dexnerf_tpu_torch.render.renderer import (
 )
 
 launches = 0  # kernel-4 passes of either route
-launches_bf16 = 0  # of which the bf16 route's
+launches_bf16 = 0  # of which the bf16 route's (narrow or wide)
+launches_wide = 0  # of which the wide bf16 kernels'
 
 # samples of activation/cotangent scratch per chunk of rays
 SCRATCH_SAMPLES = 1 << 18
@@ -124,7 +134,6 @@ SLOTS = 64
 MAX_LAYERS = 40
 MAX_FREQ = 16
 MAX_SAMPLES = 256
-MAX_HIDDEN = 128
 # of ops/csrc/fused_train_loss_bf16.cu (kMaxBlocks, kDw*)
 MAX_BLOCKS = MAX_LAYERS + 8
 DW_BOX = 64
@@ -132,7 +141,9 @@ DW_MAX_MAPS = 2 * MAX_LAYERS - 8
 DW_MAX_UNITS = 36
 DW_MAX_BOXES = 6
 DW_MAX_BLOCKS = 8
+DW_MAX_PARTS = 8  # launches of a plan in parts (kDwMaxParts)
 DW_SMEM_MAX = 232448
+WIDE_BOX_ROWS = 128  # rows of the wide chain's weight boxes
 CHAIN_KCHUNK = 64  # K of a chain weight chunk (one [Hp][64] TMA box)
 ENC_PAD = 32  # the scratch's encoding block: dim_xyz padded to a multiple (kEncPad)
 # the f32 pass's kernels (``parts`` bits of ops/csrc/fused_train_loss.cu): prep,
@@ -330,7 +341,7 @@ def fused_pass_loss_reference(
     return loss.detach(), out.weights.detach(), out.rgb.detach(), grads
 
 
-def _check_inputs(model, dev, tensors, S: int) -> None:
+def _check_inputs(model, dev, tensors, S: int, compute_dtype) -> None:
     check_fusable(model, "the fused loss kernel")
     for name, t, shape in tensors:
         if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
@@ -343,9 +354,7 @@ def _check_inputs(model, dev, tensors, S: int) -> None:
     for p in model.parameters():
         if p.device != dev or p.dtype != torch.float32:
             raise ValueError(f"model parameters must be float32 on {dev}")
-    H = model.hidden_size
-    if H > MAX_HIDDEN or H % 8 or H < 8:
-        raise ValueError(f"hidden_size {H}: the kernel takes multiples of 8 up to {MAX_HIDDEN}")
+    check_width(model.hidden_size, compute_dtype, "the fused loss kernel")
     if not 1 <= S <= MAX_SAMPLES:
         raise ValueError(f"{S} samples per ray: the kernel takes 1..{MAX_SAMPLES}")
     nt = model.num_layers - 1
@@ -575,7 +584,7 @@ def _launch(
         tensors.append(("noise", noise, (N, S)))
     if depth_gt is not None:
         tensors += [("depth_gt", depth_gt, (N,)), ("depth_coef", depth_coef, (N,))]
-    _check_inputs(model, dev, tensors, S)
+    _check_inputs(model, dev, tensors, S, torch.float32)
     lib = load_library()
 
     s_pad = s_pad_of(S)
@@ -655,8 +664,8 @@ class _DwArgs(ctypes.Structure):
         ("partial", ctypes.c_void_p),
         ("n_params", ctypes.c_int64),
     ] + [(name, ctypes.c_int32) for name in (
-        "n_units", "total_cost", "grid", "max_pieces", "n_stages", "stage_bytes")] + [
-        ("pad", ctypes.c_int32 * 6),
+        "n_units", "total_cost", "grid", "max_pieces", "n_stages", "stage_bytes", "fresh")] + [
+        ("pad", ctypes.c_int32 * 5),
     ]
 
 
@@ -702,10 +711,46 @@ def dw_unit(widths, products) -> DwUnit:
                 if k == d and kb == x and n0 < n and m0 < m:
                     blocks.append((ia, len(a) + ib, off + n0 * ldw + m0, ldw,
                                    min(DW_BOX, n - n0), min(DW_BOX, m - m0)))
-    cost = sum(min(DW_BOX, widths[k] - c) * 2 // 16 for k, c in a + b)
-    tx = sum(64 * 8 * 2 if widths[k] == 8 else DW_BOX * DW_BOX * 2 for k, _ in a + b)
+    return _dw_unit_of(widths, a, b, blocks)
+
+
+def _dw_unit_of(widths, a, b, blocks) -> DwUnit:
+    """The unit of boxes ``a`` (cotangent) and ``b`` (activation) with
+    output ``blocks``: its cost and stage bytes."""
+    cost = sum(min(DW_BOX, widths[k] - c) * 2 // 16 for k, c in (*a, *b))
+    tx = sum(64 * 8 * 2 if widths[k] == 8 else DW_BOX * DW_BOX * 2 for k, _ in (*a, *b))
     return DwUnit(tuple(a), tuple(b), tuple(blocks), cost, tx,
                   tuple(widths[k] == 8 for k, _ in a))
+
+
+def dw_split(widths, d, x, off, ldw, n, m) -> list:
+    """The product dW[n][m] = d^T x (scratch blocks d and x) as units
+    within the kernel's limits (at most DW_MAX_BOXES boxes, DW_MAX_BLOCKS
+    output blocks): the boxes of d that hold rows below n in groups of ga,
+    by those of x in groups of gb, ga and gb those that give the fewest
+    units, then the fewest boxes read. For the wide route, whose products
+    have up to 9 x 9 boxes."""
+    na = -(-min(n, widths[d]) // DW_BOX)
+    nb = -(-min(m, widths[x]) // DW_BOX)
+    best = None
+    for ga in range(1, DW_MAX_BOXES):
+        for gb in range(1, DW_MAX_BOXES + 1 - ga):
+            if ga * gb <= DW_MAX_BLOCKS:
+                ua, ub = -(-na // ga), -(-nb // gb)
+                key = (ua * ub, ub * na + ua * nb)
+                if best is None or key < best[0]:
+                    best = (key, ga, gb)
+    _, ga, gb = best
+    units = []
+    for a0 in range(0, na, ga):
+        for b0 in range(0, nb, gb):
+            a = [(d, DW_BOX * i) for i in range(a0, min(na, a0 + ga))]
+            b = [(x, DW_BOX * i) for i in range(b0, min(nb, b0 + gb))]
+            blocks = [(ia, len(a) + ib, off + n0 * ldw + m0, ldw, min(DW_BOX, n - n0),
+                       min(DW_BOX, m - m0))
+                      for ia, (_, n0) in enumerate(a) for ib, (_, m0) in enumerate(b)]
+            units.append(_dw_unit_of(widths, a, b, blocks))
+    return units
 
 
 def dw_plan(model: FlexibleNeRFModel) -> Tuple[DwUnit, ...]:
@@ -716,8 +761,10 @@ def dw_plan(model: FlexibleNeRFModel) -> Tuple[DwUnit, ...]:
     i (d_{i+1} x a_i, and on a skip layer d_{i+1} x e, the cotangent read
     once: e is the narrower operand to read twice); fc_feat and fc_alpha
     (sharing a_last); layers_dir.0's feat rows (d_y x feat) with fc_rgb
-    (d_rgb x y), a unit too small alone. The viewdir rows of layers_dir.0
-    and the biases are the chain's (:func:`_aux_map`)."""
+    (d_rgb x y), a unit too small alone. A unit over the kernel's limits
+    (the wide route's) becomes its products split by :func:`dw_split`. The
+    viewdir rows of layers_dir.0 and the biases are the chain's
+    (:func:`_aux_map`)."""
     H, nt, dx, dd = model.hidden_size, model.num_layers - 1, model.dim_xyz, model.dim_dir
     _, _, act_w, dlt_w = _scratch_layout(model)
     widths = act_w + dlt_w
@@ -726,22 +773,24 @@ def dw_plan(model: FlexibleNeRFModel) -> Tuple[DwUnit, ...]:
 
     def unit(products):
         """products: (cotangent block, activation block, param, ldw, col_off, N, M)."""
-        return dw_unit(widths, [(d, x, offs[name] + col_off, ldw, n, m)
-                                for d, x, name, ldw, col_off, n, m in products])
+        prods = [(d, x, offs[name] + col_off, ldw, n, m)
+                 for d, x, name, ldw, col_off, n, m in products]
+        u = dw_unit(widths, prods)
+        if len(u.a) + len(u.b) <= DW_MAX_BOXES and len(u.blocks) <= DW_MAX_BLOCKS:
+            return [u]
+        return [v for p in prods for v in dw_split(widths, *p)]
 
-    units = [unit([(dlt, 0, "layer1.weight", dx, 0, H, dx)])]
+    units = unit([(dlt, 0, "layer1.weight", dx, 0, H, dx)])
     for i, lin in enumerate(model.layers_xyz):
         name, ldw = f"layers_xyz.{i}.weight", lin.in_features
         products = [(dlt + i + 1, 1 + i, name, ldw, 0, H, H)]
         if i in model.skips:
             products.append((dlt + i + 1, 0, name, ldw, H, H, dx))
-        units.append(unit(products))
-    units += [
-        unit([(dlt + nt + 1, nt + 1, "fc_feat.weight", H, 0, H, H),
-              (dlt + nt + 4, nt + 1, "fc_alpha.weight", H, 0, 1, H)]),
-        unit([(dlt + nt + 2, nt + 2, "layers_dir.0.weight", H + dd, 0, H // 2, H),
-              (dlt + nt + 3, nt + 3, "fc_rgb.weight", H // 2, 0, 3, H // 2)]),
-    ]
+        units += unit(products)
+    units += unit([(dlt + nt + 1, nt + 1, "fc_feat.weight", H, 0, H, H),
+                   (dlt + nt + 4, nt + 1, "fc_alpha.weight", H, 0, 1, H)])
+    units += unit([(dlt + nt + 2, nt + 2, "layers_dir.0.weight", H + dd, 0, H // 2, H),
+                   (dlt + nt + 3, nt + 3, "fc_rgb.weight", H // 2, 0, 3, H // 2)])
     return tuple(units)
 
 
@@ -778,17 +827,36 @@ def dw_max_pieces(costs, grid: int) -> int:
     return min(grid, max(-(-c * grid // sum(costs)) + 1 for c in costs))
 
 
-# (widths, depth, skips, encodings, grid) -> (_DwArgs of the plan without the
-# tensor maps and slots, the kernel's shared-memory bytes)
+# (widths, depth, skips, encodings, grid) -> the plan's parts, each (_DwArgs of
+# its units without the tensor maps and slots, the kernel's shared-memory bytes)
 _dw_templates = {}
 
 
-def _cached_dw_template(model: FlexibleNeRFModel, grid: int):
+def _cached_dw_parts(model: FlexibleNeRFModel, grid: int) -> list:
+    """:func:`dw_plan` in parts of at most DW_MAX_UNITS units, each launched
+    on its own (one part up to a padded width of 128), as
+    :func:`dw_template`s; on the wide route each stage's products go into a
+    fresh accumulator (``fresh``), added to the sum in f32."""
     key = (model.hidden_size, model.num_layers, tuple(model.skips), model.dim_xyz,
            model.dim_dir, grid)
     if key not in _dw_templates:
-        _dw_templates[key] = dw_template(dw_plan(model), grid)
+        units = dw_plan(model)
+        parts = [dw_template(units[i:i + DW_MAX_UNITS], grid)
+                 for i in range(0, len(units), DW_MAX_UNITS)]
+        for args, _ in parts:  # the wide route's small units run long: fresh accumulators
+            args.fresh = int(is_wide(model))
+        if len(parts) > DW_MAX_PARTS:
+            raise ValueError(f"{len(units)} weight-gradient units: the bf16 kernels take at "
+                             f"most {DW_MAX_PARTS * DW_MAX_UNITS} (a shallower or narrower "
+                             "model)")
+        _dw_templates[key] = parts
     return _dw_templates[key]
+
+
+def _cached_dw_template(model: FlexibleNeRFModel, grid: int):
+    """The first part of :func:`_cached_dw_parts` (the whole plan up to a
+    padded width of 128)."""
+    return _cached_dw_parts(model, grid)[0]
 
 
 def dw_template(units, grid: int):
@@ -927,7 +995,10 @@ def bf16_occupancy(model: FlexibleNeRFModel) -> dict:
     device): ``forward`` (kernels 4 and 3, saving the activations) and
     ``field_forward`` (kernel 2) as (CTAs per SM, shared bytes per CTA,
     weight ring stages, staging tiles per consumer warpgroup); ``chain`` and
-    ``dw`` as (CTAs per SM, shared bytes per CTA)."""
+    ``dw`` as (CTAs per SM, shared bytes per CTA). On the wide route
+    (:func:`~dexnerf_tpu_torch.ops.fused_render.is_wide`) ``forward``,
+    ``field_forward`` and ``chain`` are (CTAs per SM, shared bytes per CTA,
+    ring stages, consumer warpgroups)."""
     from dexnerf_tpu_torch.ops._build import check, load_library
 
     dev = torch.cuda.current_device()
@@ -935,18 +1006,26 @@ def bf16_occupancy(model: FlexibleNeRFModel) -> dict:
            model.dim_dir, dev)
     if key not in _residency:
         lib = load_library()
-        out = (ctypes.c_int * 10)()
-        code = lib.dexnerf_train_bf16_occupancy(key[0], model.dim_xyz, model.num_layers - 1,
-                                                model.dim_dir, sum(1 << i for i in model.skips),
-                                                ctypes.addressof(out))
-        check(lib, code, "fused_train_loss bf16 occupancy query")
+        shape = (key[0], model.dim_xyz, model.num_layers - 1, model.dim_dir,
+                 sum(1 << i for i in model.skips))
+        if is_wide(model):  # each kernel's 4th entry: its consumer warpgroups
+            out = (ctypes.c_int * 12)()
+            check(lib, lib.dexnerf_train_bf16_wide_occupancy(*shape, ctypes.addressof(out)),
+                  "fused_train_loss wide bf16 occupancy query")
+            res = {"forward": tuple(out[0:4]), "field_forward": tuple(out[4:8]),
+                   "chain": tuple(out[8:12])}
+        else:
+            out = (ctypes.c_int * 10)()
+            check(lib, lib.dexnerf_train_bf16_occupancy(*shape, ctypes.addressof(out)),
+                  "fused_train_loss bf16 occupancy query")
+            res = {"forward": tuple(out[0:4]), "field_forward": tuple(out[4:8]),
+                   "chain": tuple(out[8:10])}
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        dw_smem = _cached_dw_template(model, sms)[1]
+        dw_smem = max(smem for _, smem in _cached_dw_parts(model, sms))
         dw = ctypes.c_int(0)
         check(lib, lib.dexnerf_train_bf16_dw_occupancy(dw_smem, ctypes.byref(dw)),
               "bf16 weight-gradient occupancy query")
-        _residency[key] = {"forward": tuple(out[0:4]), "field_forward": tuple(out[4:8]),
-                           "chain": tuple(out[8:10]), "dw": (dw.value, dw_smem)}
+        _residency[key] = {**res, "dw": (dw.value, dw_smem)}
     return _residency[key]
 
 
@@ -1033,25 +1112,35 @@ class Bf16Gradients:
         self.scratch = torch.empty(rows * (sum(act_w) + sum(dlt_w)), dtype=torch.bfloat16,
                                    device=dev)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        # the chain's slots: two consumer warpgroups per CTA, one CTA per SM
-        self.chain_ctas = 2 * max(1, min(rows // 128, sms))
+        # the chain's slots: a slot per consumer warpgroup (two a CTA on the
+        # narrow route), one CTA per SM
+        cons = bf16_occupancy(model)["chain"][3] if is_wide(model) else 2
+        self.chain_ctas = cons * max(1, min(rows // 128, sms))
         self.aux_part = torch.empty(self.n_chunks * self.chain_ctas * self.n_aux, **f32)
         self.offs, self.n_params = _param_offsets(model)
-        template, _ = _cached_dw_template(model, sms)
-        self.dw_args = _DwArgs.from_buffer_copy(template)
+        # the dW plan's parts (one up to a padded width of 128), each launched
+        # on its own slots, with the same tensor maps
+        parts = _cached_dw_parts(model, sms)
+        self.dw_parts = (_DwArgs * len(parts))(*(t for t, _ in parts))
+        self.dw_args = self.dw_parts[0]
         for i, (off, w) in enumerate(zip(act_off + dlt_off, act_w + dlt_w)):
             check(lib, lib.dexnerf_train_bf16_tensor_map(
                 ctypes.addressof(self.dw_args) + 128 * i, self.scratch.data_ptr() + 2 * off, w,
                 rows, DW_BOX), "bf16 scratch tensor map")
-        self.partial = torch.empty(self.n_chunks * template.max_pieces * self.n_params, **f32)
-        self.dw_args.partial, self.dw_args.n_params = self.partial.data_ptr(), self.n_params
+        self.partials = []
+        for a in self.dw_parts:
+            ctypes.memmove(a.maps, self.dw_args.maps, ctypes.sizeof(a.maps))
+            self.partials.append(torch.empty(self.n_chunks * a.max_pieces * self.n_params, **f32))
+            a.partial, a.n_params = self.partials[-1].data_ptr(), self.n_params
+        self.partial = self.partials[0]
         self.grad = torch.empty(self.n_params, **f32)
         self.wbq = pack_backward_weights_bf16(model, dev)
         self.chain_maps = _ChainMaps()
         ctypes.memmove(self.chain_maps.blocks, self.dw_args.maps, ctypes.sizeof(self.dw_args.maps))
         check(lib, lib.dexnerf_train_bf16_tensor_map(
             ctypes.addressof(self.chain_maps), self.wbq.data_ptr(), CHAIN_KCHUNK,
-            self.wbq.numel() // CHAIN_KCHUNK, Hp), "bf16 backward-pack tensor map")
+            self.wbq.numel() // CHAIN_KCHUNK, min(Hp, WIDE_BOX_ROWS)),
+            "bf16 backward-pack tensor map")
         args.scratch, args.wbq = self.scratch.data_ptr(), self.wbq.data_ptr()
         args.act_off[:len(act_off)] = act_off
         args.dlt_off[:len(dlt_off)] = dlt_off
@@ -1071,9 +1160,10 @@ class Bf16Gradients:
         tiles of scratch rows: 2 ``tiles`` stages of 64)."""
         from dexnerf_tpu_torch.ops._build import check
 
-        check(self.lib, self.lib.dexnerf_train_bf16_dw(ctypes.addressof(self.dw_args), 2 * tiles,
-                                                       c, stream),
-              "bf16 weight-gradient launch")
+        for a in self.dw_parts:
+            check(self.lib, self.lib.dexnerf_train_bf16_dw(ctypes.addressof(a), 2 * tiles, c,
+                                                           stream),
+                  "bf16 weight-gradient launch")
 
     def reduce(self, stream: int, loss_ray=None, loss=None) -> tuple:
         """Sum the slots (and ``loss_ray`` [N] into ``loss`` [] when given);
@@ -1083,7 +1173,7 @@ class Bf16Gradients:
 
         last = self.n_rays - (self.n_chunks - 1) * self.chunk
         check(self.lib, self.lib.dexnerf_train_bf16_reduce(
-            ctypes.addressof(self.dw_args), self.n_chunks, self.rows // 64,
+            ctypes.addressof(self.dw_parts), len(self.dw_parts), self.n_chunks, self.rows // 64,
             2 * -(-last * self.S // 128),
             self.aux_part.data_ptr(), self.n_chunks * self.chain_ctas, self.n_aux,
             self.bmap.data_ptr(), self.grad.data_ptr(),
@@ -1098,7 +1188,7 @@ def _launch_bf16(
     depth_gt, depth_coef, *, white_background, supervision, log_sampling_xyz,
     log_sampling_dir,
 ):
-    global launches, launches_bf16
+    global launches, launches_bf16, launches_wide
     from dexnerf_tpu_torch.ops._build import check, load_library
 
     N, S = z_vals.shape
@@ -1115,7 +1205,7 @@ def _launch_bf16(
         tensors.append(("noise", noise, (N, S)))
     if depth_gt is not None:
         tensors += [("depth_gt", depth_gt, (N,)), ("depth_coef", depth_coef, (N,))]
-    _check_inputs(model, dev, tensors, S)
+    _check_inputs(model, dev, tensors, S, torch.bfloat16)
     lib = load_library()
     chunk = max(1, min(N, SCRATCH_SAMPLES // S))
     args, keep = bf16_args(lib, model, chunk, S, log_sampling_xyz=log_sampling_xyz,
@@ -1150,6 +1240,7 @@ def _launch_bf16(
     grads = wg.reduce(stream, loss_ray, loss)
     launches += 1
     launches_bf16 += 1
+    launches_wide += int(is_wide(model))
     return loss, weights, rgb, grads
 
 

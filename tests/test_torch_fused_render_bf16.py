@@ -465,11 +465,12 @@ GPU_ATOL = {"rgb": 1e-3, "accumulation": 1e-3, "disparity": None, "weights": 2e-
             "depth": 2e-2}
 # At 256 samples per ray one such flip moves a ray's accumulation by up to
 # 1.6e-3 on the card-test inputs, for the earlier mma.sync kernel as for
-# this one (the same 2 rays, to 1e-6). Those rays are held, as chip_smoke.py
-# holds a frame (BF16_*), relative to the dtype's own effect: the kernel's
-# distance to the bf16 plain version at most the bf16 plain version's to
-# the f32 one ("own"), and its distance to the f32 plain version at most
-# 1.5 x own, each + 1e-5.
+# this one (the same 2 rays, to 1e-6); in a model wider than 128 (the wide
+# route) by up to 3.1e-3 at 128 samples (2 of 301 rays at 8x256). Those
+# rays are held, as chip_smoke.py holds a frame (BF16_*), relative to the
+# dtype's own effect: the kernel's distance to the bf16 plain version at
+# most the bf16 plain version's to the f32 one ("own"), and its distance to
+# the f32 plain version at most 1.5 x own, each + 1e-5.
 OWN_REL, OWN_ATOL = 1.5, 1e-5
 
 
@@ -490,14 +491,21 @@ OWN_REL, OWN_ATOL = 1.5, 1e-5
         (dict(FULL, num_encoding_fn_xyz=16), 128, 5, False, 301),
         (FULL, 256, 20, False, 301),  # held relative to own (see OWN_REL)
         (FULL, 128, 20, False, 3),
+        (dict(FULL, hidden_size=100), 64, 5, False, 301),
+        (dict(FULL, hidden_size=136), 64, 5, True, 301),
+        (dict(FULL, hidden_size=256), 128, 20, False, 301),
+        (dict(FULL, hidden_size=256), 64, 0, False, 3),
     ],
     ids=["tiny", "full-64", "full-128", "full-192", "h96-100", "h16-64", "h48-128", "h32-64",
-         "h64-128", "pe16-128", "full-256", "full-128-3rays"],
+         "h64-128", "pe16-128", "full-256", "full-128-3rays", "h100-64", "wide-h136-64",
+         "wide-h256-128", "wide-h256-64-3rays"],
 )
 def test_bf16_kernel_matches_plain_on_card(cuda, arch, S, T, white, n_rays):
-    """The kernel vs the bf16 plain version, at widths 16-128 (16, 48 and 96
-    zero-padded), PE up to 16 frequencies (a 99-wide encoding, two
-    K-chunks), 8-256 samples per ray, and a frame of fewer rays than SMs."""
+    """The kernel vs the bf16 plain version, at widths 16-128 (16, 48, 96
+    and 100 zero-padded), PE up to 16 frequencies (a 99-wide encoding, two
+    K-chunks), 8-256 samples per ray, and a frame of fewer rays than SMs;
+    and the wide route (padded widths above 128: 136 padded to 160, 256),
+    whose launches ``launches_wide`` counts."""
     m = FlexibleNeRFModel(**arch).reset_parameters(torch.Generator().manual_seed(0))
     ro, rd, vd, near, far = (torch.tensor(a, device=cuda) for a in _rays(n=n_rays, seed=9))
     m = m.to(cuda)
@@ -512,14 +520,16 @@ def test_bf16_kernel_matches_plain_on_card(cuda, arch, S, T, white, n_rays):
     dists = ray_dists(z, rd)
     thr = tuple(5.0 * (i + 1) for i in range(T))
     kw = dict(thresholds=thr, white_background=white, compute_dtype=BF16)
-    before, before_bf16 = fr.launches, fr.launches_bf16
+    before, before_bf16, before_wide = fr.launches, fr.launches_bf16, fr.launches_wide
     with torch.inference_mode():
         got = fr.fused_render(m, ro, rd, vd, z, dists, **kw)
         again = fr.fused_render(m, ro, rd, vd, z, dists, **kw)
         want = fr.fused_render_reference(m, ro, rd, vd, z, dists, **kw)
     torch.cuda.synchronize()
     assert fr.launches == before + 2 and fr.launches_bf16 == before_bf16 + 2
-    if S == 256:
+    assert fr.launches_wide == before_wide + 2 * int(m.hidden_size > 128)
+    own_rule = S == 256 or m.hidden_size > 128  # see OWN_REL
+    if own_rule:
         with torch.inference_mode():
             f32 = fr.fused_render_reference(m, ro, rd, vd, z, dists,
                                             **dict(kw, compute_dtype=torch.float32))
@@ -527,7 +537,7 @@ def test_bf16_kernel_matches_plain_on_card(cuda, arch, S, T, white, n_rays):
         a, b = getattr(got, f), getattr(want, f)
         assert bool(torch.isfinite(a).all()), f
         assert torch.equal(a, getattr(again, f)), f  # deterministic
-        if S == 256 and atol is not None:
+        if own_rule and atol is not None:
             own = float((b - getattr(f32, f)).abs().max())
             assert float((a - b).abs().max()) <= own + OWN_ATOL, f
             assert float((a - getattr(f32, f)).abs().max()) <= OWN_REL * own + OWN_ATOL, f
@@ -547,9 +557,15 @@ def test_bf16_kernel_refusals_on_card(cuda):
     ro, rd, vd, near, far = (torch.tensor(a, device=cuda) for a in _rays(n=16))
     z = stratified_z_vals(near, far, 64)
     dists = ray_dists(z, rd)
-    before = fr.launches_bf16
-    with pytest.raises(ValueError, match="multiples of 8 up to 128"):
-        fr.fused_render(m, ro, rd, vd, z, dists, compute_dtype=BF16)
+    before, before_all = fr.launches_bf16, fr.launches
+    # the f32 route takes widths up to 128 (wider: ROADMAP Queue 2 item 6b),
+    # the bf16 route up to MAX_HIDDEN_BF16
+    with pytest.raises(ValueError, match="item 6b"):
+        fr.fused_render(m, ro, rd, vd, z, dists, compute_dtype=torch.float32)
+    too_wide = FlexibleNeRFModel(**dict(FULL, hidden_size=fr.MAX_HIDDEN_BF16 + 1)).to(cuda)
+    with pytest.raises(ValueError, match="item 6b"):
+        fr.fused_render(too_wide, ro, rd, vd, z, dists, compute_dtype=BF16)
+    assert fr.launches == before_all
     m = FlexibleNeRFModel(**FULL).to(cuda)
     with pytest.raises(ValueError, match="contiguous"):
         fr.fused_render(m, ro, rd, vd, z.t().contiguous().t(), dists, compute_dtype=BF16)

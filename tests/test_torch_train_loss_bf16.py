@@ -440,25 +440,30 @@ def _assert_bf16_on_card(model, args, kw, kernel_out):
      (dict(FULL, hidden_size=64), 128, 300), (dict(FULL, hidden_size=96), 64, 300),
      (dict(FULL, num_encoding_fn_xyz=16), 64, 300), (dict(FULL, num_encoding_fn_dir=10), 64, 300),
      (dict(FULL, num_encoding_fn_xyz=16), 100, 300), (FULL, 256, 300), (FULL, 8, 3),
-     (FULL, 7, 301)],
+     (FULL, 7, 301), (dict(FULL, hidden_size=100), 64, 300),
+     (dict(FULL, hidden_size=136), 64, 300), (dict(FULL, hidden_size=256), 128, 300),
+     (dict(FULL, hidden_size=256), 7, 301)],
     ids=["8x128-64", "8x128-128", "h16-64", "h48-128", "8x16-8", "h32-64", "h64-128", "h96-64",
-         "pe16-64", "dir10-64", "pe16-100", "8x128-256", "3rays-8", "rows-not-64"],
+         "pe16-64", "dir10-64", "pe16-100", "8x128-256", "3rays-8", "rows-not-64", "h100-64",
+         "wide-h136-64", "wide-h256-128", "wide-h256-rows-not-64"],
 )
 def test_bf16_kernel_matches_plain_on_card(cuda, arch, s, n, supervision, depth):
-    """Kernel 4's bf16 route against its bf16 plain version: widths 16-128,
-    PE 16 (two encoding K-chunks), S = 8-256, a launch of fewer 64-row
-    tiles than the forward has workers (3 rays x 8 samples) and one whose
-    rows are not a multiple of 64 (301 x 7)."""
+    """Kernel 4's bf16 route against its bf16 plain version: widths 16-128
+    (100 zero-padded to 128), PE 16 (two encoding K-chunks), S = 8-256, a
+    launch of fewer 64-row tiles than the forward has workers (3 rays x 8
+    samples) and one whose rows are not a multiple of 64 (301 x 7); and the
+    wide route (136 padded to 160, 256), counted by ``launches_wide``."""
     m, inp = _card_case(cuda, arch, s, n=n)
     kw = dict(white_background=supervision == "luminance", supervision=supervision)
     args = (inp["origins"], inp["directions"], inp["z_vals"], inp["viewdirs"], inp["dists"],
             inp["noise"], inp["target"],
             *((inp["depth_gt"], inp["depth_coef"]) if depth else ()))
-    before = (ftl.launches, ftl.launches_bf16)
+    before = (ftl.launches, ftl.launches_bf16, ftl.launches_wide)
     loss, w, rgb = ftl.fused_pass_loss(m, *args, **kw, compute_dtype=BF16, dw_dtype=BF16)
     loss.backward()
     torch.cuda.synchronize()
-    assert (ftl.launches, ftl.launches_bf16) == (before[0] + 1, before[1] + 1)
+    assert (ftl.launches, ftl.launches_bf16, ftl.launches_wide) == (
+        before[0] + 1, before[1] + 1, before[2] + int(m.hidden_size > 128))
     grads = [p.grad.clone() for p in m.parameters()]
     _assert_bf16_on_card(m, args, kw, (loss.detach(), w, rgb, grads))
 
@@ -496,9 +501,14 @@ def test_bf16_kernel_refusals_on_card(cuda):
         ftl.fused_pass_loss(m, *args, compute_dtype=BF16, dw_dtype=F32)
     with pytest.raises(ValueError, match="dw_dtype"):
         ftl.fused_pass_loss(m, *args, compute_dtype=F32, dw_dtype=BF16)
+    # the f32 route takes widths up to 128 (wider: ROADMAP Queue 2 item 6b),
+    # the bf16 route up to MAX_HIDDEN_BF16
     wide = FlexibleNeRFModel(**dict(FULL, hidden_size=136)).to(cuda)
-    with pytest.raises(ValueError, match="hidden_size"):
-        ftl.fused_pass_loss(wide, *args, compute_dtype=BF16, dw_dtype=BF16)
+    with pytest.raises(ValueError, match="item 6b"):
+        ftl.fused_pass_loss(wide, *args, compute_dtype=F32, dw_dtype=F32)
+    too_wide = FlexibleNeRFModel(**dict(FULL, hidden_size=fr.MAX_HIDDEN_BF16 + 1)).to(cuda)
+    with pytest.raises(ValueError, match="item 6b"):
+        ftl.fused_pass_loss(too_wide, *args, compute_dtype=BF16, dw_dtype=BF16)
     with pytest.raises(ValueError, match="float32"):
         ftl.fused_pass_loss(m, inp["origins"].double(), *args[1:], compute_dtype=BF16,
                             dw_dtype=BF16)
@@ -536,9 +546,9 @@ def _dw_on_card(ds, ns, a, m):
     check(lib, lib.dexnerf_train_bf16_dw(ctypes.addressof(args), n_st, 0, stream), "dW launch")
     unit_of = torch.full((offs[-1],), -1, dtype=torch.int32, device=dev)
     grad = torch.empty(offs[-1], device=dev)
-    check(lib, lib.dexnerf_train_bf16_reduce(ctypes.addressof(args), 1, n_st, n_st, None, 0, 1,
-                                             unit_of.data_ptr(), grad.data_ptr(), None, 0, None,
-                                             stream), "reduce")
+    check(lib, lib.dexnerf_train_bf16_reduce(ctypes.addressof(args), 1, 1, n_st, n_st, None, 0,
+                                             1, unit_of.data_ptr(), grad.data_ptr(), None, 0,
+                                             None, stream), "reduce")
     torch.cuda.synchronize()
     return [grad[offs[i]:offs[i + 1]].view(n, m) for i, n in enumerate(ns)]
 
