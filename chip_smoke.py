@@ -226,20 +226,36 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    default bf16: kernel 4 (2 wide launches a step), the field path (kernels
    2 and 3, 2 wide launches each a step) and kernel 4 with the fused
    resample (kernel 5 once a step), validation through kernel 1's wide
-   route, every loss finite and falling; the same config at
-   ``pallas_compute_dtype: float32`` refused with ROADMAP Queue 2 item 6b's
-   words before any launch; ``apps.serve`` of the kernel-4 run's ``.ckpt``
+   route, every loss finite and falling; ``apps.serve`` of the kernel-4 run's ``.ckpt``
    answering three frames through kernel 1's wide route; kernel 4 on one
    batch of that run (both passes) and kernels 2-3 on its fine pass held to
    their plain versions by phase 7's rule, kernel 1 on the 400x400
    validation frame by phase 3's; the same at H = 100 (the narrow kernels,
    a width not a multiple of 8; also the f32 routes of kernels 1, 2 and 4),
    136 and 320 on that batch's coarse samples (kernel 1 on its 8192 rays,
-   kernels 2-4 on 512 of them), and every f32 wrapper refusing
-   256 with no launch; each wide kernel's time beside its bound and its
-   products as bf16 ``torch.matmul``, its registers, spills and shared
-   bytes, an 8x256 step's and frame's host-clock time, peak memory and the
-   launches (phase 22 alone: ``python3 perf_tools/phase22_alone.py``).
+   kernels 2-4 on 512 of them), and every f32 wrapper refusing a width
+   above its MAX_HIDDEN (ROADMAP Queue 2 item 6c's words) with no launch;
+   each wide kernel's time beside its bound and its products as bf16
+   ``torch.matmul``, its registers, spills and shared bytes, an 8x256
+   step's and frame's host-clock time, peak memory and the launches (phase
+   22 alone: ``python3 perf_tools/phase22_alone.py``);
+23. the wide f32 route (split TF32, padded widths above 128 up to
+   MAX_HIDDEN): phase 22's 8x256 config at ``pallas_compute_dtype:
+   float32`` (written at run time) on phase 6's scene through
+   ``apps.train`` for 10 steps each: kernel 4 (2 wide f32 launches a step),
+   the field path (kernels 2 and 3, 2 each a step) and kernel 4 with the
+   fused resample, no bf16 launch, validation through kernel 1's wide f32
+   route, every loss finite and falling; ``apps.serve`` of the kernel-4
+   run's ``.ckpt`` answering three frames through it; kernel 4 on one
+   batch of that run (both passes, phase 7's rule), kernels 2-3 on its fine
+   pass (phase 10's raw rule, ``perf_tools/field_f32_rule.py``'s leaves) and
+   kernel 1 on the 400x400 validation frame (phase 3's rule, Dex depths
+   equal on DEX_EQUAL_SHARE of pairs) held to their plain versions; the same
+   at H = 136, 320 and MAX_HIDDEN on that batch's coarse samples; each
+   wide f32 kernel's time beside its split-TF32 bound and its products as
+   f32 ``torch.matmul`` (TF32 off), its registers, spills and shared bytes,
+   an 8x256 step's and frame's host-clock time, peak memory and the
+   launches (phase 23 alone: ``python3 perf_tools/phase23_alone.py``).
 
 Each kernel's line holds its bound: the larger of its FLOPs (multiply-adds
 counted from the model's shapes; compares and arithmetic counted from the
@@ -451,6 +467,17 @@ WIDE_PARTS = {"train_fwd_bf16_kernel": "train_fwd_wide_kernel<4>",
               "train_chain_bf16_kernel": "train_chain_wide_kernel",
               "train_dw_bf16_kernel": "train_dw_bf16_kernel"}
 WIDE_KERNELS = ("fused_render_wide_kernel", "train_fwd_wide_kernel", "train_chain_wide_kernel")
+# phase 23: the wide f32 route at 8x256 (phase 22's config at float32); the
+# widths held on a small batch: 136 (the first past the narrow tile, two
+# consumers), 320 (one consumer) and MAX_HIDDEN (None)
+WIDE_F32_WIDTHS = (136, 320, None)
+WIDE_F32_THRESHOLDS = tuple(5.0 * (i + 1) for i in range(20))  # the 8x256 frame's Dex thresholds
+WIDE_F32_KERNELS = ("fused_render_wide_tf32_kernel", "train_fwd_wide_tf32_kernel",
+                    "train_chain_wide_tf32_kernel", "dw_tf32_kernel")
+# the wide f32 route's training kernels, by name (the profile's parts)
+WIDE_F32_NAMES = ("train_prep_tf32_kernel", "train_fwd_wide_tf32_kernel",
+                  "train_composite_tf32_kernel", "train_chain_wide_tf32_kernel",
+                  "dw_tf32_kernel", "dw_tf32_reduce_kernel", "sum_rays_kernel")
 
 
 def card_line() -> str:
@@ -653,12 +680,13 @@ def kernel_modules():
             "resample": resample, "sample_pdf": sample_pdf}
 
 
-ROUTE_COUNTS = ("bf16", "wide")  # the counters besides ``launches``: bf16 routes, wide ones
+# the counters besides ``launches``: bf16 routes, wide bf16 ones, wide f32 ones
+ROUTE_COUNTS = ("bf16", "wide", "wide_f32")
 
 
 def zero_counts():
     """Set every wrapper's launch counts (``launches``, ``launches_bf16``,
-    ``launches_wide``) to 0."""
+    ``launches_wide``, ``launches_wide_f32``) to 0."""
     for m in kernel_modules().values():
         m.launches = 0
         for route in ROUTE_COUNTS:
@@ -668,7 +696,8 @@ def zero_counts():
 
 def read_counts():
     """Every wrapper's launch counts, by module (``<module>_bf16`` for the
-    bf16 routes, ``<module>_wide`` for the wide bf16 route)."""
+    bf16 routes, ``<module>_wide`` for the wide bf16 route,
+    ``<module>_wide_f32`` for the wide f32 route)."""
     mods = kernel_modules()
     counts = {k: m.launches for k, m in mods.items()}
     for route in ROUTE_COUNTS:
@@ -1167,7 +1196,7 @@ def f32_pass_sizes(model, n, s, owner=4):
     rows = wgr.scratch_rows(model)
     H, nt, dd = model.hidden_size, model.num_layers - 1, model.dim_dir
     hp = bf16_hidden(H)
-    mask_b = 4 * ((nt + 1) * -(-hp // 64) + 1) * 128 / 64  # bytes of mask words a sample
+    mask_b = 4 * ((nt + 1) * -(-hp // 64) + -(-hp // 128)) * 128 / 64  # mask words a sample
     ps, pr = mlp_macs(model)
     l1 = model.dim_xyz * H  # layer1's multiply-adds a sample
     k = n * s
@@ -1192,7 +1221,7 @@ def f32_pass_sizes(model, n, s, owner=4):
     return sizes
 
 
-def f32_pass_parts(prof, passes, ms, tag, owner=4):
+def f32_pass_parts(prof, passes, ms, tag, owner=4, wide=False):
     """The f32 pass kernels of launcher ``owner`` (kernel 4, or kernels 3
     and 2 on the field path: :func:`f32_pass_sizes`) by device ms per step
     from a profile, each beside its bound over ``passes`` ((model, rays,
@@ -1202,7 +1231,9 @@ def f32_pass_parts(prof, passes, ms, tag, owner=4):
     of :func:`pass_yardsticks` under ``tag``); printed and returned as a
     ``parts`` list. Raises if the profile holds events but any of them
     reads 0 ms, or holds one of the FMA kernels they replaced
-    (``train_pass_kernel``, ``field_fwd_kernel``, ``field_bwd_kernel``)."""
+    (``train_pass_kernel``, ``field_fwd_kernel``, ``field_bwd_kernel``).
+    ``wide``: the forward and the chain are the wide route's
+    (``train_fwd_wide_tf32_kernel``, ``train_chain_wide_tf32_kernel``)."""
     sizes = {}  # name -> (bytes, FLOPs at each peak, the peaks)
     for model, n, s in passes:
         for name, (b, ops) in f32_pass_sizes(model, n, s, owner).items():
@@ -1220,7 +1251,10 @@ def f32_pass_parts(prof, passes, ms, tag, owner=4):
         if name not in sizes:
             continue
         # the templates carry the launcher's tag: train_fwd_tf32_kernel<3, 8>
-        frag = name if name == "train_composite_tf32_kernel" else f"{name}<{owner}"
+        kname = name
+        if wide and name in ("train_fwd_tf32_kernel", "train_chain_tf32_kernel"):
+            kname = name.replace("_tf32", "_wide_tf32")
+        frag = name if name == "train_composite_tf32_kernel" else f"{kname}<{owner}"
         dev_ms = sum(t for k, t in prof.items() if frag in k)
         if prof and dev_ms <= 0:
             raise AssertionError(f"f32 pass: profile time {dev_ms} ms of {frag}; kernels "
@@ -1231,10 +1265,10 @@ def f32_pass_parts(prof, passes, ms, tag, owner=4):
         b_by = "operations" if t_ops >= 1e3 * b / HBM_BYTES else "bytes"
         if b_by == "operations" and peaks[0] == TF32_FLOPS:
             b_by += SPLIT_TF32
-        parts.append({"name": name if owner == 4 else f"{name}<{owner}>",
+        parts.append({"name": kname if owner == 4 else f"{kname}<{owner}>",
                       "ms": dev_ms if prof else None, "bound_ms": b_ms, "bound_by": b_by,
                       "library_ms": lib.get(name)})
-        line[name] = [round(dev_ms, 3), round(b_ms, 3), f"{b / 1e9:.4f} GB",
+        line[kname] = [round(dev_ms, 3), round(b_ms, 3), f"{b / 1e9:.4f} GB",
                       [f"{f / 1e12:.4f} TFLOP at {p / 1e12:g}" for f, p in zip(flops, peaks)]]
     print(f"  kernel {owner}'s f32 pass kernels, device ms per step (profile) [ms, bound ms, "
           "bytes, FLOPs at their peak (TF32: three products a multiply-add)]: "
@@ -2686,6 +2720,55 @@ def occupancy_phase(torch, np, card, dev, tmp, shared):
                                     counts_t["fused_train_loss_bf16"], k4)]
 
 
+def hold_fields_f32(label, model, pts, v, g, kw, torch):
+    """Kernels 2 and 3's f32 routes on one pass (``pts`` [N, S, 3], the
+    per-ray ``v``, the cotangent ``g`` of raw) held to their plain
+    versions: raw within RTOL / ATOL (phase 10's rule) and each kernel-3
+    leaf by the rule ``perf_tools/field_f32_rule.py`` holds that route to
+    (see :func:`field_pass_hold`). Returns the max abs errors (``fwd``,
+    ``bwd``), the plain raw and the plain leaves."""
+    from dexnerf_tpu_torch.ops import fused_mlp as fm
+    from dexnerf_tpu_torch.ops import fused_mlp_train as fmt
+
+    from perf_tools.field_f32_rule import (
+        GPU_GRAD_FACTOR,
+        GPU_GRAD_RTOL,
+        grads_on_masks,
+        own_decision_ratios,
+    )
+
+    names = [n for n, _ in model.named_parameters()]
+    raw_p = fm.fused_field_reference(model, pts, v, **kw).detach()
+    want = fmt.field_grads_reference(model, pts, v, g, **kw)
+    raw = fm.fused_field(model, pts, v, **kw)
+    grads = fmt._launch_backward(model, pts, v, g, **kw)
+    torch.cuda.synchronize()
+    bad, leaves, err = [], {}, {"fwd": float((raw - raw_p).abs().max()), "bwd": 0.0}
+    if not bool(torch.isfinite(raw).all()) or bool(
+            ((raw - raw_p).abs() > ATOL + RTOL * raw_p.abs()).any()):
+        bad.append("raw")
+    ratios, flips, layers = own_decision_ratios(
+        model, pts, v, grads, want, lambda sl, masks: grads_on_masks(model, pts[sl], v[sl],
+                                                                     g[sl], masks))
+    bad += [f"ReLU decisions of layer {i}" for i in layers]
+    rule = {}
+    for pname, gk, gp in zip(names, grads, want):
+        e, scale = float((gk - gp).abs().max()), float(gp.abs().max())
+        leaves[pname] = (e, scale)
+        err["bwd"] = max(err["bwd"], e)
+        rule[pname] = float(f"{ratios[pname]:.3e}")
+        if not bool(torch.isfinite(gk).all()) or ratios[pname] > 1.0:
+            bad.append(pname)
+    print(f"{label}: f32 routes, kernel 2 raw max abs err {err['fwd']:.3e} (rtol {RTOL:g}, "
+          f"atol {ATOL:g}); kernel 3 ({flips} ReLU decisions otherwise than the plain version):")
+    print_leaves(leaves, f"phase 10's limit {GRAD_RTOL:g}, beside the rule below")
+    print(f"  each leaf's float64 error on its own decisions over its limit ({GPU_GRAD_FACTOR:g} x "
+          f"the plain version's + {GPU_GRAD_RTOL:g} of the largest entry): " + json.dumps(rule))
+    if bad:
+        raise AssertionError(f"{label}: field kernels and plain differ in {bad}")
+    return err, raw_p, want
+
+
 def field_pass_hold(label, model, pts, v, g, kw, torch, dev):
     """Kernels 2 and 3 on one pass of a run (``pts`` [N, S, 3], the per-ray
     ``v``, the pass loss's cotangent ``g``), both routes, held to their
@@ -2707,56 +2790,10 @@ def field_pass_hold(label, model, pts, v, g, kw, torch, dev):
     from dexnerf_tpu_torch.ops import fused_mlp_train as fmt
     from dexnerf_tpu_torch.ops import fused_train_loss as ftl
 
-    from perf_tools.field_f32_rule import (
-        GPU_GRAD_FACTOR,
-        GPU_GRAD_RTOL,
-        MASK_RTOL,
-        forward_on_masks,
-        grads_on_masks,
-        route_activations,
-    )
-
     bf = dict(compute_dtype=torch.bfloat16)
     bf2 = dict(bf, dw_dtype=torch.bfloat16)
     names = [n for n, _ in model.named_parameters()]
-    raw_p = fm.fused_field_reference(model, pts, v, **kw).detach()
-    want = fmt.field_grads_reference(model, pts, v, g, **kw)
-    raw = fm.fused_field(model, pts, v, **kw)
-    grads = fmt._launch_backward(model, pts, v, g, **kw)
-    torch.cuda.synchronize()
-    bad, leaves, err = [], {}, {"fwd": float((raw - raw_p).abs().max()), "bwd": 0.0}
-    if not bool(torch.isfinite(raw).all()) or bool(
-            ((raw - raw_p).abs() > ATOL + RTOL * raw_p.abs()).any()):
-        bad.append("raw")
-    with torch.no_grad():
-        plain_acts = forward_on_masks(model, pts, v)[1]
-        route_acts = route_activations(model, pts, v, g)
-    flips = 0
-    for i, (ar, ap) in enumerate(zip(route_acts, plain_acts)):
-        flip = (ar > 0) != (ap > 0)
-        flips += int(flip.sum())
-        if not bool(((ar - ap)[flip].abs() <= MASK_RTOL * ap.abs().max()).all()):
-            bad.append(f"ReLU decisions of layer {i}")
-    exact_k = grads_on_masks(model, pts, v, g, [a > 0 for a in route_acts])
-    exact_p = grads_on_masks(model, pts, v, g, [a > 0 for a in plain_acts])
-    del route_acts, plain_acts
-    rule = {}
-    for pname, gk, gp, ek, ep in zip(names, grads, want, exact_k, exact_p):
-        e, scale = float((gk - gp).abs().max()), float(gp.abs().max())
-        leaves[pname] = (e, scale)
-        err["bwd"] = max(err["bwd"], e)
-        e_k, e_p = float((gk.double() - ek).abs().max()), float((gp.double() - ep).abs().max())
-        limit = GPU_GRAD_FACTOR * e_p + GPU_GRAD_RTOL * float(ek.abs().max())
-        rule[pname] = float(f"{e_k / limit:.3e}")
-        if not bool(torch.isfinite(gk).all()) or e_k > limit:
-            bad.append(pname)
-    print(f"{label}: f32 routes, kernel 2 raw max abs err {err['fwd']:.3e} (rtol {RTOL:g}, "
-          f"atol {ATOL:g}); kernel 3 ({flips} ReLU decisions otherwise than the plain version):")
-    print_leaves(leaves, f"phase 10's limit {GRAD_RTOL:g}, beside the rule below")
-    print(f"  each leaf's float64 error on its own decisions over its limit ({GPU_GRAD_FACTOR:g} x "
-          f"the plain version's + {GPU_GRAD_RTOL:g} of the largest entry): " + json.dumps(rule))
-    if bad:
-        raise AssertionError(f"{label}: field kernels and plain differ in {bad}")
+    err, raw_p, want = hold_fields_f32(label, model, pts, v, g, kw, torch)
     err["fwd_bf16"], err["bwd_bf16"] = hold_fields_bf16(
         label, model, pts, v, g, torch, kw, {"raw": raw_p, **dict(zip(names, want))})
     ms = {}
@@ -4435,13 +4472,13 @@ def multiscene_phase(torch, np, card, dev, tmp):
     return entries
 
 
-def wide_build_report(log):
-    """Registers, spill bytes and stack of each wide kernel from ptxas's
+def wide_build_report(log, kernels=WIDE_KERNELS):
+    """Registers, spill bytes and stack of each of ``kernels`` from ptxas's
     report in the build log: kernel (demangled enough) -> its lines."""
     out, name = {}, None
     for line in log.splitlines():
         if "Function properties for" in line:
-            name = next((k for k in WIDE_KERNELS if k in line), None)
+            name = next((k for k in kernels if k in line), None)
             if name and "ILi" in line:
                 name += "<" + line.split("ILi")[1].split("E")[0] + ">"
         elif name and ("spill" in line or "registers" in line):
@@ -4451,11 +4488,15 @@ def wide_build_report(log):
     return out
 
 
-def check_train_f32(label, model, args, norm, torch):
+def check_train_f32(label, model, args, norm, torch, own=False):
     """Kernel 4's f32 route vs its plain f32 version on one pass (phase 7's
     rule: loss to TRAIN_LOSS_RTOL, weights and rgb to RTOL / ATOL, each
-    gradient leaf to GRAD_RTOL of its largest entry). Returns the largest
-    max abs error."""
+    gradient leaf to GRAD_RTOL of its largest entry). With ``own`` (the wide
+    route: ~10^7 ReLU decisions a pass, of which a few within rounding of 0
+    go the other way in each version) a leaf past GRAD_RTOL is held by the
+    own-decision rule of ``perf_tools/field_f32_rule.py``, as kernel 3's
+    (``pass_own_decision_ratios``, its float64 references summed over
+    chunks of rays). Returns the largest max abs error."""
     from dexnerf_tpu_torch.ops import fused_train_loss as ftl
 
     model.zero_grad(set_to_none=True)
@@ -4471,15 +4512,32 @@ def check_train_f32(label, model, args, norm, torch):
         worst = max(worst, float((a - b).abs().max()))
         if not bool(torch.isfinite(a).all()) or bool(((a - b).abs() > ATOL + RTOL * b.abs()).any()):
             bad.append(key)
+    past = []
     for (pname, p), gw in zip(model.named_parameters(), want[3]):
         gw = gw / norm
         err, scale = float((p.grad - gw).abs().max()), float(gw.abs().max())
         worst = max(worst, err)
         leaves[pname] = (err, scale)
-        if not bool(torch.isfinite(p.grad).all()) or err > GRAD_RTOL * scale:
+        if not bool(torch.isfinite(p.grad).all()):
             bad.append(pname)
+        elif err > GRAD_RTOL * scale:
+            past.append(pname)
     print(f"{label}: f32 route vs plain, max abs err {worst:.3e}")
     print_leaves(leaves)
+    if own and past:
+        from perf_tools.field_f32_rule import pass_own_decision_ratios
+
+        ratios, flips, layers = pass_own_decision_ratios(
+            model, args[1:], [p.grad for p in model.parameters()],
+            [gw / norm for gw in want[3]], past, norm=norm)
+        print(f"  {label}: {len(past)} leaf/leaves past {GRAD_RTOL:g}, held by the own-decision "
+              f"rule ({flips} ReLU decisions otherwise than the plain version); float64 error on "
+              f"own decisions over its limit: "
+              + json.dumps({k: float(f"{r:.3e}") for k, r in ratios.items()}))
+        bad += [f"ReLU decisions of layer {i}" for i in layers]
+        bad += [k for k, r in ratios.items() if r > 1.0]
+    else:
+        bad += past
     if bad:
         raise AssertionError(f"{label}: f32 route and plain differ in {bad}")
     return worst
@@ -4592,16 +4650,6 @@ def wide_phase(torch, np, card, dev, tmp, shared=None):
                 and np.mean(losses[-3:]) < np.mean(losses[:3]) and len(val) >= 1
                 and bool(np.isfinite(val).all()))
 
-    # the f32 route at 256: refused, with item 6b's words, before any launch
-    refused = ""
-    try:
-        train_cli(tmp, data, "wide-f32", n, torch, dev, config=wide_cfg,
-                  pallas_compute_dtype="float32")
-    except ValueError as e:
-        refused = str(e)
-    counts_f = read_counts()
-    print(f"phase 22: 8x256 at pallas_compute_dtype float32: {refused!r}; launches "
-          f"{json.dumps({k: v for k, v in counts_f.items() if v})}")
     run_checks("8x256 training", {
         f"kernel 4: its wide bf16 route {2 * n} times, nothing else but kernel 1":
             c4["fused_train_loss_wide"] == 2 * n == c4["fused_train_loss_bf16"]
@@ -4615,8 +4663,6 @@ def wide_phase(torch, np, card, dev, tmp, shared=None):
         f"resample: kernel 4 wide {2 * n} times, kernel 5 {n} times":
             cr["fused_train_loss_wide"] == 2 * n and cr["resample"] == n,
         "every run's losses finite and falling, validations finite": all(map(falls, runs)),
-        "float32 at 256 refused with item 6b's words, no kernel launched":
-            "item 6b" in refused and all(v == 0 for v in counts_f.values()),
     })
 
     # ---- serve the kernel-4 run's .ckpt through kernel 1's wide route
@@ -4719,7 +4765,7 @@ def wide_phase(torch, np, card, dev, tmp, shared=None):
         gk = 1e-2 * torch.randn(s_pts.shape[:2] + (4,), generator=gen, device=dev)
         e2, e3 = hold_fields_bf16(f"phase 22: H = {hid}", m, s_pts, sv, gk, torch)
         f32 = {}
-        if hid <= fr.MAX_HIDDEN:  # the f32 routes take it too: kernels 1, 2 and 4
+        if hid <= fr.NARROW_HIDDEN:  # the narrow f32 routes too (phase 23 holds the wide ones)
             f32["k1"] = compare(f"H{hid} f32", fr.fused_render(*rargs),
                                 fr.fused_render_reference(*rargs), torch)
             f32["k4"] = check_train_f32(f"phase 22: H = {hid}", m, args, float(3 * k), torch)
@@ -4743,25 +4789,30 @@ def wide_phase(torch, np, card, dev, tmp, shared=None):
                     for mod in ("fused_render", "fused_train_loss", "fused_mlp",
                                 "fused_mlp_train")),
         })
-    # every f32 wrapper refuses 256 (item 6b), launching nothing
+    # every f32 wrapper refuses a width above MAX_HIDDEN (item 6c), launching nothing
     before = read_counts()
     refusals = {}
-    g256 = torch.zeros_like(pts[..., :1]).expand(*pts.shape[:2], 4).contiguous()
+    too_wide = FlexibleNeRFModel(num_layers=8, hidden_size=fr.MAX_HIDDEN + 1,
+                                 skip_connect_every=3, num_encoding_fn_xyz=10,
+                                 num_encoding_fn_dir=4).to(dev)
+    g0 = torch.zeros_like(s_pts[..., :1]).expand(*s_pts.shape[:2], 4).contiguous()
     for name, call in (
-            ("kernel 1", lambda: fr.fused_render(fine, o, d, v, z_c, ray_dists(z_c, d))),
-            ("kernel 2", lambda: fm.fused_field(fine, pts, v)),
-            ("kernel 3", lambda: fmt._launch_backward(fine, pts, v, g256, log_sampling_xyz=True,
+            ("kernel 1", lambda: fr.fused_render(too_wide, so, sd, sv, sz, s_dists)),
+            ("kernel 2", lambda: fm.fused_field(too_wide, s_pts, sv)),
+            ("kernel 3", lambda: fmt._launch_backward(too_wide, s_pts, sv, g0,
+                                                      log_sampling_xyz=True,
                                                       log_sampling_dir=True)),
-            ("kernel 4", lambda: ftl.fused_pass_loss(*per_pass["fine"]))):
+            ("kernel 4", lambda: ftl.fused_pass_loss(too_wide, so, sd, sz, sv, s_dists, None,
+                                                     st))):
         try:
             call()
             refusals[name] = "not refused"
         except ValueError as e:
             refusals[name] = str(e)
     after = read_counts()
-    print(f"phase 22: the f32 routes at 256: {json.dumps(refusals)}")
-    run_checks("f32 at 256", {
-        "kernels 1-4 refuse with item 6b's words": all("item 6b" in e for e in refusals.values()),
+    print(f"phase 22: the f32 routes at {fr.MAX_HIDDEN + 1}: {json.dumps(refusals)}")
+    run_checks(f"f32 at {fr.MAX_HIDDEN + 1}", {
+        "kernels 1-4 refuse with item 6c's words": all("item 6c" in e for e in refusals.values()),
         "no launch": after == before,
     })
 
@@ -4890,6 +4941,379 @@ def wide_phase(torch, np, card, dev, tmp, shared=None):
          "plain_ms": ms["bwd_plain"], "bound_ms": b3, "bound_by": b3_by,
          "library_ms": field_ms["dw_torch_matmul_bf16"] + field_ms["f_forward_torch_matmul_bf16"]
          + field_ms["f_chain_torch_matmul_bf16"]},
+    ]
+
+
+def hold_frame_f32(label, coarse, fine, rays, s_val, thresholds, torch):
+    """Kernel 1's f32 route on one frame ``rays`` (a flat RayBatch) of
+    ``coarse``/``fine`` at ``s_val``'s samples: both passes vs the f32
+    plain version by phase 3's rule (RTOL / ATOL), the Dex depths at
+    ``thresholds`` equal to the plain version's on >= DEX_EQUAL_SHARE of
+    pairs; both passes timed (CUDA events, mean of 3) beside their plain
+    versions and their split-TF32 bound. Returns (max abs error, ms, bound
+    ms, bound_by)."""
+    from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals, stratified_z_vals
+    from dexnerf_tpu_torch.core.volrend import ray_dists
+    from dexnerf_tpu_torch.ops import fused_render as fr
+
+    vo, vd, vv = (t.contiguous() for t in rays[:3])
+    zc = stratified_z_vals(rays.near, rays.far, s_val.num_coarse, lindisp=s_val.lindisp)
+    rkw = dict(white_background=s_val.white_background)
+    ms = {}
+    with torch.inference_mode():
+        dc = ray_dists(zc, vd)
+        args_c = (coarse, vo, vd, vv, zc, dc)
+        print(f"{label}: {vo.shape[0]} rays, T = {len(thresholds)}, kernel 1 f32 vs f32 plain "
+              f"(rtol {RTOL:g}, atol {ATOL:g}):")
+        want_c = fr.fused_render_reference(*args_c, **rkw)
+        err = compare("coarse", fr.fused_render(*args_c, **rkw), want_c, torch)
+        zf, _ = hierarchical_z_vals(zc, want_c.weights, s_val.num_fine, det=True)
+        df = ray_dists(zf, vd)
+        args_f = (fine, vo, vd, vv, zf, df)
+        got_f = fr.fused_render(*args_f, thresholds=thresholds, **rkw)
+        want_f = fr.fused_render_reference(*args_f, thresholds=thresholds, **rkw)
+        err = max(err, compare("fine", got_f, want_f, torch))
+        if thresholds:
+            dex_eq = float((got_f.depth_dex == want_f.depth_dex).float().mean())
+            hit = float((want_f.depth_dex != zf[None, :, 0]).float().mean())
+            print(f"  dex: f32 kernel = f32 plain on {dex_eq:.6f} of {got_f.depth_dex.numel()} "
+                  f"pairs (limit {DEX_EQUAL_SHARE}); past sample 0 on {hit:.3f} of them")
+            if dex_eq < DEX_EQUAL_SHARE:
+                raise AssertionError(f"{label}: f32 dex depths equal on only {dex_eq:.6f}")
+        for name, args, th in (("coarse", args_c, ()), ("fine", args_f, thresholds)):
+            ms[f"{name}_kernel"] = timed_ms(
+                lambda: fr.fused_render(*args, thresholds=th, **rkw), torch)
+            ms[f"{name}_plain"] = timed_ms(
+                lambda: fr.fused_render_reference(*args, thresholds=th, **rkw), torch)
+        r_flops = r_bytes = 0
+        for m, z, dz, g in ((coarse, zc, dc, None), (fine, zf, df, got_f)):
+            ps, pr = mlp_macs(m)
+            r_flops += 2 * (z.numel() * ps + z.shape[0] * pr)
+            # in: rays, depths, intervals, the split pack; out: rgb, disparity,
+            # accumulation, depth, weights (and the fine pass's Dex depths)
+            r_bytes += (nbytes(vo, vd, vv, z, dz, *fr.pack_flex_weights_tf32(m)[:2])
+                        + 4 * z.numel() + 4 * 6 * z.shape[0]
+                        + (nbytes(g.depth_dex) if g is not None else 0))
+    b_ms, b_by = bound(3 * r_flops, r_bytes, TF32_FLOPS)
+    print(f"  kernel 1 bound for the frame's two passes {b_ms:.3f} ms ({b_by}; "
+          f"{r_flops / 1e12:.4f} TFLOP of the model's, three TF32 products each at "
+          f"{TF32_FLOPS / 1e12:g} TFLOP/s; {r_bytes / 1e6:.2f} MB); at the f32 FMA peak "
+          f"{bound(r_flops, r_bytes)[0]:.3f} ms")
+    return err, ms, b_ms, b_by + (SPLIT_TF32 if b_by == "operations" else "")
+
+
+def wide_f32_phase(torch, np, card, dev, tmp, shared=None):
+    """Phase 23 (see the module's docstring): the wide f32 route at 8x256
+    through ``apps.train`` and ``apps.serve`` at ``pallas_compute_dtype:
+    float32``, held to the plain versions at 256 and at the widths of
+    WIDE_F32_WIDTHS, timed beside split-TF32 bounds and f32
+    ``torch.matmul``. ``shared`` is phase 6's (its scene), or None to write
+    a scene. Returns the kernels-line entries of the wide f32 route."""
+    import copy
+
+    import yaml
+    from PIL import Image
+
+    from dexnerf_tpu_torch.config import render_settings_from_cfg
+    from dexnerf_tpu_torch.core.rays import get_ray_bundle_c2w
+    from dexnerf_tpu_torch.core.sampling import hierarchical_z_vals
+    from dexnerf_tpu_torch.core.volrend import ray_dists
+    from dexnerf_tpu_torch.data.blender import pose_spherical
+    from dexnerf_tpu_torch.data.pipeline import build_ray_store, take_ray_batch
+    from dexnerf_tpu_torch.data.synthetic import write_blender_dataset
+    from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
+    from dexnerf_tpu_torch.ops import _build
+    from dexnerf_tpu_torch.ops import fused_mlp as fm
+    from dexnerf_tpu_torch.ops import fused_mlp_train as fmt
+    from dexnerf_tpu_torch.ops import fused_render as fr
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+    from dexnerf_tpu_torch.ops.fused_mlp_train import make_fused_flexible_field_train
+    from dexnerf_tpu_torch.render.renderer import (
+        draw_render_noise,
+        jittered_z_vals,
+        make_ray_batch,
+        render_image,
+    )
+    from dexnerf_tpu_torch.train.loop import load_scene
+    from dexnerf_tpu_torch.train.step import init_train_state, make_train_step
+
+    if shared is None:
+        data = os.path.join(tmp, "scene")
+        write_blender_dataset(data, TRAIN_HW, TRAIN_HW, TRAIN_VIEWS, device=dev)
+    else:
+        data = shared.data
+    with open(TRAIN_CONFIG) as f:
+        raw = yaml.safe_load(f)
+    for blk in ("coarse", "fine"):
+        raw["models"][blk]["hidden_size"] = WIDE_HIDDEN
+    raw["nerf"]["pallas_compute_dtype"] = "float32"
+    wide_cfg = os.path.join(tmp, "lego-tpu-8x256-f32.yml")
+    with open(wide_cfg, "w") as f:
+        yaml.safe_dump(raw, f)
+    report = wide_build_report(_build.build_log, WIDE_F32_KERNELS)
+    print(f"phase 23: the wide f32 kernels as built (ptxas): {json.dumps(report)}")
+
+    # ---- the three training paths through the entry point, at float32
+    n = WIDE_ITERS
+    runs = {}
+    for name, nerf in (("kernel4", {}), ("fields", {"pallas_fused_loss": False}),
+                       ("resample", {"pallas_loss_resample": "pallas"})):
+        runs[name] = train_cli(tmp, data, f"wide-f32-{name}", n, torch, dev, config=wide_cfg,
+                               **nerf)
+        _, _, counts, losses, val, secs, peak = runs[name]
+        print(f"phase 23: 8x256 f32 {name}, {n} steps in {secs:.2f} s, peak {peak:.2f} GiB; "
+              f"launches {json.dumps({k: v for k, v in counts.items() if v})}; loss first "
+              f"{losses[0]:.5f} last {losses[-1]:.5f}; validation psnr {val}")
+    c4, cf, cr = (runs[k][2] for k in ("kernel4", "fields", "resample"))
+
+    def falls(k):
+        losses, val = runs[k][3], runs[k][4]
+        return (len(losses) == n and bool(np.isfinite(losses).all())
+                and np.mean(losses[-3:]) < np.mean(losses[:3]) and len(val) >= 1
+                and bool(np.isfinite(val).all()))
+
+    no_bf16 = all(c.get(f"{mod}_{r}", 0) == 0 for c in (c4, cf, cr) for r in ("bf16", "wide")
+                  for mod in ("fused_render", "fused_train_loss", "fused_mlp", "fused_mlp_train"))
+    run_checks("8x256 f32 training", {
+        f"kernel 4: its wide f32 route {2 * n} times, nothing else but kernel 1":
+            c4["fused_train_loss_wide_f32"] == 2 * n == c4["fused_train_loss"]
+            and c4["fused_mlp"] == c4["fused_mlp_train"] == 0,
+        "kernel 4's run validates through kernel 1's wide f32 route": c4["fused_render"] >= 2
+        and c4["fused_render_wide_f32"] == c4["fused_render"],
+        f"field path: kernels 2 and 3 on their wide f32 route {2 * n} times each, kernel 4 "
+        "never": cf["fused_mlp_wide_f32"] == 2 * n == cf["fused_mlp"]
+            and cf["fused_mlp_train_wide_f32"] == 2 * n == cf["fused_mlp_train"]
+            and cf["fused_train_loss"] == 0 and cf["fused_render_wide_f32"] >= 2,
+        f"resample: kernel 4 wide f32 {2 * n} times, kernel 5 {n} times":
+            cr["fused_train_loss_wide_f32"] == 2 * n and cr["resample"] == n,
+        "no bf16 launch in any run": no_bf16,
+        "every run's losses finite and falling, validations finite": all(map(falls, runs)),
+    })
+
+    # ---- serve the kernel-4 run's .ckpt through kernel 1's wide f32 route
+    cfg_path, logdir = runs["kernel4"][:2]
+    ckpt_path = os.path.join(logdir, "checkpoints", f"checkpoint_{n - 1:07d}.ckpt")
+    q = "theta=%g&phi=%g&radius=%g" % POSE
+    w0 = fr.launches_wide_f32
+    c2w = pose_spherical(*POSE).tolist()
+    out, info, request_ms, frames, launches, launches_b = serve_requests(
+        cfg_path, ckpt_path, [("/healthz", None), ("/render?" + q, None), ("/depth?" + q, None),
+                              ("/render", json.dumps({"c2w": c2w}).encode())], torch)
+    served_wide = fr.launches_wide_f32 - w0
+    depth = np.load(io.BytesIO(out[2]))
+    print(f"phase 23: served {frames} frames of the 8x256 .ckpt at {info.get('compute_dtype')}; "
+          f"kernel-1 launches {launches} (bf16 {launches_b}, wide f32 {served_wide}); request ms "
+          f"{json.dumps(request_ms)}")
+    rgb = np.asarray(Image.open(io.BytesIO(out[1])))
+    run_checks("8x256 f32 serving", {
+        "3 frames at float32, 2 wide f32 launches each, no bf16 launch": frames == 3
+        and launches == served_wide == 6 and launches_b == 0
+        and info.get("compute_dtype") == "float32",
+        "rgb png 400x400x3, POST equal to GET": rgb.shape == (HWF[0], HWF[1], 3)
+        and np.array_equal(np.asarray(Image.open(io.BytesIO(out[3]))), rgb),
+        "depth 400x400 finite": depth.shape == (HWF[0], HWF[1]) and bool(np.isfinite(depth).all()),
+    })
+
+    # ---- kernel 4 on one batch of the run, kernels 2-3 on its fine pass
+    cfg, coarse, fine, _ = run_models(cfg_path, logdir, n, dev)
+    scene = load_scene(cfg)
+    s_train = render_settings_from_cfg(cfg, "train")
+    batch = int(cfg.nerf.train.num_random_rays)
+    near, far = float(cfg.dataset.near), float(cfg.dataset.far)
+    store = build_ray_store(scene.images[scene.i_train], scene.poses[scene.i_train], scene.hwf,
+                            near, far, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    idx = torch.randint(0, store.num_rays, (batch,), generator=gen, device=dev)
+    rays, target = take_ray_batch(store, idx)
+    draws = draw_render_noise(batch, s_train, gen, dev)
+    o, d, v = (t.contiguous() for t in rays[:3])
+    target = target.contiguous()
+    norm = float(3 * batch)
+    z_c = jittered_z_vals(rays, s_train, draws)
+    # the whole batch, as the steps run it (the coarse pass in 2 scratch
+    # chunks, the fine in 4); the rule's float64 references chunk by chunk
+    per_pass, err4 = {}, 0.0
+    for name, model, noise in (("coarse", coarse, draws.noise_coarse),
+                               ("fine", fine, draws.noise_fine)):
+        z = z_c if name == "coarse" else z_f
+        args = (model, o, d, z, v, ray_dists(z, d), noise, target)
+        err4 = max(err4, check_train_f32(f"phase 23: 8x256 {name}, {batch} rays", model, args,
+                                         norm, torch, own=True))
+        per_pass[name] = args
+        if name == "coarse":
+            want = ftl.fused_pass_loss_reference(*args)
+            z_f, _ = hierarchical_z_vals(z_c, want[1], s_train.num_fine, det=False,
+                                         u=draws.u_fine)
+    kw = dict(log_sampling_xyz=True, log_sampling_dir=True)
+    pts = (o[:, None] + d[:, None] * z_f[..., None]).contiguous()
+    g = pass_cotangent(fine, pts, z_f, d, v, target, norm, s_train.white_background, torch)
+    errs_f, _, _ = hold_fields_f32(f"phase 23: 8x256 fine pass, {batch} rays", fine, pts, v, g,
+                                   kw, torch)
+
+    # ---- kernel 1 on the 400x400 validation frame (σ heads calibrated, T thresholds)
+    s_val = render_settings_from_cfg(cfg, "validation", dex=True).eval_variant()
+    H, W = int(scene.hwf[0]), int(scene.hwf[1])
+    ro, rd = get_ray_bundle_c2w(H, W, float(scene.hwf[2]),
+                                torch.as_tensor(scene.poses[int(scene.i_val[0])], device=dev))
+    vc, vf = copy.deepcopy(coarse), copy.deepcopy(fine)
+    vrays = make_ray_batch(ro, rd, near, far)
+    calibrate_on((vc, vf), vrays, s_val, torch)
+    # lego-tpu.yml sets no Dex thresholds: the frame takes 20 (5, 10, ..., 100)
+    err1, ms1, b1, b1_by = hold_frame_f32(f"phase 23: 8x256 validation frame {H}x{W}", vc, vf,
+                                          vrays, s_val, WIDE_F32_THRESHOLDS, torch)
+
+    # ---- the other widths on a small batch of the same rays
+    k = WIDE_SMALL_RAYS
+    so, sd, sv, st = o[:k], d[:k], v[:k], target[:k]
+    sz = z_c[:k].contiguous()
+    s_dists = ray_dists(sz, sd)
+    s_pts = (so[:, None] + sd[:, None] * sz[..., None]).contiguous()
+    for hid in WIDE_F32_WIDTHS:
+        hid = hid or fr.MAX_HIDDEN
+        torch.manual_seed(SEED)
+        m = FlexibleNeRFModel(num_layers=8, hidden_size=hid, skip_connect_every=3,
+                              num_encoding_fn_xyz=10, num_encoding_fn_dir=4).to(dev)
+        mc = copy.deepcopy(m)
+        calibrate_on((mc,), make_ray_batch(ro, rd, near, far), s_val, torch)
+        before = read_counts()
+        rargs = (mc, o, d, v, z_c, ray_dists(z_c, d))
+        print(f"phase 23: H = {hid}, kernel 1 f32 on {batch} rays x {z_c.shape[1]} samples "
+              f"(phase 3's rule), kernels 2-4 on {k} of them:")
+        e1 = compare(f"H{hid}", fr.fused_render(*rargs), fr.fused_render_reference(*rargs), torch)
+        noise = None if draws.noise_coarse is None else draws.noise_coarse[:k].contiguous()
+        args = (m, so, sd, sz, sv, s_dists, noise, st)
+        e4 = check_train_f32(f"phase 23: H = {hid}", m, args, float(3 * k), torch, own=True)
+        gk = 1e-2 * torch.randn(s_pts.shape[:2] + (4,), generator=gen, device=dev)
+        e23, _, _ = hold_fields_f32(f"phase 23: H = {hid}", m, s_pts, sv, gk, kw, torch)
+        after = read_counts()
+        delta = {key: after[key] - before[key] for key in after if after[key] != before[key]}
+        print(f"phase 23: H = {hid}: max abs errs (kernels 1, 4, 2, 3) "
+              f"{[float(f'{e:.3e}') for e in (e1, e4, e23['fwd'], e23['bwd'])]}; launches "
+              f"{json.dumps(delta)}")
+        run_checks(f"H = {hid} at f32", {
+            "the wide f32 route of kernels 1-4, no bf16 launch":
+                all(delta.get(f"{mod}_wide_f32", 0) == delta.get(mod, 0) >= 1
+                    and delta.get(f"{mod}_bf16", 0) == 0
+                    for mod in ("fused_render", "fused_train_loss", "fused_mlp",
+                                "fused_mlp_train")),
+        })
+
+    # ---- times at 8x256: the passes, the steps, the frame; bounds; yardsticks
+    ms = {}
+    for name, args in per_pass.items():
+        ms[f"{name}_kernel"] = timed_ms(lambda: ftl.fused_pass_loss(*args), torch)
+        ms[f"{name}_plain"] = timed_ms(lambda: ftl.fused_pass_loss_reference(*args), torch)
+    with torch.no_grad():
+        ms["fwd_kernel"] = timed_ms(lambda: fm.fused_field(fine, pts, v), torch)
+        ms["fwd_plain"] = timed_ms(lambda: fm.fused_field_reference(fine, pts, v), torch)
+    ms["bwd_kernel"] = timed_ms(lambda: fmt._launch_backward(fine, pts, v, g, **kw), torch)
+    ms["bwd_plain"] = timed_ms(lambda: fmt.field_grads_reference(fine, pts, v, g), torch)
+
+    def dw_f32(passes):  # the weight-gradient products as f32 torch.matmul (TF32 off)
+        gemms = [gm for m_, k_ in passes
+                 for gm in dw_gemm_operands(m_, k_, torch, dev, torch.float32)]
+        t_ = timed_ms(lambda: [torch.matmul(a.t(), b) for a, b in gemms], torch)
+        del gemms
+        return t_
+
+    k4_passes = [(a[0], a[3].numel()) for a in per_pass.values()]
+    ms["dw_torch_matmul_f32"] = dw_f32(k4_passes)
+    pass_yardsticks(ms, "k4", k4_passes, torch, dev)
+    f_passes = [(fine, pts.shape[0] * pts.shape[1])]
+    field_ms = {"dw_torch_matmul_f32": dw_f32(f_passes)}
+    pass_yardsticks(field_ms, "f", f_passes, torch, dev)
+    pass_yardsticks(ms, "k1", [(vc, H * W * s_val.num_coarse),
+                               (vf, H * W * (s_val.num_coarse + s_val.num_fine))], torch, dev,
+                    parts=("forward",))
+
+    def step_of(path):
+        st_ = init_train_state(coarse, fine, float(cfg.optimizer.lr))
+        kw_ = {}
+        if path == "kernel4":
+            kw_["fused_loss"] = ftl.make_fused_train_loss(coarse, fine, s_train)
+        else:
+            kw_["coarse_field"], kw_["fine_field"] = (
+                make_fused_flexible_field_train(mm) for mm in (coarse, fine))
+        step = make_train_step(s_train, batch, **kw_)
+        return lambda: step(st_, store, gen)
+
+    steps, peaks = {}, {}
+    for path in ("kernel4", "fields"):
+        steps[path] = step_of(path)
+        torch.cuda.reset_peak_memory_stats()
+        ms[f"step_{path}"] = host_ms(torch, steps[path], n=3)
+        peaks[path] = torch.cuda.max_memory_allocated() / 2**30
+    impl = fr.make_fused_render_rays(vc, vf, s_val)
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        ms["frame_host"] = host_ms(torch, lambda: render_image(vc, vf, ro, rd, near, far, s_val,
+                                                               rays_impl=impl), n=2)
+        peaks["frame"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 23: ms on {card} (passes and kernels 2-3: CUDA events, mean of 3; steps and "
+          f"the frame: host clock around synchronize, mean of 3 / 2): "
+          + json.dumps({key: round(t, 3) for key, t in ms.items()}) + "; field-pass yardsticks "
+          + json.dumps({key: round(t, 3) for key, t in field_ms.items()})
+          + "; rays/s per step "
+          + json.dumps({p: round(batch / (ms[f"step_{p}"] / 1e3)) for p in steps})
+          + f"; peak memory (GiB) {json.dumps({p: round(x, 2) for p, x in peaks.items()})}")
+    print("  wide f32 residency (CUDA occupancy API; CTAs per SM, shared bytes, ring stages, "
+          "consumer warpgroups, worker buffer floats): kernel 1 coarse / fine " + json.dumps(
+              [fr.tf32_wide_occupancy(vf, s) for s in (s_val.num_coarse,
+                                                       s_val.num_coarse + s_val.num_fine)])
+          + "; training " + json.dumps(ftl.tf32_occupancy(fine)))
+    print("  8x256 f32 kernel-4 steps:")
+    prof = profile_steps(torch, steps["kernel4"], {"kernel 4 wide f32": WIDE_F32_NAMES})
+    k4_sizes = [(a[0], *a[3].shape) for a in per_pass.values()]
+    parts = f32_pass_parts(prof, k4_sizes, ms, "k4", wide=True)
+    parts += f32_dw_share(prof, ms["dw_torch_matmul_f32"], k4_sizes)
+    print("  8x256 f32 field-path steps:")
+    profile_steps(torch, steps["fields"], {"kernels 2-3 wide f32": WIDE_F32_NAMES})
+    flops, byts, _, _ = kernel4_sizes(per_pass, dev)
+    b4, b4_by = bound(3 * flops, byts, TF32_FLOPS)
+    n_s = pts.shape[0] * pts.shape[1]
+    ps, pr = mlp_macs(fine)
+    params = list(fine.parameters())
+    b2, b2_by = bound(3 * 2 * (n_s * ps + pts.shape[0] * pr),
+                      nbytes(pts, v, *params) + 16 * n_s, TF32_FLOPS)
+    b3, b3_by = bound(3 * train_flops(fine, *pts.shape[:2]),
+                      nbytes(pts, v, g) + 2 * nbytes(*params), TF32_FLOPS)
+    print(f"  split-TF32 bounds (ms): kernel 4 both passes {b4:.3f} ({b4_by}; "
+          f"{flops / 1e12:.4f} TFLOP of the model's, three TF32 products each; "
+          f"{bound(flops, byts)[0]:.3f} at the f32 FMA peak), kernel 2 {b2:.3f} ({b2_by}), "
+          f"kernel 3 {b3:.3f} ({b3_by}), kernel 1 frame {b1:.3f} ({b1_by})")
+
+    def by(b_by):
+        return b_by + (SPLIT_TF32 if b_by == "operations" else "")
+
+    src_r = "dexnerf_tpu_torch/ops/csrc/fused_render.cu"
+    src_t = "dexnerf_tpu_torch/ops/csrc/fused_train_loss.cu"
+    return [
+        {"name": "fused_render_f32_wide@8x256", "route": "cuda", "source": src_r,
+         "replaces": "dexnerf_tpu/ops/fused_render.py:115",
+         "launches": c4["fused_render_wide_f32"], "max_abs_err": err1,
+         "ms": ms1["coarse_kernel"] + ms1["fine_kernel"],
+         "plain_ms": ms1["coarse_plain"] + ms1["fine_plain"], "bound_ms": b1, "bound_by": b1_by,
+         "library_ms": ms["k1_forward_torch_matmul_f32"]},
+        {"name": "fused_train_loss_f32_wide@8x256", "route": "cuda", "source": src_t,
+         "replaces": "dexnerf_tpu/ops/fused_train_loss.py:99",
+         "launches": c4["fused_train_loss_wide_f32"], "max_abs_err": err4,
+         "ms": ms["coarse_kernel"] + ms["fine_kernel"],
+         "plain_ms": ms["coarse_plain"] + ms["fine_plain"], "bound_ms": b4,
+         "bound_by": by(b4_by),
+         "library_ms": ms["dw_torch_matmul_f32"] + ms["k4_forward_torch_matmul_f32"]
+         + ms["k4_chain_torch_matmul_f32"], "parts": parts},
+        {"name": "fused_mlp_f32_wide@8x256", "route": "cuda", "source": src_t,
+         "replaces": "dexnerf_tpu/ops/fused_mlp.py:481", "launches": cf["fused_mlp_wide_f32"],
+         "max_abs_err": errs_f["fwd"], "ms": ms["fwd_kernel"], "plain_ms": ms["fwd_plain"],
+         "bound_ms": b2, "bound_by": by(b2_by),
+         "library_ms": field_ms["f_forward_torch_matmul_f32"]},
+        {"name": "fused_mlp_train_f32_wide@8x256", "route": "cuda", "source": src_t,
+         "replaces": "dexnerf_tpu/ops/fused_mlp_train.py:221",
+         "launches": cf["fused_mlp_train_wide_f32"], "max_abs_err": errs_f["bwd"],
+         "ms": ms["bwd_kernel"], "plain_ms": ms["bwd_plain"], "bound_ms": b3,
+         "bound_by": by(b3_by),
+         "library_ms": field_ms["dw_torch_matmul_f32"] + field_ms["f_forward_torch_matmul_f32"]
+         + field_ms["f_chain_torch_matmul_f32"]},
     ]
 
 
@@ -5244,6 +5668,7 @@ def main() -> int:
         sgir_kernels = sgir_parallel_phase(torch, np, card, dev, tmp, shared)
         multiscene_kernels = multiscene_phase(torch, np, card, dev, tmp)
         wide_kernels = wide_phase(torch, np, card, dev, tmp, shared)
+        wide_f32_kernels = wide_f32_phase(torch, np, card, dev, tmp, shared)
     render = dict(route="cuda", replaces="dexnerf_tpu/ops/fused_render.py:115")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s (host clock, "
           "the kernels' build included)")
@@ -5271,7 +5696,7 @@ def main() -> int:
         "library_ms": ms["k1_forward_torch_matmul_bf16"],
     }, *train_kernels, *field_kernels, *resample_kernels, *dex_kernels, *eval_kernels,
         *llff_kernels, *occupancy_kernels, *family_kernels, *pose_kernels, *sgir_kernels,
-        *multiscene_kernels, *wide_kernels]}))
+        *multiscene_kernels, *wide_kernels, *wide_f32_kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

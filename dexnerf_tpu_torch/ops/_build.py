@@ -122,11 +122,12 @@ def load_library() -> ctypes.CDLL:
             _build(lib_path, stamp, digest)
         lib = ctypes.CDLL(str(lib_path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        # both routes of kernel 1: the float32 (split-TF32) and the bf16 kernel
-        for fn in (lib.dexnerf_fused_render, lib.dexnerf_fused_render_bf16):
+        # both routes of kernel 1: the float32 (split-TF32) and the bf16 kernel;
+        # the f32 one also takes its wide route's worker buffers
+        for fn, n_out in ((lib.dexnerf_fused_render, 7), (lib.dexnerf_fused_render_bf16, 6)):
             fn.argtypes = (
                 [vp] * 7             # 5 inputs, packed weights, f32 aux (device)
-                + [vp] * 6           # 6 outputs (device)
+                + [vp] * n_out       # 6 outputs (device) (, worker buffers)
                 + [ci] * 7           # n_rays, n_samples, hidden, num_trunk, skip_mask,
                                      # rays per unit, grid
                 + [ci, ci, vp]       # fx, inc_x, bands_x (host)
@@ -144,6 +145,9 @@ def load_library() -> ctypes.CDLL:
         # the wide route: the same shape but skip_mask; + consumer warpgroups (out)
         lib.dexnerf_fused_render_bf16_wide_occupancy.argtypes = [ci] * 6 + [vp] * 4
         lib.dexnerf_fused_render_bf16_wide_occupancy.restype = ci
+        # the f32 wide route: + consumer warpgroups, floats of a worker's buffer (out)
+        lib.dexnerf_fused_render_wide_occupancy.argtypes = [ci] * 6 + [vp] * 5
+        lib.dexnerf_fused_render_wide_occupancy.restype = ci
         lib.dexnerf_train_args_size.argtypes = []
         lib.dexnerf_train_args_size.restype = ci
         lib.dexnerf_train_rows.argtypes = [ci, ci, ci, vp, ci]  # dx, H, nt, rows, len
@@ -155,7 +159,7 @@ def load_library() -> ctypes.CDLL:
         lib.dexnerf_field_tf32_pass.restype = ci
         lib.dexnerf_train_tile_words.argtypes = [ci, ci]  # padded width, num_trunk
         lib.dexnerf_train_tile_words.restype = ci
-        # padded width, num_trunk, encoding K-chunks; out (host, 6 ints)
+        # padded width, num_trunk, encoding K-chunks; out (host, 8 ints)
         lib.dexnerf_train_tf32_occupancy.argtypes = [ci, ci, ci, vp]
         lib.dexnerf_train_tf32_occupancy.restype = ci
         # per-ray losses, rays, loss, stream
@@ -173,7 +177,8 @@ def load_library() -> ctypes.CDLL:
         lib.dexnerf_dw_tf32.argtypes = [vp, vp]  # plan and chunk (host), stream
         lib.dexnerf_dw_tf32.restype = ci
         lib.dexnerf_dw_tf32_reduce.argtypes = (
-            [vp, ci, ci, ci]         # plan (host), chunks, stages of a chunk, of the last
+            [vp, ci, ci, ci, ci]     # plan's parts (host), parts, chunks, stages of a chunk,
+                                     # of the last
             + [vp, ci, vp, vp, vp]   # viewdir entries, per chunk, map, grad, stream
         )
         lib.dexnerf_dw_tf32_reduce.restype = ci

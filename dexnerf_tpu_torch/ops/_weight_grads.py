@@ -12,7 +12,10 @@ boxes of 32 samples, ``wgmma`` on both operands' TF32 halves, by the plan
 of :func:`tf32_dw_plan`; persistent CTAs, one per SM, each part of a unit
 into its own slot of partial sums) and the fixed-order reduction of the
 slots (``dexnerf_dw_tf32_reduce``): no atomics, so two runs are bitwise
-equal.
+equal. Above a width of 128 the plan's products are split to the kernel's
+limits (:func:`_tf32_units`) and launched in parts of at most
+:data:`TF32_MAX_UNITS` units (:func:`tf32_dw_parts`), one reduction over
+all of them.
 """
 
 from __future__ import annotations
@@ -24,9 +27,12 @@ import torch
 
 from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
 
-# limits of ops/csrc/dw_tf32.cu
+# limits of ops/csrc/dw_tf32.cu (and dw_split.cuh: units a launch, launches a plan)
 TF32_MAX_UNITS = 36
+TF32_MAX_PARTS = 8
 TF32_MAX_BOXES = 8
+TF32_MAX_A_ROWS = 128    # two A boxes: one a consumer warpgroup
+TF32_MAX_PART_ROWS = 128  # a part's B boxes: two
 TF32_BOX_ROWS = 64       # rows of an operand box
 TF32_BOX = 64 * 32 * 4   # bytes of a [64][32] f32 box
 TF32_HEAD_BOX = 8 * 32 * 4
@@ -181,8 +187,76 @@ def _tf32_unit(a, blocks, head=None) -> Tf32Unit:
             boxes += [(ACT, operand[0] + TF32_BOX_ROWS * i) for i in range(_n_boxes(rows))]
         h = Tf32Head(h_rows, box0, _n_boxes(rows), w_off, ldw, rows, h_bias)
         boxes.append((DLT_HEAD, h_row))
+    if len(boxes) > TF32_MAX_BOXES:
+        raise ValueError(f"a dW unit of {len(boxes)} boxes: the kernel takes {TF32_MAX_BOXES}")
     tx = sum(TF32_HEAD_BOX if m == DLT_HEAD else TF32_BOX for m, _ in boxes)
     return Tf32Unit(tuple(boxes), n_a, n_op, a_rows, bias, h, tuple(wgs), tx, tx // 1024)
+
+
+def _tf32_units(a, blocks, head=None) -> list:
+    """The units of one product, as :func:`_tf32_unit` takes it: one unit
+    where it is within the kernel's limits (at most 128 cotangent rows, two
+    blocks of at most 128 rows, eight boxes), as every product of a model up
+    to a width of 128 is; else split. The cotangent rows in groups of 128,
+    each against the blocks' rows in pieces of 128, two pieces a unit (one
+    where the unit also takes a head on an operand of its own); the
+    cotangent bias in each group's first unit; the head's operand rows in
+    pieces of 128, each in a unit of its own (on an operand block: the first
+    unit that reads that piece), its bias in the first."""
+    a_row, a_rows, bias = a
+    fits = (a_rows <= TF32_MAX_A_ROWS and len(blocks) <= 2
+            and all(rows <= TF32_MAX_PART_ROWS for _, rows, _, _ in blocks))
+    if fits:
+        try:
+            return [_tf32_unit(a, blocks, head)]
+        except ValueError:
+            pass
+    P = TF32_MAX_PART_ROWS
+    pieces = [(b, m0) for b, (_, rows, _, _) in enumerate(blocks) for m0 in range(0, rows, P)]
+    extra = head is not None and not isinstance(head[2], int)
+    heads = []
+    if head is not None:
+        op_rows = head[2][1] if extra else blocks[head[2]][1]
+        heads = list(range(0, op_rows, P))
+    specs = []  # (first cotangent row of the group, [pieces], takes a head)
+    for n0 in range(0, a_rows, TF32_MAX_A_ROWS):
+        i = 0
+        while i < len(pieces):
+            take = 1 if extra and sum(h for *_, h in specs) < len(heads) else 2
+            specs.append((n0, pieces[i:i + take], take == 1 and extra))
+            i += take
+    # a head on an operand block: each of its pieces in the first unit that reads it
+    owner = {}
+    if head is not None and not extra:
+        for m0 in heads:
+            owner[m0] = next(k for k, (_, ps, _) in enumerate(specs)
+                             if (head[2], m0) in ps and k not in owner.values())
+    units, n_heads, first_of_group = [], 0, set()
+    for k, (n0, ps, takes_head) in enumerate(specs):
+        rows = min(TF32_MAX_A_ROWS, a_rows - n0)
+        # the larger piece first: the kernel's two-part shapes are (2, 1), not (1, 2)
+        ps = sorted(ps, key=lambda bp: -min(P, blocks[bp[0]][1] - bp[1]))
+        ub = []
+        for b, m0 in ps:
+            row, brows, off, ldw = blocks[b]
+            ub.append((row + m0, min(P, brows - m0), off + n0 * ldw + m0, ldw))
+        h = None
+        if head is not None:
+            h_row, h_rows, operand, w_off, ldw, h_bias = head
+            m0 = None
+            if extra and takes_head:
+                m0 = heads[n_heads]
+                hop = (operand[0] + m0, min(P, operand[1] - m0))
+            elif not extra and k in owner.values():
+                m0 = next(m for m, kk in owner.items() if kk == k)
+                hop = ps.index((operand, m0))
+            if m0 is not None:
+                h = (h_row, h_rows, hop, w_off + m0, ldw, h_bias if n_heads == 0 else -1)
+                n_heads += 1
+        group_bias = bias + n0 if bias >= 0 and n0 not in first_of_group else -1
+        units.append(_tf32_unit((a_row + n0, rows, group_bias), ub, h))
+        first_of_group.add(n0)
+    return units
 
 
 def tf32_dw_plan(model: FlexibleNeRFModel) -> Tuple[Tf32Unit, ...]:
@@ -194,31 +268,39 @@ def tf32_dw_plan(model: FlexibleNeRFModel) -> Tuple[Tf32Unit, ...]:
     a_nt, d_sigma x a_nt: a_nt read once); layers_dir.0's feat rows with
     the fc_rgb head (d_y x feat, d_rgb x y). The encoding e is read by
     layer1's unit and the skip layers' (a unit of d_0, d_{i+1}, e and a_i
-    would need twice a warpgroup's registers). Biases are the cotangent
-    rows' sums; the viewdir rows of layers_dir.0 (K = rays) are the
-    launch's own work (:func:`tf32_entries`)."""
+    would need twice a warpgroup's registers). Above a width of 128 each
+    product is split to the kernel's limits (:func:`_tf32_units`). Biases
+    are the cotangent rows' sums; the viewdir rows of layers_dir.0 (K =
+    rays) are the launch's own work (:func:`tf32_entries`)."""
     R = scratch_rows(model)
     offs, _ = _param_offsets(model)
     H, H2, nt, dx, dd = (model.hidden_size, model.hidden_size // 2, model.num_layers - 1,
                          model.dim_xyz, model.dim_dir)
-    units = [_tf32_unit((R["d"][0], H, offs["layer1.bias"]),
-                        [(R["e"], dx, offs["layer1.weight"], dx)])]
+    units = _tf32_units((R["d"][0], H, offs["layer1.bias"]),
+                        [(R["e"], dx, offs["layer1.weight"], dx)])
     for i, lin in enumerate(model.layers_xyz):
         w, ldw = offs[f"layers_xyz.{i}.weight"], lin.in_features
         blocks = [(R["a"][i], H, w, ldw)]
         if i in model.skips:
             blocks.append((R["e"], dx, w + H, ldw))
-        units.append(_tf32_unit((R["d"][i + 1], H, offs[f"layers_xyz.{i}.bias"]), blocks))
-    units.append(_tf32_unit(
+        units += _tf32_units((R["d"][i + 1], H, offs[f"layers_xyz.{i}.bias"]), blocks)
+    units += _tf32_units(
         (R["d"][nt + 1], H, offs["fc_feat.bias"]), [(R["a"][nt], H, offs["fc_feat.weight"], H)],
-        head=(R["dsig"], 1, 0, offs["fc_alpha.weight"], H, offs["fc_alpha.bias"])))
-    units.append(_tf32_unit(
+        head=(R["dsig"], 1, 0, offs["fc_alpha.weight"], H, offs["fc_alpha.bias"]))
+    units += _tf32_units(
         (R["dy"], H2, offs["layers_dir.0.bias"]),
         [(R["feat"], H, offs["layers_dir.0.weight"], H + dd)],
-        head=(R["drgb"], 3, (R["y"], H2), offs["fc_rgb.weight"], H2, offs["fc_rgb.bias"])))
-    if len(units) > TF32_MAX_UNITS:
-        raise ValueError(f"{len(units)} dW units: the kernel takes {TF32_MAX_UNITS}")
+        head=(R["drgb"], 3, (R["y"], H2), offs["fc_rgb.weight"], H2, offs["fc_rgb.bias"]))
+    if len(units) > TF32_MAX_UNITS * TF32_MAX_PARTS:
+        raise ValueError(f"{len(units)} dW units: the kernel takes at most "
+                         f"{TF32_MAX_UNITS * TF32_MAX_PARTS} (a shallower or narrower model)")
     return tuple(units)
+
+
+def tf32_dw_parts(plan) -> list:
+    """The plan in launches of at most :data:`TF32_MAX_UNITS` units (one
+    up to a width of 128)."""
+    return [plan[i:i + TF32_MAX_UNITS] for i in range(0, len(plan), TF32_MAX_UNITS)]
 
 
 def tf32_entries(unit: Tf32Unit) -> torch.Tensor:
@@ -233,7 +315,8 @@ def tf32_entries(unit: Tf32Unit) -> torch.Tensor:
     if h is not None:
         idx.append((h.w + torch.arange(h.rows)[:, None] * h.ldw + torch.arange(h.mlim))
                    .reshape(-1))
-        idx.append(h.bias + torch.arange(h.rows))
+        if h.bias >= 0:
+            idx.append(h.bias + torch.arange(h.rows))
     return torch.cat(idx)
 
 
@@ -246,17 +329,19 @@ def tf32_viewdir_entries(model: FlexibleNeRFModel) -> torch.Tensor:
 
 
 def tf32_reduce_map(model: FlexibleNeRFModel, plan=None) -> torch.Tensor:
-    """For each entry of the flat gradient: -1 - the unit whose slots hold
-    it, or its index among the viewdir entries. Raises unless every entry
-    has exactly one source."""
+    """For each entry of the flat gradient: -1 - (part TF32_MAX_UNITS +
+    unit) of the unit whose slots hold it (:func:`tf32_dw_parts`), or its
+    index among the viewdir entries. Raises unless every entry has exactly
+    one source."""
     plan = tf32_dw_plan(model) if plan is None else plan
     n = _param_offsets(model)[1]
     count = torch.zeros(n, dtype=torch.int32)
     m = torch.zeros(n, dtype=torch.int32)
-    for u, unit in enumerate(plan):
-        idx = tf32_entries(unit)
-        count.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
-        m[idx] = -1 - u
+    for pt, part in enumerate(tf32_dw_parts(plan)):
+        for u, unit in enumerate(part):
+            idx = tf32_entries(unit)
+            count.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+            m[idx] = -1 - (pt * TF32_MAX_UNITS + u)
     vd = tf32_viewdir_entries(model)
     count.index_add_(0, vd, torch.ones_like(vd, dtype=torch.int32))
     m[vd] = torch.arange(vd.numel(), dtype=torch.int32)
@@ -317,9 +402,11 @@ def check_dw_args_size(lib) -> None:
         )
 
 
-def tf32_dw_args(model: FlexibleNeRFModel, grid: int, plan=None) -> _Tf32Args:
-    """A ``_Tf32Args`` of the model's plan (or ``plan``) on ``grid`` CTAs,
-    without the tensor maps, the buffers and the chunk's fields."""
+def tf32_dw_args(model: FlexibleNeRFModel, grid: int, plan=None, viewdir=True) -> _Tf32Args:
+    """A ``_Tf32Args`` of the model's plan (or ``plan``, one part of it) on
+    ``grid`` CTAs, without the tensor maps, the buffers and the chunk's
+    fields; the launch also takes the viewdir rows when ``viewdir`` (the
+    first part's)."""
     from dexnerf_tpu_torch.ops.fused_train_loss import dw_max_pieces
 
     plan = tf32_dw_plan(model) if plan is None else plan
@@ -344,12 +431,12 @@ def tf32_dw_args(model: FlexibleNeRFModel, grid: int, plan=None) -> _Tf32Args:
     args.max_pieces = dw_max_pieces(costs, grid)
     args.stage_bytes, args.lo_bytes, args.n_stages = tf32_ring(plan)
     args.n_params = _param_offsets(model)[1]
-    args.dd, args.h2 = model.dim_dir, model.hidden_size // 2
+    args.dd, args.h2 = model.dim_dir, model.hidden_size // 2 if viewdir else 0
     return args
 
 
-# (widths, depth, skips, encodings, grid, device) -> (the _Tf32Args template,
-# the reduction's map on the device): built once per shape
+# (widths, depth, skips, encodings, grid, device) -> (the _Tf32Args template of
+# each part, the reduction's map on the device): built once per shape
 _tf32_templates = {}
 
 
@@ -357,7 +444,10 @@ def _cached_tf32(model: FlexibleNeRFModel, grid: int, device):
     key = (model.hidden_size, model.num_layers, tuple(model.skips), model.dim_xyz,
            model.dim_dir, grid, str(device))
     if key not in _tf32_templates:
-        _tf32_templates[key] = (tf32_dw_args(model, grid), tf32_reduce_map(model).to(device))
+        plan = tf32_dw_plan(model)
+        parts = [tf32_dw_args(model, grid, part, viewdir=i == 0)
+                 for i, part in enumerate(tf32_dw_parts(plan))]
+        _tf32_templates[key] = (parts, tf32_reduce_map(model, plan).to(device))
     return _tf32_templates[key]
 
 
@@ -388,16 +478,18 @@ class WeightGradients:
         self.k_full = chunk * s_pad
         self.k_last = (n_rays - (self.n_chunks - 1) * chunk) * s_pad
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        template, self.map = _cached_tf32(model, sms, dev)
-        self.args = _Tf32Args.from_buffer_copy(template)
+        templates, self.map = _cached_tf32(model, sms, dev)
+        # the plan's parts (one up to a width of 128), each launched on its own slots
+        self.parts = (_Tf32Args * len(templates))(*templates)
         self.n_vd = model.dim_dir * (model.hidden_size // 2)
-        self.partial = torch.empty((self.n_chunks * template.max_pieces * self.n_params,), **f32)
+        self.partials = [torch.empty((self.n_chunks * a.max_pieces * self.n_params,), **f32)
+                         for a in self.parts]
         self.vd = torch.empty((max(1, self.n_chunks * self.n_vd),), **f32)
-        a = self.args
-        a.partial, a.vd = self.partial.data_ptr(), self.vd.data_ptr()
-        a.dy_sum, a.dir_enc = self.dy_sum.data_ptr(), self.dir_enc.data_ptr()
-        if lib.dexnerf_dw_tf32_smem(ctypes.addressof(a)) == 0:
-            raise ValueError("the split-TF32 dW plan is out of the kernel's limits")
+        for a, partial in zip(self.parts, self.partials):
+            a.partial, a.vd = partial.data_ptr(), self.vd.data_ptr()
+            a.dy_sum, a.dir_enc = self.dy_sum.data_ptr(), self.dir_enc.data_ptr()
+            if lib.dexnerf_dw_tf32_smem(ctypes.addressof(a)) == 0:
+                raise ValueError("the split-TF32 dW plan is out of the kernel's limits")
         self.maps = {k: self.tensor_maps(lib, k) for k in {self.k_full, self.k_last}}
 
     def tensor_maps(self, lib, k: int):
@@ -416,11 +508,12 @@ class WeightGradients:
         """Launch the weight-gradient kernel of chunk ``c`` (``rays`` rays)."""
         from dexnerf_tpu_torch.ops._build import check
 
-        k, a = rays * self.s_pad, self.args
-        ctypes.memmove(a.maps, self.maps[k], ctypes.sizeof(a.maps))
-        a.n_st, a.chunk, a.rays = k // TF32_STAGE, c, rays
-        check(self.lib, self.lib.dexnerf_dw_tf32(ctypes.addressof(a), stream),
-              "weight-gradient launch")
+        k = rays * self.s_pad
+        for a in self.parts:
+            ctypes.memmove(a.maps, self.maps[k], ctypes.sizeof(a.maps))
+            a.n_st, a.chunk, a.rays = k // TF32_STAGE, c, rays
+            check(self.lib, self.lib.dexnerf_dw_tf32(ctypes.addressof(a), stream),
+                  "weight-gradient launch")
 
     def reduce(self, stream: int, loss_ray=None, loss=None) -> tuple:
         """Sum the chunks' slots (and ``loss_ray`` [N] into ``loss`` [] when
@@ -429,7 +522,7 @@ class WeightGradients:
         from dexnerf_tpu_torch.ops._build import check
 
         check(self.lib, self.lib.dexnerf_dw_tf32_reduce(
-            ctypes.addressof(self.args), self.n_chunks, self.k_full // TF32_STAGE,
+            ctypes.addressof(self.parts), len(self.parts), self.n_chunks, self.k_full // TF32_STAGE,
             self.k_last // TF32_STAGE, self.vd.data_ptr(), self.n_vd, self.map.data_ptr(),
             self.grad.data_ptr(), stream), "gradient reduce launch")
         if loss is not None:

@@ -66,12 +66,20 @@ inline DwSpans dw_spans_of(int n_units, int total_cost, int grid, int max_pieces
   return sp;
 }
 
+// A plan launched in parts (each its own launch on its own slots): each
+// part's unit table and slots.
+constexpr int kDwMaxParts = 8;
+struct DwParts {
+  DwSpans sp[kDwMaxParts];
+  const float* partial[kDwMaxParts];
+};
+
 // Entry i of the gradient (thread i of a reduce kernel): the sum over the
-// dW slots of its unit (map[i] = -1 - unit), in chunk order and slot order,
-// or over the n_aux_parts rows of aux at entry map[i], in row order.
-__device__ __forceinline__ void reduce_slots(const DwSpans& sp, const float* partial,
-                                             int n_chunks, int n_st_full, int n_st_last,
-                                             long long n_params, const float* aux,
+// dW slots of its unit (map[i] = -1 - (part kDwMaxUnits + unit)), in chunk
+// order and slot order, or over the n_aux_parts rows of aux at entry
+// map[i], in row order.
+__device__ __forceinline__ void reduce_slots(const DwParts& parts, int n_chunks, int n_st_full,
+                                             int n_st_last, long long n_params, const float* aux,
                                              int n_aux_parts, int n_aux, const int* map,
                                              float* grad) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -79,11 +87,12 @@ __device__ __forceinline__ void reduce_slots(const DwSpans& sp, const float* par
   const int j = map[i];
   float s = 0.f;
   if (j < 0) {
-    const int u = -1 - j;
+    const int part = (-1 - j) / kDwMaxUnits, u = (-1 - j) % kDwMaxUnits;
+    const DwSpans& sp = parts.sp[part];
     for (int c = 0; c < n_chunks; ++c) {
       const int n_st = c + 1 < n_chunks ? n_st_full : n_st_last;
       const int pieces = dw_pieces(n_st, sp.pre[u], sp.cost[u], sp.total_cost, sp.grid);
-      const float* q = partial + (long long)c * sp.max_pieces * n_params + i;
+      const float* q = parts.partial[part] + (long long)c * sp.max_pieces * n_params + i;
       for (int k = 0; k < pieces; ++k) s += q[k * n_params];
     }
   } else {

@@ -15,7 +15,11 @@
 // ~3.0 ms at the 495 TFLOP/s TF32 peak.
 //
 // Design (ops/_weight_grads.py::tf32_dw_plan builds the plan):
-// * Units: the products that share a cotangent block read it once: layer1
+// * Units (up to a width of 128; above it each product is split to the
+//   limits below, at most 128 cotangent rows and two 128-row operand pieces
+//   a unit, and the plan launched in parts of at most kDwMaxUnits units,
+//   reduced together: ops/_weight_grads.py::_tf32_units, reduce_slots):
+//   the products that share a cotangent block read it once: layer1
 //   (d_0 x e), each trunk layer (d_{i+1} x a_i, with d_{i+1} x e on a skip
 //   layer), fc_feat with the fc_alpha head (d_feat x a_nt, d_sigma x
 //   a_nt), layers_dir.0's feat rows with the fc_rgb head (d_y x feat,
@@ -98,7 +102,7 @@ struct Tf32Wg {
 // in [8][32] boxes), first row and byte offset in the stage; the
 // cotangent block's valid rows and bias offset (-1: none); the head (h_rows
 // cotangent rows, 0 for none) over the boxes h_box0.., dW_head[c][m] at
-// h_w + c h_ldw + m (m < h_mlim), its bias at h_bias + c.
+// h_w + c h_ldw + m (m < h_mlim), its bias at h_bias + c (-1: none).
 struct Tf32Unit {
   int n_box, n_op, tx, cost;  // boxes, operand boxes (first), bytes a stage, cost a stage
   int map[kMaxBoxes], row[kMaxBoxes], off[kMaxBoxes];
@@ -124,12 +128,6 @@ static_assert(sizeof(Tf32Args) % 64 == 0 && offsetof(Tf32Args, pad) + 8 == sizeo
               "Tf32Args is mirrored without tail padding");
 
 // ---- shared memory
-__device__ __forceinline__ void sts128(uint32_t a, float4 v) {
-  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "f"(v.x), "f"(v.y),
-               "f"(v.z), "f"(v.w)
-               : "memory");
-}
-
 // Byte offset of row r's 16 B group g in a 128 B-swizzled [rows][32] box.
 __device__ __forceinline__ uint32_t grp(int r, int g) {
   return r * 128 + ((g ^ (r & 7)) << 4);
@@ -347,7 +345,7 @@ struct Consumer {
     ra = 16 * (t >> 5) + (lane >> 2);
     bias = has_parts && U.bias >= 0 && (U.n_a > 1 || cw == 0);
     head = U.h_rows > 0 && cw < U.h_nbox;
-    head_bias = U.h_rows > 0 && cw == 1;
+    head_bias = U.h_rows > 0 && U.h_bias >= 0 && cw == 1;
   }
   // The stage at st: its A fragments (when the warpgroup has parts) and
   // bias sums.
@@ -563,13 +561,12 @@ __global__ void __launch_bounds__(kDwThreads, 1)
   }
 }
 
-// The gradient of every parameter from the dW slots and, as aux rows, the
-// chunks' viewdir entries: see reduce_slots.
-__global__ void dw_tf32_reduce_kernel(const DwSpans sp, const float* partial, int n_chunks,
-                                      int n_st_full, int n_st_last, long long n_params,
-                                      const float* vd, int n_vd, const int* map, float* grad) {
-  reduce_slots(sp, partial, n_chunks, n_st_full, n_st_last, n_params, vd, n_chunks, n_vd, map,
-               grad);
+// The gradient of every parameter from the dW slots of the plan's parts
+// and, as aux rows, the chunks' viewdir entries: see reduce_slots.
+__global__ void dw_tf32_reduce_kernel(const DwParts parts, int n_chunks, int n_st_full,
+                                      int n_st_last, long long n_params, const float* vd,
+                                      int n_vd, const int* map, float* grad) {
+  reduce_slots(parts, n_chunks, n_st_full, n_st_last, n_params, vd, n_chunks, n_vd, map, grad);
 }
 
 // Shared-memory bytes of the dW kernel by the plan in a, or 0 when the
@@ -687,20 +684,31 @@ int dexnerf_dw_tf32(const void* args, void* stream) {
 
 // The gradient of every parameter (see dw_tf32_reduce_kernel; n_chunks
 // chunks, the last of n_st_last stages, the others of n_st_full, by the
-// plan in args). Returns a cudaError_t.
-int dexnerf_dw_tf32_reduce(const void* args, int n_chunks, int n_st_full, int n_st_last,
-                           const float* vd, int n_vd, const int* map, float* grad,
+// plan's n_parts parts: Tf32Args one after another at args). Returns a
+// cudaError_t.
+int dexnerf_dw_tf32_reduce(const void* args, int n_parts, int n_chunks, int n_st_full,
+                           int n_st_last, const float* vd, int n_vd, const int* map, float* grad,
                            void* stream) {
-  Tf32Args a;
-  memcpy(&a, args, sizeof a);
-  if (dw_tf32_smem(a) == 0 || n_chunks < 1 || n_st_full < 1 || n_st_last < 1 || n_vd < 0) {
+  if (n_parts < 1 || n_parts > kDwMaxParts || n_chunks < 1 || n_st_full < 1 || n_st_last < 1 ||
+      n_vd < 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const DwSpans sp = dw_spans_of(a.n_units, a.total_cost, a.grid, a.max_pieces,
-                                 [&](int u) { return a.units[u].cost; });
-  dw_tf32_reduce_kernel<<<(unsigned)((a.n_params + 255) / 256), 256, 0,
+  DwParts parts;
+  long long n_params = -1;
+  Tf32Args a;
+  for (int k = 0; k < n_parts; ++k) {
+    memcpy(&a, static_cast<const unsigned char*>(args) + k * sizeof(Tf32Args), sizeof a);
+    if (dw_tf32_smem(a) == 0 || (k > 0 && a.n_params != n_params)) {
+      return (int)cudaErrorInvalidValue;
+    }
+    n_params = a.n_params;
+    parts.sp[k] = dw_spans_of(a.n_units, a.total_cost, a.grid, a.max_pieces,
+                              [&](int u) { return a.units[u].cost; });
+    parts.partial[k] = a.partial;
+  }
+  dw_tf32_reduce_kernel<<<(unsigned)((n_params + 255) / 256), 256, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      sp, a.partial, n_chunks, n_st_full, n_st_last, a.n_params, vd, n_vd, map, grad);
+      parts, n_chunks, n_st_full, n_st_last, n_params, vd, n_vd, map, grad);
   return (int)cudaGetLastError();
 }
 

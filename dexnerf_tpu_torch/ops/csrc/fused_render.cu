@@ -56,11 +56,18 @@
 //   transmittance as a warp product scan over chunks of 32 samples, per-ray
 //   sums as fixed-order butterflies; the Dex first crossing by warp ballots,
 //   one warp per (ray, threshold) (no hit -> z[0]).
+//
+// Padded widths above 128 (up to kWtMaxHidden) take the wide route,
+// fused_render_wide_tf32_kernel, chosen by the launcher from the width
+// alone: the same work plan, unit prologue and compositing around
+// mlp_wide_tf32.cuh's tile (each layer's input an f32 tile in shared
+// memory, its output in column blocks of at most 128 to a worker's buffer
+// in device memory and back).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mlp_tile_tf32.cuh"
+#include "mlp_wide_tf32.cuh"
 
 namespace {
 
@@ -86,6 +93,7 @@ struct Params {
   float* depth;           // [N]
   float* weights;         // [N, S]
   float* dex;             // [T, N]
+  float* wbuf;            // the wide route's per-worker layer buffers (wide_wbuf_floats)
   int n_rays, n_samples, hidden, num_trunk, skip_mask, rpu;
   int dx, kx, dd, fx, fd, inc_x, inc_d;
   int n_thr, white_bg, n_stages;
@@ -149,6 +157,125 @@ __device__ __forceinline__ void store_rgb(float (&c)[2][3], int r0, const float*
 #pragma unroll
       for (int k = 0; k < 3; ++k) rgbr[(r + 8 * h) * 3 + k] = c[h][k] + b_rgb[k];
     }
+  }
+}
+
+// The unit's depths and intervals (rows of it; 0 past its nrays S real
+// samples) into zs, ds, its rays' viewdir encodings (f32, the accurate
+// sincosf) into dtmp [rpu][dd], then their viewdir bias bdir + enc .
+// W_dir into dirb [rpu][h2], by the warpgroup; visible to it on return.
+__device__ __forceinline__ void unit_prologue_tf32(const Params& p, float* zs, float* ds,
+                                                   float* dtmp, float* dirb, int ray0, int nrays,
+                                                   int rows, int h2, const float* bdir,
+                                                   const float* wdv, int bar) {
+  const int t = threadIdx.x & 127, S = p.n_samples, dd = p.dd, nreal = nrays * S;
+  const size_t s0 = (size_t)ray0 * S;
+  for (int r = t; r < rows; r += 128) {
+    const bool ok = r < nreal;
+    zs[r] = ok ? p.z[s0 + r] : 0.f;
+    ds[r] = ok ? p.dists[s0 + r] : 0.f;
+  }
+  for (int i = t; i < nrays * 3; i += 128) {  // viewdir encodings, f32
+    const int rr = i / 3, d = i - 3 * rr;
+    const float vv = p.viewdirs[(size_t)(ray0 + rr) * 3 + d];
+    float* e = dtmp + rr * dd;
+    int col = 0;
+    if (p.inc_d) {
+      e[d] = vv;
+      col = 3;
+    }
+    for (int f = 0; f < p.fd; ++f) {
+      float sn, cs;
+      sincosf(__fmul_rn(vv, p.bands_d[f]), &sn, &cs);
+      e[col + 6 * f + d] = sn;
+      e[col + 6 * f + 3 + d] = cs;
+    }
+  }
+  wg_sync(bar);
+  for (int i = t; i < nrays * h2; i += 128) {
+    const int rr = i / h2, c = i - rr * h2;
+    const float* e = dtmp + rr * dd;
+    float val = 0.f;
+    for (int kk = 0; kk < dd; ++kk) val = fmaf(e[kk], __ldg(wdv + kk * h2 + c), val);
+    dirb[i] = bdir[c] + val;
+  }
+  wg_sync(bar);  // the unit's data is written
+}
+
+// Compositing of the unit's nrays rays from ray0 (sigma and rgb logits of
+// every row in sig, rgbr), one warp per ray, then the Dex first crossings,
+// one warp per (ray, threshold); into the launch's outputs.
+__device__ __forceinline__ void composite_unit_tf32(const Params& p, const float* zs,
+                                                    const float* ds, const float* sig,
+                                                    const float* rgbr, int ray0, int nrays) {
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31, S = p.n_samples, N = p.n_rays;
+  for (int rr = warp; rr < nrays; rr += 4) {
+    const int base = rr * S;
+    const size_t ray = (size_t)ray0 + rr;
+    float carry = 1.f, cr = 0.f, cg = 0.f, cb = 0.f, dep = 0.f, ac = 0.f;
+    for (int j0 = 0; j0 < S; j0 += 32) {
+      const int s = j0 + lane;
+      const bool ok = s < S;
+      const float sigma = ok ? fmaxf(sig[base + s], 0.f) : 0.f;
+      const float alpha = ok ? 1.f - expf(-sigma * ds[base + s]) : 0.f;
+      float incl = ok ? (1.f - alpha) + 1e-10f : 1.f;
+#pragma unroll
+      for (int x = 1; x < 32; x <<= 1) {
+        const float tt = __shfl_up_sync(0xffffffffu, incl, x);
+        if (lane >= x) incl *= tt;
+      }
+      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+      if (lane == 0) excl = 1.f;
+      const float wgt = alpha * (carry * excl);
+      carry *= __shfl_sync(0xffffffffu, incl, 31);
+      if (ok) {
+        p.weights[ray * S + s] = wgt;
+        const float* raw = rgbr + (base + s) * 3;
+        cr += wgt * (1.f / (1.f + expf(-raw[0])));
+        cg += wgt * (1.f / (1.f + expf(-raw[1])));
+        cb += wgt * (1.f / (1.f + expf(-raw[2])));
+        dep += wgt * zs[base + s];
+        ac += wgt;
+      }
+    }
+#pragma unroll
+    for (int x = 16; x > 0; x >>= 1) {
+      cr += __shfl_xor_sync(0xffffffffu, cr, x);
+      cg += __shfl_xor_sync(0xffffffffu, cg, x);
+      cb += __shfl_xor_sync(0xffffffffu, cb, x);
+      dep += __shfl_xor_sync(0xffffffffu, dep, x);
+      ac += __shfl_xor_sync(0xffffffffu, ac, x);
+    }
+    if (lane == 0) {
+      if (p.white_bg) {
+        cr += 1.f - ac;
+        cg += 1.f - ac;
+        cb += 1.f - ac;
+      }
+      p.rgb[ray * 3] = cr;
+      p.rgb[ray * 3 + 1] = cg;
+      p.rgb[ray * 3 + 2] = cb;
+      p.depth[ray] = dep;
+      p.acc[ray] = ac;
+      p.disp[ray] = 1.f / fmaxf(1e-10f, dep / fmaxf(ac, 1e-37f));
+    }
+  }
+  // ---- Dex: the first sample whose sigma exceeds m (no hit -> z[0]), one
+  // warp per (ray, threshold)
+  for (int i = warp; i < nrays * p.n_thr; i += 4) {
+    const int rr = i / p.n_thr, th = i - rr * p.n_thr;
+    const int base = rr * S;
+    const float m = p.thr[th];
+    float hit = zs[base];
+    for (int j0 = 0; j0 < S; j0 += 32) {
+      const int s = j0 + lane;
+      const unsigned bits = __ballot_sync(0xffffffffu, s < S && fmaxf(sig[base + s], 0.f) > m);
+      if (bits) {
+        hit = zs[base + j0 + __ffs(bits) - 1];
+        break;
+      }
+    }
+    if (lane == 0) p.dex[(size_t)th * N + ray0 + rr] = hit;
   }
 }
 
@@ -224,47 +351,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float b_alpha = aux[p.aux_off[nt + 4]];
   const float* w_rgb = aux + p.aux_off[nt + 5];
   const float* b_rgb = aux + p.aux_off[nt + 6];
-  const int N = p.n_rays, dd = p.dd, dxp = kx * kKc;
+  const int N = p.n_rays, dxp = kx * kKc;
 
   Tf32Ring wr{ring, full, empty, NS, SB, lane};
 
   const int mine = units_of(v);
   for (int k = 0; k < mine; ++k) {
     const int ray0 = (v + kCons * G * k) * rpu;
-    const int nrays = min(rpu, N - ray0), nreal = nrays * S;
-    const size_t s0 = (size_t)ray0 * S;
-    // ---- the unit's depths and intervals, and its rays' viewdir bias
-    for (int r = t; r < rows; r += 128) {
-      const bool ok = r < nreal;
-      zs[r] = ok ? p.z[s0 + r] : 0.f;
-      ds[r] = ok ? p.dists[s0 + r] : 0.f;
-    }
-    for (int i = t; i < nrays * 3; i += 128) {  // viewdir encodings, f32
-      const int rr = i / 3, d = i - 3 * rr;
-      const float vv = p.viewdirs[(size_t)(ray0 + rr) * 3 + d];
-      float* e = dtmp + rr * dd;
-      int col = 0;
-      if (p.inc_d) {
-        e[d] = vv;
-        col = 3;
-      }
-      for (int f = 0; f < p.fd; ++f) {
-        float sn, cs;
-        sincosf(__fmul_rn(vv, p.bands_d[f]), &sn, &cs);
-        e[col + 6 * f + d] = sn;
-        e[col + 6 * f + 3 + d] = cs;
-      }
-    }
-    wg_sync(bar);
-    for (int i = t; i < nrays * H2; i += 128) {
-      const int rr = i / H2, c = i - rr * H2;
-      const float* e = dtmp + rr * dd;
-      float val = 0.f;
-      for (int kk = 0; kk < dd; ++kk) val = fmaf(e[kk], __ldg(wdv + kk * H2 + c), val);
-      dirb[i] = bdir[c] + val;
-    }
-
-    wg_sync(bar);  // the unit's data is written
+    const int nrays = min(rpu, N - ray0);
+    unit_prologue_tf32(p, zs, ds, dtmp, dirb, ray0, nrays, rows, H2, bdir, wdv, bar);
 
     // the xyz encoding of the tile at r0 into the area, split, by the two
     // lanes of each row of the warp's own 16 rows (a warp's wgmma reads
@@ -325,80 +420,119 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     wg_sync(bar);  // every row's sigma and rgb logits are written
 
-    // ---- compositing, one warp per ray
-    for (int rr = warp; rr < nrays; rr += 4) {
-      const int base = rr * S;
-      const size_t ray = (size_t)ray0 + rr;
-      float carry = 1.f, cr = 0.f, cg = 0.f, cb = 0.f, dep = 0.f, ac = 0.f;
-      for (int j0 = 0; j0 < S; j0 += 32) {
-        const int s = j0 + lane;
-        const bool ok = s < S;
-        const float sigma = ok ? fmaxf(sig[base + s], 0.f) : 0.f;
-        const float alpha = ok ? 1.f - expf(-sigma * ds[base + s]) : 0.f;
-        float incl = ok ? (1.f - alpha) + 1e-10f : 1.f;
-#pragma unroll
-        for (int x = 1; x < 32; x <<= 1) {
-          const float tt = __shfl_up_sync(0xffffffffu, incl, x);
-          if (lane >= x) incl *= tt;
-        }
-        float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-        if (lane == 0) excl = 1.f;
-        const float wgt = alpha * (carry * excl);
-        carry *= __shfl_sync(0xffffffffu, incl, 31);
-        if (ok) {
-          p.weights[ray * S + s] = wgt;
-          const float* raw = rgbr + (base + s) * 3;
-          cr += wgt * (1.f / (1.f + expf(-raw[0])));
-          cg += wgt * (1.f / (1.f + expf(-raw[1])));
-          cb += wgt * (1.f / (1.f + expf(-raw[2])));
-          dep += wgt * zs[base + s];
-          ac += wgt;
-        }
-      }
-#pragma unroll
-      for (int x = 16; x > 0; x >>= 1) {
-        cr += __shfl_xor_sync(0xffffffffu, cr, x);
-        cg += __shfl_xor_sync(0xffffffffu, cg, x);
-        cb += __shfl_xor_sync(0xffffffffu, cb, x);
-        dep += __shfl_xor_sync(0xffffffffu, dep, x);
-        ac += __shfl_xor_sync(0xffffffffu, ac, x);
-      }
-      if (lane == 0) {
-        if (p.white_bg) {
-          cr += 1.f - ac;
-          cg += 1.f - ac;
-          cb += 1.f - ac;
-        }
-        p.rgb[ray * 3] = cr;
-        p.rgb[ray * 3 + 1] = cg;
-        p.rgb[ray * 3 + 2] = cb;
-        p.depth[ray] = dep;
-        p.acc[ray] = ac;
-        p.disp[ray] = 1.f / fmaxf(1e-10f, dep / fmaxf(ac, 1e-37f));
-      }
-    }
-    // ---- Dex: the first sample whose sigma exceeds m (no hit -> z[0]), one
-    // warp per (ray, threshold)
-    for (int i = warp; i < nrays * p.n_thr; i += 4) {
-      const int rr = i / p.n_thr, th = i - rr * p.n_thr;
-      const int base = rr * S;
-      const float m = p.thr[th];
-      float hit = zs[base];
-      for (int j0 = 0; j0 < S; j0 += 32) {
-        const int s = j0 + lane;
-        const unsigned bits = __ballot_sync(0xffffffffu, s < S && fmaxf(sig[base + s], 0.f) > m);
-        if (bits) {
-          hit = zs[base + j0 + __ffs(bits) - 1];
-          break;
-        }
-      }
-      if (lane == 0) p.dex[(size_t)th * N + ray0 + rr] = hit;
-    }
+    composite_unit_tf32(p, zs, ds, sig, rgbr, ray0, nrays);
     wg_sync(bar);  // the next unit rewrites the unit's data
   }
   // worker kCons b has more tiles: release the stages of its other passes
   for (int c = mine * tiles * nch; c < passes * nch; ++c) {
     wr.take();
+    wr.release();
+  }
+}
+
+// ---- the wide route (padded widths above 128): mlp_wide_tf32.cuh's tile
+// under the same work plan (render_plan with the kernel's C workers a CTA),
+// unit prologue and compositing. Persistent CTAs of C consumer warpgroups
+// (wt_plan: 2 while two fit, else 1) and one weight-stream warpgroup; shared
+// memory from the 1024-aligned base: the ring, then each consumer's block
+// (its input tile, its encoding tile, its unit data: z, dists, sigma [rows],
+// rgb logits [rows][3]), then the ring's barriers. In device memory a
+// worker's buffer (p.wbuf, wide_wbuf_floats each): the layer outputs [hp]
+// [64] and the unit's viewdir bias [rpu][hp / 2]; the unit's viewdir
+// encodings go to the input tile, free during the unit's prologue.
+__host__ __device__ inline size_t wide_render_cons_bytes(int hp, int kx, int rows) {
+  return align16(ft_bytes(hp) + ft_bytes(kx * kKc) + (size_t)rows * 24);
+}
+__host__ __device__ inline size_t wide_wbuf_floats(int hp) {
+  return (size_t)hp * kTile + (size_t)kMaxRpu * (hp / 2);
+}
+
+__global__ void __launch_bounds__(kWtThreads, 1)
+    fused_render_wide_tf32_kernel(const __grid_constant__ Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sbase = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (sbase - smem_u32(smem_raw));
+  const int C = blockDim.x / 128 - 1;
+  const int hp = p.hidden, h2 = hp / 2, S = p.n_samples, nt = p.num_trunk, rpu = p.rpu;
+  const int kx = p.kx, NS = p.n_stages, rows = unit_rows(rpu, S), tiles = rows / kTile;
+  const int n_units = (p.n_rays + rpu - 1) / rpu;
+  const size_t cons_bytes = wide_render_cons_bytes(hp, kx, rows);
+  const int bmax = wt_plan(cons_bytes).bmax;
+  const uint32_t ring = sbase, cons0 = sbase + (uint32_t)(NS * wt_stage_bytes(bmax));
+  const uint32_t full = cons0 + (uint32_t)(C * cons_bytes), empty = full + 8 * NS;
+  const int G = gridDim.x, b = blockIdx.x;
+  // worker C b + cw takes units C b + cw, + C G, ...; worker C b has the
+  // CTA's most, and one pass over the weights a tile
+  auto units_of = [&](int w) { return w < n_units ? (n_units - 1 - w) / (C * G) + 1 : 0; };
+  const int passes = tiles * units_of(C * b);
+  const int tid = threadIdx.x, cw = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * C);  // every consumer warp releases a stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the consumers' blocks start zero: the encoding tiles' features past dx stay so
+  for (size_t i = tid; i < C * cons_bytes / 16; i += blockDim.x) {
+    reinterpret_cast<uint4*>(gbase + (cons0 - sbase))[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+  const int t = tid & 127, warp = t >> 5, lane = t & 31, g = lane >> 2;
+  if (cw == C) {  // ---- the weight stream, one thread
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWtProdRegs));
+    if (t == 0) {
+      WtStream st{reinterpret_cast<const unsigned char*>(p.wq), ring, full, empty, NS, bmax};
+      st.forward(passes, hp, kx, nt, p.skip_mask, true);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWtConsRegs));
+  const int v = C * b + cw, bar = 1 + cw;
+  const uint32_t own = cons0 + (uint32_t)(cw * cons_bytes);
+  float* dtmp = reinterpret_cast<float*>(gbase + (own - sbase));  // [rpu][dd] in the input tile
+  float* zs = reinterpret_cast<float*>(gbase + (own - sbase) + ft_bytes(hp) + ft_bytes(kx * kKc));
+  float* ds = zs + rows;
+  float* sig = ds + rows;
+  float* rgbr = sig + rows;  // [rows][3]
+  float* wb = p.wbuf + (size_t)v * wide_wbuf_floats(hp);
+  float* dirb = wb + (size_t)hp * kTile;  // [rpu][h2]
+  const WtTile T{own, own + (uint32_t)ft_bytes(hp), p.aux, p.aux_off, nullptr,
+                 hp, kx, p.dx, nt, p.skip_mask, bar};
+  const WtOut O{wb, kTile, 0, hp, nullptr, nullptr, 0};
+  WtRing wr{ring, full, empty, NS, bmax, lane};
+  const int mine = units_of(v);
+  for (int k = 0; k < mine; ++k) {
+    const int ray0 = (v + C * G * k) * rpu;
+    const int nrays = min(rpu, p.n_rays - ray0);
+    unit_prologue_tf32(p, zs, ds, dtmp, dirb, ray0, nrays, rows, h2, p.aux + p.aux_off[nt + 2],
+                       p.aux + p.aux_off[nt + 7], bar);
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int r0 = tile * kTile;
+      // the xyz encoding of the tile's rows (two lanes a row), f32; padding
+      // rows take the unit's last ray at z = 0
+      {
+        const int i = 16 * warp + (lane & 15), half = lane >> 4, r = r0 + i;
+        const size_t rg = (size_t)(ray0 + min(r / S, nrays - 1)) * 3;
+        for (int d = 0; d < 3; ++d) {
+          const float pt = __fadd_rn(p.origins[rg + d], __fmul_rn(p.dirs[rg + d], zs[r]));
+          wt_encode_coord(d, pt, half, p.fx, p.inc_x, p.bands_x,
+                          [&](int f, float x) { sts32(T.enc + ft_off(f, i), __float_as_uint(x)); });
+        }
+      }
+      wg_sync(bar);  // the encoding (and, on the first tile, the unit's data) is written
+      const int row = r0 + 16 * warp + g;
+      wt_forward(T, wr, O, dirb + min(row / S, nrays - 1) * h2,
+                 dirb + min((row + 8) / S, nrays - 1) * h2, sig + r0, rgbr + 3 * r0);
+    }
+    wg_sync(bar);  // every row's sigma and rgb logits are written
+    composite_unit_tf32(p, zs, ds, sig, rgbr, ray0, nrays);
+    wg_sync(bar);  // the next unit rewrites the unit's data
+  }
+  // worker C b has more tiles: release the stages of its other passes
+  const int per_pass = wt_fwd_pieces(hp, kx, nt, p.skip_mask, bmax, true);
+  for (int c = mine * tiles * per_pass; c < passes * per_pass; ++c) {
+    wr.acquire();
     wr.release();
   }
 }
@@ -440,6 +574,32 @@ int stages_for(int hidden, int dx, int dd, int n_samples, int rpu, int num_trunk
   return 0;
 }
 
+// The wide kernel's ring stages, shared memory and consumers for a launch
+// (see stages_for); 0 if the shape is not one it takes.
+int wide_stages_for(int hidden, int dx, int n_samples, int rpu, int num_trunk, size_t* smem,
+                    int* cons) {
+  if (hidden % 32 != 0 || hidden <= 128 || hidden > kWtMaxHidden || n_samples < 1 ||
+      n_samples > kMaxSamples || rpu < 1 || rpu > kMaxRpu ||
+      unit_rows(rpu, n_samples) > kMaxUnitRows || dx < 1 || dx > kMaxDx || num_trunk < 0 ||
+      num_trunk > 31) {
+    return 0;
+  }
+  const WtPlan w =
+      wt_plan(wide_render_cons_bytes(hidden, (dx + kKc - 1) / kKc, unit_rows(rpu, n_samples)));
+  *smem = w.smem;
+  *cons = w.cons;
+  return w.stages;
+}
+
+int launch_wide(const Params& p, size_t smem, int cons, int grid, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(fused_render_wide_tf32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (grid == 0) return 0;
+  fused_render_wide_tf32_kernel<<<grid, 128 * (cons + 1), smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -447,14 +607,16 @@ extern "C" {
 // Returns a cudaError_t (0 on success); the launch is asynchronous on
 // `stream`. Pointers named *_host are host arrays, copied into the kernel's
 // parameter block. The work plan (ops/fused_render.py::render_plan, two
-// workers a CTA): units of rays_per_unit rays, `grid` persistent CTAs.
-// `hidden` is the padded width (a multiple of 32 up to 128).
+// workers a CTA, or the wide kernel's consumers above 128): units of
+// rays_per_unit rays, `grid` persistent CTAs. `hidden` is the padded width
+// (a multiple of 32 up to kWtMaxHidden; above 128 the wide kernel, whose
+// workers each take wide_wbuf_floats(hidden) floats of wbuf).
 int dexnerf_fused_render(const float* origins, const float* dirs, const float* viewdirs,
                          const float* z, const float* dists, const void* wq, const float* aux,
                          float* rgb, float* disp, float* acc, float* depth, float* weights,
-                         float* dex, int n_rays, int n_samples, int hidden, int num_trunk,
-                         int skip_mask, int rays_per_unit, int grid, int fx, int inc_x,
-                         const float* bands_x_host, int fd, int inc_d,
+                         float* dex, float* wbuf, int n_rays, int n_samples, int hidden,
+                         int num_trunk, int skip_mask, int rays_per_unit, int grid, int fx,
+                         int inc_x, const float* bands_x_host, int fd, int inc_d,
                          const float* bands_d_host, int n_thr, const float* thr_host,
                          const int* aux_off_host, int white_bg, void* stream) {
   Params p;
@@ -471,6 +633,7 @@ int dexnerf_fused_render(const float* origins, const float* dirs, const float* v
   p.depth = depth;
   p.weights = weights;
   p.dex = dex;
+  p.wbuf = wbuf;
   p.n_rays = n_rays;
   p.n_samples = n_samples;
   p.hidden = hidden;
@@ -487,10 +650,15 @@ int dexnerf_fused_render(const float* origins, const float* dirs, const float* v
   p.n_thr = n_thr;
   p.white_bg = white_bg;
   size_t smem = 0;
-  p.n_stages = stages_for(hidden, p.dx, p.dd, n_samples, rays_per_unit, num_trunk, &smem);
+  int cons = kCons;
+  const bool wide = hidden > 128;
+  p.n_stages = wide ? wide_stages_for(hidden, p.dx, n_samples, rays_per_unit, num_trunk, &smem,
+                                      &cons)
+                    : stages_for(hidden, p.dx, p.dd, n_samples, rays_per_unit, num_trunk, &smem);
   if (p.n_stages == 0 || n_rays < 0 || grid < 0 || (n_rays > 0 && grid < 1) ||
       num_trunk + 8 > kAux || fx > kMaxFreq || fd > kMaxFreq ||
-      n_thr > kMaxThresholds || n_thr < 0 || (n_thr > 0 && dex == nullptr)) {
+      n_thr > kMaxThresholds || n_thr < 0 || (n_thr > 0 && dex == nullptr) ||
+      (wide && wbuf == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   for (int i = 0; i < num_trunk + 8; ++i) p.aux_off[i] = aux_off_host[i];
@@ -499,6 +667,7 @@ int dexnerf_fused_render(const float* origins, const float* dirs, const float* v
   for (int t = 0; t < n_thr; ++t) p.thr[t] = thr_host[t];
   if (n_rays == 0) grid = 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide) return launch_wide(p, smem, cons, grid, s);
   switch (hidden / 32) {
     case 1: return launch<2>(p, smem, grid, s);
     case 2: return launch<4>(p, smem, grid, s);
@@ -524,6 +693,25 @@ int dexnerf_fused_render_occupancy(int hidden, int dx, int dd, int n_samples, in
     case 3: return occupancy<6>(smem, ctas);
     default: return occupancy<8>(smem, ctas);
   }
+}
+
+// The same for the wide kernel (padded widths above 128), with its consumer
+// warpgroups (the render plan's workers a CTA) into *cons and the floats of
+// a worker's buffer into *wbuf_floats.
+int dexnerf_fused_render_wide_occupancy(int hidden, int dx, int dd, int n_samples,
+                                        int rays_per_unit, int num_trunk, int* ctas,
+                                        int* smem_bytes, int* stages, int* cons,
+                                        int* wbuf_floats) {
+  size_t smem = 0;
+  *stages = wide_stages_for(hidden, dx, n_samples, rays_per_unit, num_trunk, &smem, cons);
+  if (*stages == 0) return (int)cudaErrorInvalidValue;
+  *smem_bytes = (int)smem;
+  *wbuf_floats = (int)wide_wbuf_floats(hidden);
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_render_wide_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, fused_render_wide_tf32_kernel, 128 * (*cons + 1), smem);
 }
 
 const char* dexnerf_cuda_error_string(int code) {

@@ -72,6 +72,11 @@
 // The kernels take a launcher tag (kOwner) so that a profile names them.
 // Hidden widths that are not a multiple of 32 run zero-padded to one (the
 // tile's widths); the scratch, the masks and dy_sum keep the model's own.
+// Padded widths above 128 (up to kWtMaxHidden) take the wide route, chosen
+// by the launchers from the width alone: train_fwd_wide_tf32_kernel and
+// train_chain_wide_tf32_kernel on mlp_wide_tf32.cuh's tile, with the same
+// prep, compositing, scratch, mask words and dW (its plan split to its
+// limits, in parts: ops/_weight_grads.py).
 //
 // The same kernels are the f32 routes of the field kernels
 // (dexnerf_field_tf32_pass), which replace
@@ -95,7 +100,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mlp_tile_tf32.cuh"
+#include "mlp_wide_tf32.cuh"
 #include "train_composite.cuh"
 #include "train_rows.cuh"
 
@@ -141,6 +146,7 @@ struct TrainArgs {
   float* raw;               // [k][4] rgb logits, sigma logit; kernel 2: [N, S, 4]
   float* graw;              // [k][4] their cotangents; kernel 3: the caller's g [N, S, 4]
   uint32_t* masks;          // [k / 64][tile_words][128] ReLU mask words
+  float* wbuf;              // kernel 2's wide route: [hp][64] a worker (layer outputs)
   long long k;              // scratch columns: n_rays * s_pad
   int ray0, n_rays, n_samples, s_pad;
   int hidden, hp, num_trunk, skip_mask;  // the model's width, the padded one
@@ -155,9 +161,11 @@ struct TrainArgs {
 
 // Mask words of a thread for one layer of width H (padded): its H / 2
 // values' bits, bit 4 j + e for accumulator entry 4 j + e; and per tile the
-// words of a_1..a_nt and feat, then y's one word.
+// words of a_1..a_nt and feat, then y's (H / 2 wide: one word up to 128).
 __host__ __device__ inline int mask_words(int H) { return (H + 63) / 64; }
-__host__ __device__ inline int tile_words(int H, int nt) { return (nt + 1) * mask_words(H) + 1; }
+__host__ __device__ inline int tile_words(int H, int nt) {
+  return (nt + 1) * mask_words(H) + mask_words(H / 2);
+}
 
 // ---- per ray: viewdir encoding (f32) and the viewdir layer's per-ray bias
 // b + sum_k enc[k] W_dir[H + k] (f32 FMA from 0, then the bias), one warp
@@ -757,6 +765,329 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---- the wide route (padded widths above 128, mlp_wide_tf32.cuh): the
+// forward of kernels 4, 2 and 3 by kOwner and the chain of kernels 4 and 3,
+// with the narrow route's prep, compositing, scratch layout, mask words and
+// dW. Persistent CTAs of C consumer warpgroups (wt_plan on their blocks: 2
+// while two fit, else 1) and one warpgroup whose first thread streams the
+// pack in pieces (WtStream).
+//
+// The forward: worker v = C b + cw takes the chunk's 64-column tiles v, v +
+// C G, ...; per tile the encoding (f32) into the consumer's encoding tile
+// and the scratch's e rows, then wt_forward: layer1 on the CUDA cores (the
+// narrow forward's FMA chain), every other product split TF32, each layer's
+// output stored to the scratch (kernel 2: to its worker's buffer) and read
+// back as the next layer's input, the ReLU mask words as the narrow
+// forward's; raw as the narrow forward's.
+__host__ __device__ inline size_t wide_fwd_cons_bytes(int hp, int kx) {
+  // the input tile, the encoding tile, sigma [64] and rgb [64][3]
+  return align16(ft_bytes(hp) + ft_bytes(kx * kKc) + kTile * 4 * 4);
+}
+
+template <int kOwner>
+__global__ void __launch_bounds__(kWtThreads, 1)
+    train_fwd_wide_tf32_kernel(const __grid_constant__ TrainArgs p, int n_tiles) {
+  constexpr bool kSave = kOwner != kFieldFwd;  // activations, encodings, mask words
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sbase = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (sbase - smem_u32(smem_raw));
+  const int C = blockDim.x / 128 - 1;
+  const int hp = p.hp, nt = p.num_trunk, kx = p.kx, NS = p.fwd_stages;
+  const size_t cons_bytes = wide_fwd_cons_bytes(hp, kx);
+  const int bmax = wt_plan(cons_bytes).bmax;
+  const uint32_t ring = sbase, cons0 = sbase + (uint32_t)(NS * wt_stage_bytes(bmax));
+  const uint32_t full = cons0 + (uint32_t)(C * cons_bytes), empty = full + 8 * NS;
+  const int G = gridDim.x, b = blockIdx.x;
+  auto tiles_of = [&](int w) { return w < n_tiles ? (n_tiles - 1 - w) / (C * G) + 1 : 0; };
+  const int passes = tiles_of(C * b);  // worker C b has the CTA's most
+  const int tid = threadIdx.x, cw = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * C);  // every consumer warp releases a stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the consumers' blocks start zero: the encoding tiles' features past dx stay so
+  for (size_t i = tid; i < C * cons_bytes / 16; i += blockDim.x) {
+    reinterpret_cast<uint4*>(gbase + (cons0 - sbase))[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+  const int t = tid & 127, warp = t >> 5, lane = t & 31;
+  if (cw == C) {  // ---- the weight stream, one thread: all but layer1's stages
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWtProdRegs));
+    if (t == 0) {
+      WtStream st{reinterpret_cast<const unsigned char*>(p.wq), ring, full, empty, NS, bmax};
+      st.forward(passes, hp, kx, nt, p.skip_mask, false);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWtConsRegs));
+  const int v = C * b + cw, bar = 1 + cw;
+  const uint32_t own = cons0 + (uint32_t)(cw * cons_bytes);
+  const WtTile T{own, own + (uint32_t)ft_bytes(hp), p.aux, p.aux_off, p.w1,
+                 hp, kx, p.dx, nt, p.skip_mask, bar};
+  float* sig = reinterpret_cast<float*>(gbase + (own - sbase) + ft_bytes(hp) + ft_bytes(kx * kKc));
+  float* rgbr = sig + kTile;  // [64][3]
+  const int S = p.n_samples, SP = p.s_pad, hm = p.hidden;
+  const long long K = p.k;
+  const Rows R{K, p.dx, hm, nt};
+  const int TW = tile_words(hp, nt);
+  WtRing wr{ring, full, empty, NS, bmax, lane};
+  const int mine = tiles_of(v);
+  for (int it = 0; it < mine; ++it) {
+    const int tile = v + C * G * it;
+    const long long col0 = (long long)tile * kTile;
+    const int rl = (int)(col0 / SP), s0 = (int)(col0 - (long long)rl * SP);
+    const long long ray = (long long)p.ray0 + rl;
+    // the xyz encoding of the tile (two lanes a row), as the narrow forward's
+    // first: f32 into the encoding tile and the scratch's e rows; padding
+    // samples (s >= S) take z = 0 or the origin
+    {
+      const int i = 16 * warp + (lane & 15), half = lane >> 4, s = s0 + i;
+      const float zz = kOwner == kLoss && s < S ? p.z[ray * S + s] : 0.f;
+      float* ecol = p.act + R.e() + col0 + i;
+      for (int d = 0; d < 3; ++d) {
+        const float pt =
+            kOwner == kLoss ? __fadd_rn(p.origins[ray * 3 + d], __fmul_rn(p.dirs[ray * 3 + d], zz))
+            : s < S         ? p.pts[(ray * S + s) * 3 + d]
+                            : 0.f;
+        wt_encode_coord(d, pt, half, p.fx, p.inc_x, p.bands_x, [&](int f, float x) {
+          sts32(T.enc + ft_off(f, i), __float_as_uint(x));
+          if (kSave) __stcs(ecol + (long long)f * K, x);
+        });
+      }
+    }
+    wg_sync(bar);  // the encoding is written
+    const float* db = p.dirb + (size_t)rl * (hp / 2);
+    if constexpr (kSave) {
+      const WtOut O{p.act + R.a(0) + col0, K, (long long)hm * K, hm, p.act + R.y() + col0,
+                    p.masks + (size_t)tile * TW * 128 + t, mask_words(hp)};
+      wt_forward(T, wr, O, db, db, sig, rgbr);
+    } else {
+      const WtOut O{p.wbuf + (size_t)v * hp * kTile, kTile, 0, hp, nullptr, nullptr, 0};
+      wt_forward(T, wr, O, db, db, sig, rgbr);
+    }
+    wg_sync(bar);  // every row's sigma and rgb logits are written
+    if (t < kTile) {
+      const float4 out = make_float4(rgbr[3 * t], rgbr[3 * t + 1], rgbr[3 * t + 2], sig[t]);
+      if (kOwner != kFieldFwd) {
+        reinterpret_cast<float4*>(p.raw)[col0 + t] = out;
+      } else if (s0 + t < S) {
+        reinterpret_cast<float4*>(p.raw)[ray * S + s0 + t] = out;
+      }
+    }
+  }
+  // worker C b has more tiles: release the stages of its other passes
+  const int per_pass = wt_fwd_pieces(hp, kx, nt, p.skip_mask, bmax, false);
+  for (int c = mine * per_pass; c < passes * per_pass; ++c) {
+    wr.acquire();
+    wr.release();
+  }
+}
+
+// The wide chain: the narrow chain's work (worker v = C b + cw takes the
+// chunk's rays v, v + C G, ..., each ray's tiles in order; per tile the raw
+// cotangents to the scratch, the y cotangent (f32 FMA, masked) into the
+// input tile and the scratch with its column sums, then the products on the
+// transposed pack, each masked by the forward's words, stored to the scratch
+// and read back as the next product's input), in column blocks of at most
+// 128. dy_sum: the viewdir layer's cotangent summed per ray, over each
+// tile's columns and then the ray's tiles in order, as the narrow chain.
+__host__ __device__ inline size_t wide_chain_cons_bytes(int hp) {
+  // the input tile, the column sums [4 warps][hp / 2], the ray's sums [hp / 2]
+  return align16(ft_bytes(hp) + (size_t)5 * (hp / 2) * 4);
+}
+
+template <int kOwner>
+__global__ void __launch_bounds__(kWtThreads, 1)
+    train_chain_wide_tf32_kernel(const __grid_constant__ TrainArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sbase = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (sbase - smem_u32(smem_raw));
+  const int C = blockDim.x / 128 - 1;
+  const int hp = p.hp, h2 = hp / 2, nt = p.num_trunk, NS = p.chain_stages;
+  const int SP = p.s_pad, TPR = SP / kTile, n_rays = p.n_rays;
+  const int kd = (h2 + kKc - 1) / kKc * kKc, kch = hp / kKc;
+  const size_t cons_bytes = wide_chain_cons_bytes(hp);
+  const int bmax = wt_plan(cons_bytes).bmax;
+  const uint32_t ring = sbase, cons0 = sbase + (uint32_t)(NS * wt_stage_bytes(bmax));
+  const uint32_t full = cons0 + (uint32_t)(C * cons_bytes), empty = full + 8 * NS;
+  const int G = gridDim.x, b = blockIdx.x;
+  auto rays_of = [&](int w) { return w < n_rays ? (n_rays - 1 - w) / (C * G) + 1 : 0; };
+  const int passes = TPR * rays_of(C * b);
+  const int tid = threadIdx.x, cw = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * C);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int t = tid & 127, warp = t >> 5, lane = t & 31, g = lane >> 2, q = lane & 3;
+  if (cw == C) {  // ---- the weight stream, one thread
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWtProdRegs));
+    if (t == 0) {
+      WtStream st{reinterpret_cast<const unsigned char*>(p.wbq), ring, full, empty, NS, bmax};
+      st.chain(passes, hp, nt);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWtConsRegs));
+  const int v = C * b + cw, bar = 1 + cw;
+  const uint32_t in = cons0 + (uint32_t)(cw * cons_bytes);
+  float* colsum = reinterpret_cast<float*>(gbase + (in - sbase) + ft_bytes(hp));  // [4][h2]
+  float* dys = colsum + 4 * h2;  // [h2]: the ray's sums, column c by thread c % 128
+  const float* w_alpha = p.aux + p.aux_off[nt + 3];
+  const float* w_rgb = p.aux + p.aux_off[nt + 5];
+  const int hm = p.hidden, hm2 = hm / 2, S = p.n_samples;
+  const long long K = p.k;
+  const Rows R{K, p.dx, hm, nt};
+  const int TW = tile_words(hp, nt), MW = mask_words(hp), row0 = 16 * warp + g;
+  const float4* graw = reinterpret_cast<const float4*>(p.graw);
+  WtRing wr{ring, full, empty, NS, bmax, lane};
+  const int mine = rays_of(v);
+  for (int it = 0; it < mine; ++it) {
+    const int rl = v + C * G * it;
+    const long long ray = (long long)p.ray0 + rl;
+    for (int c = t; c < h2; c += 128) dys[c] = 0.f;
+    for (int tt = 0; tt < TPR; ++tt) {
+      const int tile = rl * TPR + tt;
+      const long long col0 = (long long)tile * kTile;
+      const uint32_t* mk = p.masks + (size_t)tile * TW * 128 + t;
+      // the cotangent of raw at column i of the tile: the compositing's
+      // [k][4] (kernel 4), or the caller's g [N, S, 4] (kernel 3), 0 on
+      // padding columns
+      auto g_at = [&](int i) {
+        if (kOwner == kLoss) return graw[col0 + i];
+        const int s = tt * kTile + i;
+        return s < S ? graw[ray * S + s] : make_float4(0.f, 0.f, 0.f, 0.f);
+      };
+      wg_sync(bar);  // every warp is done with the last tile's input tile
+      // ---- raw cotangents to the scratch: rgb rows, sigma row
+      if (t < kTile) {
+        const float4 gv = g_at(t);
+        float* d = p.dlt + col0 + t;
+        __stcs(d + R.drgb(0), gv.x);
+        __stcs(d + R.drgb(1), gv.y);
+        __stcs(d + R.drgb(2), gv.z);
+        __stcs(d + R.dsig(), gv.w);
+      }
+      const float4 gr0 = g_at(row0), gr1 = g_at(row0 + 8);
+      // ---- y cotangent (g_rgb W_rgb^T, f32, masked by y > 0) into the input
+      // tile (zero past h2: product 0's K is kd) and the scratch; its column
+      // sums
+      {
+        float* ydst = p.dlt + R.dy() + col0 + row0;
+        uint32_t ym = 0u;
+        for (int j = 0; j < kd / 8; ++j) {
+          if (((4 * j) & 31) == 0 && j < h2 / 8) ym = __ldcs(mk + ((nt + 1) * MW + (4 * j) / 32) * 128);
+          const int col = 8 * j + 2 * q;
+          float vv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float4 gg = e < 2 ? gr0 : gr1;
+            float x = 0.f;
+            if (j < h2 / 8) {
+              const float* wrg = w_rgb + (col + (e & 1)) * 3;
+              x = fmaf(gg.z, __ldg(wrg + 2), fmaf(gg.y, __ldg(wrg + 1), gg.x * __ldg(wrg)));
+              x = (ym >> ((4 * j + e) & 31)) & 1u ? x : 0.f;
+            }
+            vv[e] = x;
+          }
+          if (j < h2 / 8) {
+            if (col < hm2) {
+              __stcs(ydst + (long long)col * K, vv[0]);
+              __stcs(ydst + (long long)(col + 1) * K, vv[1]);
+              __stcs(ydst + (long long)col * K + 8, vv[2]);
+              __stcs(ydst + (long long)(col + 1) * K + 8, vv[3]);
+            }
+            float s0 = vv[0] + vv[2], s1 = vv[1] + vv[3];
+#pragma unroll
+            for (int x = 4; x < 32; x <<= 1) {
+              s0 += __shfl_xor_sync(0xffffffffu, s0, x);
+              s1 += __shfl_xor_sync(0xffffffffu, s1, x);
+            }
+            if (g == 0) {
+              colsum[warp * h2 + col] = s0;
+              colsum[warp * h2 + col + 1] = s1;
+            }
+          }
+          sts32(in + ft_off(col, row0), __float_as_uint(vv[0]));
+          sts32(in + ft_off(col + 1, row0), __float_as_uint(vv[1]));
+          sts32(in + ft_off(col, row0 + 8), __float_as_uint(vv[2]));
+          sts32(in + ft_off(col + 1, row0 + 8), __float_as_uint(vv[3]));
+        }
+      }
+      wg_sync(bar);
+      for (int c = t; c < hm2; c += 128) {
+        dys[c] += (colsum[c] + colsum[h2 + c]) + (colsum[2 * h2 + c] + colsum[3 * h2 + c]);
+      }
+      // ---- product pi: 0 d_feat = dy W_dir[:, :H] (masked by feat), 1 d_nt
+      // = d_feat W_feat + gs w_alpha (masked by a_nt), then d_i = d_{i+1}
+      // W_i[:, :H] (masked by a_i; d_0, layer1's output cotangent, unmasked):
+      // the output d_li, li = nt + 1 - pi, masked by the words of layer li - 1
+      for (int pi = 0; pi <= nt + 1; ++pi) {
+        const int li = nt + 1 - pi;
+        float* dst = p.dlt + R.d(li) + col0;
+        for (int c0 = 0; c0 < hp; c0 += column_block(hp, c0, bmax)) {
+          with_bn(column_block(hp, c0, bmax), [&](auto bn) {
+            constexpr int BN = decltype(bn)::value;
+            uint32_t m[2] = {0u, 0u};
+            if (li > 0) {
+#pragma unroll
+              for (int w = 0; w < (BN + 63) / 64; ++w) {
+                m[w] = __ldcs(mk + ((li - 1) * MW + c0 / 64 + w) * 128);
+              }
+            }
+            float acc[BN / 2];
+            wt_product<BN>(acc, in, pi == 0 ? kd / kKc : kch, 0, 0, wr);
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j) {
+              const int col = c0 + 8 * j + 2 * q;
+              float v0 = acc[4 * j], v1 = acc[4 * j + 1], v2 = acc[4 * j + 2], v3 = acc[4 * j + 3];
+              if (pi == 1) {
+                const float2 w = __ldg(reinterpret_cast<const float2*>(w_alpha + col));
+                v0 = fmaf(gr0.w, w.x, v0);
+                v1 = fmaf(gr0.w, w.y, v1);
+                v2 = fmaf(gr1.w, w.x, v2);
+                v3 = fmaf(gr1.w, w.y, v3);
+              }
+              if (li > 0) {
+                const uint32_t bits = m[(4 * j) >> 5] >> ((4 * j) & 31);
+                v0 = bits & 1u ? v0 : 0.f;
+                v1 = bits & 2u ? v1 : 0.f;
+                v2 = bits & 4u ? v2 : 0.f;
+                v3 = bits & 8u ? v3 : 0.f;
+              }
+              if (col < hm) {
+                float* d0 = dst + (long long)col * K + row0;
+                __stcs(d0, v0);
+                __stcs(d0 + K, v1);
+                __stcs(d0 + 8, v2);
+                __stcs(d0 + K + 8, v3);
+              }
+            }
+          });
+        }
+        if (li > 0) {  // the next product's input
+          wg_sync(bar);
+          wt_load_tile(in, dst, K, hm, hp);
+          wg_sync(bar);
+        }
+      }
+    }
+    for (int c = t; c < hm2; c += 128) p.dy_sum[(size_t)c * n_rays + rl] = dys[c];
+  }
+  // worker C b has more rays: release the stages of its other passes
+  const int per_pass = wt_chain_pieces(hp, nt, bmax);
+  for (int c = mine * TPR * per_pass; c < passes * per_pass; ++c) {
+    wr.acquire();
+    wr.release();
+  }
+}
+
 // As many ring stages as fit (up to kMaxStages), with their shared-memory
 // bytes, for the forward (chain = 0) or the chain; 0 below kMinStages.
 int stages_for(int H, int nt, int kx, int chain, size_t* smem) {
@@ -812,8 +1143,57 @@ int launch_parts(const TrainArgs& a, int parts, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// The wide route's plans: the forward's and the chain's.
+inline WtPlan wide_fwd_plan(const TrainArgs& a) { return wt_plan(wide_fwd_cons_bytes(a.hp, a.kx)); }
+inline WtPlan wide_chain_plan(const TrainArgs& a) { return wt_plan(wide_chain_cons_bytes(a.hp)); }
+
+// kOwner's wide kernels of one chunk (see launch_parts).
+template <int kOwner>
+int launch_parts_wide(const TrainArgs& a, int parts, cudaStream_t st) {
+  constexpr bool kChain = kOwner != kFieldFwd;
+  const WtPlan f = wide_fwd_plan(a), c = wide_chain_plan(a);
+  if (f.cons == 0 || c.cons == 0 || f.stages != a.fwd_stages || c.stages != a.chain_stages ||
+      a.dx < 1 || (kOwner == kFieldFwd && a.wbuf == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(train_fwd_wide_tf32_kernel<kOwner>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)f.smem);
+  if (err != cudaSuccess) return (int)err;
+  if constexpr (kChain) {
+    err = cudaFuncSetAttribute(train_chain_wide_tf32_kernel<kOwner>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (a.n_rays == 0) return 0;
+  const int n_tiles = (int)(a.k / kTile);
+  const int fwd_want = (n_tiles + f.cons - 1) / f.cons;
+  const int chain_want = (a.n_rays + c.cons - 1) / c.cons;
+  if (parts & 1) {
+    train_prep_tf32_kernel<kOwner><<<(a.n_rays + kPrepWarps - 1) / kPrepWarps, kPrepWarps * 32,
+                                     0, st>>>(a);
+  }
+  if (parts & 2) {
+    train_fwd_wide_tf32_kernel<kOwner><<<fwd_want < a.sms ? fwd_want : a.sms,
+                                         128 * (f.cons + 1), f.smem, st>>>(a, n_tiles);
+  }
+  if constexpr (kOwner == kLoss) {
+    if (parts & 4) {
+      train_composite_tf32_kernel<<<(a.n_rays + kRayWarps - 1) / kRayWarps, kRayWarps * 32,
+                                    kRayWarps * 7 * a.n_samples * sizeof(float), st>>>(a);
+    }
+  }
+  if constexpr (kChain) {
+    if (parts & 8) {
+      train_chain_wide_tf32_kernel<kOwner><<<chain_want < a.sms ? chain_want : a.sms,
+                                             128 * (c.cons + 1), c.smem, st>>>(a);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
 template <int kOwner>
 int launch_width(const TrainArgs& a, int parts, cudaStream_t s) {
+  if (a.hp > 128) return launch_parts_wide<kOwner>(a, parts, s);
   switch (a.hp / 32) {
     case 1: return launch_parts<kOwner, 2>(a, parts, s);
     case 2: return launch_parts<kOwner, 4>(a, parts, s);
@@ -828,7 +1208,7 @@ bool args_ok(const TrainArgs& a) {
   return a.n_samples >= 1 && a.s_pad >= a.n_samples && a.s_pad % kTile == 0 &&
          a.num_trunk >= 0 && a.num_trunk + 8 <= kAux && a.num_trunk <= 31 && a.fx <= kMaxFreq &&
          a.fd <= kMaxFreq && a.hidden >= 1 && a.hp % 32 == 0 &&
-         a.hp >= a.hidden && a.hp <= 128 && a.dd <= kMaxDD &&
+         a.hp >= a.hidden && a.hp <= kWtMaxHidden && a.dd <= kMaxDD &&
          a.dx == 3 * a.inc_x + 6 * a.fx && a.dd == 3 * a.inc_d + 6 * a.fd &&
          a.kx == (a.dx + kKc - 1) / kKc && a.kx * kKc <= kMaxDx && a.sms >= 1 &&
          a.k == (long long)a.n_rays * a.s_pad;
@@ -905,12 +1285,43 @@ int dexnerf_train_tile_words(int hp, int num_trunk) { return tile_words(hp, num_
 
 // The pass kernels' residency at padded width hp with num_trunk trunk layers
 // and a kx-chunk xyz encoding: out[0..2] the forward's CTAs per SM, shared
-// bytes and ring stages, out[3..5] the chain's.
+// bytes and ring stages, out[3..5] the chain's, out[6..7] their consumer
+// warpgroups (the wide route's above 128).
 int dexnerf_train_tf32_occupancy(int hp, int num_trunk, int kx, int* out) {
-  if (hp % 32 != 0 || hp < 32 || hp > 128 || num_trunk < 0 || num_trunk > 31 || kx < 1 ||
-      kx * kKc > kMaxDx) {
+  if (hp % 32 != 0 || hp < 32 || hp > kWtMaxHidden || num_trunk < 0 || num_trunk > 31 ||
+      kx < 1 || kx * kKc > kMaxDx) {
     return (int)cudaErrorInvalidValue;
   }
+  if (hp > 128) {
+    TrainArgs a;
+    a.hp = hp;
+    a.kx = kx;
+    const WtPlan f = wide_fwd_plan(a), c = wide_chain_plan(a);
+    if (f.cons == 0 || c.cons == 0) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(train_fwd_wide_tf32_kernel<kLoss>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)f.smem);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(train_chain_wide_tf32_kernel<kLoss>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &out[0], train_fwd_wide_tf32_kernel<kLoss>, 128 * (f.cons + 1), f.smem);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &out[3], train_chain_wide_tf32_kernel<kLoss>, 128 * (c.cons + 1), c.smem);
+    }
+    out[1] = (int)f.smem;
+    out[2] = f.stages;
+    out[4] = (int)c.smem;
+    out[5] = c.stages;
+    out[6] = f.cons;
+    out[7] = c.cons;
+    return (int)err;
+  }
+  out[6] = out[7] = kCons;
   switch (hp / 32) {
     case 1: return occupancy<2>(hp, num_trunk, kx, out);
     case 2: return occupancy<4>(hp, num_trunk, kx, out);

@@ -1469,36 +1469,12 @@ __global__ void __launch_bounds__(kWideThreads, 1)
 // The gradient of every parameter from the dW slots of a plan in parts
 // (each part a DwArgs of its own, launched on its own slots; one part up to
 // a padded width of 128) and, as aux rows, the chain CTAs' slots (bias
-// sums, viewdir rows): map[i] = -1 - (part kDwMaxUnits + unit) for a dW
-// entry, summed over its unit's slots in chunk and slot order, else the
-// entry of the aux rows summed in row order (dw_split.cuh's reduce_slots
-// over a part).
-constexpr int kDwMaxParts = 8;
-struct DwParts {
-  DwSpans sp[kDwMaxParts];
-  const float* partial[kDwMaxParts];
-};
-
+// sums, viewdir rows): dw_split.cuh's reduce_slots.
 __global__ void reduce_bf16_kernel(const DwParts parts, int n_chunks, int n_st_full,
                                    int n_st_last, long long n_params, const float* aux,
                                    int n_aux_parts, int n_aux, const int* map, float* grad) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_params) return;
-  const int j = map[i];
-  float s = 0.f;
-  if (j < 0) {
-    const int part = (-1 - j) / kDwMaxUnits, u = (-1 - j) % kDwMaxUnits;
-    const DwSpans& sp = parts.sp[part];
-    for (int c = 0; c < n_chunks; ++c) {
-      const int n_st = c + 1 < n_chunks ? n_st_full : n_st_last;
-      const int pieces = dw_pieces(n_st, sp.pre[u], sp.cost[u], sp.total_cost, sp.grid);
-      const float* q = parts.partial[part] + (long long)c * sp.max_pieces * n_params + i;
-      for (int k = 0; k < pieces; ++k) s += q[k * n_params];
-    }
-  } else {
-    for (int q = 0; q < n_aux_parts; ++q) s += aux[(size_t)q * n_aux + j];
-  }
-  grad[i] = s;
+  reduce_slots(parts, n_chunks, n_st_full, n_st_last, n_params, aux, n_aux_parts, n_aux, map,
+               grad);
 }
 
 template <class K>

@@ -7,7 +7,33 @@
 #include <cuda.h>  // CUtensorMap
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+// ---- the wide routes' column blocks (mlp_wide_bf16.cuh, mlp_wide_tf32.cuh)
+// The width of the column block at c0 of an n-wide output (n a multiple of
+// 16): bmax (128 or 64) while at least bmax remain, else the rest, split
+// where it is not a wgmma width the kernels instantiate (80 = 64 + 16, 112 =
+// 64 + 48). Every block starts at a multiple of 64.
+__host__ __device__ inline int column_block(int n, int c0, int bmax) {
+  const int r = n - c0;
+  if (r >= bmax) return bmax;
+  return (r == 80 || r == 112) ? 64 : r;
+}
+
+// f(BN) with BN a compile-time wgmma width for the run-time block width bn.
+template <class F>
+__device__ __forceinline__ void with_bn(int bn, F&& f) {
+  switch (bn) {
+    case 128: f(std::integral_constant<int, 128>{}); break;
+    case 96: f(std::integral_constant<int, 96>{}); break;
+    case 64: f(std::integral_constant<int, 64>{}); break;
+    case 48: f(std::integral_constant<int, 48>{}); break;
+    case 32: f(std::integral_constant<int, 32>{}); break;
+    default: f(std::integral_constant<int, 16>{}); break;
+  }
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -102,6 +128,11 @@ __device__ __forceinline__ float4 lds128(uint32_t a) {
                : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
                : "r"(a));
   return v;
+}
+__device__ __forceinline__ void sts128(uint32_t a, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "f"(v.x), "f"(v.y),
+               "f"(v.z), "f"(v.w)
+               : "memory");
 }
 // barrier `id` over the 128 threads of one warpgroup
 __device__ __forceinline__ void wg_sync(int id) {

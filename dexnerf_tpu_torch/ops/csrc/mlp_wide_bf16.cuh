@@ -33,8 +33,6 @@
 // device memory (through L1).
 #pragma once
 
-#include <type_traits>
-
 #include "mlp_tile_bf16.cuh"
 
 namespace {
@@ -51,14 +49,9 @@ constexpr int kWideStage = 128 * 128;  // bytes of a ring stage: a [128][64] bf1
 constexpr int kWideMaxStages = 8;
 constexpr int kWideMinStages = 2;
 
-// The width of the column block at c0 of an n-wide output (n a multiple of
-// 16): 128 while at least 128 remain, else the rest, split where it is not a
-// wgmma_bf16 width (80 = 64 + 16, 112 = 64 + 48).
-__host__ __device__ inline int wide_bn(int n, int c0) {
-  const int r = n - c0;
-  if (r >= 128) return 128;
-  return (r == 80 || r == 112) ? 64 : r;
-}
+// The width of the column block at c0 of an n-wide output: 128-column
+// blocks (hopper.cuh's column_block).
+__host__ __device__ inline int wide_bn(int n, int c0) { return column_block(n, c0, 128); }
 
 // Bytes of a consumer's two activation tiles at width hp.
 __host__ __device__ inline size_t wide_act_bytes(int hp) {
@@ -86,19 +79,6 @@ __host__ __device__ inline WidePlan wide_plan(size_t cons_bytes) {
     }
   }
   return WidePlan{0, 0, 0};
-}
-
-// f(BN) with BN a compile-time wgmma width for the run-time block width bn.
-template <class F>
-__device__ __forceinline__ void with_bn(int bn, F&& f) {
-  switch (bn) {
-    case 128: f(std::integral_constant<int, 128>{}); break;
-    case 96: f(std::integral_constant<int, 96>{}); break;
-    case 64: f(std::integral_constant<int, 64>{}); break;
-    case 48: f(std::integral_constant<int, 48>{}); break;
-    case 32: f(std::integral_constant<int, 32>{}); break;
-    default: f(std::integral_constant<int, 16>{}); break;
-  }
 }
 
 __device__ __forceinline__ void wgmma_wait1() {

@@ -22,9 +22,10 @@ it is built: ``field(pts, viewdirs) -> raw``. It is also the forward of
 the training field (``ops/fused_mlp_train.py``); times are in ``PERF.md``.
 
 ``launches`` counts kernel-2 launches of either dtype, ``launches_bf16``
-those of the bf16 route and ``launches_wide`` those of its wide route (a
-model wider than 128: kernel 4's wide forward) (+1 per launch, nowhere
-else). Widths: as ``ops/fused_render.py::check_width``.
+those of the bf16 route, ``launches_wide`` those of its wide route and
+``launches_wide_f32`` those of the f32 route's (a model wider than 128:
+kernel 4's wide forward of the dtype) (+1 per launch, nowhere else).
+Widths: as ``ops/fused_render.py::check_width``.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from dexnerf_tpu_torch.ops.fused_render import (
 launches = 0  # kernel-2 launches of either dtype
 launches_bf16 = 0  # of which the bf16 route's (narrow or wide)
 launches_wide = 0  # of which the wide bf16 kernels'
+launches_wide_f32 = 0  # of which the wide f32 kernels'
 
 # limits of the kernels (ops/csrc/fused_train_loss*.cu); any number of samples
 MAX_LAYERS = ftl.MAX_LAYERS
@@ -107,7 +109,7 @@ def check_field_inputs(model, tensors, compute_dtype) -> None:
 def _launch(model, pts, viewdirs, *, log_sampling_xyz, log_sampling_dir,
             compute_dtype=torch.float32) -> torch.Tensor:
     """Kernel 2 at ``compute_dtype`` on CUDA tensors."""
-    global launches, launches_bf16, launches_wide
+    global launches, launches_bf16, launches_wide, launches_wide_f32
     from dexnerf_tpu_torch.ops._build import check, load_library
 
     _check_compute_dtype(compute_dtype)
@@ -131,6 +133,7 @@ def _launch(model, pts, viewdirs, *, log_sampling_xyz, log_sampling_dir,
         ftl.Tf32Pass(lib, model, dict(pts=pts, viewdirs=viewdirs, raw=raw), N, S, ftl.s_pad_of(S),
                      max(1, N), None, owner=ftl.FIELD_FWD, log_sampling_xyz=log_sampling_xyz,
                      log_sampling_dir=log_sampling_dir).run(0, stream)
+        launches_wide_f32 += int(is_wide(model))
     launches += 1
     return raw
 

@@ -34,8 +34,9 @@ detached, so no gradient flows into the field's inputs. Do not use this
 field where ``pts`` depends on trained values (pose refinement).
 
 ``launches`` counts kernel-3 backwards of either dtype, ``launches_bf16``
-those of the bf16 route and ``launches_wide`` those of its wide route (a
-model wider than 128: kernel 4's wide forward and chain) (+1 per backward,
+those of the bf16 route, ``launches_wide`` those of its wide route and
+``launches_wide_f32`` those of the f32 route's (a model wider than 128:
+kernel 4's wide forward and chain of the dtype) (+1 per backward,
 where it launches its group of ``__global__`` kernels; nowhere else); the
 forward's are ``ops.fused_mlp``'s.
 """
@@ -64,6 +65,7 @@ from dexnerf_tpu_torch.ops.fused_train_loss import (
 launches = 0  # kernel-3 backwards of either dtype
 launches_bf16 = 0  # of which the bf16 route's (narrow or wide)
 launches_wide = 0  # of which the wide bf16 kernels'
+launches_wide_f32 = 0  # of which the wide f32 kernels'
 
 # samples of activation/cotangent scratch per chunk of rays
 SCRATCH_SAMPLES = 1 << 18
@@ -75,7 +77,7 @@ def _launch_backward(model, pts, viewdirs, g, *, log_sampling_xyz, log_sampling_
     ``model``, in ``model.parameters()`` order, by kernel 3 at
     ``compute_dtype`` / ``dw_dtype`` (None: float32): float32/float32 or
     bfloat16/bfloat16."""
-    global launches, launches_bf16, launches_wide
+    global launches, launches_bf16, launches_wide, launches_wide_f32
     from dexnerf_tpu_torch.ops._build import check, load_library
 
     dw_dtype = _check_dtypes(compute_dtype, dw_dtype)
@@ -112,6 +114,7 @@ def _launch_backward(model, pts, viewdirs, g, *, log_sampling_xyz, log_sampling_
         wg.chunk(c, ps.run(c, stream), stream)
     grads = wg.reduce(stream)
     launches += 1
+    launches_wide_f32 += int(fused_mlp.is_wide(model))
     return grads
 
 

@@ -7,19 +7,19 @@ CUDA tensor, :func:`fused_render` launches a hand-written kernel built by
 work plan :func:`render_plan`: ``ops/csrc/fused_render.cu`` (split-TF32
 ``wgmma``: every f32 operand as hi + lo, three products each, f32
 accumulators) at float32, ``ops/csrc/fused_render_bf16.cu`` (bf16
-``wgmma``, f32 chain) at bfloat16, where a model wider than 128
-(:func:`is_wide`) takes that source's wide route (the layers in shared
-memory, ``ops/csrc/mlp_wide_bf16.cuh``). Widths: any up to
-:data:`MAX_HIDDEN` at float32 and up to :data:`MAX_HIDDEN_BF16` at
+``wgmma``, f32 chain) at bfloat16. A model wider than 128 (:func:`is_wide`)
+takes each source's wide route (the layers in shared memory:
+``ops/csrc/mlp_wide_bf16.cuh``, ``ops/csrc/mlp_wide_tf32.cuh``). Widths:
+any up to :data:`MAX_HIDDEN` at float32 and up to :data:`MAX_HIDDEN_BF16` at
 bfloat16 (:func:`check_width`). On a CPU tensor it runs
 :func:`fused_render_reference`, the plain PyTorch version of the same
 contract. There is no fallback between
 them: a CUDA call that cannot launch its dtype's kernel raises.
 
 ``launches`` counts kernel launches of either dtype, ``launches_bf16``
-those of the bf16 kernel and ``launches_wide`` those of its wide route (+1
-per launch, nowhere else), so a run can show which kernel its path went
-through.
+those of the bf16 kernel, ``launches_wide`` those of its wide route and
+``launches_wide_f32`` those of the f32 kernel's wide route (+1 per launch,
+nowhere else), so a run can show which kernel its path went through.
 """
 
 from __future__ import annotations
@@ -46,17 +46,20 @@ from dexnerf_tpu_torch.render.renderer import RayBatch, RenderResult, RenderSett
 launches = 0  # kernel-1 launches of either dtype
 launches_bf16 = 0  # of which the bf16 route's (narrow or wide)
 launches_wide = 0  # of which the wide bf16 kernel's
+launches_wide_f32 = 0  # of which the wide f32 kernel's
 
 # limits of both routes' kernels (kMax*)
 MAX_LAYERS = 40
 MAX_FREQ = 16
 MAX_THRESHOLDS = 64
 MAX_SAMPLES = 256
-MAX_HIDDEN = 128  # the float32 route's widths (wider: ROADMAP Queue 2 item 6b)
-NARROW_HIDDEN = 128  # padded widths of the narrow bf16 tile; wider ones take the wide route
+NARROW_HIDDEN = 128  # padded widths of the narrow tiles; wider ones take the wide routes
 # the bf16 route's widths: the largest padded width whose wide plans fit
 # (wide_fits at the kernels' largest encodings; kWideMaxHidden)
 MAX_HIDDEN_BF16 = 576
+# the float32 route's widths: the largest padded width whose wide plans fit
+# (tf32_wide_fits at the kernels' largest encodings; kWtMaxHidden)
+MAX_HIDDEN = 608
 SHARED_BYTES_LIMIT = 232448  # per block on Hopper
 # of ops/csrc/fused_render_bf16.cu (kTile, kKc, kMaxUnitRows, kMaxRpu, kCons)
 BF16_TILE = 64
@@ -149,26 +152,25 @@ def bf16_hidden(hidden: int) -> int:
 
 
 def is_wide(model: FlexibleNeRFModel) -> bool:
-    """Whether the bf16 kernels run ``model`` on the wide route
-    (``ops/csrc/mlp_wide_bf16.cuh``: padded widths above 128)."""
+    """Whether the kernels of either dtype run ``model`` on their wide
+    route (``ops/csrc/mlp_wide_bf16.cuh``, ``ops/csrc/mlp_wide_tf32.cuh``:
+    padded widths above 128)."""
     return bf16_hidden(model.hidden_size) > NARROW_HIDDEN
 
 
 def check_width(hidden: int, compute_dtype, what: str) -> None:
     """The widths the kernels take: any up to :data:`MAX_HIDDEN` at float32
     and up to :data:`MAX_HIDDEN_BF16` at bfloat16 (both computed at
-    :func:`bf16_hidden`)."""
+    :func:`bf16_hidden`); wider ones, which JAX takes, are ROADMAP Queue 2
+    item 6c."""
     if hidden < 1:
         raise ValueError(f"hidden_size {hidden}: {what} takes widths from 1")
-    if compute_dtype == torch.float32 and hidden > MAX_HIDDEN:
+    f32 = compute_dtype == torch.float32
+    top, name = (MAX_HIDDEN, "float32") if f32 else (MAX_HIDDEN_BF16, "bfloat16")
+    if bf16_hidden(hidden) > top:
         raise ValueError(
-            f"hidden_size {hidden}: {what} takes widths up to {MAX_HIDDEN} at float32 "
-            f"(wider float32 kernels are ROADMAP Queue 2 item 6b; bfloat16 takes up to "
-            f"{MAX_HIDDEN_BF16})")
-    if bf16_hidden(hidden) > MAX_HIDDEN_BF16:
-        raise ValueError(
-            f"hidden_size {hidden}: {what} takes widths up to {MAX_HIDDEN_BF16} at bfloat16 "
-            "(the wide route's shared-memory plans; wider is ROADMAP Queue 2 item 6b)")
+            f"hidden_size {hidden}: {what} takes widths up to {top} at {name} (the wide "
+            "routes' shared-memory plans; wider is ROADMAP Queue 2 item 6c)")
 
 
 # of ops/csrc/mlp_wide_bf16.cuh (kWide*)
@@ -214,6 +216,54 @@ def wide_fits(hp: int, kx: int, dd: int) -> bool:
     return all(wide_plan(b) is not None
                for S in range(1, MAX_SAMPLES + 1)
                for b in wide_cons_bytes(hp, kx, dd, S).values())
+
+
+# of ops/csrc/mlp_wide_tf32.cuh (kWt*) and the f32 kernels (kMaxDx, kMaxRpu)
+TF32_WIDE_MAX_CONS = 2
+TF32_WIDE_MAX_STAGES = 8
+TF32_WIDE_MIN_STAGES = 2
+TF32_MAX_KX = 4  # xyz encodings up to 128 wide: four 32-wide K-chunks
+
+
+def tf32_wide_plan(cons_bytes: int) -> Optional[Tuple[int, int, int, int]]:
+    """(consumers, piece rows, ring stages, shared bytes) of a wide f32
+    kernel whose consumers take ``cons_bytes`` each (``wt_plan`` there): the
+    most consumers, then the largest pieces (128 rows, else 64), then the
+    most stages that fit (a stage: a piece's hi and lo halves); None if none
+    fits."""
+    for cons in range(TF32_WIDE_MAX_CONS, 0, -1):
+        for bmax in (128, 64):
+            for ns in range(TF32_WIDE_MAX_STAGES, TF32_WIDE_MIN_STAGES - 1, -1):
+                total = 1024 + ns * (2 * bmax * 128 + 16) + cons * cons_bytes
+                if total <= SHARED_BYTES_LIMIT:
+                    return cons, bmax, ns, total
+    return None
+
+
+def tf32_wide_cons_bytes(hp: int, kx: int, n_samples: Optional[int] = None) -> dict:
+    """Each wide f32 kernel's bytes a consumer at padded width ``hp`` with
+    ``kx`` 32-wide encoding K-chunks (``*_cons_bytes`` there): the training
+    forward (its input and encoding tiles, f32 [features][64], and the
+    tile's logits), the chain (its input tile, the column sums and the
+    ray's sums) and, for ``n_samples``, the render kernel on its plan's
+    unit (the tiles and the unit's z, dists, sigma and rgb rows)."""
+    def tile(n):
+        return n * 64 * 4
+
+    out = {"forward": _round_up(tile(hp) + tile(kx * TF32_KCHUNK) + 64 * 16, 16),
+           "chain": _round_up(tile(hp) + 5 * (hp // 2) * 4, 16)}
+    if n_samples is not None:
+        rows = render_plan(1, n_samples, 1).rows_per_unit
+        out["render"] = _round_up(tile(hp) + tile(kx * TF32_KCHUNK) + rows * 24, 16)
+    return out
+
+
+def tf32_wide_fits(hp: int, kx: int = TF32_MAX_KX) -> bool:
+    """Whether every wide f32 kernel's plan fits at padded width ``hp`` for
+    every number of samples the render kernel takes."""
+    return all(tf32_wide_plan(b) is not None
+               for S in range(1, MAX_SAMPLES + 1)
+               for b in tf32_wide_cons_bytes(hp, kx, S).values())
 
 
 def _pad_vec(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -629,6 +679,15 @@ def tf32_occupancy(model: FlexibleNeRFModel, n_samples: int) -> Tuple[int, int, 
     return _occupancy("dexnerf_fused_render_occupancy", *_kernel_shape(model, n_samples))
 
 
+def tf32_wide_occupancy(model: FlexibleNeRFModel, n_samples: int) -> Tuple[int, int, int, int, int]:
+    """(CTAs per SM, shared-memory bytes per CTA, weight ring stages,
+    consumer warpgroups, floats of a worker's buffer) of the wide f32 kernel
+    (padded widths above 128) for ``model`` at ``n_samples`` per ray (needs
+    the card); its consumers are the render plan's workers a CTA."""
+    return _occupancy("dexnerf_fused_render_wide_occupancy", *_kernel_shape(model, n_samples),
+                      n_out=5)
+
+
 def fusable(model) -> bool:
     """Whether the kernels take ``model``: a FlexibleNeRF with viewdirs
     (JAX's ``isinstance(m, FlexibleNeRFModel) and m.use_viewdirs``)."""
@@ -687,7 +746,7 @@ def _launch(
     model, origins, directions, viewdirs, z_vals, dists, *, thresholds,
     white_background, log_sampling_xyz, log_sampling_dir, compute_dtype,
 ) -> VolumeRenderOutputs:
-    global launches, launches_bf16, launches_wide
+    global launches, launches_bf16, launches_wide, launches_wide_f32
     from dexnerf_tpu_torch.ops._build import check, load_library
 
     N, S = z_vals.shape
@@ -729,9 +788,10 @@ def _launch(
     pe = (model.num_encoding_fn_xyz, int(model.include_input_xyz), bx_ptr,
           model.num_encoding_fn_dir, int(model.include_input_dir), bd_ptr, T, th_ptr)
     bf16 = compute_dtype == torch.bfloat16
-    wide = bf16 and is_wide(model)
+    wide = is_wide(model)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if bf16:  # the launcher picks the narrow or the wide kernel by the width
+    # the launcher picks the narrow or the wide kernel of the dtype by the width
+    if bf16:
         wq, aux, offsets = _cached_bf16_weights(model, dev)
         if wide:
             ctas, _, _, cons = wide_occupancy(model, S)
@@ -741,7 +801,14 @@ def _launch(
         entry, what = lib.dexnerf_fused_render_bf16, "fused_render bf16 kernel launch"
     else:
         wq, aux, offsets = _cached_tf32_weights(model, dev)
-        plan = render_plan(N, S, sms * tf32_occupancy(model, S)[0], TF32_WORKERS)
+        if wide:  # a buffer of layer outputs and viewdir biases a worker
+            ctas, _, _, cons, per_worker = tf32_wide_occupancy(model, S)
+            plan = render_plan(N, S, sms * ctas, cons)
+            wbuf = torch.empty(plan.grid * cons * per_worker, **f32)
+            outs = (*outs, wbuf.data_ptr())
+        else:
+            plan = render_plan(N, S, sms * tf32_occupancy(model, S)[0], TF32_WORKERS)
+            outs = (*outs, None)
         entry, what = lib.dexnerf_fused_render, "fused_render kernel launch"
     off_arr, off_ptr = _host_array(ctypes.c_int, offsets)
     code = entry(
@@ -751,7 +818,8 @@ def _launch(
         *pe, off_ptr, int(bool(white_background)), stream,
     )
     check(lib, code, what)
-    launches_wide += int(wide)
+    launches_wide += int(wide and bf16)
+    launches_wide_f32 += int(wide and not bf16)
     launches_bf16 += int(bf16)
     launches += 1
     return VolumeRenderOutputs(

@@ -68,16 +68,23 @@ route: the forward and the chain on ``ops/csrc/mlp_wide_bf16.cuh``'s tile
 (the layers in shared memory, column blocks of at most 128), the dW plan's
 units split to the kernel's limits (:func:`dw_split`) and launched in parts
 (:func:`_cached_dw_parts`) with a fresh accumulator a stage. The f32 route
-takes widths up to 128 (wider: ROADMAP Queue 2 item 6b). The same kernels,
-with :func:`bf16_args` and
+takes padded widths above 128, up to
+:data:`~dexnerf_tpu_torch.ops.fused_render.MAX_HIDDEN`, on its own wide
+route: the forward and the chain on ``ops/csrc/mlp_wide_tf32.cuh``'s tile
+(the layer's input as an f32 tile in shared memory, split into TF32 halves
+on load, column blocks of at most 128, each layer's output stored to the
+scratch and read back), the same prep, compositing, scratch and mask words,
+and the split-TF32 dW plan split to its kernel's limits and launched in
+parts (``ops/_weight_grads.py``). The same kernels, with :func:`bf16_args` and
 :class:`Bf16Gradients`, are the bf16 routes of the field kernels (kernel 2
 forward, kernel 3 backward: ``ops/fused_mlp.py``, ``ops/fused_mlp_train.py``).
 Measured times: ``PERF.md``.
 
 ``launches`` counts kernel-4 passes of either route, ``launches_bf16``
-those of the bf16 route and ``launches_wide`` those of its wide route (+1
-per pass, where the pass launches its group of ``__global__`` kernels;
-nowhere else), so a run can show which kernel its path went through.
+those of the bf16 route, ``launches_wide`` those of its wide route and
+``launches_wide_f32`` those of the f32 route's wide kernels (+1 per pass,
+where the pass launches its group of ``__global__`` kernels; nowhere else),
+so a run can show which kernel its path went through.
 """
 
 from __future__ import annotations
@@ -126,6 +133,7 @@ from dexnerf_tpu_torch.render.renderer import (
 launches = 0  # kernel-4 passes of either route
 launches_bf16 = 0  # of which the bf16 route's (narrow or wide)
 launches_wide = 0  # of which the wide bf16 kernels'
+launches_wide_f32 = 0  # of which the wide f32 kernels'
 
 # samples of activation/cotangent scratch per chunk of rays
 SCRATCH_SAMPLES = 1 << 18
@@ -165,6 +173,7 @@ class _TrainArgs(ctypes.Structure):
             "origins", "dirs", "viewdirs", "pts", "z", "dists", "noise", "target",
             "depth_gt", "depth_coef", "wq", "aux", "wbq", "w1", "weights_out", "rgb_out",
             "loss_ray", "act", "dlt", "dir_enc", "dy_sum", "dirb", "raw", "graw", "masks",
+            "wbuf",
         )
     ] + [("k", ctypes.c_int64)] + [
         (name, ctypes.c_int32)
@@ -436,18 +445,19 @@ def tf32_mask_words(acts, hp: int) -> torch.Tensor:
     recorded activations a_1..a_nt, feat ([k, >= hp] each, k a multiple of
     64; columns past the model's width zero) and y ([k, >= hp/2]), as the
     kernel writes their bits (``> 0``) for each 64-column tile: int32
-    [k / 64, (nt + 1) ceil(hp / 64) + 1, 128], word w of layer l of a thread
-    at [tile][l ceil(hp / 64) + w][thread] (y's one word last); see
-    :func:`tf32_mask_layout`."""
+    [k / 64, (nt + 1) ceil(hp / 64) + ceil(hp / 128), 128], word w of layer
+    l of a thread at [tile][l ceil(hp / 64) + w][thread] (y's words last);
+    see :func:`tf32_mask_layout`."""
     mw = -(-hp // 64)
     k = acts[0].shape[0]
-    out = torch.zeros((k // 64, (len(acts) - 1) * mw + 1, 128), dtype=torch.int64)
+    out = torch.zeros((k // 64, (len(acts) - 1) * mw + -(-(hp // 2) // 64), 128),
+                      dtype=torch.int64)
     for l, act in enumerate(acts):
         width = hp if l < len(acts) - 1 else hp // 2
         rows, cols = tf32_mask_layout(width)
         bits = (act[:, :width] > 0).reshape(k // 64, 64, width)[:, rows, cols].to(torch.int64)
         i = torch.arange(width // 2)
-        first = l * mw if l < len(acts) - 1 else (len(acts) - 1) * mw
+        first = l * mw
         for w in range(-(-(width // 2) // 32)):
             sel = i // 32 == w
             word = (bits[..., sel] << (i[sel] % 32)).sum(-1)  # distinct bits: sum = or
@@ -461,9 +471,10 @@ _tf32_residency = {}
 
 def tf32_occupancy(model: FlexibleNeRFModel) -> dict:
     """The residency of the f32 pass's forward and chain kernels for
-    ``model``, as the CUDA runtime and the launcher report them (needs the
-    card; once per shape and device): each as (CTAs per SM, shared bytes per
-    CTA, weight ring stages)."""
+    ``model`` (the wide route's above a padded width of 128), as the CUDA
+    runtime and the launcher report them (needs the card; once per shape and
+    device): each as (CTAs per SM, shared bytes per CTA, weight ring
+    stages), and ``cons`` their consumer warpgroups a CTA."""
     from dexnerf_tpu_torch.ops._build import check, load_library
 
     dev = torch.cuda.current_device()
@@ -471,13 +482,14 @@ def tf32_occupancy(model: FlexibleNeRFModel) -> dict:
     key = (bf16_hidden(model.hidden_size), kx, model.num_layers, dev)
     if key not in _tf32_residency:
         lib = load_library()
-        out = (ctypes.c_int * 6)()
+        out = (ctypes.c_int * 8)()
         check(lib, lib.dexnerf_train_tf32_occupancy(key[0], model.num_layers - 1, kx,
                                                     ctypes.addressof(out)),
               "fused_train_loss f32 occupancy query")
         if min(out[0], out[3]) < 1:
             raise RuntimeError(f"the f32 pass kernels do not fit on an SM: {list(out)}")
-        _tf32_residency[key] = {"forward": tuple(out[0:3]), "chain": tuple(out[3:6])}
+        _tf32_residency[key] = {"forward": tuple(out[0:3]), "chain": tuple(out[3:6]),
+                                "cons": tuple(out[6:8])}
     return _tf32_residency[key]
 
 
@@ -490,9 +502,10 @@ class Tf32Pass:
     cotangent ``inputs["graw"]`` [N, S, 4]; the points from
     ``inputs["pts"]``), or kernel 2, the field forward (:data:`FIELD_FWD`:
     prep and forward into ``inputs["raw"]`` [N, S, 4]; no scratch, ``wg``
-    None). It holds the argument block (the forward and chain packs, cached
-    per parameter state), the per-chunk buffers (the viewdir bias, raw
-    [cols][4] and its cotangent, the mask words) and the scratch of ``wg``
+    None; on the wide route a buffer of layer outputs a worker). It holds
+    the argument block (the forward and chain packs, cached per parameter
+    state), the per-chunk buffers (the viewdir bias, raw [cols][4] and its
+    cotangent, the mask words) and the scratch of ``wg``
     (:class:`WeightGradients`). :meth:`run` launches chunk ``c``'s kernels,
     which fill the scratch for ``wg.chunk``."""
 
@@ -520,6 +533,9 @@ class Tf32Pass:
                         dir_enc=wg.dir_enc, dy_sum=wg.dy_sum, raw=self.raw, masks=self.masks)
         if owner == LOSS:
             self.graw = bufs["graw"] = torch.empty(cols * 4, **f32)
+        if owner == FIELD_FWD and is_wide(model):  # [Hp][64] a worker of the forward
+            workers = torch.cuda.get_device_properties(dev).multi_processor_count * occ["cons"][0]
+            bufs["wbuf"] = torch.empty(workers * Hp * 64, **f32)
         self.keep = (bufs, inputs)  # the buffers args points to
         self.lib, self.chunk, self.N, self.s_pad, self.owner = lib, chunk, N, s_pad, owner
         a = self.args = _TrainArgs()
@@ -567,7 +583,7 @@ def _launch(
     depth_gt, depth_coef, *, white_background, supervision, log_sampling_xyz,
     log_sampling_dir,
 ):
-    global launches
+    global launches, launches_wide_f32
     from dexnerf_tpu_torch.ops._build import load_library
 
     N, S = z_vals.shape
@@ -606,6 +622,7 @@ def _launch(
         wg.chunk(c, ps.run(c, stream), stream)
     grads = wg.reduce(stream, loss_ray, loss)
     launches += 1
+    launches_wide_f32 += int(is_wide(model))
     return loss, weights, rgb, grads
 
 

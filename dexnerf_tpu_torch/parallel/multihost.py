@@ -111,8 +111,13 @@ def initialize(
 
 
 def shutdown() -> None:
-    """Tear the group down (safe to call when none is running)."""
+    """Tear the group down (safe to call when none is running). With more
+    than one rank every rank first meets the others at a barrier, so that
+    no rank destroys the group while a peer's collective threads still use
+    it (a gloo peer torn down under them aborts its process at exit)."""
     if dist.is_available() and dist.is_initialized():
+        if dist.get_world_size() > 1:
+            dist.barrier()
         dist.destroy_process_group()
 
 

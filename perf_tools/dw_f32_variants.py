@@ -283,14 +283,14 @@ def use_plan(wg, model, plan, dev):
     """Switch ``wg`` to ``plan``: its launch block, slots and reduction map."""
     import torch
 
-    from dexnerf_tpu_torch.ops._weight_grads import tf32_dw_args, tf32_reduce_map
+    from dexnerf_tpu_torch.ops._weight_grads import _Tf32Args, tf32_dw_args, tf32_reduce_map
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     a = tf32_dw_args(model, sms, plan)
-    wg.partial = torch.empty(wg.n_chunks * a.max_pieces * wg.n_params, device=dev)
-    a.partial, a.vd = wg.partial.data_ptr(), wg.vd.data_ptr()
+    wg.partials = [torch.empty(wg.n_chunks * a.max_pieces * wg.n_params, device=dev)]
+    a.partial, a.vd = wg.partials[0].data_ptr(), wg.vd.data_ptr()
     a.dy_sum, a.dir_enc = wg.dy_sum.data_ptr(), wg.dir_enc.data_ptr()
-    wg.args, wg.map = a, tf32_reduce_map(model, plan).to(dev)
+    wg.parts, wg.map = (_Tf32Args * 1)(a), tf32_reduce_map(model, plan).to(dev)
 
 
 def route_launcher(lib, wg, main_lib, stages=None):
@@ -317,15 +317,15 @@ def route_launcher(lib, wg, main_lib, stages=None):
         stream = torch.cuda.current_stream().cuda_stream
         wg.lib = Route()
         main_maps, wg.maps = wg.maps, maps
-        main_stages = wg.args.n_stages
-        wg.args.n_stages = stages or main_stages
+        main_stages = wg.parts[0].n_stages
+        wg.parts[0].n_stages = stages or main_stages
         try:
             for c in range(wg.n_chunks):
                 wg.chunk(c, min(chunk, n_rays - c * chunk), stream)
             return wg.reduce(stream)
         finally:
             wg.lib, wg.maps = main_lib, main_maps
-            wg.args.n_stages = main_stages
+            wg.parts[0].n_stages = main_stages
 
     return run
 

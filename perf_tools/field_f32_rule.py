@@ -1,8 +1,12 @@
 """The rule that holds kernel 3's float32 route (split TF32) to its plain
 version on a card, each on its own ReLU decisions, and the masked copy of
-FlexibleNeRF's forward it rests on. The card tests of kernels 2 and 3
-(``tests/test_torch_fused_mlp_tf32.py``, ``tests/test_torch_fused_mlp.py``),
-``chip_smoke.py``'s field holds and ``perf_tools/field_f32_relu_flips.py``
+FlexibleNeRF's forward it rests on; kernel 4's wide f32 route is held the
+same way where a leaf misses the 1e-4 rule (``pass_own_decision_ratios``).
+Both sum their float64 references over chunks of rays
+(``own_decision_ratios``), so a whole training batch can be held. The
+card tests of kernels 2-4 (``tests/test_torch_fused_mlp_tf32.py``,
+``tests/test_torch_fused_mlp.py``, ``tests/test_torch_train_loss.py``),
+``chip_smoke.py``'s holds and ``perf_tools/field_f32_relu_flips.py``
 import it from the repository root::
 
     from perf_tools.field_f32_rule import GPU_GRAD_FACTOR, grads_on_masks
@@ -35,6 +39,9 @@ from dexnerf_tpu_torch.ops import fused_mlp_train
 GPU_GRAD_FACTOR = 10.0
 GPU_GRAD_RTOL = 1e-5
 MASK_RTOL = 1e-4
+# rays a chunk of the float64 references (at 8x256 and 128 samples a ray
+# one float64 activation of a chunk is 0.27 GB)
+CHUNK_RAYS = 1024
 
 
 def forward_on_masks(model, pts, viewdirs, masks=None):
@@ -66,6 +73,105 @@ def grads_on_masks(model, pts, viewdirs, g, masks):
     with torch.enable_grad():
         raw, _ = forward_on_masks(m64, pts.double(), viewdirs.double(), masks)
         return torch.autograd.grad(raw, list(m64.parameters()), g.double())
+
+
+def pass_grads_on_masks(model, pts, z, dists, viewdirs, noise, target, masks, *,
+                        white_background=False, supervision="rgb", depth_gt=None,
+                        depth_coef=None):
+    """The float64 gradient of kernel 4's pass loss (compositing, the
+    squared error and the depth term of ``fused_pass_loss_reference``) at
+    the sample points ``pts`` with the ReLU decisions ``masks`` (None: the
+    float64 model's own)."""
+    from dexnerf_tpu_torch.core.volrend import composite
+    from dexnerf_tpu_torch.ops.fused_train_loss import pass_loss_sum
+
+    m64 = copy.deepcopy(model).double()
+
+    def f64(t):
+        return None if t is None else t.double()
+
+    with torch.enable_grad():
+        raw, _ = forward_on_masks(m64, pts.double(), viewdirs.double(), masks)
+        out = composite(raw, f64(z), f64(dists), white_background=white_background,
+                        sigma_noise=f64(noise))
+        loss = pass_loss_sum(out.rgb, f64(target), supervision)
+        if depth_gt is not None:
+            loss = loss + torch.sum(f64(depth_coef) * (out.depth - f64(depth_gt)) ** 2)
+        return torch.autograd.grad(loss, list(m64.parameters()))
+
+
+def own_decision_ratios(model, pts, viewdirs, grads, plain, exact, names=None,
+                        chunk_rays=CHUNK_RAYS):
+    """Leaves of ``grads`` (the route's) and ``plain`` (the plain f32
+    version's), both of one loss that sums over rays, by the own-decision
+    rule above. ``exact(sl, masks)`` is the float64 gradient of that loss
+    over the rays ``sl`` with the ReLU decisions ``masks``; it is summed
+    over chunks of ``chunk_rays`` rays, and the activations are compared
+    chunk by chunk, so a batch of any size is held in bounded memory.
+    ``names`` (default: every leaf) picks the leaves held. Returns
+    ({leaf: its float64 error on the route's decisions over its limit},
+    the number of ReLU decisions the route takes otherwise than the plain
+    version, the layers with such a decision further than MASK_RTOL of the
+    layer's largest entry from 0)."""
+    n = pts.shape[0]
+    gap, amax, flips, on_route, on_plain = None, None, 0, None, None
+    for r0 in range(0, n, chunk_rays):
+        sl = slice(r0, min(n, r0 + chunk_rays))
+        p, v = pts[sl].contiguous(), viewdirs[sl].contiguous()
+        with torch.no_grad():
+            route = route_activations(model, p, v, torch.zeros(p.shape[:2] + (4,),
+                                                               device=p.device))
+            plain_acts = forward_on_masks(model, p, v)[1]
+        if gap is None:
+            gap, amax = [0.0] * len(route), [0.0] * len(route)
+        for i, (ar, ap) in enumerate(zip(route, plain_acts)):
+            flip = (ar > 0) != (ap > 0)
+            flips += int(flip.sum())
+            if bool(flip.any()):
+                gap[i] = max(gap[i], float((ar - ap)[flip].abs().max()))
+            amax[i] = max(amax[i], float(ap.abs().max()))
+        er = exact(sl, [a > 0 for a in route])
+        ep = exact(sl, [a > 0 for a in plain_acts])
+        del route, plain_acts
+        on_route = er if on_route is None else [a + b for a, b in zip(on_route, er)]
+        on_plain = ep if on_plain is None else [a + b for a, b in zip(on_plain, ep)]
+    ratios = {}
+    for (name, _), gk, gp, ek, ep in zip(model.named_parameters(), grads, plain, on_route,
+                                         on_plain):
+        if names is not None and name not in names:
+            continue
+        e_k = float((gk.double() - ek).abs().max())
+        e_p = float((gp.double() - ep).abs().max())
+        limit = GPU_GRAD_FACTOR * e_p + GPU_GRAD_RTOL * float(ek.abs().max())
+        ratios[name] = e_k / limit if limit > 0 else (float("inf") if e_k > 0 else 0.0)
+    bad = [i for i, (a, b) in enumerate(zip(gap, amax)) if a > MASK_RTOL * b]
+    return ratios, flips, bad
+
+
+def pass_own_decision_ratios(model, args, grads, plain, names=None, *, norm=1.0,
+                             white_background=False, supervision="rgb",
+                             chunk_rays=CHUNK_RAYS):
+    """:func:`own_decision_ratios` of kernel 4's pass loss over ``norm``:
+    ``args`` are the pass's (origins, directions, z, viewdirs, dists, noise,
+    target[, depth_gt, depth_coef]) as ``fused_pass_loss`` takes them, and
+    ``grads`` / ``plain`` the route's and the plain version's gradients of
+    that loss over ``norm``. The route's activations are kernel 3's forward
+    on the same points (the same arithmetic as kernel 4's)."""
+    o, d, z, v, dz, noise, target, *depth = args
+    depth_gt, depth_coef = (depth + [None, None])[:2]
+    pts = o[:, None] + d[:, None] * z[..., None]
+
+    def cut(t, sl):
+        return None if t is None else t[sl]
+
+    def exact(sl, masks):
+        g = pass_grads_on_masks(model, pts[sl], z[sl], dz[sl], v[sl], cut(noise, sl),
+                                target[sl], masks, white_background=white_background,
+                                supervision=supervision, depth_gt=cut(depth_gt, sl),
+                                depth_coef=cut(depth_coef, sl))
+        return [t / norm for t in g]
+
+    return own_decision_ratios(model, pts, v, grads, plain, exact, names, chunk_rays)
 
 
 def route_activations(model, pts, viewdirs, g):

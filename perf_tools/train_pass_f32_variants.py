@@ -252,7 +252,7 @@ def lib_stages(lib, model):
     from dexnerf_tpu_torch.ops import _build
     from dexnerf_tpu_torch.ops.fused_render import bf16_hidden
 
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 8)()
     lib.dexnerf_train_tf32_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     _build.check(_build.load_library(), lib.dexnerf_train_tf32_occupancy(
         bf16_hidden(model.hidden_size), model.num_layers - 1, -(-model.dim_xyz // 32),

@@ -32,6 +32,7 @@ from dexnerf_tpu_torch.core.encoding import positional_encoding
 from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
 from dexnerf_tpu_torch.ops import _weight_grads as wgr
 from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+from dexnerf_tpu_torch.ops.fused_render import MAX_HIDDEN
 from dexnerf_tpu_torch.train.checkpoints import state_dict_from_flax
 
 FULL = dict(num_layers=8, hidden_size=128, skip_connect_every=3, num_encoding_fn_xyz=10,
@@ -597,15 +598,19 @@ def _card_run(cuda, arch, n, chunk, s_pad, seed=0, repeat=1):
 # (arch, rays, rays a chunk, s_pad): M = 63 (PE 10) with an odd 21-ray last
 # chunk of 8; H = 16 (64-row boxes past every block); dx = 99 (two encoding
 # boxes: the skip layer's two-part shape (2, 2) at 96, (1, 1) at 16); one
-# chunk of K = 262,144 (a fine chunk of the 8x128 path)
+# chunk of K = 262,144 (a fine chunk of the 8x128 path); the wide route's
+# plans at 136, 256 and MAX_HIDDEN (above a width of 128: units split to the
+# kernel's limits, launched in parts above 320; ops/_weight_grads.py::_tf32_units)
+CARD_ARCHS = dict(ARCHS, **{f"8x{h}": dict(FULL, hidden_size=h) for h in (136, 256, MAX_HIDDEN)})
 CARD_CASES = [("8x128", 301, 40, 64), ("8x16", 300, 300, 128), ("8x96-pe16", 64, 33, 64),
-              ("4x16-pe16", 50, 50, 64), ("8x128", 2048, 2048, 128)]
+              ("4x16-pe16", 50, 50, 64), ("8x128", 2048, 2048, 128), ("8x136", 64, 33, 64),
+              ("8x256", 40, 40, 128), (f"8x{MAX_HIDDEN}", 20, 7, 64)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,n,chunk,s_pad", CARD_CASES)
 def test_dw_launch_matches_float64_on_card(cuda, arch, n, chunk, s_pad):
-    names, (got,), want = _card_run(cuda, ARCHS[arch], n, chunk, s_pad)
+    names, (got,), want = _card_run(cuda, CARD_ARCHS[arch], n, chunk, s_pad)
     for name, g in zip(names, got):
         w = want[name]
         assert g.shape == w.shape, name

@@ -21,6 +21,7 @@ import torch
 
 from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
 from dexnerf_tpu_torch.ops import fused_mlp, fused_mlp_train
+from dexnerf_tpu_torch.ops.fused_render import MAX_HIDDEN
 from dexnerf_tpu_torch.train.checkpoints import state_dict_from_flax
 
 ENC_XYZ, ENC_DIR = 3, 2
@@ -191,16 +192,28 @@ def _assert_grads_on_card(model, pts, vd, g, kernel_grads):
           f"otherwise than float64: {sum(int(((a > 0) != (b > 0)).sum()) for a, b in zip(route_acts, acts64))}")
 
 
+# (arch, rays, samples a ray): the narrow route at 4x16 and 8x128, and the
+# f32 route's wide kernels (padded widths above 128: 136, 256, MAX_HIDDEN),
+# each launch of those counted by ``launches_wide_f32``
+CARD_CASES = [(a, 300, s) for a in ("4x16", "8x128") for s in (64, 100, 128)]
+CARD_CASES += [(f"8x{h}", 64, 100) for h in (136, 256, MAX_HIDDEN)]
+CARD_ARCHS = {"4x16": ARCH, "8x128": FULL,
+              **{f"8x{h}": dict(FULL, hidden_size=h) for h in (136, 256, MAX_HIDDEN)}}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("s", [64, 100, 128])
-@pytest.mark.parametrize("arch", [ARCH, FULL], ids=["4x16", "8x128"])
-def test_kernels_match_plain_on_card(cuda, arch, s):
-    m, pts, vd, g = _card_case(cuda, arch, 300, s)
-    f_before, b_before = fused_mlp.launches, fused_mlp_train.launches
+@pytest.mark.parametrize("arch,n,s", CARD_CASES, ids=[f"{a}-{s}" for a, _, s in CARD_CASES])
+def test_kernels_match_plain_on_card(cuda, arch, n, s):
+    m, pts, vd, g = _card_case(cuda, CARD_ARCHS[arch], n, s)
+    wide = int(m.hidden_size > 128)
+    before = (fused_mlp.launches, fused_mlp_train.launches, fused_mlp.launches_wide_f32,
+              fused_mlp_train.launches_wide_f32, fused_mlp.launches_bf16)
     raw = fused_mlp_train.fused_field_train(m, pts, vd)
     raw.backward(g)
     torch.cuda.synchronize()
-    assert (fused_mlp.launches, fused_mlp_train.launches) == (f_before + 1, b_before + 1)
+    assert (fused_mlp.launches, fused_mlp_train.launches, fused_mlp.launches_wide_f32,
+            fused_mlp_train.launches_wide_f32, fused_mlp.launches_bf16) == (
+        before[0] + 1, before[1] + 1, before[2] + wide, before[3] + wide, before[4])
     want = fused_mlp.fused_field_reference(m, pts, vd).detach()
     torch.testing.assert_close(raw.detach(), want, rtol=GPU_RTOL, atol=GPU_ATOL)
     torch.testing.assert_close(fused_mlp.fused_field(m, pts, vd), want, rtol=GPU_RTOL,

@@ -30,7 +30,7 @@ from test_torch_train_loss import _jax_draws  # the JAX key split of render_rays
 from dexnerf_tpu_torch.config.cfgnode import CfgNode
 from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
 from dexnerf_tpu_torch.ops import fused_mlp, fused_mlp_train
-from dexnerf_tpu_torch.ops.fused_render import MAX_HIDDEN_BF16
+from dexnerf_tpu_torch.ops.fused_render import MAX_HIDDEN, MAX_HIDDEN_BF16
 from dexnerf_tpu_torch.render.renderer import RayBatch, RenderSettings, render_rays
 from dexnerf_tpu_torch.train.checkpoints import state_dict_from_flax
 from dexnerf_tpu_torch.train.loop import maybe_fused_fields
@@ -443,23 +443,23 @@ def test_bf16_backward_chunks_and_repeats_on_card(cuda, monkeypatch):
 
 @pytest.mark.gpu
 def test_bf16_refusals_on_card(cuda):
-    """A width above 128 raises at f32 and one above MAX_HIDDEN_BF16 at
-    bf16, both naming ROADMAP Queue 2 item 6b; so do non-contiguous or
+    """A width above MAX_HIDDEN raises at f32 and one above MAX_HIDDEN_BF16
+    at bf16, both naming ROADMAP Queue 2 item 6c; so do non-contiguous or
     non-f32 inputs and a mixed pair; nothing launches."""
     m, pts, vd, g = _card_case(cuda, FULL, 16, 64)
     before = (fused_mlp.launches, fused_mlp_train.launches)
-    # the f32 routes take widths up to 128 (wider: ROADMAP Queue 2 item 6b),
-    # the bf16 routes up to MAX_HIDDEN_BF16
-    wide = FlexibleNeRFModel(**dict(FULL, hidden_size=136)).to(cuda)
-    with pytest.raises(ValueError, match="item 6b"):
+    # the f32 routes take widths up to MAX_HIDDEN, the bf16 routes up to
+    # MAX_HIDDEN_BF16 (wider: ROADMAP Queue 2 item 6c)
+    wide = FlexibleNeRFModel(**dict(FULL, hidden_size=MAX_HIDDEN + 1)).to(cuda)
+    with pytest.raises(ValueError, match="item 6c"):
         fused_mlp.fused_field(wide, pts, vd, compute_dtype=F32)
-    with pytest.raises(ValueError, match="item 6b"):
+    with pytest.raises(ValueError, match="item 6c"):
         fused_mlp_train._launch_backward(wide, pts, vd, g, **LOG, compute_dtype=F32,
                                          dw_dtype=F32)
     too_wide = FlexibleNeRFModel(**dict(FULL, hidden_size=MAX_HIDDEN_BF16 + 1)).to(cuda)
-    with pytest.raises(ValueError, match="item 6b"):
+    with pytest.raises(ValueError, match="item 6c"):
         fused_mlp.fused_field(too_wide, pts, vd, compute_dtype=BF16)
-    with pytest.raises(ValueError, match="item 6b"):
+    with pytest.raises(ValueError, match="item 6c"):
         fused_mlp_train._launch_backward(too_wide, pts, vd, g, **LOG, compute_dtype=BF16,
                                          dw_dtype=BF16)
     with pytest.raises(ValueError, match="float32"):

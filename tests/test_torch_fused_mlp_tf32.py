@@ -41,6 +41,7 @@ from dexnerf_tpu_torch.core.encoding import positional_encoding
 from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
 from dexnerf_tpu_torch.ops import _weight_grads as wgr
 from dexnerf_tpu_torch.ops import fused_mlp, fused_mlp_train
+from dexnerf_tpu_torch.ops import fused_render as fr
 from dexnerf_tpu_torch.ops import fused_train_loss as ftl
 from dexnerf_tpu_torch.train.checkpoints import state_dict_from_flax
 from test_torch_dw_tf32 import emulate_dw
@@ -320,6 +321,32 @@ def test_route_matches_plain_on_card(cuda, monkeypatch, arch, s):
     after = (fused_mlp.launches, fused_mlp.launches_bf16, fused_mlp_train.launches,
              fused_mlp_train.launches_bf16)
     assert after == (before[0] + 1, before[1], before[2] + 1, before[3])
+    want = fused_mlp.fused_field_reference(m, pts, vd).detach()
+    torch.testing.assert_close(raw.detach(), want, rtol=RTOL, atol=ATOL)
+    grads = [p.grad.clone() for p in m.parameters()]
+    _assert_grads_on_card(m, pts, vd, g, grads)
+    again = fused_mlp_train._launch_backward(m, pts, vd, g, log_sampling_xyz=True,
+                                             log_sampling_dir=True)
+    torch.cuda.synchronize()
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden,s", [(136, 7), (256, 300), (fr.MAX_HIDDEN, 100)])
+def test_wide_route_matches_plain_on_card(cuda, monkeypatch, hidden, s):
+    """The same on the wide route (padded widths above 128), with S = 7 (a
+    tile of mostly padding samples) and S = 300 (tiles across rays' ends),
+    in scratch chunks of 40 rays: each launch counted by
+    ``launches_wide_f32``."""
+    monkeypatch.setattr(fused_mlp_train, "SCRATCH_SAMPLES", CARD_CHUNK * ftl.s_pad_of(s))
+    m, pts, vd, g = _card_case(cuda, dict(FULL, hidden_size=hidden), 81, s)
+    before = (fused_mlp.launches_wide_f32, fused_mlp_train.launches_wide_f32)
+    raw = fused_mlp_train.fused_field_train(m, pts, vd)
+    raw.backward(g)
+    torch.cuda.synchronize()
+    assert (fused_mlp.launches_wide_f32, fused_mlp_train.launches_wide_f32) == (
+        before[0] + 1, before[1] + 1)
     want = fused_mlp.fused_field_reference(m, pts, vd).detach()
     torch.testing.assert_close(raw.detach(), want, rtol=RTOL, atol=ATOL)
     grads = [p.grad.clone() for p in m.parameters()]

@@ -228,15 +228,22 @@ FULL = dict(num_layers=8, hidden_size=128, skip_connect_every=3,
         (dict(FULL, hidden_size=48), 192, 20, False),
         (dict(FULL, hidden_size=48), 128, 1, True),
         (dict(FULL, num_encoding_fn_xyz=16), 128, 20, False),
+        (dict(FULL, hidden_size=136), 128, 20, False),
+        (dict(FULL, hidden_size=256), 192, 20, False),
+        (dict(FULL, hidden_size=256, num_encoding_fn_xyz=16), 64, 1, True),
+        (dict(FULL, hidden_size=fr.MAX_HIDDEN), 64, 20, True),
     ],
     ids=["tiny", "fine-128", "fine-192", "h128-64-t1", "h8-64", "h8-192-t1", "h16-128",
-         "h16-64-t1", "h48-192", "h48-128-t1", "pe16-128"],
+         "h16-64-t1", "h48-192", "h48-128-t1", "pe16-128", "h136-128", "h256-192",
+         "h256-pe16-64-t1", "hmax-64"],
 )
 def test_kernel_matches_plain_on_card(cuda, arch, S, T, white):
     """The float32 route (split TF32 on wgmma) vs its plain version at widths
-    8-128 (zero-padded to a multiple of 32), PE up to 16 frequencies, 8-192
-    samples per ray and 1-20 thresholds, with one ray of zero weights (its
-    intervals 0) and a σ head scaled so that both Dex branches occur."""
+    8-128 (zero-padded to a multiple of 32) and on its wide route (136
+    padded to 160, 256, MAX_HIDDEN: ops/csrc/mlp_wide_tf32.cuh), PE up to 16
+    frequencies, 8-192 samples per ray and 1-20 thresholds, with one ray of
+    zero weights (its intervals 0) and a σ head scaled so that both Dex
+    branches occur."""
     m = FlexibleNeRFModel(**arch).reset_parameters(torch.Generator().manual_seed(0))
     ro, rd, vd, near, far = (torch.tensor(a, device=cuda) for a in _rays(n=300, seed=9))
     m = m.to(cuda)
@@ -253,7 +260,7 @@ def test_kernel_matches_plain_on_card(cuda, arch, S, T, white):
     dists = ray_dists(z, rd)
     dists[7] = 0.0  # a ray of zero weights
     thr = tuple(5.0 * (i + 1) for i in range(T))
-    before, before_bf16 = fr.launches, fr.launches_bf16
+    before, before_bf16, before_wide = fr.launches, fr.launches_bf16, fr.launches_wide_f32
     with torch.inference_mode():
         got = fr.fused_render(m, ro, rd, vd, z, dists, thresholds=thr, white_background=white)
         again = fr.fused_render(m, ro, rd, vd, z, dists, thresholds=thr, white_background=white)
@@ -261,6 +268,7 @@ def test_kernel_matches_plain_on_card(cuda, arch, S, T, white):
                                          white_background=white)
     torch.cuda.synchronize()
     assert fr.launches == before + 2 and fr.launches_bf16 == before_bf16
+    assert fr.launches_wide_f32 == before_wide + 2 * int(fr.is_wide(m))
     for f in ("rgb", "disparity", "accumulation", "depth", "weights"):
         assert torch.equal(getattr(got, f), getattr(again, f)), f  # deterministic
         torch.testing.assert_close(getattr(got, f), getattr(want, f),
@@ -274,6 +282,78 @@ def test_kernel_matches_plain_on_card(cuda, arch, S, T, white):
         fr.fused_render(m, ro, rd, vd, z.t().contiguous().t(), dists)
     with pytest.raises(ValueError, match="float32"):
         fr.fused_render(m, ro.double(), rd, vd, z, dists)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [8, 16])
+def test_wide_kernel_small_units_on_card(cuda, S):
+    """The wide f32 route with many rays a unit (S = 8: 16 rays, S = 16: 8;
+    each ray its own viewdir bias) at width 200 (padded to 224: a 128- and
+    a 96-column block), by the rule above. The σ logit's spread is 30 S / 64
+    and the thresholds 5 S / 64 and 10 S / 64, so that σ times the interval
+    (4 / S) spans what it does in the S = 64 cases above: at a spread of 30
+    the weights of 8 samples are small differences of large sums, which f32
+    rounding alone moves from float64 by more than the tolerance. The
+    narrow route shows it too: at a spread of 30 on these rays it misses
+    the rule on one weight of a 128-wide model at S = 16 (1.8 times the
+    tolerance), as the wide route does at 200 and S = 8 (1.1 times), and
+    the wide route gives the narrow route's result bit for bit on the same
+    function (``perf_tools/kernel1_small_units.py``;
+    :func:`test_wide_route_is_the_narrow_one_on_card`)."""
+    m = FlexibleNeRFModel(**dict(FULL, hidden_size=200)).reset_parameters(
+        torch.Generator().manual_seed(0))
+    ro, rd, vd, near, far = (torch.tensor(a, device=cuda) for a in _rays(n=300, seed=9))
+    m = m.to(cuda)
+    z = stratified_z_vals(near, far, S)
+    from dexnerf_tpu_torch.core.encoding import positional_encoding
+
+    with torch.no_grad():  # σ logit over these samples: mean 0, std 30 S / 64
+        pts = ro[:, None] + rd[:, None] * z[..., None]
+        raw = m(positional_encoding(pts, m.num_encoding_fn_xyz),
+                positional_encoding(vd, m.num_encoding_fn_dir))[..., 3]
+        k = 30.0 * S / 64 / raw.std()
+        m.fc_alpha.weight.mul_(k)
+        m.fc_alpha.bias.copy_((m.fc_alpha.bias - raw.mean()) * k)
+    dists = ray_dists(z, rd)
+    thr = (5.0 * S / 64, 10.0 * S / 64)
+    before = fr.launches_wide_f32
+    with torch.inference_mode():
+        got = fr.fused_render(m, ro, rd, vd, z, dists, thresholds=thr)
+        want = fr.fused_render_reference(m, ro, rd, vd, z, dists, thresholds=thr)
+    torch.cuda.synchronize()
+    assert fr.launches_wide_f32 == before + 1
+    for f in ("rgb", "disparity", "accumulation", "depth", "weights"):
+        torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                   rtol=GPU_RTOL, atol=GPU_ATOL)
+    assert float((got.depth_dex == want.depth_dex).float().mean()) >= 0.9999
+    hit = (got.depth_dex != z[None, :, 0]).float().mean()
+    assert 0.05 < float(hit) < 0.95, float(hit)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [8, 64, 128])
+def test_wide_route_is_the_narrow_one_on_card(cuda, S):
+    """A 128-wide model zero-padded to width 200 (every added weight and
+    bias 0: the same function) through the wide f32 route gives the narrow
+    route's result on the 128-wide model bit for bit, at σ spread 30 and 2
+    thresholds: the wide tile keeps the narrow tile's split, its products
+    and its order of sums."""
+    from perf_tools.kernel1_small_units import embedded, scaled
+
+    ro, rd, vd, near, far = (torch.tensor(a, device=cuda) for a in _rays(n=300, seed=9))
+    z = stratified_z_vals(near, far, S)
+    m = scaled(FlexibleNeRFModel(**FULL).reset_parameters(torch.Generator().manual_seed(0))
+               .to(cuda), ro, rd, vd, z, 30.0)
+    padded = embedded(m, 200)
+    dists = ray_dists(z, rd)
+    before = fr.launches_wide_f32
+    with torch.inference_mode():
+        narrow = fr.fused_render(m, ro, rd, vd, z, dists, thresholds=THRESHOLDS)
+        wide = fr.fused_render(padded, ro, rd, vd, z, dists, thresholds=THRESHOLDS)
+    torch.cuda.synchronize()
+    assert fr.launches_wide_f32 == before + 1
+    for f in ("rgb", "disparity", "accumulation", "depth", "weights", "depth_dex"):
+        assert torch.equal(getattr(wide, f), getattr(narrow, f)), f
 
 
 @pytest.mark.gpu

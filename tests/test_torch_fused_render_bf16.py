@@ -558,12 +558,13 @@ def test_bf16_kernel_refusals_on_card(cuda):
     z = stratified_z_vals(near, far, 64)
     dists = ray_dists(z, rd)
     before, before_all = fr.launches_bf16, fr.launches
-    # the f32 route takes widths up to 128 (wider: ROADMAP Queue 2 item 6b),
-    # the bf16 route up to MAX_HIDDEN_BF16
-    with pytest.raises(ValueError, match="item 6b"):
-        fr.fused_render(m, ro, rd, vd, z, dists, compute_dtype=torch.float32)
+    # the f32 route takes widths up to MAX_HIDDEN, the bf16 route up to
+    # MAX_HIDDEN_BF16 (wider: ROADMAP Queue 2 item 6c)
+    wide = FlexibleNeRFModel(**dict(FULL, hidden_size=fr.MAX_HIDDEN + 1)).to(cuda)
+    with pytest.raises(ValueError, match="item 6c"):
+        fr.fused_render(wide, ro, rd, vd, z, dists, compute_dtype=torch.float32)
     too_wide = FlexibleNeRFModel(**dict(FULL, hidden_size=fr.MAX_HIDDEN_BF16 + 1)).to(cuda)
-    with pytest.raises(ValueError, match="item 6b"):
+    with pytest.raises(ValueError, match="item 6c"):
         fr.fused_render(too_wide, ro, rd, vd, z, dists, compute_dtype=BF16)
     assert fr.launches == before_all
     m = FlexibleNeRFModel(**FULL).to(cuda)

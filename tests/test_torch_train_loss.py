@@ -22,6 +22,7 @@ from dexnerf_tpu_torch.core.sampling import stratified_z_vals
 from dexnerf_tpu_torch.core.volrend import ray_dists
 from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
 from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+from dexnerf_tpu_torch.ops.fused_render import MAX_HIDDEN
 from dexnerf_tpu_torch.render.renderer import RayBatch, RenderDraws, RenderSettings
 from dexnerf_tpu_torch.train.checkpoints import state_dict_from_flax
 
@@ -300,6 +301,41 @@ def _assert_grads_on_card(model, args, kw, kernel_grads, plain_grads):
             name, err, err_plain, scale)
 
 
+def _assert_wide_grads_on_card(model, args, kw, kernel_grads, plain_grads):
+    """The rule above on every leaf. Past 128 a pass holds ~10^7 ReLU
+    decisions, and the route's activations differ from the plain version's
+    by ~1e-6 of their scale, so a decision within that of 0 can go the
+    other way in each version (one moved layers_xyz.6.weight by 4.3e-4 of
+    its largest entry at 608; on its own decisions the route's error was
+    8.0e-6 against the plain version's 7.6e-6); a leaf past the rule is held
+    by the own-decision rule of ``perf_tools/field_f32_rule.py`` (kernel
+    3's, ROADMAP Queue 3 fault 7): the route's decisions differ from the
+    plain version's only where the plain activation lies within MASK_RTOL of
+    its layer's largest entry of 0, and each version is held to float64 on
+    its own decisions, the route within GPU_GRAD_FACTOR times the plain
+    version's error + GPU_GRAD_RTOL of the leaf's largest entry."""
+    from perf_tools.field_f32_rule import pass_own_decision_ratios
+
+    m64 = copy.deepcopy(model).double()
+    exact = ftl.fused_pass_loss_reference(
+        m64, *(None if a is None else a.double() for a in args), **kw)[3]
+    names, past = [n for n, _ in model.named_parameters()], []
+    for name, g, gp, ge in zip(names, kernel_grads, plain_grads, exact):
+        assert bool(torch.isfinite(g).all()), name
+        scale = float(ge.abs().max())
+        err = float((g.double() - ge).abs().max())
+        err_plain = float((gp.double() - ge).abs().max())
+        if err > GPU_GRAD_FACTOR * err_plain + GPU_GRAD_RTOL * scale:
+            past.append(name)
+    if not past:
+        return
+    ratios, _, bad_layers = pass_own_decision_ratios(
+        model, args, kernel_grads, plain_grads, past, white_background=kw["white_background"],
+        supervision=kw["supervision"])
+    assert not bad_layers, bad_layers
+    assert all(r <= 1.0 for r in ratios.values()), ratios
+
+
 def _card_case(cuda, arch, s, n=300, seed=9):
     m = FlexibleNeRFModel(**arch).reset_parameters(torch.Generator().manual_seed(seed)).to(cuda)
     with torch.no_grad():  # σ logit spread: saturated and transparent samples both occur
@@ -333,6 +369,40 @@ def test_kernel_matches_plain_on_card(cuda, arch, s, supervision, white, noise, 
     torch.testing.assert_close(w, want[1], rtol=GPU_RTOL, atol=GPU_ATOL)
     torch.testing.assert_close(rgb, want[2], rtol=GPU_RTOL, atol=GPU_ATOL)
     _assert_grads_on_card(m, args, kw, grads, want[3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [False, True], ids=["photo", "depth"])
+@pytest.mark.parametrize("hidden,s,scratch", [
+    (136, 128, None), (136, 100, None), (256, 64, None), (256, 192, None), (MAX_HIDDEN, 64, None),
+    (256, 100, 128 * 40)], ids=["136-128", "136-100", "256-64", "256-192", "max-64",
+                                "256-100-chunked"])
+def test_wide_kernel_matches_plain_on_card(cuda, monkeypatch, hidden, s, scratch, depth):
+    """The f32 route's wide kernels (padded widths above 128: 136 padded to
+    160, 256, MAX_HIDDEN; S = 100 pads each ray's last tile), counted by
+    ``launches_wide_f32``: loss, weights and rgb by the rules above, the
+    leaves by :func:`_assert_wide_grads_on_card`. ``scratch`` runs the pass
+    in several scratch chunks (40, 40 and 20 rays), so the loss and every
+    dW part are summed across chunks, as at a training batch of 8192."""
+    if scratch:
+        monkeypatch.setattr(ftl, "SCRATCH_SAMPLES", scratch)
+    m, inp = _card_case(cuda, dict(FULL, hidden_size=hidden), s, n=100)
+    kw = dict(white_background=depth, supervision="rgb")
+    args = (inp["origins"], inp["directions"], inp["z_vals"], inp["viewdirs"], inp["dists"],
+            inp["noise"], inp["target"],
+            *((inp["depth_gt"], inp["depth_coef"]) if depth else ()))
+    before = (ftl.launches, ftl.launches_wide_f32, ftl.launches_bf16)
+    loss, w, rgb = ftl.fused_pass_loss(m, *args, **kw)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (ftl.launches, ftl.launches_wide_f32, ftl.launches_bf16) == (
+        before[0] + 1, before[1] + 1, before[2])
+    grads = [p.grad.clone() for p in m.parameters()]
+    want = ftl.fused_pass_loss_reference(m, *args, **kw)
+    torch.testing.assert_close(loss, want[0], rtol=GPU_LOSS_RTOL, atol=0)
+    torch.testing.assert_close(w, want[1], rtol=GPU_RTOL, atol=GPU_ATOL)
+    torch.testing.assert_close(rgb, want[2], rtol=GPU_RTOL, atol=GPU_ATOL)
+    _assert_wide_grads_on_card(m, args, kw, grads, want[3])
 
 
 @pytest.mark.gpu

@@ -501,13 +501,13 @@ def test_bf16_kernel_refusals_on_card(cuda):
         ftl.fused_pass_loss(m, *args, compute_dtype=BF16, dw_dtype=F32)
     with pytest.raises(ValueError, match="dw_dtype"):
         ftl.fused_pass_loss(m, *args, compute_dtype=F32, dw_dtype=BF16)
-    # the f32 route takes widths up to 128 (wider: ROADMAP Queue 2 item 6b),
-    # the bf16 route up to MAX_HIDDEN_BF16
-    wide = FlexibleNeRFModel(**dict(FULL, hidden_size=136)).to(cuda)
-    with pytest.raises(ValueError, match="item 6b"):
+    # the f32 route takes widths up to MAX_HIDDEN, the bf16 route up to
+    # MAX_HIDDEN_BF16 (wider: ROADMAP Queue 2 item 6c)
+    wide = FlexibleNeRFModel(**dict(FULL, hidden_size=fr.MAX_HIDDEN + 1)).to(cuda)
+    with pytest.raises(ValueError, match="item 6c"):
         ftl.fused_pass_loss(wide, *args, compute_dtype=F32, dw_dtype=F32)
     too_wide = FlexibleNeRFModel(**dict(FULL, hidden_size=fr.MAX_HIDDEN_BF16 + 1)).to(cuda)
-    with pytest.raises(ValueError, match="item 6b"):
+    with pytest.raises(ValueError, match="item 6c"):
         ftl.fused_pass_loss(too_wide, *args, compute_dtype=BF16, dw_dtype=BF16)
     with pytest.raises(ValueError, match="float32"):
         ftl.fused_pass_loss(m, inp["origins"].double(), *args[1:], compute_dtype=BF16,

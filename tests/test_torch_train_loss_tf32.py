@@ -48,6 +48,9 @@ FULL = dict(num_layers=8, hidden_size=128, skip_connect_every=3, num_encoding_fn
 NARROW = dict(num_layers=8, hidden_size=16, skip_connect_every=3, num_encoding_fn_xyz=3,
               num_encoding_fn_dir=2)
 ARCHS = {"8x16": NARROW, "8x48": dict(FULL, hidden_size=48), "8x128": FULL}
+# the wide route (padded widths above 128, ops/csrc/mlp_wide_tf32.cuh), on the card
+WIDE_ARCHS = {"8x136": dict(FULL, hidden_size=136), "8x256": dict(FULL, hidden_size=256),
+              f"8x{fr.MAX_HIDDEN}": dict(FULL, hidden_size=fr.MAX_HIDDEN)}
 LOSS_RTOL = 1e-5
 RTOL, ATOL = 1e-4, 1e-5  # weights, rgb: the f32 contract
 GRAD_RTOL = 1e-4  # each leaf to 1e-4 of its own largest entry
@@ -587,7 +590,7 @@ def _card_pass(cuda, arch, n, s, seed=9):
     inputs: the Tf32Pass, its WeightGradients, the model and the inputs."""
     from dexnerf_tpu_torch.ops._build import load_library
 
-    m = _model(ARCHS[arch], seed).to(cuda)
+    m = _model({**ARCHS, **WIDE_ARCHS}[arch], seed).to(cuda)
     with torch.no_grad():
         m.fc_alpha.weight.mul_(30.0)
     inp = {k: torch.tensor(v, device=cuda) for k, v in _inputs(n, s, seed).items()}
@@ -634,7 +637,9 @@ def _chain64(m, act, graw):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch,n,s", [("8x128", 40, 64), ("8x16", 33, 100), ("8x48", 17, 128)])
+@pytest.mark.parametrize("arch,n,s", [("8x128", 40, 64), ("8x16", 33, 100), ("8x48", 17, 128),
+                                    ("8x136", 21, 100), ("8x256", 13, 64),
+                                    (f"8x{fr.MAX_HIDDEN}", 5, 128)])
 def test_pass_buffers_match_plain_on_card(cuda, arch, n, s):
     """One chunk's buffers. The activations against the plain f32 model's
     (every block to 1e-4 of its largest entry on the real columns; padding
