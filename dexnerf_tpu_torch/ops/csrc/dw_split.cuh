@@ -107,7 +107,16 @@ typedef CUresult (*PFN_encodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_
                                     const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                     CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
+// The driver call needs a context current on the calling thread. A thread
+// whose first CUDA work this is has none (autograd's device thread running
+// kernel 3's backward, when the scratch comes from the allocator's cache:
+// CUDA_ERROR_INVALID_CONTEXT), so the thread's device is set first, which
+// makes its primary context current.
 inline cudaError_t tensor_map_encoder(PFN_encodeTiled* out) {
+  int dev = 0;
+  cudaError_t cur = cudaGetDevice(&dev);
+  if (cur == cudaSuccess) cur = cudaSetDevice(dev);
+  if (cur != cudaSuccess) return cur;
   static PFN_encodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;

@@ -79,7 +79,8 @@
 // Padded widths above 128 (up to kWideMaxHidden) take the wide route, chosen
 // by the launchers from the width alone: train_fwd_wide_kernel and
 // train_chain_wide_kernel on mlp_wide_bf16.cuh's tile, with the same prep,
-// compositing, scratch layout, tensor maps and reduction; their dW plan
+// compositing, scratch layout, tensor maps and reduction (and the forward's
+// ReLU mask words, TrainArgs::masks, which the chain reads); their dW plan
 // (ops/fused_train_loss.py::dw_plan) splits products into units within
 // train_dw_bf16_kernel's limits, runs in parts of at most kDwMaxUnits units
 // (reduce_bf16_kernel sums them) and gives each 64-sample stage a fresh
@@ -162,6 +163,7 @@ struct TrainArgs {
   float* dir_enc;           // [n_rays][dd] viewdir encodings, bf16-rounded
   float* dirb;              // [n_rays][H/2] per-ray viewdir-layer bias
   float* aux_part;          // [chain CTAs][aux_size] bias sums, viewdir-row dW
+  uint32_t* masks;          // wide route: [64-row tiles][wide_mask_words][128] ReLU mask words
   // element offsets in scratch: act e, a_0..a_nt, feat, y; dlt d_0..d_nt,
   // feat, y, rgb (8 wide), sigma (8 wide)
   long long act_off[kMaxBlocks];
@@ -283,7 +285,9 @@ __global__ void __launch_bounds__(kRayWarps * 32) train_composite_kernel(const T
 // is added to the block's sum in f32 on the CUDA cores, the tensor cores
 // rounding only within a stage's 64 samples (the wide route's plans: a small
 // unit's share of a pass runs to thousands of stages a CTA); else every
-// stage accumulates in the block's wgmma accumulator.
+// stage accumulates in the block's wgmma accumulator. The fresh accumulators
+// cost the wide dW under 2%, and overlapping one block's products with the
+// previous block's f32 add gained nothing (PERF.md section 6).
 template <int NB, bool kFresh>
 __device__ __forceinline__ void dw_consume(const DwUnit& U, int cw, int j0, int j1, int& it,
                                            uint32_t base, int SB, int NS, uint32_t full,
@@ -1126,13 +1130,17 @@ __global__ void __launch_bounds__(kSumThreads) sum_rays_bf16_kernel(const float*
 // warpgroup whose first thread streams the forward pack in [128][64] pieces
 // (WideStream::forward). Worker v = C b + cw takes the 64-row tiles v, v +
 // C G, ...; a tile's encoding is written and stored as the narrow forward's,
-// then wide_tile runs it through the MLP, storing every activation by TMA,
-// and raw goes out as the narrow forward's. Bound, as the narrow one, by its
+// then wide_tile runs it through the MLP, storing every activation by TMA
+// and (kernels 4 and 3) the ReLU mask words the wide chain reads
+// (wide_mask_words), and raw goes out as the narrow forward's. Bound, as the
+// narrow one, by its
 // activation stores (~5 KB a sample at 8x256) ahead of its multiply-adds
 // (~0.6 M a sample).
 __host__ __device__ inline size_t wide_fwd_cons_bytes(int hp, int kx) {
-  // the activation tiles, the encoding tile, sigma [64] and rgb [64][3]
-  return align1024(wide_act_bytes(hp) + (size_t)kx * kEncChunk + kTile * 4 * 4);
+  // the activation tiles, the encoding tile, sigma [64] and rgb [64][3], two
+  // layers' mask words [2][ceil(hp / 64)][128]
+  return align1024(wide_act_bytes(hp) + (size_t)kx * kEncChunk + kTile * 4 * 4 +
+                   2 * (size_t)((hp + 63) / 64) * 512);
 }
 
 template <int kOwner>
@@ -1183,7 +1191,8 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   float* sig = reinterpret_cast<float*>(encg + kx * kEncChunk);
   float* rgb = sig + kTile;
   const WideTile T{{own, own + (uint32_t)(act_bytes / 2)}, own + (uint32_t)act_bytes, p.aux,
-                   p.aux_off, hp, kx, nt, p.skip_mask, 1 + cw};
+                   p.aux_off, hp, kx, nt, p.skip_mask, 1 + cw,
+                   own + (uint32_t)(act_bytes + kx * kEncChunk + kTile * 4 * 4)};
   const CUtensorMap* maps = nullptr;
   if constexpr (kSave) maps = m.blocks;
   WideRing wr{ring, full, empty, ns, lane};
@@ -1200,7 +1209,8 @@ __global__ void __launch_bounds__(kWideThreads, 1)
       for (int x = 0; x < kx; ++x) tma_store_2d(maps, 64 * x, r0, T.enc + x * kEncChunk);
       bulk_commit();
     }
-    wide_tile(T, wr, r0, S, p.n_rays, p.dirb, sig, rgb, maps, r0);
+    wide_tile(T, wr, r0, S, p.n_rays, p.dirb, sig, rgb, maps, r0,
+              kSave ? p.masks + (size_t)(r0 / kTile) * wide_mask_words(hp, nt) * 128 : nullptr);
     if (kRaw && t < kTile && (kOwner == kLoss || r0 + t < n_real)) {
       reinterpret_cast<float4*>(p.raw)[r0 + t] =
           make_float4(rgb[3 * t], rgb[3 * t + 1], rgb[3 * t + 2], sig[t]);
@@ -1219,18 +1229,46 @@ __global__ void __launch_bounds__(kWideThreads, 1)
 // cotangents, the y cotangent with the viewdir layer's bias sum and viewdir
 // rows' dW, then products pi = 0 .. nt + 1 on the transposed weights), with
 // each product's output in column blocks of at most 128 (wide_product, A
-// the previous cotangent tile in shared memory) and the ReLU masks read from
-// the saved activations in device memory. Persistent CTAs of C consumer
-// warpgroups (wide_plan on wide_chain_cons_bytes) and one warpgroup whose
-// first thread streams [128][64] pieces of pack_backward_weights_bf16 by TMA
-// (the pack's tensor map with [128][64] boxes). Each consumer's two
+// the previous cotangent tile in shared memory). Persistent CTAs of C
+// consumer warpgroups (wide_plan on wide_chain_cons_bytes) and one warpgroup
+// whose first thread streams [128][64] pieces of pack_backward_weights_bf16
+// by TMA (the pack's tensor map with [128][64] boxes). Each consumer's two
 // cotangent tiles alternate as a product's input and output, and each
-// output is stored to the scratch by TMA while the next product runs. The
-// bias sums and viewdir rows' dW go straight to the worker's slot in device
-// memory, each entry owned by one thread.
+// output is stored to the scratch by TMA while the next product runs.
+//
+// Bound by its bytes (the cotangent blocks it writes, ~4.9 KB a sample at
+// 8x256) ahead of its multiply-adds. Nothing that a thread waits for on
+// device memory lies between a product's wgmma and its epilogue: the ReLU
+// masks are the forward's mask words (wide_mask_words: 272 B a sample at
+// 8x256, where the saved activations are 4.4 KB), each thread's own copied
+// by cp.async into shared memory one product ahead (y's at the tile's
+// start, for the y-cotangent step, a thread a column); a product's column
+// sums (the bias sums, f32) are a reduce-scatter over the 8 lanes that share
+// a column, then a sum over the 4 warps in shared memory; the bias sums and
+// the viewdir rows' dW go to the worker's slot in device memory by
+// red.global.add, each entry owned by one thread (so its adds land in
+// program order: bitwise-repeatable runs). The raw cotangents sit in the
+// output tile of product 0 until it is written. What the earlier design's
+// time was made of (its 32 scalar mask loads a thread a column block), and
+// this one's: PERF.md section 6, from perf_tools/train_chain_wide_variants.py.
 __host__ __device__ inline size_t wide_chain_cons_bytes(int hp) {
-  // the cotangent tiles, the raw cotangents [64][4], the column sums [4][hp]
-  return align1024(wide_act_bytes(hp) + kCTile * 4 * 4 + 4 * (size_t)hp * 4);
+  // the cotangent tiles, the column sums [4][hp], two products' mask words
+  // [2][ceil(hp / 64)][128]
+  return align1024(wide_act_bytes(hp) + 4 * (size_t)hp * 4 +
+                   2 * (size_t)((hp + 63) / 64) * 512);
+}
+
+// A 4-byte asynchronous copy from device to shared memory (cp.async), its
+// group's commit and the wait for all but the newest N groups.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Pieces of one tile's pass over the backward pack at padded width hp.
@@ -1240,12 +1278,58 @@ __host__ __device__ inline int wide_chain_pieces(int hp, int nt) {
   return blocks * ((hp / 2 + kKc - 1) / kKc + (nt + 1) * ((hp + kKc - 1) / kKc));
 }
 
+// f(BN) for the chain's column blocks (hp a multiple of 32: 128, 96, 64, 32).
+template <class F>
+__device__ __forceinline__ void with_bn32(int bn, F&& f) {
+  switch (bn) {
+    case 128: f(std::integral_constant<int, 128>{}); break;
+    case 96: f(std::integral_constant<int, 96>{}); break;
+    case 64: f(std::integral_constant<int, 64>{}); break;
+    default: f(std::integral_constant<int, 32>{}); break;
+  }
+}
+
+// A block's column sums: cs[2 j + e] holds the thread's rows g and g + 8 of
+// column 8 j + 2 q + e. A reduce-scatter over the 8 lanes of a q (lane bits
+// X = 16, 8, 4: halves, quarters, eighths of cs) leaves lane g the warp's
+// sums of k = g V / 8 .. + V / 8 - 1 in cs[0 .. V / 8 - 1]. Each step is its
+// own instance, so every index is a constant and cs stays in registers (a
+// loop over the steps left cs in local memory and serialized the chain's
+// wgmma: ptxas C7514).
+template <int V, int N = V / 2, int X = 16>
+__device__ __forceinline__ void colsum_scatter(float (&cs)[V], int lane) {
+  static_assert(V % 8 == 0, "a block of a multiple of 32 columns");
+  const bool up = (lane & X) != 0;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const float send = up ? cs[k] : cs[k + N], keep = up ? cs[k + N] : cs[k];
+    cs[k] = keep + __shfl_xor_sync(0xffffffffu, send, X);
+  }
+  if constexpr (X > 4) colsum_scatter<V, N / 2, X / 2>(cs, lane);
+}
+
+// dst[k H2] += enc[k] seg for k < dd by red.global.add (dst owned by the
+// calling thread: its adds land in program order), eight loads at a time.
+__device__ __forceinline__ void vd_red(float* dst, const float* __restrict__ enc, int dd, int H2,
+                                       float seg) {
+  for (int k0 = 0; k0 < dd; k0 += 8) {
+    float e[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) e[i] = k0 + i < dd ? __ldg(enc + k0 + i) : 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (k0 + i < dd) atomicAdd(dst + (k0 + i) * H2, e[i] * seg);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kWideThreads, 1)
     train_chain_wide_kernel(const TrainArgs p, const __grid_constant__ ChainMaps m, int n_real,
                             int n_tiles, int ns) {
   const int C = blockDim.x / 128 - 1;
   const int S = p.n_samples, nt = p.num_trunk, dd = p.dd, hp = p.hidden, h2 = hp / 2;
   const int kch = (hp + kKc - 1) / kKc, k2 = (h2 + kKc - 1) / kKc;
+  const int mw = (hp + 63) / 64, my = (h2 + 63) / 64, n_words = wide_mask_words(hp, nt);
   const int n_act = nt + 4;  // m.blocks: activation blocks, then cotangent blocks
   extern __shared__ unsigned char chain_raw[];
   const uint32_t sbase = (smem_u32(chain_raw) + 1023u) & ~1023u;
@@ -1290,9 +1374,14 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWideConsRegs));
   const int v = C * b + cw;
   const uint32_t own = cons0 + (uint32_t)(cw * cons_bytes);
-  const uint32_t cot[2] = {own, own + (uint32_t)(act_bytes / 2)};
-  float* gsh = reinterpret_cast<float*>(gbase + ns * kWideStage + cw * cons_bytes + act_bytes);
-  float* colsum = gsh + kCTile * 4;  // [4 warps][hp]
+  const uint32_t cot0 = own, cot1 = own + (uint32_t)(act_bytes / 2);  // the cotangent tiles
+  unsigned char* ownp = gbase + ns * kWideStage + cw * cons_bytes;
+  // the raw cotangents [64][4] f32, in tile 1 until product 0 writes it
+  const float* gsh = reinterpret_cast<const float*>(ownp + act_bytes / 2);
+  float* colsum = reinterpret_cast<float*>(ownp + act_bytes);  // [4 warps][hp]
+  // two products' mask words [2][mw][128] (y's in buffer 1 for the y cotangent)
+  const uint32_t msm = own + (uint32_t)(act_bytes + 4 * (size_t)hp * 4);
+  const uint32_t* msg = reinterpret_cast<const uint32_t*>(ownp + act_bytes + 4 * (size_t)hp * 4);
   const int bar = 1 + cw;
   const int n_slot = aux_size(hp, nt, dd);
   float* const mine = p.aux_part + (size_t)v * n_slot;
@@ -1305,14 +1394,28 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   for (int k = 0; k < n_mine; ++k) {
     const int tile = v + k * C * G;
     const long long k0 = (long long)tile * kCTile;
+    const uint32_t* tm = p.masks + (size_t)tile * n_words * 128 + t;  // the thread's words
+    // the thread's mask words of product pi (pi <= nt) or y's (pi < 0) into
+    // buffer x, as one cp.async group
+    auto copy_words = [&](int pi, int x) {
+      const int first = pi < 0 ? (nt + 1) * mw : (nt - pi) * mw, n = pi < 0 ? my : mw;
+      if (pi <= nt) {
+        for (int w = 0; w < n; ++w) {
+          cp_async4(msm + ((x * mw + w) * 128 + t) * 4, tm + (first + w) * 128);
+        }
+      }
+      cp_async_commit();
+    };
     if (t == 0) bulk_wait_read<0>();  // the last tile's stores have read their tiles
     wg_sync(bar);
+    copy_words(-1, 1);
+    copy_words(0, 0);
     // ---- raw cotangents of the tile; rgb and sigma ones to the scratch in bf16
     if (t < kCTile) {
       const int r = t;
       const float4 gr = k0 + r < n_real ? reinterpret_cast<const float4*>(p.graw)[k0 + r]
                                         : make_float4(0.f, 0.f, 0.f, 0.f);
-      reinterpret_cast<float4*>(gsh)[r] = gr;
+      reinterpret_cast<float4*>(ownp + act_bytes / 2)[r] = gr;
       __align__(16) __nv_bfloat162 rgb8[4], sig8[4];
       const __nv_bfloat162 z2 = __floats2bfloat162_rn(0.f, 0.f);
       rgb8[0] = __floats2bfloat162_rn(gr.x, gr.y);
@@ -1325,40 +1428,44 @@ __global__ void __launch_bounds__(kWideThreads, 1)
       __stcs(reinterpret_cast<float4*>(S0 + p.dlt_off[nt + 4] + (k0 + r) * 8),
              *reinterpret_cast<const float4*>(sig8));
     }
+    cp_async_wait<1>();  // y's words (the thread's own), then everyone's
     wg_sync(bar);
     if (t < 4) {  // rgb and sigma bias sums
       float s = 0.f;
       for (int r = 0; r < kCTile; ++r) s += gsh[r * 4 + t];
-      mine[t < 3 ? aux_rgb(hp, nt) + t : aux_alpha(hp, nt)] += s;
+      atomicAdd(mine + (t < 3 ? aux_rgb(hp, nt) + t : aux_alpha(hp, nt)), s);
     }
-    // ---- y cotangent (g_rgb . W_rgb^T, f32) masked by y > 0, one thread a
-    // column: the viewdir layer's bias sum (f32) and its viewdir rows' dW
-    // (each ray's encoding x its sum of the bf16 cotangent), into tile 0
-    const unsigned short* ysave =
-        reinterpret_cast<const unsigned short*>(S0 + p.act_off[nt + 3]) + k0 * h2;
+    // ---- y cotangent (g_rgb . W_rgb^T, f32) masked by y > 0 (its mask
+    // words), one thread a column: the viewdir layer's bias sum (f32) and its
+    // viewdir rows' dW (each ray's encoding x its sum of the bf16
+    // cotangent), into tile 0
     for (int col = t; col < h2; col += 128) {
       const float* wr3 = w_rgb + col * 3;
       const float w0 = __ldg(wr3), w1 = __ldg(wr3 + 1), w2 = __ldg(wr3 + 2);
       float* vd = mine + aux_vd(hp, nt) + col;
+      // row 16 w + i's bit: word 32 w + 4 (i % 8) + q of the column's group,
+      // bit yb - 8 (i / 8)
+      const uint32_t* ycol = msg + (mw + (col >> 6)) * 128 + ((col & 7) >> 1);
+      const int yb = wide_mask_bit((col & 63) >> 3, 0, col & 1);
       float bsum = 0.f, seg = 0.f;
       int ray = (int)(k0 / S), pos = (int)(k0 - (long long)ray * S);
-      for (int r0 = 0; r0 < kCTile; r0 += 16) {  // 16 rows' loads at once
-        unsigned short yb[16];
+      for (int r0 = 0; r0 < kCTile; r0 += 16) {  // warp r0 / 16's rows: 8 words, 2 bits each
+        uint32_t wd[8];
 #pragma unroll
-        for (int i = 0; i < 16; ++i) yb[i] = __ldg(ysave + (size_t)(r0 + i) * h2 + col);
+        for (int i = 0; i < 8; ++i) wd[i] = ycol[2 * r0 + 4 * i];
 #pragma unroll
         for (int i = 0; i < 16; ++i) {
           const int r = r0 + i;
           const float4 gg = reinterpret_cast<const float4*>(gsh)[r];
           const float dy = fmaf(gg.z, w2, fmaf(gg.y, w1, gg.x * w0));
-          const float vv = __uint_as_float((uint32_t)yb[i] << 16) > 0.f ? dy : 0.f;
+          const float vv = (wd[i & 7] >> (yb - 8 * (i >> 3))) & 1u ? dy : 0.f;
           const bf16 vb = __float2bfloat16_rn(vv);
-          sts16(cot[0] + tile_off(r, col), __bfloat16_as_ushort(vb));
+          sts16(cot0 + tile_off(r, col), __bfloat16_as_ushort(vb));
           if (k0 + r < n_real) {
             bsum += vv;
             seg += __bfloat162float(vb);
             if (++pos == S) {  // the ray's last sample
-              vd_flush(vd, p.dir_enc + (size_t)ray * dd, dd, h2, seg);
+              vd_red(vd, p.dir_enc + (size_t)ray * dd, dd, h2, seg);
               seg = 0.f;
               pos = 0;
               ++ray;
@@ -1366,56 +1473,49 @@ __global__ void __launch_bounds__(kWideThreads, 1)
           }
         }
       }
-      if (pos > 0) vd_flush(vd, p.dir_enc + (size_t)ray * dd, dd, h2, seg);  // continues
-      mine[aux_dir(hp, nt) + col] += bsum;
+      if (pos > 0) vd_red(vd, p.dir_enc + (size_t)ray * dd, dd, h2, seg);  // continues
+      atomicAdd(mine + aux_dir(hp, nt) + col, bsum);
     }
+    const int r0 = 16 * warp + g;
+    const float gs[2] = {gsh[r0 * 4 + 3], gsh[(r0 + 8) * 4 + 3]};  // sigma's, for product 1
     fence_async_smem();
     wg_sync(bar);
     if (t == 0) {
       for (int x = 0; x < k2; ++x) {
-        tma_store_2d(&m.blocks[n_act + nt + 2], 64 * x, (int)k0, cot[0] + x * kEncChunk);
+        tma_store_2d(&m.blocks[n_act + nt + 2], 64 * x, (int)k0, cot0 + x * kEncChunk);
       }
       bulk_commit();
     }
     // ---- the products
-    int cur = 0;
     for (int pi = 0; pi < nt + 2; ++pi) {
-      const uint32_t in = cot[cur], out = cot[cur ^ 1];
+      // product pi reads tile pi % 2 and writes the other
+      const uint32_t in = pi & 1 ? cot1 : cot0, out = pi & 1 ? cot0 : cot1;
       if (t == 0) bulk_wait_read<1>();  // out's store two products ago has read it
       wg_sync(bar);
-      const bool masked = pi < nt + 1;
-      const unsigned short* msave =
-          reinterpret_cast<const unsigned short*>(S0 + p.act_off[masked ? nt + 2 - pi : 0]) +
-          k0 * hp;
-      const int r0 = 16 * warp + g;
-      float gs[2] = {0.f, 0.f};
-      if (pi == 1) {
-        gs[0] = gsh[r0 * 4 + 3];
-        gs[1] = gsh[(r0 + 8) * 4 + 3];
-      }
+      copy_words(pi + 1, (pi + 1) & 1);  // the next product's, under this one's wgmma
+      const uint32_t* words = msg + (pi & 1) * mw * 128 + t;  // this product's (the thread's)
       for (int c0 = 0; c0 < hp; c0 += wide_bn(hp, c0)) {
-        with_bn(wide_bn(hp, c0), [&](auto bn) {
-          constexpr int BN = decltype(bn)::value;
-          // the block's masks, loaded before its products
-          uint32_t mw[BN / 8][2];
-#pragma unroll
-          for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-            for (int h = 0; h < 2; ++h)
-              mw[j][h] = masked ? __ldg(reinterpret_cast<const unsigned int*>(
-                                      msave + (size_t)(r0 + 8 * h) * hp + c0 + 8 * j + 2 * q))
-                                : 0x3f803f80u;
+        with_bn32(wide_bn(hp, c0), [&](auto bn) {
+          constexpr int BN = decltype(bn)::value, V = BN / 4;
           float acc[BN / 2];
           wide_product<BN>(acc, in, pi == 0 ? k2 : kch, (pi == 0 ? h2 : hp) / 16, 0, 0, wr);
+          cp_async_wait<1>();  // this product's words: all but the newest group
+          // the block's mask words: its first 64 columns' and the next 64's
+          // (all ones on the last product)
+          const bool masked = pi <= nt;
+          const uint32_t m0 = masked ? words[(c0 >> 6) * 128] : 0xffffffffu;
+          const uint32_t m1 = masked && BN > 64 ? words[((c0 >> 6) + 1) * 128] : 0xffffffffu;
+          float cs[V];
 #pragma unroll
           for (int j = 0; j < BN / 8; ++j) {
             const int col = c0 + 8 * j + 2 * q;
+            const uint32_t mwd = j < 8 ? m0 : m1;
             float wa0 = 0.f, wa1 = 0.f;
             if (pi == 1) {
               wa0 = __ldg(w_alpha + col);
               wa1 = __ldg(w_alpha + col + 1);
             }
-            float cs0 = 0.f, cs1 = 0.f;
+            cs[2 * j] = cs[2 * j + 1] = 0.f;
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
@@ -1423,22 +1523,19 @@ __global__ void __launch_bounds__(kWideThreads, 1)
                 v0 = fmaf(gs[h], wa0, v0);
                 v1 = fmaf(gs[h], wa1, v1);
               }
-              if (!(__uint_as_float(mw[j][h] << 16) > 0.f)) v0 = 0.f;
-              if (!(__uint_as_float(mw[j][h] & 0xffff0000u) > 0.f)) v1 = 0.f;
+              const int bit = wide_mask_bit(j & 7, h, 0);  // e = 1: bit + 16
+              if (!((mwd >> bit) & 1u)) v0 = 0.f;
+              if (!((mwd >> (bit + 16)) & 1u)) v1 = 0.f;
               sts32(out + tile_off(r0 + 8 * h, col), pack_bf16(v0, v1));
-              cs0 += v0;
-              cs1 += v1;
+              cs[2 * j] += v0;
+              cs[2 * j + 1] += v1;
             }
-            // the column sums over the warp's 16 rows, by the lanes of g = 0
+          }
+          colsum_scatter<V>(cs, lane);
 #pragma unroll
-            for (int x = 4; x < 32; x <<= 1) {
-              cs0 += __shfl_xor_sync(0xffffffffu, cs0, x);
-              cs1 += __shfl_xor_sync(0xffffffffu, cs1, x);
-            }
-            if (g == 0) {
-              colsum[warp * hp + col] = cs0;
-              colsum[warp * hp + col + 1] = cs1;
-            }
+          for (int i = 0; i < V / 8; ++i) {
+            const int kk = g * (V / 8) + i;
+            colsum[warp * hp + c0 + 8 * (kk >> 1) + 2 * q + (kk & 1)] = cs[i];
           }
         });
       }
@@ -1452,9 +1549,9 @@ __global__ void __launch_bounds__(kWideThreads, 1)
       }
       float* bias = mine + aux_bias(nt + 1 - pi, hp);
       for (int c = t; c < hp; c += 128) {
-        bias[c] += (colsum[c] + colsum[hp + c]) + (colsum[2 * hp + c] + colsum[3 * hp + c]);
+        atomicAdd(bias + c,
+                  (colsum[c] + colsum[hp + c]) + (colsum[2 * hp + c] + colsum[3 * hp + c]));
       }
-      cur ^= 1;
     }
   }
   // worker C b has more tiles: release the pieces of its other passes
@@ -1700,12 +1797,14 @@ size_t dw_smem(const DwArgs& a) {
 
 extern "C" {
 
-// sizeof the argument blocks (0: TrainArgs, 1: DwArgs, 2: ChainMaps), and
-// (3) the floats of one chain CTA's slot for `hidden`, `num_trunk`, `dd`.
+// sizeof the argument blocks (0: TrainArgs, 1: DwArgs, 2: ChainMaps), (3)
+// the floats of one chain CTA's slot for `hidden`, `num_trunk`, `dd`, and
+// (4) the wide route's mask words a thread of a 64-row tile.
 int dexnerf_train_bf16_size(int which, int hidden, int num_trunk, int dd) {
   if (which == 0) return (int)sizeof(TrainArgs);
   if (which == 1) return (int)sizeof(DwArgs);
   if (which == 2) return (int)sizeof(ChainMaps);
+  if (which == 4) return wide_mask_words(hidden, num_trunk);
   return aux_size(hidden, num_trunk, dd);
 }
 
@@ -1736,7 +1835,7 @@ int dexnerf_train_bf16_pass(const void* args, const void* maps, int n_real, int 
       a.fd > kMaxFreq || a.dd > kMaxDD || a.dx < 1 || a.dx > kMaxDx || a.dxp % kEncPad != 0 ||
       a.dxp < a.dx || a.hidden % 32 != 0 || a.hidden < 32 || a.hidden > kWideMaxHidden ||
       a.chain_ctas < 1 || (a.hidden <= 128 && a.chain_ctas % 2 != 0) || a.fwd_ctas < 1 ||
-      maps == nullptr ||
+      maps == nullptr || (a.hidden > 128 && a.masks == nullptr) ||
       (long long)n_real != (long long)a.n_rays * a.n_samples ||
       tiles != (n_real + kRowTile - 1) / kRowTile) {
     return (int)cudaErrorInvalidValue;
@@ -1766,7 +1865,8 @@ int dexnerf_field_bf16_pass(const void* args, const void* maps, int n_real, int 
       a.dx < 1 || a.dx > kMaxDx || a.dxp % kEncPad != 0 || a.dxp < a.dx || a.hidden % 32 != 0 ||
       a.hidden < 32 || a.hidden > kWideMaxHidden || a.fwd_ctas < 1 || a.pts == nullptr ||
       (backward ? a.chain_ctas < 1 || (a.hidden <= 128 && a.chain_ctas % 2 != 0) ||
-                      a.scratch == nullptr || a.graw == nullptr || maps == nullptr
+                      a.scratch == nullptr || a.graw == nullptr || maps == nullptr ||
+                      (a.hidden > 128 && a.masks == nullptr)
                 : a.raw == nullptr) ||
       (long long)n_real != (long long)a.n_rays * a.n_samples ||
       tiles != (n_real + kRowTile - 1) / kRowTile) {
@@ -1787,7 +1887,8 @@ int dexnerf_field_bf16_pass(const void* args, const void* maps, int n_real, int 
 // A tensor map of one [rows][width] bf16 block at ptr for the dW and chain
 // kernels, into out (128 bytes): [box_rows][64] boxes, 128 B swizzle, zeros
 // past the block's width; [64][8] boxes, unswizzled, for an 8-wide block.
-// Returns a cudaError_t.
+// Returns 0, cudaErrorInvalidValue for arguments outside these, or the
+// driver's CUresult.
 int dexnerf_train_bf16_tensor_map(void* out, const void* ptr, long long width, long long rows,
                                   int box_rows) {
   PFN_encodeTiled encode;
@@ -1805,7 +1906,7 @@ int dexnerf_train_bf16_tensor_map(void* out, const void* ptr, long long width, l
                             CU_TENSOR_MAP_INTERLEAVE_NONE,
                             width == 8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+  return (int)r;  // the driver's CUresult (0 on success)
 }
 
 // The weight-gradient products of chunk `chunk` (n_st stages of 64 scratch

@@ -91,6 +91,14 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int byt
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
+// `bytes` (a multiple of 16) contiguous bytes from shared src (16-byte
+// aligned) to dst in device memory, in the open bulk group
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(dst)),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }

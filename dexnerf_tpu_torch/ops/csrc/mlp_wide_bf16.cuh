@@ -20,10 +20,12 @@
 // What bounds it on the H100 at 8x256: kernel 1 by its multiply-adds (~0.6 M
 // a sample, a 400x400 frame of 64 + 128 samples ~36 TFLOP: 36.7 ms at the
 // 989 TFLOP/s bf16 peak), the training forward and chain by the scratch they
-// store and read (~10 KB a sample), as the narrow route. The design keeps
-// registers and shared memory within one CTA per SM and is right first: its
-// kernels take 3-5x their bounds (PERF.md sections 5-6), and what that time
-// is made of has not been taken apart yet.
+// store and read (~5 KB a sample each), as the narrow route. The design keeps
+// registers and shared memory within one CTA per SM. The training forward
+// also writes the ReLU mask words that the chain reads in place of the saved
+// activations (wide_mask_words): the chain's 32 scalar mask loads a thread a
+// column block were most of its time (PERF.md section 6,
+// perf_tools/train_chain_wide_variants.py).
 //
 // The bf16 contract is the narrow tile's: operands rounded to bf16, f32
 // accumulation (one accumulator per column block, over all of the layer's K),
@@ -59,6 +61,30 @@ __host__ __device__ inline size_t wide_act_bytes(int hp) {
 }
 
 __host__ __device__ inline size_t align1024(size_t x) { return (x + 1023) & ~(size_t)1023; }
+
+// The ReLU mask words the training forward writes for the chain (kernels 3
+// and 4): per 64-row tile, wide_mask_words words for each thread of the
+// consumer warpgroup, [tile][word][thread]. Word c / 64 of layer l (a_1 ..
+// a_nt, feat: ceil(hp / 64) words each; y's ceil(hp / 128) last) holds the
+// thread's accumulator entry of row 16 w + g + 8 h and column c + 8 j + 2 q
+// + e (w the warp, g = lane / 4, q = lane % 4, j < 8) at bit wide_mask_bit(j,
+// h, e) (ops/fused_train_loss.py::wide_mask_layout): 1 where the saved bf16
+// activation is > 0.
+__host__ __device__ inline int wide_mask_words(int hp, int nt) {
+  return (nt + 1) * ((hp + 63) / 64) + (hp / 2 + 63) / 64;
+}
+__host__ __device__ constexpr int wide_mask_bit(int j, int h, int e) {
+  return (h ? 7 : 15) + 16 * e - j;
+}
+
+// The mask bits of a packed pair of ReLU outputs in bf16 (low half e = 0) of
+// rows h, at wide_mask_bit(j, h, e): a half is > 0 where it is not +-0 (no
+// negative or NaN half leaves a ReLU), so (half & 0x7fff) + 0x7fff sets its
+// top bit, and nothing carries out of the low half.
+__device__ __forceinline__ uint32_t mask_flags(uint32_t pair, int j, int h) {
+  const int s = j + (h ? 8 : 0);
+  return (((pair & 0x7fff7fffu) + 0x7fff7fffu) >> s) & (0x80008000u >> s);
+}
 
 // A wide kernel's shared-memory plan: from the 1024-aligned base, `stages`
 // ring stages, then `cons` consumer blocks of cons_bytes (a multiple of
@@ -200,14 +226,16 @@ __device__ __forceinline__ void wide_product(float (&acc)[BN / 2], uint32_t ah, 
 
 // A hidden layer's epilogue on the column block c0 of an [64 x BN]
 // accumulator: act(acc + bias) in f32, rounded to bf16 into the tile at out;
-// with wa, the sigma head's partial sums v . wa of rows g (s0) and g + 8 (s1).
+// with wa, the sigma head's partial sums v . wa of rows g (s0) and g + 8 (s1);
+// with words (a shared [ceil(hp / 64)][128] buffer), the layer's mask words.
 template <int BN>
 __device__ __forceinline__ void wide_hidden_epilogue(const float (&acc)[BN / 2], int c0,
                                                      const float* bias, bool relu,
                                                      const float* wa, float& s0, float& s1,
-                                                     uint32_t out) {
+                                                     uint32_t out, uint32_t words) {
   const int t = threadIdx.x & 127, lane = t & 31, g = lane >> 2, q = lane & 3;
   const int row = 16 * (t >> 5) + g;
+  uint32_t word = 0;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int col = c0 + 8 * j + 2 * q;
@@ -220,8 +248,16 @@ __device__ __forceinline__ void wide_hidden_epilogue(const float (&acc)[BN / 2],
       v2 = fmaxf(v2, 0.f);
       v3 = fmaxf(v3, 0.f);
     }
-    sts32(out + tile_off(row, col), pack_bf16(v0, v1));
-    sts32(out + tile_off(row + 8, col), pack_bf16(v2, v3));
+    const uint32_t p01 = pack_bf16(v0, v1), p23 = pack_bf16(v2, v3);
+    sts32(out + tile_off(row, col), p01);
+    sts32(out + tile_off(row + 8, col), p23);
+    if (words != 0) {
+      word |= mask_flags(p01, j & 7, 0) | mask_flags(p23, j & 7, 1);
+      if ((j & 7) == 7 || j == BN / 8 - 1) {
+        sts32(words + (((c0 >> 6) + (j >> 3)) * 128 + t) * 4, word);
+        word = 0;
+      }
+    }
     if (wa != nullptr) {
       const float2 w = __ldg(reinterpret_cast<const float2*>(wa + col));
       s0 = fmaf(v1, w.y, fmaf(v0, w.x, s0));
@@ -233,16 +269,18 @@ __device__ __forceinline__ void wide_hidden_epilogue(const float (&acc)[BN / 2],
 // The viewdir layer's epilogue on the column block c0 (rows r0 + 16 w + g
 // and + 8; r0 counts from dirb's first ray): y = ReLU(acc + the ray's
 // viewdir bias, h2 wide), into the rgb head's sums c and, with ytile, rounded
-// to bf16 into that tile.
+// to bf16 into that tile; with words, y's mask words (as
+// wide_hidden_epilogue's).
 template <int BN>
 __device__ __forceinline__ void wide_dir_epilogue(const float (&ad)[BN / 2], int c0, int h2,
                                                   int r0, int S, int nrays, const float* dirb,
                                                   const float* w_rgb, float (&c)[2][3],
-                                                  uint32_t ytile) {
+                                                  uint32_t ytile, uint32_t words) {
   const int t = threadIdx.x & 127, lane = t & 31, g = lane >> 2, q = lane & 3;
   const int row = 16 * (t >> 5) + g, r = r0 + row;
   const float* db0 = dirb + (size_t)min(r / S, nrays - 1) * h2;
   const float* db1 = dirb + (size_t)min((r + 8) / S, nrays - 1) * h2;
+  uint32_t word = 0;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     const int col = c0 + 8 * j + 2 * q;
@@ -261,8 +299,16 @@ __device__ __forceinline__ void wide_dir_epilogue(const float (&ad)[BN / 2], int
       c[1][2] = fmaf(y1[e], w2, c[1][2]);
     }
     if (ytile != 0) {
-      sts32(ytile + tile_off(row, col), pack_bf16(y0[0], y0[1]));
-      sts32(ytile + tile_off(row + 8, col), pack_bf16(y1[0], y1[1]));
+      const uint32_t p0 = pack_bf16(y0[0], y0[1]), p1 = pack_bf16(y1[0], y1[1]);
+      sts32(ytile + tile_off(row, col), p0);
+      sts32(ytile + tile_off(row + 8, col), p1);
+      if (words != 0) {
+        word |= mask_flags(p0, j & 7, 0) | mask_flags(p1, j & 7, 1);
+        if ((j & 7) == 7 || j == BN / 8 - 1) {
+          sts32(words + (((c0 >> 6) + (j >> 3)) * 128 + t) * 4, word);
+          word = 0;
+        }
+      }
     }
   }
 }
@@ -275,6 +321,7 @@ struct WideTile {
   const float* aux;
   const int* aux_off;
   int hp, kx, nt, skip_mask, bar;
+  uint32_t words;  // the mask words' two shared [ceil(hp / 64)][128] buffers, or 0
 };
 
 // The 64 rows of the encoding tile (written and fenced) through the whole
@@ -282,25 +329,37 @@ struct WideTile {
 // rows 0..63, written to shared memory and visible to the warpgroup on
 // return. With maps, every activation is stored by TMA to its scratch block
 // (a_0 .. a_nt, feat, y: blocks 1 .. nt + 3 of maps) at rows row0 ..
-// row0 + 63 once its tile is complete. r0, S, nrays and dirb place the rows
-// for the per-ray viewdir bias (see wide_dir_epilogue).
+// row0 + 63 once its tile is complete, and with masks (the tile's mask
+// words in device memory; T.words their shared buffers) the ReLU mask words
+// of a_1 .. a_nt, feat and y (wide_mask_words), each layer's written to a
+// buffer and stored by a bulk copy with its tile. r0, S, nrays and dirb place
+// the rows for the per-ray viewdir bias (see wide_dir_epilogue).
 __device__ __forceinline__ void wide_tile(const WideTile& T, WideRing& wr, int r0, int S, int nrays,
                                           const float* dirb, float* sig_out, float* rgb_out,
-                                          const CUtensorMap* maps, int row0) {
+                                          const CUtensorMap* maps, int row0,
+                                          uint32_t* masks = nullptr) {
   const int t = threadIdx.x & 127, lane = t & 31, g = lane >> 2, q = lane & 3;
   const int row = 16 * (t >> 5) + g;
   const int hp = T.hp, h2 = hp / 2, nt = T.nt, kch = (hp + kKc - 1) / kKc;
+  const int mw = (hp + 63) / 64;  // mask words of a layer
+  // mask words i (layer i + 1; y's last) go to buffer (i + 1) % 2: the
+  // store of the words two layers back has read it when the tile has
+  auto wbuf = [&](int i) {
+    return masks != nullptr ? T.words + (uint32_t)((i + 1) & 1) * mw * 512u : 0u;
+  };
   const float* aux = T.aux;
   const float* w_alpha = aux + T.aux_off[nt + 3];
   const float b_alpha = __ldg(aux + T.aux_off[nt + 4]);
   // the layer's output tile is complete: fence it for wgmma and TMA, and
   // store it as `boxes` [64][64] boxes to scratch block blk
-  auto finish = [&](uint32_t out, int blk, int boxes) {
+  // (and mask words i, nw of them, in the same bulk group)
+  auto finish = [&](uint32_t out, int blk, int boxes, int i, int nw) {
     fence_async_smem();
     wg_sync(T.bar);
     if (maps != nullptr) {
       if (t == 0) {
         for (int x = 0; x < boxes; ++x) tma_store_2d(maps + blk, 64 * x, row0, out + x * kEncChunk);
+        if (masks != nullptr && i >= 0) bulk_store(masks + i * mw * 128, wbuf(i), nw * 512);
         bulk_commit();
         bulk_wait_read<1>();  // the store before it (the tile written next) has read it
       }
@@ -324,6 +383,7 @@ __device__ __forceinline__ void wide_tile(const WideTile& T, WideRing& wr, int r
     const bool has_head = l == (nt > 0 ? nt : 0);
     const uint32_t in = T.act[cur], out = T.act[l == 0 ? 0 : cur ^ 1];
     const float* bias = aux + T.aux_off[l];
+    const uint32_t words = l > 0 ? wbuf(l - 1) : 0u;
     float s0 = 0.f, s1 = 0.f;
     for (int c0 = 0; c0 < hp; c0 += wide_bn(hp, c0)) {
       with_bn(wide_bn(hp, c0), [&](auto bn) {
@@ -334,11 +394,12 @@ __device__ __forceinline__ void wide_tile(const WideTile& T, WideRing& wr, int r
         } else {
           wide_product<BN>(acc, in, kch, hp / 16, T.enc, skip ? T.kx : 0, wr);
         }
-        wide_hidden_epilogue<BN>(acc, c0, bias, l > 0, has_head ? w_alpha : nullptr, s0, s1, out);
+        wide_hidden_epilogue<BN>(acc, c0, bias, l > 0, has_head ? w_alpha : nullptr, s0, s1, out,
+                                 words);
       });
     }
     if (has_head) head(s0, s1);
-    finish(out, 1 + l, kch);
+    finish(out, 1 + l, kch, l - 1, mw);
     cur = l == 0 ? 0 : cur ^ 1;
   }
   // ---- layers_dir.0 on feat, + the per-ray bias; y to the other tile when
@@ -352,7 +413,7 @@ __device__ __forceinline__ void wide_tile(const WideTile& T, WideRing& wr, int r
       constexpr int BN = decltype(bn)::value;
       float ad[BN / 2];
       wide_product<BN>(ad, T.act[cur], kch, hp / 16, 0, 0, wr);
-      wide_dir_epilogue<BN>(ad, c0, h2, r0, S, nrays, dirb, w_rgb, crgb, ytile);
+      wide_dir_epilogue<BN>(ad, c0, h2, r0, S, nrays, dirb, w_rgb, crgb, ytile, wbuf(nt + 1));
     });
   }
 #pragma unroll
@@ -367,7 +428,7 @@ __device__ __forceinline__ void wide_tile(const WideTile& T, WideRing& wr, int r
       for (int k = 0; k < 3; ++k) rgb_out[(row + 8 * h) * 3 + k] = crgb[h][k] + __ldg(b_rgb + k);
     }
   }
-  finish(ytile, nt + 3, (h2 + kKc - 1) / kKc);
+  finish(ytile, nt + 3, (h2 + kKc - 1) / kKc, nt + 1, (h2 + 63) / 64);
 }
 
 }  // namespace

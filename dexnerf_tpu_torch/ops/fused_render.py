@@ -194,15 +194,18 @@ def wide_plan(cons_bytes: int) -> Optional[Tuple[int, int, int]]:
 
 def wide_cons_bytes(hp: int, kx: int, dd: int, n_samples: Optional[int] = None) -> dict:
     """Each wide kernel's bytes a consumer at padded width ``hp`` with ``kx``
-    encoding K-chunks (``*_cons_bytes`` there): the training forward, the
-    chain and, for ``n_samples``, the render kernel on its plan's unit."""
+    encoding K-chunks (``*_cons_bytes`` there): the training forward (with
+    two layers' mask words), the chain (its tiles, column sums and two
+    products' mask words) and, for ``n_samples``, the render kernel on its
+    plan's unit."""
     act = 2 * -(-hp // BF16_KCHUNK) * BF16_TILE * 128
 
     def a1024(x):
         return _round_up(x, 1024)
 
-    out = {"forward": a1024(act + kx * BF16_TILE * 128 + BF16_TILE * 16),
-           "chain": a1024(act + BF16_TILE * 16 + 16 * hp)}
+    words = 2 * -(-hp // 64) * 512  # two layers' (or products') mask words
+    out = {"forward": a1024(act + kx * BF16_TILE * 128 + BF16_TILE * 16 + words),
+           "chain": a1024(act + 16 * hp + words)}
     if n_samples is not None:
         rp = render_plan(1, n_samples, 1)
         out["render"] = a1024(act + kx * BF16_TILE * 128 + rp.rows_per_unit * 24

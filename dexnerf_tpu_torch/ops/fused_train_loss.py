@@ -65,9 +65,11 @@ fixed-order reduction: bitwise-repeatable runs. Widths that are not a multiple o
 zero-padded to one. Padded widths above 128, up to
 :data:`~dexnerf_tpu_torch.ops.fused_render.MAX_HIDDEN_BF16`, take the wide
 route: the forward and the chain on ``ops/csrc/mlp_wide_bf16.cuh``'s tile
-(the layers in shared memory, column blocks of at most 128), the dW plan's
-units split to the kernel's limits (:func:`dw_split`) and launched in parts
-(:func:`_cached_dw_parts`) with a fresh accumulator a stage. The f32 route
+(the layers in shared memory, column blocks of at most 128; the chain's
+ReLU masks the mask words the forward writes, :func:`wide_mask_words`), the
+dW plan's units split to the kernel's limits (:func:`dw_split`) and
+launched in parts (:func:`_cached_dw_parts`) with a fresh accumulator a
+stage. The f32 route
 takes padded widths above 128, up to
 :data:`~dexnerf_tpu_torch.ops.fused_render.MAX_HIDDEN`, on its own wide
 route: the forward and the chain on ``ops/csrc/mlp_wide_tf32.cuh``'s tile
@@ -634,7 +636,7 @@ class _Bf16TrainArgs(ctypes.Structure):
         for name in (
             "origins", "dirs", "viewdirs", "pts", "z", "dists", "noise", "target",
             "depth_gt", "depth_coef", "wq", "aux", "wbq", "weights_out", "rgb_out",
-            "loss_ray", "scratch", "raw", "graw", "dir_enc", "dirb", "aux_part",
+            "loss_ray", "scratch", "raw", "graw", "dir_enc", "dirb", "aux_part", "masks",
         )
     ] + [
         ("act_off", ctypes.c_int64 * MAX_BLOCKS),
@@ -944,6 +946,31 @@ def _scratch_layout(model: FlexibleNeRFModel):
     return Hp, dxp, act, dlt
 
 
+def wide_mask_words(hp: int, nt: int) -> int:
+    """The bf16 wide route's ReLU mask words a thread of a 64-row tile
+    (``wide_mask_words`` in ops/csrc/mlp_wide_bf16.cuh), which its forward
+    writes and its chain reads: ceil(hp / 64) for each of a_1 .. a_nt and
+    feat, then ceil(hp / 128) for y, each bit the saved bf16 activation's
+    ``> 0`` (:func:`wide_mask_layout`)."""
+    return (nt + 1) * -(-hp // 64) + -(-(hp // 2) // 64)
+
+
+def wide_mask_layout(hp: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(row, column) [128, 32 ceil(hp / 64)] of each bit of a thread's mask
+    words for an [64, hp] activation tile on the bf16 wide route: thread t
+    (warp t // 32, lane l, g = l // 4, q = l % 4) holds the entry of row 16
+    (t // 32) + g + 8 h and column 64 w + 8 j + 2 q + e in bit (h ? 7 : 15)
+    + 16 e - j of its word w (``wide_mask_bit`` there); entry i of the
+    layout is bit i % 32 of word i // 32. Columns at or past hp are none."""
+    t = torch.arange(128)[:, None]
+    i = torch.arange(32 * -(-hp // 64))[None, :]
+    b, e = i % 32, (i % 32) // 16
+    h = ((b % 16) < 8).to(torch.int64)
+    j = torch.where(h == 1, 7 - b % 16, 15 - b % 16)
+    g, q = (t % 32) // 4, t % 4
+    return 16 * (t // 32) + g + 8 * h, 64 * (i // 32) + 8 * j + 2 * q + e
+
+
 # (widths, depth, skips, encodings, device) -> _aux_map's result: built and
 # copied to the card once per shape (a copy per pass stalls the host on the
 # card's queue)
@@ -1128,6 +1155,13 @@ class Bf16Gradients:
         dlt_off = [dlt0 + rows * w for w in itertools.accumulate([0] + dlt_w[:-1])]
         self.scratch = torch.empty(rows * (sum(act_w) + sum(dlt_w)), dtype=torch.bfloat16,
                                    device=dev)
+        self.masks = None  # the wide route's mask words, written by its forward
+        if is_wide(model):
+            n_words = lib.dexnerf_train_bf16_size(4, Hp, nt, dd)
+            if n_words != wide_mask_words(Hp, nt):
+                raise RuntimeError(f"{wide_mask_words(Hp, nt)} mask words a thread here but "
+                                   f"{n_words} in the library")
+            self.masks = torch.empty(rows // 64 * n_words * 128, dtype=torch.int32, device=dev)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         # the chain's slots: a slot per consumer warpgroup (two a CTA on the
         # narrow route), one CTA per SM
@@ -1159,6 +1193,7 @@ class Bf16Gradients:
             self.wbq.numel() // CHAIN_KCHUNK, min(Hp, WIDE_BOX_ROWS)),
             "bf16 backward-pack tensor map")
         args.scratch, args.wbq = self.scratch.data_ptr(), self.wbq.data_ptr()
+        args.masks = None if self.masks is None else self.masks.data_ptr()
         args.act_off[:len(act_off)] = act_off
         args.dlt_off[:len(dlt_off)] = dlt_off
         args.chain_ctas = self.chain_ctas

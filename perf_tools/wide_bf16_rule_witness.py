@@ -1,0 +1,382 @@
+#!/usr/bin/env python3
+"""Where the bf16 card rule misses on the wide route, is it the kernel or
+the rule? For kernel 4 (``fused_pass_loss``) at padded widths 320 and 576,
+its chunked launch at 256, and kernel 3 (``fused_field_train``) at 576, on
+the card tests' inputs (``tests/test_torch_train_loss_bf16.py`` and
+``tests/test_torch_fused_mlp_bf16.py``: ``_card_case``, seeds 9 and 10).
+
+    python3 perf_tools/wide_bf16_rule_witness.py [--seeds 9,10] [--only k4,k4_chunked,k3,pad]
+
+From the repository root, on a machine with a CUDA card. The card rule
+holds each field and gradient leaf to the dtype's own effect, own = |bf16
+plain - f32 plain|: the kernel's distance to the bf16 plain version at most
+own (max) and 0.25 own (99.9th percentile), its distance to the f32 plain
+version at most 1.5 own, each + 1e-5 of the leaf's largest entry. Beside
+the kernel, two other versions of the same contract, on the same inputs,
+each held to the plain version by the same rule (a miss there is the
+rule's, not a kernel's):
+
+- ``perm``: the bf16 plain version of the same model with every hidden
+  layer's units permuted (the same function; only the order of each f32
+  sum over hidden units differs), its gradients permuted back;
+- ``tc``: the bf16 plain version with each product of two bf16 operands
+  on the tensor cores (``torch.mm`` of bf16 tensors into float32: the
+  kernels' ``wgmma`` arithmetic, whose f32 accumulation is not the CUDA
+  cores' round-to-nearest).
+
+Beside each, its distance to the float64 model (``perf_tools/field_f32_rule.py``,
+on float64's own ReLU decisions) over the plain version's: max and 99.9th
+percentile. ``pad`` runs a 320-wide model and the same model zero-padded to
+576 (``perf_tools/kernel1_small_units.py::embedded``: every added weight
+and bias 0, the same function) through both kernels: the forward's outputs
+equal bit for bit, and the gradients on the 320 units and the added ones'
+(exactly 0 if the 576 route computes what the 320 route does), and two
+launches at 576 bit for bit.
+
+Prints, for every case, each leaf that misses the rule for the kernel or a
+witness, with [max, p99.9 vs the bf16 plain version, max vs the f32 plain
+version, own max, own p99.9] and the float64 ratios; then the card line;
+then one JSON object (the last line) with the misses and, for each case,
+the largest rule ratios and float64 ratios over all leaves. To compare
+with another commit, copy this file into a ``git archive`` of it and run
+it there in the same call.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+
+P999, REL, ATOL = 0.25, 1.5, 1e-5
+K4_CASES = [(320, 64, 300), (320, 128, 300), (576, 64, 300), (576, 128, 300), (576, 7, 301)]
+K4_KW = [("rgb", False), ("rgb", True), ("luminance", False), ("luminance", True)]
+K3_CASES = [(576, 64, 300), (576, 128, 300), (576, 256, 300)]
+
+
+def p999(x):
+    import torch
+
+    flat = x.flatten()
+    return float(torch.topk(flat, max(1, flat.numel() // 1000)).values[-1])
+
+
+def permuted(model, gen):
+    """A copy of ``model`` whose hidden units are permuted in every layer
+    (the same function), and ``back(grads)``: its gradients in
+    ``model.parameters()`` order, permuted back to ``model``'s units."""
+    import torch
+
+    m = copy.deepcopy(model)
+    H, dev = m.hidden_size, next(m.parameters()).device
+
+    def perm(k):
+        return torch.randperm(k, generator=gen).to(dev)
+
+    def cols(p_in, width):  # a hidden input's permutation, then the rest in order
+        return torch.cat([p_in, torch.arange(p_in.numel(), width, device=dev)])
+
+    plan = {}  # linear name -> (row index, column index)
+    p = perm(H)
+    plan["layer1"] = (p, torch.arange(m.layer1.in_features, device=dev))
+    for i, layer in enumerate(m.layers_xyz):
+        q = perm(H)
+        plan[f"layers_xyz.{i}"] = (q, cols(p, layer.in_features))
+        p = q
+    pf, pd = perm(H), perm(H // 2)
+    plan["fc_feat"] = (pf, p)
+    plan["fc_alpha"] = (torch.arange(1, device=dev), p)
+    plan["layers_dir.0"] = (pd, cols(pf, m.layers_dir[0].in_features))
+    plan["fc_rgb"] = (torch.arange(3, device=dev), pd)
+    mods = dict(m.named_modules())
+    with torch.no_grad():
+        for name, (r, c) in plan.items():
+            lin = mods[name]
+            lin.weight.copy_(lin.weight[r][:, c])
+            lin.bias.copy_(lin.bias[r])
+    names = [n for n, _ in m.named_parameters()]
+
+    def back(grads):
+        out = []
+        for name, g in zip(names, grads):
+            r, c = plan[name.rsplit(".", 1)[0]]
+            b = torch.zeros_like(g)
+            if name.endswith("weight"):
+                b[r[:, None], c[None, :]] = g
+            else:
+                b[r] = g
+            out.append(b)
+        return out
+
+    return m, back
+
+
+def on_units(gq, p, name, H, width):
+    """The entries of ``gq`` (a leaf of the model zero-padded from ``H`` to
+    ``width`` hidden units, as ``embedded`` lays it out) that stand for
+    ``p``'s, in ``p``'s shape, and the mask of those entries."""
+    import torch
+
+    mask = torch.zeros_like(gq, dtype=torch.bool)
+    if p.dim() == 1:
+        mask[:p.shape[0]] = True
+        return gq[:p.shape[0]], mask
+    rows, n_in = p.shape
+    if n_in in (H, H // 2) or name.startswith("layer1"):
+        mask[:rows, :n_in] = True
+        return gq[:rows, :n_in], mask
+    mask[:rows, :H] = True
+    mask[:rows, width:width + n_in - H] = True
+    return torch.cat([gq[:rows, :H], gq[:rows, width:width + n_in - H]], 1), mask
+
+
+def rule(a, b, f):
+    """[max, p99.9 vs the bf16 plain version, max vs the f32 plain version,
+    own max, own p99.9] of ``a`` and whether the card rule holds."""
+    atol = ATOL * float(b.abs().max())
+    own, e_b, e_f = (b - f).abs(), (a - b).abs(), (a - f).abs()
+    row = [float(e_b.max()), p999(e_b), float(e_f.max()), float(own.max()), p999(own)]
+    ok = (row[0] <= row[3] + atol and row[1] <= P999 * row[4] + atol
+          and row[2] <= REL * row[3] + atol)
+    return row, ok
+
+
+def ratios(row):
+    """The rule's three ratios (limits 1, 0.25, 1.5)."""
+    return [row[0] / row[3] if row[3] else 0.0, row[1] / row[4] if row[4] else 0.0,
+            row[2] / row[3] if row[3] else 0.0]
+
+
+def f64_ratios(a, b, x):
+    """|a - x| over |b - x| (x the float64 gradient): max and p99.9."""
+    ea, eb = (a.double() - x).abs(), (b.double() - x).abs()
+    return [float(ea.max()) / max(float(eb.max()), 1e-300), p999(ea) / max(p999(eb), 1e-300)]
+
+
+def judge(label, names, versions, bp, fp, x64, report):
+    """Every leaf of one case: each version's (the kernel's and the
+    witnesses', ``versions`` {name: leaves}) rule row and float64 ratios;
+    prints and records the misses."""
+    worst = {w: [0.0, 0.0, 0.0] for w in versions}
+    worst.update({f"{w}_f64": [0.0, 0.0] for w in versions})
+    misses = {w: {} for w in versions}
+    for i, (name, b, f, x) in enumerate(zip(names, bp, fp, x64)):
+        for who, leaves in versions.items():
+            row, ok = rule(leaves[i], b, f)
+            f64 = f64_ratios(leaves[i], b, x)
+            worst[who] = [max(u, v) for u, v in zip(worst[who], ratios(row))]
+            worst[f"{who}_f64"] = [max(u, v) for u, v in zip(worst[f"{who}_f64"], f64)]
+            if not ok:
+                misses[who][name] = {"row": [float(f"{v:.4g}") for v in row],
+                                     "ratios": [float(f"{v:.3g}") for v in ratios(row)],
+                                     "f64": [float(f"{v:.3g}") for v in f64],
+                                     "entries": leaves[i].numel()}
+    print(f"{label}: misses " + ", ".join(f"{w} {len(m)}" for w, m in misses.items())
+          + "; worst ratios (max, p99.9, vs f32; limits 1, 0.25, 1.5) "
+          + ", ".join(f"{w} {[round(v, 3) for v in worst[w]]}" for w in versions)
+          + "; float64 distance over the plain version's (max, p99.9) "
+          + ", ".join(f"{w} {[round(v, 3) for v in worst[w + '_f64']]}" for w in versions))
+    for who, m in misses.items():
+        for name, d in m.items():
+            print(f"  {who} misses {name} ({d['entries']} entries): {json.dumps(d)}")
+    report[label] = {"worst": {k: [float(f"{v:.4g}") for v in r] for k, r in worst.items()},
+                     "misses": misses}
+
+
+def tensor_core_linear():
+    """``fused_train_loss._RoundedLinear`` with every product of two bf16
+    operands as ``torch.mm`` of bf16 tensors into float32 (the tensor
+    cores), the rest as it is."""
+    import torch
+
+    from dexnerf_tpu_torch.ops.fused_train_loss import _round
+
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def mm(a, b, both_bf16):  # a [..., K] times b [K, N]
+        if not both_bf16:
+            return a @ b
+        out = torch.mm(a.reshape(-1, a.shape[-1]).to(bf), b.to(bf), out_dtype=f32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+
+    class TensorCoreLinear(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w, x_dtype, w_dtype, save_dtype, dw_dtype):
+            wr = _round(w, w_dtype)
+            ctx.save_for_backward(_round(x, save_dtype), wr)
+            ctx.dtypes = (w_dtype, dw_dtype)
+            return mm(_round(x, x_dtype), wr.t(), x_dtype == w_dtype == bf)
+
+        @staticmethod
+        def backward(ctx, g):
+            saved, wr = ctx.saved_tensors
+            w_dtype, dw_dtype = ctx.dtypes
+            gx = mm(_round(g, w_dtype), wr, w_dtype == bf) if ctx.needs_input_grad[0] else None
+            g2 = _round(g, dw_dtype).reshape(-1, g.shape[-1])
+            gw = mm(g2.t(), _round(saved, dw_dtype).reshape(-1, saved.shape[-1]),
+                    dw_dtype == bf)
+            return gx, gw, None, None, None, None
+
+    return TensorCoreLinear
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seeds", default="9,10")
+    ap.add_argument("--only", default="k4,k4_chunked,k3,pad")
+    opts = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("wide_bf16_rule_witness: no CUDA card visible to PyTorch")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import test_torch_fused_mlp_bf16 as t3
+    import test_torch_train_loss_bf16 as t4
+
+    from dexnerf_tpu_torch.core.encoding import positional_encoding
+    from dexnerf_tpu_torch.ops import fused_mlp_train
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+    from perf_tools.field_f32_rule import forward_on_masks, grads_on_masks, pass_grads_on_masks
+    from perf_tools.kernel1_small_units import embedded
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    seeds = [int(s) for s in opts.seeds.split(",")]
+    only = set(opts.only.split(","))
+    report = {}
+    gen = torch.Generator().manual_seed(0)
+    plain_linear, tc_linear = ftl._RoundedLinear, tensor_core_linear()
+
+    def on_tensor_cores(fn):
+        ftl._RoundedLinear = tc_linear
+        try:
+            return fn()
+        finally:
+            ftl._RoundedLinear = plain_linear
+
+    def k4_run(m, args, kw, chunk=None):
+        saved = ftl.SCRATCH_SAMPLES
+        try:
+            if chunk:
+                ftl.SCRATCH_SAMPLES = chunk
+            out = ftl._launch_bf16(m, *args, **kw, log_sampling_xyz=True, log_sampling_dir=True)
+        finally:
+            ftl.SCRATCH_SAMPLES = saved
+        torch.cuda.synchronize()
+        return out
+
+    def k4_args(inp, depth):
+        return (inp["origins"], inp["directions"], inp["z_vals"], inp["viewdirs"], inp["dists"],
+                inp["noise"], inp["target"],
+                *((inp["depth_gt"], inp["depth_coef"]) if depth else (None, None)))
+
+    def k4(m, inp, supervision, depth, label, chunk=None):
+        kw = dict(white_background=supervision == "luminance", supervision=supervision)
+        args = k4_args(inp, depth)
+        got = list(k4_run(m, args, kw, chunk)[3])
+        plain_args = args if depth else args[:7]
+        bfkw = dict(kw, compute_dtype=bf, dw_dtype=bf)
+        bp = ftl.fused_pass_loss_reference(m, *plain_args, **bfkw)[3]
+        fp = ftl.fused_pass_loss_reference(m, *plain_args, **kw)[3]
+        mp, back = permuted(m, gen)
+        pp = back(ftl.fused_pass_loss_reference(mp, *plain_args, **bfkw)[3])
+        tc = on_tensor_cores(lambda: ftl.fused_pass_loss_reference(m, *plain_args, **bfkw)[3])
+        o, d, z, v, dz, noise, target = args[:7]
+        pts = o[:, None] + d[:, None] * z[..., None]
+        x64 = pass_grads_on_masks(m, pts, z, dz, v, noise, target, None, **kw,
+                                  depth_gt=args[7], depth_coef=args[8])
+        names = [n for n, _ in m.named_parameters()]
+        judge(label, names, {"kernel": got, "perm": pp, "tc": list(tc)}, bp, fp, x64, report)
+
+    def k3_plain(m, pts, vd, g):
+        """raw and the leaves of the bf16 plain version (flex_forward_train)."""
+        xyz = positional_encoding(pts, m.num_encoding_fn_xyz, m.include_input_xyz, True)
+        view = positional_encoding(vd, m.num_encoding_fn_dir, m.include_input_dir, True)
+        with torch.no_grad():
+            raw = ftl.flex_forward_train(m, xyz, view, bf, bf)
+        return [raw] + list(fused_mlp_train.field_grads_reference(m, pts, vd, g,
+                                                                  compute_dtype=bf, dw_dtype=bf))
+
+    for seed in seeds:
+        if "k4" in only:
+            for hid, s, n in K4_CASES:
+                m, inp = t4._card_case(dev, dict(t4.FULL, hidden_size=hid), s, n=n, seed=seed)
+                for sup, depth in K4_KW:
+                    k4(m, inp, sup, depth,
+                       f"k4 h{hid} {n}x{s} {sup}-{'depth' if depth else 'photo'} seed {seed}")
+        if "k4_chunked" in only:
+            m, inp = t4._card_case(dev, dict(t4.FULL, hidden_size=256), 100, n=301, seed=seed)
+            k4(m, inp, "rgb", False, f"k4 h256 301x100 chunked seed {seed}", chunk=100 * 40)
+        if "k3" in only:
+            for hid, s, n in K3_CASES:
+                m, pts, vd, g = t3._card_case(dev, dict(t3.FULL, hidden_size=hid), n, s,
+                                              seed=seed)
+                raw = fused_mlp_train.fused_field_train(m, pts, vd, compute_dtype=bf,
+                                                        dw_dtype=bf)
+                raw.backward(g)
+                torch.cuda.synchronize()
+                got = [raw.detach()] + [p.grad for p in m.parameters()]
+                names = ["raw"] + [n for n, _ in m.named_parameters()]
+                bp, fp = t3._plain(m, pts, vd, g)
+                mp, back = permuted(m, gen)
+                pv = k3_plain(mp, pts, vd, g)
+                pv = [pv[0]] + back(pv[1:])
+                tc = on_tensor_cores(lambda: k3_plain(m, pts, vd, g))
+                with torch.no_grad():
+                    raw64 = forward_on_masks(copy.deepcopy(m).double(), pts.double(),
+                                             vd.double())[0]
+                x64 = [raw64] + list(grads_on_masks(m, pts, vd, g, None))
+                judge(f"k3 h{hid} {n}x{s} seed {seed}", names,
+                      {"kernel": got, "perm": pv, "tc": tc}, [bp[k] for k in names],
+                      [fp[k] for k in names], x64, report)
+        if "pad" in only:
+            for s, n in ((64, 300), (7, 301)):
+                m, inp = t4._card_case(dev, dict(t4.FULL, hidden_size=320), s, n=n, seed=seed)
+                mp = embedded(m, 576)
+                kw = dict(white_background=False, supervision="rgb")
+                args = k4_args(inp, True)
+                a, b = k4_run(m, args, kw), k4_run(mp, args, kw)
+                again = k4_run(mp, args, kw)
+                out = {"forward_equal": {k: bool(torch.equal(a[i], b[i]))
+                                         for i, k in enumerate(("loss", "weights", "rgb"))},
+                       "k4_576_repeat_equal": all(bool(torch.equal(u, w)) for u, w in
+                                                  zip([*b[:3], *b[3]], [*again[:3], *again[3]]))}
+                m3, pts, vd, g = t3._card_case(dev, dict(t3.FULL, hidden_size=320), n, s,
+                                               seed=seed)
+                m3p = embedded(m3, 576)
+                r = [fused_mlp_train.fused_field_train(x, pts, vd, compute_dtype=bf, dw_dtype=bf)
+                     for x in (m3, m3p)]
+                out["k3_raw_equal"] = bool(torch.equal(r[0], r[1]))
+                k3g = [[t.detach() for t in torch.autograd.grad(rr, list(x.parameters()), g)]
+                       for rr, x in zip(r, (m3, m3p))]
+                for tag, x, y, ga, gb in (("k4", m, mp, a[3], b[3]), ("k3", m3, m3p, *k3g)):
+                    worst, off = 0.0, 0.0
+                    for (name, p), gp, gq in zip(x.named_parameters(), ga, gb):
+                        on, mask = on_units(gq, p, name, x.hidden_size, y.hidden_size)
+                        worst = max(worst, float((on - gp).abs().max()) / (float(gp.abs().max())
+                                                                            or 1.0))
+                        off = max(off, float(gq[~mask].abs().max()) if bool((~mask).any())
+                                  else 0.0)
+                    out[f"{tag}_grads_on_320_units_rel"] = worst
+                    out[f"{tag}_grads_off_them_max"] = off
+                label = f"pad 320 in 576 {n}x{s} seed {seed}"
+                print(f"{label}: {json.dumps(out)}")
+                report[label] = out
+    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip()
+    print(card)
+    print(json.dumps(report))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

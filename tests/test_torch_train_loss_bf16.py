@@ -442,17 +442,25 @@ def _assert_bf16_on_card(model, args, kw, kernel_out):
      (dict(FULL, num_encoding_fn_xyz=16), 100, 300), (FULL, 256, 300), (FULL, 8, 3),
      (FULL, 7, 301), (dict(FULL, hidden_size=100), 64, 300),
      (dict(FULL, hidden_size=136), 64, 300), (dict(FULL, hidden_size=256), 128, 300),
-     (dict(FULL, hidden_size=256), 7, 301)],
+     (dict(FULL, hidden_size=256), 7, 301), (dict(FULL, hidden_size=320), 64, 300),
+     (dict(FULL, hidden_size=320), 128, 300), (dict(FULL, hidden_size=576), 64, 300),
+     (dict(FULL, hidden_size=576), 128, 300), (dict(FULL, hidden_size=576), 7, 301)],
     ids=["8x128-64", "8x128-128", "h16-64", "h48-128", "8x16-8", "h32-64", "h64-128", "h96-64",
          "pe16-64", "dir10-64", "pe16-100", "8x128-256", "3rays-8", "rows-not-64", "h100-64",
-         "wide-h136-64", "wide-h256-128", "wide-h256-rows-not-64"],
+         "wide-h136-64", "wide-h256-128", "wide-h256-rows-not-64", "wide-h320-64",
+         "wide-h320-128", "wide-h576-64", "wide-h576-128", "wide-h576-rows-not-64"],
 )
 def test_bf16_kernel_matches_plain_on_card(cuda, arch, s, n, supervision, depth):
     """Kernel 4's bf16 route against its bf16 plain version: widths 16-128
     (100 zero-padded to 128), PE 16 (two encoding K-chunks), S = 8-256, a
     launch of fewer 64-row tiles than the forward has workers (3 rays x 8
     samples) and one whose rows are not a multiple of 64 (301 x 7); and the
-    wide route (136 padded to 160, 256), counted by ``launches_wide``."""
+    wide route (136 padded to 160, 256, 320 and MAX_HIDDEN_BF16 576, one
+    consumer), counted by ``launches_wide``. Most 320 and 576 cases miss
+    the p99.9 clause, and some at 576 the max clauses, with the parent's
+    kernels as with these (ROADMAP Queue 3, fault 9, open:
+    ``perf_tools/wide_bf16_rule_witness.py`` holds other versions of the
+    same contract to the same rule)."""
     m, inp = _card_case(cuda, arch, s, n=n)
     kw = dict(white_background=supervision == "luminance", supervision=supervision)
     args = (inp["origins"], inp["directions"], inp["z_vals"], inp["viewdirs"], inp["dists"],
@@ -469,10 +477,13 @@ def test_bf16_kernel_matches_plain_on_card(cuda, arch, s, n, supervision, depth)
 
 
 @pytest.mark.gpu
-def test_bf16_kernel_chunks_and_repeats_on_card(cuda, monkeypatch):
+@pytest.mark.parametrize("arch", [FULL, dict(FULL, hidden_size=256)], ids=["8x128", "wide-h256"])
+def test_bf16_kernel_chunks_and_repeats_on_card(cuda, monkeypatch, arch):
     """Several scratch chunks (the last one short, S not a multiple of the
-    128-sample tile) agree with one chunk; two runs are bitwise equal."""
-    m, inp = _card_case(cuda, FULL, 100, n=301)
+    128-sample tile) agree with one chunk; two runs are bitwise equal; on
+    the narrow route and on the wide one (whose chunked launch misses the
+    p99.9 clause on seed 9's layers_dir.0.bias, ROADMAP Queue 3, fault 9)."""
+    m, inp = _card_case(cuda, arch, 100, n=301)
     args = (inp["origins"], inp["directions"], inp["z_vals"], inp["viewdirs"], inp["dists"],
             inp["noise"], inp["target"], None, None)
     kw = dict(white_background=False, supervision="rgb", log_sampling_xyz=True,
@@ -489,6 +500,32 @@ def test_bf16_kernel_chunks_and_repeats_on_card(cuda, monkeypatch):
     plain_kw = dict(white_background=False, supervision="rgb")
     _assert_bf16_on_card(m, args[:7], plain_kw, one)
     _assert_bf16_on_card(m, args[:7], plain_kw, chunked)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry,width", [("dexnerf_train_bf16_tensor_map", 64),
+                                         ("dexnerf_dw_tf32_tensor_map", 32)],
+                         ids=["bf16", "tf32"])
+def test_dw_tensor_map_on_a_fresh_thread_on_card(cuda, entry, width):
+    """The dW's scratch tensor maps (both routes) are encoded on a thread
+    that has made no CUDA call yet, as autograd's device thread is when
+    kernel 3's backward comes first on it and its scratch comes from the
+    allocator's cache (ROADMAP Queue 3, fault 10: CUDA_ERROR_INVALID_CONTEXT
+    before the encoder set the thread's device)."""
+    import threading
+
+    from dexnerf_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    dtype = BF16 if entry.startswith("dexnerf_train") else F32
+    block = torch.zeros(128 * width, dtype=dtype, device=cuda)
+    out = (ctypes.c_uint8 * 128)()
+    rc = []
+    t = threading.Thread(target=lambda: rc.append(getattr(lib, entry)(
+        ctypes.addressof(out), block.data_ptr(), width, 128, 64)))
+    t.start()
+    t.join()
+    assert rc == [0]
 
 
 @pytest.mark.gpu
@@ -582,14 +619,16 @@ def test_bf16_dw_kernel_matches_matmul_on_card(cuda, n, m, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", [FULL, dict(FULL, hidden_size=16)], ids=["8x128", "h16"])
+@pytest.mark.parametrize("arch", [FULL, dict(FULL, hidden_size=16), dict(FULL, hidden_size=256)],
+                         ids=["8x128", "h16", "wide-h256"])
 @pytest.mark.parametrize("n_st,grid", [(8192, 132), (4096, 132), (9, 132), (7, 5), (3, 7),
                                        (2, 3), (100, 1)])
 def test_bf16_dw_span_matches_plan_on_card(cuda, arch, n_st, grid):
     """The kernel's work split (``dw_span``, ``dw_pieces``, the library's
     host copies) is the plan's Python copy ``dw_spans`` that the CPU tests
     replay: the same parts, slots and stages for every CTA and unit, and
-    each unit's slots within ``dw_max_pieces``."""
+    each unit's slots within ``dw_max_pieces``; on the narrow plans and on
+    the wide route's (one part at 8x256, its units split by ``dw_split``)."""
     from dexnerf_tpu_torch.ops._build import load_library
 
     lib = load_library()

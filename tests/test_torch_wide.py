@@ -533,6 +533,78 @@ def test_narrow_dw_plan_is_one_part(hidden):
     assert args.fresh == 0 and args.n_units == len(plan) and not fr.is_wide(m)
 
 
+def test_wide_chain_plan_and_mask_words():
+    """The wide chain's shared-memory plan (its two tiles, the column sums
+    and two products' mask words a consumer) fits at every padded width to
+    MAX_HIDDEN_BF16, two consumers up to 320 and one above, as before its
+    mask words, and so does the forward's with two layers' mask words; a
+    thread's mask words of a tile cover each layer's columns (32 bits a 64
+    of them; y's half as many), 34 at 8x256."""
+    for hp in range(160, fr.MAX_HIDDEN_BF16 + 1, 32):
+        b = fr.wide_cons_bytes(hp, 2, 3 + 6 * fr.MAX_FREQ)
+        plan, fwd = fr.wide_plan(b["chain"]), fr.wide_plan(b["forward"])
+        assert plan is not None and plan[2] <= fr.SHARED_BYTES_LIMIT
+        assert plan[0] == (2 if hp <= 320 else 1) and plan[1] >= 2, hp
+        assert fwd is not None and fwd[2] <= fr.SHARED_BYTES_LIMIT and fwd[1] >= 2, hp
+        nt = 7
+        bits = [ftl.wide_mask_layout(w)[0].shape[1] for w in (hp, hp // 2)]
+        assert 32 * ftl.wide_mask_words(hp, nt) == (nt + 1) * bits[0] + bits[1]
+    assert ftl.wide_mask_words(256, 7) == 34
+
+
+@pytest.mark.parametrize("hp", [160, 256, 320, 576])
+def test_wide_mask_word_addressing(hp):
+    """The bits of the wide route's mask words (``wide_mask_layout``, the
+    C's ``wide_mask_bit``): every entry of a 64-row tile in exactly one bit;
+    the forward's packing (``mask_flags``: each bf16 pair's (half & 0x7fff)
+    + 0x7fff, its top bits shifted by j, or 8 + j for rows h = 1) sets the
+    bit of the entry (j, h, e) of its 64-column group, and only where the
+    bf16 half is > 0 (+-0 and every positive half, the bit patterns a ReLU
+    leaves); the chain's products read bit (h ? 7 : 15) + 16 e - j of word
+    c0 / 64 + j / 8 and its y-cotangent step bit (15 or 31) - (c % 64) / 8
+    - 8 ((r % 16) / 8) of word 32 (r / 16) + 4 (r % 8) + (c % 8) / 2 of the
+    column's group."""
+    rows, cols = ftl.wide_mask_layout(hp)
+    bit_of = {}
+    for t in range(128):
+        for i in range(rows.shape[1]):
+            if int(cols[t, i]) < hp:
+                bit_of[(int(rows[t, i]), int(cols[t, i]))] = ((i // 32) * 128 + t, i % 32)
+    assert len(bit_of) == 64 * hp
+
+    def flags(pair, j, h):  # mask_flags in ops/csrc/mlp_wide_bf16.cuh
+        s = j + (8 if h else 0)
+        return (((pair & 0x7FFF7FFF) + 0x7FFF7FFF) >> s) & (0x80008000 >> s) & 0xFFFFFFFF
+
+    halves = [0x0000, 0x8000, 0x0001, 0x3F80, 0x7F80]  # +0, -0, the least, 1, inf
+    for lo in halves:
+        for hi in halves:
+            for j in range(8):
+                for h in range(2):
+                    f = flags(lo | hi << 16, j, h)
+                    want = [x not in (0x0000, 0x8000) for x in (lo, hi)]
+                    b0 = (7 if h else 15) - j
+                    assert f == (want[0] << b0) | (want[1] << (b0 + 16))
+    for t in range(128):  # the products' epilogue, column blocks of 128
+        w, lane = t // 32, t % 32
+        g, q = lane // 4, lane % 4
+        for c0 in range(0, hp, 128):
+            for j in range(min(128, hp - c0) // 8):
+                for h in range(2):
+                    for e in range(2):
+                        row, col = 16 * w + g + 8 * h, c0 + 8 * j + 2 * q + e
+                        want = ((c0 // 64 + j // 8) * 128 + t, (7 if h else 15) + 16 * e - j % 8)
+                        assert bit_of[(row, col)] == want
+    y_rows, y_cols = ftl.wide_mask_layout(hp // 2)
+    y_bit = {(int(y_rows[t, i]), int(y_cols[t, i])): ((i // 32) * 128 + t, i % 32)
+             for t in range(128) for i in range(y_rows.shape[1]) if int(y_cols[t, i]) < hp // 2}
+    for r in range(64):  # the y-cotangent step, a thread a column
+        for c in range(hp // 2):
+            word = (c // 64) * 128 + 32 * (r // 16) + 4 * (r % 8) + (c % 8) // 2
+            bit = 15 + 16 * (c % 2) - (c % 64) // 8 - 8 * ((r % 16) // 8)
+            assert y_bit[(r, c)] == (word, bit)
+
+
 def test_max_hidden_bf16_is_the_largest_plan_that_fits():
     """MAX_HIDDEN_BF16 is reckoned from the wide kernels' shared-memory
     plans at the kernels' widest encodings (xyz up to 128 wide: two K-chunks;
