@@ -5296,7 +5296,9 @@ def wide_f32_phase(torch, np, card, dev, tmp, shared=None):
     parts = f32_pass_parts(prof, k4_sizes, ms, "k4", wide=True)
     parts += f32_dw_share(prof, ms["dw_torch_matmul_f32"], k4_sizes)
     print("  8x256 f32 field-path steps:")
-    profile_steps(torch, steps["fields"], {"kernels 2-3 wide f32": WIDE_F32_NAMES})
+    fprof = profile_steps(torch, steps["fields"], {"kernels 2-3 wide f32": WIDE_F32_NAMES})
+    for owner in (3, 2):  # the same two passes' shapes and products as kernel 4's
+        f32_pass_parts(fprof, k4_sizes, ms, "k4", owner=owner, wide=True)
     flops, byts, _, _ = kernel4_sizes(per_pass, dev)
     b4, b4_by = bound(3 * flops, byts, TF32_FLOPS)
     n_s = pts.shape[0] * pts.shape[1]

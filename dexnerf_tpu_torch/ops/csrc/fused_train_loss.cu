@@ -788,6 +788,10 @@ template <int kOwner>
 __global__ void __launch_bounds__(kWtThreads, 1)
     train_fwd_wide_tf32_kernel(const __grid_constant__ TrainArgs p, int n_tiles) {
   constexpr bool kSave = kOwner != kFieldFwd;  // activations, encodings, mask words
+  // layer1's features a load group: kernel 2's launch ran faster at one,
+  // kernels 3-4's at two (PERF.md; perf_tools/train_wide_f32_variants.py:
+  // layer1_u1)
+  constexpr int kLayer1U = kOwner == kFieldFwd ? 1 : 2;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sbase = (smem_u32(smem_raw) + 1023u) & ~1023u;
   unsigned char* gbase = smem_raw + (sbase - smem_u32(smem_raw));
@@ -863,10 +867,10 @@ __global__ void __launch_bounds__(kWtThreads, 1)
     if constexpr (kSave) {
       const WtOut O{p.act + R.a(0) + col0, K, (long long)hm * K, hm, p.act + R.y() + col0,
                     p.masks + (size_t)tile * TW * 128 + t, mask_words(hp)};
-      wt_forward(T, wr, O, db, db, sig, rgbr);
+      wt_forward<kLayer1U>(T, wr, O, db, db, sig, rgbr);
     } else {
       const WtOut O{p.wbuf + (size_t)v * hp * kTile, kTile, 0, hp, nullptr, nullptr, 0};
-      wt_forward(T, wr, O, db, db, sig, rgbr);
+      wt_forward<kLayer1U>(T, wr, O, db, db, sig, rgbr);
     }
     wg_sync(bar);  // every row's sigma and rgb logits are written
     if (t < kTile) {
@@ -898,6 +902,10 @@ __host__ __device__ inline size_t wide_chain_cons_bytes(int hp) {
   // the input tile, the column sums [4 warps][hp / 2], the ray's sums [hp / 2]
   return align16(ft_bytes(hp) + (size_t)5 * (hp / 2) * 4);
 }
+// The chain's pieces: 64 rows, so that twice as many stages fit as of 128
+// (5 against 2 at 8x256) and a column block's sum is 32 registers a thread
+// (PERF.md; perf_tools/train_wide_f32_variants.py: chain_pieces128).
+constexpr int kChainPieceRows = 64;
 
 template <int kOwner>
 __global__ void __launch_bounds__(kWtThreads, 1)
@@ -910,7 +918,7 @@ __global__ void __launch_bounds__(kWtThreads, 1)
   const int SP = p.s_pad, TPR = SP / kTile, n_rays = p.n_rays;
   const int kd = (h2 + kKc - 1) / kKc * kKc, kch = hp / kKc;
   const size_t cons_bytes = wide_chain_cons_bytes(hp);
-  const int bmax = wt_plan(cons_bytes).bmax;
+  const int bmax = wt_plan(cons_bytes, kChainPieceRows).bmax;
   const uint32_t ring = sbase, cons0 = sbase + (uint32_t)(NS * wt_stage_bytes(bmax));
   const uint32_t full = cons0 + (uint32_t)(C * cons_bytes), empty = full + 8 * NS;
   const int G = gridDim.x, b = blockIdx.x;
@@ -1063,10 +1071,10 @@ __global__ void __launch_bounds__(kWtThreads, 1)
               }
               if (col < hm) {
                 float* d0 = dst + (long long)col * K + row0;
-                __stcs(d0, v0);
-                __stcs(d0 + K, v1);
-                __stcs(d0 + 8, v2);
-                __stcs(d0 + K + 8, v3);
+                __stwb(d0, v0);
+                __stwb(d0 + K, v1);
+                __stwb(d0 + 8, v2);
+                __stwb(d0 + K + 8, v3);
               }
             }
           });
@@ -1145,7 +1153,9 @@ int launch_parts(const TrainArgs& a, int parts, cudaStream_t st) {
 
 // The wide route's plans: the forward's and the chain's.
 inline WtPlan wide_fwd_plan(const TrainArgs& a) { return wt_plan(wide_fwd_cons_bytes(a.hp, a.kx)); }
-inline WtPlan wide_chain_plan(const TrainArgs& a) { return wt_plan(wide_chain_cons_bytes(a.hp)); }
+inline WtPlan wide_chain_plan(const TrainArgs& a) {
+  return wt_plan(wide_chain_cons_bytes(a.hp), kChainPieceRows);
+}
 
 // kOwner's wide kernels of one chunk (see launch_parts).
 template <int kOwner>

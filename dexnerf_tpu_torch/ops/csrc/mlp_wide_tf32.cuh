@@ -68,17 +68,17 @@ __host__ __device__ inline int wt_stage_bytes(int bmax) { return 2 * bmax * 128;
 // ring stages of pieces of up to `bmax` rows, then `cons` consumer blocks
 // of cons_bytes (a multiple of 16), then a full and an empty mbarrier per
 // stage; `smem` bytes in all with the slack that aligns the base. The most
-// consumers (up to kWtMaxCons), then the largest pieces (128 rows, else 64),
-// then the most stages (up to kWtMaxStages, at least kWtMinStages) that fit;
-// cons = 0 if none fits.
+// consumers (up to kWtMaxCons), then the largest pieces (bfirst rows: 128,
+// else 64; or 64), then the most stages (up to kWtMaxStages, at least
+// kWtMinStages) that fit; cons = 0 if none fits.
 struct WtPlan {
   int cons, bmax, stages;
   size_t smem;
 };
 
-__host__ __device__ inline WtPlan wt_plan(size_t cons_bytes) {
+__host__ __device__ inline WtPlan wt_plan(size_t cons_bytes, int bfirst = 128) {
   for (int c = kWtMaxCons; c >= 1; --c) {
-    for (int bmax = 128; bmax >= 64; bmax -= 64) {
+    for (int bmax = bfirst; bmax >= 64; bmax -= 64) {
       for (int ns = kWtMaxStages; ns >= kWtMinStages; --ns) {
         const size_t total = 1024 + (size_t)ns * (wt_stage_bytes(bmax) + 16) + c * cons_bytes;
         if (total <= (size_t)kSmemMax) return WtPlan{c, bmax, ns, total};
@@ -217,27 +217,34 @@ __device__ __forceinline__ void wt_encode_coord(int d, float pt, int half, int f
 // step, then hi.hi, as chunk_terms), added to the sum in f32; a block wider
 // than 64 in two halves of the columns (as chunk_product), so that a half's
 // fresh accumulator, the block's sum and the A fragments fit beside each
-// other in the registers.
+// other in the registers. The next chunk's 16 A values are loaded under the
+// current chunk's first group, so their shared-memory latency is hidden.
 template <int BN>
 __device__ __forceinline__ void wt_product(float (&sum)[BN / 2], uint32_t in, int nh,
                                            uint32_t enc, int ne, WtRing& wr) {
   constexpr int NP = BN > 64 ? BN / 2 : BN;
   const int t = threadIdx.x & 127, lane = t & 31, g = lane >> 2, q = lane & 3;
-  const int r0 = 16 * (t >> 5) + g;
-  for (int c = 0; c < nh + ne; ++c) {
+  const int r0 = 16 * (t >> 5) + g, n = nh + ne;
+  // the thread's A values of chunk c (see wgmma_tf32_rs): rows r0, r0 + 8 at
+  // K positions q, q + 4, which hold features 2 q, 2 q + 1 of the k8 step
+  auto load = [&](int c, float(&x)[16]) {
     const uint32_t base = c < nh ? in : enc;
     const int f0 = kKc * (c < nh ? c : c - nh) + 2 * q;
-    // the thread's A fragments (see wgmma_tf32_rs): rows r0, r0 + 8 at K
-    // positions q, q + 4, which hold features 2 q, 2 q + 1 of the k8 step
-    uint32_t ah[16], al[16];
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float x = __uint_as_float(lds32(base + ft_off(f0 + 8 * ks + (e >> 1), r0 + 8 * (e & 1))));
-        split_tf32(x, ah[4 * ks + e], al[4 * ks + e]);
+        x[4 * ks + e] =
+            __uint_as_float(lds32(base + ft_off(f0 + 8 * ks + (e >> 1), r0 + 8 * (e & 1))));
       }
     }
+  };
+  float xv[16];
+  load(0, xv);
+  for (int c = 0; c < n; ++c) {
+    uint32_t ah[16], al[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) split_tf32(xv[i], ah[i], al[i]);
     const uint32_t st = wr.acquire();
 #pragma unroll
     for (int hh = 0; hh < BN / NP; ++hh) {
@@ -260,6 +267,7 @@ __device__ __forceinline__ void wt_product(float (&sum)[BN / 2], uint32_t in, in
                           kmajor_desc(wh + ks * 32), 1);
       }
       wgmma_commit();
+      if (hh == 0 && c + 1 < n) load(c + 1, xv);
       wgmma_wait0();
       fence_regs(d);
       fence_regs(ah);
@@ -276,39 +284,80 @@ __device__ __forceinline__ void wt_product(float (&sum)[BN / 2], uint32_t in, in
 
 // The [64 x n] layer output at src (feature f's 64 rows at src + f k;
 // features from nvalid on are zero) into the tile at dst, by the
-// warpgroup's 128 threads (16 B a load, from L2).
+// warpgroup's 128 threads (16 B a load, from L2), eight loads a thread in
+// flight before their stores: a load at a time left each one's L2 latency
+// exposed (PERF.md; perf_tools/train_wide_f32_variants.py: readback1).
 __device__ __forceinline__ void wt_load_tile(uint32_t dst, const float* src, long long k,
                                              int nvalid, int n) {
-  const int t = threadIdx.x & 127;
-  for (int i = t; i < n * 16; i += 128) {
-    const int f = i >> 4, r = (i & 15) * 4;
-    const float4 v = f < nvalid ? __ldcg(reinterpret_cast<const float4*>(src + f * k + r))
-                                : make_float4(0.f, 0.f, 0.f, 0.f);
-    sts128(dst + ft_off(f, r), v);
+  constexpr int U = 8;
+  const int t = threadIdx.x & 127, total = n * 16;
+  for (int i0 = t; i0 < total; i0 += 128 * U) {
+    float4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + 128 * u, f = i >> 4, r = (i & 15) * 4;
+      v[u] = i < total && f < nvalid ? __ldcs(reinterpret_cast<const float4*>(src + f * k + r))
+                                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + 128 * u;
+      if (i < total) sts128(dst + ft_off(i >> 4, (i & 15) * 4), v[u]);
+    }
   }
 }
 
 // layer1 on the CUDA cores for the column block c0 (the training kernels':
 // each output a sequential f32 FMA chain over the encoding in feature order,
 // as the narrow forward and the plain version's GEMM sum it): w1 [dx][hp].
-template <int BN>
+// The encoding and weights of U features at a time (U at most L1U, 1 at
+// blocks wider than 64) are loaded into one of two register sets while the
+// other set's multiply-adds run: a feature at a time left each load's
+// latency exposed (PERF.md; perf_tools/train_wide_f32_variants.py:
+// no_layer1, layer1_u1).
+template <int BN, int L1U>
 __device__ __forceinline__ void wt_layer1_fma(float (&acc)[BN / 2], uint32_t enc, const float* w1,
                                               int dx, int hp, int c0) {
+  constexpr int NJ = BN / 8, U = BN > 64 ? 1 : L1U;
   const int t = threadIdx.x & 127, lane = t & 31, g = lane >> 2, q = lane & 3;
   const int r0 = 16 * (t >> 5) + g;
 #pragma unroll
   for (int e = 0; e < BN / 2; ++e) acc[e] = 0.f;
-  for (int k = 0; k < dx; ++k) {
-    const float x0 = __uint_as_float(lds32(enc + ft_off(k, r0)));
-    const float x1 = __uint_as_float(lds32(enc + ft_off(k, r0 + 8)));
-    const float* wk = w1 + (size_t)k * hp + c0 + 2 * q;
+  // features k0 .. k0 + U - 1 (one past dx loads feature dx - 1, unused)
+  auto load = [&](int k0, float(&xv)[U][2], float2(&wv)[U][NJ]) {
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const float2 w = __ldg(reinterpret_cast<const float2*>(wk + 8 * j));
-      acc[4 * j] = fmaf(x0, w.x, acc[4 * j]);
-      acc[4 * j + 1] = fmaf(x0, w.y, acc[4 * j + 1]);
-      acc[4 * j + 2] = fmaf(x1, w.x, acc[4 * j + 2]);
-      acc[4 * j + 3] = fmaf(x1, w.y, acc[4 * j + 3]);
+    for (int u = 0; u < U; ++u) {
+      const int k = min(k0 + u, dx - 1);
+      xv[u][0] = __uint_as_float(lds32(enc + ft_off(k, r0)));
+      xv[u][1] = __uint_as_float(lds32(enc + ft_off(k, r0 + 8)));
+      const float* wk = w1 + (size_t)k * hp + c0 + 2 * q;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) wv[u][j] = __ldg(reinterpret_cast<const float2*>(wk + 8 * j));
+    }
+  };
+  auto fmas = [&](int k0, const float(&xv)[U][2], const float2(&wv)[U][NJ]) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k0 + u < dx) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          acc[4 * j] = fmaf(xv[u][0], wv[u][j].x, acc[4 * j]);
+          acc[4 * j + 1] = fmaf(xv[u][0], wv[u][j].y, acc[4 * j + 1]);
+          acc[4 * j + 2] = fmaf(xv[u][1], wv[u][j].x, acc[4 * j + 2]);
+          acc[4 * j + 3] = fmaf(xv[u][1], wv[u][j].y, acc[4 * j + 3]);
+        }
+      }
+    }
+  };
+  float xa[U][2], xb[U][2];
+  float2 wa[U][NJ], wb[U][NJ];
+  load(0, xa, wa);
+  for (int k0 = 0; k0 < dx; k0 += 2 * U) {
+    if (k0 + U < dx) load(k0 + U, xb, wb);
+    fmas(k0, xa, wa);
+    if (k0 + U < dx) {
+      if (k0 + 2 * U < dx) load(k0 + 2 * U, xa, wa);
+      fmas(k0 + U, xb, wb);
     }
   }
 }
@@ -346,7 +395,10 @@ struct WtOut {
 // k] (rgb logits) for rows 0..63, written to shared memory (visible to the
 // warpgroup once it syncs). db0, db1: the viewdir layer's bias of the
 // thread's rows r0 and r0 + 8 (their rays'). Each layer's output is stored
-// by O and copied back into the input tile.
+// by O (the default cache policy, so that it is still in L2) and copied back
+// into the input tile (evict-first). L1U: layer1's features a load group
+// (wt_layer1_fma).
+template <int L1U = 2>
 __device__ __forceinline__ void wt_forward(const WtTile& T, WtRing& wr, const WtOut& O,
                                            const float* db0, const float* db1, float* sig_out,
                                            float* rgb_out) {
@@ -370,7 +422,7 @@ __device__ __forceinline__ void wt_forward(const WtTile& T, WtRing& wr, const Wt
         if (l > 0) {
           wt_product<BN>(acc, T.in, kch, T.enc, skip ? T.kx : 0, wr);
         } else if (T.w1 != nullptr) {
-          wt_layer1_fma<BN>(acc, T.enc, T.w1, T.dx, hp, c0);
+          wt_layer1_fma<BN, L1U>(acc, T.enc, T.w1, T.dx, hp, c0);
         } else {
           wt_product<BN>(acc, 0, 0, T.enc, T.kx, wr);
         }
@@ -394,10 +446,10 @@ __device__ __forceinline__ void wt_forward(const WtTile& T, WtRing& wr, const Wt
           }
           if (col < O.nvalid) {
             float* d0 = dst + col * O.k + row;
-            __stcs(d0, v0);
-            __stcs(d0 + O.k, v1);
-            __stcs(d0 + 8, v2);
-            __stcs(d0 + O.k + 8, v3);
+            __stwb(d0, v0);
+            __stwb(d0 + O.k, v1);
+            __stwb(d0 + 8, v2);
+            __stwb(d0 + O.k + 8, v3);
           }
           const int bit = (4 * j) & 31;
           m[(4 * j) >> 5] |= (v0 > 0.f ? 1u : 0u) << bit | (v1 > 0.f ? 2u : 0u) << bit |

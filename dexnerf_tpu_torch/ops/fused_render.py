@@ -223,19 +223,22 @@ def wide_fits(hp: int, kx: int, dd: int) -> bool:
 
 # of ops/csrc/mlp_wide_tf32.cuh (kWt*) and the f32 kernels (kMaxDx, kMaxRpu)
 TF32_WIDE_MAX_CONS = 2
+TF32_CHAIN_PIECE_ROWS = 64  # the wide chain's pieces (kChainPieceRows there)
 TF32_WIDE_MAX_STAGES = 8
 TF32_WIDE_MIN_STAGES = 2
 TF32_MAX_KX = 4  # xyz encodings up to 128 wide: four 32-wide K-chunks
 
 
-def tf32_wide_plan(cons_bytes: int) -> Optional[Tuple[int, int, int, int]]:
+def tf32_wide_plan(cons_bytes: int, bmax_first: int = 128
+                   ) -> Optional[Tuple[int, int, int, int]]:
     """(consumers, piece rows, ring stages, shared bytes) of a wide f32
     kernel whose consumers take ``cons_bytes`` each (``wt_plan`` there): the
-    most consumers, then the largest pieces (128 rows, else 64), then the
-    most stages that fit (a stage: a piece's hi and lo halves); None if none
+    most consumers, then the largest pieces of at most ``bmax_first`` rows
+    (128, else 64; the chain's 64, ``TF32_CHAIN_PIECE_ROWS``), then the most
+    stages that fit (a stage: a piece's hi and lo halves); None if none
     fits."""
     for cons in range(TF32_WIDE_MAX_CONS, 0, -1):
-        for bmax in (128, 64):
+        for bmax in range(bmax_first, 63, -64):
             for ns in range(TF32_WIDE_MAX_STAGES, TF32_WIDE_MIN_STAGES - 1, -1):
                 total = 1024 + ns * (2 * bmax * 128 + 16) + cons * cons_bytes
                 if total <= SHARED_BYTES_LIMIT:
@@ -264,9 +267,9 @@ def tf32_wide_cons_bytes(hp: int, kx: int, n_samples: Optional[int] = None) -> d
 def tf32_wide_fits(hp: int, kx: int = TF32_MAX_KX) -> bool:
     """Whether every wide f32 kernel's plan fits at padded width ``hp`` for
     every number of samples the render kernel takes."""
-    return all(tf32_wide_plan(b) is not None
+    return all(tf32_wide_plan(b, TF32_CHAIN_PIECE_ROWS if name == "chain" else 128) is not None
                for S in range(1, MAX_SAMPLES + 1)
-               for b in tf32_wide_cons_bytes(hp, kx, S).values())
+               for name, b in tf32_wide_cons_bytes(hp, kx, S).items())
 
 
 def _pad_vec(t: torch.Tensor, n: int) -> torch.Tensor:

@@ -31,7 +31,9 @@ narrow accumulation, one accumulator over all stages),
 one wait) and ``two_parts`` (two part accumulators, ``wait_group 1`` across
 blocks); the forward's ``fwd_no_words`` (no ReLU
 mask words written). The variants that skip work compute wrong gradients;
-only their times are read. Each variant's gradients on the fine pass are
+only their times are read. ``full`` also times kernel 1's wide bf16 frame
+(``fused_render_wide_kernel``, 400x400 rays, 64 then 192 samples; the
+package's own library in every variant). Each variant's gradients on the fine pass are
 compared with ``full``'s (largest |difference| over the largest |entry|, 0
 when bitwise equal).
 
@@ -210,7 +212,8 @@ def ptxas_lines(log):
     out, name = [], None
     for line in log.splitlines():
         if "Function properties for" in line:
-            name = next((k for k in (*KERNELS[:2], "train_fwd_wide_kernel") if k in line), None)
+            name = next((k for k in (*KERNELS[:2], "train_fwd_wide_kernel",
+                                     "fused_render_wide_kernel") if k in line), None)
             if name:
                 out.append(name + ("<fresh>" if "ILb1E" in line else
                                    "<plain>" if "ILb0E" in line else ""))
@@ -325,6 +328,31 @@ def main() -> int:
         loss.backward()
         return torch.cat([p.grad.reshape(-1) for p in m.parameters()])
 
+    from dexnerf_tpu_torch.core.volrend import ray_dists
+    from dexnerf_tpu_torch.ops import fused_render as fr
+
+    nf = 400 * 400  # kernel 1: a 400x400 frame, 64 coarse samples, then 64 + 128 fine
+    fo, fd = tensor(rng.normal(size=(nf, 3)) * 0.2), tensor(rng.normal(size=(nf, 3)))
+    fv = fd / torch.linalg.norm(fd, dim=-1, keepdim=True)
+    frame = []
+    for (m, *_), s in zip(passes, (64, 192)):
+        z = torch.sort(tensor(2 + 4 * rng.uniform(size=(nf, s))), dim=-1).values.contiguous()
+        frame.append((m, fo, fd, fv, z, ray_dists(z, fd).contiguous()))
+
+    def frame_ms():
+        with torch.no_grad():
+            for a in frame:
+                fr.fused_render(*a, compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    for a in frame:
+                        fr.fused_render(*a, compute_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+        return round(sum((e.time_range.end - e.time_range.start) / 3 / 1e3 for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and "fused_render_wide_kernel" in e.name), 4)
+
     def device_ms():
         with torch.no_grad():
             step()
@@ -357,6 +385,8 @@ def main() -> int:
                     scale = float(ref.abs().max())
                     grad_diff[name] = float((g - ref).abs().max()) / scale if scale else None
                 t = device_ms()
+                if name == "full":
+                    t["fused_render_wide_kernel"] = frame_ms()
                 for k, x in t.items():
                     ms.setdefault(name, {}).setdefault(k, []).append(x)
     finally:

@@ -33,13 +33,23 @@ equal bit for bit, and the gradients on the 320 units and the added ones'
 (exactly 0 if the 576 route computes what the 320 route does), and two
 launches at 576 bit for bit.
 
+The second rule, beside the card rule and only for a case where ``perm``
+misses the card rule too: (a) the card rule's clauses with own's max and
+99.9th percentile each the larger of |bf16 plain - f32 plain|'s and |perm
+- bf16 plain|'s (a legal reordering of the same contract's f32 sums), and
+(b) on every leaf the kernel's largest distance to the float64 model at
+most F64_REL times the bf16 plain version's, + 1e-5 of the leaf's largest
+entry. Each case gets one verdict: ``passes the rule``, ``passes only the
+second rule`` (``perm`` misses the case, every leaf holds (a) and (b)) or
+``misses`` (a case where ``perm`` passes never takes the second rule).
+
 Prints, for every case, each leaf that misses the rule for the kernel or a
 witness, with [max, p99.9 vs the bf16 plain version, max vs the f32 plain
-version, own max, own p99.9] and the float64 ratios; then the card line;
-then one JSON object (the last line) with the misses and, for each case,
-the largest rule ratios and float64 ratios over all leaves. To compare
-with another commit, copy this file into a ``git archive`` of it and run
-it there in the same call.
+version, own max, own p99.9] and the float64 ratios, then the case's
+verdict; then the card line; then one JSON object (the last line) with the
+misses, the verdicts and, for each case, the largest rule ratios and
+float64 ratios over all leaves. To compare with another commit, copy this
+file into a ``git archive`` of it and run it there in the same call.
 """
 
 from __future__ import annotations
@@ -56,6 +66,8 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 
 P999, REL, ATOL = 0.25, 1.5, 1e-5
+F64_REL = 1.25  # the second rule's float64 clause
+VERDICTS = ("passes the rule", "passes only the second rule", "misses")
 K4_CASES = [(320, 64, 300), (320, 128, 300), (576, 64, 300), (576, 128, 300), (576, 7, 301)]
 K4_KW = [("rgb", False), ("rgb", True), ("luminance", False), ("luminance", True)]
 K3_CASES = [(576, 64, 300), (576, 128, 300), (576, 256, 300)]
@@ -160,6 +172,23 @@ def f64_ratios(a, b, x):
     return [float(ea.max()) / max(float(eb.max()), 1e-300), p999(ea) / max(p999(eb), 1e-300)]
 
 
+def second_rule(a, b, f, pm, x):
+    """The second rule on one leaf (see the module's docstring): (a) the card
+    rule with own's statistics the larger of |b - f|'s and |pm - b|'s, and
+    (b) |a - x| at most F64_REL |b - x| (largest entries; skipped where the
+    float64 model ``x`` is None: an output, not a leaf), each + ATOL of the
+    leaf's largest entry."""
+    atol = ATOL * float(b.abs().max())
+    own, dp = (b - f).abs(), (pm - b).abs()
+    e_b, e_f = (a - b).abs(), (a - f).abs()
+    o_max, o_999 = max(float(own.max()), float(dp.max())), max(p999(own), p999(dp))
+    ok_a = (float(e_b.max()) <= o_max + atol and p999(e_b) <= P999 * o_999 + atol
+            and float(e_f.max()) <= REL * o_max + atol)
+    ok_b = x is None or (float((a.double() - x).abs().max())
+                         <= F64_REL * float((b.double() - x).abs().max()) + atol)
+    return ok_a and ok_b
+
+
 def judge(label, names, versions, bp, fp, x64, report):
     """Every leaf of one case: each version's (the kernel's and the
     witnesses', ``versions`` {name: leaves}) rule row and float64 ratios;
@@ -186,8 +215,17 @@ def judge(label, names, versions, bp, fp, x64, report):
     for who, m in misses.items():
         for name, d in m.items():
             print(f"  {who} misses {name} ({d['entries']} entries): {json.dumps(d)}")
+    if not misses["kernel"]:
+        verdict = VERDICTS[0]
+    elif misses["perm"] and all(second_rule(versions["kernel"][i], b, f, versions["perm"][i], x)
+                                for i, (b, f, x) in enumerate(zip(bp, fp, x64))):
+        verdict = VERDICTS[1]
+    else:
+        verdict = VERDICTS[2]
+    print(f"  {label}: the kernel {verdict} (perm {'misses' if misses['perm'] else 'passes'} "
+          "the card rule)")
     report[label] = {"worst": {k: [float(f"{v:.4g}") for v in r] for k, r in worst.items()},
-                     "misses": misses}
+                     "misses": misses, "verdict": verdict}
 
 
 def tensor_core_linear():
@@ -374,7 +412,8 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip()
     print(card)
-    print(json.dumps(report))
+    counts = {v: sum(1 for r in report.values() if r.get("verdict") == v) for v in VERDICTS}
+    print(json.dumps({"verdicts": counts, **report}))
     return 0
 
 

@@ -718,6 +718,31 @@ def test_pass_buffers_match_plain_on_card(cuda, arch, n, s):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", list(WIDE_ARCHS))
+def test_wide_pass_bitwise_repeatable_on_card(cuda, arch):
+    """The wide route's forward and chain (``train_fwd_wide_tf32_kernel<4>``,
+    ``train_chain_wide_tf32_kernel<4>``: the software-pipelined split-TF32
+    product, a fresh accumulator a half-block and chunk added in a fixed
+    order) run twice on the same chunk write the same scratch, mask words
+    and per-ray buffers, bit for bit; so does kernel 2's wide forward
+    (``train_fwd_wide_tf32_kernel<2>``) on the same points."""
+    from dexnerf_tpu_torch.ops import fused_mlp
+
+    ps, wg, m, inp, s_pad = _card_pass(cuda, arch, 45, 128)
+    first = [t.clone() for t in (wg.act, wg.dlt, wg.dir_enc, wg.dy_sum, ps.masks, ps.graw)]
+    ps.run(0, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    for a, b in zip(first, (wg.act, wg.dlt, wg.dir_enc, wg.dy_sum, ps.masks, ps.graw)):
+        assert torch.equal(a, b)
+    pts = (inp["origins"][:, None] + inp["directions"][:, None] * inp["z_vals"][..., None])
+    before = fused_mlp.launches_wide_f32
+    raw = [fused_mlp.fused_field(m, pts.contiguous(), inp["viewdirs"]) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert fused_mlp.launches_wide_f32 == before + 2
+    assert torch.equal(raw[0], raw[1])
+
+
+@pytest.mark.gpu
 def test_pass_bitwise_repeatable_on_card(cuda):
     """Two runs of the same chunk write the same scratch, masks and per-ray
     buffers, bit for bit."""

@@ -33,6 +33,7 @@ import torch
 from test_torch_wide import _grads, _inputs, _jx, _model, _pad_check
 
 from dexnerf_tpu_torch.models.mlp import FlexibleNeRFModel
+from dexnerf_tpu_torch.ops import _build
 from dexnerf_tpu_torch.ops import _weight_grads as wgr
 from dexnerf_tpu_torch.ops import fused_mlp, fused_mlp_train
 from dexnerf_tpu_torch.ops import fused_render as fr
@@ -308,6 +309,45 @@ def test_f32_dw_plan_split_within_limits(hidden):
     # the parts' map: part p's unit u as -1 - (p TF32_MAX_UNITS + u)
     dw = wmap[wmap < 0]
     assert int((-1 - dw).max()) // wgr.TF32_MAX_UNITS == len(parts) - 1
+
+
+def _cuda_int(source: str, name: str) -> int:
+    """The value of ``constexpr int name = ...;`` in ops/csrc/``source``."""
+    import re
+
+    with open(_build.CSRC / source) as f:
+        m = re.search(rf"constexpr int {name} = (\d+);", f.read())
+    assert m, (source, name)
+    return int(m.group(1))
+
+
+@pytest.mark.parametrize("hp", list(range(160, 609, 32)))
+def test_wide_chain_plan_of_64_row_pieces_fits(hp):
+    """The wide f32 chain's plan (pieces of TF32_CHAIN_PIECE_ROWS = 64 rows,
+    ``kChainPieceRows`` in ops/csrc/fused_train_loss.cu) at every padded
+    width 160-608: it fits in 227 KB with as many consumers as the 128-row
+    plan would take and at least the kernel's fewest stages, twice the
+    128-row plan's stages or more; ``tf32_wide_fits`` holds there, and the
+    mirror's constants are the CUDA sources'."""
+    assert fr.TF32_CHAIN_PIECE_ROWS == _cuda_int("fused_train_loss.cu", "kChainPieceRows")
+    for name, value in (("kWtMaxCons", fr.TF32_WIDE_MAX_CONS),
+                        ("kWtMaxStages", fr.TF32_WIDE_MAX_STAGES),
+                        ("kWtMinStages", fr.TF32_WIDE_MIN_STAGES),
+                        ("kSmemMax", fr.SHARED_BYTES_LIMIT)):
+        src = "mlp_tile_tf32.cuh" if name == "kSmemMax" else "mlp_wide_tf32.cuh"
+        assert _cuda_int(src, name) == value, name
+    for kx in range(1, fr.TF32_MAX_KX + 1):
+        b = fr.tf32_wide_cons_bytes(hp, kx)["chain"]
+        cons, rows, stages, smem = fr.tf32_wide_plan(b, fr.TF32_CHAIN_PIECE_ROWS)
+        wide = fr.tf32_wide_plan(b)
+        assert rows == 64 and smem <= fr.SHARED_BYTES_LIMIT and stages >= fr.TF32_WIDE_MIN_STAGES
+        assert smem == 1024 + stages * (2 * 64 * 128 + 16) + cons * b
+        assert cons == wide[0]
+        assert stages >= min(2 * wide[2], fr.TF32_WIDE_MAX_STAGES) or wide[1] == 64
+    assert fr.tf32_wide_fits(hp)
+    if hp == 256:  # the 8x256 step: two consumers, five stages of 64 rows
+        assert fr.tf32_wide_plan(fr.tf32_wide_cons_bytes(256, 2)["chain"], 64) == (
+            2, 64, 5, 219216)
 
 
 def test_max_hidden_is_the_largest_f32_plan_that_fits():
