@@ -4907,8 +4907,9 @@ def wide_phase(torch, np, card, dev, tmp, shared=None):
     occ = ftl.bf16_occupancy(fine)["chain"]
     hp_f, nt_f = fr.bf16_hidden(fine.hidden_size), fine.num_layers - 1
     print(f"  wide chain plan: {occ[3]} consumer warpgroup(s) a CTA, {occ[2]} ring stages of "
-          f"[128][64] weight pieces, {occ[1]} B shared; column blocks of 128 on "
-          f"{hp_f}-wide products; ReLU masks as "
+          f"[{fr.WIDE_BLOCK}][64] weight pieces, {occ[1]} B shared; column blocks of "
+          f"{fr.WIDE_BLOCK} on {hp_f}-wide products, a fresh accumulator every "
+          f"{fr.WIDE_SPAN} k16 steps; ReLU masks as "
           f"{ftl.wide_mask_words(hp_f, nt_f)} mask words a thread a 64-row tile "
           f"({8 * ftl.wide_mask_words(hp_f, nt_f)} B a sample, the saved activations "
           f"{2 * (hp_f // 2 + (nt_f + 1) * hp_f)} B)")

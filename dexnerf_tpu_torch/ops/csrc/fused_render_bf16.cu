@@ -68,9 +68,10 @@
 // Padded widths above 128 (up to kWideMaxHidden) take the wide route,
 // fused_render_wide_kernel, chosen by the launcher from the width alone: the
 // same work plan, unit prologue and compositing around mlp_wide_bf16.cuh's
-// tile (layers in shared memory, column blocks of at most 128, both wgmma
-// operands from shared memory), 2 consumer warpgroups up to a padded width
-// of 320 and 1 above (the render plan's workers a CTA).
+// tile (layers in shared memory, column blocks of 64, both wgmma operands
+// from shared memory, fresh accumulators promoted into an f32 sum), 2
+// consumer warpgroups up to a padded width of 320 and 1 above (the render
+// plan's workers a CTA).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -1127,7 +1127,7 @@ __global__ void __launch_bounds__(kSumThreads) sum_rays_bf16_kernel(const float*
 //
 // The forward: persistent CTAs of `C` consumer warpgroups (C = 2 up to a
 // padded width of 256, 1 above: wide_plan on wide_fwd_cons_bytes) and one
-// warpgroup whose first thread streams the forward pack in [128][64] pieces
+// warpgroup whose first thread streams the forward pack in [64][64] pieces
 // (WideStream::forward). Worker v = C b + cw takes the 64-row tiles v, v +
 // C G, ...; a tile's encoding is written and stored as the narrow forward's,
 // then wide_tile runs it through the MLP, storing every activation by TMA
@@ -1228,11 +1228,11 @@ __global__ void __launch_bounds__(kWideThreads, 1)
 // The wide chain: the narrow chain's work per 64-sample tile (raw
 // cotangents, the y cotangent with the viewdir layer's bias sum and viewdir
 // rows' dW, then products pi = 0 .. nt + 1 on the transposed weights), with
-// each product's output in column blocks of at most 128 (wide_product, A
+// each product's output in column blocks of 64 (wide_product, A
 // the previous cotangent tile in shared memory). Persistent CTAs of C
 // consumer warpgroups (wide_plan on wide_chain_cons_bytes) and one warpgroup
-// whose first thread streams [128][64] pieces of pack_backward_weights_bf16
-// by TMA (the pack's tensor map with [128][64] boxes). Each consumer's two
+// whose first thread streams [64][64] pieces of pack_backward_weights_bf16
+// by TMA (the pack's tensor map with [64][64] boxes). Each consumer's two
 // cotangent tiles alternate as a product's input and output, and each
 // output is stored to the scratch by TMA while the next product runs.
 //
@@ -1278,14 +1278,13 @@ __host__ __device__ inline int wide_chain_pieces(int hp, int nt) {
   return blocks * ((hp / 2 + kKc - 1) / kKc + (nt + 1) * ((hp + kKc - 1) / kKc));
 }
 
-// f(BN) for the chain's column blocks (hp a multiple of 32: 128, 96, 64, 32).
+// f(BN) for the chain's column blocks (hp a multiple of 32: 64, the last 32).
 template <class F>
 __device__ __forceinline__ void with_bn32(int bn, F&& f) {
-  switch (bn) {
-    case 128: f(std::integral_constant<int, 128>{}); break;
-    case 96: f(std::integral_constant<int, 96>{}); break;
-    case 64: f(std::integral_constant<int, 64>{}); break;
-    default: f(std::integral_constant<int, 32>{}); break;
+  if (bn == 64) {
+    f(std::integral_constant<int, 64>{});
+  } else {
+    f(std::integral_constant<int, 32>{});
   }
 }
 
@@ -1500,16 +1499,13 @@ __global__ void __launch_bounds__(kWideThreads, 1)
           float acc[BN / 2];
           wide_product<BN>(acc, in, pi == 0 ? k2 : kch, (pi == 0 ? h2 : hp) / 16, 0, 0, wr);
           cp_async_wait<1>();  // this product's words: all but the newest group
-          // the block's mask words: its first 64 columns' and the next 64's
-          // (all ones on the last product)
+          // the block's mask word (all ones on the last product)
           const bool masked = pi <= nt;
-          const uint32_t m0 = masked ? words[(c0 >> 6) * 128] : 0xffffffffu;
-          const uint32_t m1 = masked && BN > 64 ? words[((c0 >> 6) + 1) * 128] : 0xffffffffu;
+          const uint32_t mwd = masked ? words[(c0 >> 6) * 128] : 0xffffffffu;
           float cs[V];
 #pragma unroll
           for (int j = 0; j < BN / 8; ++j) {
             const int col = c0 + 8 * j + 2 * q;
-            const uint32_t mwd = j < 8 ? m0 : m1;
             float wa0 = 0.f, wa1 = 0.f;
             if (pi == 1) {
               wa0 = __ldg(w_alpha + col);

@@ -6,16 +6,14 @@
 // already fills the 227 KB of shared memory at H = 128. The wide tile
 // instead keeps a layer's input and output in shared memory, as two K-major
 // 128 B-swizzled [64][Hp] bf16 tiles a consumer (the encoding tile's layout,
-// tile_off), and computes each layer's output in column blocks of at most
-// 128 (each a wgmma width: wide_bn), both operands from shared memory: A
-// from the input tile, B from a ring of [128][64] K-chunk pieces that one
-// thread streams by 1-D bulk copies out of the same pre-swizzled pack
+// tile_off), and computes each layer's output in column blocks of 64
+// (wide_bn), both operands from shared memory: A from the input tile, B
+// from a ring of [64][64] K-chunk pieces that one thread streams by 1-D
+// bulk copies out of the same pre-swizzled pack
 // (ops/fused_render.py::pack_flex_weights_bf16; a piece is rows c0 .. c0 +
-// bn - 1 of a [Hp][64] chunk, contiguous in the pack). The accumulator of a
-// block is at most 64 registers a thread. Each piece's products are one
-// wgmma group; the piece is released once the next group is issued and the
-// group before it is done (wgmma.wait_group 1), so the ring (whose stages
-// every consumer reads) needs only two stages however wide the layer.
+// bn - 1 of a [Hp][64] chunk, contiguous in the pack). A piece is released
+// once every wgmma group that reads it is done, so the ring (whose stages
+// every consumer reads) needs only a few stages however wide the layer.
 //
 // What bounds it on the H100 at 8x256: kernel 1 by its multiply-adds (~0.6 M
 // a sample, a 400x400 frame of 64 + 128 samples ~36 TFLOP: 36.7 ms at the
@@ -28,11 +26,24 @@
 // perf_tools/train_chain_wide_variants.py).
 //
 // The bf16 contract is the narrow tile's: operands rounded to bf16, f32
-// accumulation (one accumulator per column block, over all of the layer's K),
-// bias, ReLU and the chain in f32, the sigma head from the f32 trunk output
-// and the rgb head from the f32 viewdir-layer output with f32 weights; PE in
-// f32 by encode_coord. Biases and heads are read from the aux buffer in
-// device memory (through L1).
+// accumulation, bias, ReLU and the chain in f32, the sigma head from the f32
+// trunk output and the rgb head from the f32 viewdir-layer output with f32
+// weights; PE in f32 by encode_coord. The tensor cores round each k16
+// step's sum toward zero into their accumulator, so a running accumulator
+// over a layer's whole K biases a sum over many terms one way (ROADMAP
+// Queue 3 fault 9). wide_product therefore gives every span of kWideSpan
+// k16 steps (a K-chunk, one ring piece) a fresh accumulator and adds it to
+// the block's f32 sum on the CUDA cores, to nearest; two fresh accumulators
+// alternate, so one span's add runs while the next span's products do. At
+// 64-column blocks the sum and the two fresh accumulators are 96 registers
+// a thread, within the 168 that ptxas gives each thread at 384 threads (at
+// 128 columns, 192 would not fit; a third fresh accumulator at 64 spills).
+// Spans of 1 and 2 steps came no nearer the exact contract on the card and
+// missed chip_smoke.py's phase 22 (PERF.md section 6). What it costs against
+// one accumulator over the whole K at 128 columns: twice the wgmma groups,
+// each half as wide, both operands from shared memory (PERF.md section 6).
+// Biases and heads are read from the aux buffer in device memory (through
+// L1).
 #pragma once
 
 #include "mlp_tile_bf16.cuh"
@@ -47,13 +58,18 @@ constexpr int kWideMaxCons = 2;  // consumer warpgroups at most
 // (128 x (40 + 2 x 232) <= 65536)
 constexpr int kWideProdRegs = 40, kWideConsRegs = 232;
 constexpr int kWideThreads = 128 * (kWideMaxCons + 1);
-constexpr int kWideStage = 128 * 128;  // bytes of a ring stage: a [128][64] bf16 piece
-constexpr int kWideMaxStages = 8;
-constexpr int kWideMinStages = 2;
+constexpr int kWideBlock = 64;  // columns of a block at most
+constexpr int kWideStage = kWideBlock * 128;  // bytes of a ring stage: a [64][64] bf16 piece
+constexpr int kWideMaxStages = 16;
+// at least four stages: as many bytes in flight as two [128][64] pieces
+constexpr int kWideMinStages = 4;
+// k16 steps a fresh accumulator in wide_product (a span; a K-chunk, one
+// ring piece, holds 4: a fresh accumulator a piece)
+constexpr int kWideSpan = 4;
 
-// The width of the column block at c0 of an n-wide output: 128-column
-// blocks (hopper.cuh's column_block).
-__host__ __device__ inline int wide_bn(int n, int c0) { return column_block(n, c0, 128); }
+// The width of the column block at c0 of an n-wide output: 64-column
+// blocks (hopper.cuh's column_block), the last one narrower.
+__host__ __device__ inline int wide_bn(int n, int c0) { return column_block(n, c0, kWideBlock); }
 
 // Bytes of a consumer's two activation tiles at width hp.
 __host__ __device__ inline size_t wide_act_bytes(int hp) {
@@ -195,33 +211,86 @@ __host__ __device__ inline int wide_fwd_pieces(int hp, int kx, int nt, int skip_
 
 // acc[64 x BN] = A B over nh K-chunks of the tile at ah (kh16 valid k16 steps
 // in all: columns past them are never read) and ne chunks of the tile at ae
-// (all four steps), each against the next ring piece.
+// (all four steps), each against the next ring piece. Each span of
+// kWideSpan k16 steps of a chunk (fewer at a short chunk's end) goes into a
+// fresh accumulator (scale-d 0 on its first step), one wgmma group; the
+// spans alternate between f0 and f1, and once span i + 1 is issued, span i
+// is waited for (wgmma.wait_group 1) and added to acc in f32, to nearest, in
+// span order. A piece is released when the last span that reads it is done.
 template <int BN>
 __device__ __forceinline__ void wide_product(float (&acc)[BN / 2], uint32_t ah, int nh, int kh16,
                                              uint32_t ae, int ne, WideRing& wr) {
-  fence_regs(acc);
-  wgmma_fence();
-  for (int c = 0; c < nh + ne; ++c) {
-    const uint32_t st = wr.acquire();
-    const bool h = c < nh;
-    const uint32_t a = h ? ah + c * kEncChunk : ae + (c - nh) * kEncChunk;
-    const int steps = h ? min(4, kh16 - 4 * c) : 4;
+  const int n = nh + ne;
+  int c = 0, k = 0, steps = 0;  // the next span's chunk and first step; the chunk's steps
+  uint32_t a = 0, st = 0;
+  // the next span into f; whether it ends its chunk
+  auto issue = [&](float(&f)[BN / 2]) {
+    if (k == 0) {
+      st = wr.acquire();
+      const bool h = c < nh;
+      a = h ? ah + c * kEncChunk : ae + (c - nh) * kEncChunk;
+      steps = h ? min(4, kh16 - 4 * c) : 4;
+    }
+    fence_regs(f);
+    wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      if (ks < steps) {
-        wgmma_bf16<BN, 0, 0>(acc, kmajor_desc(a + ks * 32), kmajor_desc(st + ks * 32),
-                             c > 0 || ks > 0);
+    for (int i = 0; i < kWideSpan; ++i) {
+      if (i == 0 || k + i < steps) {
+        wgmma_bf16<BN, 0, 0>(f, kmajor_desc(a + (k + i) * 32), kmajor_desc(st + (k + i) * 32),
+                             i > 0);
       }
     }
     wgmma_commit();
-    if (c > 0) {
-      wgmma_wait1();
-      wr.release();
+    k += kWideSpan;
+    const bool ends = k >= steps;
+    if (ends) {
+      k = 0;
+      ++c;
     }
+    return ends;
+  };
+  // the span in f is done: into the sum, and its piece released if it ends it
+  auto retire = [&](float(&f)[BN / 2], bool ends) {
+    fence_regs(f);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] += f[i];
+    if (ends) wr.release();
+  };
+  float f0[BN / 2], f1[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  bool e0 = issue(f0), e1;
+  while (true) {
+    if (c == n) {
+      wgmma_wait0();
+      retire(f0, e0);
+      break;
+    }
+    e1 = issue(f1);
+    wgmma_wait1();
+    retire(f0, e0);
+    if (c == n) {
+      wgmma_wait0();
+      retire(f1, e1);
+      break;
+    }
+    e0 = issue(f0);
+    wgmma_wait1();
+    retire(f1, e1);
   }
-  wgmma_wait0();
-  wr.release();
   fence_regs(acc);
+}
+
+// f(BN) with BN a compile-time width for the run-time width bn of a block
+// (wide_bn of a multiple of 16: 64, the last 48, 32 or 16).
+template <class F>
+__device__ __forceinline__ void with_wide_bn(int bn, F&& f) {
+  switch (bn) {
+    case 64: f(std::integral_constant<int, 64>{}); break;
+    case 48: f(std::integral_constant<int, 48>{}); break;
+    case 32: f(std::integral_constant<int, 32>{}); break;
+    default: f(std::integral_constant<int, 16>{}); break;
+  }
 }
 
 // A hidden layer's epilogue on the column block c0 of an [64 x BN]
@@ -385,15 +454,14 @@ __device__ __forceinline__ void wide_tile(const WideTile& T, WideRing& wr, int r
     const float* bias = aux + T.aux_off[l];
     const uint32_t words = l > 0 ? wbuf(l - 1) : 0u;
     float s0 = 0.f, s1 = 0.f;
+    // the layer's A: layer1 the encoding alone, a skip layer the encoding after the input
+    const uint32_t ah = l == 0 ? 0u : in;
+    const int nh = l == 0 ? 0 : kch, kh16 = l == 0 ? 0 : hp / 16, ne = l == 0 || skip ? T.kx : 0;
     for (int c0 = 0; c0 < hp; c0 += wide_bn(hp, c0)) {
-      with_bn(wide_bn(hp, c0), [&](auto bn) {
+      with_wide_bn(wide_bn(hp, c0), [&](auto bn) {
         constexpr int BN = decltype(bn)::value;
         float acc[BN / 2];
-        if (l == 0) {
-          wide_product<BN>(acc, 0, 0, 0, T.enc, T.kx, wr);
-        } else {
-          wide_product<BN>(acc, in, kch, hp / 16, T.enc, skip ? T.kx : 0, wr);
-        }
+        wide_product<BN>(acc, ah, nh, kh16, T.enc, ne, wr);
         wide_hidden_epilogue<BN>(acc, c0, bias, l > 0, has_head ? w_alpha : nullptr, s0, s1, out,
                                  words);
       });
@@ -409,7 +477,7 @@ __device__ __forceinline__ void wide_tile(const WideTile& T, WideRing& wr, int r
   const uint32_t ytile = maps != nullptr ? T.act[cur ^ 1] : 0u;
   float crgb[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
   for (int c0 = 0; c0 < h2; c0 += wide_bn(h2, c0)) {
-    with_bn(wide_bn(h2, c0), [&](auto bn) {
+    with_wide_bn(wide_bn(h2, c0), [&](auto bn) {
       constexpr int BN = decltype(bn)::value;
       float ad[BN / 2];
       wide_product<BN>(ad, T.act[cur], kch, hp / 16, 0, 0, wr);

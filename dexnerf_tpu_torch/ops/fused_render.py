@@ -174,10 +174,12 @@ def check_width(hidden: int, compute_dtype, what: str) -> None:
 
 
 # of ops/csrc/mlp_wide_bf16.cuh (kWide*)
-WIDE_STAGE = 128 * 128
+WIDE_BLOCK = 64  # columns of a column block (kWideBlock)
+WIDE_STAGE = WIDE_BLOCK * 128
 WIDE_MAX_CONS = 2
-WIDE_MAX_STAGES = 8
-WIDE_MIN_STAGES = 2
+WIDE_MAX_STAGES = 16
+WIDE_MIN_STAGES = 4
+WIDE_SPAN = 4  # k16 steps a fresh accumulator in wide_product (kWideSpan)
 
 
 def wide_plan(cons_bytes: int) -> Optional[Tuple[int, int, int]]:

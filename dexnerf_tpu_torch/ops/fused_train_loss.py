@@ -65,8 +65,9 @@ fixed-order reduction: bitwise-repeatable runs. Widths that are not a multiple o
 zero-padded to one. Padded widths above 128, up to
 :data:`~dexnerf_tpu_torch.ops.fused_render.MAX_HIDDEN_BF16`, take the wide
 route: the forward and the chain on ``ops/csrc/mlp_wide_bf16.cuh``'s tile
-(the layers in shared memory, column blocks of at most 128; the chain's
-ReLU masks the mask words the forward writes, :func:`wide_mask_words`), the
+(the layers in shared memory, column blocks of 64, a fresh accumulator a
+K-chunk; the chain's ReLU masks the mask words the forward writes,
+:func:`wide_mask_words`), the
 dW plan's units split to the kernel's limits (:func:`dw_split`) and
 launched in parts (:func:`_cached_dw_parts`) with a fresh accumulator a
 stage. The f32 route
@@ -153,7 +154,7 @@ DW_MAX_BOXES = 6
 DW_MAX_BLOCKS = 8
 DW_MAX_PARTS = 8  # launches of a plan in parts (kDwMaxParts)
 DW_SMEM_MAX = 232448
-WIDE_BOX_ROWS = 128  # rows of the wide chain's weight boxes
+WIDE_BOX_ROWS = 64  # rows of the wide chain's weight boxes (kWideBlock; the narrow's: Hp)
 CHAIN_KCHUNK = 64  # K of a chain weight chunk (one [Hp][64] TMA box)
 ENC_PAD = 32  # the scratch's encoding block: dim_xyz padded to a multiple (kEncPad)
 # the f32 pass's kernels (``parts`` bits of ops/csrc/fused_train_loss.cu): prep,
@@ -1190,7 +1191,7 @@ class Bf16Gradients:
         ctypes.memmove(self.chain_maps.blocks, self.dw_args.maps, ctypes.sizeof(self.dw_args.maps))
         check(lib, lib.dexnerf_train_bf16_tensor_map(
             ctypes.addressof(self.chain_maps), self.wbq.data_ptr(), CHAIN_KCHUNK,
-            self.wbq.numel() // CHAIN_KCHUNK, min(Hp, WIDE_BOX_ROWS)),
+            self.wbq.numel() // CHAIN_KCHUNK, WIDE_BOX_ROWS if is_wide(model) else Hp),
             "bf16 backward-pack tensor map")
         args.scratch, args.wbq = self.scratch.data_ptr(), self.wbq.data_ptr()
         args.masks = None if self.masks is None else self.masks.data_ptr()

@@ -1,0 +1,146 @@
+"""The bf16 card rule, the exact contract, and the exact-contract rule
+that was proposed for the cases where the exact contract itself misses the
+card rule (ROADMAP Queue 3, fault 9).
+
+The card rule (``chip_smoke.py`` phase 7) holds each output and gradient
+leaf of a bf16 route to its bf16 plain version relative to the dtype's own
+effect, own = |bf16 plain - f32 plain|: the route's distance to the bf16
+plain version at most own (max) and 0.25 own (99.9th percentile), its
+distance to the f32 plain version at most 1.5 own, each + 1e-5 of the
+leaf's largest entry.
+
+The contract is JAX's ``_make_loss_kernel`` / ``_make_bwd_kernel`` at
+bf16: operands rounded to bf16, accumulation in f32. Its most faithful
+implementation, ``exact``, is the bf16 plain version with every product of
+two bf16 operands (the forward's, the chain's input cotangents and the
+weight gradients) summed in float64 and rounded once to f32, every other
+rounding where the plain version has it (:func:`exact_linear`,
+:func:`on_linear`). On some inputs ``exact`` misses the card rule: there
+no correct kernel can be held to it.
+
+The exact-contract rule (:func:`exact_rule`) was to hold a kernel in such
+a case: (a) the card rule's clauses with own's max and 99.9th percentile
+each the larger of |bf16 plain - f32 plain|'s and |exact - bf16 plain|'s,
+and (b) the kernel's largest distance to ``exact`` at most EXACT_REL times
+the bf16 plain version's, + 1e-5 of the leaf's largest entry. On the card
+a legal reordering of the plain version (``perm``) misses it in 24 of the
+25 cases of ``perf_tools/wide_bf16_rule_witness.py`` where ``exact`` misses
+the card rule (PERF.md section 6), so it is no rule for a kernel, and
+:func:`hold_case` holds every case to the card rule alone, naming the
+leaves where ``exact`` misses that rule too. The card tests
+(``tests/test_torch_train_loss_bf16.py``, ``tests/test_torch_fused_mlp_bf16.py``)
+hold the kernels by :func:`hold_case`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+P999, REL, ATOL = 0.25, 1.5, 1e-5  # the card rule's limits
+EXACT_REL = 1.5  # clause (b): the distance to exact over the bf16 plain version's
+
+
+def p999(x) -> float:
+    """The 99.9th percentile of ``x``'s entries (its largest for fewer than
+    2000)."""
+    import torch
+
+    flat = x.flatten()
+    return float(torch.topk(flat, max(1, flat.numel() // 1000)).values[-1])
+
+
+def exact_linear():
+    """``fused_train_loss._RoundedLinear`` with every product of two bf16
+    operands summed in float64 and rounded once to float32; the rest (the
+    roundings, the products with an f32 operand) as it is."""
+    import torch
+
+    from dexnerf_tpu_torch.ops.fused_train_loss import _round
+
+    bf, f32, f64 = torch.bfloat16, torch.float32, torch.float64
+
+    def mm(a, b, both_bf16):  # a [..., K] times b [K, N]
+        if not both_bf16:
+            return a @ b
+        out = torch.mm(a.reshape(-1, a.shape[-1]).to(f64), b.to(f64)).to(f32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+
+    class ExactLinear(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, w, x_dtype, w_dtype, save_dtype, dw_dtype):
+            wr = _round(w, w_dtype)
+            ctx.save_for_backward(_round(x, save_dtype), wr)
+            ctx.dtypes = (w_dtype, dw_dtype)
+            return mm(_round(x, x_dtype), wr.t(), x_dtype == w_dtype == bf)
+
+        @staticmethod
+        def backward(ctx, g):
+            saved, wr = ctx.saved_tensors
+            w_dtype, dw_dtype = ctx.dtypes
+            gx = mm(_round(g, w_dtype), wr, w_dtype == bf) if ctx.needs_input_grad[0] else None
+            g2 = _round(g, dw_dtype).reshape(-1, g.shape[-1])
+            gw = mm(g2.t(), _round(saved, dw_dtype).reshape(-1, saved.shape[-1]),
+                    dw_dtype == bf)
+            return gx, gw, None, None, None, None
+
+    return ExactLinear
+
+
+@contextlib.contextmanager
+def on_linear(linear):
+    """The training plain versions (``flex_forward_train`` and what calls
+    it) with ``linear`` in place of ``_RoundedLinear`` inside the block."""
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+
+    plain = ftl._RoundedLinear
+    ftl._RoundedLinear = linear
+    try:
+        yield
+    finally:
+        ftl._RoundedLinear = plain
+
+
+def rule_row(a, b, f):
+    """[max, p99.9 of |a - b|, max |a - f|, own max, own p99.9] (own = |b -
+    f|) and the leaf's atol."""
+    own, e_b, e_f = (b - f).abs(), (a - b).abs(), (a - f).abs()
+    return ([float(e_b.max()), p999(e_b), float(e_f.max()), float(own.max()), p999(own)],
+            ATOL * float(b.abs().max()))
+
+
+def card_rule(a, b, f, use_p999=True) -> bool:
+    """Whether ``a`` holds the card rule against the bf16 plain version
+    ``b`` and the f32 plain version ``f`` (with ``use_p999`` False: its max
+    clauses alone)."""
+    row, atol = rule_row(a, b, f)
+    return (row[0] <= row[3] + atol and (not use_p999 or row[1] <= P999 * row[4] + atol)
+            and row[2] <= REL * row[3] + atol)
+
+
+def exact_rule(a, b, f, x, use_p999=True) -> bool:
+    """Whether ``a`` holds the exact-contract rule (see the module's
+    docstring) against ``b``, ``f`` and ``exact`` ``x``."""
+    row, atol = rule_row(a, b, f)
+    d = (x - b).abs()
+    o_max, o_999 = max(row[3], float(d.max())), max(row[4], p999(d))
+    ok_a = (row[0] <= o_max + atol and (not use_p999 or row[1] <= P999 * o_999 + atol)
+            and row[2] <= REL * o_max + atol)
+    ok_b = float((a - x).abs().max()) <= EXACT_REL * float(d.max()) + atol
+    return ok_a and ok_b
+
+
+def hold_case(got: dict, bp: dict, fp: dict, xp: dict, p999_min=0):
+    """One case by the card rule: the leaves of ``got`` outside it, {leaf:
+    [max, p99.9 vs bf16 plain, max vs f32 plain, own max, own p99.9]}, and
+    the leaves where ``exact`` ``xp`` misses it too (where a kernel's miss
+    is the rule's: fault 9). A leaf of fewer than ``p999_min`` entries is
+    held by the max clauses alone, ``exact``'s too."""
+    bad, exact_misses = {}, []
+    for k in bp:
+        a, b, f, x = got[k].detach(), bp[k].detach(), fp[k].detach(), xp[k].detach()
+        use = b.numel() >= p999_min
+        if not card_rule(a, b, f, use):
+            bad[k] = [float(f"{v:.4g}") for v in rule_row(a, b, f)[0]]
+        if not card_rule(x, b, f, use):
+            exact_misses.append(k)
+    return bad, exact_misses

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""What holds the wide bf16 chain, dW and forward of kernels 3-4 (padded
+"""What holds the wide bf16 chain, dW and forward of kernels 2-4 (padded
 widths above 128: ``train_chain_wide_kernel``, ``train_dw_bf16_kernel<true>``
 and ``train_fwd_wide_kernel<4>`` in ``ops/csrc/fused_train_loss_bf16.cu``,
 with ``ops/csrc/mlp_wide_bf16.cuh``) on one NVIDIA Hopper card.
@@ -11,8 +11,11 @@ each (edits of ``fused_train_loss_bf16.cu`` and the headers it includes),
 compiles each copy's ``fused_train_loss_bf16.cu`` into its own library, and
 times the three kernels on kernel 4's two passes of one 8x256 train step
 (FlexibleNeRF 8x256 skip 3, PE 10/4, batch 8192, 64 + 128 samples, seeded
-weights and inputs): device ms per step from ``torch.profiler`` over 3 steps
-after a warm one, each variant twice, in turns. ``--only`` times the named
+weights and inputs), and the forwards of kernels 2 and 3
+(``train_fwd_wide_kernel<2>``, ``<3>``) and kernel 3's chain on the fine
+pass (``fused_field``, ``fused_field_train`` and its backward on a random
+cotangent): device ms per step from ``torch.profiler`` over 3 steps after a
+warm one, each variant twice, in turns. ``--only`` times the named
 variants alone (``--only full`` builds no copy: the package's own library).
 To compare with a commit whose argument blocks differ (say the parent), run
 the tool from a ``git archive`` of that commit with ``--only full``, in
@@ -24,8 +27,13 @@ no mask word copied), ``no_ycot`` (the y-cotangent step skipped, its
 viewdir adds with it), ``no_vd_flush`` (only the viewdir rows' adds
 skipped), ``no_colsum`` (no column sums and no bias sums),
 ``no_stores`` (no TMA stores of the cotangent tiles), ``products_only`` (all
-four), ``wait2`` (two ``wgmma`` groups in flight, ``wait_group 2``),
-``one_consumer`` (one consumer warpgroup a CTA); the dW's ``fresh_off`` (the
+four); the wide product's ``span1`` and ``span2`` (a fresh accumulator
+every 1 or 2 k16 steps, not every K-chunk of 4) and ``no_promote`` (the fresh accumulators
+not added to the block's sum), the wide tile's ``no_epilogue`` (the
+forward's bias, ReLU, stores, mask words and heads) and
+``no_finish_stores`` (the forward's layer stores and their barrier), each
+skipped by a condition the compiler cannot decide, and ``one_consumer``
+(one consumer warpgroup a CTA); the dW's ``fresh_off`` (the
 narrow accumulation, one accumulator over all stages),
 ``one_wait_per_stage`` (every block's fresh products of a stage issued, then
 one wait) and ``two_parts`` (two part accumulators, ``wait_group 1`` across
@@ -41,7 +49,7 @@ Beside the times: each kernel's bound on these passes and its products as
 bf16 ``torch.matmul`` (``chip_smoke.py``'s ``bf16_part_bounds``,
 ``pass_yardsticks`` and ``dw_yardsticks``: the checkout's own design).
 Prints each copy's ptxas registers, spills and any C75xx line (``wgmma``
-serialized) for the three kernels, the card line (nvidia-smi) and, as the
+serialized) for the kernels, the card line (nvidia-smi) and, as the
 last line, one JSON object. Exits non-zero without a card.
 """
 
@@ -86,24 +94,24 @@ NO_STORES = [
     (SRC, "tma_store_2d(&m.blocks[n_act + nt + 2], 64 * x, (int)k0, cot0 + x * kEncChunk);",
      "{}"),
 ]
-WAIT2 = [(HDR, """    wgmma_commit();
-    if (c > 0) {
-      wgmma_wait1();
-      wr.release();
-    }
-  }
-  wgmma_wait0();
-  wr.release();
-""", """    wgmma_commit();
-    if (c > 1) {
-      asm volatile("wgmma.wait_group.sync.aligned 2;\\n" ::: "memory");
-      wr.release();
-    }
-  }
-  wgmma_wait0();
-  if (nh + ne > 1) wr.release();
-  wr.release();
-""")]
+# the promoted product without its adds (the fresh accumulators' products
+# still run: the adds are skipped by a condition the compiler cannot decide)
+NO_PROMOTE = [(HDR, "for (int i = 0; i < BN / 2; ++i) acc[i] += f[i];",
+               "for (int i = 0; i < BN / 2; ++i) {\n      if (wr.ns < 0) acc[i] += f[i];\n    }")]
+# the wide tile's epilogues (bias, ReLU, bf16 stores, mask words, heads)
+# skipped by a condition the compiler cannot decide
+NO_EPILOGUE = [
+    (HDR, "uint32_t out, uint32_t words) {\n",
+     "uint32_t out, uint32_t words) {\n  if (bias != nullptr) return;\n"),
+    (HDR, "uint32_t ytile, uint32_t words) {\n",
+     "uint32_t ytile, uint32_t words) {\n  if (dirb != nullptr) return;\n"),
+]
+SPAN1 = [(HDR, "constexpr int kWideSpan = 4;", "constexpr int kWideSpan = 1;")]
+SPAN2 = [(HDR, "constexpr int kWideSpan = 4;", "constexpr int kWideSpan = 2;")]
+# finish's TMA stores of the layer outputs and mask words, and its second
+# barrier, skipped by a condition the compiler cannot decide
+NO_FINISH_STORES = [(HDR, "    if (maps != nullptr) {\n      if (t == 0) {",
+                     "    if (maps != nullptr && T.hp < 0) {\n      if (t == 0) {")]
 # the wide forward without its ReLU mask words (the chain then reads stale ones)
 FWD_NO_WORDS = [(SRC, "kSave ? p.masks + (size_t)(r0 / kTile) * wide_mask_words(hp, nt) * 128"
                       " : nullptr", "nullptr")]
@@ -178,10 +186,16 @@ VARIANTS = {
     "full": [], "masks_const": MASKS_CONST, "no_ycot": NO_YCOT, "no_vd_flush": NO_VD_FLUSH,
     "no_colsum": NO_COLSUM, "no_stores": NO_STORES,
     "products_only": MASKS_CONST + NO_YCOT + NO_COLSUM + NO_STORES,
-    "wait2": WAIT2, "one_consumer": ONE_CONSUMER, "fresh_off": FRESH_OFF,
+    "span1": SPAN1, "span2": SPAN2,
+    "no_promote": NO_PROMOTE, "no_epilogue": NO_EPILOGUE,
+    "no_finish_stores": NO_FINISH_STORES, "one_consumer": ONE_CONSUMER, "fresh_off": FRESH_OFF,
     "one_wait_per_stage": ONE_WAIT, "two_parts": TWO_PARTS, "fwd_no_words": FWD_NO_WORDS,
 }
 KERNELS = ("train_chain_wide_kernel", "train_dw_bf16_kernel", "train_fwd_wide_kernel<4>")
+# kernels 2-3 on the fine pass (kernel 2's forward, kernel 3's forward and chain)
+FIELD_KERNELS = {"train_fwd_wide_kernel<2>": "train_fwd_wide_kernel<2>",
+                 "train_fwd_wide_kernel<3>": "train_fwd_wide_kernel<3>",
+                 "train_chain_wide_kernel": "train_chain_wide_kernel (kernel 3)"}
 BASES = ("train_chain_bf16_kernel", "train_dw_bf16_kernel", "train_fwd_bf16_kernel")
 ENTRIES = ("dexnerf_train_bf16_size", "dexnerf_train_bf16_dw_span", "dexnerf_train_bf16_pass",
            "dexnerf_train_bf16_dw", "dexnerf_train_bf16_tensor_map", "dexnerf_train_bf16_reduce",
@@ -215,8 +229,9 @@ def ptxas_lines(log):
             name = next((k for k in (*KERNELS[:2], "train_fwd_wide_kernel",
                                      "fused_render_wide_kernel") if k in line), None)
             if name:
+                tag = next((f"<{i}>" for i in (2, 3, 4) if f"ILi{i}E" in line), "")
                 out.append(name + ("<fresh>" if "ILb1E" in line else
-                                   "<plain>" if "ILb0E" in line else ""))
+                                   "<plain>" if "ILb0E" in line else tag))
         elif name and ("spill" in line or "registers" in line):
             out.append("  " + line.strip().replace("ptxas info    : ", ""))
             if "registers" in line:
@@ -329,6 +344,8 @@ def main() -> int:
         return torch.cat([p.grad.reshape(-1) for p in m.parameters()])
 
     from dexnerf_tpu_torch.core.volrend import ray_dists
+    from dexnerf_tpu_torch.ops import fused_mlp as fm
+    from dexnerf_tpu_torch.ops import fused_mlp_train as fmt
     from dexnerf_tpu_torch.ops import fused_render as fr
 
     nf = 400 * 400  # kernel 1: a 400x400 frame, 64 coarse samples, then 64 + 128 fine
@@ -352,6 +369,31 @@ def main() -> int:
         return round(sum((e.time_range.end - e.time_range.start) / 3 / 1e3 for e in prof.events()
                          if e.device_type == torch.autograd.DeviceType.CUDA
                          and "fused_render_wide_kernel" in e.name), 4)
+
+    mf, zf, _, _ = passes[1]  # kernels 2-3 on the fine pass's samples
+    fpts = (o[:, None] + d[:, None] * zf[..., None]).contiguous()
+    fg = 1e-2 * torch.randn(fpts.shape[:2] + (4,), generator=torch.Generator(device=dev)
+                            .manual_seed(0), device=dev)
+
+    def field_step():
+        fm.fused_field(mf, fpts, v, compute_dtype=torch.bfloat16)
+        mf.zero_grad(set_to_none=True)
+        fmt.fused_field_train(mf, fpts, v, **bf).backward(fg)
+
+    def field_ms():
+        field_step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                field_step()
+            torch.cuda.synchronize()
+        out = {k: 0.0 for k in FIELD_KERNELS.values()}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                k = next((k for k in FIELD_KERNELS if k in e.name), None)
+                if k:
+                    out[FIELD_KERNELS[k]] += (e.time_range.end - e.time_range.start) / 3 / 1e3
+        return {k: round(t, 4) for k, t in out.items()}
 
     def device_ms():
         with torch.no_grad():
@@ -384,7 +426,7 @@ def main() -> int:
                         ref = g
                     scale = float(ref.abs().max())
                     grad_diff[name] = float((g - ref).abs().max()) / scale if scale else None
-                t = device_ms()
+                t = {**device_ms(), **field_ms()}
                 if name == "full":
                     t["fused_render_wide_kernel"] = frame_ms()
                 for k, x in t.items():

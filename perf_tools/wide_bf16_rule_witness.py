@@ -9,47 +9,44 @@ the card tests' inputs (``tests/test_torch_train_loss_bf16.py`` and
 
 From the repository root, on a machine with a CUDA card. The card rule
 holds each field and gradient leaf to the dtype's own effect, own = |bf16
-plain - f32 plain|: the kernel's distance to the bf16 plain version at most
-own (max) and 0.25 own (99.9th percentile), its distance to the f32 plain
-version at most 1.5 own, each + 1e-5 of the leaf's largest entry. Beside
-the kernel, two other versions of the same contract, on the same inputs,
-each held to the plain version by the same rule (a miss there is the
-rule's, not a kernel's):
+plain - f32 plain| (``perf_tools/bf16_exact_rule.py``). Beside the kernel,
+three other versions of the same contract, on the same inputs, each held
+to the plain version by the same rules:
 
+- ``exact``: the bf16 plain version with every product of two bf16
+  operands summed in float64 and rounded once to f32 (the contract's most
+  faithful implementation; where it misses the card rule, no correct
+  kernel can be held to that rule);
 - ``perm``: the bf16 plain version of the same model with every hidden
   layer's units permuted (the same function; only the order of each f32
   sum over hidden units differs), its gradients permuted back;
 - ``tc``: the bf16 plain version with each product of two bf16 operands
-  on the tensor cores (``torch.mm`` of bf16 tensors into float32: the
-  kernels' ``wgmma`` arithmetic, whose f32 accumulation is not the CUDA
+  on the tensor cores (``torch.mm`` of bf16 tensors into float32: one
+  accumulator over the whole K, whose f32 accumulation is not the CUDA
   cores' round-to-nearest).
 
-Beside each, its distance to the float64 model (``perf_tools/field_f32_rule.py``,
-on float64's own ReLU decisions) over the plain version's: max and 99.9th
-percentile. ``pad`` runs a 320-wide model and the same model zero-padded to
-576 (``perf_tools/kernel1_small_units.py::embedded``: every added weight
-and bias 0, the same function) through both kernels: the forward's outputs
-equal bit for bit, and the gradients on the 320 units and the added ones'
-(exactly 0 if the 576 route computes what the 320 route does), and two
-launches at 576 bit for bit.
+Where ``exact`` misses the card rule in a case, each version is held there
+to the exact-contract rule instead (``bf16_exact_rule.exact_rule``). Each
+case gets the kernel's verdict: ``passes the card rule``, ``passes the
+exact-contract rule`` (``exact`` misses the card rule, the kernel holds the
+exact-contract rule on every leaf) or ``misses``. The rule is sound only if
+``perm`` passes it in every case where ``exact`` misses the card rule, and
+it decides something only if ``tc`` misses it in one case at least: the
+last line says both. ``pad`` runs a 320-wide model and the same model
+zero-padded to 576 (``perf_tools/kernel1_small_units.py::embedded``: every
+added weight and bias 0, the same function) through both kernels: the
+forward's outputs equal bit for bit, and the gradients on the 320 units and
+the added ones' (exactly 0 if the 576 route computes what the 320 route
+does), and two launches at 576 bit for bit.
 
-The second rule, beside the card rule and only for a case where ``perm``
-misses the card rule too: (a) the card rule's clauses with own's max and
-99.9th percentile each the larger of |bf16 plain - f32 plain|'s and |perm
-- bf16 plain|'s (a legal reordering of the same contract's f32 sums), and
-(b) on every leaf the kernel's largest distance to the float64 model at
-most F64_REL times the bf16 plain version's, + 1e-5 of the leaf's largest
-entry. Each case gets one verdict: ``passes the rule``, ``passes only the
-second rule`` (``perm`` misses the case, every leaf holds (a) and (b)) or
-``misses`` (a case where ``perm`` passes never takes the second rule).
-
-Prints, for every case, each leaf that misses the rule for the kernel or a
-witness, with [max, p99.9 vs the bf16 plain version, max vs the f32 plain
-version, own max, own p99.9] and the float64 ratios, then the case's
-verdict; then the card line; then one JSON object (the last line) with the
-misses, the verdicts and, for each case, the largest rule ratios and
-float64 ratios over all leaves. To compare with another commit, copy this
-file into a ``git archive`` of it and run it there in the same call.
+Prints, for every case, each leaf that misses the card rule for the kernel
+or a witness, with [max, p99.9 vs the bf16 plain version, max vs the f32
+plain version, own max, own p99.9] and the rule's ratios, then the case's
+verdicts; then the card line; then one JSON object (the last line) with
+the counts, the cases where ``exact`` misses, the two checks of the rule,
+and each case's misses and verdicts. To compare with another commit, copy
+this file and ``perf_tools/bf16_exact_rule.py`` into a ``git archive`` of
+it and run it there in the same call.
 """
 
 from __future__ import annotations
@@ -65,19 +62,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 
-P999, REL, ATOL = 0.25, 1.5, 1e-5
-F64_REL = 1.25  # the second rule's float64 clause
-VERDICTS = ("passes the rule", "passes only the second rule", "misses")
+VERDICTS = ("passes the card rule", "passes the exact-contract rule", "misses")
 K4_CASES = [(320, 64, 300), (320, 128, 300), (576, 64, 300), (576, 128, 300), (576, 7, 301)]
 K4_KW = [("rgb", False), ("rgb", True), ("luminance", False), ("luminance", True)]
 K3_CASES = [(576, 64, 300), (576, 128, 300), (576, 256, 300)]
-
-
-def p999(x):
-    import torch
-
-    flat = x.flatten()
-    return float(torch.topk(flat, max(1, flat.numel() // 1000)).values[-1])
 
 
 def permuted(model, gen):
@@ -149,89 +137,58 @@ def on_units(gq, p, name, H, width):
     return torch.cat([gq[:rows, :H], gq[:rows, width:width + n_in - H]], 1), mask
 
 
-def rule(a, b, f):
-    """[max, p99.9 vs the bf16 plain version, max vs the f32 plain version,
-    own max, own p99.9] of ``a`` and whether the card rule holds."""
-    atol = ATOL * float(b.abs().max())
-    own, e_b, e_f = (b - f).abs(), (a - b).abs(), (a - f).abs()
-    row = [float(e_b.max()), p999(e_b), float(e_f.max()), float(own.max()), p999(own)]
-    ok = (row[0] <= row[3] + atol and row[1] <= P999 * row[4] + atol
-          and row[2] <= REL * row[3] + atol)
-    return row, ok
-
-
 def ratios(row):
-    """The rule's three ratios (limits 1, 0.25, 1.5)."""
+    """The card rule's three ratios (limits 1, 0.25, 1.5)."""
     return [row[0] / row[3] if row[3] else 0.0, row[1] / row[4] if row[4] else 0.0,
             row[2] / row[3] if row[3] else 0.0]
 
 
-def f64_ratios(a, b, x):
-    """|a - x| over |b - x| (x the float64 gradient): max and p99.9."""
-    ea, eb = (a.double() - x).abs(), (b.double() - x).abs()
-    return [float(ea.max()) / max(float(eb.max()), 1e-300), p999(ea) / max(p999(eb), 1e-300)]
-
-
-def second_rule(a, b, f, pm, x):
-    """The second rule on one leaf (see the module's docstring): (a) the card
-    rule with own's statistics the larger of |b - f|'s and |pm - b|'s, and
-    (b) |a - x| at most F64_REL |b - x| (largest entries; skipped where the
-    float64 model ``x`` is None: an output, not a leaf), each + ATOL of the
-    leaf's largest entry."""
-    atol = ATOL * float(b.abs().max())
-    own, dp = (b - f).abs(), (pm - b).abs()
-    e_b, e_f = (a - b).abs(), (a - f).abs()
-    o_max, o_999 = max(float(own.max()), float(dp.max())), max(p999(own), p999(dp))
-    ok_a = (float(e_b.max()) <= o_max + atol and p999(e_b) <= P999 * o_999 + atol
-            and float(e_f.max()) <= REL * o_max + atol)
-    ok_b = x is None or (float((a.double() - x).abs().max())
-                         <= F64_REL * float((b.double() - x).abs().max()) + atol)
-    return ok_a and ok_b
-
-
-def judge(label, names, versions, bp, fp, x64, report):
+def judge(label, names, versions, bp, fp, report):
     """Every leaf of one case: each version's (the kernel's and the
-    witnesses', ``versions`` {name: leaves}) rule row and float64 ratios;
-    prints and records the misses."""
+    witnesses', ``versions`` {name: leaves}, ``exact`` among them) card-rule
+    row; where ``exact`` misses the card rule on a leaf, each version under
+    the exact-contract rule; prints and records the misses and verdicts."""
+    from perf_tools.bf16_exact_rule import card_rule, exact_rule, rule_row
+
     worst = {w: [0.0, 0.0, 0.0] for w in versions}
-    worst.update({f"{w}_f64": [0.0, 0.0] for w in versions})
     misses = {w: {} for w in versions}
-    for i, (name, b, f, x) in enumerate(zip(names, bp, fp, x64)):
+    for i, (name, b, f) in enumerate(zip(names, bp, fp)):
         for who, leaves in versions.items():
-            row, ok = rule(leaves[i], b, f)
-            f64 = f64_ratios(leaves[i], b, x)
+            row, _ = rule_row(leaves[i], b, f)
             worst[who] = [max(u, v) for u, v in zip(worst[who], ratios(row))]
-            worst[f"{who}_f64"] = [max(u, v) for u, v in zip(worst[f"{who}_f64"], f64)]
-            if not ok:
+            if not card_rule(leaves[i], b, f):
                 misses[who][name] = {"row": [float(f"{v:.4g}") for v in row],
                                      "ratios": [float(f"{v:.3g}") for v in ratios(row)],
-                                     "f64": [float(f"{v:.3g}") for v in f64],
                                      "entries": leaves[i].numel()}
-    print(f"{label}: misses " + ", ".join(f"{w} {len(m)}" for w, m in misses.items())
+    exact_misses = bool(misses["exact"])
+    under_exact = {}
+    if exact_misses:
+        xs = versions["exact"]
+        for who in ("kernel", "perm", "tc"):
+            under_exact[who] = [names[i] for i, (b, f) in enumerate(zip(bp, fp))
+                                if not exact_rule(versions[who][i], b, f, xs[i])]
+    print(f"{label}: card-rule misses " + ", ".join(f"{w} {len(m)}" for w, m in misses.items())
           + "; worst ratios (max, p99.9, vs f32; limits 1, 0.25, 1.5) "
-          + ", ".join(f"{w} {[round(v, 3) for v in worst[w]]}" for w in versions)
-          + "; float64 distance over the plain version's (max, p99.9) "
-          + ", ".join(f"{w} {[round(v, 3) for v in worst[w + '_f64']]}" for w in versions))
+          + ", ".join(f"{w} {[round(v, 3) for v in worst[w]]}" for w in versions))
     for who, m in misses.items():
         for name, d in m.items():
             print(f"  {who} misses {name} ({d['entries']} entries): {json.dumps(d)}")
-    if not misses["kernel"]:
-        verdict = VERDICTS[0]
-    elif misses["perm"] and all(second_rule(versions["kernel"][i], b, f, versions["perm"][i], x)
-                                for i, (b, f, x) in enumerate(zip(bp, fp, x64))):
-        verdict = VERDICTS[1]
+    if not exact_misses:
+        verdict = VERDICTS[0] if not misses["kernel"] else VERDICTS[2]
     else:
-        verdict = VERDICTS[2]
-    print(f"  {label}: the kernel {verdict} (perm {'misses' if misses['perm'] else 'passes'} "
-          "the card rule)")
+        print(f"  {label}: exact misses the card rule; misses of the exact-contract rule: "
+              + json.dumps(under_exact))
+        verdict = VERDICTS[1] if not under_exact["kernel"] else VERDICTS[2]
+    print(f"  {label}: the kernel {verdict}")
     report[label] = {"worst": {k: [float(f"{v:.4g}") for v in r] for k, r in worst.items()},
-                     "misses": misses, "verdict": verdict}
+                     "misses": misses, "exact_misses": exact_misses,
+                     "exact_rule_misses": under_exact, "verdict": verdict}
 
 
 def tensor_core_linear():
     """``fused_train_loss._RoundedLinear`` with every product of two bf16
     operands as ``torch.mm`` of bf16 tensors into float32 (the tensor
-    cores), the rest as it is."""
+    cores), the rest as it is (as ``bf16_exact_rule.exact_linear``)."""
     import torch
 
     from dexnerf_tpu_torch.ops.fused_train_loss import _round
@@ -282,7 +239,7 @@ def main() -> int:
     from dexnerf_tpu_torch.core.encoding import positional_encoding
     from dexnerf_tpu_torch.ops import fused_mlp_train
     from dexnerf_tpu_torch.ops import fused_train_loss as ftl
-    from perf_tools.field_f32_rule import forward_on_masks, grads_on_masks, pass_grads_on_masks
+    from perf_tools.bf16_exact_rule import exact_linear, on_linear
     from perf_tools.kernel1_small_units import embedded
 
     dev = torch.device("cuda")
@@ -291,14 +248,11 @@ def main() -> int:
     only = set(opts.only.split(","))
     report = {}
     gen = torch.Generator().manual_seed(0)
-    plain_linear, tc_linear = ftl._RoundedLinear, tensor_core_linear()
+    tc_linear, ex_linear = tensor_core_linear(), exact_linear()
 
-    def on_tensor_cores(fn):
-        ftl._RoundedLinear = tc_linear
-        try:
+    def under(linear, fn):
+        with on_linear(linear):
             return fn()
-        finally:
-            ftl._RoundedLinear = plain_linear
 
     def k4_run(m, args, kw, chunk=None):
         saved = ftl.SCRATCH_SAMPLES
@@ -319,20 +273,25 @@ def main() -> int:
     def k4(m, inp, supervision, depth, label, chunk=None):
         kw = dict(white_background=supervision == "luminance", supervision=supervision)
         args = k4_args(inp, depth)
-        got = list(k4_run(m, args, kw, chunk)[3])
         plain_args = args if depth else args[:7]
         bfkw = dict(kw, compute_dtype=bf, dw_dtype=bf)
-        bp = ftl.fused_pass_loss_reference(m, *plain_args, **bfkw)[3]
-        fp = ftl.fused_pass_loss_reference(m, *plain_args, **kw)[3]
+
+        def leaves(out, grads=None):  # loss, weights, rgb and every gradient leaf
+            return [out[0].detach().reshape(1), out[1], out[2],
+                    *(out[3] if grads is None else grads)]
+
+        def plain(model=m, **k):
+            return ftl.fused_pass_loss_reference(model, *plain_args, **k)
+
+        got = leaves(k4_run(m, args, kw, chunk))
+        bp, fp = leaves(plain(**bfkw)), leaves(plain(**kw))
         mp, back = permuted(m, gen)
-        pp = back(ftl.fused_pass_loss_reference(mp, *plain_args, **bfkw)[3])
-        tc = on_tensor_cores(lambda: ftl.fused_pass_loss_reference(m, *plain_args, **bfkw)[3])
-        o, d, z, v, dz, noise, target = args[:7]
-        pts = o[:, None] + d[:, None] * z[..., None]
-        x64 = pass_grads_on_masks(m, pts, z, dz, v, noise, target, None, **kw,
-                                  depth_gt=args[7], depth_coef=args[8])
-        names = [n for n, _ in m.named_parameters()]
-        judge(label, names, {"kernel": got, "perm": pp, "tc": list(tc)}, bp, fp, x64, report)
+        po = plain(mp, **bfkw)
+        pp = leaves(po, back(po[3]))
+        tc = leaves(under(tc_linear, lambda: plain(**bfkw)))
+        ex = leaves(under(ex_linear, lambda: plain(**bfkw)))
+        names = ["loss", "weights", "rgb"] + [n for n, _ in m.named_parameters()]
+        judge(label, names, {"kernel": got, "perm": pp, "tc": tc, "exact": ex}, bp, fp, report)
 
     def k3_plain(m, pts, vd, g):
         """raw and the leaves of the bf16 plain version (flex_forward_train)."""
@@ -367,14 +326,11 @@ def main() -> int:
                 mp, back = permuted(m, gen)
                 pv = k3_plain(mp, pts, vd, g)
                 pv = [pv[0]] + back(pv[1:])
-                tc = on_tensor_cores(lambda: k3_plain(m, pts, vd, g))
-                with torch.no_grad():
-                    raw64 = forward_on_masks(copy.deepcopy(m).double(), pts.double(),
-                                             vd.double())[0]
-                x64 = [raw64] + list(grads_on_masks(m, pts, vd, g, None))
+                tc = under(tc_linear, lambda: k3_plain(m, pts, vd, g))
+                ex = under(ex_linear, lambda: k3_plain(m, pts, vd, g))
                 judge(f"k3 h{hid} {n}x{s} seed {seed}", names,
-                      {"kernel": got, "perm": pv, "tc": tc}, [bp[k] for k in names],
-                      [fp[k] for k in names], x64, report)
+                      {"kernel": got, "perm": pv, "tc": tc, "exact": ex}, [bp[k] for k in names],
+                      [fp[k] for k in names], report)
         if "pad" in only:
             for s, n in ((64, 300), (7, 301)):
                 m, inp = t4._card_case(dev, dict(t4.FULL, hidden_size=320), s, n=n, seed=seed)
@@ -412,8 +368,22 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip()
     print(card)
-    counts = {v: sum(1 for r in report.values() if r.get("verdict") == v) for v in VERDICTS}
-    print(json.dumps({"verdicts": counts, **report}))
+    cases = [k for k, r in report.items() if "verdict" in r]
+    counts = {v: sum(1 for k in cases if report[k]["verdict"] == v) for v in VERDICTS}
+    exact_cases = [k for k in cases if report[k]["exact_misses"]]
+    rule_checks = {
+        "perm_passes_the_exact_rule_where_exact_misses": all(
+            not report[k]["exact_rule_misses"]["perm"] for k in exact_cases),
+        "tc_misses_the_exact_rule_somewhere": any(
+            report[k]["exact_rule_misses"]["tc"] for k in exact_cases),
+        "kernel_misses_where_exact_passes": [
+            k for k in cases if not report[k]["exact_misses"] and report[k]["misses"]["kernel"]]}
+    print(f"exact misses the card rule in {len(exact_cases)} of {len(cases)} cases: "
+          + json.dumps(exact_cases))
+    print(f"the rule's checks: {json.dumps(rule_checks)}; the kernel's verdicts: "
+          + json.dumps(counts))
+    print(json.dumps({"verdicts": counts, "exact_misses": exact_cases, **rule_checks,
+                      **report}))
     return 0
 
 

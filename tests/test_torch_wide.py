@@ -533,22 +533,59 @@ def test_narrow_dw_plan_is_one_part(hidden):
     assert args.fresh == 0 and args.n_units == len(plan) and not fr.is_wide(m)
 
 
-def test_wide_chain_plan_and_mask_words():
-    """The wide chain's shared-memory plan (its two tiles, the column sums
-    and two products' mask words a consumer) fits at every padded width to
-    MAX_HIDDEN_BF16, two consumers up to 320 and one above, as before its
-    mask words, and so does the forward's with two layers' mask words; a
-    thread's mask words of a tile cover each layer's columns (32 bits a 64
-    of them; y's half as many), 34 at 8x256."""
-    for hp in range(160, fr.MAX_HIDDEN_BF16 + 1, 32):
-        b = fr.wide_cons_bytes(hp, 2, 3 + 6 * fr.MAX_FREQ)
-        plan, fwd = fr.wide_plan(b["chain"]), fr.wide_plan(b["forward"])
-        assert plan is not None and plan[2] <= fr.SHARED_BYTES_LIMIT
-        assert plan[0] == (2 if hp <= 320 else 1) and plan[1] >= 2, hp
-        assert fwd is not None and fwd[2] <= fr.SHARED_BYTES_LIMIT and fwd[1] >= 2, hp
-        nt = 7
-        bits = [ftl.wide_mask_layout(w)[0].shape[1] for w in (hp, hp // 2)]
-        assert 32 * ftl.wide_mask_words(hp, nt) == (nt + 1) * bits[0] + bits[1]
+def _cuda_int(source: str, name: str) -> int:
+    """The value of ``constexpr int name = ...;`` in ops/csrc/``source``."""
+    import re
+
+    from dexnerf_tpu_torch.ops import _build
+
+    with open(_build.CSRC / source) as f:
+        m = re.search(rf"constexpr int {name} = (\d+);", f.read())
+    assert m, (source, name)
+    return int(m.group(1))
+
+
+@pytest.mark.parametrize("hp", list(range(160, fr.MAX_HIDDEN_BF16 + 1, 32)))
+def test_wide_chain_plan_and_mask_words(hp):
+    """The wide bf16 kernels' plan of 64-column blocks at every padded width
+    160-576: the mirrors' constants are the CUDA sources' (the block, the
+    ring's [64][64] stages, their counts, the consumers, the fresh
+    accumulator's span); the chain's plan (its two tiles, the column sums
+    and two products' mask words a consumer) fits, two consumers up to 320
+    and one above, and so do the forward's (two layers' mask words) and the
+    render kernel's at every S, each ring holding at least the bytes of the
+    plan of [128][64] stages before it (16 KB stages, 2 to 8 of them);
+    a thread's mask words of a tile cover each layer's columns (32 bits a
+    64 of them; y's half as many), 34 at 8x256."""
+    for name, value in (("kWideBlock", fr.WIDE_BLOCK), ("kWideSpan", fr.WIDE_SPAN),
+                        ("kWideMaxStages", fr.WIDE_MAX_STAGES),
+                        ("kWideMinStages", fr.WIDE_MIN_STAGES),
+                        ("kWideMaxCons", fr.WIDE_MAX_CONS)):
+        assert _cuda_int("mlp_wide_bf16.cuh", name) == value, name
+    assert _cuda_int("mlp_tile_bf16.cuh", "kSmemMax") == fr.SHARED_BYTES_LIMIT
+    assert fr.WIDE_STAGE == fr.WIDE_BLOCK * 128 and ftl.WIDE_BOX_ROWS == fr.WIDE_BLOCK
+
+    def plan_128(cons_bytes):  # the plan of [128][64] stages
+        for cons in (2, 1):
+            for ns in range(8, 1, -1):
+                total = 1024 + ns * (128 * 128 + 16) + cons * cons_bytes
+                if total <= fr.SHARED_BYTES_LIMIT:
+                    return cons, ns, total
+        return None
+
+    for kx, dd in ((1, 27), (2, 3 + 6 * fr.MAX_FREQ)):
+        for S in (1, 64, 192, fr.MAX_SAMPLES):
+            for kind, b in fr.wide_cons_bytes(hp, kx, dd, S).items():
+                cons, ns, smem = fr.wide_plan(b)
+                old = plan_128(b)
+                assert smem == 1024 + ns * (fr.WIDE_STAGE + 16) + cons * b, (kind, S)
+                assert smem <= fr.SHARED_BYTES_LIMIT and ns >= fr.WIDE_MIN_STAGES, (kind, S)
+                assert cons == old[0] and ns * fr.WIDE_STAGE >= old[1] * 128 * 128, (kind, S)
+    chain = fr.wide_plan(fr.wide_cons_bytes(hp, 2, 3 + 6 * fr.MAX_FREQ)["chain"])
+    assert chain[0] == (2 if hp <= 320 else 1), hp
+    nt = 7
+    bits = [ftl.wide_mask_layout(w)[0].shape[1] for w in (hp, hp // 2)]
+    assert 32 * ftl.wide_mask_words(hp, nt) == (nt + 1) * bits[0] + bits[1]
     assert ftl.wide_mask_words(256, 7) == 34
 
 
@@ -585,11 +622,11 @@ def test_wide_mask_word_addressing(hp):
                     want = [x not in (0x0000, 0x8000) for x in (lo, hi)]
                     b0 = (7 if h else 15) - j
                     assert f == (want[0] << b0) | (want[1] << (b0 + 16))
-    for t in range(128):  # the products' epilogue, column blocks of 128
+    for t in range(128):  # the products' epilogue, column blocks of WIDE_BLOCK (64)
         w, lane = t // 32, t % 32
         g, q = lane // 4, lane % 4
-        for c0 in range(0, hp, 128):
-            for j in range(min(128, hp - c0) // 8):
+        for c0 in range(0, hp, fr.WIDE_BLOCK):
+            for j in range(min(fr.WIDE_BLOCK, hp - c0) // 8):
                 for h in range(2):
                     for e in range(2):
                         row, col = 16 * w + g + 8 * h, c0 + 8 * j + 2 * q + e
