@@ -3,8 +3,8 @@
 configurations, its evaluation entry point, its LLFF/NDC path, its
 occupancy-guided paths and mesh export, its other model families,
 optimizers and tiny pipeline, its ray cache, its pose refinement, its
-active-IR SG shading, its data-parallel step, its multi-scene training and
-its multi-host entry on one CUDA card.
+active-IR SG shading, its data-parallel step, its multi-scene training,
+its multi-host entry and its host-streamed ray store on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -256,7 +256,21 @@ sm_90a kernels). Phases, each of which raises on failure (exit code != 0):
    wide f32 kernel's time beside its split-TF32 bound and its products as
    f32 ``torch.matmul`` (TF32 off), its registers, spills and shared bytes,
    an 8x256 step's and frame's host-clock time, peak memory and the
-   launches (phase 23 alone: ``python3 perf_tools/phase23_alone.py``).
+   launches (phase 23 alone: ``python3 perf_tools/phase23_alone.py``);
+24. the host-streamed ray store (``dataset.host_store``): ``apps.train``
+   of ``configs/lego-tpu.yml`` on a written lego scene of 40 views at
+   800x800 (1.23 GB of f32 rows) on the packed and the rows wire, 20 steps
+   each (kernel 4's bf16 route twice a step, every batch on the card, no
+   resident store, the loss falling); the resident step, the rows step and
+   the packed step on the same indices and render draws for 5 updates at
+   bf16 (rows = resident bit for bit, packed's first loss within 1e-6 of
+   rows') and 3 through kernel 4's f32 route (packed's losses and first
+   gradients within the CPU test's tolerances of rows'); the three steps' host-clock ms at 8192 and 65536 rays, each
+   loader's gather and copy ms, the device idle share and the wire bytes a
+   ray; kernel 4 on a batch of the scene held to plain; a messytable run
+   with the depth term, a field-path run (kernels 2-3) and an LLFF (NDC)
+   run on the packed wire (phase 24 alone: ``python3
+   perf_tools/phase24_alone.py``).
 
 Each kernel's line holds its bound: the larger of its FLOPs (multiply-adds
 counted from the model's shapes; compares and arithmetic counted from the
@@ -481,6 +495,22 @@ WIDE_F32_KERNELS = ("fused_render_wide_tf32_kernel", "train_fwd_wide_tf32_kernel
 WIDE_F32_NAMES = ("train_prep_tf32_kernel", "train_fwd_wide_tf32_kernel",
                   "train_composite_tf32_kernel", "train_chain_wide_tf32_kernel",
                   "dw_tf32_kernel", "dw_tf32_reduce_kernel", "sum_rays_kernel")
+
+
+# phase 24: the host-streamed store (dataset.host_store) on a synthetic
+# lego scene whose f32 rows pass 1 GB: 40 views at 800x800 (25.6 M rays,
+# 1.23 GB of rows, 77 MB of u8 rgb); the entry point's steps on each wire,
+# the updates of the three-step comparison through kernel 4's bf16 and f32
+# routes, the batches of the timings and the steps a timed turn, the steps
+# of (d)'s runs; the packed step against the rows step: the CPU test's
+# tolerances (tests/test_torch_host_store.py, 3 updates on the f32 path) on
+# the losses and the first update's gradients (over the step's largest
+# gradient entry), on the first bf16 update's loss and on 3 updates through
+# the f32 route
+HOST_HW, HOST_VIEWS = 800, (40, 1, 1)
+HOST_ITERS, HOST_UPDATES, HOST_F32_UPDATES, HOST_SMALL_ITERS = 20, 5, 3, 4
+HOST_BATCHES, HOST_TIMED = (8192, 65536), 30
+PACKED_LOSS_RTOL, PACKED_GRAD_RTOL = 1e-6, 1e-5
 
 
 def card_line() -> str:
@@ -5402,6 +5432,314 @@ def serve_requests(config, ckpt, requests, torch, flags=(), refused=()):
     return out, info, request_ms, frames, launches, launches_bf16
 
 
+def _batch_tensors(batch):
+    """Every tensor of a loader's batch (a dict, or a tuple that may hold a
+    RayBatch)."""
+    items = batch.values() if isinstance(batch, dict) else batch
+    out = []
+    for t in items:
+        out.extend(_batch_tensors(t) if isinstance(t, (tuple, dict)) else [t])
+    return out
+
+
+def host_store_phase(torch, np, card, dev, tmp):
+    """Phase 24, the host-streamed store (``dataset.host_store``,
+    ``data/host_store.py``). (a) ``apps.train`` of ``configs/lego-tpu.yml``
+    on a written lego scene of HOST_VIEWS views at HOST_HW (f32 rows past 1
+    GB) with the host store on each wire for HOST_ITERS steps: kernel 4's
+    bf16 route twice a step, its f32 route never, every batch a CUDA tensor,
+    no resident store built, the loss falling. (b) The same indices
+    (``default_rng(SEED)``, the loaders' stream) and render draws through
+    three steps: ``make_train_step`` on the resident store, the rows step
+    and the packed step (``make_batch_train_step``), HOST_UPDATES updates
+    through kernel 4's bf16 route (the rows step's parameters and losses
+    and first gradients bitwise equal to the resident step's; the packed
+    step's first loss within PACKED_LOSS_RTOL of the rows step's, its later
+    divergence printed: an ulp of a ray can move a bf16 rounding) and
+    HOST_F32_UPDATES through its f32 route (the packed step's losses and
+    first gradients within the CPU test's tolerances of the rows step's;
+    the parameters' distance printed, not held: Adam's update of an entry
+    whose gradient is within rounding of 0 takes either sign). (c) Host-clock ms of a kernel-4 step (mean of
+    HOST_TIMED, in turns) resident, rows and packed at each of HOST_BATCHES
+    rays, each loader's gather ms (host clock) and copy ms (device, CUDA
+    events) per batch, each step's device idle share (``torch.profiler``)
+    and the wire's bytes a ray. (d) A messytable run with the depth term on
+    the packed wire, a field-path run (kernels 2-3) and an LLFF (NDC) run,
+    HOST_SMALL_ITERS steps each. Kernel 4 held on a batch of the scene
+    (phase 7's rule). Returns the kernels-line entries."""
+    import copy
+
+    from dexnerf_tpu_torch.config import load_config, render_settings_from_cfg
+    from dexnerf_tpu_torch.data import host_store as hs
+    from dexnerf_tpu_torch.data.pipeline import build_ray_store
+    from dexnerf_tpu_torch.data.synthetic import (
+        write_blender_dataset,
+        write_llff_dataset,
+        write_messytable_dataset,
+    )
+    from dexnerf_tpu_torch.ops import fused_train_loss as ftl
+    from dexnerf_tpu_torch.render.renderer import draw_render_noise
+    from dexnerf_tpu_torch.train import loop as ploop
+    from dexnerf_tpu_torch.train.step import (
+        StepDraws,
+        init_train_state,
+        make_batch_train_step,
+        make_train_step,
+    )
+
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    data = os.path.join(tmp, "lego-host")
+    write_blender_dataset(data, HOST_HW, HOST_HW, HOST_VIEWS, device=dev)
+    dataset_s = time.perf_counter() - t0
+
+    # ---- (a) apps.train on each wire
+    seen, builds = [], []
+    spy_next, build = hs._HostLoader.__next__, ploop.build_ray_store
+
+    def spied(self):
+        batch = spy_next(self)
+        seen.append(all(t.is_cuda for t in _batch_tensors(batch)))
+        return batch
+
+    hs._HostLoader.__next__ = spied
+    ploop.build_ray_store = lambda *a, **k: builds.append(1) or build(*a, **k)
+    runs = {}
+    try:
+        for wire in ("packed", "rows"):
+            seen.clear()
+            builds.clear()
+            runs[wire] = (*train_cli(tmp, data, f"lego-host-{wire}", HOST_ITERS, torch, dev,
+                                     dataset={"host_store": True, "host_wire": wire}),
+                          list(seen), len(builds))
+    finally:
+        hs._HostLoader.__next__, ploop.build_ray_store = spy_next, build
+    for wire, (cfg_path, logdir, counts, losses, val_psnr, secs, peak_gb, cuda, n_res) in \
+            runs.items():
+        print(f"phase 24 (a): apps.train, dataset.host_store on the {wire} wire, lego-tpu on "
+              f"{HOST_VIEWS[0]} views at {HOST_HW}x{HOST_HW} (written in {dataset_s:.2f} s): "
+              f"{HOST_ITERS} steps in {secs:.2f} s (the scene's load and the host store's "
+              f"build included); launches {json.dumps(counts)}; peak {peak_gb:.2f} GiB; loss "
+              f"first {losses[0]:.5f} last {losses[-1]:.5f}; validation psnr {val_psnr}")
+        run_checks(f"phase 24 (a) host store, {wire} wire", {
+            f"{HOST_ITERS} finite losses": len(losses) == HOST_ITERS
+            and bool(np.isfinite(losses).all()),
+            "loss falls (mean of last 5 < first 5)": np.mean(losses[-5:]) < np.mean(losses[:5]),
+            f"kernel 4's bf16 route {2 * HOST_ITERS} times, its f32 route never":
+                counts["fused_train_loss_bf16"] == counts["fused_train_loss"] == 2 * HOST_ITERS,
+            "validations at steps 0 and last through kernel 1's bf16 route":
+                len(val_psnr) == 2 and counts["fused_render_bf16"] == counts["fused_render"] == 4,
+            f"{HOST_ITERS} batches taken, every tensor on the card": len(cuda) == HOST_ITERS
+            and all(cuda),
+            "no resident store built": n_res == 0,
+        })
+
+    # ---- (b) the same indices and render draws through three steps
+    cfg = load_config(runs["packed"][0])
+    scene = ploop.load_scene(cfg)
+    views = (scene.images[scene.i_train], scene.poses[scene.i_train], scene.hwf)
+    near, far = float(cfg.dataset.near), float(cfg.dataset.far)
+    s_train = render_settings_from_cfg(cfg, "train")
+    batch, lr = int(cfg.nerf.train.num_random_rays), float(cfg.optimizer.lr)
+    t0 = time.perf_counter()
+    resident = build_ray_store(*views, near, far, device=dev)
+    torch.cuda.synchronize()
+    res_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows, _ = hs.build_host_ray_rows(*views, device=dev)
+    rows_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    u8, tables = hs.images_to_u8(views[0]), hs.build_pose_tables(views[1], views[2])
+    packed_s = time.perf_counter() - t0
+    unpack = hs.make_ray_unpack(tables, near, far)
+    coarse0, fine0 = ploop.setup_models(cfg, SEED, dev)
+
+    def fresh(dtype=bf16):
+        st = init_train_state(copy.deepcopy(coarse0), copy.deepcopy(fine0), lr)
+        return st, ftl.make_fused_train_loss(st.coarse, st.fine, s_train, compute_dtype=dtype,
+                                             dw_dtype=dtype)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    renders = [draw_render_noise(batch, s_train, gen, dev) for _ in range(HOST_UPDATES)]
+    rng = np.random.default_rng(SEED)
+    idxs = [rng.integers(0, rows.shape[0], batch) for _ in range(HOST_UPDATES)]
+
+    def three_steps(dtype, updates):
+        """The resident, rows and packed steps' losses, parameters after
+        ``updates`` updates through kernel 4's ``dtype`` route, and first
+        update's gradients."""
+        losses, params, grads = {}, {}, {}
+
+        def leaves(st, grad=False):
+            return [(p.grad if grad else p).detach().clone() for m in (st.coarse, st.fine)
+                    for p in m.parameters()]
+
+        def run(name, st, updates_of):
+            losses[name] = []
+            for j, one in enumerate(updates_of):
+                losses[name].append(float(one()["loss"]))
+                if j == 0:
+                    grads[name] = leaves(st, grad=True)
+            params[name] = leaves(st)
+
+        st, fused = fresh(dtype)
+        step = make_train_step(s_train, batch, fused_loss=fused)
+        run("resident", st, [lambda i=i, r=r: step(st, resident, draws=[StepDraws(
+            torch.as_tensor(i, device=dev), r)]) for i, r in zip(idxs[:updates], renders)])
+        st, fused = fresh(dtype)
+        step = make_batch_train_step(s_train, fused_loss=fused)
+        with hs.HostRayLoader(rows, near, far, batch, SEED, device=dev) as loader:
+            run("rows", st, [lambda r=r: step(st, *next(loader), draws=r)
+                             for r in renders[:updates]])
+        st, fused = fresh(dtype)
+        step = make_batch_train_step(s_train, fused_loss=fused, unpack=unpack)
+        with hs.HostPixelLoader(u8, batch, SEED, device=dev) as loader:
+            run("packed", st, [lambda r=r: step(st, next(loader), draws=r)
+                               for r in renders[:updates]])
+        return losses, params, grads
+
+    def packed_vs_rows(losses, params, grads):
+        """The packed step against the rows step: the largest parameter
+        difference after the updates, each update's loss difference over the
+        loss, and the first update's largest gradient difference over its
+        largest gradient entry."""
+        return (max(float((a - b).abs().max()) for a, b in zip(params["packed"], params["rows"])),
+                [abs(a - b) / abs(b) for a, b in zip(losses["packed"], losses["rows"])],
+                max(float((a - b).abs().max()) for a, b in zip(grads["packed"], grads["rows"]))
+                / max(float(g.abs().max()) for g in grads["rows"]))
+
+    zero_counts()
+    losses, params, grads = three_steps(bf16, HOST_UPDATES)
+    counts_b = read_counts()
+    rows_equal = all(bool(torch.equal(a, b)) for k in (params, grads)
+                     for a, b in zip(k["rows"], k["resident"]))
+    packed_err, loss_rel, grad_rel = packed_vs_rows(losses, params, grads)
+    losses32, params32, grads32 = three_steps(torch.float32, HOST_F32_UPDATES)
+    packed_err32, loss_rel32, grad_rel32 = packed_vs_rows(losses32, params32, grads32)
+    print(f"phase 24 (b): {HOST_UPDATES} updates through kernel 4's bf16 route on the same "
+          f"indices and render draws (batch {batch}): losses {json.dumps(losses)}; the rows "
+          f"step's parameters and gradients equal the resident step's bit for bit: "
+          f"{rows_equal}; packed vs rows: the first update's loss {loss_rel[0]:.3e} of it "
+          f"(limit {PACKED_LOSS_RTOL:g}), its gradients {grad_rel:.3e} of the largest "
+          f"gradient, the later losses {[float(f'{v:.3e}') for v in loss_rel[1:]]}, the "
+          f"parameters after {HOST_UPDATES} updates {packed_err:.3e} apart (an ulp of a ray "
+          f"moves a bf16 rounding, and Adam's updates carry it); {HOST_F32_UPDATES} updates "
+          f"through the f32 route: losses {json.dumps(losses32)}, packed vs rows "
+          f"{[float(f'{v:.3e}') for v in loss_rel32]} of the loss (limit "
+          f"{PACKED_LOSS_RTOL:g}), the first update's gradients {grad_rel32:.3e} of the "
+          f"largest gradient (limit {PACKED_GRAD_RTOL:g}), the parameters {packed_err32:.3e} "
+          f"apart (not held: an entry whose gradient is within rounding of 0 takes Adam's "
+          f"update with either sign); launches {json.dumps(counts_b)}; builds (host clock): "
+          f"resident store {res_s:.2f} s, host rows {rows_s:.2f} s ({rows.nbytes / 1e9:.3f} "
+          f"GB), u8 store and tables {packed_s:.2f} s ({u8.nbytes / 1e6:.1f} MB)")
+    run_checks("phase 24 (b) host-store steps vs the resident step", {
+        "rows step = resident step: parameters, gradients and losses bit for bit": rows_equal
+        and losses["rows"] == losses["resident"],
+        "packed step's first bf16 update: loss within PACKED_LOSS_RTOL of the rows step's":
+            loss_rel[0] <= PACKED_LOSS_RTOL,
+        f"packed step through the f32 route, {HOST_F32_UPDATES} updates: losses within "
+        "PACKED_LOSS_RTOL, the first gradients within PACKED_GRAD_RTOL of the rows step's":
+            max(loss_rel32) <= PACKED_LOSS_RTOL and grad_rel32 <= PACKED_GRAD_RTOL,
+        f"kernel 4's bf16 route {3 * 2 * HOST_UPDATES} times":
+            counts_b["fused_train_loss_bf16"] == 3 * 2 * HOST_UPDATES,
+    })
+    del params, params32, grads, grads32
+
+    # ---- (c) step times, gather and copy, idle share, wire bytes
+    timing = {}
+    for n in HOST_BATCHES:
+        st, fused = fresh()
+        steps = {"resident": make_train_step(s_train, n, fused_loss=fused),
+                 "rows": make_batch_train_step(s_train, fused_loss=fused),
+                 "packed": make_batch_train_step(s_train, fused_loss=fused, unpack=unpack)}
+        with hs.HostRayLoader(rows, near, far, n, SEED, device=dev, timing=True) as rl, \
+                hs.HostPixelLoader(u8, n, SEED, device=dev, timing=True) as pl:
+            wire = {"rows": rl.bytes_per_ray, "packed": pl.bytes_per_ray}
+            fns = {"resident": lambda: steps["resident"](st, resident, gen),
+                   "rows": lambda: (lambda b: steps["rows"](st, b[0], b[1], gen))(next(rl)),
+                   "packed": lambda: steps["packed"](st, next(pl), gen)}
+            turns = {k: [] for k in fns}
+            for name in ("resident", "rows", "packed", "packed", "rows", "resident"):
+                turns[name].append(round(host_ms(torch, fns[name], n=HOST_TIMED), 3))
+            idle = {}
+            for name, fn in fns.items():
+                summary = {}
+                print(f"  phase 24 (c): {name} step at {n} rays:")
+                profile_steps(torch, fn, {"kernel 4 bf16": KERNEL4_BF16_NAMES,
+                                          "copy": ("Memcpy HtoD", "Memcpy H2D")},
+                              summary=summary)
+                idle[name] = (round(summary["idle"] / summary["span"], 4)
+                              if summary.get("span") else None)
+            loads = {"rows": rl.timings(), "packed": pl.timings()}
+        timing[n] = {"step_ms": turns, "idle_share": idle, "loader": loads,
+                     "wire_bytes_per_ray": wire}
+        print(f"phase 24 (c): ms on {card} at {n} rays a step: kernel-4 bf16 step (host clock "
+              f"around synchronize, mean of {HOST_TIMED}, in turns resident, rows, packed, "
+              f"packed, rows, resident) {json.dumps(turns)}; device idle share of the step "
+              f"{json.dumps(idle)}; per batch: gather ms (host clock) and copy ms (device) "
+              f"{json.dumps(loads)}; wire bytes a ray {json.dumps(wire)}")
+        del st, fused, steps
+    run_checks("phase 24 (c) timings", {
+        "every timed step finite": all(np.isfinite(v).all() for t in timing.values()
+                                       for v in t["step_ms"].values()),
+        "wire: 48 B a ray of rows, 7 B packed": all(
+            t["wire_bytes_per_ray"] == {"rows": 48, "packed": 7} for t in timing.values()),
+    })
+    print("phase 24 (c): " + json.dumps({"host_store_timing": timing}))
+
+    # ---- kernel 4 on a batch of the scene, phase 7's rule
+    _, coarse, fine, _ = run_models(runs["packed"][0], runs["packed"][1], HOST_ITERS, dev)
+    k4 = hold_train_bf16("phase 24: kernel 4 bf16 route on a batch of the host-store scene",
+                         24, (coarse, fine), resident, s_train, lr, batch, 3.0 * batch, {},
+                         torch, dev)
+    del resident, rows
+
+    # ---- (d) the depth term on messytable, the field path, NDC on LLFF
+    small = {}
+    mdata = os.path.join(tmp, "messytable-host")
+    write_messytable_dataset(mdata, *DEX_STORED_HW, DEX_VIEWS, device=dev)
+    small["messytable-depth"] = train_cli(
+        tmp, mdata, "messytable-host", HOST_SMALL_ITERS, torch, dev, config=CONFIG,
+        dataset={"depth_valid_max": DEX_VALID_MAX, "host_store": True},
+        flags=["--ir", "--dex", "--depth-loss", str(DEX_WEIGHT)], use_pallas=True)
+    small["field-path"] = train_cli(tmp, data, "lego-host-fields", HOST_SMALL_ITERS, torch, dev,
+                                    dataset={"host_store": True}, pallas_fused_loss=False)
+    ldata = os.path.join(tmp, "llff-host")
+    write_llff_dataset(ldata, *LLFF_HW, views=LLFF_VIEWS, device=dev)
+    small["llff-ndc"] = train_cli(
+        tmp, ldata, "llff-host", HOST_SMALL_ITERS, torch, dev, config=LLFF_CONFIG,
+        dataset={"downsample_factor": 1, "depth_valid_max": LLFF_VALID_MAX, "host_store": True},
+        use_pallas=True)
+    n = 2 * HOST_SMALL_ITERS
+    checks = {}
+    for name, (_, logdir, counts, losses, _, secs, _) in small.items():
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        depth = [r["value"] for r in recs if r["tag"] == "train/depth_loss"]
+        print(f"phase 24 (d): {name} on the packed wire, {HOST_SMALL_ITERS} steps in {secs:.2f} "
+              f"s; launches {json.dumps(counts)}; losses {[round(v, 5) for v in losses]}; "
+              f"depth_loss {[round(v, 6) for v in depth]}")
+        checks[f"{name}: {HOST_SMALL_ITERS} finite losses"] = (
+            len(losses) == HOST_SMALL_ITERS and bool(np.isfinite(losses).all()))
+        if name == "field-path":
+            checks[f"{name}: kernels 2 and 3's bf16 routes {n} times each, kernel 4 never"] = (
+                counts["fused_mlp_bf16"] == counts["fused_mlp"] == n
+                and counts["fused_mlp_train_bf16"] == counts["fused_mlp_train"] == n
+                and counts["fused_train_loss"] == 0)
+        else:
+            checks[f"{name}: kernel 4's bf16 route {n} times"] = (
+                counts["fused_train_loss_bf16"] == counts["fused_train_loss"] == n)
+        if name == "messytable-depth":
+            checks[f"{name}: train/depth_loss every step, finite"] = (
+                len(depth) == HOST_SMALL_ITERS and bool(np.isfinite(depth).all()))
+    run_checks("phase 24 (d) depth, field path and NDC on the host store", checks)
+    entries = [train_entry(f"fused_train_loss_bf16@lego-host-{wire}",
+                           runs[wire][2]["fused_train_loss_bf16"], k4)
+               for wire in ("packed", "rows")]
+    print(f"phase 24: kernels-line entries {[e['name'] for e in entries]}")
+    return entries
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5701,6 +6039,7 @@ def main() -> int:
         multiscene_kernels = multiscene_phase(torch, np, card, dev, tmp)
         wide_kernels = wide_phase(torch, np, card, dev, tmp, shared)
         wide_f32_kernels = wide_f32_phase(torch, np, card, dev, tmp, shared)
+        host_kernels = host_store_phase(torch, np, card, dev, tmp)
     render = dict(route="cuda", replaces="dexnerf_tpu/ops/fused_render.py:115")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s (host clock, "
           "the kernels' build included)")
@@ -5728,7 +6067,7 @@ def main() -> int:
         "library_ms": ms["k1_forward_torch_matmul_bf16"],
     }, *train_kernels, *field_kernels, *resample_kernels, *dex_kernels, *eval_kernels,
         *llff_kernels, *occupancy_kernels, *family_kernels, *pose_kernels, *sgir_kernels,
-        *multiscene_kernels, *wide_kernels, *wide_f32_kernels]}))
+        *multiscene_kernels, *wide_kernels, *wide_f32_kernels, *host_kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

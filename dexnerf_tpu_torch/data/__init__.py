@@ -1,5 +1,5 @@
 """Datasets: the blender, messytable and LLFF loaders, synthetic scenes,
-the device ray store."""
+the device ray store, the host-streamed store."""
 
 from dexnerf_tpu_torch.data.blender import (
     load_blender_data,
@@ -8,6 +8,14 @@ from dexnerf_tpu_torch.data.blender import (
     rotate_phi_x,
     rotate_theta_y,
     translate_z,
+)
+from dexnerf_tpu_torch.data.host_store import (
+    HostPixelLoader,
+    HostRayLoader,
+    build_host_ray_rows,
+    build_pose_tables,
+    images_to_u8,
+    make_ray_unpack,
 )
 from dexnerf_tpu_torch.data.llff import load_llff_data, load_llff_depths
 from dexnerf_tpu_torch.data.messytable import load_messytable_data
@@ -30,15 +38,21 @@ from dexnerf_tpu_torch.data.synthetic import (
 )
 
 __all__ = [
+    "HostPixelLoader",
+    "HostRayLoader",
     "RayStore",
     "analytic_field",
+    "build_host_ray_rows",
+    "build_pose_tables",
     "build_ray_store",
     "build_ray_store_from_cache",
+    "images_to_u8",
     "load_blender_data",
     "load_blender_depths",
     "load_llff_data",
     "load_llff_depths",
     "load_messytable_data",
+    "make_ray_unpack",
     "make_synthetic_scene",
     "pose_spherical",
     "render_analytic_image",

@@ -52,6 +52,26 @@ class RayStore:
         return self.data.shape[0] // self.rays_per_image if self.rays_per_image else 0
 
 
+def image_ray_rows(img: np.ndarray, pose: np.ndarray, hwf, *, device,
+                   intrinsic: Optional[np.ndarray] = None, use_ndc: bool = False) -> torch.Tensor:
+    """One image's [H*W, 12] store rows on ``device`` (origin, direction,
+    viewdir, rgb), as :func:`build_ray_store` packs each image: the rays of
+    the c2w ``pose``, or of the w2c ``pose`` and its K ``intrinsic``, then
+    NDC after the viewdirs with ``use_ndc``."""
+    H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
+    pose = torch.as_tensor(np.asarray(pose, np.float32)[:4, :4], device=device)
+    if intrinsic is not None:
+        K = torch.as_tensor(np.asarray(intrinsic, np.float32), device=device)
+        ro, rd = get_ray_bundle_w2c(H, W, pose, K)
+    else:
+        ro, rd = get_ray_bundle_c2w(H, W, focal, pose)
+    viewdirs = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
+    if use_ndc:
+        ro, rd = ndc_rays(H, W, focal, 1.0, ro, rd)
+    rgb = torch.as_tensor(np.asarray(img[..., :3], np.float32), device=device)
+    return torch.cat([t.reshape(-1, 3) for t in (ro, rd, viewdirs, rgb)], dim=-1)
+
+
 def build_ray_store(
     images: np.ndarray,
     poses: np.ndarray,
@@ -70,22 +90,10 @@ def build_ray_store(
     convention). ``use_ndc`` projects the rays into NDC (near plane 1.0)
     after the viewdirs are taken from the world directions (LLFF).
     ``depths`` [N, H, W] attaches ray-aligned GT depth."""
-    H, W, focal = int(hwf[0]), int(hwf[1]), float(hwf[2])
-    rows = []
-    for k, (img, pose) in enumerate(zip(images, poses)):
-        pose = torch.as_tensor(np.asarray(pose, np.float32)[:4, :4], device=device)
-        if intrinsics is not None:
-            K = torch.as_tensor(np.asarray(intrinsics[k], np.float32), device=device)
-            ro, rd = get_ray_bundle_w2c(H, W, pose, K)
-        else:
-            ro, rd = get_ray_bundle_c2w(H, W, focal, pose)
-        viewdirs = rd / torch.linalg.norm(rd, dim=-1, keepdim=True)
-        if use_ndc:
-            ro, rd = ndc_rays(H, W, focal, 1.0, ro, rd)
-        rgb = torch.as_tensor(np.asarray(img[..., :3], np.float32), device=device)
-        rows.append(
-            torch.cat([t.reshape(-1, 3) for t in (ro, rd, viewdirs, rgb)], dim=-1)
-        )
+    H, W = int(hwf[0]), int(hwf[1])
+    rows = [image_ray_rows(img, pose, hwf, device=device, use_ndc=use_ndc,
+                           intrinsic=None if intrinsics is None else intrinsics[k])
+            for k, (img, pose) in enumerate(zip(images, poses))]
     data = torch.cat(rows, dim=0)
     depth = None
     if depths is not None:

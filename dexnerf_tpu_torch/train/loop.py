@@ -26,6 +26,7 @@ the SG shading leaves'.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 import time
@@ -637,6 +638,69 @@ def _train_rank(mesh, cfg_yaml: str, kwargs: Dict[str, Any]):
     return out
 
 
+def _host_source(cfg, scene, train_views, intrinsics, depth_w: float, device) -> Dict[str, Any]:
+    """The host-streamed store's host arrays (``data/host_store.py``):
+    ``dataset.host_wire`` "packed" (the u8 rgb, the pose tables and the f32
+    depth with a depth term) or "rows" (the store's f32 rows, built one
+    image at a time on ``device``, and the depth)."""
+    from dexnerf_tpu_torch.data import host_store as hs
+
+    images, poses, hwf = train_views[:3]
+    depths = scene.depths[scene.i_train] if depth_w > 0.0 else None
+    wire = str(_get(cfg.dataset, "host_wire", "packed"))
+    if wire == "packed":
+        return {"wire": wire, "rgb": hs.images_to_u8(images),
+                "tables": hs.build_pose_tables(poses, hwf, intrinsics=intrinsics,
+                                               use_ndc=scene.use_ndc),
+                "depth": None if depths is None else np.asarray(depths, np.float32).reshape(-1)}
+    if wire == "rows":
+        rows, depth = hs.build_host_ray_rows(images, poses, hwf, device=device,
+                                             intrinsics=intrinsics, use_ndc=scene.use_ndc,
+                                             depths=depths)
+        return {"wire": wire, "rows": rows, "depth": depth}
+    raise ValueError(f"dataset.host_wire must be 'packed' or 'rows', got {wire!r}")  # JAX's
+
+
+def _host_train_step(host: Dict[str, Any], cfg, s_train: RenderSettings, batch_size: int,
+                     seed: int, device, train_kw: Dict[str, Any]):
+    """``(train_step(state, store, generator) -> metrics, loader)`` of the
+    host-streamed store: each of the call's ``steps_per_call`` updates takes
+    the loader's next batch (the indices of ``default_rng(seed)``, JAX's
+    stream) through ``make_batch_train_step``, its render draws from
+    ``generator``."""
+    from dexnerf_tpu_torch.data import host_store as hs
+    from dexnerf_tpu_torch.train.step import make_batch_train_step
+
+    kw = {k: v for k, v in train_kw.items() if k not in ("sampling", "steps_per_call")}
+    steps = int(train_kw["steps_per_call"])
+    prefetch = int(_get(cfg.dataset, "host_prefetch", 2) or 2)
+    near, far = float(cfg.dataset.near), float(cfg.dataset.far)
+    if host["wire"] == "packed":
+        loader = hs.HostPixelLoader(host["rgb"], batch_size, seed, depth=host["depth"],
+                                    prefetch=prefetch, device=device)
+        step = make_batch_train_step(s_train, unpack=hs.make_ray_unpack(host["tables"], near, far),
+                                     **kw)
+
+        def one(state, generator):
+            return step(state, next(loader), generator)
+    else:
+        loader = hs.HostRayLoader(host["rows"], near, far, batch_size, seed,
+                                  depth=host["depth"], prefetch=prefetch, device=device)
+        step = make_batch_train_step(s_train, **kw)
+
+        def one(state, generator):
+            batch = next(loader)
+            return step(state, batch[0], batch[1], generator, None, *batch[2:])
+
+    def train_step(state, _store, generator):
+        metrics = {}
+        for _ in range(steps):
+            metrics = one(state, generator)
+        return metrics
+
+    return train_step, loader
+
+
 def run_training(
     cfg: CfgNode,
     *,
@@ -720,10 +784,16 @@ def run_training(
     depth warmup or the host store raise JAX's words.
 
     The store is, in JAX's order of precedence: the pose store; the
-    host-streamed store (``dataset.host_store``, not ported: raises); the
-    offline ray cache of ``apps/cache.py`` when ``dataset.cachedir/train``
-    exists and no depth term is asked for (``build_ray_store_from_cache``);
-    else the resident store of the train views."""
+    host-streamed store (``dataset.host_store``, ``data/host_store.py``:
+    the rays stay in host memory and a loader thread ships each step's
+    batch, ``dataset.host_prefetch`` (default 2) batches ahead, on
+    ``dataset.host_wire`` "packed" (default: int32 indices and u8 rgb, the
+    rays rebuilt on the device from a pose table) or "rows" (the store's f32
+    rows); uniform sampling only, no depth warmup; the render draws from the
+    run's generator); the offline ray cache of ``apps/cache.py`` when
+    ``dataset.cachedir/train`` exists and no depth term is asked for
+    (``build_ray_store_from_cache``); else the resident store of the train
+    views."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("device cuda: no CUDA card is visible to PyTorch")
@@ -845,16 +915,16 @@ def run_training(
     cachedir = str(_get(cfg.dataset, "cachedir", "") or "")
     train_views = (scene.images[scene.i_train], scene.poses[scene.i_train], scene.hwf, near, far)
     intrinsics = None if scene.intrinsics is None else scene.intrinsics[scene.i_train]
+    host = None  # the host-streamed store's wire, host arrays and tables
     if pose_opt:
         # camera-frame rays, turned into world rays by the refined poses in
         # each step (a cache's world rays have no image to refine)
         store = build_pose_ray_store(*train_views, device=device, intrinsics=intrinsics,
                                      use_ndc=scene.use_ndc)
     elif _get(cfg.dataset, "host_store", False):
-        raise NotImplementedError(
-            "dataset.host_store: the host-streamed store is not ported yet "
-            "(ROADMAP.md Queue 1 item 7)"
-        )
+        # the rays stay in host memory (JAX's dexnerf_tpu/train/loop.py:1064-1117)
+        host = _host_source(cfg, scene, train_views, intrinsics, depth_w, device)
+        store = None
     elif cachedir and os.path.isdir(os.path.join(cachedir, "train")) and depth_w == 0.0:
         # the reference's USE_CACHED_DATASET preference (cache shards carry no depth)
         store = build_ray_store_from_cache(cachedir, near, far, device=device)
@@ -923,7 +993,23 @@ def run_training(
     )
     train_kw = dict(fused_loss=fused_loss, depth_loss_weight=depth_w,
                     depth_valid_max=depth_valid_max, **step_kw)
-    if mesh is None:
+    host_loader = None
+    if host is not None:
+        # sampling and the batch on the host, ahead of the device (JAX's
+        # dexnerf_tpu/train/loop.py:1319-1404 and 1416-1424, its words)
+        if step_kw["sampling"] != "uniform":
+            raise ValueError(
+                "dataset.host_store supports uniform sampling only (the loader draws "
+                "uniform-over-all-rays batches)"
+            )
+        if depth_warmup_iters != 0:
+            raise ValueError(
+                "depth_warmup supports the single-device resident-store path (the "
+                "distillation protocol)"
+            )
+        train_step, host_loader = _host_train_step(host, cfg, s_train, batch_size, seed, device,
+                                                   train_kw)
+    elif mesh is None:
         train_step = make_train_step(s_train, batch_size,
                                      ray_source=pose_ray_source if pose_opt else None, **train_kw)
     else:
@@ -955,7 +1041,8 @@ def run_training(
     last_val: Dict[str, Any] = {}
     i = start_iter
     depth_on_step: Optional[int] = None  # where the auto warmup switched the depth term on
-    with MetricsLogger(logdir, enabled=primary) as logger:
+    with MetricsLogger(logdir, enabled=primary) as logger, (
+            host_loader or contextlib.nullcontext()):
         while i < train_iters:
             if warmup_step is None:
                 step_fn = train_step

@@ -13,6 +13,8 @@ updates taken so far, as optax evaluates it (step 0 uses ``lr``).
 ``steps_per_call`` updates run as a Python loop with no host sync. With
 pose refinement (``train/pose_opt.py``) the rays come from a
 ``ray_source`` and the twists of ``TrainState.pose`` take their own update.
+:func:`make_batch_train_step` runs the same update on a batch gathered on
+the host (the host-streamed store, ``data/host_store.py``).
 """
 
 from __future__ import annotations
@@ -243,6 +245,60 @@ class StepDraws(NamedTuple):
     render: RenderDraws
 
 
+def _make_update(settings: RenderSettings, *, supervision: str, coarse_field, fine_field,
+                 fused_loss, depth_loss_weight: float, depth_valid_max: Optional[float],
+                 sync: Optional[Callable] = None):
+    """``update(state, rays, target, render_draws, depth_gt) -> metrics``:
+    one update of the resident and the batch steps on a gathered batch (the
+    loss, its backward, ``sync``, the scheduled optimizer step, the PSNR,
+    the pose update)."""
+    use_depth = depth_loss_weight > 0.0
+    if use_depth and fused_loss is not None and not getattr(fused_loss, "supports_depth", False):
+        raise ValueError(
+            "depth supervision with a fused loss needs one built with depth_loss_weight > 0"
+        )
+
+    def loss_fn(state: TrainState, rays, target, render: RenderDraws, depth_gt):
+        if fused_loss is not None:
+            if use_depth:
+                return fused_loss(rays, target, render, depth_gt)
+            return fused_loss(rays, target, render)
+        result = render_rays(state.coarse, state.fine, rays, settings, render,
+                             coarse_field=coarse_field, fine_field=fine_field)
+        loss, metrics = nerf_loss(result, target, supervision=supervision)
+        if use_depth:
+            pred = result.fine.depth if result.fine is not None else result.coarse.depth
+            d_loss = masked_depth_mse(pred, depth_gt, depth_valid_max)
+            loss = loss + depth_loss_weight * d_loss
+            metrics["depth_loss"] = d_loss
+            metrics["loss"] = loss
+        return loss, {k: v.detach() for k, v in metrics.items()}
+
+    def update(state: TrainState, rays, target, render: RenderDraws,
+               depth_gt=None) -> Dict[str, torch.Tensor]:
+        loss, metrics = loss_fn(state, rays, target, render, depth_gt)
+        state.optimizer.zero_grad(set_to_none=True)
+        if state.pose is not None:
+            state.pose.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if sync is not None:
+            metrics = sync(state, metrics)
+        lr = state.schedule(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
+        state.step += 1
+        photometric = metrics["coarse_loss"] + metrics["fine_loss"]
+        metrics["psnr"] = -10.0 * torch.log10(torch.clamp(photometric, min=1e-10))
+        if state.pose is not None:
+            state.pose.update()
+            twists = state.pose.twists.detach()
+            metrics["pose_twist_norm"] = torch.mean(torch.linalg.norm(twists, dim=-1))
+        return metrics
+
+    return update
+
+
 def make_train_step(
     settings: RenderSettings,
     batch_size: int,
@@ -283,57 +339,22 @@ def make_train_step(
     the update, may replace the gradients and the metrics (the data-
     parallel step's mean over ranks, ``parallel.sharding``)."""
     indices = SAMPLERS[sampling]
-    use_depth = depth_loss_weight > 0.0
-    if use_depth and fused_loss is not None and not getattr(fused_loss, "supports_depth", False):
-        raise ValueError(
-            "depth supervision with a fused loss needs one built with depth_loss_weight > 0"
-        )
-    if use_depth and ray_source is not None:
+    if depth_loss_weight > 0.0 and ray_source is not None:
         raise ValueError(
             "depth supervision and a custom ray_source (pose refinement) are mutually exclusive"
         )
+    update = _make_update(settings, supervision=supervision, coarse_field=coarse_field,
+                          fine_field=fine_field, fused_loss=fused_loss,
+                          depth_loss_weight=depth_loss_weight, depth_valid_max=depth_valid_max,
+                          sync=sync)
 
-    def loss_fn(state: TrainState, store: RayStore, d: StepDraws):
+    def one_step(state: TrainState, store: RayStore, d: StepDraws) -> Dict[str, torch.Tensor]:
         if ray_source is not None:
             rays, target = ray_source(state, store, d.idx)
         else:
             rays, target = take_ray_batch(store, d.idx)
-        depth_gt = take_depth(store, d.idx) if use_depth else None
-        if fused_loss is not None:
-            if use_depth:
-                return fused_loss(rays, target, d.render, depth_gt)
-            return fused_loss(rays, target, d.render)
-        result = render_rays(state.coarse, state.fine, rays, settings, d.render,
-                             coarse_field=coarse_field, fine_field=fine_field)
-        loss, metrics = nerf_loss(result, target, supervision=supervision)
-        if use_depth:
-            pred = result.fine.depth if result.fine is not None else result.coarse.depth
-            d_loss = masked_depth_mse(pred, depth_gt, depth_valid_max)
-            loss = loss + depth_loss_weight * d_loss
-            metrics["depth_loss"] = d_loss
-            metrics["loss"] = loss
-        return loss, {k: v.detach() for k, v in metrics.items()}
-
-    def one_step(state: TrainState, store: RayStore, d: StepDraws) -> Dict[str, torch.Tensor]:
-        loss, metrics = loss_fn(state, store, d)
-        state.optimizer.zero_grad(set_to_none=True)
-        if state.pose is not None:
-            state.pose.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if sync is not None:
-            metrics = sync(state, metrics)
-        lr = state.schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
-        state.step += 1
-        photometric = metrics["coarse_loss"] + metrics["fine_loss"]
-        metrics["psnr"] = -10.0 * torch.log10(torch.clamp(photometric, min=1e-10))
-        if state.pose is not None:
-            state.pose.update()
-            twists = state.pose.twists.detach()
-            metrics["pose_twist_norm"] = torch.mean(torch.linalg.norm(twists, dim=-1))
-        return metrics
+        depth_gt = take_depth(store, d.idx) if depth_loss_weight > 0.0 else None
+        return update(state, rays, target, d.render, depth_gt)
 
     def train_step(
         state: TrainState,
@@ -356,3 +377,53 @@ def make_train_step(
         return metrics
 
     return train_step
+
+
+def make_batch_train_step(
+    settings: RenderSettings,
+    *,
+    supervision: str = "rgb",
+    coarse_field=None,
+    fine_field=None,
+    fused_loss=None,
+    depth_loss_weight: float = 0.0,
+    depth_valid_max: Optional[float] = None,
+    unpack: Optional[Callable] = None,
+):
+    """The step over a batch gathered on the host (the host-streamed store,
+    ``data/host_store.py``): :func:`make_train_step`'s update on ``(rays,
+    target[, depth_gt])`` given by the caller, in place of the store
+    gather. Returns ``step(state, rays, target, generator=None, draws=None,
+    depth_gt=None) -> metrics`` (``depth_gt`` needed iff
+    ``depth_loss_weight`` > 0), one update a call. The render draws are
+    ``draws`` (a :class:`RenderDraws`) when given, else drawn from
+    ``generator`` as the resident step draws them after its indices.
+
+    ``unpack`` (``data/host_store.py::make_ray_unpack``) takes the packed
+    wire: the step is then ``step(state, packed, generator=None,
+    draws=None)`` and rebuilds ``(rays, target[, depth_gt])`` from the
+    packed dict's indices, u8 rgb and depth on the device first."""
+    use_depth = depth_loss_weight > 0.0
+    update = _make_update(settings, supervision=supervision, coarse_field=coarse_field,
+                          fine_field=fine_field, fused_loss=fused_loss,
+                          depth_loss_weight=depth_loss_weight, depth_valid_max=depth_valid_max)
+
+    def batch_step(state: TrainState, rays, target, generator: Optional[torch.Generator] = None,
+                   draws: Optional[RenderDraws] = None, depth_gt=None) -> Dict[str, torch.Tensor]:
+        if use_depth and depth_gt is None:
+            raise ValueError("depth supervision needs the batch's GT depth (depth_gt)")
+        if draws is None:
+            draws = draw_render_noise(target.shape[0], settings, generator, target.device)
+        return update(state, rays, target, draws, depth_gt if use_depth else None)
+
+    if unpack is None:
+        return batch_step
+
+    def packed_step(state: TrainState, packed: Dict[str, torch.Tensor],
+                    generator: Optional[torch.Generator] = None,
+                    draws: Optional[RenderDraws] = None) -> Dict[str, torch.Tensor]:
+        parts = unpack(packed)
+        return batch_step(state, parts[0], parts[1], generator, draws,
+                          parts[2] if use_depth else None)
+
+    return packed_step

@@ -1,58 +1,55 @@
 #!/usr/bin/env python3
-"""Where the bf16 card rule misses on the wide route, is it the kernel or
-the rule? For kernel 4 (``fused_pass_loss``) at padded widths 320 and 576,
-its chunked launch at 256, and kernel 3 (``fused_field_train``) at 576, on
-the card tests' inputs (``tests/test_torch_train_loss_bf16.py`` and
+"""Is the spread rule (``perf_tools/bf16_exact_rule.py::spread_rule``) a
+rule for the wide bf16 route, and does the kernel hold it? For kernel 4
+(``fused_pass_loss``) at padded widths 320 and 576, its chunked launch at
+256, and kernel 3 (``fused_field_train``) at 576, on the card tests' inputs
+(``tests/test_torch_train_loss_bf16.py`` and
 ``tests/test_torch_fused_mlp_bf16.py``: ``_card_case``, seeds 9 and 10).
 
     python3 perf_tools/wide_bf16_rule_witness.py [--seeds 9,10] [--only k4,k4_chunked,k3,pad]
 
-From the repository root, on a machine with a CUDA card. The card rule
-holds each field and gradient leaf to the dtype's own effect, own = |bf16
-plain - f32 plain| (``perf_tools/bf16_exact_rule.py``). Beside the kernel,
-three other versions of the same contract, on the same inputs, each held
-to the plain version by the same rules:
+From the repository root, on a machine with a CUDA card. Beside the
+kernel, other versions of the same contract on the same inputs:
 
 - ``exact``: the bf16 plain version with every product of two bf16
-  operands summed in float64 and rounded once to f32 (the contract's most
-  faithful implementation; where it misses the card rule, no correct
-  kernel can be held to that rule);
-- ``perm``: the bf16 plain version of the same model with every hidden
-  layer's units permuted (the same function; only the order of each f32
-  sum over hidden units differs), its gradients permuted back;
+  operands summed in float64 and rounded once to f32, the spread rule's
+  centre;
+- ``plain``, ``perm1``, ``perm2``: E, the legal orders the rule takes its
+  scale from: the bf16 plain version, and the same with every hidden
+  layer's units permuted at permutation seeds 1 and 2 (the same function;
+  only the order of each f32 sum over hidden units differs), gradients
+  permuted back;
+- ``perm3``: the held-out legal order, a permutation at seed 3, not in E;
+  ``perm4``-``perm8`` more of them (seeds 4-8), counted beside it but not
+  part of the rule's checks;
 - ``tc``: the bf16 plain version with each product of two bf16 operands
   on the tensor cores (``torch.mm`` of bf16 tensors into float32: one
-  accumulator over the whole K, whose f32 accumulation is not the CUDA
-  cores' round-to-nearest).
+  accumulator over the whole K).
 
-Where ``exact`` misses the card rule in a case, each version is held there
-to the exact-contract rule instead (``bf16_exact_rule.exact_rule``). Each
-case gets the kernel's verdict: ``passes the card rule``, ``passes the
-exact-contract rule`` (``exact`` misses the card rule, the kernel holds the
-exact-contract rule on every leaf) or ``misses``. The rule is sound only if
-``perm`` passes it in every case where ``exact`` misses the card rule, and
-it decides something only if ``tc`` misses it in one case at least: the
-last line says both. ``pad`` runs a 320-wide model and the same model
-zero-padded to 576 (``perf_tools/kernel1_small_units.py::embedded``: every
-added weight and bias 0, the same function) through both kernels: the
-forward's outputs equal bit for bit, and the gradients on the 320 units and
-the added ones' (exactly 0 if the 576 route computes what the 320 route
-does), and two launches at 576 bit for bit.
+Each version gets, per case, the leaves where it misses the card rule
+(phase 7's, against the bf16 and f32 plain versions) and the leaves where it
+misses the spread rule, and a verdict under the spread rule. The rule is
+sound only if ``perm3`` passes it in every case, and it decides something
+only if ``tc`` misses it in one case at least: the last line says both,
+with the kernel's verdicts. ``pad`` runs a 320-wide model and the same
+model zero-padded to 576 (``perf_tools/kernel1_small_units.py::embedded``:
+every added weight and bias 0, the same function) through both kernels:
+the forward's outputs equal bit for bit, and the gradients on the 320
+units and the added ones' (exactly 0 if the 576 route computes what the 320
+route does), and two launches at 576 bit for bit.
 
-Prints, for every case, each leaf that misses the card rule for the kernel
-or a witness, with [max, p99.9 vs the bf16 plain version, max vs the f32
-plain version, own max, own p99.9] and the rule's ratios, then the case's
-verdicts; then the card line; then one JSON object (the last line) with
-the counts, the cases where ``exact`` misses, the two checks of the rule,
-and each case's misses and verdicts. To compare with another commit, copy
-this file and ``perf_tools/bf16_exact_rule.py`` into a ``git archive`` of
-it and run it there in the same call.
+Prints, for every case, each version's count of card-rule and spread-rule
+misses and each spread-rule miss with [max, p99.9 of |v - exact|, max vs
+the f32 plain version, s_max, s_999, own max]; then the card line; then one
+JSON object (the last line) with the checks of the rule, the verdicts and
+each case's misses. To hold another commit's kernels, copy this file and
+``perf_tools/bf16_exact_rule.py`` into a ``git archive`` of it and run it
+there in the same call.
 """
 
 from __future__ import annotations
 
 import argparse
-import copy
 import json
 import os
 import subprocess
@@ -62,60 +59,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 
-VERDICTS = ("passes the card rule", "passes the exact-contract rule", "misses")
+EXTRA_SEEDS = (4, 5, 6, 7, 8)  # more held-out permutations, for the spread's tail
+VERSIONS = ("kernel", "exact", "plain", "perm1", "perm2", "perm3", "tc",
+            *(f"perm{s}" for s in EXTRA_SEEDS))
 K4_CASES = [(320, 64, 300), (320, 128, 300), (576, 64, 300), (576, 128, 300), (576, 7, 301)]
 K4_KW = [("rgb", False), ("rgb", True), ("luminance", False), ("luminance", True)]
 K3_CASES = [(576, 64, 300), (576, 128, 300), (576, 256, 300)]
-
-
-def permuted(model, gen):
-    """A copy of ``model`` whose hidden units are permuted in every layer
-    (the same function), and ``back(grads)``: its gradients in
-    ``model.parameters()`` order, permuted back to ``model``'s units."""
-    import torch
-
-    m = copy.deepcopy(model)
-    H, dev = m.hidden_size, next(m.parameters()).device
-
-    def perm(k):
-        return torch.randperm(k, generator=gen).to(dev)
-
-    def cols(p_in, width):  # a hidden input's permutation, then the rest in order
-        return torch.cat([p_in, torch.arange(p_in.numel(), width, device=dev)])
-
-    plan = {}  # linear name -> (row index, column index)
-    p = perm(H)
-    plan["layer1"] = (p, torch.arange(m.layer1.in_features, device=dev))
-    for i, layer in enumerate(m.layers_xyz):
-        q = perm(H)
-        plan[f"layers_xyz.{i}"] = (q, cols(p, layer.in_features))
-        p = q
-    pf, pd = perm(H), perm(H // 2)
-    plan["fc_feat"] = (pf, p)
-    plan["fc_alpha"] = (torch.arange(1, device=dev), p)
-    plan["layers_dir.0"] = (pd, cols(pf, m.layers_dir[0].in_features))
-    plan["fc_rgb"] = (torch.arange(3, device=dev), pd)
-    mods = dict(m.named_modules())
-    with torch.no_grad():
-        for name, (r, c) in plan.items():
-            lin = mods[name]
-            lin.weight.copy_(lin.weight[r][:, c])
-            lin.bias.copy_(lin.bias[r])
-    names = [n for n, _ in m.named_parameters()]
-
-    def back(grads):
-        out = []
-        for name, g in zip(names, grads):
-            r, c = plan[name.rsplit(".", 1)[0]]
-            b = torch.zeros_like(g)
-            if name.endswith("weight"):
-                b[r[:, None], c[None, :]] = g
-            else:
-                b[r] = g
-            out.append(b)
-        return out
-
-    return m, back
 
 
 def on_units(gq, p, name, H, width):
@@ -137,52 +86,43 @@ def on_units(gq, p, name, H, width):
     return torch.cat([gq[:rows, :H], gq[:rows, width:width + n_in - H]], 1), mask
 
 
-def ratios(row):
-    """The card rule's three ratios (limits 1, 0.25, 1.5)."""
-    return [row[0] / row[3] if row[3] else 0.0, row[1] / row[4] if row[4] else 0.0,
-            row[2] / row[3] if row[3] else 0.0]
-
-
 def judge(label, names, versions, bp, fp, report):
-    """Every leaf of one case: each version's (the kernel's and the
-    witnesses', ``versions`` {name: leaves}, ``exact`` among them) card-rule
-    row; where ``exact`` misses the card rule on a leaf, each version under
-    the exact-contract rule; prints and records the misses and verdicts."""
-    from perf_tools.bf16_exact_rule import card_rule, exact_rule, rule_row
+    """Every leaf of one case for each version (``versions`` {name: leaves},
+    :data:`VERSIONS`): its card-rule misses and its spread-rule misses, the
+    rule's centre ``exact`` and its E ``plain``, ``perm1``, ``perm2``;
+    prints and records them with each version's verdict."""
+    from perf_tools.bf16_exact_rule import card_rule, spread_row, spread_rule
 
-    worst = {w: [0.0, 0.0, 0.0] for w in versions}
-    misses = {w: {} for w in versions}
+    card = {w: [] for w in versions}
+    spread = {w: {} for w in versions}
     for i, (name, b, f) in enumerate(zip(names, bp, fp)):
+        x, legal = versions["exact"][i], [versions["perm1"][i], versions["perm2"][i]]
         for who, leaves in versions.items():
-            row, _ = rule_row(leaves[i], b, f)
-            worst[who] = [max(u, v) for u, v in zip(worst[who], ratios(row))]
             if not card_rule(leaves[i], b, f):
-                misses[who][name] = {"row": [float(f"{v:.4g}") for v in row],
-                                     "ratios": [float(f"{v:.3g}") for v in ratios(row)],
+                card[who].append(name)
+            if not spread_rule(leaves[i], b, f, x, legal):
+                row, atol = spread_row(leaves[i], b, f, x, legal)
+                spread[who][name] = {"row": [float(f"{v:.4g}") for v in row],
+                                     "atol": float(f"{atol:.3g}"),
                                      "entries": leaves[i].numel()}
-    exact_misses = bool(misses["exact"])
-    under_exact = {}
-    if exact_misses:
-        xs = versions["exact"]
-        for who in ("kernel", "perm", "tc"):
-            under_exact[who] = [names[i] for i, (b, f) in enumerate(zip(bp, fp))
-                                if not exact_rule(versions[who][i], b, f, xs[i])]
-    print(f"{label}: card-rule misses " + ", ".join(f"{w} {len(m)}" for w, m in misses.items())
-          + "; worst ratios (max, p99.9, vs f32; limits 1, 0.25, 1.5) "
-          + ", ".join(f"{w} {[round(v, 3) for v in worst[w]]}" for w in versions))
-    for who, m in misses.items():
+    verdicts = {w: "misses" if spread[w] else "passes" for w in versions}
+    c_needed = {w: 0.0 for w in versions}  # the least C of clauses (i)-(ii) the version holds
+    for i, (b, f) in enumerate(zip(bp, fp)):
+        x, legal = versions["exact"][i], [versions["perm1"][i], versions["perm2"][i]]
+        for who, leaves in versions.items():
+            row, atol = spread_row(leaves[i], b, f, x, legal)
+            for e, sc in ((row[0], row[3]), (row[1], row[4])):
+                if e > atol:
+                    c_needed[who] = max(c_needed[who], (e - atol) / sc if sc else float("inf"))
+    print(f"{label}: card-rule misses " + ", ".join(f"{w} {len(m)}" for w, m in card.items())
+          + "; spread-rule misses " + ", ".join(f"{w} {len(m)}" for w, m in spread.items()))
+    for who, m in spread.items():
         for name, d in m.items():
-            print(f"  {who} misses {name} ({d['entries']} entries): {json.dumps(d)}")
-    if not exact_misses:
-        verdict = VERDICTS[0] if not misses["kernel"] else VERDICTS[2]
-    else:
-        print(f"  {label}: exact misses the card rule; misses of the exact-contract rule: "
-              + json.dumps(under_exact))
-        verdict = VERDICTS[1] if not under_exact["kernel"] else VERDICTS[2]
-    print(f"  {label}: the kernel {verdict}")
-    report[label] = {"worst": {k: [float(f"{v:.4g}") for v in r] for k, r in worst.items()},
-                     "misses": misses, "exact_misses": exact_misses,
-                     "exact_rule_misses": under_exact, "verdict": verdict}
+            print(f"  {who} misses the spread rule on {name}: {json.dumps(d)}")
+    print(f"  {label}: least C per version " + json.dumps(
+        {w: float(f"{c:.3g}") for w, c in c_needed.items()}))
+    report[label] = {"card_misses": card, "spread_misses": spread, "verdicts": verdicts,
+                     "c_needed": {w: float(f"{c:.4g}") for w, c in c_needed.items()}}
 
 
 def tensor_core_linear():
@@ -239,7 +179,8 @@ def main() -> int:
     from dexnerf_tpu_torch.core.encoding import positional_encoding
     from dexnerf_tpu_torch.ops import fused_mlp_train
     from dexnerf_tpu_torch.ops import fused_train_loss as ftl
-    from perf_tools.bf16_exact_rule import exact_linear, on_linear
+    from perf_tools.bf16_exact_rule import (HELD_OUT_SEED, LEGAL_SEEDS, exact_linear,
+                                            on_linear, permuted)
     from perf_tools.kernel1_small_units import embedded
 
     dev = torch.device("cuda")
@@ -247,7 +188,8 @@ def main() -> int:
     seeds = [int(s) for s in opts.seeds.split(",")]
     only = set(opts.only.split(","))
     report = {}
-    gen = torch.Generator().manual_seed(0)
+    perm_seeds = {"perm1": LEGAL_SEEDS[0], "perm2": LEGAL_SEEDS[1], "perm3": HELD_OUT_SEED,
+                  **{f"perm{s}": s for s in EXTRA_SEEDS}}
     tc_linear, ex_linear = tensor_core_linear(), exact_linear()
 
     def under(linear, fn):
@@ -285,13 +227,15 @@ def main() -> int:
 
         got = leaves(k4_run(m, args, kw, chunk))
         bp, fp = leaves(plain(**bfkw)), leaves(plain(**kw))
-        mp, back = permuted(m, gen)
-        po = plain(mp, **bfkw)
-        pp = leaves(po, back(po[3]))
-        tc = leaves(under(tc_linear, lambda: plain(**bfkw)))
-        ex = leaves(under(ex_linear, lambda: plain(**bfkw)))
+        versions = {"kernel": got, "exact": leaves(under(ex_linear, lambda: plain(**bfkw))),
+                    "plain": bp}
+        for who, seed in perm_seeds.items():
+            mp, back = permuted(m, seed)
+            po = plain(mp, **bfkw)
+            versions[who] = leaves(po, back(po[3]))
+        versions["tc"] = leaves(under(tc_linear, lambda: plain(**bfkw)))
         names = ["loss", "weights", "rgb"] + [n for n, _ in m.named_parameters()]
-        judge(label, names, {"kernel": got, "perm": pp, "tc": tc, "exact": ex}, bp, fp, report)
+        judge(label, names, versions, bp, fp, report)
 
     def k3_plain(m, pts, vd, g):
         """raw and the leaves of the bf16 plain version (flex_forward_train)."""
@@ -323,14 +267,16 @@ def main() -> int:
                 got = [raw.detach()] + [p.grad for p in m.parameters()]
                 names = ["raw"] + [n for n, _ in m.named_parameters()]
                 bp, fp = t3._plain(m, pts, vd, g)
-                mp, back = permuted(m, gen)
-                pv = k3_plain(mp, pts, vd, g)
-                pv = [pv[0]] + back(pv[1:])
-                tc = under(tc_linear, lambda: k3_plain(m, pts, vd, g))
-                ex = under(ex_linear, lambda: k3_plain(m, pts, vd, g))
-                judge(f"k3 h{hid} {n}x{s} seed {seed}", names,
-                      {"kernel": got, "perm": pv, "tc": tc, "exact": ex}, [bp[k] for k in names],
-                      [fp[k] for k in names], report)
+                bp, fp = [bp[k] for k in names], [fp[k] for k in names]
+                versions = {"kernel": got,
+                            "exact": under(ex_linear, lambda: k3_plain(m, pts, vd, g)),
+                            "plain": bp}
+                for who, seed_p in perm_seeds.items():
+                    mp, back = permuted(m, seed_p)
+                    pv = k3_plain(mp, pts, vd, g)
+                    versions[who] = [pv[0]] + back(pv[1:])
+                versions["tc"] = under(tc_linear, lambda: k3_plain(m, pts, vd, g))
+                judge(f"k3 h{hid} {n}x{s} seed {seed}", names, versions, bp, fp, report)
         if "pad" in only:
             for s, n in ((64, 300), (7, 301)):
                 m, inp = t4._card_case(dev, dict(t4.FULL, hidden_size=320), s, n=n, seed=seed)
@@ -368,22 +314,21 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip()
     print(card)
-    cases = [k for k, r in report.items() if "verdict" in r]
-    counts = {v: sum(1 for k in cases if report[k]["verdict"] == v) for v in VERDICTS}
-    exact_cases = [k for k in cases if report[k]["exact_misses"]]
-    rule_checks = {
-        "perm_passes_the_exact_rule_where_exact_misses": all(
-            not report[k]["exact_rule_misses"]["perm"] for k in exact_cases),
-        "tc_misses_the_exact_rule_somewhere": any(
-            report[k]["exact_rule_misses"]["tc"] for k in exact_cases),
-        "kernel_misses_where_exact_passes": [
-            k for k in cases if not report[k]["exact_misses"] and report[k]["misses"]["kernel"]]}
-    print(f"exact misses the card rule in {len(exact_cases)} of {len(cases)} cases: "
-          + json.dumps(exact_cases))
-    print(f"the rule's checks: {json.dumps(rule_checks)}; the kernel's verdicts: "
-          + json.dumps(counts))
-    print(json.dumps({"verdicts": counts, "exact_misses": exact_cases, **rule_checks,
-                      **report}))
+    cases = [k for k, r in report.items() if "verdicts" in r]
+    counts = {w: {v: sum(1 for k in cases if report[k]["verdicts"][w] == v)
+                  for v in ("passes", "misses")} for w in VERSIONS}
+    checks = {
+        "held_out_perm_passes_every_case": all(report[k]["verdicts"]["perm3"] == "passes"
+                                               for k in cases),
+        "tc_misses_somewhere": any(report[k]["verdicts"]["tc"] == "misses" for k in cases),
+        "kernel_misses": [k for k in cases if report[k]["verdicts"]["kernel"] == "misses"],
+        "card_rule_kernel_misses": sum(1 for k in cases if report[k]["card_misses"]["kernel"]),
+        "card_rule_exact_misses": sum(1 for k in cases if report[k]["card_misses"]["exact"]),
+        "least_c": {w: max((report[k]["c_needed"][w] for k in cases), default=0.0)
+                    for w in VERSIONS}}
+    print(f"spread-rule verdicts over {len(cases)} cases: {json.dumps(counts)}")
+    print(f"the rule's checks: {json.dumps(checks)}")
+    print(json.dumps({"cases": len(cases), "verdicts": counts, **checks, **report}))
     return 0
 
 

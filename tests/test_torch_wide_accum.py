@@ -59,6 +59,18 @@ BF16, F32 = torch.bfloat16, torch.float32
 WIDTHS = (320, 576)
 KCHUNK, KSTEP = 64, 16  # a K-chunk (one ring piece) and a wgmma k16 step
 WHOLE_K = 10 ** 6  # the order before fresh accumulators: one over the layer's K
+# the spread rule's misses at 576, 301 x 7, seed 9 on the CPU (largest ratio to
+# its limit: held-out 2.51, kernel order 1.28, whole K 11.05)
+SPREAD_MISSES = {
+    "held_out": ["fc_feat.weight", "layers_dir.0.bias", "layers_dir.0.weight"],
+    "kernel": ["fc_feat.weight"],
+    "whole_k": ["fc_feat.bias", "fc_feat.weight", "layer1.bias", "layer1.weight",
+                "layers_dir.0.bias", "layers_dir.0.weight", "layers_xyz.0.bias",
+                "layers_xyz.0.weight", "layers_xyz.1.bias", "layers_xyz.1.weight",
+                "layers_xyz.2.bias", "layers_xyz.2.weight", "layers_xyz.3.bias",
+                "layers_xyz.3.weight", "layers_xyz.4.bias", "layers_xyz.4.weight",
+                "layers_xyz.5.bias"],
+}
 
 
 def round_rz(v: torch.Tensor) -> torch.Tensor:
@@ -279,3 +291,56 @@ def test_exact_contract_misses_the_card_rule_at_576(seed, misses):
     with on_linear(exact_linear()):
         xp = _fields(m, ftl.fused_pass_loss_reference(m, *args, **bf))
     assert [k for k in bp if not card_rule(xp[k], bp[k], fp[k])] == misses
+
+
+def test_spread_rule_at_576_on_the_cpu():
+    """The spread rule (``perf_tools/bf16_exact_rule.py::spread_rule``) on
+    the card tests' inputs at 576, 301 x 7, seed 9, rgb supervision, no
+    depth (``_card_case``, made on the CPU): E is the bf16 plain version and
+    two permutations of its hidden units (seeds 1 and 2), the centre the
+    exact contract, which holds it on every leaf. The held-out permutation
+    (seed 3), a legal order, misses it on three leaves (by up to 2.5 times
+    the limit: the spread of three legal orders does not bound a fourth's),
+    the kernel's order (a fresh accumulator every WIDE_SPAN k16 steps) on
+    one, one accumulator over the whole K (the tensor cores' order before
+    fresh accumulators) on seventeen (SPREAD_MISSES)."""
+    from perf_tools.bf16_exact_rule import (HELD_OUT_SEED, LEGAL_SEEDS, exact_linear,
+                                            on_linear, permuted, spread_rule)
+    from test_torch_train_loss_bf16 import FULL, _card_case, _fields
+
+    m, inp = _card_case(torch.device("cpu"), dict(FULL, hidden_size=576), 7, n=301, seed=9)
+    args = tuple(inp[k] for k in ("origins", "directions", "z_vals", "viewdirs", "dists",
+                                  "noise", "target"))
+    kw = dict(white_background=False, supervision="rgb")
+    bf = dict(kw, compute_dtype=BF16, dw_dtype=BF16)
+
+    def perm_fields(seed):
+        mp, back = permuted(m, seed)
+        out = ftl.fused_pass_loss_reference(mp, *args, **bf)
+        return _fields(m, (*out[:3], back(out[3])))
+
+    bp = _fields(m, ftl.fused_pass_loss_reference(m, *args, **bf))
+    fp = _fields(m, ftl.fused_pass_loss_reference(m, *args, **kw))
+    with on_linear(exact_linear()):
+        xp = _fields(m, ftl.fused_pass_loss_reference(m, *args, **bf))
+    legal = [perm_fields(seed) for seed in LEGAL_SEEDS]
+
+    def misses_of(got):
+        return sorted(k for k in bp
+                      if not spread_rule(got[k], bp[k], fp[k], xp[k], [o[k] for o in legal]))
+
+    assert misses_of(xp) == []
+    misses = {"held_out": misses_of(perm_fields(HELD_OUT_SEED)),
+              "kernel": misses_of(_fields(m, _order_pass(m, args, bf, fr.WIDE_SPAN))),
+              "whole_k": misses_of(_fields(m, _order_pass(m, args, bf, WHOLE_K)))}
+    print(f"spread-rule misses at 576, 301 x 7, seed 9: {misses}")
+    assert misses == SPREAD_MISSES
+
+
+def _order_pass(model, args, bf, span):
+    saved = ftl.flex_forward_train
+    ftl.flex_forward_train = span_forward_train(span)
+    try:
+        return ftl.fused_pass_loss_reference(model, *args, **bf)
+    finally:
+        ftl.flex_forward_train = saved
